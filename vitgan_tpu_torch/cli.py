@@ -1,0 +1,107 @@
+"""Command-line interface of the port: ``serve`` and ``generate`` over a run
+directory (utils/run_dirs.py), with the JAX CLI's flags for these commands
+(vitgan_tpu/cli.py) less ``--quantize``, and ``--device`` (default cuda).
+
+    python -m vitgan_tpu_torch.cli serve --run-dir RUN [--port 8000 --batch 64]
+    python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List, Optional
+
+
+def _overrides(args) -> dict:
+    out = {}
+    for kv in args.set or []:
+        key, val = kv.split("=", 1)
+        try:
+            out[key] = json.loads(val)
+        except json.JSONDecodeError:
+            out[key] = val  # bare string
+    return out
+
+
+def cmd_generate(args) -> int:
+    """Sample a grid from a run directory: <run>/test/generated_images.png and
+    the latents as <run>/test/noise.npy."""
+    import numpy as np
+
+    from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
+    from vitgan_tpu_torch.utils.images import make_grid, save_png
+    from vitgan_tpu_torch.utils.run_dirs import restore_run
+
+    cfg, gan, g, meta = restore_run(args.run_dir, best=args.best, overrides=_overrides(args),
+                                    device=args.device)
+    z = gan.sample_latent(latent_rng(args.seed or 0, 0), args.num_images)
+    imgs = make_sample_fn(gan, cfg)(g, z).cpu().numpy()
+    out_dir = os.path.join(args.run_dir, "test")
+    save_png(os.path.join(out_dir, "generated_images.png"), make_grid(imgs))
+    np.save(os.path.join(out_dir, "noise.npy"), z.numpy())
+    print(f"wrote {args.num_images} samples to {out_dir} (step {meta.get('step')})")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Long-lived batched sampling server (serve.py)."""
+    import signal
+
+    from vitgan_tpu_torch.serve import serve
+
+    httpd = serve(args.run_dir, host=args.host, port=args.port, batch=args.batch,
+                  best=args.best, device=args.device)
+    print(f"serving {args.run_dir} on http://{args.host}:{httpd.server_address[1]} "
+          f"(GET /healthz, /metrics, POST /sample)")
+
+    def _term(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _term)  # drain like Ctrl-C
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()  # joins in-flight handler threads
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="vitgan-tpu-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("generate", help="sample images from a run directory")
+    g.add_argument("--run-dir", required=True)
+    g.add_argument("--best", action="store_true", help="use the best checkpoint")
+    g.add_argument("--num-images", type=int, default=64)
+    g.add_argument("--seed", type=int, default=None)
+    g.add_argument("--set", action="append", metavar="dotted.key=value",
+                   help="config override, e.g. --set runtime.megablock=off")
+    g.add_argument("--device", default="cuda")
+    g.set_defaults(fn=cmd_generate)
+
+    v = sub.add_parser("serve", help="batched sampling server over HTTP")
+    v.add_argument("--run-dir", action="append", required=True,
+                   help="repeatable: several run dirs form a multi-model registry "
+                        "(POST {'model': <basename>})")
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=8000)
+    v.add_argument("--batch", type=int, default=64, help="fixed device batch per call")
+    v.add_argument("--best", action="store_true", help="use the best checkpoint")
+    v.add_argument("--device", default="cuda")
+    v.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

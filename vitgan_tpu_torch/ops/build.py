@@ -1,0 +1,157 @@
+"""Builds the port's CUDA kernels at first use and binds them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface, under ``ops/_build/`` (listed in
+.gitignore), named by a hash of the sources and flags so that an edited
+kernel is rebuilt.  Nothing here runs at import time: a CPU tensor never
+reaches this module, and this module never imports ``triton``.
+
+Every C entry takes device pointers and the stream as ``c_void_p`` and
+returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
+non-zero code.  ``LAUNCHES`` counts the launches of each kernel wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each kernel library's entry point (named as its source).
+SIGNATURES = {
+    # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, stream
+    "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, out,
+    # m, e, hd, hidden, eps, residual, stream
+    "ln_mlp_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
+    "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+}
+
+# Launch counts by wrapper.  ln_mlp_fwd.cu serves two wrappers: the plain
+# LN->MLP ("ln_mlp_fwd") and the megablock's out-projection form
+# ("proj_ln_mlp_fwd").
+LAUNCHES = {"flash_attn_fwd": 0, "ln_mlp_fwd": 0, "ln_qkv_fwd": 0, "proj_ln_mlp_fwd": 0}
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built from "
+        "vitgan_tpu_torch/ops/csrc at first use on a machine with the CUDA "
+        "toolkit; CPU tensors take the plain PyTorch versions instead")
+
+
+def lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in (f"{name}.cu", "common.cuh"):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (default: all) in parallel, one ``nvcc`` per
+    source.  Returns {name: seconds}; 0.0 for a library already built.
+    Raises RuntimeError with nvcc's output when a build fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = None
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if os.path.exists(out):
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = f"{out}.{os.getpid()}.tmp"
+        log = open(os.path.join(BUILD_DIR, f"{name}.log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       log, tmp, out, time.perf_counter())
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, log, tmp, out, t0) in procs.items():
+        rc = proc.wait()
+        seconds[name] = time.perf_counter() - t0
+        log.close()
+        if rc == 0:
+            os.replace(tmp, out)  # atomic: another process building too sees all or nothing
+        else:
+            failed.append(f"{name} (nvcc rc {rc}):\n{build_log(name)}")
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas registers, shared memory, spills) of the last build."""
+    path = os.path.join(BUILD_DIR, f"{name}.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def entry(name: str):
+    """The bound C entry point of kernel library ``name``, built if needed."""
+    with _LOCK:
+        fn = _LIBS.get(name)
+        if fn is None:
+            path = lib_path(name)
+            if not os.path.exists(path):
+                build([name])
+            lib = ctypes.CDLL(path)
+            fn = getattr(lib, name)
+            fn.argtypes = SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            err = lib.kernel_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            fn.error_string = err
+            _LIBS[name] = fn
+    return fn
+
+
+def check(fn, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {code}: "
+                           f"{fn.error_string(code).decode()}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def aligned16(t):
+    """``t`` if its base address is 16-byte aligned (the kernels copy 16 bytes
+    at a time), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
