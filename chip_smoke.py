@@ -24,6 +24,28 @@
    runtime.megablock=off: one seeded npy request over HTTP, whose flash and
    LN->MLP kernels must have launched 12 times per device call, held against
    the megablock route's answer to the same request.
+7. Holds the three flash-attention backward kernels (single-pass, dq, dk/dv)
+   against their plain versions at the generator's shape (32, 6, 1024, 64),
+   the discriminator's (64, 6, 1025, 64), a ragged (2, 3, 257, 64) and a long
+   (1, 1, 16385, 64) shape, each output within 2e-2 of its own max|plain|;
+   times each beside its bound, its plain version and PyTorch's
+   scaled_dot_product_attention backward (library_ms).
+8. Under the default runtime.megablock=auto, a highres128 training block on
+   the card raises naming ROADMAP.md: the JAX package's gate routes it
+   through the megablock's training kernels, which are not ported.
+9. Trains highres128 with runtime.megablock=off through Trainer (the entry
+   point of `cli train`) on a 256-sample synthetic dataset at batch 32 in
+   bf16 with dropout 0.1 and DiffAugment color,translation: 2 warm-up steps,
+   then 5 timed steps by Trainer.fit, whose kernel launches per step must be
+   flash forward 36, single-pass backward 12, dq 24, dk/dv 24, LN->MLP 36 and
+   LN->qkv 0.  The losses must be finite and the parameters must have moved;
+   torch.profiler splits 2 more steps' device time by kernel group.  The run
+   directory fit writes is restored by restore_run, answers one
+   `cli generate` and one HTTP request of the server `cli serve` starts.
+10. Runs one megablock=off train step at full width and batch 8, dropout 0,
+   with the same state, batch, latents and augment draws, on the kernel route
+   and on use_pallas=never, and holds losses, gradient norms and every
+   gradient leaf of the two against each other.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -46,9 +68,11 @@ import urllib.request
 SEED = 0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-# Kernel vs plain version, both bf16 out: |kernel - plain| <= KERNEL_RTOL *
-# max(1, max|plain|).  The kernels round the LN output, the GELU output and
-# the softmax probabilities to bf16 before the next product, where the plain
+# Forward kernel vs plain version, both bf16 out: |kernel - plain| <=
+# KERNEL_RTOL * max(1, max|plain|); a backward kernel's output, whose values
+# lie well under 1, within KERNEL_RTOL * max|plain| of its own.  The kernels
+# round the LN output, the GELU output and the softmax probabilities (in the
+# backward P and dS) to bf16 before the next product, where the plain
 # versions keep f32, and both round the result to bf16 (2**-8 relative).
 # Where the output carries the residual x, the relative part scales with
 # max|plain - x| (the block's own term, so a dropped bias or product shows)
@@ -59,6 +83,12 @@ BF16_ULP = 2.0 ** -7
 # Generator routes, images in [-1, 1]: bf16 activations round differently on
 # each route over 12 blocks.  Bounds: max |d| <= 0.0625, mean |d| <= 0.01.
 IMAGE_MAX_TOL, IMAGE_MEAN_TOL = 0.0625, 0.01
+# Train step, kernel route against the plain route, both bf16, from one state
+# on one batch: the kernels round P, dS, the LN output and the GELU output to
+# bf16 where the plain versions keep f32, through 12 blocks of G and of D and
+# back.  Losses within LOSS_TOL absolute; gradient norms within NORM_RTOL
+# relative; every gradient leaf within LEAF_RTOL * max|plain leaf|.
+LOSS_TOL, NORM_RTOL, LEAF_RTOL = 2e-2, 5e-2, 1e-1
 
 
 def _smi() -> str:
@@ -87,7 +117,7 @@ def _bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _err(got, want, what: str, residual=None) -> float:
+def _err(got, want, what: str, residual=None, own_scale: bool = False) -> float:
     import torch
 
     torch.cuda.synchronize()
@@ -97,12 +127,14 @@ def _err(got, want, what: str, residual=None) -> float:
         raise AssertionError(f"{what}: non-finite kernel output")
     err = (got.float() - want.float()).abs().max().item()
     peak = want.float().abs().max().item()
-    if residual is None:
+    if own_scale:
+        tol = KERNEL_RTOL * peak
+    elif residual is None:
         tol = KERNEL_RTOL * max(1.0, peak)
     else:
         own = (want.float() - residual.float()).abs().max().item()
         tol = KERNEL_RTOL * max(1.0, own) + BF16_ULP * peak
-    print(f"  {what}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
+    print(f"  {what}: max_abs_err {err:.6g} (tolerance {tol:.6g}, max|plain| {peak:.6g})")
     if not err <= tol:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
     return err
@@ -443,6 +475,370 @@ def compare_routes(httpd) -> dict:
     return {"call_ms": ms, "launches_megablock_off": off, "errors": errs}
 
 
+BWD_SHAPES = (("G", (32, 6, 1024, 64)), ("D", (64, 6, 1025, 64)), ("ragged", (2, 3, 257, 64)),
+              ("long", (1, 1, 16385, 64)))
+# The shape at which each backward kernel runs on the train step's main path.
+BWD_MAIN_SHAPE = {"flash_attn_bwd_fused": "G", "flash_attn_bwd_dq": "D",
+                  "flash_attn_bwd_dkv": "D"}
+
+
+def check_bwd_kernels() -> dict:
+    """The three backward kernels against their plain versions on the same
+    q, k, v, o, LSE and dO at BWD_SHAPES, timed beside their bounds, their
+    plain versions and SDPA's backward.  Returns {name: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    # products per kernel (2*N*N*Dh flops each) and the tensors it writes
+    kernels = {"flash_attn_bwd_fused": (A.flash_backward_fused, A.flash_bwd_fused_reference, 5, 3),
+               "flash_attn_bwd_dq": (A.flash_backward_dq, A.flash_bwd_dq_reference, 3, 1),
+               "flash_attn_bwd_dkv": (A.flash_backward_dkv, A.flash_bwd_dkv_reference, 4, 2)}
+    out = {name: {} for name in kernels}
+    for label, shape in BWD_SHAPES:
+        b, h, n, dh = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = A.flash_forward(q, k, v, float(dh))
+        print(f"[bwd kernels] {label}: B {b} H {h} N {n} Dh {dh}")
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+        library = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,  # noqa: E731
+                                              retain_graph=True)
+        library_ms = _time_ms(library, 5 if n > 8192 else 20)
+        elem = b * h * n * dh * 2
+        for name, (kern, plain, products, writes) in kernels.items():
+            args = (q, k, v, o, lse, do, float(dh))
+            got, want = kern(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
+                      for i, (g_, w_) in enumerate(zip(got, want)))
+            del got, want
+            bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
+                                        (5 + writes) * elem + b * h * n * 4)
+            rec = {"max_abs_err": err, "ms": _time_ms(lambda: kern(*args), 5 if n > 8192 else 20),
+                   "plain_ms": _time_ms(lambda: plain(*args), 2), "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+            torch.cuda.empty_cache()
+            print(f"  {name} {label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, SDPA "
+                  f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by})")
+            if label == BWD_MAIN_SHAPE[name]:
+                out[name].update(rec)
+            else:
+                out[name][f"{label}_max_abs_err"] = err
+                out[name][f"{label}_ms"] = rec["ms"]
+        del q, k, v, do, o, lse, qg, kg, vg, sdpa_out, library
+        torch.cuda.empty_cache()
+    return out
+
+
+TRAIN = "[train megablock=off]"
+TRAIN_KERNELS = {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24,
+                 "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36}
+
+
+def check_training_gate() -> None:
+    """Under the default runtime.megablock=auto the JAX package's gate sends
+    highres128's training blocks (G's 1,024 tokens, D's 1,025) through the
+    megablock's training kernels; on the card the port raises there, naming
+    ROADMAP.md, and takes no other path."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models.vitgan_v2 import EncoderBlock
+    from vitgan_tpu_torch.ops.fused_block import maybe_megablock
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+
+    cfg = C.highres_config(128)
+    m = cfg.v2
+    with torch.device("meta"):
+        block = EncoderBlock(m, None)
+    saved = get_policy()
+    try:
+        set_policy(mode="auto", megablock="auto")
+        for n in (1024, 1025):
+            x = torch.empty((m.batch_size, n, m.embed_dim), dtype=torch.bfloat16, device="cuda")
+            try:
+                maybe_megablock(block, x, m, train=True)
+            except NotImplementedError as e:
+                if "ROADMAP.md" not in str(e):
+                    raise
+                print(f"[train gate] megablock=auto, N {n}: raises: {e}")
+            else:
+                raise AssertionError(f"megablock=auto took a path for a training block, N {n}")
+        set_policy(megablock="off")
+        if maybe_megablock(block, x, m, train=True) is not None:
+            raise AssertionError("megablock=off routed a training block")
+    finally:
+        set_policy(mode=saved["mode"], megablock=saved["megablock"])
+
+
+def train_main_path(run_dir: str) -> tuple:
+    """highres128 with runtime.megablock=off through Trainer: 2 warm-up
+    steps, 5 timed steps by fit, the run directory restored and one
+    `cli generate`."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import count_params
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.serve import serve
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+    from vitgan_tpu_torch.utils.run_dirs import restore_run
+
+    steps = 5
+    cfg = C.replace(C.highres_config(128), **{
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 1,
+        "run.steps_per_epoch": steps, "run.log_every_steps": 0, "runtime.megablock": "off"})
+    m = cfg.v2
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    st = trainer.state
+    print(f"{TRAIN} highres128: batch {m.batch_size}, {cfg.runtime.compute_dtype}, dropout "
+          f"{m.dropout}, augment {cfg.run.diff_augment!r}, loss {m.loss}; G {count_params(st.g)} "
+          f"D {count_params(st.d)} parameters; set up in {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().cpu().clone() for p in (*st.g.parameters(), *st.d.parameters())]
+    t0 = time.perf_counter()
+    for idx in trainer.batches()[:2]:  # warm-up
+        warm = host_metrics(trainer.train_step(st, trainer.real_batch(idx)))
+    print(f"{TRAIN} 2 warm-up steps in {time.perf_counter() - t0:.2f} s: {warm}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    # --- the main path ---
+    means = trainer.fit()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    # --- end of the main path ---
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    img_s = means["images_per_sec"]  # fit's clock: the steps and the epoch's metric readback
+    ms = 1e3 * m.batch_size / img_s
+    print(f"{TRAIN} {steps} steps by Trainer.fit: {ms:.1f} ms/step, {img_s:.2f} img/s "
+          f"({sec:.3f} s with the run directory's write), peak {peak / 2**30:.2f} GiB allocated")
+    print(f"{TRAIN} epoch means: {means}")
+    print(f"{TRAIN} launches over {steps} steps: {launches}")
+    for name, n in launches.items():
+        want = TRAIN_KERNELS.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"train step: {name} launched {n} times, expected {want}")
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
+                                                 "g_grad_norm")):
+        raise AssertionError(f"non-finite train metrics: {means}")
+    after = [p.detach().cpu() for p in (*st.g.parameters(), *st.d.parameters())]
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    print(f"{TRAIN} {moved} of {len(after)} parameter tensors moved")
+    if moved != len(after):
+        raise AssertionError("some parameters did not move")
+    del before, after
+    breakdown = train_breakdown(trainer, ms)
+    del trainer, st
+    torch.cuda.empty_cache()
+    rcfg, _, g, meta = restore_run(run_dir, device="cuda")
+    if meta.get("step") != 2 + steps or rcfg.v2 != m:
+        raise AssertionError(f"restored run: meta {meta}")
+    del g
+    if cli.main(["generate", "--run-dir", run_dir, "--num-images", "16", "--seed", "3"]) != 0:
+        raise AssertionError("cli generate failed")
+    z = np.load(os.path.join(run_dir, "test", "noise.npy"))
+    png = os.path.join(run_dir, "test", "generated_images.png")
+    with open(png, "rb") as f:
+        h, w = _png_shape(f.read())
+    if z.shape != (16, m.latent_dim) or (h, w) != (4 * 130 + 2, 4 * 130 + 2):
+        raise AssertionError(f"cli generate wrote {z.shape} latents, a {h}x{w} grid")
+    print(f"{TRAIN} restored step {meta['step']} and `cli generate` wrote a {h}x{w} grid")
+    httpd = serve(run_dir, host="127.0.0.1", port=0, batch=8)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        status, _, body, req_ms = _post(f"http://127.0.0.1:{httpd.server_address[1]}",
+                                        {"n": 4, "seed": 1, "format": "npy"})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    arr = np.load(io.BytesIO(body))
+    if status != 200 or arr.shape != (4, 128, 128, 3) or not np.isfinite(arr).all():
+        raise AssertionError(f"serving the trained run directory: {status} {arr.shape}")
+    print(f"{TRAIN} the trained run directory served POST npy n=4 in {req_ms:.1f} ms")
+    return launches, {"ms_per_step": ms, "img_per_s": img_s, "peak_allocated_bytes": peak,
+                      "means": means, "breakdown": breakdown}
+
+
+# Kernel names of the port, by the substring of their CUDA symbol.
+PORT_KERNELS = (("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
+                ("flash_bwd_dq_kernel", "flash backward dq"),
+                ("scale_cast_kernel", "flash single-pass dq scale-and-cast"),
+                ("flash_attn_fwd_kernel", "flash forward"), ("ln_mlp", "LN->MLP forward"))
+
+
+def _kernel_group(name: str) -> str:
+    for key, label in PORT_KERNELS:
+        if key in name:
+            return label
+    low = name.lower()
+    if "gemm" in low or "xmma" in low or "cutlass" in low or "sm90" in low:
+        return "library matrix products (cuBLAS/CUTLASS)"
+    if "multi_tensor" in low or "adam" in low:
+        return "optimizer"
+    return "other elementwise and reductions"
+
+
+def train_breakdown(trainer, step_ms: float) -> dict:
+    """Where a train step's device time goes: torch.profiler over 2 steps,
+    kernel time summed by group, and the device's idle share of the wall
+    time; then the LN->MLP recompute backward alone at the step's three row
+    counts: the autograd Function's backward as the port runs it (the plain
+    forward recomputed and differentiated, TF32 products), and the same
+    forward and backward of the plain version in full f32."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    st = trainer.state
+    batches = trainer.batches()[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for idx in batches:
+            trainer.train_step(st, trainer.real_batch(idx))
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    rows = [(e.key, e.self_device_time_total / 1e3 / len(batches), e.count // len(batches))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {"profiled_wall_ms_per_step": wall_ms}
+    if not rows or sum(r[1] for r in rows) == 0:
+        print("[breakdown] the profiler recorded no device time: not measured")
+    else:
+        busy = sum(r[1] for r in rows)
+        groups: dict = {}
+        for name, t, _ in rows:
+            groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + t
+        print(f"[breakdown] per step under the profiler: wall {wall_ms:.1f} ms, device busy "
+              f"{busy:.1f} ms; idle {100 * (1 - busy / step_ms):.1f}% of the unprofiled "
+              f"{step_ms:.1f} ms step ({100 * (1 - busy / wall_ms):.1f}% of the profiled one)")
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"  {g}: {t:.2f} ms ({100 * t / busy:.1f}%)")
+        print("[breakdown] top kernels per step (ms, launches):")
+        for name, t, n in sorted(rows, key=lambda r: -r[1])[:15]:
+            print(f"  {t:8.3f} ms {n:5d}  {name[:110]}")
+        out.update({"device_busy_ms_per_step": busy, "idle_share": 1 - busy / step_ms,
+                    "idle_share_profiled": 1 - busy / wall_ms, "groups_ms_per_step": groups})
+    # LN->MLP's recompute backward (autograd of the plain version) at the
+    # step's row counts: G, D on [real; fake], D on fake.
+    cfg = trainer.cfg.v2
+    e, hidden = cfg.embed_dim, cfg.embed_dim * cfg.mlp_ratio
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_tok = (cfg.image_size // cfg.patch_size) ** 2
+    recompute = {}
+    for mode in ("tf32", "f32"):
+        total = 0.0
+        for rows_ in (cfg.batch_size * n_tok, 2 * cfg.batch_size * (n_tok + 1),
+                      cfg.batch_size * (n_tok + 1)):
+            x = torch.randn((rows_, e), generator=gen, device="cuda").to(torch.bfloat16)
+            w = [torch.randn(s, generator=gen, device="cuda") * sc for s, sc in
+                 (((e,), 0.1), ((e,), 0.1), ((e, hidden), 0.02), ((hidden,), 0.1),
+                  ((hidden, e), 0.02), ((e,), 0.1))]
+            leaves = [x.requires_grad_(), *(t.requires_grad_() for t in w)]
+            y = FM.fused_ln_mlp(*leaves, "gelu", 1e-5, False)
+            gy = torch.randn_like(y)
+            if mode == "tf32":
+                total += _time_ms(lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True), 3)
+            else:
+                total += _time_ms(lambda: torch.autograd.grad(
+                    FM._reference(*leaves, "gelu", 1e-5, False), leaves, gy), 3)
+            del x, w, leaves, y, gy
+        recompute[mode] = cfg.depth * total
+    print(f"[breakdown] LN->MLP recompute backward per step (12 blocks x 3 row counts): "
+          f"{recompute['tf32']:.1f} ms with TF32 products (the port's), {recompute['f32']:.1f} "
+          f"ms in full f32")
+    out["ln_mlp_recompute_ms_per_step"] = recompute
+    return out
+
+
+def compare_train_routes() -> dict:
+    """One megablock=off step at full width, batch 8, dropout 0, from the same
+    state, batch, latents and augment draws, on the kernel route and on
+    use_pallas=never."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.data.datasets import synthetic_dataset
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.augment import draw_augment
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import latent_rng
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+
+    cfg = C.replace(C.highres_config(128), **{"v2.batch_size": 8, "v2.dropout": 0.0,
+                                              "runtime.megablock": "off"})
+    gan = build_gan(cfg)
+    images, _ = synthetic_dataset(8, 128, 3, seed=SEED)
+    real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
+    z = gan.sample_latent(latent_rng(SEED, 0), 8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    probe = real.to(torch.bfloat16)
+    draws = {key: draw_augment(gen, probe, cfg.run.diff_augment)
+             for key in ("aug_real", "aug_fake", "aug_g")}
+    saved = get_policy()
+    res = {}
+    try:
+        for route, mode in (("kernels", "auto"), ("plain", "never")):
+            set_policy(mode=mode, megablock="off")
+            state = create_train_state(gan, cfg, device="cuda")
+            step = make_train_step(gan, cfg)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            metrics = host_metrics(step(state, real, z=z, draws=draws))
+            sec = time.perf_counter() - t0
+            res[route] = (metrics, [p.grad.float() for p in (*state.g.parameters(),
+                                                             *state.d.parameters())],
+                          [f"g.{n}" for n, _ in state.g.named_parameters()]
+                          + [f"d.{n}" for n, _ in state.d.named_parameters()])
+            print(f"[train routes] {route}: {sec:.2f} s, launches {dict(build.LAUNCHES)}, "
+                  f"metrics {metrics}")
+            if route == "plain" and any(build.LAUNCHES.values()):
+                raise AssertionError("the plain route launched a kernel")
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        set_policy(mode=saved["mode"], megablock=saved["megablock"])
+    (mk, gk, names), (mp, gp, _) = res["kernels"], res["plain"]
+    out = {}
+    for key in ("d_loss", "g_loss"):
+        out[key] = abs(mk[key] - mp[key])
+        print(f"[train routes] {key}: kernels {mk[key]:.6f} plain {mp[key]:.6f} "
+              f"(|d| {out[key]:.3g}, tolerance {LOSS_TOL})")
+        if not out[key] <= LOSS_TOL:
+            raise AssertionError(f"{key} differs between the routes")
+    for key in ("d_grad_norm", "g_grad_norm"):
+        out[key] = abs(mk[key] - mp[key]) / mp[key]
+        print(f"[train routes] {key}: kernels {mk[key]:.6f} plain {mp[key]:.6f} "
+              f"(relative {out[key]:.3g}, tolerance {NORM_RTOL})")
+        if not out[key] <= NORM_RTOL:
+            raise AssertionError(f"{key} differs between the routes")
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, gk, gp):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_name = rel, name
+    out["worst_leaf_rel"], out["worst_leaf"] = worst, worst_name
+    print(f"[train routes] {len(names)} gradient leaves: worst max|d| / max|plain| {worst:.4g} "
+          f"at {worst_name} (tolerance {LEAF_RTOL})")
+    if not worst <= LEAF_RTOL:
+        raise AssertionError("a gradient leaf differs between the routes")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -472,6 +868,7 @@ def main() -> int:
     records = check_kernels()
     run_dir = os.path.join(root, "build", "chip_smoke_run")
     off_dir = os.path.join(root, "build", "chip_smoke_run_megablock_off")
+    train_dir = os.path.join(root, "build", "chip_smoke_train")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -480,9 +877,15 @@ def main() -> int:
             httpd.shutdown()
             httpd.server_close()
         off_launches = serve_megablock_off(run_dir, off_dir, seeded)
+        del httpd
+        torch.cuda.empty_cache()
+        records.update(check_bwd_kernels())
+        check_training_gate()
+        train_launches, train = train_main_path(train_dir)
+        train["routes"] = compare_train_routes()
     finally:
-        shutil.rmtree(run_dir, ignore_errors=True)
-        shutil.rmtree(off_dir, ignore_errors=True)
+        for d in (run_dir, off_dir, train_dir):
+            shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
     meta = {
@@ -494,6 +897,12 @@ def main() -> int:
                        launches["ln_qkv_fwd"]),
         "proj_ln_mlp_fwd": ("ln_mlp_fwd.cu", "vitgan_tpu/ops/fused_block.py:408",
                             launches["proj_ln_mlp_fwd"]),
+        "flash_attn_bwd_fused": ("flash_attn_bwd_fused.cu", "vitgan_tpu/ops/attention.py:606",
+                                 train_launches["flash_attn_bwd_fused"]),
+        "flash_attn_bwd_dq": ("flash_attn_bwd_dq.cu", "vitgan_tpu/ops/attention.py:701",
+                              train_launches["flash_attn_bwd_dq"]),
+        "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
+                               train_launches["flash_attn_bwd_dkv"]),
     }
     kernels = []
     for name, (src, replaces, n_launch) in meta.items():
@@ -502,7 +911,11 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces, "launches": n_launch, **records[name]})
     kernels[0]["launches_megablock_off"] = off_launches["flash_attn_fwd"]
+    for k in kernels:
+        if k["name"] in ("flash_attn_fwd", "ln_mlp_fwd"):
+            k["launches_train"] = train_launches[k["name"]]
     print(json.dumps({"routes": routes}))
+    print(json.dumps({"train": train}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

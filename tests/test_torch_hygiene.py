@@ -41,8 +41,9 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120, check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
-    assert "vitgan_tpu_torch.serve" in res["imported"]
-    assert "vitgan_tpu_torch.ops.fused_block" in res["imported"]
+    for name in ("serve", "ops.fused_block", "train.step", "train.trainer", "ops.augment",
+                 "data.datasets"):
+        assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"
     assert res["libs"] == 0  # no kernel library built or loaded at import

@@ -1,9 +1,19 @@
-"""Command-line interface of the port: ``serve`` and ``generate`` over a run
-directory (utils/run_dirs.py), with the JAX CLI's flags for these commands
-(vitgan_tpu/cli.py) less ``--quantize``, and ``--device`` (default cuda).
+"""Command-line interface of the port: ``train``, and ``serve`` and
+``generate`` over a run directory (utils/run_dirs.py), with the JAX CLI's
+flags for these commands (vitgan_tpu/cli.py) that the port carries, and
+``--device`` (default cuda).
 
+    python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
     python -m vitgan_tpu_torch.cli serve --run-dir RUN [--port 8000 --batch 64]
     python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0]
+
+``train`` writes the run directory to ``--run-dir``, else
+$SCRATCH/output/<run name> (./output/<run name> without SCRATCH).  DEV=1
+shrinks a preset-less run to the smoke config, as in the JAX CLI.  On the
+card, a preset whose training blocks the JAX package's megablock gate takes
+(highres128, deit64) raises under the default runtime.megablock=auto, naming
+ROADMAP.md; ``--set runtime.megablock=off`` trains it on the flash and
+LN->MLP kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +34,44 @@ def _overrides(args) -> dict:
         except json.JSONDecodeError:
             out[key] = val  # bare string
     return out
+
+
+PRESETS = ("deit64", "highres128", "highres256")
+
+
+def build_cfg(args):
+    """The preset (or DEV=1's smoke config, or the family's defaults) with the
+    command line's overrides (vitgan_tpu/cli.py:_build_cfg)."""
+    from vitgan_tpu_torch import config as C
+
+    if args.preset:
+        cfg = {"deit64": C.deit64_config, "highres128": lambda: C.highres_config(128),
+               "highres256": lambda: C.highres_config(256)}[args.preset]()
+    elif os.environ.get("DEV", "").lower() in ("1", "true", "yes"):
+        cfg = C.smoke_config(args.family)
+    else:
+        cfg = C.ExperimentConfig(family=args.family)
+    over = _overrides(args)
+    if args.dataset:
+        over["data.dataset"] = args.dataset
+    if args.epochs is not None:
+        over["run.epochs"] = args.epochs
+    if args.run_name:
+        over["run_name"] = args.run_name
+    return C.replace(cfg, **over) if over else cfg
+
+
+def cmd_train(args) -> int:
+    """Train and write the run directory (train/trainer.py)."""
+    import logging
+
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    trainer = Trainer(build_cfg(args), run_dir=args.run_dir, device=args.device)
+    means = trainer.fit()
+    print(json.dumps({"run_dir": trainer.run_dir, "step": trainer.state.step, **means}))
+    return 0
 
 
 def cmd_generate(args) -> int:
@@ -74,6 +122,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vitgan-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a GAN and write its run directory")
+    t.add_argument("--preset", choices=PRESETS, default=None)
+    t.add_argument("--family", default="v2")
+    t.add_argument("--dataset", default=None, help="synthetic (others: ROADMAP.md)")
+    t.add_argument("--epochs", type=int, default=None)
+    t.add_argument("--run-name", default=None)
+    t.add_argument("--run-dir", default=None, help="where to write the run directory")
+    t.add_argument("--set", action="append", metavar="dotted.key=value",
+                   help="config override, e.g. --set run.steps_per_epoch=5")
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=cmd_train)
 
     g = sub.add_parser("generate", help="sample images from a run directory")
     g.add_argument("--run-dir", required=True)

@@ -1,10 +1,11 @@
 """Configuration tree of the PyTorch port.
 
-The port's own copy of the parts of ``vitgan_tpu.config`` that the serving
-slice reads.  Field names, defaults and the JSON layout are the JAX package's,
-so a JAX run's ``config.json`` loads here unchanged: ``from_dict`` skips the
-sections and fields this copy does not carry (mesh, data, run, the other model
-families), and the JAX package reads the port's ``config.json`` the same way.
+The port's own copy of the parts of ``vitgan_tpu.config`` that the serving and
+training slices read.  Field names, defaults and the JSON layout are the JAX
+package's, so a JAX run's ``config.json`` loads here unchanged: ``from_dict``
+skips the sections and fields this copy does not carry (mesh, the other model
+families, the trainer's checkpoint/FID/collapse settings), and the JAX package
+reads the port's ``config.json`` the same way.
 """
 
 from __future__ import annotations
@@ -77,7 +78,36 @@ class RuntimeConfig:
     # auto | always | never: 'auto' takes a kernel where the tensor is on CUDA
     # and the shape lies inside the kernel's gate (ops/policy.py).
     use_pallas: str = "auto"
+    # False/'never' | True/'full' | 'dots' | 'attn'.  Recorded, not applied:
+    # the port keeps every block's activations (ROADMAP.md queue 1 item 12).
+    remat: object = False
+    # Flash backward: 'fused' single pass, 'two_pass' dq then dk/dv, 'auto'
+    # as the JAX package decides (ops/attention.backward_route).
+    bwd_fusion: str = "auto"  # auto | fused | two_pass
     megablock: str = "auto"  # off | on | auto (ops/fused_block.maybe_megablock)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The data settings the port reads (the JAX schema has more)."""
+
+    dataset: str = "cifar10"  # cifar10 | mnist | synthetic; the port loads synthetic only
+    shuffle: bool = True
+    drop_last: bool = True
+    augment_flip: bool = False
+    synthetic_samples: int = 2048  # dataset size when dataset == "synthetic"
+
+
+@dataclass(frozen=True)
+class TrainRunConfig:
+    """The trainer settings the port reads (the JAX schema has more)."""
+
+    epochs: int = 500
+    steps_per_epoch: Optional[int] = None  # None => full dataset pass
+    log_every_steps: int = 50
+    diff_augment: str = ""  # DiffAugment spec for D inputs, e.g. "color,translation"
+    ema_decay: float = 0.0  # >0 keeps an EMA copy of G params
+    abort_on_nan: bool = True  # non-finite losses stop the run
 
 
 @dataclass(frozen=True)
@@ -87,6 +117,9 @@ class ExperimentConfig:
     family: str = "v2"
     v2: V2Config = field(default_factory=V2Config)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    run: TrainRunConfig = field(default_factory=TrainRunConfig)
+    run_name: Optional[str] = None  # default: timestamp
 
     @property
     def model(self):
@@ -159,6 +192,7 @@ def deit64_config() -> ExperimentConfig:
         "v2.num_heads": 3,
         "v2.mlp_ratio": 4,
         "v2.patch_size": 4,
+        "run.diff_augment": "color,translation,cutout",
     })
 
 
@@ -176,16 +210,21 @@ def highres_config(image_size: int = 128) -> ExperimentConfig:
         "v2.patch_size": 8 if image_size == 256 else 4,
         "v2.batch_size": 32,
         "v2.latent_dim": 256,
+        "runtime.remat": "attn",
+        "run.diff_augment": "color,translation",
     })
 
 
 def smoke_config(family: str = "v2") -> ExperimentConfig:
-    """Tiny CPU-runnable config: depth 2, embed 32, 2 heads, latent 16."""
-    return replace(ExperimentConfig(family=family), **{
+    """Tiny CPU-runnable config: depth 2, embed 32, 2 heads, latent 16,
+    synthetic data, 1 epoch of 2 steps."""
+    return replace(ExperimentConfig(family=family, data=DataConfig(dataset="synthetic")), **{
         "v2.batch_size": 8,
         "v2.embed_dim": 32,
         "v2.depth": 2,
         "v2.num_heads": 2,
         "v2.latent_dim": 16,
+        "run.epochs": 1,
+        "run.steps_per_epoch": 2,
         "runtime.use_pallas": "never",
     })

@@ -1,9 +1,9 @@
-"""Model registry of the port: the v2 family's generator for now.
+"""Model registry of the port: the v2 family.
 
 Counterpart of vitgan_tpu/models/__init__.py.  ``build_gan`` binds a family
-to its config; ``generator_init`` draws a generator's weights from an explicit
-``torch.Generator``; ``sample_latent`` draws its input noise on the host
-(train/sample.py says why from numpy's Philox).
+to its config; ``generator_init`` and ``discriminator_init`` draw weights from
+an explicit ``torch.Generator``; ``sample_latent`` draws the generator's input
+noise on the host (train/sample.py says why from numpy's Philox).
 """
 
 from __future__ import annotations
@@ -29,11 +29,25 @@ class GANBundle:
     cfg: V2Config
     latent_dim: int
     image_shape: Tuple[int, int, int]  # (H, W, C)
+    # True when D carries batch statistics: the train step then runs real and
+    # fake through separate forwards.  The v2 ViT discriminator has none, so
+    # it scores the concatenated [real; fake] batch in one forward.
+    d_has_batch_stats: bool = False
 
     def generator_init(self, generator: Optional[torch.Generator], device="cuda"):
         from vitgan_tpu_torch.models.vitgan_v2 import Generator
 
         return Generator(self.cfg, generator, device=device)
+
+    def discriminator_init(self, generator: Optional[torch.Generator], device="cuda"):
+        from vitgan_tpu_torch.models.vitgan_v2 import Discriminator
+
+        return Discriminator(self.cfg, generator, device=device)
+
+    def discriminator_apply(self, d, images: torch.Tensor, train: bool = False,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Raw logits (B,) of the discriminator module ``d``."""
+        return d(images, train=train, generator=generator)
 
     def sample_latent(self, rng: np.random.Generator, batch: int) -> torch.Tensor:
         """Fresh generator input noise: N(0, 1) float32 on the CPU."""

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from vitgan_tpu_torch.ops.attention import dispatch_attention
+from vitgan_tpu_torch.ops.policy import same_device
 
 
 def trunc_normal(shape, std: float, bound: float,
@@ -71,14 +72,18 @@ def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout; identity unless training with rate > 0."""
+    """Inverted dropout; identity unless training with rate > 0.  The mask is
+    drawn on x's device, from a generator on that device."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode requires a torch.Generator")
+    if not same_device(generator, x):
+        raise ValueError(f"dropout draws on x's device {x.device}, the generator is on "
+                         f"{generator.device}")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
-    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MHSA(nn.Module):

@@ -1,9 +1,11 @@
-"""v2 ViT-GAN generator: latent -> token grid -> encoder stack -> pixels.
+"""v2 ViT-GAN: the generator (latent -> token grid -> encoder stack -> pixels)
+and the ViT discriminator (patches + CLS -> encoder stack -> tanh head -> logit).
 
 Counterpart of vitgan_tpu/models/vitgan_v2.py (patchify/unpatchify 39-53,
-the pre-LN encoder block 89-127, generator_init/generator_apply 237-268).
-Parameter names and layouts are the JAX tree's.  The discriminator comes
-with the training slice (ROADMAP.md).
+the pre-LN encoder block 89-127, vit_init/vit_encode/vit_apply and
+minibatch_std_feature 130-229, generator_init/generator_apply 237-268,
+discriminator_init/discriminator_apply 271-284).  Parameter names and layouts
+are the JAX tree's.
 """
 
 from __future__ import annotations
@@ -97,3 +99,70 @@ class Generator(nn.Module):
         x = L.layer_norm(self.ln, x)
         pix = torch.tanh(L.dense(self.to_pixels, x))
         return unpatchify(pix, cfg.patch_size, cfg.image_size, cfg.channels)
+
+
+class Discriminator(nn.Module):
+    """ViT scoring real/fake with one logit (vit_init, vitgan_v2.py:130-150):
+    embed (patch_dim -> E), pos (N, E), cls (1, 1, E), blocks, ln, head_fc1
+    (E + head_extra -> E; head_extra 1 with minibatch_std) and head_fc2 (E -> 1).
+    Drawn on the CPU from ``generator`` and moved to ``device``, as Generator."""
+
+    def __init__(self, cfg: V2Config, generator: Optional[torch.Generator], device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        n_patches = (cfg.image_size // cfg.patch_size) ** 2
+        patch_dim = cfg.patch_size ** 2 * cfg.channels
+        head_extra = 1 if cfg.minibatch_std else 0
+        self.embed = L.Dense(patch_dim, cfg.embed_dim, generator)
+        self.pos = nn.Parameter(L.trunc_normal((n_patches, cfg.embed_dim), 0.02, 2.0, generator))
+        self.cls = nn.Parameter(L.trunc_normal((1, 1, cfg.embed_dim), 0.02, 2.0, generator))
+        self.blocks = nn.ModuleList(EncoderBlock(cfg, generator) for _ in range(cfg.depth))
+        self.ln = L.LayerNorm(cfg.embed_dim)
+        self.head_fc1 = L.Dense(cfg.embed_dim + head_extra, cfg.embed_dim, generator)
+        self.head_fc2 = L.Dense(cfg.embed_dim, 1, generator)
+        self.to(device)
+
+    def forward(self, images: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images (B, H, W, C) -> logits (B,) in the images' dtype."""
+        logits = vit_apply(self, images, self.cfg, train=train, generator=generator,
+                           with_mbstd=self.cfg.minibatch_std)
+        return logits[:, 0]
+
+
+def minibatch_std_feature(feats: torch.Tensor, group_size: int = 8) -> torch.Tensor:
+    """Per-group batch-std scalar, (B, E) -> (B, 1) (vitgan_v2.py:153-178).
+    The group size divides the half batch, so that no group straddles the
+    [real; fake] boundary of the concatenated D forward."""
+    b = feats.shape[0]
+    half = b // 2 if b % 2 == 0 else b
+    g = max(1, min(group_size, half))
+    while half % g:
+        g -= 1
+    f = feats.reshape(b // g, g, -1).float()
+    std = torch.sqrt(f.var(dim=1, unbiased=False) + 1e-8)  # (groups, E)
+    s = std.mean(dim=-1, keepdim=True)  # (groups, 1)
+    return s.repeat_interleave(g, dim=0).to(feats.dtype)
+
+
+def vit_encode(d: Discriminator, images: torch.Tensor, cfg: V2Config, train: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """images -> (B, N+1, E) after the final LN.  CLS gets no positional term;
+    embedding dropout, then the blocks (vitgan_v2.py:201-214)."""
+    x = L.dense(d.embed, patchify(images, cfg.patch_size))
+    x = x + d.pos.to(x.dtype)
+    cls = d.cls.to(x.dtype).expand(x.shape[0], 1, cfg.embed_dim)
+    x = torch.cat([cls, x], dim=1)
+    x = L.dropout(x, cfg.dropout, train, generator)
+    for block in d.blocks:
+        x = encoder_apply(block, x, cfg, train, generator)
+    return L.layer_norm(d.ln, x)
+
+
+def vit_apply(d: Discriminator, images: torch.Tensor, cfg: V2Config, train: bool = False,
+              generator: Optional[torch.Generator] = None, with_mbstd: bool = False):
+    """Encode, then CLS -> Linear -> tanh -> Linear (vitgan_v2.py:217-229)."""
+    cls = vit_encode(d, images, cfg, train, generator)[:, 0, :]
+    if with_mbstd:
+        cls = torch.cat([cls, minibatch_std_feature(cls)], dim=-1)
+    return L.dense(d.head_fc2, torch.tanh(L.dense(d.head_fc1, cls)))

@@ -37,12 +37,19 @@ SIGNATURES = {
     "ln_mlp_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
     "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, bh, n, d, inv_scale, stream
+    "flash_attn_bwd_fused": [_P] * 10 + [_I] * 3 + [_F, _P],
+    # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, stream
+    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, stream
+    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _P],
 }
 
 # Launch counts by wrapper.  ln_mlp_fwd.cu serves two wrappers: the plain
 # LN->MLP ("ln_mlp_fwd") and the megablock's out-projection form
 # ("proj_ln_mlp_fwd").
-LAUNCHES = {"flash_attn_fwd": 0, "ln_mlp_fwd": 0, "ln_qkv_fwd": 0, "proj_ln_mlp_fwd": 0}
+LAUNCHES = {name: 0 for name in SIGNATURES}
+LAUNCHES["proj_ln_mlp_fwd"] = 0
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -66,8 +73,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
+    """The library's path, named by a hash of the flags, the source and every
+    header in csrc/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in (f"{name}.cu", "common.cuh"):
+    headers = sorted(fn for fn in os.listdir(CSRC) if fn.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

@@ -1,0 +1,25 @@
+// Flash-attention backward dK and dV, `dot` scores, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels `_flash_bwd_dkv_kernel` and its K/V-streaming
+// variant `_flash_bwd_dkv_kernel_dma` (vitgan_tpu/ops/attention.py:434-504,
+// launched at :727): here Q and dO always stream through shared memory one
+// tile at a time, at any length.  The k-block kernel is in
+// flash_attn_bwd.cuh, which says what it computes and how.
+//
+// Bound on this card.  At the highres128 discriminator's shape (64*6 heads,
+// 1,025 tokens, Dh 64) a launch does four products of 2*N*N*Dh flops per
+// head, 2.07e11 flops, on 305 MB of q/k/v/dO/dk/dv and rows: 0.21 ms of
+// tensor-core time against 0.09 ms of HBM time, so the tensor cores bound
+// it.  mma.sync reaches only part of the wgmma rate; wgmma with TMA is later
+// work.
+#include "flash_attn_bwd.cuh"
+
+// q, k, v, dout: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple
+// of 8 and at most 128.  lse (natural log) and delta: (bh, n) f32.  dk, dv:
+// (bh, n, d) bf16.  inv_scale multiplies q.k.
+extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dk, void* dv,
+                                  int bh, int n, int d, float inv_scale, void* stream) {
+  return vk::bwd::dispatch_kv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, n, d,
+                                     inv_scale, static_cast<cudaStream_t>(stream));
+}

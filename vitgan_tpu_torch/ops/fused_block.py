@@ -15,8 +15,9 @@ the port splits the block where the data must leave the chip anyway:
    chip in f32, then LN2 -> fc1 -> GELU -> fc2 -> + x1.
 
 Each launch has a plain PyTorch version; composed, they are the block's plain
-version, which CPU tensors take.  Dropout, the saved-residual variants and
-the backward kernel are the training slice's (ROADMAP.md).
+version, which CPU tensors take.  The dropout and saved-residual variants and
+the backward kernel are ROADMAP.md queue 2 items 1 and 4: a training block
+that the JAX package's gate sends to them raises (:func:`maybe_megablock`).
 """
 
 from __future__ import annotations
@@ -123,16 +124,88 @@ def fused_encoder_block(x, p, *, num_heads: int, eps: float = 1e-5):
                           attn=attn, wout=p.msha.out.w, bout=p.msha.out.b)
 
 
+# The JAX package's scoped-VMEM budget of the megablock (fused_block.py:69,
+# its default 96 MB less 0.5 MB).  The training gate's clamps check against
+# it, so that the gate decides as the JAX package does; they mean nothing
+# for the H100's memory.
+VMEM_BUDGET = 96 * 2 ** 20 - 2 ** 19
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def saved_fwd_group(group: int, n_pad: int, e_pad: int, hidden_pad: int, hd_pad: int,
+                    dropout: bool = False) -> int:
+    """The JAX package's VMEM clamp of the saved-residual forward
+    (fused_block.py:213-238): halves ``group`` until its estimate fits, 0 when
+    even one sample cannot."""
+    per_row = 4 * (3.5 * e_pad + 2 * hidden_pad + 1.5 * hd_pad)
+    per_row += 2 * (2 * e_pad + hidden_pad)
+    if dropout:
+        per_row += 4 * 8 * e_pad
+    score = 16 * n_pad * n_pad
+    while group >= 1 and group * n_pad * per_row + score > VMEM_BUDGET:
+        group //= 2
+    return group
+
+
+def saved_bwd_group(group: int, n_pad: int, e_pad: int, hidden_pad: int, hd_pad: int,
+                    dropout: bool = False) -> int:
+    """The JAX package's VMEM clamp of the saved-residual backward
+    (fused_block.py:241-265)."""
+    per_row = 4 * (5 * e_pad + 4 * hidden_pad + 2 * hd_pad)
+    per_row += 2 * (2 * e_pad + 2 * hidden_pad + hd_pad)
+    if dropout:
+        per_row += 4 * 10 * e_pad
+    score = 24 * n_pad * n_pad
+    while group >= 1 and group * n_pad * per_row + score > VMEM_BUDGET:
+        group //= 2
+    return group
+
+
+def jax_routes_training_block(p, x, cfg, mode: str) -> bool:
+    """True where the JAX package's `maybe_megablock` (fused_block.py:909-998,
+    with its default megablock_bwd='saved') sends a TRAINING block through the
+    megablock, with "on TPU" read as "tensor on CUDA"."""
+    n, e = x.shape[1], x.shape[2]
+    _, h, _, dh = p.msha.qkv.shape
+    hidden = p.fc1.w.shape[-1]
+    drop = cfg.dropout > 0.0
+    pads = (_ceil_to(n, 8), _ceil_to(e, 128), _ceil_to(hidden, 128), _ceil_to(3 * h * dh, 128))
+    saved = saved_bwd_group(1, *pads, dropout=drop) >= 1
+    if not saved and mode == "on":
+        return False
+    if mode == "auto" and not (saved and 128 <= n <= 1056 and on_cuda(x)
+                               and saved_fwd_group(1, *pads, dropout=drop) >= 1):
+        return False
+    return not (drop and not on_cuda(x))
+
+
 def maybe_megablock(p, x, cfg, train: bool):
     """Policy gate for models/vitgan_v2._encoder_apply: the fused forward or
     None for the standard path.  'on' routes every inference block; 'auto'
     routes CUDA blocks of 128..1056 tokens (the JAX package's TPU gate, not
     yet measured on the GPU).  A dtype or width the kernels do not take
-    raises in the launches; it is never sent to the plain version.  Training
-    blocks take the standard path: the dropout and saved-residual variants
-    and the backward are not ported yet (ROADMAP.md)."""
+    raises in the launches; it is never sent to the plain version.
+
+    Training: the gate is the JAX package's (:func:`jax_routes_training_block`),
+    which under 'auto' routes every CUDA training block of 128..1056 tokens
+    that fits its VMEM clamps, highres128's and deit64's included.  The
+    megablock's dropout and saved-residual variants and its backward are not
+    ported (ROADMAP.md queue 2 items 1 and 4), so such a block raises rather
+    than take another path; runtime.megablock=off trains on the flash and
+    LN->MLP kernels with their backward."""
     mode = megablock_mode()
-    if mode == "off" or train:
+    if mode == "off":
+        return None
+    if train:
+        if jax_routes_training_block(p, x, cfg, mode):
+            raise NotImplementedError(
+                f"megablock={mode!r}: the JAX package routes this training block "
+                f"(N={x.shape[1]}, E={x.shape[2]}) through the megablock, whose dropout and "
+                "saved-residual variants and backward are ROADMAP.md queue 2 items 1 and 4; "
+                "set runtime.megablock=off to train on the flash and LN->MLP kernels")
         return None
     if mode == "auto" and not (128 <= x.shape[1] <= 1056 and on_cuda(x)):
         return None

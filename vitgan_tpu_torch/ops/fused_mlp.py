@@ -1,14 +1,20 @@
 """Fused LN -> fc1 -> GELU -> fc2 [+ residual]: the CUDA kernel, its plain
 version, routing.
 
-Counterpart of vitgan_tpu/ops/fused_mlp.py.  ``fused_ln_mlp`` launches
-csrc/ln_mlp_fwd.cu on CUDA tensors and takes ``_reference`` on CPU tensors.
-The same kernel, with its out-projection prologue, is the third launch of
-the megablock (ops/fused_block.py), through :func:`ln_mlp_forward`.
+Counterpart of vitgan_tpu/ops/fused_mlp.py.  ``fused_ln_mlp`` is a
+``torch.autograd.Function``: its forward launches csrc/ln_mlp_fwd.cu on CUDA
+tensors and takes ``_reference`` on CPU tensors; its backward is autograd of
+``_reference`` on the saved inputs, the JAX package's own recompute VJP
+(fused_mlp.py:174-190).  On the card its f32 products run in TF32 (10
+mantissa bits, where the forward kernel's bf16 operands keep 7): in full f32
+they took 58% of a highres128 train step (PERF.md).  The
+same kernel, with its out-projection prologue, is the third launch of the
+megablock (ops/fused_block.py), through :func:`ln_mlp_forward`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -100,14 +106,54 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
     return out.reshape(x.shape)
 
 
+DOUBLE_BACKWARD = ("the LN->MLP kernel is once-differentiable: a double backward (WGAN-GP, "
+                   "R1) through it is ROADMAP.md queue 2 item 2; set runtime.use_pallas=never "
+                   "for these recipes")
+
+
+@contextlib.contextmanager
+def _tf32_products(on: bool):
+    """TF32 for f32 matrix products inside the block when ``on``, restoring
+    the process's setting after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = prev or on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _LnMlp(torch.autograd.Function):
+    """The kernel forward with the recompute backward of fused_mlp.py:181-187."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.eps, ctx.residual = eps, residual
+        if x.device.type == "cpu":
+            return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, "gelu", eps, residual)
+        return ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled() and g.device.type != "cpu":
+            raise NotImplementedError(DOUBLE_BACKWARD)
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad(), _tf32_products(g.is_cuda):
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = _reference(*leaves, "gelu", ctx.eps, ctx.residual)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
 def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gelu",
                  eps: float = 1e-5, residual: bool = True):
-    """out = [x +] fc2(gelu(fc1(LN(x)))), x: (..., E).  CUDA tensors launch the
-    kernel (or raise); CPU tensors take :func:`_reference`."""
+    """out = [x +] fc2(gelu(fc1(LN(x)))), x: (..., E), differentiable.  CUDA
+    tensors launch the kernel (or raise); CPU tensors take :func:`_reference`."""
     _check_activation(activation)
-    if x.device.type == "cpu":
-        return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, eps, residual)
-    return ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual)
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, float(eps), bool(residual))
 
 
 def dispatch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gelu",

@@ -20,10 +20,13 @@ GENERATOR_FILE = "generator.pt"
 BEST_FILE = "generator_best.pt"
 
 
-def save_run(run_dir: str, cfg, generator: torch.nn.Module, meta: dict | None = None) -> None:
+def save_run(run_dir: str, cfg, generator, meta: dict | None = None) -> None:
+    """config.json, the generator's weights (a module or its state_dict) and
+    meta.json."""
     os.makedirs(run_dir, exist_ok=True)
     C.save_config(cfg, os.path.join(run_dir, "config.json"))
-    state = {k: v.detach().cpu() for k, v in generator.state_dict().items()}
+    sd = generator if isinstance(generator, dict) else generator.state_dict()
+    state = {k: v.detach().cpu() for k, v in sd.items()}
     torch.save(state, os.path.join(run_dir, GENERATOR_FILE))
     with open(os.path.join(run_dir, "meta.json"), "w") as f:
         json.dump(meta or {}, f)

@@ -3,7 +3,9 @@
 The port's modules keep the JAX tree's leaf names and layouts, so a JAX
 parameter tree maps onto a ``state_dict`` by joining its path with '.': the
 v2 generator tree {mapping, pos, blocks[i].{ln1, ln2, msha.{qkv, qkv_b, out},
-fc1, fc2}, ln, to_pixels} becomes the keys of models/vitgan_v2.Generator.
+fc1, fc2}, ln, to_pixels} becomes the keys of models/vitgan_v2.Generator, and
+the discriminator tree {embed, pos, cls, blocks[i], ln, head_fc1, head_fc2}
+those of models/vitgan_v2.Discriminator.
 No transposes: dense weights are (in, out) on both sides.
 """
 
