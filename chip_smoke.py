@@ -30,22 +30,39 @@
    (1, 1, 16385, 64) shape, each output within 2e-2 of its own max|plain|;
    times each beside its bound, its plain version and PyTorch's
    scaled_dot_product_attention backward (library_ms).
-8. Under the default runtime.megablock=auto, a highres128 training block on
-   the card raises naming ROADMAP.md: the JAX package's gate routes it
-   through the megablock's training kernels, which are not ported.
-9. Trains highres128 with runtime.megablock=off through Trainer (the entry
-   point of `cli train`) on a 256-sample synthetic dataset at batch 32 in
-   bf16 with dropout 0.1 and DiffAugment color,translation: 2 warm-up steps,
-   then 5 timed steps by Trainer.fit, whose kernel launches per step must be
-   flash forward 36, single-pass backward 12, dq 24, dk/dv 24, LN->MLP 36 and
-   LN->qkv 0.  The losses must be finite and the parameters must have moved;
+8. Holds the megablock's training kernels against their plain versions at
+   G's (32, 1024, 384, 6 heads, hidden 1536), D's (64, 1025, ...) and a ragged
+   (2, 257, 192, 3 heads, hidden 768) shape: the training form of ln_mlp_fwd
+   (dropout masks bit-equal to the plain Philox's; out, x1, z1 by
+   KERNEL_RTOL), megablock_bwd_mlp, megablock_bwd_ln1, wgrad_gemm (beside
+   torch.matmul of the same A^T.B) and sum_partials (each output within
+   KERNEL_RTOL * its own max|plain|), then one block's whole saved-residual
+   backward against autograd of the plain masked block in f32: dx and each
+   of the 12 parameter gradients within MB_GRAD_RTOL * its own max|plain|.
+9. Under the default runtime.megablock=auto a highres128 training block at
+   1,024 and 1,025 tokens takes encoder_block_fused_dropout_saved (the JAX
+   package's gate); with megablock_bwd=recompute or megablock=off the
+   standard path.
+10. Trains highres128 under the preset's default runtime (megablock=auto,
+   megablock_bwd=saved) through Trainer (the entry point of `cli train`) on a
+   256-sample synthetic dataset at batch 32 in bf16 with dropout 0.1 and
+   DiffAugment color,translation: 2 warm-up steps, then 5 timed steps by
+   Trainer.fit, whose kernel launches per step are asserted (TRAIN_KERNELS:
+   the megablock's training forward and saved backward in every block, no
+   LN->MLP).  The losses must be finite and the parameters must have moved;
    torch.profiler splits 2 more steps' device time by kernel group.  The run
-   directory fit writes is restored by restore_run, answers one
-   `cli generate` and one HTTP request of the server `cli serve` starts.
-10. Runs one megablock=off train step at full width and batch 8, dropout 0,
-   with the same state, batch, latents and augment draws, on the kernel route
-   and on use_pallas=never, and holds losses, gradient norms and every
-   gradient leaf of the two against each other.
+   directory fit writes is restored by restore_run, answers one `cli
+   generate` and one HTTP request of the server `cli serve` starts.  Then
+   the same with runtime.megablock=off (flash forward 36, single-pass
+   backward 12, dq 24, dk/dv 24, LN->MLP 36 a step), whose breakdown adds
+   the LN->MLP recompute backward alone.
+11. Trains deit64 at full width under megablock=auto for 1 + 3 steps: the
+   megablock's training kernels at 256 and 257 tokens, E 192.
+12. Runs one train step at full width and batch 8, dropout 0, with the same
+   state, batch, latents and augment draws, on the megablock=off kernel
+   route, the megablock=auto route and use_pallas=never, and holds losses,
+   gradient norms and every gradient leaf of each kernel route to the plain
+   one.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -535,51 +552,271 @@ def check_bwd_kernels() -> dict:
     return out
 
 
-TRAIN = "[train megablock=off]"
-TRAIN_KERNELS = {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24,
-                 "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36}
+MB_SHAPES = (("G", (32, 1024, 384, 6, 1536)), ("D", (64, 1025, 384, 6, 1536)),
+             ("ragged", (2, 257, 192, 3, 768)))
+MB_RATE = 0.1
+# The saved-residual backward against autograd of the plain block: dx and each
+# of the 12 parameter gradients within MB_GRAD_RTOL * its own max|plain|.
+# The kernels round dmlp, dz1, da, dao, dqkv and the LN and GELU operands of
+# the weight gradients to bf16 before each product, where the plain block
+# keeps f32; the weight gradients sum up to 65,600 such rows in f32.
+MB_GRAD_RTOL = 2e-2
 
 
-def check_training_gate() -> None:
+def _mb_case(b, n, e, heads, hidden, gen):
+    """One training block's bf16 inputs on the card: _case plus a cotangent,
+    an int64 seed and the block's parameters as an EncoderBlock-shaped view."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+
+    c = _case(b, n, e, heads, hidden, gen)
+    c["g"] = torch.randn((b, n, e), generator=gen, device="cuda").to(torch.bfloat16)
+    c["seed"] = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+    c["params"] = [c[k].float() for k in ("ln_s", "ln_b", "qkv_w", "qkv_b", "wout", "bout",
+                                          "ln_s", "ln_b", "w1", "b1", "w2", "b2")]
+    c["p"] = FB._block_view(c["params"])
+    return c
+
+
+def check_megablock_kernels() -> dict:
+    """The megablock's training kernels against their plain versions at G's,
+    D's and a ragged shape: the training form of ln_mlp_fwd (masks bit-equal
+    to the plain Philox's, outputs and residuals by KERNEL_RTOL), the two
+    backward row kernels and wgrad_gemm (each output within KERNEL_RTOL *
+    its own max|plain|), sum_partials, then the whole saved-residual
+    backward against autograd of the plain masked block (MB_GRAD_RTOL).
+    Times each at each shape; the record at G's shape goes to the JSON line."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import wgrad as WG
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    out = {k: {} for k in ("ln_mlp_train_fwd", "megablock_bwd_mlp", "megablock_bwd_ln1",
+                           "wgrad_gemm", "sum_partials")}
+    whole = {}
+    for label, shape in MB_SHAPES:
+        c = _mb_case(*shape, gen)
+        b, n, e, heads, dh, hidden = c["dims"]
+        m, hd = b * n, heads * dh
+        print(f"[megablock kernels] {label}: B {b} N {n} E {e} heads {heads} hidden {hidden}")
+        x2, attn2, g2 = c["x"].reshape(m, e), c["attn"].reshape(m, hd), c["g"].reshape(m, e)
+        recs = {}
+
+        def rec(name, kern, plain, bound, library=None, iters=10):
+            ms = _time_ms(kern, iters)
+            r = {"ms": ms, "plain_ms": _time_ms(plain, 2), "bound_ms": bound[0],
+                 "bound_by": bound[1], "library_ms": _time_ms(library, iters) if library else None}
+            print(f"  {name} {label}: {ms:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']}, bound {bound[0]:.4f} ms by {bound[1]})")
+            recs[name] = r
+
+        # -- the training forward's third launch
+        fwd_args = (x2, attn2, c["wout"], c["bout"], c["ln_s"], c["ln_b"], c["w1"], c["b1"],
+                    c["w2"], c["b2"], c["seed"], MB_RATE)
+        got = FB.ln_mlp_train_forward(*fwd_args)
+        want = FB._proj_ln_mlp_train_reference(*fwd_args)
+        torch.cuda.synchronize()
+        for i, what in ((1, "m1"), (2, "m2")):
+            if not torch.equal(got[i], want[i]):
+                raise AssertionError(f"ln_mlp_train_fwd {label}: {what} is not bit-equal to the "
+                                     "plain Philox's")
+        keep = (got[1] > 0).float().mean().item()
+        print(f"  ln_mlp_train_fwd {label}: masks bit-equal to the plain Philox's "
+              f"(keep share {keep:.5f})")
+        err = max(_err(got[0], want[0], f"ln_mlp_train_fwd {label} out", want[3]),
+                  _err(got[3], want[3], f"ln_mlp_train_fwd {label} x1", x2),
+                  _err(got[4], want[4], f"ln_mlp_train_fwd {label} z1"))
+        rec("ln_mlp_train_fwd", lambda: FB.ln_mlp_train_forward(*fwd_args),
+            lambda: FB._proj_ln_mlp_train_reference(*fwd_args),
+            _bound(2.0 * m * hd * e + 4.0 * m * e * hidden,
+                   # reads x, attn and the weights; writes out, x1, z1, m1, m2
+                   m * (e + hd) * 2 + (hd * e + 2 * e * hidden) * 2 + 2 * m * e * 2
+                   + m * hidden * 2 + 2 * m * e * 4))
+        recs["ln_mlp_train_fwd"]["max_abs_err"] = err
+        _, m1, m2, x1, z1 = got
+        del got, want
+
+        # -- the backward's MLP half
+        bwd_args = (g2, m1, m2, x1, z1, attn2, c["w1"], c["w2"], c["wout"], c["ln_s"], c["ln_b"],
+                    b, n, heads)
+        got = FB.megablock_bwd_mlp(*bwd_args)
+        want = FB._bwd_mlp_reference(*bwd_args)
+        err = max(_err(getattr(got, k), getattr(want, k), f"megablock_bwd_mlp {label} {k}",
+                       own_scale=True) for k in ("dmlp", "dz1", "h1", "y2", "dx1", "da", "dao",
+                                                 "delta"))
+        err = max(err, _err(got.part.sum(0), want.part[0], f"megablock_bwd_mlp {label} dln2",
+                            own_scale=True))
+        rec("megablock_bwd_mlp", lambda: FB.megablock_bwd_mlp(*bwd_args),
+            lambda: FB._bwd_mlp_reference(*bwd_args),
+            _bound(4.0 * m * e * hidden + 2.0 * m * e * hd,
+                   2 * m * e * 2 + m * hidden * 2 + m * hd * 2 + 2 * m * e * 4
+                   + (2 * e * hidden + hd * e) * 2 + m * e * (2 + 2 + 4 + 2) + 2 * m * hidden * 2
+                   + m * hd * 2 + b * heads * n * 4))
+        recs["megablock_bwd_mlp"]["max_abs_err"] = err
+        mlp = got
+        del want
+
+        # -- the backward's LN1 half, on a cotangent of qkv's size
+        dqkv = torch.randn((m, 3 * hd), generator=gen, device="cuda").to(torch.bfloat16)
+        ln1_args = (dqkv, c["qkv_w"], x2, mlp.dx1, c["ln_s"], c["ln_b"])
+        got = FB.megablock_bwd_ln1(*ln1_args)
+        want = FB._bwd_ln1_reference(*ln1_args)
+        err = max(_err(got[0], want[0], f"megablock_bwd_ln1 {label} dx", own_scale=True),
+                  _err(got[1], want[1], f"megablock_bwd_ln1 {label} y1", own_scale=True),
+                  _err(got[2].sum(0), want[2][0], f"megablock_bwd_ln1 {label} dln1",
+                       own_scale=True))
+        rec("megablock_bwd_ln1", lambda: FB.megablock_bwd_ln1(*ln1_args),
+            lambda: FB._bwd_ln1_reference(*ln1_args),
+            _bound(2.0 * m * 3 * hd * e, m * 3 * hd * 2 + m * e * 2 + m * e * 4 + 3 * hd * e * 2
+                   + 2 * m * e * 2))
+        recs["megablock_bwd_ln1"]["max_abs_err"] = err
+        y1, ln1_part = got[1], got[2]
+        del got, want
+
+        # -- the four weight-gradient products of one block backward
+        pairs = {"dw2": (mlp.h1, mlp.dmlp), "dw1": (mlp.y2, mlp.dz1), "dwout": (attn2, mlp.da),
+                 "dwqkv": (y1, dqkv)}
+        errs, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+                         "bytes": 0.0}
+        for key, args in pairs.items():
+            a_, b_ = args[0], args[1]
+            got, want = WG.wgrad_gemm(*args), WG.wgrad_reference(*args)
+            errs += [_err(got[0], want[0], f"wgrad_gemm {label} {key}", own_scale=True),
+                     _err(got[1], want[1], f"wgrad_gemm {label} d{key[1:].replace('w', 'b')}",
+                          own_scale=True)]
+            aT = a_.t()
+            tot["ms"] += _time_ms(lambda: WG.wgrad_gemm(*args), 10)
+            tot["plain_ms"] += _time_ms(lambda: WG.wgrad_reference(*args), 2)
+            tot["library_ms"] += _time_ms(lambda: torch.matmul(aT, b_), 10)
+            tot["flops"] += 2.0 * m * a_.shape[1] * b_.shape[1]
+            tot["bytes"] += (m * (a_.shape[1] + b_.shape[1]) * 2 + a_.shape[1] * b_.shape[1] * 4
+                             + b_.shape[1] * 4)
+            del got, want
+        bound = _bound(tot["flops"] / 4, tot["bytes"] / 4)
+        recs["wgrad_gemm"] = {"max_abs_err": max(errs), "ms": tot["ms"] / 4,
+                              "plain_ms": tot["plain_ms"] / 4, "bound_ms": bound[0],
+                              "bound_by": bound[1], "library_ms": tot["library_ms"] / 4,
+                              "per": "launch, mean of the four products of one block backward"}
+        print(f"  wgrad_gemm {label}: mean of 4 products {tot['ms'] / 4:.4f} ms (plain "
+              f"{tot['plain_ms'] / 4:.4f}, torch.matmul {tot['library_ms'] / 4:.4f}, bound "
+              f"{bound[0]:.4f} ms by {bound[1]})")
+
+        # -- the second pass of the LN partials
+        err = _err(WG.sum_partials(ln1_part), ln1_part.sum(0), f"sum_partials {label}",
+                   own_scale=True)
+        # its plain version is one PyTorch call, so it is the library time too
+        rec("sum_partials", lambda: WG.sum_partials(ln1_part), lambda: ln1_part.sum(0),
+            _bound(0.0, ln1_part.numel() * 4 + ln1_part.shape[1] * 4),
+            library=lambda: ln1_part.sum(0))
+        recs["sum_partials"]["max_abs_err"] = err
+        del mlp, dqkv, y1, ln1_part, m1, m2, x1, z1
+
+        # -- the whole block: kernel forward with residuals and the saved
+        # backward against autograd of the plain masked block in f32
+        fwd, res = FB.fused_encoder_block(c["x"], c["p"], num_heads=heads, rate=MB_RATE,
+                                          seed=c["seed"], want_residuals=True)
+        dx, dparams = FB.fused_encoder_block_bwd(c["params"], c["g"], res, num_heads=heads)
+        leaves = [c["x"].float().requires_grad_(), *(t.clone().requires_grad_()
+                                                     for t in c["params"])]
+        ref = FB._block_reference_masked(leaves[0], FB._block_view(leaves[1:]), res.m1, res.m2,
+                                         heads)
+        _err(fwd, ref, f"megablock block {label} forward", res.x1)
+        want = torch.autograd.grad(ref, leaves, c["g"].float())
+        worst = 0.0
+        for name, gk, gp in zip(("x",) + FB.BLOCK_PARAMS, (dx, *dparams), want):
+            torch.cuda.synchronize()
+            e_ = (gk.float() - gp).abs().max().item() / gp.abs().max().item()
+            worst = max(worst, e_)
+            if not e_ <= MB_GRAD_RTOL:
+                raise AssertionError(f"megablock backward {label}: d{name} is {e_:.4g} of its "
+                                     f"max|plain| apart (limit {MB_GRAD_RTOL})")
+        bwd_ms = _time_ms(lambda: FB.fused_encoder_block_bwd(c["params"], c["g"], res,
+                                                             num_heads=heads), 5)
+        fwd_ms = _time_ms(lambda: FB.fused_encoder_block(
+            c["x"], c["p"], num_heads=heads, rate=MB_RATE, seed=c["seed"], want_residuals=True), 5)
+        whole[label] = {"worst_grad_rel": worst, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        print(f"[megablock block] {label}: dx and 12 parameter gradients within {worst:.4g} of "
+              f"their max|plain| (limit {MB_GRAD_RTOL}); forward {fwd_ms:.3f} ms, saved "
+              f"backward {bwd_ms:.3f} ms")
+        del fwd, res, dx, dparams, leaves, ref, want, c
+        torch.cuda.empty_cache()
+        for name, r in recs.items():
+            if label == "G":
+                out[name].update(r)
+            else:
+                out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
+                out[name][f"{label}_ms"] = r["ms"]
+    return out, whole
+
+
+# Kernel launches per highres128 train step at batch 32 (12 blocks; G's
+# forward, D's forward on [real; fake] and on fake, and the three backwards).
+TRAIN_KERNELS = {
+    # runtime.megablock=auto (the preset's default): the megablock's training
+    # forward and its saved-residual backward in every block
+    "auto": {"ln_qkv_fwd": 72, "flash_attn_fwd": 36, "ln_mlp_train_fwd": 36,
+             "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24, "flash_attn_bwd_dkv": 24,
+             "megablock_bwd_mlp": 36, "megablock_bwd_ln1": 36,
+             # four weight-gradient products and two LN sums per block backward
+             # that has parameter gradients to give: D's, then G's (D's
+             # parameters are frozen in the G update); each product's entry
+             # also runs two second passes, for dW and db
+             "wgrad_gemm": 96, "sum_partials": 48 + 2 * 96},
+    # runtime.megablock=off: flash attention and LN->MLP with their backward
+    "off": {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24,
+            "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36},
+}
+
+
+def check_training_gate() -> dict:
     """Under the default runtime.megablock=auto the JAX package's gate sends
-    highres128's training blocks (G's 1,024 tokens, D's 1,025) through the
-    megablock's training kernels; on the card the port raises there, naming
-    ROADMAP.md, and takes no other path."""
+    highres128's training blocks (G's 1,024 tokens, D's 1,025) through
+    encoder_block_fused_dropout_saved; on the card the port takes that
+    variant there (a full-width block, a real step generator), and with
+    megablock_bwd=recompute or megablock=off the standard path."""
     import torch
 
     from vitgan_tpu_torch import config as C
     from vitgan_tpu_torch.models.vitgan_v2 import EncoderBlock
-    from vitgan_tpu_torch.ops.fused_block import maybe_megablock
+    from vitgan_tpu_torch.ops.fused_block import maybe_megablock, megablock_route
     from vitgan_tpu_torch.ops.policy import get_policy, set_policy
 
-    cfg = C.highres_config(128)
-    m = cfg.v2
-    with torch.device("meta"):
-        block = EncoderBlock(m, None)
+    m = C.highres_config(128).v2
+    block = EncoderBlock(m, torch.Generator().manual_seed(SEED)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     saved = get_policy()
+    routes = {}
     try:
-        set_policy(mode="auto", megablock="auto")
+        set_policy(mode="auto", megablock="auto", megablock_bwd="saved")
         for n in (1024, 1025):
-            x = torch.empty((m.batch_size, n, m.embed_dim), dtype=torch.bfloat16, device="cuda")
-            try:
-                maybe_megablock(block, x, m, train=True)
-            except NotImplementedError as e:
-                if "ROADMAP.md" not in str(e):
-                    raise
-                print(f"[train gate] megablock=auto, N {n}: raises: {e}")
-            else:
-                raise AssertionError(f"megablock=auto took a path for a training block, N {n}")
-        set_policy(megablock="off")
-        if maybe_megablock(block, x, m, train=True) is not None:
-            raise AssertionError("megablock=off routed a training block")
+            x = torch.randn((2, n, m.embed_dim), device="cuda").to(torch.bfloat16)
+            x.requires_grad_()
+            out = maybe_megablock(block, x, m, train=True, generator=gen)
+            name = None if out is None else type(out.grad_fn).__name__
+            routes[f"auto_{n}"] = megablock_route(block, x, m, True, True)
+            print(f"[train gate] megablock=auto, N {n}: {routes[f'auto_{n}']} ({name})")
+            if routes[f"auto_{n}"] != "encoder_block_fused_dropout_saved" or \
+                    name != "_SavedBlockBackward":
+                raise AssertionError(f"megablock=auto did not route N {n} to the saved "
+                                     "dropout megablock")
+        for policy in (dict(megablock_bwd="recompute"), dict(megablock="off",
+                                                            megablock_bwd="saved")):
+            set_policy(**policy)
+            if maybe_megablock(block, x, m, train=True, generator=gen) is not None:
+                raise AssertionError(f"{policy} routed a highres128 training block")
+            print(f"[train gate] {policy}, N {n}: the standard path")
     finally:
-        set_policy(mode=saved["mode"], megablock=saved["megablock"])
+        set_policy(**saved)
+    return routes
 
 
-def train_main_path(run_dir: str) -> tuple:
-    """highres128 with runtime.megablock=off through Trainer: 2 warm-up
-    steps, 5 timed steps by fit, the run directory restored and one
-    `cli generate`."""
+def train_main_path(run_dir: str, route: str = "auto") -> tuple:
+    """highres128 at full depth through Trainer under ``route``
+    (runtime.megablock, 'auto' the preset's default): 2 warm-up steps, 5
+    timed steps by fit, the launches per step asserted, a profiled breakdown;
+    the run directory restored, one `cli generate` and one HTTP request."""
     import numpy as np
     import torch
 
@@ -592,22 +829,27 @@ def train_main_path(run_dir: str) -> tuple:
     from vitgan_tpu_torch.train.trainer import Trainer
     from vitgan_tpu_torch.utils.run_dirs import restore_run
 
+    tag = f"[train megablock={route}]"
     steps = 5
-    cfg = C.replace(C.highres_config(128), **{
-        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 1,
-        "run.steps_per_epoch": steps, "run.log_every_steps": 0, "runtime.megablock": "off"})
+    over = {"data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 1,
+            "run.steps_per_epoch": steps, "run.log_every_steps": 0}
+    if route != "auto":
+        over["runtime.megablock"] = route
+    cfg = C.replace(C.highres_config(128), **over)
     m = cfg.v2
     t0 = time.perf_counter()
     trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
     st = trainer.state
-    print(f"{TRAIN} highres128: batch {m.batch_size}, {cfg.runtime.compute_dtype}, dropout "
-          f"{m.dropout}, augment {cfg.run.diff_augment!r}, loss {m.loss}; G {count_params(st.g)} "
-          f"D {count_params(st.d)} parameters; set up in {time.perf_counter() - t0:.1f} s")
+    print(f"{tag} highres128: batch {m.batch_size}, depth {m.depth}, "
+          f"{cfg.runtime.compute_dtype}, dropout {m.dropout}, augment {cfg.run.diff_augment!r}, "
+          f"loss {m.loss}, megablock {cfg.runtime.megablock}, megablock_bwd "
+          f"{cfg.runtime.megablock_bwd}; G {count_params(st.g)} D {count_params(st.d)} "
+          f"parameters; set up in {time.perf_counter() - t0:.1f} s")
     before = [p.detach().cpu().clone() for p in (*st.g.parameters(), *st.d.parameters())]
     t0 = time.perf_counter()
     for idx in trainer.batches()[:2]:  # warm-up
         warm = host_metrics(trainer.train_step(st, trainer.real_batch(idx)))
-    print(f"{TRAIN} 2 warm-up steps in {time.perf_counter() - t0:.2f} s: {warm}")
+    print(f"{tag} 2 warm-up steps in {time.perf_counter() - t0:.2f} s: {warm}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
@@ -621,24 +863,24 @@ def train_main_path(run_dir: str) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     img_s = means["images_per_sec"]  # fit's clock: the steps and the epoch's metric readback
     ms = 1e3 * m.batch_size / img_s
-    print(f"{TRAIN} {steps} steps by Trainer.fit: {ms:.1f} ms/step, {img_s:.2f} img/s "
+    print(f"{tag} {steps} steps by Trainer.fit: {ms:.1f} ms/step, {img_s:.2f} img/s "
           f"({sec:.3f} s with the run directory's write), peak {peak / 2**30:.2f} GiB allocated")
-    print(f"{TRAIN} epoch means: {means}")
-    print(f"{TRAIN} launches over {steps} steps: {launches}")
+    print(f"{tag} epoch means: {means}")
+    print(f"{tag} launches over {steps} steps: {launches}")
     for name, n in launches.items():
-        want = TRAIN_KERNELS.get(name, 0) * steps
+        want = TRAIN_KERNELS[route].get(name, 0) * steps
         if n != want:
-            raise AssertionError(f"train step: {name} launched {n} times, expected {want}")
+            raise AssertionError(f"{tag} {name} launched {n} times, expected {want}")
     if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
                                                  "g_grad_norm")):
         raise AssertionError(f"non-finite train metrics: {means}")
     after = [p.detach().cpu() for p in (*st.g.parameters(), *st.d.parameters())]
     moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
-    print(f"{TRAIN} {moved} of {len(after)} parameter tensors moved")
+    print(f"{tag} {moved} of {len(after)} parameter tensors moved")
     if moved != len(after):
         raise AssertionError("some parameters did not move")
     del before, after
-    breakdown = train_breakdown(trainer, ms)
+    breakdown = train_breakdown(trainer, ms, recompute=route == "off")
     del trainer, st
     torch.cuda.empty_cache()
     rcfg, _, g, meta = restore_run(run_dir, device="cuda")
@@ -653,7 +895,7 @@ def train_main_path(run_dir: str) -> tuple:
         h, w = _png_shape(f.read())
     if z.shape != (16, m.latent_dim) or (h, w) != (4 * 130 + 2, 4 * 130 + 2):
         raise AssertionError(f"cli generate wrote {z.shape} latents, a {h}x{w} grid")
-    print(f"{TRAIN} restored step {meta['step']} and `cli generate` wrote a {h}x{w} grid")
+    print(f"{tag} restored step {meta['step']} and `cli generate` wrote a {h}x{w} grid")
     httpd = serve(run_dir, host="127.0.0.1", port=0, batch=8)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
@@ -665,16 +907,69 @@ def train_main_path(run_dir: str) -> tuple:
     arr = np.load(io.BytesIO(body))
     if status != 200 or arr.shape != (4, 128, 128, 3) or not np.isfinite(arr).all():
         raise AssertionError(f"serving the trained run directory: {status} {arr.shape}")
-    print(f"{TRAIN} the trained run directory served POST npy n=4 in {req_ms:.1f} ms")
+    print(f"{tag} the trained run directory served POST npy n=4 in {req_ms:.1f} ms")
     return launches, {"ms_per_step": ms, "img_per_s": img_s, "peak_allocated_bytes": peak,
-                      "means": means, "breakdown": breakdown}
+                      "depth": m.depth, "means": means, "breakdown": breakdown}
+
+
+def train_deit64(steps: int = 3) -> dict:
+    """deit64 at full width (64 px, 256 tokens + CLS, embed 192, 3 heads,
+    hidden 768, depth 12, dropout 0.1, DiffAugment color,translation,cutout)
+    under the preset's default runtime (megablock=auto) through Trainer: one
+    warm-up step, ``steps`` steps by fit, the megablock's training kernels in
+    every block."""
+    import shutil as _sh
+    import tempfile
+
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    cfg = C.replace(C.deit64_config(), **{
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 1,
+        "run.steps_per_epoch": steps, "run.log_every_steps": 0})
+    m = cfg.v2
+    run_dir = tempfile.mkdtemp(prefix="deit64_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
+        torch.cuda.synchronize()
+        build.reset_launches()
+        # --- the deit64 path ---
+        means = trainer.fit()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        # --- end of the deit64 path ---
+    finally:
+        _sh.rmtree(run_dir, ignore_errors=True)
+    ms = 1e3 * m.batch_size / means["images_per_sec"]
+    print(f"[train deit64] batch {m.batch_size}, {m.image_size} px, embed {m.embed_dim}, heads "
+          f"{m.num_heads}, depth {m.depth}, dropout {m.dropout}, augment "
+          f"{cfg.run.diff_augment!r}: {steps} steps by Trainer.fit, {ms:.1f} ms/step; launches "
+          f"{launches}; means {means}")
+    for name in ("ln_mlp_train_fwd", "megablock_bwd_mlp", "megablock_bwd_ln1"):
+        if launches[name] != 3 * m.depth * steps:
+            raise AssertionError(f"deit64: {name} launched {launches[name]} times")
+    if launches["ln_mlp_fwd"] or not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
+        raise AssertionError(f"deit64 did not train through the megablock: {means}")
+    return {"ms_per_step": ms, "launches": launches, "means": means}
 
 
 # Kernel names of the port, by the substring of their CUDA symbol.
 PORT_KERNELS = (("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_dq_kernel", "flash backward dq"),
                 ("scale_cast_kernel", "flash single-pass dq scale-and-cast"),
-                ("flash_attn_fwd_kernel", "flash forward"), ("ln_mlp", "LN->MLP forward"))
+                ("flash_attn_fwd_kernel", "flash forward"),
+                ("ln_mlp_fwd_kernel<true>", "megablock training forward (ln_mlp_train_fwd)"),
+                ("ln_mlp", "LN->MLP forward"), ("ln_qkv", "LN->qkv forward"),
+                ("megablock_bwd_mlp", "megablock backward, MLP half"),
+                ("megablock_bwd_ln1", "megablock backward, LN1 half"),
+                ("wgrad_gemm", "weight-gradient products"),
+                ("sum_partials", "second-pass sums"))
 
 
 def _kernel_group(name: str) -> str:
@@ -689,13 +984,14 @@ def _kernel_group(name: str) -> str:
     return "other elementwise and reductions"
 
 
-def train_breakdown(trainer, step_ms: float) -> dict:
+def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
     """Where a train step's device time goes: torch.profiler over 2 steps,
     kernel time summed by group, and the device's idle share of the wall
-    time; then the LN->MLP recompute backward alone at the step's three row
-    counts: the autograd Function's backward as the port runs it (the plain
-    forward recomputed and differentiated, TF32 products), and the same
-    forward and backward of the plain version in full f32."""
+    time; then, with ``recompute``, the LN->MLP recompute backward alone at
+    the step's three row counts: the autograd Function's backward as the
+    port runs it (the plain forward recomputed and differentiated, TF32
+    products), and the same forward and backward of the plain version in
+    full f32."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -731,6 +1027,8 @@ def train_breakdown(trainer, step_ms: float) -> dict:
             print(f"  {t:8.3f} ms {n:5d}  {name[:110]}")
         out.update({"device_busy_ms_per_step": busy, "idle_share": 1 - busy / step_ms,
                     "idle_share_profiled": 1 - busy / wall_ms, "groups_ms_per_step": groups})
+    if not recompute:
+        return out
     # LN->MLP's recompute backward (autograd of the plain version) at the
     # step's row counts: G, D on [real; fake], D on fake.
     cfg = trainer.cfg.v2
@@ -764,9 +1062,10 @@ def train_breakdown(trainer, step_ms: float) -> dict:
 
 
 def compare_train_routes() -> dict:
-    """One megablock=off step at full width, batch 8, dropout 0, from the same
-    state, batch, latents and augment draws, on the kernel route and on
-    use_pallas=never."""
+    """One train step at full width, batch 8, dropout 0, from the same state,
+    batch, latents and augment draws, on the megablock=off kernel route, on
+    the megablock=auto route (the saved megablock kernels in every block) and
+    on use_pallas=never; each kernel route held to the plain one."""
     import torch
 
     from vitgan_tpu_torch import config as C
@@ -779,8 +1078,7 @@ def compare_train_routes() -> dict:
     from vitgan_tpu_torch.train.state import create_train_state
     from vitgan_tpu_torch.train.step import host_metrics, make_train_step
 
-    cfg = C.replace(C.highres_config(128), **{"v2.batch_size": 8, "v2.dropout": 0.0,
-                                              "runtime.megablock": "off"})
+    cfg = C.replace(C.highres_config(128), **{"v2.batch_size": 8, "v2.dropout": 0.0})
     gan = build_gan(cfg)
     images, _ = synthetic_dataset(8, 128, 3, seed=SEED)
     real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
@@ -791,9 +1089,12 @@ def compare_train_routes() -> dict:
              for key in ("aug_real", "aug_fake", "aug_g")}
     saved = get_policy()
     res = {}
+    routes = (("megablock_off", dict(mode="auto", megablock="off"), "ln_mlp_fwd"),
+              ("megablock_auto", dict(mode="auto", megablock="auto"), "megablock_bwd_mlp"),
+              ("plain", dict(mode="never", megablock="auto"), None))
     try:
-        for route, mode in (("kernels", "auto"), ("plain", "never")):
-            set_policy(mode=mode, megablock="off")
+        for route, policy, must_launch in routes:
+            set_policy(**policy)
             state = create_train_state(gan, cfg, device="cuda")
             step = make_train_step(gan, cfg)
             build.reset_launches()
@@ -808,34 +1109,39 @@ def compare_train_routes() -> dict:
                   f"metrics {metrics}")
             if route == "plain" and any(build.LAUNCHES.values()):
                 raise AssertionError("the plain route launched a kernel")
+            if must_launch and build.LAUNCHES[must_launch] != 36:
+                raise AssertionError(f"{route}: {must_launch} did not run in every block")
             del state, step
             torch.cuda.empty_cache()
     finally:
-        set_policy(mode=saved["mode"], megablock=saved["megablock"])
-    (mk, gk, names), (mp, gp, _) = res["kernels"], res["plain"]
+        set_policy(**saved)
+    mp, gp, names = res["plain"]
     out = {}
-    for key in ("d_loss", "g_loss"):
-        out[key] = abs(mk[key] - mp[key])
-        print(f"[train routes] {key}: kernels {mk[key]:.6f} plain {mp[key]:.6f} "
-              f"(|d| {out[key]:.3g}, tolerance {LOSS_TOL})")
-        if not out[key] <= LOSS_TOL:
-            raise AssertionError(f"{key} differs between the routes")
-    for key in ("d_grad_norm", "g_grad_norm"):
-        out[key] = abs(mk[key] - mp[key]) / mp[key]
-        print(f"[train routes] {key}: kernels {mk[key]:.6f} plain {mp[key]:.6f} "
-              f"(relative {out[key]:.3g}, tolerance {NORM_RTOL})")
-        if not out[key] <= NORM_RTOL:
-            raise AssertionError(f"{key} differs between the routes")
-    worst, worst_name = 0.0, ""
-    for name, a, b in zip(names, gk, gp):
-        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        if not math.isfinite(rel) or rel > worst:
-            worst, worst_name = rel, name
-    out["worst_leaf_rel"], out["worst_leaf"] = worst, worst_name
-    print(f"[train routes] {len(names)} gradient leaves: worst max|d| / max|plain| {worst:.4g} "
-          f"at {worst_name} (tolerance {LEAF_RTOL})")
-    if not worst <= LEAF_RTOL:
-        raise AssertionError("a gradient leaf differs between the routes")
+    for route in ("megablock_off", "megablock_auto"):
+        mk, gk, _ = res[route]
+        r = out[route] = {}
+        for key in ("d_loss", "g_loss"):
+            r[key] = abs(mk[key] - mp[key])
+            print(f"[train routes] {route} {key}: kernels {mk[key]:.6f} plain {mp[key]:.6f} "
+                  f"(|d| {r[key]:.3g}, tolerance {LOSS_TOL})")
+            if not r[key] <= LOSS_TOL:
+                raise AssertionError(f"{route}: {key} differs from the plain route")
+        for key in ("d_grad_norm", "g_grad_norm"):
+            r[key] = abs(mk[key] - mp[key]) / mp[key]
+            print(f"[train routes] {route} {key}: kernels {mk[key]:.6f} plain {mp[key]:.6f} "
+                  f"(relative {r[key]:.3g}, tolerance {NORM_RTOL})")
+            if not r[key] <= NORM_RTOL:
+                raise AssertionError(f"{route}: {key} differs from the plain route")
+        worst, worst_name = 0.0, ""
+        for name, a, b in zip(names, gk, gp):
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            if not math.isfinite(rel) or rel > worst:
+                worst, worst_name = rel, name
+        r["worst_leaf_rel"], r["worst_leaf"] = worst, worst_name
+        print(f"[train routes] {route}: {len(names)} gradient leaves, worst max|d| / max|plain| "
+              f"{worst:.4g} at {worst_name} (tolerance {LEAF_RTOL})")
+        if not worst <= LEAF_RTOL:
+            raise AssertionError(f"{route}: a gradient leaf differs from the plain route")
     return out
 
 
@@ -880,29 +1186,45 @@ def main() -> int:
         del httpd
         torch.cuda.empty_cache()
         records.update(check_bwd_kernels())
-        check_training_gate()
-        train_launches, train = train_main_path(train_dir)
+        mb_records, mb_blocks = check_megablock_kernels()
+        records.update(mb_records)
+        gate = check_training_gate()
+        train_launches, train = train_main_path(train_dir, "auto")
+        shutil.rmtree(train_dir, ignore_errors=True)
+        off_train_launches, train_off = train_main_path(train_dir, "off")
+        train["megablock_off"] = train_off
+        train["deit64"] = train_deit64()
         train["routes"] = compare_train_routes()
+        train["gate"], train["megablock_blocks"] = gate, mb_blocks
     finally:
         for d in (run_dir, off_dir, train_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
+    fb = "vitgan_tpu/ops/fused_block.py"
+    # name: (source, TPU kernel replaced, launches on its main path); the
+    # serving kernels count the serving path, the training kernels the
+    # highres128 train path under the default megablock=auto
     meta = {
         "flash_attn_fwd": ("flash_attn_fwd.cu", "vitgan_tpu/ops/attention.py:252",
                            launches["flash_attn_fwd"]),
         "ln_mlp_fwd": ("ln_mlp_fwd.cu", "vitgan_tpu/ops/fused_mlp.py:133",
                        off_launches["ln_mlp_fwd"]),
-        "ln_qkv_fwd": ("ln_qkv_fwd.cu", "vitgan_tpu/ops/fused_block.py:408",
-                       launches["ln_qkv_fwd"]),
-        "proj_ln_mlp_fwd": ("ln_mlp_fwd.cu", "vitgan_tpu/ops/fused_block.py:408",
-                            launches["proj_ln_mlp_fwd"]),
+        "ln_qkv_fwd": ("ln_qkv_fwd.cu", f"{fb}:408", launches["ln_qkv_fwd"]),
+        "proj_ln_mlp_fwd": ("ln_mlp_fwd.cu", f"{fb}:408", launches["proj_ln_mlp_fwd"]),
         "flash_attn_bwd_fused": ("flash_attn_bwd_fused.cu", "vitgan_tpu/ops/attention.py:606",
                                  train_launches["flash_attn_bwd_fused"]),
         "flash_attn_bwd_dq": ("flash_attn_bwd_dq.cu", "vitgan_tpu/ops/attention.py:701",
                               train_launches["flash_attn_bwd_dq"]),
         "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
                                train_launches["flash_attn_bwd_dkv"]),
+        "ln_mlp_train_fwd": ("ln_mlp_fwd.cu", f"{fb}:408", train_launches["ln_mlp_train_fwd"]),
+        "megablock_bwd_mlp": ("megablock_bwd_mlp.cu", f"{fb}:700",
+                              train_launches["megablock_bwd_mlp"]),
+        "megablock_bwd_ln1": ("megablock_bwd_ln1.cu", f"{fb}:700",
+                              train_launches["megablock_bwd_ln1"]),
+        "wgrad_gemm": ("wgrad_gemm.cu", f"{fb}:700", train_launches["wgrad_gemm"]),
+        "sum_partials": ("wgrad_gemm.cu", f"{fb}:700", train_launches["sum_partials"]),
     }
     kernels = []
     for name, (src, replaces, n_launch) in meta.items():
@@ -912,8 +1234,11 @@ def main() -> int:
                         "replaces": replaces, "launches": n_launch, **records[name]})
     kernels[0]["launches_megablock_off"] = off_launches["flash_attn_fwd"]
     for k in kernels:
-        if k["name"] in ("flash_attn_fwd", "ln_mlp_fwd"):
+        if k["name"] in ("flash_attn_fwd", "ln_qkv_fwd"):
             k["launches_train"] = train_launches[k["name"]]
+        if k["name"] in ("flash_attn_fwd", "ln_mlp_fwd", "flash_attn_bwd_fused",
+                         "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            k["launches_train_megablock_off"] = off_train_launches[k["name"]]
     print(json.dumps({"routes": routes}))
     print(json.dumps({"train": train}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Trains highres128 with the port's CLI on the card (synthetic data, a few
-# steps, runtime.megablock=off: under the default 'auto' the JAX package's
-# gate sends training blocks to the megablock's training kernels, which the
-# port has not yet), then serves the run directory it wrote with `cli serve`
+# steps, runtime.megablock=off: the flash and LN->MLP kernels; chip_smoke.py
+# trains the default 'auto' route through the megablock's training kernels),
+# then serves the run directory it wrote with `cli serve`
 # on a free port and sends one seeded npy request.  Run from the repository
 # root:
 #   bash scripts/port_cli_train_serve.sh [steps]

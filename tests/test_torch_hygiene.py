@@ -41,8 +41,8 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120, check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
-    for name in ("serve", "ops.fused_block", "train.step", "train.trainer", "ops.augment",
-                 "data.datasets"):
+    for name in ("serve", "ops.fused_block", "ops.wgrad", "train.step", "train.trainer",
+                 "ops.augment", "data.datasets"):
         assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"

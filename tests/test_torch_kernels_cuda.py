@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forward kernels, the three flash backward kernels, autograd through the
-flash attention on the JAX package's backward route, and the raises for what
-the kernels do not take.
+flash attention on the JAX package's backward route, the megablock's training
+forward and saved-residual backward (against autograd of the plain block) and
+the weight-gradient kernel, the training gate, and the raises for what the
+kernels do not take.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -151,29 +153,112 @@ def test_flash_attention_autograd_takes_the_jax_route_on_card(n):
 
 
 @pytest.mark.cuda
-def test_training_block_under_megablock_auto_raises_on_card():
+def test_training_block_under_megablock_auto_takes_the_saved_dropout_megablock_on_card():
     """Under megablock='auto' the JAX package's gate routes highres128's
-    training blocks (1,024 and 1,025 tokens) through the megablock's training
-    kernels; on the card the port raises there naming ROADMAP.md, and
-    megablock='off' takes the standard path."""
+    training blocks (1,024 and 1,025 tokens) through
+    encoder_block_fused_dropout_saved; so does the port on the card, and
+    megablock_bwd='recompute' and megablock='off' take the standard path."""
     _cuda_or_skip()
     from vitgan_tpu_torch import config as C
     from vitgan_tpu_torch.models.vitgan_v2 import EncoderBlock
 
     cfg = C.highres_config(128).v2
-    with torch.device("meta"):
-        block = EncoderBlock(cfg, None)
+    block = EncoderBlock(cfg, torch.Generator().manual_seed(0)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
     saved = policy.get_policy()
     try:
-        policy.set_policy(mode="auto", megablock="auto")
+        policy.set_policy(mode="auto", megablock="auto", megablock_bwd="saved")
         for n in (1024, 1025):
-            x = torch.empty(2, n, cfg.embed_dim, device="cuda", dtype=torch.bfloat16)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 items 1 and 4"):
-                FB.maybe_megablock(block, x, cfg, train=True)
-        policy.set_policy(megablock="off")
-        assert FB.maybe_megablock(block, x, cfg, train=True) is None
+            x = torch.randn(2, n, cfg.embed_dim, device="cuda").to(torch.bfloat16)
+            build.reset_launches()
+            out = FB.maybe_megablock(block, x.requires_grad_(), cfg, train=True, generator=gen)
+            torch.autograd.grad(out.float().sum(), [x, *block.parameters()])
+            torch.cuda.synchronize()
+            assert type(out.grad_fn).__name__ == "_SavedBlockBackward"
+            for name in ("ln_mlp_train_fwd", "megablock_bwd_mlp", "megablock_bwd_ln1"):
+                assert build.LAUNCHES[name] == 1
+            assert build.LAUNCHES["wgrad_gemm"] == 4 and build.LAUNCHES["ln_mlp_fwd"] == 0
+        policy.set_policy(megablock_bwd="recompute")
+        assert FB.maybe_megablock(block, x, cfg, train=True, generator=gen) is None
+        policy.set_policy(megablock="off", megablock_bwd="saved")
+        assert FB.maybe_megablock(block, x, cfg, train=True, generator=gen) is None
     finally:
         policy.set_policy(**saved)
+
+
+def _mb_inputs(b, n, e, heads, hidden, seed=0):
+    """bf16 activations and f32 parameters of one block on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return scale * torch.randn(s, generator=gen, device="cuda")
+
+    dh = e // heads
+    params = [1 + rn(e, scale=0.1), rn(e, scale=0.1), rn(3, heads, e, dh, scale=0.05),
+              rn(3, heads, dh, scale=0.1), rn(heads * dh, e, scale=0.05), rn(e, scale=0.1),
+              1 + rn(e, scale=0.1), rn(e, scale=0.1), rn(e, hidden, scale=0.05),
+              rn(hidden, scale=0.1), rn(hidden, e, scale=0.05), rn(e, scale=0.1)]
+    x, g = rn(b, n, e).to(torch.bfloat16), rn(b, n, e).to(torch.bfloat16)
+    seed_t = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+    return x, g, params, seed_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 65, 64, 2, 128), (2, 257, 192, 3, 768)],
+                         ids=["ragged_65_e64", "ragged_257_e192"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_megablock_training_kernels_match_plain_on_card(shape, rate):
+    """The training forward's masks are bit-equal to the plain Philox's and
+    its output within 2e-2 * max(1, max|plain|); the saved-residual backward
+    (megablock_bwd_mlp, the qkv recompute, the flash backward, megablock_bwd_ln1,
+    wgrad_gemm, sum_partials) gives dx and each of the 12 parameter gradients
+    within 2e-2 * its own max|plain| of autograd through the plain masked
+    block in f32."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    x, g, params, seed = _mb_inputs(*shape)
+    p = FB._block_view(params)
+    build.reset_launches()
+    if rate > 0:
+        out, res = FB.fused_encoder_block(x, p, num_heads=heads, rate=rate, seed=seed,
+                                          want_residuals=True)
+        m = b * n
+        for i, mk in ((0, res.m1), (1, res.m2)):
+            assert torch.equal(mk.reshape(m, e), FB.dropout_mask(seed, i, (m, e), rate))
+        m1, m2 = res.m1, res.m2
+    else:
+        out, res = FB.fused_encoder_block(x, p, num_heads=heads, want_residuals=True)
+        m1 = m2 = torch.ones(b, n, e, device="cuda")
+    dx, grads = FB.fused_encoder_block_bwd(params, g, res, num_heads=heads)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ln_mlp_train_fwd"] == 1 and build.LAUNCHES["megablock_bwd_mlp"] == 1
+    assert build.LAUNCHES["megablock_bwd_ln1"] == 1 and build.LAUNCHES["wgrad_gemm"] == 4
+    # two LN sums and the two second passes inside each of the 4 wgrad_gemm
+    assert build.LAUNCHES["sum_partials"] == 2 + 2 * 4 and build.LAUNCHES["ln_qkv_fwd"] == 2
+    leaves = [x.float().requires_grad_(), *(t.clone().requires_grad_() for t in params)]
+    ref = FB._block_reference_masked(leaves[0], FB._block_view(leaves[1:]), m1, m2, heads)
+    assert (out.float() - ref).abs().max().item() <= 2e-2 * max(1.0, ref.abs().max().item())
+    want = torch.autograd.grad(ref, leaves, g.float())
+    for got, w in zip((dx, *grads), want):
+        assert got.shape == w.shape
+        assert (got.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,ka,nb", [(1000, 72, 136), (4097, 384, 1536), (64, 8, 8)])
+def test_wgrad_gemm_matches_plain_on_card(rows, ka, nb):
+    """dW = A^T . B and db over ragged rows and widths against the plain
+    version, each within 2e-2 * its own max|plain|."""
+    _cuda_or_skip()
+    from vitgan_tpu_torch.ops import wgrad as WG
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn(rows, ka, generator=gen, device="cuda").to(torch.bfloat16)
+    bm = torch.randn(rows, nb, generator=gen, device="cuda").to(torch.bfloat16)
+    (dw, db), (pw, pb) = WG.wgrad_gemm(a, bm), WG.wgrad_reference(a, bm)
+    torch.cuda.synchronize()
+    assert (dw - pw).abs().max().item() <= 2e-2 * pw.abs().max().item()
+    assert (db - pb).abs().max().item() <= 2e-2 * pb.abs().max().item()
 
 
 @pytest.mark.cuda

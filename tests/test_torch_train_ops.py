@@ -9,7 +9,8 @@
   minibatch_std_feature, adam/adamw/sgd with clipping and schedules against
   optax, the discriminator with JAX weights, the synthetic dataset's bytes;
 - the megablock's training gate against the JAX package's clamps and its own
-  decision, read from the jaxpr of its gate (traced only).
+  decision, read from the jaxpr of its gate and its VJP (traced only): which
+  of the four variants, under both runtime.megablock_bwd modes.
 
 Tolerances: f32 on both sides (JAX at 'highest' matmul precision,
 tests/conftest.py).  1e-5 absolute and relative where both sides run the same
@@ -47,6 +48,7 @@ from vitgan_tpu_torch.ops import build
 from vitgan_tpu_torch.ops import fused_block as FB
 from vitgan_tpu_torch.ops import fused_mlp as FM
 from vitgan_tpu_torch.ops import policy
+from vitgan_tpu_torch.ops import wgrad as WG
 from vitgan_tpu_torch.train import losses as LO
 from vitgan_tpu_torch.train.state import Optimizer, make_lr
 from vitgan_tpu_torch.weights import from_jax_tree, load_into
@@ -425,14 +427,40 @@ def test_megablock_training_gate_is_the_jax_arithmetic(n, e, heads, hidden):
         assert FB.saved_bwd_group(8, *pads, drop) == JFB.saved_bwd_group(8, *pads, drop)
 
 
-def _jax_megablock_routes(n, e, heads, hidden, dropout, mode, monkeypatch) -> bool:
-    """The JAX package's own decision for a training block on a TPU: does the
-    jaxpr of its `_encoder_apply` gate reach a pallas_call?  Traced only."""
+def _jax_pallas_outputs(jaxpr) -> list:
+    """The output count of every pallas_call in ``jaxpr``, in order, nested
+    jaxprs included."""
+    outs = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "pallas_call":
+            outs.append(len(eqn.outvars))
+            continue
+        for val in eqn.params.values():
+            for sub in val if isinstance(val, (list, tuple)) else [val]:
+                if hasattr(sub, "jaxpr") and hasattr(sub, "consts"):
+                    outs += _jax_pallas_outputs(sub.jaxpr)
+                elif hasattr(sub, "eqns"):
+                    outs += _jax_pallas_outputs(sub)
+    return outs
+
+
+# The JAX megablock forward's pallas_call outputs by variant: out; + m1, m2;
+# + x1, z1, ao, lse; both.
+JAX_VARIANTS = {1: "encoder_block_fused", 3: "encoder_block_fused_dropout",
+                5: "encoder_block_fused_saved", 7: "encoder_block_fused_dropout_saved"}
+
+
+def _jax_megablock_variant(n, e, heads, hidden, dropout, mode, bwd, monkeypatch):
+    """The JAX package's own decision for a training block on a TPU, read
+    from the jaxpr of its `_encoder_apply` gate (traced only): the variant
+    named by the output count of the megablock forward's pallas_call, and
+    for a saved variant the 13-output backward pallas_call in the gate's VJP.
+    None: the standard path."""
     from vitgan_tpu.ops import policy as JP
 
     monkeypatch.setattr(JP, "on_tpu", lambda: True)
     saved = JP.get_policy()
-    JP.set_policy(mode="auto", megablock=mode)
+    JP.set_policy(mode="auto", megablock=mode, megablock_bwd=bwd)
     cfg = JC.V2Config(embed_dim=e, num_heads=heads, mlp_ratio=hidden // e, dropout=dropout)
     dh = e // heads
     z = jnp.zeros
@@ -445,41 +473,56 @@ def _jax_megablock_routes(n, e, heads, hidden, dropout, mode, monkeypatch) -> bo
         out = JFB.maybe_megablock(p, x, cfg, jax.random.PRNGKey(0), True)
         return x if out is None else out
 
+    xs = jax.ShapeDtypeStruct((2, n, e), jnp.bfloat16)
     try:
-        return _jax_pallas_calls(jax.make_jaxpr(gate)(
-            jax.ShapeDtypeStruct((2, n, e), jnp.bfloat16), p).jaxpr) > 0
+        try:
+            outs = _jax_pallas_outputs(jax.make_jaxpr(gate)(xs, p).jaxpr)
+        except ValueError as err:
+            # 'on' with the recompute backward checks no clamp in the gate:
+            # the block goes to the recompute variant, whose forward then
+            # refuses the shape for the TPU's VMEM
+            assert "cannot fit scoped VMEM" in str(err)
+            return "encoder_block_fused_dropout" if dropout else "encoder_block_fused"
+        if not outs:
+            return None
+        variant = JAX_VARIANTS[outs[0]]
+        if variant.endswith("_saved"):
+            vjp = jax.make_jaxpr(lambda x, p, ct: jax.vjp(gate, x, p)[1](ct))(xs, p, xs)
+            assert 13 in _jax_pallas_outputs(vjp.jaxpr)  # fused_encoder_block_bwd
+        return variant
     finally:
-        JP.set_policy(mode=saved["mode"], megablock=saved["megablock"])
+        JP.set_policy(mode=saved["mode"], megablock=saved["megablock"],
+                      megablock_bwd=saved["megablock_bwd"])
 
 
-@pytest.mark.parametrize("mode", ["auto", "on"])
+@pytest.mark.parametrize("mode,bwd", [("auto", "saved"), ("on", "saved"),
+                                      ("auto", "recompute"), ("on", "recompute")],
+                         ids=["auto", "on", "auto-recompute", "on-recompute"])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("n,e,heads,hidden", GATE_SHAPES)
-def test_megablock_training_gate_is_the_jax_decision(n, e, heads, hidden, dropout, mode,
+def test_megablock_training_gate_is_the_jax_decision(n, e, heads, hidden, dropout, mode, bwd,
                                                      monkeypatch):
-    """On the card ('on TPU' read as 'tensor on CUDA'; meta tensors stand in),
-    a training block raises naming ROADMAP.md exactly where the JAX package
-    routes it through the megablock (highres128's 1,024 and 1,025 tokens and
-    deit64's 257 under 'auto'), and takes the standard path elsewhere; on the
-    CPU 'auto' always takes the standard path."""
-    want = _jax_megablock_routes(n, e, heads, hidden, dropout, mode, monkeypatch)
+    """On the card ('on TPU' read as 'tensor on CUDA'; meta tensors stand in)
+    a training block takes the variant the JAX package's gate takes, saved
+    or recompute backward, dropout or not (highres128's 1,024 and 1,025
+    tokens and deit64's 257 take encoder_block_fused_dropout_saved under the
+    default 'auto' with dropout), and the standard path where JAX takes it;
+    on the CPU 'auto' always takes the standard path."""
+    want = _jax_megablock_variant(n, e, heads, hidden, dropout, mode, bwd, monkeypatch)
     cfg = C.V2Config(embed_dim=e, num_heads=heads, mlp_ratio=hidden // e, dropout=dropout)
     block = EncoderBlock(cfg, None)
     x = torch.empty(2, n, e, device="meta")
-    policy.set_policy(mode="auto", megablock="auto")
+    policy.set_policy(mode="auto", megablock="auto", megablock_bwd=bwd)
     assert FB.maybe_megablock(block, x, cfg, train=True) is None  # not on CUDA
     monkeypatch.setattr(FB, "on_cuda", lambda t: True)
     policy.set_policy(megablock=mode)
-    assert FB.jax_routes_training_block(block, x, cfg, mode) == want
-    if want:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 items 1 and 4"):
-            FB.maybe_megablock(block, x, cfg, train=True)
-    else:
-        assert FB.maybe_megablock(block, x, cfg, train=True) is None
+    assert FB.megablock_route(block, x, cfg, True, True) == want
     if mode == "auto":
-        assert want == (128 <= n <= 1056)
+        fits = 128 <= n <= 1056
+        assert want == (("encoder_block_fused_dropout_saved" if dropout else
+                         "encoder_block_fused_saved") if fits and bwd == "saved" else None)
     policy.set_policy(megablock="off")
-    assert FB.maybe_megablock(block, x, cfg, train=True) is None
+    assert FB.megablock_route(block, x, cfg, True, True) is None
 
 
 # --- no plain version on the card -------------------------------------------------------
@@ -487,8 +530,10 @@ def test_megablock_training_gate_is_the_jax_decision(n, e, heads, hidden, dropou
 
 def test_training_wrappers_raise_rather_than_fall_back(monkeypatch):
     """On a tensor that is not on the CPU (meta tensors stand in for CUDA
-    ones), the forward Functions and every backward wrapper raise naming
-    CUDA; the plain versions, patched to fail, are never reached."""
+    ones), the forward Functions, every backward wrapper, the megablock's
+    four training Functions, its backward pieces and the weight-gradient
+    kernel raise naming CUDA; the plain versions, patched to fail, are never
+    reached."""
     def plain(*a, **k):
         raise AssertionError("a plain version was reached off the CPU")
 
@@ -508,6 +553,34 @@ def test_training_wrappers_raise_rather_than_fall_back(monkeypatch):
     b = torch.empty(32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         FM.fused_ln_mlp(x, b, b, w1, torch.empty(64, device="meta"), w2, b)
+    # the megablock's training forms, its backward pieces and the weight gradients
+    for name in ("_block_reference", "_block_reference_masked", "_proj_ln_mlp_train_reference",
+                 "_bwd_mlp_reference", "_bwd_ln1_reference", "_ln_qkv_reference"):
+        monkeypatch.setattr(FB, name, plain)
+    monkeypatch.setattr(WG, "wgrad_reference", plain)
+    cfg = C.V2Config(embed_dim=32, num_heads=2, mlp_ratio=2)
+    block = EncoderBlock(cfg, None)
+    seed = torch.zeros(1, dtype=torch.int64, device="meta")
+    for fn in (FB.encoder_block_fused, FB.encoder_block_fused_saved):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, block, 2)
+    for fn in (FB.encoder_block_fused_dropout, FB.encoder_block_fused_dropout_saved):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, block, seed, 0.1, 2)
+    rows = x.reshape(32, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        FB.ln_mlp_train_forward(rows, rows, w2[:32], b, b, b, w1, torch.empty(64, device="meta"),
+                                w2, b, seed, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        FB.megablock_bwd_mlp(rows, None, None, rows, rows, rows, w1, w2, w2[:32], b, b, 2, 16,
+                             2)
+    with pytest.raises(ValueError, match="CUDA"):
+        FB.megablock_bwd_ln1(rows, torch.empty(3, 2, 32, 16, device="meta"), rows,
+                             rows.float(), b, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        WG.wgrad_gemm(rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        WG.wgrad(rows, rows)
 
 
 def test_cpu_train_step_never_touches_the_build(monkeypatch):

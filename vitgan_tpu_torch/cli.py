@@ -10,10 +10,10 @@ flags for these commands (vitgan_tpu/cli.py) that the port carries, and
 ``train`` writes the run directory to ``--run-dir``, else
 $SCRATCH/output/<run name> (./output/<run name> without SCRATCH).  DEV=1
 shrinks a preset-less run to the smoke config, as in the JAX CLI.  On the
-card, a preset whose training blocks the JAX package's megablock gate takes
-(highres128, deit64) raises under the default runtime.megablock=auto, naming
-ROADMAP.md; ``--set runtime.megablock=off`` trains it on the flash and
-LN->MLP kernels.
+card, highres128 and deit64 train under their default runtime.megablock=auto
+through the megablock's training kernels, as the JAX package's gate routes
+them; ``--set runtime.megablock=off`` trains them on the flash and LN->MLP
+kernels instead.
 """
 
 from __future__ import annotations

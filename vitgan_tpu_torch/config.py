@@ -85,6 +85,13 @@ class RuntimeConfig:
     # as the JAX package decides (ops/attention.backward_route).
     bwd_fusion: str = "auto"  # auto | fused | two_pass
     megablock: str = "auto"  # off | on | auto (ops/fused_block.maybe_megablock)
+    # Samples per grid step of the TPU megablock, a VMEM knob: carried for the
+    # schema, read by nothing on the GPU (the CUDA kernels tile by rows).
+    megablock_group: int = 8
+    # The megablock's training backward: 'saved' (the forward keeps x1, z1,
+    # ao and LSE; the backward kernels never re-run a forward product but the
+    # qkv projection) | 'recompute' (autograd of the plain block).
+    megablock_bwd: str = "saved"
 
 
 @dataclass(frozen=True)

@@ -56,7 +56,7 @@ def encoder_apply(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, train: bool =
     from vitgan_tpu_torch.ops.fused_block import maybe_megablock
     from vitgan_tpu_torch.ops.fused_mlp import dispatch_ln_mlp
 
-    fused = maybe_megablock(p, x, cfg, train)
+    fused = maybe_megablock(p, x, cfg, train, generator)
     if fused is not None:
         return fused
     head_dim = cfg.embed_dim // cfg.num_heads

@@ -187,32 +187,34 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1)
 
 
-def _bwd_terms(q, k, v, o, lse, do, scale: float):
-    """P = exp(S - lse) and dS = P * (dO.V^T - delta), f32 (B, H, N, N)."""
+def _bwd_terms(q, k, v, o, lse, do, scale: float, delta=None):
+    """P = exp(S - lse) and dS = P * (dO.V^T - delta), f32 (B, H, N, N);
+    delta = rowsum(dO * O) unless given."""
     p = torch.exp(_scores(q, k, scale) - lse.float()[..., None])
     dp = torch.einsum("bhnd,bhmd->bhnm", do.float(), v.float())
-    return p, p * (dp - _delta(o, do)[..., None])
+    delta = _delta(o, do) if delta is None else delta.float()
+    return p, p * (dp - delta[..., None])
 
 
-def flash_bwd_dq_reference(q, k, v, o, lse, do, scale: float):
+def flash_bwd_dq_reference(q, k, v, o, lse, do, scale: float, delta=None):
     """Plain version of the dq kernel: dq = inv_scale * dS.K, dS cast to the
     input dtype before the product, as the TPU kernel does."""
-    _, ds = _bwd_terms(q, k, v, o, lse, do, scale)
+    _, ds = _bwd_terms(q, k, v, o, lse, do, scale, delta)
     dq = torch.einsum("bhnm,bhmd->bhnd", ds.to(q.dtype).float(), k.float()) / math.sqrt(scale)
     return dq.to(q.dtype)
 
 
-def flash_bwd_dkv_reference(q, k, v, o, lse, do, scale: float):
+def flash_bwd_dkv_reference(q, k, v, o, lse, do, scale: float, delta=None):
     """Plain version of the dk/dv kernel: dv = P^T.dO, dk = inv_scale * dS^T.Q."""
-    p, ds = _bwd_terms(q, k, v, o, lse, do, scale)
+    p, ds = _bwd_terms(q, k, v, o, lse, do, scale, delta)
     dv = torch.einsum("bhnm,bhnd->bhmd", p.to(q.dtype).float(), do.float())
     dk = torch.einsum("bhnm,bhnd->bhmd", ds.to(q.dtype).float(), q.float()) / math.sqrt(scale)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_fused_reference(q, k, v, o, lse, do, scale: float):
+def flash_bwd_fused_reference(q, k, v, o, lse, do, scale: float, delta=None):
     """Plain version of the single-pass kernel: dq, dk, dv from one P and dS."""
-    p, ds = _bwd_terms(q, k, v, o, lse, do, scale)
+    p, ds = _bwd_terms(q, k, v, o, lse, do, scale, delta)
     inv = 1.0 / math.sqrt(scale)
     dsb, pb = ds.to(q.dtype).float(), p.to(q.dtype).float()
     dq = torch.einsum("bhnm,bhmd->bhnd", dsb, k.float()) * inv
@@ -221,17 +223,24 @@ def flash_bwd_fused_reference(q, k, v, o, lse, do, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_args(q, k, v, o, lse, do, what):
-    _check_kernel_inputs(what, q, k, v, o, do)
+def _bwd_args(q, k, v, o, lse, do, what, delta=None):
+    """Checked, aligned kernel inputs.  delta = rowsum(dO * O) (B, H, N) f32
+    unless given (the megablock backward forms it in its own kernel; o may
+    then be None)."""
+    _check_kernel_inputs(what, q, k, v, do, *(() if o is None else (o,)))
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"{what}: lse must be f32 {tuple(q.shape[:3])}")
+    if delta is None:
+        delta = _delta(o, do)
+    elif delta.shape != q.shape[:3] or delta.dtype != torch.float32:
+        raise ValueError(f"{what}: delta must be f32 {tuple(q.shape[:3])}")
     q, k, v, do = (build.aligned16(t.contiguous()) for t in (q, k, v, do))
-    return q, k, v, do, lse.contiguous(), _delta(o, do).contiguous()
+    return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
-def flash_backward_dq(q, k, v, o, lse, do, scale: float):
+def flash_backward_dq(q, k, v, o, lse, do, scale: float, delta=None):
     """Launch csrc/flash_attn_bwd_dq.cu; returns dq (B, H, N, D) bf16."""
-    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_dq")
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_dq", delta)
     b, h, n, d = q.shape
     dq = torch.empty_like(q)
     fn = build.entry("flash_attn_bwd_dq")
@@ -242,9 +251,9 @@ def flash_backward_dq(q, k, v, o, lse, do, scale: float):
     return dq
 
 
-def flash_backward_dkv(q, k, v, o, lse, do, scale: float):
+def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None):
     """Launch csrc/flash_attn_bwd_dkv.cu; returns (dk, dv) bf16."""
-    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_dkv")
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_dkv", delta)
     b, h, n, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = build.entry("flash_attn_bwd_dkv")
@@ -255,11 +264,11 @@ def flash_backward_dkv(q, k, v, o, lse, do, scale: float):
     return dk, dv
 
 
-def flash_backward_fused(q, k, v, o, lse, do, scale: float):
+def flash_backward_fused(q, k, v, o, lse, do, scale: float, delta=None):
     """Launch csrc/flash_attn_bwd_fused.cu; returns (dq, dk, dv) bf16.  dq is
     summed across k-blocks by f32 atomics into a scratch buffer, then scaled
     and cast, so its bits vary from run to run (PERF.md)."""
-    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_fused")
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_fused", delta)
     b, h, n, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -272,19 +281,19 @@ def flash_backward_fused(q, k, v, o, lse, do, scale: float):
     return dq, dk, dv
 
 
-def flash_backward(q, k, v, o, lse, do, scale: float):
+def flash_backward(q, k, v, o, lse, do, scale: float, delta=None):
     """(dq, dk, dv) on :func:`backward_route`'s route: the kernels for CUDA
-    tensors (or raise), their plain versions for CPU tensors."""
+    tensors (or raise), their plain versions for CPU tensors.  With ``delta``
+    given, ``o`` is not read."""
     route = backward_route(q.shape[-2], q.shape[-1], q.element_size())
+    args = (q, k, v, o, lse, do, scale, delta)
     if q.device.type == "cpu":
         if route == "fused":
-            return flash_bwd_fused_reference(q, k, v, o, lse, do, scale)
-        return (flash_bwd_dq_reference(q, k, v, o, lse, do, scale),
-                *flash_bwd_dkv_reference(q, k, v, o, lse, do, scale))
+            return flash_bwd_fused_reference(*args)
+        return flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args)
     if route == "fused":
-        return flash_backward_fused(q, k, v, o, lse, do, scale)
-    return (flash_backward_dq(q, k, v, o, lse, do, scale),
-            *flash_backward_dkv(q, k, v, o, lse, do, scale))
+        return flash_backward_fused(*args)
+    return flash_backward_dq(*args), *flash_backward_dkv(*args)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -27,8 +27,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each kernel library's entry point (named as its source).
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# C signature of each entry point.  An entry lives in the library of the same
+# name unless SOURCE names another.
 SIGNATURES = {
     # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, stream
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
@@ -43,11 +44,25 @@ SIGNATURES = {
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, stream
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, out, m1, m2, x1, z1,
+    # m, e, hd, hidden, eps, threshold, inv_keep, stream
+    "ln_mlp_train_fwd": [_P] * 16 + [_I] * 4 + [_F, _U, _F, _P],
+    # g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, dmlp, dz1, h1, y2, dx1, da,
+    # dao, delta, part, batch, n, e, heads, dh, hidden, eps, stream
+    "megablock_bwd_mlp": [_P] * 20 + [_I] * 6 + [_F, _P],
+    # dqkv, wqkv, x, dx1, ln_s, ln_b, dx, y1, part, m, e, k, eps, stream
+    "megablock_bwd_ln1": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # a, b, dw, db, scratch, m, ka, nb, splits, stream
+    "wgrad_gemm": [_P] * 5 + [_I] * 4 + [_P],
+    # part, out, splits, count, stream
+    "sum_partials": [_P] * 2 + [_I] * 2 + [_P],
 }
+SOURCE = {"ln_mlp_train_fwd": "ln_mlp_fwd", "sum_partials": "wgrad_gemm"}
+SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 
-# Launch counts by wrapper.  ln_mlp_fwd.cu serves two wrappers: the plain
-# LN->MLP ("ln_mlp_fwd") and the megablock's out-projection form
-# ("proj_ln_mlp_fwd").
+# Launch counts by wrapper.  ln_mlp_fwd.cu serves three wrappers: the plain
+# LN->MLP ("ln_mlp_fwd"), the megablock's out-projection form
+# ("proj_ln_mlp_fwd") and its training form ("ln_mlp_train_fwd").
 LAUNCHES = {name: 0 for name in SIGNATURES}
 LAUNCHES["proj_ln_mlp_fwd"] = 0
 
@@ -84,10 +99,10 @@ def lib_path(name: str) -> str:
 
 
 def build(names=None) -> dict:
-    """Compile the named kernels (default: all) in parallel, one ``nvcc`` per
+    """Compile the named sources (default: all) in parallel, one ``nvcc`` per
     source.  Returns {name: seconds}; 0.0 for a library already built.
     Raises RuntimeError with nvcc's output when a build fails."""
-    names = list(SIGNATURES) if names is None else list(names)
+    names = SOURCES if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
     procs = {}
@@ -126,13 +141,14 @@ def build_log(name: str) -> str:
 
 
 def entry(name: str):
-    """The bound C entry point of kernel library ``name``, built if needed."""
+    """The bound C entry point ``name``, its library built if needed."""
     with _LOCK:
         fn = _LIBS.get(name)
         if fn is None:
-            path = lib_path(name)
+            source = SOURCE.get(name, name)
+            path = lib_path(source)
             if not os.path.exists(path):
-                build([name])
+                build([source])
             lib = ctypes.CDLL(path)
             fn = getattr(lib, name)
             fn.argtypes = SIGNATURES[name]

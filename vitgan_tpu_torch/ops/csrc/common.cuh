@@ -129,6 +129,13 @@ __device__ inline void load_b_kn(uint32_t (&b)[4], const bf16* tile, int ld, int
   ldsm_x4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
 }
 
+// A operand (16x16) at (m0, k0) of A stored transposed, as a row-major [k][m]
+// tile (the row-summed operand of a weight gradient A^T . B).
+__device__ inline void load_a_km(uint32_t (&a)[4], const bf16* tile, int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(a, tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 + ((lane >> 3) & 1) * 8);
+}
+
 // The same from a row-major [n][k] tile (B^T stored, as K for q.k^T).
 __device__ inline void load_b_nk(uint32_t (&b)[4], const bf16* tile, int ld, int k0, int n0) {
   const int lane = threadIdx.x & 31;
@@ -163,6 +170,52 @@ __device__ inline void cp_tile(bf16* dst, int ldd, const bf16* __restrict__ src,
 // it.  The TPU kernels evaluate erf with the Abramowitz-Stegun 7.1.26
 // polynomial instead (Mosaic has no erf); the two differ by less than 1.5e-7.
 __device__ inline float gelu(float z) { return 0.5f * z * (1.f + erff(z * 0.70710678118654752f)); }
+
+// Its exact derivative, 0.5 (1 + erf(z / sqrt 2)) + z phi(z).  (The TPU
+// kernels differentiate their erf polynomial instead; the two differ by less
+// than 1e-6.)
+__device__ inline float gelu_grad(float z) {
+  return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +
+         z * 0.39894228040143268f * __expf(-0.5f * z * z);
+}
+
+// --- dropout bits: Philox4x32-10 (Salmon et al., SC'11) ---------------------
+// Counter-based: the 32 bits of element i of mask `id` are word i % 4 of
+// philox(counter (i / 4 low, i / 4 high, id, 0), key (seed low, seed high)), so
+// they depend on nothing but the seed and the element's place.  The plain
+// version (ops/fused_block.philox4x32_10) gives the same bits.
+__device__ inline uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// The key from the seed, a one-element int64 device tensor (read on the card:
+// the host never waits for it).
+__device__ inline uint2 seed_key(const long long* seed) {
+  const unsigned long long s = static_cast<unsigned long long>(*seed);
+  return make_uint2(static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32));
+}
+
+// Inverted-dropout multiply-masks of elements idx and idx + 1 (idx even) of
+// mask `id`: inv_keep where the bits are >= threshold, else 0 (the TPU
+// kernel's rule, vitgan_tpu/ops/fused_block.py:115-123).
+__device__ inline float2 dropout_pair(uint2 key, uint32_t id, long long idx, uint32_t threshold,
+                                      float inv_keep) {
+  const unsigned long long q = static_cast<unsigned long long>(idx) >> 2;
+  const uint4 w = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32), id, 0u), key);
+  const uint32_t b0 = (idx & 2) ? w.z : w.x, b1 = (idx & 2) ? w.w : w.y;
+  return make_float2(b0 >= threshold ? inv_keep : 0.f, b1 >= threshold ? inv_keep : 0.f);
+}
 
 }  // namespace vk
 

@@ -25,10 +25,26 @@
 // GELU is the exact erf form (see common.cuh).  E, hidden and H*Dh must be
 // multiples of 8 (16-byte copies); E <= 384 (shared memory).
 //
+// Training instantiation (TRAIN = true; entry ln_mlp_train_fwd), the third
+// launch of the TPU megablock's training forms (`_kernel` with rate > 0 and
+// want_res, fused_block.py:111-123, 186-209):
+//     a   = attn . wout + bout
+//     x1  = x + m1 * a                    (written as bf16: a saved residual)
+//     z1  = LN2(x1) . w1 + b1             (written as bf16 chunk by chunk)
+//     out = x1 + m2 * (gelu(z1) . w2 + b2)
+// m1 and m2 are f32 multiply-masks drawn in the kernel from Philox4x32-10
+// (common.cuh) and written out, as the TPU kernel returns them; with no
+// dropout they are 1 and not written.  The mask applies before the residual,
+// so the accumulators start from zero and the epilogue adds x1, read back
+// from this thread's own bf16 x1 stores.  The serving instantiation is
+// unchanged: the template flag removes every training branch from it.
+//
 // Bound on this card.  At the serving shape (65,536 rows, E 384, hidden
 // 1,536) a launch does 4*65536*384*1536 = 1.55e11 flops on 101 MB of
 // activations and 2.4 MB of weights: 0.16 ms of tensor-core time against
-// 0.03 ms of HBM time, so the tensor cores bound it.  Every 64-row block
+// 0.03 ms of HBM time, so the tensor cores bound it.  The training form at
+// G's 32,768 rows also writes z1 (101 MB), two f32 masks (101 MB) and x1:
+// ~0.08 ms of HBM time against ~0.09 ms of tensor-core time.  Every 64-row block
 // reads all the weights once from L2 (2.4 GB in all at this shape), which
 // is the next limit after the tensor cores.  The prologue adds
 // 2*65536*384*384 = 1.9e10 flops and 50 MB.
@@ -61,6 +77,18 @@ struct MlpSmem {
   }
 };
 
+// The training instantiation's extra arguments; m1 == nullptr: no dropout.
+struct TrainArgs {
+  const long long* seed;
+  float* m1;
+  float* m2;
+  bf16* x1;
+  bf16* z1;
+  uint32_t threshold;
+  float inv_keep;
+};
+
+template <bool TRAIN>
 __global__ void __launch_bounds__(NWARP * 32)
 ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
                   const bf16* __restrict__ wout, const float* __restrict__ bout,
@@ -68,7 +96,7 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
                   const bf16* __restrict__ w1, const float* __restrict__ b1,
                   const bf16* __restrict__ w2, const float* __restrict__ b2,
                   bf16* __restrict__ out, int m, int e, int ep, int hd, int hidden, float eps,
-                  int residual) {
+                  int residual, TrainArgs tr) {
   const MlpSmem L(ep);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ys = reinterpret_cast<bf16*>(smem);
@@ -86,6 +114,8 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
   const int rg = (warp & 3) * 16;           // this warp's 16 rows
   const int cbase = (warp >> 2) * (ep / 2);  // and its half of the output columns
   const int nt = ep / 16;                   // its 8-column accumulator tiles
+  const bool drop = TRAIN && tr.m1 != nullptr;
+  const uint2 key = drop ? seed_key(tr.seed) : make_uint2(0u, 0u);
 
   float acc[MAXNT][4];
 #pragma unroll
@@ -140,10 +170,28 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
           const int r = rg + g + 8 * h;
           const float2 xv = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(ys + r * L.ldy + col));
-          acc[j][2 * h] += bias0 + xv.x;
-          acc[j][2 * h + 1] += bias1 + xv.y;
-          *reinterpret_cast<float2*>(st + r * L.ldst + col) =
-              make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+          if constexpr (TRAIN) {
+            // x1 = x + m1 * a; the MLP then accumulates from zero
+            const int gr = row0 + r;
+            const bool ok = gr < m && col < e;
+            float a0 = acc[j][2 * h] + bias0, a1 = acc[j][2 * h + 1] + bias1;
+            if (drop) {
+              const float2 mk =
+                  dropout_pair(key, 0u, (long long)gr * e + col, tr.threshold, tr.inv_keep);
+              a0 *= mk.x;
+              a1 *= mk.y;
+              if (ok) *reinterpret_cast<float2*>(tr.m1 + (long)gr * e + col) = mk;
+            }
+            const float v0 = xv.x + a0, v1 = xv.y + a1;
+            if (ok) *reinterpret_cast<uint32_t*>(tr.x1 + (long)gr * e + col) = pack_bf16(v0, v1);
+            *reinterpret_cast<float2*>(st + r * L.ldst + col) = make_float2(v0, v1);
+            acc[j][2 * h] = acc[j][2 * h + 1] = 0.f;
+          } else {
+            acc[j][2 * h] += bias0 + xv.x;
+            acc[j][2 * h + 1] += bias1 + xv.y;
+            *reinterpret_cast<float2*>(st + r * L.ldst + col) =
+                make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+          }
         }
       }
     }
@@ -214,6 +262,12 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
       const float bias1 = gc + 1 < hidden ? b1[gc + 1] : 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        if constexpr (TRAIN) {  // the fc1 pre-activation z1, a saved residual
+          const int gr = row0 + rg + g + 8 * h;
+          if (gr < m && gc < hidden)
+            *reinterpret_cast<uint32_t*>(tr.z1 + (long)gr * hidden + gc) =
+                pack_bf16(hacc[j][2 * h] + bias0, hacc[j][2 * h + 1] + bias1);
+        }
         const float v0 = gc < hidden ? gelu(hacc[j][2 * h] + bias0) : 0.f;
         const float v1 = gc + 1 < hidden ? gelu(hacc[j][2 * h + 1] + bias1) : 0.f;
         *reinterpret_cast<uint32_t*>(hs + (rg + g + 8 * h) * L.ldh + col) = pack_bf16(v0, v1);
@@ -234,9 +288,24 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int gr = row0 + rg + g + 8 * h;
-          if (gr < m)
+          if (gr >= m) continue;
+          if constexpr (TRAIN) {  // out = x1 + m2 * (mlp + b2)
+            float o0 = acc[j][2 * h] + bias0, o1 = acc[j][2 * h + 1] + bias1;
+            if (drop) {
+              const float2 mk =
+                  dropout_pair(key, 1u, (long long)gr * e + col, tr.threshold, tr.inv_keep);
+              o0 *= mk.x;
+              o1 *= mk.y;
+              *reinterpret_cast<float2*>(tr.m2 + (long)gr * e + col) = mk;
+            }
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(tr.x1 + (long)gr * e + col));
+            *reinterpret_cast<uint32_t*>(out + (long)gr * e + col) =
+                pack_bf16(xv.x + o0, xv.y + o1);
+          } else {
             *reinterpret_cast<uint32_t*>(out + (long)gr * e + col) =
                 pack_bf16(acc[j][2 * h] + bias0, acc[j][2 * h + 1] + bias1);
+          }
         }
       }
     }
@@ -256,14 +325,46 @@ extern "C" int ln_mlp_fwd(const void* x, const void* attn, const void* wout, con
   const int ep = ceil_to(e, 32);
   if (ep / 16 > MAXNT || e % 8 || hidden % 8 || hd % 8) return (int)cudaErrorInvalidValue;
   const MlpSmem L(ep);
-  cudaFuncSetAttribute(ln_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(ln_mlp_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)L.bytes);
-  ln_mlp_fwd_kernel<<<(m + BM - 1) / BM, NWARP * 32, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  ln_mlp_fwd_kernel<false><<<(m + BM - 1) / BM, NWARP * 32, L.bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(attn),
       static_cast<const bf16*>(wout), static_cast<const float*>(bout),
       static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), m,
-      e, ep, hd, hidden, eps, residual);
+      e, ep, hd, hidden, eps, residual, TrainArgs{});
+  return (int)cudaGetLastError();
+}
+
+// The training form: as ln_mlp_fwd with the prologue (attn, wout, bout are
+// required), plus seed (one int64 on the card), x1 (m, e) bf16, z1 (m, hidden)
+// bf16 and, with dropout, m1 and m2 (m, e) f32 (m1 == NULL: no dropout, m2
+// unused).  threshold = min(rate * 2^32, 2^32 - 1); inv_keep = 1 / (1 - rate).
+extern "C" int ln_mlp_train_fwd(const void* x, const void* attn, const void* wout,
+                                const void* bout, const void* ln_s, const void* ln_b,
+                                const void* w1, const void* b1, const void* w2, const void* b2,
+                                const void* seed, void* out, void* m1, void* m2, void* x1,
+                                void* z1, int m, int e, int hd, int hidden, float eps,
+                                unsigned int threshold, float inv_keep, void* stream) {
+  const int ep = ceil_to(e, 32);
+  if (ep / 16 > MAXNT || e % 8 || hidden % 8 || hd % 8 || attn == nullptr || x1 == nullptr ||
+      z1 == nullptr || (m1 != nullptr && (m2 == nullptr || seed == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const MlpSmem L(ep);
+  cudaFuncSetAttribute(ln_mlp_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)L.bytes);
+  const TrainArgs tr{static_cast<const long long*>(seed), static_cast<float*>(m1),
+                     static_cast<float*>(m2), static_cast<bf16*>(x1), static_cast<bf16*>(z1),
+                     threshold, inv_keep};
+  ln_mlp_fwd_kernel<true><<<(m + BM - 1) / BM, NWARP * 32, L.bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(attn),
+      static_cast<const bf16*>(wout), static_cast<const float*>(bout),
+      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), m,
+      e, ep, hd, hidden, eps, 1, tr);
   return (int)cudaGetLastError();
 }

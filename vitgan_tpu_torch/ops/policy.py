@@ -1,12 +1,13 @@
 """Process-wide kernel routing policy, set once from RuntimeConfig.
 
-- ``mode``:         'auto' | 'always' | 'never' — kernel routing
-- ``min_seq_len``:  sequence threshold for the flash-attention kernel in 'auto'
-- ``min_mlp_rows``: row threshold for the fused LN+MLP kernel in 'auto'
-- ``megablock``:    'auto' | 'on' | 'off' — the v2 encoder block as one fused
-                    forward (ops/fused_block.py)
-- ``bwd_fusion``:   'auto' | 'fused' | 'two_pass' — the flash backward
-                    (ops/attention.backward_route)
+- ``mode``:            'auto' | 'always' | 'never' — kernel routing
+- ``min_seq_len``:     sequence threshold for the flash-attention kernel in 'auto'
+- ``min_mlp_rows``:    row threshold for the fused LN+MLP kernel in 'auto'
+- ``megablock``:       'auto' | 'on' | 'off' — the v2 encoder block as one fused
+                       forward (ops/fused_block.py)
+- ``megablock_bwd``:   'saved' | 'recompute' — the megablock's training backward
+- ``bwd_fusion``:     'auto' | 'fused' | 'two_pass' — the flash backward
+                       (ops/attention.backward_route)
 
 Where the JAX package asks "on TPU?", the port asks "is the tensor on CUDA?".
 The thresholds are the JAX package's, set by measurements on a TPU; they are
@@ -18,12 +19,12 @@ from __future__ import annotations
 import torch
 
 _POLICY = {"mode": "auto", "min_seq_len": 256, "min_mlp_rows": 2048, "megablock": "auto",
-           "bwd_fusion": "auto"}
+           "bwd_fusion": "auto", "megablock_bwd": "saved"}
 
 
 def set_policy(mode: str | None = None, min_seq_len: int | None = None,
                min_mlp_rows: int | None = None, megablock: str | None = None,
-               bwd_fusion: str | None = None) -> None:
+               bwd_fusion: str | None = None, megablock_bwd: str | None = None) -> None:
     if mode is not None:
         if mode not in ("auto", "always", "never"):
             raise ValueError(f"unknown kernel mode {mode!r}")
@@ -40,6 +41,10 @@ def set_policy(mode: str | None = None, min_seq_len: int | None = None,
         if bwd_fusion not in ("auto", "fused", "two_pass"):
             raise ValueError(f"unknown bwd_fusion mode {bwd_fusion!r}")
         _POLICY["bwd_fusion"] = bwd_fusion
+    if megablock_bwd is not None:
+        if megablock_bwd not in ("saved", "recompute"):
+            raise ValueError(f"unknown megablock_bwd mode {megablock_bwd!r}")
+        _POLICY["megablock_bwd"] = megablock_bwd
 
 
 def get_policy() -> dict:
@@ -55,6 +60,13 @@ def megablock_mode() -> str:
     return _POLICY["megablock"]
 
 
+def megablock_bwd_mode() -> str:
+    """'saved': the forward keeps x1/z1/ao/LSE and the backward kernels never
+    re-run a forward product but the qkv projection; 'recompute': autograd
+    of the plain block (the JAX package's `megablock_bwd_mode`)."""
+    return _POLICY["megablock_bwd"]
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
@@ -68,8 +80,9 @@ def same_device(generator: torch.Generator, t: torch.Tensor) -> bool:
 
 
 def apply_from_runtime(runtime_cfg) -> None:
-    """Configure from a RuntimeConfig.  ``runtime.remat`` is carried for the
-    preset's parity with the JAX package and not read: the port does not
-    rematerialize yet (ROADMAP.md queue 1 item 12)."""
+    """Configure from a RuntimeConfig.  ``runtime.remat`` and
+    ``runtime.megablock_group`` are carried for the preset's parity with the
+    JAX package and not read: the port does not rematerialize yet (ROADMAP.md
+    queue 1 item 12), and the group is a TPU VMEM knob."""
     set_policy(mode=runtime_cfg.use_pallas, megablock=runtime_cfg.megablock,
-               bwd_fusion=runtime_cfg.bwd_fusion)
+               bwd_fusion=runtime_cfg.bwd_fusion, megablock_bwd=runtime_cfg.megablock_bwd)
