@@ -63,6 +63,36 @@
    route, the megablock=auto route and use_pallas=never, and holds losses,
    gradient norms and every gradient leaf of each kernel route to the plain
    one.
+13. Holds the `l2` and `l2ref` flash forward (output and LSE) and the `l2`
+   dq, dk/dv and single-pass kernels against their plain versions at the v1
+   discriminator's shape (256, 4, 50, 108), a ragged (4, 4, 1025, 108) and
+   (8, 6, 1024, 64), with the forward and backward limits above; times each
+   beside its bound, its plain version and, for `l2`, scaled_dot_product_
+   attention with the -inv |k|^2 key mask (the same softmax but for the
+   clamp; library_ms, timed only) and, at the discriminator's shape, the
+   device time of each wrapper's own kernels and of its other work (pads,
+   delta).  Then the `dot` forward and single-pass backward at the v1
+   generator's shape (128, 4, 32, 96), scale 384, with the same limits.
+14. Trains the v1 ViTGAN at the reference defaults (batch 128, latent 1,024,
+   G hidden 384 depth 4, D 50 tokens width 432 depth 4 with ISR) under
+   runtime.use_pallas=always through Trainer: 2 warm-up steps, 5 by fit,
+   the launches per step asserted (V1_KERNELS: every attention on a
+   kernel, `l2` forward and two-pass backward in D, no plain attention),
+   a profiled breakdown; restores the run directory, runs `cli generate`
+   and serves one HTTP request from it.  Then 1 + 3 steps with
+   runtime.bwd_fusion=fused, whose D backward takes the `l2` single pass.
+15. Runs one v1 train step at batch 8, dropout 0, from the same state,
+   batch and latents on use_pallas=always (both backward routes, bf16) and
+   use_pallas=never (bf16 and f32): losses, gradient norms, every gradient
+   leaf (a scalar leaf against the sum of its per-sample terms' magnitudes)
+   and the ISR u buffers after the step of each kernel route held to the f32
+   plain route (the bf16 plain route's own distance printed beside); under
+   'auto' the step launches no kernel (the JAX decision at 32 and 50
+   tokens).
+16. Drives the `l2ref` route, an ISR attention of the v1 discriminator's
+   width under use_pallas=always, forward and backward: the forward kernel
+   once, the backward by autograd of the plain chunked recompute (the JAX
+   package's, which has no kernel for it).
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -106,6 +136,9 @@ IMAGE_MAX_TOL, IMAGE_MEAN_TOL = 0.0625, 0.01
 # back.  Losses within LOSS_TOL absolute; gradient norms within NORM_RTOL
 # relative; every gradient leaf within LEAF_RTOL * max|plain leaf|.
 LOSS_TOL, NORM_RTOL, LEAF_RTOL = 2e-2, 5e-2, 1e-1
+# The ISR u vectors (unit vectors) after one v1 step, kernel route against
+# the plain one: max |d| within U_TOL.
+U_TOL = 1e-3
 
 
 def _smi() -> str:
@@ -127,6 +160,32 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, kernels: tuple) -> tuple:
+    """Device time per call of ``fn`` under torch.profiler over ``iters``
+    calls: (the kernels whose CUDA symbols hold one of ``kernels``, every
+    other device operation of the call: the wrapper's pads, copies, memsets
+    and reductions).  (None, None) where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    own = other = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = e.self_device_time_total / 1e3 / iters
+            if any(k in e.key for k in kernels):
+                own += t
+            else:
+                other += t
+    return (own, other) if own > 0 else (None, None)
 
 
 def _bound(flops: float, nbytes: float):
@@ -178,6 +237,26 @@ def _case(b, n, e, heads, hidden, gen):
         w1=rn(e, hidden, scale=0.02), b1=rn(hidden, scale=0.1, dtype=f32),
         w2=rn(hidden, e, scale=0.02), b2=rn(e, scale=0.1, dtype=f32),
         dims=(b, n, e, heads, dh, hidden))
+
+
+def _ptxas_kernels(log: str) -> list:
+    """(mangled name, registers, spill store bytes, spill load bytes) of each
+    kernel in an `nvcc -Xptxas -v` log."""
+    import re
+
+    out, func, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            func, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            out.append((func, int(m.group(1)), *spill))
+            func = None
+    return out
 
 
 def check_kernels() -> dict:
@@ -975,6 +1054,10 @@ PORT_KERNELS = (("flash_bwd_kv_kernel", "flash backward k-block (single-pass or 
 def _kernel_group(name: str) -> str:
     for key, label in PORT_KERNELS:
         if key in name:
+            if label.startswith("flash"):  # the score mode: the last template argument
+                start = name.find("<", name.find(key))
+                last = name[start + 1:name.find(">", start)].split(",")[-1].strip()
+                label += {"1": " [l2]", "2": " [l2ref]"}.get(last, "")
             return label
     low = name.lower()
     if "gemm" in low or "xmma" in low or "cutlass" in low or "sm90" in low:
@@ -1145,6 +1228,654 @@ def compare_train_routes() -> dict:
     return out
 
 
+L2_SHAPES = (("D", (256, 4, 50, 108)), ("ragged", (4, 4, 1025, 108)),
+             ("wide", (8, 6, 1024, 64)))
+L2_MAIN_SHAPE = "D"
+# The CUDA symbols of each flash wrapper's own kernels (the single pass also
+# runs its dq scale-and-cast pass), for _device_ms.
+FLASH_SYMBOLS = {"flash_attn_fwd": ("flash_attn_fwd_kernel",),
+                 "flash_attn_bwd_fused": ("flash_bwd_kv_kernel", "scale_cast_kernel"),
+                 "flash_attn_bwd_dq": ("flash_bwd_dq_kernel",),
+                 "flash_attn_bwd_dkv": ("flash_bwd_kv_kernel",)}
+
+
+def _with_device_ms(rec: dict, fn, iters: int, base: str) -> dict:
+    """``rec`` with the device time per call of the wrapper ``fn``: its own
+    kernels (device_ms) and the rest (other_device_ms)."""
+    rec["device_ms"], rec["other_device_ms"] = _device_ms(fn, iters, FLASH_SYMBOLS[base])
+    return rec
+
+
+def _l2_library(q, k, v, inv: float):
+    """scaled_dot_product_attention computing the `l2` softmax: the |q|^2
+    term is constant along a row, so softmax(-inv d2) = softmax(2 inv q.k -
+    inv |k|^2) but for the max(., 0) clamp.  A timing reference only."""
+    import torch.nn.functional as F
+
+    mask = (-inv * (k.detach().float() ** 2).sum(-1))[:, :, None, :].to(q.dtype)
+    return lambda q_=q, k_=k, v_=v: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask,
+                                                                   scale=2.0 * inv)
+
+
+def check_l2_kernels() -> dict:
+    """The `l2`/`l2ref` forward and the `l2` backward kernels against their
+    plain versions on the same bf16 inputs at L2_SHAPES, timed beside their
+    bounds, their plain versions and (`l2`) SDPA with the key mask.  Returns
+    {"name[mode]": record}; the record at the discriminator's shape."""
+    import torch
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bwd = {"flash_attn_bwd_fused": (A.flash_backward_fused, A.flash_bwd_fused_reference, 5, 3),
+           "flash_attn_bwd_dq": (A.flash_backward_dq, A.flash_bwd_dq_reference, 3, 1),
+           "flash_attn_bwd_dkv": (A.flash_backward_dkv, A.flash_bwd_dkv_reference, 4, 2)}
+    out = {k: {} for k in ("flash_attn_fwd[l2]", "flash_attn_fwd[l2ref]",
+                           *(f"{name}[l2]" for name in bwd))}
+    for label, shape in L2_SHAPES:
+        b, h, n, dh = shape
+        scale = float(h * dh)  # the v1 MHSA's softmax scale, H * Dh
+        inv = 1.0 / math.sqrt(scale)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        print(f"[l2 kernels] {label}: B {b} H {h} N {n} Dh {dh}, scale {scale:g}")
+        elem = b * h * n * dh * 2
+        iters = 20 if n < 512 else 10
+        recs = {}
+        for mode in ("l2", "l2ref"):
+            name = f"flash_attn_fwd[{mode}]"
+            kern = lambda mode=mode: A.flash_forward(q, k, v, scale, score_mode=mode)  # noqa: E731
+            plain = lambda mode=mode: A.attention_forward_reference(q, k, v, scale, mode)  # noqa
+            (o, lse), (po, plse) = kern(), plain()
+            err = _err(o, po, f"{name} {label}")
+            lse_err = (lse - plse).abs().max().item()
+            print(f"  {name} {label} lse: max_abs_err {lse_err:.6g} (tolerance 1e-2)")
+            if not lse_err <= 1e-2:
+                raise AssertionError(f"{name}: LSE disagrees with the plain logsumexp")
+            library = _l2_library(q, k, v, inv) if mode == "l2" else None
+            bound_ms, bound_by = _bound(4.0 * b * h * n * n * dh, 4 * elem + b * h * n * 4)
+            recs[name] = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+                          "ms": _time_ms(kern, iters), "plain_ms": _time_ms(plain, 3),
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": _time_ms(library, iters) if library else None}
+            if label == L2_MAIN_SHAPE:
+                _with_device_ms(recs[name], kern, iters, "flash_attn_fwd")
+            if library:
+                lib_err = (library().float() - po.float()).abs().max().item()
+                print(f"  SDPA with the key mask against the plain `l2`: max |d| {lib_err:.4g} "
+                      "(the mask in bf16; not a check)")
+            del o, lse, po, plse
+        o, lse = A.flash_forward(q, k, v, scale, score_mode="l2")
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = _l2_library(qg, kg, vg, inv)()
+        library_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                          retain_graph=True), iters)
+        for base, (kern, plain, products, writes) in bwd.items():
+            name = f"{base}[l2]"
+            args = (q, k, v, o, lse, do, scale)
+            got = kern(*args, score_mode="l2")
+            want = plain(*args, score_mode="l2")
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
+                      for i, (g_, w_) in enumerate(zip(got, want)))
+            del got, want
+            bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
+                                        (5 + writes) * elem + b * h * n * 4)
+            recs[name] = {"max_abs_err": err,
+                          "ms": _time_ms(lambda: kern(*args, score_mode="l2"), iters),
+                          "plain_ms": _time_ms(lambda: plain(*args, score_mode="l2"), 3),
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            if label == L2_MAIN_SHAPE:
+                _with_device_ms(recs[name], lambda: kern(*args, score_mode="l2"), iters, base)
+        for name, r in recs.items():
+            dev = (f"; on the device {r['device_ms']} ms in its kernels, {r['other_device_ms']} ms "
+                   "in the wrapper's other work" if "device_ms" in r else "")
+            print(f"  {name} {label}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}{dev})")
+            if label == L2_MAIN_SHAPE:
+                out[name].update(r)
+            else:
+                out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
+                out[name][f"{label}_ms"] = r["ms"]
+        del q, k, v, do, o, lse, qg, kg, vg, lib_out
+        torch.cuda.empty_cache()
+    return out
+
+
+# The v1 generator's attention at the reference defaults: batch 128, 4 heads
+# of 96 over 32 tokens, softmax scale H * Dh = 384 (`dot`; the single-pass
+# backward at 32 tokens).
+V1_G_SHAPE, V1_G_SCALE = (128, 4, 32, 96), 384.0
+
+
+def check_v1_dot_kernels() -> dict:
+    """The `dot` forward and single-pass backward kernels, as the v1
+    generator runs them (their Dh 96 instantiations), against their plain
+    versions on the same bf16 inputs at V1_G_SHAPE: o within KERNEL_RTOL *
+    max(1, max|plain|), the LSE within 1e-2, each gradient within KERNEL_RTOL
+    * its own max|plain|; timed beside the bound, the plain version, SDPA
+    (forward; backward) and the wrapper's device time.  Returns {name: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    b, h, n, dh = V1_G_SHAPE
+    scale = V1_G_SCALE
+    q, k, v, do = (torch.randn(V1_G_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    print(f"[v1 dot kernels] G: B {b} H {h} N {n} Dh {dh}, scale {scale:g}")
+    elem, iters = b * h * n * dh * 2, 20
+    fwd = lambda: A.flash_forward(q, k, v, scale)  # noqa: E731
+    fwd_plain = lambda: A.attention_forward_reference(q, k, v, scale, "dot")  # noqa: E731
+    (o, lse), (po, plse) = fwd(), fwd_plain()
+    err = _err(o, po, "flash_attn_fwd v1 G")
+    lse_err = (lse - plse).abs().max().item()
+    print(f"  flash_attn_fwd v1 G lse: max_abs_err {lse_err:.6g} (tolerance 1e-2)")
+    if not lse_err <= 1e-2:
+        raise AssertionError("flash_attn_fwd at v1 G: LSE disagrees with the plain logsumexp")
+    inv = 1.0 / math.sqrt(scale)
+    bound_ms, bound_by = _bound(4.0 * b * h * n * n * dh, 4 * elem + b * h * n * 4)
+    out = {"flash_attn_fwd": _with_device_ms(
+        {"shape": list(V1_G_SHAPE), "scale": scale, "max_abs_err": err, "lse_max_abs_err": lse_err,
+         "ms": _time_ms(fwd, iters), "plain_ms": _time_ms(fwd_plain, 3), "bound_ms": bound_ms,
+         "bound_by": bound_by,
+         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=inv),
+                                iters)}, fwd, iters, "flash_attn_fwd")}
+    args = (q, k, v, o, lse, do, scale)
+    got, want = A.flash_backward_fused(*args), A.flash_bwd_fused_reference(*args)
+    err = max(_err(g_, w_, f"flash_attn_bwd_fused v1 G out{i}", own_scale=True)
+              for i, (g_, w_) in enumerate(zip(got, want)))
+    del got, want
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=inv)
+    bound_ms, bound_by = _bound(2.0 * 5 * b * h * n * n * dh, 8 * elem + b * h * n * 4)
+    bwd = lambda: A.flash_backward_fused(*args)  # noqa: E731
+    out["flash_attn_bwd_fused"] = _with_device_ms(
+        {"shape": list(V1_G_SHAPE), "scale": scale, "max_abs_err": err,
+         "ms": _time_ms(bwd, iters),
+         "plain_ms": _time_ms(lambda: A.flash_bwd_fused_reference(*args), 3),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": _time_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                                            retain_graph=True), iters)},
+        bwd, iters, "flash_attn_bwd_fused")
+    for name, r in out.items():
+        print(f"  {name} v1 G: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}; on "
+              f"the device {r['device_ms']} ms in its kernels, {r['other_device_ms']} ms in the "
+              "wrapper's other work)")
+    return out
+
+
+# Kernel launches per v1 train step at the reference defaults under
+# runtime.use_pallas=always: G's 4 blocks (`dot`, 32 tokens: single-pass
+# backward in the G update), D's 4 blocks (`l2`, 50 tokens: two-pass backward
+# under bwd_fusion=auto) on [real; fake] in the D update and on fake in the
+# G update; with bwd_fusion=fused D's backward takes the `l2` single pass.
+V1_KERNELS = {
+    "auto": {"flash_attn_fwd": 4, "flash_attn_fwd[l2]": 8, "flash_attn_bwd_dq[l2]": 8,
+             "flash_attn_bwd_dkv[l2]": 8, "flash_attn_bwd_fused": 4},
+    "fused": {"flash_attn_fwd": 4, "flash_attn_fwd[l2]": 8, "flash_attn_bwd_fused[l2]": 8,
+              "flash_attn_bwd_fused": 4},
+}
+
+
+class _PlainAttentionCounter:
+    """Counts calls of the plain attention routes of ops/attention while
+    active (dispatch_attention reads them from the module at call time)."""
+
+    NAMES = ("attention_reference", "attention_chunked")
+
+    def __enter__(self):
+        from vitgan_tpu_torch.ops import attention as A
+
+        self.calls, self.saved = 0, {n: getattr(A, n) for n in self.NAMES}
+
+        def wrap(fn):
+            def counted(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return counted
+
+        for n, fn in self.saved.items():
+            setattr(A, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from vitgan_tpu_torch.ops import attention as A
+
+        for n, fn in self.saved.items():
+            setattr(A, n, fn)
+
+
+def _v1_cfg(**over):
+    from vitgan_tpu_torch import config as C
+
+    base = {"data.dataset": "synthetic", "data.synthetic_samples": 1024, "run.epochs": 1,
+            "run.log_every_steps": 0, "runtime.use_pallas": "always"}
+    return C.replace(C.ExperimentConfig(family="v1"), **{**base, **over})
+
+
+def train_v1_main_path(run_dir: str) -> tuple:
+    """The v1 ViTGAN at the reference defaults through Trainer under
+    use_pallas=always: 2 warm-up steps, 5 timed steps by fit, the launches
+    per step asserted with no plain attention, a profiled breakdown; the run
+    directory restored, one `cli generate` and one HTTP request."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch.models import count_params
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.serve import serve
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+    from vitgan_tpu_torch.utils.run_dirs import restore_run
+
+    tag = "[train v1]"
+    steps = 5
+    cfg = _v1_cfg(**{"run.steps_per_epoch": steps})
+    m = cfg.v1
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    st = trainer.state
+    g, d = m.generator, m.discriminator
+    print(f"{tag} v1 defaults: batch {m.batch_size}, latent {m.latent_dim}; G hidden "
+          f"{g.hidden_size} depth {g.depth} heads {g.transformer.num_heads}, SIREN "
+          f"{g.siren_hidden}; D patches {d.patch_size}+2*{d.overlap}, depth {d.depth}, heads "
+          f"{d.transformer.num_heads}, ISR {d.spectral_rescale}; loss {m.loss}, "
+          f"{cfg.runtime.compute_dtype}, use_pallas {cfg.runtime.use_pallas}, bwd_fusion "
+          f"{cfg.runtime.bwd_fusion}; G {count_params(st.g)} D {count_params(st.d)} parameters; "
+          f"set up in {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().cpu().clone() for p in (*st.g.parameters(), *st.d.parameters())]
+    u0 = [b_.detach().cpu().clone() for n_, b_ in st.d.named_buffers() if n_.endswith(".u")]
+    t0 = time.perf_counter()
+    for idx in trainer.batches()[:2]:  # warm-up
+        warm = host_metrics(trainer.train_step(st, trainer.real_batch(idx)))
+    print(f"{tag} 2 warm-up steps in {time.perf_counter() - t0:.2f} s: {warm}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    # --- the v1 path ---
+    with _PlainAttentionCounter() as plain:
+        means = trainer.fit()
+        torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    # --- end of the v1 path ---
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    img_s = means["images_per_sec"]
+    ms = 1e3 * m.batch_size / img_s
+    print(f"{tag} {steps} steps by Trainer.fit: {ms:.2f} ms/step, {img_s:.1f} img/s "
+          f"({sec:.3f} s with the run directory's write), peak {peak / 2**30:.3f} GiB allocated")
+    print(f"{tag} epoch means: {means}")
+    print(f"{tag} launches over {steps} steps: {launches}; plain attention calls {plain.calls}")
+    for name, n in launches.items():
+        want = V1_KERNELS["auto"].get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"{tag} {name} launched {n} times, expected {want}")
+    if plain.calls:
+        raise AssertionError(f"{tag} {plain.calls} attentions took a plain route")
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
+                                                 "g_grad_norm")):
+        raise AssertionError(f"non-finite train metrics: {means}")
+    after = [p.detach().cpu() for p in (*st.g.parameters(), *st.d.parameters())]
+    moved = sum(not torch.equal(a, b_) for a, b_ in zip(before, after))
+    u1 = [b_.detach().cpu() for n_, b_ in st.d.named_buffers() if n_.endswith(".u")]
+    u_moved = sum(not torch.equal(a, b_) for a, b_ in zip(u0, u1))
+    print(f"{tag} {moved} of {len(after)} parameter tensors and {u_moved} of {len(u1)} ISR u "
+          "buffers moved")
+    if moved != len(after) or u_moved != len(u1):
+        raise AssertionError("some parameters or ISR buffers did not move")
+    del before, after
+    breakdown = train_breakdown(trainer, ms, recompute=False)
+    del trainer, st
+    torch.cuda.empty_cache()
+    rcfg, _, gen_, meta = restore_run(run_dir, device="cuda")
+    if meta.get("step") != 2 + steps or rcfg.v1 != m or rcfg.family != "v1":
+        raise AssertionError(f"restored run: meta {meta}")
+    del gen_
+    if cli.main(["generate", "--run-dir", run_dir, "--num-images", "16", "--seed", "3"]) != 0:
+        raise AssertionError("cli generate failed")
+    z = np.load(os.path.join(run_dir, "test", "noise.npy"))
+    with open(os.path.join(run_dir, "test", "generated_images.png"), "rb") as f:
+        h, w = _png_shape(f.read())
+    if z.shape != (16, m.latent_dim) or (h, w) != (4 * 34 + 2, 4 * 34 + 2):
+        raise AssertionError(f"cli generate wrote {z.shape} latents, a {h}x{w} grid")
+    print(f"{tag} restored step {meta['step']} and `cli generate` wrote a {h}x{w} grid")
+    httpd = serve(run_dir, host="127.0.0.1", port=0, batch=64)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        status, _, body, req_ms = _post(f"http://127.0.0.1:{httpd.server_address[1]}",
+                                        {"n": 16, "seed": 1, "format": "npy"})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    arr = np.load(io.BytesIO(body))
+    if status != 200 or arr.shape != (16, 32, 32, 3) or not np.isfinite(arr).all() \
+            or arr.std() < 1e-3:
+        raise AssertionError(f"serving the v1 run directory: {status} {arr.shape}")
+    print(f"{tag} the v1 run directory served POST npy n=16 in {req_ms:.1f} ms "
+          f"(std {arr.std():.4f})")
+    return launches, {"ms_per_step": ms, "img_per_s": img_s, "peak_allocated_bytes": peak,
+                      "means": means, "breakdown": breakdown}
+
+
+def train_v1_fused(steps: int = 3) -> tuple:
+    """The v1 defaults under use_pallas=always and bwd_fusion=fused through
+    Trainer: 1 warm-up step, ``steps`` by fit; D's `l2` backward takes the
+    single-pass kernel (8 a step), no dq or dk/dv."""
+    import shutil as _sh
+    import tempfile
+
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    cfg = _v1_cfg(**{"run.steps_per_epoch": steps, "runtime.bwd_fusion": "fused"})
+    run_dir = tempfile.mkdtemp(prefix="v1_fused_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
+        torch.cuda.synchronize()
+        build.reset_launches()
+        # --- the v1 bwd_fusion=fused path ---
+        means = trainer.fit()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        # --- end of the v1 bwd_fusion=fused path ---
+    finally:
+        _sh.rmtree(run_dir, ignore_errors=True)
+    ms = 1e3 * cfg.v1.batch_size / means["images_per_sec"]
+    print(f"[train v1 fused] {steps} steps by Trainer.fit, {ms:.2f} ms/step; launches "
+          f"{launches}; means {means}")
+    for name, n in launches.items():
+        want = V1_KERNELS["fused"].get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"[train v1 fused] {name} launched {n} times, expected {want}")
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
+        raise AssertionError(f"[train v1 fused] non-finite metrics: {means}")
+    return launches, {"ms_per_step": ms, "means": means}
+
+
+class _ScalarTerms:
+    """While active on a v1 train state, sums each scalar gradient leaf's
+    per-sample terms, the scale of the sum that the leaf is: G's SLN gamma
+    and beta (gamma * w * LN(h) + beta * w, layers.sln) sum dy * w * LN(h)
+    and dy * w over each sample's tokens and features; D's head bias sums
+    dlogit over the rows of the D update's [real; fake] forward.  At dropout
+    0 neither network couples samples (no batch statistics; the ISR state
+    depends on D's weights alone), so these are the terms of the gradient's
+    sum over samples.  ``abs[name]`` is sum_i |term_i|, ``signed[name]``
+    sum_i term_i, which must equal the gradient."""
+
+    def __init__(self, state):
+        self.g, self.d = state.g, state.d
+
+    def __enter__(self):
+        import torch
+
+        from vitgan_tpu_torch.models import layers as L
+
+        self.abs, self.signed, self.sln = {}, {}, L.sln
+        names = {id(p): f"g.{n}" for n, p in self.g.named_parameters()}
+
+        def add(name, per_sample):
+            self.abs[name] = self.abs.get(name, 0.0) + per_sample.abs().sum().item()
+            self.signed[name] = self.signed.get(name, 0.0) + per_sample.sum().item()
+
+        def sln(p, h, w):
+            y = self.sln(p, h, w)
+            if y.requires_grad:
+                def terms(dy):
+                    with torch.no_grad():
+                        add(names[id(p.beta)], (dy * w).flatten(1).sum(1))
+                        add(names[id(p.gamma)],
+                            (dy * w * L.layer_norm(p.ln, h)).flatten(1).sum(1))
+                y.register_hook(terms)
+            return y
+
+        def logits(module, args, kwargs, y):
+            if kwargs.get("update_state") and y.requires_grad:
+                y.register_hook(lambda dy: add("d.head.b", dy))
+
+        L.sln = sln
+        self.handle = self.d.register_forward_hook(logits, with_kwargs=True)
+        return self
+
+    def __exit__(self, *exc):
+        from vitgan_tpu_torch.models import layers as L
+
+        L.sln = self.sln
+        self.handle.remove()
+
+
+def _flash_bwd_f32_ds(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
+    """The flash backward's plain version with dS kept in f32 before its
+    products, as autograd through the plain attention keeps it (the kernels
+    and flash_bwd_fused_reference round it to bf16); P is rounded for dV as
+    both do."""
+    import torch
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    p, ds = A._bwd_terms(q, k, v, o, lse, do, scale, delta, score_mode)
+    dq = A._score_grad(torch.einsum("bhnm,bhmd->bhnd", ds, k.float()), ds, q, scale, score_mode,
+                       -1)
+    dk = A._score_grad(torch.einsum("bhnm,bhnd->bhmd", ds, q.float()), ds, k, scale, score_mode,
+                       -2)
+    dv = torch.einsum("bhnm,bhnd->bhmd", p.to(q.dtype).float(), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
+    """One v1 step at the reference widths, dropout 0, from the same state,
+    batch and latents on use_pallas=always with bwd_fusion auto (D's `l2`
+    two-pass) and fused, and on use_pallas=never; each kernel route (bf16)
+    held to the plain route in f32, the ISR u buffers included, and the bf16
+    plain route's own distance printed beside.  Under use_pallas=auto the
+    step launches no kernel.
+
+    Losses, gradient norms and every leaf of more than one element are held
+    as v2's are: max|d| within LEAF_RTOL of the leaf's max|plain|.  A scalar
+    leaf (G's 18 SLN gammas and betas, D's head bias) is one sum over the
+    batch's samples, and some of G's cancel to 1e-5 beside terms of 1e-4:
+    its |d| is held within LEAF_RTOL of the sum of its per-sample terms'
+    magnitudes in the f32 route (_ScalarTerms), the scale of what it sums as
+    max|plain| is of a wider leaf.
+
+    With ``diagnose`` two more routes run the flash forward kernels with the
+    backward's plain versions on the card: dS rounded to bf16 before its
+    products (as the kernels round it) and dS in f32 (as autograd through the
+    plain attention keeps it); reported beside the others, not held."""
+    import statistics
+
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.data.datasets import synthetic_dataset
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import attention as A
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime, get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import latent_rng
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+
+    drop = {f"v1.{net}.transformer.{k}": 0.0 for net in ("generator", "discriminator")
+            for k in ("attn_dropout", "mlp_dropout")}
+    cfg = _v1_cfg(**{"v1.batch_size": batch, **drop})
+    gan = build_gan(cfg)
+    images, _ = synthetic_dataset(batch, 32, 3, seed=SEED)
+    real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
+    z = gan.sample_latent(latent_rng(SEED, 0), batch)
+    saved, kernel_bwd = get_policy(), A.flash_backward
+    always, fused = dict(mode="always", bwd_fusion="auto"), dict(mode="always", bwd_fusion="fused")
+    plain = dict(mode="never", bwd_fusion="auto")
+    routes = [("always", always, "bfloat16", None), ("always_fused", fused, "bfloat16", None),
+              ("plain", plain, "bfloat16", None), ("plain_f32", plain, "float32", None),
+              ("auto", dict(mode="auto", bwd_fusion="auto"), "bfloat16", None)]
+    if diagnose:
+        routes += [("plain_bwd_bf16_dS", always, "bfloat16", A.flash_bwd_fused_reference),
+                   ("plain_bwd_f32_dS", always, "bfloat16", _flash_bwd_f32_ds)]
+    res = {}
+    try:
+        apply_from_runtime(cfg.runtime)
+        for route, policy, dtype, backward in routes:
+            set_policy(**policy)
+            A.flash_backward = backward or kernel_bwd
+            rcfg = C.replace(cfg, **{"runtime.compute_dtype": dtype})
+            state = create_train_state(gan, rcfg, device="cuda")
+            step = make_train_step(gan, rcfg)
+            build.reset_launches()
+            if route == "plain_f32":
+                with _ScalarTerms(state) as terms:
+                    metrics = host_metrics(step(state, real, z=z))
+            else:
+                metrics = host_metrics(step(state, real, z=z))
+            launched = {k: n for k, n in build.LAUNCHES.items() if n}
+            print(f"[v1 routes] {route} ({dtype}): launches {launched}, metrics {metrics}")
+            res[route] = (metrics,
+                          [p.grad.float() for p in (*state.g.parameters(), *state.d.parameters())],
+                          [f"g.{n}" for n, _ in state.g.named_parameters()]
+                          + [f"d.{n}" for n, _ in state.d.named_parameters()],
+                          {n: b.float() for n, b in state.d.named_buffers() if n.endswith(".u")})
+            if policy["mode"] != "always" and launched:
+                raise AssertionError(f"the v1 step on use_pallas={policy['mode']} launched "
+                                     f"{launched}")
+            l2_bwd = ("flash_attn_bwd_fused[l2]" if route == "always_fused"
+                      else "flash_attn_bwd_dq[l2]")
+            if backward is None and policy["mode"] == "always" and build.LAUNCHES[l2_bwd] != 8:
+                raise AssertionError(f"{route}: {l2_bwd} did not run in every D block")
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        set_policy(**saved)
+        A.flash_backward = kernel_bwd
+    mp, gp, names, up = res["plain_f32"]
+    scalars = [i for i, b in enumerate(gp) if b.numel() == 1]
+    for i in scalars:
+        name = names[i]
+        if name not in terms.abs:
+            raise AssertionError(f"no per-sample terms recorded for the scalar leaf {name}")
+        if not abs(terms.signed[name] - gp[i].item()) <= 1e-3 * terms.abs[name]:
+            raise AssertionError(f"{name}: its per-sample terms sum to {terms.signed[name]:.6g}, "
+                                 f"its gradient is {gp[i].item():.6g}")
+    cancel = names[min(scalars, key=lambda i: abs(gp[i].item()) / terms.abs[names[i]])]
+    print(f"[v1 routes] batch {batch}: {len(scalars)} scalar leaves; the most cancelled, "
+          f"{cancel}: f32 gradient {gp[names.index(cancel)].item():.3g}, sum of |per-sample "
+          f"terms| {terms.abs[cancel]:.3g}")
+    out, by_route, failed = {}, {}, []
+    compared = [r for r, *_ in routes if r not in ("plain_f32", "auto")]
+    for route in compared:
+        mk, gk, _, uk = res[route]
+        r = out[route] = {}
+        checked = route in ("always", "always_fused")  # the others are reported, not held
+        for key in ("d_loss", "g_loss"):
+            r[key] = abs(mk[key] - mp[key])
+            print(f"[v1 routes] {route} {key}: {mk[key]:.6f}, plain f32 {mp[key]:.6f} "
+                  f"(|d| {r[key]:.3g}, tolerance {LOSS_TOL})")
+            if checked and not r[key] <= LOSS_TOL:
+                failed.append(f"{route}: {key} differs from the plain route")
+        for key in ("d_grad_norm", "g_grad_norm"):
+            r[key] = abs(mk[key] - mp[key]) / mp[key]
+            print(f"[v1 routes] {route} {key}: {mk[key]:.6f}, plain f32 {mp[key]:.6f} "
+                  f"(relative {r[key]:.3g}, tolerance {NORM_RTOL})")
+            if checked and not r[key] <= NORM_RTOL:
+                failed.append(f"{route}: {key} differs from the plain route")
+        wide, by_terms, alone = {}, {}, {}
+        for name, a, b in zip(names, gk, gp):
+            d = (a - b).abs().max().item()
+            d = d if math.isfinite(d) else math.inf
+            if b.numel() == 1:
+                by_terms[name] = d / max(terms.abs[name], 1e-30)
+                alone[name] = d / max(abs(b.item()), 1e-30)
+            else:
+                wide[name] = d / max(b.abs().max().item(), 1e-30)
+        worst, worst_s = max(wide, key=wide.get), max(by_terms, key=by_terms.get)
+        by_route[route] = by_terms
+        r.update({"worst_leaf_rel": wide[worst], "worst_leaf": worst,
+                  "worst_scalar_rel_terms": by_terms[worst_s], "worst_scalar": worst_s,
+                  "median_scalar_rel_terms": statistics.median(by_terms.values()),
+                  "worst_scalar_alone_rel": max(alone.values())})
+        print(f"[v1 routes] {route}: {len(wide)} gradient leaves of more than one element, worst "
+              f"max|d| / max|plain f32| {wide[worst]:.4g} at {worst}; {len(by_terms)} scalar "
+              f"leaves, worst |d| / sum of |per-sample terms| {by_terms[worst_s]:.4g} at "
+              f"{worst_s} (median {r['median_scalar_rel_terms']:.4g}; tolerance {LEAF_RTOL}"
+              f"{'' if checked else '; reported, not held'}); a scalar alone at most "
+              f"{r['worst_scalar_alone_rel']:.4g} of itself")
+        if checked and not (wide[worst] <= LEAF_RTOL and by_terms[worst_s] <= LEAF_RTOL):
+            failed.append(f"{route}: a gradient leaf differs from the plain route")
+        r["isr_u_max_abs"] = max((uk[n] - up[n]).abs().max().item() for n in up)
+        print(f"[v1 routes] {route}: {len(up)} ISR u buffers after the step within "
+              f"{r['isr_u_max_abs']:.3g} of the plain route's (tolerance {U_TOL})")
+        if not r["isr_u_max_abs"] <= U_TOL:
+            failed.append(f"{route}: the ISR state differs from the plain route")
+    if diagnose:
+        print(f"[v1 routes] batch {batch}, per scalar leaf: f32 gradient, sum of |per-sample "
+              "terms|; |d| / that sum on " + ", ".join(compared))
+        for i in scalars:
+            n = names[i]
+            print(f"  {n}: {gp[i].item():.4g}, {terms.abs[n]:.4g}; "
+                  + ", ".join(f"{by_route[r_][n]:.3g}" for r_ in compared))
+    if failed:
+        raise AssertionError(f"v1 routes at batch {batch}: " + "; ".join(failed))
+    return out
+
+
+def l2ref_path() -> dict:
+    """The `l2ref` route: an ISR attention of the v1 discriminator's width
+    (432, 4 heads of 108) on 256 x 50 tokens under use_pallas=always,
+    forward and backward.  The forward kernel launches once; the backward is
+    autograd of the plain chunked recompute, as the JAX package's `_bwd`
+    (vitgan_tpu/ops/attention.py:861-870): no backward kernel launches.  The
+    gradients are held to autograd through the plain attention."""
+    import torch
+
+    from vitgan_tpu_torch.models import layers as L
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+
+    msha = L.MHSA(432, 4, torch.Generator().manual_seed(SEED), qkv_bias=False, init="torch",
+                  spectral=True).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    x = torch.randn((256, 50, 432), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((256, 50, 432), generator=gen, device="cuda").to(torch.bfloat16)
+    saved = get_policy()
+    grads = {}
+    try:
+        for route, mode in (("kernel", "always"), ("plain", "never")):
+            set_policy(mode=mode)
+            xr = x.clone().requires_grad_()
+            build.reset_launches()
+            # --- the l2ref path (kernel route) ---
+            out = L.mhsa(msha, xr, score_mode="l2ref")
+            grads[route] = torch.autograd.grad(out, (xr, msha.qkv), g)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in build.LAUNCHES.items() if n}
+            # --- end of the l2ref path ---
+            print(f"[l2ref] {route}: launches {launched}")
+            want = {"flash_attn_fwd[l2ref]": 1} if route == "kernel" else {}
+            if launched != want:
+                raise AssertionError(f"l2ref {route} route launched {launched}, expected {want}")
+            if route == "kernel":
+                launches = launched["flash_attn_fwd[l2ref]"]
+    finally:
+        set_policy(**saved)
+    worst = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                for a, b in zip(grads["kernel"], grads["plain"]))
+    print(f"[l2ref] dx and dqkv within {worst:.4g} of their max|plain| (tolerance {LEAF_RTOL})")
+    if not worst <= LEAF_RTOL:
+        raise AssertionError("the l2ref route's gradients differ from the plain route's")
+    return {"launches": launches, "worst_grad_rel": worst}
+
+
 def main() -> int:
     import torch
 
@@ -1167,14 +1898,18 @@ def main() -> int:
     secs = build.build()
     print(f"[build] {secs} ({time.perf_counter() - t0:.1f} s wall, parallel)")
     for name in secs:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        kernels = _ptxas_kernels(build.build_log(name))
+        spilled = [k for k in kernels if k[2] or k[3]]
+        print(f"  {name}: {len(kernels)} kernels, at most {max(k[1] for k in kernels)} "
+              f"registers, {len(spilled)} with spills")
+        for func, regs, stores, loads in spilled:
+            print(f"    {func}: {regs} registers, {stores} bytes spill stores, {loads} loads")
 
     records = check_kernels()
     run_dir = os.path.join(root, "build", "chip_smoke_run")
     off_dir = os.path.join(root, "build", "chip_smoke_run_megablock_off")
     train_dir = os.path.join(root, "build", "chip_smoke_train")
+    v1_dir = os.path.join(root, "build", "chip_smoke_train_v1")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -1186,6 +1921,8 @@ def main() -> int:
         del httpd
         torch.cuda.empty_cache()
         records.update(check_bwd_kernels())
+        records.update(check_l2_kernels())
+        v1_dot = check_v1_dot_kernels()
         mb_records, mb_blocks = check_megablock_kernels()
         records.update(mb_records)
         gate = check_training_gate()
@@ -1196,8 +1933,12 @@ def main() -> int:
         train["deit64"] = train_deit64()
         train["routes"] = compare_train_routes()
         train["gate"], train["megablock_blocks"] = gate, mb_blocks
+        v1_launches, v1 = train_v1_main_path(v1_dir)
+        v1_fused_launches, v1["fused"] = train_v1_fused()
+        v1["routes"] = compare_v1_train_routes()
+        v1["l2ref"] = l2ref_path()
     finally:
-        for d in (run_dir, off_dir, train_dir):
+        for d in (run_dir, off_dir, train_dir, v1_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -1225,13 +1966,33 @@ def main() -> int:
                               train_launches["megablock_bwd_ln1"]),
         "wgrad_gemm": ("wgrad_gemm.cu", f"{fb}:700", train_launches["wgrad_gemm"]),
         "sum_partials": ("wgrad_gemm.cu", f"{fb}:700", train_launches["sum_partials"]),
+        # the score modes, on the v1 train path (use_pallas=always): `l2` in D;
+        # its single pass under bwd_fusion=fused; `l2ref` on its own route
+        "flash_attn_fwd[l2]": ("flash_attn_fwd.cu", "vitgan_tpu/ops/attention.py:252",
+                               v1_launches["flash_attn_fwd[l2]"]),
+        "flash_attn_fwd[l2ref]": ("flash_attn_fwd.cu", "vitgan_tpu/ops/attention.py:252",
+                                  v1["l2ref"]["launches"]),
+        "flash_attn_bwd_fused[l2]": ("flash_attn_bwd_fused.cu",
+                                     "vitgan_tpu/ops/attention.py:606",
+                                     v1_fused_launches["flash_attn_bwd_fused[l2]"]),
+        "flash_attn_bwd_dq[l2]": ("flash_attn_bwd_dq.cu", "vitgan_tpu/ops/attention.py:701",
+                                  v1_launches["flash_attn_bwd_dq[l2]"]),
+        "flash_attn_bwd_dkv[l2]": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
+                                   v1_launches["flash_attn_bwd_dkv[l2]"]),
     }
+    paths = {"flash_attn_fwd[l2]": "v1 train, 5 steps",
+             "flash_attn_bwd_dq[l2]": "v1 train, 5 steps",
+             "flash_attn_bwd_dkv[l2]": "v1 train, 5 steps",
+             "flash_attn_bwd_fused[l2]": "v1 train with bwd_fusion=fused, 3 steps",
+             "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward"}
     kernels = []
     for name, (src, replaces, n_launch) in meta.items():
         if n_launch <= 0:
             raise AssertionError(f"{name} was not launched on its route")
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces, "launches": n_launch, **records[name]})
+        if name in paths:
+            kernels[-1]["launches_path"] = paths[name]
     kernels[0]["launches_megablock_off"] = off_launches["flash_attn_fwd"]
     for k in kernels:
         if k["name"] in ("flash_attn_fwd", "ln_qkv_fwd"):
@@ -1239,8 +2000,14 @@ def main() -> int:
         if k["name"] in ("flash_attn_fwd", "ln_mlp_fwd", "flash_attn_bwd_fused",
                          "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
             k["launches_train_megablock_off"] = off_train_launches[k["name"]]
+        if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused"):
+            # the v1 generator's `dot` attention: its launches on the v1 train
+            # path and the check at its shape
+            k["launches_train_v1"] = v1_launches[k["name"]]
+            k["v1"] = v1_dot[k["name"]]
     print(json.dumps({"routes": routes}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"v1": v1}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forward kernels, the three flash backward kernels, autograd through the
-flash attention on the JAX package's backward route, the megablock's training
-forward and saved-residual backward (against autograd of the plain block) and
-the weight-gradient kernel, the training gate, and the raises for what the
-kernels do not take.
+flash attention on the JAX package's backward route, the `l2` and `l2ref`
+score modes (forward, the `l2` backward kernels, autograd, the v1 head width
+108), the megablock's training forward and saved-residual backward (against
+autograd of the plain block) and the weight-gradient kernel, the training
+gate, and the raises for what the kernels do not take.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -130,6 +131,38 @@ def test_backward_kernel_matches_plain_on_card(name, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd_fused"])
+def test_v1_generator_dot_kernels_match_plain_on_card(name):
+    """The `dot` forward and single-pass backward as the v1 generator runs
+    them: head width 96, softmax scale H * Dh = 384, 32 tokens.  o within
+    2e-2 * max(1, max|plain|) and the LSE within 1e-2; each gradient within
+    2e-2 * its own max|plain|."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shape, scale = (4, 4, 32, 96), 384.0
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    build.reset_launches()
+    o, lse = A.flash_forward(q, k, v, scale)
+    if name == "flash_attn_fwd":
+        po, plse = A.attention_forward_reference(q, k, v, scale, "dot")
+        got, want = (o,), (po,)
+        tol = 2e-2 * max(1.0, po.float().abs().max().item())
+        assert (lse - plse).abs().max().item() <= 1e-2
+    else:
+        build.reset_launches()
+        args = (q, k, v, o, lse, do, scale)
+        got, want = A.flash_backward_fused(*args), A.flash_bwd_fused_reference(*args)
+        tol = None
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        limit = tol if tol is not None else 2e-2 * w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1024, 1025])
 def test_flash_attention_autograd_takes_the_jax_route_on_card(n):
     """Autograd through flash_attention launches the fused kernel at 1,024
@@ -150,6 +183,99 @@ def test_flash_attention_autograd_takes_the_jax_route_on_card(n):
     for g, w in zip(got, want):
         tol = 2e-2 * w.float().abs().max().item()
         assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+L2_SHAPES = [(2, 4, 50, 108), (1, 2, 257, 64), (1, 2, 65, 24)]
+L2_IDS = ["v1_d_50_dh108", "ragged_257_dh64", "ragged_65_dh24"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", L2_SHAPES, ids=L2_IDS)
+@pytest.mark.parametrize("mode", ["l2", "l2ref"])
+def test_score_mode_forward_matches_plain_on_card(mode, shape):
+    """The `l2`/`l2ref` forward kernel (the head width padded to 8 by the
+    wrapper) against its plain version: o within 2e-2 * max(1, max|plain|),
+    the LSE within 1e-2; counted under its mode's key."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = float(shape[1] * shape[3])
+    build.reset_launches()
+    o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+    po, plse = A.attention_forward_reference(q, k, v, scale, mode)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"flash_attn_fwd[{mode}]"] == 1 and build.LAUNCHES["flash_attn_fwd"] == 0
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+    tol = 2e-2 * max(1.0, po.float().abs().max().item())
+    assert (o.float() - po.float()).abs().max().item() <= tol
+    assert (lse - plse).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", L2_SHAPES, ids=L2_IDS)
+@pytest.mark.parametrize("name", ["flash_attn_bwd_fused", "flash_attn_bwd_dq",
+                                  "flash_attn_bwd_dkv"])
+def test_l2_backward_kernel_matches_plain_on_card(name, shape):
+    """Each `l2` backward kernel against its plain version on the same q, k,
+    v, o, LSE and dO; each output within 2e-2 * its own max|plain|."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = float(shape[1] * shape[3])
+    o, lse = A.flash_forward(q, k, v, scale, score_mode="l2")
+    kern, plain = {
+        "flash_attn_bwd_fused": (A.flash_backward_fused, A.flash_bwd_fused_reference),
+        "flash_attn_bwd_dq": (A.flash_backward_dq, A.flash_bwd_dq_reference),
+        "flash_attn_bwd_dkv": (A.flash_backward_dkv, A.flash_bwd_dkv_reference),
+    }[name]
+    build.reset_launches()
+    args = (q, k, v, o, lse, do, scale)
+    got, want = kern(*args, score_mode="l2"), plain(*args, score_mode="l2")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"{name}[l2]"] == 1 and build.LAUNCHES[name] == 0
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion", ["auto", "fused"])
+@pytest.mark.parametrize("mode", ["l2", "l2ref"])
+def test_score_mode_autograd_on_card(mode, fusion):
+    """Autograd through flash_attention at the v1 discriminator's head width:
+    `l2` takes two passes under 'auto' and the single pass under 'fused';
+    `l2ref` launches the forward kernel and no backward kernel (its backward
+    is the plain chunked recompute, as in the JAX package).  Gradients within
+    2e-2 * max|plain| of autograd through the plain attention."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn((4, 4, 50, 108), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    saved = policy.get_policy()
+    policy.set_policy(bwd_fusion=fusion)
+    try:
+        build.reset_launches()
+        got = torch.autograd.grad(A.flash_attention(q, k, v, mode, 432.0), (q, k, v), do)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in build.LAUNCHES.items() if c}
+    finally:
+        policy.set_policy(**saved)
+    if mode == "l2ref":
+        assert launched == {"flash_attn_fwd[l2ref]": 1}
+    elif fusion == "fused":
+        assert launched == {"flash_attn_fwd[l2]": 1, "flash_attn_bwd_fused[l2]": 1}
+    else:
+        assert launched == {"flash_attn_fwd[l2]": 1, "flash_attn_bwd_dq[l2]": 1,
+                            "flash_attn_bwd_dkv[l2]": 1}
+    want = torch.autograd.grad(A.attention_reference(q, k, v, mode, 432.0), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
 
 
 @pytest.mark.cuda

@@ -366,6 +366,6 @@ def test_restore_run_draws_no_initial_weights(jax_generator, tmp_path, monkeypat
 
 
 def test_other_families_name_the_roadmap():
-    for family in ("v1", "dcgan", "cnn", "mlp"):
+    for family in ("dcgan", "cnn", "mlp"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_gan(C.ExperimentConfig(family=family))

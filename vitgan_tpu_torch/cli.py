@@ -4,6 +4,8 @@ flags for these commands (vitgan_tpu/cli.py) that the port carries, and
 ``--device`` (default cuda).
 
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
+    python -m vitgan_tpu_torch.cli train --family v1 --dataset synthetic \
+        --set runtime.use_pallas=always
     python -m vitgan_tpu_torch.cli serve --run-dir RUN [--port 8000 --batch 64]
     python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0]
 
@@ -13,7 +15,10 @@ shrinks a preset-less run to the smoke config, as in the JAX CLI.  On the
 card, highres128 and deit64 train under their default runtime.megablock=auto
 through the megablock's training kernels, as the JAX package's gate routes
 them; ``--set runtime.megablock=off`` trains them on the flash and LN->MLP
-kernels instead.
+kernels instead.  ``--family v1`` trains the paper's ViTGAN at its reference
+defaults; at its 32 and 50 tokens the JAX package's `auto` keeps attention
+on the plain route, and ``runtime.use_pallas=always`` sends every attention
+through the flash kernels (`dot` in G, `l2` in D).
 """
 
 from __future__ import annotations

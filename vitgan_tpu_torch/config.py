@@ -3,7 +3,7 @@
 The port's own copy of the parts of ``vitgan_tpu.config`` that the serving and
 training slices read.  Field names, defaults and the JSON layout are the JAX
 package's, so a JAX run's ``config.json`` loads here unchanged: ``from_dict``
-skips the sections and fields this copy does not carry (mesh, the other model
+skips the sections and fields this copy does not carry (mesh, the baseline
 families, the trainer's checkpoint/FID/collapse settings), and the JAX package
 reads the port's ``config.json`` the same way.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -31,6 +31,72 @@ class OptimConfig:
     min_lr_ratio: float = 0.0
     grad_accum: int = 1
     inject_lr: bool = False
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """The v1 transformer block's settings."""
+
+    num_heads: int = 4
+    attn_dropout: float = 0.2
+    mlp_dropout: float = 0.2
+    mlp_activation: str = "relu"  # relu | gelu | tanh | sigmoid | leaky_relu
+    mlp_hidden: Tuple[int, ...] = ()  # empty: one linear layer
+
+
+@dataclass(frozen=True)
+class SirenConfig:
+    omega_0: float = 30.0
+
+
+@dataclass(frozen=True)
+class GeneratorV1Config:
+    """The v1 SLN generator with its SIREN head."""
+
+    hidden_size: int = 384
+    depth: int = 4
+    siren_hidden: int = 768
+    transformer: TransformerConfig = field(default_factory=TransformerConfig)
+    siren: SirenConfig = field(default_factory=SirenConfig)
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=2e-4))
+
+
+@dataclass(frozen=True)
+class DiscriminatorV1Config:
+    """The v1 discriminator: overlapping patches, ISR, L2 attention.
+    ``token_size`` None projects to the flattened patch width
+    (channels * (patch + 2 * overlap)**2, 432 at the defaults)."""
+
+    depth: int = 4
+    patch_size: int = 8
+    overlap: int = 2
+    token_size: Optional[int] = None
+    embed_dropout: float = 0.0
+    transformer: TransformerConfig = field(default_factory=TransformerConfig)
+    spectral_rescale: bool = True
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=2e-4))
+
+
+@dataclass(frozen=True)
+class V1Config:
+    """The v1 ViTGAN (the paper's): widths plus the training knobs of the JAX
+    schema, which the train step reads as it reads V2Config's."""
+
+    image_size: int = 32
+    channels: int = 3
+    batch_size: int = 128
+    latent_dim: int = 1024
+    seed: int = 0
+    generator: GeneratorV1Config = field(default_factory=GeneratorV1Config)
+    discriminator: DiscriminatorV1Config = field(default_factory=DiscriminatorV1Config)
+    loss: str = "bce"  # bce | mse | wgan-gp
+    gp_lambda: float = 10.0
+    instance_noise: float = 0.1
+    diversity_weight: float = 0.1
+    g_diversity: bool = False
+    r1_gamma: float = 0.0
+    r1_interval: int = 16
+    disc_steps: int = 1
 
 
 @dataclass(frozen=True)
@@ -121,7 +187,8 @@ class TrainRunConfig:
 class ExperimentConfig:
     """One model family plus its runtime settings."""
 
-    family: str = "v2"
+    family: str = "v2"  # v1 | v2
+    v1: V1Config = field(default_factory=V1Config)
     v2: V2Config = field(default_factory=V2Config)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -223,14 +290,21 @@ def highres_config(image_size: int = 128) -> ExperimentConfig:
 
 
 def smoke_config(family: str = "v2") -> ExperimentConfig:
-    """Tiny CPU-runnable config: depth 2, embed 32, 2 heads, latent 16,
-    synthetic data, 1 epoch of 2 steps."""
+    """Tiny CPU-runnable config: v2 depth 2, embed 32, 2 heads, latent 16; v1
+    depth 2, widths 64, latent 64; synthetic data, 1 epoch of 2 steps."""
     return replace(ExperimentConfig(family=family, data=DataConfig(dataset="synthetic")), **{
         "v2.batch_size": 8,
         "v2.embed_dim": 32,
         "v2.depth": 2,
         "v2.num_heads": 2,
         "v2.latent_dim": 16,
+        "v1.batch_size": 8,
+        "v1.latent_dim": 64,
+        "v1.generator.hidden_size": 64,
+        "v1.generator.depth": 2,
+        "v1.generator.siren_hidden": 64,
+        "v1.discriminator.depth": 2,
+        "v1.discriminator.token_size": 64,
         "run.epochs": 1,
         "run.steps_per_epoch": 2,
         "runtime.use_pallas": "never",

@@ -31,19 +31,21 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # C signature of each entry point.  An entry lives in the library of the same
 # name unless SOURCE names another.
 SIGNATURES = {
-    # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, stream
-    "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, mode, stream
+    # (mode: 0 dot, 1 l2, 2 l2ref; the backward entries take 0 or 1)
+    "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, out,
     # m, e, hd, hidden, eps, residual, stream
     "ln_mlp_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
     "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, bh, n, d, inv_scale, stream
-    "flash_attn_bwd_fused": [_P] * 10 + [_I] * 3 + [_F, _P],
-    # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, stream
-    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _P],
-    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, stream
-    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, rs_acc, bh, n, d, inv_scale,
+    # mode, stream
+    "flash_attn_bwd_fused": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, mode, stream
+    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, stream
+    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
     # x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, out, m1, m2, x1, z1,
     # m, e, hd, hidden, eps, threshold, inv_keep, stream
     "ln_mlp_train_fwd": [_P] * 16 + [_I] * 4 + [_F, _U, _F, _P],
@@ -62,9 +64,14 @@ SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 
 # Launch counts by wrapper.  ln_mlp_fwd.cu serves three wrappers: the plain
 # LN->MLP ("ln_mlp_fwd"), the megablock's out-projection form
-# ("proj_ln_mlp_fwd") and its training form ("ln_mlp_train_fwd").
+# ("proj_ln_mlp_fwd") and its training form ("ln_mlp_train_fwd").  The flash
+# kernels count their `dot` launches under their name and the other score
+# modes apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
 LAUNCHES = {name: 0 for name in SIGNATURES}
 LAUNCHES["proj_ln_mlp_fwd"] = 0
+LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (
+    ("flash_attn_fwd", ("l2", "l2ref")), ("flash_attn_bwd_fused", ("l2",)),
+    ("flash_attn_bwd_dq", ("l2",)), ("flash_attn_bwd_dkv", ("l2",))) for mode in modes})
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

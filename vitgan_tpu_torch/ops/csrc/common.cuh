@@ -166,6 +166,67 @@ __device__ inline void cp_tile(bf16* dst, int ldd, const bf16* __restrict__ src,
   }
 }
 
+// Squared L2 norms, in f32, of the `rows` rows of a bf16 shared-memory tile
+// (DP columns, zero past the real ones; leading dimension ld) into
+// out[0, rows): four neighbouring threads a row, each summing every fourth
+// pair of columns, then two shuffles.  rows * 4 must be a multiple of
+// blockDim.x, so that every thread reaches every shuffle.  The caller
+// synchronises before reading out.
+template <int DP>
+__device__ inline void row_sq_norms(float* out, const bf16* tile, int ld, int rows) {
+  for (int i = threadIdx.x; i < rows * 4; i += blockDim.x) {
+    const int r = i >> 2;
+    float s = 0.f;
+#pragma unroll
+    for (int c = (i & 3) * 2; c < DP; c += 8) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(tile + r * ld + c));
+      s += f.x * f.x + f.y * f.y;
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if ((i & 3) == 0) out[r] = s;
+  }
+}
+
+// The same for the two rows an mma fragment gives this lane, row0 + g and
+// row0 + g + 8 (g = lane / 4), summed by the lane's group of four: out[h]
+// holds row row0 + g + 8h.  Every lane of the warp calls it.
+template <int DP>
+__device__ inline void frag_row_sq_norms(float (&out)[2], const bf16* tile, int ld, int row0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bf16* row = tile + (row0 + (lane >> 2) + 8 * h) * ld;
+    float s = 0.f;
+#pragma unroll
+    for (int c = (lane & 3) * 2; c < DP; c += 8) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      s += f.x * f.x + f.y * f.y;
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    out[h] = s;
+  }
+}
+
+// Score modes of the flash kernels (vitgan_tpu/ops/attention.py:50-61):
+// kDot s = inv q.k; kL2 s = -inv d2; kL2Ref s = inv sqrt(d2 + 1e-12), with
+// d2 = max(|q|^2 + |k|^2 - 2 q.k, 0).  The kernels work in log2 units, so
+// `scale_log2` = inv * log2(e) multiplies the mode's distance term.
+enum ScoreMode : int { kDot = 0, kL2 = 1, kL2Ref = 2 };
+
+template <int MODE>
+__device__ inline float score_log2(float qk, float qq, float kk, float scale_log2) {
+  if constexpr (MODE == kDot) {
+    return qk * scale_log2;
+  } else {
+    const float d2 = fmaxf(qq + kk - 2.f * qk, 0.f);
+    if constexpr (MODE == kL2) return -d2 * scale_log2;
+    return sqrtf(d2 + 1e-12f) * scale_log2;
+  }
+}
+
 // Exact-erf GELU, as torch's nn.GELU() and the JAX package's XLA path compute
 // it.  The TPU kernels evaluate erf with the Abramowitz-Stegun 7.1.26
 // polynomial instead (Mosaic has no erf); the two differ by less than 1.5e-7.

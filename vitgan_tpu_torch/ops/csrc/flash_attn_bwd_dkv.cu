@@ -1,4 +1,4 @@
-// Flash-attention backward dK and dV, `dot` scores, for Hopper (sm_90a).
+// Flash-attention backward dK and dV, `dot` and `l2` scores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels `_flash_bwd_dkv_kernel` and its K/V-streaming
 // variant `_flash_bwd_dkv_kernel_dma` (vitgan_tpu/ops/attention.py:434-504,
@@ -11,15 +11,19 @@
 // head, 2.07e11 flops, on 305 MB of q/k/v/dO/dk/dv and rows: 0.21 ms of
 // tensor-core time against 0.09 ms of HBM time, so the tensor cores bound
 // it.  mma.sync reaches only part of the wgmma rate; wgmma with TMA is later
-// work.
+// work.  At the v1 discriminator's `l2` shape (128*2*4 heads, 50 tokens,
+// Dh 108) the 58 MB of q/k/v/dO/dk/dv bound it (0.017 ms) against 1.1e9
+// flops (0.001 ms).
 #include "flash_attn_bwd.cuh"
 
 // q, k, v, dout: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple
 // of 8 and at most 128.  lse (natural log) and delta: (bh, n) f32.  dk, dv:
-// (bh, n, d) bf16.  inv_scale multiplies q.k.
+// (bh, n, d) bf16.  inv_scale multiplies q.k (`dot`) or the distance; mode 0
+// `dot`, 1 `l2`.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv,
-                                  int bh, int n, int d, float inv_scale, void* stream) {
-  return vk::bwd::dispatch_kv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, n, d,
-                                     inv_scale, static_cast<cudaStream_t>(stream));
+                                  int bh, int n, int d, float inv_scale, int mode,
+                                  void* stream) {
+  return vk::bwd::dispatch_kv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr, bh, n,
+                                     d, inv_scale, mode, static_cast<cudaStream_t>(stream));
 }

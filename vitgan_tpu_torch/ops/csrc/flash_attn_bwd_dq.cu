@@ -1,4 +1,4 @@
-// Flash-attention backward dQ, `dot` scores, for Hopper (sm_90a).
+// Flash-attention backward dQ, `dot` and `l2` scores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels `_flash_bwd_dq_kernel` and its K/V-streaming
 // variant `_flash_bwd_dq_kernel_dma` (vitgan_tpu/ops/attention.py:324-389,
@@ -6,8 +6,13 @@
 // tile at a time, at any length.
 //
 // Computes, per (batch*head, query):  dQ = inv_scale * dS K with
-// dS = P * (dO V^T - delta), P = exp(inv_scale * Q K^T - lse) recomputed from
-// the forward's natural-log LSE (flash_attn_bwd.cuh has the formulas).
+// dS = P * (dO V^T - delta), P = exp(S - lse) recomputed from the forward's
+// natural-log LSE (flash_attn_bwd.cuh has the formulas).  For `l2` (a
+// template parameter) S is recomputed from |q|^2 (the warp's rows, once) and
+// |k|^2 (each streamed K tile, from shared memory behind a second barrier),
+// the f32 row sums of dS are kept beside the dQ accumulator, and the
+// epilogue writes dQ = 2 inv_scale (dS K - rowsum(dS) q) with q read back
+// from the resident Q tile (attention.py:316-321).
 //
 // Design.  One block of 4 warps per (64-query tile, batch*head); each warp
 // owns 16 queries, whose Q and dO fragments stay in registers with the f32
@@ -31,12 +36,13 @@ using vk::bwd::NWARP;
 
 namespace {
 
-template <int DP>
+template <int DP, int MODE>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * BQ + 4 * BK) * (DP + 8) * 2;  // Q, dO + two stages of K and V
+  // Q, dO + two stages of K and V (+ |k|^2 of the current K tile)
+  return (size_t)(2 * BQ + 4 * BK) * (DP + 8) * 2 + (MODE != kDot ? BK * sizeof(float) : 0);
 }
 
-template <int DP>
+template <int DP, int MODE>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -48,6 +54,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dos = qs + BQ * LD;
   bf16* ks = dos + BQ * LD;      // stage s at ks + s * BK * LD
   bf16* vs = ks + 2 * BK * LD;
+  float* kk_s = reinterpret_cast<float*>(vs + 2 * BK * LD);  // l2: |k|^2 of the tile
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -75,6 +82,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[DP / 8][4];
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float qq[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};  // l2: |q|^2 and this lane's part of rowsum(dS)
 
   const int ntiles = (n + BK - 1) / BK;
   for (int kt = 0; kt < ntiles; ++kt) {
@@ -94,9 +102,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         load_a(qf[kk], qs, LD, warp * 16, kk * 16);
         load_a(dof[kk], dos, LD, warp * 16, kk * 16);
       }
+      if constexpr (MODE == kL2) frag_row_sq_norms<DP>(qq, qs, LD, warp * 16);
     }
     const bf16* k_s = ks + cur * BK * LD;
     const bf16* v_s = vs + cur * BK * LD;
+    if constexpr (MODE == kL2) {
+      row_sq_norms<DP>(kk_s, k_s, LD, BK);
+      __syncthreads();
+    }
 
     // S = Q K^T and dP = dO V^T: 16 x 64 per warp.
     float s[BK / 8][4], dp[BK / 8][4];
@@ -123,9 +136,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = kt * BK + j * 8 + 2 * t + (e & 1);
-        const float p = key < n ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        const int col = j * 8 + 2 * t + (e & 1);
+        const int key = kt * BK + col;
+        const float p =
+            key < n ? exp2f(score_log2<MODE>(s[j][e], qq[e >> 1],
+                                             MODE == kL2 ? kk_s[col] : 0.f, scale_log2) -
+                            lse2[e >> 1])
+                    : 0.f;
         s[j][e] = p * (dp[j][e] - dl[e >> 1]);
+        if constexpr (MODE == kL2) rs[e >> 1] += s[j][e];
       }
     }
     // dQ += dS K.
@@ -147,28 +166,41 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
+    if constexpr (MODE == kL2) {  // the full rowsum: the lane's group of four
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+    }
+    const int lrow = warp * 16 + g + 8 * h;
+    const int row = q0 + lrow;
     if (row >= n) continue;
     bf16* dst = dq + base + (long)row * d;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = j * 8 + 2 * t;
-      if (col < d)
+      if (col >= d) continue;
+      if constexpr (MODE == kL2) {
+        const float2 qv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(qs + lrow * LD + col));
+        *reinterpret_cast<uint32_t*>(dst + col) =
+            pack_bf16(2.f * inv_scale * (acc[j][2 * h] - rs[h] * qv.x),
+                      2.f * inv_scale * (acc[j][2 * h + 1] - rs[h] * qv.y));
+      } else {
         *reinterpret_cast<uint32_t*>(dst + col) =
             pack_bf16(acc[j][2 * h] * inv_scale, acc[j][2 * h + 1] * inv_scale);
+      }
     }
   }
 }
 
-template <int DP>
+template <int DP, int MODE>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int bh, int n, int d, float inv_scale,
            cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<DP>();
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  const size_t smem = dq_smem_bytes<DP, MODE>();
+  cudaFuncSetAttribute(flash_bwd_dq_kernel<DP, MODE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((n + BQ - 1) / BQ, bh);
-  flash_bwd_dq_kernel<DP><<<grid, NWARP * 32, smem, stream>>>(
+  flash_bwd_dq_kernel<DP, MODE><<<grid, NWARP * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), n, d, inv_scale * LOG2E,
@@ -176,25 +208,36 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return (int)cudaGetLastError();
 }
 
+template <int MODE>
+int dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq, int bh, int n, int d, float inv_scale, cudaStream_t s) {
+  switch ((d + 15) / 16) {
+    case 1: return launch<16, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 2: return launch<32, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 3: return launch<48, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 4: return launch<64, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 5: return launch<80, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 6: return launch<96, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 7: return launch<112, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case 8: return launch<128, MODE>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q, k, v, dout: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple
 // of 8 and at most 128.  lse (natural log) and delta: (bh, n) f32.  dq:
-// (bh, n, d) bf16.  inv_scale multiplies q.k.
+// (bh, n, d) bf16.  inv_scale multiplies q.k (`dot`) or the distance; mode 0
+// `dot`, 1 `l2`.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int n,
-                                 int d, float inv_scale, void* stream) {
+                                 int d, float inv_scale, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;
-  switch ((d + 15) / 16) {
-    case 1: return launch<16>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 2: return launch<32>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 3: return launch<48>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 4: return launch<64>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 5: return launch<80>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 6: return launch<96>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 7: return launch<112>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
-    case 8: return launch<128>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+  switch (mode) {
+    case kDot: return dispatch<kDot>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
+    case kL2: return dispatch<kL2>(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,14 @@
-// Flash-attention backward dQ, dK and dV in one sweep, `dot` scores, for
-// Hopper (sm_90a).
+// Flash-attention backward dQ, dK and dV in one sweep, `dot` and `l2` scores,
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_flash_bwd_fused_kernel` / `_flash_backward_fused`
 // (vitgan_tpu/ops/attention.py:507-621, launched at :606): five products a
 // tile instead of the two-pass route's seven.  The k-block kernel of
 // flash_attn_bwd.cuh with FUSED = true adds each tile's dS K into an f32
-// buffer with atomics; a second kernel scales it by inv_scale and casts it to
-// bf16.  dQ's bits vary from run to run with the order of the atomics.
+// buffer with atomics (for `l2` also each row's sum of dS, into one f32 per
+// row); a second kernel scales it by inv_scale, or for `l2` forms
+// 2 inv_scale (acc - rowsum q), and casts it to bf16.  dQ's bits vary from
+// run to run with the order of the atomics, in both modes.
 //
 // Bound on this card.  At the highres128 generator's shape (32*6 heads,
 // 1,024 tokens, Dh 64) a launch does five products of 2*N*N*Dh flops per
@@ -17,29 +19,47 @@
 
 namespace {
 
-__global__ void scale_cast_kernel(const float* __restrict__ acc, vk::bf16* __restrict__ out,
-                                  long count, float scale) {
+// dq = scale * acc (`dot`), or 2 scale (acc - rs[row] q) (`l2`), cast to bf16.
+template <int MODE>
+__global__ void scale_cast_kernel(const float* __restrict__ acc, const float* __restrict__ rs,
+                                  const vk::bf16* __restrict__ q, vk::bf16* __restrict__ out,
+                                  long count, int d, float scale) {
   for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < count;
-       i += (long)gridDim.x * blockDim.x)
-    out[i] = __float2bfloat16(acc[i] * scale);
+       i += (long)gridDim.x * blockDim.x) {
+    if constexpr (MODE == vk::kL2)
+      out[i] = __float2bfloat16(2.f * scale * (acc[i] - rs[i / d] * __bfloat162float(q[i])));
+    else
+      out[i] = __float2bfloat16(acc[i] * scale);
+  }
 }
 
 }  // namespace
 
-// As flash_attn_bwd_dkv, plus dq (bh, n, d) bf16 and dq_acc, an f32 scratch
-// buffer of the same shape (zeroed here).
+// As flash_attn_bwd_dkv, plus dq (bh, n, d) bf16, dq_acc, an f32 scratch
+// buffer of the same shape, and for `l2` (mode 1) rs_acc, an f32 (bh, n)
+// scratch buffer (both zeroed here).
 extern "C" int flash_attn_bwd_fused(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
-                                    void* dq, void* dk, void* dv, void* dq_acc, int bh, int n,
-                                    int d, float inv_scale, void* stream) {
+                                    void* dq, void* dk, void* dv, void* dq_acc, void* rs_acc,
+                                    int bh, int n, int d, float inv_scale, int mode,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long count = (long)bh * n * d;
+  if (mode == vk::kL2 && rs_acc == nullptr) return (int)cudaErrorInvalidValue;
   cudaMemsetAsync(dq_acc, 0, count * sizeof(float), s);
-  const int err = vk::bwd::dispatch_kv<true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
-                                             d, inv_scale, s);
+  if (mode == vk::kL2) cudaMemsetAsync(rs_acc, 0, (long)bh * n * sizeof(float), s);
+  const int err = vk::bwd::dispatch_kv<true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc,
+                                             bh, n, d, inv_scale, mode, s);
   if (err != 0) return err;
-  const long blocks = (count + 255) / 256;
-  scale_cast_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      static_cast<const float*>(dq_acc), static_cast<vk::bf16*>(dq), count, inv_scale);
+  const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  const float* acc = static_cast<const float*>(dq_acc);
+  vk::bf16* out = static_cast<vk::bf16*>(dq);
+  if (mode == vk::kL2)
+    scale_cast_kernel<vk::kL2><<<blocks, 256, 0, s>>>(acc, static_cast<const float*>(rs_acc),
+                                                      static_cast<const vk::bf16*>(q), out,
+                                                      count, d, inv_scale);
+  else
+    scale_cast_kernel<vk::kDot><<<blocks, 256, 0, s>>>(acc, nullptr, nullptr, out, count, d,
+                                                       inv_scale);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,18 @@
-// Flash-attention forward, `dot` scores, for Hopper (sm_90a).
+// Flash-attention forward, `dot`, `l2` and `l2ref` scores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels `_flash_kernel` / `_flash_forward`
 // (vitgan_tpu/ops/attention.py:64-105, 232-278) and their K/V-streaming
 // variant `_flash_kernel_dma` (attention.py:108-169): here K/V always stream
 // through shared memory one tile at a time, at any length.
 //
-// Computes, per (batch*head, query):  O = softmax(q.k^T * inv_scale) v  and
-// LSE = m + log(l), the f32 log-sum-exp the backward kernels will read.
+// Computes, per (batch*head, query):  O = softmax(S) v  and LSE = m + log(l),
+// the f32 log-sum-exp of S the backward kernels will read, with the score
+// mode a template parameter (common.cuh): S = inv_scale q.k^T (`dot`),
+// -inv_scale d2 (`l2`) or inv_scale sqrt(d2 + 1e-12) (`l2ref`), d2 =
+// max(|q|^2 + |k|^2 - 2 q.k^T, 0) formed on the f32 S accumulators.  |q|^2 of
+// the warp's rows comes from the resident Q tile once; |k|^2 of each streamed
+// K tile from its shared-memory copy, into a 64-float array, behind a second
+// barrier (the `l2` modes only).  The `dot` instantiation forms no norms.
 //
 // Design.  One block of 8 warps per (128-query tile, batch*head); each warp
 // owns 16 query rows.  Every block streams all of its head's K/V from L2, so
@@ -22,13 +28,19 @@
 // row sums l add the f32 p, as there.  The head dimension is padded to a
 // multiple of 16 in shared memory only (zero-filled copies), never in device
 // memory: no padding to 128 as on the TPU.  Dh must be a multiple of 8
-// (16-byte copies).
+// (16-byte copies): the wrapper (ops/attention.flash_forward) zero-pads
+// other widths, as the v1 discriminator's 108, to one (112) in device memory
+// and slices O back; zero columns change no score of any mode.
 //
 // Bound on this card.  At the serving shape (64*6 heads, 1,024 tokens,
 // Dh 64) a launch does 4*384*1024^2*64 = 1.03e11 flops on 201 MB of
 // q/k/v/o: 0.10 ms of tensor-core time against 0.06 ms of HBM time, so the
 // tensor cores bound it.  mma.sync reaches only part of the wgmma rate;
-// wgmma with TMA and warp specialisation is later work.
+// wgmma with TMA and warp specialisation is later work.  At the v1
+// discriminator's `l2` shape (128*2*4 heads, 50 tokens, Dh 108) a launch
+// moves 44 MB of q/k/v/o for 1.1e9 flops: 0.013 ms of HBM time against
+// 0.001 ms of tensor-core time, so the bytes bound it there, and a
+// 128-query block holds 50 real rows.
 #include "common.cuh"
 
 using namespace vk;
@@ -39,13 +51,14 @@ constexpr int BQ = 128;    // queries per block
 constexpr int BK = 64;     // keys per streamed tile
 constexpr int NWARP = 8;   // 16 query rows per warp
 
-template <int DP>
+template <int DP, int MODE>
 constexpr size_t smem_bytes() {
-  return (size_t)(BQ + 4 * BK) * (DP + 8) * 2;  // Q + two stages of K and V
+  // Q + two stages of K and V (+ |k|^2 of the current K tile)
+  return (size_t)(BQ + 4 * BK) * (DP + 8) * 2 + (MODE != kDot ? BK * sizeof(float) : 0);
 }
 
 // Two blocks per SM where the registers allow it (Dh <= 64: at most 128 each).
-template <int DP>
+template <int DP, int MODE>
 __global__ void __launch_bounds__(NWARP * 32, DP <= 64 ? 2 : 1)
 flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -56,6 +69,7 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + BQ * LD;       // stage s at ks + s * BK * LD
   bf16* vs = ks + 2 * BK * LD;
+  float* kk_s = reinterpret_cast<float*>(vs + 2 * BK * LD);  // l2 modes: |k|^2 of the tile
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -76,6 +90,7 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m_r[2] = {-1e30f, -1e30f};  // running max of rows g and g+8 (log2 units)
   float l_r[2] = {0.f, 0.f};        // this lane's part of the running row sums
+  float qq[2] = {0.f, 0.f};         // l2 modes: |q|^2 of rows g and g+8
 
   const int ntiles = (n + BK - 1) / BK;
   for (int kt = 0; kt < ntiles; ++kt) {
@@ -92,9 +107,15 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kt == 0) {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) load_a(qf[kk], qs, LD, warp * 16, kk * 16);
+      if constexpr (MODE != kDot) frag_row_sq_norms<DP>(qq, qs, LD, warp * 16);
     }
     const bf16* kt_s = ks + cur * BK * LD;
     const bf16* vt_s = vs + cur * BK * LD;
+    if constexpr (MODE != kDot) {
+      // every warp is past tile kt - 1's reads of kk_s (the barrier above)
+      row_sq_norms<DP>(kk_s, kt_s, LD, BK);
+      __syncthreads();
+    }
 
     // S = Q K^T: 16 x 64 per warp, 8 n-tiles of 8 keys.
     float s[BK / 8][4];
@@ -118,8 +139,11 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = kt * BK + j * 8 + 2 * t + (e & 1);
-        const float val = key < n ? s[j][e] * scale_log2 : -INFINITY;
+        const int col = j * 8 + 2 * t + (e & 1);
+        const int key = kt * BK + col;
+        const float val = key < n ? score_log2<MODE>(s[j][e], qq[e >> 1],
+                                                     MODE != kDot ? kk_s[col] : 0.f, scale_log2)
+                                  : -INFINITY;
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -192,17 +216,33 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP>
+template <int DP, int MODE>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int n,
            int d, int heads, float scale_log2, int out_bnhd, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>();
-  cudaFuncSetAttribute(flash_attn_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  const size_t smem = smem_bytes<DP, MODE>();
+  cudaFuncSetAttribute(flash_attn_fwd_kernel<DP, MODE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((n + BQ - 1) / BQ, bh);
-  flash_attn_fwd_kernel<DP><<<grid, NWARP * 32, smem, stream>>>(
+  flash_attn_fwd_kernel<DP, MODE><<<grid, NWARP * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), n, d, heads, scale_log2, out_bnhd);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int n,
+             int d, int heads, float sl, int out_bnhd, cudaStream_t s) {
+  switch ((d + 15) / 16) {
+    case 1: return launch<16, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 2: return launch<32, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 3: return launch<48, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 4: return launch<64, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 5: return launch<80, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 6: return launch<96, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 7: return launch<112, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 8: return launch<128, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -210,22 +250,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // q, k, v: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple of 8 and
 // at most 128.  o: (bh, n, d) bf16, or with out_bnhd the (b, n, heads, d)
 // layout the out-projection reads as (b*n, heads*d).  lse: (bh, n) f32.
-// bh <= 65535.  inv_scale multiplies q.k.
+// bh <= 65535.  inv_scale multiplies q.k (`dot`) or the distance; mode 0
+// `dot`, 1 `l2`, 2 `l2ref`.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int bh, int n, int d, int heads, float inv_scale, int out_bnhd,
-                              void* stream) {
+                              int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl = inv_scale * 1.4426950408889634f;  // log2(e)
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;
-  switch ((d + 15) / 16) {
-    case 1: return launch<16>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 2: return launch<32>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 3: return launch<48>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 4: return launch<64>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 5: return launch<80>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 6: return launch<96>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 7: return launch<112>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 8: return launch<128>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+  switch (mode) {
+    case kDot: return dispatch<kDot>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case kL2: return dispatch<kL2>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case kL2Ref: return dispatch<kL2Ref>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

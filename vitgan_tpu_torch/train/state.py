@@ -107,7 +107,12 @@ class Optimizer:
 
 
 def _optim_cfg(cfg: ExperimentConfig, which: str) -> OptimConfig:
-    return getattr(cfg.model, f"{which}_optim")
+    """``{gen,disc}_optim`` of the model config; v1 nests them under
+    generator/discriminator (state.py:142-147)."""
+    m = cfg.model
+    if hasattr(m, f"{which}_optim"):
+        return getattr(m, f"{which}_optim")
+    return getattr(m, "generator" if which == "gen" else "discriminator").optim
 
 
 @dataclass
@@ -135,7 +140,9 @@ class TrainState:
 
 def create_train_state(gan, cfg: ExperimentConfig, device="cuda") -> TrainState:
     """G then D drawn on the CPU from one generator seeded with the model
-    seed, moved to ``device``; the device generator seeded from it too."""
+    seed, moved to ``device``; the device generator seeded from it too.  The
+    optimizers hold the parameters only: D's ISR state is buffers, which the
+    train step updates in place."""
     seed = int(cfg.model.seed)
     init = torch.Generator().manual_seed(seed)
     g = gan.generator_init(init, device=device)

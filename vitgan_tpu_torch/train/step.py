@@ -8,6 +8,13 @@ gradient penalty; then the G update against the UPDATED D, back through the
 same G graph, with D's parameters excluded from that backward; the EMA; the
 same metric keys.
 
+D's state (the v1 ISR vectors, buffers updated in place, never in autograd
+or an optimizer) follows the JAX step's threading: each D update's forward
+refreshes it (``update_state``, step.py:112-115); the penalties' forwards
+read it as that update found it, so they run before it (a D without state
+keeps them after its main forward); the G update's forward reads the
+refreshed state and leaves it (step.py:234-236).
+
 Random draws.  Latents come from the host's numpy Philox keyed by (seed,
 step) (train/sample.latent_rng); dropout, augment, instance noise and the
 gradient penalty's mixing weights come from the state's device generator.
@@ -70,28 +77,42 @@ def make_train_step(gan, cfg: ExperimentConfig):
     def d_loss_on(state, real_in, fake_in, with_r1, draws):
         b = real_in.shape[0]
 
-        def disc(x):
-            return gan.discriminator_apply(state.d, x, train=True, generator=state.rng)
+        def disc(x, update_state=False):
+            return gan.discriminator_apply(state.d, x, train=True, generator=state.rng,
+                                           update_state=update_state)
 
+        def penalties():
+            if use_wgan:
+                eps = draws.get("gp_eps")
+                if eps is None:
+                    eps = torch.rand((b, 1, 1, 1), generator=state.rng, device=real_in.device)
+                return LO.gradient_penalty(disc, real_in, fake_in, eps.to(real_in.device))
+            if with_r1:
+                return LO.r1_penalty(disc, real_in).float()
+            return torch.zeros((), device=real_in.device)
+
+        # Where D has state, the penalties first: their forwards read it as
+        # this update found it, as the JAX step's `dv` does.  Elsewhere after
+        # the main forward, so that its dropout draws come first.
+        if gan.d_has_state:
+            penalty = penalties()
         if gan.d_has_batch_stats:
-            real_logits, fake_logits = disc(real_in), disc(fake_in)
+            real_logits = disc(real_in, update_state=True)
+            fake_logits = disc(fake_in)
         else:
-            logits = disc(torch.cat([real_in, fake_in], dim=0))
+            logits = disc(torch.cat([real_in, fake_in], dim=0), update_state=True)
             real_logits, fake_logits = logits[:b], logits[b:]
-        r1 = torch.zeros((), device=real_in.device)
+        if not gan.d_has_state:
+            penalty = penalties()
+        r1 = penalty if with_r1 else torch.zeros((), device=real_in.device)
         if use_wgan:
-            eps = draws.get("gp_eps")
-            if eps is None:
-                eps = torch.rand((b, 1, 1, 1), generator=state.rng, device=real_in.device)
-            gp = LO.gradient_penalty(disc, real_in, fake_in, eps.to(real_in.device))
-            loss = LO.wasserstein_d_loss(real_logits, fake_logits) + mcfg.gp_lambda * gp
+            loss = LO.wasserstein_d_loss(real_logits, fake_logits) + mcfg.gp_lambda * penalty
             loss_real, loss_fake = -real_logits.float().mean(), fake_logits.float().mean()
         else:
             loss_real = criterion(real_logits, torch.ones_like(real_logits, dtype=torch.float32))
             loss_fake = criterion(fake_logits, torch.zeros_like(fake_logits, dtype=torch.float32))
             loss = loss_real + loss_fake
             if with_r1:
-                r1 = LO.r1_penalty(disc, real_in).float()
                 loss = loss + 0.5 * r1_gamma * r1_interval * r1
         aux = {"loss_real": loss_real, "loss_fake": loss_fake, "r1": r1,
                "real_acc": LO.accuracy_from_logits(real_logits, True),
