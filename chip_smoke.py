@@ -6,7 +6,9 @@
 1. Fails unless torch.cuda.is_available(); prints the card's name and power
    limit as nvidia-smi gives them.
 2. Builds the hand-written CUDA kernels from vitgan_tpu_torch/ops/csrc, all
-   sources in parallel, timed.
+   sources in parallel, timed; where the toolkit has cuobjdump, counts the
+   wgmma (HGMMA) and TMA (UTMALDG) instructions of the sources redesigned
+   for Hopper (wgrad_gemm, the flash k-block backward) and fails on none.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
@@ -27,16 +29,20 @@
 7. Holds the three flash-attention backward kernels (single-pass, dq, dk/dv)
    against their plain versions at the generator's shape (32, 6, 1024, 64),
    the discriminator's (64, 6, 1025, 64), a ragged (2, 3, 257, 64) and a long
-   (1, 1, 16385, 64) shape, each output within 2e-2 of its own max|plain|;
+   (1, 1, 16385, 64) shape, each output within 2e-2 of its own max|plain|
+   (dk/dv also bit-equal across two calls);
    times each beside its bound, its plain version and PyTorch's
-   scaled_dot_product_attention backward (library_ms).
+   scaled_dot_product_attention backward (library_ms), and at its main
+   shape splits the wrapper's device time into its own kernels' and the
+   rest (the PyTorch delta = rowsum(dO * O) when none is given).
 8. Holds the megablock's training kernels against their plain versions at
    G's (32, 1024, 384, 6 heads, hidden 1536), D's (64, 1025, ...) and a ragged
    (2, 257, 192, 3 heads, hidden 768) shape: the training form of ln_mlp_fwd
    (dropout masks bit-equal to the plain Philox's; out, x1, z1 by
    KERNEL_RTOL), megablock_bwd_mlp, megablock_bwd_ln1, wgrad_gemm (beside
-   torch.matmul of the same A^T.B) and sum_partials (each output within
-   KERNEL_RTOL * its own max|plain|), then one block's whole saved-residual
+   torch.matmul of the same A^T.B; two calls bit-equal) and sum_partials
+   (each output within KERNEL_RTOL * its own max|plain|), then one block's
+   whole saved-residual
    backward against autograd of the plain masked block in f32: dx and each
    of the 12 parameter gradients within MB_GRAD_RTOL * its own max|plain|.
 9. Under the default runtime.megablock=auto a highres128 training block at
@@ -256,6 +262,29 @@ def _ptxas_kernels(log: str) -> list:
         if m and func:
             out.append((func, int(m.group(1)), *spill))
             func = None
+    return out
+
+
+# The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
+# HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
+HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv")
+
+
+def _sass_counts(build) -> dict:
+    """{source: {"HGMMA": n, "UTMALDG": n}} from cuobjdump of each library in
+    HOPPER_SOURCES; {} where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("[sass] no cuobjdump in the toolkit: not counted")
+        return {}
+    out = {}
+    for name in HOPPER_SOURCES:
+        sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        out[name] = {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+        print(f"[sass] {name}: {out[name]['HGMMA']} HGMMA, {out[name]['UTMALDG']} UTMALDG")
+        if not (out[name]["HGMMA"] and out[name]["UTMALDG"]):
+            raise AssertionError(f"{name} holds no wgmma or no TMA load in its SASS")
     return out
 
 
@@ -612,16 +641,28 @@ def check_bwd_kernels() -> dict:
             want = want if isinstance(want, tuple) else (want,)
             err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
                       for i, (g_, w_) in enumerate(zip(got, want)))
+            if name == "flash_attn_bwd_dkv":  # the k-block's two-pass instantiation
+                again = kern(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"{name} {label}: two calls are not bit-equal")
+                print(f"  {name} {label}: dk and dv bit-equal across two calls")
+                del again
             del got, want
             bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
                                         (5 + writes) * elem + b * h * n * 4)
             rec = {"max_abs_err": err, "ms": _time_ms(lambda: kern(*args), 5 if n > 8192 else 20),
                    "plain_ms": _time_ms(lambda: plain(*args), 2), "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": library_ms}
+            main = label == BWD_MAIN_SHAPE[name]
+            if main:  # the kernel's own device time apart from the wrapper's delta
+                _with_device_ms(rec, lambda: kern(*args), 5, name)
             torch.cuda.empty_cache()
             print(f"  {name} {label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, SDPA "
-                  f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by})")
-            if label == BWD_MAIN_SHAPE[name]:
+                  f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by})"
+                  + (f"; device: the kernel's {rec['device_ms']} ms, the wrapper's other "
+                     f"{rec['other_device_ms']} ms" if main else ""))
+            if main:
                 out[name].update(rec)
             else:
                 out[name][f"{label}_max_abs_err"] = err
@@ -762,6 +803,11 @@ def check_megablock_kernels() -> dict:
         for key, args in pairs.items():
             a_, b_ = args[0], args[1]
             got, want = WG.wgrad_gemm(*args), WG.wgrad_reference(*args)
+            again = WG.wgrad_gemm(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"wgrad_gemm {label} {key}: two calls are not bit-equal")
+            del again
             errs += [_err(got[0], want[0], f"wgrad_gemm {label} {key}", own_scale=True),
                      _err(got[1], want[1], f"wgrad_gemm {label} d{key[1:].replace('w', 'b')}",
                           own_scale=True)]
@@ -778,6 +824,7 @@ def check_megablock_kernels() -> dict:
                               "plain_ms": tot["plain_ms"] / 4, "bound_ms": bound[0],
                               "bound_by": bound[1], "library_ms": tot["library_ms"] / 4,
                               "per": "launch, mean of the four products of one block backward"}
+        print(f"  wgrad_gemm {label}: dW and db bit-equal across two calls")
         print(f"  wgrad_gemm {label}: mean of 4 products {tot['ms'] / 4:.4f} ms (plain "
               f"{tot['plain_ms'] / 4:.4f}, torch.matmul {tot['library_ms'] / 4:.4f}, bound "
               f"{bound[0]:.4f} ms by {bound[1]})")
@@ -841,8 +888,8 @@ TRAIN_KERNELS = {
              # four weight-gradient products and two LN sums per block backward
              # that has parameter gradients to give: D's, then G's (D's
              # parameters are frozen in the G update); each product's entry
-             # also runs two second passes, for dW and db
-             "wgrad_gemm": 96, "sum_partials": 48 + 2 * 96},
+             # runs its own fixed-order reduce of the partials
+             "wgrad_gemm": 96, "sum_partials": 48},
     # runtime.megablock=off: flash attention and LN->MLP with their backward
     "off": {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24,
             "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36},
@@ -1039,7 +1086,8 @@ def train_deit64(steps: int = 3) -> dict:
 
 
 # Kernel names of the port, by the substring of their CUDA symbol.
-PORT_KERNELS = (("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
+PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pass or dk/dv)"),
+                ("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_dq_kernel", "flash backward dq"),
                 ("scale_cast_kernel", "flash single-pass dq scale-and-cast"),
                 ("flash_attn_fwd_kernel", "flash forward"),
@@ -1048,6 +1096,7 @@ PORT_KERNELS = (("flash_bwd_kv_kernel", "flash backward k-block (single-pass or 
                 ("megablock_bwd_mlp", "megablock backward, MLP half"),
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
                 ("wgrad_gemm", "weight-gradient products"),
+                ("wgrad_reduce", "weight-gradient products"),
                 ("sum_partials", "second-pass sums"))
 
 
@@ -1234,9 +1283,10 @@ L2_MAIN_SHAPE = "D"
 # The CUDA symbols of each flash wrapper's own kernels (the single pass also
 # runs its dq scale-and-cast pass), for _device_ms.
 FLASH_SYMBOLS = {"flash_attn_fwd": ("flash_attn_fwd_kernel",),
-                 "flash_attn_bwd_fused": ("flash_bwd_kv_kernel", "scale_cast_kernel"),
+                 "flash_attn_bwd_fused": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel",
+                                          "scale_cast_kernel"),
                  "flash_attn_bwd_dq": ("flash_bwd_dq_kernel",),
-                 "flash_attn_bwd_dkv": ("flash_bwd_kv_kernel",)}
+                 "flash_attn_bwd_dkv": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel")}
 
 
 def _with_device_ms(rec: dict, fn, iters: int, base: str) -> dict:
@@ -1905,6 +1955,7 @@ def main() -> int:
         for func, regs, stores, loads in spilled:
             print(f"    {func}: {regs} registers, {stores} bytes spill stores, {loads} loads")
 
+    sass = _sass_counts(build)
     records = check_kernels()
     run_dir = os.path.join(root, "build", "chip_smoke_run")
     off_dir = os.path.join(root, "build", "chip_smoke_run_megablock_off")
@@ -2000,6 +2051,8 @@ def main() -> int:
         if k["name"] in ("flash_attn_fwd", "ln_mlp_fwd", "flash_attn_bwd_fused",
                          "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
             k["launches_train_megablock_off"] = off_train_launches[k["name"]]
+        if k["name"] in sass:
+            k["sass"] = sass[k["name"]]
         if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused"):
             # the v1 generator's `dot` attention: its launches on the v1 train
             # path and the check at its shape

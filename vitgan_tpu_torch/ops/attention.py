@@ -355,6 +355,8 @@ def flash_backward(q, k, v, o, lse, do, scale: float, delta=None, score_mode: st
     tensors (or raise), their plain versions for CPU tensors.  With ``delta``
     given, ``o`` is not read.  `dot` and `l2` scores."""
     route = backward_route(q.shape[-2], q.shape[-1], q.element_size(), score_mode)
+    if route == "two_pass" and delta is None:  # one delta for both passes (attention.py:640)
+        delta = _delta(o, do)
     args = (q, k, v, o, lse, do, scale, delta, score_mode)
     if q.device.type == "cpu":
         if route == "fused":

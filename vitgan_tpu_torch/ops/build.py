@@ -54,7 +54,7 @@ SIGNATURES = {
     "megablock_bwd_mlp": [_P] * 20 + [_I] * 6 + [_F, _P],
     # dqkv, wqkv, x, dx1, ln_s, ln_b, dx, y1, part, m, e, k, eps, stream
     "megablock_bwd_ln1": [_P] * 9 + [_I] * 3 + [_F, _P],
-    # a, b, dw, db, scratch, m, ka, nb, splits, stream
+    # a, b, dw, db, scratch, m, ka, nb, rows_per_split, stream
     "wgrad_gemm": [_P] * 5 + [_I] * 4 + [_P],
     # part, out, splits, count, stream
     "sum_partials": [_P] * 2 + [_I] * 2 + [_P],

@@ -1,7 +1,10 @@
 // Flash-attention backward, `dot` and `l2` scores, for Hopper (sm_90a): the
 // k-block kernel shared by csrc/flash_attn_bwd_dkv.cu (FUSED = false) and
 // csrc/flash_attn_bwd_fused.cu (FUSED = true).  csrc/flash_attn_bwd_dq.cu has
-// the q-block kernel.
+// the q-block kernel.  Replaces the TPU kernels `_flash_bwd_dkv_kernel(_dma)`
+// (vitgan_tpu/ops/attention.py:434-504, pallas_call at :727) and
+// `_flash_bwd_fused_kernel` (:507-590, pallas_call at :606); the two entries'
+// head notes give the bound on this card and what ptxas -v reports.
 //
 // With the forward's natural-log LSE and delta = rowsum(dO * O):
 //   P  = exp(S - lse),  S = inv_scale * Q K^T (`dot`) or -inv_scale * d2 (`l2`,
@@ -12,39 +15,65 @@
 //        dQ = 2 inv_scale (dS K - rowsum(dS) q)   (attention.py:290-292)
 // P and dS are cast to bf16 before their products and every product
 // accumulates in f32, as the TPU kernels do (attention.py:392-422); the sums
-// of dS add the f32 values, as there.  The score mode is a template
-// parameter; the `dot` instantiations carry none of the `l2` terms.
+// of dS add the f32 values, as there.
 //
-// Design of the k-block kernel.  One block of 4 warps owns 64 keys of one
-// (batch*head); each warp owns 16 keys, whose K and V fragments stay in
-// registers with the f32 dK and dV accumulators (and, for `l2`, its keys'
-// |k|^2 and the lane's part of colsum(dS)).  Q, dO and the rows' LSE and
-// delta stream through a two-stage ring, 64 queries a tile: the next tile's
-// cp.async copies are in flight while the current one is used, with one
-// barrier a tile.  The warp computes S^T = K Q^T (16 x 64), P^T, dV += P^T dO,
-// dP^T = V dO^T, dS^T and dK += dS^T Q on the tensor cores (mma.sync m16n8k16,
-// operands by ldmatrix), P^T and dS^T passing from accumulators to A operands
-// in registers.  Padded queries read an LSE of +inf (P = 0) and keys past n
-// are masked, so N need not be a multiple of 64 (N 1,025 is ragged).  The
-// head dimension is padded to a multiple of 16 in shared memory only.  For
-// `l2`, |q|^2 of each streamed Q tile is formed from its shared-memory copy
-// into a 64-float array behind a second barrier; the epilogue reads k back
-// from the resident K tile.
+// Two designs, one for each score mode.  `dot` (the highres128 and
+// v1-generator path) runs the wgmma kernel below (namespace wg); `l2` (the v1
+// discriminator, host-bound at 50 tokens) runs the mma.sync kernel,
+// flash_bwd_kv_kernel, which carries the `l2` terms.
 //
-// FUSED adds dQ: the blocks run concurrently in no order, where the TPU
-// kernel summed dQ over k-blocks in sequential grid order through VMEM
-// (attention.py:507-590).  Here each tile's dS^T goes to shared memory as
-// dS (queries x keys), the four warps form dS K for 16 queries each, and add
-// it into an f32 buffer in device memory with float2 atomics; the entry point then
-// scales and casts the buffer to bf16 in a second pass.  The order of the
-// atomic additions varies from run to run, so dQ's bits do too.  For `l2`
-// each warp also sums its 16 keys' f32 dS per query with shuffles and adds
-// the sums into one f32 per row with atomics (the rowsum the TPU kernel keeps
-// in VMEM, attention.py:571-574); the second pass applies the `l2` finish,
-// so the `l2` dQ is not bit-deterministic either.
+// The `dot` k-block kernel (flash_bwd_kv_wgmma_kernel<DP, FUSED>).  One block
+// of 384 threads owns 128 keys of one (batch*head).  Warpgroup 0 produces:
+// warp 0 loads the block's K and V once by TMA (3-D tensor maps over (d, n,
+// bh), so keys and queries past n read zeros), then streams Q and dO, 64
+// queries a tile, through a ring of 5 stages (2 at DP > 64) on full/empty
+// mbarriers; warp 1 stores the tile's LSE (log2 units, +inf past n) and
+// delta beside them, the next tile's loads in flight.  Warpgroups 1 and 2
+// consume, 64 keys each, with dK and dV in f32 registers:
+//   S^T = K Q^T and dP^T = V dO^T   wgmma m64n64k16, both operands K-major in
+//                                   shared memory (128-byte swizzle);
+//   P^T, dS^T                       on the accumulators, keys and queries
+//                                   past n masked to P = 0;
+//   dV += P^T dO, dK += dS^T Q      wgmma with A (P^T, dS^T in bf16) from
+//                                   registers, B N-major from the same tiles;
+// the stage is released once a tile's dV and dK retire, the other
+// warpgroup's products overlapping this one's exp and dS.  The head
+// dimension runs DP (a multiple of 16) deep in S and dP and 64 or 128 wide
+// (zero columns) in dV, dK and dQ: 64-column boxes, two past Dh 64.
+// FUSED adds dQ, which the TPU kernel summed over k-blocks in sequential
+// grid order (attention.py:507-590): both warpgroups write their dS^T into
+// one of two swizzled shared buffers, meet at a named barrier, and one
+// warpgroup a tile in turn forms dQ = dS K over the block's 128 keys (wgmma,
+// A M-major from the dS^T buffer, B N-major from the resident K) and adds it
+// into an f32 buffer with vector RED (float4 atomicAdd, lanes pairing their
+// fragments); the entry point scales and casts it.  The order of the
+// additions varies from run to run, so dQ's bits do too; dK and dV are
+// bit-deterministic.
+//
+// What held the mma.sync design back, and what this does about it: 64 keys a
+// block on 4 warps, each reading every streamed Q and dO tile from shared
+// memory by ldmatrix for 16 keys (now 128 keys on two warpgroups, operands
+// read by wgmma's descriptors); a two-stage cp.async ring behind one block
+// barrier a tile (now TMA on mbarriers, the producer apart); dQ by float2
+// atomics of every warp, 16 keys deep (now 128 keys deep, four floats a
+// RED: half the additions).
+//
+// The `l2` kernel (flash_bwd_kv_kernel<DP, FUSED>).  One block of 4
+// warps owns 64 keys; each warp owns 16 keys, whose K and V fragments stay in
+// registers with the f32 dK and dV accumulators, its keys' |k|^2 and the
+// lane's part of colsum(dS).  Q, dO and the rows' LSE and delta stream
+// through a two-stage cp.async ring, 64 queries a tile, one barrier a tile;
+// mma.sync m16n8k16 with ldmatrix operands; |q|^2 of each streamed Q tile is
+// formed from its shared-memory copy behind a second barrier; the epilogue
+// reads k back from the resident K tile.  FUSED: each tile's dS goes to
+// shared memory, the four warps form dS K for 16 queries each and add it into
+// the f32 buffer with float2 atomics; each warp also adds its 16 keys' f32 dS
+// per query into one f32 per row (the rowsum the TPU kernel keeps in VMEM,
+// attention.py:571-574), and the second pass applies the `l2` finish, so the
+// `l2` dQ is not bit-deterministic either.
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace vk {
 namespace bwd {
@@ -65,13 +94,13 @@ __device__ inline void load_rows(float* lse2, const float* __restrict__ lse,
   }
 }
 
-template <int DP, bool FUSED, int MODE>
+template <int DP, bool FUSED>
 constexpr size_t kv_smem_bytes() {
   return (size_t)(2 * BK + 4 * BQ) * (DP + 8) * 2 + (FUSED ? (size_t)BQ * (BK + 8) * 2 : 0) +
-         (4 + (MODE != kDot ? 1 : 0)) * BQ * sizeof(float);
+         5 * BQ * sizeof(float);
 }
 
-template <int DP, bool FUSED, int MODE>
+template <int DP, bool FUSED>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -88,7 +117,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dos = qs + 2 * BQ * LD;   // stage s at dos + s * BQ * LD
   bf16* dss = dos + 2 * BQ * LD;  // FUSED: dS of the tile, [query][key]
   float* rows = reinterpret_cast<float*>(dss + (FUSED ? BQ * LDS : 0));  // stage s at + 2*BQ*s
-  float* qq_s = rows + 4 * BQ;  // l2: |q|^2 of the current Q tile
+  float* qq_s = rows + 4 * BQ;  // |q|^2 of the current Q tile
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -113,7 +142,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  float ksq[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};  // l2: |k|^2 and this lane's part of colsum(dS)
+  float ksq[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};  // |k|^2 and this lane's part of colsum(dS)
 
   const int ntiles = (n + BQ - 1) / BQ;
   for (int qt = 0; qt < ntiles; ++qt) {
@@ -134,16 +163,14 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         load_a(kf[kk], ks, LD, warp * 16, kk * 16);
         load_a(vf[kk], vs, LD, warp * 16, kk * 16);
       }
-      if constexpr (MODE == kL2) frag_row_sq_norms<DP>(ksq, ks, LD, warp * 16);
+      frag_row_sq_norms<DP>(ksq, ks, LD, warp * 16);
     }
     const bf16* q_s = qs + cur * BQ * LD;
     const bf16* do_s = dos + cur * BQ * LD;
     const float* lse2 = rows + cur * 2 * BQ;
     const float* dl = lse2 + BQ;
-    if constexpr (MODE == kL2) {
-      row_sq_norms<DP>(qq_s, q_s, LD, BQ);
-      __syncthreads();
-    }
+    row_sq_norms<DP>(qq_s, q_s, LD, BQ);
+    __syncthreads();
 
     // S^T = K Q^T: 16 keys x 64 queries per warp.
     float s[BQ / 8][4];
@@ -167,8 +194,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + warp * 16 + g + 8 * (e >> 1);
         const int col = j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < n ? exp2f(score_log2<MODE>(s[j][e], MODE == kL2 ? qq_s[col] : 0.f,
-                                                   ksq[e >> 1], scale_log2) -
+        s[j][e] = key < n ? exp2f(score_log2<kL2>(s[j][e], qq_s[col], ksq[e >> 1], scale_log2) -
                                   lse2[col])
                           : 0.f;
       }
@@ -207,7 +233,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         ds[j][e] = s[j][e] * (ds[j][e] - dl[j * 8 + 2 * t + (e & 1)]);
-        if constexpr (MODE == kL2) cs[e >> 1] += ds[j][e];
+        cs[e >> 1] += ds[j][e];
       }
     // dK += dS^T Q.
 #pragma unroll
@@ -224,7 +250,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(dk_acc[j + 1], a, b[2], b[3]);
       }
     }
-    if constexpr (FUSED && MODE == kL2) {
+    if constexpr (FUSED) {
       // rowsum(dS) over the warp's 16 keys for each query of the tile: the
       // lane's two keys, then the eight lanes g of each query column; lanes
       // 0-3 add the sums for queries 8j + 2t + c into rs_acc.
@@ -285,10 +311,9 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if constexpr (MODE == kL2) {  // the full colsum: the lane's group of four
-      cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 1);
-      cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 2);
-    }
+    // the full colsum: the lane's group of four
+    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 1);
+    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 2);
     const int lkey = warp * 16 + g + 8 * h;
     const int key = k0 + lkey;
     if (key >= n) continue;
@@ -298,31 +323,26 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < DP / 8; ++j) {
       const int col = j * 8 + 2 * t;
       if (col < d) {
-        if constexpr (MODE == kL2) {
-          const float2 kv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(ks + lkey * LD + col));
-          *reinterpret_cast<uint32_t*>(dkr + col) =
-              pack_bf16(2.f * inv_scale * (dk_acc[j][2 * h] - cs[h] * kv.x),
-                        2.f * inv_scale * (dk_acc[j][2 * h + 1] - cs[h] * kv.y));
-        } else {
-          *reinterpret_cast<uint32_t*>(dkr + col) =
-              pack_bf16(dk_acc[j][2 * h] * inv_scale, dk_acc[j][2 * h + 1] * inv_scale);
-        }
+        const float2 kv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ks + lkey * LD + col));
+        *reinterpret_cast<uint32_t*>(dkr + col) =
+            pack_bf16(2.f * inv_scale * (dk_acc[j][2 * h] - cs[h] * kv.x),
+                      2.f * inv_scale * (dk_acc[j][2 * h + 1] - cs[h] * kv.y));
         *reinterpret_cast<uint32_t*>(dvr + col) = pack_bf16(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
       }
     }
   }
 }
 
-template <int DP, bool FUSED, int MODE>
+template <int DP, bool FUSED>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, void* dq_acc, void* rs_acc, int bh, int n,
               int d, float inv_scale, cudaStream_t stream) {
-  const size_t smem = kv_smem_bytes<DP, FUSED, MODE>();
-  cudaFuncSetAttribute(flash_bwd_kv_kernel<DP, FUSED, MODE>,
+  const size_t smem = kv_smem_bytes<DP, FUSED>();
+  cudaFuncSetAttribute(flash_bwd_kv_kernel<DP, FUSED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((n + BK - 1) / BK, bh);
-  flash_bwd_kv_kernel<DP, FUSED, MODE><<<grid, NWARP * 32, smem, stream>>>(
+  flash_bwd_kv_kernel<DP, FUSED><<<grid, NWARP * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
@@ -331,13 +351,12 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
-template <bool FUSED, int MODE>
-int dispatch_kv_mode(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dk, void* dv, void* dq_acc,
-                     void* rs_acc, int bh, int n, int d, float inv_scale, cudaStream_t s) {
+template <bool FUSED>
+int dispatch_kv_l2(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, void* dq_acc,
+                   void* rs_acc, int bh, int n, int d, float inv_scale, cudaStream_t s) {
 #define VK_KV(DP) \
-  launch_kv<DP, FUSED, MODE>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, bh, n, d, \
-                             inv_scale, s)
+  launch_kv<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, bh, n, d, inv_scale, s)
   switch ((d + 15) / 16) {
     case 1: return VK_KV(16);
     case 2: return VK_KV(32);
@@ -352,6 +371,338 @@ int dispatch_kv_mode(const void* q, const void* k, const void* v, const void* do
 #undef VK_KV
 }
 
+// --- the `dot` k-block kernel: wgmma, TMA and mbarrier rings -----------------
+
+namespace wg {
+
+constexpr int KEYS = 128;     // keys per block: two consumer warpgroups of 64
+constexpr int TQ = 64;        // queries per streamed tile
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+
+// Shared-memory geometry for a head dimension padded to DP (a multiple of
+// 16): NB boxes of 64 columns per row (zero-filled past d), so the dV, dK
+// and dQ products run N = DPAD = 64 NB columns.
+template <int DP>
+struct Geo {
+  static constexpr int NB = (DP + 63) / 64;
+  static constexpr int DPAD = 64 * NB;
+  static constexpr int STAGES = NB == 1 ? 5 : 2;
+  static constexpr int KBOX = KEYS * 128;  // one 64-column box of K or V, bytes
+  static constexpr int QBOX = TQ * 128;    // one box of a Q or dO tile
+  static constexpr int STAGE = 2 * NB * QBOX;
+  static constexpr int DS = KEYS * 128;    // one dS^T buffer: 128 keys x 64 queries
+};
+
+template <int DP, bool FUSED>
+constexpr int smem_bytes() {
+  using G = Geo<DP>;
+  return 1024 + 2 * G::NB * G::KBOX + G::STAGES * G::STAGE + (FUSED ? 2 * G::DS : 0) +
+         G::STAGES * 2 * TQ * 4 + (2 * G::STAGES + 1) * 8;
+}
+
+// m64nNk16 products with N = 64 or 128 (the accumulator holds N / 2 floats).
+template <int N, int TA, int TB>
+__device__ inline void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) {
+    hopper::wgmma_ss64<TA, TB>(d, a, b, scale_d);
+  } else {
+    hopper::wgmma_ss128<TA, TB>(d, a, b, scale_d);
+  }
+}
+template <int N>
+__device__ inline void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    hopper::wgmma_rs64<1>(d, a, b);
+  } else {
+    hopper::wgmma_rs128<1>(d, a, b);
+  }
+}
+
+template <int DP, bool FUSED>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          float* __restrict__ dq_acc, int n, int d, float scale_log2,
+                          float inv_scale) {
+  using namespace hopper;
+  using G = Geo<DP>;
+  constexpr int NB = G::NB, DPAD = G::DPAD, ST = G::STAGES, NA = DPAD / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + NB * G::KBOX;
+  unsigned char* stages = vs + NB * G::KBOX;  // stage s: NB boxes of Q, then NB of dO
+  unsigned char* dss = stages + ST * G::STAGE;  // FUSED: two dS^T buffers
+  float* rows = reinterpret_cast<float*>(dss + (FUSED ? 2 * G::DS : 0));  // stage s: lse2, delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + ST * 2 * TQ);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+
+  const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * KEYS, bh = blockIdx.y;
+  const int ntiles = (n + TQ - 1) / TQ;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 33);  // warp 0's lane 0 (with the TMA bytes), warp 1's 32 lanes
+      mbar_init(&empty[s], 2);  // the two consumer warpgroups
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // producer: warp 0 issues the TMA loads, warp 1 the rows' LSE and delta
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(kvbar, 2 * NB * G::KBOX);
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(ks + b * G::KBOX, &tk, kvbar, 64 * b, k0, bh);
+        tma_load_3d(vs + b * G::KBOX, &tv, kvbar, 64 * b, k0, bh);
+      }
+      for (int qt = 0; qt < ntiles; ++qt) {
+        const int s = qt % ST;
+        if (qt >= ST) mbar_wait(&empty[s], ((qt / ST) - 1) & 1);
+        unsigned char* st = stages + s * G::STAGE;
+        mbar_arrive_tx(&full[s], 2 * NB * G::QBOX);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(st + b * G::QBOX, &tq, &full[s], 64 * b, qt * TQ, bh);
+          tma_load_3d(st + (NB + b) * G::QBOX, &tdo, &full[s], 64 * b, qt * TQ, bh);
+        }
+      }
+    } else if ((threadIdx.x >> 5) == 1) {
+      // lse in log2 units (+inf past n) and delta (0 past n), two rows a
+      // lane, the next tile's loads in flight while this one's are stored
+      const float* lseb = lse + (long)bh * n;
+      const float* deltab = delta + (long)bh * n;
+      auto fetch = [&](int qt, float (&v)[4]) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = qt * TQ + lane + 32 * h;
+          v[h] = r < n ? lseb[r] * LOG2E : INFINITY;
+          v[2 + h] = r < n ? deltab[r] : 0.f;
+        }
+      };
+      float cur[4], nxt[4];
+      fetch(0, cur);
+      for (int qt = 0; qt < ntiles; ++qt) {
+        const int s = qt % ST;
+        if (qt + 1 < ntiles) fetch(qt + 1, nxt);
+        if (qt >= ST) mbar_wait(&empty[s], ((qt / ST) - 1) & 1);
+        float* rw = rows + s * 2 * TQ;
+        rw[lane] = cur[0];
+        rw[lane + 32] = cur[1];
+        rw[TQ + lane] = cur[2];
+        rw[TQ + lane + 32] = cur[3];
+        mbar_arrive(&full[s]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns keys k0 + 64 w .. + 63
+  reg_alloc<232>();
+  const int w = wgi - 1, ct = threadIdx.x & 127, wr = ct >> 5, g = lane >> 2, t = lane & 3;
+  float dka[NA], dva[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+  const unsigned char* kw = ks + w * 64 * 128;  // the warpgroup's keys in each K box
+  const unsigned char* vw = vs + w * 64 * 128;
+  mbar_wait(kvbar, 0);
+
+  for (int qt = 0; qt < ntiles; ++qt) {
+    const int s = qt % ST;
+    mbar_wait(&full[s], (qt / ST) & 1);
+    const unsigned char* qs = stages + s * G::STAGE;
+    const unsigned char* dos = qs + NB * G::QBOX;
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries; Q and dO K-major),
+    // one wgmma group each.  The first step overwrites the accumulators
+    // (scale_d 0): no other instruction writes them while wgmmas are in flight.
+    float sa[32], pa[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss64<0, 0>(sa, desc_sw128(kw + (kk >> 2) * G::KBOX + (kk & 3) * 32, 16, 1024),
+                       desc_sw128(qs + (kk >> 2) * G::QBOX + (kk & 3) * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss64<0, 0>(pa, desc_sw128(vw + (kk >> 2) * G::KBOX + (kk & 3) * 32, 16, 1024),
+                       desc_sw128(dos + (kk >> 2) * G::QBOX + (kk & 3) * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S
+    fence_regs(sa);
+    // P^T in place: this thread holds keys 16 wr + g + 8 (e >> 1) of the
+    // warpgroup, queries 8 j + 2 t + (e & 1) of the tile
+    const float* lse2 = rows + s * 2 * TQ;
+    const float* dl = lse2 + TQ;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 64 * w + 16 * wr + g + 8 * (e >> 1);
+        const bool ok = key < n && qt * TQ + col + (e & 1) < n;
+        sa[4 * j + e] = ok ? exp2f(sa[4 * j + e] * scale_log2 - ((e & 1) ? l.y : l.x)) : 0.f;
+      }
+    }
+    // dV += P^T dO (A: P^T in bf16 from registers, 16 queries a step; B: dO N-major)
+    uint32_t pf[4][4], df[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(sa[8 * kk + 2 * r], sa[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs<DPAD>(dva, pf[kk], desc_sw128(dos + kk * 2048, G::QBOX, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP
+    fence_regs(pa);
+    // dS^T = P^T * (dP^T - delta) in place
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[4 * j + e] = sa[4 * j + e] * (pa[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) df[kk][r] = pack_bf16(pa[8 * kk + 2 * r], pa[8 * kk + 2 * r + 1]);
+    if constexpr (FUSED) {
+      // dS^T into this tile's buffer, row = key, 64 queries a 128-byte swizzled row
+      unsigned char* dsb = dss + (qt & 1) * G::DS;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * w + 16 * wr + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dsb + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
+              pack_bf16(pa[4 * j + 2 * h], pa[4 * j + 2 * h + 1]);
+      }
+    }
+    // dK += dS^T Q (B: Q N-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs<DPAD>(dka, df[kk], desc_sw128(qs + kk * 2048, G::QBOX, 1024));
+    wgmma_commit();
+    // dV and dK retire within the tile: then the stage's Q, dO, lse and delta
+    // are free.  (Keeping them in flight under the next tile's S and dP made
+    // ptxas serialise every wgmma of the loop, C7515/C7520: slower.)
+    wgmma_wait<0>();
+    fence_frags(pf);
+    fence_frags(df);
+    if (ct == 0) mbar_arrive(&empty[s]);
+
+    if constexpr (FUSED) {
+      // dQ of the tile = dS K over the block's 128 keys, by one warpgroup a
+      // tile in turn, added into dq_acc four columns a thread (vector RED)
+      fence_proxy_async();
+      named_bar_sync(1, 256);
+      if (w == (qt & 1)) {
+        const unsigned char* dsb = dss + (qt & 1) * G::DS;
+        float qa[NA];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk)
+          mma_ss<DPAD, 1, 1>(qa, desc_sw128(dsb + kk * 2048, G::DS, 1024),
+                             desc_sw128(ks + kk * 2048, G::KBOX, 1024), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(qa);
+#pragma unroll
+        for (int j = 0; j < DPAD / 8; ++j) {
+          // lanes t and t ^ 1 swap halves: even t takes row g, odd t row g + 8
+          const float x0 = (t & 1) ? qa[4 * j] : qa[4 * j + 2];
+          const float x1 = (t & 1) ? qa[4 * j + 1] : qa[4 * j + 3];
+          const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+          const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+          const int row = qt * TQ + 16 * wr + g + ((t & 1) ? 8 : 0);
+          const int col = 8 * j + 2 * (t & 2);
+          const float4 v = (t & 1) ? make_float4(y0, y1, qa[4 * j + 2], qa[4 * j + 3])
+                                   : make_float4(qa[4 * j], qa[4 * j + 1], y0, y1);
+          if (row < n && col < d)
+            atomicAdd(reinterpret_cast<float4*>(dq_acc + ((long)bh * n + row) * d + col), v);
+        }
+      }
+    }
+  }
+
+  wgmma_wait<0>();
+  fence_regs(dva);
+  fence_regs(dka);
+
+  // dK = inv_scale dS^T Q and dV, bf16, keys < n and columns < d
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + 64 * w + 16 * wr + g + 8 * h;
+    if (key >= n) continue;
+    bf16* dkr = dk + ((long)bh * n + key) * d;
+    bf16* dvr = dv + ((long)bh * n + key) * d;
+#pragma unroll
+    for (int j = 0; j < DPAD / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < d) {
+        *reinterpret_cast<uint32_t*>(dkr + col) =
+            pack_bf16(dka[4 * j + 2 * h] * inv_scale, dka[4 * j + 2 * h + 1] * inv_scale);
+        *reinterpret_cast<uint32_t*>(dvr + col) = pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int DP, bool FUSED>
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dk, void* dv, void* dq_acc, int bh, int n, int d,
+           float inv_scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t dims[3] = {(uint64_t)d, (uint64_t)n, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)d * 2, (uint64_t)n * d * 2};
+  const uint32_t qbox[3] = {64, TQ, 1}, kbox[3] = {64, KEYS, 1};
+  int err = hopper::make_tmap_bf16(&tq, q, 3, dims, strides, qbox);
+  if (!err) err = hopper::make_tmap_bf16(&tdo, dout, 3, dims, strides, qbox);
+  if (!err) err = hopper::make_tmap_bf16(&tk, k, 3, dims, strides, kbox);
+  if (!err) err = hopper::make_tmap_bf16(&tv, v, 3, dims, strides, kbox);
+  if (err) return err;
+  constexpr int smem = smem_bytes<DP, FUSED>();
+  cudaFuncSetAttribute(flash_bwd_kv_wgmma_kernel<DP, FUSED>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid((n + KEYS - 1) / KEYS, bh);
+  flash_bwd_kv_wgmma_kernel<DP, FUSED><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dq_acc), n, d,
+      inv_scale * LOG2E, inv_scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dk, void* dv, void* dq_acc, int bh, int n, int d,
+             float inv_scale, cudaStream_t s) {
+#define VK_WG(DP) launch<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n, d, inv_scale, s)
+  switch ((d + 15) / 16) {
+    case 1: return VK_WG(16);
+    case 2: return VK_WG(32);
+    case 3: return VK_WG(48);
+    case 4: return VK_WG(64);
+    case 5: return VK_WG(80);
+    case 6: return VK_WG(96);
+    case 7: return VK_WG(112);
+    case 8: return VK_WG(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VK_WG
+}
+
+}  // namespace wg
+
 // mode 0 `dot`, 1 `l2`; rs_acc (FUSED `l2` only) is the rows' dS sums.
 template <bool FUSED>
 int dispatch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -360,11 +711,11 @@ int dispatch_kv(const void* q, const void* k, const void* v, const void* dout, c
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case kDot:
-      return dispatch_kv_mode<FUSED, kDot>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc,
-                                           bh, n, d, inv_scale, s);
+      return wg::dispatch<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n, d, inv_scale,
+                                 s);
     case kL2:
-      return dispatch_kv_mode<FUSED, kL2>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc,
-                                          bh, n, d, inv_scale, s);
+      return dispatch_kv_l2<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, bh, n, d,
+                                   inv_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,16 +4,25 @@
 // variant `_flash_bwd_dkv_kernel_dma` (vitgan_tpu/ops/attention.py:434-504,
 // launched at :727): here Q and dO always stream through shared memory one
 // tile at a time, at any length.  The k-block kernel is in
-// flash_attn_bwd.cuh, which says what it computes and how.
+// flash_attn_bwd.cuh (FUSED = false), which says what it computes and how:
+// for `dot` the wgmma/TMA kernel, for `l2` the mma.sync one.  dK and dV are
+// bit-deterministic (each block owns its keys).
 //
 // Bound on this card.  At the highres128 discriminator's shape (64*6 heads,
 // 1,025 tokens, Dh 64) a launch does four products of 2*N*N*Dh flops per
 // head, 2.07e11 flops, on 305 MB of q/k/v/dO/dk/dv and rows: 0.21 ms of
 // tensor-core time against 0.09 ms of HBM time, so the tensor cores bound
-// it.  mma.sync reaches only part of the wgmma rate; wgmma with TMA is later
-// work.  At the v1 discriminator's `l2` shape (128*2*4 heads, 50 tokens,
+// it.  At the v1 discriminator's `l2` shape (128*2*4 heads, 50 tokens,
 // Dh 108) the 58 MB of q/k/v/dO/dk/dv bound it (0.017 ms) against 1.1e9
 // flops (0.001 ms).
+//
+// ptxas -v (sm_90a, CUDA 12.8): the `dot` instantiations launch at 168
+// registers a thread (40 producer / 232 consumer by setmaxnreg); at DP
+// 80-128 16 bytes of spills and wgmmas serialised for want of registers
+// (C7512), at DP <= 64 neither; dynamic shared memory 118,360 bytes at DP
+// <= 64 (five stages), 133,160 at DP 80-128 (two stages of two boxes).  The
+// `l2` ones are the mma.sync kernel's: 226 registers at DP 64, spills of
+// 12-336 bytes at DP 96-128.
 #include "flash_attn_bwd.cuh"
 
 // q, k, v, dout: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple

@@ -4,17 +4,26 @@
 // Replaces the TPU kernel `_flash_bwd_fused_kernel` / `_flash_backward_fused`
 // (vitgan_tpu/ops/attention.py:507-621, launched at :606): five products a
 // tile instead of the two-pass route's seven.  The k-block kernel of
-// flash_attn_bwd.cuh with FUSED = true adds each tile's dS K into an f32
-// buffer with atomics (for `l2` also each row's sum of dS, into one f32 per
-// row); a second kernel scales it by inv_scale, or for `l2` forms
-// 2 inv_scale (acc - rowsum q), and casts it to bf16.  dQ's bits vary from
-// run to run with the order of the atomics, in both modes.
+// flash_attn_bwd.cuh with FUSED = true (the wgmma/TMA kernel for `dot`, the
+// mma.sync one for `l2`) adds each tile's dS K into an f32 buffer (for `l2`
+// also each row's sum of dS, into one f32 per row); a second kernel scales
+// it by inv_scale, or for `l2` forms 2 inv_scale (acc - rowsum q), and casts
+// it to bf16.  dQ's bits vary from run to run with the order of the
+// additions, in both modes.
 //
 // Bound on this card.  At the highres128 generator's shape (32*6 heads,
 // 1,024 tokens, Dh 64) a launch does five products of 2*N*N*Dh flops per
 // head, 1.29e11 flops, on 178 MB of q/k/v/dO/dq/dk/dv and rows: 0.13 ms of
-// tensor-core time against 0.05 ms of HBM time.  The f32 atomics add
-// N/64 * N * Dh additions per head (2.0e8 at this shape) through the L2.
+// tensor-core time against 0.05 ms of HBM time.  The `dot` kernel's dQ
+// additions are N/128 * N * Dh per head (1.0e8 at this shape, 2.0e8 before),
+// four floats a RED through the L2.
+//
+// ptxas -v (sm_90a, CUDA 12.8): the `dot` instantiations launch at 168
+// registers a thread (the producer warpgroup drops to 40, the consumers take
+// 232 by setmaxnreg); at DP 80-128 16 bytes of spills and wgmmas serialised
+// for want of registers (C7512), at DP <= 64 neither; dynamic shared memory
+// 151,128 bytes at DP <= 64, 165,928 at DP 80-128.  The `l2` ones (mma.sync)
+// spill 44-356 bytes at DP 96-128.
 #include "flash_attn_bwd.cuh"
 
 namespace {

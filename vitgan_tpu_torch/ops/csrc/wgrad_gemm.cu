@@ -2,130 +2,195 @@
 // (sm_90a): dW = A^T . B and db = column sums of B, summed over all rows.
 //
 // Replaces the parameter-gradient accumulation of `_bwd_kernel` in
-// vitgan_tpu/ops/fused_block.py (lines 503-510, 531-534, 541-544, 555-558,
-// 617-620; pallas_call at :700), which sums each product down the TPU's
+// vitgan_tpu/ops/fused_block.py (lines 484-620, products at :531 (dw2) and
+// :617 (dwqkv); pallas_call at :700), which sums each product down the TPU's
 // sequential grid in f32 output blocks:
 //     dw2   = h1^T . dmlp,   db2   = sum dmlp      (h1 = gelu(z1))
 //     dw1   = y2^T . dz1,    db1   = sum dz1       (y2 = LN2(x1))
 //     dwout = ao^T . da,     dbout = sum da
 //     dwqkv = y1^T . dqkv,   dbqkv = sum dqkv      (y1 = LN1(x))
 // h1, y2 and y1 come in bf16 from megablock_bwd_mlp.cu and
-// megablock_bwd_ln1.cu, formed once a row as the TPU kernel forms them in its
-// body.  Hopper blocks run in no order, so the rows are split over the grid's
-// z dimension: each block sums its row range into an f32 partial of its
-// 64 x 64 output tile, and a second kernel adds the partials in a fixed
-// order.  The result is deterministic (no atomics).
+// megablock_bwd_ln1.cu.  Hopper blocks run in no order, so the rows are
+// split over the grid's z dimension into ranges of whole 64-row stages
+// (ops/wgrad.plan chooses the range); each block sums its range into an f32
+// partial of its 128 x 128 output tile, and one second kernel adds the dW and
+// db partials in a fixed order.  The result is bit-deterministic (no
+// atomics).
 //
-// Design.  4 warps a block, each 32 x 32 of the output tile, f32
-// accumulators in registers; 64 rows of A and B a stage through a two-stage
-// cp.async ring; A^T's fragments come from the row-major A tile by
-// ldmatrix.trans (load_a_km), B's by ldmatrix.trans as in the forward
-// kernels (mma.sync m16n8k16).  Blocks of the first output-row tile also sum
-// B's columns for db, each thread two columns of a quarter of the rows.  Ka
-// and Nb multiples of 8.
+// Design.  384 threads a block: warpgroup 0 is the producer (warp 0 issues
+// the TMA loads, warp 1 sums B's columns for db), warpgroups 1 and 2 the
+// consumers, each owning 64 output rows x 128 columns in f32 registers.
+// Warp 0 keeps a ring of 6 stages full: per stage two 64-column boxes of A
+// and two of B, 64 rows each, 128-byte swizzled, on one `full` mbarrier
+// each; the consumers and the sum warp release a stage on its `empty`
+// mbarrier.  Each stage is 4 wgmma m64n128k16 per consumer with both
+// operands read from shared memory in their natural layouts (A^T is M-major,
+// B is N-major: the descriptors' transpose bits), one wgmma group kept in
+// flight.  db: the block of output-row tile y sums the stages c with
+// c % (row tiles) == y, so the column sums are spread evenly over the
+// blocks that hold the same B stages; each writes its own partial row.  TMA
+// zero-fills rows past M and columns past Ka or Nb.  Ka and Nb multiples of
+// 8 (TMA's 16-byte stride rule).
+//
+// What held the old kernel back, and what this does about it: 64 x 64 tiles
+// on mma.sync re-read every operand Nb/64 or Ka/64 times (now 128 x 128 on
+// wgmma, half the re-reads); a two-stage cp.async ring behind a block-wide
+// barrier every stage (now a 6-stage TMA ring on mbarriers); A^T fragments by
+// ldmatrix.trans (now the descriptor's transpose bit); db summed by the
+// first output-row tile alone (now spread); two second passes (now one).
 //
 // Bound on this card.  At G's 32,768 rows the four products do
 // 2*M*(2*E*hidden + E*HD + 3*E*HD) = 1.2e11 flops together (0.12 ms), on
-// about 0.35 GB of operands (0.10 ms): tensor cores and HBM about even.
-// The partials add splits * Ka * Nb * 4 bytes each way (L2-resident for the
-// smaller products).
-#include "common.cuh"
+// about 0.38 GB of operands (0.11 ms): tensor cores and HBM about even,
+// 0.03 ms a product on average.  The partials add splits * (Ka * Nb + row
+// tiles * Nb) * 4 bytes each way, mostly L2-resident.
+//
+// ptxas -v (sm_90a, CUDA 12.8): wgrad_gemm_kernel 90 registers a thread, no
+// spills, 197,728 bytes of dynamic shared memory (one block an SM);
+// wgrad_reduce_kernel 44 and sum_partials_kernel 32 registers, no spills.
+#include "hopper.cuh"
 
 using namespace vk;
+using namespace vk::hopper;
 
 namespace {
 
-constexpr int TI = 64;   // output rows (columns of A) per block
-constexpr int TJ = 64;   // output columns (columns of B) per block
-constexpr int BK = 64;   // summed rows per stage
-constexpr int NW = 4;    // warps: 2 x 2 of 32 x 32
-constexpr int LD = 72;   // shared leading dimension (64 + 8 skew)
+constexpr int TILE = 128;                 // output rows and columns per block
+constexpr int BK = 64;                    // summed rows per stage
+constexpr int STAGES = 6;                 // ring depth
+constexpr int BOX = 64 * BK * 2;          // one 64-column box of a stage, bytes
+constexpr int STAGE_BYTES = 4 * BOX;      // two boxes of A, two of B
+constexpr int THREADS = 384;              // producer warpgroup + 2 consumers
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 
-__global__ void __launch_bounds__(NW * 32)
-wgrad_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   float* __restrict__ part, float* __restrict__ bpart, int m, int ka, int nb,
                   int rows_per_split) {
-  __shared__ __align__(128) bf16 as[2][BK * LD];
-  __shared__ __align__(128) bf16 bs[2][BK * LD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int j0 = blockIdx.x * TJ, i0 = blockIdx.y * TI, split = blockIdx.z;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = blockIdx.x * TILE, i0 = blockIdx.y * TILE, split = blockIdx.z;
   const int r0 = split * rows_per_split;
   const int r1 = min(m, r0 + rows_per_split);
-  const int wi = (warp & 1) * 32, wj = (warp >> 1) * 32;
-  const bool bias = blockIdx.y == 0;
-  const int bc = 2 * (tid & 31), br = (tid >> 5) * (BK / 4);  // column pair, row quarter
-
-  float acc[2][4][4] = {};
-  float2 bsum = make_float2(0.f, 0.f);
   const int nch = r1 > r0 ? (r1 - r0 + BK - 1) / BK : 0;
-  auto issue = [&](int c, int s) {
-    cp_tile(as[s], LD, a, ka, r0 + c * BK, i0, BK, TI, r1, ka);
-    cp_tile(bs[s], LD, b, nb, r0 + c * BK, j0, BK, TJ, r1, nb);
-  };
-  if (nch > 0) issue(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) issue(c + 1, (c + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* at = as[c & 1];
-    const bf16* bt = bs[c & 1];
-    if (bias) {
-#pragma unroll 4
-      for (int rr = br; rr < br + BK / 4; ++rr) {
-        const float2 v =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + rr * LD + bc));
-        bsum.x += v.x;
-        bsum.y += v.y;
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 3);  // two consumer warpgroups and the sum warp
     }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a0[4], a1[4], b0[4], b1[4];
-      load_a_km(a0, at, LD, wi, kk * 16);
-      load_a_km(a1, at, LD, wi + 16, kk * 16);
-      load_b_kn(b0, bt, LD, kk * 16, wj);
-      load_b_kn(b1, bt, LD, kk * 16, wj + 16);
-      mma16816(acc[0][0], a0, b0[0], b0[1]);
-      mma16816(acc[0][1], a0, b0[2], b0[3]);
-      mma16816(acc[0][2], a0, b1[0], b1[1]);
-      mma16816(acc[0][3], a0, b1[2], b1[3]);
-      mma16816(acc[1][0], a1, b0[0], b0[1]);
-      mma16816(acc[1][1], a1, b0[2], b0[3]);
-      mma16816(acc[1][2], a1, b1[0], b1[1]);
-      mma16816(acc[1][3], a1, b1[2], b1[3]);
-    }
-    __syncthreads();  // stage c & 1 is free for chunk c + 2
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
+
+  if (wg == 0) {
+    if (warp == 0 && lane == 0) {  // TMA producer
+      for (int c = 0; c < nch; ++c) {
+        const int s = c % STAGES;
+        if (c >= STAGES) mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
+        unsigned char* st = smem + s * STAGE_BYTES;
+        const int row = r0 + c * BK;
+        mbar_arrive_tx(&full[s], STAGE_BYTES);
+        tma_load_2d(st, &ta, &full[s], i0, row);
+        tma_load_2d(st + BOX, &ta, &full[s], i0 + 64, row);
+        tma_load_2d(st + 2 * BOX, &tb, &full[s], j0, row);
+        tma_load_2d(st + 3 * BOX, &tb, &full[s], j0 + 64, row);
+      }
+    } else if (warp == 1) {  // db: four columns a lane, this block's share of the stages
+      const int col = 4 * lane, box = col >> 6, chunk = (col & 63) >> 3, half = col & 7;
+      float4 cs = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = 0; c < nch; ++c) {
+        const int s = c % STAGES;
+        mbar_wait(&full[s], (c / STAGES) & 1);
+        if (c % gridDim.y == blockIdx.y) {
+          const unsigned char* bt = smem + s * STAGE_BYTES + (2 + box) * BOX;
+#pragma unroll 8
+          for (int r = 0; r < BK; ++r) {
+            const uint2 v = *reinterpret_cast<const uint2*>(bt + r * 128 +
+                                                            ((chunk ^ (r & 7)) << 4) + half * 2);
+            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+            const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+            cs.x += lo.x;
+            cs.y += lo.y;
+            cs.z += hi.x;
+            cs.w += hi.y;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      if (j0 + col < nb)
+        *reinterpret_cast<float4*>(bpart + ((long)split * gridDim.y + blockIdx.y) * nb + j0 +
+                                   col) = cs;
+    }
+    return;
+  }
+
+  // consumers: rows i0 + 64 w .. + 63 of the output tile
+  const int w = wg - 1;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    const int s = c % STAGES;
+    mbar_wait(&full[s], (c / STAGES) & 1);
+    const unsigned char* st = smem + s * STAGE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss128<1, 1>(acc, desc_sw128(st + w * BOX + kk * 2048, BOX, 1024),
+                        desc_sw128(st + 2 * BOX + kk * 2048, BOX, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (c > 0 && (threadIdx.x & 127) == 0) mbar_arrive(&empty[(c - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
   float* out = part + (long)split * ka * nb;
+  const int wr = (threadIdx.x & 127) >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int j = 0; j < 16; ++j) {
+    const int gj = j0 + 8 * j + 2 * t;
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int gj = j0 + wj + nj * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gi = i0 + wi + mi * 16 + g + 8 * h;
-        if (gi < ka && gj < nb)
-          *reinterpret_cast<float2*>(out + (long)gi * nb + gj) =
-              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int gi = i0 + 64 * w + 16 * wr + g + 8 * h;
+      if (gi < ka && gj < nb)
+        *reinterpret_cast<float2*>(out + (long)gi * nb + gj) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-  if (bias) {  // the four row quarters' column sums, added in order
-    float* red = reinterpret_cast<float*>(as[0]);
-    reinterpret_cast<float2*>(red)[tid] = bsum;
-    __syncthreads();
-    if (tid < TJ && j0 + tid < nb) {
-      float s = 0.f;
-      for (int q = 0; q < NW; ++q) s += red[q * TJ + tid];
-      bpart[(long)split * nb + j0 + tid] = s;
-    }
+}
+
+// dw[x] = sum over s < splits of part[s * count + x] and db[y] = sum over
+// q < bsplits of bpart[q * nb + y], in order, four values a thread.
+__global__ void wgrad_reduce_kernel(const float* __restrict__ part,
+                                    const float* __restrict__ bpart, float* __restrict__ dw,
+                                    float* __restrict__ db, int splits, int bsplits, long count,
+                                    int nb) {
+  const long x = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
+  const float* src;
+  float* dst;
+  long stride;
+  int terms;
+  if (x < count) {
+    src = part + x, dst = dw + x, stride = count, terms = splits;
+  } else if (x - count < nb) {
+    src = bpart + (x - count), dst = db + (x - count), stride = nb, terms = bsplits;
+  } else {
+    return;
   }
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < terms; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i * stride);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  *reinterpret_cast<float4*>(dst) = s;
 }
 
 // out[x] = sum over s of part[s * count + x], s in order.
@@ -138,40 +203,55 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, float* __res
   out[x] = s;
 }
 
-int launch_sum(const float* part, float* out, int splits, long count, cudaStream_t stream) {
-  if (count <= 0) return 0;
-  sum_partials_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(part, out, splits,
-                                                                          count);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// a: (m, ka) bf16; b: (m, nb) bf16.  Out: dw (ka, nb) f32 and db (nb,) f32.
-// scratch: splits * (ka * nb + nb) f32.  The rows are
-// split into `splits` ranges of whole 64-row stages.  bf16 bases 16-byte
-// aligned; ka, nb multiples of 8.
+// a: (m, ka) bf16; b: (m, nb) bf16, both row-major with 16-byte aligned
+// bases; ka, nb multiples of 8.  Out: dw (ka, nb) f32 and db (nb,) f32.  The
+// rows are split into ranges of rows_per_split (a multiple of 64), splits =
+// ceil(m / rows_per_split); scratch holds splits * ka * nb dW partials, then
+// splits * ceil(ka / 128) * nb db partials, f32.
 extern "C" int wgrad_gemm(const void* a, const void* b, void* dw, void* db, void* scratch, int m,
-                          int ka, int nb, int splits, void* stream) {
-  if (ka % 8 || nb % 8 || splits < 1 || db == nullptr) return (int)cudaErrorInvalidValue;
-  const int rows_per_split = ceil_to((m + splits - 1) / splits, BK);
-  float* part = static_cast<float*>(scratch);
-  float* bpart = part + (long)splits * ka * nb;
+                          int ka, int nb, int rows_per_split, void* stream) {
+  if (ka % 8 || nb % 8 || ka < 8 || nb < 8 || m < 0 || rows_per_split < BK ||
+      rows_per_split % BK || db == nullptr)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nb + TJ - 1) / TJ, (ka + TI - 1) / TI, splits);
-  wgrad_gemm_kernel<<<grid, NW * 32, 0, s>>>(static_cast<const bf16*>(a),
-                                             static_cast<const bf16*>(b), part, bpart, m, ka, nb,
-                                             rows_per_split);
-  int err = (int)cudaGetLastError();
+  if (m == 0) {
+    cudaMemsetAsync(dw, 0, (size_t)ka * nb * sizeof(float), s);
+    cudaMemsetAsync(db, 0, (size_t)nb * sizeof(float), s);
+    return (int)cudaGetLastError();
+  }
+  const int splits = (m + rows_per_split - 1) / rows_per_split;
+  CUtensorMap ta, tb;
+  const uint32_t box[2] = {64, BK};
+  const uint64_t dims_a[2] = {(uint64_t)ka, (uint64_t)m}, stride_a[1] = {(uint64_t)ka * 2};
+  const uint64_t dims_b[2] = {(uint64_t)nb, (uint64_t)m}, stride_b[1] = {(uint64_t)nb * 2};
+  int err = make_tmap_bf16(&ta, a, 2, dims_a, stride_a, box);
   if (err) return err;
-  err = launch_sum(part, static_cast<float*>(dw), splits, (long)ka * nb, s);
-  return err ? err : launch_sum(bpart, static_cast<float*>(db), splits, nb, s);
+  err = make_tmap_bf16(&tb, b, 2, dims_b, stride_b, box);
+  if (err) return err;
+  float* part = static_cast<float*>(scratch);
+  const dim3 grid((nb + TILE - 1) / TILE, (ka + TILE - 1) / TILE, splits);
+  float* bpart = part + (long)splits * ka * nb;
+  cudaFuncSetAttribute(wgrad_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  wgrad_gemm_kernel<<<grid, THREADS, SMEM, s>>>(ta, tb, part, bpart, m, ka, nb, rows_per_split);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const long count = (long)ka * nb;
+  const long threads = (count + nb) / 4;
+  wgrad_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      part, bpart, static_cast<float*>(dw), static_cast<float*>(db), splits, splits * grid.y,
+      count, nb);
+  return (int)cudaGetLastError();
 }
 
 // out (count,) f32 = sum over s of part (splits, count) f32, in order: the
 // second pass of the per-tile LayerNorm-gradient partials.
 extern "C" int sum_partials(const void* part, void* out, int splits, int count, void* stream) {
   if (splits < 1) return (int)cudaErrorInvalidValue;
-  return launch_sum(static_cast<const float*>(part), static_cast<float*>(out), splits, count,
-                    static_cast<cudaStream_t>(stream));
+  if (count <= 0) return 0;
+  sum_partials_kernel<<<(unsigned)((count + 255) / 256), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), splits, count);
+  return (int)cudaGetLastError();
 }

@@ -1,26 +1,35 @@
 """Weight gradients of the megablock backward: dW = A^T . B and db = the
 column sums of B over all rows.  The CUDA kernel (csrc/wgrad_gemm.cu), its
-plain version, and the second-pass sum of per-tile partials (the kernel's
-`sum_partials` entry).
+plain version, the planning of its row splits, and the second-pass sum of
+per-tile partials (the kernel's `sum_partials` entry).
 
 Counterpart of the parameter-gradient sums of `_bwd_kernel` in
 vitgan_tpu/ops/fused_block.py, which accumulate down the TPU's sequential
 grid.  CUDA tensors launch the kernels (or raise); CPU tensors take the plain
-versions.  Both kernel passes sum in a fixed order, so the results are
+versions.  Every pass sums in a fixed order, so the results are
 deterministic.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from vitgan_tpu_torch.ops import build
 
-# Blocks to aim for (4 a streaming multiprocessor of an H100) when the rows
-# are split over the grid.
-TARGET_BLOCKS = 4 * 132
+TILE = 128        # output rows and columns of one block of the kernel
+STAGE_ROWS = 64   # rows of A and B a pipeline stage holds
+SMS = 132         # streaming multiprocessors of an H100 SXM; the wrapper reads the card's
+# The planning model's costs in units of one stage of one block (a 128 x 128
+# x 64 product): a block's fixed cost (barrier set-up, pipeline fill,
+# epilogue), and the f32 partial elements a split adds (written, then read by
+# the second pass) per such unit.  Estimates, held to a sweep of
+# rows_per_split on the card by scripts/kernel_ab.py --splits (PERF.md).
+BLOCK_OVERHEAD_STAGES = 8
+PARTIALS_PER_STAGE = 2 ** 18
+MAX_SPLITS = 256
 
 
 def wgrad_reference(a, b):
@@ -28,17 +37,53 @@ def wgrad_reference(a, b):
     return a.float().T @ b.float(), b.float().sum(0)
 
 
-def splits_for(m: int, ka: int, nb: int) -> int:
-    """Row ranges for an (ka, nb) output over m rows: about TARGET_BLOCKS
-    blocks, each range at least 256 rows."""
-    tiles = math.ceil(ka / 64) * math.ceil(nb / 64)
-    return max(1, min(math.ceil(TARGET_BLOCKS / tiles), math.ceil(m / 256)))
+def row_tiles(ka: int) -> int:
+    """Output-row tiles of the kernel's grid: its db partials per split."""
+    return math.ceil(ka / TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, ka: int, nb: int, sms: int = SMS) -> int:
+    """rows_per_split for an (ka, nb) output over m rows.
+
+    The rows are cut into ranges of whole 64-row stages, one grid z index
+    each: the C entry takes rows_per_split and sums rows [s * rows_per_split,
+    min(m, (s + 1) * rows_per_split)) in split s < ceil(m / rows_per_split).  One block a streaming multiprocessor runs at a time, so a plan
+    takes ceil(tiles * splits / sms) waves of rows_per_split / 64 stages each;
+    it is chosen to minimise that, plus a block's fixed cost per wave and the
+    partials' traffic per split.  Cached: a train step asks for the same few
+    shapes every block."""
+    tiles = row_tiles(ka) * math.ceil(nb / TILE)
+    stages = max(1, math.ceil(m / STAGE_ROWS))
+    best = None
+    for want in range(1, min(stages, MAX_SPLITS) + 1):
+        rps = math.ceil(stages / want) * STAGE_ROWS
+        splits = max(1, math.ceil(m / rps))
+        waves = math.ceil(tiles * splits / sms)
+        cost = (waves * (rps // STAGE_ROWS + BLOCK_OVERHEAD_STAGES)
+                + splits * ka * nb / PARTIALS_PER_STAGE)
+        if best is None or cost < best[0]:
+            best = (cost, rps)
+    return best[1]
+
+
+def scratch_floats(m: int, ka: int, nb: int, rows_per_split: int) -> int:
+    """f32 elements of the kernel's scratch: splits dW partials of ka * nb,
+    then splits * row_tiles(ka) db partials of nb (the C entry's layout)."""
+    splits = max(1, math.ceil(m / rows_per_split))
+    return splits * ka * nb + splits * row_tiles(ka) * nb
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def wgrad_gemm(a, b):
     """Launch csrc/wgrad_gemm.cu: a (M, Ka), b (M, Nb) bf16 CUDA tensors ->
-    (dW (Ka, Nb) f32, db (Nb,) f32).  The entry launches the product and then
-    `sum_partials_kernel` twice; each launch is counted under its own name."""
+    (dW (Ka, Nb) f32, db (Nb,) f32).  The entry launches the product over
+    :func:`plan`'s row splits and then `wgrad_reduce_kernel`, the one fixed-
+    order sum of the dW and db partials; a call counts one launch."""
     if not (a.is_cuda and b.is_cuda):
         raise ValueError("wgrad_gemm launches a CUDA kernel: a and b must be CUDA tensors")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
@@ -54,16 +99,15 @@ def wgrad_gemm(a, b):
                          "other shapes are ROADMAP.md queue 1 item 7")
     dev = a.device
     a, b = build.aligned16(a.contiguous()), build.aligned16(b.contiguous())
-    splits = splits_for(m, ka, nb)
+    rps = plan(m, ka, nb, _sm_count(dev))
     dw = torch.empty((ka, nb), dtype=torch.float32, device=dev)
     db = torch.empty((nb,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((splits * (ka * nb + nb),), dtype=torch.float32, device=dev)
+    scratch = torch.empty((scratch_floats(m, ka, nb, rps),), dtype=torch.float32, device=dev)
     fn = build.entry("wgrad_gemm")
     build.check(fn, fn(build.ptr(a), build.ptr(b), build.ptr(dw), build.ptr(db),
-                       build.ptr(scratch), m, ka, nb, splits, build.stream_ptr(dev)))
-    build.LAUNCHES["wgrad_gemm"] += 1
-    # the entry's second passes over the partials, one for dW and one for db
-    build.LAUNCHES["sum_partials"] += 2
+                       build.ptr(scratch), m, ka, nb, rps, build.stream_ptr(dev)))
+    if m:  # no rows: the entry zeroes dW and db and launches nothing
+        build.LAUNCHES["wgrad_gemm"] += 1
     return dw, db
 
 
