@@ -6,14 +6,17 @@
 1. Fails unless torch.cuda.is_available(); prints the card's name and power
    limit as nvidia-smi gives them.
 2. Builds the hand-written CUDA kernels from vitgan_tpu_torch/ops/csrc, all
-   sources in parallel, timed; where the toolkit has cuobjdump, counts the
-   wgmma (HGMMA) and TMA (UTMALDG) instructions of the sources redesigned
-   for Hopper (wgrad_gemm, the flash k-block backward) and fails on none.
+   sources in parallel, timed, and prints every ptxas performance warning
+   (C7xxx) with its kernel, recorded in the kernels' entries; where the
+   toolkit has cuobjdump, counts the wgmma (HGMMA) and TMA (UTMALDG)
+   instructions of the sources redesigned for Hopper (wgrad_gemm, the flash
+   forward, the k-block backward and the q-block dq) and fails on none.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
-   sequence (B*H 1, N 16,385).  Times kernel, plain version and, where one
-   PyTorch call computes the same function, that call (library_ms).
+   sequence (B*H 1, N 16,385) and with O written in the (B, N, H*D) layout.
+   Times kernel, plain version and, where one PyTorch call computes the same
+   function, that call (library_ms).
 4. Writes a highres128 run directory with seeded random weights, starts the
    HTTP server on 127.0.0.1:0 and serves batch-64 requests through the
    default (megablock) route: png, npy, a byte-equal seeded repeat and
@@ -30,7 +33,7 @@
    against their plain versions at the generator's shape (32, 6, 1024, 64),
    the discriminator's (64, 6, 1025, 64), a ragged (2, 3, 257, 64) and a long
    (1, 1, 16385, 64) shape, each output within 2e-2 of its own max|plain|
-   (dk/dv also bit-equal across two calls);
+   and bit-equal across two calls (dq of the single pass too);
    times each beside its bound, its plain version and PyTorch's
    scaled_dot_product_attention backward (library_ms), and at its main
    shape splits the wrapper's device time into its own kernels' and the
@@ -41,8 +44,8 @@
    (dropout masks bit-equal to the plain Philox's; out, x1, z1 by
    KERNEL_RTOL), megablock_bwd_mlp, megablock_bwd_ln1, wgrad_gemm (beside
    torch.matmul of the same A^T.B; two calls bit-equal) and sum_partials
-   (each output within KERNEL_RTOL * its own max|plain|), then one block's
-   whole saved-residual
+   (each output within KERNEL_RTOL * its own max|plain|; its device time
+   and part.sum(0)'s by the profiler), then one block's whole saved-residual
    backward against autograd of the plain masked block in f32: dx and each
    of the 12 parameter gradients within MB_GRAD_RTOL * its own max|plain|.
 9. Under the default runtime.megablock=auto a highres128 training block at
@@ -66,9 +69,10 @@
    megablock's training kernels at 256 and 257 tokens, E 192.
 12. Runs one train step at full width and batch 8, dropout 0, with the same
    state, batch, latents and augment draws, on the megablock=off kernel
-   route, the megablock=auto route and use_pallas=never, and holds losses,
-   gradient norms and every gradient leaf of each kernel route to the plain
-   one.
+   route, the megablock=auto route (twice) and use_pallas=never, and holds
+   losses, gradient norms and every gradient leaf of each kernel route to the
+   plain one; reports which gradient leaves of the two auto steps are not
+   bit-equal.
 13. Holds the `l2` and `l2ref` flash forward (output and LSE) and the `l2`
    dq, dk/dv and single-pass kernels against their plain versions at the v1
    discriminator's shape (256, 4, 50, 108), a ragged (4, 4, 1025, 108) and
@@ -77,8 +81,10 @@
    attention with the -inv |k|^2 key mask (the same softmax but for the
    clamp; library_ms, timed only) and, at the discriminator's shape, the
    device time of each wrapper's own kernels and of its other work (pads,
-   delta).  Then the `dot` forward and single-pass backward at the v1
-   generator's shape (128, 4, 32, 96), scale 384, with the same limits.
+   delta); each backward kernel's outputs bit-equal across two calls.  Then
+   the `dot` forward and single-pass backward at the v1 generator's shape
+   (128, 4, 32, 96), scale 384, with the same limits, the single pass
+   bit-equal across two calls.
 14. Trains the v1 ViTGAN at the reference defaults (batch 128, latent 1,024,
    G hidden 384 depth 4, D 50 tokens width 432 depth 4 with ISR) under
    runtime.use_pallas=always through Trainer: 2 warm-up steps, 5 by fit,
@@ -265,9 +271,53 @@ def _ptxas_kernels(log: str) -> list:
     return out
 
 
+def _ptxas_warnings(log: str) -> list:
+    """[(kernel, line)] for every ptxas performance warning (C7xxx: wgmma
+    serialised, setmaxnreg ignored, ...) of an `nvcc -Xptxas -v` log, every
+    line kept whole; the kernel is the one the line names, else the entry
+    function being compiled, else "?"."""
+    import re
+
+    out, func = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            func = m.group(1)
+        if re.search(r"\(C7\d\d\d\)", line):
+            m = re.search(r"function '([^']+)'", line)
+            out.append((m.group(1) if m else func, line.strip()))
+    return out
+
+
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
-HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv")
+HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
+                  "flash_attn_bwd_dq")
+# Two calls of a kernel whose results must be bit-equal: chip_smoke.py raises
+# when they are not; scripts/kernel_ab.py sets this False to record how far
+# apart they are on a tree whose kernel is not bit-deterministic.
+STRICT_REPEAT = True
+
+
+def _repeat(call, what: str) -> list:
+    """Calls ``call`` twice; the largest |difference| between the two calls'
+    results, one per output (0.0 each: bit-equal).  Raises where the two are
+    not bit-equal and STRICT_REPEAT."""
+    import torch
+
+    first = call()
+    first = first if isinstance(first, tuple) else (first,)
+    first = tuple(t.clone() for t in first)
+    again = call()
+    again = again if isinstance(again, tuple) else (again,)
+    torch.cuda.synchronize()
+    diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, again)]
+    equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"  {what}: {'bit-equal' if equal else 'NOT bit-equal'} across two calls (max |d| "
+          f"per output {diffs})")
+    if not equal and STRICT_REPEAT:
+        raise AssertionError(f"{what}: two calls are not bit-equal")
+    return diffs
 
 
 def _sass_counts(build) -> dict:
@@ -288,9 +338,11 @@ def _sass_counts(build) -> dict:
     return out
 
 
-def check_kernels() -> dict:
+def check_kernels(only: tuple = ()) -> dict:
     """Kernel vs plain version at the serving shapes (timed), the ragged shape
-    and one long sequence.  Returns {name: record} for the JSON line."""
+    and one long sequence; the flash forward also with out_bnhd, writing O
+    in the (B, N, H*D) layout at the serving shape.  ``only``: the names to
+    check (default every one).  Returns {name: record} for the JSON line."""
     import torch
     import torch.nn.functional as F
 
@@ -342,6 +394,7 @@ def check_kernels() -> dict:
                        + (4 * e + hidden) * 4),
                 c["x"]),
         }
+        calls = {k_: v_ for k_, v_ in calls.items() if not only or k_ in only}
         for name, (kern, plain, library, (bound_ms, bound_by), residual) in calls.items():
             err = _err(kern(), plain(), f"{name} {label}", residual)
             if label == "ragged":
@@ -355,15 +408,26 @@ def check_kernels() -> dict:
                 print(f"  flash_attn_fwd lse: max_abs_err {lse_err:.6g} (tolerance 1e-2)")
                 if not lse_err <= 1e-2:
                     raise AssertionError("flash LSE disagrees with logsumexp")
+                # out_bnhd: O written as (B, N, H*D), the megablock's layout
+                bnhd = torch.empty((b, n, hd), dtype=torch.bfloat16, device="cuda")
+                A.flash_forward(c["q"], c["k"], c["v"], float(dh), out=bnhd)
+                bnhd_err = _err(bnhd, plain().permute(0, 2, 1, 3).reshape(b, n, hd),
+                                f"{name} {label} out_bnhd")
+                del bnhd
             rec = {"max_abs_err": err, "ms": _time_ms(kern, 20), "plain_ms": _time_ms(plain, 5),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": _time_ms(library, 20) if library else None}
+            if name == "flash_attn_fwd":
+                rec["out_bnhd_max_abs_err"] = bnhd_err
+                _with_device_ms(rec, kern, 20, name)
             print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
                   f"library {rec['library_ms']}, bound {bound_ms:.4f} ms by {bound_by})")
             out[name] = rec
         del c, x2, calls
         torch.cuda.empty_cache()
 
+    if only and "flash_attn_fwd" not in only:
+        return out
     # One long sequence: where the TPU kernel switches to streaming K/V from
     # HBM (attention.py:179); here the same kernel streams at every length.
     q, k, v = (torch.randn((1, 1, 16385, 64), generator=gen, device="cuda").to(torch.bfloat16)
@@ -641,19 +705,14 @@ def check_bwd_kernels() -> dict:
             want = want if isinstance(want, tuple) else (want,)
             err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
                       for i, (g_, w_) in enumerate(zip(got, want)))
-            if name == "flash_attn_bwd_dkv":  # the k-block's two-pass instantiation
-                again = kern(*args)
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                    raise AssertionError(f"{name} {label}: two calls are not bit-equal")
-                print(f"  {name} {label}: dk and dv bit-equal across two calls")
-                del again
             del got, want
+            # every backward kernel's outputs are bit-equal across two calls
+            repeat = _repeat(lambda: kern(*args), f"{name} {label}")
             bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
                                         (5 + writes) * elem + b * h * n * 4)
             rec = {"max_abs_err": err, "ms": _time_ms(lambda: kern(*args), 5 if n > 8192 else 20),
                    "plain_ms": _time_ms(lambda: plain(*args), 2), "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": library_ms}
+                   "bound_by": bound_by, "library_ms": library_ms, "repeat_max_abs_diff": repeat}
             main = label == BWD_MAIN_SHAPE[name]
             if main:  # the kernel's own device time apart from the wrapper's delta
                 _with_device_ms(rec, lambda: kern(*args), 5, name)
@@ -667,6 +726,7 @@ def check_bwd_kernels() -> dict:
             else:
                 out[name][f"{label}_max_abs_err"] = err
                 out[name][f"{label}_ms"] = rec["ms"]
+                out[name][f"{label}_repeat_max_abs_diff"] = repeat
         del q, k, v, do, o, lse, qg, kg, vg, sdpa_out, library
         torch.cuda.empty_cache()
     return out
@@ -837,6 +897,14 @@ def check_megablock_kernels() -> dict:
             _bound(0.0, ln1_part.numel() * 4 + ln1_part.shape[1] * 4),
             library=lambda: ln1_part.sum(0))
         recs["sum_partials"]["max_abs_err"] = err
+        # below 0.1 ms a wrapper time is host-paced: the profiler's device time
+        # of the kernel and of the library call (every device op of the call)
+        dev = {"device_ms": _device_ms(lambda: WG.sum_partials(ln1_part), 20,
+                                       ("sum_partials",))[0],
+               "library_device_ms": _device_ms(lambda: ln1_part.sum(0), 20, ("",))[0]}
+        recs["sum_partials"].update(dev)
+        print(f"  sum_partials {label}: device {dev['device_ms']} ms, part.sum(0) device "
+              f"{dev['library_device_ms']} ms")
         del mlp, dqkv, y1, ln1_part, m1, m2, x1, z1
 
         # -- the whole block: kernel forward with residuals and the saved
@@ -1089,7 +1157,7 @@ def train_deit64(steps: int = 3) -> dict:
 PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_dq_kernel", "flash backward dq"),
-                ("scale_cast_kernel", "flash single-pass dq scale-and-cast"),
+                ("scale_cast_kernel", "flash single-pass `l2` dq finish"),
                 ("flash_attn_fwd_kernel", "flash forward"),
                 ("ln_mlp_fwd_kernel<true>", "megablock training forward (ln_mlp_train_fwd)"),
                 ("ln_mlp", "LN->MLP forward"), ("ln_qkv", "LN->qkv forward"),
@@ -1196,8 +1264,10 @@ def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
 def compare_train_routes() -> dict:
     """One train step at full width, batch 8, dropout 0, from the same state,
     batch, latents and augment draws, on the megablock=off kernel route, on
-    the megablock=auto route (the saved megablock kernels in every block) and
-    on use_pallas=never; each kernel route held to the plain one."""
+    the megablock=auto route (the saved megablock kernels in every block),
+    on the megablock=auto route again and on use_pallas=never; each kernel
+    route held to the plain one, and the two auto steps compared bit for bit
+    (reported: which gradient leaves differ, not held)."""
     import torch
 
     from vitgan_tpu_torch import config as C
@@ -1223,6 +1293,7 @@ def compare_train_routes() -> dict:
     res = {}
     routes = (("megablock_off", dict(mode="auto", megablock="off"), "ln_mlp_fwd"),
               ("megablock_auto", dict(mode="auto", megablock="auto"), "megablock_bwd_mlp"),
+              ("megablock_auto_again", dict(mode="auto", megablock="auto"), "megablock_bwd_mlp"),
               ("plain", dict(mode="never", megablock="auto"), None))
     try:
         for route, policy, must_launch in routes:
@@ -1249,6 +1320,16 @@ def compare_train_routes() -> dict:
         set_policy(**saved)
     mp, gp, names = res["plain"]
     out = {}
+    (m1, g1, _), (m2, g2, _) = res["megablock_auto"], res["megablock_auto_again"]
+    differ = [name for name, a, b in zip(names, g1, g2) if not torch.equal(a, b)]
+    out["auto_repeat"] = {"leaves": len(names), "not_bit_equal": differ,
+                          "metrics_equal": m1 == m2,
+                          "max_abs_diff": max(((a - b).abs().max().item() for a, b in zip(g1, g2)),
+                                              default=0.0)}
+    print(f"[train routes] megablock_auto twice from one state, batch and draws: "
+          f"{len(names) - len(differ)} of {len(names)} gradient leaves bit-equal, metrics "
+          f"{'equal' if m1 == m2 else 'differ'}; not bit-equal: {differ} (max |d| "
+          f"{out['auto_repeat']['max_abs_diff']:.3g}; reported, not held)")
     for route in ("megablock_off", "megablock_auto"):
         mk, gk, _ = res[route]
         r = out[route] = {}
@@ -1370,12 +1451,14 @@ def check_l2_kernels() -> dict:
             err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
                       for i, (g_, w_) in enumerate(zip(got, want)))
             del got, want
+            repeat = _repeat(lambda: kern(*args, score_mode="l2"), f"{name} {label}")
             bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
                                         (5 + writes) * elem + b * h * n * 4)
             recs[name] = {"max_abs_err": err,
                           "ms": _time_ms(lambda: kern(*args, score_mode="l2"), iters),
                           "plain_ms": _time_ms(lambda: plain(*args, score_mode="l2"), 3),
-                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                          "repeat_max_abs_diff": repeat}
             if label == L2_MAIN_SHAPE:
                 _with_device_ms(recs[name], lambda: kern(*args, score_mode="l2"), iters, base)
         for name, r in recs.items():
@@ -1388,6 +1471,8 @@ def check_l2_kernels() -> dict:
             else:
                 out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
                 out[name][f"{label}_ms"] = r["ms"]
+                if "repeat_max_abs_diff" in r:
+                    out[name][f"{label}_repeat_max_abs_diff"] = r["repeat_max_abs_diff"]
         del q, k, v, do, o, lse, qg, kg, vg, lib_out
         torch.cuda.empty_cache()
     return out
@@ -1439,13 +1524,14 @@ def check_v1_dot_kernels() -> dict:
     err = max(_err(g_, w_, f"flash_attn_bwd_fused v1 G out{i}", own_scale=True)
               for i, (g_, w_) in enumerate(zip(got, want)))
     del got, want
+    repeat = _repeat(lambda: A.flash_backward_fused(*args), "flash_attn_bwd_fused v1 G")
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=inv)
     bound_ms, bound_by = _bound(2.0 * 5 * b * h * n * n * dh, 8 * elem + b * h * n * 4)
     bwd = lambda: A.flash_backward_fused(*args)  # noqa: E731
     out["flash_attn_bwd_fused"] = _with_device_ms(
         {"shape": list(V1_G_SHAPE), "scale": scale, "max_abs_err": err,
-         "ms": _time_ms(bwd, iters),
+         "repeat_max_abs_diff": repeat, "ms": _time_ms(bwd, iters),
          "plain_ms": _time_ms(lambda: A.flash_bwd_fused_reference(*args), 3),
          "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": _time_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
@@ -1947,13 +2033,18 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build()
     print(f"[build] {secs} ({time.perf_counter() - t0:.1f} s wall, parallel)")
+    ptxas_warnings = {}
     for name in secs:
         kernels = _ptxas_kernels(build.build_log(name))
         spilled = [k for k in kernels if k[2] or k[3]]
+        ptxas_warnings[name] = _ptxas_warnings(build.build_log(name))
         print(f"  {name}: {len(kernels)} kernels, at most {max(k[1] for k in kernels)} "
-              f"registers, {len(spilled)} with spills")
+              f"registers, {len(spilled)} with spills, {len(ptxas_warnings[name])} ptxas "
+              "performance warnings")
         for func, regs, stores, loads in spilled:
             print(f"    {func}: {regs} registers, {stores} bytes spill stores, {loads} loads")
+        for func, line in ptxas_warnings[name]:
+            print(f"    {func}: {line}")
 
     sass = _sass_counts(build)
     records = check_kernels()
@@ -2053,6 +2144,8 @@ def main() -> int:
             k["launches_train_megablock_off"] = off_train_launches[k["name"]]
         if k["name"] in sass:
             k["sass"] = sass[k["name"]]
+        warned = ptxas_warnings.get(os.path.basename(k["source"])[:-3], [])
+        k["ptxas_warnings"] = [f"{func}: {line}" for func, line in warned]
         if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused"):
             # the v1 generator's `dot` attention: its launches on the v1 train
             # path and the check at its shape

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Check and time the flash backward kernels and the megablock's training
-kernels (wgrad_gemm among them) of one tree of the port on the card, with
+"""Check and time the flash kernels and the megablock's training kernels
+(wgrad_gemm among them) of one tree of the port on the card, with
 chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits]
@@ -8,13 +8,20 @@ chip_smoke.py's own phases, so that two trees can be compared in one call.
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
 bounds and timing are always this repository's chip_smoke.py:
-``check_bwd_kernels`` (the single pass, dq and dk/dv at G's, D's, a ragged
-and a long shape; dk/dv bit-equal across two calls; the wrapper's time and,
-at the main shape, its kernels' own device time beside SDPA's backward and
-the bound) and ``check_megablock_kernels`` (the training forward, the two
-backward row kernels, wgrad_gemm with bit-equal dW and db across two calls,
-and sum_partials at G's, D's and a ragged shape, beside torch.matmul and the
-bound).  Run it for two trees in turns (parent, change, change, parent) in
+``check_kernels`` for the flash forward alone (the serving shape with its
+out_bnhd layout, a ragged and a long shape; the wrapper's time and its
+kernel's device time beside SDPA and the bound), ``check_bwd_kernels`` (the
+single pass, dq and dk/dv at G's, D's, a ragged and a long shape; each
+kernel's outputs across two calls; the wrapper's time and, at the main
+shape, its kernels' own device time beside SDPA's backward and the bound),
+the single pass twice at the v1 generator's shape (`dot`) and the v1
+discriminator's (`l2`, bwd_fusion=fused), and ``check_megablock_kernels``
+(the training forward, the two backward row kernels, wgrad_gemm with
+bit-equal dW and db across two calls, and sum_partials at G's, D's and a
+ragged shape with its device time and part.sum(0)'s, beside torch.matmul and
+the bound).  Two calls that are not bit-equal are recorded (max |d| per
+output), not raised, so that a tree whose kernel is not deterministic can be
+measured.  Run it for two trees in turns (parent, change, change, parent) in
 one call on one card.  Prints one JSON line, last.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
@@ -75,6 +82,27 @@ def sweep_splits(cs) -> dict:
     return out
 
 
+def single_pass_repeats(cs) -> dict:
+    """The single pass twice at the v1 generator's shape (`dot`, scale 384)
+    and the v1 discriminator's (`l2`, scale 432): max |d| per output (dq, dk,
+    dv) between the two calls, by chip_smoke's _repeat."""
+    import torch
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 8)
+    out = {}
+    for label, shape, scale, mode in (("v1 G", cs.V1_G_SHAPE, cs.V1_G_SCALE, "dot"),
+                                      ("l2 D", (256, 4, 50, 108), 432.0, "l2")):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+        out[label] = cs._repeat(lambda: A.flash_backward_fused(q, k, v, o, lse, do, scale,
+                                                                score_mode=mode),
+                                f"flash_attn_bwd_fused {label} ({mode})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
@@ -91,9 +119,11 @@ def main() -> int:
     from vitgan_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    cs.STRICT_REPEAT = False  # record how far apart two calls are
     label = args.label or args.root
     print(f"[build] {label}: {build.build()}")
-    rec = {"label": label, "bwd": cs.check_bwd_kernels(),
+    rec = {"label": label, "fwd": cs.check_kernels(only=("flash_attn_fwd",)),
+           "bwd": cs.check_bwd_kernels(), "single_pass_repeats": single_pass_repeats(cs),
            "megablock": cs.check_megablock_kernels()[0]}
     if args.splits:
         rec["splits"] = sweep_splits(cs)

@@ -1,0 +1,150 @@
+"""The `dot` flash forward's plain version at the edges of the Hopper kernel
+(csrc/flash_attn_fwd.cu), and the order of the single pass's dQ additions
+(csrc/flash_attn_bwd.cuh), on the CPU.
+
+- attention_forward_reference (o and the LSE) against the JAX
+  `_flash_forward` in interpret mode at N in {1, 32, 63, 65, 129} (one row,
+  the v1 generator's 32 tokens, both sides of the kernel's 64-row
+  warpgroups, past its 128-key tiles) and Dh in {16, 64, 96, 128} (one and
+  two 64-column boxes, 64- and 128-key tiles);
+- ops/attention.fused_dq_schedule, the grid order and the rule the
+  single-pass kernel's blocks wait by: every block waits on a lower linear
+  index, and a simulation of in-order block dispatch at G's and D's grids
+  with one and two resident blocks on each of 132 SMs shows that every block
+  finishes and that each (head, tile) receives its k-blocks' additions in
+  one fixed order; in linear order even one slot finishes every block,
+  while dispatched in reverse onto fewer slots than a head's k-blocks the
+  same rule deadlocks, which is why the kernel rests on in-order dispatch.
+
+Tolerance: 1e-5 absolute and relative, f32 on both sides (JAX at 'highest'
+matmul precision, tests/conftest.py); the sums run in another order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vitgan_tpu.ops.attention import _flash_forward
+from vitgan_tpu_torch.ops import attention as A
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+EDGE_N = (1, 32, 63, 65, 129)
+EDGE_DH = (16, 64, 96, 128)
+SMS = 132  # an H100's streaming multiprocessors
+
+
+def qkv(n, dh, seed=0, k=3):
+    """k f32 arrays of (1, 2, n, dh): B*H = 2."""
+    rng = np.random.default_rng(seed + 1000 * n + dh)
+    return [(0.5 * rng.standard_normal((1, 2, n, dh))).astype(np.float32) for _ in range(k)]
+
+
+@pytest.mark.parametrize("dh", EDGE_DH)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_plain_forward_matches_jax_kernel_at_kernel_edges(n, dh):
+    q, k, v = qkv(n, dh)
+    scale = float(dh)
+    jo, jlse = _flash_forward(*map(jnp.asarray, (q, k, v)), "dot", scale, 128, 128, True,
+                              with_lse=True)
+    o, lse = A.attention_forward_reference(*map(torch.from_numpy, (q, k, v)), scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+
+
+def simulate(plan: A.FusedSchedule, slots: int, order=None) -> dict:
+    """Blocks of ``plan``'s grid dispatched in ``order`` (default: linear
+    order) onto ``slots`` resident places.  Each tick every resident block tries
+    to add its next tile's dQ: it may when plan.waits_on(block) is None or
+    that block has added the tile already.  A block that has added all its
+    tiles leaves its slot to the next block in ``order``.  Returns
+    {"finished": blocks done, "deadlock": True if a tick moved nothing while
+    blocks were left, "adds": {(head, tile): [k-block, ...] in the order the
+    additions happened}}."""
+    total = plan.k_blocks * plan.batch_heads
+    order = list(range(total)) if order is None else list(order)
+    done_tiles = [0] * total
+    queue, resident = iter(order), []
+    adds: dict = {}
+    finished = 0
+    for _ in range(slots):
+        nxt = next(queue, None)
+        if nxt is not None:
+            resident.append(nxt)
+    while resident:
+        moved = []
+        for blk in resident:
+            tile = done_tiles[blk]
+            pred = plan.waits_on(blk)
+            if pred is None or done_tiles[pred] > tile:
+                moved.append(blk)
+        if not moved:
+            return {"finished": finished, "deadlock": True, "adds": adds}
+        for blk in moved:  # every block that may add this tick adds its tile
+            kb, head = plan.coords(blk)
+            adds.setdefault((head, done_tiles[blk]), []).append(kb)
+            done_tiles[blk] += 1
+        left = []
+        for blk in resident:
+            if done_tiles[blk] == plan.q_tiles:
+                finished += 1
+                nxt = next(queue, None)
+                if nxt is not None:
+                    left.append(nxt)
+            else:
+                left.append(blk)
+        resident = left
+    return {"finished": finished, "deadlock": False, "adds": adds}
+
+
+@pytest.mark.parametrize("resident", [1, 2])
+@pytest.mark.parametrize("grid", [("G", 1024, 32 * 6), ("D", 1025, 64 * 6)], ids=["G", "D"])
+def test_in_order_dispatch_finishes_every_block_in_key_block_order(grid, resident):
+    _, n, bh = grid
+    plan = A.fused_dq_schedule(n, bh, "dot")
+    assert (plan.k_blocks, plan.q_tiles) == (-(-n // 128), -(-n // 64))
+    total = plan.k_blocks * bh
+    assert sorted(plan.index(*plan.coords(i)) for i in range(total)) == list(range(total))
+    assert all(plan.waits_on(i) is None or plan.waits_on(i) < i for i in range(total))
+    res = simulate(plan, SMS * resident)
+    assert not res["deadlock"]
+    assert res["finished"] == plan.k_blocks * bh
+    assert len(res["adds"]) == bh * plan.q_tiles
+    assert all(kbs == list(range(plan.k_blocks)) for kbs in res["adds"].values())
+
+
+def test_the_rule_needs_in_order_dispatch():
+    """The rule needs the waited-on block resident or finished.  In linear
+    order one slot is enough; with the highest linear index dispatched first
+    onto fewer slots than a head's k-blocks, every slot holds a block whose
+    predecessor never starts."""
+    plan = A.fused_dq_schedule(1024, 2, "dot")
+    res = simulate(plan, 1)
+    assert not res["deadlock"] and res["finished"] == 2 * plan.k_blocks
+    assert all(kbs == list(range(plan.k_blocks)) for kbs in res["adds"].values())
+    res = simulate(plan, plan.k_blocks - 1, order=reversed(range(2 * plan.k_blocks)))
+    assert res["deadlock"] and res["finished"] == 0
+
+
+def test_fused_schedule_sizes_the_wrapper_buffers():
+    """The grid and flags of the single pass at the main path's shapes: G
+    (1,024 tokens), the v1 generator (32 tokens, one k-block: no flags) and
+    the v1 discriminator's `l2` 50 tokens (64 keys a block: one k-block)."""
+    g = A.fused_dq_schedule(1024, 192, "dot")
+    assert (g.k_blocks, g.q_tiles, g.flags, g.group_heads) == (8, 16, (192, 16), 32)
+    # groups of 32 heads, k-block slowest: block (kb, h) waits 32 indices back
+    assert [g.coords(i) for i in (0, 1, 32, 33, 255, 256)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1), (7, 31), (0, 32)]
+    assert [g.waits_on(i) for i in (0, 31, 32, 33, 256, 288)] == [None, None, 0, 1, None, 256]
+    ragged = A.fused_dq_schedule(1024, 40, "dot")  # a last group of 8 heads
+    assert ragged.coords(256) == (0, 32) and ragged.coords(264) == (1, 32)
+    assert ragged.waits_on(264) == 256
+    v1 = A.fused_dq_schedule(32, 512, "dot")
+    assert (v1.k_blocks, v1.q_tiles, v1.flags) == (1, 1, (0,))
+    assert v1.waits_on(5) is None
+    d_l2 = A.fused_dq_schedule(50, 1024, "l2")
+    assert (d_l2.k_blocks, d_l2.flags) == (1, (0,))
+    ragged_l2 = A.fused_dq_schedule(1025, 16, "l2")  # `l2`: k-block fastest
+    assert (ragged_l2.k_blocks, ragged_l2.q_tiles, ragged_l2.flags) == (17, 17, (16, 17))
+    assert ragged_l2.coords(18) == (1, 1) and ragged_l2.waits_on(18) == 17

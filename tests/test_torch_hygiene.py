@@ -66,3 +66,14 @@ def test_no_port_file_names_jax_or_the_jax_package():
     assert len(files) > 10
     bad = {os.path.relpath(f, REPO): m for f in files for m in _imports(f) if _forbidden(m)}
     assert not bad, f"port files import {bad}"
+
+
+def test_every_hopper_source_is_a_built_source():
+    """chip_smoke.py counts wgmma and TMA instructions in the library of each
+    source of HOPPER_SOURCES: each must be a source ops/build.py builds."""
+    import chip_smoke
+    from vitgan_tpu_torch.ops import build
+
+    assert set(chip_smoke.HOPPER_SOURCES) <= set(build.SOURCES)
+    for name in chip_smoke.HOPPER_SOURCES:
+        assert os.path.exists(os.path.join(build.CSRC, f"{name}.cu"))

@@ -2,7 +2,9 @@
 the forward kernels, the three flash backward kernels, autograd through the
 flash attention on the JAX package's backward route, the `l2` and `l2ref`
 score modes (forward, the `l2` backward kernels, autograd, the v1 head width
-108), the megablock's training forward and saved-residual backward (against
+108), the wgmma `dot` forward and dq at the edges of their tiles, the
+forward's (B, N, H*D) output layout, the single pass bit-equal across two
+calls, the megablock's training forward and saved-residual backward (against
 autograd of the plain block) and the weight-gradient kernel, the training
 gate, and the raises for what the kernels do not take.
 
@@ -412,7 +414,7 @@ def test_kblock_kernel_at_ragged_length_matches_plain_on_card(name, dh):
     """The wgmma k-block kernel through both entries at N 1,025 (a ragged
     last key block and query tile) and head widths 64, 96 and 112 (one and
     two 64-column boxes): each output within 2e-2 * its own max|plain|, and
-    the two-pass dk/dv bit-equal across two calls."""
+    every output bit-equal across two calls (the single pass's dq too)."""
     _cuda_or_skip()
     args = (*_bwd_inputs((1, 2, 1025, dh), seed=6), float(dh))
     kern, plain = {"flash_attn_bwd_fused": (A.flash_backward_fused, A.flash_bwd_fused_reference),
@@ -422,10 +424,9 @@ def test_kblock_kernel_at_ragged_length_matches_plain_on_card(name, dh):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
-    if name == "flash_attn_bwd_dkv":
-        again = kern(*args)
-        torch.cuda.synchronize()
-        assert all(torch.equal(x, y) for x, y in zip(got, again))
+    again = kern(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -444,3 +445,86 @@ def test_backward_wrappers_raise_for_unported_dtype_and_double_backward():
     x = torch.randn(1, 2, 256, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch.autograd.grad(A.flash_attention(x, x, x).float().sum(), x, create_graph=True)
+
+
+EDGE_N = [1, 32, 65, 1025]
+EDGE_DH = [16, 24, 64, 96, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", EDGE_DH)
+@pytest.mark.parametrize("n", EDGE_N)
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd_dq"])
+def test_wgmma_dot_kernels_match_plain_at_edges_on_card(name, n, dh):
+    """The wgmma `dot` forward and q-block dq at one row, the v1 generator's
+    32 tokens, a ragged 65 and 1,025 (a last query block of one row), head
+    widths 16 to 128 (one and two 64-column boxes, 128- and 64-key tiles):
+    o within 2e-2 * max(1, max|plain|) and the LSE within 1e-2; dq within
+    2e-2 * its own max|plain| plus 2**-20 and bit-equal across two calls.  (At
+    N 1 the softmax has one key and dq is 0: the kernel's dP - delta cancels
+    there only to f32 rounding, about 1e-7.)"""
+    _cuda_or_skip()
+    q, k, v, o, lse, do = _bwd_inputs((2, 2, n, dh), seed=7)
+    scale = float(dh)
+    before = build.LAUNCHES[name]
+    if name == "flash_attn_fwd":
+        o, lse = A.flash_forward(q, k, v, scale)
+        po, plse = A.attention_forward_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == before + 1
+        assert o.shape == po.shape and o.dtype == torch.bfloat16
+        assert (o.float() - po.float()).abs().max().item() <= 2e-2 * max(
+            1.0, po.float().abs().max().item())
+        assert (lse - plse).abs().max().item() <= 1e-2
+        return
+    got = A.flash_backward_dq(q, k, v, o, lse, do, scale)
+    want = A.flash_bwd_dq_reference(q, k, v, o, lse, do, scale)
+    again = A.flash_backward_dq(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 2
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    tol = 2e-2 * want.float().abs().max().item() + 2.0 ** -20
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dh", [(65, 64), (1025, 64), (32, 96)])
+def test_forward_out_bnhd_matches_plain_on_card(n, dh):
+    """With ``out`` given, the forward writes O in the (B, N, H*D) layout
+    the megablock's out-projection reads."""
+    _cuda_or_skip()
+    b, h = 2, 3
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = torch.empty((b, n, h * dh), dtype=torch.bfloat16, device="cuda")
+    o, _ = A.flash_forward(q, k, v, float(dh), out=out)
+    want = A.attention_reference(q, k, v).permute(0, 2, 1, 3).reshape(b, n, h * dh)
+    torch.cuda.synchronize()
+    assert o is out
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2 * max(
+        1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape", [("dot", (2, 3, 257, 64)), ("dot", (1, 2, 1025, 96)),
+                                        ("dot", (4, 4, 32, 96)), ("l2", (4, 4, 50, 108)),
+                                        ("l2", (1, 2, 1025, 108))],
+                         ids=["dot_257", "dot_1025_dh96", "dot_v1_g", "l2_v1_d", "l2_1025"])
+def test_single_pass_is_bit_equal_across_calls_on_card(mode, shape):
+    """dq, dk and dv of the single pass, `dot` and `l2`, bit-equal across two
+    calls: the k-blocks of a head add dq (and `l2`'s rowsum(dS)) in
+    key-block order."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = float(shape[1] * shape[3]) if mode == "l2" else float(shape[3])
+    o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+    first = [t.clone() for t in A.flash_backward_fused(q, k, v, o, lse, do, scale,
+                                                      score_mode=mode)]
+    again = A.flash_backward_fused(q, k, v, o, lse, do, scale, score_mode=mode)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+

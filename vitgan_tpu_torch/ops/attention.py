@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import math
 import warnings
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -328,23 +329,92 @@ def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None, score_mode
     return dk[..., :d], dv[..., :d]
 
 
+# The single pass's blocks (csrc/flash_attn_bwd.cuh): keys per block and
+# heads per group of the grid's order in each score mode; every block streams
+# all queries, 64 a tile.
+FUSED_BLOCK_KEYS = {"dot": 128, "l2": 64}
+FUSED_GROUP_HEADS = {"dot": 32, "l2": 1}
+FUSED_TILE_QUERIES = 64
+
+
+@dataclass(frozen=True)
+class FusedSchedule:
+    """The single-pass kernel's grid and the order of its dQ additions.
+
+    The grid's linear order runs in groups of ``group_heads`` heads, k-block
+    slowest within a group (:meth:`index`; one head a group is k-block
+    fastest).  Each block streams q_tiles 64-query tiles.  Block (kb, head)
+    adds its dQ of tile qt once the flag of (head, qt) reads kb, then sets
+    it to kb + 1: the k-blocks of a head add every tile in key-block order,
+    so each dQ element is summed in one fixed order.  A block waits only on
+    :meth:`waits_on`, a lower linear index; with blocks dispatched in linear
+    order (the kernel's assumption, tests/test_torch_flash_edges.py models
+    it) the waited-on block is resident or finished, so every block
+    finishes.  The group spaces a head's k-blocks apart in that order, so
+    that a block's predecessor has usually added its tiles before it needs
+    them."""
+
+    k_blocks: int
+    q_tiles: int
+    batch_heads: int
+    group_heads: int = 1
+
+    @property
+    def flags(self) -> tuple:
+        """Shape of the int32 flags, one per (batch*head, tile); none are
+        needed with one k-block."""
+        return (self.batch_heads, self.q_tiles) if self.k_blocks > 1 else (0,)
+
+    def _group(self, head: int) -> tuple:
+        """(first head, heads) of ``head``'s group."""
+        base = head // self.group_heads * self.group_heads
+        return base, min(self.group_heads, self.batch_heads - base)
+
+    def index(self, kb: int, head: int) -> int:
+        """The linear index of block (kb, head)."""
+        base, heads = self._group(head)
+        return base * self.k_blocks + kb * heads + head - base
+
+    def coords(self, index: int) -> tuple:
+        """(kb, head) of the block at linear ``index``."""
+        base, heads = self._group(index // self.k_blocks)
+        kb, rest = divmod(index - base * self.k_blocks, heads)
+        return kb, base + rest
+
+    def waits_on(self, index: int) -> Optional[int]:
+        """The linear index of the block whose additions block ``index``
+        waits for, tile by tile; None for a head's first k-block."""
+        kb, head = self.coords(index)
+        return None if kb == 0 else self.index(kb - 1, head)
+
+
+def fused_dq_schedule(n: int, batch_heads: int, score_mode: str = "dot") -> FusedSchedule:
+    """:class:`FusedSchedule` of the single pass at N tokens."""
+    return FusedSchedule(-(-n // FUSED_BLOCK_KEYS[score_mode]), -(-n // FUSED_TILE_QUERIES),
+                         batch_heads, FUSED_GROUP_HEADS[score_mode])
+
+
 def flash_backward_fused(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_fused.cu; returns (dq, dk, dv) bf16.  dq
-    (and for `l2` the rows' sums of dS) is summed across k-blocks by f32
-    atomics into scratch buffers, then finished and cast, so its bits vary
-    from run to run (PERF.md)."""
+    """Launch csrc/flash_attn_bwd_fused.cu; returns (dq, dk, dv) bf16.  The
+    k-blocks of a head add dq (and for `l2` the rows' sums of dS) in
+    key-block order (:func:`fused_dq_schedule`), so dq is bit-deterministic
+    as dk and dv are: `dot`'s last k-block finishes and casts dq itself,
+    `l2`'s second kernel does."""
     d = q.shape[-1]
     q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_fused", delta,
                                         score_mode)
     b, h, n, dp = q.shape
+    plan = fused_dq_schedule(n, b * h, score_mode)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    sums = plan.k_blocks > 1 or score_mode == "l2"
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device) if sums else None
     rs_acc = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
               if score_mode == "l2" else None)
+    flags = torch.empty(plan.flags, dtype=torch.int32, device=q.device)
     fn = build.entry("flash_attn_bwd_fused")
     build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do), build.ptr(lse),
                        build.ptr(delta), build.ptr(dq), build.ptr(dk), build.ptr(dv),
-                       build.ptr(dq_acc), build.ptr(rs_acc), b * h, n, dp,
+                       build.ptr(dq_acc), build.ptr(rs_acc), build.ptr(flags), b * h, n, dp,
                        1.0 / math.sqrt(scale), MODE_ID[score_mode], build.stream_ptr(q.device)))
     build.LAUNCHES[launch_key("flash_attn_bwd_fused", score_mode)] += 1
     return dq[..., :d], dk[..., :d], dv[..., :d]

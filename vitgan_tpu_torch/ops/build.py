@@ -39,9 +39,9 @@ SIGNATURES = {
     "ln_mlp_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
     "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, rs_acc, bh, n, d, inv_scale,
-    # mode, stream
-    "flash_attn_bwd_fused": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, rs_acc, dq_order, bh, n, d,
+    # inv_scale, mode, stream
+    "flash_attn_bwd_fused": [_P] * 12 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, mode, stream
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, stream

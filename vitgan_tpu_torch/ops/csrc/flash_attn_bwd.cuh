@@ -44,11 +44,37 @@
 // grid order (attention.py:507-590): both warpgroups write their dS^T into
 // one of two swizzled shared buffers, meet at a named barrier, and one
 // warpgroup a tile in turn forms dQ = dS K over the block's 128 keys (wgmma,
-// A M-major from the dS^T buffer, B N-major from the resident K) and adds it
-// into an f32 buffer with vector RED (float4 atomicAdd, lanes pairing their
-// fragments); the entry point scales and casts it.  The order of the
-// additions varies from run to run, so dQ's bits do too; dK and dV are
-// bit-deterministic.
+// A M-major from the dS^T buffer, B N-major from the resident K).  The
+// k-blocks of a head add a tile's dQ in key-block order (below), so dQ is
+// bit-deterministic, as dK and dV are: k-block 0 stores its f32 tile, the
+// middle ones add theirs with vector RED (float4 atomicAdd, lanes pairing
+// their fragments), and the last one reads the sum, adds its own, scales by
+// inv_scale and stores bf16 dQ (one k-block: it stores bf16 dQ at once).
+//
+// The order of dQ's additions (ops/attention.fused_dq_schedule models it).
+// An int32 flag per (batch*head, 64-query tile), zeroed by the entry, counts
+// the k-blocks that have added the tile.  Warp 2 of the producer warpgroup
+// keeps the order for consumer warpgroup 0, warp 3 for warpgroup 1, so that
+// each has two tiles' time a round: before tile qt it waits (ld.acquire)
+// until the flag reads this block's k-block index kb and meets the tile's dQ
+// warpgroup at a named barrier, which then adds; after the adds both meet at
+// a second barrier and the warp stores kb + 1 (st.release).  The acquire,
+// the barriers and the release order k-block kb's additions before kb + 1's,
+// so every element's sum is t0 + t1 + ... in key-block order.  The last
+// k-block issues all its loads of the sums before any add (one after another,
+// behind each store, they had cost the single pass at G 13%, PERF.md).  The
+// grid is one-dimensional, in groups of GROUP_HEADS heads, k-block slowest
+// within a group: block (kb, h) has the linear index group * K * GH + kb * GH
+// + h % GH (GH the group's heads), so a block waits only on the block GH
+// indices below it, which the scheduler dispatched about GH blocks earlier
+// and which is some tiles ahead of it: the wait is then mostly a flag found
+// set (with k-block fastest, a head's k-blocks ran side by side and waited a
+// flag's round trip on every tile).  A group's 32 heads keep their Q, dO and
+// dQ sums (8 MB at G) in the L2.  This rests on one assumption: blocks are
+// dispatched in the order of their linear index, so that a block that waits
+// has its predecessor resident or finished.  CUDA does not promise that
+// order; the hardware's block scheduler keeps it, and the CPU tests model the
+// rule (tests/test_torch_flash_edges.py).
 //
 // What held the mma.sync design back, and what this does about it: 64 keys a
 // block on 4 warps, each reading every streamed Q and dO tile from shared
@@ -67,10 +93,12 @@
 // formed from its shared-memory copy behind a second barrier; the epilogue
 // reads k back from the resident K tile.  FUSED: each tile's dS goes to
 // shared memory, the four warps form dS K for 16 queries each and add it into
-// the f32 buffer with float2 atomics; each warp also adds its 16 keys' f32 dS
-// per query into one f32 per row (the rowsum the TPU kernel keeps in VMEM,
-// attention.py:571-574), and the second pass applies the `l2` finish, so the
-// `l2` dQ is not bit-deterministic either.
+// the f32 buffer with float2 atomics; the four warps' sums of their 16 keys'
+// f32 dS per query are added in warp order into one f32 per row (the rowsum
+// the TPU kernel keeps in VMEM, attention.py:571-574), and the second pass
+// applies the `l2` finish.  The k-blocks add in key-block order on the same
+// flags as the `dot` kernel (thread 0 waits and releases, the block's
+// barriers order the adds), so the `l2` dQ is bit-deterministic too.
 #pragma once
 
 #include "hopper.cuh"
@@ -96,7 +124,8 @@ __device__ inline void load_rows(float* lse2, const float* __restrict__ lse,
 
 template <int DP, bool FUSED>
 constexpr size_t kv_smem_bytes() {
-  return (size_t)(2 * BK + 4 * BQ) * (DP + 8) * 2 + (FUSED ? (size_t)BQ * (BK + 8) * 2 : 0) +
+  return (size_t)(2 * BK + 4 * BQ) * (DP + 8) * 2 +
+         (FUSED ? (size_t)BQ * (BK + 8) * 2 + 4 * BQ * sizeof(float) : 0) +
          5 * BQ * sizeof(float);
 }
 
@@ -106,8 +135,8 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_acc,
-                    float* __restrict__ rs_acc, int n, int d, float scale_log2,
-                    float inv_scale) {
+                    float* __restrict__ rs_acc, uint32_t* __restrict__ dq_order, int n, int d,
+                    float scale_log2, float inv_scale) {
   constexpr int LD = DP + 8;
   constexpr int LDS = BK + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -118,10 +147,11 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dss = dos + 2 * BQ * LD;  // FUSED: dS of the tile, [query][key]
   float* rows = reinterpret_cast<float*>(dss + (FUSED ? BQ * LDS : 0));  // stage s at + 2*BQ*s
   float* qq_s = rows + 4 * BQ;  // |q|^2 of the current Q tile
+  float* rsw = qq_s + BQ;       // FUSED: each warp's rowsum(dS) of the tile, [warp][query]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK;
+  const int kb = blockIdx.x, nkb = gridDim.x, k0 = kb * BK;
   const long bh = blockIdx.y;
   const long base = bh * (long)n * d;
   const bf16* qb = q + base;
@@ -253,7 +283,8 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (FUSED) {
       // rowsum(dS) over the warp's 16 keys for each query of the tile: the
       // lane's two keys, then the eight lanes g of each query column; lanes
-      // 0-3 add the sums for queries 8j + 2t + c into rs_acc.
+      // 0-3 hold the sums for queries 8j + 2t + c, kept in rsw for the
+      // fixed-order sum of the four warps below.
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
@@ -262,8 +293,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           r += __shfl_xor_sync(0xffffffffu, r, 4);
           r += __shfl_xor_sync(0xffffffffu, r, 8);
           r += __shfl_xor_sync(0xffffffffu, r, 16);
-          const int row = qt * BQ + j * 8 + 2 * t + c;
-          if (g == 0 && row < n) atomicAdd(rs_acc + bh * n + row, r);
+          if (g == 0) rsw[warp * BQ + j * 8 + 2 * t + c] = r;
         }
       }
     }
@@ -293,6 +323,14 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma16816(dq[j + 1], a, b[2], b[3]);
         }
       }
+      // k-block kb adds the tile after k-block kb - 1 (the head note)
+      uint32_t* flag = dq_order + bh * ((n + BQ - 1) / BQ) + qt;
+      if (kb > 0) {
+        if (threadIdx.x == 0)
+          while (hopper::ld_acquire_gpu(flag) < (uint32_t)kb) {
+          }
+        __syncthreads();
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = qt * BQ + warp * 16 + g + 8 * h;
@@ -305,6 +343,15 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             atomicAdd(reinterpret_cast<float2*>(dst + col),
                       make_float2(dq[j][2 * h], dq[j][2 * h + 1]));
         }
+      }
+      if (threadIdx.x < BQ && qt * BQ + (int)threadIdx.x < n) {
+        const int i = threadIdx.x;
+        atomicAdd(rs_acc + bh * n + qt * BQ + i,
+                  ((rsw[i] + rsw[BQ + i]) + rsw[2 * BQ + i]) + rsw[3 * BQ + i]);
+      }
+      if (kb < nkb - 1) {
+        __syncthreads();
+        if (threadIdx.x == 0) hopper::st_release_gpu(flag, kb + 1);
       }
     }
   }
@@ -336,8 +383,8 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP, bool FUSED>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dk, void* dv, void* dq_acc, void* rs_acc, int bh, int n,
-              int d, float inv_scale, cudaStream_t stream) {
+              const void* delta, void* dk, void* dv, void* dq_acc, void* rs_acc, void* dq_order,
+              int bh, int n, int d, float inv_scale, cudaStream_t stream) {
   const size_t smem = kv_smem_bytes<DP, FUSED>();
   cudaFuncSetAttribute(flash_bwd_kv_kernel<DP, FUSED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -346,17 +393,19 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout, con
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(dq_acc), static_cast<float*>(rs_acc), n, d, inv_scale * LOG2E,
-      inv_scale);
+      static_cast<float*>(dq_acc), static_cast<float*>(rs_acc), static_cast<uint32_t*>(dq_order),
+      n, d, inv_scale * LOG2E, inv_scale);
   return (int)cudaGetLastError();
 }
 
 template <bool FUSED>
 int dispatch_kv_l2(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv, void* dq_acc,
-                   void* rs_acc, int bh, int n, int d, float inv_scale, cudaStream_t s) {
-#define VK_KV(DP) \
-  launch_kv<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, bh, n, d, inv_scale, s)
+                   void* rs_acc, void* dq_order, int bh, int n, int d, float inv_scale,
+                   cudaStream_t s) {
+#define VK_KV(DP)                                                                         \
+  launch_kv<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, dq_order, bh, n, d, \
+                       inv_scale, s)
   switch ((d + 15) / 16) {
     case 1: return VK_KV(16);
     case 2: return VK_KV(32);
@@ -378,6 +427,11 @@ namespace wg {
 constexpr int KEYS = 128;     // keys per block: two consumer warpgroups of 64
 constexpr int TQ = 64;        // queries per streamed tile
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+// Named barriers: 1 the two consumer warpgroups' dS^T exchange; GO + w and
+// DONE + w the dQ order warp with consumer warpgroup w (128 + 32 threads).
+constexpr int BAR_DS = 1, BAR_GO = 2, BAR_DONE = 4, ORDER_THREADS = 160;
+// FUSED: heads a group of the grid's order (ops/attention.FUSED_GROUP_HEADS)
+constexpr int GROUP_HEADS = 32;
 
 // Shared-memory geometry for a head dimension padded to DP (a multiple of
 // 16): NB boxes of 64 columns per row (zero-filled past d), so the dV, dK
@@ -400,24 +454,6 @@ constexpr int smem_bytes() {
          G::STAGES * 2 * TQ * 4 + (2 * G::STAGES + 1) * 8;
 }
 
-// m64nNk16 products with N = 64 or 128 (the accumulator holds N / 2 floats).
-template <int N, int TA, int TB>
-__device__ inline void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 64) {
-    hopper::wgmma_ss64<TA, TB>(d, a, b, scale_d);
-  } else {
-    hopper::wgmma_ss128<TA, TB>(d, a, b, scale_d);
-  }
-}
-template <int N>
-__device__ inline void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64) {
-    hopper::wgmma_rs64<1>(d, a, b);
-  } else {
-    hopper::wgmma_rs128<1>(d, a, b);
-  }
-}
-
 template <int DP, bool FUSED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -426,7 +462,8 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          float* __restrict__ dq_acc, int n, int d, float scale_log2,
+                          float* __restrict__ dq_acc, bf16* __restrict__ dq,
+                          uint32_t* __restrict__ dq_order, int n, int d, float scale_log2,
                           float inv_scale) {
   using namespace hopper;
   using G = Geo<DP>;
@@ -443,7 +480,16 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* kvbar = empty + ST;
 
   const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * KEYS, bh = blockIdx.y;
+  const int nkb = (n + KEYS - 1) / KEYS;
+  int kb = blockIdx.x, bh = blockIdx.y;
+  if constexpr (FUSED) {  // the grouped order of the head note
+    const int span = nkb * GROUP_HEADS, group = blockIdx.x / span, base = group * GROUP_HEADS;
+    const int gh = min(GROUP_HEADS, (int)(gridDim.x / nkb) - base);
+    const int r = blockIdx.x - group * span;
+    kb = r / gh;
+    bh = base + r % gh;
+  }
+  const int k0 = kb * KEYS;
   const int ntiles = (n + TQ - 1) / TQ;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -500,6 +546,25 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(&full[s]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+      }
+    } else if (FUSED && (threadIdx.x >> 5) >= 2 && nkb > 1) {
+      // the order of dQ's additions: warp 2 + w keeps it for consumer
+      // warpgroup w, which adds the dQ of tiles qt = w, w + 2, ...: it adds
+      // once k-block kb - 1 has, and k-block kb + 1 may add once it has
+      const int w = (threadIdx.x >> 5) - 2;
+      uint32_t* flags = dq_order + (long)bh * ntiles;
+      for (int qt = w; qt < ntiles; qt += 2) {
+        if (kb > 0) {
+          if (lane == 0)
+            while (ld_acquire_gpu(flags + qt) < (uint32_t)kb) {
+            }
+          __syncwarp();
+          named_bar_sync(BAR_GO + w, ORDER_THREADS);
+        }
+        if (kb < nkb - 1) {
+          named_bar_sync(BAR_DONE + w, ORDER_THREADS);
+          if (lane == 0) st_release_gpu(flags + qt, kb + 1);
+        }
       }
     }
     return;
@@ -560,7 +625,7 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(sa[8 * kk + 2 * r], sa[8 * kk + 2 * r + 1]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rs<DPAD>(dva, pf[kk], desc_sw128(dos + kk * 2048, G::QBOX, 1024));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DPAD, 1>(dva, pf[kk], desc_sw128(dos + kk * 2048, G::QBOX, 1024));
     wgmma_commit();
     wgmma_wait<1>();  // dP
     fence_regs(pa);
@@ -591,7 +656,7 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // dK += dS^T Q (B: Q N-major)
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rs<DPAD>(dka, df[kk], desc_sw128(qs + kk * 2048, G::QBOX, 1024));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DPAD, 1>(dka, df[kk], desc_sw128(qs + kk * 2048, G::QBOX, 1024));
     wgmma_commit();
     // dV and dK retire within the tile: then the stage's Q, dO, lse and delta
     // are free.  (Keeping them in flight under the next tile's S and dP made
@@ -603,34 +668,65 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     if constexpr (FUSED) {
       // dQ of the tile = dS K over the block's 128 keys, by one warpgroup a
-      // tile in turn, added into dq_acc four columns a thread (vector RED)
+      // tile in turn, four columns a thread, added in key-block order
       fence_proxy_async();
-      named_bar_sync(1, 256);
+      named_bar_sync(BAR_DS, 256);
       if (w == (qt & 1)) {
         const unsigned char* dsb = dss + (qt & 1) * G::DS;
         float qa[NA];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KEYS / 16; ++kk)
-          mma_ss<DPAD, 1, 1>(qa, desc_sw128(dsb + kk * 2048, G::DS, 1024),
+          wgmma_ss<DPAD, 1, 1>(qa, desc_sw128(dsb + kk * 2048, G::DS, 1024),
                              desc_sw128(ks + kk * 2048, G::KBOX, 1024), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(qa);
+        // lanes t and t ^ 1 swap halves: even t takes row g, odd t row g + 8,
+        // four columns 8 j + 2 (t & 2) .. + 3 each
+        float4 v[DPAD / 8];
 #pragma unroll
         for (int j = 0; j < DPAD / 8; ++j) {
-          // lanes t and t ^ 1 swap halves: even t takes row g, odd t row g + 8
           const float x0 = (t & 1) ? qa[4 * j] : qa[4 * j + 2];
           const float x1 = (t & 1) ? qa[4 * j + 1] : qa[4 * j + 3];
           const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
           const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-          const int row = qt * TQ + 16 * wr + g + ((t & 1) ? 8 : 0);
-          const int col = 8 * j + 2 * (t & 2);
-          const float4 v = (t & 1) ? make_float4(y0, y1, qa[4 * j + 2], qa[4 * j + 3])
-                                   : make_float4(qa[4 * j], qa[4 * j + 1], y0, y1);
-          if (row < n && col < d)
-            atomicAdd(reinterpret_cast<float4*>(dq_acc + ((long)bh * n + row) * d + col), v);
+          v[j] = (t & 1) ? make_float4(y0, y1, qa[4 * j + 2], qa[4 * j + 3])
+                         : make_float4(qa[4 * j], qa[4 * j + 1], y0, y1);
         }
+        const int row = qt * TQ + 16 * wr + g + ((t & 1) ? 8 : 0);
+        float* acc = dq_acc + ((long)bh * n + row) * d + 2 * (t & 2);
+        const bool in_row = row < n;
+        if (kb > 0) named_bar_sync(BAR_GO + w, ORDER_THREADS);  // k-block kb - 1 has added
+        if (kb == nkb - 1) {  // the last k-block finishes dQ: sum, scale, bf16
+          if (nkb > 1) {  // every load in flight at once, then the adds
+            float4 a[DPAD / 8];
+#pragma unroll
+            for (int j = 0; j < DPAD / 8; ++j)
+              a[j] = in_row && 8 * j < d ? __ldcg(reinterpret_cast<const float4*>(acc + 8 * j))
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int j = 0; j < DPAD / 8; ++j)
+              v[j] = make_float4(a[j].x + v[j].x, a[j].y + v[j].y, a[j].z + v[j].z,
+                                 a[j].w + v[j].w);
+          }
+          bf16* out = dq + ((long)bh * n + row) * d + 2 * (t & 2);
+#pragma unroll
+          for (int j = 0; j < DPAD / 8; ++j)
+            if (in_row && 8 * j < d)
+              *reinterpret_cast<uint2*>(out + 8 * j) =
+                  make_uint2(pack_bf16(v[j].x * inv_scale, v[j].y * inv_scale),
+                             pack_bf16(v[j].z * inv_scale, v[j].w * inv_scale));
+        } else if (kb == 0) {
+#pragma unroll
+          for (int j = 0; j < DPAD / 8; ++j)
+            if (in_row && 8 * j < d) *reinterpret_cast<float4*>(acc + 8 * j) = v[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < DPAD / 8; ++j)
+            if (in_row && 8 * j < d) atomicAdd(reinterpret_cast<float4*>(acc + 8 * j), v[j]);
+        }
+        if (kb < nkb - 1) named_bar_sync(BAR_DONE + w, ORDER_THREADS);  // kb + 1 may add
       }
     }
   }
@@ -660,8 +756,8 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int DP, bool FUSED>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dk, void* dv, void* dq_acc, int bh, int n, int d,
-           float inv_scale, cudaStream_t stream) {
+           const void* delta, void* dk, void* dv, void* dq_acc, void* dq, void* dq_order,
+           int bh, int n, int d, float inv_scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   const uint64_t dims[3] = {(uint64_t)d, (uint64_t)n, (uint64_t)bh};
   const uint64_t strides[2] = {(uint64_t)d * 2, (uint64_t)n * d * 2};
@@ -674,19 +770,23 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   constexpr int smem = smem_bytes<DP, FUSED>();
   cudaFuncSetAttribute(flash_bwd_kv_wgmma_kernel<DP, FUSED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((n + KEYS - 1) / KEYS, bh);
+  // FUSED: one dimension in the grouped order (the head note); else (k-blocks, heads)
+  const int nkb = (n + KEYS - 1) / KEYS;
+  const dim3 grid = FUSED ? dim3(nkb * bh) : dim3(nkb, bh);
   flash_bwd_kv_wgmma_kernel<DP, FUSED><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dq_acc), n, d,
-      inv_scale * LOG2E, inv_scale);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dq_acc),
+      static_cast<bf16*>(dq), static_cast<uint32_t*>(dq_order), n, d, inv_scale * LOG2E,
+      inv_scale);
   return (int)cudaGetLastError();
 }
 
 template <bool FUSED>
 int dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-             const void* delta, void* dk, void* dv, void* dq_acc, int bh, int n, int d,
-             float inv_scale, cudaStream_t s) {
-#define VK_WG(DP) launch<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n, d, inv_scale, s)
+             const void* delta, void* dk, void* dv, void* dq_acc, void* dq, void* dq_order,
+             int bh, int n, int d, float inv_scale, cudaStream_t s) {
+#define VK_WG(DP) \
+  launch<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, dq, dq_order, bh, n, d, inv_scale, s)
   switch ((d + 15) / 16) {
     case 1: return VK_WG(16);
     case 2: return VK_WG(32);
@@ -703,19 +803,22 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
 
 }  // namespace wg
 
-// mode 0 `dot`, 1 `l2`; rs_acc (FUSED `l2` only) is the rows' dS sums.
+// mode 0 `dot`, 1 `l2`.  FUSED only: dq_acc, the f32 sums of dQ; dq, the bf16
+// dQ the `dot` kernel finishes; rs_acc (`l2`), the rows' dS sums; dq_order,
+// the flags of the order of the additions (zeroed by the caller).
 template <bool FUSED>
 int dispatch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                const void* delta, void* dk, void* dv, void* dq_acc, void* rs_acc, int bh, int n,
-                int d, float inv_scale, int mode, cudaStream_t s) {
+                const void* delta, void* dk, void* dv, void* dq_acc, void* dq, void* rs_acc,
+                void* dq_order, int bh, int n, int d, float inv_scale, int mode,
+                cudaStream_t s) {
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case kDot:
-      return wg::dispatch<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n, d, inv_scale,
-                                 s);
+      return wg::dispatch<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, dq, dq_order, bh, n,
+                                 d, inv_scale, s);
     case kL2:
-      return dispatch_kv_l2<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, bh, n, d,
-                                   inv_scale, s);
+      return dispatch_kv_l2<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, dq_order,
+                                   bh, n, d, inv_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,6 +33,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   int bh, int n, int d, float inv_scale, int mode,
                                   void* stream) {
-  return vk::bwd::dispatch_kv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr, bh, n,
-                                     d, inv_scale, mode, static_cast<cudaStream_t>(stream));
+  return vk::bwd::dispatch_kv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr,
+                                     nullptr, nullptr, bh, n, d, inv_scale, mode,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
-// (wgrad_gemm.cu, flash_attn_bwd.cuh): mbarrier rings, TMA tensor loads,
-// wgmma descriptors and products, warpgroup fences and register hand-over.
+// (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu):
+// mbarrier rings, TMA tensor loads, wgmma descriptors and products, warpgroup
+// fences, acquire/release flags and register hand-over.
 //
 // Shared-memory tiles here are written by TMA with the 128-byte swizzle: a
 // box is `rows` rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored
@@ -99,6 +100,18 @@ __device__ inline void fence_proxy_async() {
 __device__ inline void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// ld.acquire.gpu / st.release.gpu of a 32-bit flag in global memory: the
+// release orders before the store every access that precedes it in this
+// thread or, through a barrier, in the threads that reached it first; the
+// acquire orders the accesses after it (also through a barrier) after it.
+__device__ inline uint32_t ld_acquire_gpu(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ inline void st_release_gpu(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
 // setmaxnreg.{dec,inc}: the warpgroup gives up / takes registers.
 template <int N>
 __device__ inline void reg_dealloc() {
@@ -138,9 +151,10 @@ __device__ inline void fence_regs(float (&d)[R]) {
 }
 // The same for register A operands of a wgmma still in flight: they stay
 // allocated, unchanged, until this point.
-__device__ inline void fence_frags(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ inline void fence_frags(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
@@ -237,6 +251,25 @@ __device__ inline void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4], uint6
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// m64nNk16 products with N = 64 or 128 (the accumulator holds N / 2 floats a
+// thread): both operands from shared memory, or A from registers.
+template <int N, int TA, int TB>
+__device__ inline void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_ss64<TA, TB>(d, a, b, scale_d);
+  } else {
+    wgmma_ss128<TA, TB>(d, a, b, scale_d);
+  }
+}
+template <int N, int TB>
+__device__ inline void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_rs64<TB>(d, a, b);
+  } else {
+    wgmma_rs128<TB>(d, a, b);
+  }
 }
 
 }  // namespace hopper
