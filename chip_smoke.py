@@ -292,7 +292,10 @@ def _ptxas_warnings(log: str) -> list:
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
-                  "flash_attn_bwd_dq")
+                  "flash_attn_bwd_dq", "ln_mlp_fwd")
+# The CUDA symbols of the LN->MLP forms' kernels (the parent's single kernel
+# and the stage kernels both hold this).
+LN_MLP_SYMBOLS = ("ln_mlp",)
 # Two calls of a kernel whose results must be bit-equal: chip_smoke.py raises
 # when they are not; scripts/kernel_ab.py sets this False to record how far
 # apart they are on a tree whose kernel is not bit-deterministic.
@@ -420,6 +423,8 @@ def check_kernels(only: tuple = ()) -> dict:
             if name == "flash_attn_fwd":
                 rec["out_bnhd_max_abs_err"] = bnhd_err
                 _with_device_ms(rec, kern, 20, name)
+            if name in ("ln_mlp_fwd", "proj_ln_mlp_fwd"):
+                rec["device_ms"] = _device_ms(kern, 20, LN_MLP_SYMBOLS)[0]
             print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
                   f"library {rec['library_ms']}, bound {bound_ms:.4f} ms by {bound_by})")
             out[name] = rec
@@ -815,6 +820,8 @@ def check_megablock_kernels() -> dict:
                    m * (e + hd) * 2 + (hd * e + 2 * e * hidden) * 2 + 2 * m * e * 2
                    + m * hidden * 2 + 2 * m * e * 4))
         recs["ln_mlp_train_fwd"]["max_abs_err"] = err
+        recs["ln_mlp_train_fwd"]["device_ms"] = _device_ms(
+            lambda: FB.ln_mlp_train_forward(*fwd_args), 10, LN_MLP_SYMBOLS)[0]
         _, m1, m2, x1, z1 = got
         del got, want
 
@@ -889,14 +896,24 @@ def check_megablock_kernels() -> dict:
               f"{tot['plain_ms'] / 4:.4f}, torch.matmul {tot['library_ms'] / 4:.4f}, bound "
               f"{bound[0]:.4f} ms by {bound[1]})")
 
-        # -- the second pass of the LN partials
+        # -- the second pass of the LN partials: bit-equal to its order model
+        # (a tree without one, as a parent measured by scripts/kernel_ab.py,
+        # is held to part.sum(0) alone) and across two calls
         err = _err(WG.sum_partials(ln1_part), ln1_part.sum(0), f"sum_partials {label}",
                    own_scale=True)
+        order_model = getattr(WG, "sum_partials_reference", None)
+        if order_model is not None:
+            if not torch.equal(WG.sum_partials(ln1_part), order_model(ln1_part)):
+                raise AssertionError(f"sum_partials {label}: not bit-equal to "
+                                     "sum_partials_reference")
+            print(f"  sum_partials {label}: bit-equal to sum_partials_reference")
+        repeat = _repeat(lambda: WG.sum_partials(ln1_part), f"sum_partials {label}")
         # its plain version is one PyTorch call, so it is the library time too
         rec("sum_partials", lambda: WG.sum_partials(ln1_part), lambda: ln1_part.sum(0),
             _bound(0.0, ln1_part.numel() * 4 + ln1_part.shape[1] * 4),
             library=lambda: ln1_part.sum(0))
         recs["sum_partials"]["max_abs_err"] = err
+        recs["sum_partials"]["repeat_max_abs_diff"] = repeat
         # below 0.1 ms a wrapper time is host-paced: the profiler's device time
         # of the kernel and of the library call (every device op of the call)
         dev = {"device_ms": _device_ms(lambda: WG.sum_partials(ln1_part), 20,
@@ -943,6 +960,103 @@ def check_megablock_kernels() -> dict:
                 out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
                 out[name][f"{label}_ms"] = r["ms"]
     return out, whole
+
+
+# The LN->MLP forms' shapes (rows, E, hidden, H*Dh): the serving call's, G's
+# and D's training blocks at highres128, and a ragged deit64-width one.  The
+# main shape of each form (its kernel-table row): the serving shape for the
+# plain LN->MLP and the serving form, G's for the training form.
+LN_MLP_SHAPES = (("serving", (64 * 1024, 384, 1536, 384)), ("G", (32 * 1024, 384, 1536, 384)),
+                 ("D", (64 * 1025, 384, 1536, 384)), ("ragged", (2 * 257, 192, 768, 192)))
+LN_MLP_MAIN = {"ln_mlp_fwd": "serving", "proj_ln_mlp_fwd": "serving", "ln_mlp_train_fwd": "G"}
+# Kernel launches of one wrapper call of each form (its stages).
+LN_MLP_STAGE_LAUNCHES = {"ln_mlp_fwd": 2, "proj_ln_mlp_fwd": 3, "ln_mlp_train_fwd": 3}
+
+
+def check_ln_mlp_stages() -> dict:
+    """ln_mlp_fwd.cu stage by stage and form by form at LN_MLP_SHAPES: the
+    linear stage as the out-projection (dropout stream 0, residual x) and as
+    fc2 (stream 1, residual x1), and LN -> fc1 -> GELU with z1, each against
+    its stage plain version (fused_mlp) on the same bf16 inputs, masks
+    bit-equal to the plain Philox's; the three forms against their whole
+    plain versions (out, x1 and z1 by KERNEL_RTOL, residual outputs by the
+    tolerance of their own term) and bit-equal across two calls.  At each
+    form's main shape, the time torch.matmul takes for the same products
+    ("products only": a yardstick beside the bound, not the same function).
+    Returns {form: record}."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    out = {name: {"launches_per_call": n, "stages": {}}
+           for name, n in LN_MLP_STAGE_LAUNCHES.items()}
+    for label, (m, e, hidden, hd) in LN_MLP_SHAPES:
+        print(f"[ln_mlp stages] {label}: rows {m} E {e} hidden {hidden} H*Dh {hd}")
+        c = _case(1, m, e, e // 64, hidden, gen)  # H*Dh = E: heads of 64
+        x, attn = c["x"].reshape(m, e), c["attn"].reshape(m, hd)
+        seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+        # -- the stages
+        x1, m1 = FM.linear_stage(attn, c["wout"], c["bout"], x, seed, MB_RATE, 0)
+        want_m1 = FB.dropout_mask(seed, 0, (m, e), MB_RATE)
+        h, z1 = FM.ln_fc1_stage(x1, c["ln_s"], c["ln_b"], c["w1"], c["b1"], want_z1=True)
+        want_h, want_z1 = FM.ln_fc1_stage_reference(x1, c["ln_s"], c["ln_b"], c["w1"], c["b1"])
+        o, m2 = FM.linear_stage(want_h, c["w2"], c["b2"], x1, seed, MB_RATE, 1)
+        want_m2 = FB.dropout_mask(seed, 1, (m, e), MB_RATE)
+        torch.cuda.synchronize()
+        if not (torch.equal(m1, want_m1) and torch.equal(m2, want_m2)):
+            raise AssertionError(f"linear stage {label}: masks not bit-equal to the plain "
+                                 "Philox's")
+        stages = {
+            "proj": _err(x1, FM.linear_stage_reference(attn, c["wout"], c["bout"], x, want_m1),
+                         f"linear stage (out-projection) {label}", x),
+            "fc1_h": _err(h, want_h, f"LN->fc1->GELU stage {label} h"),
+            "fc1_z1": _err(z1, want_z1, f"LN->fc1->GELU stage {label} z1"),
+            "fc2": _err(o, FM.linear_stage_reference(want_h, c["w2"], c["b2"], x1, want_m2),
+                        f"linear stage (fc2) {label}", x1)}
+        print("  stage masks bit-equal to the plain Philox's")
+        del x1, m1, h, z1, o, m2, want_h, want_z1, want_m1, want_m2
+        # -- the forms, whole, and two calls of each
+        mlp = (c["ln_s"], c["ln_b"], c["w1"], c["b1"], c["w2"], c["b2"])
+        proj = (x, attn, c["wout"], c["bout"], *mlp)
+        forms = {
+            "ln_mlp_fwd": (lambda: FM.ln_mlp_forward(x, *mlp, residual=True),
+                           lambda: FM._reference(x, *mlp, "gelu", 1e-5, True),
+                           lambda: (x @ c["w1"], want_hh @ c["w2"])),
+            "proj_ln_mlp_fwd": (
+                lambda: FM.ln_mlp_forward(x, *mlp, attn=attn, wout=c["wout"], bout=c["bout"]),
+                lambda: FB._proj_ln_mlp_reference(*proj),
+                lambda: (attn @ c["wout"], x @ c["w1"], want_hh @ c["w2"])),
+            "ln_mlp_train_fwd": (lambda: FB.ln_mlp_train_forward(*proj, seed, MB_RATE),
+                                 lambda: FB._proj_ln_mlp_train_reference(*proj, seed, MB_RATE),
+                                 lambda: (attn @ c["wout"], x @ c["w1"], want_hh @ c["w2"]))}
+        want_hh = torch.empty((m, hidden), dtype=torch.bfloat16, device="cuda").normal_(
+            generator=gen)
+        for name, (kern, plain, products) in forms.items():
+            got, want = kern(), plain()
+            if name == "ln_mlp_train_fwd":
+                torch.cuda.synchronize()
+                if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+                    raise AssertionError(f"{name} {label}: masks not bit-equal")
+                err = max(_err(got[0], want[0], f"{name} {label} out", want[3]),
+                          _err(got[3], want[3], f"{name} {label} x1", x),
+                          _err(got[4], want[4], f"{name} {label} z1"))
+            else:
+                err = _err(got, want, f"{name} {label}", x)
+            del got, want
+            rec = out[name]
+            rec[f"{label}_max_abs_err"] = err
+            rec["stages"][label] = stages
+            rec[f"{label}_repeat_max_abs_diff"] = _repeat(kern, f"{name} {label}")
+            if LN_MLP_MAIN[name] == label:
+                rec["products_only_ms"] = _time_ms(products, 10)
+                rec["products_only"] = ("torch.matmul of the form's products in bf16 at the "
+                                        "main shape: a yardstick, not the same function")
+                print(f"  {name}: products only (torch.matmul) {rec['products_only_ms']:.4f} ms")
+        del c, x, attn, want_hh, forms
+        torch.cuda.empty_cache()
+    return out
 
 
 # Kernel launches per highres128 train step at batch 32 (12 blocks; G's
@@ -1159,16 +1273,23 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("flash_bwd_dq_kernel", "flash backward dq"),
                 ("scale_cast_kernel", "flash single-pass `l2` dq finish"),
                 ("flash_attn_fwd_kernel", "flash forward"),
-                ("ln_mlp_fwd_kernel<true>", "megablock training forward (ln_mlp_train_fwd)"),
-                ("ln_mlp", "LN->MLP forward"), ("ln_qkv", "LN->qkv forward"),
+                ("ln_qkv", "LN->qkv forward"),
                 ("megablock_bwd_mlp", "megablock backward, MLP half"),
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
                 ("wgrad_gemm", "weight-gradient products"),
                 ("wgrad_reduce", "weight-gradient products"),
                 ("sum_partials", "second-pass sums"))
+# ln_mlp_fwd.cu's two stage kernels (ln_mlp_fc1_kernel: LN -> fc1 -> GELU;
+# ln_mlp_linear_kernel: the linear stage) serve all three LN->MLP forms; a
+# train step runs one form, which its route names.
+LN_MLP_SYMBOL = "ln_mlp_"
+LN_MLP_GROUP = {"auto": "megablock training forward (ln_mlp_train_fwd)",
+                "off": "LN->MLP forward"}
 
 
-def _kernel_group(name: str) -> str:
+def _kernel_group(name: str, route: str = "off") -> str:
+    if LN_MLP_SYMBOL in name:
+        return LN_MLP_GROUP[route]
     for key, label in PORT_KERNELS:
         if key in name:
             if label.startswith("flash"):  # the score mode: the last template argument
@@ -1186,8 +1307,10 @@ def _kernel_group(name: str) -> str:
 
 def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
     """Where a train step's device time goes: torch.profiler over 2 steps,
-    kernel time summed by group, and the device's idle share of the wall
-    time; then, with ``recompute``, the LN->MLP recompute backward alone at
+    kernel time summed by group (the LN->MLP stage kernels under the group of
+    the step's route: ``recompute`` is the megablock=off route), and the
+    device's idle share of the wall time; then, with ``recompute``, the
+    LN->MLP recompute backward alone at
     the step's three row counts: the autograd Function's backward as the
     port runs it (the plain forward recomputed and differentiated, TF32
     products), and the same forward and backward of the plain version in
@@ -1215,8 +1338,10 @@ def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
     else:
         busy = sum(r[1] for r in rows)
         groups: dict = {}
+        route = "off" if recompute else "auto"
         for name, t, _ in rows:
-            groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + t
+            key = _kernel_group(name, route)
+            groups[key] = groups.get(key, 0.0) + t
         print(f"[breakdown] per step under the profiler: wall {wall_ms:.1f} ms, device busy "
               f"{busy:.1f} ms; idle {100 * (1 - busy / step_ms):.1f}% of the unprofiled "
               f"{step_ms:.1f} ms step ({100 * (1 - busy / wall_ms):.1f}% of the profiled one)")
@@ -2067,6 +2192,8 @@ def main() -> int:
         v1_dot = check_v1_dot_kernels()
         mb_records, mb_blocks = check_megablock_kernels()
         records.update(mb_records)
+        for name, rec in check_ln_mlp_stages().items():
+            records[name].update(rec)
         gate = check_training_gate()
         train_launches, train = train_main_path(train_dir, "auto")
         shutil.rmtree(train_dir, ignore_errors=True)

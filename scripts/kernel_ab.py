@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Check and time the flash kernels and the megablock's training kernels
-(wgrad_gemm among them) of one tree of the port on the card, with
-chip_smoke.py's own phases, so that two trees can be compared in one call.
+"""Check and time the flash kernels, the LN->MLP forms and the megablock's
+training kernels (wgrad_gemm and sum_partials among them) of one tree of the
+port on the card, with chip_smoke.py's own phases, so that two trees can be
+compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
 bounds and timing are always this repository's chip_smoke.py:
-``check_kernels`` for the flash forward alone (the serving shape with its
+``check_kernels`` for the flash forward (the serving shape with its
 out_bnhd layout, a ragged and a long shape; the wrapper's time and its
-kernel's device time beside SDPA and the bound), ``check_bwd_kernels`` (the
+kernel's device time beside SDPA and the bound) and the two LN->MLP forms
+of the serving path, the plain LN->MLP and the megablock's out-projection
+form (the serving and a ragged shape; wrapper and device time beside the
+bound), ``check_bwd_kernels`` (the
 single pass, dq and dk/dv at G's, D's, a ragged and a long shape; each
 kernel's outputs across two calls; the wrapper's time and, at the main
 shape, its kernels' own device time beside SDPA's backward and the bound),
 the single pass twice at the v1 generator's shape (`dot`) and the v1
 discriminator's (`l2`, bwd_fusion=fused), and ``check_megablock_kernels``
-(the training forward, the two backward row kernels, wgrad_gemm with
-bit-equal dW and db across two calls, and sum_partials at G's, D's and a
-ragged shape with its device time and part.sum(0)'s, beside torch.matmul and
-the bound).  Two calls that are not bit-equal are recorded (max |d| per
+(the training forward with its device time, the two backward row kernels,
+wgrad_gemm with bit-equal dW and db across two calls, and sum_partials at
+G's, D's and a ragged shape with its device time and part.sum(0)'s, beside
+torch.matmul and the bound; sum_partials also bit-equal to
+sum_partials_reference on a tree that has it).  Two calls that are not bit-equal are recorded (max |d| per
 output), not raised, so that a tree whose kernel is not deterministic can be
 measured.  Run it for two trees in turns (parent, change, change, parent) in
 one call on one card.  Prints one JSON line, last.
@@ -122,7 +127,8 @@ def main() -> int:
     cs.STRICT_REPEAT = False  # record how far apart two calls are
     label = args.label or args.root
     print(f"[build] {label}: {build.build()}")
-    rec = {"label": label, "fwd": cs.check_kernels(only=("flash_attn_fwd",)),
+    rec = {"label": label,
+           "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd")),
            "bwd": cs.check_bwd_kernels(), "single_pass_repeats": single_pass_repeats(cs),
            "megablock": cs.check_megablock_kernels()[0]}
     if args.splits:

@@ -6,7 +6,9 @@ score modes (forward, the `l2` backward kernels, autograd, the v1 head width
 forward's (B, N, H*D) output layout, the single pass bit-equal across two
 calls, the megablock's training forward and saved-residual backward (against
 autograd of the plain block) and the weight-gradient kernel, the training
-gate, and the raises for what the kernels do not take.
+gate, and the raises for what the kernels do not take; each stage of the
+LN->MLP forward against its plain version, and sum_partials bit-equal to its
+order model.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -528,3 +530,63 @@ def test_single_pass_is_bit_equal_across_calls_on_card(mode, shape):
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e,hidden", [(130, 48, 192), (514, 192, 768), (1000, 384, 1536)],
+                         ids=["m130_e48", "m514_e192", "m1000_e384"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ln_mlp_stage_kernels_match_plain_on_card(m, e, hidden, rate):
+    """Each stage of ln_mlp_fwd.cu against its plain version on the same bf16
+    rows: the linear stage as the out-projection (mask stream 0, residual x)
+    and as fc2 (mask stream 1, residual x1, and without a residual), and
+    LN -> fc1 -> GELU with z1; masks bit-equal to the plain Philox's; each
+    output within 2e-2 * max(1, max|plain|)."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+
+    f32 = torch.float32
+    x, attn = rn(m, e), rn(m, e)
+    ln_s, ln_b = 1 + rn(e, scale=0.1, dtype=f32), rn(e, scale=0.1, dtype=f32)
+    wout, bout = rn(e, e, scale=0.05), rn(e, scale=0.1, dtype=f32)
+    w1, b1 = rn(e, hidden, scale=0.05), rn(hidden, scale=0.1, dtype=f32)
+    w2, b2 = rn(hidden, e, scale=0.05), rn(e, scale=0.1, dtype=f32)
+    seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+
+    def close(got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        tol = 2e-2 * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+    x1, m1 = FM.linear_stage(attn, wout, bout, x, seed, rate, 0)
+    want_m1 = FB.dropout_mask(seed, 0, (m, e), rate) if rate else None
+    assert (m1 is None) == (rate == 0.0) and (m1 is None or torch.equal(m1, want_m1))
+    close(x1, FM.linear_stage_reference(attn, wout, bout, x, want_m1))
+    h, z1 = FM.ln_fc1_stage(x1, ln_s, ln_b, w1, b1, want_z1=True)
+    want_h, want_z1 = FM.ln_fc1_stage_reference(x1, ln_s, ln_b, w1, b1)
+    close(h, want_h)
+    close(z1, want_z1)
+    assert torch.equal(FM.ln_fc1_stage(x1, ln_s, ln_b, w1, b1)[0], h)
+    out, m2 = FM.linear_stage(want_h, w2, b2, x1, seed, rate, 1)
+    want_m2 = FB.dropout_mask(seed, 1, (m, e), rate) if rate else None
+    assert (m2 is None) == (rate == 0.0) and (m2 is None or torch.equal(m2, want_m2))
+    close(out, FM.linear_stage_reference(want_h, w2, b2, x1, want_m2))
+    close(FM.linear_stage(want_h, w2, b2)[0], FM.linear_stage_reference(want_h, w2, b2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits,count", [(512, 768), (1025, 768), (9, 96), (1, 16)])
+def test_sum_partials_is_bit_equal_to_its_order_model_on_card(splits, count):
+    """The sum_partials kernel gives the bits of sum_partials_reference (the
+    same f32 adds in the same order) and the same bits on a second call."""
+    _cuda_or_skip()
+    from vitgan_tpu_torch.ops import wgrad as WG
+
+    gen = torch.Generator(device="cuda").manual_seed(splits)
+    part = torch.randn((splits, count), generator=gen, device="cuda")
+    got, again = WG.sum_partials(part), WG.sum_partials(part)
+    torch.cuda.synchronize()
+    assert torch.equal(got, WG.sum_partials_reference(part)) and torch.equal(got, again)

@@ -34,9 +34,10 @@ SIGNATURES = {
     # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, mode, stream
     # (mode: 0 dot, 1 l2, 2 l2ref; the backward entries take 0 or 1)
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
-    # x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, out,
-    # m, e, hd, hidden, eps, residual, stream
-    "ln_mlp_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    # a, ln_s, ln_b, w1, b1, h, z1, m, e, hidden, eps, stream
+    "ln_mlp_fc1": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # a, w, bias, res, seed, out, mask, m, k, n, mask_id, threshold, inv_keep, stream
+    "ln_mlp_linear": [_P] * 7 + [_I] * 4 + [_U, _F, _P],
     # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
     "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, rs_acc, dq_order, bh, n, d,
@@ -46,9 +47,6 @@ SIGNATURES = {
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, stream
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
-    # x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, out, m1, m2, x1, z1,
-    # m, e, hd, hidden, eps, threshold, inv_keep, stream
-    "ln_mlp_train_fwd": [_P] * 16 + [_I] * 4 + [_F, _U, _F, _P],
     # g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, dmlp, dz1, h1, y2, dx1, da,
     # dao, delta, part, batch, n, e, heads, dh, hidden, eps, stream
     "megablock_bwd_mlp": [_P] * 20 + [_I] * 6 + [_F, _P],
@@ -59,16 +57,19 @@ SIGNATURES = {
     # part, out, splits, count, stream
     "sum_partials": [_P] * 2 + [_I] * 2 + [_P],
 }
-SOURCE = {"ln_mlp_train_fwd": "ln_mlp_fwd", "sum_partials": "wgrad_gemm"}
+SOURCE = {"ln_mlp_fc1": "ln_mlp_fwd", "ln_mlp_linear": "ln_mlp_fwd",
+          "sum_partials": "wgrad_gemm"}
 SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 
-# Launch counts by wrapper.  ln_mlp_fwd.cu serves three wrappers: the plain
-# LN->MLP ("ln_mlp_fwd"), the megablock's out-projection form
-# ("proj_ln_mlp_fwd") and its training form ("ln_mlp_train_fwd").  The flash
-# kernels count their `dot` launches under their name and the other score
-# modes apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
-LAUNCHES = {name: 0 for name in SIGNATURES}
-LAUNCHES["proj_ln_mlp_fwd"] = 0
+# Launch counts by wrapper.  The stages of ln_mlp_fwd.cu (ln_mlp_fc1,
+# ln_mlp_linear) count under the wrapper of the form that composes them: the
+# plain LN->MLP ("ln_mlp_fwd", two launches a call), the megablock's
+# out-projection form ("proj_ln_mlp_fwd", three) and its training form
+# ("ln_mlp_train_fwd", three).  The flash kernels count their `dot` launches
+# under their name and the other score modes apart, as "flash_attn_fwd[l2]"
+# (ops/attention.launch_key).
+LAUNCHES = {name: 0 for name in SIGNATURES if SOURCE.get(name) != "ln_mlp_fwd"}
+LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (
     ("flash_attn_fwd", ("l2", "l2ref")), ("flash_attn_bwd_fused", ("l2",)),
     ("flash_attn_bwd_dq", ("l2",)), ("flash_attn_bwd_dkv", ("l2",))) for mode in modes})

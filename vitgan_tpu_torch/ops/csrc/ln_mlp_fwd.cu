@@ -1,370 +1,554 @@
-// Fused LayerNorm -> fc1 -> GELU -> fc2 [+ residual] forward for Hopper
-// (sm_90a), with an optional out-projection prologue.
+// LayerNorm -> fc1 -> GELU -> fc2 [+ residual] forward for Hopper (sm_90a),
+// with an optional out-projection before it, as a chain of wgmma GEMMs.
 //
 // Replaces the TPU kernel `_kernel` / `_forward` of vitgan_tpu/ops/fused_mlp.py
-// (lines 72-107, 110-150).  With the prologue it is the third of the three
-// launches that replace the megablock `_kernel` of
-// vitgan_tpu/ops/fused_block.py:93-211 (see ln_qkv_fwd.cu for the first):
-//     x1  = x + attn . wout + bout        (kept on chip, in f32)
-//     out = x1 + fc2(gelu(fc1(LN2(x1))))
-// Without the prologue:  out = [x +] fc2(gelu(fc1(LN(x)))).
+// (lines 72-107, 110-150) and, with the out-projection, the MLP half of the
+// megablock `_kernel` of vitgan_tpu/ops/fused_block.py:93-211 (pallas_call
+// at :408; see ln_qkv_fwd.cu for the first launch).  Three forms, each
+// composed by its Python wrapper from the two entries below:
+//   plain LN->MLP (ops/fused_mlp.ln_mlp_forward):
+//       h   = gelu(LN(x) . w1 + b1)                         ln_mlp_fc1
+//       out = [x +] (h . w2 + b2)                           ln_mlp_linear
+//   serving, the megablock's inference form (the same with attn):
+//       x1  = x + (attn . wout + bout)                      ln_mlp_linear
+//       then the plain form on x1 with the residual x1;
+//   training (ops/fused_block.ln_mlp_train_forward; rate > 0, want_res at
+//   fused_block.py:111-123, 186-209):
+//       x1  = x + m1 * (attn . wout + bout)   (bf16, saved) ln_mlp_linear
+//       z1  = LN2(x1) . w1 + b1               (bf16, saved) ln_mlp_fc1
+//       out = x1 + m2 * (gelu(z1) . w2 + b2)                ln_mlp_linear
+// m1 and m2 are f32 multiply-masks drawn in the epilogues from Philox4x32-10
+// (common.cuh dropout_pair, streams 0 and 1, element row * E + col on the
+// real E) and written out, as the TPU kernel returns them.  GELU is the exact
+// erf form (common.cuh) on the f32 pre-activation.  h (and the serving
+// form's x1) go through device memory in bf16: the wrappers allocate them.
 //
-// Design.  One block of 8 warps per 64-row tile; each warp owns 16 rows by
-// half the output columns, its f32 accumulators in registers.  The
-// LayerNorm runs in f32 over the real width and leaves the normalised tile
-// in shared memory as bf16.  The hidden width is walked in 64-column chunks:
-// h = gelu(y . w1[:, c] + b1[c]) is formed on the tensor cores, passed
-// through shared memory as bf16, and acc += h . w2[c, :] accumulates in
-// registers (mma.sync m16n8k16 with ldmatrix operands, bf16 in, f32 out).
-// The copies run ahead by cp.async: w1's chunk c+1 and w2's chunk c load
-// while fc1 of chunk c runs (two w1 buffers, one w2 buffer: 64-wide chunks
-// fit 227 KB no other way), and there are two block barriers a chunk.  The (rows, hidden) intermediate
-// never reaches device memory, which is the point of the TPU kernel.  The
-// residual (x, or x1 from the prologue) seeds the accumulators; the x tile
-// arrives by cp.async, with the prologue while the out-projection runs.
-// GELU is the exact erf form (see common.cuh).  E, hidden and H*Dh must be
-// multiples of 8 (16-byte copies); E <= 384 (shared memory).
+// Design: a chain of GEMMs on wgrad_gemm.cu's pipeline.  Two kernels of 384 threads, one block an SM, each block walking
+// its share of the tiles (a persistent grid): warpgroup 0 is the producer
+// (thread 0 issues the TMA loads of the streamed operands, thread 32 fc1's
+// resident A), warpgroups 1 and 2 the consumers, each owning 64 rows of a
+// 128-row tile and its f32 accumulators.  Every operand lands by TMA with the
+// 128-byte swizzle: A (activations, (M, K) row-major) K-major in 64-column
+// boxes of 128 rows, B (the weight, (K, N) row-major) N-major in 64 x 64
+// boxes, read through the descriptor's transpose bit as wgrad_gemm.cu reads
+// its B.  Products are wgmma m64nBNk16 from shared memory, one group in
+// flight while the next stage is waited for, all retired within the tile.
+//   ln_mlp_linear_kernel (BN 192; a 4-stage ring of one A box and three B
+//       boxes): a 128 x 192 tile at a time.  At the tile's start each
+//       consumer warpgroup's residual rows (when there is one) land by TMA
+//       under the products; epilogue bias [* mask] [+ residual], bf16 out,
+//       the mask in f32.
+//   ln_mlp_fc1_kernel (BN 256; a 3-stage ring of four B boxes): a block
+//       takes a 128-row tile of A whole (E <= 384: six boxes, 96 KB) by TMA,
+//       the consumers form the f32 row statistics over the real E and
+//       normalise their 64 rows in place (the swizzled chunk of column c of
+//       row r is c / 8 ^ r % 8; fence.proxy.async before wgmma reads them),
+//       then walk every 256-column tile of the hidden width against it while
+//       w1 streams through the ring; epilogue bias, [z1], gelu, bf16 h.
+// Epilogues go one 64-column box at a time: the box's bias loads issued
+// together, the f32 masks stored directly (a quad writes a whole 32-byte
+// sector), the bf16 outputs staged in shared memory and written by TMA
+// stores (4-byte stores straight from the accumulators wrote half sectors
+// and ran at 0.8 TB/s).  TMA zero-fills rows past M and columns past K
+// (zeros into the products) and past N; its stores clip rows past M and
+// columns past N; B boxes wholly past N are not loaded.  The products run
+// at cuBLAS's pace (scripts/ln_mlp_probe.py); the epilogues, GELU's erf
+// above all, run between them, not under them: a ping-pong of the consumer
+// warpgroups and alternating accumulator sets were both slower (PERF.md).
 //
-// Training instantiation (TRAIN = true; entry ln_mlp_train_fwd), the third
-// launch of the TPU megablock's training forms (`_kernel` with rate > 0 and
-// want_res, fused_block.py:111-123, 186-209):
-//     a   = attn . wout + bout
-//     x1  = x + m1 * a                    (written as bf16: a saved residual)
-//     z1  = LN2(x1) . w1 + b1             (written as bf16 chunk by chunk)
-//     out = x1 + m2 * (gelu(z1) . w2 + b2)
-// m1 and m2 are f32 multiply-masks drawn in the kernel from Philox4x32-10
-// (common.cuh) and written out, as the TPU kernel returns them; with no
-// dropout they are 1 and not written.  The mask applies before the residual,
-// so the accumulators start from zero and the epilogue adds x1, read back
-// from this thread's own bf16 x1 stores.  The serving instantiation is
-// unchanged: the template flag removes every training branch from it.
+// What held the mma.sync kernel back, and what this does about it: 8 warps
+// on 64-row blocks, each chunk of the hidden width behind two block barriers
+// with one w2 buffer (now mbarrier rings, no block barrier in the main
+// loop); the prologue, the LayerNorm staging and the MLP strictly one after
+// the other (now separate GEMMs whose loads run ahead of their products);
+// every 64-row block re-reading all the weights (now 128-row tiles); mma.sync
+// at a fraction of wgmma's rate.  The cost: h leaves the chip, 2 M hidden 2
+// bytes each way (0.4 GB, ~0.12 ms at the serving shape), and the serving
+// form's x1 too.
 //
-// Bound on this card.  At the serving shape (65,536 rows, E 384, hidden
-// 1,536) a launch does 4*65536*384*1536 = 1.55e11 flops on 101 MB of
-// activations and 2.4 MB of weights: 0.16 ms of tensor-core time against
-// 0.03 ms of HBM time, so the tensor cores bound it.  The training form at
-// G's 32,768 rows also writes z1 (101 MB), two f32 masks (101 MB) and x1:
-// ~0.08 ms of HBM time against ~0.09 ms of tensor-core time.  Every 64-row block
-// reads all the weights once from L2 (2.4 GB in all at this shape), which
-// is the next limit after the tensor cores.  The prologue adds
-// 2*65536*384*384 = 1.9e10 flops and 50 MB.
-#include "common.cuh"
+// Bound on this card.  At the serving shape (65,536 rows, E 384, H*Dh 384,
+// hidden 1,536) the fused work is 2 M (HD E + 2 E hidden) = 1.74e11 flops on
+// ~0.15 GB of activations: 0.176 ms of tensor-core time, so the tensor cores
+// bound it; the training form at G's 32,768 rows also writes z1, x1 and two
+// f32 masks: 0.091 ms by its bytes.  E, hidden and H*Dh multiples of 8
+// (TMA's 16-byte strides); E <= 384 (fc1's resident A).
+#include "hopper.cuh"
 
 using namespace vk;
+using namespace vk::hopper;
 
 namespace {
 
-constexpr int BM = 64;     // rows per block
-constexpr int BH = 64;     // hidden (and prologue K) chunk
-constexpr int NWARP = 8;   // 4 row groups x 2 column halves
-constexpr int MAXNT = 24;  // 8-column accumulator tiles per warp: ep / 16 <= 24, ep <= 384
+constexpr int BM = 128;              // rows a tile
+constexpr int THREADS = 384;         // producer warpgroup + two consumers
+constexpr int ABOX = 64 * BM * 2;    // one 64-column box of a tile's A rows, bytes
+constexpr int BBOX = 64 * 64 * 2;    // one 64 (K) x 64 (N) box of B
+constexpr int MAXKB = 6;             // fc1's resident A boxes: E <= 384
 
-struct MlpSmem {
-  int ldy, ldw1, ldw2, ldh, ldst;
-  size_t w1_off, w1_size, w2_off, h_off, bytes;
-  __host__ __device__ explicit MlpSmem(int ep) {
-    ldy = ep + 8;   // bf16 LN output, BM x ep
-    ldw1 = BH + 8;  // bf16 w1 chunk, ep x BH, two buffers
-    ldw2 = ep + 8;  // bf16 w2 chunk, BH x ep, one buffer
-    ldh = BH + 8;   // bf16 activation (or attn) chunk, BM x BH, two buffers
-    ldst = ep + 4;  // f32 x1 for the LayerNorm, BM x ep: aliases the w1 buffers,
-                    // as do the prologue's two wout chunks
-    w1_off = (size_t)BM * ldy * 2;
-    w1_size = (size_t)ep * ldw1 * 2;
-    w2_off = w1_off + 2 * w1_size;
-    h_off = w2_off + (size_t)BH * ldw2 * 2;
-    bytes = h_off + 2 * (size_t)BM * ldh * 2;
-  }
-};
-
-// The training instantiation's extra arguments; m1 == nullptr: no dropout.
-struct TrainArgs {
+struct Params {
+  int m, k, n;                 // rows, summed width, output width
+  const float* bias;           // (n,)
+  // fc1
+  const float* ln_s;
+  const float* ln_b;
+  float eps;
+  const bf16* z1;              // the pre-activation (m, n) is written, or null
+  // linear
+  const bf16* res;             // (m, n) residual, or null
+  float* mask;                 // (m, n) f32 multiply-mask, or null: no dropout
   const long long* seed;
-  float* m1;
-  float* m2;
-  bf16* x1;
-  bf16* z1;
-  uint32_t threshold;
+  uint32_t mask_id, threshold;
   float inv_keep;
 };
 
-template <bool TRAIN>
-__global__ void __launch_bounds__(NWARP * 32)
-ln_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
-                  const bf16* __restrict__ wout, const float* __restrict__ bout,
-                  const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                  const bf16* __restrict__ w1, const float* __restrict__ b1,
-                  const bf16* __restrict__ w2, const float* __restrict__ b2,
-                  bf16* __restrict__ out, int m, int e, int ep, int hd, int hidden, float eps,
-                  int residual, TrainArgs tr) {
-  const MlpSmem L(ep);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  float* st = reinterpret_cast<float*>(smem + L.w1_off);
-  bf16* w2s = reinterpret_cast<bf16*>(smem + L.w2_off);
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.h_off);
-  auto w1_buf = [&](int s) { return reinterpret_cast<bf16*>(smem + L.w1_off + s * L.w1_size); };
-  auto wout_buf = [&](int s) {  // BH x ep, in the w1 area
-    return reinterpret_cast<bf16*>(smem + L.w1_off + (size_t)s * BH * L.ldw2 * 2);
-  };
+// Byte offset of the 4-byte word holding columns 8 jj + 2 t, + 1 of row r in
+// a 128-byte-swizzled 64-column box (16-byte chunk jj of row r at jj ^ r % 8).
+__device__ inline int swz(int r, int jj, int t) { return r * 128 + ((jj ^ (r & 7)) << 4) + 4 * t; }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int rg = (warp & 3) * 16;           // this warp's 16 rows
-  const int cbase = (warp >> 2) * (ep / 2);  // and its half of the output columns
-  const int nt = ep / 16;                   // its 8-column accumulator tiles
-  const bool drop = TRAIN && tr.m1 != nullptr;
-  const uint2 key = drop ? seed_key(tr.seed) : make_uint2(0u, 0u);
+// Row LayerNorm of rows r0 .. r0 + 63 of the resident A tile, in place: one
+// warp a row (this warp: rows r0 + 16 wr ..), each lane two 16-byte chunks
+// (E <= 512); f32 statistics over the e real columns (mean, then the mean of
+// squared deviations: the JAX package's order); columns past e stay TMA's
+// zeros.
+__device__ inline void ln_resident(unsigned char* as, int r0, int e, const float* __restrict__ g,
+                                   const float* __restrict__ b, float eps) {
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5;
+  const int nch = e >> 3;
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = r0 + 16 * wr + rr;
+    float v[2][8];
+    float s = 0.f;
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci) {
+      const int c = lane + 32 * ci;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (c < nch)
+        raw = *reinterpret_cast<const uint4*>(as + (c >> 3) * ABOX + r * 128 +
+                                              (((c & 7) ^ (r & 7)) << 4));
+      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+        v[ci][2 * i] = f.x;
+        v[ci][2 * i + 1] = f.y;
+        s += f.x + f.y;
+      }
+    }
+    const float mean = warp_sum(s) / e;
+    float q = 0.f;
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci)
+      if (lane + 32 * ci < nch)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float d = v[ci][i] - mean;
+          q += d * d;
+        }
+    const float rstd = rsqrtf(warp_sum(q) / e + eps);
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci) {
+      const int c = lane + 32 * ci;
+      if (c >= nch) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(g + 8 * c);
+      const float4 g1 = *reinterpret_cast<const float4*>(g + 8 * c + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(b + 8 * c);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + 8 * c + 4);
+      const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      uint32_t y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        y[i] = pack_bf16((v[ci][2 * i] - mean) * rstd * gs[2 * i] + bs[2 * i],
+                         (v[ci][2 * i + 1] - mean) * rstd * gs[2 * i + 1] + bs[2 * i + 1]);
+      *reinterpret_cast<uint4*>(as + (c >> 3) * ABOX + r * 128 + (((c & 7) ^ (r & 7)) << 4)) =
+          make_uint4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
 
-  float acc[MAXNT][4];
-#pragma unroll
-  for (int j = 0; j < MAXNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+// --- the linear stage: out = [res +] [mask *] (a . w + bias) ------------------
 
-  // acc += a_tile (BM x BH) . b_tile (BH x ep).
-  auto acc_from = [&](const bf16* a_tile, const bf16* b_tile) {
-#pragma unroll
-    for (int kk = 0; kk < BH / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, a_tile, L.ldh, rg, kk * 16);
-#pragma unroll
-      for (int j = 0; j < MAXNT; j += 2) {
-        if (j < nt) {
-          uint32_t b[4];
-          load_b_kn(b, b_tile, L.ldw2, kk * 16, cbase + j * 8);
-          mma16816(acc[j], a, b[0], b[1]);
-          mma16816(acc[j + 1], a, b[2], b[3]);
+namespace lin {
+constexpr int BN = 192;                       // output columns a tile
+constexpr int NB = BN / 64;                   // B boxes a stage
+constexpr int STAGES = 4;
+constexpr int STAGE = ABOX + NB * BBOX;       // one A box, three B boxes
+constexpr int OBOX = 64 * 64 * 2;             // a warpgroup's 64 rows of one 64-column box
+constexpr int SMEM = 1024 + STAGES * STAGE + 2 * NB * OBOX + 2 * OBOX + (2 * STAGES + 2) * 8;
+}  // namespace lin
+
+__global__ void __launch_bounds__(THREADS, 1)
+ln_mlp_linear_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap to,
+                     const __grid_constant__ CUtensorMap tr, const Params p) {
+  using namespace lin;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* stages = smem;                        // stage s at s STAGE
+  unsigned char* resid = stages + STAGES * STAGE;      // warpgroup w's box b at (w NB + b) OBOX
+  unsigned char* staging = resid + 2 * NB * OBOX;      // warpgroup w's box at w OBOX
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * OBOX);
+  uint64_t* empty = full + STAGES;
+  uint64_t* rfull = empty + STAGES;                    // warpgroup w's residual landed
+
+  const int wgi = threadIdx.x >> 7;
+  const int nkb = (p.k + 63) / 64;
+  const int ntiles = (p.n + BN - 1) / BN, units = (p.m + BM - 1) / BM * ntiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(&rfull[0], 1);
+    mbar_init(&rfull[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // producer: one thread streams A and B, stage by stage
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int m0 = u / ntiles * BM, n0 = u % ntiles * BN;
+        const int nbox = min(NB, (p.n - n0 + 63) / 64);  // boxes wholly past n: not loaded
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+          unsigned char* st = stages + s * STAGE;
+          mbar_arrive_tx(&full[s], ABOX + nbox * BBOX);
+          tma_load_2d(st, &ta, &full[s], kb * 64, m0);
+          for (int b = 0; b < nbox; ++b)
+            tma_load_2d(st + ABOX + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
         }
       }
     }
-  };
+    return;
+  }
 
-  // 1. The x tile lands in ys (bf16) by cp.async, ahead of everything else.
-  cp_tile(ys, L.ldy, x, e, row0, 0, BM, ep, m, e);
-  if (attn != nullptr) {
-    // acc = attn . wout over BH-wide chunks, two in flight; then
-    // x1 = acc + bout + x stays in the accumulators (the residual) and goes
-    // to the staging area for the LayerNorm.
-    const int nk = (hd + BH - 1) / BH;
-    auto issue = [&](int c, int s) {
-      cp_tile(hs + s * BM * L.ldh, L.ldh, attn, hd, row0, c * BH, BM, BH, m, hd);
-      cp_tile(wout_buf(s), L.ldw2, wout, e, c * BH, 0, BH, ep, hd, e);
-    };
-    issue(0, 0);
-    cp_async_commit();
-    for (int c = 0; c < nk; ++c) {
-      if (c + 1 < nk) issue(c + 1, (c + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      acc_from(hs + (c & 1) * BM * L.ldh, wout_buf(c & 1));
-      __syncthreads();  // buffers c & 1 are free for chunk c + 2
+  // consumers: warpgroup w owns rows 64 w .. 64 w + 63 of each tile
+  reg_alloc<232>();
+  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
+            g = lane >> 2, t = lane & 3;
+  const uint2 key = p.mask != nullptr ? seed_key(p.seed) : make_uint2(0u, 0u);
+  unsigned char* rs = resid + w * NB * OBOX;
+  unsigned char* so = staging + w * OBOX;
+  float acc[BN / 2];
+  int it = 0, loads = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int m0 = u / ntiles * BM, n0 = u % ntiles * BN, r0 = m0 + 64 * w;
+    const int nbox = min(NB, (p.n - n0 + 63) / 64);
+    // this warpgroup's residual rows land by TMA under the products (the
+    // last epilogue's reads of rs precede its proxy fence and barrier)
+    const bool res = p.res != nullptr && r0 < p.m;
+    if (res && ct == 0) {
+      mbar_arrive_tx(&rfull[w], nbox * OBOX);
+      for (int b = 0; b < nbox; ++b) tma_load_2d(rs + b * OBOX, &tr, &rfull[w], n0 + 64 * b, r0);
     }
+    for (int kb = 0; kb < nkb; ++kb, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* st = stages + s * STAGE;
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < MAXNT; ++j) {
-      if (j < nt) {
-        const int col = cbase + j * 8 + 2 * t;
-        const float bias0 = col < e ? bout[col] : 0.f, bias1 = col < e ? bout[col + 1] : 0.f;
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<BN, 0, 1>(acc, desc_sw128(st + w * (64 * 128) + kk * 32, 16, 1024),
+                           desc_sw128(st + ABOX + kk * 2048, BBOX, 1024), kb > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    if (res) mbar_wait(&rfull[w], loads++ & 1);
+
+    // epilogue, one 64-column box at a time: the box's bias loads first,
+    // issued together (a store between them would order each load behind
+    // it); then the arithmetic, the f32 mask stored directly (a quad writes
+    // 32 contiguous bytes) and the bf16 output staged in shared memory for
+    // one TMA store, which clips rows past m and columns past n.  This
+    // thread holds rows 16 wr + g + 8 h of the warpgroup's 64, columns
+    // 8 j + 2 t + (0, 1) of the tile; the residual box has the output
+    // box's layout.
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const int c0 = n0 + 64 * jb;
+      if (c0 >= p.n) continue;  // the same for the whole warpgroup
+      float2 bias[8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = c0 + 8 * jj + 2 * t;  // n is a multiple of 8: col + 1 < n too
+        bias[jj] = col < p.n ? __ldg(reinterpret_cast<const float2*>(p.bias + col))
+                             : make_float2(0.f, 0.f);
+      }
+      if (ct == 0) bulk_wait_read<0>();  // the last box's store has read the staging
+      named_bar_sync(1 + w, 128);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * jb + jj, col = c0 + 8 * jj + 2 * t;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = rg + g + 8 * h;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(ys + r * L.ldy + col));
-          if constexpr (TRAIN) {
-            // x1 = x + m1 * a; the MLP then accumulates from zero
-            const int gr = row0 + r;
-            const bool ok = gr < m && col < e;
-            float a0 = acc[j][2 * h] + bias0, a1 = acc[j][2 * h + 1] + bias1;
-            if (drop) {
-              const float2 mk =
-                  dropout_pair(key, 0u, (long long)gr * e + col, tr.threshold, tr.inv_keep);
-              a0 *= mk.x;
-              a1 *= mk.y;
-              if (ok) *reinterpret_cast<float2*>(tr.m1 + (long)gr * e + col) = mk;
-            }
-            const float v0 = xv.x + a0, v1 = xv.y + a1;
-            if (ok) *reinterpret_cast<uint32_t*>(tr.x1 + (long)gr * e + col) = pack_bf16(v0, v1);
-            *reinterpret_cast<float2*>(st + r * L.ldst + col) = make_float2(v0, v1);
-            acc[j][2 * h] = acc[j][2 * h + 1] = 0.f;
-          } else {
-            acc[j][2 * h] += bias0 + xv.x;
-            acc[j][2 * h + 1] += bias1 + xv.y;
-            *reinterpret_cast<float2*>(st + r * L.ldst + col) =
-                make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+          const int rr = 16 * wr + g + 8 * h, row = r0 + rr;
+          float v0 = acc[4 * j + 2 * h] + bias[jj].x, v1 = acc[4 * j + 2 * h + 1] + bias[jj].y;
+          if (p.mask != nullptr && row < p.m && col < p.n) {
+            const long idx = (long)row * p.n + col;
+            const float2 mk = dropout_pair(key, p.mask_id, idx, p.threshold, p.inv_keep);
+            v0 *= mk.x;
+            v1 *= mk.y;
+            *reinterpret_cast<float2*>(p.mask + idx) = mk;
           }
+          if (res) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(rs + jb * OBOX + swz(rr, jj, t)));
+            v0 += r.x;
+            v1 += r.y;
+          }
+          *reinterpret_cast<uint32_t*>(so + swz(rr, jj, t)) = pack_bf16(v0, v1);
         }
       }
+      fence_proxy_async();  // the staged box, to the TMA unit
+      named_bar_sync(1 + w, 128);
+      if (ct == 0 && r0 < p.m) {
+        tma_store_2d(&to, so, c0, r0);
+        bulk_commit();
+      }
     }
-    __syncthreads();
-    // 2. LayerNorm of x1 in f32 over the real width -> bf16 y.
-    layer_norm_rows<MAXNT / 2>([&](int r, int c) { return st[r * L.ldst + c]; }, ys, L.ldy, BM,
-                               e, ep, ln_s, ln_b, eps);
-  } else {
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (residual) {  // the accumulators start from x
+  }
+  if (ct == 0) bulk_wait<0>();
+}
+
+// --- LN -> fc1 -> GELU: h = gelu(LN(a) . w1 + b1) [, z1] ----------------------
+
+namespace fc1 {
+constexpr int BN = 256;                       // output columns a tile
+constexpr int NB = BN / 64;                   // B boxes a stage
+constexpr int STAGES = 3;
+constexpr int STAGE = NB * BBOX;
+constexpr int OBOX = 64 * 64 * 2;             // a warpgroup's 64 rows of one output box
+constexpr int SMEM = 1024 + MAXKB * ABOX + STAGES * STAGE + 2 * 2 * OBOX + (2 * STAGES + 2) * 8;
+}  // namespace fc1
+
+// A block takes a 128-row tile of A whole (the resident A): the consumer
+// warpgroups normalise their 64 rows each, then walk every 256-column tile
+// of the hidden width against it while w1 streams through the ring.
+__global__ void __launch_bounds__(THREADS, 1)
+ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tz,
+                  const Params p) {
+  using namespace fc1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* as = smem;                             // box kb of A at kb ABOX
+  unsigned char* stages = as + MAXKB * ABOX;            // stage s at s STAGE
+  unsigned char* staging = stages + STAGES * STAGE;     // (warpgroup w, output o) at (2 w + o) OBOX
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 4 * OBOX);
+  uint64_t* empty = full + STAGES;
+  uint64_t* afull = empty + STAGES;                     // A landed / A free again
+  uint64_t* aempty = afull + 1;
+
+  const int wgi = threadIdx.x >> 7;
+  const int nkb = (p.k + 63) / 64;
+  const int ntiles = (p.n + BN - 1) / BN, units = (p.m + BM - 1) / BM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(afull, 1);
+    mbar_init(aempty, 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {  // w1, stage by stage, every tile of every unit in order
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        for (int nt = 0; nt < ntiles; ++nt) {
+          const int n0 = nt * BN, nbox = min(NB, (p.n - n0 + 63) / 64);
+          for (int kb = 0; kb < nkb; ++kb, ++it) {
+            const int s = it % STAGES;
+            if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+            mbar_arrive_tx(&full[s], nbox * BBOX);
+            for (int b = 0; b < nbox; ++b)
+              tma_load_2d(stages + s * STAGE + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
+          }
+        }
+    } else if (threadIdx.x == 32) {  // A, one 128-row tile at a time
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        if (i > 0) mbar_wait(aempty, (i - 1) & 1);
+        mbar_arrive_tx(afull, nkb * ABOX);
+        for (int kb = 0; kb < nkb; ++kb) tma_load_2d(as + kb * ABOX, &ta, afull, kb * 64, u * BM);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns rows 64 w .. 64 w + 63 of each tile
+  reg_alloc<232>();
+  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
+            g = lane >> 2, t = lane & 3;
+  unsigned char* sh = staging + 2 * w * OBOX;
+  unsigned char* sz = sh + OBOX;
+  float acc[BN / 2];
+  int it = 0, i = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int m0 = u * BM, r0 = m0 + 64 * w;
+    mbar_wait(afull, i & 1);
+    ln_resident(as, 64 * w, p.k, p.ln_s, p.ln_b, p.eps);
+    fence_proxy_async();           // the normalised rows, to wgmma's operand reads
+    named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
+    for (int nt = 0; nt < ntiles; ++nt) {
+      for (int kb = 0; kb < nkb; ++kb, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* a = as + kb * ABOX + w * (64 * 128);
+        const unsigned char* b = stages + s * STAGE;
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < MAXNT; ++j) {
-        if (j < nt) {
-          const int col = cbase + j * 8 + 2 * t;
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<BN, 0, 1>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                             desc_sw128(b + kk * 2048, BBOX, 1024), kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (ct == 0) {
+        mbar_arrive(&empty[(it - 1) % STAGES]);
+        if (nt == ntiles - 1) mbar_arrive(aempty);  // every product of this unit has read A
+      }
+      // epilogue, one 64-column box at a time: bias, [z1], gelu staged in
+      // shared memory, one TMA store per output (rows past m, columns past n
+      // clipped).  This thread holds rows 16 wr + g + 8 h of the warpgroup's
+      // 64, columns 8 j + 2 t + (0, 1) of the tile.
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) {
+        const int c0 = nt * BN + 64 * jb;
+        if (c0 >= p.n) continue;  // the same for the whole warpgroup
+        float2 bias[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = c0 + 8 * jj + 2 * t;  // n is a multiple of 8: col + 1 < n too
+          bias[jj] = col < p.n ? __ldg(reinterpret_cast<const float2*>(p.bias + col))
+                               : make_float2(0.f, 0.f);
+        }
+        if (ct == 0) bulk_wait_read<0>();  // the last box's stores have read the staging
+        named_bar_sync(1 + w, 128);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * jb + jj;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                ys + (rg + g + 8 * h) * L.ldy + col));
-            acc[j][2 * h] = xv.x;
-            acc[j][2 * h + 1] = xv.y;
+            const int rr = 16 * wr + g + 8 * h;
+            const float v0 = acc[4 * j + 2 * h] + bias[jj].x;
+            const float v1 = acc[4 * j + 2 * h + 1] + bias[jj].y;
+            if (p.z1 != nullptr)
+              *reinterpret_cast<uint32_t*>(sz + swz(rr, jj, t)) = pack_bf16(v0, v1);
+            *reinterpret_cast<uint32_t*>(sh + swz(rr, jj, t)) = pack_bf16(gelu(v0), gelu(v1));
           }
         }
-      }
-      __syncthreads();  // x is read before the LayerNorm overwrites it
-    }
-    // 2. LayerNorm of x in f32 over the real width, in place -> bf16 y.
-    layer_norm_rows<MAXNT / 2>(
-        [&](int r, int c) { return __bfloat162float(ys[r * L.ldy + c]); }, ys, L.ldy, BM, e, ep,
-        ln_s, ln_b, eps);
-  }
-  __syncthreads();  // y is complete and the staging area (the w1 buffers) is free
-
-  // 3. acc += gelu(y . w1[:, c] + b1[c]) . w2[c, :] over BH-column chunks c,
-  //    two block barriers a chunk.  After the first, every warp is done with
-  //    chunk c - 1, so w2s, hs and the other w1 buffer may be refilled: w2
-  //    chunk c loads during fc1 of chunk c, w1 chunk c + 1 during all of it.
-  const int hcol = (warp >> 2) * 32;  // this warp's 32 columns of the chunk
-  const int nch = (hidden + BH - 1) / BH;
-  cp_tile(w1_buf(0), L.ldw1, w1, hidden, 0, 0, ep, BH, e, hidden);
-  cp_async_commit();
-  for (int c = 0; c < nch; ++c) {
-    cp_async_wait<0>();  // w1 chunk c has landed
-    __syncthreads();
-    cp_tile(w2s, L.ldw2, w2, e, c * BH, 0, BH, ep, hidden, e);
-    cp_async_commit();
-    if (c + 1 < nch)
-      cp_tile(w1_buf((c + 1) & 1), L.ldw1, w1, hidden, 0, (c + 1) * BH, ep, BH, e, hidden);
-    cp_async_commit();
-    float hacc[4][4] = {};
-    const bf16* w1s = w1_buf(c & 1);
-#pragma unroll 2
-    for (int kk = 0; kk < ep / 16; ++kk) {
-      uint32_t a[4], b[4], b2v[4];
-      load_a(a, ys, L.ldy, rg, kk * 16);
-      load_b_kn(b, w1s, L.ldw1, kk * 16, hcol);
-      load_b_kn(b2v, w1s, L.ldw1, kk * 16, hcol + 16);
-      mma16816(hacc[0], a, b[0], b[1]);
-      mma16816(hacc[1], a, b[2], b[3]);
-      mma16816(hacc[2], a, b2v[0], b2v[1]);
-      mma16816(hacc[3], a, b2v[2], b2v[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = hcol + j * 8 + 2 * t, gc = c * BH + col;
-      const float bias0 = gc < hidden ? b1[gc] : 0.f;
-      const float bias1 = gc + 1 < hidden ? b1[gc + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if constexpr (TRAIN) {  // the fc1 pre-activation z1, a saved residual
-          const int gr = row0 + rg + g + 8 * h;
-          if (gr < m && gc < hidden)
-            *reinterpret_cast<uint32_t*>(tr.z1 + (long)gr * hidden + gc) =
-                pack_bf16(hacc[j][2 * h] + bias0, hacc[j][2 * h + 1] + bias1);
-        }
-        const float v0 = gc < hidden ? gelu(hacc[j][2 * h] + bias0) : 0.f;
-        const float v1 = gc + 1 < hidden ? gelu(hacc[j][2 * h + 1] + bias1) : 0.f;
-        *reinterpret_cast<uint32_t*>(hs + (rg + g + 8 * h) * L.ldh + col) = pack_bf16(v0, v1);
-      }
-    }
-    cp_async_wait<1>();  // w2 chunk c has landed
-    __syncthreads();     // and the whole 64 x BH activation chunk is in hs
-    acc_from(hs, w2s);
-  }
-
-  // 4. out = acc + b2.
-#pragma unroll
-  for (int j = 0; j < MAXNT; ++j) {
-    if (j < nt) {
-      const int col = cbase + j * 8 + 2 * t;
-      if (col < e) {
-        const float bias0 = b2[col], bias1 = b2[col + 1];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int gr = row0 + rg + g + 8 * h;
-          if (gr >= m) continue;
-          if constexpr (TRAIN) {  // out = x1 + m2 * (mlp + b2)
-            float o0 = acc[j][2 * h] + bias0, o1 = acc[j][2 * h + 1] + bias1;
-            if (drop) {
-              const float2 mk =
-                  dropout_pair(key, 1u, (long long)gr * e + col, tr.threshold, tr.inv_keep);
-              o0 *= mk.x;
-              o1 *= mk.y;
-              *reinterpret_cast<float2*>(tr.m2 + (long)gr * e + col) = mk;
-            }
-            const float2 xv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(tr.x1 + (long)gr * e + col));
-            *reinterpret_cast<uint32_t*>(out + (long)gr * e + col) =
-                pack_bf16(xv.x + o0, xv.y + o1);
-          } else {
-            *reinterpret_cast<uint32_t*>(out + (long)gr * e + col) =
-                pack_bf16(acc[j][2 * h] + bias0, acc[j][2 * h + 1] + bias1);
-          }
+        fence_proxy_async();  // the staged boxes, to the TMA unit
+        named_bar_sync(1 + w, 128);
+        if (ct == 0 && r0 < p.m) {
+          tma_store_2d(&th, sh, c0, r0);
+          if (p.z1 != nullptr) tma_store_2d(&tz, sz, c0, r0);
+          bulk_commit();
         }
       }
     }
   }
+  if (ct == 0) bulk_wait<0>();
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// The bf16 tensor map of a row-major (rows, cols) matrix, box 64 columns x
+// box_rows rows, 128-byte swizzle.
+int tmap(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {64, (uint32_t)box_rows};
+  return make_tmap_bf16(map, base, 2, dims, strides, box);
 }
 
 }  // namespace
 
-// x: (m, e) bf16.  w1: (e, hidden), w2: (hidden, e) bf16.  ln_s, ln_b, b2: (e,)
-// and b1: (hidden,) f32.  out: (m, e) bf16.  With attn != NULL the prologue
-// runs: attn (m, hd) bf16, wout (hd, e) bf16, bout (e,) f32, and the residual
-// is x1.  bf16 bases 16-byte aligned; e, hidden, hd multiples of 8; e <= 384.
-extern "C" int ln_mlp_fwd(const void* x, const void* attn, const void* wout, const void* bout,
-                          const void* ln_s, const void* ln_b, const void* w1, const void* b1,
-                          const void* w2, const void* b2, void* out, int m, int e, int hd,
-                          int hidden, float eps, int residual, void* stream) {
-  const int ep = ceil_to(e, 32);
-  if (ep / 16 > MAXNT || e % 8 || hidden % 8 || hd % 8) return (int)cudaErrorInvalidValue;
-  const MlpSmem L(ep);
-  cudaFuncSetAttribute(ln_mlp_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)L.bytes);
-  ln_mlp_fwd_kernel<false><<<(m + BM - 1) / BM, NWARP * 32, L.bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(attn),
-      static_cast<const bf16*>(wout), static_cast<const float*>(bout),
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), m,
-      e, ep, hd, hidden, eps, residual, TrainArgs{});
+// h (m, hidden) bf16 = gelu(LN(a) . w1 + b1) and, when z1 != NULL, z1 (m,
+// hidden) bf16 = LN(a) . w1 + b1.  a: (m, e) bf16; w1: (e, hidden) bf16;
+// ln_s, ln_b: (e,) and b1: (hidden,) f32.  Bases 16-byte aligned; e, hidden
+// multiples of 8; e <= 384.
+extern "C" int ln_mlp_fc1(const void* a, const void* ln_s, const void* ln_b, const void* w1,
+                          const void* b1, void* h, void* z1, int m, int e, int hidden, float eps,
+                          void* stream) {
+  if (m < 0 || e < 8 || e > 64 * MAXKB || e % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, th, tz;
+  int err = tmap(&ta, a, m, e, BM);
+  if (!err) err = tmap(&tb, w1, e, hidden, 64);
+  if (!err) err = tmap(&th, h, m, hidden, 64);
+  if (!err) err = tmap(&tz, z1 != nullptr ? z1 : h, m, hidden, 64);
+  if (err) return err;
+  Params p{};
+  p.m = m, p.k = e, p.n = hidden;
+  p.bias = static_cast<const float*>(b1);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.eps = eps;
+  p.z1 = static_cast<const bf16*>(z1);
+  const int units = (m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(ln_mlp_fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       fc1::SMEM);
+  ln_mlp_fc1_kernel<<<grid, THREADS, fc1::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, th, tz, p);
   return (int)cudaGetLastError();
 }
 
-// The training form: as ln_mlp_fwd with the prologue (attn, wout, bout are
-// required), plus seed (one int64 on the card), x1 (m, e) bf16, z1 (m, hidden)
-// bf16 and, with dropout, m1 and m2 (m, e) f32 (m1 == NULL: no dropout, m2
-// unused).  threshold = min(rate * 2^32, 2^32 - 1); inv_keep = 1 / (1 - rate).
-extern "C" int ln_mlp_train_fwd(const void* x, const void* attn, const void* wout,
-                                const void* bout, const void* ln_s, const void* ln_b,
-                                const void* w1, const void* b1, const void* w2, const void* b2,
-                                const void* seed, void* out, void* m1, void* m2, void* x1,
-                                void* z1, int m, int e, int hd, int hidden, float eps,
-                                unsigned int threshold, float inv_keep, void* stream) {
-  const int ep = ceil_to(e, 32);
-  if (ep / 16 > MAXNT || e % 8 || hidden % 8 || hd % 8 || attn == nullptr || x1 == nullptr ||
-      z1 == nullptr || (m1 != nullptr && (m2 == nullptr || seed == nullptr)))
+// out (m, n) bf16 = [res +] [mask *] (a . w + bias).  a: (m, k) bf16; w: (k,
+// n) bf16; bias: (n,) f32; res: (m, n) bf16 or NULL.  With mask != NULL the
+// f32 multiply-mask of Philox stream mask_id is drawn from the int64 at seed
+// (element row * n + col: inv_keep where its bits are >= threshold, else 0),
+// applied and written to mask (m, n).  Bases 16-byte aligned; k, n multiples
+// of 8.
+extern "C" int ln_mlp_linear(const void* a, const void* w, const void* bias, const void* res,
+                             const void* seed, void* out, void* mask, int m, int k, int n,
+                             int mask_id, unsigned int threshold, float inv_keep, void* stream) {
+  if (m < 0 || k < 8 || k % 8 || n < 8 || n % 8 || (mask != nullptr && seed == nullptr))
     return (int)cudaErrorInvalidValue;
-  const MlpSmem L(ep);
-  cudaFuncSetAttribute(ln_mlp_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)L.bytes);
-  const TrainArgs tr{static_cast<const long long*>(seed), static_cast<float*>(m1),
-                     static_cast<float*>(m2), static_cast<bf16*>(x1), static_cast<bf16*>(z1),
-                     threshold, inv_keep};
-  ln_mlp_fwd_kernel<true><<<(m + BM - 1) / BM, NWARP * 32, L.bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(attn),
-      static_cast<const bf16*>(wout), static_cast<const float*>(bout),
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), m,
-      e, ep, hd, hidden, eps, 1, tr);
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, to, tr;
+  int err = tmap(&ta, a, m, k, BM);
+  if (!err) err = tmap(&tb, w, k, n, 64);
+  if (!err) err = tmap(&to, out, m, n, 64);
+  if (!err) err = tmap(&tr, res != nullptr ? res : out, m, n, 64);
+  if (err) return err;
+  Params p{};
+  p.m = m, p.k = k, p.n = n;
+  p.bias = static_cast<const float*>(bias);
+  p.res = static_cast<const bf16*>(res);
+  p.mask = static_cast<float*>(mask);
+  p.seed = static_cast<const long long*>(seed);
+  p.mask_id = (uint32_t)mask_id;
+  p.threshold = threshold;
+  p.inv_keep = inv_keep;
+  const int units = (m + BM - 1) / BM * ((n + lin::BN - 1) / lin::BN);
+  const int grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(ln_mlp_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       lin::SMEM);
+  ln_mlp_linear_kernel<<<grid, THREADS, lin::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, to, tr, p);
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,10 @@ the chip anyway:
    the (3, B, H, N, Dh) layout;
 2. csrc/flash_attn_fwd.cu: per-head softmax(q.k^T/sqrt(Dh)).v, written in
    the (B, N, H*Dh) layout, with its LSE;
-3. csrc/ln_mlp_fwd.cu with its prologue: x1 = x + attn.wout + bout kept on
-   chip in f32, then LN2 -> fc1 -> GELU -> fc2 -> + x1.  Its training form
-   (entry ln_mlp_train_fwd) draws the dropout masks in the kernel from
-   Philox4x32-10 and writes the saved residuals x1 and z1 besides.
+3. csrc/ln_mlp_fwd.cu as three wgmma GEMM stages: x1 = x + attn.wout + bout
+   (in bf16), then LN2 -> fc1 -> GELU, then fc2 -> + x1.  Its training form
+   (:func:`ln_mlp_train_forward`) draws the dropout masks in the stages'
+   epilogues from Philox4x32-10 and keeps x1 and z1 as saved residuals.
 
 The saved-residual backward (`fused_encoder_block_bwd`, the TPU's single
 `_bwd_kernel`) becomes csrc/megablock_bwd_mlp.cu (MLP half, out-projection,
@@ -46,7 +46,8 @@ from vitgan_tpu_torch.ops.attention import (attention_forward_reference, attenti
 from vitgan_tpu_torch.ops.fused_mlp import _reference as mlp_reference
 from vitgan_tpu_torch.ops.fused_mlp import _tf32_products
 from vitgan_tpu_torch.ops.fused_mlp import kernel_fits as mlp_kernel_fits
-from vitgan_tpu_torch.ops.fused_mlp import ln_mlp_forward
+from vitgan_tpu_torch.ops.fused_mlp import (linear_stage, linear_stage_reference, ln_fc1_stage,
+                                            ln_fc1_stage_reference, ln_mlp_forward, threshold)
 from vitgan_tpu_torch.ops.policy import megablock_bwd_mode, megablock_mode, on_cuda, same_device
 from vitgan_tpu_torch.ops.wgrad import sum_partials, wgrad
 
@@ -167,17 +168,12 @@ def dropout_bits(seed, mask_id: int, count: int):
     return torch.stack(words, -1).reshape(-1)[:count]
 
 
-def _threshold(rate: float) -> int:
-    """The TPU kernel's rule (fused_block.py:115): keep where bits >= this."""
-    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
-
-
 def dropout_mask(seed, mask_id: int, shape, rate: float):
     """The f32 multiply-mask the kernels draw: 1 / (1 - rate) where the bits
-    are >= :func:`_threshold`, else 0."""
+    are >= fused_mlp.threshold, else 0."""
     bits = dropout_bits(seed, mask_id, math.prod(shape))
     keep = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=seed.device)
-    return torch.where(bits >= _threshold(rate), keep, torch.zeros_like(keep)).reshape(shape)
+    return torch.where(bits >= threshold(rate), keep, torch.zeros_like(keep)).reshape(shape)
 
 
 def new_seed(generator: torch.Generator, x: torch.Tensor):
@@ -215,10 +211,24 @@ def _proj_ln_mlp_train_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2
     return (x1 + mlp).to(x.dtype), m1, m2, x1.to(x.dtype), z1.to(x.dtype)
 
 
+def _proj_ln_mlp_train_stages_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2,
+                                        seed, rate: float, eps: float = 1e-5):
+    """The training form composed from the stage plain versions (fused_mlp),
+    with the kernels' bf16 roundings of x1 and h: (out, m1, m2, x1, z1) as
+    :func:`_proj_ln_mlp_train_reference`."""
+    m1 = dropout_mask(seed, 0, x.shape, rate) if rate > 0.0 else None
+    x1 = linear_stage_reference(attn, wout, bout, x, m1)
+    h, z1 = ln_fc1_stage_reference(x1, ln_s, ln_b, w1, b1, eps)
+    m2 = dropout_mask(seed, 1, x1.shape, rate) if rate > 0.0 else None
+    return linear_stage_reference(h, w2, b2, x1, m2), m1, m2, x1, z1
+
+
 def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, rate: float,
                          eps: float = 1e-5):
-    """Launch ln_mlp_fwd.cu's training form on bf16 CUDA rows x (M, E), attn
-    (M, H*Dh); returns (out, m1, m2, x1, z1) as the plain version."""
+    """Run ln_mlp_fwd.cu's training form on bf16 CUDA rows x (M, E), attn
+    (M, H*Dh): three launches (out-projection, LN2 -> fc1 -> GELU, fc2),
+    counted as one call of "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1)
+    as the plain version."""
     if not (x.is_cuda and attn.is_cuda):
         raise ValueError("ln_mlp_train_forward launches a CUDA kernel: x must be a CUDA tensor")
     if x.dtype != torch.bfloat16 or attn.dtype != torch.bfloat16:
@@ -233,27 +243,9 @@ def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, 
     if w1.shape != (e, hidden) or w2.shape != (hidden, e) or wout.shape != (hd, e):
         raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} / wout "
                          f"{tuple(wout.shape)} do not fit E={e}, H*Dh={hd}")
-    dev = x.device
-    bf = lambda t: build.aligned16(t.to(device=dev, dtype=torch.bfloat16).contiguous())  # noqa: E731
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
-    x2, attn2 = bf(x), bf(attn)
-    out, x1 = torch.empty_like(x2), torch.empty_like(x2)
-    z1 = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
-    m1 = m2 = None
-    if rate > 0.0:
-        if seed is None or seed.device != dev or seed.dtype != torch.int64:
-            raise ValueError("dropout needs a one-element int64 seed on the activations' device")
-        m1 = torch.empty((m, e), dtype=torch.float32, device=dev)
-        m2 = torch.empty_like(m1)
-    # every operand bound to a name until the launch: a temporary freed
-    # earlier could hand its memory to the next one
-    ops = [bf(wout), f32(bout), f32(ln_s), f32(ln_b), bf(w1), f32(b1), bf(w2), f32(b2)]
-    fn = build.entry("ln_mlp_train_fwd")
-    build.check(fn, fn(build.ptr(x2), build.ptr(attn2), *map(build.ptr, ops),
-                       build.ptr(seed if rate > 0.0 else None), build.ptr(out), build.ptr(m1),
-                       build.ptr(m2), build.ptr(x1), build.ptr(z1), m, e, hd, hidden,
-                       float(eps), _threshold(rate), float(1.0 / (1.0 - rate)),
-                       build.stream_ptr(dev)))
+    x1, m1 = linear_stage(attn, wout, bout, x, seed, rate, 0)
+    h, z1 = ln_fc1_stage(x1, ln_s, ln_b, w1, b1, eps, want_z1=True)
+    out, m2 = linear_stage(h, w2, b2, x1, seed, rate, 1)
     build.LAUNCHES["ln_mlp_train_fwd"] += 1
     return out, m1, m2, x1, z1
 

@@ -1,7 +1,7 @@
 """Weight gradients of the megablock backward: dW = A^T . B and db = the
 column sums of B over all rows.  The CUDA kernel (csrc/wgrad_gemm.cu), its
 plain version, the planning of its row splits, and the second-pass sum of
-per-tile partials (the kernel's `sum_partials` entry).
+per-tile partials (the kernel's `sum_partials` entry) with its order model.
 
 Counterpart of the parameter-gradient sums of `_bwd_kernel` in
 vitgan_tpu/ops/fused_block.py, which accumulate down the TPU's sequential
@@ -118,15 +118,40 @@ def wgrad(a, b):
     return wgrad_gemm(a, b)
 
 
+# The kernel's interleaved lanes per column (csrc/wgrad_gemm.cu SP_LANES).
+SUM_LANES = 128
+
+
+def sum_partials_reference(part):
+    """(S, C) f32 -> (C,) f32 in the kernel's order, by elementwise adds of
+    rows (never ``torch.sum``, which picks its own order): lane l sums rows
+    l, l + SUM_LANES, ... in increasing order from 0, then a pairwise tree
+    adds lane l + stride into lane l for stride = SUM_LANES / 2, ..., 1.
+    IEEE f32 adds in one order give the same bits on any device, so on the
+    card the kernel is held bit-equal to this."""
+    lanes = torch.zeros((SUM_LANES, part.shape[1]), dtype=torch.float32, device=part.device)
+    for i in range(0, part.shape[0], SUM_LANES):
+        rows = part[i:i + SUM_LANES].float()
+        lanes[:rows.shape[0]] = lanes[:rows.shape[0]] + rows
+    stride = SUM_LANES // 2
+    while stride:
+        lanes[:stride] = lanes[:stride] + lanes[stride:2 * stride]
+        stride //= 2
+    return lanes[0].clone()
+
+
 def sum_partials(part):
-    """(S, C) f32 partials -> (C,) f32 sums over S in order: the kernel for a
-    CUDA tensor, ``part.sum(0)`` for a CPU one."""
+    """(S, C) f32 partials -> (C,) f32 sums over S in the order of
+    :func:`sum_partials_reference`: the kernel for a CUDA tensor (C a
+    multiple of 4), ``part.sum(0)`` for a CPU one."""
     if part.device.type == "cpu":
         return part.sum(0)
-    if part.dtype != torch.float32 or part.dim() != 2:
-        raise ValueError(f"sum_partials takes a 2-D f32 tensor, got {part.dtype} "
-                         f"{tuple(part.shape)}")
-    part = part.contiguous()
+    if not part.is_cuda:
+        raise ValueError("sum_partials launches a CUDA kernel: part must be a CUDA tensor")
+    if part.dtype != torch.float32 or part.dim() != 2 or part.shape[1] % 4:
+        raise ValueError(f"sum_partials takes a 2-D f32 tensor of a multiple of 4 columns, got "
+                         f"{part.dtype} {tuple(part.shape)}")
+    part = build.aligned16(part.contiguous())
     out = torch.empty((part.shape[1],), dtype=torch.float32, device=part.device)
     fn = build.entry("sum_partials")
     build.check(fn, fn(build.ptr(part), build.ptr(out), part.shape[0], part.shape[1],
