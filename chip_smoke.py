@@ -10,7 +10,8 @@
    (C7xxx) with its kernel, recorded in the kernels' entries; where the
    toolkit has cuobjdump, counts the wgmma (HGMMA) and TMA (UTMALDG)
    instructions of the sources redesigned for Hopper (wgrad_gemm, the flash
-   forward, the k-block backward and the q-block dq) and fails on none.
+   forward, the k-block backward, the q-block dq and the LN->MLP forward)
+   and fails on none.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
@@ -44,10 +45,17 @@
    (dropout masks bit-equal to the plain Philox's; out, x1, z1 by
    KERNEL_RTOL), megablock_bwd_mlp, megablock_bwd_ln1, wgrad_gemm (beside
    torch.matmul of the same A^T.B; two calls bit-equal) and sum_partials
-   (each output within KERNEL_RTOL * its own max|plain|; its device time
-   and part.sum(0)'s by the profiler), then one block's whole saved-residual
+   (each output within KERNEL_RTOL * its own max|plain|; sum_partials
+   bit-equal to its order model and across two calls, its device time and
+   part.sum(0)'s by the profiler), then one block's whole saved-residual
    backward against autograd of the plain masked block in f32: dx and each
    of the 12 parameter gradients within MB_GRAD_RTOL * its own max|plain|.
+   Then the LN->MLP forward stage by stage at the serving, G's, D's and a
+   ragged shape: its two stage kernels against their stage plain versions
+   (the linear stage as the out-projection and as fc2, with bit-equal
+   masks, and LN -> fc1 -> GELU with z1), the three forms against their
+   whole plain versions and bit-equal across two calls, and at each form's
+   main shape torch.matmul of the same products ("products only").
 9. Under the default runtime.megablock=auto a highres128 training block at
    1,024 and 1,025 tokens takes encoder_block_fused_dropout_saved (the JAX
    package's gate); with megablock_bwd=recompute or megablock=off the
@@ -293,9 +301,10 @@ def _ptxas_warnings(log: str) -> list:
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
                   "flash_attn_bwd_dq", "ln_mlp_fwd")
-# The CUDA symbols of the LN->MLP forms' kernels (the parent's single kernel
-# and the stage kernels both hold this).
-LN_MLP_SYMBOLS = ("ln_mlp",)
+# The part of the CUDA symbol of every kernel of ln_mlp_fwd.cu (this tree's
+# ln_mlp_fc1_kernel and ln_mlp_linear_kernel, and the single kernel of a
+# parent scripts/kernel_ab.py measures).
+LN_MLP_SYMBOL = "ln_mlp"
 # Two calls of a kernel whose results must be bit-equal: chip_smoke.py raises
 # when they are not; scripts/kernel_ab.py sets this False to record how far
 # apart they are on a tree whose kernel is not bit-deterministic.
@@ -424,7 +433,7 @@ def check_kernels(only: tuple = ()) -> dict:
                 rec["out_bnhd_max_abs_err"] = bnhd_err
                 _with_device_ms(rec, kern, 20, name)
             if name in ("ln_mlp_fwd", "proj_ln_mlp_fwd"):
-                rec["device_ms"] = _device_ms(kern, 20, LN_MLP_SYMBOLS)[0]
+                rec["device_ms"] = _device_ms(kern, 20, (LN_MLP_SYMBOL,))[0]
             print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
                   f"library {rec['library_ms']}, bound {bound_ms:.4f} ms by {bound_by})")
             out[name] = rec
@@ -821,7 +830,7 @@ def check_megablock_kernels() -> dict:
                    + m * hidden * 2 + 2 * m * e * 4))
         recs["ln_mlp_train_fwd"]["max_abs_err"] = err
         recs["ln_mlp_train_fwd"]["device_ms"] = _device_ms(
-            lambda: FB.ln_mlp_train_forward(*fwd_args), 10, LN_MLP_SYMBOLS)[0]
+            lambda: FB.ln_mlp_train_forward(*fwd_args), 10, (LN_MLP_SYMBOL,))[0]
         _, m1, m2, x1, z1 = got
         del got, want
 
@@ -1279,15 +1288,13 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("wgrad_gemm", "weight-gradient products"),
                 ("wgrad_reduce", "weight-gradient products"),
                 ("sum_partials", "second-pass sums"))
-# ln_mlp_fwd.cu's two stage kernels (ln_mlp_fc1_kernel: LN -> fc1 -> GELU;
-# ln_mlp_linear_kernel: the linear stage) serve all three LN->MLP forms; a
-# train step runs one form, which its route names.
-LN_MLP_SYMBOL = "ln_mlp_"
+# ln_mlp_fwd.cu's two stage kernels serve all three LN->MLP forms; a train
+# step runs one form, which its route names.
 LN_MLP_GROUP = {"auto": "megablock training forward (ln_mlp_train_fwd)",
                 "off": "LN->MLP forward"}
 
 
-def _kernel_group(name: str, route: str = "off") -> str:
+def _kernel_group(name: str, route: str) -> str:
     if LN_MLP_SYMBOL in name:
         return LN_MLP_GROUP[route]
     for key, label in PORT_KERNELS:

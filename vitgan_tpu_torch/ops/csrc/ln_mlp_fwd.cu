@@ -48,8 +48,8 @@
 // Epilogues go one 64-column box at a time: the box's bias loads issued
 // together, the f32 masks stored directly (a quad writes a whole 32-byte
 // sector), the bf16 outputs staged in shared memory and written by TMA
-// stores (4-byte stores straight from the accumulators wrote half sectors
-// and ran at 0.8 TB/s).  TMA zero-fills rows past M and columns past K
+// stores (4-byte stores straight from the accumulators write half
+// sectors).  TMA zero-fills rows past M and columns past K
 // (zeros into the products) and past N; its stores clip rows past M and
 // columns past N; B boxes wholly past N are not loaded.  The products run
 // at cuBLAS's pace (scripts/ln_mlp_probe.py); the epilogues, GELU's erf
@@ -72,6 +72,11 @@
 // bound it; the training form at G's 32,768 rows also writes z1, x1 and two
 // f32 masks: 0.091 ms by its bytes.  E, hidden and H*Dh multiples of 8
 // (TMA's 16-byte strides); E <= 384 (fc1's resident A).
+//
+// ptxas -v (sm_90a, CUDA 12.9): both kernels launch at 168 registers a thread
+// (the producer warpgroup drops to 40, the consumers take 232 by
+// setmaxnreg), no spills and no performance warning; dynamic shared memory
+// 230,464 bytes (fc1) and 230,480 (linear): one block an SM.
 #include "hopper.cuh"
 
 using namespace vk;
