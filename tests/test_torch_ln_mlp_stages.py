@@ -14,7 +14,7 @@ max|whole|), the limit chip_smoke.py holds the forward kernels to.  The
 stages round x1 and h to bf16 (2**-9 relative each) where the whole forms
 keep f32, and both sides round their outputs to bf16, so two outputs of
 magnitude up to 4 may differ by two bf16 units in the last place (2**-6
-relative); the largest gap measured at these shapes is 0.39 of the limit.
+relative).
 """
 
 import jax
