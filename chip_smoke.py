@@ -353,7 +353,8 @@ def _sass_counts(build) -> dict:
 def check_kernels(only: tuple = ()) -> dict:
     """Kernel vs plain version at the serving shapes (timed), the ragged shape
     and one long sequence; the flash forward also with out_bnhd, writing O
-    in the (B, N, H*D) layout at the serving shape.  ``only``: the names to
+    in the (B, N, H*D) layout at the serving shape; the two LN->MLP forms
+    also bit-equal across two calls.  ``only``: the names to
     check (default every one).  Returns {name: record} for the JSON line."""
     import torch
     import torch.nn.functional as F
@@ -409,8 +410,11 @@ def check_kernels(only: tuple = ()) -> dict:
         calls = {k_: v_ for k_, v_ in calls.items() if not only or k_ in only}
         for name, (kern, plain, library, (bound_ms, bound_by), residual) in calls.items():
             err = _err(kern(), plain(), f"{name} {label}", residual)
+            repeat = _repeat(kern, f"{name} {label}") if name in LN_MLP_STAGES else None
             if label == "ragged":
                 out[name]["ragged_max_abs_err"] = err
+                if repeat is not None:
+                    out[name]["ragged_repeat_max_abs_diff"] = repeat
                 continue
             if name == "flash_attn_fwd":  # the LSE the backward will read
                 s = torch.einsum("bhnd,bhmd->bhnm", c["q"].float(), c["k"].float()) / math.sqrt(dh)
@@ -432,8 +436,9 @@ def check_kernels(only: tuple = ()) -> dict:
             if name == "flash_attn_fwd":
                 rec["out_bnhd_max_abs_err"] = bnhd_err
                 _with_device_ms(rec, kern, 20, name)
-            if name in ("ln_mlp_fwd", "proj_ln_mlp_fwd"):
+            if name in LN_MLP_STAGES:
                 rec["device_ms"] = _device_ms(kern, 20, (LN_MLP_SYMBOL,))[0]
+                rec["repeat_max_abs_diff"] = repeat
             print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
                   f"library {rec['library_ms']}, bound {bound_ms:.4f} ms by {bound_by})")
             out[name] = rec
@@ -561,8 +566,8 @@ def serve_main_path(run_dir: str) -> tuple:
             raise AssertionError("/metrics does not report the device calls")
         print(f"[serve] /healthz {info}")
         print(f"[serve] launches over {calls} device calls: {launches}")
-        _check_launches(launches, ("ln_qkv_fwd", "flash_attn_fwd", "proj_ln_mlp_fwd"),
-                        m.depth * calls)
+        _check_launches(launches, {"ln_qkv_fwd": 1, "flash_attn_fwd": 1, "proj_ln_mlp_fwd": 1,
+                                   **LN_MLP_STAGES["proj_ln_mlp_fwd"]}, m.depth * calls)
         return httpd, launches, arr
     except BaseException:
         httpd.shutdown()
@@ -570,10 +575,11 @@ def serve_main_path(run_dir: str) -> tuple:
         raise
 
 
-def _check_launches(launches: dict, route: tuple, expected: int) -> None:
-    """The route's kernels launched ``expected`` times each, no other kernel."""
+def _check_launches(launches: dict, route: dict, blocks: int) -> None:
+    """Each kernel of the route launched its count a block (``route``) times
+    ``blocks``, no other kernel."""
     for name, n in launches.items():
-        want = expected if name in route else 0
+        want = route.get(name, 0) * blocks
         if n != want:
             raise AssertionError(f"{name}: {n} launches, expected {want}")
 
@@ -622,7 +628,8 @@ def serve_megablock_off(run_dir: str, off_dir: str, reference) -> dict:
     if not (d.max() <= IMAGE_MAX_TOL and d.mean() <= IMAGE_MEAN_TOL):
         raise AssertionError("megablock=off route disagrees with the megablock route")
     print(f"[serve off] launches over {calls} device call: {launches}")
-    _check_launches(launches, ("flash_attn_fwd", "ln_mlp_fwd"), cfg.v2.depth * calls)
+    _check_launches(launches, {"flash_attn_fwd": 1, "ln_mlp_fwd": 1, **LN_MLP_STAGES["ln_mlp_fwd"]},
+                    cfg.v2.depth * calls)
     return launches
 
 
@@ -776,7 +783,8 @@ def _mb_case(b, n, e, heads, hidden, gen):
 def check_megablock_kernels() -> dict:
     """The megablock's training kernels against their plain versions at G's,
     D's and a ragged shape: the training form of ln_mlp_fwd (masks bit-equal
-    to the plain Philox's, outputs and residuals by KERNEL_RTOL), the two
+    to the plain Philox's, outputs and residuals by KERNEL_RTOL, bit-equal
+    across two calls), the two
     backward row kernels and wgrad_gemm (each output within KERNEL_RTOL *
     its own max|plain|), sum_partials, then the whole saved-residual
     backward against autograd of the plain masked block (MB_GRAD_RTOL).
@@ -829,6 +837,8 @@ def check_megablock_kernels() -> dict:
                    m * (e + hd) * 2 + (hd * e + 2 * e * hidden) * 2 + 2 * m * e * 2
                    + m * hidden * 2 + 2 * m * e * 4))
         recs["ln_mlp_train_fwd"]["max_abs_err"] = err
+        recs["ln_mlp_train_fwd"]["repeat_max_abs_diff"] = _repeat(
+            lambda: FB.ln_mlp_train_forward(*fwd_args), f"ln_mlp_train_fwd {label}")
         recs["ln_mlp_train_fwd"]["device_ms"] = _device_ms(
             lambda: FB.ln_mlp_train_forward(*fwd_args), 10, (LN_MLP_SYMBOL,))[0]
         _, m1, m2, x1, z1 = got
@@ -968,28 +978,46 @@ def check_megablock_kernels() -> dict:
             else:
                 out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
                 out[name][f"{label}_ms"] = r["ms"]
+                if "repeat_max_abs_diff" in r:
+                    out[name][f"{label}_repeat_max_abs_diff"] = r["repeat_max_abs_diff"]
     return out, whole
 
 
-# The LN->MLP forms' shapes (rows, E, hidden, H*Dh): the serving call's, G's
+# The LN->MLP stage shapes (rows, E, hidden, H*Dh): the serving call's, G's
 # and D's training blocks at highres128, and a ragged deit64-width one.  The
 # main shape of each form (its kernel-table row): the serving shape for the
 # plain LN->MLP and the serving form, G's for the training form.
 LN_MLP_SHAPES = (("serving", (64 * 1024, 384, 1536, 384)), ("G", (32 * 1024, 384, 1536, 384)),
                  ("D", (64 * 1025, 384, 1536, 384)), ("ragged", (2 * 257, 192, 768, 192)))
 LN_MLP_MAIN = {"ln_mlp_fwd": "serving", "proj_ln_mlp_fwd": "serving", "ln_mlp_train_fwd": "G"}
-# Kernel launches of one wrapper call of each form (its stages).
-LN_MLP_STAGE_LAUNCHES = {"ln_mlp_fwd": 2, "proj_ln_mlp_fwd": 3, "ln_mlp_train_fwd": 3}
+# The stage kernels that one call of each LN->MLP form launches, held against
+# the counts of every path that runs the form.
+LN_MLP_STAGES = {"ln_mlp_fwd": {"ln_mlp_fc1": 1, "ln_mlp_linear": 1},
+                 "proj_ln_mlp_fwd": {"ln_mlp_fc1": 1, "ln_mlp_linear": 2},
+                 "ln_mlp_train_fwd": {"ln_mlp_fc1": 1, "ln_mlp_linear": 2}}
+
+
+def _ln_mlp_launches(launches: dict, form: str) -> dict:
+    """The stage kernels' launches on a path whose only LN->MLP form is
+    ``form``: {"launches": their sum, "calls": the form's calls,
+    "launches_per_call", "stage_launches": {stage: n}}."""
+    others = [f for f in LN_MLP_STAGES if f != form and launches[f]]
+    stages = {k: launches[k] for k in LN_MLP_STAGES[form]}
+    if others or not launches[form] or not all(stages.values()):
+        raise AssertionError(f"{form}: the path ran {launches[form]} calls, other forms "
+                             f"{others}, stage launches {stages}")
+    n = sum(stages.values())
+    return {"launches": n, "calls": launches[form], "launches_per_call": n / launches[form],
+            "stage_launches": stages}
 
 
 def check_ln_mlp_stages() -> dict:
-    """ln_mlp_fwd.cu stage by stage and form by form at LN_MLP_SHAPES: the
-    linear stage as the out-projection (dropout stream 0, residual x) and as
-    fc2 (stream 1, residual x1), and LN -> fc1 -> GELU with z1, each against
-    its stage plain version (fused_mlp) on the same bf16 inputs, masks
-    bit-equal to the plain Philox's; the three forms against their whole
-    plain versions (out, x1 and z1 by KERNEL_RTOL, residual outputs by the
-    tolerance of their own term) and bit-equal across two calls.  At each
+    """ln_mlp_fwd.cu stage by stage at LN_MLP_SHAPES: the linear stage as the
+    out-projection (dropout stream 0, residual x) and as fc2 (stream 1,
+    residual x1), and LN -> fc1 -> GELU with z1, each against its stage plain
+    version (fused_mlp) on the same bf16 inputs, masks bit-equal to the plain
+    Philox's.  (The three forms, whole, are held to their plain versions and
+    across two calls by check_kernels and check_megablock_kernels.)  At each
     form's main shape, the time torch.matmul takes for the same products
     ("products only": a yardstick beside the bound, not the same function).
     Returns {form: record}."""
@@ -999,14 +1027,13 @@ def check_ln_mlp_stages() -> dict:
     from vitgan_tpu_torch.ops import fused_mlp as FM
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    out = {name: {"launches_per_call": n, "stages": {}}
-           for name, n in LN_MLP_STAGE_LAUNCHES.items()}
+    stages_by_shape = {}
+    out = {name: {"stages": stages_by_shape} for name in LN_MLP_STAGES}
     for label, (m, e, hidden, hd) in LN_MLP_SHAPES:
         print(f"[ln_mlp stages] {label}: rows {m} E {e} hidden {hidden} H*Dh {hd}")
         c = _case(1, m, e, e // 64, hidden, gen)  # H*Dh = E: heads of 64
         x, attn = c["x"].reshape(m, e), c["attn"].reshape(m, hd)
         seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
-        # -- the stages
         x1, m1 = FM.linear_stage(attn, c["wout"], c["bout"], x, seed, MB_RATE, 0)
         want_m1 = FB.dropout_mask(seed, 0, (m, e), MB_RATE)
         h, z1 = FM.ln_fc1_stage(x1, c["ln_s"], c["ln_b"], c["w1"], c["b1"], want_z1=True)
@@ -1017,7 +1044,7 @@ def check_ln_mlp_stages() -> dict:
         if not (torch.equal(m1, want_m1) and torch.equal(m2, want_m2)):
             raise AssertionError(f"linear stage {label}: masks not bit-equal to the plain "
                                  "Philox's")
-        stages = {
+        stages_by_shape[label] = {
             "proj": _err(x1, FM.linear_stage_reference(attn, c["wout"], c["bout"], x, want_m1),
                          f"linear stage (out-projection) {label}", x),
             "fc1_h": _err(h, want_h, f"LN->fc1->GELU stage {label} h"),
@@ -1025,45 +1052,19 @@ def check_ln_mlp_stages() -> dict:
             "fc2": _err(o, FM.linear_stage_reference(want_h, c["w2"], c["b2"], x1, want_m2),
                         f"linear stage (fc2) {label}", x1)}
         print("  stage masks bit-equal to the plain Philox's")
-        del x1, m1, h, z1, o, m2, want_h, want_z1, want_m1, want_m2
-        # -- the forms, whole, and two calls of each
-        mlp = (c["ln_s"], c["ln_b"], c["w1"], c["b1"], c["w2"], c["b2"])
-        proj = (x, attn, c["wout"], c["bout"], *mlp)
-        forms = {
-            "ln_mlp_fwd": (lambda: FM.ln_mlp_forward(x, *mlp, residual=True),
-                           lambda: FM._reference(x, *mlp, "gelu", 1e-5, True),
-                           lambda: (x @ c["w1"], want_hh @ c["w2"])),
-            "proj_ln_mlp_fwd": (
-                lambda: FM.ln_mlp_forward(x, *mlp, attn=attn, wout=c["wout"], bout=c["bout"]),
-                lambda: FB._proj_ln_mlp_reference(*proj),
-                lambda: (attn @ c["wout"], x @ c["w1"], want_hh @ c["w2"])),
-            "ln_mlp_train_fwd": (lambda: FB.ln_mlp_train_forward(*proj, seed, MB_RATE),
-                                 lambda: FB._proj_ln_mlp_train_reference(*proj, seed, MB_RATE),
-                                 lambda: (attn @ c["wout"], x @ c["w1"], want_hh @ c["w2"]))}
-        want_hh = torch.empty((m, hidden), dtype=torch.bfloat16, device="cuda").normal_(
-            generator=gen)
-        for name, (kern, plain, products) in forms.items():
-            got, want = kern(), plain()
-            if name == "ln_mlp_train_fwd":
-                torch.cuda.synchronize()
-                if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
-                    raise AssertionError(f"{name} {label}: masks not bit-equal")
-                err = max(_err(got[0], want[0], f"{name} {label} out", want[3]),
-                          _err(got[3], want[3], f"{name} {label} x1", x),
-                          _err(got[4], want[4], f"{name} {label} z1"))
-            else:
-                err = _err(got, want, f"{name} {label}", x)
-            del got, want
-            rec = out[name]
-            rec[f"{label}_max_abs_err"] = err
-            rec["stages"][label] = stages
-            rec[f"{label}_repeat_max_abs_diff"] = _repeat(kern, f"{name} {label}")
-            if LN_MLP_MAIN[name] == label:
-                rec["products_only_ms"] = _time_ms(products, 10)
+        del x1, m1, z1, o, m2, want_z1, want_m1, want_m2
+        products = {
+            "ln_mlp_fwd": lambda: (x @ c["w1"], want_h @ c["w2"]),
+            "proj_ln_mlp_fwd": lambda: (attn @ c["wout"], x @ c["w1"], want_h @ c["w2"]),
+            "ln_mlp_train_fwd": lambda: (attn @ c["wout"], x @ c["w1"], want_h @ c["w2"])}
+        for name, main in LN_MLP_MAIN.items():
+            if main == label:
+                rec = out[name]
+                rec["products_only_ms"] = _time_ms(products[name], 10)
                 rec["products_only"] = ("torch.matmul of the form's products in bf16 at the "
                                         "main shape: a yardstick, not the same function")
                 print(f"  {name}: products only (torch.matmul) {rec['products_only_ms']:.4f} ms")
-        del c, x, attn, want_hh, forms
+        del c, x, attn, h, want_h, products
         torch.cuda.empty_cache()
     return out
 
@@ -1074,6 +1075,8 @@ TRAIN_KERNELS = {
     # runtime.megablock=auto (the preset's default): the megablock's training
     # forward and its saved-residual backward in every block
     "auto": {"ln_qkv_fwd": 72, "flash_attn_fwd": 36, "ln_mlp_train_fwd": 36,
+             # its stages: the out-projection and fc2 by the linear kernel
+             "ln_mlp_fc1": 36, "ln_mlp_linear": 72,
              "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24, "flash_attn_bwd_dkv": 24,
              "megablock_bwd_mlp": 36, "megablock_bwd_ln1": 36,
              # four weight-gradient products and two LN sums per block backward
@@ -1083,7 +1086,7 @@ TRAIN_KERNELS = {
              "wgrad_gemm": 96, "sum_partials": 48},
     # runtime.megablock=off: flash attention and LN->MLP with their backward
     "off": {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24,
-            "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36},
+            "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36, "ln_mlp_fc1": 36, "ln_mlp_linear": 36},
 }
 
 
@@ -1268,8 +1271,10 @@ def train_deit64(steps: int = 3) -> dict:
           f"{m.num_heads}, depth {m.depth}, dropout {m.dropout}, augment "
           f"{cfg.run.diff_augment!r}: {steps} steps by Trainer.fit, {ms:.1f} ms/step; launches "
           f"{launches}; means {means}")
-    for name in ("ln_mlp_train_fwd", "megablock_bwd_mlp", "megablock_bwd_ln1"):
-        if launches[name] != 3 * m.depth * steps:
+    for name, per_block in (("ln_mlp_train_fwd", 1), ("megablock_bwd_mlp", 1),
+                            ("megablock_bwd_ln1", 1),
+                            *LN_MLP_STAGES["ln_mlp_train_fwd"].items()):
+        if launches[name] != 3 * m.depth * steps * per_block:
             raise AssertionError(f"deit64: {name} launched {launches[name]} times")
     if launches["ln_mlp_fwd"] or not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
         raise AssertionError(f"deit64 did not train through the megablock: {means}")
@@ -2219,6 +2224,14 @@ def main() -> int:
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
     fb = "vitgan_tpu/ops/fused_block.py"
+    # The LN->MLP forms launch ln_mlp_fwd.cu's stage kernels: each form's
+    # launches are its stages' on its main path, read beside its calls.
+    ln_mlp = {"ln_mlp_fwd": _ln_mlp_launches(off_launches, "ln_mlp_fwd"),
+              "proj_ln_mlp_fwd": _ln_mlp_launches(launches, "proj_ln_mlp_fwd"),
+              "ln_mlp_train_fwd": _ln_mlp_launches(train_launches, "ln_mlp_train_fwd")}
+    for name, rec in ln_mlp.items():
+        print(f"[launches] {name}: {rec['launches']} stage launches in {rec['calls']} calls "
+              f"({rec['stage_launches']})")
     # name: (source, TPU kernel replaced, launches on its main path); the
     # serving kernels count the serving path, the training kernels the
     # highres128 train path under the default megablock=auto
@@ -2226,16 +2239,17 @@ def main() -> int:
         "flash_attn_fwd": ("flash_attn_fwd.cu", "vitgan_tpu/ops/attention.py:252",
                            launches["flash_attn_fwd"]),
         "ln_mlp_fwd": ("ln_mlp_fwd.cu", "vitgan_tpu/ops/fused_mlp.py:133",
-                       off_launches["ln_mlp_fwd"]),
+                       ln_mlp["ln_mlp_fwd"]["launches"]),
         "ln_qkv_fwd": ("ln_qkv_fwd.cu", f"{fb}:408", launches["ln_qkv_fwd"]),
-        "proj_ln_mlp_fwd": ("ln_mlp_fwd.cu", f"{fb}:408", launches["proj_ln_mlp_fwd"]),
+        "proj_ln_mlp_fwd": ("ln_mlp_fwd.cu", f"{fb}:408", ln_mlp["proj_ln_mlp_fwd"]["launches"]),
         "flash_attn_bwd_fused": ("flash_attn_bwd_fused.cu", "vitgan_tpu/ops/attention.py:606",
                                  train_launches["flash_attn_bwd_fused"]),
         "flash_attn_bwd_dq": ("flash_attn_bwd_dq.cu", "vitgan_tpu/ops/attention.py:701",
                               train_launches["flash_attn_bwd_dq"]),
         "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
                                train_launches["flash_attn_bwd_dkv"]),
-        "ln_mlp_train_fwd": ("ln_mlp_fwd.cu", f"{fb}:408", train_launches["ln_mlp_train_fwd"]),
+        "ln_mlp_train_fwd": ("ln_mlp_fwd.cu", f"{fb}:408",
+                             ln_mlp["ln_mlp_train_fwd"]["launches"]),
         "megablock_bwd_mlp": ("megablock_bwd_mlp.cu", f"{fb}:700",
                               train_launches["megablock_bwd_mlp"]),
         "megablock_bwd_ln1": ("megablock_bwd_ln1.cu", f"{fb}:700",
@@ -2266,16 +2280,20 @@ def main() -> int:
         if n_launch <= 0:
             raise AssertionError(f"{name} was not launched on its route")
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
-                        "replaces": replaces, "launches": n_launch, **records[name]})
+                        "replaces": replaces, **records[name], **ln_mlp.get(name, {}),
+                        "launches": n_launch})
         if name in paths:
             kernels[-1]["launches_path"] = paths[name]
     kernels[0]["launches_megablock_off"] = off_launches["flash_attn_fwd"]
     for k in kernels:
         if k["name"] in ("flash_attn_fwd", "ln_qkv_fwd"):
             k["launches_train"] = train_launches[k["name"]]
-        if k["name"] in ("flash_attn_fwd", "ln_mlp_fwd", "flash_attn_bwd_fused",
-                         "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused", "flash_attn_bwd_dq",
+                         "flash_attn_bwd_dkv"):
             k["launches_train_megablock_off"] = off_train_launches[k["name"]]
+        if k["name"] == "ln_mlp_fwd":
+            k["launches_train_megablock_off"] = _ln_mlp_launches(off_train_launches,
+                                                                 "ln_mlp_fwd")["launches"]
         if k["name"] in sass:
             k["sass"] = sass[k["name"]]
         warned = ptxas_warnings.get(os.path.basename(k["source"])[:-3], [])

@@ -4,7 +4,7 @@ training kernels (wgrad_gemm and sum_partials among them) of one tree of the
 port on the card, with chip_smoke.py's own phases, so that two trees can be
 compared in one call.
 
-    python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits]
+    python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits | --host]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -28,6 +28,9 @@ sum_partials_reference on a tree that has it).  Two calls that are not bit-equal
 output), not raised, so that a tree whose kernel is not deterministic can be
 measured.  Run it for two trees in turns (parent, change, change, parent) in
 one call on one card.  Prints one JSON line, last.
+
+``--host`` runs only the host phase instead: the CPU time of one call of
+each LN->MLP form's wrapper at its main shape (``host_times``).
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -108,11 +111,58 @@ def single_pass_repeats(cs) -> dict:
     return out
 
 
+def host_times(cs, calls: int = 36) -> dict:
+    """{form: {"host_ms", "wall_ms"}} for the three LN->MLP forms at their
+    main shapes (chip_smoke.LN_MLP_MAIN): with the device synchronised, the
+    CPU clock around ``calls`` wrapper calls issued back to back (their host
+    work: checks, casts, allocations, the launches queued and not waited
+    for), and until the device has run them, each over ``calls``; after as
+    many calls to warm up.  36 is one highres128 step's calls of a form."""
+    import time
+
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 10)
+    shapes = dict(cs.LN_MLP_SHAPES)
+    out = {}
+    for name, main in cs.LN_MLP_MAIN.items():
+        m, e, hidden, hd = shapes[main]
+        c = cs._case(1, m, e, e // 64, hidden, gen)
+        x, attn = c["x"].reshape(m, e), c["attn"].reshape(m, hd)
+        seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+        mlp = (c["ln_s"], c["ln_b"], c["w1"], c["b1"], c["w2"], c["b2"])
+        call = {"ln_mlp_fwd": lambda: FM.ln_mlp_forward(x, *mlp, residual=True),
+                "proj_ln_mlp_fwd": lambda: FM.ln_mlp_forward(x, *mlp, attn=attn, wout=c["wout"],
+                                                             bout=c["bout"]),
+                "ln_mlp_train_fwd": lambda: FB.ln_mlp_train_forward(
+                    x, attn, c["wout"], c["bout"], *mlp, seed, cs.MB_RATE)}[name]
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[name] = {"shape": main, "host_ms": 1e3 * (t1 - t0) / calls,
+                     "wall_ms": 1e3 * (t2 - t0) / calls}
+        print(f"[host] {name} at {main}: host {out[name]['host_ms']:.4f} ms a call, wall "
+              f"{out[name]['wall_ms']:.4f} ms a call over {calls} calls")
+        del c, x, attn, call
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--label", default="")
     ap.add_argument("--splits", action="store_true")
+    ap.add_argument("--host", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -127,6 +177,9 @@ def main() -> int:
     cs.STRICT_REPEAT = False  # record how far apart two calls are
     label = args.label or args.root
     print(f"[build] {label}: {build.build()}")
+    if args.host:
+        print(json.dumps({"label": label, "host": host_times(cs)}))
+        return 0
     rec = {"label": label,
            "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd")),
            "bwd": cs.check_bwd_kernels(), "single_pass_repeats": single_pass_repeats(cs),

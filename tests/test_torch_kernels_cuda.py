@@ -55,7 +55,7 @@ def test_kernel_matches_plain_on_card(name):
     ln_s, ln_b = 1 + rn(e, scale=0.1, dtype=torch.float32), rn(e, scale=0.1, dtype=torch.float32)
     w1, w2 = rn(e, hidden, scale=0.1), rn(hidden, e, scale=0.1)
     b1, b2 = rn(hidden, scale=0.1, dtype=torch.float32), rn(e, scale=0.1, dtype=torch.float32)
-    before = build.LAUNCHES[name]
+    before = dict(build.LAUNCHES)
     if name == "flash_attn_fwd":
         q, k, v = rn(b, h, n, dh), rn(b, h, n, dh), rn(b, h, n, dh)
         got, want = A.flash_attention(q, k, v), A.attention_reference(q, k, v)
@@ -71,7 +71,12 @@ def test_kernel_matches_plain_on_card(name):
         got = FM.ln_mlp_forward(x, ln_s, ln_b, w1, b1, w2, b2, attn=attn, wout=wout, bout=bout)
         want = FB._proj_ln_mlp_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2)
     torch.cuda.synchronize()
-    assert build.LAUNCHES[name] == before + 1
+    # the LN->MLP forms launch their stage kernels: fc1, then one linear
+    # launch for fc2 and one more for the out-projection
+    stages = {"ln_mlp_fwd": {"ln_mlp_fc1": 1, "ln_mlp_linear": 1},
+              "proj_ln_mlp_fwd": {"ln_mlp_fc1": 1, "ln_mlp_linear": 2}}.get(name, {})
+    assert {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]} == {
+        name: 1, **stages}
     tol = 2e-2 * max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= tol
 
@@ -541,7 +546,8 @@ def test_ln_mlp_stage_kernels_match_plain_on_card(m, e, hidden, rate):
     rows: the linear stage as the out-projection (mask stream 0, residual x)
     and as fc2 (mask stream 1, residual x1, and without a residual), and
     LN -> fc1 -> GELU with z1; masks bit-equal to the plain Philox's; each
-    output within 2e-2 * max(1, max|plain|)."""
+    output within 2e-2 * max(1, max|plain|); each stage call counts one
+    launch of its kernel."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(11)
 
@@ -561,6 +567,7 @@ def test_ln_mlp_stage_kernels_match_plain_on_card(m, e, hidden, rate):
         tol = 2e-2 * max(1.0, want.float().abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= tol
 
+    build.reset_launches()
     x1, m1 = FM.linear_stage(attn, wout, bout, x, seed, rate, 0)
     want_m1 = FB.dropout_mask(seed, 0, (m, e), rate) if rate else None
     assert (m1 is None) == (rate == 0.0) and (m1 is None or torch.equal(m1, want_m1))
@@ -575,6 +582,8 @@ def test_ln_mlp_stage_kernels_match_plain_on_card(m, e, hidden, rate):
     assert (m2 is None) == (rate == 0.0) and (m2 is None or torch.equal(m2, want_m2))
     close(out, FM.linear_stage_reference(want_h, w2, b2, x1, want_m2))
     close(FM.linear_stage(want_h, w2, b2)[0], FM.linear_stage_reference(want_h, w2, b2))
+    launched = {n: c for n, c in build.LAUNCHES.items() if c}
+    assert launched == {"ln_mlp_linear": 3, "ln_mlp_fc1": 2}
 
 
 @pytest.mark.cuda

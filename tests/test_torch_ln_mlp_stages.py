@@ -207,3 +207,38 @@ def test_stage_wrappers_refuse_tensors_off_the_cpu_and_cuda():
         FM.ln_fc1_stage(a, b, b, w, b)
     with pytest.raises(ValueError, match="CUDA"):
         WG.sum_partials(torch.empty(4, 32, device="meta"))
+
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_stage_wrappers_count_each_launch_and_no_refusal(monkeypatch, rate):
+    """Each stage wrapper adds one to its kernel's count where it launches
+    the kernel, and nothing where it refuses its inputs: run on CPU tensors
+    with the C entry replaced by a recorder and the CUDA check lifted."""
+    launched = []
+
+    def entry(name):
+        def fn(*args):
+            launched.append(name)
+            return 0
+        fn.__name__ = name
+        return fn
+
+    monkeypatch.setattr(FM.build, "entry", entry)
+    monkeypatch.setattr(FM.build, "stream_ptr", lambda dev: None)
+    monkeypatch.setattr(FM, "_bf16_rows", lambda t, what: t.contiguous())
+    monkeypatch.setattr(FM.build, "LAUNCHES", {k: 0 for k in FM.build.LAUNCHES})
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((34, 32), np.float32)).to(torch.bfloat16)
+    w1 = torch.from_numpy(rng.standard_normal((32, 64), np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((64, 32), np.float32))
+    b = torch.zeros(64)
+    seed = torch.tensor([5], dtype=torch.int64)
+    h, _ = FM.ln_fc1_stage(a, b[:32] + 1, b[:32], w1, b, want_z1=True)
+    FM.linear_stage(h, w2, b[:32], a, seed, rate, 1)
+    with pytest.raises(ValueError, match="fit"):
+        FM.linear_stage(h, w2, b[:32], h)  # a (34, 64) residual for a (34, 32) out
+    with pytest.raises(ValueError):
+        FM.ln_fc1_stage(a, b[:32], b[:32], w2, b)
+    assert launched == ["ln_mlp_fc1", "ln_mlp_linear"]
+    assert {k: n for k, n in FM.build.LAUNCHES.items() if n} == {"ln_mlp_fc1": 1,
+                                                                 "ln_mlp_linear": 1}

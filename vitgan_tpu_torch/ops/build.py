@@ -61,14 +61,15 @@ SOURCE = {"ln_mlp_fc1": "ln_mlp_fwd", "ln_mlp_linear": "ln_mlp_fwd",
           "sum_partials": "wgrad_gemm"}
 SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 
-# Launch counts by wrapper.  The stages of ln_mlp_fwd.cu (ln_mlp_fc1,
-# ln_mlp_linear) count under the wrapper of the form that composes them: the
-# plain LN->MLP ("ln_mlp_fwd", two launches a call), the megablock's
-# out-projection form ("proj_ln_mlp_fwd", three) and its training form
-# ("ln_mlp_train_fwd", three).  The flash kernels count their `dot` launches
-# under their name and the other score modes apart, as "flash_attn_fwd[l2]"
-# (ops/attention.launch_key).
-LAUNCHES = {name: 0 for name in SIGNATURES if SOURCE.get(name) != "ln_mlp_fwd"}
+# Launch counts by wrapper, each added to where its kernel launches.  The two
+# stage kernels of ln_mlp_fwd.cu count their own launches ("ln_mlp_fc1",
+# "ln_mlp_linear"); the three LN->MLP forms that compose them count their
+# calls besides: the plain LN->MLP ("ln_mlp_fwd", a fc1 and a linear launch a
+# call), the megablock's out-projection form ("proj_ln_mlp_fwd", a fc1 and
+# two linear) and its training form ("ln_mlp_train_fwd", the same).  The
+# flash kernels count their `dot` launches under their name and the other
+# score modes apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
+LAUNCHES = {name: 0 for name in SIGNATURES}
 LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (
     ("flash_attn_fwd", ("l2", "l2ref")), ("flash_attn_bwd_fused", ("l2",)),

@@ -52,7 +52,7 @@
 // sectors).  TMA zero-fills rows past M and columns past K
 // (zeros into the products) and past N; its stores clip rows past M and
 // columns past N; B boxes wholly past N are not loaded.  The products run
-// at cuBLAS's pace (scripts/ln_mlp_probe.py); the epilogues, GELU's erf
+// at cuBLAS's pace (PERF.md); the epilogues, GELU's erf
 // above all, run between them, not under them: a ping-pong of the consumer
 // warpgroups and alternating accumulator sets were both slower (PERF.md).
 //

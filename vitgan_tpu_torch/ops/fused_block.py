@@ -227,7 +227,7 @@ def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, 
                          eps: float = 1e-5):
     """Run ln_mlp_fwd.cu's training form on bf16 CUDA rows x (M, E), attn
     (M, H*Dh): three launches (out-projection, LN2 -> fc1 -> GELU, fc2),
-    counted as one call of "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1)
+    each counted by its stage, and one call of "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1)
     as the plain version."""
     if not (x.is_cuda and attn.is_cuda):
         raise ValueError("ln_mlp_train_forward launches a CUDA kernel: x must be a CUDA tensor")

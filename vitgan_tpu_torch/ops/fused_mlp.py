@@ -147,6 +147,7 @@ def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: in
                        build.ptr(seed if mask is not None else None), build.ptr(out),
                        build.ptr(mask), m, k, n, mask_id, threshold(rate),
                        float(1.0 / (1.0 - rate)), build.stream_ptr(dev)))
+    build.LAUNCHES["ln_mlp_linear"] += 1
     return out, mask
 
 
@@ -170,6 +171,7 @@ def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False
     build.check(fn, fn(build.ptr(a), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(w1b),
                        build.ptr(b1f), build.ptr(h), build.ptr(z1), m, e, hidden, float(eps),
                        build.stream_ptr(dev)))
+    build.LAUNCHES["ln_mlp_fc1"] += 1
     return h, z1
 
 
@@ -177,7 +179,7 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
                    residual: bool = True, attn: Optional[torch.Tensor] = None,
                    wout: Optional[torch.Tensor] = None, bout: Optional[torch.Tensor] = None):
     """Run the LN->MLP stages on a bf16 CUDA x (..., E): two launches (fc1,
-    then fc2), counted as one call of "ln_mlp_fwd".
+    then fc2, each counted by its stage), and one call of "ln_mlp_fwd".
 
     With ``attn`` (..., H*Dh) bf16, ``wout`` (H*Dh, E) and ``bout`` (E,), the
     out-projection x1 = x + attn . wout + bout runs first (a third launch,
