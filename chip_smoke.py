@@ -10,8 +10,8 @@
    (C7xxx) with its kernel, recorded in the kernels' entries; where the
    toolkit has cuobjdump, counts the wgmma (HGMMA) and TMA (UTMALDG)
    instructions of the sources redesigned for Hopper (wgrad_gemm, the flash
-   forward, the k-block backward, the q-block dq and the LN->MLP forward)
-   and fails on none.
+   forward, the k-block backward, the q-block dq, the LN->MLP forward and
+   the megablock backward's MLP half) and fails on none.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
@@ -40,11 +40,14 @@
    shape splits the wrapper's device time into its own kernels' and the
    rest (the PyTorch delta = rowsum(dO * O) when none is given).
 8. Holds the megablock's training kernels against their plain versions at
-   G's (32, 1024, 384, 6 heads, hidden 1536), D's (64, 1025, ...) and a ragged
-   (2, 257, 192, 3 heads, hidden 768) shape: the training form of ln_mlp_fwd
+   G's (32, 1024, 384, 6 heads, hidden 1536), D's (64, 1025, ...), a ragged
+   (2, 257, 192, 3 heads, hidden 768) and deit64's D update (128, 257, 192,
+   ...) shape: the training form of ln_mlp_fwd
    (dropout masks bit-equal to the plain Philox's; out, x1, z1 by
-   KERNEL_RTOL), megablock_bwd_mlp, megablock_bwd_ln1, wgrad_gemm (beside
-   torch.matmul of the same A^T.B; two calls bit-equal) and sum_partials
+   KERNEL_RTOL), megablock_bwd_mlp (with and without dropout; two calls
+   bit-equal, its device time by the profiler; each of its three stage kernels against its stage plain
+   version, with its device time and bound), megablock_bwd_ln1, wgrad_gemm
+   (beside torch.matmul of the same A^T.B; two calls bit-equal) and sum_partials
    (each output within KERNEL_RTOL * its own max|plain|; sum_partials
    bit-equal to its order model and across two calls, its device time and
    part.sum(0)'s by the profiler), then one block's whole saved-residual
@@ -300,7 +303,7 @@ def _ptxas_warnings(log: str) -> list:
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
-                  "flash_attn_bwd_dq", "ln_mlp_fwd")
+                  "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp")
 # The part of the CUDA symbol of every kernel of ln_mlp_fwd.cu (this tree's
 # ln_mlp_fc1_kernel and ln_mlp_linear_kernel, and the single kernel of a
 # parent scripts/kernel_ab.py measures).
@@ -754,7 +757,13 @@ def check_bwd_kernels() -> dict:
 
 
 MB_SHAPES = (("G", (32, 1024, 384, 6, 1536)), ("D", (64, 1025, 384, 6, 1536)),
-             ("ragged", (2, 257, 192, 3, 768)))
+             ("ragged", (2, 257, 192, 3, 768)), ("deit64", (128, 257, 192, 3, 768)))
+# The stage kernels of megablock_bwd_mlp.cu, each launched once by a call of
+# the backward's MLP half (counted as "megablock_bwd_mlp"), and the part of
+# their CUDA symbols (and of the parent's single kernel, which
+# scripts/kernel_ab.py measures).
+MB_MLP_STAGES = ("megablock_bwd_mlp_dz1", "megablock_bwd_mlp_dx1", "megablock_bwd_mlp_dao")
+MB_MLP_SYMBOL = "megablock_bwd_mlp"
 MB_RATE = 0.1
 # The saved-residual backward against autograd of the plain block: dx and each
 # of the 12 parameter gradients within MB_GRAD_RTOL * its own max|plain|.
@@ -780,13 +789,59 @@ def _mb_case(b, n, e, heads, hidden, gen):
     return c
 
 
+def _mb_mlp_stages(args, label: str) -> dict:
+    """megablock_bwd_mlp.cu stage by stage on one call's inputs: each stage
+    kernel against its stage plain version on the same bf16 inputs (the
+    plain dz1 and da feed the next stages), each output within KERNEL_RTOL *
+    its own max|plain| (dln2 by the partials' column sums), with its device
+    time by the profiler and its bound.  Returns {stage: record}."""
+    from vitgan_tpu_torch.ops import fused_block as FB
+
+    g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, b, n, heads = args
+    (m, e), hidden, hd = g.shape, z1.shape[-1], ao.shape[-1]
+    masks = m1 is not None
+    dz1 = FB.bwd_dz1_stage_reference(g, m2, z1, w2)
+    dx1 = FB.bwd_dx1_stage_reference(dz1[1], g, m1, x1, w1, ln_s, ln_b)
+    da = dx1[1]
+    stages = {
+        "dz1": (lambda: FB.bwd_dz1_stage(g, m2, z1, w2), dz1, ("dmlp", "dz1", "h1"),
+                # reads g, [m2], z1, w2; writes [dmlp], dz1, h1
+                _bound(2.0 * m * e * hidden, m * e * (2 + 4 * masks) + m * hidden * 2
+                       + hidden * e * 2 + m * e * 2 * masks + 2 * m * hidden * 2)),
+        "dx1": (lambda: FB.bwd_dx1_stage(dz1[1], g, m1, x1, w1, ln_s, ln_b), dx1,
+                ("dx1", "da", "y2", "dln2"),
+                # reads dz1, g, x1, [m1], w1; writes dx1, da, y2, part
+                _bound(2.0 * m * e * hidden, m * hidden * 2 + m * e * (4 + 4 * masks)
+                       + e * hidden * 2 + m * e * (4 + 2 + 2) + dx1[3].numel() * 4)),
+        "dao": (lambda: FB.bwd_dao_stage(da, ao, wout, b, n, heads),
+                FB.bwd_dao_stage_reference(da, ao, wout, b, n, heads), ("dao", "delta"),
+                # reads da, ao, wout; writes dao, delta
+                _bound(2.0 * m * e * hd, m * e * 2 + m * hd * 2 + hd * e * 2 + m * hd * 2
+                       + m * heads * 4))}
+    out = {}
+    for stage, (call, want, names, bound) in stages.items():
+        errs = []
+        for name, got, ref in zip(names, call(), want):
+            if name == "dln2":
+                got, ref = got.sum(0), ref.sum(0)
+            errs.append(_err(got, ref, f"megablock_bwd_mlp {label} stage {stage} {name}",
+                             own_scale=True))
+        out[stage] = {"max_abs_err": max(errs),
+                      "device_ms": _device_ms(call, 10, (MB_MLP_SYMBOL,))[0],
+                      "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"  megablock_bwd_mlp {label} stage {stage}: device {out[stage]['device_ms']} ms "
+              f"(bound {bound[0]:.4f} ms by {bound[1]})")
+    return out
+
+
 def check_megablock_kernels() -> dict:
     """The megablock's training kernels against their plain versions at G's,
-    D's and a ragged shape: the training form of ln_mlp_fwd (masks bit-equal
+    D's, a ragged and deit64's D-update shape: the training form of ln_mlp_fwd (masks bit-equal
     to the plain Philox's, outputs and residuals by KERNEL_RTOL, bit-equal
-    across two calls), the two
-    backward row kernels and wgrad_gemm (each output within KERNEL_RTOL *
-    its own max|plain|), sum_partials, then the whole saved-residual
+    across two calls), the backward's MLP half (bit-equal across two calls,
+    and stage by stage on a tree that has the stages) and LN1 half and
+    wgrad_gemm (each output within KERNEL_RTOL * its own max|plain|),
+    sum_partials, then the whole saved-residual
     backward against autograd of the plain masked block (MB_GRAD_RTOL).
     Times each at each shape; the record at G's shape goes to the JSON line."""
     import torch
@@ -847,13 +902,16 @@ def check_megablock_kernels() -> dict:
         # -- the backward's MLP half
         bwd_args = (g2, m1, m2, x1, z1, attn2, c["w1"], c["w2"], c["wout"], c["ln_s"], c["ln_b"],
                     b, n, heads)
-        got = FB.megablock_bwd_mlp(*bwd_args)
-        want = FB._bwd_mlp_reference(*bwd_args)
-        err = max(_err(getattr(got, k), getattr(want, k), f"megablock_bwd_mlp {label} {k}",
-                       own_scale=True) for k in ("dmlp", "dz1", "h1", "y2", "dx1", "da", "dao",
-                                                 "delta"))
-        err = max(err, _err(got.part.sum(0), want.part[0], f"megablock_bwd_mlp {label} dln2",
-                            own_scale=True))
+        err = 0.0
+        # without dropout (dmlp is g itself), then with the forward's masks, whose
+        # outputs feed the checks below
+        for what, args in ((" no dropout", (g2, None, None, *bwd_args[3:])), ("", bwd_args)):
+            got, want = FB.megablock_bwd_mlp(*args), FB._bwd_mlp_reference(*args)
+            err = max(err, *(_err(getattr(got, k), getattr(want, k),
+                                  f"megablock_bwd_mlp {label}{what} {k}", own_scale=True)
+                             for k in ("dmlp", "dz1", "h1", "y2", "dx1", "da", "dao", "delta")))
+            err = max(err, _err(got.part.sum(0), want.part[0],
+                                f"megablock_bwd_mlp {label}{what} dln2", own_scale=True))
         rec("megablock_bwd_mlp", lambda: FB.megablock_bwd_mlp(*bwd_args),
             lambda: FB._bwd_mlp_reference(*bwd_args),
             _bound(4.0 * m * e * hidden + 2.0 * m * e * hd,
@@ -861,6 +919,12 @@ def check_megablock_kernels() -> dict:
                    + (2 * e * hidden + hd * e) * 2 + m * e * (2 + 2 + 4 + 2) + 2 * m * hidden * 2
                    + m * hd * 2 + b * heads * n * 4))
         recs["megablock_bwd_mlp"]["max_abs_err"] = err
+        recs["megablock_bwd_mlp"]["repeat_max_abs_diff"] = _repeat(
+            lambda: FB.megablock_bwd_mlp(*bwd_args), f"megablock_bwd_mlp {label}")
+        recs["megablock_bwd_mlp"]["device_ms"] = _device_ms(
+            lambda: FB.megablock_bwd_mlp(*bwd_args), 10, (MB_MLP_SYMBOL,))[0]
+        if hasattr(FB, "bwd_dz1_stage"):  # a parent measured by kernel_ab.py has one kernel
+            recs["megablock_bwd_mlp"]["stages"] = _mb_mlp_stages(bwd_args, label)
         mlp = got
         del want
 
@@ -1011,6 +1075,19 @@ def _ln_mlp_launches(launches: dict, form: str) -> dict:
             "stage_launches": stages}
 
 
+def _mb_mlp_launches(launches: dict) -> dict:
+    """The backward MLP half's stage launches on a path: {"launches": their
+    sum, "calls", "launches_per_call", "stage_launches": {stage: n}}; each
+    stage launched once a call."""
+    stages = {k: launches[k] for k in MB_MLP_STAGES}
+    calls = launches["megablock_bwd_mlp"]
+    if not calls or any(c != calls for c in stages.values()):
+        raise AssertionError(f"megablock_bwd_mlp: {calls} calls, stage launches {stages}")
+    n = sum(stages.values())
+    return {"launches": n, "calls": calls, "launches_per_call": n / calls,
+            "stage_launches": stages}
+
+
 def check_ln_mlp_stages() -> dict:
     """ln_mlp_fwd.cu stage by stage at LN_MLP_SHAPES: the linear stage as the
     out-projection (dropout stream 0, residual x) and as fc2 (stream 1,
@@ -1079,6 +1156,8 @@ TRAIN_KERNELS = {
              "ln_mlp_fc1": 36, "ln_mlp_linear": 72,
              "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24, "flash_attn_bwd_dkv": 24,
              "megablock_bwd_mlp": 36, "megablock_bwd_ln1": 36,
+             # the MLP half's stages: one launch of each a call
+             **{stage: 36 for stage in MB_MLP_STAGES},
              # four weight-gradient products and two LN sums per block backward
              # that has parameter gradients to give: D's, then G's (D's
              # parameters are frozen in the G update); each product's entry
@@ -1273,7 +1352,8 @@ def train_deit64(steps: int = 3) -> dict:
           f"{launches}; means {means}")
     for name, per_block in (("ln_mlp_train_fwd", 1), ("megablock_bwd_mlp", 1),
                             ("megablock_bwd_ln1", 1),
-                            *LN_MLP_STAGES["ln_mlp_train_fwd"].items()):
+                            *LN_MLP_STAGES["ln_mlp_train_fwd"].items(),
+                            *((stage, 1) for stage in MB_MLP_STAGES)):
         if launches[name] != 3 * m.depth * steps * per_block:
             raise AssertionError(f"deit64: {name} launched {launches[name]} times")
     if launches["ln_mlp_fwd"] or not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
@@ -2229,7 +2309,8 @@ def main() -> int:
     ln_mlp = {"ln_mlp_fwd": _ln_mlp_launches(off_launches, "ln_mlp_fwd"),
               "proj_ln_mlp_fwd": _ln_mlp_launches(launches, "proj_ln_mlp_fwd"),
               "ln_mlp_train_fwd": _ln_mlp_launches(train_launches, "ln_mlp_train_fwd")}
-    for name, rec in ln_mlp.items():
+    forms = {**ln_mlp, "megablock_bwd_mlp": _mb_mlp_launches(train_launches)}
+    for name, rec in forms.items():
         print(f"[launches] {name}: {rec['launches']} stage launches in {rec['calls']} calls "
               f"({rec['stage_launches']})")
     # name: (source, TPU kernel replaced, launches on its main path); the
@@ -2251,7 +2332,7 @@ def main() -> int:
         "ln_mlp_train_fwd": ("ln_mlp_fwd.cu", f"{fb}:408",
                              ln_mlp["ln_mlp_train_fwd"]["launches"]),
         "megablock_bwd_mlp": ("megablock_bwd_mlp.cu", f"{fb}:700",
-                              train_launches["megablock_bwd_mlp"]),
+                              forms["megablock_bwd_mlp"]["launches"]),
         "megablock_bwd_ln1": ("megablock_bwd_ln1.cu", f"{fb}:700",
                               train_launches["megablock_bwd_ln1"]),
         "wgrad_gemm": ("wgrad_gemm.cu", f"{fb}:700", train_launches["wgrad_gemm"]),
@@ -2280,7 +2361,7 @@ def main() -> int:
         if n_launch <= 0:
             raise AssertionError(f"{name} was not launched on its route")
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
-                        "replaces": replaces, **records[name], **ln_mlp.get(name, {}),
+                        "replaces": replaces, **records[name], **forms.get(name, {}),
                         "launches": n_launch})
         if name in paths:
             kernels[-1]["launches_path"] = paths[name]

@@ -4,7 +4,7 @@ training kernels (wgrad_gemm and sum_partials among them) of one tree of the
 port on the card, with chip_smoke.py's own phases, so that two trees can be
 compared in one call.
 
-    python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits | --host]
+    python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits | --host | --megablock]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -22,12 +22,15 @@ the single pass twice at the v1 generator's shape (`dot`) and the v1
 discriminator's (`l2`, bwd_fusion=fused), and ``check_megablock_kernels``
 (the training forward with its device time, the two backward row kernels,
 wgrad_gemm with bit-equal dW and db across two calls, and sum_partials at
-G's, D's and a ragged shape with its device time and part.sum(0)'s, beside
+G's, D's, a ragged and deit64's shape with its device time and part.sum(0)'s, beside
 torch.matmul and the bound; sum_partials also bit-equal to
 sum_partials_reference on a tree that has it).  Two calls that are not bit-equal are recorded (max |d| per
 output), not raised, so that a tree whose kernel is not deterministic can be
 measured.  Run it for two trees in turns (parent, change, change, parent) in
 one call on one card.  Prints one JSON line, last.
+
+``--megablock`` runs only ``check_megablock_kernels`` (with this tree's
+package, the backward MLP half's three stages too).
 
 ``--host`` runs only the host phase instead: the CPU time of one call of
 each LN->MLP form's wrapper at its main shape (``host_times``).
@@ -163,6 +166,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--splits", action="store_true")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--megablock", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -179,6 +183,9 @@ def main() -> int:
     print(f"[build] {label}: {build.build()}")
     if args.host:
         print(json.dumps({"label": label, "host": host_times(cs)}))
+        return 0
+    if args.megablock:
+        print(json.dumps({"label": label, "megablock": cs.check_megablock_kernels()[0]}))
         return 0
     rec = {"label": label,
            "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd")),

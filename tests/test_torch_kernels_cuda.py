@@ -7,8 +7,9 @@ forward's (B, N, H*D) output layout, the single pass bit-equal across two
 calls, the megablock's training forward and saved-residual backward (against
 autograd of the plain block) and the weight-gradient kernel, the training
 gate, and the raises for what the kernels do not take; each stage of the
-LN->MLP forward against its plain version, and sum_partials bit-equal to its
-order model.
+LN->MLP forward against its plain version, each stage of the megablock
+backward's MLP half against its plain version, and sum_partials bit-equal to
+its order model.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -367,6 +368,8 @@ def test_megablock_training_kernels_match_plain_on_card(shape, rate):
     dx, grads = FB.fused_encoder_block_bwd(params, g, res, num_heads=heads)
     torch.cuda.synchronize()
     assert build.LAUNCHES["ln_mlp_train_fwd"] == 1 and build.LAUNCHES["megablock_bwd_mlp"] == 1
+    for stage in ("megablock_bwd_mlp_dz1", "megablock_bwd_mlp_dx1", "megablock_bwd_mlp_dao"):
+        assert build.LAUNCHES[stage] == 1
     assert build.LAUNCHES["megablock_bwd_ln1"] == 1 and build.LAUNCHES["wgrad_gemm"] == 4
     # the two LN sums (each wgrad_gemm entry reduces its own partials)
     assert build.LAUNCHES["sum_partials"] == 2 and build.LAUNCHES["ln_qkv_fwd"] == 2
@@ -584,6 +587,71 @@ def test_ln_mlp_stage_kernels_match_plain_on_card(m, e, hidden, rate):
     close(FM.linear_stage(want_h, w2, b2)[0], FM.linear_stage_reference(want_h, w2, b2))
     launched = {n: c for n, c in build.LAUNCHES.items() if c}
     assert launched == {"ln_mlp_linear": 3, "ln_mlp_fc1": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,e,heads,hidden", [(2, 65, 48, 2, 192), (2, 257, 192, 3, 768),
+                                                (1, 1000, 384, 6, 1536)],
+                         ids=["m130_e48", "m514_e192", "m1000_e384"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_megablock_bwd_mlp_stage_kernels_match_plain_on_card(b, n, e, heads, hidden, rate):
+    """Each stage of megablock_bwd_mlp.cu (dz1, dx1, dao) against its plain
+    version on the same bf16 inputs, each output within 2e-2 * its own
+    max|plain| (dln2 by the partials' column sums); the three stages
+    composed against _bwd_mlp_reference; two calls bit-equal; one launch of
+    each stage a call."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+
+    m, f32 = b * n, torch.float32
+    g, x1, z1, ao = rn(m, e), rn(m, e), rn(m, hidden), rn(m, e)
+    w1, w2, wout = rn(e, hidden, scale=0.05), rn(hidden, e, scale=0.05), rn(e, e, scale=0.05)
+    ln_s, ln_b = 1 + rn(e, scale=0.1, dtype=f32), rn(e, scale=0.1, dtype=f32)
+    m1 = m2 = None
+    if rate:
+        m1, m2 = ((torch.rand((m, e), generator=gen, device="cuda") >= rate).to(f32) / (1 - rate)
+                  for _ in range(2))
+
+    def close(got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        tol = 2e-2 * want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+    build.reset_launches()
+    got = FB.bwd_dz1_stage(g, m2, z1, w2)
+    want = FB.bwd_dz1_stage_reference(g, m2, z1, w2)
+    for a, w in zip(got, want):
+        close(a, w)
+    dz1 = want[1]
+    got = FB.bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b)
+    want = FB.bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b)
+    for a, w in zip(got[:3], want[:3]):
+        close(a, w)
+    assert got[3].shape == want[3].shape == (-(-m // 64), 2 * e)
+    close(got[3].sum(0), want[3].sum(0))
+    da = want[1]
+    got = FB.bwd_dao_stage(da, ao, wout, b, n, heads)
+    want = FB.bwd_dao_stage_reference(da, ao, wout, b, n, heads)
+    for a, w in zip(got, want):
+        close(a, w)
+    launched = {k: c for k, c in build.LAUNCHES.items() if c}
+    assert launched == {"megablock_bwd_mlp_dz1": 1, "megablock_bwd_mlp_dx1": 1,
+                        "megablock_bwd_mlp_dao": 1}
+    args = (g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, b, n, heads)
+    first = FB.megablock_bwd_mlp(*args)
+    again = FB.megablock_bwd_mlp(*args)
+    want = FB._bwd_mlp_reference(*args)
+    for k in first._fields:
+        assert torch.equal(getattr(first, k), getattr(again, k)), k
+        if k != "part":
+            close(getattr(first, k), getattr(want, k).to(getattr(first, k).dtype))
+    close(first.part.sum(0), want.part[0])
+    assert build.LAUNCHES["megablock_bwd_mlp"] == 2 and build.LAUNCHES["megablock_bwd_mlp_dx1"] == 3
 
 
 @pytest.mark.cuda

@@ -47,9 +47,12 @@ SIGNATURES = {
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, stream
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
-    # g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, dmlp, dz1, h1, y2, dx1, da,
-    # dao, delta, part, batch, n, e, heads, dh, hidden, eps, stream
-    "megablock_bwd_mlp": [_P] * 20 + [_I] * 6 + [_F, _P],
+    # g, m2, z1, w2, dmlp, dz1, h1, m, e, hidden, stream
+    "megablock_bwd_mlp_dz1": [_P] * 7 + [_I] * 3 + [_P],
+    # dz1, g, m1, x1, w1, ln_s, ln_b, dx1, da, y2, part, m, e, hidden, eps, stream
+    "megablock_bwd_mlp_dx1": [_P] * 11 + [_I] * 3 + [_F, _P],
+    # da, ao, wout, dao, delta, batch, n, e, heads, dh, stream
+    "megablock_bwd_mlp_dao": [_P] * 5 + [_I] * 5 + [_P],
     # dqkv, wqkv, x, dx1, ln_s, ln_b, dx, y1, part, m, e, k, eps, stream
     "megablock_bwd_ln1": [_P] * 9 + [_I] * 3 + [_F, _P],
     # a, b, dw, db, scratch, m, ka, nb, rows_per_split, stream
@@ -58,6 +61,7 @@ SIGNATURES = {
     "sum_partials": [_P] * 2 + [_I] * 2 + [_P],
 }
 SOURCE = {"ln_mlp_fc1": "ln_mlp_fwd", "ln_mlp_linear": "ln_mlp_fwd",
+          **{f"megablock_bwd_mlp_{stage}": "megablock_bwd_mlp" for stage in ("dz1", "dx1", "dao")},
           "sum_partials": "wgrad_gemm"}
 SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 
@@ -66,11 +70,14 @@ SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 # "ln_mlp_linear"); the three LN->MLP forms that compose them count their
 # calls besides: the plain LN->MLP ("ln_mlp_fwd", a fc1 and a linear launch a
 # call), the megablock's out-projection form ("proj_ln_mlp_fwd", a fc1 and
-# two linear) and its training form ("ln_mlp_train_fwd", the same).  The
+# two linear) and its training form ("ln_mlp_train_fwd", the same).  So do
+# the three stage kernels of megablock_bwd_mlp.cu ("megablock_bwd_mlp_dz1",
+# "_dx1", "_dao") and the backward's MLP half that composes them
+# ("megablock_bwd_mlp", one launch of each a call).  The
 # flash kernels count their `dot` launches under their name and the other
 # score modes apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
 LAUNCHES = {name: 0 for name in SIGNATURES}
-LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0)
+LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0, megablock_bwd_mlp=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (
     ("flash_attn_fwd", ("l2", "l2ref")), ("flash_attn_bwd_fused", ("l2",)),
     ("flash_attn_bwd_dq", ("l2",)), ("flash_attn_bwd_dkv", ("l2",))) for mode in modes})

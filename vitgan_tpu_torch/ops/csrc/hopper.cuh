@@ -1,6 +1,6 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
-// ln_mlp_fwd.cu):
+// ln_mlp_fwd.cu, megablock_bwd_mlp.cu):
 // mbarrier rings, TMA tensor loads and stores, wgmma descriptors and products,
 // warpgroup fences, acquire/release flags and register hand-over.
 //
@@ -147,6 +147,12 @@ template <int N>
 __device__ inline void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
+
+// Byte offset of the 4-byte word holding columns 8 jj + 2 t, + 1 of row r in
+// a 128-byte-swizzled 64-column box (16-byte chunk jj of row r at jj ^ r % 8):
+// the word of an m64nN accumulator fragment (rows 16 wr + g + 8 h, columns
+// 8 j + 2 t) in a staged or landed box.
+__device__ inline int swz(int r, int jj, int t) { return r * 128 + ((jj ^ (r & 7)) << 4) + 4 * t; }
 
 // --- wgmma -------------------------------------------------------------------
 
@@ -423,6 +429,25 @@ inline int make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const ui
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tensor map of a row-major (rows, cols) matrix, box 64 columns x
+// box_rows rows, 128-byte swizzle.
+inline int tmap_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {64, (uint32_t)box_rows};
+  return make_tmap_bf16(map, base, 2, dims, strides, box);
+}
+
+// The current device's SM count (the persistent grids' size), read once.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
 }
 
 }  // namespace hopper

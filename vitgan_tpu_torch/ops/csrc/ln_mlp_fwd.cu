@@ -106,10 +106,6 @@ struct Params {
   float inv_keep;
 };
 
-// Byte offset of the 4-byte word holding columns 8 jj + 2 t, + 1 of row r in
-// a 128-byte-swizzled 64-column box (16-byte chunk jj of row r at jj ^ r % 8).
-__device__ inline int swz(int r, int jj, int t) { return r * 128 + ((jj ^ (r & 7)) << 4) + 4 * t; }
-
 // Row LayerNorm of rows r0 .. r0 + 63 of the resident A tile, in place: one
 // warp a row (this warp: rows r0 + 16 wr ..), each lane two 16-byte chunks
 // (E <= 512); f32 statistics over the e real columns (mean, then the mean of
@@ -471,24 +467,6 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   if (ct == 0) bulk_wait<0>();
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// The bf16 tensor map of a row-major (rows, cols) matrix, box 64 columns x
-// box_rows rows, 128-byte swizzle.
-int tmap(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 2};
-  const uint32_t box[2] = {64, (uint32_t)box_rows};
-  return make_tmap_bf16(map, base, 2, dims, strides, box);
-}
-
 }  // namespace
 
 // h (m, hidden) bf16 = gelu(LN(a) . w1 + b1) and, when z1 != NULL, z1 (m,
@@ -502,10 +480,10 @@ extern "C" int ln_mlp_fc1(const void* a, const void* ln_s, const void* ln_b, con
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   CUtensorMap ta, tb, th, tz;
-  int err = tmap(&ta, a, m, e, BM);
-  if (!err) err = tmap(&tb, w1, e, hidden, 64);
-  if (!err) err = tmap(&th, h, m, hidden, 64);
-  if (!err) err = tmap(&tz, z1 != nullptr ? z1 : h, m, hidden, 64);
+  int err = tmap_2d(&ta, a, m, e, BM);
+  if (!err) err = tmap_2d(&tb, w1, e, hidden, 64);
+  if (!err) err = tmap_2d(&th, h, m, hidden, 64);
+  if (!err) err = tmap_2d(&tz, z1 != nullptr ? z1 : h, m, hidden, 64);
   if (err) return err;
   Params p{};
   p.m = m, p.k = e, p.n = hidden;
@@ -535,10 +513,10 @@ extern "C" int ln_mlp_linear(const void* a, const void* w, const void* bias, con
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   CUtensorMap ta, tb, to, tr;
-  int err = tmap(&ta, a, m, k, BM);
-  if (!err) err = tmap(&tb, w, k, n, 64);
-  if (!err) err = tmap(&to, out, m, n, 64);
-  if (!err) err = tmap(&tr, res != nullptr ? res : out, m, n, 64);
+  int err = tmap_2d(&ta, a, m, k, BM);
+  if (!err) err = tmap_2d(&tb, w, k, n, 64);
+  if (!err) err = tmap_2d(&to, out, m, n, 64);
+  if (!err) err = tmap_2d(&tr, res != nullptr ? res : out, m, n, 64);
   if (err) return err;
   Params p{};
   p.m = m, p.k = k, p.n = n;

@@ -1,372 +1,777 @@
 // Saved-residual megablock backward, MLP half and out-projection, for Hopper
-// (sm_90a).
+// (sm_90a), as a chain of three wgmma GEMM stages.
 //
 // Replaces the first half of `_bwd_kernel` in vitgan_tpu/ops/fused_block.py
 // (lines 484-628, entered through `fused_encoder_block_bwd`, pallas_call at
 // :700): from the output cotangent g and the forward's saved residuals x1, z1,
-// ao (and the dropout masks m1, m2), per 64-row tile:
-//     dmlp = g * m2
-//     dz1  = (dmlp . w2^T) * gelu'(z1)              (hidden walked in 64-chunks)
-//     dy2  = dz1 . w1^T                              (accumulated in registers)
-//     dx1  = g + LN2^T(dy2)                          (LN2 statistics recomputed)
-//     da   = dx1 * m1
-//     dao  = da . wout^T, delta = rowsum(dao * ao) per head
-// dao goes out in the (B, H, N, Dh) layout the flash backward kernels read,
-// with delta, their `_delta` (attention.py:640, _bwd_kernel :602).  dmlp (with
-// dropout), dz1 and da go out in bf16 for the weight-gradient kernel
-// (wgrad_gemm.cu), with the other operands of its products as the TPU kernel
-// forms them in its body: h1 = gelu(z1) and y2 = LN2(x1), in bf16.  dx1 goes
-// out in f32 for megablock_bwd_ln1.cu, and per-tile column partials of
-// dln2.scale = sum dy2 * yhat2 and dln2.bias = sum dy2 for a deterministic
-// second-pass sum.  The TPU kernel accumulates the weight
-// gradients in its sequential grid; Hopper blocks run in no order, so they go
-// to wgrad_gemm.cu instead.
+// ao (and the dropout masks m1, m2), on (M, .) rows:
+//     dmlp = g * m2                                           stage dz1
+//     dz1  = (dmlp . w2^T) * gelu'(z1),  h1 = gelu(z1)        stage dz1
+//     dy2  = dz1 . w1^T                                       stage dx1
+//     dx1  = g + LN2^T(dy2),  da = dx1 * m1,  y2 = LN2(x1)    stage dx1
+//     dao  = da . wout^T,  delta = rowsum(dao * ao) per head  stage dao
+// The wrapper (ops/fused_block.megablock_bwd_mlp) composes the three entries
+// below; dmlp (with dropout), dz1 and da pass between them in bf16 and are
+// also outputs.  dao goes out in the (B, H, N, Dh) layout the flash backward
+// kernels read, with delta, their `_delta` (attention.py:640, _bwd_kernel
+// :602); h1, y2 and da are the weight-gradient kernel's operands
+// (wgrad_gemm.cu), dx1 (f32) megablock_bwd_ln1.cu's input, and the per-64-row
+// tile column partials of dln2.scale = sum dy2 * yhat2 and dln2.bias = sum
+// dy2 go to sum_partials.  No atomics: every sum is taken in a fixed order,
+// so two calls give the same bits.
 //
-// Design.  One block of 8 warps per 64-row tile, as ln_mlp_fwd.cu: each warp
-// owns 16 rows by half the E columns of the dy2 accumulators.  Per 64-wide
-// hidden chunk, dh1 is formed on the tensor cores (mma.sync m16n8k16,
-// ldmatrix operands; w2's chunk double-buffered by cp.async), multiplied by
-// gelu'(z1) (exact erf GELU, the forward's) and passed through shared memory
-// as bf16 into dy2 += dz1 . w1[:, chunk]^T.  dy2 is then staged in f32 for
-// the row phase (one warp per row: LN2 backward, masks, stores); da comes
-// back as bf16 for dao, whose chunks are staged in f32 for the per-head
-// delta.  E <= 384, E, hidden and H*Dh multiples of 8.
+// Design: ln_mlp_fwd.cu's core.  Persistent grids of 384 threads, one block
+// an SM: warpgroup 0 the producer (thread 0 streams the weight through an
+// mbarrier ring by TMA, thread 32 the per-tile activations), warpgroups 1 and
+// 2 the consumers, wgmma from shared memory with the 128-byte swizzle.  The
+// three weights are read K-major (the summed E or hidden contiguous: wgmma's
+// transpose bit 0), where the forward read its weights N-major.
+//   megablock_bwd_mlp_rows_kernel<kDz1> (128-row units, BN 128, a 4-stage
+//       ring of w2 boxes): a block takes a unit's g rows whole (E <= 384:
+//       six boxes, 96 KB) by TMA; each consumer warpgroup multiplies its 64
+//       rows by m2 in place (f32 masks loaded eight chunks ahead) and stores
+//       them as dmlp by TMA, then walks the hidden width in 128-column tiles
+//       against them.  z1's boxes of the tile land by TMA under the products;
+//       the epilogue forms Phi(z) once (one erff and one expf an element) for
+//       dz1 = acc * (Phi + z phi) in place of z1 and h1 = z Phi in a staged
+//       box (one a box, so no box waits for the last one's store), both
+//       stored by TMA.
+//   megablock_bwd_mlp_dx1_kernel (64-row tiles, a 2-stage ring of a dz1 box
+//       and w1's 384 rows, each stage released as soon as its products are
+//       done): the two consumer warpgroups split E's columns (m64n192, 96
+//       accumulators a thread) over the whole 64-row tile.  x1's
+//       and g's tiles land by TMA under the products; the warpgroups take
+//       x1's f32 row statistics (over the real E, the forward's order) 32
+//       rows each, then each row's two LayerNorm sums (sum t, sum t yhat) are
+//       reduced in the quad and exchanged through shared memory on a named
+//       barrier, always added warpgroup 0 first.  dx1 is stored directly in
+//       f32 (a quad writes a whole 32-byte sector) with m1 read 32 columns
+//       ahead of the stores, da replaces g and y2 replaces x1 in their landed
+//       tiles for TMA stores; the dln2 column
+//       partials are summed over the warp's 16 rows by shuffles and over the
+//       four warps in order.
+//   megablock_bwd_mlp_rows_kernel<kDao> (128-row units, BN 128): the kDz1
+//       skeleton with da resident and wout streamed.  ao's boxes land by
+//       TMA; each thread sums dao * ao (f32 dao, as the TPU kernel) over its
+//       columns of a head in order, the quad adds its four sums at the head's
+//       last column and stores delta.  dao is staged in bf16 and copied out
+//       16 bytes (8 columns of one head) a thread into (B, H, N, Dh), rows
+//       that straddle a batch included.
+// TMA zero-fills rows past M and columns past K or N (zeros into the
+// products); its stores clip rows past M and columns past the width.
+//
+// What held the former mma.sync kernel back (PERF.md): 8 warps on
+// 64-row blocks with every 64-wide hidden chunk behind two block barriers;
+// each of the 512 blocks re-reading all three weights (2.65 MB) through
+// cp.async with no loads in flight across chunks; a row phase of one warp a
+// row with scalar loads; dao staged in f32 and written 2 bytes at a time,
+// one head of one row at a time.  It ran at 7.4x its bound at G.  The chain
+// costs dz1's, g's and da's second reads (about 151 MB at G).
 //
 // Bound on this card.  At G's shape (32,768 rows, E 384, hidden 1,536, H*Dh
-// 384) a launch does 2*M*(2*E*hidden + E*HD) = 9.7e10 flops (0.10 ms) and
-// moves g, x1, z1, ao, two f32 masks in and dmlp, dz1, h1, y2, dx1, da, dao
-// out, about 0.5 GB (0.15 ms): HBM bounds it.
-#include "common.cuh"
+// 384) a call does 4 M E hidden + 2 M E HD = 8.7e10 flops (0.088 ms) and
+// must move g, x1, z1, ao, the two f32 masks and the weights in and dmlp,
+// dz1, h1, y2, dx1, da, dao, delta out: 633 MB, 0.189 ms, so HBM bounds it;
+// with the chain's second reads 0.234 ms.  At D's 65,600 rows: 1.27 GB,
+// 0.378 ms.  E, hidden and Dh multiples of 8 (TMA's 16-byte strides, the
+// dao stores; ln_qkv_fwd.cu takes the same Dh); E <= 384 (the resident A of
+// kDz1 and kDao, the 384 columns of kDx1).
+//
+// Where the time goes (PERF.md): the three mainloops run near the loads'
+// pace; the epilogues, GELU's erf, the LayerNorm backward's passes and the
+// stores, run between the products, not under them.
+//
+// ptxas -v (sm_90a, CUDA 12.9): each kernel launches at 168 registers a
+// thread (the producer warpgroup drops to 40, the consumers take 232 by
+// setmaxnreg), no spills, no performance warning (C7xxx); dynamic shared
+// memory 230,496 bytes (rows kernels) and 230,960 (dx1): one block an SM.
+#include "hopper.cuh"
 
 using namespace vk;
+using namespace vk::hopper;
 
 namespace {
 
-constexpr int BM = 64;     // rows per block
-constexpr int BH = 64;     // hidden (and out-projection) chunk
-constexpr int NWARP = 8;   // 4 row groups x 2 column halves
-constexpr int MAXNT = 24;  // 8-column accumulator tiles per warp: ep <= 384
-constexpr int MAXC = 12;   // row-phase elements per lane: ep <= 384
+constexpr int THREADS = 384;      // producer warpgroup + two consumers
+constexpr int OBOX = 64 * 64 * 2; // 64 rows of one 64-column bf16 box, bytes
+constexpr int MAXKB = 6;          // 64-column boxes of E: E <= 384
 
-__host__ __device__ inline size_t max3(size_t a, size_t b, size_t c) {
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
-}
+// --- the resident-A stages: dz1 (h1, dmlp) and dao (delta) ---------------------
 
-struct BwdSmem {
-  int lda, ldw1, ldw2, ldh, ldst, ldo;
-  size_t r1_off, r2_off, r3_off, w2_size, bytes;
-  __host__ __device__ BwdSmem(int ep, int hdp) {
-    lda = ep + 8;   // R0: bf16 dmlp tile, later the da tile, BM x ep
-    ldw2 = ep + 8;  // R1: bf16 w2 chunk, BH x ep, two buffers | f32 dy2 | f32 dao
-    ldst = ep + 4;  //     f32 dy2, BM x ep
-    ldo = hdp + 4;  //     f32 dao, BM x hdp
-    ldw1 = BH + 8;  // R2: bf16 w1 chunk, ep x BH | wout chunk BH x ep | warp partials
-    ldh = BH + 8;   // R3: bf16 dz1 chunk, BM x BH
-    w2_size = (size_t)BH * ldw2 * 2;
-    r1_off = (size_t)BM * lda * 2;
-    r2_off = r1_off + max3(2 * w2_size, (size_t)BM * ldst * 4, (size_t)BM * ldo * 4);
-    r3_off = r2_off + max3((size_t)ep * ldw1 * 2, w2_size, (size_t)2 * NWARP * ep * 4);
-    bytes = r3_off + (size_t)BM * ldh * 2;
-  }
+enum { kDz1 = 0, kDao = 1 };
+
+namespace rs {
+constexpr int BM = 128;                   // rows a unit
+constexpr int ABOX = 64 * BM * 2;         // one 64-column box of the unit's rows
+constexpr int BN = 128;                   // output columns a tile
+constexpr int NB = BN / 64;               // 64-column boxes a tile
+constexpr int STAGES = 4;
+constexpr int STAGE = BN * 128;           // 64 deep x BN rows of a K-major weight
+constexpr int SMEM = 1024 + MAXKB * ABOX + STAGES * STAGE + 2 * 2 * NB * OBOX +
+                     (2 * STAGES + 4) * 8;
+}  // namespace rs
+
+struct RowsParams {
+  int m, k, n;          // rows, the resident width E, the output width (hidden or H*Dh)
+  const float* mask;    // kDz1: m2 (m, k) f32, or null (no dropout)
+  bf16* dao;            // kDao: (B, H, N, Dh)
+  float* delta;         // kDao: (B, H, N)
+  int ntok, heads, dh;  // kDao
 };
 
-__global__ void __launch_bounds__(NWARP * 32)
-megablock_bwd_mlp_kernel(const bf16* __restrict__ gout, const float* __restrict__ m1,
-                         const float* __restrict__ m2, const bf16* __restrict__ x1,
-                         const bf16* __restrict__ z1, const bf16* __restrict__ ao,
-                         const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                         const bf16* __restrict__ wout, const float* __restrict__ ln_s,
-                         const float* __restrict__ ln_b, bf16* __restrict__ dmlp_out,
-                         bf16* __restrict__ dz1_out, bf16* __restrict__ h1_out,
-                         bf16* __restrict__ y2_out, float* __restrict__ dx1_out,
-                         bf16* __restrict__ da_out, bf16* __restrict__ dao_out,
-                         float* __restrict__ delta_out, float* __restrict__ part_out, int batch,
-                         int n, int e, int ep, int heads, int dh, int hidden, float eps) {
-  const int m = batch * n, hd = heads * dh, hdp = ceil_to(hd, BH);
-  const BwdSmem L(ep, hdp);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  float* st = reinterpret_cast<float*>(smem + L.r1_off);  // dy2, later dao
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L.r2_off);
-  bf16* wos = w1s;                                         // wout chunk
-  float* red = reinterpret_cast<float*>(smem + L.r2_off);  // warp partials
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.r3_off);
-  auto w2_buf = [&](int s) { return reinterpret_cast<bf16*>(smem + L.r1_off + s * L.w2_size); };
+// Rows rw0 .. rw0 + 63 of the resident tile (rows r0 .. of the matrix) times
+// the f32 mask, in place: the warpgroup's threads take 16-byte chunks (8
+// columns) in turn, the masks of eight chunks loaded before any is used.
+__device__ inline void mask_rows(unsigned char* as, int rw0, int r0, int m, int k,
+                                 const float* __restrict__ mask) {
+  const int ct = threadIdx.x & 127, nch = k >> 3, items = 64 * nch;
+  for (int base = 0; base < items; base += 8 * 128) {
+    float4 mk[8][2];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int idx = base + 128 * q + ct, rr = idx / nch, c = idx - rr * nch;
+      mk[q][0] = mk[q][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx < items && r0 + rr < m) {
+        const float4* src = reinterpret_cast<const float4*>(mask + (long)(r0 + rr) * k + 8 * c);
+        mk[q][0] = __ldg(src);
+        mk[q][1] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int idx = base + 128 * q + ct, rr = idx / nch, c = idx - rr * nch;
+      if (idx >= items) continue;
+      const int r = rw0 + rr;
+      uint4* p = reinterpret_cast<uint4*>(as + (c >> 3) * rs::ABOX + r * 128 +
+                                          (((c & 7) ^ (r & 7)) << 4));
+      const uint4 v = *p;
+      const float f[8] = {mk[q][0].x, mk[q][0].y, mk[q][0].z, mk[q][0].w,
+                          mk[q][1].x, mk[q][1].y, mk[q][1].z, mk[q][1].w};
+      const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+      uint32_t out[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&in[i]));
+        out[i] = pack_bf16(x.x * f[2 * i], x.y * f[2 * i + 1]);
+      }
+      *p = make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  }
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int rg = (warp & 3) * 16;            // this warp's 16 rows
-  const int cbase = (warp >> 2) * (ep / 2);  // its half of the E columns
-  const int hcol = (warp >> 2) * 32;         // its 32 columns of a 64-wide chunk
-  const int nt = ep / 16;
+// A block takes a 128-row unit of A (g, or da) whole; the consumer
+// warpgroups (64 rows each) walk every 128-column tile of the output width
+// against it while the weight (w2, or wout: (n, k) row-major, K-major)
+// streams through the ring.  tx: the per-tile operand of the epilogue (z1,
+// or ao), landed 64 rows x 64 columns a box; to1 / to2: dz1 / h1 stores;
+// td: dmlp's store (kDz1 with a mask).
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 1)
+megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
+                              const __grid_constant__ CUtensorMap tb,
+                              const __grid_constant__ CUtensorMap tx,
+                              const __grid_constant__ CUtensorMap to1,
+                              const __grid_constant__ CUtensorMap to2,
+                              const __grid_constant__ CUtensorMap td, const RowsParams p) {
+  using namespace rs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* as = smem;                             // box kb of A at kb ABOX
+  unsigned char* stages = as + MAXKB * ABOX;            // stage s at s STAGE
+  unsigned char* aux = stages + STAGES * STAGE;         // (warpgroup w, box b) at (w NB + b) OBOX
+  unsigned char* staging = aux + 2 * NB * OBOX;         // (warpgroup w, box b) at (w NB + b) OBOX
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * NB * OBOX);
+  uint64_t* empty = full + STAGES;
+  uint64_t* afull = empty + STAGES;                     // A landed / A free again
+  uint64_t* aempty = afull + 1;
+  uint64_t* xfull = aempty + 1;                         // warpgroup w's tx boxes landed
 
-  // 1. The g tile and w2's first chunk arrive by cp.async; dmlp = g * m2.
-  cp_tile(as, L.lda, gout, e, row0, 0, BM, ep, m, e);
-  cp_tile(w2_buf(0), L.ldw2, w2, e, 0, 0, BH, ep, hidden, e);
-  cp_async_commit();
-  cp_async_wait<0>();
+  const int wgi = threadIdx.x >> 7;
+  const int nkb = (p.k + 63) / 64;
+  const int ntiles = (p.n + BN - 1) / BN, units = (p.m + BM - 1) / BM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(afull, 1);
+    mbar_init(aempty, 2);
+    mbar_init(&xfull[0], 1);
+    mbar_init(&xfull[1], 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  if (m2 != nullptr) {
-    for (int i = tid; i < BM * (ep / 2); i += NWARP * 32) {
-      const int r = i / (ep / 2), c = 2 * (i - r * (ep / 2)), gr = row0 + r;
-      if (gr < m && c < e) {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(as + r * L.lda + c);
-        const float2 gv = __bfloat1622float2(*p);
-        const float2 mk = *reinterpret_cast<const float2*>(m2 + (long)gr * e + c);
-        const uint32_t v = pack_bf16(gv.x * mk.x, gv.y * mk.y);
-        *reinterpret_cast<uint32_t*>(p) = v;
-        *reinterpret_cast<uint32_t*>(dmlp_out + (long)gr * e + c) = v;
+
+  if (wgi == 0) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {  // the weight, 64 deep a stage, every tile of every unit in order
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        for (int nt = 0; nt < ntiles; ++nt)
+          for (int kb = 0; kb < nkb; ++kb, ++it) {
+            const int s = it % STAGES;
+            if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+            mbar_arrive_tx(&full[s], STAGE);
+            tma_load_2d(stages + s * STAGE, &tb, &full[s], kb * 64, nt * BN);
+          }
+    } else if (threadIdx.x == 32) {  // A, one 128-row unit at a time
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        if (i > 0) mbar_wait(aempty, (i - 1) & 1);
+        mbar_arrive_tx(afull, nkb * ABOX);
+        for (int kb = 0; kb < nkb; ++kb) tma_load_2d(as + kb * ABOX, &ta, afull, kb * 64, u * BM);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns rows 64 w .. 64 w + 63 of each unit
+  reg_alloc<232>();
+  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
+            g = lane >> 2, t = lane & 3;
+  unsigned char* xb = aux + w * NB * OBOX;
+  unsigned char* sbw = staging + w * NB * OBOX;
+  float acc[BN / 2];
+  float run[2] = {0.f, 0.f};  // kDao: this thread's sums of the current head, rows h = 0, 1
+  int it = 0, i = 0, xloads = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int r0 = u * BM + 64 * w;
+    const bool live = r0 < p.m;  // the same for the whole warpgroup
+    mbar_wait(afull, i & 1);
+    if constexpr (KIND == kDz1) {
+      if (p.mask != nullptr && live) {  // dmlp = g * m2, in place, then stored
+        mask_rows(as, 64 * w, r0, p.m, p.k, p.mask);
+        fence_proxy_async();  // the masked rows, to wgmma and the TMA unit
+        named_bar_sync(1 + w, 128);
+        if (ct == 0) {
+          for (int kb = 0; kb < nkb; ++kb) tma_store_2d(&td, as + kb * ABOX + w * (64 * 128),
+                                                        kb * 64, r0);
+          bulk_commit();
+        }
+      }
+    }
+    for (int nt = 0; nt < ntiles; ++nt) {
+      const int n0 = nt * BN, nbox = min(NB, (p.n - n0 + 63) / 64);
+      // this warpgroup's tx boxes land under the products (the last tile's
+      // stores from them and from the staged boxes have read them, which
+      // xfull's wait passes on to the other threads; its reads precede a
+      // proxy fence and a barrier)
+      if (live && ct == 0) {
+        bulk_wait_read<0>();
+        mbar_arrive_tx(&xfull[w], nbox * OBOX);
+        for (int b = 0; b < nbox; ++b) tma_load_2d(xb + b * OBOX, &tx, &xfull[w], n0 + 64 * b, r0);
+      }
+      for (int kb = 0; kb < nkb; ++kb, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* a = as + kb * ABOX + w * (64 * 128);
+        const unsigned char* b = stages + s * STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<BN, 0, 0>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                             desc_sw128(b + kk * 32, 16, 1024), kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (ct == 0) {
+        mbar_arrive(&empty[(it - 1) % STAGES]);
+        if (nt == ntiles - 1) {  // every product of this unit has read A, and dmlp's store
+          bulk_wait_read<0>();
+          mbar_arrive(aempty);
+        }
+      }
+      if (!live) continue;
+      mbar_wait(&xfull[w], xloads++ & 1);
+
+      // epilogue, one 64-column box at a time.  This thread holds rows
+      // 16 wr + g + 8 h of the warpgroup's 64, columns 8 j + 2 t + (0, 1) of
+      // the tile; the landed box has the output box's layout.
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) {
+        const int c0 = n0 + 64 * jb;
+        if (c0 >= p.n) continue;  // the same for the whole warpgroup
+        unsigned char* xbox = xb + jb * OBOX;
+        unsigned char* sb = sbw + jb * OBOX;
+        named_bar_sync(1 + w, 128);  // every thread has read the last tile's staged box
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * jb + jj, gc = c0 + 8 * jj;
+          float pr[2][2] = {};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int rr = 16 * wr + g + 8 * h;
+            uint32_t* xp = reinterpret_cast<uint32_t*>(xbox + swz(rr, jj, t));
+            const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));
+            const float d0 = acc[4 * j + 2 * h], d1 = acc[4 * j + 2 * h + 1];
+            if constexpr (KIND == kDz1) {
+              // Phi(z) once: gelu(z) = z Phi, gelu'(z) = Phi + z phi (exact erf)
+              const float cdf0 = 0.5f * (1.f + erff(x.x * 0.70710678118654752f));
+              const float cdf1 = 0.5f * (1.f + erff(x.y * 0.70710678118654752f));
+              const float pdf0 = 0.39894228040143268f * __expf(-0.5f * x.x * x.x);
+              const float pdf1 = 0.39894228040143268f * __expf(-0.5f * x.y * x.y);
+              *xp = pack_bf16(d0 * (cdf0 + x.x * pdf0), d1 * (cdf1 + x.y * pdf1));  // dz1, in place
+              *reinterpret_cast<uint32_t*>(sb + swz(rr, jj, t)) =
+                  pack_bf16(x.x * cdf0, x.y * cdf1);  // h1
+            } else {
+              pr[h][0] = d0 * x.x;
+              pr[h][1] = d1 * x.y;
+              *reinterpret_cast<uint32_t*>(sb + swz(rr, jj, t)) = pack_bf16(d0, d1);
+            }
+          }
+          if (KIND == kDao && gc < p.n) {  // the same for the whole warp
+            // delta: each thread sums its columns of the head in order, the
+            // quad adds its four sums at the head's last 8-column group (Dh
+            // a multiple of 8: a group lies in one head)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) run[h] += pr[h][0] + pr[h][1];
+            const int hh = gc / p.dh;
+            if ((hh + 1) * p.dh == gc + 8) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                float s = run[h];
+                s += __shfl_xor_sync(0xffffffffu, s, 1);
+                s += __shfl_xor_sync(0xffffffffu, s, 2);
+                const int row = r0 + 16 * wr + g + 8 * h;
+                if (t == 0 && row < p.m) {
+                  const int bi = row / p.ntok, tok = row - bi * p.ntok;
+                  p.delta[((long)bi * p.heads + hh) * p.ntok + tok] = s;
+                }
+                run[h] = 0.f;
+              }
+            }
+          }
+        }
+        fence_proxy_async();  // the staged box (and dz1), to the TMA unit
+        named_bar_sync(1 + w, 128);
+        if constexpr (KIND == kDz1) {
+          if (ct == 0) {
+            tma_store_2d(&to1, xbox, c0, r0);
+            tma_store_2d(&to2, sb, c0, r0);
+            bulk_commit();
+          }
+        } else {
+          // dao to (B, H, N, Dh): 16 bytes (8 columns of one row) a thread
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int idx = 128 * q + ct, rr = idx >> 3, cc = idx & 7;
+            const int row = r0 + rr, col = c0 + 8 * cc;
+            if (row >= p.m || col >= p.n) continue;
+            const uint4 v = *reinterpret_cast<const uint4*>(sb + rr * 128 +
+                                                            ((cc ^ (rr & 7)) << 4));
+            const int bi = row / p.ntok, tok = row - bi * p.ntok, hh = col / p.dh;
+            *reinterpret_cast<uint4*>(p.dao + (((long)bi * p.heads + hh) * p.ntok + tok) * p.dh +
+                                      col - hh * p.dh) = v;
+          }
+        }
       }
     }
   }
+  if (ct == 0) bulk_wait<0>();
+}
 
-  float acc[MAXNT][4];
+// --- dy2 = dz1 . w1^T and the LayerNorm backward: dx1, da, y2, dln2 partials ----
+
+namespace lb {
+constexpr int BM = 64;                      // rows a tile
+constexpr int BNW = 192;                    // columns a consumer warpgroup
+constexpr int ABOX = 64 * BM * 2;           // one 64-deep box of the tile's dz1 rows
+constexpr int WBOX = BNW * 128;             // one 64-deep box of 192 rows of w1
+constexpr int STAGES = 2;
+constexpr int STAGE = ABOX + 2 * WBOX;
+constexpr int SMEM = 1024 + STAGES * STAGE + 2 * MAXKB * OBOX + BM * 8 + 2 * BM * 8 +
+                     2 * 4 * 2 * BNW * 4 + 2 * 2 * BNW * 4 + (2 * STAGES + 2) * 8;
+}  // namespace lb
+
+struct Dx1Params {
+  int m, e, hidden;
+  const float* m1;   // (m, e) f32, or null
+  const float* ln_s;
+  const float* ln_b;
+  float eps;
+  float* dx1;        // (m, e) f32
+  float* part;       // (tiles, 2 e) f32
+};
+
+// A 64-row tile a step: dy2 over the whole hidden width, warpgroup w holding
+// columns 192 w .. 192 w + 191 (E <= 192: warpgroup 1 multiplies TMA's zeros;
+// a wgmma in a branch would be serialised).
+// tx / tg: x1's and g's tiles landed; ty / tda: y2's and da's stores, from
+// the same shared memory.
+__global__ void __launch_bounds__(THREADS, 1)
+megablock_bwd_mlp_dx1_kernel(const __grid_constant__ CUtensorMap ta,
+                             const __grid_constant__ CUtensorMap tb,
+                             const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tg,
+                             const __grid_constant__ CUtensorMap ty,
+                             const __grid_constant__ CUtensorMap tda, const Dx1Params p) {
+  using namespace lb;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* stages = smem;                        // stage s at s STAGE
+  unsigned char* xs = stages + STAGES * STAGE;         // x1's box kb at kb OBOX, later y2
+  unsigned char* gs = xs + MAXKB * OBOX;               // g's box kb, later da
+  float2* stats = reinterpret_cast<float2*>(gs + MAXKB * OBOX);  // (mean, rstd) of each row
+  float2* xch = stats + BM;                            // warpgroup w's (sum t, sum t yhat) at w BM + r
+  float* colp = reinterpret_cast<float*>(xch + 2 * BM);  // (w, warp, scale|bias, column)
+  float* lnp = colp + 2 * 4 * 2 * BNW;                 // gamma2 at c, beta2 at 2 BNW + c
+  uint64_t* full = reinterpret_cast<uint64_t*>(lnp + 2 * 2 * BNW);
+  uint64_t* empty = full + STAGES;
+  uint64_t* tfull = empty + STAGES;                    // x1 and g landed / free again
+  uint64_t* tempty = tfull + 1;
+
+  const int wgi = threadIdx.x >> 7;
+  const int nkh = (p.hidden + 63) / 64, nke = (p.e + 63) / 64;
+  const int units = (p.m + BM - 1) / BM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(tfull, 1);
+    mbar_init(tempty, 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {  // dz1's rows and w1, 64 deep a stage
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        for (int kb = 0; kb < nkh; ++kb, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+          unsigned char* st = stages + s * STAGE;
+          mbar_arrive_tx(&full[s], STAGE);
+          tma_load_2d(st, &ta, &full[s], kb * 64, u * BM);
+          tma_load_2d(st + ABOX, &tb, &full[s], kb * 64, 0);
+          tma_load_2d(st + ABOX + WBOX, &tb, &full[s], kb * 64, BNW);
+        }
+    } else if (threadIdx.x == 32) {  // x1 and g, one tile at a time
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        if (i > 0) mbar_wait(tempty, (i - 1) & 1);
+        mbar_arrive_tx(tfull, 2 * nke * OBOX);
+        for (int kb = 0; kb < nke; ++kb) {
+          tma_load_2d(xs + kb * OBOX, &tx, tfull, kb * 64, u * BM);
+          tma_load_2d(gs + kb * OBOX, &tg, tfull, kb * 64, u * BM);
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
+            g = lane >> 2, t = lane & 3;
+  const float inv_e = 1.f / p.e;
+  for (int c = 128 * w + ct; c < p.e; c += 256) {
+    lnp[c] = p.ln_s[c];
+    lnp[2 * BNW + c] = p.ln_b[c];
+  }
+  named_bar_sync(3, 256);
+  float acc[BNW / 2];
+  float* cpw = colp + (4 * w + wr) * 2 * BNW;  // this warp's column partials
+  int it = 0, i = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int m0 = u * BM;
+    for (int kb = 0; kb < nkh; ++kb, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* st = stages + s * STAGE;
+      wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < MAXNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<BNW, 0, 0>(acc, desc_sw128(st + kk * 32, 16, 1024),
+                            desc_sw128(st + ABOX + w * WBOX + kk * 32, 16, 1024),
+                            kb > 0 || kk > 0);
+      wgmma_commit();
+      // release the stage as soon as its products are done: with two stages
+      // the next load then runs beside the wait for the one in flight
+      wgmma_wait<0>();
+      if (ct == 0) mbar_arrive(&empty[s]);
+    }
+    fence_regs(acc);
+    mbar_wait(tfull, i & 1);
 
-  // 2. Over 64-wide hidden chunks c: dz1 = (dmlp . w2[c, :]^T) * gelu'(z1[:, c])
-  //    and dy2 += dz1 . w1[:, c]^T.  Two block barriers a chunk: after the
-  //    first, w2 chunk c has landed and every warp is done with chunk c - 1,
-  //    so w1's buffer, hs and w2's other buffer may be refilled.
-  const int nch = (hidden + BH - 1) / BH;
-  for (int c = 0; c < nch; ++c) {
-    cp_async_wait<0>();
-    __syncthreads();
-    cp_tile(w1s, L.ldw1, w1, hidden, 0, c * BH, ep, BH, e, hidden);
-    cp_async_commit();
-    if (c + 1 < nch) cp_tile(w2_buf((c + 1) & 1), L.ldw2, w2, e, (c + 1) * BH, 0, BH, ep, hidden, e);
-    cp_async_commit();
-    float hacc[4][4] = {};
-    const bf16* w2s = w2_buf(c & 1);
-#pragma unroll 2
-    for (int kk = 0; kk < ep / 16; ++kk) {
-      uint32_t a[4], b[4], b2v[4];
-      load_a(a, as, L.lda, rg, kk * 16);
-      load_b_nk(b, w2s, L.ldw2, kk * 16, hcol);
-      load_b_nk(b2v, w2s, L.ldw2, kk * 16, hcol + 16);
-      mma16816(hacc[0], a, b[0], b[1]);
-      mma16816(hacc[1], a, b[2], b[3]);
-      mma16816(hacc[2], a, b2v[0], b2v[1]);
-      mma16816(hacc[3], a, b2v[2], b2v[3]);
+    // LayerNorm statistics of x1's rows 32 w .. 32 w + 31, one warp a row:
+    // f32 over the real E, the mean, then the mean of squared deviations
+    const int nch = p.e >> 3;
+#pragma unroll 1
+    for (int rr = 0; rr < 8; ++rr) {
+      const int r = 32 * w + 8 * wr + rr;
+      float v[2][8];
+      float sum = 0.f;
+#pragma unroll
+      for (int ci = 0; ci < 2; ++ci) {
+        const int c = lane + 32 * ci;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (c < nch)
+          raw = *reinterpret_cast<const uint4*>(xs + (c >> 3) * OBOX + r * 128 +
+                                                (((c & 7) ^ (r & 7)) << 4));
+        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[q]));
+          v[ci][2 * q] = f.x;
+          v[ci][2 * q + 1] = f.y;
+          sum += f.x + f.y;
+        }
+      }
+      const float mean = warp_sum(sum) / p.e;
+      float sq = 0.f;
+#pragma unroll
+      for (int ci = 0; ci < 2; ++ci)
+        if (lane + 32 * ci < nch)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float d = v[ci][q] - mean;
+            sq += d * d;
+          }
+      const float rstd = rsqrtf(warp_sum(sq) / p.e + p.eps);
+      if (lane == 0) stats[r] = make_float2(mean, rstd);
+    }
+    named_bar_sync(3, 256);
+
+    // this thread: rows rr[h] = 16 wr + g + 8 h of the tile, columns
+    // 192 w + 8 j + 2 t + (0, 1), in box 3 w + j / 8 at chunk j % 8
+    float mean[2], rstd[2], st[2] = {0.f, 0.f}, sty[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 s = stats[16 * wr + g + 8 * h];
+      mean[h] = s.x;
+      rstd[h] = s.y;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = hcol + j * 8 + 2 * t, gc = c * BH + col;
+    for (int j = 0; j < BNW / 8; ++j) {
+      const int cl = 8 * j + 2 * t, col = BNW * w + cl;
+      if (j % 8 == 0) asm volatile("" ::: "memory");  // a box's loads at a time: registers
+      if (BNW * w + 8 * j >= p.e) continue;  // the same for the whole warp
+      const unsigned char* xbox = xs + (3 * w + j / 8) * OBOX;
+      const float2 gm = *reinterpret_cast<const float2*>(lnp + col);
+      float py0 = 0.f, py1 = 0.f, pb0 = 0.f, pb1 = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = rg + g + 8 * h, gr = row0 + r;
-        uint32_t v = 0u;
-        if (gr < m && gc < hidden) {
-          const float2 z = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(z1 + (long)gr * hidden + gc));
-          v = pack_bf16(hacc[j][2 * h] * gelu_grad(z.x), hacc[j][2 * h + 1] * gelu_grad(z.y));
-          *reinterpret_cast<uint32_t*>(dz1_out + (long)gr * hidden + gc) = v;
-          *reinterpret_cast<uint32_t*>(h1_out + (long)gr * hidden + gc) =
-              pack_bf16(gelu(z.x), gelu(z.y));
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            xbox + swz(16 * wr + g + 8 * h, j % 8, t)));
+        const float y0 = (x.x - mean[h]) * rstd[h], y1 = (x.y - mean[h]) * rstd[h];
+        const float d0 = acc[4 * j + 2 * h], d1 = acc[4 * j + 2 * h + 1];
+        const float t0 = d0 * gm.x, t1 = d1 * gm.y;
+        st[h] += t0 + t1;
+        sty[h] += t0 * y0 + t1 * y1;
+        py0 += d0 * y0;
+        py1 += d1 * y1;
+        pb0 += d0;
+        pb1 += d1;
+      }
+      // the warp's 16 rows: lanes g = 0 .. 7 in a fixed tree
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        py0 += __shfl_xor_sync(0xffffffffu, py0, o);
+        py1 += __shfl_xor_sync(0xffffffffu, py1, o);
+        pb0 += __shfl_xor_sync(0xffffffffu, pb0, o);
+        pb1 += __shfl_xor_sync(0xffffffffu, pb1, o);
+      }
+      if (g == 0) {
+        *reinterpret_cast<float2*>(cpw + cl) = make_float2(py0, py1);
+        *reinterpret_cast<float2*>(cpw + BNW + cl) = make_float2(pb0, pb1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      st[h] += __shfl_xor_sync(0xffffffffu, st[h], 1);
+      st[h] += __shfl_xor_sync(0xffffffffu, st[h], 2);
+      sty[h] += __shfl_xor_sync(0xffffffffu, sty[h], 1);
+      sty[h] += __shfl_xor_sync(0xffffffffu, sty[h], 2);
+      if (t == 0) xch[w * BM + 16 * wr + g + 8 * h] = make_float2(st[h], sty[h]);
+    }
+    named_bar_sync(3, 256);
+
+    // dx1 = g + rstd (t - mean(t) - yhat mean(t yhat)), t = dy2 gamma2
+    // (_ln_bwd, fused_block.py:464-470); da = dx1 m1; y2 = yhat gamma2 + beta2
+    float mt[2], mty[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * wr + g + 8 * h;
+      const float2 a = xch[r], b = xch[BM + r];
+      mt[h] = (a.x + b.x) * inv_e;
+      mty[h] = (a.y + b.y) * inv_e;
+    }
+#pragma unroll
+    for (int jq = 0; jq < BNW / 32; ++jq) {
+      // 32 columns at a time, their m1 loads issued before any of their
+      // stores (a load after a store that might alias it waits out its
+      // latency; plain loads, which the compiler keeps behind the last
+      // group's stores, hold 16 registers)
+      float2 mk[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 16 * wr + g + 8 * h, col = BNW * w + 32 * jq + 8 * jj + 2 * t;
+          mk[jj][h] = p.m1 != nullptr && row < p.m && col < p.e
+                          ? *reinterpret_cast<const float2*>(p.m1 + (long)row * p.e + col)
+                          : make_float2(1.f, 1.f);
         }
-        *reinterpret_cast<uint32_t*>(hs + r * L.ldh + col) = v;
-      }
-    }
-    cp_async_wait<1>();  // w1 chunk c has landed
-    __syncthreads();     // and the whole dz1 chunk is in hs
 #pragma unroll
-    for (int kk = 0; kk < BH / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, hs, L.ldh, rg, kk * 16);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * jq + jj, jb = j / 8, col = BNW * w + 8 * j + 2 * t;
+        if (BNW * w + 8 * j >= p.e) continue;  // the same for the whole warp
+        const float2 gm = *reinterpret_cast<const float2*>(lnp + col);
+        const float2 bt = *reinterpret_cast<const float2*>(lnp + 2 * BNW + col);
 #pragma unroll
-      for (int j = 0; j < MAXNT; j += 2) {
-        if (j < nt) {
-          uint32_t b[4];
-          load_b_nk(b, w1s, L.ldw1, kk * 16, cbase + j * 8);
-          mma16816(acc[j], a, b[0], b[1]);
-          mma16816(acc[j + 1], a, b[2], b[3]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wr + g + 8 * h, row = m0 + r, o = (3 * w + jb) * OBOX + swz(r, j % 8, t);
+          uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
+          uint32_t* gp = reinterpret_cast<uint32_t*>(gs + o);
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));
+          const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gp));
+          const float y0 = (x.x - mean[h]) * rstd[h], y1 = (x.y - mean[h]) * rstd[h];
+          const float d0 = acc[4 * j + 2 * h] * gm.x, d1 = acc[4 * j + 2 * h + 1] * gm.y;
+          const float dx0 = gv.x + (d0 - mt[h] - y0 * mty[h]) * rstd[h];
+          const float dx1 = gv.y + (d1 - mt[h] - y1 * mty[h]) * rstd[h];
+          if (row < p.m)
+            *reinterpret_cast<float2*>(p.dx1 + (long)row * p.e + col) = make_float2(dx0, dx1);
+          *gp = pack_bf16(dx0 * mk[jj][h].x, dx1 * mk[jj][h].y);  // da
+          *xp = pack_bf16(y0 * gm.x + bt.x, y1 * gm.y + bt.y);    // y2
         }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the w1 and w2 buffers
-
-  // 3. dy2 to shared memory in f32 (over the w2 buffers).
-#pragma unroll
-  for (int j = 0; j < MAXNT; ++j) {
-    if (j < nt) {
-      const int col = cbase + j * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(st + (rg + g + 8 * h) * L.ldst + col) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
-  }
-  __syncthreads();
-
-  // 4. Row phase, one warp per row: LN2's statistics from x1, then
-  //    dx1 = g + rstd * (t - mean(t) - yhat * mean(t * yhat)), t = dy2 * gamma2
-  //    (_ln_bwd, fused_block.py:464-470); da = dx1 * m1.
-  float ps[MAXC], pb[MAXC];
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) ps[i] = pb[i] = 0.f;
-  for (int r = warp; r < BM; r += NWARP) {
-    const int gr = row0 + r;
-    if (gr >= m) {
-#pragma unroll
-      for (int i = 0; i < MAXC; ++i) {
-        const int c = lane + 32 * i;
-        if (c < ep) as[r * L.lda + c] = __float2bfloat16(0.f);
+    fence_proxy_async();  // y2 and da, to the TMA unit
+    named_bar_sync(1 + w, 128);
+    if (ct == 0) {
+      for (int b = 0; b < 3; ++b) {
+        const int kb = 3 * w + b;
+        if (kb < nke) {
+          tma_store_2d(&ty, xs + kb * OBOX, kb * 64, m0);
+          tma_store_2d(&tda, gs + kb * OBOX, kb * 64, m0);
+        }
       }
-      continue;
+      bulk_commit();
     }
-    float v[MAXC], dy[MAXC];
-    float s = 0.f;
+    // the tile's dln2 column partials: the four warps' sums added in order
+    const float* cw = colp + 4 * w * 2 * BNW;
+    for (int c = ct; c < BNW; c += 128) {
+      const int col = BNW * w + c;
+      if (col >= p.e) continue;
+      float sy = 0.f, sb = 0.f;
 #pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < e ? __bfloat162float(x1[(long)gr * e + c]) : 0.f;
-      dy[i] = c < e ? st[r * L.ldst + c] : 0.f;
-      s += v[i];
-    }
-    const float mean = warp_sum(s) / e;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int c = lane + 32 * i;
-      const float d = c < e ? v[i] - mean : 0.f;
-      q += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(q) / e + eps);
-    float st_ = 0.f, sty = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < e ? (v[i] - mean) * rstd : 0.f;  // yhat
-      const float tt = c < e ? dy[i] * ln_s[c] : 0.f;
-      st_ += tt;
-      sty += tt * v[i];
-      ps[i] += dy[i] * v[i];
-      pb[i] += dy[i];
-    }
-    const float mt = warp_sum(st_) / e, mty = warp_sum(sty) / e;
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int c = lane + 32 * i;
-      if (c >= ep) continue;
-      float da = 0.f;
-      if (c < e) {
-        const long o = (long)gr * e + c;
-        const float dx1 = __bfloat162float(gout[o]) + (dy[i] * ln_s[c] - mt - v[i] * mty) * rstd;
-        dx1_out[o] = dx1;
-        y2_out[o] = __float2bfloat16(v[i] * ln_s[c] + ln_b[c]);
-        da = m1 != nullptr ? dx1 * m1[o] : dx1;
-        da_out[o] = __float2bfloat16(da);
+      for (int q = 0; q < 4; ++q) {
+        sy += cw[q * 2 * BNW + c];
+        sb += cw[q * 2 * BNW + BNW + c];
       }
-      as[r * L.lda + c] = __float2bfloat16(da);
+      p.part[(long)u * 2 * p.e + col] = sy;
+      p.part[(long)u * 2 * p.e + p.e + col] = sb;
+    }
+    if (ct == 0) {  // y2's and da's stores have read the tiles: x1 and g may land again
+      bulk_wait_read<0>();
+      mbar_arrive(tempty);
     }
   }
-  // The block's column partials of dln2: warps' sums through shared memory.
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    const int c = lane + 32 * i;
-    if (c < ep) {
-      red[(2 * warp) * ep + c] = ps[i];
-      red[(2 * warp + 1) * ep + c] = pb[i];
-    }
-  }
-  __syncthreads();
-  for (int c2 = tid; c2 < 2 * e; c2 += NWARP * 32) {
-    const int half = c2 < e ? 0 : 1, c = c2 - half * e;
-    float s = 0.f;
-    for (int w = 0; w < NWARP; ++w) s += red[(2 * w + half) * ep + c];
-    part_out[(long)blockIdx.x * 2 * e + c2] = s;
-  }
-  __syncthreads();  // the partials area takes wout's chunks next
-
-  // 5. dao = da . wout^T over 64-wide chunks of H*Dh, staged in f32.
-  for (int c = 0; c < hdp / BH; ++c) {
-    cp_tile(wos, L.ldw2, wout, e, c * BH, 0, BH, ep, hd, e);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float hacc[4][4] = {};
-#pragma unroll 2
-    for (int kk = 0; kk < ep / 16; ++kk) {
-      uint32_t a[4], b[4], b2v[4];
-      load_a(a, as, L.lda, rg, kk * 16);
-      load_b_nk(b, wos, L.ldw2, kk * 16, hcol);
-      load_b_nk(b2v, wos, L.ldw2, kk * 16, hcol + 16);
-      mma16816(hacc[0], a, b[0], b[1]);
-      mma16816(hacc[1], a, b[2], b[3]);
-      mma16816(hacc[2], a, b2v[0], b2v[1]);
-      mma16816(hacc[3], a, b2v[2], b2v[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c * BH + hcol + j * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(st + (rg + g + 8 * h) * L.ldo + col) =
-            make_float2(hacc[j][2 * h], hacc[j][2 * h + 1]);
-    }
-    __syncthreads();  // wout's buffer is free for the next chunk
-  }
-
-  // 6. Per row and head: delta = sum dao * ao (f32 dao, as the TPU kernel),
-  //    and dao in bf16 to its (B, H, N, Dh) place.
-  for (int r = warp; r < BM; r += NWARP) {
-    const int gr = row0 + r;
-    if (gr >= m) continue;
-    const int bi = gr / n, tok = gr - bi * n;
-    for (int hh = 0; hh < heads; ++hh) {
-      float s = 0.f;
-      const long base = (((long)bi * heads + hh) * n + tok) * dh;
-      for (int d = lane; d < dh; d += 32) {
-        const int col = hh * dh + d;
-        const float v = st[r * L.ldo + col];
-        s += v * __bfloat162float(ao[(long)gr * hd + col]);
-        dao_out[base + d] = __float2bfloat16(v);
-      }
-      s = warp_sum(s);
-      if (lane == 0) delta_out[((long)bi * heads + hh) * n + tok] = s;
-    }
-  }
+  if (ct == 0) bulk_wait<0>();
 }
 
 }  // namespace
 
-// g, x1: (batch*n, e) bf16; z1: (batch*n, hidden) bf16; ao: (batch*n, heads*dh)
-// bf16; m1, m2: (batch*n, e) f32 or both NULL (no dropout; dmlp is g and is
-// not written).  w1 (e, hidden), w2 (hidden, e), wout (heads*dh, e) bf16;
-// ln_s, ln_b (e,) f32.  Out: dmlp (batch*n, e) bf16 (with dropout), dz1 and
-// h1 = gelu(z1) like z1, y2 = LN2(x1) (batch*n, e) bf16, dx1 (batch*n, e) f32,
-// da (batch*n, e) bf16, dao (batch, heads, n, dh) bf16, delta (batch, heads,
-// n) f32, part (ceil(batch*n / 64), 2*e) f32 (dln2.scale then dln2.bias
-// partials).  bf16
-// bases 16-byte aligned; e, hidden, heads*dh multiples of 8; e <= 384.
-extern "C" int megablock_bwd_mlp(const void* g, const void* m1, const void* m2, const void* x1,
-                                 const void* z1, const void* ao, const void* w1, const void* w2,
-                                 const void* wout, const void* ln_s, const void* ln_b,
-                                 void* dmlp, void* dz1, void* h1, void* y2, void* dx1, void* da,
-                                 void* dao, void* delta, void* part, int batch, int n, int e,
-                                 int heads, int dh,
-                                 int hidden, float eps, void* stream) {
-  const int ep = ceil_to(e, 32), hd = heads * dh;
-  if (ep / 16 > MAXNT || e % 8 || hidden % 8 || hd % 8 || (m1 == nullptr) != (m2 == nullptr) ||
+// dz1 (m, hidden) bf16 = (dmlp . w2^T) * gelu'(z1), h1 (m, hidden) bf16 =
+// gelu(z1), with dmlp = g * m2 written to dmlp (m, e) bf16 when m2 != NULL
+// (else dmlp is g).  g: (m, e) bf16; z1: (m, hidden) bf16; w2: (hidden, e)
+// bf16; m2: (m, e) f32 or NULL.  Bases 16-byte aligned; e, hidden multiples
+// of 8; e <= 384.
+extern "C" int megablock_bwd_mlp_dz1(const void* g, const void* m2, const void* z1,
+                                     const void* w2, void* dmlp, void* dz1, void* h1, int m, int e,
+                                     int hidden, void* stream) {
+  if (m < 0 || e < 8 || e > 64 * MAXKB || e % 8 || hidden < 8 || hidden % 8 ||
       (m2 != nullptr && dmlp == nullptr))
     return (int)cudaErrorInvalidValue;
-  const BwdSmem L(ep, ceil_to(hd, BH));
-  if (L.bytes > 232448) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(megablock_bwd_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)L.bytes);
-  const int m = batch * n;
-  megablock_bwd_mlp_kernel<<<(m + BM - 1) / BM, NWARP * 32, L.bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const float*>(m1), static_cast<const float*>(m2),
-      static_cast<const bf16*>(x1), static_cast<const bf16*>(z1), static_cast<const bf16*>(ao),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2), static_cast<const bf16*>(wout),
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), static_cast<bf16*>(dmlp),
-      static_cast<bf16*>(dz1), static_cast<bf16*>(h1), static_cast<bf16*>(y2),
-      static_cast<float*>(dx1), static_cast<bf16*>(da), static_cast<bf16*>(dao),
-      static_cast<float*>(delta), static_cast<float*>(part), batch, n, e, ep, heads, dh, hidden,
-      eps);
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, tx, to1, to2, td;
+  int err = tmap_2d(&ta, g, m, e, rs::BM);
+  if (!err) err = tmap_2d(&tb, w2, hidden, e, rs::BN);
+  if (!err) err = tmap_2d(&tx, z1, m, hidden, 64);
+  if (!err) err = tmap_2d(&to1, dz1, m, hidden, 64);
+  if (!err) err = tmap_2d(&to2, h1, m, hidden, 64);
+  if (!err) err = tmap_2d(&td, m2 != nullptr ? dmlp : g, m, e, 64);
+  if (err) return err;
+  RowsParams p{};
+  p.m = m, p.k = e, p.n = hidden;
+  p.mask = static_cast<const float*>(m2);
+  const int units = (m + rs::BM - 1) / rs::BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(megablock_bwd_mlp_rows_kernel<kDz1>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, rs::SMEM);
+  megablock_bwd_mlp_rows_kernel<kDz1><<<grid, THREADS, rs::SMEM,
+                                        static_cast<cudaStream_t>(stream)>>>(ta, tb, tx, to1,
+                                                                             to2, td, p);
+  return (int)cudaGetLastError();
+}
+
+// dy2 = dz1 . w1^T; dx1 (m, e) f32 = g + LN2^T(dy2) with LN2's statistics from
+// x1; da (m, e) bf16 = dx1 * m1 (dx1 when m1 is NULL); y2 (m, e) bf16 =
+// LN2(x1); part (ceil(m / 64), 2 e) f32: each 64-row tile's column sums of
+// dy2 * yhat2, then of dy2.  dz1: (m, hidden) bf16; g, x1: (m, e) bf16; w1:
+// (e, hidden) bf16; m1: (m, e) f32 or NULL; ln_s, ln_b: (e,) f32.  Bases
+// 16-byte aligned; e, hidden multiples of 8; e <= 384.
+extern "C" int megablock_bwd_mlp_dx1(const void* dz1, const void* g, const void* m1,
+                                     const void* x1, const void* w1, const void* ln_s,
+                                     const void* ln_b, void* dx1, void* da, void* y2, void* part,
+                                     int m, int e, int hidden, float eps, void* stream) {
+  if (m < 0 || e < 8 || e > 2 * lb::BNW || e % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, tx, tg, ty, tda;
+  int err = tmap_2d(&ta, dz1, m, hidden, lb::BM);
+  if (!err) err = tmap_2d(&tb, w1, e, hidden, lb::BNW);
+  if (!err) err = tmap_2d(&tx, x1, m, e, lb::BM);
+  if (!err) err = tmap_2d(&tg, g, m, e, lb::BM);
+  if (!err) err = tmap_2d(&ty, y2, m, e, lb::BM);
+  if (!err) err = tmap_2d(&tda, da, m, e, lb::BM);
+  if (err) return err;
+  Dx1Params p{};
+  p.m = m, p.e = e, p.hidden = hidden;
+  p.m1 = static_cast<const float*>(m1);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.eps = eps;
+  p.dx1 = static_cast<float*>(dx1);
+  p.part = static_cast<float*>(part);
+  const int units = (m + lb::BM - 1) / lb::BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(megablock_bwd_mlp_dx1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       lb::SMEM);
+  megablock_bwd_mlp_dx1_kernel<<<grid, THREADS, lb::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, tx, tg, ty, tda, p);
+  return (int)cudaGetLastError();
+}
+
+// dao (batch, heads, n, dh) bf16 = da . wout^T and delta (batch, heads, n)
+// f32 = the sum over each head's dh columns of dao * ao (dao in f32).  da:
+// (batch n, e) bf16; ao: (batch n, heads dh) bf16; wout: (heads dh, e) bf16.
+// Bases 16-byte aligned; e, dh multiples of 8; e <= 384.
+extern "C" int megablock_bwd_mlp_dao(const void* da, const void* ao, const void* wout, void* dao,
+                                     void* delta, int batch, int n, int e, int heads, int dh,
+                                     void* stream) {
+  const int m = batch * n, hd = heads * dh;
+  if (batch < 0 || n < 1 || dh < 8 || dh % 8 || heads < 1 || e < 8 || e > 64 * MAXKB || e % 8)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, tx;
+  int err = tmap_2d(&ta, da, m, e, rs::BM);
+  if (!err) err = tmap_2d(&tb, wout, hd, e, rs::BN);
+  if (!err) err = tmap_2d(&tx, ao, m, hd, 64);
+  if (err) return err;
+  RowsParams p{};
+  p.m = m, p.k = e, p.n = hd;
+  p.dao = static_cast<bf16*>(dao);
+  p.delta = static_cast<float*>(delta);
+  p.ntok = n, p.heads = heads, p.dh = dh;
+  const int units = (m + rs::BM - 1) / rs::BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(megablock_bwd_mlp_rows_kernel<kDao>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, rs::SMEM);
+  megablock_bwd_mlp_rows_kernel<kDao><<<grid, THREADS, rs::SMEM,
+                                        static_cast<cudaStream_t>(stream)>>>(ta, tb, tx, tx, tx,
+                                                                             tx, p);
   return (int)cudaGetLastError();
 }

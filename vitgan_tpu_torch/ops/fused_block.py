@@ -18,7 +18,8 @@ the chip anyway:
 
 The saved-residual backward (`fused_encoder_block_bwd`, the TPU's single
 `_bwd_kernel`) becomes csrc/megablock_bwd_mlp.cu (MLP half, out-projection,
-dao and delta), the qkv recompute by ln_qkv_fwd, the flash backward kernels
+dao and delta, as three wgmma GEMM stages: dz1, dx1 with the LN2 backward,
+dao with delta), the qkv recompute by ln_qkv_fwd, the flash backward kernels
 on the JAX route, csrc/megablock_bwd_ln1.cu (LN1 half) and
 csrc/wgrad_gemm.cu (the 12 parameter gradients, summed over row ranges and a
 second deterministic pass).
@@ -43,8 +44,8 @@ import torch.nn.functional as F
 from vitgan_tpu_torch.ops import build
 from vitgan_tpu_torch.ops.attention import (attention_forward_reference, attention_reference,
                                             flash_backward, flash_forward)
+from vitgan_tpu_torch.ops.fused_mlp import _operands, _tf32_products
 from vitgan_tpu_torch.ops.fused_mlp import _reference as mlp_reference
-from vitgan_tpu_torch.ops.fused_mlp import _tf32_products
 from vitgan_tpu_torch.ops.fused_mlp import kernel_fits as mlp_kernel_fits
 from vitgan_tpu_torch.ops.fused_mlp import (linear_stage, linear_stage_reference, ln_fc1_stage,
                                             ln_fc1_stage_reference, ln_mlp_forward, threshold)
@@ -396,35 +397,159 @@ def _check_bwd(what: str, *ts) -> None:
                         "dtypes are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
 
 
-def megablock_bwd_mlp(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: int, n: int,
-                      heads: int, eps: float = 1e-5) -> BwdMlp:
-    """Launch csrc/megablock_bwd_mlp.cu on bf16 CUDA rows g, x1 (M, E), z1
-    (M, hidden), ao (M, H*Dh); masks (M, E) f32 or None."""
-    _check_bwd("megablock_bwd_mlp", g, x1, z1, ao)
-    m, e = g.shape
-    hidden, hd = z1.shape[-1], ao.shape[-1]
-    if not mlp_kernel_fits(e, hidden, hd) or (m1 is None) != (m2 is None):
+# --- the MLP half as csrc/megablock_bwd_mlp.cu's three stages --------------------
+
+# Rows of the dx1 stage's tiles: one row of dln2 column partials each.
+BWD_TILE_ROWS = 64
+
+
+def bwd_dz1_stage_reference(g, m2, z1, w2):
+    """Plain dz1 stage: (dmlp, dz1, h1) bf16 with dmlp = g * m2 rounded to
+    bf16 (g itself without a mask) as the kernel's product reads it, dz1 =
+    (dmlp . w2^T) * gelu'(z1) and h1 = gelu(z1) formed in f32."""
+    dmlp = g if m2 is None else (g.float() * m2).to(torch.bfloat16)
+    z = z1.float()
+    dz1 = (dmlp.float() @ w2.float().T) * _gelu_grad(z)
+    return dmlp, dz1.to(torch.bfloat16), F.gelu(z).to(torch.bfloat16)
+
+
+def bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
+    """Plain dx1 stage on bf16 rows: (dx1 f32, da bf16, y2 bf16, part) with
+    dy2 = dz1 . w1^T, dx1 = g + LN2^T(dy2) (statistics from x1), da = dx1 *
+    m1, y2 = LN2(x1), and part (ceil(M / 64), 2E) f32 the column sums of dy2
+    * yhat2 and of dy2 over each 64-row tile."""
+    dy2 = dz1.float() @ w1.float().T
+    yhat, rstd = _ln_stats(x1.float(), eps)
+    dx1 = g.float() + _ln_bwd(dy2, yhat, rstd, ln_s.float())
+    da = dx1 * m1 if m1 is not None else dx1
+    m, e = dy2.shape
+    tiles = -(-m // BWD_TILE_ROWS)
+    cols = torch.cat([dy2 * yhat, dy2], 1)
+    part = F.pad(cols, (0, 0, 0, tiles * BWD_TILE_ROWS - m)).reshape(
+        tiles, BWD_TILE_ROWS, 2 * e).sum(1)
+    y2 = yhat * ln_s.float() + ln_b.float()
+    return dx1, da.to(torch.bfloat16), y2.to(torch.bfloat16), part
+
+
+def bwd_dao_stage_reference(da, ao, wout, batch: int, n: int, heads: int):
+    """Plain dao stage: dao (B, H, N, Dh) bf16 = da . wout^T and delta (B, H,
+    N) f32, each head's sum of dao * ao with dao in f32."""
+    dao = da.float() @ wout.float().T
+    dh = dao.shape[-1] // heads
+    delta = (dao * ao.float()).reshape(batch, n, heads, dh).sum(-1).transpose(1, 2)
+    dao = dao.reshape(batch, n, heads, dh).transpose(1, 2)
+    return dao.to(torch.bfloat16).contiguous(), delta.contiguous()
+
+
+def bwd_mlp_stages_reference(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: int,
+                             n: int, heads: int, eps: float = 1e-5) -> BwdMlp:
+    """The MLP half composed from the stage plain versions, with the kernels'
+    bf16 hand-offs of dmlp, dz1 and da: a BwdMlp as :func:`_bwd_mlp_reference`,
+    part by 64-row tiles."""
+    dmlp, dz1, h1 = bwd_dz1_stage_reference(g, m2, z1, w2)
+    dx1, da, y2, part = bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps)
+    dao, delta = bwd_dao_stage_reference(da, ao, wout, batch, n, heads)
+    return BwdMlp(dmlp, dz1, h1, y2, dx1, da, dao, delta, part)
+
+
+def _bwd_fits(e: int, hidden: int, hd: int) -> None:
+    if not mlp_kernel_fits(e, hidden, hd):
         raise ValueError(f"megablock backward kernels take E <= 384 and E, hidden, H*Dh "
                          f"multiples of 8, got E={e}, hidden={hidden}, H*Dh={hd}; wider blocks "
                          "are ROADMAP.md queue 1 item 7")
+
+
+def bwd_dz1_stage(g, m2, z1, w2):
+    """Launch megablock_bwd_mlp.cu's dz1 stage on bf16 CUDA rows g (M, E), z1
+    (M, hidden), w2 (hidden, E), m2 (M, E) f32 or None: (dmlp, dz1, h1) as
+    the plain version (dmlp is g itself without a mask)."""
+    _check_bwd("megablock_bwd_mlp_dz1", g, z1)
+    m, e = g.shape
+    hidden = z1.shape[-1]
+    _bwd_fits(e, hidden, 0)
+    if z1.shape[0] != m or w2.shape != (hidden, e):
+        raise ValueError(f"z1 {tuple(z1.shape)} / w2 {tuple(w2.shape)} do not fit g "
+                         f"{tuple(g.shape)}")
     dev = g.device
-    bf = lambda t: build.aligned16(t.to(device=dev, dtype=torch.bfloat16).contiguous())  # noqa: E731
-    f32 = lambda t: None if t is None else t.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
-    g2, x12, z12, ao2 = bf(g), bf(x1), bf(z1), bf(ao)
+    g2, z12 = build.aligned16(g.contiguous()), build.aligned16(z1.contiguous())
+    m2f, w2b = _operands(dev, (m2, torch.float32), (w2, torch.bfloat16))
     dmlp = g2 if m2 is None else torch.empty_like(g2)
     dz1, h1 = torch.empty_like(z12), torch.empty_like(z12)
-    y2, da = torch.empty_like(g2), torch.empty_like(g2)
-    dx1 = torch.empty((m, e), dtype=torch.float32, device=dev)
+    fn = build.entry("megablock_bwd_mlp_dz1")
+    build.check(fn, fn(build.ptr(g2), build.ptr(m2f), build.ptr(z12), build.ptr(w2b),
+                       build.ptr(dmlp if m2 is not None else None), build.ptr(dz1), build.ptr(h1),
+                       m, e, hidden, build.stream_ptr(dev)))
+    build.LAUNCHES["megablock_bwd_mlp_dz1"] += 1
+    return dmlp, dz1, h1
+
+
+def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
+    """Launch megablock_bwd_mlp.cu's dx1 stage on bf16 CUDA rows dz1 (M,
+    hidden), g, x1 (M, E), w1 (E, hidden), m1 (M, E) f32 or None: (dx1 f32,
+    da, y2, part (ceil(M / 64), 2E) f32) as the plain version."""
+    _check_bwd("megablock_bwd_mlp_dx1", dz1, g, x1)
+    m, e = g.shape
+    hidden = dz1.shape[-1]
+    _bwd_fits(e, hidden, 0)
+    if dz1.shape[0] != m or x1.shape != (m, e) or w1.shape != (e, hidden):
+        raise ValueError(f"dz1 {tuple(dz1.shape)} / x1 {tuple(x1.shape)} / w1 "
+                         f"{tuple(w1.shape)} do not fit g {tuple(g.shape)}")
+    dev = g.device
+    dz12, g2, x12 = (build.aligned16(t.contiguous()) for t in (dz1, g, x1))
+    f32 = torch.float32
+    m1f, w1b, ln_sf, ln_bf = _operands(dev, (m1, f32), (w1, torch.bfloat16), (ln_s, f32),
+                                           (ln_b, f32))
+    dx1 = torch.empty((m, e), dtype=f32, device=dev)
+    da, y2 = torch.empty_like(g2), torch.empty_like(g2)
+    part = torch.empty((-(-m // BWD_TILE_ROWS), 2 * e), dtype=f32, device=dev)
+    fn = build.entry("megablock_bwd_mlp_dx1")
+    build.check(fn, fn(build.ptr(dz12), build.ptr(g2), build.ptr(m1f), build.ptr(x12),
+                       build.ptr(w1b), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(dx1),
+                       build.ptr(da), build.ptr(y2), build.ptr(part), m, e, hidden, float(eps),
+                       build.stream_ptr(dev)))
+    build.LAUNCHES["megablock_bwd_mlp_dx1"] += 1
+    return dx1, da, y2, part
+
+
+def bwd_dao_stage(da, ao, wout, batch: int, n: int, heads: int):
+    """Launch megablock_bwd_mlp.cu's dao stage on bf16 CUDA rows da (M, E),
+    ao (M, H*Dh), wout (H*Dh, E), M = batch * n, Dh a multiple of 8: (dao
+    (B, H, N, Dh) bf16, delta (B, H, N) f32) as the plain version."""
+    _check_bwd("megablock_bwd_mlp_dao", da, ao)
+    m, e = da.shape
+    hd = ao.shape[-1]
+    _bwd_fits(e, 0, hd)
+    if m != batch * n or ao.shape[0] != m or hd % heads or wout.shape != (hd, e):
+        raise ValueError(f"ao {tuple(ao.shape)} / wout {tuple(wout.shape)} do not fit da "
+                         f"{tuple(da.shape)} as ({batch}, {n}) rows of {heads} heads")
+    if (hd // heads) % 8:
+        raise ValueError(f"the dao stage takes Dh a multiple of 8 (as LN->qkv), got "
+                         f"Dh={hd // heads}")
+    dev = da.device
+    da2, ao2 = build.aligned16(da.contiguous()), build.aligned16(ao.contiguous())
+    (woutb,) = _operands(dev, (wout, torch.bfloat16))
     dao = torch.empty((batch, heads, n, hd // heads), dtype=torch.bfloat16, device=dev)
     delta = torch.empty((batch, heads, n), dtype=torch.float32, device=dev)
-    part = torch.empty(((m + 63) // 64, 2 * e), dtype=torch.float32, device=dev)
-    ops = [f32(m1), f32(m2), x12, z12, ao2, bf(w1), bf(w2), bf(wout), f32(ln_s), f32(ln_b)]
-    fn = build.entry("megablock_bwd_mlp")
-    build.check(fn, fn(build.ptr(g2), *map(build.ptr, ops),
-                       build.ptr(None if m2 is None else dmlp), build.ptr(dz1), build.ptr(h1),
-                       build.ptr(y2), build.ptr(dx1), build.ptr(da), build.ptr(dao),
-                       build.ptr(delta), build.ptr(part), batch, n, e, heads, hd // heads, hidden,
-                       float(eps), build.stream_ptr(dev)))
+    fn = build.entry("megablock_bwd_mlp_dao")
+    build.check(fn, fn(build.ptr(da2), build.ptr(ao2), build.ptr(woutb), build.ptr(dao),
+                       build.ptr(delta), batch, n, e, heads, hd // heads, build.stream_ptr(dev)))
+    build.LAUNCHES["megablock_bwd_mlp_dao"] += 1
+    return dao, delta
+
+
+def megablock_bwd_mlp(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: int, n: int,
+                      heads: int, eps: float = 1e-5) -> BwdMlp:
+    """Run csrc/megablock_bwd_mlp.cu's three stages on bf16 CUDA rows g, x1
+    (M, E), z1 (M, hidden), ao (M, H*Dh); masks (M, E) f32 or None: three
+    launches (dz1, dx1, dao, each counted by its stage) and one call of
+    "megablock_bwd_mlp"."""
+    _check_bwd("megablock_bwd_mlp", g, x1, z1, ao)
+    _bwd_fits(g.shape[-1], z1.shape[-1], ao.shape[-1])
+    if (m1 is None) != (m2 is None):
+        raise ValueError("megablock_bwd_mlp takes both dropout masks or neither")
+    dmlp, dz1, h1 = bwd_dz1_stage(g, m2, z1, w2)
+    dx1, da, y2, part = bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps)
+    dao, delta = bwd_dao_stage(da, ao, wout, batch, n, heads)
     build.LAUNCHES["megablock_bwd_mlp"] += 1
     return BwdMlp(dmlp, dz1, h1, y2, dx1, da, dao, delta, part)
 

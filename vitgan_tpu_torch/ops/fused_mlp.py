@@ -112,9 +112,10 @@ def _bf16_rows(t, what: str):
 
 
 def _operands(dev, *pairs):
-    """Weights in bf16 and LN parameters and biases in f32 on ``dev``, as the
-    kernels read them (16-byte aligned)."""
-    return [build.aligned16(t.to(device=dev, dtype=dt).contiguous()) for t, dt in pairs]
+    """Weights in bf16 and LN parameters, biases and masks in f32 on ``dev``,
+    as the kernels read them (16-byte aligned); None stays None."""
+    return [None if t is None else build.aligned16(t.to(device=dev, dtype=dt).contiguous())
+            for t, dt in pairs]
 
 
 def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: int = 0):
