@@ -10,14 +10,17 @@
    (C7xxx) with its kernel, recorded in the kernels' entries; where the
    toolkit has cuobjdump, counts the wgmma (HGMMA) and TMA (UTMALDG)
    instructions of the sources redesigned for Hopper (wgrad_gemm, the flash
-   forward, the k-block backward, the q-block dq, the LN->MLP forward and
-   the megablock backward's MLP half) and fails on none.
+   forward, the k-block backward, the q-block dq, the LN->MLP forward,
+   LN->qkv and the megablock backward's MLP and LN1 halves) and fails on
+   none.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
    sequence (B*H 1, N 16,385) and with O written in the (B, N, H*D) layout.
    Times kernel, plain version and, where one PyTorch call computes the same
-   function, that call (library_ms).
+   function, that call (library_ms); the LN->MLP forms and LN->qkv also
+   bit-equal across two calls, with their device time by the profiler
+   (LN->qkv beside torch.matmul of its product).
 4. Writes a highres128 run directory with seeded random weights, starts the
    HTTP server on 127.0.0.1:0 and serves batch-64 requests through the
    default (megablock) route: png, npy, a byte-equal seeded repeat and
@@ -42,11 +45,16 @@
 8. Holds the megablock's training kernels against their plain versions at
    G's (32, 1024, 384, 6 heads, hidden 1536), D's (64, 1025, ...), a ragged
    (2, 257, 192, 3 heads, hidden 768) and deit64's D update (128, 257, 192,
-   ...) shape: the training form of ln_mlp_fwd
+   ...) shape: LN->qkv (its output in (3, B, H, N, Dh) with rows that
+   straddle samples; two calls bit-equal, its device time by the profiler,
+   beside torch.matmul of its product), the training form of ln_mlp_fwd
    (dropout masks bit-equal to the plain Philox's; out, x1, z1 by
    KERNEL_RTOL), megablock_bwd_mlp (with and without dropout; two calls
    bit-equal, its device time by the profiler; each of its three stage kernels against its stage plain
-   version, with its device time and bound), megablock_bwd_ln1, wgrad_gemm
+   version, with its device time and bound), megablock_bwd_ln1 (dx, its
+   LN1^T(dy1) term, y1 and the dln1 partials of each 64-row tile row for
+   row, their sum_partials against the plain sum; two calls bit-equal, its
+   device time, beside torch.matmul of its product), wgrad_gemm
    (beside torch.matmul of the same A^T.B; two calls bit-equal) and sum_partials
    (each output within KERNEL_RTOL * its own max|plain|; sum_partials
    bit-equal to its order model and across two calls, its device time and
@@ -303,7 +311,8 @@ def _ptxas_warnings(log: str) -> list:
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
-                  "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp")
+                  "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp", "ln_qkv_fwd",
+                  "megablock_bwd_ln1")
 # The part of the CUDA symbol of every kernel of ln_mlp_fwd.cu (this tree's
 # ln_mlp_fc1_kernel and ln_mlp_linear_kernel, and the single kernel of a
 # parent scripts/kernel_ab.py measures).
@@ -353,11 +362,19 @@ def _sass_counts(build) -> dict:
     return out
 
 
+# The kernels check_kernels also holds bit-equal across two calls, with the
+# part of their CUDA symbols that the profiler's device time counts.
+REPEATED = {"ln_mlp_fwd": "ln_mlp", "proj_ln_mlp_fwd": "ln_mlp", "ln_qkv_fwd": "ln_qkv"}
+PRODUCTS_ONLY = ("torch.matmul of the kernel's products in bf16 at the shape: a yardstick, not "
+                 "the same function")
+
+
 def check_kernels(only: tuple = ()) -> dict:
     """Kernel vs plain version at the serving shapes (timed), the ragged shape
     and one long sequence; the flash forward also with out_bnhd, writing O
     in the (B, N, H*D) layout at the serving shape; the two LN->MLP forms
-    also bit-equal across two calls.  ``only``: the names to
+    and LN->qkv also bit-equal across two calls, with their device time
+    (LN->qkv beside torch.matmul of its product).  ``only``: the names to
     check (default every one).  Returns {name: record} for the JSON line."""
     import torch
     import torch.nn.functional as F
@@ -413,7 +430,7 @@ def check_kernels(only: tuple = ()) -> dict:
         calls = {k_: v_ for k_, v_ in calls.items() if not only or k_ in only}
         for name, (kern, plain, library, (bound_ms, bound_by), residual) in calls.items():
             err = _err(kern(), plain(), f"{name} {label}", residual)
-            repeat = _repeat(kern, f"{name} {label}") if name in LN_MLP_STAGES else None
+            repeat = _repeat(kern, f"{name} {label}") if name in REPEATED else None
             if label == "ragged":
                 out[name]["ragged_max_abs_err"] = err
                 if repeat is not None:
@@ -439,9 +456,14 @@ def check_kernels(only: tuple = ()) -> dict:
             if name == "flash_attn_fwd":
                 rec["out_bnhd_max_abs_err"] = bnhd_err
                 _with_device_ms(rec, kern, 20, name)
-            if name in LN_MLP_STAGES:
-                rec["device_ms"] = _device_ms(kern, 20, (LN_MLP_SYMBOL,))[0]
+            if name in REPEATED:
+                rec["device_ms"] = _device_ms(kern, 20, (REPEATED[name],))[0]
                 rec["repeat_max_abs_diff"] = repeat
+            if name == "ln_qkv_fwd":
+                w_qkv = FB._qkv_weight(c["qkv_w"], torch.bfloat16)
+                rec["products_only_ms"] = _time_ms(lambda: x2 @ w_qkv, 20)
+                rec["products_only"] = PRODUCTS_ONLY
+                del w_qkv
             print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
                   f"library {rec['library_ms']}, bound {bound_ms:.4f} ms by {bound_by})")
             out[name] = rec
@@ -850,8 +872,8 @@ def check_megablock_kernels() -> dict:
     from vitgan_tpu_torch.ops import wgrad as WG
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    out = {k: {} for k in ("ln_mlp_train_fwd", "megablock_bwd_mlp", "megablock_bwd_ln1",
-                           "wgrad_gemm", "sum_partials")}
+    out = {k: {} for k in ("ln_qkv_fwd", "ln_mlp_train_fwd", "megablock_bwd_mlp",
+                           "megablock_bwd_ln1", "wgrad_gemm", "sum_partials")}
     whole = {}
     for label, shape in MB_SHAPES:
         c = _mb_case(*shape, gen)
@@ -868,6 +890,24 @@ def check_megablock_kernels() -> dict:
             print(f"  {name} {label}: {ms:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']}, bound {bound[0]:.4f} ms by {bound[1]})")
             recs[name] = r
+
+        # -- the training forward's first launch (and the saved backward's qkv
+        # recompute): the output in (3, B, H, N, Dh), rows straddling samples
+        qkv_args = (c["x"], c["ln_s"], c["ln_b"], c["qkv_w"], c["qkv_b"].reshape(-1))
+        err = _err(FB.ln_qkv_forward(*qkv_args), FB._ln_qkv_reference(*qkv_args),
+                   f"ln_qkv_fwd {label}")
+        rec("ln_qkv_fwd", lambda: FB.ln_qkv_forward(*qkv_args),
+            lambda: FB._ln_qkv_reference(*qkv_args),
+            _bound(2.0 * m * e * 3 * hd,
+                   m * e * 2 + 3 * m * hd * 2 + e * 3 * hd * 2 + (2 * e + 3 * hd) * 4))
+        recs["ln_qkv_fwd"]["max_abs_err"] = err
+        recs["ln_qkv_fwd"]["repeat_max_abs_diff"] = _repeat(
+            lambda: FB.ln_qkv_forward(*qkv_args), f"ln_qkv_fwd {label}")
+        recs["ln_qkv_fwd"]["device_ms"] = _device_ms(lambda: FB.ln_qkv_forward(*qkv_args), 10,
+                                                     ("ln_qkv",))[0]
+        w_qkv = FB._qkv_weight(c["qkv_w"], torch.bfloat16)
+        recs["ln_qkv_fwd"]["products_only_ms"] = _time_ms(lambda: x2 @ w_qkv, 10)
+        del w_qkv
 
         # -- the training forward's third launch
         fwd_args = (x2, attn2, c["wout"], c["bout"], c["ln_s"], c["ln_b"], c["w1"], c["b1"],
@@ -928,22 +968,38 @@ def check_megablock_kernels() -> dict:
         mlp = got
         del want
 
-        # -- the backward's LN1 half, on a cotangent of qkv's size
+        # -- the backward's LN1 half, on a cotangent of qkv's size: dx, its
+        # LN1^T(dy1) term (dx - dx1) by its own scale, y1, the dln1 partials
+        # row for row (a row a 64-row tile; compared by their sums where the
+        # plain version gives one row, as a parent's does) and sum_partials
+        # of them against the plain sum
         dqkv = torch.randn((m, 3 * hd), generator=gen, device="cuda").to(torch.bfloat16)
         ln1_args = (dqkv, c["qkv_w"], x2, mlp.dx1, c["ln_s"], c["ln_b"])
         got = FB.megablock_bwd_ln1(*ln1_args)
         want = FB._bwd_ln1_reference(*ln1_args)
+        rows = got[2].shape[0] == want[2].shape[0]
         err = max(_err(got[0], want[0], f"megablock_bwd_ln1 {label} dx", own_scale=True),
+                  _err(got[0].float() - mlp.dx1, want[0].float() - mlp.dx1,
+                       f"megablock_bwd_ln1 {label} LN1^T(dy1)", own_scale=True),
                   _err(got[1], want[1], f"megablock_bwd_ln1 {label} y1", own_scale=True),
-                  _err(got[2].sum(0), want[2][0], f"megablock_bwd_ln1 {label} dln1",
-                       own_scale=True))
+                  _err(got[2] if rows else got[2].sum(0), want[2] if rows else want[2][0],
+                       f"megablock_bwd_ln1 {label} dln1 partials"
+                       + (" (row for row)" if rows else " (summed)"), own_scale=True),
+                  _err(WG.sum_partials(got[2]), want[2].sum(0),
+                       f"megablock_bwd_ln1 {label} dln1 summed", own_scale=True))
         rec("megablock_bwd_ln1", lambda: FB.megablock_bwd_ln1(*ln1_args),
             lambda: FB._bwd_ln1_reference(*ln1_args),
             _bound(2.0 * m * 3 * hd * e, m * 3 * hd * 2 + m * e * 2 + m * e * 4 + 3 * hd * e * 2
                    + 2 * m * e * 2))
         recs["megablock_bwd_ln1"]["max_abs_err"] = err
+        recs["megablock_bwd_ln1"]["repeat_max_abs_diff"] = _repeat(
+            lambda: FB.megablock_bwd_ln1(*ln1_args), f"megablock_bwd_ln1 {label}")
+        recs["megablock_bwd_ln1"]["device_ms"] = _device_ms(
+            lambda: FB.megablock_bwd_ln1(*ln1_args), 10, ("megablock_bwd_ln1",))[0]
+        w_t = FB._qkv_weight(c["qkv_w"], torch.bfloat16).t().contiguous()
+        recs["megablock_bwd_ln1"]["products_only_ms"] = _time_ms(lambda: dqkv @ w_t, 10)
         y1, ln1_part = got[1], got[2]
-        del got, want
+        del got, want, w_t
 
         # -- the four weight-gradient products of one block backward
         pairs = {"dw2": (mlp.h1, mlp.dmlp), "dw1": (mlp.y2, mlp.dz1), "dwout": (attn2, mlp.da),
@@ -1042,8 +1098,11 @@ def check_megablock_kernels() -> dict:
             else:
                 out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
                 out[name][f"{label}_ms"] = r["ms"]
-                if "repeat_max_abs_diff" in r:
-                    out[name][f"{label}_repeat_max_abs_diff"] = r["repeat_max_abs_diff"]
+                for key in ("repeat_max_abs_diff", "device_ms", "products_only_ms"):
+                    if key in r:
+                        out[name][f"{label}_{key}"] = r[key]
+    for name in ("ln_qkv_fwd", "megablock_bwd_ln1"):
+        out[name]["products_only"] = PRODUCTS_ONLY
     return out, whole
 
 
@@ -2283,6 +2342,8 @@ def main() -> int:
         records.update(check_l2_kernels())
         v1_dot = check_v1_dot_kernels()
         mb_records, mb_blocks = check_megablock_kernels()
+        # LN->qkv's record is the serving shape's; the training shapes' go beside it
+        records["ln_qkv_fwd"]["training"] = mb_records.pop("ln_qkv_fwd")
         records.update(mb_records)
         for name, rec in check_ln_mlp_stages().items():
             records[name].update(rec)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Check and time the flash kernels, the LN->MLP forms and the megablock's
-training kernels (wgrad_gemm and sum_partials among them) of one tree of the
-port on the card, with chip_smoke.py's own phases, so that two trees can be
-compared in one call.
+"""Check and time the flash kernels, the LN->MLP forms, LN->qkv and the
+megablock's training kernels (the backward's LN1 half, wgrad_gemm and
+sum_partials among them) of one tree of the port on the card, with
+chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits | --host | --megablock]
 
@@ -11,26 +11,30 @@ compared in one call.
 bounds and timing are always this repository's chip_smoke.py:
 ``check_kernels`` for the flash forward (the serving shape with its
 out_bnhd layout, a ragged and a long shape; the wrapper's time and its
-kernel's device time beside SDPA and the bound) and the two LN->MLP forms
+kernel's device time beside SDPA and the bound), the two LN->MLP forms
 of the serving path, the plain LN->MLP and the megablock's out-projection
-form (the serving and a ragged shape; wrapper and device time beside the
-bound), ``check_bwd_kernels`` (the
+form, and LN->qkv (the serving and a ragged shape; wrapper and device time
+beside the bound; LN->qkv beside torch.matmul of its product), ``check_bwd_kernels`` (the
 single pass, dq and dk/dv at G's, D's, a ragged and a long shape; each
 kernel's outputs across two calls; the wrapper's time and, at the main
 shape, its kernels' own device time beside SDPA's backward and the bound),
 the single pass twice at the v1 generator's shape (`dot`) and the v1
 discriminator's (`l2`, bwd_fusion=fused), and ``check_megablock_kernels``
-(the training forward with its device time, the two backward row kernels,
-wgrad_gemm with bit-equal dW and db across two calls, and sum_partials at
-G's, D's, a ragged and deit64's shape with its device time and part.sum(0)'s, beside
-torch.matmul and the bound; sum_partials also bit-equal to
-sum_partials_reference on a tree that has it).  Two calls that are not bit-equal are recorded (max |d| per
+(at G's, D's, a ragged and deit64's shape: LN->qkv and the training forward
+with their device times, the backward's MLP half and LN1 half with theirs,
+the LN1 half's dln1 partials row for row on a tree whose plain version
+gives a row a 64-row tile (else by their sums), LN->qkv and the LN1 half
+beside torch.matmul of their products, wgrad_gemm with bit-equal dW and db
+across two calls, and sum_partials with its device time and
+part.sum(0)'s, beside torch.matmul and the bound; sum_partials also
+bit-equal to sum_partials_reference on a tree that has it).  Two calls that are not bit-equal are recorded (max |d| per
 output), not raised, so that a tree whose kernel is not deterministic can be
 measured.  Run it for two trees in turns (parent, change, change, parent) in
 one call on one card.  Prints one JSON line, last.
 
-``--megablock`` runs only ``check_megablock_kernels`` (with this tree's
-package, the backward MLP half's three stages too).
+``--megablock`` runs only ``check_megablock_kernels``: the way to A/B
+LN->qkv and the backward's MLP and LN1 halves in one call (with this
+tree's package, the MLP half's three stages too).
 
 ``--host`` runs only the host phase instead: the CPU time of one call of
 each LN->MLP form's wrapper at its main shape (``host_times``).
@@ -188,7 +192,8 @@ def main() -> int:
         print(json.dumps({"label": label, "megablock": cs.check_megablock_kernels()[0]}))
         return 0
     rec = {"label": label,
-           "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd")),
+           "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd",
+                                         "ln_qkv_fwd")),
            "bwd": cs.check_bwd_kernels(), "single_pass_repeats": single_pass_repeats(cs),
            "megablock": cs.check_megablock_kernels()[0]}
     if args.splits:

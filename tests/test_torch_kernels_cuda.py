@@ -8,8 +8,10 @@ calls, the megablock's training forward and saved-residual backward (against
 autograd of the plain block) and the weight-gradient kernel, the training
 gate, and the raises for what the kernels do not take; each stage of the
 LN->MLP forward against its plain version, each stage of the megablock
-backward's MLP half against its plain version, and sum_partials bit-equal to
-its order model.
+backward's MLP half against its plain version, sum_partials bit-equal to
+its order model, LN->qkv at shapes whose tiles straddle samples (heads of
+64, 32 and 24) and the backward's LN1 half with its partials row for row,
+each bit-equal across two calls.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -667,3 +669,78 @@ def test_sum_partials_is_bit_equal_to_its_order_model_on_card(splits, count):
     got, again = WG.sum_partials(part), WG.sum_partials(part)
     torch.cuda.synchronize()
     assert torch.equal(got, WG.sum_partials_reference(part)) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,e,heads,dh", [(2, 1025, 384, 6, 64), (3, 257, 192, 3, 64),
+                                            (2, 1025, 384, 3, 128), (2, 1025, 384, 12, 32),
+                                            (4, 257, 192, 6, 32), (2, 65, 48, 2, 24)],
+                         ids=["n1025_e384_dh64", "n257_e192_dh64", "n1025_e384_dh128",
+                              "n1025_e384_dh32", "n257_e192_dh32", "n65_e48_dh24"])
+def test_ln_qkv_kernel_at_straddling_shapes_matches_plain_on_card(b, n, e, heads, dh):
+    """LN->qkv where many 64-row slices straddle two samples (N 1,025 and
+    257; rows past M in the last tile), at E 192 and 384 and with heads of
+    64 and 128 (slices in one sample leave by TMA stores, the others by the
+    copy-out) and of 32 and 24 (the copy-out only; an 8-column group always
+    lies in one head): within 2e-2 * max(1, max|plain|) of the plain
+    version, two calls bit-equal, one launch a call."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(n + dh)
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+
+    x = rn(b, n, e)
+    ln_s, ln_b = 1 + rn(e, scale=0.1, dtype=torch.float32), rn(e, scale=0.1, dtype=torch.float32)
+    qkv_w, qkv_b = rn(3, heads, e, dh, scale=0.05), rn(3 * heads * dh, scale=0.1,
+                                                       dtype=torch.float32)
+    build.reset_launches()
+    got = FB.ln_qkv_forward(x, ln_s, ln_b, qkv_w, qkv_b)
+    again = FB.ln_qkv_forward(x, ln_s, ln_b, qkv_w, qkv_b)
+    want = FB._ln_qkv_reference(x, ln_s, ln_b, qkv_w, qkv_b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, b, heads, n, dh) and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    tol = 2e-2 * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert {k: c for k, c in build.LAUNCHES.items() if c} == {"ln_qkv_fwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e,heads,dh", [(2050, 384, 6, 64), (514, 192, 3, 64), (130, 48, 2, 24)],
+                         ids=["m2050_e384", "m514_e192", "m130_e48"])
+def test_megablock_bwd_ln1_matches_plain_row_for_row_on_card(m, e, heads, dh):
+    """The backward's LN1 half against its plain version on the same bf16
+    inputs: dx, its LN1^T(dy1) term (dx - dx1), y1 and the dln1 partials of
+    each 64-row tile row for row, each within 2e-2 * its own max|plain|;
+    sum_partials of the kernel's partials against the plain sum; two calls
+    bit-equal; one launch a call."""
+    _cuda_or_skip()
+    from vitgan_tpu_torch.ops import wgrad as WG
+
+    gen = torch.Generator(device="cuda").manual_seed(m)
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+
+    dqkv, x, dx1 = rn(m, 3 * heads * dh), rn(m, e), rn(m, e, dtype=torch.float32)
+    qkv_w = rn(3, heads, e, dh, scale=0.05, dtype=torch.float32)
+    ln_s, ln_b = 1 + rn(e, scale=0.1, dtype=torch.float32), rn(e, scale=0.1, dtype=torch.float32)
+    args = (dqkv, qkv_w, x, dx1, ln_s, ln_b)
+    build.reset_launches()
+    got, again = FB.megablock_bwd_ln1(*args), FB.megablock_bwd_ln1(*args)
+    want = FB._bwd_ln1_reference(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["megablock_bwd_ln1"] == 2
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    assert got[2].shape == want[2].shape == (-(-m // 64), 2 * e)
+
+    def close(a, w):
+        assert a.shape == w.shape and torch.isfinite(a.float()).all()
+        assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+
+    close(got[0], want[0])
+    close(got[0].float() - dx1, want[0].float() - dx1)
+    close(got[1], want[1])
+    close(got[2], want[2])
+    close(WG.sum_partials(got[2]), want[2].sum(0))

@@ -1,8 +1,9 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
-// ln_mlp_fwd.cu, megablock_bwd_mlp.cu):
+// ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu):
 // mbarrier rings, TMA tensor loads and stores, wgmma descriptors and products,
-// warpgroup fences, acquire/release flags and register hand-over.
+// warpgroup fences, acquire/release flags, register hand-over and the
+// LayerNorm of a resident swizzled tile.
 //
 // Shared-memory tiles here are written by TMA with the 128-byte swizzle: a
 // box is `rows` rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored
@@ -153,6 +154,83 @@ __device__ inline void reg_alloc() {
 // the word of an m64nN accumulator fragment (rows 16 wr + g + 8 h, columns
 // 8 j + 2 t) in a staged or landed box.
 __device__ inline int swz(int r, int jj, int t) { return r * 128 + ((jj ^ (r & 7)) << 4) + 4 * t; }
+
+// The f32 LayerNorm statistics of row r of a resident tile of
+// 128-byte-swizzled 64-column boxes `box` bytes apart (the swizzled chunk of
+// column c of row r is c / 8 ^ r % 8), eight lanes a row: lane l of the row
+// (l = lane % 8) holds 16-byte chunks l, l + 8, .. (E <= 384: six boxes) in
+// v, the eight lanes one 128-byte row of a box together.  Over the e real
+// columns: the mean, then the mean of squared deviations (the JAX package's
+// order), each summed in the lane, then over the eight lanes by three
+// shuffles; chunks past e read as zeros.  `off` is the row's chunk offset
+// in a box: r * 128 + ((l ^ r % 8) << 4).
+__device__ inline void ln_row8(const unsigned char* as, int box, int off, int e, float eps,
+                               float (&v)[6][8], float& mean, float& rstd) {
+  const int l8 = threadIdx.x & 7, nch = e >> 3;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (l8 + 8 * i < nch) raw = *reinterpret_cast<const uint4*>(as + i * box + off);
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[q]));
+      v[i][2 * q] = f.x;
+      v[i][2 * q + 1] = f.y;
+      s += f.x + f.y;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  mean = s / e;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    if (l8 + 8 * i < nch)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = v[i][k] - mean;
+        sq += d * d;
+      }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  rstd = rsqrtf(sq / e + eps);
+}
+
+// Row LayerNorm, in place, of rows r0 .. r0 + 63 of a resident tile (as
+// ln_row8): a warp takes four rows at a time (this warp of the warpgroup:
+// rows r0 + 16 wr ..); columns past e stay TMA's zeros.  g and b (gamma,
+// beta) may lie in global or shared memory.  The caller fences
+// (fence.proxy.async) before wgmma reads the rows.
+__device__ inline void ln_resident(unsigned char* as, int box, int r0, int e,
+                                   const float* __restrict__ g, const float* __restrict__ b,
+                                   float eps) {
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5, l8 = lane & 7;
+  const int nch = e >> 3;
+  for (int r1 = 0; r1 < 16; r1 += 4) {
+    const int r = r0 + 16 * wr + r1 + (lane >> 3), off = r * 128 + ((l8 ^ (r & 7)) << 4);
+    float v[6][8], mean, rstd;
+    ln_row8(as, box, off, e, eps, v, mean, rstd);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const int c = l8 + 8 * i;
+      if (c >= nch) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(g + 8 * c);
+      const float4 g1 = *reinterpret_cast<const float4*>(g + 8 * c + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(b + 8 * c);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + 8 * c + 4);
+      const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      uint32_t y[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        y[k] = pack_bf16((v[i][2 * k] - mean) * rstd * gs[2 * k] + bs[2 * k],
+                         (v[i][2 * k + 1] - mean) * rstd * gs[2 * k + 1] + bs[2 * k + 1]);
+      *reinterpret_cast<uint4*>(as + i * box + off) = make_uint4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
 
 // --- wgmma -------------------------------------------------------------------
 

@@ -41,8 +41,9 @@
 //   ln_mlp_fc1_kernel (BN 256; a 3-stage ring of four B boxes): a block
 //       takes a 128-row tile of A whole (E <= 384: six boxes, 96 KB) by TMA,
 //       the consumers form the f32 row statistics over the real E and
-//       normalise their 64 rows in place (the swizzled chunk of column c of
-//       row r is c / 8 ^ r % 8; fence.proxy.async before wgmma reads them),
+//       normalise their 64 rows in place (hopper.cuh ln_resident, eight
+//       lanes a row, shared with ln_qkv_fwd.cu; fence.proxy.async before
+//       wgmma reads them),
 //       then walk every 256-column tile of the hidden width against it while
 //       w1 streams through the ring; epilogue bias, [z1], gelu, bf16 h.
 // Epilogues go one 64-column box at a time: the box's bias loads issued
@@ -105,67 +106,6 @@ struct Params {
   uint32_t mask_id, threshold;
   float inv_keep;
 };
-
-// Row LayerNorm of rows r0 .. r0 + 63 of the resident A tile, in place: one
-// warp a row (this warp: rows r0 + 16 wr ..), each lane two 16-byte chunks
-// (E <= 512); f32 statistics over the e real columns (mean, then the mean of
-// squared deviations: the JAX package's order); columns past e stay TMA's
-// zeros.
-__device__ inline void ln_resident(unsigned char* as, int r0, int e, const float* __restrict__ g,
-                                   const float* __restrict__ b, float eps) {
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5;
-  const int nch = e >> 3;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + 16 * wr + rr;
-    float v[2][8];
-    float s = 0.f;
-#pragma unroll
-    for (int ci = 0; ci < 2; ++ci) {
-      const int c = lane + 32 * ci;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (c < nch)
-        raw = *reinterpret_cast<const uint4*>(as + (c >> 3) * ABOX + r * 128 +
-                                              (((c & 7) ^ (r & 7)) << 4));
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
-        v[ci][2 * i] = f.x;
-        v[ci][2 * i + 1] = f.y;
-        s += f.x + f.y;
-      }
-    }
-    const float mean = warp_sum(s) / e;
-    float q = 0.f;
-#pragma unroll
-    for (int ci = 0; ci < 2; ++ci)
-      if (lane + 32 * ci < nch)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float d = v[ci][i] - mean;
-          q += d * d;
-        }
-    const float rstd = rsqrtf(warp_sum(q) / e + eps);
-#pragma unroll
-    for (int ci = 0; ci < 2; ++ci) {
-      const int c = lane + 32 * ci;
-      if (c >= nch) continue;
-      const float4 g0 = *reinterpret_cast<const float4*>(g + 8 * c);
-      const float4 g1 = *reinterpret_cast<const float4*>(g + 8 * c + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(b + 8 * c);
-      const float4 b1 = *reinterpret_cast<const float4*>(b + 8 * c + 4);
-      const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint32_t y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        y[i] = pack_bf16((v[ci][2 * i] - mean) * rstd * gs[2 * i] + bs[2 * i],
-                         (v[ci][2 * i + 1] - mean) * rstd * gs[2 * i + 1] + bs[2 * i + 1]);
-      *reinterpret_cast<uint4*>(as + (c >> 3) * ABOX + r * 128 + (((c & 7) ^ (r & 7)) << 4)) =
-          make_uint4(y[0], y[1], y[2], y[3]);
-    }
-  }
-}
 
 // --- the linear stage: out = [res +] [mask *] (a . w + bias) ------------------
 
@@ -400,7 +340,7 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
     const int m0 = u * BM, r0 = m0 + 64 * w;
     mbar_wait(afull, i & 1);
-    ln_resident(as, 64 * w, p.k, p.ln_s, p.ln_b, p.eps);
+    ln_resident(as, ABOX, 64 * w, p.k, p.ln_s, p.ln_b, p.eps);
     fence_proxy_async();           // the normalised rows, to wgmma's operand reads
     named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
     for (int nt = 0; nt < ntiles; ++nt) {

@@ -15,124 +15,251 @@
 // on chip (VMEM holds megabytes).  At 1,024 tokens that is 1,024 x 1,152
 // bf16 = 2.4 MB per sample against 227 KB of shared memory on an H100 SM, so
 // the block splits into this kernel, flash_attn_fwd (per-head attention) and
-// ln_mlp_fwd with its out-projection prologue (x1 = x + attn . wout + bout,
-// then LN2 -> MLP -> + x1, never leaving the chip).
+// ln_mlp_fwd with its out-projection stage (x1 = x + attn . wout + bout,
+// then LN2 -> MLP -> + x1).
 //
-// Design.  One block of 8 warps per 128-row tile.  The x tile arrives by
-// cp.async and is normalised in place, in f32, to a bf16 tile; the 3*H*Dh
-// output columns are walked in 64-column chunks of wqkv through a two-stage
-// cp.async ring, each warp multiplying 32 rows by 32 columns on the tensor
-// cores (mma.sync m16n8k16, ldmatrix operands: two A and two B loads feed
-// eight MMAs, which keeps shared memory from limiting the tensor cores) and
-// writing bias-added bf16 pairs straight from its accumulators.  E, 3*H*Dh
-// and Dh must be multiples of 8; E <= 416 (shared memory).
+// Design: ln_mlp_fwd.cu's LN -> fc1 stage without GELU.  A persistent grid of
+// 384-thread blocks, one an SM, each walking its share of the 128-row units:
+// warpgroup 0 is the producer (thread 0 streams wqkv through a 3-stage
+// mbarrier ring of three 64 x 64 boxes by TMA, thread 32 loads the unit's x
+// rows whole: E <= 384, six boxes, 96 KB), warpgroups 1 and 2 the consumers,
+// 64 rows each.  A consumer warpgroup takes its rows' f32 statistics over the
+// real E and normalises them in place in the 128-byte swizzle (hopper.cuh
+// ln_resident, eight lanes a row, gamma and beta from shared memory;
+// fence.proxy.async before wgmma reads them), then walks
+// 3*H*Dh in 192-column tiles (1,152 and 576 are multiples of 192; 256 would
+// leave half a tile idle at both) against wqkv read N-major through the
+// descriptor's transpose bit, wgmma m64n192k16 from shared memory, one group
+// in flight while the next stage is waited for, all retired within the tile
+// (wgmmas left in flight across tiles are serialised by ptxas).  Epilogue:
+// the f32 bias added (the tile's bias lands in shared memory by cp.async
+// under the products: a load from device memory returns slowly on a card
+// this busy, and the first design's bias loads a box and the LayerNorm's
+// gamma and beta loads a row were its largest waits, PERF.md),
+// the tile's three boxes staged in bf16 in shared memory,
+// then copied out 16 bytes (8 columns of one (p, h): Dh is a multiple of 8) a
+// thread into (3, B, H, N, Dh), each row's (b, n) from its own index, so rows
+// that straddle a sample are placed like any other (at D's 1,025 tokens 6%
+// of the 64-row slices straddle, at deit64's 257 a quarter).  Eight threads
+// write 64 contiguous columns of one row; with Dh 64 that is 128 bytes of
+// one head.  TMA stores of the boxes that lie in one sample (Dh 64) were
+// slower: the next unit's x waited behind them (PERF.md).  TMA
+// zero-fills rows past M and columns past E (the statistics read only the
+// real E; the zeros add nothing to the products); rows past M and columns
+// past 3*H*Dh are not written.
+//
+// What held the mma.sync kernel back, and what this does about it: every
+// 128-row block re-read all of wqkv through a two-stage cp.async ring with a
+// block barrier each 64-column chunk (now an mbarrier ring run ahead by a
+// producer, no block barrier in the main loop); the LayerNorm and the
+// products ran strictly one after the other (now the ring keeps three
+// stages of wqkv loaded across the LayerNorm, and the next unit's x lands as
+// soon as the last tile's products have read this one); bf16 pairs went
+// straight from the accumulators as 4-byte stores into scattered rows of the
+// output, half a sector each (now 16-byte stores, 128 bytes a row and head);
+// mma.sync at a fraction of wgmma's rate.
 //
 // Bound on this card.  At the serving shape (65,536 rows, E 384, 3*H*Dh
-// 1,152) a launch does 2*65536*384*1152 = 5.8e10 flops on 50 MB of x, 151 MB
-// of qkv and 0.9 MB of weights: 0.06 ms of HBM time against 0.06 ms of
-// tensor-core time; the two are about even.
-#include "common.cuh"
+// 1,152) a launch does 2*65536*384*1152 = 5.8e10 flops (0.059 ms) on 50 MB of
+// x, 151 MB of qkv and 0.9 MB of weights (0.060 ms): HBM and the tensor cores
+// are about even.  At G's 32,768 rows about 0.030 ms.  E and Dh multiples of 8
+// (TMA's 16-byte strides, the 16-byte copy-out); E <= 384 (the resident x).
+//
+// Where the time goes (scripts/phase_trace.py, PERF.md): of a 128-row unit
+// at the serving shape the products take about half, the LayerNorm a sixth,
+// the epilogues' staging and copy-out nearly a third, all between the
+// products rather than under them.
+//
+// ptxas -v (sm_90a, CUDA 12.9): 168 registers a thread (the producer
+// warpgroup drops to 40, the consumers take 232 by setmaxnreg), no spills and
+// no performance warning; dynamic shared memory 226,880 bytes: one block an
+// SM.
+#include "hopper.cuh"
 
 using namespace vk;
+using namespace vk::hopper;
 
 namespace {
 
-constexpr int BM = 128;   // rows per block
-constexpr int BN = 64;    // output column chunk
-constexpr int NWARP = 8;  // 4 row groups of 32 x 2 column groups of 32
-constexpr int MAXC = 13;  // LayerNorm elements per lane: e <= 416
+constexpr int BM = 128;              // rows a unit
+constexpr int THREADS = 384;         // producer warpgroup + two consumers
+constexpr int ABOX = 64 * BM * 2;    // one 64-column box of a unit's x rows, bytes
+constexpr int BBOX = 64 * 64 * 2;    // one 64 (K) x 64 (N) box of wqkv
+constexpr int MAXKB = 6;             // the resident x boxes: E <= 384
+constexpr int BN = 192;              // output columns a tile
+constexpr int NB = BN / 64;          // wqkv boxes a stage
+constexpr int STAGES = 3;
+constexpr int STAGE = NB * BBOX;
+constexpr int OBOX = 64 * 64 * 2;    // a warpgroup's 64 rows of one 64-column box
+constexpr int MAXE = 64 * MAXKB;
+constexpr int SMEM = 1024 + MAXKB * ABOX + STAGES * STAGE + 2 * NB * OBOX + 2 * MAXE * 4 +
+                     2 * BN * 4 + (2 * STAGES + 2) * 8;
 
-struct QkvSmem {
-  int ldy, ldw;
-  size_t w_off, stage, bytes;
-  __host__ __device__ explicit QkvSmem(int ep) {
-    ldy = ep + 8;  // bf16 LN output, BM x ep
-    ldw = BN + 8;  // bf16 wqkv chunk, ep x BN, two stages
-    w_off = (size_t)BM * ldy * 2;
-    stage = (size_t)ep * ldw * 2;
-    bytes = w_off + 2 * stage;
-  }
+struct Params {
+  int m, e, n;            // rows, E, 3 H Dh
+  int ntok, heads, dh;    // the output's (3, B, H, N, Dh) layout
+  long long part;         // elements of one part p: B H N Dh
+  const float* bias;      // (n,)
+  const float* ln_s;
+  const float* ln_b;
+  float eps;
+  bf16* qkv;
 };
 
-__global__ void __launch_bounds__(NWARP * 32)
-ln_qkv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                  const float* __restrict__ ln_b, const bf16* __restrict__ w,
-                  const float* __restrict__ bias, bf16* __restrict__ qkv, int batch, int n, int e,
-                  int ep, int heads, int dh, float eps) {
-  const QkvSmem L(ep);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  auto w_stage = [&](int s) { return reinterpret_cast<bf16*>(smem + L.w_off + s * L.stage); };
+__global__ void __launch_bounds__(THREADS, 1)
+ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                  const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* as = smem;                             // box kb of x at kb ABOX
+  unsigned char* stages = as + MAXKB * ABOX;            // stage s at s STAGE
+  unsigned char* staging = stages + STAGES * STAGE;     // (warpgroup w, box b) at (w NB + b) OBOX
+  float* lnp = reinterpret_cast<float*>(staging + 2 * NB * OBOX);  // gamma at c, beta at MAXE + c
+  float* biases = lnp + 2 * MAXE;                       // warpgroup w's tile of bias at w BN
+  uint64_t* full = reinterpret_cast<uint64_t*>(biases + 2 * BN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* afull = empty + STAGES;                     // x landed / x free again
+  uint64_t* aempty = afull + 1;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m = batch * n, hdim = heads * dh, ncol = 3 * hdim;
-  const int row0 = blockIdx.x * BM;
-  const int rg = (warp & 3) * 32;
-  const int cg = (warp >> 2) * 32;
-
-  // The x tile and the first wqkv chunk arrive together by cp.async; the
-  // LayerNorm then runs in place on the x tile.
-  const int nchunks = (ncol + BN - 1) / BN;
-  cp_tile(ys, L.ldy, x, e, row0, 0, BM, ep, m, e);
-  cp_tile(w_stage(0), L.ldw, w, ncol, 0, 0, ep, BN, e, ncol);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  layer_norm_rows<MAXC>([&](int r, int c) { return __bfloat162float(ys[r * L.ldy + c]); }, ys,
-                        L.ldy, BM, e, ep, ln_s, ln_b, eps);
-
-  // Where this lane's four rows (rg + 8r + g) start in the (3, B, H, N, Dh) output.
-  long row_off[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + rg + 8 * r + g;
-    const int bi = gr / n, tok = gr - bi * n;
-    row_off[r] = ((long)bi * heads * n + tok) * dh;
-  }
-  const long part = (long)batch * heads * n * dh;
-
-  for (int c = 0; c < nchunks; ++c) {
-    // One barrier a chunk: after it chunk c has landed (and, the first time,
-    // y is complete), and every warp is done with chunk c - 1, whose stage
-    // takes chunk c + 1.
-    cp_async_wait<0>();
-    __syncthreads();
-    if (c + 1 < nchunks)
-      cp_tile(w_stage((c + 1) & 1), L.ldw, w, ncol, 0, (c + 1) * BN, ep, BN, e, ncol);
-    cp_async_commit();
-    const bf16* ws = w_stage(c & 1);
-    float acc[2][4][4] = {};  // [16-row tile][8-column tile]
-#pragma unroll 2
-    for (int kk = 0; kk < ep / 16; ++kk) {
-      uint32_t a0[4], a1[4], b[4], b2[4];
-      load_a(a0, ys, L.ldy, rg, kk * 16);
-      load_a(a1, ys, L.ldy, rg + 16, kk * 16);
-      load_b_kn(b, ws, L.ldw, kk * 16, cg);
-      load_b_kn(b2, ws, L.ldw, kk * 16, cg + 16);
-      mma16816(acc[0][0], a0, b[0], b[1]);
-      mma16816(acc[0][1], a0, b[2], b[3]);
-      mma16816(acc[0][2], a0, b2[0], b2[1]);
-      mma16816(acc[0][3], a0, b2[2], b2[3]);
-      mma16816(acc[1][0], a1, b[0], b[1]);
-      mma16816(acc[1][1], a1, b[2], b[3]);
-      mma16816(acc[1][2], a1, b2[0], b2[1]);
-      mma16816(acc[1][3], a1, b2[2], b2[3]);
+  const int wgi = threadIdx.x >> 7;
+  const int nkb = (p.e + 63) / 64;
+  const int ntiles = (p.n + BN - 1) / BN, units = (p.m + BM - 1) / BM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = c * BN + cg + j * 8 + 2 * t;
-      if (gc >= ncol) continue;
-      const int p = gc / hdim, h = (gc - p * hdim) / dh, d = gc - p * hdim - h * dh;
-      const long col_off = p * part + (long)h * n * dh + d;
-      const float bias0 = bias[gc], bias1 = bias[gc + 1];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {  // rows rg + 8r + g: tile r / 2, half r % 2
-        if (row0 + rg + 8 * r + g < m)
-          *reinterpret_cast<uint32_t*>(qkv + row_off[r] + col_off) =
-              pack_bf16(acc[r >> 1][j][2 * (r & 1)] + bias0, acc[r >> 1][j][2 * (r & 1) + 1] + bias1);
+    mbar_init(afull, 1);
+    mbar_init(aempty, 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {  // wqkv, stage by stage, every tile of every unit in order
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        for (int nt = 0; nt < ntiles; ++nt) {
+          const int n0 = nt * BN, nbox = min(NB, (p.n - n0 + 63) / 64);
+          for (int kb = 0; kb < nkb; ++kb, ++it) {
+            const int s = it % STAGES;
+            if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+            mbar_arrive_tx(&full[s], nbox * BBOX);
+            for (int b = 0; b < nbox; ++b)
+              tma_load_2d(stages + s * STAGE + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
+          }
+        }
+    } else if (threadIdx.x == 32) {  // x, one 128-row unit at a time
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        if (i > 0) mbar_wait(aempty, (i - 1) & 1);
+        mbar_arrive_tx(afull, nkb * ABOX);
+        for (int kb = 0; kb < nkb; ++kb) tma_load_2d(as + kb * ABOX, &ta, afull, kb * 64, u * BM);
       }
     }
+    return;
+  }
+
+  // consumers: warpgroup w owns rows 64 w .. 64 w + 63 of each unit
+  reg_alloc<232>();
+  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
+            g = lane >> 2, t = lane & 3;
+  unsigned char* sbw = staging + w * NB * OBOX;
+  float* bw = biases + w * BN;
+  const int hd = p.heads * p.dh;
+  // gamma and beta, read by every row's LayerNorm, once from device memory
+  for (int c = 128 * w + ct; c < p.e; c += 256) {
+    lnp[c] = p.ln_s[c];
+    lnp[MAXE + c] = p.ln_b[c];
+  }
+  named_bar_sync(3, 256);
+  float acc[BN / 2];
+  int it = 0, i = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int r0 = u * BM + 64 * w;
+    mbar_wait(afull, i & 1);
+    ln_resident(as, ABOX, 64 * w, p.e, lnp, lnp + MAXE, p.eps);
+    fence_proxy_async();           // the normalised rows, to wgmma's operand reads
+    named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
+    // the copy-out's rows of this thread, 16 q + ct / 8 of the warpgroup's 64:
+    // where each starts in (3, B, H, N, Dh), or -1 past m
+    long long row_off[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r0 + 16 * q + (ct >> 3);
+      const int bi = row / p.ntok, tok = row - bi * p.ntok;
+      row_off[q] = row < p.m ? ((long long)bi * p.heads * p.ntok + tok) * p.dh : -1;
+    }
+    for (int nt = 0; nt < ntiles; ++nt) {
+      const int n0 = nt * BN;
+      // the tile's bias lands in shared memory under the products (the last
+      // epilogue read it before its second barrier)
+      if (ct < BN / 4) {
+        const bool ok = n0 + 4 * ct < p.n;
+        cp_async16(bw + 4 * ct, ok ? p.bias + n0 + 4 * ct : p.bias, ok);
+      }
+      cp_async_commit();
+      for (int kb = 0; kb < nkb; ++kb, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* a = as + kb * ABOX + w * (64 * 128);
+        const unsigned char* b = stages + s * STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<BN, 0, 1>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                             desc_sw128(b + kk * 2048, BBOX, 1024), kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (ct == 0) {
+        mbar_arrive(&empty[(it - 1) % STAGES]);
+        if (nt == ntiles - 1) mbar_arrive(aempty);  // every product of this unit has read x
+      }
+
+      // epilogue: bias added, the tile's boxes staged in bf16 (this thread
+      // holds rows 16 wr + g + 8 h of the warpgroup's 64, columns
+      // 8 j + 2 t + (0, 1) of the tile), then copied out
+      cp_async_wait<0>();
+      named_bar_sync(1 + w, 128);  // the bias landed; the last tile's boxes are copied out
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) {
+        if (n0 + 64 * jb >= p.n) continue;  // the same for the whole warpgroup
+        unsigned char* sb = sbw + jb * OBOX;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * jb + jj;
+          const float2 bias = *reinterpret_cast<const float2*>(bw + 8 * j + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(sb + swz(16 * wr + g + 8 * h, jj, t)) =
+                pack_bf16(acc[4 * j + 2 * h] + bias.x, acc[4 * j + 2 * h + 1] + bias.y);
+        }
+      }
+      named_bar_sync(1 + w, 128);
+      // to (3, B, H, N, Dh): 16 bytes (8 columns of one part and head) of
+      // row 16 q + ct / 8, chunk ct % 8 of each box
+      const int cc = ct & 7;
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) {
+        const int col = n0 + 64 * jb + 8 * cc;
+        if (col >= p.n) continue;
+        const int pp = col / hd, rem = col - pp * hd, hh = rem / p.dh;
+        const long long col_off = pp * p.part + (long long)hh * p.ntok * p.dh + rem - hh * p.dh;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int rr = 16 * q + (ct >> 3);
+          if (row_off[q] < 0) continue;
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(sbw + jb * OBOX + rr * 128 + ((cc ^ (rr & 7)) << 4));
+          *reinterpret_cast<uint4*>(p.qkv + row_off[q] + col_off) = v;
+        }
+      }
+    }  // the tile
   }
 }
 
@@ -140,19 +267,29 @@ ln_qkv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
 
 // x: (batch*n, e) bf16.  w: (e, 3*heads*dh) bf16 in _pad_params column order;
 // bias: (3*heads*dh,) f32, ln_s/ln_b: (e,) f32.  qkv: (3, batch, heads, n, dh)
-// bf16.  bf16 bases 16-byte aligned; e and dh multiples of 8; e <= 416.
+// bf16.  Bases 16-byte aligned; e and dh multiples of 8; e <= 384.
 extern "C" int ln_qkv_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w,
                           const void* bias, void* qkv, int batch, int n, int e, int heads, int dh,
                           float eps, void* stream) {
-  const int ep = ceil_to(e, 16);
-  if (dh % 8 || e % 8 || ep > 32 * MAXC) return (int)cudaErrorInvalidValue;
-  const QkvSmem L(ep);
-  cudaFuncSetAttribute(ln_qkv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)L.bytes);
-  const int m = batch * n;
-  ln_qkv_fwd_kernel<<<(m + BM - 1) / BM, NWARP * 32, L.bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(qkv), batch, n, e, ep, heads, dh, eps);
+  if (batch < 0 || n < 1 || heads < 1 || dh < 8 || dh % 8 || e < 8 || e > 64 * MAXKB || e % 8)
+    return (int)cudaErrorInvalidValue;
+  const int m = batch * n, ncol = 3 * heads * dh;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb;
+  int err = tmap_2d(&ta, x, m, e, BM);
+  if (!err) err = tmap_2d(&tb, w, e, ncol, 64);
+  if (err) return err;
+  Params p{};
+  p.m = m, p.e = e, p.n = ncol;
+  p.ntok = n, p.heads = heads, p.dh = dh;
+  p.part = (long long)batch * heads * n * dh;
+  p.bias = static_cast<const float*>(bias);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.eps = eps;
+  p.qkv = static_cast<bf16*>(qkv);
+  const int units = (m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(ln_qkv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  ln_qkv_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(ta, tb, p);
   return (int)cudaGetLastError();
 }

@@ -36,20 +36,22 @@
 //       dz1 = acc * (Phi + z phi) in place of z1 and h1 = z Phi in a staged
 //       box (one a box, so no box waits for the last one's store), both
 //       stored by TMA.
-//   megablock_bwd_mlp_dx1_kernel (64-row tiles, a 2-stage ring of a dz1 box
-//       and w1's 384 rows, each stage released as soon as its products are
-//       done): the two consumer warpgroups split E's columns (m64n192, 96
-//       accumulators a thread) over the whole 64-row tile.  x1's
+//   megablock_bwd_mlp_dx1_kernel: ln_bwd_tile.cuh's body (shared with
+//       megablock_bwd_ln1.cu) with the dx1 epilogue.  64-row tiles, a
+//       2-stage ring of a dz1 box and w1's 384 rows, each stage released as
+//       soon as its products are done; the two consumer warpgroups split E's
+//       columns (m64n192, 96 accumulators a thread) over the whole tile.  x1's
 //       and g's tiles land by TMA under the products; the warpgroups take
-//       x1's f32 row statistics (over the real E, the forward's order) 32
-//       rows each, then each row's two LayerNorm sums (sum t, sum t yhat) are
-//       reduced in the quad and exchanged through shared memory on a named
-//       barrier, always added warpgroup 0 first.  dx1 is stored directly in
-//       f32 (a quad writes a whole 32-byte sector) with m1 read 32 columns
-//       ahead of the stores, da replaces g and y2 replaces x1 in their landed
-//       tiles for TMA stores; the dln2 column
-//       partials are summed over the warp's 16 rows by shuffles and over the
-//       four warps in order.
+//       x1's f32 row statistics (over the real E, eight lanes a row as the
+//       forward's fc1 stage, so the same bits) 32 rows each, then each row's
+//       two LayerNorm sums (sum t, sum t yhat) are reduced in the quad and
+//       exchanged through shared memory on a named barrier, always added
+//       warpgroup 0 first.  dx1 is stored directly in f32 (a quad writes a
+//       whole 32-byte sector) with m1 loaded a group of 32 columns ahead of
+//       its stores (the first group under the statistics), da replaces g and
+//       y2 replaces x1 in their landed tiles for TMA stores; the dln2 column
+//       partials are summed over the warp's 16 rows by a reduce-scatter of
+//       shuffles and over the four warps in order.
 //   megablock_bwd_mlp_rows_kernel<kDao> (128-row units, BN 128): the kDz1
 //       skeleton with da resident and wout streamed.  ao's boxes land by
 //       TMA; each thread sums dao * ao (f32 dao, as the TPU kernel) over its
@@ -86,6 +88,7 @@
 // setmaxnreg), no spills, no performance warning (C7xxx); dynamic shared
 // memory 230,496 bytes (rows kernels) and 230,960 (dx1): one block an SM.
 #include "hopper.cuh"
+#include "ln_bwd_tile.cuh"
 
 using namespace vk;
 using namespace vk::hopper;
@@ -375,304 +378,16 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
 
 // --- dy2 = dz1 . w1^T and the LayerNorm backward: dx1, da, y2, dln2 partials ----
 
-namespace lb {
-constexpr int BM = 64;                      // rows a tile
-constexpr int BNW = 192;                    // columns a consumer warpgroup
-constexpr int ABOX = 64 * BM * 2;           // one 64-deep box of the tile's dz1 rows
-constexpr int WBOX = BNW * 128;             // one 64-deep box of 192 rows of w1
-constexpr int STAGES = 2;
-constexpr int STAGE = ABOX + 2 * WBOX;
-constexpr int SMEM = 1024 + STAGES * STAGE + 2 * MAXKB * OBOX + BM * 8 + 2 * BM * 8 +
-                     2 * 4 * 2 * BNW * 4 + 2 * 2 * BNW * 4 + (2 * STAGES + 2) * 8;
-}  // namespace lb
-
-struct Dx1Params {
-  int m, e, hidden;
-  const float* m1;   // (m, e) f32, or null
-  const float* ln_s;
-  const float* ln_b;
-  float eps;
-  float* dx1;        // (m, e) f32
-  float* part;       // (tiles, 2 e) f32
-};
-
-// A 64-row tile a step: dy2 over the whole hidden width, warpgroup w holding
-// columns 192 w .. 192 w + 191 (E <= 192: warpgroup 1 multiplies TMA's zeros;
-// a wgmma in a branch would be serialised).
-// tx / tg: x1's and g's tiles landed; ty / tda: y2's and da's stores, from
-// the same shared memory.
-__global__ void __launch_bounds__(THREADS, 1)
+// ln_bwd_tile.cuh's body with the dx1 epilogue: tx / tg x1's and g's tiles
+// landed, ty / tda y2's and da's stores.
+__global__ void __launch_bounds__(lnbwd::THREADS, 1)
 megablock_bwd_mlp_dx1_kernel(const __grid_constant__ CUtensorMap ta,
                              const __grid_constant__ CUtensorMap tb,
                              const __grid_constant__ CUtensorMap tx,
                              const __grid_constant__ CUtensorMap tg,
                              const __grid_constant__ CUtensorMap ty,
-                             const __grid_constant__ CUtensorMap tda, const Dx1Params p) {
-  using namespace lb;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* stages = smem;                        // stage s at s STAGE
-  unsigned char* xs = stages + STAGES * STAGE;         // x1's box kb at kb OBOX, later y2
-  unsigned char* gs = xs + MAXKB * OBOX;               // g's box kb, later da
-  float2* stats = reinterpret_cast<float2*>(gs + MAXKB * OBOX);  // (mean, rstd) of each row
-  float2* xch = stats + BM;                            // warpgroup w's (sum t, sum t yhat) at w BM + r
-  float* colp = reinterpret_cast<float*>(xch + 2 * BM);  // (w, warp, scale|bias, column)
-  float* lnp = colp + 2 * 4 * 2 * BNW;                 // gamma2 at c, beta2 at 2 BNW + c
-  uint64_t* full = reinterpret_cast<uint64_t*>(lnp + 2 * 2 * BNW);
-  uint64_t* empty = full + STAGES;
-  uint64_t* tfull = empty + STAGES;                    // x1 and g landed / free again
-  uint64_t* tempty = tfull + 1;
-
-  const int wgi = threadIdx.x >> 7;
-  const int nkh = (p.hidden + 63) / 64, nke = (p.e + 63) / 64;
-  const int units = (p.m + BM - 1) / BM;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);
-    }
-    mbar_init(tfull, 1);
-    mbar_init(tempty, 2);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wgi == 0) {
-    reg_dealloc<40>();
-    if (threadIdx.x == 0) {  // dz1's rows and w1, 64 deep a stage
-      int it = 0;
-      for (int u = blockIdx.x; u < units; u += gridDim.x)
-        for (int kb = 0; kb < nkh; ++kb, ++it) {
-          const int s = it % STAGES;
-          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
-          unsigned char* st = stages + s * STAGE;
-          mbar_arrive_tx(&full[s], STAGE);
-          tma_load_2d(st, &ta, &full[s], kb * 64, u * BM);
-          tma_load_2d(st + ABOX, &tb, &full[s], kb * 64, 0);
-          tma_load_2d(st + ABOX + WBOX, &tb, &full[s], kb * 64, BNW);
-        }
-    } else if (threadIdx.x == 32) {  // x1 and g, one tile at a time
-      int i = 0;
-      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
-        if (i > 0) mbar_wait(tempty, (i - 1) & 1);
-        mbar_arrive_tx(tfull, 2 * nke * OBOX);
-        for (int kb = 0; kb < nke; ++kb) {
-          tma_load_2d(xs + kb * OBOX, &tx, tfull, kb * 64, u * BM);
-          tma_load_2d(gs + kb * OBOX, &tg, tfull, kb * 64, u * BM);
-        }
-      }
-    }
-    return;
-  }
-
-  reg_alloc<232>();
-  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
-            g = lane >> 2, t = lane & 3;
-  const float inv_e = 1.f / p.e;
-  for (int c = 128 * w + ct; c < p.e; c += 256) {
-    lnp[c] = p.ln_s[c];
-    lnp[2 * BNW + c] = p.ln_b[c];
-  }
-  named_bar_sync(3, 256);
-  float acc[BNW / 2];
-  float* cpw = colp + (4 * w + wr) * 2 * BNW;  // this warp's column partials
-  int it = 0, i = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
-    const int m0 = u * BM;
-    for (int kb = 0; kb < nkh; ++kb, ++it) {
-      const int s = it % STAGES;
-      mbar_wait(&full[s], (it / STAGES) & 1);
-      const unsigned char* st = stages + s * STAGE;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss<BNW, 0, 0>(acc, desc_sw128(st + kk * 32, 16, 1024),
-                            desc_sw128(st + ABOX + w * WBOX + kk * 32, 16, 1024),
-                            kb > 0 || kk > 0);
-      wgmma_commit();
-      // release the stage as soon as its products are done: with two stages
-      // the next load then runs beside the wait for the one in flight
-      wgmma_wait<0>();
-      if (ct == 0) mbar_arrive(&empty[s]);
-    }
-    fence_regs(acc);
-    mbar_wait(tfull, i & 1);
-
-    // LayerNorm statistics of x1's rows 32 w .. 32 w + 31, one warp a row:
-    // f32 over the real E, the mean, then the mean of squared deviations
-    const int nch = p.e >> 3;
-#pragma unroll 1
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = 32 * w + 8 * wr + rr;
-      float v[2][8];
-      float sum = 0.f;
-#pragma unroll
-      for (int ci = 0; ci < 2; ++ci) {
-        const int c = lane + 32 * ci;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (c < nch)
-          raw = *reinterpret_cast<const uint4*>(xs + (c >> 3) * OBOX + r * 128 +
-                                                (((c & 7) ^ (r & 7)) << 4));
-        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[q]));
-          v[ci][2 * q] = f.x;
-          v[ci][2 * q + 1] = f.y;
-          sum += f.x + f.y;
-        }
-      }
-      const float mean = warp_sum(sum) / p.e;
-      float sq = 0.f;
-#pragma unroll
-      for (int ci = 0; ci < 2; ++ci)
-        if (lane + 32 * ci < nch)
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const float d = v[ci][q] - mean;
-            sq += d * d;
-          }
-      const float rstd = rsqrtf(warp_sum(sq) / p.e + p.eps);
-      if (lane == 0) stats[r] = make_float2(mean, rstd);
-    }
-    named_bar_sync(3, 256);
-
-    // this thread: rows rr[h] = 16 wr + g + 8 h of the tile, columns
-    // 192 w + 8 j + 2 t + (0, 1), in box 3 w + j / 8 at chunk j % 8
-    float mean[2], rstd[2], st[2] = {0.f, 0.f}, sty[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float2 s = stats[16 * wr + g + 8 * h];
-      mean[h] = s.x;
-      rstd[h] = s.y;
-    }
-#pragma unroll
-    for (int j = 0; j < BNW / 8; ++j) {
-      const int cl = 8 * j + 2 * t, col = BNW * w + cl;
-      if (j % 8 == 0) asm volatile("" ::: "memory");  // a box's loads at a time: registers
-      if (BNW * w + 8 * j >= p.e) continue;  // the same for the whole warp
-      const unsigned char* xbox = xs + (3 * w + j / 8) * OBOX;
-      const float2 gm = *reinterpret_cast<const float2*>(lnp + col);
-      float py0 = 0.f, py1 = 0.f, pb0 = 0.f, pb1 = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            xbox + swz(16 * wr + g + 8 * h, j % 8, t)));
-        const float y0 = (x.x - mean[h]) * rstd[h], y1 = (x.y - mean[h]) * rstd[h];
-        const float d0 = acc[4 * j + 2 * h], d1 = acc[4 * j + 2 * h + 1];
-        const float t0 = d0 * gm.x, t1 = d1 * gm.y;
-        st[h] += t0 + t1;
-        sty[h] += t0 * y0 + t1 * y1;
-        py0 += d0 * y0;
-        py1 += d1 * y1;
-        pb0 += d0;
-        pb1 += d1;
-      }
-      // the warp's 16 rows: lanes g = 0 .. 7 in a fixed tree
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        py0 += __shfl_xor_sync(0xffffffffu, py0, o);
-        py1 += __shfl_xor_sync(0xffffffffu, py1, o);
-        pb0 += __shfl_xor_sync(0xffffffffu, pb0, o);
-        pb1 += __shfl_xor_sync(0xffffffffu, pb1, o);
-      }
-      if (g == 0) {
-        *reinterpret_cast<float2*>(cpw + cl) = make_float2(py0, py1);
-        *reinterpret_cast<float2*>(cpw + BNW + cl) = make_float2(pb0, pb1);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      st[h] += __shfl_xor_sync(0xffffffffu, st[h], 1);
-      st[h] += __shfl_xor_sync(0xffffffffu, st[h], 2);
-      sty[h] += __shfl_xor_sync(0xffffffffu, sty[h], 1);
-      sty[h] += __shfl_xor_sync(0xffffffffu, sty[h], 2);
-      if (t == 0) xch[w * BM + 16 * wr + g + 8 * h] = make_float2(st[h], sty[h]);
-    }
-    named_bar_sync(3, 256);
-
-    // dx1 = g + rstd (t - mean(t) - yhat mean(t yhat)), t = dy2 gamma2
-    // (_ln_bwd, fused_block.py:464-470); da = dx1 m1; y2 = yhat gamma2 + beta2
-    float mt[2], mty[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 16 * wr + g + 8 * h;
-      const float2 a = xch[r], b = xch[BM + r];
-      mt[h] = (a.x + b.x) * inv_e;
-      mty[h] = (a.y + b.y) * inv_e;
-    }
-#pragma unroll
-    for (int jq = 0; jq < BNW / 32; ++jq) {
-      // 32 columns at a time, their m1 loads issued before any of their
-      // stores (a load after a store that might alias it waits out its
-      // latency; plain loads, which the compiler keeps behind the last
-      // group's stores, hold 16 registers)
-      float2 mk[4][2];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + 16 * wr + g + 8 * h, col = BNW * w + 32 * jq + 8 * jj + 2 * t;
-          mk[jj][h] = p.m1 != nullptr && row < p.m && col < p.e
-                          ? *reinterpret_cast<const float2*>(p.m1 + (long)row * p.e + col)
-                          : make_float2(1.f, 1.f);
-        }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * jq + jj, jb = j / 8, col = BNW * w + 8 * j + 2 * t;
-        if (BNW * w + 8 * j >= p.e) continue;  // the same for the whole warp
-        const float2 gm = *reinterpret_cast<const float2*>(lnp + col);
-        const float2 bt = *reinterpret_cast<const float2*>(lnp + 2 * BNW + col);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * wr + g + 8 * h, row = m0 + r, o = (3 * w + jb) * OBOX + swz(r, j % 8, t);
-          uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
-          uint32_t* gp = reinterpret_cast<uint32_t*>(gs + o);
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));
-          const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gp));
-          const float y0 = (x.x - mean[h]) * rstd[h], y1 = (x.y - mean[h]) * rstd[h];
-          const float d0 = acc[4 * j + 2 * h] * gm.x, d1 = acc[4 * j + 2 * h + 1] * gm.y;
-          const float dx0 = gv.x + (d0 - mt[h] - y0 * mty[h]) * rstd[h];
-          const float dx1 = gv.y + (d1 - mt[h] - y1 * mty[h]) * rstd[h];
-          if (row < p.m)
-            *reinterpret_cast<float2*>(p.dx1 + (long)row * p.e + col) = make_float2(dx0, dx1);
-          *gp = pack_bf16(dx0 * mk[jj][h].x, dx1 * mk[jj][h].y);  // da
-          *xp = pack_bf16(y0 * gm.x + bt.x, y1 * gm.y + bt.y);    // y2
-        }
-      }
-    }
-    fence_proxy_async();  // y2 and da, to the TMA unit
-    named_bar_sync(1 + w, 128);
-    if (ct == 0) {
-      for (int b = 0; b < 3; ++b) {
-        const int kb = 3 * w + b;
-        if (kb < nke) {
-          tma_store_2d(&ty, xs + kb * OBOX, kb * 64, m0);
-          tma_store_2d(&tda, gs + kb * OBOX, kb * 64, m0);
-        }
-      }
-      bulk_commit();
-    }
-    // the tile's dln2 column partials: the four warps' sums added in order
-    const float* cw = colp + 4 * w * 2 * BNW;
-    for (int c = ct; c < BNW; c += 128) {
-      const int col = BNW * w + c;
-      if (col >= p.e) continue;
-      float sy = 0.f, sb = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        sy += cw[q * 2 * BNW + c];
-        sb += cw[q * 2 * BNW + BNW + c];
-      }
-      p.part[(long)u * 2 * p.e + col] = sy;
-      p.part[(long)u * 2 * p.e + p.e + col] = sb;
-    }
-    if (ct == 0) {  // y2's and da's stores have read the tiles: x1 and g may land again
-      bulk_wait_read<0>();
-      mbar_arrive(tempty);
-    }
-  }
-  if (ct == 0) bulk_wait<0>();
+                             const __grid_constant__ CUtensorMap tda, const lnbwd::Params p) {
+  lnbwd::tiles<lnbwd::kDx1>(ta, tb, tx, tg, ty, tda, p);
 }
 
 }  // namespace
@@ -719,31 +434,17 @@ extern "C" int megablock_bwd_mlp_dx1(const void* dz1, const void* g, const void*
                                      const void* x1, const void* w1, const void* ln_s,
                                      const void* ln_b, void* dx1, void* da, void* y2, void* part,
                                      int m, int e, int hidden, float eps, void* stream) {
-  if (m < 0 || e < 8 || e > 2 * lb::BNW || e % 8 || hidden < 8 || hidden % 8)
+  if (m < 0 || e < 8 || e > 2 * lnbwd::BNW || e % 8 || hidden < 8 || hidden % 8)
     return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
-  CUtensorMap ta, tb, tx, tg, ty, tda;
-  int err = tmap_2d(&ta, dz1, m, hidden, lb::BM);
-  if (!err) err = tmap_2d(&tb, w1, e, hidden, lb::BNW);
-  if (!err) err = tmap_2d(&tx, x1, m, e, lb::BM);
-  if (!err) err = tmap_2d(&tg, g, m, e, lb::BM);
-  if (!err) err = tmap_2d(&ty, y2, m, e, lb::BM);
-  if (!err) err = tmap_2d(&tda, da, m, e, lb::BM);
-  if (err) return err;
-  Dx1Params p{};
-  p.m = m, p.e = e, p.hidden = hidden;
-  p.m1 = static_cast<const float*>(m1);
+  lnbwd::Params p{};
+  p.m = m, p.e = e, p.k = hidden;
+  p.ahead = static_cast<const float*>(m1);
   p.ln_s = static_cast<const float*>(ln_s);
   p.ln_b = static_cast<const float*>(ln_b);
   p.eps = eps;
   p.dx1 = static_cast<float*>(dx1);
   p.part = static_cast<float*>(part);
-  const int units = (m + lb::BM - 1) / lb::BM, grid = units < sm_count() ? units : sm_count();
-  cudaFuncSetAttribute(megablock_bwd_mlp_dx1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       lb::SMEM);
-  megablock_bwd_mlp_dx1_kernel<<<grid, THREADS, lb::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      ta, tb, tx, tg, ty, tda, p);
-  return (int)cudaGetLastError();
+  return lnbwd::launch(megablock_bwd_mlp_dx1_kernel, dz1, w1, x1, g, y2, da, p, stream);
 }
 
 // dao (batch, heads, n, dh) bf16 = da . wout^T and delta (batch, heads, n)

@@ -92,12 +92,10 @@ def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5):
     if dh % 8 or not mlp_kernel_fits(e, 0):
         raise ValueError(f"LN->qkv kernel takes E <= 384 and E, Dh multiples of 8, got "
                          f"E={e}, Dh={dh}; wider blocks are ROADMAP.md queue 1 item 7")
-    dev = x.device
+    dev, f32 = x.device, torch.float32
     x2 = build.aligned16(x.contiguous())
-    w = build.aligned16(_qkv_weight(qkv_w.to(dev), torch.bfloat16).contiguous())
-    bias = qkv_b.to(device=dev, dtype=torch.float32).contiguous()
-    ln_s = ln_scale.to(device=dev, dtype=torch.float32).contiguous()
-    ln_b = ln_bias.to(device=dev, dtype=torch.float32).contiguous()
+    w, bias, ln_s, ln_b = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
+                                    (qkv_b, f32), (ln_scale, f32), (ln_bias, f32))
     out = torch.empty((3, b, h, n, dh), dtype=torch.bfloat16, device=dev)
     fn = build.entry("ln_qkv_fwd")
     build.check(fn, fn(build.ptr(x2), build.ptr(ln_s), build.ptr(ln_b), build.ptr(w),
@@ -399,8 +397,19 @@ def _check_bwd(what: str, *ts) -> None:
 
 # --- the MLP half as csrc/megablock_bwd_mlp.cu's three stages --------------------
 
-# Rows of the dx1 stage's tiles: one row of dln2 column partials each.
+# Rows of the LayerNorm-backward kernels' tiles (the dx1 stage, the LN1
+# half): one row of LN column partials each.
 BWD_TILE_ROWS = 64
+
+
+def _tile_partials(dy, yhat):
+    """(ceil(M / 64), 2E) f32: each 64-row tile's column sums of dy * yhat,
+    then of dy (an LN scale's and bias's partials, as the kernels give them)."""
+    m, e = dy.shape
+    tiles = -(-m // BWD_TILE_ROWS)
+    cols = torch.cat([dy * yhat, dy], 1)
+    return F.pad(cols, (0, 0, 0, tiles * BWD_TILE_ROWS - m)).reshape(
+        tiles, BWD_TILE_ROWS, 2 * e).sum(1)
 
 
 def bwd_dz1_stage_reference(g, m2, z1, w2):
@@ -422,13 +431,8 @@ def bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
     yhat, rstd = _ln_stats(x1.float(), eps)
     dx1 = g.float() + _ln_bwd(dy2, yhat, rstd, ln_s.float())
     da = dx1 * m1 if m1 is not None else dx1
-    m, e = dy2.shape
-    tiles = -(-m // BWD_TILE_ROWS)
-    cols = torch.cat([dy2 * yhat, dy2], 1)
-    part = F.pad(cols, (0, 0, 0, tiles * BWD_TILE_ROWS - m)).reshape(
-        tiles, BWD_TILE_ROWS, 2 * e).sum(1)
     y2 = yhat * ln_s.float() + ln_b.float()
-    return dx1, da.to(torch.bfloat16), y2.to(torch.bfloat16), part
+    return dx1, da.to(torch.bfloat16), y2.to(torch.bfloat16), _tile_partials(dy2, yhat)
 
 
 def bwd_dao_stage_reference(da, ao, wout, batch: int, n: int, heads: int):
@@ -556,13 +560,13 @@ def megablock_bwd_mlp(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: in
 
 def _bwd_ln1_reference(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5):
     """Plain version of megablock_bwd_ln1 on (M, .) rows: (dx and y1 = LN1(x)
-    in x's dtype, dln1 column partials (1, 2E))."""
+    in x's dtype, dln1 column partials (ceil(M / 64), 2E) f32, a row a
+    64-row tile as the kernel gives them)."""
     dy1 = dqkv.float() @ _qkv_weight(qkv_w, torch.float32).T
     yhat, rstd = _ln_stats(x.float(), eps)
     dx = dx1.float() + _ln_bwd(dy1, yhat, rstd, ln_s.float())
-    part = torch.cat([(dy1 * yhat).sum(0), dy1.sum(0)])[None]
     y1 = yhat * ln_s.float() + ln_b.float()
-    return dx.to(x.dtype), y1.to(x.dtype), part
+    return dx.to(x.dtype), y1.to(x.dtype), _tile_partials(dy1, yhat)
 
 
 def megablock_bwd_ln1(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5):
@@ -575,14 +579,12 @@ def megablock_bwd_ln1(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5):
         raise ValueError(f"megablock backward kernels take E <= 384 and E, 3*H*Dh multiples "
                          f"of 8, got E={e}, 3*H*Dh={k}; wider blocks are ROADMAP.md queue 1 "
                          "item 7")
-    dev = x.device
+    dev, f32 = x.device, torch.float32
     dqkv2, x2 = build.aligned16(dqkv.contiguous()), build.aligned16(x.contiguous())
-    w = build.aligned16(_qkv_weight(qkv_w.to(dev), torch.bfloat16).contiguous())
+    w, dx1f, ln_sf, ln_bf = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
+                                      (dx1, f32), (ln_s, f32), (ln_b, f32))
     dx, y1 = torch.empty_like(x2), torch.empty_like(x2)
-    part = torch.empty(((m + 63) // 64, 2 * e), dtype=torch.float32, device=dev)
-    dx1f = dx1.float().contiguous()
-    ln_sf = ln_s.to(device=dev, dtype=torch.float32).contiguous()
-    ln_bf = ln_b.to(device=dev, dtype=torch.float32).contiguous()
+    part = torch.empty((-(-m // BWD_TILE_ROWS), 2 * e), dtype=f32, device=dev)
     fn = build.entry("megablock_bwd_ln1")
     build.check(fn, fn(build.ptr(dqkv2), build.ptr(w), build.ptr(x2), build.ptr(dx1f),
                        build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(dx), build.ptr(y1),
