@@ -12,7 +12,9 @@
    instructions of the sources redesigned for Hopper (wgrad_gemm, the flash
    forward, the k-block backward, the q-block dq, the LN->MLP forward,
    LN->qkv and the megablock backward's MLP and LN1 halves) and fails on
-   none.
+   none, and the HGMMA of each persistent `l2` two-pass kernel (fed by 1-D
+   bulk copies, no tensor map); fails where one of those kernels spills or
+   draws a ptxas performance warning at DP 112 or 64.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
@@ -94,8 +96,10 @@
    bit-equal.
 13. Holds the `l2` and `l2ref` flash forward (output and LSE) and the `l2`
    dq, dk/dv and single-pass kernels against their plain versions at the v1
-   discriminator's shape (256, 4, 50, 108), a ragged (4, 4, 1025, 108) and
-   (8, 6, 1024, 64), with the forward and backward limits above; times each
+   discriminator's shape (256, 4, 50, 108), at 64 and 65 tokens (one tile
+   exactly, one row past it), a ragged (4, 4, 1025, 108) and (8, 6, 1024,
+   64), with the forward and backward limits above, the two-pass outputs
+   contiguous at the unpadded head width; times each
    beside its bound, its plain version and, for `l2`, scaled_dot_product_
    attention with the -inv |k|^2 key mask (the same softmax but for the
    clamp; library_ms, timed only) and, at the discriminator's shape, the
@@ -317,16 +321,18 @@ HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "f
 # ln_mlp_fc1_kernel and ln_mlp_linear_kernel, and the single kernel of a
 # parent scripts/kernel_ab.py measures).
 LN_MLP_SYMBOL = "ln_mlp"
-# Two calls of a kernel whose results must be bit-equal: chip_smoke.py raises
-# when they are not; scripts/kernel_ab.py sets this False to record how far
-# apart they are on a tree whose kernel is not bit-deterministic.
-STRICT_REPEAT = True
+# chip_smoke.py raises where two calls of a kernel whose results must be
+# bit-equal are not, and where the `l2` two-pass outputs do not come back
+# contiguous at the unpadded head width; scripts/kernel_ab.py sets this False
+# to record both on a tree that falls short (a parent whose kernel is not
+# bit-deterministic, or whose wrappers slice padded outputs).
+STRICT = True
 
 
 def _repeat(call, what: str) -> list:
     """Calls ``call`` twice; the largest |difference| between the two calls'
     results, one per output (0.0 each: bit-equal).  Raises where the two are
-    not bit-equal and STRICT_REPEAT."""
+    not bit-equal and STRICT."""
     import torch
 
     first = call()
@@ -339,14 +345,25 @@ def _repeat(call, what: str) -> list:
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
     print(f"  {what}: {'bit-equal' if equal else 'NOT bit-equal'} across two calls (max |d| "
           f"per output {diffs})")
-    if not equal and STRICT_REPEAT:
+    if not equal and STRICT:
         raise AssertionError(f"{what}: two calls are not bit-equal")
     return diffs
 
 
+# The persistent `l2` two-pass kernels (csrc/flash_l2_bwd.cuh), by the part
+# of their CUDA symbols: 1-D bulk copies feed them, so their SASS holds HGMMA
+# and no UTMALDG; their instantiations at DP 112 (the v1 discriminator's Dh
+# 108) and 64 must neither spill nor draw a ptxas performance warning.
+L2_BWD_KERNELS = ("flash_bwd_dq_l2_kernel", "flash_bwd_dkv_l2_kernel")
+L2_BWD_CHECKED_DP = (112, 64)
+
+
 def _sass_counts(build) -> dict:
     """{source: {"HGMMA": n, "UTMALDG": n}} from cuobjdump of each library in
-    HOPPER_SOURCES; {} where the toolkit has no cuobjdump."""
+    HOPPER_SOURCES, and {symbol: {"HGMMA": n}} of each instantiation of
+    L2_BWD_KERNELS; {} where the toolkit has no cuobjdump."""
+    import re
+
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         print("[sass] no cuobjdump in the toolkit: not counted")
@@ -359,7 +376,28 @@ def _sass_counts(build) -> dict:
         print(f"[sass] {name}: {out[name]['HGMMA']} HGMMA, {out[name]['UTMALDG']} UTMALDG")
         if not (out[name]["HGMMA"] and out[name]["UTMALDG"]):
             raise AssertionError(f"{name} holds no wgmma or no TMA load in its SASS")
+        for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+            if any(k in func for k in L2_BWD_KERNELS):
+                out[func] = {"HGMMA": body.count("HGMMA")}
+                print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
+                if not out[func]["HGMMA"]:
+                    raise AssertionError(f"{func} holds no wgmma in its SASS")
     return out
+
+
+def _check_l2_bwd_ptxas(kernels: list, warnings: list) -> None:
+    """Raises where an L2_BWD_KERNELS instantiation at L2_BWD_CHECKED_DP
+    spills or draws a ptxas performance warning (``kernels``, ``warnings``:
+    _ptxas_kernels and _ptxas_warnings of one build log)."""
+    checked = tuple(f"{k}ILi{dp}E" for k in L2_BWD_KERNELS for dp in L2_BWD_CHECKED_DP)
+    for func, regs, stores, loads in kernels:
+        if any(c in func for c in checked):
+            print(f"  [ptxas] {func}: {regs} registers, {stores}/{loads} bytes spilled")
+            if stores or loads:
+                raise AssertionError(f"{func} spills ({stores} bytes stored, {loads} loaded)")
+    for func, line in warnings:
+        if any(c in func for c in checked):
+            raise AssertionError(f"{func}: {line}")
 
 
 # The kernels check_kernels also holds bit-equal across two calls, with the
@@ -1423,7 +1461,9 @@ def train_deit64(steps: int = 3) -> dict:
 # Kernel names of the port, by the substring of their CUDA symbol.
 PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
+                ("flash_bwd_dkv_l2_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_dq_kernel", "flash backward dq"),
+                ("flash_bwd_dq_l2_kernel", "flash backward dq"),
                 ("scale_cast_kernel", "flash single-pass `l2` dq finish"),
                 ("flash_attn_fwd_kernel", "flash forward"),
                 ("ln_qkv", "LN->qkv forward"),
@@ -1634,16 +1674,19 @@ def compare_train_routes() -> dict:
     return out
 
 
-L2_SHAPES = (("D", (256, 4, 50, 108)), ("ragged", (4, 4, 1025, 108)),
-             ("wide", (8, 6, 1024, 64)))
+L2_SHAPES = (("D", (256, 4, 50, 108)), ("D64", (256, 4, 64, 108)), ("D65", (256, 4, 65, 108)),
+             ("ragged", (4, 4, 1025, 108)), ("wide", (8, 6, 1024, 64)))
 L2_MAIN_SHAPE = "D"
 # The CUDA symbols of each flash wrapper's own kernels (the single pass also
-# runs its dq scale-and-cast pass), for _device_ms.
+# runs its dq scale-and-cast pass), for _device_ms; the two-pass entries'
+# also name the parent's mma.sync `l2` kernels, so that scripts/kernel_ab.py
+# measures a parent tree too.
 FLASH_SYMBOLS = {"flash_attn_fwd": ("flash_attn_fwd_kernel",),
                  "flash_attn_bwd_fused": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel",
                                           "scale_cast_kernel"),
-                 "flash_attn_bwd_dq": ("flash_bwd_dq_kernel",),
-                 "flash_attn_bwd_dkv": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel")}
+                 "flash_attn_bwd_dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_l2_kernel"),
+                 "flash_attn_bwd_dkv": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel",
+                                        "flash_bwd_dkv_l2_kernel")}
 
 
 def _with_device_ms(rec: dict, fn, iters: int, base: str) -> dict:
@@ -1726,6 +1769,9 @@ def check_l2_kernels() -> dict:
             want = want if isinstance(want, tuple) else (want,)
             err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
                       for i, (g_, w_) in enumerate(zip(got, want)))
+            contiguous = all(g_.is_contiguous() for g_ in got)
+            if base != "flash_attn_bwd_fused" and not contiguous and STRICT:
+                raise AssertionError(f"{name} {label}: the two-pass outputs are not contiguous")
             del got, want
             repeat = _repeat(lambda: kern(*args, score_mode="l2"), f"{name} {label}")
             bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
@@ -1734,7 +1780,7 @@ def check_l2_kernels() -> dict:
                           "ms": _time_ms(lambda: kern(*args, score_mode="l2"), iters),
                           "plain_ms": _time_ms(lambda: plain(*args, score_mode="l2"), 3),
                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                          "repeat_max_abs_diff": repeat}
+                          "repeat_max_abs_diff": repeat, "contiguous": contiguous}
             if label == L2_MAIN_SHAPE:
                 _with_device_ms(recs[name], lambda: kern(*args, score_mode="l2"), iters, base)
         for name, r in recs.items():
@@ -1749,6 +1795,7 @@ def check_l2_kernels() -> dict:
                 out[name][f"{label}_ms"] = r["ms"]
                 if "repeat_max_abs_diff" in r:
                     out[name][f"{label}_repeat_max_abs_diff"] = r["repeat_max_abs_diff"]
+                    out[name][f"{label}_contiguous"] = r["contiguous"]
         del q, k, v, do, o, lse, qg, kg, vg, lib_out
         torch.cuda.empty_cache()
     return out
@@ -2321,6 +2368,7 @@ def main() -> int:
             print(f"    {func}: {regs} registers, {stores} bytes spill stores, {loads} loads")
         for func, line in ptxas_warnings[name]:
             print(f"    {func}: {line}")
+        _check_l2_bwd_ptxas(kernels, ptxas_warnings[name])
 
     sass = _sass_counts(build)
     records = check_kernels()

@@ -4,7 +4,8 @@ megablock's training kernels (the backward's LN1 half, wgrad_gemm and
 sum_partials among them) of one tree of the port on the card, with
 chip_smoke.py's own phases, so that two trees can be compared in one call.
 
-    python scripts/kernel_ab.py [--root DIR] [--label NAME] [--splits | --host | --megablock]
+    python scripts/kernel_ab.py [--root DIR] [--label NAME]
+        [--splits | --host | --megablock | --l2 | --ticket]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -38,6 +39,16 @@ tree's package, the MLP half's three stages too).
 
 ``--host`` runs only the host phase instead: the CPU time of one call of
 each LN->MLP form's wrapper at its main shape (``host_times``).
+
+``--l2`` runs only the `l2` phase: ``check_l2_kernels`` (the `l2`/`l2ref`
+forward and the `l2` single pass, dq and dk/dv at chip_smoke.L2_SHAPES; at
+the v1 discriminator's shape each wrapper's own kernels' device time and its
+other device work, such as pads; the two-pass outputs' layout recorded, not
+raised) and the single pass twice at the v1 shapes.
+
+``--ticket`` runs only the single pass's order phase (``ticket_times``): the
+`dot` and `l2` single passes at G's shape and at one head x 16,385 tokens,
+each wrapper's time, its kernels' device time and two calls compared.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -118,6 +129,44 @@ def single_pass_repeats(cs) -> dict:
     return out
 
 
+# The single pass where its ticket counts most: G's grid (1,536 `dot` blocks,
+# 3,072 `l2` ones) and one head's chain of k-blocks at 16,385 tokens.
+TICKET_SHAPES = (("G", (32, 6, 1024, 64)), ("long", (1, 1, 16385, 64)))
+
+
+def ticket_times(cs) -> dict:
+    """{"mode shape": {"ms", "device_ms", "other_device_ms", "repeat"}} of the
+    single pass (`dot` at scale Dh, `l2` at H * Dh) at TICKET_SHAPES: the
+    wrapper by chip_smoke's _time_ms, its kernels' device time by _device_ms,
+    and the max |d| per output (dq, dk, dv) between two calls by _repeat."""
+    import torch
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    out = {}
+    for label, shape in TICKET_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        for mode in ("dot", "l2"):
+            scale = float(shape[3] * (shape[1] if mode == "l2" else 1))
+            o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+            fn = lambda: A.flash_backward_fused(q, k, v, o, lse, do, scale,  # noqa: E731
+                                                score_mode=mode)
+            iters = 5 if shape[2] > 8192 else 20
+            rec = {"ms": cs._time_ms(fn, iters)}
+            rec["device_ms"], rec["other_device_ms"] = cs._device_ms(
+                fn, iters, cs.FLASH_SYMBOLS["flash_attn_bwd_fused"])
+            rec["repeat"] = cs._repeat(fn, f"flash_attn_bwd_fused {mode} {label}")
+            out[f"{mode} {label}"] = rec
+            print(f"[ticket] {mode} {label}: {rec['ms']:.4f} ms, device {rec['device_ms']} ms "
+                  f"(other {rec['other_device_ms']} ms)")
+            del o, lse
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
 def host_times(cs, calls: int = 36) -> dict:
     """{form: {"host_ms", "wall_ms"}} for the three LN->MLP forms at their
     main shapes (chip_smoke.LN_MLP_MAIN): with the device synchronised, the
@@ -171,6 +220,8 @@ def main() -> int:
     ap.add_argument("--splits", action="store_true")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--megablock", action="store_true")
+    ap.add_argument("--l2", action="store_true")
+    ap.add_argument("--ticket", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -182,7 +233,7 @@ def main() -> int:
     from vitgan_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
-    cs.STRICT_REPEAT = False  # record how far apart two calls are
+    cs.STRICT = False  # record how far apart two calls are, and the outputs' layout
     label = args.label or args.root
     print(f"[build] {label}: {build.build()}")
     if args.host:
@@ -190,6 +241,13 @@ def main() -> int:
         return 0
     if args.megablock:
         print(json.dumps({"label": label, "megablock": cs.check_megablock_kernels()[0]}))
+        return 0
+    if args.l2:
+        print(json.dumps({"label": label, "l2": cs.check_l2_kernels(),
+                          "single_pass_repeats": single_pass_repeats(cs)}))
+        return 0
+    if args.ticket:
+        print(json.dumps({"label": label, "ticket": ticket_times(cs)}))
         return 0
     rec = {"label": label,
            "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Cycles of each phase inside the LN->qkv kernel and the megablock
-backward's LN1 half, on the card.
+"""Cycles of each phase inside the LN->qkv kernel, the megablock backward's
+LN1 half and the `l2` two-pass flash backward (dq and dk/dv), on the card.
 
     python scripts/phase_trace.py [--blocks 0 77]
 
@@ -14,13 +14,18 @@ when an anchor is missing, so a changed kernel is never traced at the wrong
 place), compiles each copy with ops/build.NVCC_FLAGS, binds it in place of
 the package's library and calls the package's wrapper three times at the
 kernel's main shape (LN->qkv at the serving shape, 65,536 rows of E 384 into
-6 heads of 64; the LN1 half at G's, 32,768 rows, E 384, K 1,152).  Phases of
-a 128-row LN->qkv unit: the wait for its x, the LayerNorm, then for each
-192-column tile the products, the epilogue's staging and the copy-out; of a
-64-row LN1 tile: the products, the wait for x, the row statistics, the
-LayerNorm sums, the epilogue and the stores with the column partials.  The
-first unit of each block (its wait holds the launch's first loads) is left
-out of the means.  Prints one JSON line: the mean cycles of each phase per
+6 heads of 64; the LN1 half at G's, 32,768 rows, E 384, K 1,152; the `l2` dq
+and dk/dv at the v1 discriminator's, 256 x 4 heads, 50 tokens, Dh 108).
+Phases of a 128-row LN->qkv unit: the wait for its x, the LayerNorm, then
+for each 192-column tile the products, the epilogue's staging and the
+copy-out; of a 64-row LN1 tile: the products, the wait for x, the row
+statistics, the LayerNorm sums, the epilogue and the stores with the column
+partials; of an `l2` unit (one head, on the second consumer warpgroup, which
+takes every other head): the time since its previous unit, the wait for its
+resident rows, their fragments and norms, the wait for its tile, the tile's
+re-layout, S, P, dP and dS, the output boxes and the staging of the outputs.
+The first unit of each block (its wait holds the launch's first loads) is
+left out of the means.  Prints one JSON line: the mean cycles of each phase per
 unit and their shares of the unit.  The marks cost a few cycles each and
 one register; the kernels are otherwise those of the tree.
 """
@@ -68,13 +73,37 @@ LN1_MARKS = (
     ("ln_bwd_tile.cuh", "make_float2(st[h], sty[h]);\n    }\n    named_bar_sync(3, 256);\n", "after"),
     ("ln_bwd_tile.cuh", "    fence_proxy_async();  // y and the bf16 output, to the TMA unit\n", "before"),
 )
-# where each kernel's marks switch on (the consumers' register hand-over)
-START = {"ln_qkv_fwd.cu": "  reg_alloc<232>();\n", "ln_bwd_tile.cuh": "  reg_alloc<232>();\n"}
+L2_MARKS = (
+    ("flash_l2_bwd.cuh", "    mbar_wait(&sh.rfull[i % sh.g.rn], (i / sh.g.rn) & 1);\n"
+                         "    unsigned char* x1 = sh.rent(i) + off;  // the unit's R1 rows, then R2\n",
+     "before"),
+    ("flash_l2_bwd.cuh", "    unsigned char* x1 = sh.rent(i) + off;  // the unit's R1 rows, then R2\n",
+     "before"),
+    ("flash_l2_bwd.cuh", "    if constexpr (!DKV) {  // dq: the rows' LSE (log2 units) and delta\n",
+     "before"),
+    ("flash_l2_bwd.cuh", "    mbar_wait(&sh.tfull[i % sh.g.tn], (i / sh.g.tn) & 1);\n", "after"),
+    ("flash_l2_bwd.cuh", "    if (ct == 0) mbar_arrive(&sh.tfree[i % sh.g.tn]);\n", "after"),
+    ("flash_l2_bwd.cuh", "    uint32_t pf[4][4], df[4][4];\n    pack_frags(pf, sa);\n", "before"),
+    ("flash_l2_bwd.cuh", "    fence_frags(pf);\n    fence_frags(df);\n    named_bar_sync(BAR_WG + w, 128);",
+     "before"),
+    ("flash_l2_bwd.cuh", "    mbar_arrive(&sh.rfree[i % sh.g.rn]);\n  }\n}\n\n// Lockstep", "after"),
+)
+# where each kernel's marks switch on (the consumers' register hand-over; the
+# `l2` kernels' ping-pong consumer)
+START = {"ln_qkv_fwd.cu": "  reg_alloc<232>();\n", "ln_bwd_tile.cuh": "  reg_alloc<232>();\n",
+         "flash_l2_bwd.cuh": "  const bool row_ok[2] = {lrow < n, lrow + 8 < n};\n"}
+# each traced library and the line of its source the trace's buffer goes before
+LIBS = {"ln_qkv_fwd": '#include "hopper.cuh"\n', "megablock_bwd_ln1": '#include "hopper.cuh"\n',
+        "flash_attn_bwd_dq": '#include "flash_attn_bwd.cuh"\n',
+        "flash_attn_bwd_dkv": '#include "flash_attn_bwd.cuh"\n'}
 
 
 def _insert(src: str, anchor: str, how: str) -> str:
     if src.count(anchor) != 1:
         raise RuntimeError(f"phase_trace: anchor not found once in the source: {anchor!r}")
+    if how == "after" and anchor.endswith("// Lockstep"):  # the mark before the loop's end
+        head = anchor[:anchor.index("  }\n}")]
+        return src.replace(anchor, head + "TR();\n" + anchor[len(head):])
     return src.replace(anchor, anchor + "TR();\n" if how == "after" else "TR();\n" + anchor)
 
 
@@ -88,7 +117,7 @@ def instrument(blocks) -> dict:
     for fn in os.listdir(build.CSRC):
         shutil.copy(os.path.join(build.CSRC, fn), OUT)
     on = _TRACE_ON.format(blocks=", ".join(map(str, blocks)), nb=len(blocks), slots=SLOTS)
-    for marks in (QKV_MARKS, LN1_MARKS):
+    for marks in (QKV_MARKS, LN1_MARKS, L2_MARKS):
         path = os.path.join(OUT, marks[0][0])
         with open(path) as f:
             src = f.read()
@@ -101,11 +130,12 @@ def instrument(blocks) -> dict:
         with open(path, "w") as f:
             f.write(src)
     sources = {}
-    for lib in ("ln_qkv_fwd", "megablock_bwd_ln1"):
+    for lib, anchor in LIBS.items():
         path = os.path.join(OUT, f"{lib}.cu")
         with open(path) as f:
             src = f.read()
-        anchor = '#include "hopper.cuh"\n'
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"phase_trace: no single {anchor!r} in {lib}.cu")
         src = src.replace(anchor, _TRACE_DEF.format(n=SLOTS * len(blocks)) + anchor, 1)
         with open(path, "w") as f:
             f.write(src)
@@ -149,6 +179,7 @@ def main() -> int:
         print("phase_trace: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from vitgan_tpu_torch.ops import attention as A
     from vitgan_tpu_torch.ops import build
     from vitgan_tpu_torch.ops import fused_block as FB
 
@@ -170,6 +201,9 @@ def main() -> int:
     runs = {
         "ln_qkv_fwd": (lambda: FB.ln_qkv_forward(*qkv), (64, 1024, 384, 6, 64)),
         "megablock_bwd_ln1": (lambda: FB.megablock_bwd_ln1(*ln1), (32768, 384, 1152)),
+        "flash_attn_bwd_dq": (lambda: A.flash_backward_dq(*l2, score_mode="l2"), (256, 4, 50, 108)),
+        "flash_attn_bwd_dkv": (lambda: A.flash_backward_dkv(*l2, score_mode="l2"),
+                               (256, 4, 50, 108)),
     }
     b, n, e, h, dh = runs["ln_qkv_fwd"][1]
     qkv = (rn(b, n, e), 1 + rn(e, scale=0.1, dtype=f32), rn(e, scale=0.1, dtype=f32),
@@ -177,6 +211,11 @@ def main() -> int:
     m, e1, k = runs["megablock_bwd_ln1"][1]
     ln1 = (rn(m, k), rn(3, k // 192, e1, 64, scale=0.02), rn(m, e1), rn(m, e1, dtype=f32),
            1 + rn(e1, scale=0.1, dtype=f32), rn(e1, scale=0.1, dtype=f32))
+    shape = runs["flash_attn_bwd_dq"][1]
+    q_, k_, v_, do_ = (rn(*shape) for _ in range(4))
+    scale = float(shape[1] * shape[3])
+    o_, lse_ = A.flash_forward(q_, k_, v_, scale, score_mode="l2")
+    l2 = (q_, k_, v_, o_, lse_, do_, scale)
     for lib, (call, shape) in runs.items():
         handle = bind(lib, f"{sources[lib][:-3]}.so")
         for _ in range(3):
@@ -190,6 +229,12 @@ def main() -> int:
             # done, then a tile: products, staging, copy-out done
             labels = ["wait_x", "layernorm"] + ["products", "staging", "copy_out"] * (
                 -(-3 * h * dh // 192))
+        elif lib.startswith("flash"):
+            # marks: the consumer's start, then a unit: its start, resident
+            # rows landed, fragments and norms, tile landed, tile re-laid,
+            # S/P/dP/dS done, boxes done, outputs staged
+            labels = ["between_units", "wait_resident", "fragments", "wait_tile", "relayout",
+                      "scores_softmax", "boxes", "staging"]
         else:
             # marks: the consumers' start, then a tile: its start, products,
             # x landed, statistics, sums, epilogue done (the stores and
@@ -200,7 +245,7 @@ def main() -> int:
         for blk in range(len(args.blocks)):
             t = buf[blk * SLOTS:(blk + 1) * SLOTS].tolist()
             t = t[:next((i for i, v in enumerate(t) if v == 0), len(t))]
-            if lib == "ln_qkv_fwd":
+            if lib == "ln_qkv_fwd" or lib.startswith("flash"):
                 per = len(labels)
                 for u in range(1, (len(t) - 1) // per):
                     seg = t[u * per:(u + 1) * per + 1]

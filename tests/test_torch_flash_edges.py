@@ -9,12 +9,14 @@
   two 64-column boxes, 64- and 128-key tiles);
 - ops/attention.fused_dq_schedule, the grid order and the rule the
   single-pass kernel's blocks wait by: every block waits on a lower linear
-  index, and a simulation of in-order block dispatch at G's and D's grids
-  with one and two resident blocks on each of 132 SMs shows that every block
-  finishes and that each (head, tile) receives its k-blocks' additions in
-  one fixed order; in linear order even one slot finishes every block,
-  while dispatched in reverse onto fewer slots than a head's k-blocks the
-  same rule deadlocks, which is why the kernel rests on in-order dispatch.
+  index, and each block takes its linear index from the launch's ticket (the
+  count of blocks started before it), not from blockIdx.  A simulation of
+  block dispatch at G's and D's grids shows that every block finishes and
+  that each (head, tile) receives its k-blocks' additions in one fixed
+  order: dispatched in order onto one and two resident blocks on each of
+  132 SMs, and dispatched in order, in reverse and in a seeded random order
+  onto fewer slots than a head's k-blocks.  Taking the index from blockIdx
+  instead, the reversed dispatch deadlocks (the hazard the ticket removes).
 
 Tolerance: 1e-5 absolute and relative, f32 on both sides (JAX at 'highest'
 matmul precision, tests/conftest.py); the sums run in another order.
@@ -53,25 +55,33 @@ def test_plain_forward_matches_jax_kernel_at_kernel_edges(n, dh):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
 
 
-def simulate(plan: A.FusedSchedule, slots: int, order=None) -> dict:
-    """Blocks of ``plan``'s grid dispatched in ``order`` (default: linear
-    order) onto ``slots`` resident places.  Each tick every resident block tries
-    to add its next tile's dQ: it may when plan.waits_on(block) is None or
-    that block has added the tile already.  A block that has added all its
-    tiles leaves its slot to the next block in ``order``.  Returns
-    {"finished": blocks done, "deadlock": True if a tick moved nothing while
-    blocks were left, "adds": {(head, tile): [k-block, ...] in the order the
-    additions happened}}."""
+def simulate(plan: A.FusedSchedule, slots: int, order=None, ticket: bool = True) -> dict:
+    """Blocks of ``plan``'s grid (by blockIdx) dispatched in ``order``
+    (default: blockIdx order) onto ``slots`` resident places.  A block that
+    starts takes its linear index from the ticket, the count of blocks started
+    before it, as the kernels do; with ``ticket`` False, from its blockIdx.
+    Each tick every resident block tries to add its next tile's dQ: it may
+    when plan.waits_on(index) is None or that block has added the tile
+    already.  A block that has added all its tiles leaves its slot to the
+    next block in ``order``.  Returns {"finished": blocks done, "deadlock":
+    True if a tick moved nothing while blocks were left, "adds": {(head,
+    tile): [k-block, ...] in the order the additions happened}}."""
     total = plan.k_blocks * plan.batch_heads
     order = list(range(total)) if order is None else list(order)
     done_tiles = [0] * total
     queue, resident = iter(order), []
     adds: dict = {}
     finished = 0
+    started = iter(range(total))  # the ticket
+
+    def start(into: list) -> None:
+        """The next block in ``order`` starts, into ``into`` by its index."""
+        blk = next(queue, None)
+        if blk is not None:
+            into.append(next(started) if ticket else blk)
+
     for _ in range(slots):
-        nxt = next(queue, None)
-        if nxt is not None:
-            resident.append(nxt)
+        start(resident)
     while resident:
         moved = []
         for blk in resident:
@@ -85,13 +95,11 @@ def simulate(plan: A.FusedSchedule, slots: int, order=None) -> dict:
             kb, head = plan.coords(blk)
             adds.setdefault((head, done_tiles[blk]), []).append(kb)
             done_tiles[blk] += 1
-        left = []
+        left: list = []
         for blk in resident:
             if done_tiles[blk] == plan.q_tiles:
                 finished += 1
-                nxt = next(queue, None)
-                if nxt is not None:
-                    left.append(nxt)
+                start(left)
             else:
                 left.append(blk)
         resident = left
@@ -114,25 +122,38 @@ def test_in_order_dispatch_finishes_every_block_in_key_block_order(grid, residen
     assert all(kbs == list(range(plan.k_blocks)) for kbs in res["adds"].values())
 
 
-def test_the_rule_needs_in_order_dispatch():
-    """The rule needs the waited-on block resident or finished.  In linear
-    order one slot is enough; with the highest linear index dispatched first
-    onto fewer slots than a head's k-blocks, every slot holds a block whose
-    predecessor never starts."""
-    plan = A.fused_dq_schedule(1024, 2, "dot")
-    res = simulate(plan, 1)
-    assert not res["deadlock"] and res["finished"] == 2 * plan.k_blocks
+@pytest.mark.parametrize("dispatch", ["in_order", "reversed", "random"])
+@pytest.mark.parametrize("grid", [("G", 1024, 32 * 6, "dot"), ("D", 1025, 64 * 6, "dot"),
+                                  ("l2", 1025, 16, "l2")], ids=["G", "D", "l2"])
+def test_the_ticket_finishes_any_dispatch_order(grid, dispatch):
+    """The rule needs the waited-on block resident or finished.  With each
+    block's index taken from the ticket, every dispatch order finishes, onto
+    fewer slots than a head's k-blocks, and adds every tile in key-block
+    order.  Dispatched in reverse with the index taken from blockIdx (the
+    rule before the ticket), every slot holds a block whose predecessor never
+    starts."""
+    _, n, bh, mode = grid
+    plan = A.fused_dq_schedule(n, bh, mode)
+    total = plan.k_blocks * bh
+    order = {"in_order": range(total), "reversed": reversed(range(total)),
+             "random": np.random.default_rng(11).permutation(total)}[dispatch]
+    res = simulate(plan, plan.k_blocks - 1, order=order)
+    assert not res["deadlock"] and res["finished"] == total
+    assert len(res["adds"]) == bh * plan.q_tiles
     assert all(kbs == list(range(plan.k_blocks)) for kbs in res["adds"].values())
-    res = simulate(plan, plan.k_blocks - 1, order=reversed(range(2 * plan.k_blocks)))
-    assert res["deadlock"] and res["finished"] == 0
+    if dispatch == "reversed":
+        res = simulate(plan, plan.k_blocks - 1, order=reversed(range(total)), ticket=False)
+        assert res["deadlock"] and res["finished"] == 0
 
 
 def test_fused_schedule_sizes_the_wrapper_buffers():
-    """The grid and flags of the single pass at the main path's shapes: G
-    (1,024 tokens), the v1 generator (32 tokens, one k-block: no flags) and
-    the v1 discriminator's `l2` 50 tokens (64 keys a block: one k-block)."""
+    """The grid and the buffer of flags and ticket of the single pass at the
+    main path's shapes: G (1,024 tokens: a flag per (head, tile), then the
+    ticket), the v1 generator (32 tokens, one k-block: no flags, no ticket)
+    and the v1 discriminator's `l2` 50 tokens (64 keys a block: one k-block)."""
     g = A.fused_dq_schedule(1024, 192, "dot")
-    assert (g.k_blocks, g.q_tiles, g.flags, g.group_heads) == (8, 16, (192, 16), 32)
+    assert (g.k_blocks, g.q_tiles, g.group_heads) == (8, 16, 32)
+    assert (g.ticket, g.flags) == (192 * 16, (192 * 16 + 1,))
     # groups of 32 heads, k-block slowest: block (kb, h) waits 32 indices back
     assert [g.coords(i) for i in (0, 1, 32, 33, 255, 256)] == [
         (0, 0), (0, 1), (1, 0), (1, 1), (7, 31), (0, 32)]
@@ -141,10 +162,10 @@ def test_fused_schedule_sizes_the_wrapper_buffers():
     assert ragged.coords(256) == (0, 32) and ragged.coords(264) == (1, 32)
     assert ragged.waits_on(264) == 256
     v1 = A.fused_dq_schedule(32, 512, "dot")
-    assert (v1.k_blocks, v1.q_tiles, v1.flags) == (1, 1, (0,))
+    assert (v1.k_blocks, v1.q_tiles, v1.flags, v1.ticket) == (1, 1, (0,), None)
     assert v1.waits_on(5) is None
     d_l2 = A.fused_dq_schedule(50, 1024, "l2")
-    assert (d_l2.k_blocks, d_l2.flags) == (1, (0,))
+    assert (d_l2.k_blocks, d_l2.flags, d_l2.ticket) == (1, (0,), None)
     ragged_l2 = A.fused_dq_schedule(1025, 16, "l2")  # `l2`: k-block fastest
-    assert (ragged_l2.k_blocks, ragged_l2.q_tiles, ragged_l2.flags) == (17, 17, (16, 17))
+    assert (ragged_l2.k_blocks, ragged_l2.q_tiles, ragged_l2.flags) == (17, 17, (16 * 17 + 1,))
     assert ragged_l2.coords(18) == (1, 1) and ragged_l2.waits_on(18) == 17

@@ -4,7 +4,10 @@ flash attention on the JAX package's backward route, the `l2` and `l2ref`
 score modes (forward, the `l2` backward kernels, autograd, the v1 head width
 108), the wgmma `dot` forward and dq at the edges of their tiles, the
 forward's (B, N, H*D) output layout, the single pass bit-equal across two
-calls, the megablock's training forward and saved-residual backward (against
+calls (`dot` and `l2`, at G's grid and one head x 16,385 tokens too, on the
+ticket's order), the persistent `l2` two-pass kernels (dq, dk/dv) at the v1
+discriminator's shape and the edges of their tiles, contiguous at the
+unpadded head width and bit-equal across two calls, the megablock's training forward and saved-residual backward (against
 autograd of the plain block) and the weight-gradient kernel, the training
 gate, and the raises for what the kernels do not take; each stage of the
 LN->MLP forward against its plain version, each stage of the megablock
@@ -419,6 +422,46 @@ def test_wgrad_gemm_is_bit_deterministic_on_card(rows, ka, nb):
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
 
 
+L2_TWO_PASS_SHAPES = [(256, 4, 50, 108), (4, 4, 64, 108), (4, 4, 65, 108), (2, 2, 1025, 108),
+                      (4, 4, 50, 64), (4, 4, 65, 64), (2, 2, 1025, 64)]
+L2_TWO_PASS_IDS = ["D", "n64_dh108", "n65_dh108", "n1025_dh108", "n50_dh64", "n65_dh64",
+                   "n1025_dh64"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", L2_TWO_PASS_SHAPES, ids=L2_TWO_PASS_IDS)
+@pytest.mark.parametrize("name", ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+def test_l2_two_pass_kernel_matches_plain_on_card(name, shape):
+    """The persistent `l2` dq and dk/dv kernels at the v1 discriminator's
+    shape (256 x 4 heads, 50 tokens, Dh 108), at 64 and 65 tokens (one
+    64-row tile exactly and one row past it), at 1,025, and at Dh 64 (one
+    column box, 128 resident rows): each output within 2e-2 * its own
+    max|plain|, contiguous at the unpadded head width, one launch a call
+    counted under its `l2` key, and bit-equal across two calls."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = float(shape[1] * shape[3])
+    o, lse = A.flash_forward(q, k, v, scale, score_mode="l2")
+    kern, plain = {"flash_attn_bwd_dq": (A.flash_backward_dq, A.flash_bwd_dq_reference),
+                   "flash_attn_bwd_dkv": (A.flash_backward_dkv, A.flash_bwd_dkv_reference)}[name]
+    args = (q, k, v, o, lse, do, scale)
+    build.reset_launches()
+    got = kern(*args, score_mode="l2")
+    got = [t.clone() for t in (got if isinstance(got, tuple) else (got,))]
+    again = kern(*args, score_mode="l2")
+    again = again if isinstance(again, tuple) else (again,)
+    want = plain(*args, score_mode="l2")
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"{name}[l2]"] == 2 and build.LAUNCHES[name] == 0
+    for g, a, w in zip(got, again, want):
+        assert g.shape == shape and g.dtype == torch.bfloat16 and g.is_contiguous()
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+        assert torch.equal(g, a)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [64, 96, 112])
 @pytest.mark.parametrize("name", ["flash_attn_bwd_fused", "flash_attn_bwd_dkv"])
@@ -522,12 +565,15 @@ def test_forward_out_bnhd_matches_plain_on_card(n, dh):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,shape", [("dot", (2, 3, 257, 64)), ("dot", (1, 2, 1025, 96)),
                                         ("dot", (4, 4, 32, 96)), ("l2", (4, 4, 50, 108)),
-                                        ("l2", (1, 2, 1025, 108))],
-                         ids=["dot_257", "dot_1025_dh96", "dot_v1_g", "l2_v1_d", "l2_1025"])
+                                        ("l2", (1, 2, 1025, 108)), ("dot", (32, 6, 1024, 64)),
+                                        ("dot", (1, 1, 16385, 64)), ("l2", (32, 6, 1024, 64)),
+                                        ("l2", (1, 1, 16385, 64))],
+                         ids=["dot_257", "dot_1025_dh96", "dot_v1_g", "l2_v1_d", "l2_1025",
+                              "dot_G", "dot_16385", "l2_G", "l2_16385"])
 def test_single_pass_is_bit_equal_across_calls_on_card(mode, shape):
     """dq, dk and dv of the single pass, `dot` and `l2`, bit-equal across two
     calls: the k-blocks of a head add dq (and `l2`'s rowsum(dS)) in
-    key-block order."""
+    key-block order, each block's place in that order its ticket."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)

@@ -4,7 +4,12 @@ JAX package, on the CPU.
 - the plain forward (output and LSE) against the JAX `_flash_forward` run
   with interpret=True;
 - the plain `l2` backward kernels' versions against the JAX `_flash_backward`
-  under bwd_fusion 'fused' and 'two_pass';
+  under bwd_fusion 'fused' and 'two_pass', on unpadded inputs, at the v1
+  head width 108 also at N 64 and 65 (one 64-row tile exactly, and one row
+  past it);
+- the units the persistent `l2` two-pass kernels walk (ops/attention
+  .l2_bwd_grid, l2_bwd_units): every (batch*head, resident rows) unit
+  exactly once, at N in {32, 50, 64, 65, 1,025} and B*H in {1, 1,024};
 - autograd through the port's flash_attention against jax.grad of the JAX
   flash_attention in interpret mode, for `l2` on both backward routes and
   for `l2ref` (whose JAX backward is the chunked recompute), at the v1
@@ -12,7 +17,8 @@ JAX package, on the CPU.
 - the `l2` backward route against the JAX package's own decision, read from
   the jaxpr of its VJP (traced only): two-pass under 'auto';
 - the plain and dispatch routes, the head-width padding, the launch keys,
-  and the refusals on tensors that are neither on the CPU nor on CUDA.
+  and the refusals on tensors that are neither on the CPU nor on CUDA, and
+  of an `l2` head width the two-pass kernels do not take.
 
 Tolerance: 1e-5 absolute and relative, f32 on both sides (JAX at 'highest'
 matmul precision, tests/conftest.py); the sums run in another order.
@@ -36,6 +42,11 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # patches), and a ragged N with a narrow head.
 SHAPES = [(1, 2, 50, 108), (2, 1, 65, 24)]
 IDS = ["n50_dh108", "n65_dh24"]
+# The backward's plain versions also at the edges of the two-pass kernels'
+# 64-row tiles, at the v1 head width.
+BWD_SHAPES = SHAPES + [(1, 2, 64, 108), (2, 1, 65, 108)]
+BWD_IDS = IDS + ["n64_dh108", "n65_dh108"]
+SMS = 132  # an H100's streaming multiprocessors
 
 
 @pytest.fixture(autouse=True)
@@ -66,7 +77,7 @@ def test_plain_forward_and_lse_match_jax_kernel(mode, shape):
 
 
 @pytest.mark.parametrize("fusion", ["fused", "two_pass"])
-@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=BWD_IDS)
 def test_plain_l2_backward_matches_jax_kernels(fusion, shape):
     """Each plain `l2` backward against the JAX kernels of the same route (the
     dq rowsum and dk colsum terms), on the JAX forward's o and LSE."""
@@ -110,6 +121,24 @@ def test_flash_attention_autograd_matches_jax(route, shape):
     got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [108, 64])
+@pytest.mark.parametrize("bh", [1, 1024])
+@pytest.mark.parametrize("n", [32, 50, 64, 65, 1025])
+def test_l2_persistent_grid_visits_every_unit_once(n, bh, d):
+    """The persistent grid of the `l2` dq and dk/dv kernels and the units its
+    blocks walk (blockIdx.x, + gridDim.x, ...): every (batch*head, resident
+    rows) unit exactly once, the grid never above the units or the SMs, the
+    resident rows 64 at Dh 108 (two column boxes) and 128 at Dh 64."""
+    rows = A.l2_bwd_unit_rows(d)
+    assert rows == (64 if d == 108 else 128)
+    units = bh * -(-n // rows)
+    grid = A.l2_bwd_grid(n, d, bh, SMS)
+    assert grid == min(units, SMS * A.L2_BWD_BLOCKS_PER_SM)
+    walked = [u for blk in range(grid) for u in A.l2_bwd_units(blk, grid, n, d, bh)]
+    assert len(walked) == units
+    assert sorted(walked) == [(h, r) for h in range(bh) for r in range(0, n, rows)]
 
 
 def _jax_pallas_calls(jaxpr) -> int:
@@ -224,3 +253,14 @@ def test_l2_wrappers_refuse_rather_than_fall_back(monkeypatch):
     for fn in (A.flash_backward_fused, A.flash_backward_dq, A.flash_backward_dkv):
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, q, q, q, lse, q, 432.0, score_mode="l2")
+
+
+def test_l2_two_pass_wrappers_refuse_a_width_not_a_multiple_of_4():
+    """The `l2` two-pass kernels read 8-byte row granules where the rows lie:
+    a head width that is not a multiple of 4 raises naming ROADMAP.md; it is
+    neither padded nor sent to a plain version."""
+    q = torch.empty(4, 4, 50, 110, device="meta", dtype=torch.bfloat16)
+    lse = torch.empty(4, 4, 50, device="meta")
+    for fn in (A.flash_backward_dq, A.flash_backward_dkv):
+        with pytest.raises(ValueError, match="multiple of 4.*ROADMAP"):
+            fn(q, q, q, q, lse, q, 440.0, score_mode="l2")

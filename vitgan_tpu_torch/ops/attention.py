@@ -16,13 +16,16 @@ Score modes (attention.py:50-61, layers.py:268-290), with inv = 1/sqrt(scale):
 d2 = max(|q|^2 + |k|^2 - 2 q.k, 0) in f32 from input-dtype operands.  The
 kernels compute all three forward and `dot`/`l2` backward; as in the JAX
 package, the `l2ref` backward is autograd through the plain chunked
-recompute.  A head width that is not a multiple of 8 (the v1
-discriminator's 108) is zero-padded to one in the wrapper and the outputs
-sliced back: zero columns add nothing to q.k, |q|^2 or |k|^2.
+recompute.  The `l2` two-pass kernels (dq, dk/dv) read and write a head
+width that is a multiple of 4 where it lies (the v1 discriminator's 108);
+the forward and the single pass zero-pad a width that is not a multiple of 8
+to one in the wrapper and slice the outputs back: zero columns add nothing
+to q.k, |q|^2 or |k|^2.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from dataclasses import dataclass
@@ -129,7 +132,8 @@ def attention_forward_reference(q, k, v, scale: float, score_mode: str = "dot"):
 
 
 def kernel_fits(head_dim: int, batch_heads: int) -> bool:
-    """Dh <= 128 (the wrappers pad it to a multiple of 8), B*H <= 65535."""
+    """Dh <= 128 (the forward and the single pass pad it to a multiple of 8),
+    B*H <= 65535."""
     return head_dim <= MAX_HEAD_DIM and batch_heads <= MAX_BATCH_HEADS
 
 
@@ -283,10 +287,10 @@ def flash_bwd_fused_reference(q, k, v, o, lse, do, scale: float, delta=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode):
-    """Checked, head-padded, aligned kernel inputs.  delta = rowsum(dO * O)
-    (B, H, N) f32 unless given (the megablock backward forms it in its own
-    kernel; o may then be None)."""
+def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode, pad: bool = True):
+    """Checked, contiguous, aligned kernel inputs, head-padded to a multiple of
+    8 when ``pad``.  delta = rowsum(dO * O) (B, H, N) f32 unless given (the
+    megablock backward forms it in its own kernel; o may then be None)."""
     _check_mode(score_mode, backward=True)
     _check_kernel_inputs(what, q, k, v, do, *(() if o is None else (o,)))
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
@@ -295,38 +299,84 @@ def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode):
         delta = _delta(o, do)
     elif delta.shape != q.shape[:3] or delta.dtype != torch.float32:
         raise ValueError(f"{what}: delta must be f32 {tuple(q.shape[:3])}")
-    q, k, v, do = (build.aligned16(t) for t in _pad_head(*(t.contiguous() for t in (q, k, v, do))))
+    ts = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (build.aligned16(t) for t in (_pad_head(*ts) if pad else ts))
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
+# The `l2` two-pass kernels (csrc/flash_l2_bwd.cuh): persistent blocks, one an
+# SM (each takes ~200 KB of shared memory), walking units of one (batch*head,
+# resident rows) each.
+L2_BWD_BLOCKS_PER_SM = 1
+
+
+def l2_bwd_unit_rows(d: int) -> int:
+    """Resident rows of a unit of the `l2` two-pass kernels at head width d:
+    64 where the head pads past one 64-column box (the two consumer
+    warpgroups split the columns), else 128 (they split the rows)."""
+    return 64 if _ceil_to(d, 16) > 64 else 128
+
+
+def l2_bwd_grid(n: int, d: int, batch_heads: int, sms: int) -> int:
+    """The `l2` two-pass kernels' grid: min(units, SMs x blocks an SM)."""
+    units = batch_heads * -(-n // l2_bwd_unit_rows(d))
+    return min(units, sms * L2_BWD_BLOCKS_PER_SM)
+
+
+def l2_bwd_units(block: int, grid: int, n: int, d: int, batch_heads: int) -> list:
+    """The units block ``block`` of ``grid`` walks, in its order: unit u =
+    blockIdx.x, + gridDim.x, ..., as (batch*head, first resident row)."""
+    rows = l2_bwd_unit_rows(d)
+    per = -(-n // rows)
+    return [(u // per, u % per * rows) for u in range(block, batch_heads * per, grid)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_launch(entry: str, ts, outs, scale: float, score_mode: str) -> None:
+    """Launch a two-pass entry on kernel inputs ``ts`` (q, k, v, dO, lse,
+    delta) into ``outs``; `l2` passes its persistent grid."""
+    b, h, n, d = ts[0].shape
+    grid = (l2_bwd_grid(n, d, b * h, _sm_count(ts[0].device.index or 0))
+            if score_mode == "l2" else 0)
+    fn = build.entry(entry)
+    build.check(fn, fn(*(build.ptr(t) for t in (*ts, *outs)), b * h, n, d,
+                       1.0 / math.sqrt(scale), MODE_ID[score_mode], grid,
+                       build.stream_ptr(ts[0].device)))
+    build.LAUNCHES[launch_key(entry, score_mode)] += 1
+
+
+def _two_pass_args(q, k, v, o, lse, do, what, delta, score_mode):
+    """The two-pass wrappers' inputs: `dot` head-padded to a multiple of 8;
+    `l2` where it lies, which its kernels take at a width that is a multiple
+    of 4 (8-byte rows)."""
+    if score_mode == "l2" and q.shape[-1] % 4:
+        raise ValueError(f"{what}: the `l2` kernels take a head width that is a multiple of 4, "
+                         f"got {q.shape[-1]}; other widths are ROADMAP.md queue 1 item 7")
+    return _bwd_args(q, k, v, o, lse, do, what, delta, score_mode, pad=score_mode != "l2")
+
+
 def flash_backward_dq(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_dq.cu; returns dq (B, H, N, D) bf16."""
+    """Launch csrc/flash_attn_bwd_dq.cu; returns dq (B, H, N, D) bf16,
+    contiguous."""
     d = q.shape[-1]
-    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_dq", delta,
-                                        score_mode)
-    b, h, n, dp = q.shape
-    dq = torch.empty_like(q)
-    fn = build.entry("flash_attn_bwd_dq")
-    build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do), build.ptr(lse),
-                       build.ptr(delta), build.ptr(dq), b * h, n, dp, 1.0 / math.sqrt(scale),
-                       MODE_ID[score_mode], build.stream_ptr(q.device)))
-    build.LAUNCHES[launch_key("flash_attn_bwd_dq", score_mode)] += 1
-    return dq[..., :d]
+    ts = _two_pass_args(q, k, v, o, lse, do, "flash_backward_dq", delta, score_mode)
+    dq = torch.empty_like(ts[0])
+    _bwd_launch("flash_attn_bwd_dq", ts, (dq,), scale, score_mode)
+    return dq if dq.shape[-1] == d else dq[..., :d]
 
 
 def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_dkv.cu; returns (dk, dv) bf16."""
+    """Launch csrc/flash_attn_bwd_dkv.cu; returns (dk, dv) bf16, contiguous at
+    `l2`."""
     d = q.shape[-1]
-    q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_dkv", delta,
-                                        score_mode)
-    b, h, n, dp = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = build.entry("flash_attn_bwd_dkv")
-    build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do), build.ptr(lse),
-                       build.ptr(delta), build.ptr(dk), build.ptr(dv), b * h, n, dp,
-                       1.0 / math.sqrt(scale), MODE_ID[score_mode], build.stream_ptr(q.device)))
-    build.LAUNCHES[launch_key("flash_attn_bwd_dkv", score_mode)] += 1
-    return dk[..., :d], dv[..., :d]
+    ts = _two_pass_args(q, k, v, o, lse, do, "flash_backward_dkv", delta, score_mode)
+    dk, dv = torch.empty_like(ts[1]), torch.empty_like(ts[2])
+    _bwd_launch("flash_attn_bwd_dkv", ts, (dk, dv), scale, score_mode)
+    return (dk, dv) if dk.shape[-1] == d else (dk[..., :d], dv[..., :d])
 
 
 # The single pass's blocks (csrc/flash_attn_bwd.cuh): keys per block and
@@ -347,12 +397,15 @@ class FusedSchedule:
     adds its dQ of tile qt once the flag of (head, qt) reads kb, then sets
     it to kb + 1: the k-blocks of a head add every tile in key-block order,
     so each dQ element is summed in one fixed order.  A block waits only on
-    :meth:`waits_on`, a lower linear index; with blocks dispatched in linear
-    order (the kernel's assumption, tests/test_torch_flash_edges.py models
-    it) the waited-on block is resident or finished, so every block
-    finishes.  The group spaces a head's k-blocks apart in that order, so
-    that a block's predecessor has usually added its tiles before it needs
-    them."""
+    :meth:`waits_on`, a lower linear index.  Each block's linear index is its
+    ticket: the count of the launch's blocks that started before it, taken
+    from the int32 after the flags (:attr:`ticket`) by one atomic as the
+    block starts, not from blockIdx.  So the block waited on started earlier
+    and holds its place on the card until it finishes, and every block
+    finishes whatever order the hardware dispatches them in
+    (tests/test_torch_flash_edges.py models it).  The group spaces a head's
+    k-blocks apart in that order, so that a block's predecessor has usually
+    added its tiles before it needs them."""
 
     k_blocks: int
     q_tiles: int
@@ -360,10 +413,17 @@ class FusedSchedule:
     group_heads: int = 1
 
     @property
+    def ticket(self) -> Optional[int]:
+        """Offset of the ticket in the flags buffer, after one flag per
+        (batch*head, tile); None with one k-block, where no block waits and
+        each takes blockIdx as its index."""
+        return self.batch_heads * self.q_tiles if self.k_blocks > 1 else None
+
+    @property
     def flags(self) -> tuple:
-        """Shape of the int32 flags, one per (batch*head, tile); none are
-        needed with one k-block."""
-        return (self.batch_heads, self.q_tiles) if self.k_blocks > 1 else (0,)
+        """Shape of the int32 buffer of the flags and the ticket (zeroed by
+        the entry); empty with one k-block."""
+        return (0,) if self.ticket is None else (self.ticket + 1,)
 
     def _group(self, head: int) -> tuple:
         """(first head, heads) of ``head``'s group."""

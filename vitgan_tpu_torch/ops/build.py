@@ -43,10 +43,11 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, rs_acc, dq_order, bh, n, d,
     # inv_scale, mode, stream
     "flash_attn_bwd_fused": [_P] * 12 + [_I] * 3 + [_F, _I, _P],
-    # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, mode, stream
-    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
-    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, stream
-    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, mode, grid, stream
+    # (grid: the `l2` kernel's persistent blocks, ops/attention.l2_bwd_grid)
+    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, grid, stream
+    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P],
     # g, m2, z1, w2, dmlp, dz1, h1, m, e, hidden, stream
     "megablock_bwd_mlp_dz1": [_P] * 7 + [_I] * 3 + [_P],
     # dz1, g, m1, x1, w1, ln_s, ln_b, dx1, da, y2, part, m, e, hidden, eps, stream

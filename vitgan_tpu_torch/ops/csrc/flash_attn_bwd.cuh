@@ -1,7 +1,9 @@
 // Flash-attention backward, `dot` and `l2` scores, for Hopper (sm_90a): the
-// k-block kernel shared by csrc/flash_attn_bwd_dkv.cu (FUSED = false) and
-// csrc/flash_attn_bwd_fused.cu (FUSED = true).  csrc/flash_attn_bwd_dq.cu has
-// the q-block kernel.  Replaces the TPU kernels `_flash_bwd_dkv_kernel(_dma)`
+// `dot` k-block kernel shared by csrc/flash_attn_bwd_dkv.cu (FUSED = false)
+// and csrc/flash_attn_bwd_fused.cu (FUSED = true), and the `l2` single pass
+// of csrc/flash_attn_bwd_fused.cu.  csrc/flash_attn_bwd_dq.cu has the `dot`
+// q-block kernel; csrc/flash_l2_bwd.cuh the `l2` two-pass kernels (dq and
+// dk/dv).  Replaces the TPU kernels `_flash_bwd_dkv_kernel(_dma)`
 // (vitgan_tpu/ops/attention.py:434-504, pallas_call at :727) and
 // `_flash_bwd_fused_kernel` (:507-590, pallas_call at :606); the two entries'
 // head notes give the bound on this card and what ptxas -v reports.
@@ -17,10 +19,14 @@
 // accumulates in f32, as the TPU kernels do (attention.py:392-422); the sums
 // of dS add the f32 values, as there.
 //
-// Two designs, one for each score mode.  `dot` (the highres128 and
-// v1-generator path) runs the wgmma kernel below (namespace wg); `l2` (the v1
-// discriminator, host-bound at 50 tokens) runs the mma.sync kernel,
-// flash_bwd_kv_kernel, which carries the `l2` terms.
+// Which design serves which mode, and why.  `dot` (the highres128 and
+// v1-generator path: 128-key blocks over long sequences) runs the wgmma
+// kernel below (namespace wg) on both routes.  The `l2` two-pass route (the
+// v1 discriminator under bwd_fusion=auto: 50 tokens, Dh 108) runs the
+// persistent wgmma kernels of flash_l2_bwd.cuh, one block an SM walking many
+// heads.  The `l2` single pass (bwd_fusion=fused only) still runs the first
+// design's mma.sync kernel, flash_bwd_kv_kernel, which carries the `l2`
+// terms; it is next to move onto flash_l2_bwd.cuh's skeleton.
 //
 // The `dot` k-block kernel (flash_bwd_kv_wgmma_kernel<DP, FUSED>).  One block
 // of 384 threads owns 128 keys of one (batch*head).  Warpgroup 0 produces:
@@ -62,19 +68,23 @@
 // the barriers and the release order k-block kb's additions before kb + 1's,
 // so every element's sum is t0 + t1 + ... in key-block order.  The last
 // k-block issues all its loads of the sums before any add (one after another,
-// behind each store, they had cost the single pass at G 13%, PERF.md).  The
-// grid is one-dimensional, in groups of GROUP_HEADS heads, k-block slowest
-// within a group: block (kb, h) has the linear index group * K * GH + kb * GH
-// + h % GH (GH the group's heads), so a block waits only on the block GH
-// indices below it, which the scheduler dispatched about GH blocks earlier
-// and which is some tiles ahead of it: the wait is then mostly a flag found
-// set (with k-block fastest, a head's k-blocks ran side by side and waited a
+// behind each store, they had cost the single pass at G 13%, PERF.md).
+//
+// Each block's place in that order is its ticket: one more int32 after the
+// flags, zeroed with them, from which thread 0 takes atomicAdd(ticket, 1) as
+// the block's linear index (where a head has more than one k-block; else
+// blockIdx.x).  The linear order runs in groups of GROUP_HEADS heads, k-block
+// slowest within a group: index group * K * GH + kb * GH + h % GH (GH the
+// group's heads), so a block waits only on the block GH indices below it,
+// which is some tiles ahead of it: the wait is then mostly a flag found set
+// (with k-block fastest, a head's k-blocks ran side by side and waited a
 // flag's round trip on every tile).  A group's 32 heads keep their Q, dO and
-// dQ sums (8 MB at G) in the L2.  This rests on one assumption: blocks are
-// dispatched in the order of their linear index, so that a block that waits
-// has its predecessor resident or finished.  CUDA does not promise that
-// order; the hardware's block scheduler keeps it, and the CPU tests model the
-// rule (tests/test_torch_flash_edges.py).
+// dQ sums (8 MB at G) in the L2.  The ticket guarantees progress in any
+// dispatch order: a block waits only on a lower index, taken by a block that
+// had already started, which holds its place on the card until it finishes,
+// and whose own waits are on lower indices still.  The order of the
+// additions is the key-block order whatever the tickets, so dQ stays
+// bit-deterministic.
 //
 // What held the mma.sync design back, and what this does about it: 64 keys a
 // block on 4 warps, each reading every streamed Q and dO tile from shared
@@ -84,21 +94,22 @@
 // atomics of every warp, 16 keys deep (now 128 keys deep, four floats a
 // RED: half the additions).
 //
-// The `l2` kernel (flash_bwd_kv_kernel<DP, FUSED>).  One block of 4
-// warps owns 64 keys; each warp owns 16 keys, whose K and V fragments stay in
-// registers with the f32 dK and dV accumulators, its keys' |k|^2 and the
-// lane's part of colsum(dS).  Q, dO and the rows' LSE and delta stream
-// through a two-stage cp.async ring, 64 queries a tile, one barrier a tile;
-// mma.sync m16n8k16 with ldmatrix operands; |q|^2 of each streamed Q tile is
-// formed from its shared-memory copy behind a second barrier; the epilogue
-// reads k back from the resident K tile.  FUSED: each tile's dS goes to
-// shared memory, the four warps form dS K for 16 queries each and add it into
-// the f32 buffer with float2 atomics; the four warps' sums of their 16 keys'
-// f32 dS per query are added in warp order into one f32 per row (the rowsum
-// the TPU kernel keeps in VMEM, attention.py:571-574), and the second pass
-// applies the `l2` finish.  The k-blocks add in key-block order on the same
-// flags as the `dot` kernel (thread 0 waits and releases, the block's
-// barriers order the adds), so the `l2` dQ is bit-deterministic too.
+// The `l2` single pass (flash_bwd_kv_kernel<DP, kL2>).  One block of 4 warps
+// owns 64 keys, on the ticket's one-dimensional order with k-block fastest;
+// each warp owns 16 keys, whose K and V fragments stay in registers with the
+// f32 dK and dV accumulators, its keys' |k|^2 and the lane's part of
+// colsum(dS).  Q, dO and the rows' LSE and delta stream through a two-stage
+// cp.async ring, 64 queries a tile, one barrier a tile; mma.sync m16n8k16
+// with ldmatrix operands; |q|^2 of each streamed Q tile is formed from its
+// shared-memory copy behind a second barrier; the epilogue reads k back from
+// the resident K tile.  Each tile's dS goes to shared memory, the four warps
+// form dS K for 16 queries each and add it into the f32 buffer with float2
+// atomics; the four warps' sums of their 16 keys' f32 dS per query are added
+// in warp order into one f32 per row (the rowsum the TPU kernel keeps in
+// VMEM, attention.py:571-574), and the second pass applies the `l2` finish.
+// The k-blocks add in key-block order on the same flags as the `dot` kernel
+// (thread 0 waits and releases, the block's barriers order the adds), so the
+// `l2` dQ is bit-deterministic too.
 #pragma once
 
 #include "hopper.cuh"
@@ -122,14 +133,21 @@ __device__ inline void load_rows(float* lse2, const float* __restrict__ lse,
   }
 }
 
-template <int DP, bool FUSED>
-constexpr size_t kv_smem_bytes() {
-  return (size_t)(2 * BK + 4 * BQ) * (DP + 8) * 2 +
-         (FUSED ? (size_t)BQ * (BK + 8) * 2 + 4 * BQ * sizeof(float) : 0) +
-         5 * BQ * sizeof(float);
+// The single pass's block order (the head note): thread 0 stores into *index
+// the block's linear index, its ticket atomicAdd(ticket, 1) where a head has
+// more than one k-block, else blockIdx.x; the caller synchronises the block
+// before reading it.
+__device__ inline void take_ticket(int* index, uint32_t* ticket, int nkb) {
+  if (threadIdx.x == 0) *index = nkb > 1 ? (int)atomicAdd(ticket, 1u) : (int)blockIdx.x;
 }
 
-template <int DP, bool FUSED>
+template <int DP>
+constexpr size_t kv_smem_bytes() {
+  return (size_t)(2 * BK + 4 * BQ) * (DP + 8) * 2 + (size_t)BQ * (BK + 8) * 2 +
+         4 * BQ * sizeof(float) + 5 * BQ * sizeof(float);
+}
+
+template <int DP, int MODE>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -137,22 +155,28 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_acc,
                     float* __restrict__ rs_acc, uint32_t* __restrict__ dq_order, int n, int d,
                     float scale_log2, float inv_scale) {
+  static_assert(MODE == kL2, "the `dot` single pass runs the wgmma kernel (namespace wg)");
   constexpr int LD = DP + 8;
   constexpr int LDS = BK + 8;
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int order_index;
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + BK * LD;
   bf16* qs = vs + BK * LD;        // stage s at qs + s * BQ * LD
   bf16* dos = qs + 2 * BQ * LD;   // stage s at dos + s * BQ * LD
-  bf16* dss = dos + 2 * BQ * LD;  // FUSED: dS of the tile, [query][key]
-  float* rows = reinterpret_cast<float*>(dss + (FUSED ? BQ * LDS : 0));  // stage s at + 2*BQ*s
+  bf16* dss = dos + 2 * BQ * LD;  // dS of the tile, [query][key]
+  float* rows = reinterpret_cast<float*>(dss + BQ * LDS);  // stage s at + 2*BQ*s
   float* qq_s = rows + 4 * BQ;  // |q|^2 of the current Q tile
-  float* rsw = qq_s + BQ;       // FUSED: each warp's rowsum(dS) of the tile, [warp][query]
+  float* rsw = qq_s + BQ;       // each warp's rowsum(dS) of the tile, [warp][query]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kb = blockIdx.x, nkb = gridDim.x, k0 = kb * BK;
-  const long bh = blockIdx.y;
+  const int nkb = (n + BK - 1) / BK, ntiles = (n + BQ - 1) / BQ;
+  // the ticket (the head note), one k-block fastest
+  take_ticket(&order_index, dq_order + (long)(gridDim.x / nkb) * ntiles, nkb);
+  __syncthreads();
+  const int kb = order_index % nkb, k0 = kb * BK;
+  const long bh = order_index / nkb;
   const long base = bh * (long)n * d;
   const bf16* qb = q + base;
   const bf16* dob = dout + base;
@@ -174,7 +198,6 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
   float ksq[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};  // |k|^2 and this lane's part of colsum(dS)
 
-  const int ntiles = (n + BQ - 1) / BQ;
   for (int qt = 0; qt < ntiles; ++qt) {
     const int cur = qt & 1;
     // One barrier a tile: after it tile qt has landed and every warp is done
@@ -280,7 +303,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(dk_acc[j + 1], a, b[2], b[3]);
       }
     }
-    if constexpr (FUSED) {
+    {
       // rowsum(dS) over the warp's 16 keys for each query of the tile: the
       // lane's two keys, then the eight lanes g of each query column; lanes
       // 0-3 hold the sums for queries 8j + 2t + c, kept in rsw for the
@@ -297,7 +320,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    if constexpr (FUSED) {
+    {
       // dS of the tile into shared memory as [query][key] ...
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j)
@@ -381,45 +404,6 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP, bool FUSED>
-int launch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dk, void* dv, void* dq_acc, void* rs_acc, void* dq_order,
-              int bh, int n, int d, float inv_scale, cudaStream_t stream) {
-  const size_t smem = kv_smem_bytes<DP, FUSED>();
-  cudaFuncSetAttribute(flash_bwd_kv_kernel<DP, FUSED>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((n + BK - 1) / BK, bh);
-  flash_bwd_kv_kernel<DP, FUSED><<<grid, NWARP * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(dq_acc), static_cast<float*>(rs_acc), static_cast<uint32_t*>(dq_order),
-      n, d, inv_scale * LOG2E, inv_scale);
-  return (int)cudaGetLastError();
-}
-
-template <bool FUSED>
-int dispatch_kv_l2(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dk, void* dv, void* dq_acc,
-                   void* rs_acc, void* dq_order, int bh, int n, int d, float inv_scale,
-                   cudaStream_t s) {
-#define VK_KV(DP)                                                                         \
-  launch_kv<DP, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, dq_order, bh, n, d, \
-                       inv_scale, s)
-  switch ((d + 15) / 16) {
-    case 1: return VK_KV(16);
-    case 2: return VK_KV(32);
-    case 3: return VK_KV(48);
-    case 4: return VK_KV(64);
-    case 5: return VK_KV(80);
-    case 6: return VK_KV(96);
-    case 7: return VK_KV(112);
-    case 8: return VK_KV(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VK_KV
-}
-
 // --- the `dot` k-block kernel: wgmma, TMA and mbarrier rings -----------------
 
 namespace wg {
@@ -479,17 +463,9 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + ST;
   uint64_t* kvbar = empty + ST;
 
+  __shared__ int order_index;
   const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31;
   const int nkb = (n + KEYS - 1) / KEYS;
-  int kb = blockIdx.x, bh = blockIdx.y;
-  if constexpr (FUSED) {  // the grouped order of the head note
-    const int span = nkb * GROUP_HEADS, group = blockIdx.x / span, base = group * GROUP_HEADS;
-    const int gh = min(GROUP_HEADS, (int)(gridDim.x / nkb) - base);
-    const int r = blockIdx.x - group * span;
-    kb = r / gh;
-    bh = base + r % gh;
-  }
-  const int k0 = kb * KEYS;
   const int ntiles = (n + TQ - 1) / TQ;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -499,7 +475,17 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(kvbar, 1);
     mbar_fence_init();
   }
+  if constexpr (FUSED) take_ticket(&order_index, dq_order + (long)(gridDim.x / nkb) * ntiles, nkb);
   __syncthreads();
+  int kb = blockIdx.x, bh = blockIdx.y;
+  if constexpr (FUSED) {  // the grouped order of the ticket (the head note)
+    const int span = nkb * GROUP_HEADS, group = order_index / span, base = group * GROUP_HEADS;
+    const int gh = min(GROUP_HEADS, (int)(gridDim.x / nkb) - base);
+    const int r = order_index - group * span;
+    kb = r / gh;
+    bh = base + r % gh;
+  }
+  const int k0 = kb * KEYS;
 
   if (wgi == 0) {  // producer: warp 0 issues the TMA loads, warp 1 the rows' LSE and delta
     reg_dealloc<40>();
@@ -802,26 +788,6 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
 }
 
 }  // namespace wg
-
-// mode 0 `dot`, 1 `l2`.  FUSED only: dq_acc, the f32 sums of dQ; dq, the bf16
-// dQ the `dot` kernel finishes; rs_acc (`l2`), the rows' dS sums; dq_order,
-// the flags of the order of the additions (zeroed by the caller).
-template <bool FUSED>
-int dispatch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                const void* delta, void* dk, void* dv, void* dq_acc, void* dq, void* rs_acc,
-                void* dq_order, int bh, int n, int d, float inv_scale, int mode,
-                cudaStream_t s) {
-  if (d % 8 != 0) return (int)cudaErrorInvalidValue;
-  switch (mode) {
-    case kDot:
-      return wg::dispatch<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, dq, dq_order, bh, n,
-                                 d, inv_scale, s);
-    case kL2:
-      return dispatch_kv_l2<FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc, rs_acc, dq_order,
-                                   bh, n, d, inv_scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace bwd
 }  // namespace vk

@@ -3,10 +3,13 @@
 // Replaces the TPU kernels `_flash_bwd_dkv_kernel` and its K/V-streaming
 // variant `_flash_bwd_dkv_kernel_dma` (vitgan_tpu/ops/attention.py:434-504,
 // launched at :727): here Q and dO always stream through shared memory one
-// tile at a time, at any length.  The k-block kernel is in
-// flash_attn_bwd.cuh (FUSED = false), which says what it computes and how:
-// for `dot` the wgmma/TMA kernel, for `l2` the mma.sync one.  dK and dV are
-// bit-deterministic (each block owns its keys).
+// tile at a time, at any length.  `dot` runs the wgmma/TMA k-block kernel of
+// flash_attn_bwd.cuh (FUSED = false), one block a 128-key block; `l2` runs
+// the persistent kernel of flash_l2_bwd.cuh (flash_bwd_dkv_l2_kernel), one
+// block an SM walking many (head, 64-key) units, which reads and writes the
+// unpadded (B, H, N, 108) tensors of the v1 discriminator.  Each header says
+// what its kernel computes and how.  dK and dV are bit-deterministic (each
+// block owns its keys).
 //
 // Bound on this card.  At the highres128 discriminator's shape (64*6 heads,
 // 1,025 tokens, Dh 64) a launch does four products of 2*N*N*Dh flops per
@@ -21,19 +24,28 @@
 // 80-128 16 bytes of spills and wgmmas serialised for want of registers
 // (C7512), at DP <= 64 neither; dynamic shared memory 118,360 bytes at DP
 // <= 64 (five stages), 133,160 at DP 80-128 (two stages of two boxes).  The
-// `l2` ones are the mma.sync kernel's: 226 registers at DP 64, spills of
-// 12-336 bytes at DP 96-128.
+// `l2` kernel: PERF.md.
 #include "flash_attn_bwd.cuh"
+#include "flash_l2_bwd.cuh"
 
-// q, k, v, dout: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple
-// of 8 and at most 128.  lse (natural log) and delta: (bh, n) f32.  dk, dv:
-// (bh, n, d) bf16.  inv_scale multiplies q.k (`dot`) or the distance; mode 0
-// `dot`, 1 `l2`.
+// q, k, v, dout: (bh, n, d) bf16, contiguous; `dot`: 16-byte aligned, d a
+// multiple of 8 and at most 128; `l2`: 8-byte aligned, d a multiple of 4 and
+// at most 128, `grid` the persistent blocks (ops/attention.l2_bwd_grid).  lse
+// (natural log) and delta: (bh, n) f32.  dk, dv: (bh, n, d) bf16.  inv_scale
+// multiplies q.k (`dot`) or the distance; mode 0 `dot`, 1 `l2`.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv,
-                                  int bh, int n, int d, float inv_scale, int mode,
+                                  int bh, int n, int d, float inv_scale, int mode, int grid,
                                   void* stream) {
-  return vk::bwd::dispatch_kv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr,
-                                     nullptr, nullptr, bh, n, d, inv_scale, mode,
-                                     static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case vk::kDot:
+      if (d % 8 != 0) return (int)cudaErrorInvalidValue;
+      return vk::bwd::wg::dispatch<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr,
+                                          nullptr, bh, n, d, inv_scale, s);
+    case vk::kL2:
+      return vk::l2bwd::dispatch<true>(q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale,
+                                       grid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

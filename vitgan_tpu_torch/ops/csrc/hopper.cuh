@@ -1,9 +1,10 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
-// ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu):
-// mbarrier rings, TMA tensor loads and stores, wgmma descriptors and products,
-// warpgroup fences, acquire/release flags, register hand-over and the
-// LayerNorm of a resident swizzled tile.
+// ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu,
+// flash_l2_bwd.cuh): mbarrier rings fed by TMA (tensor or 1-D bulk copies)
+// or by cp.async, TMA tensor and 1-D bulk stores, wgmma descriptors and
+// products, warpgroup fences, acquire/release flags, register hand-over and
+// the LayerNorm of a resident swizzled tile.
 //
 // Shared-memory tiles here are written by TMA with the 128-byte swizzle: a
 // box is `rows` rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored
@@ -68,7 +69,37 @@ __device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// --- cp.async onto mbarriers --------------------------------------------------
+
+// cp.async of 8 (or 4) bytes into shared memory.
+__device__ inline void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+__device__ inline void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+// cp.async.mbarrier.arrive.noinc: one arrival on `bar` (counted among the
+// arrivals its init expects), made once every cp.async this thread issued
+// before it has landed.
+__device__ inline void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // --- TMA ---------------------------------------------------------------------
+
+// cp.async.bulk (global -> shared, 1-D, completion on an mbarrier): `bytes`
+// contiguous bytes (a multiple of 16; both addresses 16-byte aligned),
+// counted in the barrier's bytes.
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // cp.async.bulk.tensor.2d (global -> shared, completion on an mbarrier): the
 // box at coordinates (c0 innermost, c1) of `map`; out-of-bounds elements are
@@ -89,6 +120,15 @@ __device__ inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* 
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async.bulk (shared -> global, 1-D, bulk group): `bytes` contiguous bytes
+// (a multiple of 16; both addresses 16-byte aligned).  The writing threads
+// fence_proxy_async() and synchronise before one issues it.
+__device__ inline void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // cp.async.bulk.tensor.2d (shared -> global, bulk group): the box of `map` at
