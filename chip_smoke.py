@@ -12,9 +12,10 @@
    instructions of the sources redesigned for Hopper (wgrad_gemm, the flash
    forward, the k-block backward, the q-block dq, the LN->MLP forward,
    LN->qkv and the megablock backward's MLP and LN1 halves) and fails on
-   none, and the HGMMA of each persistent `l2` two-pass kernel (fed by 1-D
-   bulk copies, no tensor map); fails where one of those kernels spills or
-   draws a ptxas performance warning at DP 112 or 64.
+   none, and the HGMMA of each persistent `l2` kernel (the forward, the
+   single pass, dq and dk/dv, fed by 1-D bulk copies, no tensor map); fails
+   where one of those kernels spills or draws a ptxas performance warning at
+   DP 112 or 64.
 3. Holds every kernel against its plain PyTorch version on the same bf16
    inputs on the card: at the serving shapes of highres128 at batch 64, at a
    ragged shape (N 257, E 192, 3 heads) and, for flash attention, at one long
@@ -98,13 +99,14 @@
    dq, dk/dv and single-pass kernels against their plain versions at the v1
    discriminator's shape (256, 4, 50, 108), at 64 and 65 tokens (one tile
    exactly, one row past it), a ragged (4, 4, 1025, 108) and (8, 6, 1024,
-   64), with the forward and backward limits above, the two-pass outputs
-   contiguous at the unpadded head width; times each
+   64), with the forward and backward limits above, every output contiguous
+   at the unpadded head width; times each
    beside its bound, its plain version and, for `l2`, scaled_dot_product_
    attention with the -inv |k|^2 key mask (the same softmax but for the
    clamp; library_ms, timed only) and, at the discriminator's shape, the
-   device time of each wrapper's own kernels and of its other work (pads,
-   delta); each backward kernel's outputs bit-equal across two calls.  Then
+   device time of each wrapper's own kernels and of its other work (delta,
+   and a parent tree's pads); each backward kernel's outputs bit-equal
+   across two calls.  Then
    the `dot` forward and single-pass backward at the v1 generator's shape
    (128, 4, 32, 96), scale 384, with the same limits, the single pass
    bit-equal across two calls.
@@ -115,7 +117,8 @@
    kernel, `l2` forward and two-pass backward in D, no plain attention),
    a profiled breakdown; restores the run directory, runs `cli generate`
    and serves one HTTP request from it.  Then 1 + 3 steps with
-   runtime.bwd_fusion=fused, whose D backward takes the `l2` single pass.
+   runtime.bwd_fusion=fused, whose D backward takes the `l2` single pass,
+   and a profiled breakdown of 2 more.
 15. Runs one v1 train step at batch 8, dropout 0, from the same state,
    batch and latents on use_pallas=always (both backward routes, bf16) and
    use_pallas=never (bf16 and f32): losses, gradient norms, every gradient
@@ -322,7 +325,7 @@ HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "f
 # parent scripts/kernel_ab.py measures).
 LN_MLP_SYMBOL = "ln_mlp"
 # chip_smoke.py raises where two calls of a kernel whose results must be
-# bit-equal are not, and where the `l2` two-pass outputs do not come back
+# bit-equal are not, and where the `l2` kernels' outputs do not come back
 # contiguous at the unpadded head width; scripts/kernel_ab.py sets this False
 # to record both on a tree that falls short (a parent whose kernel is not
 # bit-deterministic, or whose wrappers slice padded outputs).
@@ -350,18 +353,20 @@ def _repeat(call, what: str) -> list:
     return diffs
 
 
-# The persistent `l2` two-pass kernels (csrc/flash_l2_bwd.cuh), by the part
-# of their CUDA symbols: 1-D bulk copies feed them, so their SASS holds HGMMA
-# and no UTMALDG; their instantiations at DP 112 (the v1 discriminator's Dh
-# 108) and 64 must neither spill nor draw a ptxas performance warning.
-L2_BWD_KERNELS = ("flash_bwd_dq_l2_kernel", "flash_bwd_dkv_l2_kernel")
-L2_BWD_CHECKED_DP = (112, 64)
+# The persistent `l2` kernels (csrc/flash_l2.cuh: the forward, the single
+# pass, dq and dk/dv), by the part of their CUDA symbols: 1-D bulk copies feed
+# them, so their SASS holds HGMMA and no UTMALDG; their instantiations at DP
+# 112 (the v1 discriminator's Dh 108) and 64 must neither spill nor draw a
+# ptxas performance warning.
+L2_KERNELS = ("flash_fwd_l2_kernel", "flash_bwd_fused_l2_kernel", "flash_bwd_dq_l2_kernel",
+              "flash_bwd_dkv_l2_kernel")
+L2_CHECKED_DP = (112, 64)
 
 
 def _sass_counts(build) -> dict:
     """{source: {"HGMMA": n, "UTMALDG": n}} from cuobjdump of each library in
     HOPPER_SOURCES, and {symbol: {"HGMMA": n}} of each instantiation of
-    L2_BWD_KERNELS; {} where the toolkit has no cuobjdump."""
+    L2_KERNELS; {} where the toolkit has no cuobjdump."""
     import re
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -377,7 +382,7 @@ def _sass_counts(build) -> dict:
         if not (out[name]["HGMMA"] and out[name]["UTMALDG"]):
             raise AssertionError(f"{name} holds no wgmma or no TMA load in its SASS")
         for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
-            if any(k in func for k in L2_BWD_KERNELS):
+            if any(k in func for k in L2_KERNELS):
                 out[func] = {"HGMMA": body.count("HGMMA")}
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
@@ -385,11 +390,11 @@ def _sass_counts(build) -> dict:
     return out
 
 
-def _check_l2_bwd_ptxas(kernels: list, warnings: list) -> None:
-    """Raises where an L2_BWD_KERNELS instantiation at L2_BWD_CHECKED_DP
-    spills or draws a ptxas performance warning (``kernels``, ``warnings``:
+def _check_l2_ptxas(kernels: list, warnings: list) -> None:
+    """Raises where an L2_KERNELS instantiation at L2_CHECKED_DP spills or
+    draws a ptxas performance warning (``kernels``, ``warnings``:
     _ptxas_kernels and _ptxas_warnings of one build log)."""
-    checked = tuple(f"{k}ILi{dp}E" for k in L2_BWD_KERNELS for dp in L2_BWD_CHECKED_DP)
+    checked = tuple(f"{k}ILi{dp}E" for k in L2_KERNELS for dp in L2_CHECKED_DP)
     for func, regs, stores, loads in kernels:
         if any(c in func for c in checked):
             print(f"  [ptxas] {func}: {regs} registers, {stores}/{loads} bytes spilled")
@@ -1458,14 +1463,18 @@ def train_deit64(steps: int = 3) -> dict:
     return {"ms_per_step": ms, "launches": launches, "means": means}
 
 
-# Kernel names of the port, by the substring of their CUDA symbol.
+# Kernel names of the port, by the substring of their CUDA symbol (with a
+# parent's mma.sync `l2` single pass and its scale-and-cast pass, which
+# scripts/kernel_ab.py --v1-fused measures).
 PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_kv_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_dkv_l2_kernel", "flash backward k-block (single-pass or dk/dv)"),
+                ("flash_bwd_fused_l2_kernel", "flash backward k-block (single-pass or dk/dv)"),
                 ("flash_bwd_dq_kernel", "flash backward dq"),
                 ("flash_bwd_dq_l2_kernel", "flash backward dq"),
                 ("scale_cast_kernel", "flash single-pass `l2` dq finish"),
                 ("flash_attn_fwd_kernel", "flash forward"),
+                ("flash_fwd_l2_kernel", "flash forward"),
                 ("ln_qkv", "LN->qkv forward"),
                 ("megablock_bwd_mlp", "megablock backward, MLP half"),
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
@@ -1677,13 +1686,15 @@ def compare_train_routes() -> dict:
 L2_SHAPES = (("D", (256, 4, 50, 108)), ("D64", (256, 4, 64, 108)), ("D65", (256, 4, 65, 108)),
              ("ragged", (4, 4, 1025, 108)), ("wide", (8, 6, 1024, 64)))
 L2_MAIN_SHAPE = "D"
-# The CUDA symbols of each flash wrapper's own kernels (the single pass also
-# runs its dq scale-and-cast pass), for _device_ms; the two-pass entries'
-# also name the parent's mma.sync `l2` kernels, so that scripts/kernel_ab.py
-# measures a parent tree too.
-FLASH_SYMBOLS = {"flash_attn_fwd": ("flash_attn_fwd_kernel",),
+# The CUDA symbols of each flash wrapper's own kernels, for _device_ms: this
+# tree's (the `l2` forward and single pass are flash_fwd_l2_kernel and
+# flash_bwd_fused_l2_kernel) and the mma.sync `l2` forward and single pass of
+# a parent tree (flash_attn_fwd_kernel<DP, MODE>, the `dot` forward's name
+# too; flash_bwd_kv_kernel and its dq scale-and-cast pass), so that
+# scripts/kernel_ab.py measures both trees.
+FLASH_SYMBOLS = {"flash_attn_fwd": ("flash_attn_fwd_kernel", "flash_fwd_l2_kernel"),
                  "flash_attn_bwd_fused": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel",
-                                          "scale_cast_kernel"),
+                                          "scale_cast_kernel", "flash_bwd_fused_l2_kernel"),
                  "flash_attn_bwd_dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_l2_kernel"),
                  "flash_attn_bwd_dkv": ("flash_bwd_kv_kernel", "flash_bwd_kv_wgmma_kernel",
                                         "flash_bwd_dkv_l2_kernel")}
@@ -1738,13 +1749,16 @@ def check_l2_kernels() -> dict:
             plain = lambda mode=mode: A.attention_forward_reference(q, k, v, scale, mode)  # noqa
             (o, lse), (po, plse) = kern(), plain()
             err = _err(o, po, f"{name} {label}")
+            contiguous = o.is_contiguous()
+            if not contiguous and STRICT:
+                raise AssertionError(f"{name} {label}: the output is not contiguous")
             lse_err = (lse - plse).abs().max().item()
             print(f"  {name} {label} lse: max_abs_err {lse_err:.6g} (tolerance 1e-2)")
             if not lse_err <= 1e-2:
                 raise AssertionError(f"{name}: LSE disagrees with the plain logsumexp")
             library = _l2_library(q, k, v, inv) if mode == "l2" else None
             bound_ms, bound_by = _bound(4.0 * b * h * n * n * dh, 4 * elem + b * h * n * 4)
-            recs[name] = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+            recs[name] = {"max_abs_err": err, "lse_max_abs_err": lse_err, "contiguous": contiguous,
                           "ms": _time_ms(kern, iters), "plain_ms": _time_ms(plain, 3),
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": _time_ms(library, iters) if library else None}
@@ -1770,8 +1784,8 @@ def check_l2_kernels() -> dict:
             err = max(_err(g_, w_, f"{name} {label} out{i}", own_scale=True)
                       for i, (g_, w_) in enumerate(zip(got, want)))
             contiguous = all(g_.is_contiguous() for g_ in got)
-            if base != "flash_attn_bwd_fused" and not contiguous and STRICT:
-                raise AssertionError(f"{name} {label}: the two-pass outputs are not contiguous")
+            if not contiguous and STRICT:
+                raise AssertionError(f"{name} {label}: the outputs are not contiguous")
             del got, want
             repeat = _repeat(lambda: kern(*args, score_mode="l2"), f"{name} {label}")
             bound_ms, bound_by = _bound(2.0 * products * b * h * n * n * dh,
@@ -1793,9 +1807,9 @@ def check_l2_kernels() -> dict:
             else:
                 out[name][f"{label}_max_abs_err"] = r["max_abs_err"]
                 out[name][f"{label}_ms"] = r["ms"]
+                out[name][f"{label}_contiguous"] = r["contiguous"]
                 if "repeat_max_abs_diff" in r:
                     out[name][f"{label}_repeat_max_abs_diff"] = r["repeat_max_abs_diff"]
-                    out[name][f"{label}_contiguous"] = r["contiguous"]
         del q, k, v, do, o, lse, qg, kg, vg, lib_out
         torch.cuda.empty_cache()
     return out
@@ -2026,7 +2040,8 @@ def train_v1_main_path(run_dir: str) -> tuple:
 def train_v1_fused(steps: int = 3) -> tuple:
     """The v1 defaults under use_pallas=always and bwd_fusion=fused through
     Trainer: 1 warm-up step, ``steps`` by fit; D's `l2` backward takes the
-    single-pass kernel (8 a step), no dq or dk/dv."""
+    single-pass kernel (8 a step), no dq or dk/dv; then a profiled breakdown
+    of 2 more steps."""
     import shutil as _sh
     import tempfile
 
@@ -2049,9 +2064,10 @@ def train_v1_fused(steps: int = 3) -> tuple:
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
         # --- end of the v1 bwd_fusion=fused path ---
+        ms = 1e3 * cfg.v1.batch_size / means["images_per_sec"]
+        breakdown = train_breakdown(trainer, ms, recompute=False)
     finally:
         _sh.rmtree(run_dir, ignore_errors=True)
-    ms = 1e3 * cfg.v1.batch_size / means["images_per_sec"]
     print(f"[train v1 fused] {steps} steps by Trainer.fit, {ms:.2f} ms/step; launches "
           f"{launches}; means {means}")
     for name, n in launches.items():
@@ -2060,7 +2076,7 @@ def train_v1_fused(steps: int = 3) -> tuple:
             raise AssertionError(f"[train v1 fused] {name} launched {n} times, expected {want}")
     if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
         raise AssertionError(f"[train v1 fused] non-finite metrics: {means}")
-    return launches, {"ms_per_step": ms, "means": means}
+    return launches, {"ms_per_step": ms, "means": means, "breakdown": breakdown}
 
 
 class _ScalarTerms:
@@ -2368,7 +2384,7 @@ def main() -> int:
             print(f"    {func}: {regs} registers, {stores} bytes spill stores, {loads} loads")
         for func, line in ptxas_warnings[name]:
             print(f"    {func}: {line}")
-        _check_l2_bwd_ptxas(kernels, ptxas_warnings[name])
+        _check_l2_ptxas(kernels, ptxas_warnings[name])
 
     sass = _sass_counts(build)
     records = check_kernels()

@@ -5,7 +5,7 @@ sum_partials among them) of one tree of the port on the card, with
 chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
-        [--splits | --host | --megablock | --l2 | --ticket]
+        [--splits | --host | --megablock | --l2 | --ticket | --v1-fused]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -43,12 +43,16 @@ each LN->MLP form's wrapper at its main shape (``host_times``).
 ``--l2`` runs only the `l2` phase: ``check_l2_kernels`` (the `l2`/`l2ref`
 forward and the `l2` single pass, dq and dk/dv at chip_smoke.L2_SHAPES; at
 the v1 discriminator's shape each wrapper's own kernels' device time and its
-other device work, such as pads; the two-pass outputs' layout recorded, not
-raised) and the single pass twice at the v1 shapes.
+other device work, such as delta and a parent's pads; every output's layout
+recorded, not raised) and the single pass twice at the v1 shapes.
 
 ``--ticket`` runs only the single pass's order phase (``ticket_times``): the
 `dot` and `l2` single passes at G's shape and at one head x 16,385 tokens,
 each wrapper's time, its kernels' device time and two calls compared.
+
+``--v1-fused`` runs only ``train_v1_fused``: the v1 defaults trained under
+use_pallas=always and bwd_fusion=fused (D's backward on the `l2` single
+pass), with the device time of 2 profiled steps by kernel group.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -222,6 +226,7 @@ def main() -> int:
     ap.add_argument("--megablock", action="store_true")
     ap.add_argument("--l2", action="store_true")
     ap.add_argument("--ticket", action="store_true")
+    ap.add_argument("--v1-fused", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -248,6 +253,9 @@ def main() -> int:
         return 0
     if args.ticket:
         print(json.dumps({"label": label, "ticket": ticket_times(cs)}))
+        return 0
+    if args.v1_fused:
+        print(json.dumps({"label": label, "v1_fused": cs.train_v1_fused()[1]}))
         return 0
     rec = {"label": label,
            "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd",

@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
 """Cycles of each phase inside the LN->qkv kernel, the megablock backward's
-LN1 half and the `l2` two-pass flash backward (dq and dk/dv), on the card.
+LN1 half and the persistent `l2` flash kernels (the forward, the single pass,
+dq and dk/dv), on the card.
 
     python scripts/phase_trace.py [--blocks 0 77]
 
 No profiler below the kernel level works on the card's machine (`ncu` does
-not), so this reads the SM's own clock.  It copies the sources of the two
-kernels (ops/csrc: ln_qkv_fwd.cu, megablock_bwd_ln1.cu and the headers they
-include) to build/phase_trace/, inserts `clock64()` marks at the phase
+not), so this reads the SM's own clock.  It copies the kernels' sources
+(ops/csrc: ln_qkv_fwd.cu, megablock_bwd_ln1.cu, the flash sources and the
+headers they include) to build/phase_trace/, inserts `clock64()` marks at the phase
 boundaries of the first consumer warpgroup's first thread in the blocks
 named by ``--blocks`` (anchored on the sources' own lines: the script fails
 when an anchor is missing, so a changed kernel is never traced at the wrong
 place), compiles each copy with ops/build.NVCC_FLAGS, binds it in place of
 the package's library and calls the package's wrapper three times at the
 kernel's main shape (LN->qkv at the serving shape, 65,536 rows of E 384 into
-6 heads of 64; the LN1 half at G's, 32,768 rows, E 384, K 1,152; the `l2` dq
-and dk/dv at the v1 discriminator's, 256 x 4 heads, 50 tokens, Dh 108).
+6 heads of 64; the LN1 half at G's, 32,768 rows, E 384, K 1,152; the `l2`
+forward, single pass, dq and dk/dv at the v1 discriminator's, 256 x 4 heads,
+50 tokens, Dh 108).
 Phases of a 128-row LN->qkv unit: the wait for its x, the LayerNorm, then
 for each 192-column tile the products, the epilogue's staging and the
 copy-out; of a 64-row LN1 tile: the products, the wait for x, the row
 statistics, the LayerNorm sums, the epilogue and the stores with the column
-partials; of an `l2` unit (one head, on the second consumer warpgroup, which
-takes every other head): the time since its previous unit, the wait for its
-resident rows, their fragments and norms, the wait for its tile, the tile's
-re-layout, S, P, dP and dS, the output boxes and the staging of the outputs.
+partials; of an `l2` backward unit (one head, on the second consumer
+warpgroup, which takes every other head): the time since its previous unit,
+the wait for its resident rows, their fragments and norms, the wait for its
+tile, the tile's re-layout, S, P, dP and dS, the output boxes (staged as
+they are formed), the entry's release (in the single pass with K's layout)
+and the single pass's dQ; of an `l2` forward unit: the same up to the re-layout, then S and the
+softmax, O = P V and the staging of O.
 The first unit of each block (its wait holds the launch's first loads) is
 left out of the means.  Prints one JSON line: the mean cycles of each phase per
 unit and their shares of the unit.  The marks cost a few cycles each and
@@ -74,26 +79,42 @@ LN1_MARKS = (
     ("ln_bwd_tile.cuh", "    fence_proxy_async();  // y and the bf16 output, to the TMA unit\n", "before"),
 )
 L2_MARKS = (
-    ("flash_l2_bwd.cuh", "    mbar_wait(&sh.rfull[i % sh.g.rn], (i / sh.g.rn) & 1);\n"
-                         "    unsigned char* x1 = sh.rent(i) + off;  // the unit's R1 rows, then R2\n",
-     "before"),
+    ("flash_l2_bwd.cuh", "    mbar_wait(sh.rfull(i % sh.g.rn), (i / sh.g.rn) & 1);\n"
+                         "    const int bh = sh.unit(i);\n", "before"),
     ("flash_l2_bwd.cuh", "    unsigned char* x1 = sh.rent(i) + off;  // the unit's R1 rows, then R2\n",
      "before"),
     ("flash_l2_bwd.cuh", "    if constexpr (!DKV) {  // dq: the rows' LSE (log2 units) and delta\n",
      "before"),
-    ("flash_l2_bwd.cuh", "    mbar_wait(&sh.tfull[i % sh.g.tn], (i / sh.g.tn) & 1);\n", "after"),
-    ("flash_l2_bwd.cuh", "    if (ct == 0) mbar_arrive(&sh.tfree[i % sh.g.tn]);\n", "after"),
+    ("flash_l2_bwd.cuh", "    mbar_wait(sh.tfull(i % sh.g.tn), (i / sh.g.tn) & 1);\n", "after"),
+    ("flash_l2_bwd.cuh", "    if (ct == 0) mbar_arrive(sh.tfree(i % sh.g.tn));\n", "after"),
     ("flash_l2_bwd.cuh", "    uint32_t pf[4][4], df[4][4];\n    pack_frags(pf, sa);\n", "before"),
-    ("flash_l2_bwd.cuh", "    fence_frags(pf);\n    fence_frags(df);\n    named_bar_sync(BAR_WG + w, 128);",
+    ("flash_l2_bwd.cuh", "    fence_frags(pf);\n    fence_frags(df);\n    if constexpr (FUSED) {\n",
      "before"),
-    ("flash_l2_bwd.cuh", "    mbar_arrive(&sh.rfree[i % sh.g.rn]);\n  }\n}\n\n// Lockstep", "after"),
+    ("flash_l2_bwd.cuh", "    if constexpr (FUSED) {\n      // dQ = 2 inv (dS K", "before"),
+    ("flash_l2_bwd.cuh", "  }\n  if (FUSED && ct == 0) hopper::bulk_wait<0>();\n", "before"),
+)
+L2_FWD_MARKS = (
+    ("flash_attn_fwd.cu", "    mbar_wait(sh.rfull(i % sh.g.rn), (i / sh.g.rn) & 1);\n"
+                          "    const int bh = sh.unit(i);\n", "before"),
+    ("flash_attn_fwd.cu", "    unsigned char* xq = sh.rent(i) + off;\n    uint32_t qa[DP / 16][4];\n"
+                          "    load_frags<DP>(qa, xq, lrow, n, d);\n", "before"),
+    ("flash_attn_fwd.cu", "    mbar_wait(sh.tfull(i % sh.g.tn), (i / sh.g.tn) & 1);\n", "before"),
+    ("flash_attn_fwd.cu", "    mbar_wait(sh.tfull(i % sh.g.tn), (i / sh.g.tn) & 1);\n", "after"),
+    ("flash_attn_fwd.cu", "    if (ct == 0) mbar_arrive(sh.tfree(i % sh.g.tn));\n", "after"),
+    ("flash_attn_fwd.cu", "    uint32_t pf[4][4];\n    pack_frags(pf, sa);\n", "before"),
+    ("flash_attn_fwd.cu", "    fence_frags(pf);\n#pragma unroll\n    for (int b = 0; b < NB; ++b)\n"
+                          "      stage_box(", "before"),
+    ("flash_attn_fwd.cu", "    mbar_arrive(sh.rfree(i % sh.g.rn));\n  }\n}\n\n// Lockstep", "after"),
 )
 # where each kernel's marks switch on (the consumers' register hand-over; the
 # `l2` kernels' ping-pong consumer)
 START = {"ln_qkv_fwd.cu": "  reg_alloc<232>();\n", "ln_bwd_tile.cuh": "  reg_alloc<232>();\n",
-         "flash_l2_bwd.cuh": "  const bool row_ok[2] = {lrow < n, lrow + 8 < n};\n"}
+         "flash_l2_bwd.cuh": "  const bool row_ok[2] = {lrow < n, lrow + 8 < n};\n",
+         "flash_attn_fwd.cu": "  float* nk = sh.trows + w * 3 * TILE + 2 * TILE;\n"}
 # each traced library and the line of its source the trace's buffer goes before
 LIBS = {"ln_qkv_fwd": '#include "hopper.cuh"\n', "megablock_bwd_ln1": '#include "hopper.cuh"\n',
+        "flash_attn_fwd": '#include "flash_l2.cuh"\n',
+        "flash_attn_bwd_fused": '#include "flash_attn_bwd.cuh"\n',
         "flash_attn_bwd_dq": '#include "flash_attn_bwd.cuh"\n',
         "flash_attn_bwd_dkv": '#include "flash_attn_bwd.cuh"\n'}
 
@@ -108,7 +129,7 @@ def _insert(src: str, anchor: str, how: str) -> str:
 
 
 def instrument(blocks) -> dict:
-    """Instrumented copies of the two libraries' sources under OUT; returns
+    """Instrumented copies of the libraries' sources under OUT; returns
     {library: path of its .cu}."""
     from vitgan_tpu_torch.ops import build
 
@@ -117,7 +138,7 @@ def instrument(blocks) -> dict:
     for fn in os.listdir(build.CSRC):
         shutil.copy(os.path.join(build.CSRC, fn), OUT)
     on = _TRACE_ON.format(blocks=", ".join(map(str, blocks)), nb=len(blocks), slots=SLOTS)
-    for marks in (QKV_MARKS, LN1_MARKS, L2_MARKS):
+    for marks in (QKV_MARKS, LN1_MARKS, L2_MARKS, L2_FWD_MARKS):
         path = os.path.join(OUT, marks[0][0])
         with open(path) as f:
             src = f.read()
@@ -201,6 +222,10 @@ def main() -> int:
     runs = {
         "ln_qkv_fwd": (lambda: FB.ln_qkv_forward(*qkv), (64, 1024, 384, 6, 64)),
         "megablock_bwd_ln1": (lambda: FB.megablock_bwd_ln1(*ln1), (32768, 384, 1152)),
+        "flash_attn_fwd": (lambda: A.flash_forward(*l2[:3], l2[-1], score_mode="l2"),
+                           (256, 4, 50, 108)),
+        "flash_attn_bwd_fused": (lambda: A.flash_backward_fused(*l2, score_mode="l2"),
+                                 (256, 4, 50, 108)),
         "flash_attn_bwd_dq": (lambda: A.flash_backward_dq(*l2, score_mode="l2"), (256, 4, 50, 108)),
         "flash_attn_bwd_dkv": (lambda: A.flash_backward_dkv(*l2, score_mode="l2"),
                                (256, 4, 50, 108)),
@@ -229,12 +254,20 @@ def main() -> int:
             # done, then a tile: products, staging, copy-out done
             labels = ["wait_x", "layernorm"] + ["products", "staging", "copy_out"] * (
                 -(-3 * h * dh // 192))
+        elif lib == "flash_attn_fwd":
+            # marks: the consumer's start, then a unit: its start, resident
+            # rows landed, fragments and norms, tile landed, tile re-laid, S
+            # and softmax done, O = P V done, O staged and the entry released
+            labels = ["between_units", "wait_resident", "fragments", "wait_tile", "relayout",
+                      "scores_softmax", "pv", "staging"]
         elif lib.startswith("flash"):
             # marks: the consumer's start, then a unit: its start, resident
             # rows landed, fragments and norms, tile landed, tile re-laid,
-            # S/P/dP/dS done, boxes done, outputs staged
+            # S/P/dP/dS done, boxes done and staged, the entry released (the
+            # single pass: K laid out too), the single pass's dQ formed,
+            # staged and stored (none in the two-pass kernels)
             labels = ["between_units", "wait_resident", "fragments", "wait_tile", "relayout",
-                      "scores_softmax", "boxes", "staging"]
+                      "scores_softmax", "boxes", "release", "single_pass_dq"]
         else:
             # marks: the consumers' start, then a tile: its start, products,
             # x landed, statistics, sums, epilogue done (the stores and

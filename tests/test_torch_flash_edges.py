@@ -8,15 +8,18 @@
   warpgroups, past its 128-key tiles) and Dh in {16, 64, 96, 128} (one and
   two 64-column boxes, 64- and 128-key tiles);
 - ops/attention.fused_dq_schedule, the grid order and the rule the
-  single-pass kernel's blocks wait by: every block waits on a lower linear
-  index, and each block takes its linear index from the launch's ticket (the
-  count of blocks started before it), not from blockIdx.  A simulation of
-  block dispatch at G's and D's grids shows that every block finishes and
-  that each (head, tile) receives its k-blocks' additions in one fixed
-  order: dispatched in order onto one and two resident blocks on each of
-  132 SMs, and dispatched in order, in reverse and in a seeded random order
-  onto fewer slots than a head's k-blocks.  Taking the index from blockIdx
-  instead, the reversed dispatch deadlocks (the hazard the ticket removes).
+  single-pass kernels' key blocks wait by: every key block waits on a lower
+  linear index, and each block (`dot`) or persistent block's unit (`l2`, one
+  or two consecutive key blocks) takes its linear index from the launch's
+  ticket (the count of units started before it), not from blockIdx.  A
+  simulation of dispatch at G's and D's `dot` grids and at the `l2` ragged
+  shape (Dh 108: units of one 64-key block; Dh 64: of two) shows that every
+  block finishes and that each (head, tile) receives its key blocks'
+  additions in one fixed order: dispatched in order onto one and two
+  resident blocks on each of 132 SMs, and dispatched in order, in reverse and
+  in a seeded random order onto fewer slots than a head's units.  Taking the
+  index from blockIdx instead, the reversed dispatch deadlocks (the hazard
+  the ticket removes).
 
 Tolerance: 1e-5 absolute and relative, f32 on both sides (JAX at 'highest'
 matmul precision, tests/conftest.py); the sums run in another order.
@@ -55,40 +58,51 @@ def test_plain_forward_matches_jax_kernel_at_kernel_edges(n, dh):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
 
 
+def units_of(plan: A.FusedSchedule) -> list:
+    """The units of ``plan`` in ticket order: runs of plan.unit_blocks
+    consecutive key blocks of a head (one block each for `dot`), as lists of
+    linear indices."""
+    per = plan.unit_blocks
+    return sorted([plan.index(kb, head) for kb in range(kb0, min(kb0 + per, plan.k_blocks))]
+                  for head in range(plan.batch_heads) for kb0 in range(0, plan.k_blocks, per))
+
+
 def simulate(plan: A.FusedSchedule, slots: int, order=None, ticket: bool = True) -> dict:
-    """Blocks of ``plan``'s grid (by blockIdx) dispatched in ``order``
-    (default: blockIdx order) onto ``slots`` resident places.  A block that
-    starts takes its linear index from the ticket, the count of blocks started
-    before it, as the kernels do; with ``ticket`` False, from its blockIdx.
-    Each tick every resident block tries to add its next tile's dQ: it may
-    when plan.waits_on(index) is None or that block has added the tile
-    already.  A block that has added all its tiles leaves its slot to the
-    next block in ``order``.  Returns {"finished": blocks done, "deadlock":
-    True if a tick moved nothing while blocks were left, "adds": {(head,
-    tile): [k-block, ...] in the order the additions happened}}."""
-    total = plan.k_blocks * plan.batch_heads
-    order = list(range(total)) if order is None else list(order)
-    done_tiles = [0] * total
+    """Units of ``plan`` (by dispatch id: blockIdx for `dot`, a persistent
+    block's turn for `l2`) dispatched in ``order`` (default: id order) onto
+    ``slots`` resident places.  A unit that starts takes its place from the
+    ticket, the count of units started before it, as the kernels do; with
+    ``ticket`` False, from its id.  Each tick every key block of a resident
+    unit tries to add its next tile's dQ: it may when plan.waits_on(index) is
+    None or that block has added the tile already.  A unit whose blocks have
+    added all their tiles leaves its slot to the next unit in ``order``.
+    Returns {"finished": key blocks done, "deadlock": True if a tick moved
+    nothing while blocks were left, "adds": {(head, tile): [k-block, ...] in
+    the order the additions happened}}."""
+    units = units_of(plan)
+    order = list(range(len(units))) if order is None else list(order)
+    done_tiles = [0] * (plan.k_blocks * plan.batch_heads)
     queue, resident = iter(order), []
     adds: dict = {}
     finished = 0
-    started = iter(range(total))  # the ticket
+    started = iter(range(len(units)))  # the ticket
 
     def start(into: list) -> None:
-        """The next block in ``order`` starts, into ``into`` by its index."""
-        blk = next(queue, None)
-        if blk is not None:
-            into.append(next(started) if ticket else blk)
+        """The next unit in ``order`` starts, into ``into`` by its place."""
+        unit = next(queue, None)
+        if unit is not None:
+            into.append(units[next(started) if ticket else unit])
 
     for _ in range(slots):
         start(resident)
     while resident:
         moved = []
-        for blk in resident:
-            tile = done_tiles[blk]
-            pred = plan.waits_on(blk)
-            if pred is None or done_tiles[pred] > tile:
-                moved.append(blk)
+        for unit in resident:
+            for blk in unit:
+                pred = plan.waits_on(blk)
+                if done_tiles[blk] < plan.q_tiles and (
+                        pred is None or done_tiles[pred] > done_tiles[blk]):
+                    moved.append(blk)
         if not moved:
             return {"finished": finished, "deadlock": True, "adds": adds}
         for blk in moved:  # every block that may add this tick adds its tile
@@ -96,12 +110,12 @@ def simulate(plan: A.FusedSchedule, slots: int, order=None, ticket: bool = True)
             adds.setdefault((head, done_tiles[blk]), []).append(kb)
             done_tiles[blk] += 1
         left: list = []
-        for blk in resident:
-            if done_tiles[blk] == plan.q_tiles:
-                finished += 1
+        for unit in resident:
+            if all(done_tiles[blk] == plan.q_tiles for blk in unit):
+                finished += len(unit)
                 start(left)
             else:
-                left.append(blk)
+                left.append(unit)
         resident = left
     return {"finished": finished, "deadlock": False, "adds": adds}
 
@@ -123,34 +137,40 @@ def test_in_order_dispatch_finishes_every_block_in_key_block_order(grid, residen
 
 
 @pytest.mark.parametrize("dispatch", ["in_order", "reversed", "random"])
-@pytest.mark.parametrize("grid", [("G", 1024, 32 * 6, "dot"), ("D", 1025, 64 * 6, "dot"),
-                                  ("l2", 1025, 16, "l2")], ids=["G", "D", "l2"])
+@pytest.mark.parametrize("grid", [("G", 1024, 32 * 6, "dot", 64), ("D", 1025, 64 * 6, "dot", 64),
+                                  ("l2", 1025, 16, "l2", 108), ("l2_dh64", 1025, 16, "l2", 64)],
+                         ids=["G", "D", "l2", "l2_dh64"])
 def test_the_ticket_finishes_any_dispatch_order(grid, dispatch):
     """The rule needs the waited-on block resident or finished.  With each
-    block's index taken from the ticket, every dispatch order finishes, onto
-    fewer slots than a head's k-blocks, and adds every tile in key-block
-    order.  Dispatched in reverse with the index taken from blockIdx (the
-    rule before the ticket), every slot holds a block whose predecessor never
+    unit's place taken from the ticket, every dispatch order finishes, onto
+    fewer slots than a head's units, and adds every tile in key-block order
+    (an `l2` unit of two key blocks adds them in warpgroup order).
+    Dispatched in reverse with the place taken from the dispatch id (the rule
+    before the ticket), every slot holds a unit whose predecessor never
     starts."""
-    _, n, bh, mode = grid
-    plan = A.fused_dq_schedule(n, bh, mode)
+    _, n, bh, mode, d = grid
+    plan = A.fused_dq_schedule(n, bh, mode, d)
+    assert plan.unit_blocks == (2 if mode == "l2" and d == 64 else 1)
     total = plan.k_blocks * bh
-    order = {"in_order": range(total), "reversed": reversed(range(total)),
-             "random": np.random.default_rng(11).permutation(total)}[dispatch]
-    res = simulate(plan, plan.k_blocks - 1, order=order)
+    units = len(units_of(plan))
+    slots = -(-plan.k_blocks // plan.unit_blocks) - 1  # fewer than a head's units
+    order = {"in_order": range(units), "reversed": reversed(range(units)),
+             "random": np.random.default_rng(11).permutation(units)}[dispatch]
+    res = simulate(plan, slots, order=order)
     assert not res["deadlock"] and res["finished"] == total
     assert len(res["adds"]) == bh * plan.q_tiles
     assert all(kbs == list(range(plan.k_blocks)) for kbs in res["adds"].values())
     if dispatch == "reversed":
-        res = simulate(plan, plan.k_blocks - 1, order=reversed(range(total)), ticket=False)
+        res = simulate(plan, slots, order=reversed(range(units)), ticket=False)
         assert res["deadlock"] and res["finished"] == 0
 
 
 def test_fused_schedule_sizes_the_wrapper_buffers():
     """The grid and the buffer of flags and ticket of the single pass at the
     main path's shapes: G (1,024 tokens: a flag per (head, tile), then the
-    ticket), the v1 generator (32 tokens, one k-block: no flags, no ticket)
-    and the v1 discriminator's `l2` 50 tokens (64 keys a block: one k-block)."""
+    ticket), the v1 generator (32 tokens, one k-block: no flags, no ticket),
+    the v1 discriminator's `l2` 50 tokens (64 keys a block: one k-block) and
+    the `l2` ragged and wide shapes (units of one and two key blocks)."""
     g = A.fused_dq_schedule(1024, 192, "dot")
     assert (g.k_blocks, g.q_tiles, g.group_heads) == (8, 16, 32)
     assert (g.ticket, g.flags) == (192 * 16, (192 * 16 + 1,))
@@ -164,8 +184,12 @@ def test_fused_schedule_sizes_the_wrapper_buffers():
     v1 = A.fused_dq_schedule(32, 512, "dot")
     assert (v1.k_blocks, v1.q_tiles, v1.flags, v1.ticket) == (1, 1, (0,), None)
     assert v1.waits_on(5) is None
-    d_l2 = A.fused_dq_schedule(50, 1024, "l2")
+    d_l2 = A.fused_dq_schedule(50, 1024, "l2", 108)  # a unit a head: no flags, no ticket
     assert (d_l2.k_blocks, d_l2.flags, d_l2.ticket) == (1, (0,), None)
-    ragged_l2 = A.fused_dq_schedule(1025, 16, "l2")  # `l2`: k-block fastest
+    ragged_l2 = A.fused_dq_schedule(1025, 16, "l2", 108)  # `l2`: k-block fastest
     assert (ragged_l2.k_blocks, ragged_l2.q_tiles, ragged_l2.flags) == (17, 17, (16 * 17 + 1,))
     assert ragged_l2.coords(18) == (1, 1) and ragged_l2.waits_on(18) == 17
+    assert ragged_l2.unit_blocks == 1
+    wide_l2 = A.fused_dq_schedule(1024, 48, "l2", 64)  # units of two key blocks
+    assert (wide_l2.k_blocks, wide_l2.unit_blocks, wide_l2.flags) == (16, 2, (48 * 16 + 1,))
+    assert units_of(wide_l2)[:2] == [[0, 1], [2, 3]] and wide_l2.waits_on(2) == 1

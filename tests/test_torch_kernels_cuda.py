@@ -5,9 +5,10 @@ score modes (forward, the `l2` backward kernels, autograd, the v1 head width
 108), the wgmma `dot` forward and dq at the edges of their tiles, the
 forward's (B, N, H*D) output layout, the single pass bit-equal across two
 calls (`dot` and `l2`, at G's grid and one head x 16,385 tokens too, on the
-ticket's order), the persistent `l2` two-pass kernels (dq, dk/dv) at the v1
-discriminator's shape and the edges of their tiles, contiguous at the
-unpadded head width and bit-equal across two calls, the megablock's training forward and saved-residual backward (against
+ticket's order), the persistent `l2` kernels (the `l2`/`l2ref` forward, the
+single pass, dq and dk/dv) at the v1 discriminator's shape and the edges of
+their tiles, contiguous at the unpadded head width, the backward ones
+bit-equal across two calls, the megablock's training forward and saved-residual backward (against
 autograd of the plain block) and the weight-gradient kernel, the training
 gate, and the raises for what the kernels do not take; each stage of the
 LN->MLP forward against its plain version, each stage of the megablock
@@ -208,9 +209,9 @@ L2_IDS = ["v1_d_50_dh108", "ragged_257_dh64", "ragged_65_dh24"]
 @pytest.mark.parametrize("shape", L2_SHAPES, ids=L2_IDS)
 @pytest.mark.parametrize("mode", ["l2", "l2ref"])
 def test_score_mode_forward_matches_plain_on_card(mode, shape):
-    """The `l2`/`l2ref` forward kernel (the head width padded to 8 by the
-    wrapper) against its plain version: o within 2e-2 * max(1, max|plain|),
-    the LSE within 1e-2; counted under its mode's key."""
+    """The `l2`/`l2ref` forward kernel (the head width where it lies) against
+    its plain version: o within 2e-2 * max(1, max|plain|), the LSE within
+    1e-2; counted under its mode's key."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -426,6 +427,64 @@ L2_TWO_PASS_SHAPES = [(256, 4, 50, 108), (4, 4, 64, 108), (4, 4, 65, 108), (2, 2
                       (4, 4, 50, 64), (4, 4, 65, 64), (2, 2, 1025, 64)]
 L2_TWO_PASS_IDS = ["D", "n64_dh108", "n65_dh108", "n1025_dh108", "n50_dh64", "n65_dh64",
                    "n1025_dh64"]
+
+
+# chip_smoke.L2_SHAPES: the v1 discriminator's shape, one 64-row tile exactly
+# and one row past it, a ragged length and a wide head count at Dh 64.
+L2_CHIP_SHAPES = [(256, 4, 50, 108), (256, 4, 64, 108), (256, 4, 65, 108), (4, 4, 1025, 108),
+                  (8, 6, 1024, 64)]
+L2_CHIP_IDS = ["D", "D64", "D65", "ragged", "wide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", L2_CHIP_SHAPES, ids=L2_CHIP_IDS)
+@pytest.mark.parametrize("mode", ["l2", "l2ref"])
+def test_l2_persistent_forward_matches_plain_on_card(mode, shape):
+    """The persistent `l2`/`l2ref` forward at chip_smoke's `l2` shapes
+    (ping-pong at 50 and 64 tokens, lockstep past them): o within 2e-2 *
+    max(1, max|plain|) and contiguous at the unpadded head width, the LSE
+    within 1e-2, one launch counted under its mode's key."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = float(shape[1] * shape[3])
+    build.reset_launches()
+    o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+    po, plse = A.attention_forward_reference(q, k, v, scale, mode)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"flash_attn_fwd[{mode}]"] == 1
+    assert o.shape == shape and o.is_contiguous() and lse.shape == shape[:3]
+    tol = 2e-2 * max(1.0, po.float().abs().max().item())
+    assert (o.float() - po.float()).abs().max().item() <= tol
+    assert (lse - plse).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", L2_CHIP_SHAPES, ids=L2_CHIP_IDS)
+def test_l2_persistent_single_pass_matches_plain_and_repeats_on_card(shape):
+    """The persistent `l2` single pass at chip_smoke's `l2` shapes (dQ
+    finished in one block a head at 50 and 64 tokens; past them added in
+    key-block order on the ticket's flags): dq, dk and dv each within 2e-2 *
+    its own max|plain|, contiguous at the unpadded head width, bit-equal
+    across two calls, one launch a call."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = float(shape[1] * shape[3])
+    o, lse = A.flash_forward(q, k, v, scale, score_mode="l2")
+    args = (q, k, v, o, lse, do, scale)
+    build.reset_launches()
+    got = [t.clone() for t in A.flash_backward_fused(*args, score_mode="l2")]
+    again = A.flash_backward_fused(*args, score_mode="l2")
+    want = A.flash_bwd_fused_reference(*args, score_mode="l2")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attn_bwd_fused[l2]"] == 2
+    for g, a, w in zip(got, again, want):
+        assert g.shape == shape and g.dtype == torch.bfloat16 and a.is_contiguous()
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+        assert torch.equal(g, a)
 
 
 @pytest.mark.cuda

@@ -7,18 +7,20 @@ JAX package, on the CPU.
   under bwd_fusion 'fused' and 'two_pass', on unpadded inputs, at the v1
   head width 108 also at N 64 and 65 (one 64-row tile exactly, and one row
   past it);
-- the units the persistent `l2` two-pass kernels walk (ops/attention
-  .l2_bwd_grid, l2_bwd_units): every (batch*head, resident rows) unit
-  exactly once, at N in {32, 50, 64, 65, 1,025} and B*H in {1, 1,024};
+- the units each persistent `l2` kernel walks (forward, single pass, dq and
+  dk/dv; ops/attention.l2_grid, l2_units): every (batch*head, resident rows)
+  unit exactly once, at N in {32, 50, 64, 65, 1,025} and B*H in {1, 1,024},
+  the single pass past 64 keys in the order of its ticket;
 - autograd through the port's flash_attention against jax.grad of the JAX
   flash_attention in interpret mode, for `l2` on both backward routes and
   for `l2ref` (whose JAX backward is the chunked recompute), at the v1
   discriminator's head width 108 and at a ragged N;
 - the `l2` backward route against the JAX package's own decision, read from
   the jaxpr of its VJP (traced only): two-pass under 'auto';
-- the plain and dispatch routes, the head-width padding, the launch keys,
-  and the refusals on tensors that are neither on the CPU nor on CUDA, and
-  of an `l2` head width the two-pass kernels do not take.
+- the plain and dispatch routes, the wrappers' head widths (`dot` padded to
+  a multiple of 8, `l2`/`l2ref` passed where they lie), the launch keys, and
+  the refusals on tensors that are neither on the CPU nor on CUDA, and of an
+  `l2` head width the kernels do not take.
 
 Tolerance: 1e-5 absolute and relative, f32 on both sides (JAX at 'highest'
 matmul precision, tests/conftest.py); the sums run in another order.
@@ -123,22 +125,30 @@ def test_flash_attention_autograd_matches_jax(route, shape):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("entry", A.L2_KERNELS)
 @pytest.mark.parametrize("d", [108, 64])
 @pytest.mark.parametrize("bh", [1, 1024])
 @pytest.mark.parametrize("n", [32, 50, 64, 65, 1025])
-def test_l2_persistent_grid_visits_every_unit_once(n, bh, d):
-    """The persistent grid of the `l2` dq and dk/dv kernels and the units its
-    blocks walk (blockIdx.x, + gridDim.x, ...): every (batch*head, resident
-    rows) unit exactly once, the grid never above the units or the SMs, the
-    resident rows 64 at Dh 108 (two column boxes) and 128 at Dh 64."""
-    rows = A.l2_bwd_unit_rows(d)
+def test_l2_persistent_grid_visits_every_unit_once(n, bh, d, entry):
+    """The persistent grid of each `l2` kernel and the units its blocks walk
+    (blockIdx.x, + gridDim.x, ...; the single pass past 64 keys in ticket
+    order, its blocks asking in blockIdx order and in reverse): every
+    (batch*head, resident rows) unit exactly once, the grid never above the
+    units or the SMs, the resident rows 64 at Dh 108 (two column boxes) and
+    128 at Dh 64; a ticketed walk gives each block its units in ticket order."""
+    rows = A.l2_unit_rows(d)
     assert rows == (64 if d == 108 else 128)
     units = bh * -(-n // rows)
-    grid = A.l2_bwd_grid(n, d, bh, SMS)
-    assert grid == min(units, SMS * A.L2_BWD_BLOCKS_PER_SM)
-    walked = [u for blk in range(grid) for u in A.l2_bwd_units(blk, grid, n, d, bh)]
-    assert len(walked) == units
-    assert sorted(walked) == [(h, r) for h in range(bh) for r in range(0, n, rows)]
+    grid = A.l2_grid(n, d, bh, SMS)
+    assert grid == min(units, SMS * A.L2_BLOCKS_PER_SM)
+    assert A.l2_ticketed(entry, n) == (entry == "flash_attn_bwd_fused" and n > 64)
+    every = [(h, r) for h in range(bh) for r in range(0, n, rows)]
+    for order in (None, list(reversed(range(grid)))):
+        walks = A.l2_units(entry, n, d, bh, grid, order)
+        assert len(walks) == grid
+        walked = [u for walk in walks for u in walk]
+        assert len(walked) == units and sorted(walked) == every
+        assert all(walk == sorted(walk) for walk in walks)
 
 
 def _jax_pallas_calls(jaxpr) -> int:
@@ -198,17 +208,62 @@ def test_l2ref_has_no_backward_kernel_and_double_backward_works_on_cpu():
     torch.testing.assert_close(gg, rg)
 
 
-def test_dispatch_and_head_padding():
+def test_dispatch_and_head_padding(monkeypatch):
     """'auto' keeps CPU `l2` attention on the plain route, 'always' takes the
-    flash Function; the wrappers pad a head width that is not a multiple of
-    8 (108 -> 112) with zeros, which leaves every score mode's scores as they
-    are; unknown modes raise."""
+    flash Function; the `l2`/`l2ref` wrappers hand their kernels the head
+    width 108 where it lies and return contiguous (B, H, N, 108) outputs,
+    while the `dot` wrappers pad a width that is not a multiple of 8 (108 ->
+    112) with zeros, which leaves the `dot` scores as they are, and slice the
+    outputs back; unknown modes raise.  (The kernels are stood in for by an
+    entry that records the head width it is given; nothing is launched.)"""
     q, k, v = (torch.from_numpy(x) for x in _qkv((1, 2, 50, 108), seed=4, k=3))
     (qp, kp), = [A._pad_head(q, k)]
     assert qp.shape[-1] == 112 and torch.equal(qp[..., :108], q) and not qp[..., 108:].any()
     assert A._pad_head(q[..., :104])[0].shape[-1] == 104
-    for mode in ("dot", "l2", "l2ref"):
-        torch.testing.assert_close(A._scores(qp, kp, 216.0, mode), A._scores(q, k, 216.0, mode))
+    torch.testing.assert_close(A._scores(qp, kp, 216.0, "dot"), A._scores(q, k, 216.0, "dot"))
+    widths, pads = [], []
+    pad_head = A._pad_head
+
+    def counted_pad(*ts):
+        pads.append(ts[0].shape[-1])
+        return pad_head(*ts)
+
+    def fake_entry(name):
+        # the head width: after q, k, v, o, lse (forward) or the pointers and
+        # B*H, N (backward)
+        at = {"flash_attn_fwd": 7, "flash_attn_bwd_fused": 13, "flash_attn_bwd_dq": 9,
+              "flash_attn_bwd_dkv": 10}[name]
+
+        def fn(*args):
+            widths.append((name, args[at]))
+            return 0
+        fn.__name__ = name
+        return fn
+
+    monkeypatch.setattr(A, "_pad_head", counted_pad)
+    monkeypatch.setattr(A, "_check_kernel_inputs", lambda *a: None)
+    monkeypatch.setattr(A, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(build, "entry", fake_entry)
+    monkeypatch.setattr(build, "stream_ptr", lambda device: None)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    lse = torch.zeros(1, 2, 50)
+    for mode in ("l2", "l2ref", "dot"):
+        o, _ = A.flash_forward(qb, kb, vb, 216.0, score_mode=mode)
+        assert o.shape == qb.shape and o.is_contiguous() == (mode != "dot")
+        if mode == "dot":
+            continue
+        assert widths.pop() == ("flash_attn_fwd", 108) and not pads
+        if mode == "l2":
+            for fn in (A.flash_backward_fused, A.flash_backward_dq, A.flash_backward_dkv):
+                outs = fn(qb, kb, vb, qb, lse, qb, 216.0, score_mode="l2")
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                assert all(t.shape == qb.shape and t.is_contiguous() for t in outs)
+                assert widths.pop()[1] == 108 and not pads
+    assert widths.pop() == ("flash_attn_fwd", 112) and pads == [108]
+    outs = A.flash_backward_fused(qb, kb, vb, qb, lse, qb, 216.0)
+    assert all(t.shape == qb.shape for t in outs)
+    assert widths.pop() == ("flash_attn_bwd_fused", 112) and pads == [108, 108]
+    monkeypatch.undo()
     assert A.kernel_fits(108, 1024) and not A.kernel_fits(136, 4) and not A.kernel_fits(64, 65536)
     policy.set_policy(mode="auto")
     assert not A.use_flash_attention(q, 50)
@@ -255,12 +310,20 @@ def test_l2_wrappers_refuse_rather_than_fall_back(monkeypatch):
             fn(q, q, q, q, lse, q, 432.0, score_mode="l2")
 
 
-def test_l2_two_pass_wrappers_refuse_a_width_not_a_multiple_of_4():
-    """The `l2` two-pass kernels read 8-byte row granules where the rows lie:
-    a head width that is not a multiple of 4 raises naming ROADMAP.md; it is
-    neither padded nor sent to a plain version."""
+@pytest.mark.parametrize("wrapper", ["flash_forward", "flash_backward_fused", "flash_backward_dq",
+                                     "flash_backward_dkv"])
+def test_l2_two_pass_wrappers_refuse_a_width_not_a_multiple_of_4(wrapper):
+    """The `l2` kernels (forward, `l2ref` too, single pass, dq, dk/dv) read
+    8-byte row granules where the rows lie: a head width that is not a
+    multiple of 4 raises naming ROADMAP.md; it is neither padded nor sent to
+    a plain version."""
     q = torch.empty(4, 4, 50, 110, device="meta", dtype=torch.bfloat16)
     lse = torch.empty(4, 4, 50, device="meta")
-    for fn in (A.flash_backward_dq, A.flash_backward_dkv):
-        with pytest.raises(ValueError, match="multiple of 4.*ROADMAP"):
-            fn(q, q, q, q, lse, q, 440.0, score_mode="l2")
+    fn = getattr(A, wrapper)
+    if wrapper == "flash_forward":
+        for mode in ("l2", "l2ref"):
+            with pytest.raises(ValueError, match="multiple of 4.*ROADMAP"):
+                fn(q, q, q, 440.0, score_mode=mode)
+        return
+    with pytest.raises(ValueError, match="multiple of 4.*ROADMAP"):
+        fn(q, q, q, q, lse, q, 440.0, score_mode="l2")

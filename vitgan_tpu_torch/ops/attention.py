@@ -16,11 +16,12 @@ Score modes (attention.py:50-61, layers.py:268-290), with inv = 1/sqrt(scale):
 d2 = max(|q|^2 + |k|^2 - 2 q.k, 0) in f32 from input-dtype operands.  The
 kernels compute all three forward and `dot`/`l2` backward; as in the JAX
 package, the `l2ref` backward is autograd through the plain chunked
-recompute.  The `l2` two-pass kernels (dq, dk/dv) read and write a head
-width that is a multiple of 4 where it lies (the v1 discriminator's 108);
-the forward and the single pass zero-pad a width that is not a multiple of 8
-to one in the wrapper and slice the outputs back: zero columns add nothing
-to q.k, |q|^2 or |k|^2.
+recompute.  The `l2`/`l2ref` kernels (forward, single pass, dq, dk/dv: one
+persistent skeleton, csrc/flash_l2.cuh) read and write a head width that is
+a multiple of 4 where it lies (the v1 discriminator's 108) and return
+contiguous outputs; the `dot` wrappers zero-pad a width that is not a
+multiple of 8 to one and slice the outputs back: zero columns add nothing
+to q.k.
 """
 
 from __future__ import annotations
@@ -132,14 +133,14 @@ def attention_forward_reference(q, k, v, scale: float, score_mode: str = "dot"):
 
 
 def kernel_fits(head_dim: int, batch_heads: int) -> bool:
-    """Dh <= 128 (the forward and the single pass pad it to a multiple of 8),
-    B*H <= 65535."""
+    """Dh <= 128 (the `dot` wrappers pad it to a multiple of 8, the `l2`
+    kernels take a multiple of 4), B*H <= 65535."""
     return head_dim <= MAX_HEAD_DIM and batch_heads <= MAX_BATCH_HEADS
 
 
 def _pad_head(*ts):
-    """Zero-pad the last axis to a multiple of 8 (the kernels copy 16 bytes
-    at a time); the tensors themselves when it is one already."""
+    """Zero-pad the last axis to a multiple of 8 (the `dot` kernels copy 16
+    bytes at a time); the tensors themselves when it is one already."""
     pad = (-ts[0].shape[-1]) % 8
     return ts if not pad else tuple(F.pad(t, (0, pad)) for t in ts)
 
@@ -160,20 +161,38 @@ def _check_kernel_inputs(what: str, *ts) -> None:
                          "other shapes are ROADMAP.md queue 1 item 7")
 
 
+def _check_l2_width(what: str, q) -> None:
+    """The `l2`/`l2ref` kernels read 8-byte row granules where the rows lie:
+    a head width that is not a multiple of 4 raises (it is neither padded nor
+    sent to a plain version)."""
+    if q.shape[-1] % 4:
+        raise ValueError(f"{what}: the `l2` kernels take a head width that is a multiple of 4, "
+                         f"got {q.shape[-1]}; other widths are ROADMAP.md queue 1 item 7")
+
+
 def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
                   score_mode: str = "dot"):
     """Launch the forward kernel: q, k, v (B, H, N, D) bf16 contiguous CUDA tensors.
 
-    Returns (o, lse): o (B, H, N, D) and the f32 log-sum-exp (B, H, N) of the
-    ``score_mode`` scores.  With ``out`` given, o is written there in the
-    (B, N, H*D) layout instead (the megablock's out-projection input; D a
-    multiple of 8) and ``out`` is returned as o."""
+    Returns (o, lse): o (B, H, N, D), contiguous, and the f32 log-sum-exp (B,
+    H, N) of the ``score_mode`` scores.  `dot` only: with ``out`` given, o is
+    written there in the (B, N, H*D) layout instead (the megablock's
+    out-projection input; D a multiple of 8) and ``out`` is returned as o."""
     _check_mode(score_mode)
+    if score_mode != "dot":
+        _check_l2_width("flash_forward", q)
+        if out is not None:
+            raise ValueError(f"flash_forward: out= (the (B, N, H*D) layout) is the `dot` "
+                             f"forward's; the {score_mode!r} kernel writes (B, H, N, D)")
     _check_kernel_inputs("flash_forward", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel takes contiguous q/k/v")
     b, h, n, d = q.shape
-    if out is None:
+    grid = 0
+    if score_mode != "dot":
+        grid = l2_grid(n, d, b * h, _sm_count(q.device.index or 0))
+        o = torch.empty_like(q)
+    elif out is None:
         q, k, v = _pad_head(q, k, v)
         o = torch.empty_like(q)
     else:
@@ -187,9 +206,9 @@ def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
     fn = build.entry("flash_attn_fwd")
     build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o), build.ptr(lse),
                        b * h, n, q.shape[-1], h, 1.0 / math.sqrt(scale), int(out is not None),
-                       MODE_ID[score_mode], build.stream_ptr(q.device)))
+                       MODE_ID[score_mode], grid, build.stream_ptr(q.device)))
     build.LAUNCHES[launch_key("flash_attn_fwd", score_mode)] += 1
-    return (o if out is not None else o[..., :d]), lse
+    return (o if out is not None or o.shape[-1] == d else o[..., :d]), lse
 
 
 # --- backward --------------------------------------------------------------
@@ -287,11 +306,15 @@ def flash_bwd_fused_reference(q, k, v, o, lse, do, scale: float, delta=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode, pad: bool = True):
-    """Checked, contiguous, aligned kernel inputs, head-padded to a multiple of
-    8 when ``pad``.  delta = rowsum(dO * O) (B, H, N) f32 unless given (the
-    megablock backward forms it in its own kernel; o may then be None)."""
+def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode):
+    """Checked, contiguous, aligned kernel inputs: `dot` head-padded to a
+    multiple of 8; `l2` where it lies, which its kernels take at a width that
+    is a multiple of 4 (8-byte rows).  delta = rowsum(dO * O) (B, H, N) f32
+    unless given (the megablock backward forms it in its own kernel; o may
+    then be None)."""
     _check_mode(score_mode, backward=True)
+    if score_mode == "l2":
+        _check_l2_width(what, q)
     _check_kernel_inputs(what, q, k, v, do, *(() if o is None else (o,)))
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"{what}: lse must be f32 {tuple(q.shape[:3])}")
@@ -300,35 +323,56 @@ def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode, pad: bool = True):
     elif delta.shape != q.shape[:3] or delta.dtype != torch.float32:
         raise ValueError(f"{what}: delta must be f32 {tuple(q.shape[:3])}")
     ts = (t.contiguous() for t in (q, k, v, do))
-    q, k, v, do = (build.aligned16(t) for t in (_pad_head(*ts) if pad else ts))
+    q, k, v, do = (build.aligned16(t) for t in (_pad_head(*ts) if score_mode == "dot" else ts))
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
-# The `l2` two-pass kernels (csrc/flash_l2_bwd.cuh): persistent blocks, one an
-# SM (each takes ~200 KB of shared memory), walking units of one (batch*head,
-# resident rows) each.
-L2_BWD_BLOCKS_PER_SM = 1
+# The `l2`/`l2ref` kernels (csrc/flash_l2.cuh: the forward, the single pass,
+# dq and dk/dv): persistent blocks, one an SM (each takes ~200 KB of shared
+# memory), walking units of one (batch*head, resident rows) each.
+L2_BLOCKS_PER_SM = 1
+L2_TILE = 64  # rows of a streamed tile
+L2_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
 
-def l2_bwd_unit_rows(d: int) -> int:
-    """Resident rows of a unit of the `l2` two-pass kernels at head width d:
-    64 where the head pads past one 64-column box (the two consumer
-    warpgroups split the columns), else 128 (they split the rows)."""
+def l2_unit_rows(d: int) -> int:
+    """Resident rows of a unit of the `l2` kernels at head width d: 64 where
+    the head pads past one 64-column box (the two consumer warpgroups split
+    the columns), else 128 (they split the rows)."""
     return 64 if _ceil_to(d, 16) > 64 else 128
 
 
-def l2_bwd_grid(n: int, d: int, batch_heads: int, sms: int) -> int:
-    """The `l2` two-pass kernels' grid: min(units, SMs x blocks an SM)."""
-    units = batch_heads * -(-n // l2_bwd_unit_rows(d))
-    return min(units, sms * L2_BWD_BLOCKS_PER_SM)
+def l2_grid(n: int, d: int, batch_heads: int, sms: int) -> int:
+    """The `l2` kernels' grid: min(units, SMs x blocks an SM)."""
+    units = batch_heads * -(-n // l2_unit_rows(d))
+    return min(units, sms * L2_BLOCKS_PER_SM)
 
 
-def l2_bwd_units(block: int, grid: int, n: int, d: int, batch_heads: int) -> list:
-    """The units block ``block`` of ``grid`` walks, in its order: unit u =
-    blockIdx.x, + gridDim.x, ..., as (batch*head, first resident row)."""
-    rows = l2_bwd_unit_rows(d)
+def l2_ticketed(entry: str, n: int) -> bool:
+    """Whether ``entry``'s blocks take their units in the order of an atomic
+    ticket (the single pass past one 64-key tile, whose units add dQ in
+    key-block order and so wait on one another) rather than walking
+    blockIdx.x, + gridDim.x, ..."""
+    return entry == "flash_attn_bwd_fused" and n > L2_TILE
+
+
+def l2_units(entry: str, n: int, d: int, batch_heads: int, grid: int, order=None) -> list:
+    """The units each block of ``entry``'s grid takes, in its order: a list a
+    block of (batch*head, first resident row).  Unit u is (u // per, u % per
+    * rows), per = ceil(n / rows).  Static walk: block b takes units b, b +
+    grid, ...  Ticket (:func:`l2_ticketed`): the units in ticket order, each to
+    the block that asks first, modelled as the blocks asking in turn in
+    ``order`` (a permutation of the grid; default blockIdx order)."""
+    rows = l2_unit_rows(d)
     per = -(-n // rows)
-    return [(u // per, u % per * rows) for u in range(block, batch_heads * per, grid)]
+    units = [(u // per, u % per * rows) for u in range(batch_heads * per)]
+    if not l2_ticketed(entry, n):
+        return [units[blk::grid] for blk in range(grid)]
+    order = list(range(grid)) if order is None else list(order)
+    walked = [[] for _ in range(grid)]
+    for ticket, unit in enumerate(units):
+        walked[order[ticket % grid]].append(unit)
+    return walked
 
 
 @functools.lru_cache(maxsize=None)
@@ -340,7 +384,7 @@ def _bwd_launch(entry: str, ts, outs, scale: float, score_mode: str) -> None:
     """Launch a two-pass entry on kernel inputs ``ts`` (q, k, v, dO, lse,
     delta) into ``outs``; `l2` passes its persistent grid."""
     b, h, n, d = ts[0].shape
-    grid = (l2_bwd_grid(n, d, b * h, _sm_count(ts[0].device.index or 0))
+    grid = (l2_grid(n, d, b * h, _sm_count(ts[0].device.index or 0))
             if score_mode == "l2" else 0)
     fn = build.entry(entry)
     build.check(fn, fn(*(build.ptr(t) for t in (*ts, *outs)), b * h, n, d,
@@ -349,21 +393,11 @@ def _bwd_launch(entry: str, ts, outs, scale: float, score_mode: str) -> None:
     build.LAUNCHES[launch_key(entry, score_mode)] += 1
 
 
-def _two_pass_args(q, k, v, o, lse, do, what, delta, score_mode):
-    """The two-pass wrappers' inputs: `dot` head-padded to a multiple of 8;
-    `l2` where it lies, which its kernels take at a width that is a multiple
-    of 4 (8-byte rows)."""
-    if score_mode == "l2" and q.shape[-1] % 4:
-        raise ValueError(f"{what}: the `l2` kernels take a head width that is a multiple of 4, "
-                         f"got {q.shape[-1]}; other widths are ROADMAP.md queue 1 item 7")
-    return _bwd_args(q, k, v, o, lse, do, what, delta, score_mode, pad=score_mode != "l2")
-
-
 def flash_backward_dq(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
     """Launch csrc/flash_attn_bwd_dq.cu; returns dq (B, H, N, D) bf16,
     contiguous."""
     d = q.shape[-1]
-    ts = _two_pass_args(q, k, v, o, lse, do, "flash_backward_dq", delta, score_mode)
+    ts = _bwd_args(q, k, v, o, lse, do, "flash_backward_dq", delta, score_mode)
     dq = torch.empty_like(ts[0])
     _bwd_launch("flash_attn_bwd_dq", ts, (dq,), scale, score_mode)
     return dq if dq.shape[-1] == d else dq[..., :d]
@@ -373,15 +407,15 @@ def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None, score_mode
     """Launch csrc/flash_attn_bwd_dkv.cu; returns (dk, dv) bf16, contiguous at
     `l2`."""
     d = q.shape[-1]
-    ts = _two_pass_args(q, k, v, o, lse, do, "flash_backward_dkv", delta, score_mode)
+    ts = _bwd_args(q, k, v, o, lse, do, "flash_backward_dkv", delta, score_mode)
     dk, dv = torch.empty_like(ts[1]), torch.empty_like(ts[2])
     _bwd_launch("flash_attn_bwd_dkv", ts, (dk, dv), scale, score_mode)
     return (dk, dv) if dk.shape[-1] == d else (dk[..., :d], dv[..., :d])
 
 
-# The single pass's blocks (csrc/flash_attn_bwd.cuh): keys per block and
-# heads per group of the grid's order in each score mode; every block streams
-# all queries, 64 a tile.
+# The single pass's key blocks (`dot`: csrc/flash_attn_bwd.cuh; `l2`:
+# csrc/flash_l2_bwd.cuh): keys a block and heads a group of the order in each
+# score mode; every block streams all queries, 64 a tile.
 FUSED_BLOCK_KEYS = {"dot": 128, "l2": 64}
 FUSED_GROUP_HEADS = {"dot": 32, "l2": 1}
 FUSED_TILE_QUERIES = 64
@@ -393,7 +427,10 @@ class FusedSchedule:
 
     The grid's linear order runs in groups of ``group_heads`` heads, k-block
     slowest within a group (:meth:`index`; one head a group is k-block
-    fastest).  Each block streams q_tiles 64-query tiles.  Block (kb, head)
+    fastest).  Each block streams q_tiles 64-query tiles.  The `l2` kernel's
+    persistent blocks take units of ``unit_blocks`` consecutive key blocks of
+    a head (its two warpgroups' keys at Dh <= 64, which add in warpgroup
+    order) by the ticket; `dot`'s blocks are one key block each.  Block (kb, head)
     adds its dQ of tile qt once the flag of (head, qt) reads kb, then sets
     it to kb + 1: the k-blocks of a head add every tile in key-block order,
     so each dQ element is summed in one fixed order.  A block waits only on
@@ -411,6 +448,7 @@ class FusedSchedule:
     q_tiles: int
     batch_heads: int
     group_heads: int = 1
+    unit_blocks: int = 1
 
     @property
     def ticket(self) -> Optional[int]:
@@ -448,36 +486,41 @@ class FusedSchedule:
         return None if kb == 0 else self.index(kb - 1, head)
 
 
-def fused_dq_schedule(n: int, batch_heads: int, score_mode: str = "dot") -> FusedSchedule:
-    """:class:`FusedSchedule` of the single pass at N tokens."""
-    return FusedSchedule(-(-n // FUSED_BLOCK_KEYS[score_mode]), -(-n // FUSED_TILE_QUERIES),
-                         batch_heads, FUSED_GROUP_HEADS[score_mode])
+def fused_dq_schedule(n: int, batch_heads: int, score_mode: str = "dot",
+                      d: int = 64) -> FusedSchedule:
+    """:class:`FusedSchedule` of the single pass at N tokens and head width d
+    (`l2`: its units of :func:`l2_unit_rows` keys)."""
+    keys = FUSED_BLOCK_KEYS[score_mode]
+    unit = l2_unit_rows(d) // keys if score_mode == "l2" else 1
+    return FusedSchedule(-(-n // keys), -(-n // FUSED_TILE_QUERIES), batch_heads,
+                         FUSED_GROUP_HEADS[score_mode], unit)
 
 
 def flash_backward_fused(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_fused.cu; returns (dq, dk, dv) bf16.  The
-    k-blocks of a head add dq (and for `l2` the rows' sums of dS) in
-    key-block order (:func:`fused_dq_schedule`), so dq is bit-deterministic
-    as dk and dv are: `dot`'s last k-block finishes and casts dq itself,
-    `l2`'s second kernel does."""
+    """Launch csrc/flash_attn_bwd_fused.cu; returns (dq, dk, dv) bf16,
+    contiguous at `l2`.  Past one key block the key blocks of a head add dq
+    in key-block order (:func:`fused_dq_schedule`) and the last one finishes
+    and casts it, so dq is bit-deterministic as dk and dv are; `l2` at N <=
+    64 finishes dq in one block a head, with no scratch."""
     d = q.shape[-1]
     q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_fused", delta,
                                         score_mode)
     b, h, n, dp = q.shape
-    plan = fused_dq_schedule(n, b * h, score_mode)
+    plan = fused_dq_schedule(n, b * h, score_mode, dp)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    sums = plan.k_blocks > 1 or score_mode == "l2"
-    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device) if sums else None
-    rs_acc = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-              if score_mode == "l2" else None)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if plan.k_blocks > 1 else None)
     flags = torch.empty(plan.flags, dtype=torch.int32, device=q.device)
+    grid = (l2_grid(n, dp, b * h, _sm_count(q.device.index or 0))
+            if score_mode == "l2" else 0)
     fn = build.entry("flash_attn_bwd_fused")
     build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do), build.ptr(lse),
                        build.ptr(delta), build.ptr(dq), build.ptr(dk), build.ptr(dv),
-                       build.ptr(dq_acc), build.ptr(rs_acc), build.ptr(flags), b * h, n, dp,
-                       1.0 / math.sqrt(scale), MODE_ID[score_mode], build.stream_ptr(q.device)))
+                       build.ptr(dq_acc), build.ptr(flags), b * h, n, dp,
+                       1.0 / math.sqrt(scale), MODE_ID[score_mode], grid,
+                       build.stream_ptr(q.device)))
     build.LAUNCHES[launch_key("flash_attn_bwd_fused", score_mode)] += 1
-    return dq[..., :d], dk[..., :d], dv[..., :d]
+    return (dq, dk, dv) if dp == d else (dq[..., :d], dk[..., :d], dv[..., :d])
 
 
 def flash_backward(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):

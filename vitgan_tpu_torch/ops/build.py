@@ -31,20 +31,20 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # C signature of each entry point.  An entry lives in the library of the same
 # name unless SOURCE names another.
 SIGNATURES = {
-    # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, mode, stream
-    # (mode: 0 dot, 1 l2, 2 l2ref; the backward entries take 0 or 1)
-    "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # q, k, v, o, lse, bh, n, d, heads, inv_scale, out_bnhd, mode, grid, stream
+    # (mode: 0 dot, 1 l2, 2 l2ref; the backward entries take 0 or 1; grid: the
+    # `l2` kernels' persistent blocks, ops/attention.l2_grid)
+    "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # a, ln_s, ln_b, w1, b1, h, z1, m, e, hidden, eps, stream
     "ln_mlp_fc1": [_P] * 7 + [_I] * 3 + [_F, _P],
     # a, w, bias, res, seed, out, mask, m, k, n, mask_id, threshold, inv_keep, stream
     "ln_mlp_linear": [_P] * 7 + [_I] * 4 + [_U, _F, _P],
     # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
     "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, rs_acc, dq_order, bh, n, d,
-    # inv_scale, mode, stream
-    "flash_attn_bwd_fused": [_P] * 12 + [_I] * 3 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, dq_order, bh, n, d,
+    # inv_scale, mode, grid, stream
+    "flash_attn_bwd_fused": [_P] * 11 + [_I] * 3 + [_F, _I, _I, _P],
     # q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, mode, grid, stream
-    # (grid: the `l2` kernel's persistent blocks, ops/attention.l2_bwd_grid)
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale, mode, grid, stream
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P],

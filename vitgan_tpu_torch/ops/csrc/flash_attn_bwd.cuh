@@ -1,32 +1,20 @@
-// Flash-attention backward, `dot` and `l2` scores, for Hopper (sm_90a): the
-// `dot` k-block kernel shared by csrc/flash_attn_bwd_dkv.cu (FUSED = false)
-// and csrc/flash_attn_bwd_fused.cu (FUSED = true), and the `l2` single pass
-// of csrc/flash_attn_bwd_fused.cu.  csrc/flash_attn_bwd_dq.cu has the `dot`
-// q-block kernel; csrc/flash_l2_bwd.cuh the `l2` two-pass kernels (dq and
-// dk/dv).  Replaces the TPU kernels `_flash_bwd_dkv_kernel(_dma)`
+// Flash-attention backward, `dot` scores, for Hopper (sm_90a): the `dot`
+// k-block kernel shared by csrc/flash_attn_bwd_dkv.cu (FUSED = false) and
+// csrc/flash_attn_bwd_fused.cu (FUSED = true).  csrc/flash_attn_bwd_dq.cu has
+// the `dot` q-block kernel; csrc/flash_l2_bwd.cuh the `l2` kernels (the
+// single pass, dq and dk/dv) on the persistent skeleton of flash_l2.cuh.
+// Replaces the TPU kernels `_flash_bwd_dkv_kernel(_dma)`
 // (vitgan_tpu/ops/attention.py:434-504, pallas_call at :727) and
-// `_flash_bwd_fused_kernel` (:507-590, pallas_call at :606); the two entries'
-// head notes give the bound on this card and what ptxas -v reports.
+// `_flash_bwd_fused_kernel` (:507-590, pallas_call at :606) in the `dot` mode;
+// the two entries' head notes give the bound on this card and what ptxas -v
+// reports.
 //
 // With the forward's natural-log LSE and delta = rowsum(dO * O):
-//   P  = exp(S - lse),  S = inv_scale * Q K^T (`dot`) or -inv_scale * d2 (`l2`,
-//        d2 = max(|q|^2 + |k|^2 - 2 Q K^T, 0))
+//   P  = exp(S - lse),  S = inv_scale * Q K^T
 //   dV = P^T dO,  dS = P * (dO V^T - delta)
-//   dot: dK = inv_scale * dS^T Q,  dQ = inv_scale * dS K
-//   l2:  dK = 2 inv_scale (dS^T Q - colsum(dS) k),
-//        dQ = 2 inv_scale (dS K - rowsum(dS) q)   (attention.py:290-292)
+//   dK = inv_scale * dS^T Q,  dQ = inv_scale * dS K
 // P and dS are cast to bf16 before their products and every product
-// accumulates in f32, as the TPU kernels do (attention.py:392-422); the sums
-// of dS add the f32 values, as there.
-//
-// Which design serves which mode, and why.  `dot` (the highres128 and
-// v1-generator path: 128-key blocks over long sequences) runs the wgmma
-// kernel below (namespace wg) on both routes.  The `l2` two-pass route (the
-// v1 discriminator under bwd_fusion=auto: 50 tokens, Dh 108) runs the
-// persistent wgmma kernels of flash_l2_bwd.cuh, one block an SM walking many
-// heads.  The `l2` single pass (bwd_fusion=fused only) still runs the first
-// design's mma.sync kernel, flash_bwd_kv_kernel, which carries the `l2`
-// terms; it is next to move onto flash_l2_bwd.cuh's skeleton.
+// accumulates in f32, as the TPU kernels do (attention.py:392-422).
 //
 // The `dot` k-block kernel (flash_bwd_kv_wgmma_kernel<DP, FUSED>).  One block
 // of 384 threads owns 128 keys of one (batch*head).  Warpgroup 0 produces:
@@ -86,30 +74,13 @@
 // additions is the key-block order whatever the tickets, so dQ stays
 // bit-deterministic.
 //
-// What held the mma.sync design back, and what this does about it: 64 keys a
-// block on 4 warps, each reading every streamed Q and dO tile from shared
-// memory by ldmatrix for 16 keys (now 128 keys on two warpgroups, operands
-// read by wgmma's descriptors); a two-stage cp.async ring behind one block
-// barrier a tile (now TMA on mbarriers, the producer apart); dQ by float2
-// atomics of every warp, 16 keys deep (now 128 keys deep, four floats a
-// RED: half the additions).
-//
-// The `l2` single pass (flash_bwd_kv_kernel<DP, kL2>).  One block of 4 warps
-// owns 64 keys, on the ticket's one-dimensional order with k-block fastest;
-// each warp owns 16 keys, whose K and V fragments stay in registers with the
-// f32 dK and dV accumulators, its keys' |k|^2 and the lane's part of
-// colsum(dS).  Q, dO and the rows' LSE and delta stream through a two-stage
-// cp.async ring, 64 queries a tile, one barrier a tile; mma.sync m16n8k16
-// with ldmatrix operands; |q|^2 of each streamed Q tile is formed from its
-// shared-memory copy behind a second barrier; the epilogue reads k back from
-// the resident K tile.  Each tile's dS goes to shared memory, the four warps
-// form dS K for 16 queries each and add it into the f32 buffer with float2
-// atomics; the four warps' sums of their 16 keys' f32 dS per query are added
-// in warp order into one f32 per row (the rowsum the TPU kernel keeps in
-// VMEM, attention.py:571-574), and the second pass applies the `l2` finish.
-// The k-blocks add in key-block order on the same flags as the `dot` kernel
-// (thread 0 waits and releases, the block's barriers order the adds), so the
-// `l2` dQ is bit-deterministic too.
+// What held the first (mma.sync) design back, and what this does about it: 64
+// keys a block on 4 warps, each reading every streamed Q and dO tile from
+// shared memory by ldmatrix for 16 keys (now 128 keys on two warpgroups,
+// operands read by wgmma's descriptors); a two-stage cp.async ring behind one
+// block barrier a tile (now TMA on mbarriers, the producer apart); dQ by
+// float2 atomics of every warp, 16 keys deep (now 128 keys deep, four floats
+// a RED: half the additions).
 #pragma once
 
 #include "hopper.cuh"
@@ -117,21 +88,7 @@
 namespace vk {
 namespace bwd {
 
-constexpr int BK = 64;    // keys per block (k-block kernel) / per tile (q-block kernel)
-constexpr int BQ = 64;    // queries per tile (k-block kernel) / per block (q-block kernel)
-constexpr int NWARP = 4;  // 16 rows per warp
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Rows [q0, q0 + BQ) of lse (in log2 units, +inf past n) and delta (0 past n)
-// into shared memory: lse2[0..BQ), delta at lse2 + BQ.
-__device__ inline void load_rows(float* lse2, const float* __restrict__ lse,
-                                 const float* __restrict__ delta, int q0, int n) {
-  for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-    const int r = q0 + i;
-    lse2[i] = r < n ? lse[r] * LOG2E : INFINITY;
-    lse2[BQ + i] = r < n ? delta[r] : 0.f;
-  }
-}
 
 // The single pass's block order (the head note): thread 0 stores into *index
 // the block's linear index, its ticket atomicAdd(ticket, 1) where a head has
@@ -139,269 +96,6 @@ __device__ inline void load_rows(float* lse2, const float* __restrict__ lse,
 // before reading it.
 __device__ inline void take_ticket(int* index, uint32_t* ticket, int nkb) {
   if (threadIdx.x == 0) *index = nkb > 1 ? (int)atomicAdd(ticket, 1u) : (int)blockIdx.x;
-}
-
-template <int DP>
-constexpr size_t kv_smem_bytes() {
-  return (size_t)(2 * BK + 4 * BQ) * (DP + 8) * 2 + (size_t)BQ * (BK + 8) * 2 +
-         4 * BQ * sizeof(float) + 5 * BQ * sizeof(float);
-}
-
-template <int DP, int MODE>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_acc,
-                    float* __restrict__ rs_acc, uint32_t* __restrict__ dq_order, int n, int d,
-                    float scale_log2, float inv_scale) {
-  static_assert(MODE == kL2, "the `dot` single pass runs the wgmma kernel (namespace wg)");
-  constexpr int LD = DP + 8;
-  constexpr int LDS = BK + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int order_index;
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + BK * LD;
-  bf16* qs = vs + BK * LD;        // stage s at qs + s * BQ * LD
-  bf16* dos = qs + 2 * BQ * LD;   // stage s at dos + s * BQ * LD
-  bf16* dss = dos + 2 * BQ * LD;  // dS of the tile, [query][key]
-  float* rows = reinterpret_cast<float*>(dss + BQ * LDS);  // stage s at + 2*BQ*s
-  float* qq_s = rows + 4 * BQ;  // |q|^2 of the current Q tile
-  float* rsw = qq_s + BQ;       // each warp's rowsum(dS) of the tile, [warp][query]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nkb = (n + BK - 1) / BK, ntiles = (n + BQ - 1) / BQ;
-  // the ticket (the head note), one k-block fastest
-  take_ticket(&order_index, dq_order + (long)(gridDim.x / nkb) * ntiles, nkb);
-  __syncthreads();
-  const int kb = order_index % nkb, k0 = kb * BK;
-  const long bh = order_index / nkb;
-  const long base = bh * (long)n * d;
-  const bf16* qb = q + base;
-  const bf16* dob = dout + base;
-  const float* lseb = lse + bh * n;
-  const float* deltab = delta + bh * n;
-
-  cp_tile(ks, LD, k + base, d, k0, 0, BK, DP, n, d);
-  cp_tile(vs, LD, v + base, d, k0, 0, BK, DP, n, d);
-  cp_tile(qs, LD, qb, d, 0, 0, BQ, DP, n, d);
-  cp_tile(dos, LD, dob, d, 0, 0, BQ, DP, n, d);
-  cp_async_commit();
-  load_rows(rows, lseb, deltab, 0, n);
-
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  float ksq[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};  // |k|^2 and this lane's part of colsum(dS)
-
-  for (int qt = 0; qt < ntiles; ++qt) {
-    const int cur = qt & 1;
-    // One barrier a tile: after it tile qt has landed and every warp is done
-    // with tile qt - 1 (and its dS), whose stage takes tile qt + 1.
-    cp_async_wait<0>();
-    __syncthreads();
-    if (qt + 1 < ntiles) {
-      cp_tile(qs + (cur ^ 1) * BQ * LD, LD, qb, d, (qt + 1) * BQ, 0, BQ, DP, n, d);
-      cp_tile(dos + (cur ^ 1) * BQ * LD, LD, dob, d, (qt + 1) * BQ, 0, BQ, DP, n, d);
-      load_rows(rows + (cur ^ 1) * 2 * BQ, lseb, deltab, (qt + 1) * BQ, n);
-    }
-    cp_async_commit();
-    if (qt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        load_a(kf[kk], ks, LD, warp * 16, kk * 16);
-        load_a(vf[kk], vs, LD, warp * 16, kk * 16);
-      }
-      frag_row_sq_norms<DP>(ksq, ks, LD, warp * 16);
-    }
-    const bf16* q_s = qs + cur * BQ * LD;
-    const bf16* do_s = dos + cur * BQ * LD;
-    const float* lse2 = rows + cur * 2 * BQ;
-    const float* dl = lse2 + BQ;
-    row_sq_norms<DP>(qq_s, q_s, LD, BQ);
-    __syncthreads();
-
-    // S^T = K Q^T: 16 keys x 64 queries per warp.
-    float s[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BQ / 8; j += 2) {
-        uint32_t b[4];
-        load_b_nk(b, q_s, LD, kk * 16, j * 8);
-        mma16816(s[j], kf[kk], b[0], b[1]);
-        mma16816(s[j + 1], kf[kk], b[2], b[3]);
-      }
-    }
-    // P^T: this lane holds keys g (e = 0, 1) and g+8 (e = 2, 3) of the warp,
-    // queries 8j + 2t + (e & 1) of the tile.
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + g + 8 * (e >> 1);
-        const int col = j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < n ? exp2f(score_log2<kL2>(s[j][e], qq_s[col], ksq[e >> 1], scale_log2) -
-                                  lse2[col])
-                          : 0.f;
-      }
-    }
-    // dV += P^T dO.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DP / 8; j += 2) {
-        uint32_t b[4];
-        load_b_kn(b, do_s, LD, kk * 16, j * 8);
-        mma16816(dv_acc[j], a, b[0], b[1]);
-        mma16816(dv_acc[j + 1], a, b[2], b[3]);
-      }
-    }
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) in place.
-    float ds[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BQ / 8; j += 2) {
-        uint32_t b[4];
-        load_b_nk(b, do_s, LD, kk * 16, j * 8);
-        mma16816(ds[j], vf[kk], b[0], b[1]);
-        mma16816(ds[j + 1], vf[kk], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[j][e] = s[j][e] * (ds[j][e] - dl[j * 8 + 2 * t + (e & 1)]);
-        cs[e >> 1] += ds[j][e];
-      }
-    // dK += dS^T Q.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-                             pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-                             pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-                             pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DP / 8; j += 2) {
-        uint32_t b[4];
-        load_b_kn(b, q_s, LD, kk * 16, j * 8);
-        mma16816(dk_acc[j], a, b[0], b[1]);
-        mma16816(dk_acc[j + 1], a, b[2], b[3]);
-      }
-    }
-    {
-      // rowsum(dS) over the warp's 16 keys for each query of the tile: the
-      // lane's two keys, then the eight lanes g of each query column; lanes
-      // 0-3 hold the sums for queries 8j + 2t + c, kept in rsw for the
-      // fixed-order sum of the four warps below.
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float r = ds[j][c] + ds[j][2 + c];
-          r += __shfl_xor_sync(0xffffffffu, r, 4);
-          r += __shfl_xor_sync(0xffffffffu, r, 8);
-          r += __shfl_xor_sync(0xffffffffu, r, 16);
-          if (g == 0) rsw[warp * BQ + j * 8 + 2 * t + c] = r;
-        }
-      }
-    }
-    {
-      // dS of the tile into shared memory as [query][key] ...
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dss[(j * 8 + 2 * t + (e & 1)) * LDS + warp * 16 + g + 8 * (e >> 1)] =
-              __float2bfloat16(ds[j][e]);
-      __syncthreads();
-      // ... then dS K for queries 16 * warp .. 16 * warp + 15 of the tile,
-      // added into dq_acc.
-      float dq[DP / 8][4];
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, dss, LDS, warp * 16, kk * 16);
-#pragma unroll
-        for (int j = 0; j < DP / 8; j += 2) {
-          uint32_t b[4];
-          load_b_kn(b, ks, LD, kk * 16, j * 8);
-          mma16816(dq[j], a, b[0], b[1]);
-          mma16816(dq[j + 1], a, b[2], b[3]);
-        }
-      }
-      // k-block kb adds the tile after k-block kb - 1 (the head note)
-      uint32_t* flag = dq_order + bh * ((n + BQ - 1) / BQ) + qt;
-      if (kb > 0) {
-        if (threadIdx.x == 0)
-          while (hopper::ld_acquire_gpu(flag) < (uint32_t)kb) {
-          }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = qt * BQ + warp * 16 + g + 8 * h;
-        if (row >= n) continue;
-        float* dst = dq_acc + base + (long)row * d;
-#pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
-          const int col = j * 8 + 2 * t;
-          if (col < d)  // one 8-byte atomic for the lane's two columns (sm_90)
-            atomicAdd(reinterpret_cast<float2*>(dst + col),
-                      make_float2(dq[j][2 * h], dq[j][2 * h + 1]));
-        }
-      }
-      if (threadIdx.x < BQ && qt * BQ + (int)threadIdx.x < n) {
-        const int i = threadIdx.x;
-        atomicAdd(rs_acc + bh * n + qt * BQ + i,
-                  ((rsw[i] + rsw[BQ + i]) + rsw[2 * BQ + i]) + rsw[3 * BQ + i]);
-      }
-      if (kb < nkb - 1) {
-        __syncthreads();
-        if (threadIdx.x == 0) hopper::st_release_gpu(flag, kb + 1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    // the full colsum: the lane's group of four
-    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 1);
-    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 2);
-    const int lkey = warp * 16 + g + 8 * h;
-    const int key = k0 + lkey;
-    if (key >= n) continue;
-    bf16* dkr = dk + base + (long)key * d;
-    bf16* dvr = dv + base + (long)key * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = j * 8 + 2 * t;
-      if (col < d) {
-        const float2 kv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ks + lkey * LD + col));
-        *reinterpret_cast<uint32_t*>(dkr + col) =
-            pack_bf16(2.f * inv_scale * (dk_acc[j][2 * h] - cs[h] * kv.x),
-                      2.f * inv_scale * (dk_acc[j][2 * h + 1] - cs[h] * kv.y));
-        *reinterpret_cast<uint32_t*>(dvr + col) = pack_bf16(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
-      }
-    }
-  }
 }
 
 // --- the `dot` k-block kernel: wgmma, TMA and mbarrier rings -----------------

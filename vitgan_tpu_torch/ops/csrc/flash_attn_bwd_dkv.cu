@@ -30,7 +30,7 @@
 
 // q, k, v, dout: (bh, n, d) bf16, contiguous; `dot`: 16-byte aligned, d a
 // multiple of 8 and at most 128; `l2`: 8-byte aligned, d a multiple of 4 and
-// at most 128, `grid` the persistent blocks (ops/attention.l2_bwd_grid).  lse
+// at most 128, `grid` the persistent blocks (ops/attention.l2_grid).  lse
 // (natural log) and delta: (bh, n) f32.  dk, dv: (bh, n, d) bf16.  inv_scale
 // multiplies q.k (`dot`) or the distance; mode 0 `dot`, 1 `l2`.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -44,8 +44,8 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
       return vk::bwd::wg::dispatch<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr,
                                           nullptr, bh, n, d, inv_scale, s);
     case vk::kL2:
-      return vk::l2bwd::dispatch<true>(q, k, v, dout, lse, delta, dk, dv, bh, n, d, inv_scale,
-                                       grid, s);
+      return vk::l2::dispatch<vk::l2::kDkv>(q, k, v, dout, lse, delta, dk, dv, nullptr, nullptr,
+                                            nullptr, bh, n, d, inv_scale, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

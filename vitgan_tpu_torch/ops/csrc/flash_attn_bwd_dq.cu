@@ -281,7 +281,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
 
 // q, k, v, dout: (bh, n, d) bf16, contiguous; `dot`: 16-byte aligned, d a
 // multiple of 8 and at most 128; `l2`: 8-byte aligned, d a multiple of 4 and
-// at most 128, `grid` the persistent blocks (ops/attention.l2_bwd_grid).  lse
+// at most 128, `grid` the persistent blocks (ops/attention.l2_grid).  lse
 // (natural log) and delta: (bh, n) f32.  dq: (bh, n, d) bf16.  inv_scale
 // multiplies q.k (`dot`) or the distance; mode 0 `dot`, 1 `l2`.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -293,8 +293,8 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, co
       if (d % 8 != 0) return (int)cudaErrorInvalidValue;
       return wg::dispatch(q, k, v, dout, lse, delta, dq, bh, n, d, inv_scale, s);
     case kL2:
-      return l2bwd::dispatch<false>(q, k, v, dout, lse, delta, dq, nullptr, bh, n, d, inv_scale,
-                                    grid, s);
+      return l2::dispatch<l2::kDq>(q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr,
+                                   nullptr, bh, n, d, inv_scale, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,29 +1,30 @@
 // Flash-attention forward, `dot`, `l2` and `l2ref` scores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels `_flash_kernel` / `_flash_forward`
-// (vitgan_tpu/ops/attention.py:64-105, 232-278) and their K/V-streaming
-// variant `_flash_kernel_dma` (attention.py:108-169): here K/V always stream
-// through shared memory one tile at a time, at any length.
+// (vitgan_tpu/ops/attention.py:64-105, 232-278; pallas_call at :252) and
+// their K/V-streaming variant `_flash_kernel_dma` (attention.py:108-169;
+// pallas_call at :179): here K/V always stream through shared memory one
+// tile at a time, at any length.
 //
 // Computes, per (batch*head, query):  O = softmax(S) v  and LSE = m + log(l),
 // the f32 log-sum-exp of S the backward kernels will read (natural log, l
 // clamped at 1e-30 as attention.py:100-104), with the score mode a template
 // parameter (common.cuh): S = inv_scale q.k^T (`dot`), -inv_scale d2 (`l2`)
-// or inv_scale sqrt(d2 + 1e-12) (`l2ref`), d2 = max(|q|^2 + |k|^2 - 2
-// q.k^T, 0) formed on the f32 S accumulators.  In every design the online
-// softmax works on the S accumulators in registers, in f32 and in log2 units
-// (exp2 with log2(e) folded into the scale); keys past n are masked to -inf
-// explicitly; p is cast to bf16 before P.V, as attention.py:93 does, while
-// the row sums l add the f32 p, as there; rows past n are never stored.  The
-// head dimension is padded to a multiple of 16 in shared memory only (zeros),
-// never in device memory: no padding to 128 as on the TPU.  Dh must be a
-// multiple of 8 (16-byte rows): the wrapper (ops/attention.flash_forward)
-// zero-pads other widths, as the v1 discriminator's 108, to one (112) in
-// device memory and slices O back; zero columns change no score of any mode.
+// or inv_scale sqrt(d2 + 1e-12) (`l2ref`, attention.py:61), d2 = max(|q|^2 +
+// |k|^2 - 2 q.k^T, 0) formed on the f32 S accumulators.  In both designs the
+// online softmax works on the S accumulators in registers, in f32 and in log2
+// units (exp2 with log2(e) folded into the scale); keys past n are masked to
+// -inf explicitly; p is cast to bf16 before P.V, as attention.py:93 does,
+// while the row sums l add the f32 p, as there; rows past n are never stored.
+// The head dimension is padded to a multiple of 16 in shared memory only
+// (zeros), never in device memory.
 //
-// Two designs.  `dot` (the highres128 path and the v1 generator) runs the
-// wgmma kernel (namespace wg); `l2` and `l2ref` (the v1 discriminator at 50
-// tokens, host-bound) keep the mma.sync kernel below it.
+// Two designs.  `dot` (the highres128 path and the v1 generator: 64 heads of
+// 1,024 tokens, Dh 64) runs the TMA kernel (namespace wg); `l2` and `l2ref`
+// (the v1 discriminator: 1,024 heads of 50 tokens, Dh 108, whose 216-byte
+// rows no tensor map takes) run the persistent kernel on the skeleton of
+// flash_l2.cuh (namespace l2fwd), which reads and writes the rows where they
+// lie, at any Dh that is a multiple of 4.
 //
 // The `dot` kernel (wg::flash_attn_fwd_kernel<DP>).  One block of 384
 // threads owns 128 queries of one (batch*head).  Warp 0 of the producer
@@ -45,236 +46,352 @@
 // (bh, n, d) layout or, with out_bnhd, the (b, n, heads, d) layout the
 // megablock's out-projection reads.
 //
-// What held the mma.sync design back, and what this does about it: 8 warps
-// of 16 rows each reading every K and V tile from shared memory by ldmatrix
-// (now wgmma's descriptors), a two-stage cp.async ring behind one block
-// barrier a tile (now TMA on mbarriers, the producer apart), mma.sync at a
-// fraction of the tensor cores' wgmma rate.
-//
-// The `l2` kernel (flash_attn_fwd_kernel<DP, MODE>).  One block of 8 warps
-// per (128-query tile, batch*head); each warp owns 16 query rows.  The Q
-// fragments stay in registers; 64-key K/V tiles stream through a two-stage
-// cp.async ring, the next tile's copy in flight while the current one is
-// used.  S = Q K^T and O += P V run on mma.sync m16n8k16 with ldmatrix
-// operands.  |q|^2 of the warp's rows comes from the resident Q tile once;
-// |k|^2 of each streamed K tile from its shared-memory copy, into a 64-float
-// array, behind a second barrier.
+// The `l2`/`l2ref` kernel (l2fwd::flash_fwd_l2_kernel<DP, MODE>).  A unit is
+// (batch*head, R query rows); the producer lane bulk-copies the unit's Q rows
+// into the resident ring and each 64-key tile's K and V rows into the tile
+// ring, and bulk-stores the O rows the consumers staged in the unit's
+// resident entry (flash_l2.cuh).  The consumers load Q's mma fragments from
+// the entry into registers (the A operand of S = Q K^T) and |q|^2 from
+// them, re-lay each tile's K (K-major, for S) and V (MN-major, for O += P V
+// with P in bf16 from registers) into a swizzled pair and take |k|^2 from it:
+//   n <= 64 (the v1 discriminator): the two warpgroups take alternate units,
+//     each a whole head;
+//   n > 64 (ragged, 1,025 tokens): both take every unit and stream its tiles,
+//     each re-laying one of K and V; O stays in f32 registers across the
+//     tiles, rescaled by alpha between them (every product retires within its
+//     tile), each warpgroup 64 of the unit's 128 rows (Dh <= 64) or one
+//     column box of its 64 (Dh > 64: the warpgroups share S).
+// The epilogue scales O by 1/l, stages its bf16 rows < n, columns < d, and
+// writes the LSE, one thread a row.
 //
 // Bound on this card.  At the serving shape (64*6 heads, 1,024 tokens,
 // Dh 64) a launch does 4*384*1024^2*64 = 1.03e11 flops on 201 MB of
 // q/k/v/o: 0.10 ms of tensor-core time against 0.06 ms of HBM time, so the
 // tensor cores bound it; its 4.0e8 exponentials take the SFUs (16 a clock on
 // each SM) about 0.1 ms more, which the two warpgroups' overlap hides at
-// best.  At the v1 discriminator's `l2` shape (128*2*4 heads, 50 tokens,
-// Dh 108) a launch moves 44 MB of q/k/v/o for 1.1e9 flops: 0.013 ms of HBM
-// time against 0.001 ms of tensor-core time, so the bytes bound it there,
-// and a 128-query block holds 50 real rows.
+// best.  At the v1 discriminator's `l2` shape (256*4 heads, 50 tokens,
+// Dh 108) a launch moves 44 MB of q/k/v/o and LSE for 1.1e9 flops: 0.0133 ms
+// of HBM time against 0.001 ms of tensor-core time, so the bytes bound it.
 //
 // ptxas -v (sm_90a, CUDA 12.8): the `dot` kernel launches at 168 registers a
 // thread (the producer warpgroup drops to 40, the consumers take 232 by
 // setmaxnreg), no spills and no performance warning at any DP; dynamic
-// shared memory 148,552 bytes at DP <= 64, 164,936 at DP 80-128.  The
-// mma.sync kernel's `l2ref` instantiation spills 12 bytes at DP 64.
-#include "hopper.cuh"
+// shared memory 148,552 bytes at DP <= 64, 164,936 at DP 80-128.  The `l2`
+// kernel: PERF.md; chip_smoke.py fails on a spill or a performance warning
+// of it at DP 112 and 64.
+#include "flash_l2.cuh"
 
 using namespace vk;
 
 namespace {
 
-constexpr int BQ = 128;    // queries per block
-constexpr int BK = 64;     // keys per streamed tile
-constexpr int NWARP = 8;   // 16 query rows per warp
+// --- the `l2` / `l2ref` kernel: the persistent skeleton of flash_l2.cuh ------
 
-template <int DP, int MODE>
-constexpr size_t smem_bytes() {
-  // Q, two stages of K and V and |k|^2 of the current K tile
-  return (size_t)(BQ + 4 * BK) * (DP + 8) * 2 + BK * sizeof(float);
+namespace l2fwd {
+
+using namespace hopper;
+using namespace vk::l2;
+
+// Q rows resident, K and V rows a tile; O staged in Q's place.
+__host__ __device__ constexpr Entry fwd_entry() { return Entry{1, false, false}; }
+
+// S = Q K^T, 64 x 64: A the Q fragments in registers, B the tile's K boxes
+// (swizzled, K-major) at sw; one wgmma group, the accumulators zeroed first.
+template <int DP>
+__device__ __forceinline__ void qk(float (&sa)[32], const uint32_t (&a)[DP / 16][4],
+                                   const unsigned char* sw) {
+  using G = Geo<DP>;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) sa[k] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_rs<64, 0>(sa, a[kk], desc_sw128(sw + (kk >> 2) * G::SBOX + (kk & 3) * 32, 16, 1024));
+  wgmma_commit();
 }
 
-// Two blocks per SM where the registers allow it (Dh <= 64: at most 128 each).
-template <int DP, int MODE>
-__global__ void __launch_bounds__(NWARP * 32, DP <= 64 ? 2 : 1)
-flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int n, int d, int heads, float scale_log2,
-                      int out_bnhd) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * LD;       // stage s at ks + s * BK * LD
-  bf16* vs = ks + 2 * BK * LD;
-  float* kk_s = reinterpret_cast<float*>(vs + 2 * BK * LD);  // |k|^2 of the tile
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const long bh = blockIdx.y;
-  const long base = bh * (long)n * d;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-
-  cp_tile(qs, LD, q + base, d, q0, 0, BQ, DP, n, d);
-  cp_tile(ks, LD, kb, d, 0, 0, BK, DP, n, d);
-  cp_tile(vs, LD, vb, d, 0, 0, BK, DP, n, d);
-  cp_async_commit();
-
-  uint32_t qf[DP / 16][4];
-  float acc[DP / 8][4];
+// The online softmax of one tile in place over S: this thread's rows
+// lrow + 8 h (|q|^2 nr[h]) and keys 8 j + 2 t + (e & 1) (|k|^2 in nk); the
+// scores in log2 units, keys at or past `cols` -inf; m and l, the rows'
+// running max and this thread's part of their sums, updated, alpha[h] the
+// factor of the row's earlier O; S becomes p = exp2(s - m) (f32).
+template <int MODE>
+__device__ __forceinline__ void softmax(float (&sa)[32], const float (&nr)[2], const float* nk,
+                                        int cols, float scale_log2, float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2]) {
+  const int t = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_r[2] = {-1e30f, -1e30f};  // running max of rows g and g+8 (log2 units)
-  float l_r[2] = {0.f, 0.f};        // this lane's part of the running row sums
-  float qq[2] = {0.f, 0.f};         // |q|^2 of rows g and g+8
-
-  const int ntiles = (n + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int cur = kt & 1;
-    // One barrier a tile: after it tile kt (and Q) have landed and every warp
-    // is done with tile kt - 1, whose stage takes tile kt + 1.
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < ntiles) {
-      cp_tile(ks + (cur ^ 1) * BK * LD, LD, kb, d, (kt + 1) * BK, 0, BK, DP, n, d);
-      cp_tile(vs + (cur ^ 1) * BK * LD, LD, vb, d, (kt + 1) * BK, 0, BK, DP, n, d);
-    }
-    cp_async_commit();
-    if (kt == 0) {
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 nc = *reinterpret_cast<const float2*>(nk + col);
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) load_a(qf[kk], qs, LD, warp * 16, kk * 16);
-      frag_row_sq_norms<DP>(qq, qs, LD, warp * 16);
-    }
-    const bf16* kt_s = ks + cur * BK * LD;
-    const bf16* vt_s = vs + cur * BK * LD;
-    // every warp is past tile kt - 1's reads of kk_s (the barrier above)
-    row_sq_norms<DP>(kk_s, kt_s, LD, BK);
-    __syncthreads();
-
-    // S = Q K^T: 16 x 64 per warp, 8 n-tiles of 8 keys.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; j += 2) {
-        uint32_t b[4];
-        load_b_nk(b, kt_s, LD, kk * 16, j * 8);
-        mma16816(s[j], qf[kk], b[0], b[1]);
-        mma16816(s[j + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    // Online softmax on the accumulators: this lane holds rows g (e = 0, 1)
-    // and g+8 (e = 2, 3), keys kt*BK + 8j + 2t + (e & 1).
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const int key = kt * BK + col;
-        const float val =
-            key < n ? score_log2<MODE>(s[j][e], qq[e >> 1], kk_s[col], scale_log2) : -INFINITY;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_r[h], mx[h]);
-      alpha[h] = exp2f(m_r[h] - m_new);
-      m_r[h] = m_new;
-      l_r[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m_r[e >> 1]);
-        s[j][e] = p;
-        l_r[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are the A
-    // fragment of key step kk.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DP / 8; j += 2) {
-        uint32_t b[4];
-        load_b_kn(b, vt_s, LD, kk * 16, j * 8);
-        mma16816(acc[j], a, b[0], b[1]);
-        mma16816(acc[j + 1], a, b[2], b[3]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float s = col + (e & 1) < cols
+                          ? score_log2<MODE>(sa[4 * j + e], nr[h], (e & 1) ? nc.y : nc.x,
+                                             scale_log2)
+                          : -INFINITY;
+      sa[4 * j + e] = s;
+      mx[h] = fmaxf(mx[h], s);
     }
   }
-
-  // O / l and the LSE (natural log: lse = ln2 * m + ln l).
-  const long b = bh / heads, hh = bh % heads;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float l = l_r[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = fmaxf(l, 1e-30f);
-    const int row = q0 + warp * 16 + g + 8 * h;
-    if (row >= n) continue;
-    const float inv_l = 1.f / l;
-    bf16* orow = o + (out_bnhd ? ((b * n + row) * heads + hh) * (long)d : base + (long)row * d);
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = j * 8 + 2 * t;
-      if (col < d)
-        *reinterpret_cast<uint32_t*>(orow + col) =
-            pack_bf16(acc[j][2 * h] * inv_l, acc[j][2 * h + 1] * inv_l);
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(sa[4 * j + e] - m[e >> 1]);
+      sa[4 * j + e] = p;
+      l[e >> 1] += p;
     }
-    if (t == 0) lse[bh * n + row] = m_r[h] * 0.69314718055994531f + logf(l);
+}
+
+// 1/l of this thread's rows lrow + 8 h; the LSE (natural log: ln2 m + ln l)
+// of those below `rows` written at lse[row] by lane t == 0 where `write`.
+__device__ __forceinline__ void finish(const float (&m)[2], const float (&l)[2], int lrow,
+                                       int rows, bool write, float* lse, float (&il)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt = fmaxf(lt, 1e-30f);
+    il[h] = 1.f / lt;
+    if (write && (threadIdx.x & 3) == 0 && lrow + 8 * h < rows)
+      lse[lrow + 8 * h] = m[h] * 0.69314718055994531f + logf(lt);
   }
 }
 
+// O box b of this thread's rows (lane pairs trading halves: row orow,
+// columns 64 b + 8 j + 2 (t & 2) .. + 3), scaled by the row's 1/l, staged as
+// bf16 rows < rows, columns < d of the unit's resident entry at x.
+__device__ __forceinline__ void stage_box(const float (&acc)[32], int b, float il, int orow,
+                                          int rows, int d, unsigned char* x) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 64 * b + 8 * j + 2 * (t & 2);
+    const float4 v = row_quad(acc, j);
+    if (orow < rows && col < d)
+      *reinterpret_cast<uint2*>(x + orow * d * 2 + col * 2) =
+          make_uint2(pack_bf16(v.x * il, v.y * il), pack_bf16(v.z * il, v.w * il));
+  }
+}
+
+// Ping-pong consumers (n <= 64, a unit a head): warpgroup w takes the
+// block's units w, w + 2, ..., whole: it re-lays the unit's K and V into its
+// own swizzled pair, forms S and the softmax, then O, staged in place of the
+// unit's Q rows (read into registers by every thread of the warpgroup before
+// its first barrier).
 template <int DP, int MODE>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int n,
-           int d, int heads, float scale_log2, int out_bnhd, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP, MODE>();
-  cudaFuncSetAttribute(flash_attn_fwd_kernel<DP, MODE>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((n + BQ - 1) / BQ, bh);
-  flash_attn_fwd_kernel<DP, MODE><<<grid, NWARP * 32, smem, stream>>>(
+__device__ __forceinline__ void consume_units(const Shared<DP>& sh, int w, float* lse) {
+  using G = Geo<DP>;
+  constexpr int NB = G::NB;
+  const int n = sh.n, d = sh.d;
+  const int ct = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int wr = ct >> 5, g = lane >> 2, t = lane & 3;
+  const int lrow = 16 * wr + g;               // this thread's rows lrow, lrow + 8
+  const int orow = lrow + ((t & 1) ? 8 : 0);  // the row whose outputs this lane stages
+  unsigned char* sw = sh.swz + w * G::SWZ;    // K's boxes, then V's
+  float* nk = sh.trows + w * 3 * TILE + 2 * TILE;
+  for (int i = w;; i += 2) {
+    mbar_wait(sh.rfull(i % sh.g.rn), (i / sh.g.rn) & 1);
+    const int bh = sh.unit(i);
+    if (bh < 0) break;
+    const int off = sh.off(bh, 0);
+    unsigned char* xq = sh.rent(i) + off;
+    uint32_t qa[DP / 16][4];
+    load_frags<DP>(qa, xq, lrow, n, d);
+    float nr[2];
+    frag_norms(qa, nr);
+    mbar_wait(sh.tfull(i % sh.g.tn), (i / sh.g.tn) & 1);
+    const unsigned char* te = sh.tent(i);
+    // (this warpgroup's pair keeps its zero rows and columns after its first unit)
+    relayout<G::DPAD>(sw, G::SBOX, te + off, n, d, 2 * d, ct, i == w);
+    relayout<G::DPAD>(sw + NB * G::SBOX, G::SBOX, te + sh.g.ttensor + off, n, d, 2 * d, ct,
+                      i == w);
+    fence_proxy_async();  // the re-laid tile before the wgmmas read it
+    named_bar_sync(BAR_WG + w, 128);
+    if (ct == 0) mbar_arrive(sh.tfree(i % sh.g.tn));
+    float sa[32];
+    qk<DP>(sa, qa, sw);
+    {  // the tile's |k|^2, two threads a row, under the product
+      const float v = row_norm<DP, 2>(sw, G::SBOX, ct >> 1);
+      if ((ct & 1) == 0) nk[ct >> 1] = v;
+    }
+    named_bar_sync(BAR_WG + w, 128);
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_frags(qa);
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, alpha[2], il[2];
+    softmax<MODE>(sa, nr, nk, n, sh.scale_log2, m, l, alpha);
+    uint32_t pf[4][4];
+    pack_frags(pf, sa);
+    finish(m, l, lrow, n, true, lse + (long)bh * n, il);
+    // O = P V, every column box in one product: B the tile's V boxes,
+    // MN-major (the zeroed accumulators pinned ahead of the fence)
+    float acc[G::DPAD / 2];
+#pragma unroll
+    for (int k = 0; k < G::DPAD / 2; ++k) acc[k] = 0.f;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<G::DPAD, 1>(acc, pf[kk], desc_sw128(sw + NB * G::SBOX + kk * 2048, G::SBOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(pf);
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      stage_box(box_of<G::DPAD>(acc, b), b, (t & 1) ? il[1] : il[0], orow, n, d, xq);
+    fence_proxy_async();  // before the bulk stores read them
+    mbar_arrive(sh.rfree(i % sh.g.rn));
+  }
+}
+
+// Lockstep consumers (n > 64): both warpgroups take every unit of R query
+// rows and stream its tiles; warpgroup w re-lays tensor w of each tile (K,
+// V) into the shared swizzled pair (two pairs in turn), then takes rows
+// roff .. roff + 63 and column box cb of O (two boxes: the same rows, a box
+// each; one box: 64 rows each), O in f32 registers across the tiles.
+template <int DP, int MODE>
+__device__ __forceinline__ void consume_blocks(const Shared<DP>& sh, int w, float* lse) {
+  using G = Geo<DP>;
+  constexpr int NB = G::NB, R = G::R;
+  const int n = sh.n, d = sh.d;
+  const int ct = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int wr = ct >> 5, g = lane >> 2, t = lane & 3;
+  const int roff = NB == 1 ? 64 * w : 0, cb = NB == 1 ? 0 : w;
+  const int lrow = roff + 16 * wr + g;        // this thread's rows lrow, lrow + 8
+  const int orow = lrow + ((t & 1) ? 8 : 0);  // the row whose outputs this lane stages
+  int c = 0;
+  for (int i = 0;; ++i) {
+    mbar_wait(sh.rfull(i % sh.g.rn), (i / sh.g.rn) & 1);
+    const int u = sh.unit(i);
+    if (u < 0) break;
+    const int bh = u / sh.per, row0 = (u - bh * sh.per) * R;
+    const int rows_u = min(R, n - row0), off = sh.off(bh, row0);
+    unsigned char* xq = sh.rent(i) + off;
+    uint32_t qa[DP / 16][4];
+    load_frags<DP>(qa, xq, lrow, rows_u, d);
+    float nr[2];
+    frag_norms(qa, nr);
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, alpha[2], il[2];
+    float acc[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+    for (int tt = 0; tt < sh.ntiles; ++tt, ++c) {
+      const int rows_t = min(TILE, n - tt * TILE);
+      unsigned char* sw = sh.swz + (c & 1) * G::SWZ;
+      float* nk = sh.trows + (c & 1) * 3 * TILE + 2 * TILE;
+      mbar_wait(sh.tfull(c % sh.g.tn), (c / sh.g.tn) & 1);
+      const unsigned char* te = sh.tent(c);
+      const int toff = sh.off(bh, tt * TILE);
+      relayout<G::DPAD>(sw + w * NB * G::SBOX, G::SBOX, te + w * sh.g.ttensor + toff, rows_t, d,
+                        2 * d, ct, true);
+      fence_proxy_async();
+      named_bar_sync(BAR_PAIR, 256);
+      if (threadIdx.x == 0) mbar_arrive(sh.tfree(c % sh.g.tn));
+      float sa[32];
+      qk<DP>(sa, qa, sw);
+      {  // the tile's |k|^2, four threads a row, under the product
+        const float v = row_norm<DP>(sw, G::SBOX, threadIdx.x >> 2);
+        if ((threadIdx.x & 3) == 0) nk[threadIdx.x >> 2] = v;
+      }
+      named_bar_sync(BAR_PAIR2, 256);
+      wgmma_wait<0>();
+      fence_regs(sa);
+      softmax<MODE>(sa, nr, nk, rows_t, sh.scale_log2, m, l, alpha);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc[k] *= alpha[(k >> 1) & 1];
+      uint32_t pf[4][4];
+      pack_frags(pf, sa);
+      // O += P V: B the tile's V box cb, MN-major; retired within the tile
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<64, 1>(acc, pf[kk],
+                        desc_sw128(sw + (NB + cb) * G::SBOX + kk * 2048, G::SBOX, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pf);
+      fence_frags(qa);
+    }
+    // (both warpgroups hold the same rows' LSE with two boxes: warpgroup 0 writes it)
+    finish(m, l, lrow, rows_u, NB == 1 || w == 0, lse + (long)bh * n + row0, il);
+    stage_box(acc, cb, (t & 1) ? il[1] : il[0], orow, rows_u, d, xq);
+    fence_proxy_async();  // before the bulk stores read them
+    mbar_arrive(sh.rfree(i % sh.g.rn));
+  }
+}
+
+// q, k, v, o: (bh, n, d) bf16, 8-byte aligned, d a multiple of 4; lse: (bh,
+// n) f32.  A persistent grid of `grid` blocks (ops/attention.l2_grid).
+template <int DP, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_l2_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int bhs, int n, int d, float scale_log2) {
+  static_assert(MODE == kL2 || MODE == kL2Ref, "the persistent forward serves `l2` and `l2ref`");
+  const Shared<DP> sh = setup<DP>(bhs, n, d, fwd_entry(), 0, scale_log2, 0.f);
+  if (threadIdx.x >= 256) {  // producer: warp 3 of the producer warpgroup
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x < 352) return;
+    produce<DP>(sh, q, nullptr, k, v, nullptr, nullptr, o, nullptr, 1, nullptr);
+    return;
+  }
+  reg_alloc<CONSUMER_REGS>();
+  if (sh.pingpong)
+    consume_units<DP, MODE>(sh, threadIdx.x >> 7, lse);
+  else
+    consume_blocks<DP, MODE>(sh, threadIdx.x >> 7, lse);
+}
+
+template <int DP, int MODE>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int n, int d,
+           float scale_log2, int grid, cudaStream_t stream) {
+  const int smem = rings_of<DP>(n, d, fwd_entry(), 0).smem;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(flash_fwd_l2_kernel<DP, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  flash_fwd_l2_kernel<DP, MODE><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), n, d, heads, scale_log2, out_bnhd);
+      static_cast<bf16*>(o), static_cast<float*>(lse), bh, n, d, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int n,
-             int d, int heads, float sl, int out_bnhd, cudaStream_t s) {
+             int d, float sl, int grid, cudaStream_t s) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (d % 4 != 0 || d <= 0 || grid <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   switch ((d + 15) / 16) {
-    case 1: return launch<16, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 2: return launch<32, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 3: return launch<48, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 4: return launch<64, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 5: return launch<80, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 6: return launch<96, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 7: return launch<112, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case 8: return launch<128, MODE>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case 1: return launch<16, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 2: return launch<32, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 3: return launch<48, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 4: return launch<64, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 5: return launch<80, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 6: return launch<96, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 7: return launch<112, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case 8: return launch<128, MODE>(q, k, v, o, lse, bh, n, d, sl, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace l2fwd
 
 // --- the `dot` kernel: wgmma, TMA and mbarrier rings -----------------------
 
@@ -510,21 +627,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
 
 }  // namespace
 
-// q, k, v: (bh, n, d) bf16, contiguous, 16-byte aligned, d a multiple of 8 and
-// at most 128.  o: (bh, n, d) bf16, or with out_bnhd the (b, n, heads, d)
-// layout the out-projection reads as (b*n, heads*d).  lse: (bh, n) f32.
-// bh <= 65535.  inv_scale multiplies q.k (`dot`) or the distance; mode 0
-// `dot`, 1 `l2`, 2 `l2ref`.
+// q, k, v: (bh, n, d) bf16, contiguous.  `dot`: 16-byte aligned, d a multiple
+// of 8 and at most 128, bh <= 65535; o (bh, n, d) bf16 or, with out_bnhd, the
+// (b, n, heads, d) layout the out-projection reads as (b*n, heads*d).  `l2`,
+// `l2ref`: 8-byte aligned, d a multiple of 4 and at most 128, o (bh, n, d)
+// bf16 (no out_bnhd), `grid` the persistent blocks (ops/attention.l2_grid).
+// lse: (bh, n) f32.  inv_scale multiplies q.k (`dot`) or the distance; mode
+// 0 `dot`, 1 `l2`, 2 `l2ref`.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int bh, int n, int d, int heads, float inv_scale, int out_bnhd,
-                              int mode, void* stream) {
+                              int mode, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl = inv_scale * 1.4426950408889634f;  // log2(e)
-  if (d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (mode != kDot && out_bnhd) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case kDot: return wg::dispatch(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case kL2: return dispatch<kL2>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
-    case kL2Ref: return dispatch<kL2Ref>(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case kDot:
+      if (d % 8 != 0) return (int)cudaErrorInvalidValue;
+      return wg::dispatch(q, k, v, o, lse, bh, n, d, heads, sl, out_bnhd, s);
+    case kL2: return l2fwd::dispatch<kL2>(q, k, v, o, lse, bh, n, d, sl, grid, s);
+    case kL2Ref: return l2fwd::dispatch<kL2Ref>(q, k, v, o, lse, bh, n, d, sl, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,10 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
 // ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu,
-// flash_l2_bwd.cuh): mbarrier rings fed by TMA (tensor or 1-D bulk copies)
-// or by cp.async, TMA tensor and 1-D bulk stores, wgmma descriptors and
-// products, warpgroup fences, acquire/release flags, register hand-over and
-// the LayerNorm of a resident swizzled tile.
+// flash_l2.cuh and its `l2` kernels): mbarrier rings fed by TMA (tensor or
+// 1-D bulk copies) or by cp.async, TMA tensor and 1-D bulk stores, wgmma
+// descriptors and products, warpgroup fences, acquire/release flags, register
+// hand-over and the LayerNorm of a resident swizzled tile.
 //
 // Shared-memory tiles here are written by TMA with the 128-byte swizzle: a
 // box is `rows` rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored
