@@ -77,18 +77,22 @@
 10. Trains highres128 under the preset's default runtime (megablock=auto,
    megablock_bwd=saved) through Trainer (the entry point of `cli train`) on a
    256-sample synthetic dataset at batch 32 in bf16 with dropout 0.1 and
-   DiffAugment color,translation: 2 warm-up steps, then 5 timed steps by
-   Trainer.fit, whose kernel launches per step are asserted (TRAIN_KERNELS:
-   the megablock's training forward and saved backward in every block, no
-   LN->MLP).  The losses must be finite and the parameters must have moved;
-   torch.profiler splits 2 more steps' device time by kernel group.  The run
-   directory fit writes is restored by restore_run, answers one `cli
-   generate` and one HTTP request of the server `cli serve` starts.  Then
-   the same with runtime.megablock=off (flash forward 36, single-pass
-   backward 12, dq 24, dk/dv 24, LN->MLP 36 a step), whose breakdown adds
-   the LN->MLP recompute backward alone.
-11. Trains deit64 at full width under megablock=auto for 1 + 3 steps: the
-   megablock's training kernels at 256 and 257 tokens, E 192.
+   DiffAugment color,translation: 2 eager warm-up steps, 3 eager steps timed
+   (the eager step beside the captured one), a warm-up epoch of 5 steps (its
+   first step runs eagerly and is captured as a CUDA graph), then a timed
+   epoch of 5 captured steps by Trainer.fit, whose kernel launches per step
+   are asserted (TRAIN_KERNELS: the megablock's training forward and saved
+   backward in every block, no LN->MLP; counted at the capture and added per
+   replay) beside the epilogue's sample grid.  The losses must be finite and
+   the parameters must have moved; torch.profiler splits one captured call's
+   device time by kernel group.  The run directory fit writes is restored by
+   restore_run, answers one `cli generate` and one HTTP request of the
+   server `cli serve` starts.  Then the same with runtime.megablock=off
+   (flash forward 36, single-pass backward 12, dq 24, dk/dv 24, LN->MLP 36 a
+   step), whose breakdown adds the LN->MLP recompute backward alone.
+11. Trains deit64 at full width under megablock=auto, 1 eager step, a
+   warm-up epoch of 3 and 3 captured steps: the megablock's training kernels
+   at 256 and 257 tokens, E 192.
 12. Runs one train step at full width and batch 8, dropout 0, with the same
    state, batch, latents and augment draws, on the megablock=off kernel
    route, the megablock=auto route (twice) and use_pallas=never, and holds
@@ -110,15 +114,20 @@
    the `dot` forward and single-pass backward at the v1 generator's shape
    (128, 4, 32, 96), scale 384, with the same limits, the single pass
    bit-equal across two calls.
-14. Trains the v1 ViTGAN at the reference defaults (batch 128, latent 1,024,
-   G hidden 384 depth 4, D 50 tokens width 432 depth 4 with ISR) under
-   runtime.use_pallas=always through Trainer: 2 warm-up steps, 5 by fit,
-   the launches per step asserted (V1_KERNELS: every attention on a
-   kernel, `l2` forward and two-pass backward in D, no plain attention),
-   a profiled breakdown; restores the run directory, runs `cli generate`
-   and serves one HTTP request from it.  Then 1 + 3 steps with
+14. [train v1 captured]: trains the v1 ViTGAN at the reference defaults
+   (batch 128, latent 1,024, G hidden 384 depth 4, D 50 tokens width 432
+   depth 4 with ISR) under runtime.use_pallas=always through Trainer.fit on
+   the device-data route, 3,072 samples (24 steps an epoch): 2 eager warm-up
+   steps, 5 eager steps timed, a warm-up epoch (the capture), then a timed
+   epoch of 24 captured steps: ms/step beside the eager step's, img/s, peak
+   memory, the launches per step held to eager's (V1_KERNELS: every
+   attention on a kernel, `l2` forward and two-pass backward in D) with no
+   plain attention over the capture and the timed epoch, a profiled
+   breakdown of a captured call (device busy per step, idle share); restores
+   the run directory, runs `cli generate` and serves one HTTP request from
+   it.  Then a warm-up epoch and 3 captured steps with
    runtime.bwd_fusion=fused, whose D backward takes the `l2` single pass,
-   and a profiled breakdown of 2 more.
+   and a profiled breakdown of a captured call.
 15. Runs one v1 train step at batch 8, dropout 0, from the same state,
    batch and latents on use_pallas=always (both backward routes, bf16) and
    use_pallas=never (bf16 and f32): losses, gradient norms, every gradient
@@ -131,6 +140,20 @@
    width under use_pallas=always, forward and backward: the forward kernel
    once, the backward by autograd of the plain chunked recompute (the JAX
    package's, which has no kernel for it).
+17. [captured vs eager]: from one state, batch order, latent block and
+   generator state, n = 4 captured v1 steps (use_pallas=always) and n = 2
+   captured highres128 steps (megablock=auto, dropout and DiffAugment)
+   against as many eager make_train_step calls: every leaf's change within
+   LEAF_RTOL of the eager change's max |.|, unchanged leaves, the counters
+   and the generator state bit-equal, ISR u within U_TOL, losses within
+   LOSS_TOL, norms within NORM_RTOL; prints max |d| per leaf group and
+   whether the routes are bit-equal.
+18. [resume]: v1 at 2 steps an epoch, 2 epochs uninterrupted twice, and 1
+   epoch, its checkpoint, a fresh Trainer's resume() and the second epoch:
+   bit-equal where the two uninterrupted runs are, else within their spread.
+19. [optimizer]: one update of the port's Optimizer over highres128's 144.6 M
+   parameters with torch.optim's fused and foreach AdamW in turns, beside
+   its byte bound.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -1313,11 +1336,63 @@ def check_training_gate() -> dict:
     return routes
 
 
+def _fit_over(over: dict) -> dict:
+    """The run settings of every fit-driven phase: no per-epoch grid (fit's
+    epilogue still samples one), one checkpoint kept."""
+    return {"run.log_every_steps": 0, "run.sample_grid_every_epochs": 0,
+            "run.keep_checkpoints": 1, **over}
+
+
+def _grid_launches(trainer) -> dict:
+    """Kernel launches of the one sample grid fit's epilogue draws."""
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    trainer._save_grids(0)
+    torch.cuda.synchronize()
+    return {k: v for k, v in build.LAUNCHES.items() if v}
+
+
+def _check_fit_launches(tag: str, launches: dict, per_step: dict, steps: int,
+                        grid: dict) -> dict:
+    """Each kernel's launches over a fit of ``steps`` captured steps: its
+    count per step (eager's, counted at capture and added per replay) times
+    the steps, plus the epilogue's grid.  Returns the steps' share (the
+    fit's launches less the grid's)."""
+    for name in set(launches) | set(per_step) | set(grid):
+        want = per_step.get(name, 0) * steps + grid.get(name, 0)
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"{tag} {name} launched {launches.get(name, 0)} times, expected "
+                                 f"{want} ({per_step.get(name, 0)} a step x {steps} + "
+                                 f"{grid.get(name, 0)} for the grid)")
+    return {k: v - grid.get(k, 0) for k, v in launches.items()}
+
+
+def _eager_step_ms(trainer, steps: int) -> float:
+    """ms per eager train step (make_train_step), host clock to a sync."""
+    import torch
+
+    from vitgan_tpu_torch.train.step import host_metrics
+
+    batches = trainer.batches()[:steps]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in batches:
+        m = trainer.train_step(trainer.state, trainer.real_batch(idx))
+    host_metrics(m)
+    return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
 def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     """highres128 at full depth through Trainer under ``route``
-    (runtime.megablock, 'auto' the preset's default): 2 warm-up steps, 5
-    timed steps by fit, the launches per step asserted, a profiled breakdown;
-    the run directory restored, one `cli generate` and one HTTP request."""
+    (runtime.megablock, 'auto' the preset's default): 2 eager warm-up steps,
+    3 eager steps timed, a warm-up epoch of 5 steps (the step's capture),
+    then a timed epoch of 5 captured steps by fit, the launches per step
+    asserted, a profiled breakdown of a captured call; the run directory
+    restored, one `cli generate` and one HTTP request."""
     import numpy as np
     import torch
 
@@ -1331,9 +1406,9 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     from vitgan_tpu_torch.utils.run_dirs import restore_run
 
     tag = f"[train megablock={route}]"
-    steps = 5
-    over = {"data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 1,
-            "run.steps_per_epoch": steps, "run.log_every_steps": 0}
+    steps, eager_steps = 5, 3
+    over = _fit_over({"data.dataset": "synthetic", "data.synthetic_samples": 256,
+                      "run.epochs": 2, "run.steps_per_epoch": steps})
     if route != "auto":
         over["runtime.megablock"] = route
     cfg = C.replace(C.highres_config(128), **over)
@@ -1351,8 +1426,15 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     for idx in trainer.batches()[:2]:  # warm-up
         warm = host_metrics(trainer.train_step(st, trainer.real_batch(idx)))
     print(f"{tag} 2 warm-up steps in {time.perf_counter() - t0:.2f} s: {warm}")
+    eager_ms = _eager_step_ms(trainer, eager_steps)
+    grid = _grid_launches(trainer)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()  # the capture's allocations count, the replays' none
+    t0 = time.perf_counter()
+    trainer.fit(epochs=1)  # the warm-up epoch: its first step runs eagerly, then is captured
+    print(f"{tag} warm-up epoch ({steps} steps, the capture among them) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
     # --- the main path ---
@@ -1361,17 +1443,17 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     launches = dict(build.LAUNCHES)
     # --- end of the main path ---
     sec = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     img_s = means["images_per_sec"]  # fit's clock: the steps and the epoch's metric readback
     ms = 1e3 * m.batch_size / img_s
-    print(f"{tag} {steps} steps by Trainer.fit: {ms:.1f} ms/step, {img_s:.2f} img/s "
-          f"({sec:.3f} s with the run directory's write), peak {peak / 2**30:.2f} GiB allocated")
+    print(f"{tag} {steps} captured steps by Trainer.fit: {ms:.2f} ms/step, {img_s:.2f} img/s "
+          f"({sec:.3f} s with the checkpoint and the run directory's write), peak "
+          f"{peak / 2**30:.2f} GiB allocated ({reserved / 2**30:.2f} reserved) over the capture "
+          f"and both epochs; the eager step in this call {eager_ms:.2f} ms ({eager_steps} steps)")
     print(f"{tag} epoch means: {means}")
-    print(f"{tag} launches over {steps} steps: {launches}")
-    for name, n in launches.items():
-        want = TRAIN_KERNELS[route].get(name, 0) * steps
-        if n != want:
-            raise AssertionError(f"{tag} {name} launched {n} times, expected {want}")
+    print(f"{tag} launches over {steps} steps and the epilogue's grid: {launches}; the grid's "
+          f"alone: {grid}")
+    launches = _check_fit_launches(tag, launches, TRAIN_KERNELS[route], steps, grid)
     if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
                                                  "g_grad_norm")):
         raise AssertionError(f"non-finite train metrics: {means}")
@@ -1385,7 +1467,7 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     del trainer, st
     torch.cuda.empty_cache()
     rcfg, _, g, meta = restore_run(run_dir, device="cuda")
-    if meta.get("step") != 2 + steps or rcfg.v2 != m:
+    if meta.get("step") != 2 + eager_steps + 2 * steps or rcfg.v2 != m:
         raise AssertionError(f"restored run: meta {meta}")
     del g
     if cli.main(["generate", "--run-dir", run_dir, "--num-images", "16", "--seed", "3"]) != 0:
@@ -1409,7 +1491,8 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     if status != 200 or arr.shape != (4, 128, 128, 3) or not np.isfinite(arr).all():
         raise AssertionError(f"serving the trained run directory: {status} {arr.shape}")
     print(f"{tag} the trained run directory served POST npy n=4 in {req_ms:.1f} ms")
-    return launches, {"ms_per_step": ms, "img_per_s": img_s, "peak_allocated_bytes": peak,
+    return launches, {"ms_per_step": ms, "eager_ms_per_step": eager_ms, "img_per_s": img_s,
+                      "peak_allocated_bytes": peak, "peak_reserved_bytes": reserved,
                       "depth": m.depth, "means": means, "breakdown": breakdown}
 
 
@@ -1417,7 +1500,8 @@ def train_deit64(steps: int = 3) -> dict:
     """deit64 at full width (64 px, 256 tokens + CLS, embed 192, 3 heads,
     hidden 768, depth 12, dropout 0.1, DiffAugment color,translation,cutout)
     under the preset's default runtime (megablock=auto) through Trainer: one
-    warm-up step, ``steps`` steps by fit, the megablock's training kernels in
+    eager warm-up step, a warm-up epoch of ``steps`` (the capture), then
+    ``steps`` captured steps by fit, the megablock's training kernels in
     every block."""
     import shutil as _sh
     import tempfile
@@ -1429,15 +1513,17 @@ def train_deit64(steps: int = 3) -> dict:
     from vitgan_tpu_torch.train.step import host_metrics
     from vitgan_tpu_torch.train.trainer import Trainer
 
-    cfg = C.replace(C.deit64_config(), **{
-        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 1,
-        "run.steps_per_epoch": steps, "run.log_every_steps": 0})
+    cfg = C.replace(C.deit64_config(), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
+        "run.steps_per_epoch": steps}))
     m = cfg.v2
     run_dir = tempfile.mkdtemp(prefix="deit64_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
     try:
         trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
         host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
+        grid = _grid_launches(trainer)
+        trainer.fit(epochs=1)  # the warm-up epoch, the capture among its steps
         torch.cuda.synchronize()
         build.reset_launches()
         # --- the deit64 path ---
@@ -1450,15 +1536,16 @@ def train_deit64(steps: int = 3) -> dict:
     ms = 1e3 * m.batch_size / means["images_per_sec"]
     print(f"[train deit64] batch {m.batch_size}, {m.image_size} px, embed {m.embed_dim}, heads "
           f"{m.num_heads}, depth {m.depth}, dropout {m.dropout}, augment "
-          f"{cfg.run.diff_augment!r}: {steps} steps by Trainer.fit, {ms:.1f} ms/step; launches "
-          f"{launches}; means {means}")
+          f"{cfg.run.diff_augment!r}: {steps} captured steps by Trainer.fit, {ms:.1f} ms/step; "
+          f"launches {launches}; means {means}")
     for name, per_block in (("ln_mlp_train_fwd", 1), ("megablock_bwd_mlp", 1),
                             ("megablock_bwd_ln1", 1),
                             *LN_MLP_STAGES["ln_mlp_train_fwd"].items(),
                             *((stage, 1) for stage in MB_MLP_STAGES)):
-        if launches[name] != 3 * m.depth * steps * per_block:
+        if launches[name] != 3 * m.depth * steps * per_block + grid.get(name, 0):
             raise AssertionError(f"deit64: {name} launched {launches[name]} times")
-    if launches["ln_mlp_fwd"] or not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
+    if launches["ln_mlp_fwd"] != grid.get("ln_mlp_fwd", 0) or not all(
+            math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
         raise AssertionError(f"deit64 did not train through the megablock: {means}")
     return {"ms_per_step": ms, "launches": launches, "means": means}
 
@@ -1506,15 +1593,16 @@ def _kernel_group(name: str, route: str) -> str:
 
 
 def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
-    """Where a train step's device time goes: torch.profiler over 2 steps,
-    kernel time summed by group (the LN->MLP stage kernels under the group of
-    the step's route: ``recompute`` is the megablock=off route), and the
-    device's idle share of the wall time; then, with ``recompute``, the
-    LN->MLP recompute backward alone at
-    the step's three row counts: the autograd Function's backward as the
-    port runs it (the plain forward recomputed and differentiated, TF32
-    products), and the same forward and backward of the plain version in
-    full f32."""
+    """Where a train step's device time goes: torch.profiler over one
+    captured device call of the trainer (its replays), kernel time summed by
+    group (the LN->MLP stage kernels under the group of the step's route:
+    ``recompute`` is the megablock=off route), and the device's idle share of
+    the wall time; where the profiler sees no device time inside the replays,
+    2 eager steps instead, and says so.  Then, with ``recompute``, the
+    LN->MLP recompute backward alone at the step's three row counts: the
+    autograd Function's backward as the port runs it (the plain forward
+    recomputed and differentiated, TF32 products), and the same forward and
+    backward of the plain version in full f32."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1522,17 +1610,32 @@ def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
     from vitgan_tpu_torch.ops import fused_mlp as FM
 
     st = trainer.state
-    batches = trainer.batches()[:2]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for idx in batches:
-            trainer.train_step(st, trainer.real_batch(idx))
+
+    def profiled(captured: bool):
+        idx = trainer.batches()
+        steps = len(idx) if captured else 2
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
-    rows = [(e.key, e.self_device_time_total / 1e3 / len(batches), e.count // len(batches))
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    out = {"profiled_wall_ms_per_step": wall_ms}
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if captured:
+                trainer._device_train_fn(st, trainer.dataset, idx)
+            else:
+                for i in range(steps):
+                    trainer.train_step(st, trainer.real_batch(idx[i]))
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return rows, wall_ms, steps
+
+    rows, wall_ms, steps = profiled(True)
+    how = f"one captured call of {steps} steps"
+    if not rows or sum(r[1] for r in rows) == 0:
+        print("[breakdown] the profiler recorded no device time inside the graph replays: "
+              "the breakdown below is of 2 eager steps")
+        rows, wall_ms, steps = profiled(False)
+        how = "2 eager steps"
+    out = {"profiled_wall_ms_per_step": wall_ms, "profiled": how}
     if not rows or sum(r[1] for r in rows) == 0:
         print("[breakdown] the profiler recorded no device time: not measured")
     else:
@@ -1542,11 +1645,11 @@ def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
         for name, t, _ in rows:
             key = _kernel_group(name, route)
             groups[key] = groups.get(key, 0.0) + t
-        print(f"[breakdown] per step under the profiler: wall {wall_ms:.1f} ms, device busy "
-              f"{busy:.1f} ms; idle {100 * (1 - busy / step_ms):.1f}% of the unprofiled "
-              f"{step_ms:.1f} ms step ({100 * (1 - busy / wall_ms):.1f}% of the profiled one)")
+        print(f"[breakdown] per step under the profiler ({how}): wall {wall_ms:.2f} ms, device "
+              f"busy {busy:.2f} ms; idle {100 * (1 - busy / step_ms):.1f}% of the unprofiled "
+              f"{step_ms:.2f} ms step ({100 * (1 - busy / wall_ms):.1f}% of the profiled one)")
         for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"  {g}: {t:.2f} ms ({100 * t / busy:.1f}%)")
+            print(f"  {g}: {t:.3f} ms ({100 * t / busy:.1f}%)")
         print("[breakdown] top kernels per step (ms, launches):")
         for name, t, n in sorted(rows, key=lambda r: -r[1])[:15]:
             print(f"  {t:8.3f} ms {n:5d}  {name[:110]}")
@@ -1932,10 +2035,13 @@ def _v1_cfg(**over):
 
 
 def train_v1_main_path(run_dir: str) -> tuple:
-    """The v1 ViTGAN at the reference defaults through Trainer under
-    use_pallas=always: 2 warm-up steps, 5 timed steps by fit, the launches
-    per step asserted with no plain attention, a profiled breakdown; the run
-    directory restored, one `cli generate` and one HTTP request."""
+    """[train v1 captured]: the v1 ViTGAN at the reference defaults through
+    Trainer.fit on the device-data route under use_pallas=always, on 3,072
+    samples (24 steps an epoch): 2 eager warm-up steps, 5 eager steps timed,
+    a warm-up epoch (the capture), then a timed epoch of captured steps; the
+    launches per step held to eager's with no plain attention (counted over
+    the capture and the timed epoch), a profiled breakdown of a captured call;
+    the run directory restored, one `cli generate` and one HTTP request."""
     import numpy as np
     import torch
 
@@ -1947,13 +2053,14 @@ def train_v1_main_path(run_dir: str) -> tuple:
     from vitgan_tpu_torch.train.trainer import Trainer
     from vitgan_tpu_torch.utils.run_dirs import restore_run
 
-    tag = "[train v1]"
-    steps = 5
-    cfg = _v1_cfg(**{"run.steps_per_epoch": steps})
+    tag = "[train v1 captured]"
+    eager_steps = 5
+    cfg = _v1_cfg(**_fit_over({"data.synthetic_samples": 3072, "run.epochs": 2}))
     m = cfg.v1
     t0 = time.perf_counter()
     trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
     st = trainer.state
+    steps = trainer.steps_per_call
     g, d = m.generator, m.discriminator
     print(f"{tag} v1 defaults: batch {m.batch_size}, latent {m.latent_dim}; G hidden "
           f"{g.hidden_size} depth {g.depth} heads {g.transformer.num_heads}, SIREN "
@@ -1961,35 +2068,47 @@ def train_v1_main_path(run_dir: str) -> tuple:
           f"{d.transformer.num_heads}, ISR {d.spectral_rescale}; loss {m.loss}, "
           f"{cfg.runtime.compute_dtype}, use_pallas {cfg.runtime.use_pallas}, bwd_fusion "
           f"{cfg.runtime.bwd_fusion}; G {count_params(st.g)} D {count_params(st.d)} parameters; "
-          f"set up in {time.perf_counter() - t0:.1f} s")
+          f"{steps} steps a call; set up in {time.perf_counter() - t0:.1f} s")
+    if steps < 20:
+        raise AssertionError(f"{tag} {steps} steps an epoch, fewer than 20")
     before = [p.detach().cpu().clone() for p in (*st.g.parameters(), *st.d.parameters())]
     u0 = [b_.detach().cpu().clone() for n_, b_ in st.d.named_buffers() if n_.endswith(".u")]
     t0 = time.perf_counter()
     for idx in trainer.batches()[:2]:  # warm-up
         warm = host_metrics(trainer.train_step(st, trainer.real_batch(idx)))
     print(f"{tag} 2 warm-up steps in {time.perf_counter() - t0:.2f} s: {warm}")
+    eager_ms = _eager_step_ms(trainer, eager_steps)
+    grid = _grid_launches(trainer)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    # --- the v1 path ---
+    torch.cuda.reset_peak_memory_stats()  # the capture's allocations count, the replays' none
     with _PlainAttentionCounter() as plain:
+        t0 = time.perf_counter()
+        trainer.fit(epochs=1)  # the warm-up epoch: its first step runs eagerly, then is captured
+        print(f"{tag} warm-up epoch ({steps} steps, the capture among them) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        # --- the v1 path ---
         means = trainer.fit()
         torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    # --- end of the v1 path ---
+        launches = dict(build.LAUNCHES)
+        # --- end of the v1 path ---
     sec = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     img_s = means["images_per_sec"]
     ms = 1e3 * m.batch_size / img_s
-    print(f"{tag} {steps} steps by Trainer.fit: {ms:.2f} ms/step, {img_s:.1f} img/s "
-          f"({sec:.3f} s with the run directory's write), peak {peak / 2**30:.3f} GiB allocated")
+    print(f"{tag} {steps} captured steps by Trainer.fit: {ms:.3f} ms/step, {img_s:.1f} img/s "
+          f"({sec:.3f} s with the checkpoint and the run directory's write), peak "
+          f"{peak / 2**30:.3f} GiB allocated ({reserved / 2**30:.3f} reserved) over the capture "
+          f"and both epochs; the eager step in this call {eager_ms:.3f} ms ({eager_steps} steps)")
     print(f"{tag} epoch means: {means}")
-    print(f"{tag} launches over {steps} steps: {launches}; plain attention calls {plain.calls}")
-    for name, n in launches.items():
-        want = V1_KERNELS["auto"].get(name, 0) * steps
-        if n != want:
-            raise AssertionError(f"{tag} {name} launched {n} times, expected {want}")
+    print(f"{tag} launches over {steps} steps and the epilogue's grid: {launches}; the grid's "
+          f"alone: {grid}; plain attention calls over the capture and the timed epoch "
+          f"{plain.calls}")
+    launches = _check_fit_launches(tag, launches, V1_KERNELS["auto"], steps, grid)
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    print(f"{tag} launches per step: {per_step} (eager's: {V1_KERNELS['auto']})")
     if plain.calls:
         raise AssertionError(f"{tag} {plain.calls} attentions took a plain route")
     if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
@@ -2008,7 +2127,7 @@ def train_v1_main_path(run_dir: str) -> tuple:
     del trainer, st
     torch.cuda.empty_cache()
     rcfg, _, gen_, meta = restore_run(run_dir, device="cuda")
-    if meta.get("step") != 2 + steps or rcfg.v1 != m or rcfg.family != "v1":
+    if meta.get("step") != 2 + eager_steps + 2 * steps or rcfg.v1 != m or rcfg.family != "v1":
         raise AssertionError(f"restored run: meta {meta}")
     del gen_
     if cli.main(["generate", "--run-dir", run_dir, "--num-images", "16", "--seed", "3"]) != 0:
@@ -2033,15 +2152,17 @@ def train_v1_main_path(run_dir: str) -> tuple:
         raise AssertionError(f"serving the v1 run directory: {status} {arr.shape}")
     print(f"{tag} the v1 run directory served POST npy n=16 in {req_ms:.1f} ms "
           f"(std {arr.std():.4f})")
-    return launches, {"ms_per_step": ms, "img_per_s": img_s, "peak_allocated_bytes": peak,
-                      "means": means, "breakdown": breakdown}
+    return launches, {"ms_per_step": ms, "eager_ms_per_step": eager_ms, "img_per_s": img_s,
+                      "steps": steps, "peak_allocated_bytes": peak,
+                      "peak_reserved_bytes": reserved, "means": means, "breakdown": breakdown}
 
 
 def train_v1_fused(steps: int = 3) -> tuple:
     """The v1 defaults under use_pallas=always and bwd_fusion=fused through
-    Trainer: 1 warm-up step, ``steps`` by fit; D's `l2` backward takes the
+    Trainer: 1 eager warm-up step, a warm-up epoch of ``steps`` (the
+    capture), then ``steps`` captured by fit; D's `l2` backward takes the
     single-pass kernel (8 a step), no dq or dk/dv; then a profiled breakdown
-    of 2 more steps."""
+    of a captured call."""
     import shutil as _sh
     import tempfile
 
@@ -2051,12 +2172,15 @@ def train_v1_fused(steps: int = 3) -> tuple:
     from vitgan_tpu_torch.train.step import host_metrics
     from vitgan_tpu_torch.train.trainer import Trainer
 
-    cfg = _v1_cfg(**{"run.steps_per_epoch": steps, "runtime.bwd_fusion": "fused"})
+    cfg = _v1_cfg(**_fit_over({"run.steps_per_epoch": steps, "run.epochs": 2,
+                               "runtime.bwd_fusion": "fused"}))
     run_dir = tempfile.mkdtemp(prefix="v1_fused_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
     try:
         trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
         host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
+        grid = _grid_launches(trainer)
+        trainer.fit(epochs=1)
         torch.cuda.synchronize()
         build.reset_launches()
         # --- the v1 bwd_fusion=fused path ---
@@ -2068,15 +2192,269 @@ def train_v1_fused(steps: int = 3) -> tuple:
         breakdown = train_breakdown(trainer, ms, recompute=False)
     finally:
         _sh.rmtree(run_dir, ignore_errors=True)
-    print(f"[train v1 fused] {steps} steps by Trainer.fit, {ms:.2f} ms/step; launches "
+    print(f"[train v1 fused] {steps} captured steps by Trainer.fit, {ms:.2f} ms/step; launches "
           f"{launches}; means {means}")
-    for name, n in launches.items():
-        want = V1_KERNELS["fused"].get(name, 0) * steps
-        if n != want:
-            raise AssertionError(f"[train v1 fused] {name} launched {n} times, expected {want}")
+    launches = _check_fit_launches("[train v1 fused]", launches, V1_KERNELS["fused"], steps, grid)
     if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
         raise AssertionError(f"[train v1 fused] non-finite metrics: {means}")
     return launches, {"ms_per_step": ms, "means": means, "breakdown": breakdown}
+
+
+def _flat_state(st) -> dict:
+    """Every tensor of a TrainState's checkpoint dict by a dotted name (on
+    the CPU), plus its host counters."""
+    import torch
+
+    sd = st.state_dict()
+    out = {"step": torch.tensor(sd["step"]), "rng": sd["rng"]}
+    for net in ("g", "d"):
+        out.update({f"{net}.{k}": v for k, v in sd[net].items()})
+        opt = sd[f"{net}_opt"]
+        out[f"{net}_opt.count"] = torch.tensor(opt["count"])
+        for i, entry in opt["state"].items():
+            out.update({f"{net}_opt.{i}.{k}": v for k, v in entry.items()})
+    for i, e in enumerate(sd["g_ema"] or ()):
+        out[f"g_ema.{i}"] = e
+    return out
+
+
+def _leaf_group(name: str) -> str:
+    if name.startswith(("g_opt.", "d_opt.")):
+        return f"{name[0].upper()} optimizer state"
+    if name.startswith("g_ema."):
+        return "G EMA"
+    if name.startswith("d.") and name.endswith((".u", ".sigma0")):
+        return "D ISR buffers"
+    if name.startswith(("g.", "d.")):
+        return f"{name[0].upper()} parameters"
+    return "counters and generator state"
+
+
+def _hold_states(tag: str, start: dict, want: dict, got: dict) -> dict:
+    """``got`` against ``want`` after the same steps from ``start``, leaf by
+    leaf in the route comparison's terms: a leaf's change within LEAF_RTOL *
+    the max |change| of ``want``'s (a leaf that did not change, the counters
+    and the generator state bit-equal), the ISR u vectors within U_TOL.
+    Prints and returns max |d| and the bit-equal share per group."""
+    import torch
+
+    groups: dict = {}
+    for name, w in want.items():
+        g_, s0 = got[name], start[name]
+        grp = _leaf_group(name)
+        rec = groups.setdefault(grp, {"leaves": 0, "bit_equal": 0, "max_abs_diff": 0.0})
+        rec["leaves"] += 1
+        if torch.equal(g_, w):
+            rec["bit_equal"] += 1
+            continue
+        if not w.is_floating_point() or grp == "counters and generator state":
+            raise AssertionError(f"{tag} {name} differs: {w} against {g_}")
+        d = (g_.double() - w.double()).abs().max().item()
+        rec["max_abs_diff"] = max(rec["max_abs_diff"], d)
+        if name.endswith(".u"):
+            bound = U_TOL
+        else:
+            bound = LEAF_RTOL * (w.double() - s0.double()).abs().max().item()
+        if not d <= bound:
+            raise AssertionError(f"{tag} {name}: max |d| {d:.3e} over its bound {bound:.3e}")
+    for grp, rec in groups.items():
+        print(f"{tag}   {grp}: {rec['bit_equal']} of {rec['leaves']} leaves bit-equal, max |d| "
+              f"{rec['max_abs_diff']:.3e}")
+    return groups
+
+
+def captured_vs_eager(cfg, n: int, label: str) -> dict:
+    """[captured vs eager]: from one state (after one eager step, so that the
+    optimizer's state exists), one batch order, one latent block and one
+    generator state, ``n`` steps of a captured make_device_data_train_fn
+    against ``n`` eager make_train_step calls; the function is captured
+    first on the same state, which is then restored in place (the
+    checkpoint's restore), so that all n of its steps are replays.  Every
+    leaf in the route comparison's terms; metrics: losses within LOSS_TOL,
+    norms within NORM_RTOL."""
+    import shutil as _sh
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.train.sample import latent_block
+    from vitgan_tpu_torch.train.step import host_metrics, make_device_data_train_fn
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag = f"[captured vs eager] {label}"
+    run_dir = tempfile.mkdtemp(prefix="cve_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        st, gan, b = trainer.state, trainer.gan, cfg.model.batch_size
+        order = trainer.batches()
+        host_metrics(trainer.train_step(st, trainer.real_batch(order[0])))
+        idx = order[1:1 + n]
+        fn = make_device_data_train_fn(gan, cfg, n)
+        lat = latent_block(gan, st.seed, st.step, n, b, max(1, cfg.model.disc_steps))
+        start_sd = st.state_dict()
+        start = _flat_state(st)
+        fn(st, trainer.dataset, idx, lat)  # the first step eager, its capture, n - 1 replays
+        st.load_state_dict(start_sd)
+        eager_m = [trainer.train_step(st, trainer.real_batch(idx[i]), z=torch.from_numpy(
+            lat[i, 0])) for i in range(n)]
+        eager_m = {k: torch.stack([m_[k] for m_ in eager_m]) for k in eager_m[0]}
+        want = _flat_state(st)
+        st.load_state_dict(start_sd)
+        got_m = fn(st, trainer.dataset, idx, lat)  # n replays
+        got = _flat_state(st)
+        print(f"{tag}: {n} steps at batch {b}, {len(fn.graphs)} captured graph(s)")
+        groups = _hold_states(tag, start, want, got)
+        hm_w = {k: np.asarray(v.cpu()) for k, v in eager_m.items()}
+        hm_g = {k: np.asarray(v.cpu()) for k, v in got_m.items()}
+        metric_diff = {}
+        for k in hm_w:
+            d = float(np.abs(hm_w[k] - hm_g[k]).max())
+            metric_diff[k] = d
+            bound = (NORM_RTOL * float(np.abs(hm_w[k]).max()) if k.endswith("grad_norm")
+                     else LOSS_TOL)
+            if not d <= bound:
+                raise AssertionError(f"{tag} metric {k}: {hm_g[k]} against eager {hm_w[k]}")
+        bit_equal = all(r["bit_equal"] == r["leaves"] for r in groups.values()) and not any(
+            metric_diff.values())
+        print(f"{tag}: metrics max |d| {metric_diff}; the routes are "
+              f"{'bit-equal' if bit_equal else 'NOT bit-equal'}")
+        del trainer, st, fn
+        torch.cuda.empty_cache()
+    finally:
+        _sh.rmtree(run_dir, ignore_errors=True)
+    return {"n": n, "groups": groups, "metric_max_abs_diff": metric_diff, "bit_equal": bit_equal}
+
+
+def resume_check() -> dict:
+    """[resume]: v1 at its reference defaults under use_pallas=always, 2
+    steps an epoch: 2 epochs uninterrupted, twice; then 1 epoch, its final
+    checkpoint, a fresh Trainer's resume() and the second epoch.  Where the
+    two uninterrupted runs are bit-equal the resumed one must be too; else
+    every leaf within their spread."""
+    import shutil as _sh
+    import tempfile
+
+    import torch
+
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    cfg = _v1_cfg(**_fit_over({"run.steps_per_epoch": 2, "run.epochs": 2}))
+    base = tempfile.mkdtemp(prefix="resume_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+
+    def run(name: str, epochs: int, resume: bool = False) -> dict:
+        trainer = Trainer(cfg, run_dir=os.path.join(base, name), device="cuda")
+        if resume:
+            trainer.resume()
+        trainer.fit(epochs=epochs)
+        out = _flat_state(trainer.state)
+        del trainer
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        a1, a2 = run("a1", 2), run("a2", 2)
+        run("b", 1)
+        c = run("b", 2, resume=True)
+        cli_steps = _cli_resume(os.path.join(base, "cli"))
+    finally:
+        _sh.rmtree(base, ignore_errors=True)
+    same = all(torch.equal(a1[k], a2[k]) for k in a1)
+    spread = {k: (a2[k].double() - a1[k].double()).abs().max().item()
+              for k in a1 if a1[k].is_floating_point()}
+    worst, bit_equal = 0.0, True
+    for k in a1:
+        if torch.equal(c[k], a1[k]):
+            continue
+        bit_equal = False
+        if same or not a1[k].is_floating_point():
+            raise AssertionError(f"[resume] {k} differs from the uninterrupted runs, which are "
+                                 "bit-equal to each other")
+        d = min((c[k].double() - a1[k].double()).abs().max().item(),
+                (c[k].double() - a2[k].double()).abs().max().item())
+        worst = max(worst, d)
+        if not d <= spread[k]:
+            raise AssertionError(f"[resume] {k}: max |d| {d:.3e} over the spread {spread[k]:.3e}")
+    print(f"[resume] v1, 2 + 2 captured steps across a checkpoint and a fresh Trainer's "
+          f"resume(): the uninterrupted runs {'bit-equal' if same else 'not bit-equal'} to "
+          f"each other; the resumed run {'bit-equal to them' if bit_equal else f'within their spread (max |d| {worst:.3e})'} "
+          f"over {len(a1)} leaves")
+    return {"uninterrupted_bit_equal": same, "resumed_bit_equal": bit_equal,
+            "max_abs_diff": worst, "leaves": len(a1), "cli_resume_steps": cli_steps}
+
+
+def _cli_resume(run_dir: str) -> list:
+    """`cli train` of v1 (use_pallas=always, 2 steps an epoch) for one
+    epoch, then `cli train --resume --epochs 2` on its run directory: the
+    latest checkpoint and the served generator must move on to step 4."""
+    import torch
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
+    from vitgan_tpu_torch.utils.run_dirs import restore_run
+
+    args = ["train", "--family", "v1", "--dataset", "synthetic", "--run-dir", run_dir]
+    for kv in ("data.synthetic_samples=1024", "run.steps_per_epoch=2",
+               "runtime.use_pallas=always", "run.sample_grid_every_epochs=0",
+               "run.log_every_steps=0"):
+        args += ["--set", kv]
+    steps = []
+    for extra in (["--epochs", "1"], ["--epochs", "2", "--resume"]):
+        if cli.main(args + extra) != 0:
+            raise AssertionError(f"cli train {' '.join(extra)} failed")
+        _, meta = CheckpointManager(os.path.join(run_dir, "checkpoints")).restore()
+        steps.append((meta["step"], meta["epoch"]))
+        torch.cuda.empty_cache()
+    _, _, _, served = restore_run(run_dir, device="cuda")
+    if steps != [(2, 1), (4, 2)] or served.get("step") != 4:
+        raise AssertionError(f"cli train --resume: checkpoints {steps}, run directory {served}")
+    print(f"[resume] `cli train` then `cli train --resume` on the card: checkpoints at "
+          f"(step, next epoch) {steps}")
+    return steps
+
+
+def optimizer_update() -> dict:
+    """[optimizer]: one update of the port's Optimizer (global norm, clip,
+    AdamW at the device rate) over highres128's G and D parameter shapes
+    (144.6 M f32), with torch.optim's fused and foreach forms in turns
+    (fused, foreach, foreach, fused), CUDA events over 10 updates after 2;
+    bound: 28 bytes a parameter (p, g, m, v read; p, m, v written)."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.train import state as S
+
+    cfg = C.highres_config(128)
+    gan = build_gan(cfg)
+    with torch.device("meta"):
+        shapes = [p.shape for net in (gan.generator_init(None, device="meta"),
+                                      gan.discriminator_init(None, device="meta"))
+                  for p in net.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = [torch.nn.Parameter(0.02 * torch.randn(sh, generator=gen, device="cuda"))
+              for sh in shapes]
+    for p in params:
+        p.grad = 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
+    n = sum(p.numel() for p in params)
+    bound = 28 * n / HBM_BYTES_PER_S * 1e3
+    saved, out = S.FUSED_ON_CUDA, {}
+    try:
+        for fused in (True, False, False, True):
+            S.FUSED_ON_CUDA = fused
+            opt = S.Optimizer(cfg.v2.gen_optim, params)
+            ms = _time_ms(lambda: opt.update(1e-4), 10)
+            out.setdefault("fused" if fused else "foreach", []).append(ms)
+            del opt
+    finally:
+        S.FUSED_ON_CUDA = saved
+    print(f"[optimizer] one update (norm, clip, AdamW) of {n} parameters: fused "
+          f"{out['fused']} ms, foreach {out['foreach']} ms; bound {bound:.3f} ms (bytes)")
+    del params
+    torch.cuda.empty_cache()
+    return {"parameters": n, "ms": out, "bound_ms": bound, "port_uses_fused": saved}
 
 
 class _ScalarTerms:
@@ -2360,7 +2738,8 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from vitgan_tpu_torch.ops import build  # absent next to a lone chip_smoke.py: ImportError
+    from vitgan_tpu_torch import config as C  # absent next to a lone chip_smoke.py: ImportError
+    from vitgan_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2423,6 +2802,12 @@ def main() -> int:
         v1_fused_launches, v1["fused"] = train_v1_fused()
         v1["routes"] = compare_v1_train_routes()
         v1["l2ref"] = l2ref_path()
+        capture = {
+            "v1": captured_vs_eager(_v1_cfg(**_fit_over({})), 4, "v1 use_pallas=always"),
+            "highres128": captured_vs_eager(C.replace(C.highres_config(128), **_fit_over(
+                {"data.dataset": "synthetic", "data.synthetic_samples": 256})), 2,
+                "highres128 megablock=auto"),
+            "resume": resume_check(), "optimizer": optimizer_update()}
     finally:
         for d in (run_dir, off_dir, train_dir, v1_dir):
             shutil.rmtree(d, ignore_errors=True)
@@ -2476,10 +2861,10 @@ def main() -> int:
         "flash_attn_bwd_dkv[l2]": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
                                    v1_launches["flash_attn_bwd_dkv[l2]"]),
     }
-    paths = {"flash_attn_fwd[l2]": "v1 train, 5 steps",
-             "flash_attn_bwd_dq[l2]": "v1 train, 5 steps",
-             "flash_attn_bwd_dkv[l2]": "v1 train, 5 steps",
-             "flash_attn_bwd_fused[l2]": "v1 train with bwd_fusion=fused, 3 steps",
+    paths = {"flash_attn_fwd[l2]": f"v1 train, {v1['steps']} captured steps",
+             "flash_attn_bwd_dq[l2]": f"v1 train, {v1['steps']} captured steps",
+             "flash_attn_bwd_dkv[l2]": f"v1 train, {v1['steps']} captured steps",
+             "flash_attn_bwd_fused[l2]": "v1 train with bwd_fusion=fused, 3 captured steps",
              "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward"}
     kernels = []
     for name, (src, replaces, n_launch) in meta.items():
@@ -2512,6 +2897,7 @@ def main() -> int:
     print(json.dumps({"routes": routes}))
     print(json.dumps({"train": train}))
     print(json.dumps({"v1": v1}))
+    print(json.dumps({"capture": capture}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -42,7 +42,9 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
                          text=True, timeout=120, check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
     for name in ("serve", "ops.fused_block", "ops.wgrad", "train.step", "train.trainer",
-                 "ops.augment", "data.datasets", "models.vitgan_v1", "models.layers"):
+                 "ops.augment", "data.datasets", "models.vitgan_v1", "models.layers",
+                 "utils.checkpoint", "utils.logging", "utils.manifest", "utils.preemption",
+                 "utils.timing", "utils.profiling", "utils.run_dirs"):
         assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"

@@ -164,10 +164,13 @@ def test_trainer_aborts_on_nan_without_writing(tmp_path):
     trainer = Trainer(cfg, run_dir=str(tmp_path / "run"), device="cpu")
     real = trainer.real_batch(trainer.batches()[0])
     assert real.shape == (8, 32, 32, 3) and real.min() >= -1 and real.max() <= 1
-    nan = torch.tensor(float("nan"))
-    trainer.train_step = lambda state, real: {"d_loss": nan, "g_loss": torch.tensor(0.0)}
+    nan = torch.tensor([float("nan")])
+    trainer._device_train_fn = lambda state, data, idx: {"d_loss": nan,
+                                                         "g_loss": torch.tensor([0.0])}
     means = trainer.fit()
-    assert np.isnan(means["d_loss"]) and not (tmp_path / "run").exists()
+    # neither the final checkpoint nor the generator that `cli serve` reads
+    assert np.isnan(means["d_loss"]) and trainer.ckpts.latest_step() is None
+    assert not (tmp_path / "run" / "generator.pt").exists()
 
 
 def test_dropout_draws_on_the_activations_device():

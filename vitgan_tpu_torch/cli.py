@@ -6,11 +6,16 @@ flags for these commands (vitgan_tpu/cli.py) that the port carries, and
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
     python -m vitgan_tpu_torch.cli train --family v1 --dataset synthetic \
         --set runtime.use_pallas=always
+    python -m vitgan_tpu_torch.cli train --run-dir RUN --epochs 4 --resume
     python -m vitgan_tpu_torch.cli serve --run-dir RUN [--port 8000 --batch 64]
     python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0]
 
 ``train`` writes the run directory to ``--run-dir``, else
-$SCRATCH/output/<run name> (./output/<run name> without SCRATCH).  DEV=1
+$SCRATCH/output/<run name> (./output/<run name> without SCRATCH): its
+full-state checkpoints under ``checkpoints/``, grids, logs and env.json, and
+the generator that ``serve`` and ``generate`` read.  ``--resume`` continues
+from the latest checkpoint, exactly; SIGTERM stops at the next device call
+and checkpoints.  DEV=1
 shrinks a preset-less run to the smoke config, as in the JAX CLI.  On the
 card, highres128 and deit64 train under their default runtime.megablock=auto
 through the megablock's training kernels, as the JAX package's gate routes
@@ -67,14 +72,22 @@ def build_cfg(args):
 
 
 def cmd_train(args) -> int:
-    """Train and write the run directory (train/trainer.py)."""
+    """Train and write the run directory (train/trainer.py); ``--resume``
+    continues it from its latest checkpoint."""
     import logging
 
     from vitgan_tpu_torch.train.trainer import Trainer
 
+    from vitgan_tpu_torch.utils.preemption import graceful_preemption
+
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     trainer = Trainer(build_cfg(args), run_dir=args.run_dir, device=args.device)
-    means = trainer.fit()
+    if args.resume:
+        trainer.resume()
+    # SIGTERM stops at the next device call and goes through fit's
+    # checkpoint epilogue; `train --resume` re-runs the interrupted epoch.
+    with graceful_preemption():
+        means = trainer.fit()
     print(json.dumps({"run_dir": trainer.run_dir, "step": trainer.state.step, **means}))
     return 0
 
@@ -137,6 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--run-dir", default=None, help="where to write the run directory")
     t.add_argument("--set", action="append", metavar="dotted.key=value",
                    help="config override, e.g. --set run.steps_per_epoch=5")
+    t.add_argument("--resume", action="store_true",
+                   help="continue the run directory from its latest checkpoint")
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=cmd_train)
 

@@ -4,7 +4,7 @@ The port's own copy of the parts of ``vitgan_tpu.config`` that the serving and
 training slices read.  Field names, defaults and the JSON layout are the JAX
 package's, so a JAX run's ``config.json`` loads here unchanged: ``from_dict``
 skips the sections and fields this copy does not carry (mesh, the baseline
-families, the trainer's checkpoint/FID/collapse settings), and the JAX package
+families, the data pipeline's host settings), and the JAX package
 reads the port's ``config.json`` the same way.
 """
 
@@ -158,6 +158,12 @@ class RuntimeConfig:
     # ao and LSE; the backward kernels never re-run a forward product but the
     # qkv projection) | 'recompute' (autograd of the plain block).
     megablock_bwd: str = "saved"
+    # The JAX package's buffer donation and lax.scan unroll of its multi-step
+    # paths: carried for the schema, read by nothing on the GPU (the port
+    # updates the state in place, and its multi-step replays one captured
+    # step, train/step.py).
+    donate_state: bool = True
+    scan_unroll: int = 1
 
 
 @dataclass(frozen=True)
@@ -168,6 +174,11 @@ class DataConfig:
     shuffle: bool = True
     drop_last: bool = True
     augment_flip: bool = False
+    # Keep the uint8 dataset on the device and assemble batches there (the
+    # trainer's only route; a dataset over on_device_max_bytes needs the
+    # host pipeline, ROADMAP.md queue 1 item 3).
+    on_device: bool = True
+    on_device_max_bytes: int = 1 << 29
     synthetic_samples: int = 2048  # dataset size when dataset == "synthetic"
 
 
@@ -177,10 +188,29 @@ class TrainRunConfig:
 
     epochs: int = 500
     steps_per_epoch: Optional[int] = None  # None => full dataset pass
+    checkpoint_every_epochs: int = 50
+    sample_grid_every_epochs: int = 1
+    # FID, the best checkpoint and early stopping are ROADMAP.md queue 1
+    # item 5: carried for the schema; the trainer says so once when
+    # fid_every_epochs > 0 and evaluates nothing.
+    fid_every_epochs: int = 1
+    fid_num_samples: int = 2560
+    best_metric: str = "fid"
     log_every_steps: int = 50
+    keep_checkpoints: int = 3
     diff_augment: str = ""  # DiffAugment spec for D inputs, e.g. "color,translation"
+    # Steps per device call; 1 sizes the call from the epoch (train/trainer.py).
+    steps_per_call: int = 1
+    early_stop_patience: int = 0
+    early_stop_min_delta: float = 2.0
     ema_decay: float = 0.0  # >0 keeps an EMA copy of G params
     abort_on_nan: bool = True  # non-finite losses stop the run
+    # Collapse detection: epoch-mean D accuracy (the mean of real and fake)
+    # >= collapse_acc for collapse_window consecutive epochs logs an error
+    # and train/collapse=1; collapse_abort also stops the run.  0 disables.
+    collapse_window: int = 10
+    collapse_acc: float = 0.98
+    collapse_abort: bool = False
 
 
 @dataclass(frozen=True)
@@ -307,5 +337,6 @@ def smoke_config(family: str = "v2") -> ExperimentConfig:
         "v1.discriminator.token_size": 64,
         "run.epochs": 1,
         "run.steps_per_epoch": 2,
+        "run.fid_num_samples": 16,
         "runtime.use_pallas": "never",
     })

@@ -30,6 +30,20 @@ def latent_rng(seed: int, call: int) -> np.random.Generator:
     return np.random.Generator(np.random.Philox(key=((int(seed) % 2 ** 32) << 32) | int(call)))
 
 
+def latent_block(gan, seed: int, step0: int, n: int, batch: int,
+                 draws_per_step: int = 1) -> np.ndarray:
+    """The host latents of ``n`` consecutive train steps from ``step0``,
+    (n, draws_per_step, batch, latent_dim) float32.  Row i is what the eager
+    step draws from ``latent_rng(seed, step0 + i)``, in its order: the step's
+    z, then one batch for each extra critic update (disc_steps > 1)."""
+    out = np.empty((n, draws_per_step, batch, gan.latent_dim), np.float32)
+    for i in range(n):
+        rng = latent_rng(seed, step0 + i)
+        for j in range(draws_per_step):
+            out[i, j] = gan.sample_latent(rng, batch).numpy()
+    return out
+
+
 def _device_of(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
 

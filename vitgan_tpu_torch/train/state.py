@@ -5,7 +5,9 @@ Counterpart of vitgan_tpu/train/state.py:23-167.  The optax chains become
 ``torch.optim`` optimizers behind :class:`Optimizer`, which clips first with
 optax's ``clip_by_global_norm`` arithmetic (``torch.nn.utils.clip_grad_norm_``
 adds 1e-6 to the norm, which optax does not) and sets the learning rate of
-each update from the optax schedule of the update count.
+each update from the optax schedule of the update count, read before the
+update as optax reads it.  ``TrainState.state_dict`` is what a checkpoint
+holds (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -55,10 +57,27 @@ def make_lr(cfg: OptimConfig) -> Callable[[int], float]:
     return warmup_cosine
 
 
+# torch.optim's fused Adam/AdamW on the card (one kernel family for the whole
+# update) rather than its foreach form; both are capturable with a device
+# rate.  PERF.md (optimizer group) records the measurement behind it.
+FUSED_ON_CUDA = True
+
+
 class Optimizer:
     """clip_by_global_norm (when ``grad_clip`` is set), then adam, adamw or
     sgd at the schedule's rate: the optax chain that the JAX `make_optimizer`
-    builds (state.py:79-139), over a list of parameters."""
+    builds (state.py:79-139), over a list of parameters.
+
+    On the CPU the rate is a Python float set on each update, and the clip is
+    optax's arithmetic leaf by leaf.  On CUDA the update is one a CUDA graph
+    can replay (train/step.py captures it): Adam/AdamW with
+    ``capturable=True`` and the rate a device tensor (``rate``) that each
+    update writes on the device; the global norm and the clip are
+    ``torch._foreach_*`` products by one device scale; ``zero_grad`` zeroes
+    the gradient buffers in place, so they live across steps; the update
+    count stays on the host (``count``).  SGD on CUDA is one foreach
+    product-and-add at the device rate.
+    """
 
     def __init__(self, cfg: OptimConfig, params: List[torch.nn.Parameter]):
         if cfg.grad_accum > 1:
@@ -71,39 +90,108 @@ class Optimizer:
         self.lr = make_lr(cfg)
         self.count = 0
         lr0 = self.lr(0)
+        on_cuda = self.params[0].is_cuda
+        # the device rate on CUDA, None on the CPU
+        self.rate = (torch.tensor(lr0, dtype=torch.float32, device=self.params[0].device)
+                     if on_cuda else None)
+        kw = ({"lr": self.rate, "capturable": True,
+               **({"fused": True} if FUSED_ON_CUDA else {"foreach": True})}
+              if on_cuda else {"lr": lr0})
         if cfg.name == "adam":
-            self.opt = torch.optim.Adam(self.params, lr=lr0, betas=(cfg.beta1, cfg.beta2),
-                                        eps=1e-8)
+            self.opt = torch.optim.Adam(self.params, betas=(cfg.beta1, cfg.beta2), eps=1e-8, **kw)
         elif cfg.name == "adamw":
-            self.opt = torch.optim.AdamW(self.params, lr=lr0, betas=(cfg.beta1, cfg.beta2),
-                                         eps=1e-8, weight_decay=cfg.weight_decay)
+            self.opt = torch.optim.AdamW(self.params, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+                                         weight_decay=cfg.weight_decay, **kw)
         elif cfg.name == "sgd":
-            self.opt = torch.optim.SGD(self.params, lr=lr0)
+            self.opt = None if on_cuda else torch.optim.SGD(self.params, lr=lr0)
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        if self.rate is None:
+            for p in self.params:
+                p.grad = None
+            return
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
 
-    def step(self) -> torch.Tensor:
-        """Clip the gradients, apply one update; returns the global norm of the
-        unclipped gradients (a device scalar, no host sync).  The parameters'
-        ``grad`` hold the unclipped gradients again afterwards."""
+    def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        if self.rate is None:
+            return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+    def update(self, rate) -> torch.Tensor:
+        """Clip the gradients, apply one update at ``rate`` (a float, or on
+        CUDA a 0-d device tensor); returns the global norm of the unclipped
+        gradients (a device scalar, no host sync).  The parameters' ``grad``
+        hold the unclipped gradients again afterwards.  ``count`` is the
+        caller's to advance."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        norm = self._norm(grads)
+        clipped = grads
         if self.cfg.grad_clip is not None:
             clip = float(self.cfg.grad_clip)
-            keep = norm < clip
+            if self.rate is None:
+                keep = norm < clip
+                clipped = [torch.where(keep, g, g / norm.to(g.dtype) * clip) for g in grads]
+            else:
+                scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
+                clipped = torch._foreach_mul(grads, scale)
+        if self.rate is None:
+            for group in self.opt.param_groups:
+                group["lr"] = float(rate)
+        elif isinstance(rate, torch.Tensor):
+            self.rate.copy_(rate)
+        else:
+            self.rate.fill_(rate)
+        if self.opt is None:  # SGD on CUDA
+            with torch.no_grad():
+                torch._foreach_add_(self.params, torch._foreach_mul(clipped, self.rate),
+                                    alpha=-1.0)
+        else:
+            for p, g in zip(self.params, clipped):
+                p.grad = g
+            self.opt.step()
             for p, g in zip(self.params, grads):
-                p.grad = torch.where(keep, g, g / norm.to(g.dtype) * clip)
-        for group in self.opt.param_groups:
-            group["lr"] = self.lr(self.count)
-        self.opt.step()
-        for p, g in zip(self.params, grads):
-            p.grad = g
+                p.grad = g
+        return norm
+
+    def step(self) -> torch.Tensor:
+        """One update at the schedule's rate of ``count``, which it advances."""
+        norm = self.update(self.lr(self.count))
         self.count += 1
         return norm
+
+    def state_dict(self) -> dict:
+        """The update count and each parameter's optimizer state (by its
+        index), on the CPU."""
+        state = {}
+        if self.opt is not None:
+            for i, p in enumerate(self.params):
+                if p in self.opt.state:
+                    state[i] = {k: v.detach().cpu().clone() for k, v in self.opt.state[p].items()}
+        return {"count": self.count, "state": state}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict``'s values.  State the optimizer already holds
+        is written in place, so a CUDA graph captured over it replays the
+        restored values."""
+        self.count = int(sd["count"])
+        if self.opt is None:
+            return
+        for i, p in enumerate(self.params):
+            src = sd["state"].get(i)
+            if src is None:
+                self.opt.state.pop(p, None)
+                continue
+            have = self.opt.state.get(p)
+            if have:
+                for k, v in src.items():
+                    have[k].copy_(v)
+            else:  # 'step' stays on the host unless the update is capturable
+                self.opt.state[p] = {k: v.to(p.device if (k != "step" or self.rate is not None)
+                                             else "cpu", copy=True) for k, v in src.items()}
 
 
 def _optim_cfg(cfg: ExperimentConfig, which: str) -> OptimConfig:
@@ -136,6 +224,34 @@ class TrainState:
             for (name, _), e in zip(self.g.named_parameters(), self.g_ema):
                 sd[name] = e
         return sd
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs, on the CPU: both networks' state_dicts
+        (D's ISR buffers among them), both optimizers (moments and update
+        counts), the EMA, the step, the seed and the device generator's
+        state."""
+        cpu = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}  # noqa: E731
+        return {"step": self.step, "seed": self.seed, "rng": self.rng.get_state(),
+                "g": cpu(self.g.state_dict()), "d": cpu(self.d.state_dict()),
+                "g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict(),
+                "g_ema": None if self.g_ema is None else [e.detach().cpu().clone()
+                                                          for e in self.g_ema]}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict``'s values into this state's own tensors (in
+        place: a captured step replays them)."""
+        self.g.load_state_dict(sd["g"])
+        self.d.load_state_dict(sd["d"])
+        self.g_opt.load_state_dict(sd["g_opt"])
+        self.d_opt.load_state_dict(sd["d_opt"])
+        if (sd["g_ema"] is None) != (self.g_ema is None):
+            raise ValueError("the checkpoint and this run disagree on run.ema_decay > 0")
+        if self.g_ema is not None:
+            with torch.no_grad():
+                for e, v in zip(self.g_ema, sd["g_ema"]):
+                    e.copy_(v)
+        self.rng.set_state(sd["rng"])
+        self.step, self.seed = int(sd["step"]), int(sd["seed"])
 
 
 def create_train_state(gan, cfg: ExperimentConfig, device="cuda") -> TrainState:

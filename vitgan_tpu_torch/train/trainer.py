@@ -1,18 +1,37 @@
-"""A minimal trainer: a device-resident dataset, epochs of train steps,
-logging, the NaN abort and the run directory.
+"""Trainer: the epoch loop over the device-resident dataset, observability,
+checkpoints and exact resume.
 
-Counterpart of the on-device-data path of vitgan_tpu/train/trainer.py
-(Trainer.__init__, _epoch_steps_on_device, fit) and of step.py:360-367: the
-uint8 dataset lives on the card, each batch is gathered by indices from a
-host permutation, normalised to [-1, 1] and optionally flipped there.  The
-run directory (utils/run_dirs.save_run) is what ``cli serve`` and
-``cli generate`` restore.  Checkpoints and exact resume, sample grids and
-pre-emption are ROADMAP.md queue 1 item 4; FID is item 5.
+Counterpart of vitgan_tpu/train/trainer.py on one device, on its
+device-data route (Trainer.__init__, _epoch_steps_on_device, fit):
+
+- the uint8 dataset lives on the device; each epoch takes a host permutation
+  (numpy, seeded by the model seed), full batches only, capped at
+  ``run.steps_per_epoch``, and runs it through
+  ``train/step.make_device_data_train_fn`` in calls of k steps, k =
+  ``run.steps_per_call`` when above 1, else min(full batches, 1024,
+  steps_per_epoch); the leftover steps go through a second function of
+  their length, built at first use.  On CUDA each call replays a captured
+  step; on the CPU it is the eager loop;
+- per epoch: one metric readback, the JSONL/TensorBoard scalars
+  (utils/logging.MetricLogger), the NaN abort, collapse detection, sample
+  grids from fixed ``eval_noise``, periodic full-state checkpoints
+  (utils/checkpoint.py);
+- a crash-safe epilogue under ``preemption.shield()``: the final checkpoint
+  (skipped when the state is non-finite), with ``epoch`` the next epoch to
+  run, then the run directory that ``cli serve`` and ``generate`` read
+  (utils/run_dirs.save_run);
+- ``resume`` restores the exact state (parameters, ISR buffers, optimizer
+  moments and counts, EMA, step, the device generator and the epoch order's
+  generator), so a resumed run continues bit for bit.
+
+Not here: the host pipeline (a dataset that is not on the device, over
+``data.on_device_max_bytes`` or with a partial batch) is ROADMAP.md queue 1
+item 3; FID, best tracking and early stopping are item 5.
 """
 
 from __future__ import annotations
 
-import logging
+import copy
 import math
 import os
 import time
@@ -21,52 +40,95 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vitgan_tpu_torch.config import ExperimentConfig
+from vitgan_tpu_torch.config import ExperimentConfig, save_config
 from vitgan_tpu_torch.data.datasets import load_dataset
 from vitgan_tpu_torch.models import build_gan, count_params
 from vitgan_tpu_torch.ops.policy import apply_from_runtime
+from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
 from vitgan_tpu_torch.train.state import create_train_state
-from vitgan_tpu_torch.train.step import host_metrics, make_train_step
-from vitgan_tpu_torch.utils.run_dirs import save_run
-
-log = logging.getLogger("vitgan_tpu_torch")
+from vitgan_tpu_torch.train.step import (device_batch, host_metrics, make_device_data_train_fn,
+                                         make_eval_step, make_train_step)
+from vitgan_tpu_torch.utils import preemption
+from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
+from vitgan_tpu_torch.utils.images import make_grid, save_png
+from vitgan_tpu_torch.utils.logging import MetricLogger, get_logger
+from vitgan_tpu_torch.utils.manifest import write_env_manifest
+from vitgan_tpu_torch.utils.run_dirs import construct_directories, default_base, save_run
 
 
 def default_run_dir(run_name: Optional[str]) -> str:
     """$SCRATCH/output/<run name>, or ./output/<run name> without SCRATCH;
     the name defaults to a timestamp."""
-    name = run_name or time.strftime("%Y%m%d-%H%M%S")
-    return os.path.join(os.environ.get("SCRATCH", "."), "output", name)
+    return os.path.join(default_base(), run_name or time.strftime("%Y%m%d-%H%M%S"))
+
+
+def steps_per_call(cfg: ExperimentConfig, n_samples: int) -> int:
+    """k, the steps of one device call (trainer.py:141-170)."""
+    if cfg.run.steps_per_call > 1:
+        return cfg.run.steps_per_call
+    k = min(max(1, n_samples // cfg.model.batch_size), 1024)
+    return min(k, cfg.run.steps_per_epoch) if cfg.run.steps_per_epoch else k
 
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, run_dir: Optional[str] = None, device="cuda"):
         self.cfg = cfg
         apply_from_runtime(cfg.runtime)
-        self.gan = build_gan(cfg)
         m = cfg.model
         self.device = torch.device(device)
         images, _ = load_dataset(cfg.data.dataset, m.image_size, m.channels,
                                  cfg.data.synthetic_samples, seed=m.seed)
         if len(images) < m.batch_size:
             raise ValueError(f"{len(images)} samples cannot fill one batch of {m.batch_size}")
-        if not cfg.data.drop_last and len(images) % m.batch_size:
-            raise NotImplementedError("data.drop_last=False with a partial last batch: the "
-                                      "port's trainer runs full batches only; the host "
-                                      "pipeline that honours it is ROADMAP.md queue 1 item 3")
+        why = None
+        if not cfg.data.on_device:
+            why = "data.on_device=False"
+        elif images.nbytes > cfg.data.on_device_max_bytes:
+            why = (f"a {images.nbytes}-byte dataset over data.on_device_max_bytes="
+                   f"{cfg.data.on_device_max_bytes}")
+        elif not cfg.data.drop_last and len(images) % m.batch_size:
+            why = "data.drop_last=False with a partial last batch"
+        if why:
+            raise NotImplementedError(f"{why}: the port's trainer runs the device-resident "
+                                      "dataset in full batches only; the host pipeline is "
+                                      "ROADMAP.md queue 1 item 3")
+        root = os.path.abspath(run_dir or default_run_dir(cfg.run_name))
+        self.dirs = construct_directories(os.path.basename(root), base=os.path.dirname(root))
+        self.run_dir = self.dirs.root
+        save_config(cfg, os.path.join(self.run_dir, "config.json"))
+        write_env_manifest(os.path.join(self.run_dir, "env.json"))
+        self.log = get_logger("vitgan_tpu_torch", self.dirs.training_log)
+        self.metrics = MetricLogger(self.dirs.logs)
+        self.ckpts = CheckpointManager(self.dirs.checkpoints, keep=cfg.run.keep_checkpoints)
+        self.gan = build_gan(cfg)
         self.dataset = torch.from_numpy(images).to(self.device)  # uint8 (N, H, W, C)
         self._order_rng = np.random.default_rng(m.seed)
         self.state = create_train_state(self.gan, cfg, device=self.device)
         self.train_step = make_train_step(self.gan, cfg)
-        self.run_dir = run_dir or default_run_dir(cfg.run_name)
+        self.steps_per_call = steps_per_call(cfg, len(images))
+        self._build_device_fns()
+        self.sample_fn = make_sample_fn(self.gan, cfg)
+        self._g_sample = None
+        # Fixed noise for comparable per-epoch grids.
+        self.eval_noise = self.gan.sample_latent(latent_rng(m.seed + 1, 0), min(64, m.batch_size))
+        self.best_metric = float("inf")
         self.epoch = 0
-        log.info("model %s: G params %d, D params %d | device %s", cfg.family,
-                 count_params(self.state.g), count_params(self.state.d), self.device)
+        self.collapsed = False
+        self._poisoned = False
+        self.log.info("model %s: G params %d, D params %d | device %s | %d steps a call",
+                      cfg.family, count_params(self.state.g), count_params(self.state.d),
+                      self.device, self.steps_per_call)
 
-    def batches(self):
-        """Index batches of one epoch: a host permutation (numpy, seeded by the
-        model seed, as the JAX pipeline's), full batches only, capped at
-        ``run.steps_per_epoch``."""
+    def _build_device_fns(self) -> None:
+        """The epoch's device functions; a remainder length's is built at first use."""
+        self._device_train_fn = make_device_data_train_fn(self.gan, self.cfg, self.steps_per_call)
+        self._device_rem_fn, self._device_rem_len = None, None
+
+    # ------------------------------------------------------------------ utils
+
+    def batches(self) -> np.ndarray:
+        """(steps, B) index batches of one epoch: a host permutation, full
+        batches only, capped at ``run.steps_per_epoch``."""
         b = self.cfg.model.batch_size
         order = np.arange(len(self.dataset))
         if self.cfg.data.shuffle:
@@ -77,49 +139,203 @@ class Trainer:
         return order[: n * b].reshape(n, b)
 
     def real_batch(self, idx: np.ndarray) -> torch.Tensor:
-        """Gather on the card, normalise to [-1, 1], optionally flip."""
-        real = self.dataset[torch.from_numpy(idx).to(self.device)].float() * (2.0 / 255.0) - 1.0
-        if self.cfg.data.augment_flip:
-            flip = torch.rand((real.shape[0], 1, 1, 1), generator=self.state.rng,
-                              device=self.device) < 0.5
-            real = torch.where(flip, real.flip(2), real)
-        return real
+        """One batch as a device call's step assembles it (eager)."""
+        return device_batch(self.dataset, torch.from_numpy(np.asarray(idx)).to(self.device),
+                            self.cfg.data.augment_flip, self.state.rng)
+
+    def checkpoint_state(self) -> dict:
+        return {"state": self.state.state_dict(),
+                "data_order": self._order_rng.bit_generator.state}
+
+    def resume(self, step: Optional[int] = None, best: bool = False) -> None:
+        """Restore a checkpoint of this run (default: the latest) in place;
+        the epoch cursor is the next epoch to run."""
+        sd, meta = self.ckpts.restore(step=step, best=best)
+        self.state.load_state_dict(sd["state"])
+        self._order_rng.bit_generator.state = sd["data_order"]
+        self._build_device_fns()  # captured again at first use
+        self.epoch = int(meta.get("epoch", 0))
+        self.best_metric = float(meta.get("best_metric", float("inf")))
+        self.log.info("resumed from step %d (epoch %d)", self.state.step, self.epoch)
+
+    def _sampling_generator(self):
+        """G with the EMA weights when tracked, else the live G."""
+        if self.state.g_ema is None:
+            return self.state.g
+        if self._g_sample is None:
+            self._g_sample = copy.deepcopy(self.state.g)
+        self._g_sample.load_state_dict(self.state.ema_state_dict())
+        return self._g_sample
+
+    def validate(self, num_batches: int = 8) -> Dict[str, float]:
+        """No-update validation: D/G losses and accuracies (make_eval_step)
+        over the dataset's first ``num_batches`` batches in index order, so
+        that the epoch order's generator is left alone; the latents of batch i
+        from latent_rng(1000 + i, 0)."""
+        if not hasattr(self, "_eval_step"):
+            self._eval_step = make_eval_step(self.gan, self.cfg)
+        b = self.cfg.model.batch_size
+        sums: Dict[str, torch.Tensor] = {}
+        n = min(num_batches, len(self.dataset) // b)
+        for i in range(n):
+            real = self.dataset[i * b:(i + 1) * b].float() * (2.0 / 255.0) - 1.0
+            z = self.gan.sample_latent(latent_rng(1000 + i, 0), b)
+            for k, v in self._eval_step(self.state, real, z).items():
+                sums[k] = sums[k] + v if k in sums else v
+        return {k: v / max(n, 1) for k, v in host_metrics(sums).items()} if sums else {}
+
+    def profile(self, n_steps: int = 5) -> str:
+        """A torch.profiler trace of ``n_steps`` eager train steps on one
+        batch; returns the trace directory (logs/profile)."""
+        from vitgan_tpu_torch.utils.profiling import trace
+
+        real = self.real_batch(self.batches()[0])
+        trace_dir = os.path.join(self.dirs.logs, "profile")
+        with trace(trace_dir):
+            for _ in range(n_steps):
+                m = self.train_step(self.state, real)
+            host_metrics(m)
+        return trace_dir
+
+    # ------------------------------------------------------------------ loop
+
+    def _save_grids(self, epoch: int) -> None:
+        imgs = self.sample_fn(self._sampling_generator(), self.eval_noise).cpu().numpy()
+        save_png(os.path.join(self.dirs.images, f"epoch_{epoch:04d}.png"), make_grid(imgs))
+        self.metrics.image_grid("samples", make_grid(imgs), self.state.step)
+
+    def _epoch_calls(self):
+        """Yield (metrics of one device call, images) over one epoch."""
+        idx = self.batches()
+        b, k = self.cfg.model.batch_size, self.steps_per_call
+        full = (len(idx) // k) * k
+        for start in range(0, full, k):
+            yield self._device_train_fn(self.state, self.dataset, idx[start:start + k]), k * b
+        rem = len(idx) - full
+        if rem:
+            if self._device_rem_len != rem:
+                self._device_rem_fn = make_device_data_train_fn(self.gan, self.cfg, rem)
+                self._device_rem_len = rem
+            yield self._device_rem_fn(self.state, self.dataset, idx[full:]), rem * b
+
+    def _params_finite(self) -> bool:
+        params = [*self.state.g.parameters(), *self.state.d.parameters()]
+        return bool(torch.stack([torch.isfinite(p).all() for p in params]).all())
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, float]:
-        """Train ``epochs`` (default run.epochs) epochs; returns the last
-        epoch's mean metrics with ``images_per_sec``.  Writes the run
-        directory at the end unless the losses went non-finite."""
+        """Train up to epoch ``epochs`` (default run.epochs) from the epoch
+        cursor; returns the last epoch's mean metrics with
+        ``images_per_sec``."""
         run = self.cfg.run
         epochs = epochs if epochs is not None else run.epochs
-        means: Dict[str, float] = {}
-        for epoch in range(self.epoch, epochs):
-            self.epoch = epoch
-            sums: Dict[str, torch.Tensor] = {}
-            t0, images, steps = time.perf_counter(), 0, 0
-            for i, idx in enumerate(self.batches()):
-                m = self.train_step(self.state, self.real_batch(idx))
-                for k, v in m.items():
-                    sums[k] = sums[k] + v if k in sums else v
-                images += len(idx)
-                steps += 1
-                if run.log_every_steps and (i + 1) % run.log_every_steps == 0:
-                    h = host_metrics({"d": m["d_loss"], "g": m["g_loss"]})
-                    log.info("epoch %d step %d | D %.4f G %.4f", epoch, i + 1, h["d"], h["g"])
-            means = {k: v / steps for k, v in host_metrics(sums).items()} if steps else {}
-            means["images_per_sec"] = images / max(time.perf_counter() - t0, 1e-9)
-            log.info("epoch %d: %s", epoch, {k: round(v, 5) for k, v in means.items()})
-            if run.abort_on_nan and not all(math.isfinite(means.get(k, 0.0))
-                                            for k in ("d_loss", "g_loss")):
-                log.error("non-finite losses at epoch %d (d_loss=%s g_loss=%s) — aborting "
-                          "without writing the run directory", epoch, means.get("d_loss"),
-                          means.get("g_loss"))
-                return means
-        self.epoch = epochs
-        self.save()
-        return means
+        last: Dict[str, float] = {}
+        t_start = time.time()
+        self._poisoned = False  # set when abort_on_nan trips (skip the final save)
+        self.collapsed = False
+        collapse_run = 0  # consecutive epochs at D-wins-everything accuracy
+        if run.fid_every_epochs > 0:
+            self.log.info("run.fid_every_epochs=%d: FID is not ported (ROADMAP.md queue 1 item "
+                          "5); best-checkpoint tracking and early stopping wait for it",
+                          run.fid_every_epochs)
+        try:
+            first = self.dataset[:64].cpu().numpy()
+            save_png(os.path.join(self.dirs.input, "real.png"), make_grid(first))
+            np.save(os.path.join(self.dirs.noise, "eval_noise.npy"), self.eval_noise.numpy())
+
+            for epoch in range(self.epoch, epochs):
+                self.epoch = epoch
+                calls: Dict[str, list] = {}
+                t0, images_done = time.time(), 0
+                for i, (m, n_images) in enumerate(self._epoch_calls()):
+                    images_done += n_images
+                    for k, v in m.items():
+                        calls.setdefault(k, []).append(v)
+                    if run.log_every_steps and (i + 1) % run.log_every_steps == 0:
+                        lm = host_metrics({"d": m["d_loss"].mean(), "g": m["g_loss"].mean()})
+                        self.log.info("epoch %d call %d | D %.4f G %.4f", epoch, i + 1,
+                                      lm["d"], lm["g"])
+                    if preemption.requested():
+                        break
+                if preemption.requested():
+                    # Stop before moving the cursor: the epilogue persists
+                    # this epoch as the next to run, as after a crash.
+                    self.log.info("preemption requested: stopping in epoch %d after %d images",
+                                  epoch, images_done)
+                    break
+                # One device reduction and one host copy per epoch.
+                means = host_metrics({k: torch.cat(v).mean() for k, v in calls.items()})
+                means["images_per_sec"] = images_done / max(time.time() - t0, 1e-9)
+                self.metrics.scalars({f"train/{k}": v for k, v in means.items()}, self.state.step)
+                if run.abort_on_nan and not all(math.isfinite(means.get(k, 0.0))
+                                                for k in ("d_loss", "g_loss")):
+                    self._poisoned = True
+                    last = means
+                    self.log.error("non-finite losses at epoch %d (d_loss=%s g_loss=%s): "
+                                   "aborting; the final save is skipped so that resume restores "
+                                   "the last finite checkpoint (step %s)", epoch,
+                                   means.get("d_loss"), means.get("g_loss"),
+                                   self.ckpts.latest_step())
+                    break
+                # Collapse: epoch-mean D accuracy >= collapse_acc for
+                # collapse_window epochs means D wins everything and G's
+                # gradients vanish, as terminal for a GAN as NaN.
+                if run.collapse_window > 0 and "d_real_acc" in means:
+                    acc = 0.5 * (means["d_real_acc"] + means["d_fake_acc"])
+                    collapse_run = collapse_run + 1 if acc >= run.collapse_acc else 0
+                    tripped = collapse_run >= run.collapse_window
+                    self.metrics.scalar("train/collapse", float(tripped), self.state.step)
+                    if tripped and not self.collapsed:
+                        self.collapsed = True
+                        self.log.error(
+                            "GAN collapse detected at epoch %d: mean D accuracy >= %.2f for %d "
+                            "consecutive epochs (d_loss=%.4f g_loss=%.4f).  %s", epoch,
+                            run.collapse_acc, run.collapse_window, means["d_loss"],
+                            means["g_loss"],
+                            "Aborting (run.collapse_abort=True); the final state is finite and "
+                            "is checkpointed." if run.collapse_abort else
+                            "Continuing (run.collapse_abort=True stops collapsed runs).")
+                        if run.collapse_abort:
+                            last = means
+                            self.epoch = epoch + 1  # the epoch is complete
+                            break
+                if run.sample_grid_every_epochs and (epoch + 1) % run.sample_grid_every_epochs == 0:
+                    self._save_grids(epoch)
+                if run.checkpoint_every_epochs and (epoch + 1) % run.checkpoint_every_epochs == 0:
+                    self.ckpts.save(self.state.step, self.checkpoint_state(),
+                                    {"epoch": epoch + 1, "best_metric": self.best_metric})
+                self.log.info("epoch %d done | %s", epoch,
+                              " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
+                last = means
+                self.epoch = epoch + 1  # a later fit() or resume continues, not repeats
+        finally:
+            # The persisted 'epoch' is the next epoch to run: after a
+            # completed epoch self.epoch already holds it, after a mid-epoch
+            # stop it holds the incomplete epoch, which resume re-runs.  A
+            # further SIGTERM must not unwind the save the first one asked for.
+            with preemption.shield():
+                if not self._poisoned and run.abort_on_nan and not self._params_finite():
+                    self._poisoned = True
+                    self.log.error("non-finite parameters detected at exit")
+                if self._poisoned:
+                    self.log.error("final checkpoint SKIPPED: the train state is non-finite "
+                                   "(last durable step: %s)", self.ckpts.latest_step())
+                else:
+                    self.ckpts.save(self.state.step, self.checkpoint_state(),
+                                    {"epoch": self.epoch, "best_metric": self.best_metric,
+                                     "final": True})
+                    self.save()
+                self.ckpts.wait()
+            self.metrics.save_figures(self.dirs.images)
+            if not self._poisoned:
+                try:  # the last completed epoch's grid (self.epoch is the cursor)
+                    self._save_grids(max(0, self.epoch - 1))
+                except Exception:  # noqa: BLE001 - must not mask the exit's own error
+                    self.log.exception("the final sample grid failed")
+            self.log.info("training finished in %.1fs", time.time() - t_start)
+        return last
 
     def save(self) -> None:
-        """The run directory: config.json and the generator (the EMA weights
-        when run.ema_decay > 0), as ``cli serve`` reads it."""
+        """The run directory ``cli serve`` reads: config.json and the
+        generator (the EMA weights when run.ema_decay > 0)."""
         meta = {"step": self.state.step, "epoch": self.epoch, "seed": self.state.seed}
         save_run(self.run_dir, self.cfg, self.state.ema_state_dict(), meta=meta)

@@ -1,9 +1,15 @@
-"""The port's run directory: ``config.json`` in the JAX schema plus the
-generator's ``state_dict`` saved with ``torch.save`` (``generator.pt``, and
-``generator_best.pt`` when a best checkpoint is kept).
+"""The port's run directory.
 
-Counterpart of vitgan_tpu/utils/run_dirs.restore_run.  The JAX package's
-Orbax checkpoints need JAX to read; a JAX generator reaches the port through
+Counterpart of vitgan_tpu/utils/run_dirs.py: ``construct_directories``
+lays out ``<base>/<name>/{images,input,noise,checkpoints,logs}`` with
+``training.log`` (the reference's artifact contract), ``latest_run`` picks
+the newest run under a base.  The trainer writes full-state checkpoints
+under ``checkpoints/`` (utils/checkpoint.py) and, for serving, the
+generator's ``state_dict`` with ``torch.save`` (``generator.pt``, and
+``generator_best.pt`` when a best checkpoint is kept) beside
+``config.json`` in the JAX schema: ``save_run`` and ``restore_run``, which
+``cli serve`` and ``generate`` read.  The JAX package's Orbax checkpoints
+need JAX to read; a JAX generator reaches the port through
 weights.from_jax_tree or weights.load_npz instead.
 """
 
@@ -11,6 +17,8 @@ from __future__ import annotations
 
 import json
 import os
+import time
+from dataclasses import dataclass
 
 import torch
 
@@ -18,6 +26,44 @@ from vitgan_tpu_torch import config as C
 
 GENERATOR_FILE = "generator.pt"
 BEST_FILE = "generator_best.pt"
+
+
+def default_base() -> str:
+    """$SCRATCH/output, or ./output without SCRATCH."""
+    return os.path.join(os.environ.get("SCRATCH", "."), "output")
+
+
+@dataclass(frozen=True)
+class RunDirs:
+    root: str
+    images: str
+    input: str
+    noise: str
+    checkpoints: str
+    logs: str
+
+    @property
+    def training_log(self) -> str:
+        return os.path.join(self.root, "training.log")
+
+
+def construct_directories(run_name: str | None = None, base: str | None = None) -> RunDirs:
+    """Create and return the run-dir tree; the name defaults to a timestamp."""
+    root = os.path.join(base or default_base(), run_name or time.strftime("%Y%m%d-%H%M%S"))
+    dirs = RunDirs(root=root, **{k: os.path.join(root, k) for k in
+                                 ("images", "input", "noise", "checkpoints", "logs")})
+    for p in (dirs.root, dirs.images, dirs.input, dirs.noise, dirs.checkpoints, dirs.logs):
+        os.makedirs(p, exist_ok=True)
+    return dirs
+
+
+def latest_run(base: str | None = None) -> str | None:
+    """The newest (by name: timestamps sort) run directory under ``base``."""
+    base = base or default_base()
+    if not os.path.isdir(base):
+        return None
+    runs = sorted(d for d in os.listdir(base) if os.path.isdir(os.path.join(base, d)))
+    return os.path.join(base, runs[-1]) if runs else None
 
 
 def save_run(run_dir: str, cfg, generator, meta: dict | None = None) -> None:
