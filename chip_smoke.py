@@ -154,6 +154,20 @@
 19. [optimizer]: one update of the port's Optimizer over highres128's 144.6 M
    parameters with torch.optim's fused and foreach AdamW in turns, beside
    its byte bound.
+20. [eval]: the port's InceptionV3 at 299 px (random_torch_state_dict(0)
+   weights through $INCEPTION_WEIGHTS) and the random-conv extractor on the
+   card against the same modules on the CPU, in f32 (features and logits
+   within 1e-3, the random conv within 1e-4, of max(1, max|CPU|)), the
+   Inception forward timed at batch 64; the on-device FID's moments against
+   the host's FeatureStats on the same features (rtol 1e-3, atol 1e-4);
+   highres128 through Trainer with FID every epoch at the preset's 2,560
+   samples and the `inception` extractor: both FIDs finite, the best
+   checkpoint and generator_best.pt written, one evaluate_fid launching
+   exactly n_batches (80) serving calls' kernels, its seconds split into the
+   generator, the Inception features and the host's Frechet math; then `cli
+   generate --best` and `cli eval --best` (FID, KID, precision/recall and
+   the Inception Score).  Every fit-driven phase before it trains with
+   run.fid_every_epochs=0.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -1338,9 +1352,10 @@ def check_training_gate() -> dict:
 
 def _fit_over(over: dict) -> dict:
     """The run settings of every fit-driven phase: no per-epoch grid (fit's
-    epilogue still samples one), one checkpoint kept."""
+    epilogue still samples one), no FID ([eval] drives it), one checkpoint
+    kept."""
     return {"run.log_every_steps": 0, "run.sample_grid_every_epochs": 0,
-            "run.keep_checkpoints": 1, **over}
+            "run.fid_every_epochs": 0, "run.keep_checkpoints": 1, **over}
 
 
 def _grid_launches(trainer) -> dict:
@@ -2398,7 +2413,7 @@ def _cli_resume(run_dir: str) -> list:
     args = ["train", "--family", "v1", "--dataset", "synthetic", "--run-dir", run_dir]
     for kv in ("data.synthetic_samples=1024", "run.steps_per_epoch=2",
                "runtime.use_pallas=always", "run.sample_grid_every_epochs=0",
-               "run.log_every_steps=0"):
+               "run.fid_every_epochs=0", "run.log_every_steps=0"):
         args += ["--set", kv]
     steps = []
     for extra in (["--epochs", "1"], ["--epochs", "2", "--resume"]):
@@ -2729,6 +2744,238 @@ def l2ref_path() -> dict:
     return {"launches": launches, "worst_grad_rel": worst}
 
 
+# [eval]: the extractors on the card against the same module on the CPU, both
+# in f32 (models/inception.full_f32 keeps TF32 off): |card - CPU| <= TOL *
+# max(1, max|CPU|); the on-device FID against the host's FeatureStats on the
+# same features within FID_RTOL, FID_ATOL.
+INCEPTION_TOL, RANDOM_CONV_TOL = 1e-3, 1e-4
+# With the process's TF32 switches on, the extractor still holds to the CPU
+# within TF32_GUARD_TOL * max(1, max|CPU|): a bar TF32 itself misses (on the
+# H100 its features drift to ~5e-4 of max|CPU|, true f32 to ~4e-7).
+TF32_GUARD_TOL = 1e-4
+FID_RTOL, FID_ATOL = 1e-3, 1e-4
+EVAL_KEYS = ("fid", "kid_mean", "kid_std", "precision", "recall", "inception_score_mean",
+             "inception_score_std")
+
+
+def _feature_err(got, want, tol: float, what: str) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: {got.shape} card against {want.shape} CPU, or non-finite")
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    bar = tol * max(1.0, scale)
+    print(f"  {what}: max_abs_err {err:.6g} (tolerance {bar:.6g}, max|CPU| {scale:.6g})")
+    if not err <= bar:
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+    return err
+
+
+def _fid_close(got: float, want: float, what: str) -> None:
+    print(f"  {what}: {got!r} against {want!r} (rtol {FID_RTOL}, atol {FID_ATOL})")
+    if not abs(got - want) <= FID_ATOL + FID_RTOL * abs(want):
+        raise AssertionError(f"{what}: {got} against {want}")
+
+
+def eval_path(work: str) -> dict:
+    """[eval]: (a) the port's InceptionV3 at 299 px with random_torch_state_dict(0)
+    weights through $INCEPTION_WEIGHTS (the `inception` route a user takes)
+    on 8 uint8 images at 128 px, features and logits against the same module
+    on the CPU, and its forward's time at batch 64; (b) the random-conv
+    extractor against the CPU; (c) the on-device FID's moments against the
+    host's FeatureStats on the same Inception features, 4 batches of 32;
+    (d) highres128 through Trainer at batch 32 on a 2,560-image synthetic
+    dataset, 2 epochs of a few captured steps with FID every epoch at the
+    preset's 2,560 samples: both FIDs finite, the best checkpoint and
+    generator_best.pt written, the launches of one evaluate_fid equal to
+    n_batches serving calls', its seconds split into generator, features and
+    the host's Frechet math; `cli generate --best`; (e) `cli eval --best`."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.data.datasets import synthetic_dataset
+    from vitgan_tpu_torch.models import inception as I
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train import fid as F
+    from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag, smi, out = "[eval]", _smi(), {}
+    os.makedirs(work, exist_ok=True)
+    weights = os.path.join(work, "fid_inception.npz")
+    params = I.convert_torch_state_dict(I.random_torch_state_dict(0))
+    I.save_params(weights, params)
+    saved_env = os.environ.get("INCEPTION_WEIGHTS")
+    os.environ["INCEPTION_WEIGHTS"] = weights
+    try:
+        ex = F.make_feature_extractor("inception", 3, "cuda")
+        if ex.name != "inception" or ex.logits_fn is None or ex.device.type != "cuda":
+            raise AssertionError(f"`inception` took {ex.name} on {ex.device}")
+        cpu = I.InceptionV3.from_params(params, "cpu")
+        rng = np.random.default_rng(SEED)
+        imgs = rng.integers(0, 256, (8, 128, 128, 3), dtype=np.uint8)
+        print(f"{tag} (a) InceptionV3 at 299 px, random_torch_state_dict(0) through "
+              "$INCEPTION_WEIGHTS, 8 uint8 images at 128 px: card against CPU, f32")
+        x = torch.from_numpy(imgs)
+        want = I.inception_features(cpu, x).numpy()
+        out["inception_features_err"] = _feature_err(ex(imgs), want, INCEPTION_TOL, "features")
+        out["inception_logits_err"] = _feature_err(
+            ex.logits_fn(imgs), I.inception_logits(cpu, x).numpy(), INCEPTION_TOL, "logits")
+        prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            print(f"{tag} (a) with the process's TF32 switches on:")
+            out["inception_tf32_switches_on_err"] = _feature_err(
+                ex(imgs), want, TF32_GUARD_TOL, "features (full_f32 in scope)")
+            with torch.inference_mode():  # the network alone, no full_f32
+                card = I.InceptionV3.from_params(params, "cuda")
+                tf32 = card(I.preprocess(x.cuda())).cpu().numpy()
+                del card
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        out["inception_tf32_err"] = err = float(np.abs(tf32 - want).max())
+        print(f"  the same forward in TF32, for the record: max_abs_err {err:.6g} "
+              f"({err / np.abs(want).max():.3g} of max|CPU|)")
+        del cpu
+        x64 = torch.from_numpy(rng.integers(0, 256, (64, 128, 128, 3), dtype=np.uint8)).cuda()
+        out["inception_ms_batch64"] = _time_ms(lambda: ex.feature_fn(x64), 10)
+        print(f"{tag} (a) Inception forward at batch 64 (128 -> 299 px, f32): "
+              f"{out['inception_ms_batch64']:.3f} ms; {smi}")
+        rc, rc_cpu = (F.make_feature_extractor("random_conv", 3, d) for d in ("cuda", "cpu"))
+        imgs64 = x64.cpu().numpy()
+        print(f"{tag} (b) random_conv, 64 images at 128 px: card against CPU, f32")
+        out["random_conv_err"] = _feature_err(rc(imgs64), rc_cpu(imgs64), RANDOM_CONV_TOL,
+                                              "features")
+        out["random_conv_ms_batch64"] = _time_ms(lambda: rc.feature_fn(x64), 10)
+        print(f"{tag} (b) random_conv forward at batch 64: {out['random_conv_ms_batch64']:.3f} "
+              f"ms; {smi}")
+
+        # (c) the on-device moments against the host's, on the same features
+        b, n_batches = 32, 4
+        dataset, _ = synthetic_dataset(256, 128, 3, seed=SEED)
+        fake = rng.uniform(-1, 1, (b, 128, 128, 3)).astype(np.float32)
+        real_idx = rng.choice(len(dataset), size=(n_batches, b), replace=False)
+
+        class Fixed(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.imgs = torch.from_numpy(fake).cuda()
+
+            def forward(self, z):
+                return self.imgs[: z.shape[0]]
+
+        class Bundle:
+            def sample_latent(self, r, n):
+                return torch.from_numpy(r.standard_normal((n, 4), np.float32))
+
+        fid_fn = F.make_on_device_fid(Bundle(), C.highres_config(128), ex.feature_fn, b,
+                                      n_batches, ex.feature_dim)
+        got = fid_fn(Fixed(), torch.from_numpy(dataset).cuda(), real_idx, 0)
+        rs, fs = F.FeatureStats(ex.feature_dim), F.FeatureStats(ex.feature_dim)
+        fake_feats = ex(F.to_uint8(fake))
+        for row in real_idx:
+            rs.update(ex(dataset[row]))
+            fs.update(fake_feats)
+        print(f"{tag} (c) on-device FID moments against FeatureStats, {n_batches} batches of {b}")
+        _fid_close(got, F.frechet_distance(*rs.moments(), *fs.moments()), "FID")
+        out["on_device_fid"] = got
+        del ex, rc, rc_cpu, x64, fid_fn
+        torch.cuda.empty_cache()
+
+        # (d) highres128 through Trainer with FID every epoch
+        run_dir, steps = os.path.join(work, "run"), 3
+        cfg = C.replace(C.highres_config(128), **{
+            "data.dataset": "synthetic", "data.synthetic_samples": 2560, "run.epochs": 2,
+            "run.steps_per_epoch": steps, "run.log_every_steps": 0,
+            "run.sample_grid_every_epochs": 0, "run.keep_checkpoints": 1,
+            "run.fid_every_epochs": 1})
+        m, num = cfg.v2, cfg.run.fid_num_samples
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, run_dir=run_dir, device="cuda", fid_extractor="inception")
+        means = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        with open(os.path.join(trainer.dirs.logs, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        fids = [s["value"] for s in scalars if s["tag"] == "eval/fid"]
+        fid_s = [s["value"] for s in scalars if s["tag"] == "eval/fid_seconds"]
+        print(f"{tag} (d) highres128 at batch {m.batch_size}, depth {m.depth}, {num} FID "
+              f"samples a side, extractor {trainer.extractor.name}: 2 epochs of {steps} steps "
+              f"in {fit_s:.1f} s; FID {fids}, seconds {fid_s} (the first builds the extractor)")
+        if len(fids) != 2 or not all(math.isfinite(v) and v >= 0 for v in fids):
+            raise AssertionError(f"FIDs {fids}")
+        for rel in ("checkpoints/best/state.pt", "checkpoints/best.json", "generator_best.pt"):
+            if not os.path.exists(os.path.join(run_dir, rel)):
+                raise AssertionError(f"fit wrote no {rel}")
+        # one serving call's launches at the batch, then one evaluate_fid's
+        g = trainer._sampling_generator()
+        z = trainer.gan.sample_latent(latent_rng(SEED, 0), m.batch_size)
+        make_sample_fn(trainer.gan, cfg)(g, z)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        make_sample_fn(trainer.gan, cfg)(g, z)
+        torch.cuda.synchronize()
+        per_call = {k: v for k, v in build.LAUNCHES.items() if v}
+        n_batches = num // m.batch_size
+        spans = {}
+        build.reset_launches()
+        t0 = time.perf_counter()
+        # --- the main path ---
+        fid = trainer.evaluate_fid(spans=spans)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        # --- end of the main path ---
+        sec = time.perf_counter() - t0
+        print(f"{tag} (d) one serving call at batch {m.batch_size} launches {per_call}; one "
+              f"evaluate_fid ({n_batches} batches a side) {launches}")
+        if not per_call or launches != {k: n_batches * v for k, v in per_call.items()}:
+            raise AssertionError(f"evaluate_fid launched {launches}, expected {n_batches} x "
+                                 f"{per_call}")
+        _fid_close(fid, fids[-1], "evaluate_fid again at the fit's last step")
+        print(f"{tag} (d) FID at {num} samples: {fid_s[-1]:.3f} s in fit; {sec:.3f} s with the "
+              f"device synchronised around each part: generator {spans['generator']:.3f} s, "
+              f"Inception features and moments {spans['features']:.3f} s, host Frechet/eigh "
+              f"{spans['frechet']:.3f} s; {smi}")
+        out.update({"fids": fids, "fid_seconds": fid_s, "fid_split_seconds": spans,
+                    "fid_split_total_seconds": sec, "n_batches": n_batches,
+                    "launches_per_serving_call": per_call, "launches": launches,
+                    "means": means})
+        del trainer, g
+        torch.cuda.empty_cache()
+        if cli.main(["generate", "--run-dir", run_dir, "--best", "--num-images", "16",
+                     "--seed", "3"]) != 0:
+            raise AssertionError("cli generate --best failed")
+        if np.load(os.path.join(run_dir, "test", "noise.npy")).shape != (16, m.latent_dim):
+            raise AssertionError("cli generate --best wrote no latents")
+        print(f"{tag} (d) `cli generate --best` sampled the best generator")
+
+        # (e) cli eval --best
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["eval", "--run-dir", run_dir, "--best", "--extractor", "inception",
+                           "--kid-subsets", "20", "--seed", "0"])
+        eval_s = time.perf_counter() - t0
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"{tag} (e) `cli eval --best` in {eval_s:.1f} s: "
+              f"{json.dumps({k: res.get(k) for k in (*EVAL_KEYS, 'num_real', 'ckpt_step')})}")
+        if rc != 0 or not all(math.isfinite(res.get(k, math.nan)) for k in EVAL_KEYS):
+            raise AssertionError(f"cli eval --best: rc {rc}, {res}")
+        out["cli_eval"] = {k: res[k] for k in (*EVAL_KEYS, "num_real", "num_fake",
+                                                 "ckpt_step")}
+        out["cli_eval_seconds"] = eval_s
+    finally:
+        if saved_env is None:
+            os.environ.pop("INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["INCEPTION_WEIGHTS"] = saved_env
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2771,6 +3018,7 @@ def main() -> int:
     off_dir = os.path.join(root, "build", "chip_smoke_run_megablock_off")
     train_dir = os.path.join(root, "build", "chip_smoke_train")
     v1_dir = os.path.join(root, "build", "chip_smoke_train_v1")
+    eval_dir = os.path.join(root, "build", "chip_smoke_eval")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -2808,8 +3056,9 @@ def main() -> int:
                 {"data.dataset": "synthetic", "data.synthetic_samples": 256})), 2,
                 "highres128 megablock=auto"),
             "resume": resume_check(), "optimizer": optimizer_update()}
+        evals = eval_path(eval_dir)
     finally:
-        for d in (run_dir, off_dir, train_dir, v1_dir):
+        for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -2898,6 +3147,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"v1": v1}))
     print(json.dumps({"capture": capture}))
+    print(json.dumps({"eval": evals}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

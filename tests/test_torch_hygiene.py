@@ -44,7 +44,8 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
     for name in ("serve", "ops.fused_block", "ops.wgrad", "train.step", "train.trainer",
                  "ops.augment", "data.datasets", "models.vitgan_v1", "models.layers",
                  "utils.checkpoint", "utils.logging", "utils.manifest", "utils.preemption",
-                 "utils.timing", "utils.profiling", "utils.run_dirs"):
+                 "utils.timing", "utils.profiling", "utils.run_dirs", "models.inception",
+                 "train.fid", "train.metrics"):
         assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"

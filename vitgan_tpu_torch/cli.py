@@ -1,21 +1,27 @@
-"""Command-line interface of the port: ``train``, and ``serve`` and
-``generate`` over a run directory (utils/run_dirs.py), with the JAX CLI's
-flags for these commands (vitgan_tpu/cli.py) that the port carries, and
-``--device`` (default cuda).
+"""Command-line interface of the port: ``train``, and ``serve``,
+``generate`` and ``eval`` over a run directory (utils/run_dirs.py), with the
+JAX CLI's flags for these commands (vitgan_tpu/cli.py) that the port
+carries, and ``--device`` (default cuda).
 
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
     python -m vitgan_tpu_torch.cli train --family v1 --dataset synthetic \
         --set runtime.use_pallas=always
     python -m vitgan_tpu_torch.cli train --run-dir RUN --epochs 4 --resume
     python -m vitgan_tpu_torch.cli serve --run-dir RUN [--port 8000 --batch 64]
-    python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0]
+    python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0 --best]
+    python -m vitgan_tpu_torch.cli eval --run-dir RUN [--best --num-samples 2048 \
+        --extractor auto]
 
 ``train`` writes the run directory to ``--run-dir``, else
 $SCRATCH/output/<run name> (./output/<run name> without SCRATCH): its
 full-state checkpoints under ``checkpoints/``, grids, logs and env.json, and
 the generator that ``serve`` and ``generate`` read.  ``--resume`` continues
 from the latest checkpoint, exactly; SIGTERM stops at the next device call
-and checkpoints.  DEV=1
+and checkpoints.  Every epoch's FID (run.fid_every_epochs) keeps the best
+checkpoint and ``generator_best.pt``, which ``--best`` reads.  ``eval``
+writes FID, KID, precision/recall (and the Inception Score when the
+extractor has a classifier head) to <run>/metrics.json and prints them as
+one JSON line.  DEV=1
 shrinks a preset-less run to the smoke config, as in the JAX CLI.  On the
 card, highres128 and deit64 train under their default runtime.megablock=auto
 through the megablock's training kernels, as the JAX package's gate routes
@@ -47,6 +53,8 @@ def _overrides(args) -> dict:
 
 
 PRESETS = ("deit64", "highres128", "highres256")
+# train/fid.EXTRACTORS, kept here so that building the parser imports no torch
+EXTRACTORS = ("auto", "inception", "inception_jax", "inception_torch", "random_conv")
 
 
 def build_cfg(args):
@@ -112,6 +120,60 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    """FID, KID and precision/recall of a run directory's generator against
+    its dataset (vitgan_tpu/cli.py:cmd_eval): one JSON line and
+    <run>/metrics.json."""
+    import numpy as np
+
+    from vitgan_tpu_torch.data.datasets import load_dataset
+    from vitgan_tpu_torch.train.fid import make_feature_extractor, to_uint8
+    from vitgan_tpu_torch.train.metrics import (collect_features, evaluate_generative_metrics,
+                                                inception_score)
+    from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
+    from vitgan_tpu_torch.utils.run_dirs import latest_run, restore_run
+
+    run_dir = args.run_dir or latest_run()
+    if run_dir is None:
+        print("no run directory found", file=sys.stderr)
+        return 1
+    cfg, gan, g, meta = restore_run(run_dir, best=args.best, overrides=_overrides(args),
+                                    device=args.device)
+    m, data = cfg.model, cfg.data
+    b = m.batch_size
+    # Clean reals: load_dataset never flips (data.augment_flip acts inside the train step).
+    imgs, _ = load_dataset(data.dataset, m.image_size, m.channels, data.synthetic_samples,
+                           seed=m.seed)
+    num = min(args.num_samples, len(imgs))
+    extractor = make_feature_extractor(args.extractor, m.channels, args.device)
+    real_feats = collect_features(extractor, (imgs[i:i + b] for i in range(0, len(imgs), b)),
+                                  num)
+    # One fake set, for the features and (with a classifier head) the IS.
+    sample = make_sample_fn(gan, cfg)
+    seed = args.seed or 0
+    fakes, got, call = [], 0, 0
+    while got < num:
+        z = gan.sample_latent(latent_rng(seed, call), b)
+        fakes.append(to_uint8(sample(g, z).cpu().numpy())[:num - got])
+        got += len(fakes[-1])
+        call += 1
+    fakes_u8 = np.concatenate(fakes, 0)
+    fake_feats = np.asarray(extractor(fakes_u8), np.float64)
+    result = evaluate_generative_metrics(
+        real_feats, fake_feats, kid_subset_size=min(args.kid_subset_size, num),
+        kid_subsets=args.kid_subsets, pr_k=args.pr_k, seed=seed)
+    if extractor.logits_fn is not None:
+        result["inception_score_mean"], result["inception_score_std"] = inception_score(
+            extractor.logits_fn(fakes_u8))
+    result.update({"run_dir": run_dir, "ckpt_step": meta.get("step"),
+                   "extractor": args.extractor, "feature_dim": extractor.feature_dim,
+                   "dataset": data.dataset})
+    with open(os.path.join(run_dir, "metrics.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print(json.dumps(result))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Long-lived batched sampling server (serve.py)."""
     import signal
@@ -164,6 +226,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config override, e.g. --set runtime.megablock=off")
     g.add_argument("--device", default="cuda")
     g.set_defaults(fn=cmd_generate)
+
+    e = sub.add_parser("eval", help="FID/KID/precision-recall of a run directory")
+    e.add_argument("--run-dir", default=None,
+                   help="defaults to the latest under $SCRATCH/output")
+    e.add_argument("--best", action="store_true", help="use the best checkpoint's generator")
+    e.add_argument("--num-samples", type=int, default=2048,
+                   help="evaluation budget per side (real and generated)")
+    e.add_argument("--extractor", default="auto", choices=EXTRACTORS)
+    e.add_argument("--kid-subset-size", type=int, default=1000)
+    e.add_argument("--kid-subsets", type=int, default=100)
+    e.add_argument("--pr-k", type=int, default=3,
+                   help="k-NN order for the precision/recall manifolds")
+    e.add_argument("--seed", type=int, default=None)
+    e.add_argument("--set", action="append", metavar="dotted.key=value",
+                   help="config override, e.g. --set runtime.megablock=off")
+    e.add_argument("--device", default="cuda")
+    e.set_defaults(fn=cmd_eval)
 
     v = sub.add_parser("serve", help="batched sampling server over HTTP")
     v.add_argument("--run-dir", action="append", required=True,

@@ -190,12 +190,9 @@ class TrainRunConfig:
     steps_per_epoch: Optional[int] = None  # None => full dataset pass
     checkpoint_every_epochs: int = 50
     sample_grid_every_epochs: int = 1
-    # FID, the best checkpoint and early stopping are ROADMAP.md queue 1
-    # item 5: carried for the schema; the trainer says so once when
-    # fid_every_epochs > 0 and evaluates nothing.
     fid_every_epochs: int = 1
-    fid_num_samples: int = 2560
-    best_metric: str = "fid"
+    fid_num_samples: int = 2560  # ~20 batches of 128 (ref:src/v1/gan.py:207-208)
+    best_metric: str = "fid"  # best-model tracking criterion (ref:src/v1/gan.py:77,136-138)
     log_every_steps: int = 50
     keep_checkpoints: int = 3
     diff_augment: str = ""  # DiffAugment spec for D inputs, e.g. "color,translation"

@@ -14,8 +14,10 @@ device-data route (Trainer.__init__, _epoch_steps_on_device, fit):
   step; on the CPU it is the eager loop;
 - per epoch: one metric readback, the JSONL/TensorBoard scalars
   (utils/logging.MetricLogger), the NaN abort, collapse detection, sample
-  grids from fixed ``eval_noise``, periodic full-state checkpoints
-  (utils/checkpoint.py);
+  grids from fixed ``eval_noise``, FID (``evaluate_fid``, train/fid.py) with
+  the best checkpoint on ``run.best_metric`` and the ``generator_best.pt``
+  that ``generate --best`` and ``serve --best`` read, early stopping, and
+  periodic full-state checkpoints (utils/checkpoint.py);
 - a crash-safe epilogue under ``preemption.shield()``: the final checkpoint
   (skipped when the state is non-finite), with ``epoch`` the next epoch to
   run, then the run directory that ``cli serve`` and ``generate`` read
@@ -24,9 +26,14 @@ device-data route (Trainer.__init__, _epoch_steps_on_device, fit):
   moments and counts, EMA, step, the device generator and the epoch order's
   generator), so a resumed run continues bit for bit.
 
+FID runs between device calls, on the caller's stream under
+``torch.inference_mode()``: it allocates nothing in a captured step's memory
+pool, writes no tensor a captured step reads and draws from no training
+generator, so a run with FID on trains bit for bit like one with it off.
+
 Not here: the host pipeline (a dataset that is not on the device, over
 ``data.on_device_max_bytes`` or with a partial batch) is ROADMAP.md queue 1
-item 3; FID, best tracking and early stopping are item 5.
+item 3.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from vitgan_tpu_torch.config import ExperimentConfig, save_config
 from vitgan_tpu_torch.data.datasets import load_dataset
 from vitgan_tpu_torch.models import build_gan, count_params
 from vitgan_tpu_torch.ops.policy import apply_from_runtime
+from vitgan_tpu_torch.train import fid as FID
 from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
 from vitgan_tpu_torch.train.state import create_train_state
 from vitgan_tpu_torch.train.step import (device_batch, host_metrics, make_device_data_train_fn,
@@ -51,9 +59,10 @@ from vitgan_tpu_torch.train.step import (device_batch, host_metrics, make_device
 from vitgan_tpu_torch.utils import preemption
 from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
 from vitgan_tpu_torch.utils.images import make_grid, save_png
-from vitgan_tpu_torch.utils.logging import MetricLogger, get_logger
+from vitgan_tpu_torch.utils.logging import EarlyStopping, MetricLogger, get_logger
 from vitgan_tpu_torch.utils.manifest import write_env_manifest
-from vitgan_tpu_torch.utils.run_dirs import construct_directories, default_base, save_run
+from vitgan_tpu_torch.utils.run_dirs import (construct_directories, default_base, save_best,
+                                             save_run)
 
 
 def default_run_dir(run_name: Optional[str]) -> str:
@@ -71,7 +80,8 @@ def steps_per_call(cfg: ExperimentConfig, n_samples: int) -> int:
 
 
 class Trainer:
-    def __init__(self, cfg: ExperimentConfig, run_dir: Optional[str] = None, device="cuda"):
+    def __init__(self, cfg: ExperimentConfig, run_dir: Optional[str] = None, device="cuda",
+                 fid_extractor: str = "auto"):
         self.cfg = cfg
         apply_from_runtime(cfg.runtime)
         m = cfg.model
@@ -111,10 +121,16 @@ class Trainer:
         self._g_sample = None
         # Fixed noise for comparable per-epoch grids.
         self.eval_noise = self.gan.sample_latent(latent_rng(m.seed + 1, 0), min(64, m.batch_size))
+        self._extractor_name, self._extractor = fid_extractor, None
+        self._fid_fn, self._fid_n_batches = None, None
         self.best_metric = float("inf")
         self.epoch = 0
         self.collapsed = False
         self._poisoned = False
+        self._early = None
+        if cfg.run.early_stop_patience > 0:
+            self._early = EarlyStopping(patience=cfg.run.early_stop_patience,
+                                        min_delta=cfg.run.early_stop_min_delta)
         self.log.info("model %s: G params %d, D params %d | device %s | %d steps a call",
                       cfg.family, count_params(self.state.g), count_params(self.state.d),
                       self.device, self.steps_per_call)
@@ -143,6 +159,16 @@ class Trainer:
         return device_batch(self.dataset, torch.from_numpy(np.asarray(idx)).to(self.device),
                             self.cfg.data.augment_flip, self.state.rng)
 
+    @property
+    def extractor(self) -> FID.Extractor:
+        """The FID feature extractor on the trainer's device, built at first use."""
+        if self._extractor is None:
+            self._extractor = FID.make_feature_extractor(self._extractor_name,
+                                                         self.cfg.model.channels, self.device)
+            self.log.info("FID extractor %r: %s, %d features", self._extractor_name,
+                          self._extractor.name, self._extractor.feature_dim)
+        return self._extractor
+
     def checkpoint_state(self) -> dict:
         return {"state": self.state.state_dict(),
                 "data_order": self._order_rng.bit_generator.state}
@@ -166,6 +192,28 @@ class Trainer:
             self._g_sample = copy.deepcopy(self.state.g)
         self._g_sample.load_state_dict(self.state.ema_state_dict())
         return self._g_sample
+
+    def evaluate_fid(self, num_samples: Optional[int] = None,
+                     spans: Optional[dict] = None) -> float:
+        """FID of the sampling generator against the device-resident dataset
+        (trainer.py:300-334, its on-device route): n_batches = max(1, num //
+        batch) batches a side, the real indices from default_rng(step)
+        (with replacement when they outnumber the dataset), fake batch i from
+        latent_rng(step, i).  ``spans`` collects the seconds of its parts
+        (train/fid.make_on_device_fid)."""
+        num = min(num_samples or self.cfg.run.fid_num_samples, len(self.dataset))
+        b = self.cfg.model.batch_size
+        n_batches = max(1, num // b)
+        if self._fid_n_batches != n_batches:
+            ex = self.extractor
+            self._fid_fn = FID.make_on_device_fid(self.gan, self.cfg, ex.feature_fn, b,
+                                                  n_batches, ex.feature_dim)
+            self._fid_n_batches = n_batches
+        step = int(self.state.step)
+        n_pop = len(self.dataset)
+        real_idx = np.random.default_rng(step).choice(n_pop, size=(n_batches, b),
+                                                      replace=n_batches * b > n_pop)
+        return self._fid_fn(self._sampling_generator(), self.dataset, real_idx, step, spans)
 
     def validate(self, num_batches: int = 8) -> Dict[str, float]:
         """No-update validation: D/G losses and accuracies (make_eval_step)
@@ -233,10 +281,6 @@ class Trainer:
         self._poisoned = False  # set when abort_on_nan trips (skip the final save)
         self.collapsed = False
         collapse_run = 0  # consecutive epochs at D-wins-everything accuracy
-        if run.fid_every_epochs > 0:
-            self.log.info("run.fid_every_epochs=%d: FID is not ported (ROADMAP.md queue 1 item "
-                          "5); best-checkpoint tracking and early stopping wait for it",
-                          run.fid_every_epochs)
         try:
             first = self.dataset[:64].cpu().numpy()
             save_png(os.path.join(self.dirs.input, "real.png"), make_grid(first))
@@ -300,6 +344,27 @@ class Trainer:
                             break
                 if run.sample_grid_every_epochs and (epoch + 1) % run.sample_grid_every_epochs == 0:
                     self._save_grids(epoch)
+                if run.fid_every_epochs and (epoch + 1) % run.fid_every_epochs == 0:
+                    t_fid = time.time()
+                    fid_val = self.evaluate_fid()
+                    means["fid"] = fid_val
+                    self.metrics.scalar("eval/fid", fid_val, self.state.step)
+                    # images_per_sec excludes eval; its wall time is logged apart.
+                    self.metrics.scalar("eval/fid_seconds", time.time() - t_fid,
+                                        self.state.step)
+                    crit = means.get(run.best_metric, fid_val)
+                    if crit < self.best_metric:
+                        self.best_metric = crit
+                        # The keys resume() reads: resume(best=True) keeps the tracking.
+                        self.ckpts.save_best(self.state.step, self.checkpoint_state(),
+                                             run.best_metric, crit,
+                                             {"epoch": epoch + 1, "best_metric": crit})
+                        save_best(self.run_dir, self.state.ema_state_dict())
+                    if self._early is not None and self._early.step(fid_val):
+                        self.log.info("early stopping at epoch %d (FID %.3f)", epoch, fid_val)
+                        last = means
+                        self.epoch = epoch + 1  # the epoch is complete
+                        break
                 if run.checkpoint_every_epochs and (epoch + 1) % run.checkpoint_every_epochs == 0:
                     self.ckpts.save(self.state.step, self.checkpoint_state(),
                                     {"epoch": epoch + 1, "best_metric": self.best_metric})

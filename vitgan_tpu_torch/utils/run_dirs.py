@@ -6,9 +6,11 @@ lays out ``<base>/<name>/{images,input,noise,checkpoints,logs}`` with
 the newest run under a base.  The trainer writes full-state checkpoints
 under ``checkpoints/`` (utils/checkpoint.py) and, for serving, the
 generator's ``state_dict`` with ``torch.save`` (``generator.pt``, and
-``generator_best.pt`` when a best checkpoint is kept) beside
+``generator_best.pt`` beside each best checkpoint, ``save_best``) next to
 ``config.json`` in the JAX schema: ``save_run`` and ``restore_run``, which
-``cli serve`` and ``generate`` read.  The JAX package's Orbax checkpoints
+``cli serve``, ``generate`` and ``eval`` read (``--best``: the best
+generator, with the best checkpoint's ``checkpoints/best.json`` as its
+metadata).  The JAX package's Orbax checkpoints
 need JAX to read; a JAX generator reaches the port through
 weights.from_jax_tree or weights.load_npz instead.
 """
@@ -66,16 +68,28 @@ def latest_run(base: str | None = None) -> str | None:
     return os.path.join(base, runs[-1]) if runs else None
 
 
+def _save_generator(path: str, generator) -> None:
+    """A generator's weights (a module or its state_dict) on the CPU, written
+    to a temporary name and renamed."""
+    sd = generator if isinstance(generator, dict) else generator.state_dict()
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
 def save_run(run_dir: str, cfg, generator, meta: dict | None = None) -> None:
     """config.json, the generator's weights (a module or its state_dict) and
     meta.json."""
     os.makedirs(run_dir, exist_ok=True)
     C.save_config(cfg, os.path.join(run_dir, "config.json"))
-    sd = generator if isinstance(generator, dict) else generator.state_dict()
-    state = {k: v.detach().cpu() for k, v in sd.items()}
-    torch.save(state, os.path.join(run_dir, GENERATOR_FILE))
+    _save_generator(os.path.join(run_dir, GENERATOR_FILE), generator)
     with open(os.path.join(run_dir, "meta.json"), "w") as f:
         json.dump(meta or {}, f)
+
+
+def save_best(run_dir: str, generator) -> None:
+    """The best generator's weights, ``generator_best.pt`` (the run's
+    config.json is the trainer's)."""
+    _save_generator(os.path.join(run_dir, BEST_FILE), generator)
 
 
 def restore_run(run_dir: str, best: bool = False, overrides: dict | None = None,
@@ -100,7 +114,8 @@ def restore_run(run_dir: str, best: bool = False, overrides: dict | None = None,
         g = gan.generator_init(None, device="meta")
     load_into(g, torch.load(path, map_location="cpu", weights_only=True), assign=True)
     g.to(device)
-    meta_path = os.path.join(run_dir, "meta.json")
+    meta_path = (os.path.join(run_dir, "checkpoints", "best.json") if best
+                 else os.path.join(run_dir, "meta.json"))
     meta = {}
     if os.path.exists(meta_path):
         with open(meta_path) as f:

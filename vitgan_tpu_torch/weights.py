@@ -9,12 +9,15 @@ those of models/vitgan_v2.Discriminator.  A v1 variables dict
 {'params': ..., 'state': ...} maps whole: the discriminator's state leaves
 blocks[i].msha.isr.{sigma0, u} become the buffers of the same names in
 models/vitgan_v1.Discriminator.
-No transposes: dense weights are (in, out) on both sides.
+No transposes: dense weights are (in, out) on both sides.  The FID
+extractors' convolutions are the exception: the JAX trees hold HWIO kernels,
+the port's modules OIHW, so ``random_conv_from_jax`` and
+``inception_from_jax`` transpose them once.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -73,3 +76,25 @@ def load_into(module: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
     module.load_state_dict({k: v.to(dtype=own[k].dtype,
                                     device=v.device if assign else own[k].device)
                             for k, v in state_dict.items()}, assign=assign)
+
+
+def _oihw(w_hwio) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(w_hwio), (3, 2, 0, 1))))
+
+
+def random_conv_from_jax(params) -> List[torch.Tensor]:
+    """The random-conv FID extractor's kernels, a list of HWIO arrays (the
+    JAX package's ``_random_conv_params``) -> OIHW float32 tensors."""
+    return [_oihw(w).float() for w in params]
+
+
+def inception_from_jax(params: Dict[str, Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+    """A folded Inception tree ``{name: {"w": HWIO, "b"}}`` (plus ``fc``:
+    ``{"w": (2048, classes), "b"}``, kept as it is) -> the state_dict of
+    models/inception.InceptionV3."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in params.items():
+        w = np.asarray(leaf["w"], np.float32)
+        out[f"{name}.w"] = torch.from_numpy(w.copy()) if name == "fc" else _oihw(w)
+        out[f"{name}.b"] = torch.from_numpy(np.array(leaf["b"], np.float32))
+    return out
