@@ -168,6 +168,26 @@
    generate --best` and `cli eval --best` (FID, KID, precision/recall and
    the Inception Score).  Every fit-driven phase before it trains with
    run.fid_every_epochs=0.
+21. [data]: writes CIFAR-10's python archive from seeded numpy (five
+   data_batch pickles of 10,000 images and test_batch, as a directory and as
+   cifar-10-python.tar.gz), a 5,000-image CIFAR set and MNIST's IDX files
+   (60,000 plain, 10,000 gzipped), timed; decodes them (the archive
+   byte-equal to the directory) and resizes CIFAR-10 32 -> 128 px, held to
+   the C++ path (numpy bit-equal on 64 images).  Trains highres128 at its
+   defaults over that set (50,000 x 128 x 128 x 3 = 2.46 GB, over
+   data.on_device_max_bytes): the host route with the native assembler, a
+   warm-up epoch, a timed epoch of DATA_STEPS captured steps by fit
+   (launches per step asserted, TRAIN_KERNELS["auto"]), a profiled epoch
+   (device busy, idle share), the pipeline's host ms per batch (assembly,
+   copy issue), the copies' device time and the consumer's waits; one
+   host-route FID (reals from a pipeline epoch, random conv, 2,560 a side)
+   with its seconds, split and launches (80 serving calls').  Then the same
+   on the device route (the limit raised, the same seed): the same orders,
+   the host's batches bit-equal to the device's gathers, launches a step
+   equal, the states after 3 x DATA_STEPS steps bit-equal or within the
+   captured-against-eager bounds (printed which), the host-to-device step
+   ratio.  Then v1 at its defaults with drop_last=False over the 5,000
+   images: 39 batches of 128 and one of 8, all trained in one epoch.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -561,6 +581,16 @@ def check_kernels(only: tuple = ()) -> dict:
         A.flash_forward(q, k, v, 64.0)[0], A.attention_reference(q, k, v, "dot", 64.0),
         "flash_attn_fwd long")
     out["flash_attn_fwd"]["long_seq_ms"] = _time_ms(lambda: A.flash_forward(q, k, v, 64.0), 5)
+    n = 16385
+    bound_ms, bound_by = _bound(4.0 * n * n * 64, 4 * n * 64 * 2 + n * 4)
+    out["flash_attn_fwd"].update({
+        "long_seq_bound_ms": bound_ms, "long_seq_bound_by": bound_by,
+        "long_seq_plain_ms": _time_ms(lambda: A.attention_reference(q, k, v, "dot", 64.0), 2),
+        "long_seq_library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5)})
+    rec = out["flash_attn_fwd"]
+    print(f"  flash_attn_fwd long: {rec['long_seq_ms']:.4f} ms (plain "
+          f"{rec['long_seq_plain_ms']:.4f} ms, SDPA {rec['long_seq_library_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by})")
     return out
 
 
@@ -1350,6 +1380,15 @@ def check_training_gate() -> dict:
     return routes
 
 
+def _settle() -> None:
+    """Before a timed fit: flush the files the previous fit's epilogue wrote
+    (its checkpoint and generator, 2.2 GB at highres128).  A fit that starts
+    while the kernel writes them back runs its first seconds slower (the
+    highres128 captured step read 139-166 ms against 122 on an H100 80GB HBM3
+    at 700 W); a training run's epochs follow no such write."""
+    os.sync()
+
+
 def _fit_over(over: dict) -> dict:
     """The run settings of every fit-driven phase: no per-epoch grid (fit's
     epilogue still samples one), no FID ([eval] drives it), one checkpoint
@@ -1449,6 +1488,7 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     trainer.fit(epochs=1)  # the warm-up epoch: its first step runs eagerly, then is captured
     print(f"{tag} warm-up epoch ({steps} steps, the capture among them) in "
           f"{time.perf_counter() - t0:.2f} s")
+    _settle()
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -1539,6 +1579,7 @@ def train_deit64(steps: int = 3) -> dict:
         host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
         grid = _grid_launches(trainer)
         trainer.fit(epochs=1)  # the warm-up epoch, the capture among its steps
+        _settle()
         torch.cuda.synchronize()
         build.reset_launches()
         # --- the deit64 path ---
@@ -1625,6 +1666,7 @@ def train_breakdown(trainer, step_ms: float, recompute: bool) -> dict:
     from vitgan_tpu_torch.ops import fused_mlp as FM
 
     st = trainer.state
+    _settle()
 
     def profiled(captured: bool):
         idx = trainer.batches()
@@ -2101,6 +2143,7 @@ def train_v1_main_path(run_dir: str) -> tuple:
         trainer.fit(epochs=1)  # the warm-up epoch: its first step runs eagerly, then is captured
         print(f"{tag} warm-up epoch ({steps} steps, the capture among them) in "
               f"{time.perf_counter() - t0:.2f} s")
+        _settle()
         torch.cuda.synchronize()
         build.reset_launches()
         t0 = time.perf_counter()
@@ -2196,6 +2239,7 @@ def train_v1_fused(steps: int = 3) -> tuple:
         host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
         grid = _grid_launches(trainer)
         trainer.fit(epochs=1)
+        _settle()
         torch.cuda.synchronize()
         build.reset_launches()
         # --- the v1 bwd_fusion=fused path ---
@@ -2976,6 +3020,342 @@ def eval_path(work: str) -> dict:
     return out
 
 
+DATA_STEPS = 8  # run.steps_per_epoch of each [data] training epoch
+
+
+def _write_cifar(root: str, n_per_batch: int, archive: bool = False) -> float:
+    """CIFAR-10's python archive from seeded numpy: five ``data_batch_*``
+    pickles of ``n_per_batch`` images and ``test_batch``, each the dict the
+    real files hold (b"data" (n, 3072) uint8 in CHW order, b"labels" a list of
+    ints); with ``archive`` only ``cifar-10-python.tar.gz``.  Seconds taken."""
+    import pickle
+    import tarfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"batch_label": name.encode(),
+                         b"data": rng.integers(0, 256, (n_per_batch, 3072), dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, n_per_batch).tolist()}, f, protocol=2)
+    if archive:
+        with tarfile.open(os.path.join(root, "cifar-10-python.tar.gz"), "w:gz",
+                          compresslevel=1) as tf:
+            tf.add(d, arcname="cifar-10-batches-py")
+        shutil.rmtree(d)
+    return time.perf_counter() - t0
+
+
+def _write_mnist(root: str) -> float:
+    """MNIST's IDX files from seeded numpy: 60,000 training digits (plain
+    files) and 10,000 test digits (gzipped).  Seconds taken."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    os.makedirs(root, exist_ok=True)
+    for prefix, n, opener, ext in (("train", 60000, open, ""), ("t10k", 10000, gzip.open, ".gz")):
+        x = rng.integers(0, 256, (n, 28, 28), dtype=np.uint8)
+        y = rng.integers(0, 10, n).astype(np.uint8)
+        with opener(os.path.join(root, f"{prefix}-images-idx3-ubyte{ext}"), "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28) + x.tobytes())
+        with opener(os.path.join(root, f"{prefix}-labels-idx1-ubyte{ext}"), "wb") as f:
+            f.write(struct.pack(">II", 2049, n) + y.tobytes())
+    return time.perf_counter() - t0
+
+
+def _profiled_epoch(trainer) -> dict:
+    """One epoch of the trainer's device calls (fit's loop body, without its
+    epilogue) under torch.profiler: wall ms a step, the kernels' device time
+    a step (busy) and each kind of copy's (memcpy and memset, by the
+    profiler's name: the pipeline's batches are "Memcpy HtoD (Pinned ->
+    Device)")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vitgan_tpu_torch.train.step import host_metrics
+
+    _settle()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for m, n_images in trainer._epoch_calls():
+            steps += n_images // trainer.cfg.model.batch_size
+        host_metrics({"d": m["d_loss"].mean()})
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    busy, copies = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = e.self_device_time_total / 1e3 / steps
+            if e.key.startswith(("Memcpy", "Memset")):
+                copies[e.key] = copies.get(e.key, 0.0) + t
+            else:
+                busy += t
+    return {"steps": steps, "wall_ms": wall, "busy_ms": busy or None, "copy_ms": copies}
+
+
+def _data_fit(tag: str, cfg, run_dir: str) -> tuple:
+    """highres128 through Trainer on ``cfg``'s route: a warm-up epoch (the
+    capture), a timed epoch by fit (launches counted), a profiled epoch.
+    Returns (trainer, record, the timed epoch's launches, the orders the
+    pipeline drew, the state before the first step)."""
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    setup = time.perf_counter() - t0
+    start = _flat_state(trainer.state)
+    orders, draw = [], trainer.pipeline._epoch_order
+
+    def record():
+        orders.append(draw())
+        return orders[-1]
+
+    trainer.pipeline._epoch_order = record
+    grid = _grid_launches(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(epochs=1)  # the warm-up epoch: its first step eager, then captured
+    warm = time.perf_counter() - t0
+    _settle()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # --- the main path ---
+    means = trainer.fit(epochs=2)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    # --- end of the main path ---
+    stats = trainer.pipeline.stats
+    peak = torch.cuda.max_memory_allocated()
+    per_step = _check_fit_launches(tag, launches, TRAIN_KERNELS["auto"], DATA_STEPS, grid)
+    ms = 1e3 * cfg.model.batch_size / means["images_per_sec"]
+    prof = _profiled_epoch(trainer)
+    rec = {"route": trainer.route, "assembler": trainer.pipeline.assembler,
+           "setup_s": setup, "warm_up_epoch_s": warm, "ms_per_step": ms,
+           "img_per_s": means["images_per_sec"], "peak_allocated_bytes": peak,
+           "profiled": prof,
+           "idle_share": None if prof["busy_ms"] is None else 1 - prof["busy_ms"] / ms,
+           "d_loss": means["d_loss"], "g_loss": means["g_loss"]}
+    if trainer.route == "host":
+        n = stats.batches
+        rec["pipeline"] = {"batches": n, "assemble_ms_per_batch": 1e3 * stats.assemble_s / n,
+                           "issue_ms_per_batch": 1e3 * stats.issue_s / n,
+                           "waits": stats.waits, "wait_ms_total": 1e3 * stats.wait_s}
+    print(f"{tag} set up in {setup:.1f} s (decode, resize, model), warm-up epoch {warm:.2f} s; "
+          f"{DATA_STEPS} captured steps by fit: {ms:.3f} ms/step, peak "
+          f"{peak / 2**30:.2f} GiB; profiled epoch: wall {prof['wall_ms']:.3f} ms/step, device "
+          f"busy {prof['busy_ms']} ms/step, copies (ms/step) {prof['copy_ms']}; idle share "
+          f"{rec['idle_share']}")
+    if trainer.route == "host":
+        print(f"{tag} pipeline ({trainer.pipeline.assembler}): {rec['pipeline']}")
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
+        raise AssertionError(f"{tag} non-finite train metrics: {means}")
+    return trainer, rec, per_step, list(orders), start
+
+
+def data_path(work: str) -> tuple:
+    """[data]: CIFAR-10 and MNIST files written from seeded numpy, decoded and
+    resized; highres128 at its defaults over the 50,000-image CIFAR-10 set at
+    128 px (2.46 GB, over data.on_device_max_bytes) on the host route, then
+    on the device route with the limit raised, both with augment_flip=False:
+    the same orders, bit-equal batches, equal launches a step, their states
+    compared; v1's partial batch; FID on the host route.  Returns (the
+    record, the host route's launches over its timed epoch)."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.data import transforms as TR
+    from vitgan_tpu_torch.data.datasets import load_cifar10, load_dataset
+    from vitgan_tpu_torch.data.pipeline import normalize_to_unit
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import device_batch
+
+    tag, smi = "[data]", _smi()
+    out = {"card": smi}
+    cifar, tar = os.path.join(work, "cifar10"), os.path.join(work, "cifar10_tar")
+    small, mnist = os.path.join(work, "cifar10_5k"), os.path.join(work, "mnist")
+    out["write_s"] = {"cifar10": _write_cifar(cifar, 10000),
+                      "cifar10_tar_gz": _write_cifar(tar, 10000, archive=True),
+                      "cifar10_5k": _write_cifar(small, 1000), "mnist": _write_mnist(mnist)}
+    print(f"{tag} {smi}: wrote CIFAR-10 (5 x 10,000 + 10,000 images), its .tar.gz, a "
+          f"5,000-image CIFAR set and MNIST (60,000 + 10,000), seconds {out['write_s']}")
+
+    # Decode and resize.
+    t0 = time.perf_counter()
+    x32, y = load_cifar10(cifar)
+    t_decode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xa, ya = load_dataset("cifar10", root=tar, image_size=32)
+    t_archive = time.perf_counter() - t0
+    if xa.tobytes() != x32.tobytes() or ya.tobytes() != y.tobytes():
+        raise AssertionError(f"{tag} the .tar.gz decodes to other bytes than the directory")
+    del xa, ya
+    before = dict(TR.RESIZES)
+    t0 = time.perf_counter()
+    x128 = TR.reference_transforms(x32, 128)
+    t_resize = time.perf_counter() - t0
+    if TR.RESIZES["native"] != before["native"] + 1 or TR.RESIZES["numpy"] != before["numpy"]:
+        raise AssertionError(f"{tag} the resize did not take the native path: {TR.RESIZES}")
+    sub = TR._resize_numpy(x32[:64], 128, 128)
+    if sub.tobytes() != x128[:64].tobytes():
+        raise AssertionError(f"{tag} the numpy resize differs from the native one")
+    t0 = time.perf_counter()
+    xm, _ = load_dataset("mnist", root=mnist, image_size=32)
+    t_mnist = time.perf_counter() - t0
+    if x128.shape != (50000, 128, 128, 3) or xm.shape != (60000, 32, 32, 3):
+        raise AssertionError(f"{tag} shapes {x128.shape} {xm.shape}")
+    out.update({"decode_s": t_decode, "archive_extract_decode_s": t_archive,
+                "resize_32_to_128_s": t_resize, "mnist_decode_s": t_mnist,
+                "dataset_bytes": x128.nbytes})
+    print(f"{tag} {smi}: CIFAR-10 decoded in {t_decode:.2f} s (from the .tar.gz, extracted, "
+          f"{t_archive:.2f} s, byte-equal), resized 32 -> 128 natively in {t_resize:.2f} s "
+          f"({x128.nbytes} bytes; numpy bit-equal on 64 images), MNIST decoded in "
+          f"{t_mnist:.2f} s")
+    del x32, xm, x128
+
+    # highres128 on the host route, then on the device route.
+    base = C.highres_config(128)
+    over = _fit_over({"data.data_dir": cifar, "run.epochs": 2,
+                      "run.steps_per_epoch": DATA_STEPS, "run.fid_num_samples": 2560})
+    cfg = C.replace(base, **over)
+    if cfg.data.dataset != "cifar10" or cfg.data.augment_flip or \
+            out["dataset_bytes"] <= cfg.data.on_device_max_bytes:
+        raise AssertionError(f"{tag} the preset's data defaults changed: {cfg.data}")
+    host_t, host, host_launch, host_orders, start = _data_fit(
+        f"{tag} host route", cfg, os.path.join(work, "run_host"))
+    if host["route"] != "host" or host["assembler"] != "native":
+        raise AssertionError(f"{tag} highres128 over CIFAR-10 took the {host['route']} route "
+                             f"with the {host['assembler']} assembler")
+    host_state = _flat_state(host_t.state)
+
+    # FID on the host route: reals from an epoch of the pipeline.
+    host_t._extractor_name = "random_conv"
+    host_t.extractor  # built outside the timing
+    torch.cuda.synchronize()
+    build.reset_launches()
+    spans: dict = {}
+    t0 = time.perf_counter()
+    fid = host_t.evaluate_fid(spans=spans)
+    fid_s = time.perf_counter() - t0
+    fid_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    calls = -(-cfg.run.fid_num_samples // cfg.model.batch_size)
+    if not math.isfinite(fid) or fid_launches.get("flash_attn_fwd") != 12 * calls or \
+            fid_launches.get("ln_qkv_fwd") != 12 * calls:
+        raise AssertionError(f"{tag} host-route FID {fid}, launches {fid_launches}")
+    host["fid"] = {"extractor": "random_conv", "samples": cfg.run.fid_num_samples, "fid": fid,
+                   "seconds": fid_s, "split_s": spans, "launches": fid_launches}
+    print(f"{tag} {smi}: host-route FID {fid:.4f} ({cfg.run.fid_num_samples} a side, random "
+          f"conv) in {fid_s:.3f} s, split {spans}; launches {fid_launches} ({calls} serving "
+          "calls)")
+    pipe_images = host_t.pipeline.images
+    del host_t
+    torch.cuda.empty_cache()
+
+    dev_cfg = C.replace(cfg, **{"data.on_device_max_bytes": 3 << 30})
+    dev_t, dev, dev_launch, dev_orders, _ = _data_fit(
+        f"{tag} device route", dev_cfg, os.path.join(work, "run_device"))
+    if dev["route"] != "device":
+        raise AssertionError(f"{tag} the raised limit did not take the device route")
+    if len(host_orders) != len(dev_orders) or any(
+            not np.array_equal(a, b) for a, b in zip(host_orders, dev_orders)):
+        raise AssertionError(f"{tag} the two routes drew other orders")
+    # Bit-equal batches: the host's assembly against the device's gather.
+    order = dev_orders[1]
+    b = cfg.model.batch_size
+    for i in range(DATA_STEPS):
+        idx = order[i * b:(i + 1) * b]
+        host_x = torch.from_numpy(normalize_to_unit(pipe_images[idx])).cuda()
+        dev_x = device_batch(dev_t.dataset, torch.from_numpy(idx).cuda(), False, None)
+        if not torch.equal(host_x, dev_x):
+            raise AssertionError(f"{tag} batch {i} differs between the routes")
+    if host_launch != dev_launch:
+        raise AssertionError(f"{tag} launches a step differ: host {host_launch}, device "
+                             f"{dev_launch}")
+    dev_state = _flat_state(dev_t.state)
+    start = {k: start.get(k, torch.zeros_like(v)) for k, v in dev_state.items()}
+    groups = _hold_states(f"{tag} host against device route", start, dev_state, host_state)
+    bit_equal = all(r["bit_equal"] == r["leaves"] for r in groups.values())
+    dev_t._extractor_name = "random_conv"
+    dev_t.extractor
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_fid = dev_t.evaluate_fid()
+    dev_fid_s = time.perf_counter() - t0
+    ratio = host["ms_per_step"] / dev["ms_per_step"]
+    out.update({"host_route": host, "device_route": dev, "host_to_device_step_ratio": ratio,
+                "launches_per_step": {k: v / DATA_STEPS for k, v in host_launch.items() if v},
+                "states_bit_equal": bit_equal, "state_groups": groups,
+                "device_route_fid": dev_fid, "device_route_fid_s": dev_fid_s})
+    states = ("bit-equal" if bit_equal
+              else "NOT bit-equal (within the captured-against-eager bounds)")
+    print(f"{tag} {smi}: highres128 host route {host['ms_per_step']:.3f} ms/step against the "
+          f"device route's {dev['ms_per_step']:.3f} (ratio {ratio:.4f}); the same "
+          f"{len(dev_orders)} orders, {DATA_STEPS} batches bit-equal, equal launches a step; "
+          f"after {3 * DATA_STEPS} steps the states are {states}; device-route FID "
+          f"{dev_fid:.4f} in {dev_fid_s:.3f} s")
+    del dev_t
+    torch.cuda.empty_cache()
+    out["v1_partial"] = _v1_partial_batch(small, os.path.join(work, "run_v1"), tag, smi)
+    return out, host_launch
+
+
+def _v1_partial_batch(root: str, run_dir: str, tag: str, smi: str) -> dict:
+    """v1 at its reference defaults with drop_last=False over a 5,000-image
+    CIFAR-format set: 39 batches of 128 and one of 8 on the host route, one
+    epoch that trains all 5,000 images."""
+    import torch
+
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    cfg = _v1_cfg(**_fit_over({"data.dataset": "cifar10", "data.data_dir": root,
+                               "data.drop_last": False, "run.epochs": 1}))
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    if trainer.route != "host" or trainer.pipeline.assembler != "native":
+        raise AssertionError(f"{tag} v1 partial batch: {trainer.route} route, "
+                             f"{trainer.pipeline.assembler}")
+    sizes, epoch = [], trainer.pipeline.epoch
+
+    def counting(max_batches=None):
+        for x, y_ in epoch(max_batches):
+            sizes.append(x.shape[0])
+            yield x, y_
+
+    trainer.pipeline.epoch = counting
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means = trainer.fit()
+    sec = time.perf_counter() - t0
+    graphs = {n: len(fn.graphs) for n, fn in trainer._host_step_fns.items()}
+    if sum(sizes) != 5000 or sizes[-1] != 8 or len(sizes) != 40 or \
+            trainer.state.step != 40 or sorted(graphs) != [8, 128]:
+        raise AssertionError(f"{tag} v1 partial batch: batches {sizes}, step "
+                             f"{trainer.state.step}, graphs {graphs}")
+    if not math.isfinite(means["d_loss"]):
+        raise AssertionError(f"{tag} v1 partial batch: {means}")
+    print(f"{tag} {smi}: v1 defaults, drop_last=False over 5,000 images: 39 x 128 + 1 x 8 "
+          f"trained in one epoch of {sec:.2f} s (with its captures and the epilogue), "
+          f"{means['images_per_sec']:.1f} img/s; graphs by batch size {graphs}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"batches": len(sizes), "images": sum(sizes), "last_batch": sizes[-1],
+            "epoch_s": sec, "img_per_s": means["images_per_sec"], "graphs": graphs}
+
+
 def main() -> int:
     import torch
 
@@ -3019,6 +3399,7 @@ def main() -> int:
     train_dir = os.path.join(root, "build", "chip_smoke_train")
     v1_dir = os.path.join(root, "build", "chip_smoke_train_v1")
     eval_dir = os.path.join(root, "build", "chip_smoke_eval")
+    data_dir = os.path.join(root, "build", "chip_smoke_data")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -3057,8 +3438,9 @@ def main() -> int:
                 "highres128 megablock=auto"),
             "resume": resume_check(), "optimizer": optimizer_update()}
         evals = eval_path(eval_dir)
+        data, data_launches = data_path(data_dir)
     finally:
-        for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir):
+        for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -3069,6 +3451,9 @@ def main() -> int:
               "proj_ln_mlp_fwd": _ln_mlp_launches(launches, "proj_ln_mlp_fwd"),
               "ln_mlp_train_fwd": _ln_mlp_launches(train_launches, "ln_mlp_train_fwd")}
     forms = {**ln_mlp, "megablock_bwd_mlp": _mb_mlp_launches(train_launches)}
+    host_forms = {"ln_mlp_train_fwd": _ln_mlp_launches(data_launches,
+                                                       "ln_mlp_train_fwd")["launches"],
+                  "megablock_bwd_mlp": _mb_mlp_launches(data_launches)["launches"]}
     for name, rec in forms.items():
         print(f"[launches] {name}: {rec['launches']} stage launches in {rec['calls']} calls "
               f"({rec['stage_launches']})")
@@ -3128,6 +3513,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("flash_attn_fwd", "ln_qkv_fwd"):
             k["launches_train"] = train_launches[k["name"]]
+        if k["name"] in TRAIN_KERNELS["auto"]:
+            # the highres128 train path over CIFAR-10 on the host route ([data])
+            k["launches_train_host_route"] = host_forms.get(k["name"],
+                                                            data_launches.get(k["name"], 0))
         if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused", "flash_attn_bwd_dq",
                          "flash_attn_bwd_dkv"):
             k["launches_train_megablock_off"] = off_train_launches[k["name"]]
@@ -3148,6 +3537,7 @@ def main() -> int:
     print(json.dumps({"v1": v1}))
     print(json.dumps({"capture": capture}))
     print(json.dumps({"eval": evals}))
+    print(json.dumps({"data": data}, default=float))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,13 @@
 """Import hygiene of the PyTorch port: vitgan_tpu_torch and chip_smoke.py
-import nothing of JAX and nothing of the JAX package (vitgan_tpu), and
-importing them builds no kernel and imports no triton."""
+import nothing of JAX and nothing of the JAX package (vitgan_tpu), name
+nothing of the repo's native/ directory (the JAX package's C++ loader and
+its library), and importing them builds no kernel, builds or loads no
+loader library and imports no triton."""
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -34,8 +37,9 @@ for m in pkgutil.walk_packages(vitgan_tpu_torch.__path__, "vitgan_tpu_torch."):
     __import__(m.name)
     names.append(m.name)
 from vitgan_tpu_torch.ops import build
+from vitgan_tpu_torch.data import native
 print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
-                  "libs": len(build._LIBS)}))
+                  "libs": len(build._LIBS), "loader": native._LIB is not None}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -45,11 +49,13 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
                  "ops.augment", "data.datasets", "models.vitgan_v1", "models.layers",
                  "utils.checkpoint", "utils.logging", "utils.manifest", "utils.preemption",
                  "utils.timing", "utils.profiling", "utils.run_dirs", "models.inception",
-                 "train.fid", "train.metrics"):
+                 "train.fid", "train.metrics", "data.native", "data.pipeline",
+                 "data.transforms"):
         assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"
     assert res["libs"] == 0  # no kernel library built or loaded at import
+    assert not res["loader"]  # nor the C++ batch assembler
 
 
 def _imports(path):
@@ -80,3 +86,27 @@ def test_every_hopper_source_is_a_built_source():
     assert set(chip_smoke.HOPPER_SOURCES) <= set(build.SOURCES)
     for name in chip_smoke.HOPPER_SOURCES:
         assert os.path.exists(os.path.join(build.CSRC, f"{name}.cu"))
+
+
+def test_no_port_file_names_the_jax_loader_directory():
+    """The port keeps its own copy of the C++ loader (data/csrc/loader.cpp)
+    and builds it into ops/_build/; no port file names the repo's native/
+    directory, where the JAX package builds its libvitgan_loader.so."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cpp", ".cu", ".cuh", ".h"))]
+    pattern = re.compile(r"(?<![\w.])native/|[\"']native[\"']\s*\)|libvitgan_loader\.so")
+    bad = {}
+    for path in files:
+        with open(path) as f:
+            hits = [line.strip() for line in f if pattern.search(line)]
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert not bad, f"port files name the JAX loader's directory: {bad}"
+    from vitgan_tpu_torch.data import native
+
+    jax_dir = os.path.join(REPO, "native")
+    for path in (native.SOURCE, native.BUILD_DIR, native.library_path()):
+        assert os.path.commonpath([os.path.abspath(path), jax_dir]) != jax_dir, path
+        assert os.path.commonpath([os.path.abspath(path), PORT]) == PORT, path

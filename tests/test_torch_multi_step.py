@@ -10,7 +10,8 @@
 - latent_block row for row against latent_rng, the per-step rates against
   make_lr, the R1 pattern of a call that straddles r1_interval;
 - the trainer's steps per call and remainder against the JAX trainer's rule,
-  and the raises that name ROADMAP.md queue 1 item 3.
+  and the settings that take the host pipeline (once refused, naming
+  ROADMAP.md queue 1 item 3) training.
 
 Tolerances are test_train_step_matches_jax's (tests/test_torch_v2_train.py):
 metrics 1e-5 relative and absolute; parameters within 2 * lr + 1e-6 a step,
@@ -269,10 +270,21 @@ def test_steps_per_call_and_remainder_follow_the_jax_trainer(tmp_path, monkeypat
 
 
 def test_routes_the_trainer_cannot_run_name_queue_1_item_3(tmp_path):
+    """The three settings the trainer once refused (naming ROADMAP.md queue 1
+    item 3, the data layer) take the host pipeline, as the JAX trainer's
+    route decision does, and train: a partial last batch included."""
     from vitgan_tpu_torch.train.trainer import Trainer
 
-    for over in ({"data.on_device": False}, {"data.on_device_max_bytes": 1000},
-                 {"data.drop_last": False, "data.synthetic_samples": 20}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            Trainer(C.replace(C.smoke_config(), **over), run_dir=str(tmp_path / "r"),
-                    device="cpu")
+    cases = (({"data.on_device": False}, [8, 8]),
+             ({"data.on_device_max_bytes": 1000}, [8, 8]),
+             ({"data.drop_last": False, "data.synthetic_samples": 20,
+               "run.steps_per_epoch": None}, [8, 8, 4]))
+    for i, (over, sizes) in enumerate(cases):
+        cfg = C.replace(C.smoke_config(), **{"run.fid_every_epochs": 0, **over})
+        t = Trainer(cfg, run_dir=str(tmp_path / f"r{i}"), device="cpu")
+        assert t.route == "host" and t.dataset is None, over
+        seen = []
+        for m, n_images in t._epoch_calls():
+            seen.append(n_images)
+            assert np.isfinite(m["d_loss"].numpy()).all()
+        assert seen == sizes and t.state.step == len(sizes), over

@@ -400,13 +400,17 @@ def test_discriminator_with_jax_weights_matches_jax(mbstd):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
-def test_synthetic_dataset_is_byte_identical():
+def test_synthetic_dataset_is_byte_identical(tmp_path):
     for n, size, seed in ((16, 32, 0), (3, 128, 5)):
         imgs, labels = synthetic_dataset(n, size, 3, seed=seed)
         jimgs, jlabels = jax_synthetic_dataset(n, size, 3, seed=seed)
         assert imgs.tobytes() == jimgs.tobytes() and labels.tobytes() == jlabels.tobytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset("cifar10")
+    imgs, labels = load_dataset("synthetic", image_size=32, synthetic_samples=16)
+    assert imgs.tobytes() == synthetic_dataset(16, 32, 3)[0].tobytes()
+    # CIFAR-10 is decoded now (tests/test_torch_data.py); with no files under
+    # its root the loader names the files it looked for
+    with pytest.raises(FileNotFoundError, match="data_batch_1"):
+        load_dataset("cifar10", root=str(tmp_path))
 
 
 # --- megablock training gate -------------------------------------------------------------

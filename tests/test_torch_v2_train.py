@@ -153,8 +153,11 @@ def test_cli_train_writes_a_run_directory_restore_run_reads(tmp_path, monkeypatc
         assert torch.isfinite(g(z)).all()
     assert main(["generate", "--run-dir", str(run), "--num-images", "2", "--device",
                  "cpu"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["train", "--device", "cpu", "--dataset", "cifar10", "--run-dir", str(run)])
+    # --dataset cifar10 reads data.data_dir (tests/test_torch_data_route.py
+    # trains over files there); with none it raises, naming the files
+    with pytest.raises(FileNotFoundError, match="cifar-10-python.tar.gz"):
+        main(["train", "--device", "cpu", "--dataset", "cifar10", "--run-dir", str(run),
+              "--set", f"data.data_dir={tmp_path / 'no_cifar'}"])
 
 
 def test_trainer_aborts_on_nan_without_writing(tmp_path):

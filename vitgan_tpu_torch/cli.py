@@ -4,13 +4,25 @@ JAX CLI's flags for these commands (vitgan_tpu/cli.py) that the port
 carries, and ``--device`` (default cuda).
 
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
+    python -m vitgan_tpu_torch.cli train --preset highres128 --dataset cifar10 \
+        --set data.data_dir=DIR
     python -m vitgan_tpu_torch.cli train --family v1 --dataset synthetic \
         --set runtime.use_pallas=always
     python -m vitgan_tpu_torch.cli train --run-dir RUN --epochs 4 --resume
     python -m vitgan_tpu_torch.cli serve --run-dir RUN [--port 8000 --batch 64]
     python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0 --best]
     python -m vitgan_tpu_torch.cli eval --run-dir RUN [--best --num-samples 2048 \
-        --extractor auto]
+        --extractor auto --dataset cifar10 --set data.data_dir=DIR]
+
+``--dataset`` (cifar10, mnist or synthetic; every preset defaults to
+cifar10) reads CIFAR-10's ``cifar-10-batches-py/`` or
+``cifar-10-python.tar.gz``, or MNIST's IDX files, from ``data.data_dir``,
+else $SCRATCH/data/<name> (./data/<name> without SCRATCH); nothing is
+downloaded, and a missing file raises naming the files it looked for.  A
+dataset of another size than the model's is resized by the reference's
+Resize -> CenterCrop.  The trainer keeps it on the device when it fits
+``data.on_device_max_bytes``, else (highres128 over CIFAR-10: 2.46 GB) it
+takes the host pipeline.
 
 ``train`` writes the run directory to ``--run-dir``, else
 $SCRATCH/output/<run name> (./output/<run name> without SCRATCH): its
@@ -55,6 +67,7 @@ def _overrides(args) -> dict:
 PRESETS = ("deit64", "highres128", "highres256")
 # train/fid.EXTRACTORS, kept here so that building the parser imports no torch
 EXTRACTORS = ("auto", "inception", "inception_jax", "inception_torch", "random_conv")
+DATASETS = ("cifar10", "mnist", "synthetic")
 
 
 def build_cfg(args):
@@ -137,12 +150,16 @@ def cmd_eval(args) -> int:
     if run_dir is None:
         print("no run directory found", file=sys.stderr)
         return 1
-    cfg, gan, g, meta = restore_run(run_dir, best=args.best, overrides=_overrides(args),
+    over = _overrides(args)
+    if args.dataset:
+        over["data.dataset"] = args.dataset
+    cfg, gan, g, meta = restore_run(run_dir, best=args.best, overrides=over,
                                     device=args.device)
     m, data = cfg.model, cfg.data
     b = m.batch_size
-    # Clean reals: load_dataset never flips (data.augment_flip acts inside the train step).
-    imgs, _ = load_dataset(data.dataset, m.image_size, m.channels, data.synthetic_samples,
+    # Clean reals: load_dataset never flips (data.augment_flip acts in the pipeline or the step).
+    imgs, _ = load_dataset(data.dataset, root=data.data_dir, image_size=m.image_size,
+                           channels=m.channels, synthetic_samples=data.synthetic_samples,
                            seed=m.seed)
     num = min(args.num_samples, len(imgs))
     extractor = make_feature_extractor(args.extractor, m.channels, args.device)
@@ -206,7 +223,8 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="train a GAN and write its run directory")
     t.add_argument("--preset", choices=PRESETS, default=None)
     t.add_argument("--family", default="v2")
-    t.add_argument("--dataset", default=None, help="synthetic (others: ROADMAP.md)")
+    t.add_argument("--dataset", choices=DATASETS, default=None,
+                   help="default: the preset's (cifar10); files from data.data_dir")
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--run-name", default=None)
     t.add_argument("--run-dir", default=None, help="where to write the run directory")
@@ -239,6 +257,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--pr-k", type=int, default=3,
                    help="k-NN order for the precision/recall manifolds")
     e.add_argument("--seed", type=int, default=None)
+    e.add_argument("--dataset", choices=DATASETS, default=None,
+                   help="the reals (default: the run's); files from data.data_dir")
     e.add_argument("--set", action="append", metavar="dotted.key=value",
                    help="config override, e.g. --set runtime.megablock=off")
     e.add_argument("--device", default="cuda")

@@ -168,15 +168,20 @@ class RuntimeConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The data settings the port reads (the JAX schema has more)."""
+    """The data settings (vitgan_tpu/config.py:372-386)."""
 
-    dataset: str = "cifar10"  # cifar10 | mnist | synthetic; the port loads synthetic only
+    dataset: str = "cifar10"  # cifar10 | mnist | synthetic
+    data_dir: Optional[str] = None  # default: $SCRATCH/data/<dataset> (utils/run_dirs.data_dir)
     shuffle: bool = True
     drop_last: bool = True
+    prefetch: int = 2  # batches the host pipeline assembles ahead of the step
     augment_flip: bool = False
-    # Keep the uint8 dataset on the device and assemble batches there (the
-    # trainer's only route; a dataset over on_device_max_bytes needs the
-    # host pipeline, ROADMAP.md queue 1 item 3).
+    # Carried for the schema, read by nothing: the C++ batch assembler is
+    # taken whenever it builds (data/pipeline.py), in both packages.
+    num_workers: int = 0
+    # Keep the uint8 dataset on the device and assemble batches there when it
+    # fits on_device_max_bytes and no partial batch is asked for; otherwise
+    # the trainer takes the host pipeline (train/trainer.py).
     on_device: bool = True
     on_device_max_bytes: int = 1 << 29
     synthetic_samples: int = 2048  # dataset size when dataset == "synthetic"

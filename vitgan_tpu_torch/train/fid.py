@@ -359,14 +359,18 @@ def compute_fid(
     seed: int,
     num_samples: int,
     batch_size: int,
+    spans: Optional[dict] = None,
 ) -> float:
     """FID between generated samples and real batches.
 
     ``sample_batch(rng, n)`` returns n generated images in [-1,1], fake batch
     i drawing from ``rng = latent_rng(seed, i)`` (fresh noise per batch,
     ref:src/v2/utils.py:160-164); ``real_batches`` yields uint8 or [-1,1]
-    real image batches.
+    real image batches on the host.  ``spans`` collects the seconds of the
+    generator, the features and the Frechet math, the extractor's device
+    synchronised around each (make_on_device_fid's split).
     """
+    device = getattr(extractor, "device", torch.device("cpu"))
     real_stats = fake_stats = None
     seen = 0
     for rb in real_batches:
@@ -376,7 +380,8 @@ def compute_fid(
         take = min(len(rb), num_samples - seen)
         if take <= 0:
             break
-        feats = extractor(rb[:take])
+        with _span(spans, "features", device):
+            feats = extractor(rb[:take])
         if real_stats is None:
             dim = feats.shape[-1]
             real_stats, fake_stats = FeatureStats(dim), FeatureStats(dim)
@@ -389,10 +394,13 @@ def compute_fid(
     generated, call = 0, 0
     while generated < seen:
         n = min(batch_size, seen - generated)
-        fakes = sample_batch(latent_rng(seed, call), n)
-        fake_stats.update(extractor(to_uint8(fakes)))
+        with _span(spans, "generator", device):
+            fakes = to_uint8(sample_batch(latent_rng(seed, call), n))
+        with _span(spans, "features", device):
+            fake_stats.update(extractor(fakes))
         generated += n
         call += 1
-    mu_r, cov_r = real_stats.moments()
-    mu_f, cov_f = fake_stats.moments()
-    return frechet_distance(mu_r, cov_r, mu_f, cov_f)
+    with _span(spans, "frechet", device):
+        mu_r, cov_r = real_stats.moments()
+        mu_f, cov_f = fake_stats.moments()
+        return frechet_distance(mu_r, cov_r, mu_f, cov_f)

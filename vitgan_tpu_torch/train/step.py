@@ -425,7 +425,11 @@ class _MultiStep:
         graph.register_generator_state(state.rng)
         before = dict(build.LAUNCHES)
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            # thread_local: the host pipeline's producer thread (data/pipeline.py)
+            # goes on allocating and copying on its own stream meanwhile,
+            # calls that the global mode refuses on every thread.
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                  capture_error_mode="thread_local"):
                 self._body(state)
         except Exception as e:
             raise RuntimeError(f"the train step (with_r1={kind}) could not be captured as a "

@@ -1,17 +1,29 @@
-"""Trainer: the epoch loop over the device-resident dataset, observability,
-checkpoints and exact resume.
+"""Trainer: the epoch loop over the device-resident dataset or the host
+pipeline, observability, checkpoints and exact resume.
 
-Counterpart of vitgan_tpu/train/trainer.py on one device, on its
-device-data route (Trainer.__init__, _epoch_steps_on_device, fit):
+Counterpart of vitgan_tpu/train/trainer.py on one device (Trainer.__init__,
+_epoch_steps, _epoch_steps_on_device, fit).  The dataset (data/datasets.py)
+feeds data/pipeline.HostDataPipeline, whose seeded numpy generator draws
+every epoch order on both routes.  The route is the JAX trainer's
+(trainer.py:141-170):
 
-- the uint8 dataset lives on the device; each epoch takes a host permutation
-  (numpy, seeded by the model seed), full batches only, capped at
-  ``run.steps_per_epoch``, and runs it through
+- the device route, when ``data.on_device`` is set, the uint8 dataset fits
+  ``data.on_device_max_bytes`` and no partial batch is asked for: the
+  dataset lives on the device; each epoch takes one order, full batches
+  only, capped at ``run.steps_per_epoch``, and runs it through
   ``train/step.make_device_data_train_fn`` in calls of k steps, k =
   ``run.steps_per_call`` when above 1, else min(full batches, 1024,
   steps_per_epoch); the leftover steps go through a second function of
-  their length, built at first use.  On CUDA each call replays a captured
-  step; on the CPU it is the eager loop;
+  their length, built at first use;
+- the host route otherwise: the pipeline assembles each batch on the host
+  (flips drawn there) and hands it to the device one ahead; with
+  ``run.steps_per_call`` 1 each batch is one call, else k batches stacked
+  into ``make_multi_train_step`` and the leftover batches (and a partial
+  one) one call each, through a one-step function of their batch size.
+
+On CUDA each call replays a captured step; on the CPU it is the eager loop.
+``fit`` draws the input grid's batch from the pipeline before epoch 0, as
+the JAX fit does, so the epoch orders are the JAX trainer's;
 - per epoch: one metric readback, the JSONL/TensorBoard scalars
   (utils/logging.MetricLogger), the NaN abort, collapse detection, sample
   grids from fixed ``eval_noise``, FID (``evaluate_fid``, train/fid.py) with
@@ -23,17 +35,15 @@ device-data route (Trainer.__init__, _epoch_steps_on_device, fit):
   run, then the run directory that ``cli serve`` and ``generate`` read
   (utils/run_dirs.save_run);
 - ``resume`` restores the exact state (parameters, ISR buffers, optimizer
-  moments and counts, EMA, step, the device generator and the epoch order's
-  generator), so a resumed run continues bit for bit.
+  moments and counts, EMA, step, the device generator and the pipeline's
+  generator), so a resumed run continues bit for bit on either route.
 
 FID runs between device calls, on the caller's stream under
 ``torch.inference_mode()``: it allocates nothing in a captured step's memory
-pool, writes no tensor a captured step reads and draws from no training
-generator, so a run with FID on trains bit for bit like one with it off.
-
-Not here: the host pipeline (a dataset that is not on the device, over
-``data.on_device_max_bytes`` or with a partial batch) is ROADMAP.md queue 1
-item 3.
+pool and writes no tensor a captured step reads.  On the device route it
+draws from no training generator, so a run with FID on trains bit for bit
+like one with it off; on the host route its reals are an epoch of the
+pipeline, as in the JAX package, which draws one order from it.
 """
 
 from __future__ import annotations
@@ -49,13 +59,14 @@ import torch
 
 from vitgan_tpu_torch.config import ExperimentConfig, save_config
 from vitgan_tpu_torch.data.datasets import load_dataset
+from vitgan_tpu_torch.data.pipeline import HostDataPipeline, normalize_to_unit
 from vitgan_tpu_torch.models import build_gan, count_params
 from vitgan_tpu_torch.ops.policy import apply_from_runtime
 from vitgan_tpu_torch.train import fid as FID
 from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
 from vitgan_tpu_torch.train.state import create_train_state
 from vitgan_tpu_torch.train.step import (device_batch, host_metrics, make_device_data_train_fn,
-                                         make_eval_step, make_train_step)
+                                         make_eval_step, make_multi_train_step, make_train_step)
 from vitgan_tpu_torch.utils import preemption
 from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
 from vitgan_tpu_torch.utils.images import make_grid, save_png
@@ -72,7 +83,8 @@ def default_run_dir(run_name: Optional[str]) -> str:
 
 
 def steps_per_call(cfg: ExperimentConfig, n_samples: int) -> int:
-    """k, the steps of one device call (trainer.py:141-170)."""
+    """k, the steps of one device call on the device route
+    (trainer.py:161-167)."""
     if cfg.run.steps_per_call > 1:
         return cfg.run.steps_per_call
     k = min(max(1, n_samples // cfg.model.batch_size), 1024)
@@ -86,22 +98,21 @@ class Trainer:
         apply_from_runtime(cfg.runtime)
         m = cfg.model
         self.device = torch.device(device)
-        images, _ = load_dataset(cfg.data.dataset, m.image_size, m.channels,
-                                 cfg.data.synthetic_samples, seed=m.seed)
+        data = cfg.data
+        images, labels = load_dataset(data.dataset, root=data.data_dir, image_size=m.image_size,
+                                      channels=m.channels,
+                                      synthetic_samples=data.synthetic_samples, seed=m.seed)
         if len(images) < m.batch_size:
             raise ValueError(f"{len(images)} samples cannot fill one batch of {m.batch_size}")
-        why = None
-        if not cfg.data.on_device:
-            why = "data.on_device=False"
-        elif images.nbytes > cfg.data.on_device_max_bytes:
-            why = (f"a {images.nbytes}-byte dataset over data.on_device_max_bytes="
-                   f"{cfg.data.on_device_max_bytes}")
-        elif not cfg.data.drop_last and len(images) % m.batch_size:
-            why = "data.drop_last=False with a partial last batch"
-        if why:
-            raise NotImplementedError(f"{why}: the port's trainer runs the device-resident "
-                                      "dataset in full batches only; the host pipeline is "
-                                      "ROADMAP.md queue 1 item 3")
+        self.pipeline = HostDataPipeline(images, labels, m.batch_size, shuffle=data.shuffle,
+                                         drop_last=data.drop_last,
+                                         augment_flip=data.augment_flip, seed=m.seed,
+                                         prefetch=data.prefetch, device=self.device)
+        # The device route runs full batches only, so a partial batch that
+        # drop_last=False asks for takes the host route, which trains it.
+        honors_partial = data.drop_last or len(images) % m.batch_size == 0
+        self.route = ("device" if data.on_device and honors_partial
+                      and images.nbytes <= data.on_device_max_bytes else "host")
         root = os.path.abspath(run_dir or default_run_dir(cfg.run_name))
         self.dirs = construct_directories(os.path.basename(root), base=os.path.dirname(root))
         self.run_dir = self.dirs.root
@@ -111,11 +122,13 @@ class Trainer:
         self.metrics = MetricLogger(self.dirs.logs)
         self.ckpts = CheckpointManager(self.dirs.checkpoints, keep=cfg.run.keep_checkpoints)
         self.gan = build_gan(cfg)
-        self.dataset = torch.from_numpy(images).to(self.device)  # uint8 (N, H, W, C)
-        self._order_rng = np.random.default_rng(m.seed)
+        # uint8 (N, H, W, C) on the device route, None on the host route
+        self.dataset = (torch.from_numpy(images).to(self.device) if self.route == "device"
+                        else None)
         self.state = create_train_state(self.gan, cfg, device=self.device)
         self.train_step = make_train_step(self.gan, cfg)
-        self.steps_per_call = steps_per_call(cfg, len(images))
+        self.steps_per_call = (steps_per_call(cfg, len(images)) if self.route == "device"
+                               else max(1, cfg.run.steps_per_call))
         self._build_device_fns()
         self.sample_fn = make_sample_fn(self.gan, cfg)
         self._g_sample = None
@@ -131,31 +144,41 @@ class Trainer:
         if cfg.run.early_stop_patience > 0:
             self._early = EarlyStopping(patience=cfg.run.early_stop_patience,
                                         min_delta=cfg.run.early_stop_min_delta)
-        self.log.info("model %s: G params %d, D params %d | device %s | %d steps a call",
-                      cfg.family, count_params(self.state.g), count_params(self.state.d),
-                      self.device, self.steps_per_call)
+        self.log.info("model %s: G params %d, D params %d | device %s | %s route, %d-byte "
+                      "dataset of %d, batches assembled by %s | %d steps a call", cfg.family,
+                      count_params(self.state.g), count_params(self.state.d), self.device,
+                      self.route, images.nbytes, len(images), self.pipeline.assembler,
+                      self.steps_per_call)
 
     def _build_device_fns(self) -> None:
-        """The epoch's device functions; a remainder length's is built at first use."""
-        self._device_train_fn = make_device_data_train_fn(self.gan, self.cfg, self.steps_per_call)
-        self._device_rem_fn, self._device_rem_len = None, None
+        """The epoch's device functions: the device route's call of k and its
+        remainder's (built at first use); the host route's call of k stacked
+        batches and its one-step functions by batch size (built at first
+        use)."""
+        k = self.steps_per_call
+        if self.route == "device":
+            self._device_train_fn = make_device_data_train_fn(self.gan, self.cfg, k)
+            self._device_rem_fn, self._device_rem_len = None, None
+        else:
+            self._host_multi_fn = (make_multi_train_step(self.gan, self.cfg, k) if k > 1
+                                   else None)
+            self._host_step_fns: Dict[int, object] = {}
 
     # ------------------------------------------------------------------ utils
 
     def batches(self) -> np.ndarray:
-        """(steps, B) index batches of one epoch: a host permutation, full
-        batches only, capped at ``run.steps_per_epoch``."""
+        """(steps, B) index batches of one device-route epoch: an order from
+        the pipeline's generator (trainer.py:376), full batches only, capped
+        at ``run.steps_per_epoch``."""
         b = self.cfg.model.batch_size
-        order = np.arange(len(self.dataset))
-        if self.cfg.data.shuffle:
-            self._order_rng.shuffle(order)
+        order = self.pipeline._epoch_order()
         n = len(order) // b
         if self.cfg.run.steps_per_epoch:
             n = min(n, self.cfg.run.steps_per_epoch)
         return order[: n * b].reshape(n, b)
 
     def real_batch(self, idx: np.ndarray) -> torch.Tensor:
-        """One batch as a device call's step assembles it (eager)."""
+        """One batch as a device-route step assembles it (eager)."""
         return device_batch(self.dataset, torch.from_numpy(np.asarray(idx)).to(self.device),
                             self.cfg.data.augment_flip, self.state.rng)
 
@@ -171,14 +194,14 @@ class Trainer:
 
     def checkpoint_state(self) -> dict:
         return {"state": self.state.state_dict(),
-                "data_order": self._order_rng.bit_generator.state}
+                "data_order": self.pipeline._rng.bit_generator.state}
 
     def resume(self, step: Optional[int] = None, best: bool = False) -> None:
         """Restore a checkpoint of this run (default: the latest) in place;
         the epoch cursor is the next epoch to run."""
         sd, meta = self.ckpts.restore(step=step, best=best)
         self.state.load_state_dict(sd["state"])
-        self._order_rng.bit_generator.state = sd["data_order"]
+        self.pipeline._rng.bit_generator.state = sd["data_order"]
         self._build_device_fns()  # captured again at first use
         self.epoch = int(meta.get("epoch", 0))
         self.best_metric = float(meta.get("best_metric", float("inf")))
@@ -195,21 +218,34 @@ class Trainer:
 
     def evaluate_fid(self, num_samples: Optional[int] = None,
                      spans: Optional[dict] = None) -> float:
-        """FID of the sampling generator against the device-resident dataset
-        (trainer.py:300-334, its on-device route): n_batches = max(1, num //
-        batch) batches a side, the real indices from default_rng(step)
+        """FID of the sampling generator against the dataset
+        (trainer.py:300-334).  On the device route: n_batches = max(1, num
+        // batch) batches a side, the real indices from default_rng(step)
         (with replacement when they outnumber the dataset), fake batch i from
-        latent_rng(step, i).  ``spans`` collects the seconds of its parts
-        (train/fid.make_on_device_fid)."""
-        num = min(num_samples or self.cfg.run.fid_num_samples, len(self.dataset))
+        latent_rng(step, i), features and moments on the device
+        (train/fid.make_on_device_fid).  On the host route: the reals are the
+        first num images of an epoch of the pipeline (its order drawn from
+        the pipeline's generator, as in the JAX package), through
+        train/fid.compute_fid.  ``spans`` collects the seconds of the
+        generator, the features and the Frechet math."""
+        num = min(num_samples or self.cfg.run.fid_num_samples, self.pipeline.num_samples)
         b = self.cfg.model.batch_size
+        step = int(self.state.step)
+        if self.route == "host":
+            g = self._sampling_generator()
+
+            def sample_batch(rng, n):
+                return self.sample_fn(g, self.gan.sample_latent(rng, n)).cpu().numpy()
+
+            reals = (x.cpu() for x, _ in self.pipeline.epoch(max_batches=-(-num // b)))
+            return FID.compute_fid(sample_batch, reals, self.extractor, step, num, b,
+                                   spans=spans)
         n_batches = max(1, num // b)
         if self._fid_n_batches != n_batches:
             ex = self.extractor
             self._fid_fn = FID.make_on_device_fid(self.gan, self.cfg, ex.feature_fn, b,
                                                   n_batches, ex.feature_dim)
             self._fid_n_batches = n_batches
-        step = int(self.state.step)
         n_pop = len(self.dataset)
         real_idx = np.random.default_rng(step).choice(n_pop, size=(n_batches, b),
                                                       replace=n_batches * b > n_pop)
@@ -217,27 +253,37 @@ class Trainer:
 
     def validate(self, num_batches: int = 8) -> Dict[str, float]:
         """No-update validation: D/G losses and accuracies (make_eval_step)
-        over the dataset's first ``num_batches`` batches in index order, so
-        that the epoch order's generator is left alone; the latents of batch i
-        from latent_rng(1000 + i, 0)."""
+        over the dataset's first ``num_batches`` batches in index order, on
+        either route, so that the pipeline's generator is left alone (the
+        JAX trainer takes pipeline batches, trainer.py:237); the latents of
+        batch i from latent_rng(1000 + i, 0)."""
         if not hasattr(self, "_eval_step"):
             self._eval_step = make_eval_step(self.gan, self.cfg)
         b = self.cfg.model.batch_size
         sums: Dict[str, torch.Tensor] = {}
-        n = min(num_batches, len(self.dataset) // b)
+        n = min(num_batches, self.pipeline.num_samples // b)
         for i in range(n):
-            real = self.dataset[i * b:(i + 1) * b].float() * (2.0 / 255.0) - 1.0
+            real = torch.from_numpy(normalize_to_unit(
+                self.pipeline.images[i * b:(i + 1) * b])).to(self.device)
             z = self.gan.sample_latent(latent_rng(1000 + i, 0), b)
             for k, v in self._eval_step(self.state, real, z).items():
                 sums[k] = sums[k] + v if k in sums else v
         return {k: v / max(n, 1) for k, v in host_metrics(sums).items()} if sums else {}
 
+    def _first_batch(self) -> np.ndarray:
+        """The first batch of a new epoch order from the pipeline, float32 on
+        the host, its flip bits drawn: what the JAX trainer's
+        ``next(iter(pipeline.epoch()))`` takes for the input grid and the
+        profile (trainer.py:253, :421), without its producer's draws for
+        the batches after it."""
+        return self.pipeline.assemble(self.pipeline._epoch_order()[:self.cfg.model.batch_size])
+
     def profile(self, n_steps: int = 5) -> str:
         """A torch.profiler trace of ``n_steps`` eager train steps on one
-        batch; returns the trace directory (logs/profile)."""
+        batch of the pipeline; returns the trace directory (logs/profile)."""
         from vitgan_tpu_torch.utils.profiling import trace
 
-        real = self.real_batch(self.batches()[0])
+        real = torch.from_numpy(self._first_batch()).to(self.device)
         trace_dir = os.path.join(self.dirs.logs, "profile")
         with trace(trace_dir):
             for _ in range(n_steps):
@@ -254,6 +300,9 @@ class Trainer:
 
     def _epoch_calls(self):
         """Yield (metrics of one device call, images) over one epoch."""
+        if self.route == "host":
+            yield from self._host_epoch_calls()
+            return
         idx = self.batches()
         b, k = self.cfg.model.batch_size, self.steps_per_call
         full = (len(idx) // k) * k
@@ -265,6 +314,35 @@ class Trainer:
                 self._device_rem_fn = make_device_data_train_fn(self.gan, self.cfg, rem)
                 self._device_rem_len = rem
             yield self._device_rem_fn(self.state, self.dataset, idx[full:]), rem * b
+
+    def _host_step(self, real: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One step on one pipeline batch, through the one-step function of
+        its batch size (a partial batch's is its own capture on CUDA)."""
+        fn = self._host_step_fns.get(real.shape[0])
+        if fn is None:
+            fn = self._host_step_fns[real.shape[0]] = make_multi_train_step(self.gan, self.cfg, 1)
+        return fn(self.state, real[None])
+
+    def _host_epoch_calls(self):
+        """The host route's epoch, as the JAX trainer's _epoch_steps
+        (trainer.py:343-371): one call a batch, or with steps_per_call k > 1,
+        k full batches stacked a call and the batches left (a partial one
+        among them) one call each."""
+        b, k = self.cfg.model.batch_size, self.steps_per_call
+        buf = []
+        for real, _ in self.pipeline.epoch(self.cfg.run.steps_per_epoch or None):
+            if real.device.type != self.device.type:
+                raise RuntimeError(f"the pipeline handed a batch on {real.device}, the train "
+                                   f"state is on {self.device}")
+            if k == 1:
+                yield self._host_step(real), real.shape[0]
+                continue
+            buf.append(real)
+            if len(buf) == k and all(x.shape[0] == b for x in buf):
+                yield self._host_multi_fn(self.state, torch.stack(buf)), k * b
+                buf = []
+        for real in buf:
+            yield self._host_step(real), real.shape[0]
 
     def _params_finite(self) -> bool:
         params = [*self.state.g.parameters(), *self.state.d.parameters()]
@@ -282,9 +360,13 @@ class Trainer:
         self.collapsed = False
         collapse_run = 0  # consecutive epochs at D-wins-everything accuracy
         try:
-            first = self.dataset[:64].cpu().numpy()
-            save_png(os.path.join(self.dirs.input, "real.png"), make_grid(first))
-            np.save(os.path.join(self.dirs.noise, "eval_noise.npy"), self.eval_noise.numpy())
+            if self.epoch == 0:
+                # The input grid's batch, drawn from the pipeline before epoch
+                # 0's order as in the JAX fit (trainer.py:421); a later fit
+                # or a resume draws none, so that its orders continue.
+                first = self._first_batch()[:64]
+                save_png(os.path.join(self.dirs.input, "real.png"), make_grid(first))
+                np.save(os.path.join(self.dirs.noise, "eval_noise.npy"), self.eval_noise.numpy())
 
             for epoch in range(self.epoch, epochs):
                 self.epoch = epoch

@@ -3,8 +3,9 @@
 Counterpart of vitgan_tpu/utils/run_dirs.py: ``construct_directories``
 lays out ``<base>/<name>/{images,input,noise,checkpoints,logs}`` with
 ``training.log`` (the reference's artifact contract), ``latest_run`` picks
-the newest run under a base.  The trainer writes full-state checkpoints
-under ``checkpoints/`` (utils/checkpoint.py) and, for serving, the
+the newest run under a base, ``data_dir`` names a dataset's directory.
+The trainer writes full-state checkpoints under ``checkpoints/``
+(utils/checkpoint.py) and, for serving, the
 generator's ``state_dict`` with ``torch.save`` (``generator.pt``, and
 ``generator_best.pt`` beside each best checkpoint, ``save_best``) next to
 ``config.json`` in the JAX schema: ``save_run`` and ``restore_run``, which
@@ -57,6 +58,13 @@ def construct_directories(run_name: str | None = None, base: str | None = None) 
     for p in (dirs.root, dirs.images, dirs.input, dirs.noise, dirs.checkpoints, dirs.logs):
         os.makedirs(p, exist_ok=True)
     return dirs
+
+
+def data_dir(dataset: str) -> str:
+    """A dataset's default directory, $SCRATCH/data/<name> (./data/<name>
+    without SCRATCH), where data/datasets.load_dataset looks for its files
+    (vitgan_tpu/utils/run_dirs.py:49-53; the port does not create it)."""
+    return os.path.join(os.environ.get("SCRATCH", "."), "data", dataset)
 
 
 def latest_run(base: str | None = None) -> str | None:
