@@ -188,6 +188,39 @@
    captured-against-eager bounds (printed which), the host-to-device step
    ratio.  Then v1 at its defaults with drop_last=False over the 5,000
    images: 39 batches of 128 and one of 8, all trained in one epoch.
+22. [double backward]: a v2 model at highres128's widths (embed 384, 6 heads of
+   64, hidden 1,536, depth 12, latent 256) on 32 px images at patch 4 (64
+   tokens, 65 in D), batch 64, dropout 0.1, bce, R1 (gamma 10) every second
+   step, through Trainer's dataset and the captured make_device_data_train_fn
+   on two routes: megablock=off (every MLP through the LN->MLP Function at
+   4,096 and 4,160 rows; attention on the plain route below 256 tokens) and
+   megablock=on with megablock_bwd=recompute (every training block through
+   encoder_block_fused_dropout).  R1 differentiates them twice: their forward
+   launches the kernels, their backward is autograd of the plain versions.
+   Per route: the eager and captured step times with and without R1, d_r1,
+   the launches a step of each kind (every block of every forward, no
+   backward kernel).  Then one R1 step (dropout 0) from one state, batch,
+   latents and augment draws on each route against use_pallas=never at the
+   route comparison's bounds, d_r1 within NORM_RTOL.
+23. [int8 serve]: the [serve] run directory served with float weights and
+   with weight-only int8 (serve.SamplerService(quantize="int8"): the int8
+   leaves and scales on the card, the module's float weights gone, each call
+   dequantizing into bf16) at batch 64 on the megablock route: weight bytes,
+   call time, launches equal to the float route's, the seeded uint8 drift
+   within the JAX package's bounds (mean 4, p99 24 levels).
+24. [interop]: highres128's discriminator written as a reference v2
+   ViTDiscriminator state_dict ('vit.' keys, a 10-class head) from seeded
+   numpy; `cli train --preset highres128 --warm-start-d` on it (every D leaf
+   loaded, bit-equal to the import; a warm-up epoch of 3 steps and 3 captured
+   steps through the megablock's training kernels, launches asserted, the
+   step time); `cli export-torch` of the trained D re-imported bit-equal.
+25. [baselines]: dcgan, cnn and mlp at their default configs (32 px; batch
+   128, 64, 128; DCGAN base width 64; MLP hidden 256/512/1024) on synthetic
+   data through Trainer: an eager step timed, a warm-up epoch of 3 (the
+   capture), 3 captured steps by fit (no hand kernel: cuDNN convolutions,
+   BatchNorm in f32, dense products), their captured steps against eager
+   ones in [captured vs eager]'s terms; for dcgan and cnn `cli export-torch`
+   of G and `cli generate --from-torch`.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -199,6 +232,7 @@ from __future__ import annotations
 import io
 import json
 import math
+from collections import Counter
 import os
 import shutil
 import subprocess
@@ -2351,7 +2385,8 @@ def captured_vs_eager(cfg, n: int, label: str) -> dict:
         host_metrics(trainer.train_step(st, trainer.real_batch(order[0])))
         idx = order[1:1 + n]
         fn = make_device_data_train_fn(gan, cfg, n)
-        lat = latent_block(gan, st.seed, st.step, n, b, max(1, cfg.model.disc_steps))
+        lat = latent_block(gan, st.seed, st.step, n, b,
+                           max(1, getattr(cfg.model, "disc_steps", 1)))
         start_sd = st.state_dict()
         start = _flat_state(st)
         fn(st, trainer.dataset, idx, lat)  # the first step eager, its capture, n - 1 replays
@@ -3356,6 +3391,418 @@ def _v1_partial_batch(root: str, run_dir: str, tag: str, smi: str) -> dict:
             "epoch_s": sec, "img_per_s": means["images_per_sec"], "graphs": graphs}
 
 
+# --- phases 22-25: double backward, int8 serving, reference checkpoints, baselines ---
+
+# [double backward]: a v2 model at highres128's widths on 32 px images at patch 4
+# (64 tokens, 65 in D), batch 64, dropout 0.1, bce, R1 every second step.
+R1_OVER = {"v2.image_size": 32, "v2.patch_size": 4, "v2.batch_size": 64, "v2.r1_gamma": 10.0,
+           "v2.r1_interval": 2}
+R1_ROUTES = (("megablock_off", {"runtime.megablock": "off"}),
+             ("megablock_on_recompute", {"runtime.megablock": "on",
+                                         "runtime.megablock_bwd": "recompute"}))
+# The kernels each route must launch in every block of every forward (G, D on
+# [real; fake], the R1 forward of D on R1 steps, the G update's D forward), and
+# none of the backward kernels: the recompute Functions differentiate their
+# plain versions, once and twice.
+R1_KERNELS = {"megablock_off": {"ln_mlp_fwd": 1, "ln_mlp_fc1": 1, "ln_mlp_linear": 1},
+              "megablock_on_recompute": {"ln_qkv_fwd": 1, "flash_attn_fwd": 1,
+                                         "ln_mlp_train_fwd": 1, "ln_mlp_fc1": 1,
+                                         "ln_mlp_linear": 2}}
+
+
+def _r1_cfg(route_over: dict, **extra):
+    from vitgan_tpu_torch import config as C
+
+    return C.replace(C.highres_config(128), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 512, **R1_OVER, **route_over,
+        **extra}))
+
+
+def _r1_route(label: str, route_over: dict, run_dir: str) -> tuple:
+    """Eager and captured steps of one route, each kind (with and without R1)
+    timed apart: 2 eager warm-up steps, 4 eager steps timed, 2 captured calls
+    of one step (the two captures), 6 replays timed; launches a step by kind."""
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import host_metrics, make_device_data_train_fn
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag = f"[double backward] {label}"
+    cfg = _r1_cfg(route_over)
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    st = trainer.state
+    order = trainer.batches()
+    fn = make_device_data_train_fn(trainer.gan, cfg, 1)
+    i = 0
+
+    def one(eager: bool):
+        nonlocal i
+        kind = st.step % cfg.v2.r1_interval == 0
+        idx = order[i % len(order)]
+        i += 1
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        if eager:
+            m = host_metrics(trainer.train_step(st, trainer.real_batch(idx)))
+        else:
+            m = host_metrics({k: v[0] for k, v in fn(st, trainer.dataset, idx[None]).items()})
+        torch.cuda.synchronize()
+        return kind, 1e3 * (time.perf_counter() - t0), m, dict(build.LAUNCHES)
+
+    for _ in range(2):
+        one(True)
+    _settle()
+    eager = {True: [], False: []}
+    for _ in range(4):
+        kind, ms, _, _ = one(True)
+        eager[kind].append(ms)
+    for _ in range(2):
+        one(False)  # the two captures
+    if len(fn.graphs) != 2:
+        raise AssertionError(f"{tag}: {len(fn.graphs)} captured graphs, expected 2")
+    captured, launches, d_r1 = {True: [], False: []}, {}, []
+    for _ in range(6):
+        kind, ms, m, launched = one(False)
+        captured[kind].append(ms)
+        launches[kind] = {k: v for k, v in launched.items() if v}
+        if kind:
+            d_r1.append(m["d_r1"])
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: non-finite metrics {m}")
+    blocks = cfg.v2.depth * 3
+    for kind, per in launches.items():
+        _check_launches(per, R1_KERNELS[label], blocks + (cfg.v2.depth if kind else 0))
+    rec = {"captured_ms_with_r1": sum(captured[True]) / 3,
+           "captured_ms_without_r1": sum(captured[False]) / 3,
+           "eager_ms_with_r1": sum(eager[True]) / 2, "eager_ms_without_r1": sum(eager[False]) / 2,
+           "d_r1": d_r1, "launches_with_r1": launches[True],
+           "launches_without_r1": launches[False]}
+    print(f"{tag}: captured {rec['captured_ms_with_r1']:.2f} ms with R1, "
+          f"{rec['captured_ms_without_r1']:.2f} without; eager {rec['eager_ms_with_r1']:.2f} / "
+          f"{rec['eager_ms_without_r1']:.2f}; d_r1 {d_r1}; launches a step with R1 "
+          f"{launches[True]}, without {launches[False]}")
+    del trainer, st, fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _r1_step_vs_plain() -> dict:
+    """One R1 step (dropout 0) from one state, batch, latents and augment
+    draws on each kernel route and on use_pallas=never: losses within
+    LOSS_TOL, norms within NORM_RTOL, d_r1 within NORM_RTOL, every gradient
+    leaf within LEAF_RTOL * max|plain leaf|."""
+    import torch
+
+    from vitgan_tpu_torch.data.datasets import synthetic_dataset
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.augment import draw_augment
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime, get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import latent_rng
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+
+    b = R1_OVER["v2.batch_size"]
+    images, _ = synthetic_dataset(b, 32, 3, seed=SEED)
+    real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    saved = get_policy()
+    res, out = {}, {}
+    try:
+        for label, route_over in (*R1_ROUTES, ("plain", {"runtime.use_pallas": "never"})):
+            cfg = _r1_cfg(route_over, **{"v2.dropout": 0.0})
+            apply_from_runtime(cfg.runtime)
+            gan = build_gan(cfg)
+            if not res:
+                z = gan.sample_latent(latent_rng(SEED, 0), b)
+                probe = real.to(torch.bfloat16)
+                draws = {key: draw_augment(gen, probe, cfg.run.diff_augment)
+                         for key in ("aug_real", "aug_fake", "aug_g")}
+            state = create_train_state(gan, cfg, device="cuda")
+            build.reset_launches()
+            m = host_metrics(make_train_step(gan, cfg)(state, real, z=z, draws=draws))
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            if (label == "plain") == bool(launched):
+                raise AssertionError(f"[double backward] {label} launched {launched}")
+            res[label] = (m, [p.grad.float() for p in (*state.g.parameters(),
+                                                       *state.d.parameters())],
+                          [f"g.{n}" for n, _ in state.g.named_parameters()]
+                          + [f"d.{n}" for n, _ in state.d.named_parameters()])
+            print(f"[double backward] one R1 step (dropout 0) on {label}: {m}, launches "
+                  f"{launched}")
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        set_policy(**saved)
+    mp, gp, names = res["plain"]
+    for label, _ in R1_ROUTES:
+        mk, gk, _ = res[label]
+        r = out[label] = {}
+        for key, bound, rel in (("d_loss", LOSS_TOL, False), ("g_loss", LOSS_TOL, False),
+                                ("d_grad_norm", NORM_RTOL, True),
+                                ("g_grad_norm", NORM_RTOL, True), ("d_r1", NORM_RTOL, True)):
+            r[key] = abs(mk[key] - mp[key]) / (abs(mp[key]) if rel else 1.0)
+            if not r[key] <= bound:
+                raise AssertionError(f"[double backward] {label} {key}: {mk[key]} against the "
+                                     f"plain {mp[key]} ({r[key]:.3g} over {bound})")
+        worst, worst_name = 0.0, ""
+        for name, a, b_ in zip(names, gk, gp):
+            rel = (a - b_).abs().max().item() / max(b_.abs().max().item(), 1e-30)
+            if not math.isfinite(rel) or rel > worst:
+                worst, worst_name = rel, name
+        r["worst_leaf_rel"], r["worst_leaf"] = worst, worst_name
+        print(f"[double backward] {label} against plain: {r} (limits: losses {LOSS_TOL}, norms "
+              f"and d_r1 {NORM_RTOL} relative, leaves {LEAF_RTOL})")
+        if not worst <= LEAF_RTOL:
+            raise AssertionError(f"[double backward] {label}: leaf {worst_name} at {worst:.3g}")
+    return out
+
+
+def double_backward_path(work: str) -> dict:
+    """[double backward]: R1 through the recompute Functions on the card,
+    captured and eager, on both routes; one step of each held to the plain
+    route."""
+    out = {}
+    for label, route_over in R1_ROUTES:
+        out[label] = _r1_route(label, route_over, os.path.join(work, label))
+        shutil.rmtree(os.path.join(work, label), ignore_errors=True)
+    out["against_plain"] = _r1_step_vs_plain()
+    return out
+
+
+# [int8 serve]: the JAX package's sampler bounds (tests/test_quantize.py:123-124)
+INT8_MEAN_TOL, INT8_P99_TOL = 4.0, 24.0
+
+
+def int8_serve(run_dir: str) -> dict:
+    """[int8 serve]: highres128 at batch 64 from the [serve] run directory on
+    the megablock serving route, float weights and int8 in one call: weight
+    bytes, call time (host clock to the uint8 readback, mean of 3 after the
+    warm-up), launches of one call (equal), the seeded uint8 output's drift."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.serve import load_service
+    from vitgan_tpu_torch.utils.quantize import QuantLeaf
+
+    res, outs = {}, {}
+    for mode in ("none", "int8"):
+        svc = load_service(run_dir, batch=64, quantize=None if mode == "none" else mode)
+        if mode == "int8":
+            # no float copy of the weights on the card, the int8 leaves there
+            if any(p.device.type != "meta" for p in svc.generator.parameters()):
+                raise AssertionError("the int8 route kept the float weights")
+            quant = [w for w in svc.weights.values() if isinstance(w, QuantLeaf)]
+            if not quant or any(w.q.dtype != torch.int8 or not w.q.is_cuda for w in quant):
+                raise AssertionError("the int8 weights are not int8 on the card")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        outs[mode] = svc._sample(svc.generator, 11, 0)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        times = []
+        for call in range(1, 4):
+            t0 = time.perf_counter()
+            svc._sample(svc.generator, 11, call)
+            times.append(1e3 * (time.perf_counter() - t0))
+        res[mode] = {"weight_bytes": svc.info()["weight_bytes"], "call_ms": sum(times) / 3,
+                     "launches": launches, "info": svc.info()}
+        print(f"[int8 serve] quantize={mode}: weight_bytes {res[mode]['weight_bytes']}, "
+              f"{res[mode]['call_ms']:.2f} ms a batch-64 call (uint8 readback included), "
+              f"launches of one call {launches}")
+        del svc
+        torch.cuda.empty_cache()
+    if res["int8"]["launches"] != res["none"]["launches"]:
+        raise AssertionError("int8 serving launched other kernels than the float route")
+    _check_launches(res["int8"]["launches"], {"ln_qkv_fwd": 1, "flash_attn_fwd": 1,
+                                              "proj_ln_mlp_fwd": 1,
+                                              **LN_MLP_STAGES["proj_ln_mlp_fwd"]}, 12)
+    diff = np.abs(outs["int8"].astype(np.int32) - outs["none"].astype(np.int32))
+    drift = {"mean": float(diff.mean()), "p99": float(np.quantile(diff, 0.99)),
+             "max": int(diff.max())}
+    print(f"[int8 serve] seeded uint8 drift against the float route: {drift} (limits mean "
+          f"{INT8_MEAN_TOL}, p99 {INT8_P99_TOL}); bytes {res['int8']['weight_bytes']} against "
+          f"{res['none']['weight_bytes']} ({res['none']['weight_bytes'] / res['int8']['weight_bytes']:.2f}x)")
+    if not (drift["mean"] <= INT8_MEAN_TOL and drift["p99"] <= INT8_P99_TOL):
+        raise AssertionError(f"int8 drift {drift} over the bounds")
+    res["drift"] = drift
+    return res
+
+
+def _reference_vit_d(path: str, cfg) -> int:
+    """highres128's discriminator as the reference v2 ViTDiscriminator's
+    state_dict ('vit.' keys, a 10-class head), from seeded numpy, saved to
+    ``path``: weights N(0, 0.02), LayerNorm scales 1 + N(0, 0.02)."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.utils.torch_export import export_checkpoint
+    from vitgan_tpu_torch.weights import _unflatten
+
+    with torch.device("meta"):
+        d = build_gan(cfg).discriminator_init(None, device="meta")
+    rng = np.random.default_rng(SEED)
+    flat = {k: (float(k.endswith(".scale")) + 0.02 * rng.standard_normal(tuple(t.shape))
+                ).astype(np.float32) for k, t in d.state_dict().items()}
+    sd = export_checkpoint({"params": _unflatten(flat), "state": {}}, "v2", prefix="vit.")
+    e = cfg.v2.embed_dim
+    sd["vit.classifier.fc2.weight"] = (0.02 * rng.standard_normal((10, e))).astype(np.float32)
+    sd["vit.classifier.fc2.bias"] = np.zeros(10, np.float32)
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
+    return len(sd)
+
+
+def interop_path(work: str) -> tuple:
+    """[interop]: `cli train --preset highres128 --warm-start-d` from a
+    reference-format v2 discriminator .pth (a warm-up epoch of 3 steps, the
+    capture among them, then 3 captured steps, under the preset's defaults,
+    megablock=auto), the leaves loaded and bit-equal to the import; then `cli
+    export-torch` of the trained D, re-imported, bit-equal to the run's
+    checkpoint leaf for leaf."""
+    import torch
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
+    from vitgan_tpu_torch.utils.torch_port import import_checkpoint
+    from vitgan_tpu_torch.weights import from_jax_tree
+
+    os.makedirs(work, exist_ok=True)
+    cfg = C.highres_config(128)
+    ref = os.path.join(work, "reference_vit_d.pth")
+    n_keys = _reference_vit_d(ref, cfg)
+    want = from_jax_tree(import_checkpoint(ref, "v2", num_heads=cfg.v2.num_heads))
+    run = os.path.join(work, "warm")
+    seen = {}
+    real_warm = cli._warm_start_d
+
+    def spy(trainer, path, cfg_):
+        seen["loaded"] = real_warm(trainer, path, cfg_)
+        seen["total"] = len(trainer.state.d.state_dict())
+        seen["equal"] = all(torch.equal(v.cpu(), want[k])
+                            for k, v in trainer.state.d.state_dict().items())
+        return seen["loaded"]
+
+    cli._warm_start_d = spy
+    steps = 3
+    try:
+        _settle()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--preset", "highres128", "--dataset", "synthetic", "--run-dir",
+                       run, "--epochs", "2", "--warm-start-d", ref,
+                       *sum((["--set", f"{k}={json.dumps(v)}"] for k, v in _fit_over({
+                           "run.steps_per_epoch": steps, "data.synthetic_samples": 256}).items()),
+                            [])])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        cli._warm_start_d = real_warm
+    if rc != 0 or not seen.get("equal") or seen["loaded"] != seen["total"]:
+        raise AssertionError(f"[interop] train --warm-start-d: rc {rc}, {seen}")
+    with open(os.path.join(run, "logs", "scalars.jsonl")) as f:
+        img_s = [r["value"] for r in map(json.loads, f) if r["tag"] == "train/images_per_sec"][-1]
+    ms = 1e3 * cfg.v2.batch_size / img_s
+    grid = {"ln_qkv_fwd": 12, "flash_attn_fwd": 12, "proj_ln_mlp_fwd": 12,
+            **{k: 12 * v for k, v in LN_MLP_STAGES["proj_ln_mlp_fwd"].items()}}
+    per_step = _check_fit_launches("[interop]", launches, TRAIN_KERNELS["auto"], 2 * steps, grid)
+    print(f"[interop] train --preset highres128 --warm-start-d: {seen['loaded']} of "
+          f"{seen['total']} D leaves loaded from a {n_keys}-key reference state_dict (bit-equal "
+          f"to its import), a warm-up epoch of {steps} and {steps} captured steps at "
+          f"{ms:.2f} ms/step ({sec:.1f} s with set-up), launches {launches}")
+    out = os.path.join(work, "d_export.pth")
+    if cli.main(["export-torch", "--run-dir", run, "--out", out]) != 0:
+        raise AssertionError("[interop] export-torch failed")
+    back = from_jax_tree(import_checkpoint(out, "v2", num_heads=cfg.v2.num_heads))
+    trained = CheckpointManager(os.path.join(run, "checkpoints")).restore()[0]["state"]["d"]
+    unequal = [k for k, v in trained.items() if not torch.equal(back[k], v)]
+    if set(back) != set(trained) or unequal:
+        raise AssertionError(f"[interop] export-torch re-imported: not bit-equal at {unequal}")
+    moved = sum(not torch.equal(trained[k], want[k]) for k in want)
+    print(f"[interop] export-torch of the trained D ({moved} of {len(want)} leaves moved from "
+          f"the import) re-imported bit-equal, leaf for leaf")
+    return per_step, {"leaves_loaded": seen["loaded"], "leaves": seen["total"],
+                      "ms_per_step": ms, "steps": 2 * steps, "launches": launches,
+                      "export_reimport_bit_equal": True}
+
+
+BASELINES = ("dcgan", "cnn", "mlp")
+
+
+def baselines_path(work: str) -> dict:
+    """[baselines]: dcgan, cnn and mlp at their default configs (32 px;
+    batch 128, 64, 128) on synthetic data through Trainer: an eager step
+    timed, a warm-up epoch of 3 (the capture), 3 captured steps by fit; the
+    captured steps against eager ones ([captured vs eager]'s terms); for dcgan
+    and cnn, `cli export-torch` of G and `cli generate --from-torch`."""
+    import torch
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import count_params
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for family in BASELINES:
+        tag = f"[baselines] {family}"
+        steps = 3
+        b = getattr(C.ExperimentConfig(), family).batch_size
+        cfg = C.replace(C.ExperimentConfig(family=family), **_fit_over({
+            "data.dataset": "synthetic", "data.synthetic_samples": 4 * b, "run.epochs": 2,
+            "run.steps_per_epoch": steps}))
+        run = os.path.join(work, family)
+        trainer = Trainer(cfg, run_dir=run, device="cuda")
+        st = trainer.state
+        host_metrics(trainer.train_step(st, trainer.real_batch(trainer.batches()[0])))
+        eager_ms = _eager_step_ms(trainer, steps)
+        trainer.fit(epochs=1)
+        _settle()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        means = trainer.fit()
+        if any(build.LAUNCHES.values()):
+            raise AssertionError(f"{tag} launched a kernel: {dict(build.LAUNCHES)}")
+        if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss")):
+            raise AssertionError(f"{tag}: non-finite metrics {means}")
+        ms = 1e3 * b / means["images_per_sec"]
+        rec = {"batch": b, "g_params": count_params(st.g), "d_params": count_params(st.d),
+               "d_has_batch_stats": trainer.gan.d_has_batch_stats, "ms_per_step": ms,
+               "eager_ms_per_step": eager_ms}
+        print(f"{tag}: batch {b}, G {rec['g_params']} D {rec['d_params']} parameters, "
+              f"{steps} captured steps at {ms:.3f} ms/step against {eager_ms:.3f} eager; "
+              f"{means}")
+        del trainer, st
+        torch.cuda.empty_cache()
+        # its order needs 1 + steps batches: the epoch uncut (4 of them)
+        rec["captured_vs_eager"] = captured_vs_eager(
+            C.replace(cfg, **{"run.steps_per_epoch": None}), steps, family)
+        if family in ("dcgan", "cnn"):
+            g_pth = os.path.join(work, f"{family}_g.pth")
+            if cli.main(["export-torch", "--run-dir", run, "--role", "generator",
+                         "--out", g_pth]) != 0 or cli.main(
+                    ["generate", "--from-torch", g_pth, "--family", family,
+                     "--num-images", "16"]) != 0:
+                raise AssertionError(f"{tag}: export-torch / generate --from-torch failed")
+            with open(os.path.join(work, "vitgan_tpu_samples", "generated_images.png"),
+                      "rb") as f:
+                h, w = _png_shape(f.read())
+            if (h, w) != (4 * 34 + 2, 4 * 34 + 2):
+                raise AssertionError(f"{tag}: generate --from-torch wrote a {h}x{w} grid")
+            rec["generate_from_torch"] = f"{h}x{w}"
+            print(f"{tag}: export-torch of G, generate --from-torch wrote a {h}x{w} grid")
+        out[family] = rec
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3400,6 +3847,9 @@ def main() -> int:
     v1_dir = os.path.join(root, "build", "chip_smoke_train_v1")
     eval_dir = os.path.join(root, "build", "chip_smoke_eval")
     data_dir = os.path.join(root, "build", "chip_smoke_data")
+    r1_dir = os.path.join(root, "build", "chip_smoke_r1")
+    interop_dir = os.path.join(root, "build", "chip_smoke_interop")
+    base_dir = os.path.join(root, "build", "chip_smoke_baselines")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -3439,8 +3889,13 @@ def main() -> int:
             "resume": resume_check(), "optimizer": optimizer_update()}
         evals = eval_path(eval_dir)
         data, data_launches = data_path(data_dir)
+        r1 = double_backward_path(r1_dir)
+        int8 = int8_serve(run_dir)
+        warm_launches, interop = interop_path(interop_dir)
+        baselines = baselines_path(base_dir)
     finally:
-        for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir):
+        for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir, r1_dir, interop_dir,
+                  base_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -3527,6 +3982,29 @@ def main() -> int:
             k["sass"] = sass[k["name"]]
         warned = ptxas_warnings.get(os.path.basename(k["source"])[:-3], [])
         k["ptxas_warnings"] = [f"{func}: {line}" for func, line in warned]
+        # phases 22-24: launches a step of R1 training on the route that runs the
+        # kernel ([double backward]), of one int8 serving call ([int8 serve]) and
+        # over the warm-started highres128 fit's steps ([interop])
+        r1_route = {"ln_mlp_fwd": "megablock_off", "ln_qkv_fwd": "megablock_on_recompute",
+                    "flash_attn_fwd": "megablock_on_recompute",
+                    "ln_mlp_train_fwd": "megablock_on_recompute"}.get(k["name"])
+        if r1_route:
+            k["launches_r1"] = {r1_route: {
+                kind: (_ln_mlp_launches(Counter(r1[r1_route][f"launches_{kind}"]),
+                                        k["name"])["launches"]
+                       if k["name"] in LN_MLP_STAGES else r1[r1_route][f"launches_{kind}"][
+                           k["name"]]) for kind in ("with_r1", "without_r1")}}
+        if k["name"] in ("flash_attn_fwd", "ln_qkv_fwd", "proj_ln_mlp_fwd"):
+            q = int8["int8"]["launches"]
+            k["launches_int8_serve"] = (_ln_mlp_launches(Counter(q), k["name"])["launches"]
+                                        if k["name"] in LN_MLP_STAGES else q[k["name"]])
+        if k["name"] in TRAIN_KERNELS["auto"]:
+            k["launches_warm_start"] = {
+                "ln_mlp_train_fwd": lambda: _ln_mlp_launches(Counter(warm_launches),
+                                                             "ln_mlp_train_fwd")["launches"],
+                "megablock_bwd_mlp": lambda: _mb_mlp_launches(Counter(warm_launches))[
+                    "launches"],
+            }.get(k["name"], lambda: warm_launches.get(k["name"], 0))()
         if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused"):
             # the v1 generator's `dot` attention: its launches on the v1 train
             # path and the check at its shape
@@ -3538,6 +4016,10 @@ def main() -> int:
     print(json.dumps({"capture": capture}))
     print(json.dumps({"eval": evals}))
     print(json.dumps({"data": data}, default=float))
+    print(json.dumps({"double_backward": r1}, default=float))
+    print(json.dumps({"int8_serve": int8}, default=float))
+    print(json.dumps({"interop": interop}, default=float))
+    print(json.dumps({"baselines": baselines}, default=float))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

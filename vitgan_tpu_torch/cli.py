@@ -1,7 +1,9 @@
 """Command-line interface of the port: ``train``, and ``serve``,
-``generate`` and ``eval`` over a run directory (utils/run_dirs.py), with the
+``generate`` and ``eval`` over a run directory (utils/run_dirs.py), and the
+reference-checkpoint commands ``import-torch`` and ``export-torch``, with the
 JAX CLI's flags for these commands (vitgan_tpu/cli.py) that the port
-carries, and ``--device`` (default cuda).
+carries, and ``--device`` (default cuda).  ``--family`` is v1, v2, dcgan,
+cnn or mlp.
 
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
     python -m vitgan_tpu_torch.cli train --preset highres128 --dataset cifar10 \
@@ -13,6 +15,12 @@ carries, and ``--device`` (default cuda).
     python -m vitgan_tpu_torch.cli generate --run-dir RUN [--num-images 64 --seed 0 --best]
     python -m vitgan_tpu_torch.cli eval --run-dir RUN [--best --num-samples 2048 \
         --extractor auto --dataset cifar10 --set data.data_dir=DIR]
+    python -m vitgan_tpu_torch.cli train --family dcgan --dataset synthetic
+    python -m vitgan_tpu_torch.cli import-torch REF.pth --family cnn --run-dir RUN
+    python -m vitgan_tpu_torch.cli export-torch --run-dir RUN --role generator [--out G.pth]
+    python -m vitgan_tpu_torch.cli generate --from-torch REF_G.pth --family dcgan
+    python -m vitgan_tpu_torch.cli train --preset highres128 --warm-start-d REF_D.pth
+    python -m vitgan_tpu_torch.cli serve --run-dir RUN --quantize int8
 
 ``--dataset`` (cifar10, mnist or synthetic; every preset defaults to
 cifar10) reads CIFAR-10's ``cifar-10-batches-py/`` or
@@ -42,6 +50,20 @@ kernels instead.  ``--family v1`` trains the paper's ViTGAN at its reference
 defaults; at its 32 and 50 tokens the JAX package's `auto` keeps attention
 on the plain route, and ``runtime.use_pallas=always`` sends every attention
 through the flash kernels (`dot` in G, `l2` in D).
+
+Reference checkpoints (utils/torch_port.py, utils/torch_export.py): the
+reference's ``state_dict``s of the v2 ViT discriminator, the v2 CNNGAN and
+the notebook DCGAN, ``.pth``/``.pt``/``.ckpt`` files read from a local path
+only (nothing is downloaded).  ``import-torch`` writes a run directory
+(config, a step-0 checkpoint, the generator) that ``generate``, ``serve``,
+``eval``, ``export-torch`` and ``train --resume`` read; ``export-torch``
+writes a run's D (its latest or best checkpoint) or G (generator.pt, the EMA
+weights) back in the reference's names; ``generate --from-torch`` samples a
+reference cnn or dcgan generator without a run directory; ``train
+--warm-start-d`` loads D from a reference checkpoint or from another run
+directory's latest checkpoint before the first step (ignored with
+``--resume``).  ``serve --quantize int8`` serves weight-only int8
+(utils/quantize.py).
 """
 
 from __future__ import annotations
@@ -65,6 +87,7 @@ def _overrides(args) -> dict:
 
 
 PRESETS = ("deit64", "highres128", "highres256")
+FAMILIES = ("v1", "v2", "dcgan", "cnn", "mlp")
 # train/fid.EXTRACTORS, kept here so that building the parser imports no torch
 EXTRACTORS = ("auto", "inception", "inception_jax", "inception_torch", "random_conv")
 DATASETS = ("cifar10", "mnist", "synthetic")
@@ -83,13 +106,53 @@ def build_cfg(args):
     else:
         cfg = C.ExperimentConfig(family=args.family)
     over = _overrides(args)
-    if args.dataset:
+    if getattr(args, "dataset", None):
         over["data.dataset"] = args.dataset
-    if args.epochs is not None:
+    if getattr(args, "epochs", None) is not None:
         over["run.epochs"] = args.epochs
-    if args.run_name:
+    if getattr(args, "run_name", None):
         over["run_name"] = args.run_name
     return C.replace(cfg, **over) if over else cfg
+
+
+def _num_heads(cfg) -> int:
+    """Attention heads for the reference's q/k/v Linears (v2 families; the
+    reference default is 4)."""
+    return getattr(cfg.model, "num_heads", 4)
+
+
+def _copy_in(module, flat: dict, what: str) -> None:
+    """Load every leaf of ``flat`` into ``module`` in place; all must match."""
+    import torch
+
+    from vitgan_tpu_torch.utils.checkpoint import partial_load
+
+    own = module.state_dict()
+    merged, n, total = partial_load(own, flat)
+    if n != total:
+        raise ValueError(f"{what}: only {n}/{total} leaves matched - model shape mismatch "
+                         "(check --family, --preset and --set)")
+    with torch.no_grad():
+        for name, t in own.items():
+            t.copy_(merged[name])
+
+
+def _warm_start_d(trainer, path: str, cfg) -> int:
+    """D from a reference .pth/.pt/.ckpt (utils/torch_port) or from another
+    run directory's latest checkpoint (vitgan_tpu/cli.py:112-134)."""
+    from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
+    from vitgan_tpu_torch.utils.torch_port import TORCH_SUFFIXES, import_checkpoint
+
+    if path.endswith(TORCH_SUFFIXES):
+        source = import_checkpoint(path, cfg.family, role="discriminator",
+                                   num_heads=_num_heads(cfg))
+    else:
+        source = CheckpointManager(os.path.join(path, "checkpoints")).restore()[0]["state"]["d"]
+    loaded = trainer.warm_start_discriminator(source)
+    if loaded == 0:
+        raise ValueError(f"warm start from {path} matched no leaves - wrong family or model "
+                         "shape?")
+    return loaded
 
 
 def cmd_train(args) -> int:
@@ -102,9 +165,18 @@ def cmd_train(args) -> int:
     from vitgan_tpu_torch.utils.preemption import graceful_preemption
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    trainer = Trainer(build_cfg(args), run_dir=args.run_dir, device=args.device)
+    cfg = build_cfg(args)
+    trainer = Trainer(cfg, run_dir=args.run_dir, device=args.device)
     if args.resume:
         trainer.resume()
+        if args.warm_start_d:
+            # The resumed checkpoint carries the trained D and its moments;
+            # a warm start would roll D back while G keeps its weights.
+            print("--warm-start-d ignored on --resume (the resumed checkpoint already carries "
+                  "the trained D)", file=sys.stderr)
+    elif args.warm_start_d:
+        n = _warm_start_d(trainer, args.warm_start_d, cfg)
+        print(f"warm-started D from {args.warm_start_d}: {n} leaves", file=sys.stderr)
     # SIGTERM stops at the next device call and goes through fit's
     # checkpoint epilogue; `train --resume` re-runs the interrupted epoch.
     with graceful_preemption():
@@ -113,15 +185,54 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _generate_from_torch(args) -> int:
+    """Sample a reference generator checkpoint (families cnn and dcgan; the
+    reference v2 generator is broken) with no run directory: a grid at
+    <checkpoint's directory>/vitgan_tpu_samples/generated_images.png
+    (vitgan_tpu/cli.py:136-162)."""
+    import torch
+
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime
+    from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
+    from vitgan_tpu_torch.utils.images import make_grid, save_png
+    from vitgan_tpu_torch.utils.torch_port import import_checkpoint
+    from vitgan_tpu_torch.weights import from_jax_tree, load_into
+
+    cfg = build_cfg(args)
+    apply_from_runtime(cfg.runtime)
+    gan = build_gan(cfg)
+    variables = import_checkpoint(args.from_torch, cfg.family, role="generator",
+                                  num_heads=_num_heads(cfg))
+    with torch.device("meta"):
+        g = gan.generator_init(None, device="meta")
+    load_into(g, from_jax_tree(variables), assign=True)
+    g.to(args.device)
+    z = gan.sample_latent(latent_rng(args.seed or 0, 0), args.num_images)
+    imgs = make_sample_fn(gan, cfg)(g, z).cpu().numpy()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(args.from_torch)),
+                           "vitgan_tpu_samples")
+    save_png(os.path.join(out_dir, "generated_images.png"), make_grid(imgs))
+    print(f"wrote {args.num_images} samples to {out_dir} (imported "
+          f"{os.path.basename(args.from_torch)}, family {cfg.family})")
+    return 0
+
+
 def cmd_generate(args) -> int:
     """Sample a grid from a run directory: <run>/test/generated_images.png and
-    the latents as <run>/test/noise.npy."""
+    the latents as <run>/test/noise.npy; or, with ``--from-torch``, from a
+    reference generator checkpoint."""
     import numpy as np
 
     from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
     from vitgan_tpu_torch.utils.images import make_grid, save_png
     from vitgan_tpu_torch.utils.run_dirs import restore_run
 
+    if args.from_torch:
+        return _generate_from_torch(args)
+    if not args.run_dir:
+        print("generate needs --run-dir or --from-torch", file=sys.stderr)
+        return 1
     cfg, gan, g, meta = restore_run(args.run_dir, best=args.best, overrides=_overrides(args),
                                     device=args.device)
     z = gan.sample_latent(latent_rng(args.seed or 0, 0), args.num_images)
@@ -130,6 +241,105 @@ def cmd_generate(args) -> int:
     save_png(os.path.join(out_dir, "generated_images.png"), make_grid(imgs))
     np.save(os.path.join(out_dir, "noise.npy"), z.numpy())
     print(f"wrote {args.num_images} samples to {out_dir} (step {meta.get('step')})")
+    return 0
+
+
+def cmd_import_torch(args) -> int:
+    """Write a reference torch checkpoint as a run directory: config.json, a
+    full-state checkpoint at step 0 and the generator, which ``generate``,
+    ``serve``, ``eval``, ``export-torch`` and ``train --resume`` read
+    (vitgan_tpu/cli.py:165-243).  Roles default to the discriminator for v2
+    and to whatever the state_dict carries for cnn and dcgan."""
+    import numpy as np
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.trainer import default_run_dir
+    from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
+    from vitgan_tpu_torch.utils.run_dirs import construct_directories, save_run
+    from vitgan_tpu_torch.utils.torch_port import import_checkpoint, load_torch_state_dict
+    from vitgan_tpu_torch.weights import from_jax_tree
+
+    cfg = build_cfg(args)
+    apply_from_runtime(cfg.runtime)
+    gan = build_gan(cfg)
+    state = create_train_state(gan, cfg, device=args.device)
+    sd = load_torch_state_dict(args.path)
+    if args.roles:
+        roles = [r.strip() for r in args.roles.split(",")]
+        bad = [r for r in roles if r not in ("generator", "discriminator")]
+        if bad:
+            raise ValueError(f"unknown role(s) {bad}; valid: generator, discriminator")
+    else:
+        roles = ["discriminator"] if cfg.family == "v2" else ["generator", "discriminator"]
+    imported = []
+    for role in roles:
+        try:
+            variables = import_checkpoint(sd, cfg.family, role=role, num_heads=_num_heads(cfg))
+            module = state.d if role == "discriminator" else state.g
+            _copy_in(module, from_jax_tree(variables), role)
+        except (KeyError, ValueError) as e:
+            # KeyError: the role's keys are absent; ValueError: present but
+            # another module's (a DCGAN G-only dict also has main.0.weight).
+            if args.roles:
+                raise
+            print(f"[import-torch] {role} does not fit this state_dict "
+                  f"({type(e).__name__}: {e}); skipped", file=sys.stderr)
+            continue
+        if role == "generator" and state.g_ema is not None:
+            for e, p in zip(state.g_ema, state.g.parameters()):
+                e.copy_(p.detach())
+        imported.append(role)
+    if not imported:
+        print("no role could be imported from this state_dict", file=sys.stderr)
+        return 1
+    run_name = args.run_name or f"imported_{os.path.splitext(os.path.basename(args.path))[0]}"
+    cfg = C.replace(cfg, run_name=run_name)
+    root = os.path.abspath(args.run_dir or default_run_dir(run_name))
+    dirs = construct_directories(os.path.basename(root), base=os.path.dirname(root))
+    meta = {"step": 0, "epoch": 0, "seed": state.seed,
+            "imported_from": os.path.abspath(args.path), "imported_roles": imported}
+    CheckpointManager(dirs.checkpoints, keep=cfg.run.keep_checkpoints).save(
+        0, {"state": state.state_dict(),
+            "data_order": np.random.default_rng(cfg.model.seed).bit_generator.state},
+        {"epoch": 0, "imported_from": meta["imported_from"], "imported_roles": imported})
+    save_run(dirs.root, cfg, state.ema_state_dict(), meta=meta)
+    print(f"imported {cfg.family} {'+'.join(imported)} from {args.path} -> {dirs.root}")
+    return 0
+
+
+def cmd_export_torch(args) -> int:
+    """Write a run's D (its latest or ``--best`` checkpoint) or G (its
+    generator weights, the EMA's where tracked) as a reference-format .pth
+    (vitgan_tpu/cli.py:246-264)."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.utils.checkpoint import CheckpointManager
+    from vitgan_tpu_torch.utils.run_dirs import BEST_FILE, GENERATOR_FILE
+    from vitgan_tpu_torch.utils.torch_export import save_torch_checkpoint
+    from vitgan_tpu_torch.weights import to_jax_tree
+
+    cfg = C.load_config(os.path.join(args.run_dir, "config.json"))
+    gan = build_gan(cfg)
+    with torch.device("meta"):
+        module = (gan.generator_init(None, device="meta") if args.role == "generator"
+                  else gan.discriminator_init(None, device="meta"))
+    if args.role == "generator":
+        path = os.path.join(args.run_dir, BEST_FILE if args.best else GENERATOR_FILE)
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        step = None
+    else:
+        ckpt, meta = CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(
+            best=args.best)
+        sd, step = ckpt["state"]["d"], meta.get("step")
+    out = args.out or os.path.join(args.run_dir, f"{cfg.family}_{args.role}.pth")
+    save_torch_checkpoint(out, to_jax_tree(module, sd), cfg.family, role=args.role,
+                          channels=cfg.model.channels)
+    print(f"exported {cfg.family} {args.role} (step {step}) -> {out}")
     return 0
 
 
@@ -198,7 +408,7 @@ def cmd_serve(args) -> int:
     from vitgan_tpu_torch.serve import serve
 
     httpd = serve(args.run_dir, host=args.host, port=args.port, batch=args.batch,
-                  best=args.best, device=args.device)
+                  best=args.best, device=args.device, quantize=args.quantize)
     print(f"serving {args.run_dir} on http://{args.host}:{httpd.server_address[1]} "
           f"(GET /healthz, /metrics, POST /sample)")
 
@@ -222,7 +432,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="train a GAN and write its run directory")
     t.add_argument("--preset", choices=PRESETS, default=None)
-    t.add_argument("--family", default="v2")
+    t.add_argument("--family", choices=FAMILIES, default="v2")
     t.add_argument("--dataset", choices=DATASETS, default=None,
                    help="default: the preset's (cifar10); files from data.data_dir")
     t.add_argument("--epochs", type=int, default=None)
@@ -232,11 +442,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config override, e.g. --set run.steps_per_epoch=5")
     t.add_argument("--resume", action="store_true",
                    help="continue the run directory from its latest checkpoint")
+    t.add_argument("--warm-start-d", default=None, metavar="PATH",
+                   help="load D before training from a reference .pth/.pt/.ckpt state_dict "
+                        "(a local file) or another run directory; ignored with --resume")
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=cmd_train)
 
     g = sub.add_parser("generate", help="sample images from a run directory")
-    g.add_argument("--run-dir", required=True)
+    g.add_argument("--run-dir", default=None)
+    g.add_argument("--from-torch", default=None, metavar="PATH",
+                   help="sample a reference generator state_dict (.pth/.pt/.ckpt, a local "
+                        "file; families cnn and dcgan) instead of a run directory")
+    g.add_argument("--family", choices=FAMILIES, default="v2", help="with --from-torch")
+    g.add_argument("--preset", choices=PRESETS, default=None, help="with --from-torch")
     g.add_argument("--best", action="store_true", help="use the best checkpoint")
     g.add_argument("--num-images", type=int, default=64)
     g.add_argument("--seed", type=int, default=None)
@@ -272,8 +490,34 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--port", type=int, default=8000)
     v.add_argument("--batch", type=int, default=64, help="fixed device batch per call")
     v.add_argument("--best", action="store_true", help="use the best checkpoint")
+    v.add_argument("--quantize", choices=["int8"], default=None,
+                   help="weight-only int8: the card keeps int8 weights and scales, "
+                        "dequantized for each call (utils/quantize.py)")
     v.add_argument("--device", default="cuda")
     v.set_defaults(fn=cmd_serve)
+
+    i = sub.add_parser("import-torch", help="write a reference torch checkpoint as a run "
+                       "directory")
+    i.add_argument("path", help="the reference .pth/.pt/.ckpt state_dict (a local file)")
+    i.add_argument("--family", choices=FAMILIES, default="v2")
+    i.add_argument("--preset", choices=PRESETS, default=None)
+    i.add_argument("--roles", default=None,
+                   help="comma list of generator,discriminator; default: discriminator "
+                        "for v2, whatever the state_dict carries for cnn and dcgan")
+    i.add_argument("--run-name", default=None)
+    i.add_argument("--run-dir", default=None, help="where to write the run directory")
+    i.add_argument("--set", action="append", metavar="dotted.key=value")
+    i.add_argument("--device", default="cuda")
+    i.set_defaults(fn=cmd_import_torch)
+
+    x = sub.add_parser("export-torch", help="write a run's D or G as a reference-format "
+                       "torch state_dict (.pth)")
+    x.add_argument("--run-dir", required=True)
+    x.add_argument("--best", action="store_true")
+    x.add_argument("--role", choices=("generator", "discriminator"), default="discriminator",
+                   help="v2 exports the discriminator only; cnn and dcgan both")
+    x.add_argument("--out", default=None, help="default: <run-dir>/<family>_<role>.pth")
+    x.set_defaults(fn=cmd_export_torch)
     return p
 
 

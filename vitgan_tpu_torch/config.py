@@ -3,9 +3,9 @@
 The port's own copy of the parts of ``vitgan_tpu.config`` that the serving and
 training slices read.  Field names, defaults and the JSON layout are the JAX
 package's, so a JAX run's ``config.json`` loads here unchanged: ``from_dict``
-skips the sections and fields this copy does not carry (mesh, the baseline
-families, the data pipeline's host settings), and the JAX package
-reads the port's ``config.json`` the same way.
+skips the sections and fields this copy does not carry (mesh, the hpo
+search space, the JAX-only runtime knobs), and the JAX package reads the
+port's ``config.json`` the same way.
 """
 
 from __future__ import annotations
@@ -136,6 +136,57 @@ class V2Config:
     )
 
 
+# The baselines (vitgan_tpu/config.py:242-291): the DCGAN notebook's conv GAN,
+# the reference v2 CNNGAN with image-shaped noise, and idc.py's toy MLP GAN.
+
+
+@dataclass(frozen=True)
+class DCGANConfig:
+    image_size: int = 32
+    channels: int = 3
+    batch_size: int = 128
+    latent_dim: int = 100
+    base_width: int = 64
+    seed: int = 999  # the notebook's seed
+    gen_optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=2e-4))
+    disc_optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=2e-4))
+
+
+@dataclass(frozen=True)
+class CNNGANConfig:
+    """The v2 CNNGAN: conv G and D; G's input is image-shaped noise, carried
+    flat as (B, H*W*C), so ``latent_dim`` is the image's size."""
+
+    image_size: int = 32
+    channels: int = 3
+    batch_size: int = 64
+    seed: int = 0
+    gen_optim: OptimConfig = field(
+        default_factory=lambda: OptimConfig(name="adamw", learning_rate=5e-4,
+                                            beta1=0.9, weight_decay=1e-3)
+    )
+    disc_optim: OptimConfig = field(
+        default_factory=lambda: OptimConfig(name="adamw", learning_rate=5e-4,
+                                            beta1=0.9, weight_decay=1e-3)
+    )
+
+    @property
+    def latent_dim(self) -> int:
+        return self.image_size * self.image_size * self.channels
+
+
+@dataclass(frozen=True)
+class MLPGANConfig:
+    image_size: int = 32
+    channels: int = 3
+    batch_size: int = 128
+    latent_dim: int = 128
+    hidden: Tuple[int, ...] = (256, 512, 1024)
+    seed: int = 0
+    gen_optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=2e-4))
+    disc_optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=2e-4))
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Compute-path knobs the port reads (the JAX schema has more)."""
@@ -219,9 +270,12 @@ class TrainRunConfig:
 class ExperimentConfig:
     """One model family plus its runtime settings."""
 
-    family: str = "v2"  # v1 | v2
+    family: str = "v2"  # v1 | v2 | dcgan | cnn | mlp
     v1: V1Config = field(default_factory=V1Config)
     v2: V2Config = field(default_factory=V2Config)
+    dcgan: DCGANConfig = field(default_factory=DCGANConfig)
+    cnn: CNNGANConfig = field(default_factory=CNNGANConfig)
+    mlp: MLPGANConfig = field(default_factory=MLPGANConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     data: DataConfig = field(default_factory=DataConfig)
     run: TrainRunConfig = field(default_factory=TrainRunConfig)
@@ -323,7 +377,9 @@ def highres_config(image_size: int = 128) -> ExperimentConfig:
 
 def smoke_config(family: str = "v2") -> ExperimentConfig:
     """Tiny CPU-runnable config: v2 depth 2, embed 32, 2 heads, latent 16; v1
-    depth 2, widths 64, latent 64; synthetic data, 1 epoch of 2 steps."""
+    depth 2, widths 64, latent 64; DCGAN base width 16, the CNNGAN at batch 4
+    (its widths are the reference's), the MLP GAN hidden (32, 64); synthetic
+    data, 1 epoch of 2 steps (vitgan_tpu/config.py:587-613)."""
     return replace(ExperimentConfig(family=family, data=DataConfig(dataset="synthetic")), **{
         "v2.batch_size": 8,
         "v2.embed_dim": 32,
@@ -337,6 +393,11 @@ def smoke_config(family: str = "v2") -> ExperimentConfig:
         "v1.generator.siren_hidden": 64,
         "v1.discriminator.depth": 2,
         "v1.discriminator.token_size": 64,
+        "dcgan.batch_size": 8,
+        "dcgan.base_width": 16,
+        "cnn.batch_size": 4,
+        "mlp.batch_size": 8,
+        "mlp.hidden": (32, 64),
         "run.epochs": 1,
         "run.steps_per_epoch": 2,
         "run.fid_num_samples": 16,

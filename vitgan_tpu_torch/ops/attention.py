@@ -52,9 +52,13 @@ KV_VMEM_BUDGET_BYTES = 8 * 1024 * 1024
 FUSED_BWD_KV_BUDGET_BYTES = 4 * 1024 * 1024
 FUSED_BWD_MAX_BLOCK = 512
 
-DOUBLE_BACKWARD = ("the flash-attention kernels are once-differentiable: a double backward "
-                   "(WGAN-GP, R1) through them is ROADMAP.md queue 2 item 2; set "
-                   "runtime.use_pallas=never for these recipes")
+# Once-differentiable, as the JAX package's flash_attention is: its backward
+# is a pallas_call, and a second derivative through it fails there with
+# "Linearization failed to produce known values for all output primals".
+DOUBLE_BACKWARD = ("the flash-attention kernels are once-differentiable, as the JAX package's "
+                   "flash_attention is (its backward is a pallas_call): a double backward "
+                   "(WGAN-GP, R1) through them is not a port item (ROADMAP.md queue 2 item 2); "
+                   "set runtime.use_pallas=never for these recipes")
 
 
 def _check_mode(score_mode: str, backward: bool = False) -> None:

@@ -657,8 +657,14 @@ def fused_encoder_block_bwd(params, g, res: Residuals, *, num_heads: int, eps: f
 
 # --- autograd Functions (the JAX custom_vjps) ---------------------------------------
 
-DOUBLE_BACKWARD = ("the megablock's autograd Functions are once-differentiable: a double "
-                   "backward (WGAN-GP, R1) through them is ROADMAP.md queue 2 item 2; set "
+# The saved-residual Functions are once-differentiable, as the JAX package's
+# are: its `encoder_block_fused_saved` backward is a pallas_call, and a second
+# derivative through it fails there with "Linearization failed to produce
+# known values for all output primals".
+DOUBLE_BACKWARD = ("the megablock's saved-residual Functions are once-differentiable, as the "
+                   "JAX package's encoder_block_fused_saved is (its backward is a pallas_call): "
+                   "a double backward (WGAN-GP, R1) through them is not a port item (ROADMAP.md "
+                   "queue 2 item 2); set runtime.megablock_bwd=recompute or "
                    "runtime.use_pallas=never for these recipes")
 
 
@@ -666,7 +672,9 @@ class _RecomputeBlock(torch.autograd.Function):
     """Kernel forward (with in-kernel dropout when rate > 0); backward by
     autograd of the plain block on the saved masks, f32 products in TF32 on
     the card (the JAX `_bwd` and `_bwd_dropout`, fused_block.py:776-782,
-    858-866)."""
+    858-866).  Under ``create_graph`` the plain block is rebuilt from the
+    saved tensors themselves and its gradient keeps its graph, so that a
+    second derivative reaches x and the parameters, as in the JAX package."""
 
     @staticmethod
     def forward(ctx, x, seed, rate, num_heads, eps, *params):
@@ -683,19 +691,20 @@ class _RecomputeBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled() and g.device.type != "cpu":
-            raise NotImplementedError(DOUBLE_BACKWARD)
         x, m1, m2, *params = ctx.saved_tensors
         need = (ctx.needs_input_grad[0], *ctx.needs_input_grad[5:])
+        create = torch.is_grad_enabled()
         with torch.enable_grad(), _tf32_products(g.is_cuda):
-            leaves = [t.detach().requires_grad_(nd) for t, nd in zip((x, *params), need)]
+            leaves = ((x, *params) if create else
+                      [t.detach().requires_grad_(nd) for t, nd in zip((x, *params), need)])
             p = _block_view(leaves[1:])
             if m1 is None:
                 out = _block_reference(leaves[0], p, ctx.num_heads, ctx.eps)
             else:
                 out = _block_reference_masked(leaves[0], p, m1, m2, ctx.num_heads, ctx.eps)
             wanted = [t for t, nd in zip(leaves, need) if nd]
-            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+            grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create)
+                         if wanted else ())
         dx, *dparams = (next(grads) if nd else None for nd in need)
         return (dx, None, None, None, None, *dparams)
 

@@ -5,7 +5,7 @@ Counterpart of vitgan_tpu/ops/fused_mlp.py.  ``fused_ln_mlp`` is a
 ``torch.autograd.Function``: its forward runs csrc/ln_mlp_fwd.cu on CUDA
 tensors and takes ``_reference`` on CPU tensors; its backward is autograd of
 ``_reference`` on the saved inputs, the JAX package's own recompute VJP
-(fused_mlp.py:174-190).  On the card its f32 products run in TF32 (10
+(fused_mlp.py:174-190), and so differentiates twice as the JAX one does.  On the card its f32 products run in TF32 (10
 mantissa bits, where the forward kernel's bf16 operands keep 7): in full f32
 they took 58% of a highres128 train step (PERF.md).
 
@@ -218,11 +218,6 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
     return out.reshape(x.shape)
 
 
-DOUBLE_BACKWARD = ("the LN->MLP kernel is once-differentiable: a double backward (WGAN-GP, "
-                   "R1) through it is ROADMAP.md queue 2 item 2; set runtime.use_pallas=never "
-                   "for these recipes")
-
-
 @contextlib.contextmanager
 def _tf32_products(on: bool):
     """TF32 for f32 matrix products inside the block when ``on``, restoring
@@ -236,7 +231,12 @@ def _tf32_products(on: bool):
 
 
 class _LnMlp(torch.autograd.Function):
-    """The kernel forward with the recompute backward of fused_mlp.py:181-187."""
+    """The kernel forward with the recompute backward of fused_mlp.py:181-187.
+
+    Under ``create_graph`` (WGAN-GP, R1) the backward is autograd of
+    ``_reference`` on the saved tensors themselves, with its graph kept, so
+    that a second derivative reaches x and the parameters: the JAX package's
+    ``jax.vjp`` of its reference differentiates the same way."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual):
@@ -248,15 +248,16 @@ class _LnMlp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled() and g.device.type != "cpu":
-            raise NotImplementedError(DOUBLE_BACKWARD)
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:7]
+        create = torch.is_grad_enabled()
         with torch.enable_grad(), _tf32_products(g.is_cuda):
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            leaves = saved if create else [t.detach().requires_grad_(n)
+                                           for t, n in zip(saved, need)]
             out = _reference(*leaves, "gelu", ctx.eps, ctx.residual)
             wanted = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+            grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create)
+                         if wanted else ())
         return (*(next(grads) if n else None for n in need), None, None)
 
 

@@ -87,18 +87,43 @@ class SamplerService:
     (seed, call) alone (train/sample.py), one fixed-shape generator call per
     ``batch`` images.  Unseeded requests draw slices from a shared pool that
     is refilled one batch at a time, so 16 concurrent n=4 requests at batch 64
-    cost one generator call."""
+    cost one generator call.
 
-    def __init__(self, cfg, gan, generator, batch: int = 64):
-        from vitgan_tpu_torch.train.sample import make_serve_sample_fn
+    ``quantize="int8"`` (utils/quantize.py) keeps the generator's int8
+    weights and their f32 scales on its device, with the leaves too small to
+    quantize, and moves the module itself to the meta device: nothing of the
+    float weights stays.  Each device call dequantizes them into the compute
+    dtype and runs the module on them, through the same kernels as the float
+    route (serve.py:123-134 in the JAX package, which dequantizes at trace
+    time).  ``weight_bytes`` is what the route stores: the float route's
+    parameters and buffers as the module holds them (f32, cast for each
+    product), or the int8 leaves, scales and passed-through leaves."""
+
+    def __init__(self, cfg, gan, generator, batch: int = 64, quantize: Optional[str] = None):
+        from vitgan_tpu_torch.train.sample import compute_dtype, make_serve_sample_fn
+        from vitgan_tpu_torch.utils.quantize import (dequantize_tree, maybe_quantize,
+                                                     quantized_bytes, tree_to)
 
         self.cfg = cfg
         self.gan = gan
         self.generator = generator
         self.batch = batch
-        self.device = str(next(generator.parameters()).device)
-        self.weight_bytes = sum(p.numel() * p.element_size() for p in generator.parameters())
-        self._sample = make_serve_sample_fn(gan, cfg, batch)
+        self.quantize = quantize or "none"
+        device = next(generator.parameters()).device
+        self.device = str(device)
+        sd = {k: v.detach() for k, v in generator.state_dict().items()}
+        if self.quantize == "none":
+            self.weights = None
+            self._sample = make_serve_sample_fn(gan, cfg, batch)
+        else:
+            self.weights = tree_to(maybe_quantize(sd, quantize), device)
+            del sd
+            generator.to("meta")  # the float weights leave the device
+            dtype = compute_dtype(cfg)
+            self._sample = make_serve_sample_fn(
+                gan, cfg, batch, weights=lambda: dequantize_tree(self.weights, dtype),
+                device=device)
+        self.weight_bytes = quantized_bytes(self.weights if self.weights is not None else sd)[0]
         self._gate = PriorityGate()
         self._stats_lock = threading.Lock()
         self._counter = 0
@@ -122,6 +147,7 @@ class SamplerService:
             "image_size": m.image_size,
             "channels": m.channels,
             "batch": self.batch,
+            "quantize": self.quantize,
             "weight_bytes": self.weight_bytes,
             "device": self.device,
             "requests_served": self._counter,
@@ -221,12 +247,12 @@ class SamplerService:
 
 
 def load_service(run_dir: str, batch: int = 64, best: bool = False,
-                 device="cuda") -> SamplerService:
+                 device="cuda", quantize: Optional[str] = None) -> SamplerService:
     """Restore a run directory into a SamplerService."""
     from vitgan_tpu_torch.utils.run_dirs import restore_run
 
     cfg, gan, g, _meta = restore_run(run_dir, best=best, device=device)
-    return SamplerService(cfg, gan, g, batch=batch)
+    return SamplerService(cfg, gan, g, batch=batch, quantize=quantize)
 
 
 def _make_handler(services):
@@ -298,7 +324,8 @@ def _make_handler(services):
 
 
 def serve(run_dirs, host: str = "127.0.0.1", port: int = 8000, batch: int = 64,
-          best: bool = False, device="cuda") -> ThreadingHTTPServer:
+          best: bool = False, device="cuda",
+          quantize: Optional[str] = None) -> ThreadingHTTPServer:
     """Build the service(s) and return a ready, unstarted HTTP server; call
     ``serve_forever()`` on it.  Several run directories form a registry keyed
     by basename (POST {"model": name})."""
@@ -309,7 +336,7 @@ def serve(run_dirs, host: str = "127.0.0.1", port: int = 8000, batch: int = 64,
         dups = sorted({n for n in names if names.count(n) > 1})
         raise ValueError(f"duplicate model names in --run-dir: {dups} "
                          "(registry keys are run-dir basenames)")
-    services = {name: load_service(d, batch=batch, best=best, device=device)
+    services = {name: load_service(d, batch=batch, best=best, device=device, quantize=quantize)
                 for name, d in zip(names, run_dirs)}
     httpd = ThreadingHTTPServer((host, port), _make_handler(services))
     # Non-daemon handler threads + block_on_close: server_close() lets the

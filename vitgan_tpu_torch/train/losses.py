@@ -3,9 +3,15 @@ diversity loss, accuracy.
 
 Counterpart of vitgan_tpu/train/losses.py:21-110.  Discriminators emit
 logits; every loss is computed in f32.  ``gradient_penalty`` and
-``r1_penalty`` differentiate D with ``create_graph=True`` (a double backward):
-through the plain route only, since the port's kernels are
-once-differentiable (ROADMAP.md queue 2 item 2).
+``r1_penalty`` differentiate D with ``create_graph=True`` (a double backward),
+as the JAX package differentiates its custom VJPs twice.  The recompute
+Functions take it: the LN->MLP (``ops/fused_mlp.fused_ln_mlp``) and the
+megablock under ``megablock_bwd=recompute`` run their kernels forward and
+differentiate their plain versions twice.  The flash and saved-megablock
+Functions raise, as the JAX package's flash_attention and
+encoder_block_fused_saved fail a second derivative (ROADMAP.md queue 2 item
+2): such recipes keep attention on the plain route (it is there below 256
+tokens) or set ``runtime.use_pallas=never``.
 """
 
 from __future__ import annotations

@@ -60,17 +60,24 @@ def make_sample_fn(gan, cfg):
     return sample
 
 
-def make_serve_sample_fn(gan, cfg, batch: int):
+def make_serve_sample_fn(gan, cfg, batch: int, weights=None, device=None):
     """One-call serving sampler: (generator module, seed, call) -> uint8 images.
 
     Latents, the generator forward, clip, round((x + 1) * 127.5) and the
-    readback to host memory run in one call (step.py:412-419)."""
+    readback to host memory run in one call (step.py:412-419).  With
+    ``weights``, a function returning the generator's whole state_dict on
+    ``device`` (the int8 route's dequantized weights, serve.py), the module
+    runs on those tensors in place of its own (``torch.func.functional_call``)."""
     dtype = compute_dtype(cfg)
 
     @torch.inference_mode()
     def sample_u8(g, seed: int, call: int) -> np.ndarray:
         z = gan.sample_latent(latent_rng(seed, call), batch)
-        imgs = g(z.to(device=_device_of(g), dtype=dtype))
+        if weights is None:
+            imgs = g(z.to(device=_device_of(g), dtype=dtype))
+        else:
+            imgs = torch.func.functional_call(g, weights(), (z.to(device=device, dtype=dtype),),
+                                              strict=True)
         imgs = torch.clamp(imgs.float(), -1.0, 1.0)
         return torch.round((imgs + 1.0) * 127.5).to(torch.uint8).cpu().numpy()
 

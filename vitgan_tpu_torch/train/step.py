@@ -64,16 +64,26 @@ from vitgan_tpu_torch.train.state import TrainState
 DRAW_KEYS = ("noise_real", "noise_fake", "aug_real", "aug_fake", "aug_g", "gp_eps")
 
 
+# The baselines' configs carry no training knobs: the getattr reads below give
+# them the JAX step's defaults (step.py:42-62).
+
+
 def _disc_steps(cfg: ExperimentConfig) -> int:
-    return max(1, int(cfg.model.disc_steps or 1))
+    return max(1, int(getattr(cfg.model, "disc_steps", 1) or 1))
+
+
+def _r1(m) -> tuple:
+    """(r1_gamma, r1_interval, whether R1 runs at all)."""
+    gamma = float(getattr(m, "r1_gamma", 0.0) or 0.0)
+    interval = max(1, int(getattr(m, "r1_interval", 1) or 1))
+    return gamma, interval, gamma > 0 and getattr(m, "loss", "bce") != "wgan-gp"
 
 
 def metric_keys(cfg: ExperimentConfig) -> tuple:
     """The step's metric keys, sorted (the JAX step's)."""
-    m = cfg.model
     keys = ["d_loss", "d_loss_real", "d_loss_fake", "g_loss", "d_real_acc", "d_fake_acc",
             "d_grad_norm", "g_grad_norm"]
-    if (m.r1_gamma or 0) > 0 and m.loss != "wgan-gp":
+    if _r1(cfg.model)[2]:
         keys.append("d_r1")
     return tuple(sorted(keys))
 
@@ -96,7 +106,6 @@ def plan_steps(gan, cfg: ExperimentConfig, state: TrainState, n: int, batch: int
                latents: Optional[np.ndarray] = None) -> StepPlan:
     """The plan of the n steps from ``state.step`` (``latents`` replaces the
     block drawn from the host, as ``z`` does for one step)."""
-    m = cfg.model
     ds = _disc_steps(cfg)
     if latents is None:
         latents = latent_block(gan, state.seed, state.step, n, batch, ds)
@@ -104,8 +113,7 @@ def plan_steps(gan, cfg: ExperimentConfig, state: TrainState, n: int, batch: int
         latents = np.asarray(latents, np.float32)
         if latents.shape != (n, ds, batch, gan.latent_dim):
             raise ValueError(f"latents {latents.shape}, expected {(n, ds, batch, gan.latent_dim)}")
-    r1 = m.loss != "wgan-gp" and (m.r1_gamma or 0) > 0
-    interval = max(1, int(m.r1_interval or 1))
+    _, interval, r1 = _r1(cfg.model)
     return StepPlan(
         latents=latents,
         g_rates=np.array([state.g_opt.lr(state.g_opt.count + i) for i in range(n)], np.float64),
@@ -135,10 +143,11 @@ def _make_core(gan, cfg: ExperimentConfig):
     one step with its latents, rates and R1 gate given; the host's counters
     untouched.  A rate is a float, or on CUDA a 0-d device tensor."""
     mcfg = cfg.model
-    criterion = LO.pick_criterion(mcfg.loss if mcfg.loss in ("bce", "mse") else "bce")
-    use_wgan = mcfg.loss == "wgan-gp"
-    r1_gamma = float(mcfg.r1_gamma or 0.0)
-    r1_interval = max(1, int(mcfg.r1_interval or 1))
+    loss_name = getattr(mcfg, "loss", "bce")
+    criterion = LO.pick_criterion(loss_name if loss_name in ("bce", "mse") else "bce")
+    use_wgan = loss_name == "wgan-gp"
+    r1_gamma, r1_interval, _ = _r1(mcfg)
+    g_diversity = getattr(mcfg, "g_diversity", False)
     disc_steps = _disc_steps(cfg)
     dtype = compute_dtype(cfg)
     ema_decay = cfg.run.ema_decay
@@ -185,8 +194,11 @@ def _make_core(gan, cfg: ExperimentConfig):
         if gan.d_has_state:
             penalty = penalties()
         if gan.d_has_batch_stats:
+            # Two forwards, each refreshing the running statistics: the JAX
+            # step keeps the state the fake forward returns, which it
+            # computed from the real forward's (step.py:105-123).
             real_logits = disc(real_in, update_state=True)
-            fake_logits = disc(fake_in)
+            fake_logits = disc(fake_in, update_state=True)
         else:
             logits = disc(torch.cat([real_in, fake_in], dim=0), update_state=True)
             real_logits, fake_logits = logits[:b], logits[b:]
@@ -223,8 +235,9 @@ def _make_core(gan, cfg: ExperimentConfig):
         real_in, fake_in = d_inputs(state, real, fake.detach(), draws)
 
         for j in range(disc_steps - 1):  # extra critic updates on fresh latents
-            with torch.no_grad():
-                fake_i = g(zs[1 + j], train=True, generator=gen)
+            with torch.no_grad():  # its BatchNorm state is dropped, as in JAX
+                fake_i = gan.generator_apply(g, zs[1 + j], train=True, generator=gen,
+                                             update_state=False)
             r_i, f_i = d_inputs(state, real, fake_i, {})
             d_update(state, r_i, f_i, False, {}, d_rates[j])
 
@@ -247,7 +260,7 @@ def _make_core(gan, cfg: ExperimentConfig):
                     g_loss = g_loss - mcfg.diversity_weight * LO.diversity_loss(fake)
             else:
                 g_loss = LO.g_adversarial_loss(criterion, fake_logits)
-                if mcfg.g_diversity and mcfg.diversity_weight > 0:
+                if g_diversity and mcfg.diversity_weight > 0:
                     g_loss = g_loss - mcfg.diversity_weight * LO.diversity_loss(fake)
             state.g_opt.zero_grad()
             g_loss.backward()
@@ -475,8 +488,8 @@ def make_device_data_train_fn(gan, cfg: ExperimentConfig, n_steps: int):
 def make_eval_step(gan, cfg: ExperimentConfig):
     """No-update validation step (step.py:424-450): (state, real, z) -> D's
     losses and accuracies on the real batch and on G(z), eval mode."""
-    mcfg = cfg.model
-    criterion = LO.pick_criterion(mcfg.loss if mcfg.loss in ("bce", "mse") else "bce")
+    loss_name = getattr(cfg.model, "loss", "bce")
+    criterion = LO.pick_criterion(loss_name if loss_name in ("bce", "mse") else "bce")
     dtype = compute_dtype(cfg)
 
     @torch.no_grad()

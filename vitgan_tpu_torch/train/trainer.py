@@ -207,6 +207,27 @@ class Trainer:
         self.best_metric = float(meta.get("best_metric", float("inf")))
         self.log.info("resumed from step %d (epoch %d)", self.state.step, self.epoch)
 
+    def warm_start_discriminator(self, source) -> int:
+        """strict=False warm start of D (trainer.py:261-290) from a
+        state_dict, a bare JAX-layout parameter tree or a {'params', 'state'}
+        tree (utils/torch_port.import_checkpoint; BatchNorm's running
+        statistics are state): every leaf whose name and shape match takes
+        the source's value, in place, so that a captured step replays it;
+        D's optimizer state is left as it is.  Returns the leaves loaded."""
+        from vitgan_tpu_torch.utils.checkpoint import partial_load
+        from vitgan_tpu_torch.weights import from_jax_tree
+
+        flat = source if all(isinstance(v, torch.Tensor) for v in source.values()) else (
+            from_jax_tree(source))
+        own = self.state.d.state_dict()
+        merged, loaded, _ = partial_load(own, flat)
+        with torch.no_grad():
+            for name, t in own.items():
+                if merged[name] is not t:
+                    t.copy_(merged[name])
+        self.log.info("warm-started D: %d of %d leaves loaded", loaded, len(own))
+        return loaded
+
     def _sampling_generator(self):
         """G with the EMA weights when tracked, else the live G."""
         if self.state.g_ema is None:

@@ -9,6 +9,10 @@ those of models/vitgan_v2.Discriminator.  A v1 variables dict
 {'params': ..., 'state': ...} maps whole: the discriminator's state leaves
 blocks[i].msha.isr.{sigma0, u} become the buffers of the same names in
 models/vitgan_v1.Discriminator.
+The baselines map the same way: a conv's ``w`` stays HWIO and a BatchNorm's
+state leaves {mean, var} become its buffers.  ``to_jax_tree`` is the
+inverse: a module's parameters and buffers as the {'params', 'state'} tree
+(what utils/torch_export writes a reference checkpoint from).
 No transposes: dense weights are (in, out) on both sides.  The FID
 extractors' convolutions are the exception: the JAX trees hold HWIO kernels,
 the port's modules OIHW, so ``random_conv_from_jax`` and
@@ -50,6 +54,37 @@ def from_jax_tree(tree: Any) -> Dict[str, torch.Tensor]:
     else:
         _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in flat.items()}
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
+    """'a.0.b' keys -> nested dicts, a level whose keys are all digits a list."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def to_jax_tree(module: torch.nn.Module, state_dict: Dict[str, torch.Tensor] = None) -> dict:
+    """A module's weights (or ``state_dict``, a state_dict of that module) ->
+    {'params': tree, 'state': tree} of f32 numpy arrays in the JAX layouts;
+    the module's buffers are the state."""
+    sd = module.state_dict() if state_dict is None else state_dict
+    buffers = {name for name, _ in module.named_buffers()}
+    as_np = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    return {"params": _unflatten({k: as_np(v) for k, v in sd.items() if k not in buffers}),
+            "state": _unflatten({k: as_np(v) for k, v in sd.items() if k in buffers})}
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
