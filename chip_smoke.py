@@ -38,8 +38,9 @@
    the megablock route's answer to the same request.
 7. Holds the three flash-attention backward kernels (single-pass, dq, dk/dv)
    against their plain versions at the generator's shape (32, 6, 1024, 64),
-   the discriminator's (64, 6, 1025, 64), a ragged (2, 3, 257, 64) and a long
-   (1, 1, 16385, 64) shape, each output within 2e-2 of its own max|plain|
+   the discriminator's (64, 6, 1025, 64), a ragged (2, 3, 257, 64), a long
+   (1, 1, 16385, 64) shape and highres256p4's G (8, 6, 4096, 64) and D
+   (16, 6, 4097, 64), each output within 2e-2 of its own max|plain|
    and bit-equal across two calls (dq of the single pass too);
    times each beside its bound, its plain version and PyTorch's
    scaled_dot_product_attention backward (library_ms), and at its main
@@ -221,6 +222,34 @@
    BatchNorm in f32, dense products), their captured steps against eager
    ones in [captured vs eager]'s terms; for dcgan and cnn `cli export-torch`
    of G and `cli generate --from-torch`.
+
+26. [highres256p4]: the 4,096-token preset at full width (256 px at patch 4,
+   4,096 tokens and 4,097 in D, embed 384, 6 heads, depth 12, batch 8, remat
+   'attn', dropout 0.1, DiffAugment) through Trainer on 64 synthetic images:
+   1 eager warm-up step, 2 eager steps timed, a warm-up epoch of 3 (the
+   capture), a timed epoch of 3 captured steps by fit after _settle: ms/step,
+   peak memory, launches a step (flash forward, single pass and LN->MLP in
+   every block, nothing else), a profiled breakdown with the idle share; 2
+   captured steps against 2 eager ones ([captured vs eager]); one step from
+   the same state on the kernel route and on use_pallas=never, held in the
+   route comparison's bounds (D's head bias at its per-sample scale).
+27. [remat]: highres256p4 under never, full, dots and attn, highres128 under
+   never and its preset's attn, each from one state: a call of 3 steps (the
+   capture), then 3 replays timed; ms/step, peak, launches a step held to
+   train_kernels (the megablock's forward or, under full and dots, the flash
+   forward re-run once a block), the state after 6 steps against never's.
+28. [grad accum]: highres128 with grad_accum 2 on G and D and an EMA: 4
+   captured steps against 4 eager ones across accumulation boundaries, and a
+   run resumed after 3 steps (mid-accumulation) against 6 uninterrupted:
+   bit-equal.
+29. [bench]: `cli bench --preset highres256p4 --scan 3 --iters 2 --flops`:
+   images/s within 5% of [highres256p4]'s captured step, the FLOP model's
+   GFLOP a step and the TFLOP/s it sustains.
+30. [cli]: `cli doctor` exits 0; `cli warmup v2` with the kernels built, then
+   after the build directory is emptied (every source rebuilt): its seconds.
+Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
+that trains it re-runs the megablock's training forward once a block in the
+backward, and its launches a step are taken from train_kernels.
 
 Any failed check raises.  The second-to-last lines are a {"kernels": [...]}
 JSON object and nvidia-smi's name/power line; the last line is
@@ -855,7 +884,10 @@ def compare_routes(httpd) -> dict:
 
 
 BWD_SHAPES = (("G", (32, 6, 1024, 64)), ("D", (64, 6, 1025, 64)), ("ragged", (2, 3, 257, 64)),
-              ("long", (1, 1, 16385, 64)))
+              ("long", (1, 1, 16385, 64)),
+              # highres256p4's G (4,096 tokens) and D on [real; fake] (4,097: the
+              # last of 33 key blocks holds one key); the single pass runs both
+              ("p4G", (8, 6, 4096, 64)), ("p4D", (16, 6, 4097, 64)))
 # The shape at which each backward kernel runs on the train step's main path.
 BWD_MAIN_SHAPE = {"flash_attn_bwd_fused": "G", "flash_attn_bwd_dq": "D",
                   "flash_attn_bwd_dkv": "D"}
@@ -917,6 +949,8 @@ def check_bwd_kernels() -> dict:
                 out[name][f"{label}_max_abs_err"] = err
                 out[name][f"{label}_ms"] = rec["ms"]
                 out[name][f"{label}_repeat_max_abs_diff"] = repeat
+                for key in ("plain_ms", "bound_ms", "bound_by", "library_ms"):
+                    out[name][f"{label}_{key}"] = rec[key]
         del q, k, v, do, o, lse, qg, kg, vg, sdpa_out, library
         torch.cuda.empty_cache()
     return out
@@ -1369,7 +1403,50 @@ TRAIN_KERNELS = {
     # runtime.megablock=off: flash attention and LN->MLP with their backward
     "off": {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 12, "flash_attn_bwd_dq": 24,
             "flash_attn_bwd_dkv": 24, "ln_mlp_fwd": 36, "ln_mlp_fc1": 36, "ln_mlp_linear": 36},
+    # highres256p4 (4,096 tokens, 4,097 in D; the megablock's gate refuses
+    # them): flash attention with the single-pass backward in every block of
+    # G, of D and of D in the G update (K/V under 4 MiB), and LN->MLP
+    "p4": {"flash_attn_fwd": 36, "flash_attn_bwd_fused": 36, "ln_mlp_fwd": 36,
+           "ln_mlp_fc1": 36, "ln_mlp_linear": 36},
 }
+# The megablock's training forward, per block forward: LN->qkv, the flash
+# forward and ln_mlp_train_fwd (the out-projection and fc2 by the linear
+# stage, LN2 -> fc1 by the fc1 stage).
+MB_FWD_LAUNCHES = {"ln_qkv_fwd": 1, "flash_attn_fwd": 1, "ln_mlp_train_fwd": 1,
+                   "ln_mlp_fc1": 1, "ln_mlp_linear": 2}
+
+
+def remat_name(remat) -> str:
+    """runtime.remat as ops/policy reads it (True is 'full', False 'never')."""
+    if isinstance(remat, bool):
+        return "full" if remat else "never"
+    return remat
+
+
+def remat_extra(route: str, remat) -> dict:
+    """What runtime.remat re-runs in the backward, per block forward that has
+    a backward, as the JAX package's gradient does (tests/test_torch_remat.py
+    holds the port's counts to its jaxpr): under full, dots and attn the
+    megablock's whole training forward (its residuals are neither products
+    nor named); on the standard path under full and dots the flash forward,
+    under attn nothing (its output and LSE are kept); the LN->MLP forward
+    never (no backward reads its output, models/remat.py)."""
+    remat = remat_name(remat)
+    if remat == "never":
+        return {}
+    if route == "auto":
+        return dict(MB_FWD_LAUNCHES)
+    return {} if remat == "attn" else {"flash_attn_fwd": 1}
+
+
+def train_kernels(route: str, remat, depth: int = 12, forwards: int = 3) -> dict:
+    """TRAIN_KERNELS[route] with remat's re-runs: ``forwards`` forwards of
+    ``depth`` blocks each have one backward (G; D on [real; fake]; D on the
+    fake in the G update)."""
+    per = dict(TRAIN_KERNELS[route])
+    for k, v in remat_extra(route, remat).items():
+        per[k] = per.get(k, 0) + v * depth * forwards
+    return per
 
 
 def check_training_gate() -> dict:
@@ -1542,7 +1619,8 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
     print(f"{tag} epoch means: {means}")
     print(f"{tag} launches over {steps} steps and the epilogue's grid: {launches}; the grid's "
           f"alone: {grid}")
-    launches = _check_fit_launches(tag, launches, TRAIN_KERNELS[route], steps, grid)
+    launches = _check_fit_launches(tag, launches, train_kernels(route, cfg.runtime.remat),
+                                   steps, grid)
     if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
                                                  "g_grad_norm")):
         raise AssertionError(f"non-finite train metrics: {means}")
@@ -2304,6 +2382,9 @@ def _flat_state(st) -> dict:
         out.update({f"{net}.{k}": v for k, v in sd[net].items()})
         opt = sd[f"{net}_opt"]
         out[f"{net}_opt.count"] = torch.tensor(opt["count"])
+        if "mini_step" in opt:  # grad_accum: the accumulator and its mini step
+            out[f"{net}_opt.mini_step"] = torch.tensor(opt["mini_step"])
+            out.update({f"{net}_opt.acc.{i}": a for i, a in enumerate(opt["acc"])})
         for i, entry in opt["state"].items():
             out.update({f"{net}_opt.{i}.{k}": v for k, v in entry.items()})
     for i, e in enumerate(sd["g_ema"] or ()):
@@ -2333,7 +2414,8 @@ def _hold_states(tag: str, start: dict, want: dict, got: dict) -> dict:
 
     groups: dict = {}
     for name, w in want.items():
-        g_, s0 = got[name], start[name]
+        # a leaf the start lacks (optimizer state the steps created) starts at 0
+        g_, s0 = got[name], start.get(name, torch.zeros_like(w))
         grp = _leaf_group(name)
         rec = groups.setdefault(grp, {"leaves": 0, "bit_equal": 0, "max_abs_diff": 0.0})
         rec["leaves"] += 1
@@ -2356,7 +2438,7 @@ def _hold_states(tag: str, start: dict, want: dict, got: dict) -> dict:
     return groups
 
 
-def captured_vs_eager(cfg, n: int, label: str) -> dict:
+def captured_vs_eager(cfg, n: int, label: str, trainer=None) -> dict:
     """[captured vs eager]: from one state (after one eager step, so that the
     optimizer's state exists), one batch order, one latent block and one
     generator state, ``n`` steps of a captured make_device_data_train_fn
@@ -2364,7 +2446,8 @@ def captured_vs_eager(cfg, n: int, label: str) -> dict:
     first on the same state, which is then restored in place (the
     checkpoint's restore), so that all n of its steps are replays.  Every
     leaf in the route comparison's terms; metrics: losses within LOSS_TOL,
-    norms within NORM_RTOL."""
+    norms within NORM_RTOL.  ``trainer``: one already built for ``cfg`` (its
+    state goes on from where it is)."""
     import shutil as _sh
     import tempfile
 
@@ -2379,7 +2462,7 @@ def captured_vs_eager(cfg, n: int, label: str) -> dict:
     run_dir = tempfile.mkdtemp(prefix="cve_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
     try:
-        trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        trainer = trainer or Trainer(cfg, run_dir=run_dir, device="cuda")
         st, gan, b = trainer.state, trainer.gan, cfg.model.batch_size
         order = trainer.batches()
         host_metrics(trainer.train_step(st, trainer.real_batch(order[0])))
@@ -3176,7 +3259,8 @@ def _data_fit(tag: str, cfg, run_dir: str) -> tuple:
     # --- end of the main path ---
     stats = trainer.pipeline.stats
     peak = torch.cuda.max_memory_allocated()
-    per_step = _check_fit_launches(tag, launches, TRAIN_KERNELS["auto"], DATA_STEPS, grid)
+    per_step = _check_fit_launches(tag, launches, train_kernels("auto", cfg.runtime.remat),
+                                   DATA_STEPS, grid)
     ms = 1e3 * cfg.model.batch_size / means["images_per_sec"]
     prof = _profiled_epoch(trainer)
     rec = {"route": trainer.route, "assembler": trainer.pipeline.assembler,
@@ -3418,6 +3502,16 @@ def _r1_cfg(route_over: dict, **extra):
         **extra}))
 
 
+def _r1_block_forwards(label: str, cfg, with_r1: bool) -> int:
+    """Block forwards a step runs on an R1 route: G, D on [real; fake], the G
+    update's D and on R1 steps D's R1 forward; under runtime.remat the
+    megablock's forward once more for each (R1's twice: its double backward
+    re-runs the block again), the LN->MLP forward not (remat_extra)."""
+    depth = cfg.v2.depth
+    again = int(label != "megablock_off" and remat_name(cfg.runtime.remat) != "never")
+    return depth * 3 * (1 + again) + (depth * (1 + 2 * again) if with_r1 else 0)
+
+
 def _r1_route(label: str, route_over: dict, run_dir: str) -> tuple:
     """Eager and captured steps of one route, each kind (with and without R1)
     timed apart: 2 eager warm-up steps, 4 eager steps timed, 2 captured calls
@@ -3471,9 +3565,8 @@ def _r1_route(label: str, route_over: dict, run_dir: str) -> tuple:
             d_r1.append(m["d_r1"])
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{tag}: non-finite metrics {m}")
-    blocks = cfg.v2.depth * 3
     for kind, per in launches.items():
-        _check_launches(per, R1_KERNELS[label], blocks + (cfg.v2.depth if kind else 0))
+        _check_launches(per, R1_KERNELS[label], _r1_block_forwards(label, cfg, kind))
     rec = {"captured_ms_with_r1": sum(captured[True]) / 3,
            "captured_ms_without_r1": sum(captured[False]) / 3,
            "eager_ms_with_r1": sum(eager[True]) / 2, "eager_ms_without_r1": sum(eager[False]) / 2,
@@ -3712,7 +3805,8 @@ def interop_path(work: str) -> tuple:
     ms = 1e3 * cfg.v2.batch_size / img_s
     grid = {"ln_qkv_fwd": 12, "flash_attn_fwd": 12, "proj_ln_mlp_fwd": 12,
             **{k: 12 * v for k, v in LN_MLP_STAGES["proj_ln_mlp_fwd"].items()}}
-    per_step = _check_fit_launches("[interop]", launches, TRAIN_KERNELS["auto"], 2 * steps, grid)
+    per_step = _check_fit_launches("[interop]", launches,
+                                   train_kernels("auto", cfg.runtime.remat), 2 * steps, grid)
     print(f"[interop] train --preset highres128 --warm-start-d: {seen['loaded']} of "
           f"{seen['total']} D leaves loaded from a {n_keys}-key reference state_dict (bit-equal "
           f"to its import), a warm-up epoch of {steps} and {steps} captured steps at "
@@ -3803,6 +3897,398 @@ def baselines_path(work: str) -> dict:
     return out
 
 
+# --- the 4,096-token preset, remat, gradient accumulation, bench and the CLI --------
+
+P4_STEPS = 3  # run.steps_per_epoch of the [highres256p4] fit
+REMAT_STEPS = 3  # steps per call of each [remat] mode
+
+
+def _p4_cfg(**over):
+    """highres256p4 at its preset (remat attn, DiffAugment, dropout 0.1) on 64
+    synthetic images, for the fit-driven phases."""
+    from vitgan_tpu_torch import config as C
+
+    return C.replace(C.highres256p4_config(), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 64, **over}))
+
+
+def train_p4(run_dir: str) -> tuple:
+    """[highres256p4]: the 4,096-token preset at full width (256 px at patch 4,
+    embed 384, 6 heads of 64, hidden 1,536, depth 12, batch 8, remat 'attn')
+    through Trainer on synthetic data: 1 eager warm-up step, 2 eager steps
+    timed, a warm-up epoch of P4_STEPS (the capture), then a timed epoch of
+    P4_STEPS captured steps by fit, after _settle: ms/step, peak memory, the
+    launches per step (flash forward, single pass and LN->MLP in every block;
+    none of the megablock's, the two-pass backward or wgrad_gemm), a profiled
+    breakdown with the idle share.  Returns (trainer, launches per step,
+    record, the state before the first step)."""
+    import torch
+
+    from vitgan_tpu_torch.models import count_params
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag = "[highres256p4]"
+    cfg = _p4_cfg(**{"run.epochs": 2, "run.steps_per_epoch": P4_STEPS})
+    m = cfg.v2
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    st = trainer.state
+    setup = time.perf_counter() - t0
+    n = (m.image_size // m.patch_size) ** 2
+    print(f"{tag} {m.image_size} px at patch {m.patch_size}: {n} tokens ({n + 1} in D), embed "
+          f"{m.embed_dim}, {m.num_heads} heads, depth {m.depth}, batch {m.batch_size}, remat "
+          f"{cfg.runtime.remat!r}, dropout {m.dropout}, augment {cfg.run.diff_augment!r}; G "
+          f"{count_params(st.g)} D {count_params(st.d)} parameters; set up in {setup:.1f} s")
+    start = st.state_dict()  # on the CPU: [remat] and the route comparison start from it
+    t0 = time.perf_counter()
+    warm = host_metrics(trainer.train_step(st, trainer.real_batch(trainer.batches()[0])))
+    print(f"{tag} 1 eager warm-up step in {time.perf_counter() - t0:.2f} s: {warm}")
+    eager_ms = _eager_step_ms(trainer, 2)
+    grid = _grid_launches(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(epochs=1)  # the warm-up epoch: its first step eager, then captured
+    warm_s = time.perf_counter() - t0
+    _settle()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # --- the main path ---
+    means = trainer.fit()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    # --- end of the main path ---
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * m.batch_size / means["images_per_sec"]
+    want = train_kernels("p4", cfg.runtime.remat)
+    per_step = _check_fit_launches(tag, launches, want, P4_STEPS, grid)
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
+                                                 "g_grad_norm")):
+        raise AssertionError(f"{tag} non-finite train metrics: {means}")
+    print(f"{tag} {_smi()}: {P4_STEPS} captured steps by Trainer.fit: {ms:.2f} ms/step, "
+          f"{means['images_per_sec']:.2f} img/s; the eager step {eager_ms:.2f} ms; peak "
+          f"{peak / 2**30:.2f} GiB allocated over the capture and both epochs; warm-up epoch "
+          f"{warm_s:.1f} s; launches a step {want}")
+    breakdown = train_breakdown(trainer, ms, recompute=True)
+    trainer._build_device_fns()  # drop the fit's captured graphs and their memory pool
+    rec = {"card": _smi(), "ms_per_step": ms, "eager_ms_per_step": eager_ms,
+           "img_per_s": means["images_per_sec"], "peak_allocated_bytes": peak,
+           "launches_per_step": {k: v // P4_STEPS for k, v in per_step.items() if v},
+           "setup_s": setup, "means": means, "breakdown": breakdown}
+    return trainer, rec, start
+
+
+def _hold_route_step(tag: str, kern: tuple, plain: tuple, scalar_scale: dict) -> dict:
+    """One train step's metrics and gradient leaves on a kernel route held to
+    the plain route's (compare_train_routes' bounds); a one-element leaf, a
+    sum over the batch's samples, within LEAF_RTOL of the sum of its
+    per-sample terms' magnitudes (``scalar_scale``), as the v1 comparison
+    holds it."""
+    (mk, gk, names), (mp, gp, _) = kern, plain
+    r = {}
+    for key in ("d_loss", "g_loss"):
+        r[key] = abs(mk[key] - mp[key])
+        if not r[key] <= LOSS_TOL:
+            raise AssertionError(f"{tag} {key}: kernels {mk[key]} plain {mp[key]}")
+    for key in ("d_grad_norm", "g_grad_norm"):
+        r[key] = abs(mk[key] - mp[key]) / mp[key]
+        if not r[key] <= NORM_RTOL:
+            raise AssertionError(f"{tag} {key}: kernels {mk[key]} plain {mp[key]}")
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, gk, gp):
+        scale = scalar_scale[name] if b.numel() == 1 else b.abs().max().item()
+        rel = (a - b).abs().max().item() / max(scale, 1e-30)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_name = rel, name
+    r["worst_leaf_rel"], r["worst_leaf"] = worst, worst_name
+    print(f"{tag} losses |d| {r['d_loss']:.3g} / {r['g_loss']:.3g} (tolerance {LOSS_TOL}), norms "
+          f"relative {r['d_grad_norm']:.3g} / {r['g_grad_norm']:.3g} (tolerance {NORM_RTOL}), "
+          f"{len(names)} gradient leaves, worst max|d| / max|plain| {worst:.4g} at {worst_name} "
+          f"(tolerance {LEAF_RTOL})")
+    if not worst <= LEAF_RTOL:
+        raise AssertionError(f"{tag} a gradient leaf differs from the plain route")
+    return r
+
+
+def p4_against_plain(trainer, start: dict) -> dict:
+    """One highres256p4 train step from the same state (the preset's
+    dropout and augment draws, the same generator state, so both routes draw
+    the same masks) on the kernel route and on use_pallas=never, under the
+    preset's remat 'attn' (the plain route keeps its products; its chunked
+    attention recomputes each chunk's scores in the backward): held in the
+    route comparison's bounds; each route's peak memory."""
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+    from vitgan_tpu_torch.train.step import host_metrics
+
+    st = trainer.state
+    real = trainer.real_batch(trainer.batches()[0])
+    saved = get_policy()
+    res = {}
+    # D's head bias is the sum over the D update's 2B rows of dlogit: the sum
+    # of their magnitudes, on the plain route, is the scale it is held at
+    dlogit = []
+
+    def record(module, args, y):
+        if y.requires_grad and y.shape[0] == 2 * real.shape[0]:
+            y.register_hook(lambda dy: dlogit.append(dy.detach().float()))
+
+    try:
+        for route, policy in (("kernels", dict(mode="auto")), ("plain", dict(mode="never"))):
+            set_policy(**policy)
+            st.load_state_dict(start)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            hook = st.d.register_forward_hook(record) if route == "plain" else None
+            t0 = time.perf_counter()
+            metrics = host_metrics(trainer.train_step(st, real))
+            sec = time.perf_counter() - t0
+            if hook is not None:
+                hook.remove()
+            peak = torch.cuda.max_memory_allocated()
+            # copies: the state's gradient buffers are zeroed in place next step
+            res[route] = (metrics, [p.grad.float().clone() for p in (*st.g.parameters(),
+                                                                     *st.d.parameters())],
+                          [f"g.{n}" for n, _ in st.g.named_parameters()]
+                          + [f"d.{n}" for n, _ in st.d.named_parameters()])
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            print(f"[highres256p4 routes] {route}: one eager step in {sec:.2f} s, peak "
+                  f"{peak / 2**30:.2f} GiB, launches {launched}, metrics {metrics}")
+            if route == "plain" and launched:
+                raise AssertionError("the plain route launched a kernel")
+            res[f"{route}_peak"], res[f"{route}_s"] = peak, sec
+    finally:
+        set_policy(**saved)
+    head = dict(st.d.named_parameters())["head_fc2.b"].grad
+    if len(dlogit) != 1 or not abs(dlogit[0].sum().item() - head.item()) <= \
+            1e-3 * dlogit[0].abs().sum().item():
+        raise AssertionError(f"D's head bias gradient {head.item()} is not the sum of the D "
+                             f"update's dlogit ({len(dlogit)} recorded)")
+    scale = {"d.head_fc2.b": dlogit[0].abs().sum().item()}
+    print(f"[highres256p4 routes] D's head bias: plain gradient {head.item():.4g}, sum of "
+          f"|dlogit| over the D update's rows {scale['d.head_fc2.b']:.4g}")
+    out = _hold_route_step("[highres256p4 routes] kernels against plain:", res["kernels"],
+                           res["plain"], scale)
+    out.update({k: res[k] for k in ("kernels_peak", "plain_peak", "kernels_s", "plain_s")})
+    return out
+
+
+def _remat_modes(tag: str, trainer, start: dict, modes: tuple, route: str) -> dict:
+    """Each remat mode from the same state, batch order and generator state:
+    a device-data function of REMAT_STEPS steps, its first call (the eager
+    step, its capture, the replays) then a timed call of replays; ms/step,
+    the peak memory over both calls, launches a step (held to train_kernels
+    for ``route``), and the state after the 2 x REMAT_STEPS steps against
+    'never''s: bit-equal, else within the captured-against-eager bounds."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+    from vitgan_tpu_torch.train.step import host_metrics, make_device_data_train_fn
+
+    st, cfg, b = trainer.state, trainer.cfg, trainer.cfg.model.batch_size
+    idx = np.random.default_rng(SEED).integers(0, len(trainer.dataset), (2, REMAT_STEPS, b))
+    saved = get_policy()
+    out, states = {}, {}
+    try:
+        for mode in modes:
+            set_policy(remat=mode)
+            st.load_state_dict(start)
+            fn = make_device_data_train_fn(trainer.gan, cfg, REMAT_STEPS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            host_metrics({k: v[-1] for k, v in fn(st, trainer.dataset, idx[0]).items()})
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            m = host_metrics({k: v[-1] for k, v in fn(st, trainer.dataset, idx[1]).items()})
+            ms = 1e3 * (time.perf_counter() - t0) / REMAT_STEPS
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v // REMAT_STEPS for k, v in build.LAUNCHES.items() if v}
+            want = train_kernels(route, mode)
+            if launches != {k: v for k, v in want.items() if v}:
+                raise AssertionError(f"{tag} remat={mode}: launches a step {launches}, "
+                                     f"expected {want}")
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag} remat={mode}: non-finite metrics {m}")
+            states[mode] = _flat_state(st)
+            out[mode] = {"ms_per_step": ms, "peak_allocated_bytes": peak,
+                         "launches_per_step": launches}
+            print(f"{tag} remat={mode}: {ms:.2f} ms/step ({REMAT_STEPS} replays), peak "
+                  f"{peak / 2**30:.2f} GiB over the capture and 2 calls, launches a step "
+                  f"{launches}")
+            del fn
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        set_policy(**saved)
+    st.load_state_dict(start)
+    start_flat = _flat_state(st)
+    for mode in modes[1:]:
+        groups = _hold_states(f"{tag} remat={mode} against never:", start_flat,
+                              states[modes[0]], states[mode])
+        out[mode]["bit_equal_to_never"] = all(r["bit_equal"] == r["leaves"]
+                                              for r in groups.values())
+        print(f"{tag} remat={mode}: the state after {2 * REMAT_STEPS} steps is "
+              f"{'bit-equal' if out[mode]['bit_equal_to_never'] else 'NOT bit-equal'} to "
+              f"remat=never's")
+    return out
+
+
+def remat_path(p4_trainer, p4_start: dict) -> dict:
+    """[remat]: highres256p4 in each mode (never, full, dots, attn), then
+    highres128 at its preset ('attn', the megablock route) against 'never'
+    (its megablock forward's launches doubled), each mode's state held to
+    'never''s."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    out = {"card": _smi(),
+           "highres256p4": _remat_modes("[remat] highres256p4", p4_trainer, p4_start,
+                                        ("never", "full", "dots", "attn"), "p4")}
+    cfg = C.replace(C.highres_config(128), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 256}))
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_remat128")
+    try:
+        trainer = Trainer(cfg, run_dir=base, device="cuda")
+        out["highres128"] = _remat_modes("[remat] highres128", trainer,
+                                         trainer.state.state_dict(), ("never", "attn"), "auto")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    r = out["highres128"]
+    print(f"[remat] {out['card']}: highres128 'attn' {r['attn']['ms_per_step']:.2f} ms/step "
+          f"against 'never' {r['never']['ms_per_step']:.2f}, peak "
+          f"{r['attn']['peak_allocated_bytes'] / 2**30:.2f} against "
+          f"{r['never']['peak_allocated_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def grad_accum_path(work: str) -> dict:
+    """[grad accum]: highres128 with gen_optim.grad_accum = disc_optim.grad_accum
+    = 2 and run.ema_decay 0.999: n = 4 captured steps against 4 eager ones
+    across accumulation boundaries (the graphs of both kinds, accumulating
+    and applying; captured_vs_eager's terms); then 2 epochs of 3 steps
+    uninterrupted against 1 epoch, its checkpoint (G's and D's accumulators
+    half full), a fresh Trainer's resume() and the second epoch: bit-equal."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag = "[grad accum]"
+    cfg = C.replace(C.highres_config(128), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.ema_decay": 0.999,
+        "v2.gen_optim.grad_accum": 2, "v2.disc_optim.grad_accum": 2,
+        "run.steps_per_epoch": 3}))
+    out = {"captured_vs_eager": captured_vs_eager(C.replace(cfg, **{"run.steps_per_epoch": None}),
+                                                  4, "highres128 grad_accum=2")}
+
+    def run(name: str, epochs: int, resume: bool = False) -> tuple:
+        trainer = Trainer(cfg, run_dir=os.path.join(work, name), device="cuda")
+        if resume:
+            trainer.resume()
+        trainer.fit(epochs=epochs)
+        st = trainer.state
+        mini = (int(st.g_opt.mini_step), int(st.d_opt.mini_step))
+        flat = _flat_state(st)
+        del trainer, st
+        torch.cuda.empty_cache()
+        return flat, mini
+
+    whole, _ = run("whole", 2)
+    _, mid = run("part", 1)
+    resumed, _ = run("part", 2, resume=True)
+    if mid != (1, 1):
+        raise AssertionError(f"{tag} the checkpoint after 3 calls holds mini steps {mid}")
+    differ = [k for k in whole if not torch.equal(whole[k], resumed[k])]
+    print(f"{tag} highres128, grad_accum 2 on G and D, EMA 0.999: a run resumed after 3 steps "
+          f"(mini steps {mid}) against 6 uninterrupted steps: {len(whole) - len(differ)} of "
+          f"{len(whole)} leaves bit-equal")
+    if differ:
+        raise AssertionError(f"{tag} the resumed run differs at {differ[:5]}")
+    out["resume"] = {"leaves": len(whole), "bit_equal": True, "mini_steps_at_checkpoint": mid}
+    return out
+
+
+def bench_path(p4_ms: float) -> dict:
+    """[bench]: `cli bench --preset highres256p4 --scan 3 --iters 2 --flops`,
+    its JSON line; its images/s within 5% of [highres256p4]'s captured step;
+    the FLOP model's GFLOP a step and the TFLOP/s it sustains on the card."""
+    import contextlib
+
+    import torch
+
+    from vitgan_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--preset", "highres256p4", "--scan", "3", "--iters", "2",
+                       "--flops"])
+    sec = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli bench: rc {rc}")
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    fit_ips = 8 * 1e3 / p4_ms
+    ratio = rec["value"] / fit_ips
+    print(f"[bench] {_smi()}: {json.dumps(rec)} in {sec:.1f} s; [highres256p4]'s captured "
+          f"step {fit_ips:.2f} img/s (ratio {ratio:.4f})")
+    torch.cuda.empty_cache()
+    if not 0.95 <= ratio <= 1.05:
+        raise AssertionError(f"[bench] {rec['value']} img/s against the fit's {fit_ips:.2f}")
+    return {**rec, "fit_img_per_s": fit_ips, "ratio": ratio, "seconds": sec}
+
+
+def cli_path() -> dict:
+    """[cli]: `cli doctor` exits 0 on the card; `cli warmup v2` with the
+    kernels built, then after the build directory is emptied (every kernel
+    source rebuilt, nvcc in parallel): its seconds each time."""
+    import contextlib
+
+    from vitgan_tpu_torch import cli
+    from vitgan_tpu_torch.ops import build
+
+    out = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["doctor"])
+    checks = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[cli] doctor: rc {rc} in {time.perf_counter() - t0:.1f} s: "
+          f"{ {k: v['ok'] for k, v in checks.items()} }")
+    if rc != 0 or not checks["devices"]["ok"]:
+        raise AssertionError(f"[cli] doctor: rc {rc}, {checks['devices']}")
+    out["doctor"] = checks
+    for label in ("built", "clean"):
+        if label == "clean":
+            shutil.rmtree(build.BUILD_DIR)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["warmup", "v2"])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        built = sum(os.path.exists(build.lib_path(n)) for n in build.SOURCES)
+        print(f"[cli] warmup v2 with the build directory {label}: rc {rc}, "
+              f"{rec['compile_seconds']['v2']} s; {built} of {len(build.SOURCES)} kernel "
+              "libraries built")
+        if rc != 0 or built != len(build.SOURCES):
+            raise AssertionError(f"[cli] warmup ({label}): rc {rc}, {built} libraries")
+        out[f"warmup_{label}_s"] = rec["compile_seconds"]["v2"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3850,6 +4336,8 @@ def main() -> int:
     r1_dir = os.path.join(root, "build", "chip_smoke_r1")
     interop_dir = os.path.join(root, "build", "chip_smoke_interop")
     base_dir = os.path.join(root, "build", "chip_smoke_baselines")
+    p4_dir = os.path.join(root, "build", "chip_smoke_p4")
+    accum_dir = os.path.join(root, "build", "chip_smoke_accum")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -3893,9 +4381,19 @@ def main() -> int:
         int8 = int8_serve(run_dir)
         warm_launches, interop = interop_path(interop_dir)
         baselines = baselines_path(base_dir)
+        p4_trainer, p4, p4_start = train_p4(p4_dir)
+        p4["captured_vs_eager"] = captured_vs_eager(p4_trainer.cfg, 2, "highres256p4",
+                                                    trainer=p4_trainer)
+        p4["routes"] = p4_against_plain(p4_trainer, p4_start)
+        remat = remat_path(p4_trainer, p4_start)
+        del p4_trainer, p4_start
+        torch.cuda.empty_cache()
+        accum = grad_accum_path(accum_dir)
+        bench = bench_path(p4["ms_per_step"])
+        cli_rec = cli_path()
     finally:
         for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir, r1_dir, interop_dir,
-                  base_dir):
+                  base_dir, p4_dir, accum_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -4010,6 +4508,17 @@ def main() -> int:
             # path and the check at its shape
             k["launches_train_v1"] = v1_launches[k["name"]]
             k["v1"] = v1_dot[k["name"]]
+        # phases 26-27: launches a step of the 4,096-token preset's fit
+        # ([highres256p4], remat 'attn') and under each remat mode ([remat])
+        stages = {"ln_mlp_fwd": ("ln_mlp_fc1", "ln_mlp_linear")}.get(k["name"], (k["name"],))
+        if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused", "ln_mlp_fwd"):
+            k["launches_highres256p4_per_step"] = sum(p4["launches_per_step"].get(n, 0)
+                                                      for n in stages)
+        if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused", "ln_mlp_fwd", "ln_qkv_fwd",
+                         "ln_mlp_train_fwd"):
+            k["launches_remat_per_step"] = {  # the wrapper's calls
+                f"{preset} {mode}": r["launches_per_step"].get(k["name"], 0)
+                for preset in ("highres256p4", "highres128") for mode, r in remat[preset].items()}
     print(json.dumps({"routes": routes}))
     print(json.dumps({"train": train}))
     print(json.dumps({"v1": v1}))
@@ -4020,6 +4529,10 @@ def main() -> int:
     print(json.dumps({"int8_serve": int8}, default=float))
     print(json.dumps({"interop": interop}, default=float))
     print(json.dumps({"baselines": baselines}, default=float))
+    print(json.dumps({"highres256p4": p4}, default=float))
+    print(json.dumps({"remat": remat}, default=float))
+    print(json.dumps({"grad_accum": accum}, default=float))
+    print(json.dumps({"bench": bench, "cli": cli_rec}, default=float))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

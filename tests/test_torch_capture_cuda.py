@@ -25,6 +25,9 @@ from vitgan_tpu_torch.train import step as S
 from vitgan_tpu_torch.train.sample import latent_block
 from vitgan_tpu_torch.train.trainer import Trainer
 
+# The graph of a step without R1 whose G and D calls apply (no grad_accum):
+# train/step.StepPlan.kind
+NO_R1 = (False, True, (True,))
 SMOKE = {"data.synthetic_samples": 64, "run.steps_per_epoch": None,
          "run.diff_augment": "color,translation", "data.augment_flip": True,
          "run.ema_decay": 0.9, "run.sample_grid_every_epochs": 0}
@@ -74,7 +77,7 @@ def test_captured_steps_equal_eager_steps(tmp_path):
         assert torch.equal(got[k], torch.stack([e[k] for e in eager])), k
     for x, y in zip(_state_tensors(st), want):
         assert torch.equal(x, y)
-    assert list(fn.graphs) == [False]
+    assert list(fn.graphs) == [NO_R1]
 
 
 @pytest.mark.cuda
@@ -109,7 +112,7 @@ def test_replay_launches_equal_an_eager_steps(tmp_path):
     fn = S.make_device_data_train_fn(t.gan, cfg, 3)
     build.reset_launches()
     fn(t.state, t.dataset, order[2:5])  # one eager step, its capture, 2 replays
-    assert fn.graphs[False][1] == eager
+    assert fn.graphs[NO_R1][1] == eager
     got = {k: v for k, v in build.LAUNCHES.items() if v}
     assert got == {k: 3 * v for k, v in eager.items()}
 

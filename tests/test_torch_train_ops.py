@@ -363,8 +363,16 @@ def test_schedules_and_unported_options():
             want = jlr(count) if callable(jlr) else jlr
             assert abs(lr(count) - float(want)) <= 1e-9, (kw, count)
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for bad in (dict(grad_accum=2), dict(inject_lr=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # grad_accum and inject_lr are ported (tests/test_torch_grad_accum.py); the
+    # combinations the JAX make_optimizer refuses raise its ValueErrors
+    assert Optimizer(C.OptimConfig(grad_accum=2), p).k == 2
+    assert Optimizer(C.OptimConfig(inject_lr=True), p).learning_rate == 2e-4
+    for bad, msg in ((dict(inject_lr=True, grad_accum=2), "incompatible with grad_accum"),
+                     (dict(inject_lr=True, schedule="cosine", decay_steps=4), "constant lr only"),
+                     (dict(inject_lr=True, warmup_steps=2), "constant lr only")):
+        with pytest.raises(ValueError, match=msg):
+            jax_make_optimizer(JC.OptimConfig(**bad))
+        with pytest.raises(ValueError, match=msg):
             Optimizer(C.OptimConfig(**bad), p)
     with pytest.raises(ValueError):
         make_lr(C.OptimConfig(schedule="cosine"))

@@ -57,17 +57,22 @@ def _same_fields(port: dict, jax_: dict, path=""):
             assert v == jax_[k], f"{path}{k}: port {v!r} != JAX {jax_[k]!r}"
 
 
-@pytest.mark.parametrize("preset", ["highres128", "highres256", "deit64", "smoke"])
+@pytest.mark.parametrize("preset", ["highres128", "highres256", "highres256p4", "deit64",
+                                    "smoke"])
 def test_presets_equal_the_jax_presets(preset):
     port, jax_ = {"highres128": (C.highres_config(128), JC.highres_config(128)),
                   "highres256": (C.highres_config(256), JC.highres_config(256)),
+                  "highres256p4": (C.highres256p4_config(), JC.highres256p4_config()),
                   "deit64": (C.deit64_config(), JC.deit64_config()),
                   "smoke": (C.smoke_config(), JC.smoke_config())}[preset]
     _same_fields(C.to_dict(port), JC.to_dict(jax_))
     for section in ("v2", "runtime", "data", "run"):
         assert section in C.to_dict(port)
-    if preset == "highres128":
+    if preset in ("highres128", "highres256p4"):
         assert port.runtime.remat == "attn" and port.run.diff_augment == "color,translation"
+    if preset == "highres256p4":
+        m = port.v2
+        assert (m.image_size // m.patch_size) ** 2 == 4096 and m.batch_size == 8
 
 
 def _jax_adam_mu(opt_state):

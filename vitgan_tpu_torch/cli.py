@@ -1,9 +1,10 @@
 """Command-line interface of the port: ``train``, and ``serve``,
-``generate`` and ``eval`` over a run directory (utils/run_dirs.py), and the
-reference-checkpoint commands ``import-torch`` and ``export-torch``, with the
-JAX CLI's flags for these commands (vitgan_tpu/cli.py) that the port
-carries, and ``--device`` (default cuda).  ``--family`` is v1, v2, dcgan,
-cnn or mlp.
+``generate`` and ``eval`` over a run directory (utils/run_dirs.py), the
+reference-checkpoint commands ``import-torch`` and ``export-torch``, and the
+measuring and diagnostic commands ``bench``, ``warmup``, ``doctor`` and
+``profile``, with the JAX CLI's flags for these commands (vitgan_tpu/cli.py)
+that the port carries, and ``--device`` (default cuda).  ``--family`` is v1,
+v2, dcgan, cnn or mlp.
 
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
     python -m vitgan_tpu_torch.cli train --preset highres128 --dataset cifar10 \
@@ -21,6 +22,11 @@ cnn or mlp.
     python -m vitgan_tpu_torch.cli generate --from-torch REF_G.pth --family dcgan
     python -m vitgan_tpu_torch.cli train --preset highres128 --warm-start-d REF_D.pth
     python -m vitgan_tpu_torch.cli serve --run-dir RUN --quantize int8
+    python -m vitgan_tpu_torch.cli train --preset highres256p4 --dataset synthetic
+    python -m vitgan_tpu_torch.cli bench --preset highres256p4 [--scan 16 --iters 5 --flops]
+    python -m vitgan_tpu_torch.cli warmup highres128 highres256p4 [--scan 4]
+    python -m vitgan_tpu_torch.cli doctor [--allow-no-device]
+    python -m vitgan_tpu_torch.cli profile --preset highres128 --dataset synthetic [--steps 5]
 
 ``--dataset`` (cifar10, mnist or synthetic; every preset defaults to
 cifar10) reads CIFAR-10's ``cifar-10-batches-py/`` or
@@ -64,6 +70,18 @@ reference cnn or dcgan generator without a run directory; ``train
 directory's latest checkpoint before the first step (ignored with
 ``--resume``).  ``serve --quantize int8`` serves weight-only int8
 (utils/quantize.py).
+
+``bench`` prints one JSON line: the images/s of the device-data train path
+(``train/step.make_device_data_train_fn``, captured on the card) at
+``--scan`` steps a call over ``--iters`` timed calls, and with ``--flops``
+the step's product FLOPs (utils/benchutil.step_gflops) and the TFLOP/s they
+sustain.  ``warmup`` builds every kernel and the C++ batch assembler (and
+with ``--scan`` captures the bench harness once) and prints the seconds per
+preset.  ``doctor`` probes the card in a subprocess with a timeout and
+reports nvcc, the kernel build directory, the native loader and the
+Inception weights; it exits 1 when no card answers, unless
+``--allow-no-device``.  ``profile`` writes a torch.profiler trace of
+``--steps`` eager train steps under <run>/logs/profile.
 """
 
 from __future__ import annotations
@@ -86,7 +104,7 @@ def _overrides(args) -> dict:
     return out
 
 
-PRESETS = ("deit64", "highres128", "highres256")
+PRESETS = ("deit64", "highres128", "highres256", "highres256p4")
 FAMILIES = ("v1", "v2", "dcgan", "cnn", "mlp")
 # train/fid.EXTRACTORS, kept here so that building the parser imports no torch
 EXTRACTORS = ("auto", "inception", "inception_jax", "inception_torch", "random_conv")
@@ -100,7 +118,8 @@ def build_cfg(args):
 
     if args.preset:
         cfg = {"deit64": C.deit64_config, "highres128": lambda: C.highres_config(128),
-               "highres256": lambda: C.highres_config(256)}[args.preset]()
+               "highres256": lambda: C.highres_config(256),
+               "highres256p4": C.highres256p4_config}[args.preset]()
     elif os.environ.get("DEV", "").lower() in ("1", "true", "yes"):
         cfg = C.smoke_config(args.family)
     else:
@@ -425,6 +444,105 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Images/s of the device-data train path for a preset (utils/benchutil)."""
+    from vitgan_tpu_torch.utils.benchutil import (build_preset_cfg, measure_scanned_train,
+                                                  step_gflops)
+
+    cfg = build_preset_cfg(args.preset)
+    ips = measure_scanned_train(cfg, args.scan, args.iters, device=args.device)
+    rec = {"metric": f"{args.preset} train-step images/sec (scan {args.scan})",
+           "value": round(ips, 2), "unit": "images/sec"}
+    if args.flops:
+        g = step_gflops(cfg)
+        rec["step_gflops"] = round(g, 2)
+        rec["sustained_tflops"] = round(g * ips / cfg.model.batch_size / 1e3, 2)
+    print(json.dumps(rec))
+    return 0
+
+
+def cmd_warmup(args) -> int:
+    """Build the kernels and the batch assembler ahead of the first step
+    (and with --scan capture the bench harness once); seconds per preset."""
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.utils.benchutil import build_preset_cfg, warmup_compile
+
+    out = {}
+    for preset in args.presets:
+        cfg = build_preset_cfg(preset)
+        if args.dataset:
+            cfg = C.replace(cfg, **{"data.dataset": args.dataset})
+        cfg = C.replace(cfg, run_name=f"warmup_{preset}")
+        out[preset] = round(warmup_compile(cfg, args.scan, device=args.device), 1)
+        print(f"[warmup] {preset}: built in {out[preset]}s", file=sys.stderr)
+    print(json.dumps({"compile_seconds": out, "scan": args.scan}))
+    return 0
+
+
+DEVICE_PROBE = ("import torch\n"
+                "assert torch.cuda.is_available(), 'torch.cuda.is_available() is False'\n"
+                "x = torch.ones((8, 8), device='cuda')\n"
+                "assert float(x.sum()) == 64.0\n"
+                "print(torch.cuda.get_device_name(0), torch.cuda.device_count())")
+
+
+def cmd_doctor(args) -> int:
+    """Environment report: the card (probed in a subprocess with a timeout, so
+    a card that hangs cannot hang the report), nvcc and the kernel build
+    directory, the native loader and the Inception weights."""
+    import subprocess
+
+    checks = {}
+    try:
+        r = subprocess.run([sys.executable, "-c", DEVICE_PROBE], capture_output=True, text=True,
+                           timeout=args.device_timeout)
+        out = (r.stdout or "").strip().split("\n")[-1]
+        checks["devices"] = ({"ok": True, "detail": out} if r.returncode == 0 else
+                             {"ok": False, "detail": (r.stderr or "")[-300:].strip()})
+    except subprocess.TimeoutExpired:
+        checks["devices"] = {"ok": False,
+                             "detail": f"no response in {args.device_timeout}s"}
+    from vitgan_tpu_torch.ops import build
+
+    try:
+        checks["nvcc"] = {"ok": True, "detail": build.nvcc_path()}
+    except (OSError, RuntimeError) as e:
+        checks["nvcc"] = {"ok": False, "detail": f"{type(e).__name__}: {e}"}
+    built = [n for n in build.SOURCES if os.path.exists(build.lib_path(n))]
+    checks["kernel_build"] = {"ok": True, "detail": f"{build.BUILD_DIR}: {len(built)} of "
+                              f"{len(build.SOURCES)} kernel libraries built"}
+    try:
+        from vitgan_tpu_torch.data.native import load_library
+
+        load_library()
+        checks["native_loader"] = {"ok": True, "detail": "built and loadable"}
+    except Exception as e:  # noqa: BLE001 - reported, never raised
+        checks["native_loader"] = {"ok": False, "detail": f"{type(e).__name__}: {e} (batches "
+                                   "are assembled with numpy instead)"}
+    from vitgan_tpu_torch.train.fid import inception_weights_path
+
+    w = inception_weights_path()
+    checks["inception_weights"] = {"ok": w is not None,
+                                   "detail": w or "not staged: FID takes the random-conv "
+                                                  "extractor (relative tracking only)"}
+    for name, c in checks.items():
+        print(f"[{'ok' if c['ok'] else 'FAIL'}] {name}: {c['detail']}")
+    print(json.dumps(checks))
+    return 1 if not checks["devices"]["ok"] and not args.allow_no_device else 0
+
+
+def cmd_profile(args) -> int:
+    """A torch.profiler trace of a few eager train steps (Trainer.profile)."""
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    cfg = build_cfg(args)
+    trainer = Trainer(cfg, run_dir=args.run_dir, device=args.device,
+                      fid_extractor="random_conv")
+    trace_dir = trainer.profile(n_steps=args.steps)
+    print(f"trace ({args.steps} steps, family {cfg.family}) -> {trace_dir}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vitgan-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -518,6 +636,44 @@ def build_parser() -> argparse.ArgumentParser:
                    help="v2 exports the discriminator only; cnn and dcgan both")
     x.add_argument("--out", default=None, help="default: <run-dir>/<family>_<role>.pth")
     x.set_defaults(fn=cmd_export_torch)
+
+    presets = "v1|v2|dcgan|cnn|mlp|deit64|hires128|hires256|hires256p4 (or highres*)"
+    b = sub.add_parser("bench", help="train-step throughput for a preset")
+    b.add_argument("--preset", default="v2", help=presets)
+    b.add_argument("--scan", type=int, default=16, help="steps per device call")
+    b.add_argument("--iters", type=int, default=5, help="timed calls")
+    b.add_argument("--flops", action="store_true",
+                   help="also the step's product FLOPs and the TFLOP/s they sustain")
+    b.add_argument("--device", default="cuda")
+    b.set_defaults(fn=cmd_bench)
+
+    w = sub.add_parser("warmup", help="build the kernels and the batch assembler ahead of "
+                       "the first step")
+    w.add_argument("presets", nargs="+", help=presets)
+    w.add_argument("--dataset", choices=DATASETS, default=None,
+                   help="the dataset the trainer will read (default: synthetic)")
+    w.add_argument("--scan", type=int, default=0,
+                   help="also capture the `bench` harness at this many steps a call")
+    w.add_argument("--device", default="cuda")
+    w.set_defaults(fn=cmd_warmup)
+
+    d = sub.add_parser("doctor", help="environment report (the card is probed in a "
+                       "subprocess with a timeout)")
+    d.add_argument("--device-timeout", type=float, default=90.0)
+    d.add_argument("--allow-no-device", action="store_true",
+                   help="exit 0 even when no card answers (CPU-only use)")
+    d.set_defaults(fn=cmd_doctor)
+
+    pr = sub.add_parser("profile", help="torch.profiler trace of a few train steps")
+    pr.add_argument("--preset", choices=PRESETS, default=None)
+    pr.add_argument("--family", choices=FAMILIES, default="v2")
+    pr.add_argument("--dataset", choices=DATASETS, default=None)
+    pr.add_argument("--run-name", default=None)
+    pr.add_argument("--run-dir", default=None, help="where to write the run directory")
+    pr.add_argument("--set", action="append", metavar="dotted.key=value")
+    pr.add_argument("--steps", type=int, default=5)
+    pr.add_argument("--device", default="cuda")
+    pr.set_defaults(fn=cmd_profile)
     return p
 
 

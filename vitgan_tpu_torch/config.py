@@ -195,8 +195,9 @@ class RuntimeConfig:
     # auto | always | never: 'auto' takes a kernel where the tensor is on CUDA
     # and the shape lies inside the kernel's gate (ops/policy.py).
     use_pallas: str = "auto"
-    # False/'never' | True/'full' | 'dots' | 'attn'.  Recorded, not applied:
-    # the port keeps every block's activations (ROADMAP.md queue 1 item 12).
+    # False/'never' | True/'full' | 'dots' | 'attn': what a v2 training block
+    # keeps for its backward and what it re-runs there (ops/policy.remat_mode,
+    # models/remat.py).
     remat: object = False
     # Flash backward: 'fused' single pass, 'two_pass' dq then dk/dv, 'auto'
     # as the JAX package decides (ops/attention.backward_route).
@@ -369,6 +370,24 @@ def highres_config(image_size: int = 128) -> ExperimentConfig:
         "v2.mlp_ratio": 4,
         "v2.patch_size": 8 if image_size == 256 else 4,
         "v2.batch_size": 32,
+        "v2.latent_dim": 256,
+        "runtime.remat": "attn",
+        "run.diff_augment": "color,translation",
+    })
+
+
+def highres256p4_config() -> ExperimentConfig:
+    """256 px at patch 4: 4,096 tokens (4,097 in D with its CLS) of embed 384,
+    6 heads of 64, MLP hidden 1,536, depth 12, batch 8, latent 256, under
+    remat 'attn' (vitgan_tpu/config.py:556-584)."""
+    return replace(ExperimentConfig(family="v2"), **{
+        "v2.image_size": 256,
+        "v2.embed_dim": 384,
+        "v2.depth": 12,
+        "v2.num_heads": 6,
+        "v2.mlp_ratio": 4,
+        "v2.patch_size": 4,
+        "v2.batch_size": 8,
         "v2.latent_dim": 256,
         "runtime.remat": "attn",
         "run.diff_augment": "color,translation",

@@ -98,20 +98,34 @@ def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout; identity unless training with rate > 0.  The mask is
-    drawn on x's device, from a generator on that device."""
+def dropout_mask(x: torch.Tensor, rate: float, train: bool,
+                 generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+    """The keep mask inverted dropout draws for a tensor like ``x`` (bool, on
+    x's device, from a generator on that device); None unless training with
+    rate > 0."""
     if not train or rate <= 0.0:
-        return x
+        return None
     if generator is None:
         raise ValueError("dropout in train mode requires a torch.Generator")
     if not same_device(generator, x):
         raise ValueError(f"dropout draws on x's device {x.device}, the generator is on "
                          f"{generator.device}")
+    return torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """x / (1 - rate) where ``mask`` keeps, else 0; x where there is no mask."""
+    if mask is None:
+        return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout; identity unless training with rate > 0.  The mask is
+    drawn on x's device, from a generator on that device."""
+    return apply_dropout(x, dropout_mask(x, rate, train, generator), rate)
 
 
 def pick_activation(name: str):

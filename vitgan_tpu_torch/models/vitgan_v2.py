@@ -49,22 +49,40 @@ class EncoderBlock(nn.Module):
         self.fc2 = L.Dense(hidden, cfg.embed_dim, generator)
 
 
+def _standard_block(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, m1, m2) -> torch.Tensor:
+    """The block on the standard path with its dropout keep masks (None: no
+    dropout)."""
+    from vitgan_tpu_torch.ops.fused_mlp import dispatch_ln_mlp
+
+    head_dim = cfg.embed_dim // cfg.num_heads
+    a = L.mhsa(p.msha, L.layer_norm(p.ln1, x), score_mode="dot", scale=head_dim)
+    x = x + L.apply_dropout(a, m1, cfg.dropout)
+    mlp_out = dispatch_ln_mlp(x, p.ln2.scale, p.ln2.bias, p.fc1.w, p.fc1.b, p.fc2.w, p.fc2.b,
+                              activation="gelu", residual=False)
+    return x + L.apply_dropout(mlp_out, m2, cfg.dropout)
+
+
 def encoder_apply(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, train: bool = False,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x + drop(MHSA(LN1 x)); x + drop(FC2(GELU(FC1(LN2 x)))), through the
-    megablock when the policy routes it (vitgan_v2.py:104-127)."""
-    from vitgan_tpu_torch.ops.fused_block import maybe_megablock
-    from vitgan_tpu_torch.ops.fused_mlp import dispatch_ln_mlp
+    megablock when the policy routes it (vitgan_v2.py:104-127), under the
+    policy's remat mode (models/remat.py; the JAX `_run_blocks`,
+    vitgan_v2.py:182-197).  The block's randomness, its two dropout masks or
+    the megablock's seed, is drawn before it, in the order the block would
+    draw it, so that a re-run for the backward replays it."""
+    from vitgan_tpu_torch.models.remat import remat_block
+    from vitgan_tpu_torch.ops.fused_block import (fused_encoder_block, megablock_apply,
+                                                  megablock_route, new_seed)
 
-    fused = maybe_megablock(p, x, cfg, train, generator)
-    if fused is not None:
-        return fused
-    head_dim = cfg.embed_dim // cfg.num_heads
-    a = L.mhsa(p.msha, L.layer_norm(p.ln1, x), score_mode="dot", scale=head_dim)
-    x = x + L.dropout(a, cfg.dropout, train, generator)
-    mlp_out = dispatch_ln_mlp(x, p.ln2.scale, p.ln2.bias, p.fc1.w, p.fc1.b, p.fc2.w, p.fc2.b,
-                              activation="gelu", residual=False)
-    return x + L.dropout(mlp_out, cfg.dropout, train, generator)
+    route = megablock_route(p, x, cfg, train, generator is not None)
+    if route is not None:
+        if not train:
+            return fused_encoder_block(x, p, num_heads=cfg.num_heads)
+        seed = new_seed(generator, x) if "dropout" in route else None
+        return remat_block(lambda x, seed: megablock_apply(route, p, x, cfg, seed), x, seed)
+    m1 = L.dropout_mask(x, cfg.dropout, train, generator)
+    m2 = L.dropout_mask(x, cfg.dropout, train, generator)
+    return remat_block(lambda x, m1, m2: _standard_block(p, x, cfg, m1, m2), x, m1, m2)
 
 
 class Generator(nn.Module):

@@ -30,7 +30,7 @@ import functools
 import math
 import warnings
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -559,16 +559,38 @@ def _l2ref_backward(q, k, v, do, scale: float):
         return torch.autograd.grad(out, xs, do, create_graph=create)
 
 
+@torch.library.custom_op("vitgan_tpu_torch::flash_fwd", mutates_args=())
+def flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                     score_mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the flash forward: the kernel on CUDA tensors (or it
+    raises), the plain version on CPU tensors.  An operator, so that a
+    selective-checkpoint policy can name its outputs and keep them
+    (models/remat.py, remat='attn'), as the JAX package names its
+    ``flash_out`` and ``flash_lse`` (attention.py:850-857)."""
+    if q.device.type == "cpu":
+        return attention_forward_reference(q, k, v, scale, score_mode)
+    return flash_forward(q, k, v, scale, score_mode=score_mode)
+
+
+@flash_forward_op.register_fake
+def _(q, k, v, scale, score_mode):
+    """Shapes only, after the kernel's own checks: a tensor that is neither on
+    the CPU nor on CUDA (a meta tensor) raises as the kernel's wrapper does."""
+    _check_mode(score_mode)
+    _check_kernel_inputs("flash_forward", q, k, v)
+    return torch.empty_like(q), q.new_empty(q.shape[:-1], dtype=torch.float32)
+
+
+FLASH_FORWARD_OP = torch.ops.vitgan_tpu_torch.flash_fwd.default
+
+
 class _FlashAttention(torch.autograd.Function):
     """softmax(scores).v with the flash backward (custom VJP of
     attention.py:803-873)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, score_mode):
-        if q.device.type == "cpu":
-            o, lse = attention_forward_reference(q, k, v, scale, score_mode)
-        else:
-            o, lse = flash_forward(q, k, v, scale, score_mode=score_mode)
+        o, lse = flash_forward_op(q, k, v, scale, score_mode)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.score_mode = scale, score_mode
         return o

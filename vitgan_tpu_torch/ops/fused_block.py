@@ -837,23 +837,31 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
     return "encoder_block_fused_saved" if saved else "encoder_block_fused"
 
 
+def megablock_apply(route: str, p, x, cfg, seed=None):
+    """The training block through the variant ``route`` (one of the four
+    autograd Functions), a dropout variant with the Philox ``seed``."""
+    if route == "encoder_block_fused":
+        return encoder_block_fused(x, p, cfg.num_heads)
+    if route == "encoder_block_fused_saved":
+        return encoder_block_fused_saved(x, p, cfg.num_heads)
+    if route == "encoder_block_fused_dropout":
+        return encoder_block_fused_dropout(x, p, seed, cfg.dropout, cfg.num_heads)
+    return encoder_block_fused_dropout_saved(x, p, seed, cfg.dropout, cfg.num_heads)
+
+
 def maybe_megablock(p, x, cfg, train: bool, generator: Optional[torch.Generator] = None):
-    """Policy gate for models/vitgan_v2.encoder_apply: the block through the
-    megablock variant :func:`megablock_route` names, or None for the standard
-    path.  Inference runs the three-launch forward; training runs one of the
-    four autograd Functions, a dropout variant with a seed drawn from
-    ``generator`` on the card.  A dtype or width the kernels do not take
-    raises in the launches; it is never sent to the plain version."""
+    """Policy gate: the block through the megablock variant
+    :func:`megablock_route` names, or None for the standard path.  Inference
+    runs the three-launch forward; training runs one of the four autograd
+    Functions, a dropout variant with a seed drawn from ``generator`` on the
+    card (models/vitgan_v2.encoder_apply takes the same decision, drawing
+    the seed before a rematerialised block).  A dtype or width the kernels
+    do not take raises in the launches; it is never sent to the plain
+    version."""
     route = megablock_route(p, x, cfg, train, generator is not None)
     if route is None:
         return None
     if not train:
         return fused_encoder_block(x, p, num_heads=cfg.num_heads)
-    if route == "encoder_block_fused":
-        return encoder_block_fused(x, p, cfg.num_heads)
-    if route == "encoder_block_fused_saved":
-        return encoder_block_fused_saved(x, p, cfg.num_heads)
-    seed = new_seed(generator, x)
-    if route == "encoder_block_fused_dropout":
-        return encoder_block_fused_dropout(x, p, seed, cfg.dropout, cfg.num_heads)
-    return encoder_block_fused_dropout_saved(x, p, seed, cfg.dropout, cfg.num_heads)
+    seed = new_seed(generator, x) if "dropout" in route else None
+    return megablock_apply(route, p, x, cfg, seed)

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from vitgan_tpu_torch.ops import build
-from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda
+from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, recomputing
 
 # ln_mlp_fwd.cu's fc1 stage holds a 128-row tile of the LayerNorm input whole
 # in shared memory: E <= 384 (ln_qkv_fwd shares the limit).
@@ -242,6 +242,14 @@ class _LnMlp(torch.autograd.Function):
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
         ctx.eps, ctx.residual = eps, residual
+        if recomputing():
+            # A rematerialised block re-running for its backward: nothing
+            # there reads this output (the backward recomputes from the
+            # inputs), so the kernel is not launched again, as XLA drops it
+            # from the JAX package's recompute (models/remat.py).  x stands
+            # in for it: detach is the one op that needs no place in a
+            # selective checkpoint's record of the forward.
+            return x.detach()
         if x.device.type == "cpu":
             return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, "gelu", eps, residual)
         return ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual)

@@ -8,6 +8,8 @@
 - ``megablock_bwd``:   'saved' | 'recompute' — the megablock's training backward
 - ``bwd_fusion``:     'auto' | 'fused' | 'two_pass' — the flash backward
                        (ops/attention.backward_route)
+- ``remat``:          'never' | 'full' | 'dots' | 'attn' — rematerialise the v2
+                       encoder blocks in training (models/remat.py)
 
 Where the JAX package asks "on TPU?", the port asks "is the tensor on CUDA?".
 The thresholds are the JAX package's, set by measurements on a TPU; they are
@@ -16,15 +18,26 @@ kept unmeasured on the GPU until a measurement there replaces them.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
 
 _POLICY = {"mode": "auto", "min_seq_len": 256, "min_mlp_rows": 2048, "megablock": "auto",
-           "bwd_fusion": "auto", "megablock_bwd": "saved"}
+           "bwd_fusion": "auto", "megablock_bwd": "saved", "remat": "never"}
+
+REMAT_MODES = ("never", "full", "dots", "attn")
 
 
 def set_policy(mode: str | None = None, min_seq_len: int | None = None,
                min_mlp_rows: int | None = None, megablock: str | None = None,
-               bwd_fusion: str | None = None, megablock_bwd: str | None = None) -> None:
+               bwd_fusion: str | None = None, megablock_bwd: str | None = None,
+               remat=None) -> None:
+    if remat is not None:
+        if isinstance(remat, bool):  # the config's back-compat: True is 'full'
+            remat = "full" if remat else "never"
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r} ({' | '.join(REMAT_MODES)})")
+        _POLICY["remat"] = remat
     if mode is not None:
         if mode not in ("auto", "always", "never"):
             raise ValueError(f"unknown kernel mode {mode!r}")
@@ -67,6 +80,25 @@ def megablock_bwd_mode() -> str:
     return _POLICY["megablock_bwd"]
 
 
+def remat_mode() -> str:
+    """'never' | 'full' | 'dots' | 'attn' (the JAX `remat_mode`, policy.py:163-175):
+
+    - full: a training block keeps only its input; the backward re-runs it;
+    - dots: the outputs of products with no batch dimension (the dense
+      layers' and the qkv projection's) are kept, the rest re-run;
+    - attn: 'dots' plus the flash forward's output and LSE, so that the
+      backward does not re-run the flash kernel."""
+    return _POLICY["remat"]
+
+
+# Set while a checkpointed block re-runs its forward for the backward (models/remat.py).
+RECOMPUTING = contextvars.ContextVar("vitgan_tpu_torch_recomputing", default=False)
+
+
+def recomputing() -> bool:
+    return RECOMPUTING.get()
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
@@ -80,9 +112,9 @@ def same_device(generator: torch.Generator, t: torch.Tensor) -> bool:
 
 
 def apply_from_runtime(runtime_cfg) -> None:
-    """Configure from a RuntimeConfig.  ``runtime.remat`` and
-    ``runtime.megablock_group`` are carried for the preset's parity with the
-    JAX package and not read: the port does not rematerialize yet (ROADMAP.md
-    queue 1 item 12), and the group is a TPU VMEM knob."""
+    """Configure from a RuntimeConfig.  ``runtime.megablock_group`` is carried
+    for the preset's parity with the JAX package and not read: it is a TPU
+    VMEM knob."""
     set_policy(mode=runtime_cfg.use_pallas, megablock=runtime_cfg.megablock,
-               bwd_fusion=runtime_cfg.bwd_fusion, megablock_bwd=runtime_cfg.megablock_bwd)
+               bwd_fusion=runtime_cfg.bwd_fusion, megablock_bwd=runtime_cfg.megablock_bwd,
+               remat=runtime_cfg.remat)

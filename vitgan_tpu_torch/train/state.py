@@ -68,32 +68,52 @@ class Optimizer:
     sgd at the schedule's rate: the optax chain that the JAX `make_optimizer`
     builds (state.py:79-139), over a list of parameters.
 
+    ``grad_accum`` k > 1 is optax.MultiSteps around that chain: each call
+    folds its gradients into a running mean (``acc + (g - acc) / (mini_step
+    + 1)``), and every k-th call applies the chain to the mean (the clip
+    sees the mean) and zeroes it; the other calls leave the parameters and
+    the moments as they are.  The schedule's count and Adam's step advance
+    once per applied update.  ``inject_lr`` keeps a constant rate in the
+    state (``learning_rate``), which a caller may set and the checkpoint
+    carries (optax.inject_hyperparams).
+
     On the CPU the rate is a Python float set on each update, and the clip is
     optax's arithmetic leaf by leaf.  On CUDA the update is one a CUDA graph
     can replay (train/step.py captures it): Adam/AdamW with
     ``capturable=True`` and the rate a device tensor (``rate``) that each
     update writes on the device; the global norm and the clip are
     ``torch._foreach_*`` products by one device scale; ``zero_grad`` zeroes
-    the gradient buffers in place, so they live across steps; the update
-    count stays on the host (``count``).  SGD on CUDA is one foreach
+    the gradient buffers in place, so they live across steps; the
+    accumulator and its mini step live on the device.  The call count stays
+    on the host (``count``), and with it which calls apply: the caller plans
+    them (``applies``), as it plans the rates.  SGD on CUDA is one foreach
     product-and-add at the device rate.
     """
 
     def __init__(self, cfg: OptimConfig, params: List[torch.nn.Parameter]):
-        if cfg.grad_accum > 1:
-            raise NotImplementedError("grad_accum > 1 (optax.MultiSteps) is ROADMAP.md queue 1 "
-                                      "item 13")
         if cfg.inject_lr:
-            raise NotImplementedError("inject_lr is ROADMAP.md queue 1 item 13")
+            if cfg.schedule != "constant" or cfg.warmup_steps:
+                raise ValueError("inject_lr supports constant lr only")
+            if cfg.grad_accum > 1:
+                raise ValueError("inject_lr is incompatible with grad_accum")
+        if cfg.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
         self.cfg = cfg
         self.params = list(params)
-        self.lr = make_lr(cfg)
-        self.count = 0
+        self.k = int(cfg.grad_accum)
+        self._schedule = make_lr(cfg)
+        # the injected rate (a state leaf) under inject_lr, else None
+        self.learning_rate = float(cfg.learning_rate) if cfg.inject_lr else None
+        self.count = 0  # calls; the applied updates are count // k
         lr0 = self.lr(0)
         on_cuda = self.params[0].is_cuda
+        device = self.params[0].device
         # the device rate on CUDA, None on the CPU
-        self.rate = (torch.tensor(lr0, dtype=torch.float32, device=self.params[0].device)
-                     if on_cuda else None)
+        self.rate = torch.tensor(lr0, dtype=torch.float32, device=device) if on_cuda else None
+        # MultiSteps' accumulator and mini step (a device f32 scalar on CUDA)
+        self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
+        self.mini_step = (torch.zeros((), dtype=torch.float32, device=device)
+                          if on_cuda and self.k > 1 else 0)
         kw = ({"lr": self.rate, "capturable": True,
                **({"fused": True} if FUSED_ON_CUDA else {"foreach": True})}
               if on_cuda else {"lr": lr0})
@@ -106,6 +126,16 @@ class Optimizer:
             self.opt = None if on_cuda else torch.optim.SGD(self.params, lr=lr0)
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+    def lr(self, updates: int) -> float:
+        """The rate of the update that follows ``updates`` applied ones: the
+        schedule's, or the injected rate."""
+        return self.learning_rate if self.learning_rate is not None else self._schedule(updates)
+
+    def applies(self, count: int) -> bool:
+        """Whether call ``count`` (0 the first) applies an update: MultiSteps'
+        pre-update ``mini_step == k - 1``."""
+        return count % self.k == self.k - 1
 
     def zero_grad(self) -> None:
         if self.rate is None:
@@ -121,23 +151,50 @@ class Optimizer:
             return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
-    def update(self, rate) -> torch.Tensor:
+    def _accumulate(self, grads: List[torch.Tensor]) -> None:
+        """acc + (g - acc) / (mini_step + 1), MultiSteps' running mean."""
+        if self.rate is None:
+            n = self.mini_step + 1
+            self.acc = [a + (g - a) / n for a, g in zip(self.acc, grads)]
+            return
+        diff = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diff, self.mini_step + 1)
+        torch._foreach_add_(self.acc, diff)
+
+    def update(self, rate, apply: bool = True) -> torch.Tensor:
         """Clip the gradients, apply one update at ``rate`` (a float, or on
         CUDA a 0-d device tensor); returns the global norm of the unclipped
-        gradients (a device scalar, no host sync).  The parameters' ``grad``
-        hold the unclipped gradients again afterwards.  ``count`` is the
-        caller's to advance."""
+        gradients (a device scalar, no host sync).  Under ``grad_accum`` the
+        gradients are folded into the mean first, and only a call with
+        ``apply`` (the k-th) updates, from the mean.  The parameters' ``grad``
+        hold this call's unclipped gradients again afterwards.  ``count`` is
+        the caller's to advance."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         norm = self._norm(grads)
-        clipped = grads
+        step_grads = grads
+        if self.k > 1:
+            if self.rate is None and apply != (self.mini_step == self.k - 1):
+                raise ValueError(f"apply={apply} at mini step {self.mini_step} of {self.k}")
+            self._accumulate(grads)
+            if not apply:
+                if self.rate is None:
+                    self.mini_step += 1
+                else:
+                    self.mini_step.add_(1)
+                return norm
+            step_grads = self.acc
+        clipped = step_grads
         if self.cfg.grad_clip is not None:
             clip = float(self.cfg.grad_clip)
+            mean_norm = norm if step_grads is grads else self._norm(step_grads)
             if self.rate is None:
-                keep = norm < clip
-                clipped = [torch.where(keep, g, g / norm.to(g.dtype) * clip) for g in grads]
+                keep = mean_norm < clip
+                clipped = [torch.where(keep, g, g / mean_norm.to(g.dtype) * clip)
+                           for g in step_grads]
             else:
-                scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
-                clipped = torch._foreach_mul(grads, scale)
+                scale = torch.where(mean_norm < clip, torch.ones_like(mean_norm),
+                                    clip / mean_norm)
+                clipped = torch._foreach_mul(step_grads, scale)
         if self.rate is None:
             for group in self.opt.param_groups:
                 group["lr"] = float(rate)
@@ -155,37 +212,65 @@ class Optimizer:
             self.opt.step()
             for p, g in zip(self.params, grads):
                 p.grad = g
+        if self.k > 1:  # MultiSteps zeroes the accumulator on the applying call
+            if self.rate is None:
+                self.acc = [torch.zeros_like(a) for a in self.acc]
+                self.mini_step = 0
+            else:
+                torch._foreach_zero_(self.acc)
+                self.mini_step.zero_()
         return norm
 
     def step(self) -> torch.Tensor:
-        """One update at the schedule's rate of ``count``, which it advances."""
-        norm = self.update(self.lr(self.count))
+        """One call at the schedule's rate, which advances ``count``."""
+        norm = self.update(self.lr(self.count // self.k), self.applies(self.count))
         self.count += 1
         return norm
 
     def state_dict(self) -> dict:
-        """The update count and each parameter's optimizer state (by its
-        index), on the CPU."""
+        """The call count, each parameter's optimizer state (by its index),
+        the accumulator and its mini step under ``grad_accum``, and the
+        injected rate, on the CPU."""
         state = {}
         if self.opt is not None:
             for i, p in enumerate(self.params):
                 if p in self.opt.state:
                     state[i] = {k: v.detach().cpu().clone() for k, v in self.opt.state[p].items()}
-        return {"count": self.count, "state": state}
+        sd = {"count": self.count, "state": state}
+        if self.k > 1:
+            sd["acc"] = [a.detach().cpu().clone() for a in self.acc]
+            sd["mini_step"] = int(self.mini_step)
+        if self.learning_rate is not None:
+            sd["learning_rate"] = self.learning_rate
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore ``state_dict``'s values.  State the optimizer already holds
-        is written in place, so a CUDA graph captured over it replays the
-        restored values."""
+        is written in place (zeroed where the checkpoint precedes the first
+        update), so a CUDA graph captured over it replays the restored
+        values."""
         self.count = int(sd["count"])
+        if self.k > 1:
+            if "acc" not in sd:
+                raise ValueError(f"the checkpoint holds no accumulator for grad_accum={self.k}")
+            with torch.no_grad():
+                for a, v in zip(self.acc, sd["acc"]):
+                    a.copy_(v)
+            if self.rate is None:
+                self.mini_step = int(sd["mini_step"])
+            else:
+                self.mini_step.fill_(int(sd["mini_step"]))
+        if self.learning_rate is not None:
+            self.learning_rate = float(sd.get("learning_rate", self.learning_rate))
         if self.opt is None:
             return
         for i, p in enumerate(self.params):
             src = sd["state"].get(i)
-            if src is None:
-                self.opt.state.pop(p, None)
-                continue
             have = self.opt.state.get(p)
+            if src is None:  # no update yet: the state a first update creates (zeros), in place
+                for v in (have or {}).values():
+                    v.zero_()
+                continue
             if have:
                 for k, v in src.items():
                     have[k].copy_(v)

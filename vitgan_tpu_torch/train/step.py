@@ -26,9 +26,9 @@ Multi-step (step.py:321-373).  ``make_multi_train_step`` and
 ``make_device_data_train_fn`` run n true sequential updates per call, the
 same as n calls of the single step, and return each metric stacked on axis 0.
 What the step reads from the host is planned per call (:func:`plan_steps`):
-the latent block, each update's learning rate at its pre-update count and
-the lazy-R1 pattern.  On the CPU the call is the eager loop (the plain
-version).  On CUDA it is the counterpart of ``lax.scan``: one step is
+the latent block, each update's learning rate at its pre-update count, the
+lazy-R1 pattern and, under ``grad_accum``, which optimizer calls apply.  On
+the CPU the call is the eager loop (the plain version).  On CUDA it is the counterpart of ``lax.scan``: one step is
 captured as a CUDA graph and replayed n times.  Each replay takes its batch
 (the index row, gathered from the uint8 dataset, normalised and flipped
 there), latents and rates from the call's buffers by a device step counter
@@ -36,9 +36,10 @@ that the graph advances, and writes its metric row; the indices, latents and
 rates cross to the device in one copy each per call.  The first step of each
 kind (with and without R1) that a function meets runs eagerly on the
 capture's side stream, which builds every kernel and the optimizer's state,
-and is then captured; the two graphs share one memory pool and the host
-picks one per step.  A step that cannot be captured raises: nothing runs
-eagerly on the card in a graph's place.  The kernels' launch counts
+and is then captured; the graphs (one per kind: with or without R1, and
+under ``grad_accum`` which of the step's optimizer calls apply) share one
+memory pool and the host picks one per step.  A step that cannot be
+captured raises: nothing runs eagerly on the card in a graph's place.  The kernels' launch counts
 (ops/build.LAUNCHES) are counted at capture and added on each replay.
 """
 
@@ -94,12 +95,21 @@ class StepPlan:
     latent_dim) f32, row i the step's z then its extra critic updates'
     (D = disc_steps); ``g_rates`` (n,) and ``d_rates`` (n, D), each update's
     learning rate at its pre-update count; ``with_r1`` (n,), the lazy-R1
-    gate of each step."""
+    gate of each step; ``g_apply`` (n,) and ``d_apply`` (n, D), whether
+    each optimizer call applies its update (always, without grad_accum;
+    each critic update is one D call)."""
 
     latents: np.ndarray
     g_rates: np.ndarray
     d_rates: np.ndarray
     with_r1: np.ndarray
+    g_apply: np.ndarray
+    d_apply: np.ndarray
+
+    def kind(self, i: int) -> tuple:
+        """Step i's graph variant: (with_r1, g_apply, d_apply per critic update)."""
+        return (bool(self.with_r1[i]), bool(self.g_apply[i]),
+                tuple(bool(a) for a in self.d_apply[i]))
 
 
 def plan_steps(gan, cfg: ExperimentConfig, state: TrainState, n: int, batch: int,
@@ -114,12 +124,17 @@ def plan_steps(gan, cfg: ExperimentConfig, state: TrainState, n: int, batch: int
         if latents.shape != (n, ds, batch, gan.latent_dim):
             raise ValueError(f"latents {latents.shape}, expected {(n, ds, batch, gan.latent_dim)}")
     _, interval, r1 = _r1(cfg.model)
+    g, d = state.g_opt, state.d_opt
+    g_calls = [g.count + i for i in range(n)]
+    d_calls = [[d.count + i * ds + j for j in range(ds)] for i in range(n)]
     return StepPlan(
         latents=latents,
-        g_rates=np.array([state.g_opt.lr(state.g_opt.count + i) for i in range(n)], np.float64),
-        d_rates=np.array([[state.d_opt.lr(state.d_opt.count + i * ds + j) for j in range(ds)]
-                          for i in range(n)], np.float64).reshape(n, ds),
-        with_r1=np.array([r1 and (state.step + i) % interval == 0 for i in range(n)], bool))
+        g_rates=np.array([g.lr(c // g.k) for c in g_calls], np.float64),
+        d_rates=np.array([[d.lr(c // d.k) for c in row] for row in d_calls],
+                         np.float64).reshape(n, ds),
+        with_r1=np.array([r1 and (state.step + i) % interval == 0 for i in range(n)], bool),
+        g_apply=np.array([g.applies(c) for c in g_calls], bool),
+        d_apply=np.array([[d.applies(c) for c in row] for row in d_calls], bool).reshape(n, ds))
 
 
 def _advance(state: TrainState, cfg: ExperimentConfig, n: int) -> None:
@@ -139,9 +154,10 @@ def device_batch(dataset: torch.Tensor, idx: torch.Tensor, flip: bool,
 
 
 def _make_core(gan, cfg: ExperimentConfig):
-    """(state, real, zs (D, B, L), with_r1, g_rate, d_rates, draws) -> metrics:
-    one step with its latents, rates and R1 gate given; the host's counters
-    untouched.  A rate is a float, or on CUDA a 0-d device tensor."""
+    """(state, real, zs (D, B, L), with_r1, g_rate, d_rates, draws, g_apply,
+    d_apply) -> metrics: one step with its latents, rates, R1 gate and
+    applying optimizer calls given; the host's counters untouched.  A rate
+    is a float, or on CUDA a 0-d device tensor."""
     mcfg = cfg.model
     loss_name = getattr(mcfg, "loss", "bce")
     criterion = LO.pick_criterion(loss_name if loss_name in ("bce", "mse") else "bce")
@@ -219,14 +235,15 @@ def _make_core(gan, cfg: ExperimentConfig):
                "fake_acc": LO.accuracy_from_logits(fake_logits, False)}
         return loss, aux
 
-    def d_update(state, real_in, fake_in, with_r1, draws, rate):
+    def d_update(state, real_in, fake_in, with_r1, draws, rate, apply):
         loss, aux = d_loss_on(state, real_in, fake_in, with_r1, draws)
         state.d_opt.zero_grad()
         loss.backward()
-        return loss.detach(), aux, state.d_opt.update(rate)
+        return loss.detach(), aux, state.d_opt.update(rate, apply)
 
     def core(state: TrainState, real: torch.Tensor, zs: torch.Tensor, with_r1: bool,
-             g_rate, d_rates: Sequence, draws: Dict) -> Dict[str, torch.Tensor]:
+             g_rate, d_rates: Sequence, draws: Dict, g_apply: bool,
+             d_apply: Sequence) -> Dict[str, torch.Tensor]:
         g, d, gen = state.g, state.d, state.rng
         device = next(g.parameters()).device
         real = real.to(device=device, dtype=dtype)
@@ -239,10 +256,10 @@ def _make_core(gan, cfg: ExperimentConfig):
                 fake_i = gan.generator_apply(g, zs[1 + j], train=True, generator=gen,
                                              update_state=False)
             r_i, f_i = d_inputs(state, real, fake_i, {})
-            d_update(state, r_i, f_i, False, {}, d_rates[j])
+            d_update(state, r_i, f_i, False, {}, d_rates[j], d_apply[j])
 
         d_loss, d_aux, d_grad_norm = d_update(state, real_in, fake_in, with_r1, draws,
-                                              d_rates[disc_steps - 1])
+                                              d_rates[disc_steps - 1], d_apply[-1])
 
         # G update against the updated D; D's parameters stay out of it.
         d_params = list(d.parameters())
@@ -267,8 +284,10 @@ def _make_core(gan, cfg: ExperimentConfig):
         finally:
             for p in d_params:
                 p.requires_grad_(True)
-        g_grad_norm = state.g_opt.update(g_rate)
-        if ema_decay > 0 and state.g_ema is not None:
+        g_grad_norm = state.g_opt.update(g_rate, g_apply)
+        # Under grad_accum G moves only on applying calls, and so does the
+        # EMA (step.py:255-269), so that its horizon counts effective updates.
+        if ema_decay > 0 and state.g_ema is not None and g_apply:
             with torch.no_grad():
                 params = [p.detach() for p in g.parameters()]
                 torch._foreach_mul_(state.g_ema, ema_decay)
@@ -300,7 +319,8 @@ def make_train_step(gan, cfg: ExperimentConfig):
         if z is not None:
             zs[0] = z
         m = core(state, real, zs, bool(plan.with_r1[0]), float(plan.g_rates[0]),
-                 [float(r) for r in plan.d_rates[0]], draws)
+                 [float(r) for r in plan.d_rates[0]], draws, bool(plan.g_apply[0]),
+                 [bool(a) for a in plan.d_apply[0]])
         _advance(state, cfg, 1)
         return m
 
@@ -319,7 +339,8 @@ class _MultiStep:
         self.keys = metric_keys(cfg)
         # The JAX device-data body flips; the stacked-batch one does not.
         self.flip = gather and cfg.data.augment_flip
-        self.graphs: Dict[bool, tuple] = {}  # with_r1 -> (CUDAGraph, launches per replay)
+        # StepPlan.kind -> (CUDAGraph, launches per replay)
+        self.graphs: Dict[tuple, tuple] = {}
         self._bound = None  # (state, dataset) the graphs read
         self._bufs: Optional[dict] = None
         self._pool = self._stream = None
@@ -358,7 +379,8 @@ class _MultiStep:
             else:
                 real = source[i]
             m = self.core(state, real, torch.from_numpy(plan.latents[i]), bool(plan.with_r1[i]),
-                          float(plan.g_rates[i]), [float(r) for r in plan.d_rates[i]], {})
+                          float(plan.g_rates[i]), [float(r) for r in plan.d_rates[i]], {},
+                          bool(plan.g_apply[i]), [bool(a) for a in plan.d_apply[i]])
             rows.append(torch.stack([m[k].reshape(()) for k in self.keys]))
         return torch.stack(rows)
 
@@ -374,8 +396,10 @@ class _MultiStep:
         else:
             real = b["real"].index_select(0, i)[0]
         rates = b["rates"].index_select(0, i)[0]
-        m = self.core(state, real, b["latents"].index_select(0, i)[0], b["with_r1"],
-                      rates[0], [rates[1 + j] for j in range(rates.shape[0] - 1)], {})
+        with_r1, g_apply, d_apply = b["kind"]
+        m = self.core(state, real, b["latents"].index_select(0, i)[0], with_r1,
+                      rates[0], [rates[1 + j] for j in range(rates.shape[0] - 1)], {},
+                      g_apply, d_apply)
         b["metrics"].index_copy_(0, i, torch.stack([m[k].reshape(()) for k in self.keys])[None])
         i.add_(1)
 
@@ -407,7 +431,7 @@ class _MultiStep:
         b["rates"].copy_(torch.from_numpy(rates).pin_memory(), non_blocking=True)
         b["counter"].zero_()
         for i in range(self.n):
-            kind = bool(plan.with_r1[i])
+            kind = plan.kind(i)
             if kind not in self.graphs:
                 self._warm_up_and_capture(state, kind, device)
                 continue
@@ -417,7 +441,7 @@ class _MultiStep:
                 build.LAUNCHES[name] += count
         return b["metrics"].clone()
 
-    def _warm_up_and_capture(self, state, kind: bool, device) -> None:
+    def _warm_up_and_capture(self, state, kind: tuple, device) -> None:
         """Run this step eagerly on the capture stream (it builds the kernels
         and the optimizer's state, and is a real step), then capture it."""
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
@@ -428,7 +452,7 @@ class _MultiStep:
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
             self._pool = torch.cuda.graph_pool_handle()
-        self._bufs["with_r1"] = kind
+        self._bufs["kind"] = kind
         current = torch.cuda.current_stream(device)
         self._stream.wait_stream(current)
         with torch.cuda.stream(self._stream):
@@ -445,7 +469,8 @@ class _MultiStep:
                                   capture_error_mode="thread_local"):
                 self._body(state)
         except Exception as e:
-            raise RuntimeError(f"the train step (with_r1={kind}) could not be captured as a "
+            raise RuntimeError(f"the train step (with_r1, g_apply, d_apply = {kind}) could not "
+                               "be captured as a "
                                f"CUDA graph: {type(e).__name__}: {e}; the multi-step call has "
                                "no eager fallback on the card, and torch leaves this "
                                "process's CUDA generators mid-capture") from e
