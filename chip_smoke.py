@@ -247,6 +247,33 @@
    GFLOP a step and the TFLOP/s it sustains.
 30. [cli]: `cli doctor` exits 0; `cli warmup v2` with the kernels built, then
    after the build directory is emptied (every source rebuilt): its seconds.
+31. [sweep]: `cli sweep` at the reference search space's widths (32 px,
+   depth 6, embed 128-512, batch 128/256) on synthetic data, cut to
+   SWEEP_CUTS (steps an epoch, FID samples): 4 trials of seed SWEEP_SEED as
+   two workers sharing one JSONL (--trial-stride 2, offsets 0 and 1), each
+   trial's seconds and launches per kernel (a trial whose MLPs pass the
+   LN->MLP gate launches its stage kernels, and one that fails it, the
+   embed-512 trial among them, none), best_config.json, the last worker's
+   ranking over all four, `--resume` skipping every trial and ranking
+   alike; then `--vectorize`'s group of 4 trials at the widest shape (embed
+   512, 8 heads, batch 256; the sampler patched to 4 rates): its ms to step
+   all four against the in-place plain step's, the peak memory, and a
+   one-trial group against the in-place plain step from one state over two
+   steps: metrics and the first step's Adam moments within VEC_TOL, the
+   parameters within Adam's sign-flip bound, bit-equal counts printed.
+32. [parallel]: the linear stage's dropout bits keyed by the global row (a
+   rank's rows of D's [real; fake] batch) against the plain version; then
+   highres128 under auto as a captured fit (an epoch of 3 steps, the
+   capture, and one of 3 replays) with no mesh, then in a world-1 NCCL
+   group over a FileStore under a DP mesh, under FSDP and under TP (the
+   plan kept on the one-rank axes: the placement's gathers and reduces
+   run): each state bit-equal to the no-mesh fit's (FSDP and TP, where not,
+   within the route bounds, the reason printed), the
+   launches a step per kernel equal, the NCCL kernels inside the replay
+   (profiler: at one rank NCCL's averaging all-reduce runs its
+   oneRankReduce kernel; its all-gathers and reduce-scatters are copies),
+   ms a step and the peak memory.  No multi-rank run: the machine has one
+   card.
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -4289,6 +4316,342 @@ def cli_path() -> dict:
     return out
 
 
+SWEEP_SEED = 2  # its trials: embed 256 (the LN->MLP gate passes), 256, 128, 512
+SWEEP_CUTS = ("run.steps_per_epoch=8", "run.fid_num_samples=1024")
+VEC_STEPS = 4  # run.steps_per_epoch of the vectorized group
+VEC_TOL = 1e-4  # a one-trial group against the in-place step: both run make_train_step
+
+
+def _cli_json(args: list) -> tuple:
+    """(rc, the JSON object printed last) of one `cli` call."""
+    import contextlib
+
+    from vitgan_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    out = buf.getvalue()
+    return rc, json.loads(out[out.rindex("\n{\n") + 1:] if "\n{\n" in out else out)
+
+
+def sweep_path(work: str) -> dict:
+    """[sweep] (phase 31)."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.hpo import sweep as SW
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+    from vitgan_tpu_torch.train.vstep import TrialGroup
+
+    tag, smi = "[sweep]", _smi()
+    d = os.path.join(work, "seq")
+    args = ["sweep", "--num-trials", "4", "--seed", str(SWEEP_SEED), "--run-dir", d]
+    for cut in SWEEP_CUTS:
+        args += ["--set", cut]
+    t0 = time.perf_counter()
+    rc_a, _ = _cli_json(args + ["--trial-stride", "2", "--trial-offset", "0"])
+    rc_b, best_b = _cli_json(args + ["--trial-stride", "2", "--trial-offset", "1"])
+    seq_s = time.perf_counter() - t0
+    if rc_a or rc_b:
+        raise AssertionError(f"{tag} cli sweep: rc {rc_a}, {rc_b}")
+    recs = sorted(SW._load_recorded_trials(os.path.join(d, "sweep_results.jsonl")).values(),
+                  key=lambda r: r["trial"])
+    if [r["trial"] for r in recs] != [0, 1, 2, 3]:
+        raise AssertionError(f"{tag} the shared JSONL holds trials {[r['trial'] for r in recs]}")
+    rng = np.random.default_rng(SWEEP_SEED)
+    trials = []
+    for r in recs:
+        p = r["params"]
+        if p != SW.sample_search_space(rng):
+            raise AssertionError(f"{tag} trial {r['trial']} is not the seed's draw")
+        k = {n: v for n, v in r["launches"].items() if v}
+        rows = p["batch_size"] * 64  # 64 tokens in G (32 px at patch 4)
+        # the auto gate: rows, hidden >= 512 and a width the kernel takes (E <= 384)
+        gated = p["embed_dim"] * 2 >= 512 and rows >= 2048 and p["embed_dim"] <= 384
+        stages = k.get("ln_mlp_fc1", 0), k.get("ln_mlp_linear", 0)
+        print(f"{tag} {smi}: trial {r['trial']} {p}: {r['seconds']:.2f} s, FID {r['fid']:.4f}, "
+              f"collapsed {r['collapsed']}, launches {k}")
+        if gated and not all(stages):
+            raise AssertionError(f"{tag} trial {r['trial']} passes the LN->MLP gate but launched "
+                                 f"its stages {stages} times")
+        if not gated and any(stages):
+            raise AssertionError(f"{tag} trial {r['trial']} fails the LN->MLP gate but launched "
+                                 f"its stages {stages} times")
+        trials.append({"trial": r["trial"], "params": p, "seconds": r["seconds"],
+                       "fid": r["fid"], "launches": k, "ln_mlp_gate": gated})
+    if not any(t["ln_mlp_gate"] for t in trials):
+        raise AssertionError(f"{tag} no trial of seed {SWEEP_SEED} passes the LN->MLP gate")
+    on_disk = json.load(open(os.path.join(d, "best_config.json")))
+    rc_r, best_r = _cli_json(args + ["--resume"])
+    if rc_r or best_r != on_disk or best_b != on_disk:
+        raise AssertionError(f"{tag} the rankings differ: worker B {best_b.get('trial')}, "
+                             f"best_config {on_disk.get('trial')}, --resume {best_r.get('trial')}")
+    if len(SW._load_recorded_trials(os.path.join(d, "sweep_results.jsonl"))) != 4:
+        raise AssertionError(f"{tag} --resume trained a trial again")
+    print(f"{tag} 4 trials by two workers in {seq_s:.1f} s; best trial {on_disk['trial']} (FID "
+          f"{on_disk['fid']:.4f}), the same from the last worker and from --resume, which "
+          "skipped every trial")
+    out = {"trials": trials, "seconds": seq_s, "best_trial": on_disk["trial"],
+           "cuts": list(SWEEP_CUTS), "seed": SWEEP_SEED}
+
+    # --vectorize: 4 trials of the widest shape, one group
+    rates = iter([(1e-4, 2e-4), (2e-4, 1e-4), (5e-5, 3e-4), (3e-4, 5e-5)])
+    widest = {"embed_dim": 512, "num_heads": 8, "batch_size": 256}
+    orig = SW.sample_search_space
+    SW.sample_search_space = lambda rng: dict(zip(("gen_lr", "disc_lr"), next(rates)), **widest)
+    base = C.replace(C.ExperimentConfig(family="v2", data=C.DataConfig(dataset="synthetic")), **{
+        "run.epochs": 1, "run.steps_per_epoch": VEC_STEPS, "run.fid_num_samples": 1024,
+        "run.checkpoint_every_epochs": 0, "run.sample_grid_every_epochs": 0})
+    timings = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        best_v = SW.run_sweep_vectorized(num_trials=4, base_cfg=base,
+                                         run_base=os.path.join(work, "vec"), timings=timings)
+    finally:
+        SW.sample_search_space = orig
+    vec_s = time.perf_counter() - t0
+    vrecs = SW._load_recorded_trials(os.path.join(work, "vec", "sweep_results.jsonl"))
+    if (sorted(vrecs) != [0, 1, 2, 3] or [c["trials"] for c in timings] != [4]
+            or any(r["group_size"] != 4 for r in vrecs.values())):
+        raise AssertionError(f"{tag} --vectorize recorded {vrecs} in groups {timings}")
+    if not all(np.isfinite(r["fid"]) for r in vrecs.values()):
+        raise AssertionError(f"{tag} --vectorize gave a non-finite FID")
+    group = timings[0]
+
+    # one trial of that shape: a one-trial group against the in-place plain
+    # step from one state and stream
+    cfg = C.replace(SW._trial_config(base, dict(gen_lr=1e-4, disc_lr=2e-4, **widest)), **{
+        "v2.gen_optim.inject_lr": True, "v2.disc_optim.inject_lr": True,
+        "runtime.use_pallas": "never"})
+    apply_from_runtime(cfg.runtime)
+    gan = build_gan(cfg)
+    b = cfg.v2.batch_size
+    real = torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    one = TrialGroup(gan, cfg, [create_train_state(gan, cfg)], [1e-4], [2e-4])
+    ref = create_train_state(gan, cfg)
+    step = make_train_step(gan, cfg)
+    mine = one.states[0]
+    compared = {}
+    for i in range(2):
+        got_m = {k: float(v[0]) for k, v in one.step(real).items()}
+        want_m = host_metrics(step(ref, real))
+        for k, v in want_m.items():  # losses to 1e-4, norms to 1e-4 of themselves
+            bound = VEC_TOL * (abs(v) if k.endswith("grad_norm") else 1.0)
+            if not abs(got_m[k] - v) <= bound:
+                raise AssertionError(f"{tag} one-trial group, step {i + 1}: {k} {got_m[k]} "
+                                     f"against {v} (bound {bound:.1e})")
+        compared[f"metrics_step{i + 1}_max_abs_diff"] = max(
+            abs(got_m[k] - v) for k, v in want_m.items())
+        if i == 0:  # Adam's first moments: the first step's clipped gradients
+            for net in ("g", "d"):
+                o_m, o_r = getattr(mine, f"{net}_opt").opt, getattr(ref, f"{net}_opt").opt
+                worst, equal, leaves = 0.0, 0, 0
+                for p_m, p_r in zip(getattr(mine, net).parameters(),
+                                    getattr(ref, net).parameters()):
+                    a_, b_ = o_m.state[p_m]["exp_avg"], o_r.state[p_r]["exp_avg"]
+                    leaves += 1
+                    if torch.equal(a_, b_):
+                        equal += 1
+                        continue
+                    d = (a_ - b_).abs().max().item()
+                    bound = VEC_TOL * b_.abs().max().item()
+                    worst = max(worst, d / max(bound, 1e-30))
+                    if not d <= bound:
+                        raise AssertionError(f"{tag} one-trial group: {net} exp_avg apart by "
+                                             f"{d:.3e} (bound {bound:.3e})")
+                compared[f"{net}_exp_avg_step1"] = {"leaves": leaves, "bit_equal": equal,
+                                                    "worst_share_of_bound": worst}
+    for net, lr in (("g", 1e-4), ("d", 2e-4)):
+        # Adam moves an element by at most its rate an update (1.41 x at the
+        # second under beta2 0.99): a near-zero gradient rounded to opposite
+        # signs parts two runs by twice that
+        bound = 2 * 2 * math.sqrt(2) * lr
+        mp = dict(getattr(mine, net).named_parameters())
+        ds = {n: (mp[n] - p).detach().abs().max().item()
+              for n, p in getattr(ref, net).named_parameters()}
+        worst = max(ds.values())
+        compared[net] = {"leaves": len(ds), "bit_equal": sum(d == 0 for d in ds.values()),
+                         "max_abs_diff": worst, "bound": bound}
+        if not worst <= bound:
+            raise AssertionError(f"{tag} one-trial group: {net} parameters apart by {worst}")
+    print(f"{tag} one-trial group against the in-place plain step, 2 steps: {compared}")
+
+    def ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / n
+
+    step_ms = ms(lambda: host_metrics(step(ref, real)))
+    print(f"{tag} {smi}: --vectorize, 4 trials at embed 512, 8 heads, batch 256, one group: "
+          f"{group['steps']} steps in {group['seconds']:.1f} s, {group['step_ms']:.1f} ms to "
+          f"step all four against the in-place plain step's {step_ms:.1f} (x4 = "
+          f"{4 * step_ms:.1f}); peak {group['peak_gib']:.2f} GiB; best trial "
+          f"{best_v['trial']}; the sweep {vec_s:.1f} s")
+    out["vectorized"] = {"group": group, "all_four_step_ms": group["step_ms"],
+                         "plain_step_ms": step_ms, "peak_gib": group["peak_gib"],
+                         "seconds": vec_s, "best_trial": best_v["trial"],
+                         "one_trial_vs_in_place": compared}
+    del one, ref, step, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mask_rows_check() -> dict:
+    """The linear stage's dropout bits under a row map: a rank's half (4 of
+    8 samples) of D's [real; fake] batch at G's width, each row keyed by its
+    place in the global batch, against the plain version's bits (equal) and
+    product (the route bounds); with the identity map equal to no map."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n, e, b = 1024, 384, 8
+    x = torch.randn((b * n, e), device="cuda", generator=gen).to(torch.bfloat16)
+    attn = torch.randn((b * n, e), device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn((e, e), device="cuda", generator=gen) * e ** -0.5)
+    bias = torch.randn((e,), device="cuda", generator=gen) * 0.1
+    seed = torch.tensor([1234567890123], dtype=torch.int64, device="cuda")
+    rows = (n, 4, 8, 4)
+    out, mask = FM.linear_stage(attn, w, bias, x, seed, MB_RATE, 0, rows)
+    want = FB.row_mask(seed, 0, (b * n, e), MB_RATE, rows)
+    if not torch.equal(mask, want):
+        raise AssertionError("[parallel] the linear stage's row-mapped dropout bits differ from "
+                             "the plain version's")
+    err = _err(out, FM.linear_stage_reference(attn, w, bias, x, want),
+               "[parallel] linear stage, rows keyed by the global batch", residual=x)
+    _, ident = FM.linear_stage(attn, w, bias, x, seed, MB_RATE, 0, (n, b, b, 0))
+    _, plain = FM.linear_stage(attn, w, bias, x, seed, MB_RATE, 0)
+    if not torch.equal(ident, plain):
+        raise AssertionError("[parallel] the identity row map changed the dropout bits")
+    return {"shape": [b * n, e], "rows": list(rows), "mask_equal": True, "max_abs_err": err}
+
+
+def _place_one_way(state, mesh, tensor_parallel=False, fsdp=False, fsdp_min_size=2048):
+    """Place ``state`` on a world-1 mesh under the plan of a data axis of 2
+    and a model axis of 1 (parallel/sharding.placement_specs): each slice is
+    a whole leaf, and every gather, reduce-scatter and norm reduction of
+    the placement runs, as it would across cards."""
+    from vitgan_tpu_torch.parallel.sharding import place_train_state, placement_specs
+
+    names = dict(zip(("data", "model"), mesh.axis_names))
+    plans = {}
+    for net in ("g", "d"):
+        shapes = {k: tuple(p.shape) for k, p in getattr(state, net).named_parameters()}
+        specs = placement_specs(shapes, {"data": 2, "model": 1}, tensor_parallel,
+                                "data" if fsdp else None, fsdp_min_size)
+        plans[net] = {k: tuple(names[a] if a else None for a in s) for k, s in specs.items()}
+    place_train_state(state, mesh, plans)
+
+
+def parallel_path(work: str) -> dict:
+    """[parallel] (phase 32)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.parallel.mesh import make_mesh
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag, smi = "[parallel]", _smi()
+    out = {"mask_rows": _mask_rows_check(),
+           "note": "one card: no multi-rank run was possible (NCCL takes one rank a device); "
+                   "multi-rank numerics are held on the CPU by gloo tests"}
+    cfg = C.replace(C.highres_config(128), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 256,
+        "run.steps_per_epoch": 3, "run.checkpoint_every_epochs": 0}))
+
+    def fit(name: str, place: dict = None) -> dict:
+        _settle()
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(cfg, run_dir=os.path.join(work, name), device="cuda",
+                    fid_extractor="random_conv")
+        if place:
+            _place_one_way(t.state, t.mesh, **place)
+        start = _flat_state(t.state)
+        t.fit(epochs=2)  # 3 steps (the capture), then 3 replays
+        state = _flat_state(t.state)
+        fn, idx = t._device_train_fn, t._local(t.batches())
+        host_metrics({"d": fn(t.state, t.dataset, idx)["d_loss"].mean()})
+        _settle()  # the fit's epilogue wrote its checkpoint
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m = fn(t.state, t.dataset, idx)
+        host_metrics({"d": m["d_loss"].mean()})
+        step_ms = 1e3 * (time.perf_counter() - t0) / (3 * len(idx))
+        per_step = {k: v // (3 * len(idx)) for k, v in build.LAUNCHES.items() if v}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            host_metrics({"d": fn(t.state, t.dataset, idx)["d_loss"].mean()})
+        # NCCL's kernels; at one rank its averaging all-reduce is oneRankReduce
+        nccl = sorted({e.key for e in prof.key_averages()
+                       if "nccl" in e.key.lower() or "onerankreduce" in e.key.lower()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec = {"start": start, "state": state, "ms_per_step": step_ms, "per_step": per_step,
+               "nccl_kernels": nccl, "peak_gib": peak,
+               "mesh": dict(t.mesh.shape), "distributed": t.mesh.distributed}
+        del t, fn
+        torch.cuda.empty_cache()
+        return rec
+
+    ref = fit("none")
+    if ref["nccl_kernels"]:
+        raise AssertionError(f"{tag} the fit with no mesh launched {ref['nccl_kernels']}")
+    store = os.path.join(work, "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    try:
+        if not make_mesh(cfg.mesh).distributed:
+            raise AssertionError(f"{tag} the world-1 group gave no collectives")
+        runs = {"dp": fit("dp"), "fsdp": fit("fsdp", {"fsdp": True, "fsdp_min_size": 2048}),
+                "tp": fit("tp", {"tensor_parallel": True})}
+    finally:
+        dist.destroy_process_group()
+    print(f"{tag} {smi}: highres128 auto, 3 + 3 captured steps; no mesh "
+          f"{ref['ms_per_step']:.2f} ms a step, peak {ref['peak_gib']:.2f} GiB")
+    out["none"] = {k: ref[k] for k in ("ms_per_step", "peak_gib")}
+    for name, r in runs.items():
+        if r["per_step"] != ref["per_step"]:
+            diff = {k: (r["per_step"].get(k), ref["per_step"].get(k))
+                    for k in set(r["per_step"]) | set(ref["per_step"])
+                    if r["per_step"].get(k) != ref["per_step"].get(k)}
+            raise AssertionError(f"{tag} {name}: launches a step differ from the fit with no "
+                                 f"mesh: {diff}")
+        if not r["nccl_kernels"]:
+            raise AssertionError(f"{tag} {name}: no NCCL kernel in the captured replay")
+        bit_equal = all(torch.equal(r["state"][k], v) for k, v in ref["state"].items())
+        reason = None
+        if not bit_equal:
+            reason = ("each leaf's gradient norm is the root of its slices' squared norms "
+                      "summed over the ranks (parallel/sharding.Placement.leaf_norms)")
+            if name == "dp":
+                raise AssertionError(f"{tag} dp: the state differs from the fit with no mesh")
+            _hold_states(f"{tag} {name}", ref["start"], ref["state"], r["state"])
+        print(f"{tag} {smi}: {name} mesh {r['mesh']}: {r['ms_per_step']:.2f} ms a step, peak "
+              f"{r['peak_gib']:.2f} GiB, launches a step equal to no mesh's, NCCL in the "
+              f"replay {r['nccl_kernels']}; state "
+              + ("bit-equal to no mesh's" if bit_equal else f"within the route bounds ({reason})"))
+        out[name] = {"ms_per_step": r["ms_per_step"], "peak_gib": r["peak_gib"],
+                     "nccl_kernels": r["nccl_kernels"], "bit_equal": bit_equal,
+                     "reason": reason, "launches_per_step": r["per_step"]}
+    print(f"{tag} {out['note']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4338,6 +4701,8 @@ def main() -> int:
     base_dir = os.path.join(root, "build", "chip_smoke_baselines")
     p4_dir = os.path.join(root, "build", "chip_smoke_p4")
     accum_dir = os.path.join(root, "build", "chip_smoke_accum")
+    sweep_dir = os.path.join(root, "build", "chip_smoke_sweep")
+    par_dir = os.path.join(root, "build", "chip_smoke_parallel")
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -4391,9 +4756,11 @@ def main() -> int:
         accum = grad_accum_path(accum_dir)
         bench = bench_path(p4["ms_per_step"])
         cli_rec = cli_path()
+        sweep = sweep_path(sweep_dir)
+        parallel = parallel_path(par_dir)
     finally:
         for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir, r1_dir, interop_dir,
-                  base_dir, p4_dir, accum_dir):
+                  base_dir, p4_dir, accum_dir, sweep_dir, par_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -4533,6 +4900,8 @@ def main() -> int:
     print(json.dumps({"remat": remat}, default=float))
     print(json.dumps({"grad_accum": accum}, default=float))
     print(json.dumps({"bench": bench, "cli": cli_rec}, default=float))
+    print(json.dumps({"sweep": sweep}, default=float))
+    print(json.dumps({"parallel": parallel}, default=float))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

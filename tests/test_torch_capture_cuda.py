@@ -152,8 +152,8 @@ from vitgan_tpu_torch.train import step as S
 from vitgan_tpu_torch.train.trainer import Trainer
 real_core = S._make_core
 
-def syncing_core(gan, cfg):
-    core = real_core(gan, cfg)
+def syncing_core(gan, cfg, mesh=None):
+    core = real_core(gan, cfg, mesh)
 
     def run(state, real, *a):
         real.sum().item()  # a host sync: refused inside a capture

@@ -2,7 +2,7 @@
 import nothing of JAX and nothing of the JAX package (vitgan_tpu), name
 nothing of the repo's native/ directory (the JAX package's C++ loader and
 its library), and importing them builds no kernel, builds or loads no
-loader library and imports no triton."""
+loader library, starts no process group and imports no triton."""
 
 import ast
 import json
@@ -38,8 +38,10 @@ for m in pkgutil.walk_packages(vitgan_tpu_torch.__path__, "vitgan_tpu_torch."):
     names.append(m.name)
 from vitgan_tpu_torch.ops import build
 from vitgan_tpu_torch.data import native
+import torch.distributed as dist
 print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
-                  "libs": len(build._LIBS), "loader": native._LIB is not None}))
+                  "libs": len(build._LIBS), "loader": native._LIB is not None,
+                  "group": dist.is_available() and dist.is_initialized()}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -50,12 +52,14 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
                  "utils.checkpoint", "utils.logging", "utils.manifest", "utils.preemption",
                  "utils.timing", "utils.profiling", "utils.run_dirs", "models.inception",
                  "train.fid", "train.metrics", "data.native", "data.pipeline",
-                 "data.transforms"):
+                 "data.transforms", "hpo.sweep", "parallel.mesh", "parallel.sharding",
+                 "train.vstep", "ops.draws"):
         assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"
     assert res["libs"] == 0  # no kernel library built or loaded at import
     assert not res["loader"]  # nor the C++ batch assembler
+    assert not res["group"]  # nor a process group
 
 
 def _imports(path):

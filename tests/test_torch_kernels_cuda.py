@@ -90,9 +90,11 @@ def test_kernel_matches_plain_on_card(name):
 
 @pytest.mark.cuda
 def test_auto_route_raises_on_card_for_unported_dtype_and_width():
-    """Past the JAX package's gates, an f32 or too-wide CUDA tensor makes the
-    kernel's wrapper raise, naming the ROADMAP.md item; nothing falls back to
-    the plain version on the card."""
+    """Past the JAX package's gates, an f32 CUDA tensor makes the kernel's
+    wrapper raise, naming the ROADMAP.md item; so does a block wider than
+    the LN kernels take under 'always', where 'auto' declines it at the gate
+    (no kernel variant: E > 384) and it runs the plain version.  Nothing
+    falls back to the plain version in a wrapper on the card."""
     _cuda_or_skip()
     saved = policy.get_policy()
     policy.set_policy(mode="auto", megablock="auto")
@@ -103,7 +105,13 @@ def test_auto_route_raises_on_card_for_unported_dtype_and_width():
         e, hidden = 512, 2048
         x = torch.randn(2, 1024, e, device="cuda", dtype=torch.bfloat16)
         w1 = torch.zeros(e, hidden, device="cuda")
-        w2, b1, b = torch.zeros(hidden, e, device="cuda"), torch.zeros(hidden), torch.zeros(e)
+        w2, b1 = torch.zeros(hidden, e, device="cuda"), torch.zeros(hidden, device="cuda")
+        b = torch.zeros(e, device="cuda")
+        before = dict(build.LAUNCHES)
+        torch.testing.assert_close(FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b),
+                                   FM._reference(x, b, b, w1, b1, w2, b), rtol=0, atol=0)
+        assert build.LAUNCHES == before
+        policy.set_policy(mode="always")
         with pytest.raises(ValueError, match="ROADMAP"):
             FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b)
     finally:

@@ -152,11 +152,13 @@ def test_dispatch_gates_follow_the_policy():
 
 
 def test_auto_gates_are_the_jax_gates(monkeypatch):
-    """'auto' reads the device and the JAX package's size thresholds only.  A
-    CUDA tensor of another dtype or width passes the gate and reaches the
-    kernel's wrapper, which raises; it never reaches the plain version.
-    Meta tensors stand in for CUDA ones: the wrappers refuse them, where the
-    plain versions would return a meta result without complaint."""
+    """'auto' reads the device, the JAX package's size thresholds and the
+    widths the kernels have a variant for (E <= 384).  A CUDA tensor of
+    another dtype passes the gate and reaches the kernel's wrapper, which
+    raises; it never reaches the plain version; so does a wider block under
+    'always' and megablock 'on'.  Meta tensors stand in for CUDA ones: the
+    wrappers refuse them, where the plain versions would return a meta
+    result without complaint."""
     for mod in (A, FM, FB):
         monkeypatch.setattr(mod, "on_cuda", lambda t: True)
     policy.set_policy(mode="auto", megablock="auto")
@@ -164,20 +166,31 @@ def test_auto_gates_are_the_jax_gates(monkeypatch):
     assert A.use_flash_attention(q, 256) and not A.use_flash_attention(q, 255)
     with pytest.raises(ValueError, match="CUDA"):
         A.dispatch_attention(q, q, q, "dot", 200.0)
-    e, hidden = 400, 1600  # f32, E > 384
-    x = torch.empty(2, 1057, e, device="meta")
-    w1, w2 = torch.empty(e, hidden, device="meta"), torch.empty(hidden, e, device="meta")
-    b1, b = torch.empty(hidden, device="meta"), torch.empty(e, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b, residual=False)
-    assert FM.dispatch_ln_mlp(x[:, :1023], b, b, w1, b1, w2, b).is_meta  # rows < 2048: plain
-    block = EncoderBlock(V2Config(embed_dim=e, num_heads=2, mlp_ratio=4),
-                         torch.Generator().manual_seed(0))
-    cfg = V2Config(embed_dim=e, num_heads=2, mlp_ratio=4)
-    with pytest.raises(ValueError, match="CUDA"):
-        FB.maybe_megablock(block, x[:, :128], cfg, train=False)
-    assert FB.maybe_megablock(block, x[:, :127], cfg, train=False) is None
-    assert FB.maybe_megablock(block, x[:, :1057], cfg, train=False) is None
+    for e, has_variant in ((384, True), (400, False)):  # f32; E > 384 has no variant
+        hidden = 4 * e
+        x = torch.empty(2, 1057, e, device="meta")
+        w1, w2 = torch.empty(e, hidden, device="meta"), torch.empty(hidden, e, device="meta")
+        b1, b = torch.empty(hidden, device="meta"), torch.empty(e, device="meta")
+        block = EncoderBlock(V2Config(embed_dim=e, num_heads=2, mlp_ratio=4),
+                             torch.Generator().manual_seed(0))
+        cfg = V2Config(embed_dim=e, num_heads=2, mlp_ratio=4)
+        if has_variant:
+            with pytest.raises(ValueError, match="CUDA"):
+                FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b, residual=False)
+            with pytest.raises(ValueError, match="CUDA"):
+                FB.maybe_megablock(block, x[:, :128], cfg, train=False)
+        else:
+            assert FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b, residual=False).is_meta
+            assert FB.maybe_megablock(block, x[:, :128], cfg, train=False) is None
+            policy.set_policy(mode="always", megablock="on")
+            with pytest.raises(ValueError, match="CUDA"):
+                FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b, residual=False)
+            with pytest.raises(ValueError, match="CUDA"):
+                FB.maybe_megablock(block, x[:, :128], cfg, train=False)
+            policy.set_policy(mode="auto", megablock="auto")
+        assert FM.dispatch_ln_mlp(x[:, :1023], b, b, w1, b1, w2, b).is_meta  # rows < 2048
+        assert FB.maybe_megablock(block, x[:, :127], cfg, train=False) is None
+        assert FB.maybe_megablock(block, x[:, :1057], cfg, train=False) is None
 
 
 def test_cpu_tensors_never_touch_the_build(monkeypatch):

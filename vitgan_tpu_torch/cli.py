@@ -1,10 +1,10 @@
 """Command-line interface of the port: ``train``, and ``serve``,
 ``generate`` and ``eval`` over a run directory (utils/run_dirs.py), the
-reference-checkpoint commands ``import-torch`` and ``export-torch``, and the
+reference-checkpoint commands ``import-torch`` and ``export-torch``, the
 measuring and diagnostic commands ``bench``, ``warmup``, ``doctor`` and
-``profile``, with the JAX CLI's flags for these commands (vitgan_tpu/cli.py)
-that the port carries, and ``--device`` (default cuda).  ``--family`` is v1,
-v2, dcgan, cnn or mlp.
+``profile``, and ``sweep``, with the JAX CLI's flags for these commands
+(vitgan_tpu/cli.py) that the port carries, and ``--device`` (default cuda).
+``--family`` is v1, v2, dcgan, cnn or mlp.
 
     python -m vitgan_tpu_torch.cli train --preset highres128 [--epochs 1 --run-name RUN]
     python -m vitgan_tpu_torch.cli train --preset highres128 --dataset cifar10 \
@@ -27,6 +27,10 @@ v2, dcgan, cnn or mlp.
     python -m vitgan_tpu_torch.cli warmup highres128 highres256p4 [--scan 4]
     python -m vitgan_tpu_torch.cli doctor [--allow-no-device]
     python -m vitgan_tpu_torch.cli profile --preset highres128 --dataset synthetic [--steps 5]
+    python -m vitgan_tpu_torch.cli sweep --num-trials 10 --seed 0 [--trial-stride 2 \
+        --trial-offset 1 | --vectorize] [--resume --run-dir SWEEP_DIR]
+    COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=r \
+        python -m vitgan_tpu_torch.cli train --preset highres128   # one process per card
 
 ``--dataset`` (cifar10, mnist or synthetic; every preset defaults to
 cifar10) reads CIFAR-10's ``cifar-10-batches-py/`` or
@@ -82,6 +86,16 @@ reports nvcc, the kernel build directory, the native loader and the
 Inception weights; it exits 1 when no card answers, unless
 ``--allow-no-device``.  ``profile`` writes a torch.profiler trace of
 ``--steps`` eager train steps under <run>/logs/profile.
+
+``sweep`` (hpo/sweep.py) trains ``--num-trials`` trials of the reference
+search space drawn from ``--seed`` (the v2 family; DEV, ``--set`` and
+``--dataset`` shape the base), each under <sweep dir>/trial_<i>, appends each
+to sweep_results.jsonl, writes best_config.json and prints the best trial's
+JSON last; workers sharing a sweep directory take ``--trial-stride`` /
+``--trial-offset`` slices, ``--resume`` skips recorded trials, and
+``--vectorize`` trains same-shape trials as one group on the same batches.  ``train``
+under COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID is one rank of a
+mesh (``cfg.mesh``; parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -120,11 +134,16 @@ def build_cfg(args):
         cfg = {"deit64": C.deit64_config, "highres128": lambda: C.highres_config(128),
                "highres256": lambda: C.highres_config(256),
                "highres256p4": C.highres256p4_config}[args.preset]()
-    elif os.environ.get("DEV", "").lower() in ("1", "true", "yes"):
+    elif C.dev_mode():
         cfg = C.smoke_config(args.family)
     else:
         cfg = C.ExperimentConfig(family=args.family)
     over = _overrides(args)
+    family = cfg.family
+    for flag, key in (("batch_size", "batch_size"), ("seed", "seed"), ("loss", "loss")):
+        val = getattr(args, flag, None)  # the sweep's flags (vitgan_tpu/cli.py:24-49)
+        if val is not None and (flag != "loss" or family in ("v1", "v2")):
+            over[f"{family}.{key}"] = val
     if getattr(args, "dataset", None):
         over["data.dataset"] = args.dataset
     if getattr(args, "epochs", None) is not None:
@@ -176,13 +195,16 @@ def _warm_start_d(trainer, path: str, cfg) -> int:
 
 def cmd_train(args) -> int:
     """Train and write the run directory (train/trainer.py); ``--resume``
-    continues it from its latest checkpoint."""
+    continues it from its latest checkpoint.  With COORDINATOR_ADDRESS,
+    NUM_PROCESSES and PROCESS_ID set, each process is one rank of the mesh
+    (parallel/mesh.initialize_distributed)."""
     import logging
 
+    from vitgan_tpu_torch.parallel.mesh import initialize_distributed
     from vitgan_tpu_torch.train.trainer import Trainer
-
     from vitgan_tpu_torch.utils.preemption import graceful_preemption
 
+    initialize_distributed(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = build_cfg(args)
     trainer = Trainer(cfg, run_dir=args.run_dir, device=args.device)
@@ -543,6 +565,51 @@ def cmd_profile(args) -> int:
     return 0
 
 
+def cmd_sweep(args) -> int:
+    """Random search (hpo/sweep.py); SIGTERM between trials ranks the trials
+    already recorded (each is durable in the JSONL)."""
+    from vitgan_tpu_torch.utils.preemption import graceful_preemption
+
+    with graceful_preemption():
+        return _cmd_sweep_inner(args)
+
+
+def _sweep_base_from_args(args):
+    """The trials' base config: DEV's smoke config or the preset, --set and
+    --dataset honoured, the family pinned to v2 (the space is v2's), no
+    periodic checkpoints or grids (vitgan_tpu/cli.py:569-584)."""
+    from vitgan_tpu_torch import config as C
+
+    args.family = "v2"
+    cfg = build_cfg(args)
+    epochs = args.epochs or 1
+    return C.replace(cfg, **{
+        "run.epochs": epochs, "run.checkpoint_every_epochs": 0,
+        "run.sample_grid_every_epochs": 0,
+        "data.dataset": args.dataset or "synthetic",
+    }), epochs
+
+
+def _cmd_sweep_inner(args) -> int:
+    base, epochs = _sweep_base_from_args(args)
+    kw = dict(num_trials=args.num_trials, epochs_per_trial=epochs, seed=args.seed or 0,
+              dataset=args.dataset or "synthetic", base_cfg=base, run_base=args.run_dir,
+              resume=args.resume, device=args.device)
+    if args.vectorize:
+        from vitgan_tpu_torch.hpo.sweep import run_sweep_vectorized
+
+        if args.trial_stride > 1 or args.trial_offset != 0:
+            raise ValueError("--vectorize replaces host striding (trials parallelize on the "
+                             "device); drop --trial-stride/--trial-offset")
+        best = run_sweep_vectorized(**kw)
+    else:
+        from vitgan_tpu_torch.hpo.sweep import run_sweep
+
+        best = run_sweep(trial_offset=args.trial_offset, trial_stride=args.trial_stride, **kw)
+    print(json.dumps(best, indent=2, default=str))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vitgan-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -674,6 +741,32 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--steps", type=int, default=5)
     pr.add_argument("--device", default="cuda")
     pr.set_defaults(fn=cmd_profile)
+
+    s = sub.add_parser("sweep", help="hyperparameter sweep: random search over the v2 space")
+    s.add_argument("--preset", choices=PRESETS, default=None)
+    s.add_argument("--family", choices=FAMILIES, default="v2", help="pinned to v2")
+    s.add_argument("--dataset", choices=DATASETS, default=None, help="default: synthetic")
+    s.add_argument("--epochs", type=int, default=None, help="epochs a trial (default 1)")
+    s.add_argument("--batch-size", type=int, default=None)
+    s.add_argument("--seed", type=int, default=None,
+                   help="the sweep's seed (and the model's): the drawn trial sequence")
+    s.add_argument("--loss", choices=["bce", "mse", "wgan-gp"], default=None)
+    s.add_argument("--run-name", default=None)
+    s.add_argument("--set", action="append", metavar="dotted.key=value")
+    s.add_argument("--run-dir", default=None,
+                   help="the sweep directory (default $SCRATCH/sweeps): trial_<i>/, "
+                        "sweep_results.jsonl, best_config.json")
+    s.add_argument("--num-trials", type=int, default=10)
+    s.add_argument("--trial-offset", type=int, default=0,
+                   help="this worker's slice of the trial sequence")
+    s.add_argument("--trial-stride", type=int, default=1, help="workers sharing the sweep")
+    s.add_argument("--vectorize", action="store_true",
+                   help="train same-shape trials as one group on the same batches (K states "
+                        "with per-trial rates on the plain route)")
+    s.add_argument("--resume", action="store_true",
+                   help="skip trials the sweep directory's JSONL records (same --seed)")
+    s.add_argument("--device", default="cuda")
+    s.set_defaults(fn=cmd_sweep)
     return p
 
 

@@ -3,16 +3,27 @@
 The port's own copy of the parts of ``vitgan_tpu.config`` that the serving and
 training slices read.  Field names, defaults and the JSON layout are the JAX
 package's, so a JAX run's ``config.json`` loads here unchanged: ``from_dict``
-skips the sections and fields this copy does not carry (mesh, the hpo
-search space, the JAX-only runtime knobs), and the JAX package reads the
-port's ``config.json`` the same way.
+skips the fields this copy does not carry (the JAX-only runtime knobs), and
+the JAX package reads the port's ``config.json`` the same way.  The ``mesh``
+section travels both ways (parallel/mesh.py reads it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
+
+
+def scratch_root() -> str:
+    """Artifact root: $SCRATCH, else ~/.vitgan_tpu (vitgan_tpu/config.py:24-27)."""
+    return os.environ.get("SCRATCH", os.path.join(os.path.expanduser("~"), ".vitgan_tpu"))
+
+
+def dev_mode() -> bool:
+    """The DEV flag: shrink everything for smoke runs (vitgan_tpu/config.py:30-32)."""
+    return os.environ.get("DEV", "").lower() in ("1", "true", "yes")
 
 
 @dataclass(frozen=True)
@@ -188,6 +199,29 @@ class MLPGANConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh (vitgan_tpu/config.py:294-324): ``data`` is the DP axis,
+    ``model`` the TP axis (parallel/mesh.py, parallel/sharding.py).  The port
+    runs one process per device.  ``pipeline_parallel`` and
+    ``context_parallel`` above 1 are carried for the schema and raise in
+    ``parallel/mesh.make_mesh`` (ROADMAP.md queue 1 item 9)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1  # devices on the model axis
+    seq_axis: str = "seq"
+    context_parallel: int = 1
+    pipe_axis: str = "pipe"
+    pipeline_parallel: int = 1
+    pipeline_microbatches: int = 2
+    # Fully-sharded DP: parameters and both Adam moments are stored sliced
+    # over the data axis (the largest divisible dimension of each leaf),
+    # gathered before use, their gradients reduce-scattered.
+    fsdp: bool = False
+    fsdp_min_size: int = 2048  # leaves with fewer elements stay replicated
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
     """Compute-path knobs the port reads (the JAX schema has more)."""
 
@@ -277,6 +311,7 @@ class ExperimentConfig:
     dcgan: DCGANConfig = field(default_factory=DCGANConfig)
     cnn: CNNGANConfig = field(default_factory=CNNGANConfig)
     mlp: MLPGANConfig = field(default_factory=MLPGANConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     data: DataConfig = field(default_factory=DataConfig)
     run: TrainRunConfig = field(default_factory=TrainRunConfig)

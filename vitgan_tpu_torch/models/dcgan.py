@@ -27,6 +27,8 @@ from torch import nn
 
 from vitgan_tpu_torch.config import DCGANConfig
 from vitgan_tpu_torch.models import layers as L
+from vitgan_tpu_torch.ops import draws
+from vitgan_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class Conv(nn.Module):
@@ -70,9 +72,16 @@ def batch_norm(p: BatchNorm, x: torch.Tensor, train: bool, update_state: bool,
                momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
     """BatchNorm over (B, H, W) of NHWC x in f32, cast back (dcgan.py:62-75)."""
     xf = x.float()
-    if train:
+    rows = draws.current()
+    if train and rows is not None and not rows.identity:
+        # the statistics of the global batch (parallel/mesh.py)
+        count = float(xf.shape[0] // rows.local * rows.global_ * xf.shape[1] * xf.shape[2])
+        mean = all_reduce_sum(xf.sum((0, 1, 2)), rows) / count
+        var = all_reduce_sum(((xf - mean) ** 2).sum((0, 1, 2)), rows) / count
+    elif train:
         mean = xf.mean((0, 1, 2))
         var = ((xf - mean) ** 2).mean((0, 1, 2))
+    if train:
         if update_state:
             with torch.no_grad():
                 p.mean.mul_(1 - momentum).add_(momentum * mean)

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from vitgan_tpu_torch.ops.attention import dispatch_attention
+from vitgan_tpu_torch.ops import draws
 from vitgan_tpu_torch.ops.policy import same_device
 
 
@@ -110,7 +111,7 @@ def dropout_mask(x: torch.Tensor, rate: float, train: bool,
     if not same_device(generator, x):
         raise ValueError(f"dropout draws on x's device {x.device}, the generator is on "
                          f"{generator.device}")
-    return torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return draws.rand(x.shape, generator, x.device) < 1.0 - rate
 
 
 def apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:

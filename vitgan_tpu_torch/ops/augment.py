@@ -16,16 +16,17 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from vitgan_tpu_torch.ops import draws as draws_
 from vitgan_tpu_torch.ops.policy import same_device
 
 
 def _uniform(gen: torch.Generator, x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    u = torch.rand((x.shape[0], 1, 1, 1), generator=gen, device=x.device)
+    u = draws_.rand((x.shape[0], 1, 1, 1), gen, x.device)
     return (lo + (hi - lo) * u).to(x.dtype)
 
 
 def _randint(gen: torch.Generator, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    return torch.randint(lo, hi, (x.shape[0],), generator=gen, device=x.device)
+    return draws_.randint(lo, hi, (x.shape[0],), gen, x.device)
 
 
 def _translation_max(x: torch.Tensor, ratio: float = 0.125) -> Tuple[int, int]:
@@ -38,7 +39,7 @@ def _cutout_size(x: torch.Tensor, ratio: float = 0.5) -> Tuple[int, int]:
 
 def draw_flip(gen, x):
     """(B, 1, 1, 1) bool: flip with p = 0.5."""
-    return torch.rand((x.shape[0], 1, 1, 1), generator=gen, device=x.device) < 0.5
+    return draws_.rand((x.shape[0], 1, 1, 1), gen, x.device) < 0.5
 
 
 def apply_flip(x, flip):

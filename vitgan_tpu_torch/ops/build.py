@@ -37,8 +37,9 @@ SIGNATURES = {
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # a, ln_s, ln_b, w1, b1, h, z1, m, e, hidden, eps, stream
     "ln_mlp_fc1": [_P] * 7 + [_I] * 3 + [_F, _P],
-    # a, w, bias, res, seed, out, mask, m, k, n, mask_id, threshold, inv_keep, stream
-    "ln_mlp_linear": [_P] * 7 + [_I] * 4 + [_U, _F, _P],
+    # a, w, bias, res, seed, out, mask, m, k, n, mask_id, threshold, inv_keep,
+    # rows_per_sample, local_batch, global_batch, first_sample, stream
+    "ln_mlp_linear": [_P] * 7 + [_I] * 4 + [_U, _F] + [_I] * 4 + [_P],
     # x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream
     "ln_qkv_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, dq_order, bh, n, d,

@@ -105,6 +105,10 @@ struct Params {
   const long long* seed;
   uint32_t mask_id, threshold;
   float inv_keep;
+  // the mask's rows in the global batch (data parallelism): row r of sample
+  // s = r / rps keys its bits as row (s / local * global + first + s % local)
+  // * rps + r % rps; local == global keys row r itself
+  int rps, local, global, first;
 };
 
 // --- the linear stage: out = [res +] [mask *] (a . w + bias) ------------------
@@ -205,6 +209,20 @@ ln_mlp_linear_kernel(const __grid_constant__ CUtensorMap ta,
     if (ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
     if (res) mbar_wait(&rfull[w], loads++ & 1);
 
+    // this thread's two rows' offsets from their Philox elements: the rows'
+    // places in the global batch less their own (0 for one rank), made once
+    // a tile so that a mask element costs one add more than at one rank
+    long goff[2] = {0, 0};
+    if (p.mask != nullptr && p.local != p.global) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 16 * wr + g + 8 * h, s = row / p.rps;
+        const long grow =
+            ((long)(s / p.local) * p.global + p.first + s % p.local) * p.rps + row % p.rps;
+        goff[h] = (grow - row) * p.n;
+      }
+    }
+
     // epilogue, one 64-column box at a time: the box's bias loads first,
     // issued together (a store between them would order each load behind
     // it); then the arithmetic, the f32 mask stored directly (a quad writes
@@ -235,7 +253,8 @@ ln_mlp_linear_kernel(const __grid_constant__ CUtensorMap ta,
           float v0 = acc[4 * j + 2 * h] + bias[jj].x, v1 = acc[4 * j + 2 * h + 1] + bias[jj].y;
           if (p.mask != nullptr && row < p.m && col < p.n) {
             const long idx = (long)row * p.n + col;
-            const float2 mk = dropout_pair(key, p.mask_id, idx, p.threshold, p.inv_keep);
+            const float2 mk =
+                dropout_pair(key, p.mask_id, idx + goff[h], p.threshold, p.inv_keep);
             v0 *= mk.x;
             v1 *= mk.y;
             *reinterpret_cast<float2*>(p.mask + idx) = mk;
@@ -444,12 +463,15 @@ extern "C" int ln_mlp_fc1(const void* a, const void* ln_s, const void* ln_b, con
 // n) bf16; bias: (n,) f32; res: (m, n) bf16 or NULL.  With mask != NULL the
 // f32 multiply-mask of Philox stream mask_id is drawn from the int64 at seed
 // (element row * n + col: inv_keep where its bits are >= threshold, else 0),
-// applied and written to mask (m, n).  Bases 16-byte aligned; k, n multiples
-// of 8.
+// applied and written to mask (m, n).  Under data parallelism the bits of row
+// r are those of its row in the global batch (Params::rps..first; local ==
+// global for one rank).  Bases 16-byte aligned; k, n multiples of 8.
 extern "C" int ln_mlp_linear(const void* a, const void* w, const void* bias, const void* res,
                              const void* seed, void* out, void* mask, int m, int k, int n,
-                             int mask_id, unsigned int threshold, float inv_keep, void* stream) {
-  if (m < 0 || k < 8 || k % 8 || n < 8 || n % 8 || (mask != nullptr && seed == nullptr))
+                             int mask_id, unsigned int threshold, float inv_keep, int rps,
+                             int local, int global, int first, void* stream) {
+  if (m < 0 || k < 8 || k % 8 || n < 8 || n % 8 || (mask != nullptr && seed == nullptr) ||
+      rps < 1 || local < 1 || global < local || first < 0 || first + local > global)
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   CUtensorMap ta, tb, to, tr;
@@ -467,6 +489,7 @@ extern "C" int ln_mlp_linear(const void* a, const void* w, const void* bias, con
   p.mask_id = (uint32_t)mask_id;
   p.threshold = threshold;
   p.inv_keep = inv_keep;
+  p.rps = rps, p.local = local, p.global = global, p.first = first;
   const int units = (m + BM - 1) / BM * ((n + lin::BN - 1) / lin::BN);
   const int grid = units < sm_count() ? units : sm_count();
   cudaFuncSetAttribute(ln_mlp_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -27,7 +27,8 @@ second deterministic pass).
 Each launch has a plain PyTorch version; composed, they are the block's plain
 forward and backward, which CPU tensors take.  The four autograd Functions
 carry the JAX names (`encoder_block_fused[_dropout][_saved]`), and
-:func:`maybe_megablock` is the JAX gate.
+:func:`maybe_megablock` is the JAX gate, which under 'auto' also declines the
+widths the kernels have no variant for.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from vitgan_tpu_torch.ops import build
+from vitgan_tpu_torch.ops import build, draws
 from vitgan_tpu_torch.ops.attention import (attention_forward_reference, attention_reference,
                                             flash_backward, flash_forward)
 from vitgan_tpu_torch.ops.fused_mlp import _operands, _tf32_products
@@ -167,10 +168,49 @@ def dropout_bits(seed, mask_id: int, count: int):
     return torch.stack(words, -1).reshape(-1)[:count]
 
 
+def _mapped_bits(seed, mask_id: int, shape, rows):
+    """The bits of an (M, n) mask whose rows sit in the global batch as
+    ``rows`` = (rows a sample, local, global, first) says (the linear
+    stage's rule): element (r, c) takes element grow(r) * n + c."""
+    rps, local, glob, first = rows
+    n = shape[-1]
+    r = torch.arange(math.prod(shape[:-1]), dtype=torch.int64, device=seed.device)
+    s = r // rps
+    grow = ((s // local) * glob + first + s % local) * rps + r % rps
+    idx = (grow[:, None] * n + torch.arange(n, device=seed.device)[None, :]).reshape(-1)
+    s64 = seed.reshape(()).to(torch.int64)
+    q = idx >> 2
+    words = torch.stack(philox4x32_10(q & _M32, q >> 32, torch.full_like(q, mask_id),
+                                      torch.zeros_like(q), s64 & _M32, (s64 >> 32) & _M32), -1)
+    return words.gather(1, (idx & 3)[:, None])[:, 0]
+
+
+def mask_rows(b: int, n: int):
+    """(rows a sample, local, global, first) of a (b, n, ...) block input
+    under the draws' row map (ops/draws.py), None where rows are their own."""
+    rm = draws.current()
+    if rm is None or rm.identity:
+        return None
+    if b % rm.local:
+        raise ValueError(f"a block of batch {b} under a local batch of {rm.local}")
+    return (n, rm.local, rm.global_, rm.first)
+
+
 def dropout_mask(seed, mask_id: int, shape, rate: float):
     """The f32 multiply-mask the kernels draw: 1 / (1 - rate) where the bits
     are >= fused_mlp.threshold, else 0."""
-    bits = dropout_bits(seed, mask_id, math.prod(shape))
+    return _keep_mask(dropout_bits(seed, mask_id, math.prod(shape)), seed, shape, rate)
+
+
+def row_mask(seed, mask_id: int, shape, rate: float, rows=None):
+    """:func:`dropout_mask` of a rank's rows, ``rows`` as in :func:`mask_rows`
+    (None: the rows are their own)."""
+    if rows is None:
+        return dropout_mask(seed, mask_id, shape, rate)
+    return _keep_mask(_mapped_bits(seed, mask_id, shape, rows), seed, shape, rate)
+
+
+def _keep_mask(bits, seed, shape, rate: float):
     keep = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=seed.device)
     return torch.where(bits >= threshold(rate), keep, torch.zeros_like(keep)).reshape(shape)
 
@@ -181,14 +221,14 @@ def new_seed(generator: torch.Generator, x: torch.Tensor):
     if not same_device(generator, x):
         raise ValueError(f"dropout draws on x's device {x.device}, the generator is on "
                          f"{generator.device}")
-    return torch.randint(0, 2 ** 62, (1,), generator=generator, device=x.device)
+    return draws.randint(0, 2 ** 62, (1,), generator, x.device, batched=False)
 
 
 # --- training forward: masks and saved residuals --------------------------------
 
 
 def _proj_ln_mlp_train_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed,
-                                 rate: float, eps: float = 1e-5):
+                                 rate: float, eps: float = 1e-5, rows=None):
     """Plain version of ln_mlp_train_fwd on (M, E) rows: (out, m1, m2, x1,
     z1), masks None without dropout.  a = attn.wout + bout; x1 = x + m1*a;
     z1 = LN2(x1).w1 + b1; out = x1 + m2*(gelu(z1).w2 + b2); f32 math,
@@ -196,7 +236,7 @@ def _proj_ln_mlp_train_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2
     a = attn.float() @ wout.float() + bout.float()
     m1 = m2 = None
     if rate > 0.0:
-        m1 = dropout_mask(seed, 0, a.shape, rate)
+        m1 = row_mask(seed, 0, a.shape, rate, rows)
         a = a * m1
     x1 = x.float() + a
     mean = x1.mean(-1, keepdim=True)
@@ -205,7 +245,7 @@ def _proj_ln_mlp_train_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2
     z1 = y2 @ w1.float() + b1.float()
     mlp = F.gelu(z1) @ w2.float() + b2.float()
     if rate > 0.0:
-        m2 = dropout_mask(seed, 1, mlp.shape, rate)
+        m2 = row_mask(seed, 1, mlp.shape, rate, rows)
         mlp = mlp * m2
     return (x1 + mlp).to(x.dtype), m1, m2, x1.to(x.dtype), z1.to(x.dtype)
 
@@ -223,7 +263,7 @@ def _proj_ln_mlp_train_stages_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1,
 
 
 def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, rate: float,
-                         eps: float = 1e-5):
+                         eps: float = 1e-5, rows=None):
     """Run ln_mlp_fwd.cu's training form on bf16 CUDA rows x (M, E), attn
     (M, H*Dh): three launches (out-projection, LN2 -> fc1 -> GELU, fc2),
     each counted by its stage, and one call of "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1)
@@ -242,9 +282,9 @@ def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, 
     if w1.shape != (e, hidden) or w2.shape != (hidden, e) or wout.shape != (hd, e):
         raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} / wout "
                          f"{tuple(wout.shape)} do not fit E={e}, H*Dh={hd}")
-    x1, m1 = linear_stage(attn, wout, bout, x, seed, rate, 0)
+    x1, m1 = linear_stage(attn, wout, bout, x, seed, rate, 0, rows)
     h, z1 = ln_fc1_stage(x1, ln_s, ln_b, w1, b1, eps, want_z1=True)
-    out, m2 = linear_stage(h, w2, b2, x1, seed, rate, 1)
+    out, m2 = linear_stage(h, w2, b2, x1, seed, rate, 1, rows)
     build.LAUNCHES["ln_mlp_train_fwd"] += 1
     return out, m1, m2, x1, z1
 
@@ -300,7 +340,7 @@ def fused_encoder_block(x, p, *, num_heads: int, eps: float = 1e-5, rate: float 
         mlp = ln_mlp_train_forward
     out, m1, m2, x1, z1 = mlp(x.reshape(b * n, e), ao.reshape(b * n, h * dh), p.msha.out.w,
                               p.msha.out.b, p.ln2.scale, p.ln2.bias, p.fc1.w, p.fc1.b, p.fc2.w,
-                              p.fc2.b, seed, rate, eps)
+                              p.fc2.b, seed, rate, eps, rows=mask_rows(b, n) if rate > 0 else None)
     shape = (b, n, e)
     m1, m2 = (None if t is None else t.reshape(shape) for t in (m1, m2))
     out = out.reshape(shape)
@@ -809,7 +849,9 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
     clamps of the JAX package; under 'on' a training block whose saved
     backward the clamps refuse takes the standard path with a warning.
     Dropout needs the step's generator and a CUDA tensor (the JAX gate: rng
-    and a real TPU)."""
+    and a real TPU).  'auto' also declines widths the kernels have no
+    variant for (E > 384: ROADMAP.md queue 1 item 7), as the LN->MLP gate
+    does; under 'on' they raise in the launches."""
     mode = megablock_mode()
     if mode == "off":
         return None
@@ -828,7 +870,9 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
         saved = False
     if mode == "auto":
         fits = saved_fwd_group(1, *pads, dropout=drop) >= 1
-        if (train and not saved) or not 128 <= n <= 1056 or not fits or not on_cuda(x):
+        has_variant = dh % 8 == 0 and mlp_kernel_fits(e, hidden, h * dh)
+        if ((train and not saved) or not 128 <= n <= 1056 or not fits or not has_variant
+                or not on_cuda(x)):
             return None
     if drop:
         if not has_generator or not on_cuda(x):
@@ -855,9 +899,9 @@ def maybe_megablock(p, x, cfg, train: bool, generator: Optional[torch.Generator]
     runs the three-launch forward; training runs one of the four autograd
     Functions, a dropout variant with a seed drawn from ``generator`` on the
     card (models/vitgan_v2.encoder_apply takes the same decision, drawing
-    the seed before a rematerialised block).  A dtype or width the kernels
-    do not take raises in the launches; it is never sent to the plain
-    version."""
+    the seed before a rematerialised block).  A dtype the kernels do not
+    take raises in the launches, and so does a width under 'on'; neither is
+    sent to the plain version."""
     route = megablock_route(p, x, cfg, train, generator is not None)
     if route is None:
         return None

@@ -118,11 +118,14 @@ def _operands(dev, *pairs):
             for t, dt in pairs]
 
 
-def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: int = 0):
+def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: int = 0,
+                 rows=None):
     """Launch ln_mlp_fwd.cu's linear stage on bf16 CUDA rows a (M, K), w (K,
     N): (out, mask) with out = [res +] [mask *] (a . w + bias) bf16 (M, N)
     and, for ``rate > 0``, the f32 multiply-mask of Philox stream ``mask_id``
-    drawn from the one-element int64 ``seed`` (else None)."""
+    drawn from the one-element int64 ``seed`` (else None).  ``rows``
+    (rows a sample, local batch, global batch, first sample) keys the mask's
+    rows by their place in the global batch (fused_block.mask_rows)."""
     a = _bf16_rows(a, "linear_stage")
     m, k = a.shape
     n = w.shape[-1]
@@ -147,7 +150,8 @@ def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: in
     build.check(fn, fn(build.ptr(a), build.ptr(wb), build.ptr(biasf), build.ptr(res),
                        build.ptr(seed if mask is not None else None), build.ptr(out),
                        build.ptr(mask), m, k, n, mask_id, threshold(rate),
-                       float(1.0 / (1.0 - rate)), build.stream_ptr(dev)))
+                       float(1.0 / (1.0 - rate)), *(rows or (1, 1, 1, 0)),
+                       build.stream_ptr(dev)))
     build.LAUNCHES["ln_mlp_linear"] += 1
     return out, mask
 
@@ -281,13 +285,16 @@ def dispatch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gel
                     residual: bool = True):
     """Policy-routed LN+MLP: 'auto' takes the kernel for CUDA tensors of at
     least ``min_mlp_rows`` rows and hidden >= 512 (the JAX package's TPU
-    gate, not yet measured on the GPU).  A dtype or width the kernel does
-    not take raises in :func:`ln_mlp_forward`; it is never sent to the plain
-    version."""
+    gate, not yet measured on the GPU) whose widths the kernel has a variant
+    for (:func:`kernel_fits`; wider blocks are ROADMAP.md queue 1 item 7).
+    'always' sends every block to the kernel: a dtype or width it does not
+    take raises in :func:`ln_mlp_forward`, and so does a dtype under 'auto';
+    neither is sent to the plain version."""
     rows = x.numel() // x.shape[-1]
     mode = _POLICY["mode"]
     big_enough = rows >= _POLICY["min_mlp_rows"] and w1.shape[-1] >= 512
-    use = mode == "always" or (mode == "auto" and on_cuda(x) and big_enough)
+    has_variant = kernel_fits(x.shape[-1], w1.shape[-1])
+    use = mode == "always" or (mode == "auto" and on_cuda(x) and big_enough and has_variant)
     if use:
         return fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, 1e-5, residual)
     return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, 1e-5, residual)

@@ -77,6 +77,12 @@ class Optimizer:
     state (``learning_rate``), which a caller may set and the checkpoint
     carries (optax.inject_hyperparams).
 
+    Under a mesh (``place``, parallel/sharding.py) the optimizer steps this
+    rank's slices of the parameters: each update first reduces the full
+    gradients to the slices (averaged over the data axis), takes the global
+    norm over every rank's slices, and afterwards gathers the full
+    parameters back into the module.
+
     On the CPU the rate is a Python float set on each update, and the clip is
     optax's arithmetic leaf by leaf.  On CUDA the update is one a CUDA graph
     can replay (train/step.py captures it): Adam/AdamW with
@@ -100,6 +106,8 @@ class Optimizer:
             raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
         self.cfg = cfg
         self.params = list(params)
+        self.placement = None
+        self.leaves = self.params  # what the update steps: the parameters or their slices
         self.k = int(cfg.grad_accum)
         self._schedule = make_lr(cfg)
         # the injected rate (a state leaf) under inject_lr, else None
@@ -110,22 +118,35 @@ class Optimizer:
         device = self.params[0].device
         # the device rate on CUDA, None on the CPU
         self.rate = torch.tensor(lr0, dtype=torch.float32, device=device) if on_cuda else None
-        # MultiSteps' accumulator and mini step (a device f32 scalar on CUDA)
-        self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
         self.mini_step = (torch.zeros((), dtype=torch.float32, device=device)
                           if on_cuda and self.k > 1 else 0)
+        self._build()
+
+    def _build(self) -> None:
+        """The torch optimizer and MultiSteps' accumulator over ``leaves``."""
+        cfg, on_cuda = self.cfg, self.rate is not None
+        lr0 = self.lr(0)
+        self.acc = [torch.zeros_like(p) for p in self.leaves] if self.k > 1 else None
         kw = ({"lr": self.rate, "capturable": True,
                **({"fused": True} if FUSED_ON_CUDA else {"foreach": True})}
               if on_cuda else {"lr": lr0})
         if cfg.name == "adam":
-            self.opt = torch.optim.Adam(self.params, betas=(cfg.beta1, cfg.beta2), eps=1e-8, **kw)
+            self.opt = torch.optim.Adam(self.leaves, betas=(cfg.beta1, cfg.beta2), eps=1e-8, **kw)
         elif cfg.name == "adamw":
-            self.opt = torch.optim.AdamW(self.params, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+            self.opt = torch.optim.AdamW(self.leaves, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
                                          weight_decay=cfg.weight_decay, **kw)
         elif cfg.name == "sgd":
-            self.opt = None if on_cuda else torch.optim.SGD(self.params, lr=lr0)
+            self.opt = None if on_cuda else torch.optim.SGD(self.leaves, lr=lr0)
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+    def place(self, placement) -> None:
+        """Step ``placement``'s slices from now on (before the first update)."""
+        if self.count:
+            raise ValueError("place the optimizer before its first update")
+        self.placement = placement
+        self.leaves = placement.shards
+        self._build()
 
     def lr(self, updates: int) -> float:
         """The rate of the update that follows ``updates`` applied ones: the
@@ -147,9 +168,18 @@ class Optimizer:
             torch._foreach_zero_(grads)
 
     def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm; under a sharded placement each leaf's value is
+        taken over every rank's slice first (parallel/sharding.Placement)."""
+        place = self.placement if self.placement is not None and self.placement.sharded else None
         if self.rate is None:
-            return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            sq = [(g.float() ** 2).sum() for g in grads]
+            if place is not None:
+                sq = list(place.leaf_norms(torch.stack(sq), squared=True))
+            return torch.sqrt(sum(sq))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if place is not None:
+            norms = place.leaf_norms(norms, squared=False)
+        return torch.linalg.vector_norm(norms)
 
     def _accumulate(self, grads: List[torch.Tensor]) -> None:
         """acc + (g - acc) / (mini_step + 1), MultiSteps' running mean."""
@@ -170,6 +200,8 @@ class Optimizer:
         hold this call's unclipped gradients again afterwards.  ``count`` is
         the caller's to advance."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.placement is not None:
+            grads = self.placement.reduce_grads(grads)
         norm = self._norm(grads)
         step_grads = grads
         if self.k > 1:
@@ -204,14 +236,16 @@ class Optimizer:
             self.rate.fill_(rate)
         if self.opt is None:  # SGD on CUDA
             with torch.no_grad():
-                torch._foreach_add_(self.params, torch._foreach_mul(clipped, self.rate),
+                torch._foreach_add_(self.leaves, torch._foreach_mul(clipped, self.rate),
                                     alpha=-1.0)
         else:
-            for p, g in zip(self.params, clipped):
+            for p, g in zip(self.leaves, clipped):
                 p.grad = g
             self.opt.step()
-            for p, g in zip(self.params, grads):
+            for p, g in zip(self.leaves, grads):
                 p.grad = g
+        if self.placement is not None:
+            self.placement.gather_params()
         if self.k > 1:  # MultiSteps zeroes the accumulator on the applying call
             if self.rate is None:
                 self.acc = [torch.zeros_like(a) for a in self.acc]
@@ -233,16 +267,31 @@ class Optimizer:
         injected rate, on the CPU."""
         state = {}
         if self.opt is not None:
-            for i, p in enumerate(self.params):
+            for i, p in enumerate(self.leaves):
                 if p in self.opt.state:
-                    state[i] = {k: v.detach().cpu().clone() for k, v in self.opt.state[p].items()}
+                    state[i] = {k: self._full(v, i).cpu().clone()
+                                for k, v in self.opt.state[p].items()}
         sd = {"count": self.count, "state": state}
         if self.k > 1:
-            sd["acc"] = [a.detach().cpu().clone() for a in self.acc]
+            sd["acc"] = [self._full(a, i).cpu().clone() for i, a in enumerate(self.acc)]
             sd["mini_step"] = int(self.mini_step)
         if self.learning_rate is not None:
             sd["learning_rate"] = self.learning_rate
         return sd
+
+    def _full(self, v: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i's state at the parameter's full shape (gathered from every
+        rank's slice under a sharded placement: a collective)."""
+        v = v.detach()
+        if self.placement is None or self.leaves[i] is self.params[i] or v.dim() == 0:
+            return v
+        return self.placement.gather(v, i)
+
+    def _cut(self, v: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i's full-shape state cut to this rank's slice."""
+        if self.placement is None or self.leaves[i] is self.params[i] or v.dim() == 0:
+            return v
+        return self.placement.cut(v, i)
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore ``state_dict``'s values.  State the optimizer already holds
@@ -254,18 +303,22 @@ class Optimizer:
             if "acc" not in sd:
                 raise ValueError(f"the checkpoint holds no accumulator for grad_accum={self.k}")
             with torch.no_grad():
-                for a, v in zip(self.acc, sd["acc"]):
-                    a.copy_(v)
+                for i, (a, v) in enumerate(zip(self.acc, sd["acc"])):
+                    a.copy_(self._cut(v, i))
             if self.rate is None:
                 self.mini_step = int(sd["mini_step"])
             else:
                 self.mini_step.fill_(int(sd["mini_step"]))
         if self.learning_rate is not None:
             self.learning_rate = float(sd.get("learning_rate", self.learning_rate))
+        if self.placement is not None:
+            self.placement.reload()
         if self.opt is None:
             return
-        for i, p in enumerate(self.params):
+        for i, p in enumerate(self.leaves):
             src = sd["state"].get(i)
+            if src is not None:
+                src = {k: self._cut(v, i) for k, v in src.items()}
             have = self.opt.state.get(p)
             if src is None:  # no update yet: the state a first update creates (zeros), in place
                 for v in (have or {}).values():

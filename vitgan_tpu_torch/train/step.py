@@ -53,7 +53,9 @@ import torch
 
 from vitgan_tpu_torch.config import ExperimentConfig
 from vitgan_tpu_torch.ops import build
+from vitgan_tpu_torch.ops import draws as RD
 from vitgan_tpu_torch.ops.augment import apply_augment, apply_draws, apply_flip, draw_flip
+from vitgan_tpu_torch.parallel.mesh import gather_rows, local_row_map, mean_over
 from vitgan_tpu_torch.train import losses as LO
 from vitgan_tpu_torch.train.sample import compute_dtype, latent_block
 from vitgan_tpu_torch.train.state import TrainState
@@ -113,11 +115,17 @@ class StepPlan:
 
 
 def plan_steps(gan, cfg: ExperimentConfig, state: TrainState, n: int, batch: int,
-               latents: Optional[np.ndarray] = None) -> StepPlan:
+               latents: Optional[np.ndarray] = None, mesh=None) -> StepPlan:
     """The plan of the n steps from ``state.step`` (``latents`` replaces the
-    block drawn from the host, as ``z`` does for one step)."""
+    block drawn from the host, as ``z`` does for one step).  Under a
+    ``mesh`` with collectives ``batch`` is this rank's rows: the host block
+    is drawn at the global batch and its rows kept."""
     ds = _disc_steps(cfg)
-    if latents is None:
+    rows = local_row_map(mesh, batch)
+    if latents is None and rows is not None:
+        latents = latent_block(gan, state.seed, state.step, n, rows.global_, ds)
+        latents = np.ascontiguousarray(latents[:, :, rows.first:rows.first + batch])
+    elif latents is None:
         latents = latent_block(gan, state.seed, state.step, n, batch, ds)
     else:
         latents = np.asarray(latents, np.float32)
@@ -153,30 +161,29 @@ def device_batch(dataset: torch.Tensor, idx: torch.Tensor, flip: bool,
     return apply_flip(real, draw_flip(gen, real)) if flip else real
 
 
-def _make_core(gan, cfg: ExperimentConfig):
-    """(state, real, zs (D, B, L), with_r1, g_rate, d_rates, draws, g_apply,
-    d_apply) -> metrics: one step with its latents, rates, R1 gate and
-    applying optimizer calls given; the host's counters untouched.  A rate
-    is a float, or on CUDA a 0-d device tensor."""
-    mcfg = cfg.model
-    loss_name = getattr(mcfg, "loss", "bce")
-    criterion = LO.pick_criterion(loss_name if loss_name in ("bce", "mse") else "bce")
-    use_wgan = loss_name == "wgan-gp"
-    r1_gamma, r1_interval, _ = _r1(mcfg)
-    g_diversity = getattr(mcfg, "g_diversity", False)
-    disc_steps = _disc_steps(cfg)
-    dtype = compute_dtype(cfg)
-    ema_decay = cfg.run.ema_decay
-    spec = cfg.run.diff_augment
+class _Losses:
+    """The step's D inputs and losses (:func:`_make_core`).  ``gen`` is the
+    step's generator; ``disc(x, update_state=False)`` runs D in train
+    mode."""
 
-    def d_inputs(state, real, fake, draws):
+    def __init__(self, gan, cfg: ExperimentConfig):
+        mcfg = cfg.model
+        self.gan, self.mcfg = gan, mcfg
+        loss_name = getattr(mcfg, "loss", "bce")
+        self.criterion = LO.pick_criterion(loss_name if loss_name in ("bce", "mse") else "bce")
+        self.use_wgan = loss_name == "wgan-gp"
+        self.r1_gamma, self.r1_interval, _ = _r1(mcfg)
+        self.g_diversity = getattr(mcfg, "g_diversity", False)
+        self.spec = cfg.run.diff_augment
+
+    def d_inputs(self, gen, real, fake, draws):
         """Instance noise, then DiffAugment, on D's real and fake inputs."""
-        gen = state.rng
+        mcfg, spec = self.mcfg, self.spec
         real_in, fake_in = real, fake
-        if use_wgan and mcfg.instance_noise > 0:
+        if self.use_wgan and mcfg.instance_noise > 0:
             nr, nf = draws.get("noise_real"), draws.get("noise_fake")
-            nr = torch.randn(real.shape, generator=gen, device=real.device) if nr is None else nr
-            nf = torch.randn(fake.shape, generator=gen, device=fake.device) if nf is None else nf
+            nr = RD.randn(real.shape, gen, real.device) if nr is None else nr
+            nf = RD.randn(fake.shape, gen, fake.device) if nf is None else nf
             real_in = real + mcfg.instance_noise * nr.to(real.device, real.dtype)
             fake_in = fake + mcfg.instance_noise * nf.to(fake.device, fake.dtype)
         if spec:
@@ -187,18 +194,16 @@ def _make_core(gan, cfg: ExperimentConfig):
                        else apply_draws(fake_in, a_f))
         return real_in, fake_in
 
-    def d_loss_on(state, real_in, fake_in, with_r1, draws):
+    def d_loss(self, disc, gen, real_in, fake_in, with_r1, draws):
+        """(loss, aux) of one D update."""
+        gan, mcfg = self.gan, self.mcfg
         b = real_in.shape[0]
 
-        def disc(x, update_state=False):
-            return gan.discriminator_apply(state.d, x, train=True, generator=state.rng,
-                                           update_state=update_state)
-
         def penalties():
-            if use_wgan:
+            if self.use_wgan:
                 eps = draws.get("gp_eps")
                 if eps is None:
-                    eps = torch.rand((b, 1, 1, 1), generator=state.rng, device=real_in.device)
+                    eps = RD.rand((b, 1, 1, 1), gen, real_in.device)
                 return LO.gradient_penalty(disc, real_in, fake_in, eps.to(real_in.device))
             if with_r1:
                 return LO.r1_penalty(disc, real_in).float()
@@ -221,22 +226,67 @@ def _make_core(gan, cfg: ExperimentConfig):
         if not gan.d_has_state:
             penalty = penalties()
         r1 = penalty if with_r1 else torch.zeros((), device=real_in.device)
-        if use_wgan:
+        if self.use_wgan:
             loss = LO.wasserstein_d_loss(real_logits, fake_logits) + mcfg.gp_lambda * penalty
             loss_real, loss_fake = -real_logits.float().mean(), fake_logits.float().mean()
         else:
-            loss_real = criterion(real_logits, torch.ones_like(real_logits, dtype=torch.float32))
-            loss_fake = criterion(fake_logits, torch.zeros_like(fake_logits, dtype=torch.float32))
+            loss_real = self.criterion(real_logits,
+                                       torch.ones_like(real_logits, dtype=torch.float32))
+            loss_fake = self.criterion(fake_logits,
+                                       torch.zeros_like(fake_logits, dtype=torch.float32))
             loss = loss_real + loss_fake
             if with_r1:
-                loss = loss + 0.5 * r1_gamma * r1_interval * r1
+                loss = loss + 0.5 * self.r1_gamma * self.r1_interval * r1
         aux = {"loss_real": loss_real, "loss_fake": loss_fake, "r1": r1,
                "real_acc": LO.accuracy_from_logits(real_logits, True),
                "fake_acc": LO.accuracy_from_logits(fake_logits, False)}
         return loss, aux
 
+    def g_loss(self, disc, gen, fake, draws):
+        """G's loss against D (``disc`` reads the updated D); the diversity
+        term pairs the samples of the global batch (parallel/mesh.py)."""
+        mcfg, spec = self.mcfg, self.spec
+        g_in = fake
+        if spec:
+            a_g = draws.get("aug_g")
+            g_in = apply_augment(gen, fake, spec) if a_g is None else apply_draws(fake, a_g)
+        fake_logits = disc(g_in)
+        if self.use_wgan:
+            g_loss = LO.wasserstein_g_loss(fake_logits)
+            if mcfg.diversity_weight > 0:
+                g_loss = g_loss - mcfg.diversity_weight * LO.diversity_loss(
+                    gather_rows(fake, RD.current()))
+        else:
+            g_loss = LO.g_adversarial_loss(self.criterion, fake_logits)
+            if self.g_diversity and mcfg.diversity_weight > 0:
+                g_loss = g_loss - mcfg.diversity_weight * LO.diversity_loss(
+                    gather_rows(fake, RD.current()))
+        return g_loss
+
+
+def _make_core(gan, cfg: ExperimentConfig, mesh=None):
+    """(state, real, zs (D, B, L), with_r1, g_rate, d_rates, draws, g_apply,
+    d_apply) -> metrics: one step with its latents, rates, R1 gate and
+    applying optimizer calls given; the host's counters untouched.  A rate
+    is a float, or on CUDA a 0-d device tensor.  Under a ``mesh`` with
+    collectives, ``real`` and ``zs`` are this rank's rows and the draws
+    take them from the global batch (ops/draws.py); the metrics are the
+    data axis's means."""
+    parts = _Losses(gan, cfg)
+    if (mesh is not None and mesh.distributed and mesh.n_data > 1
+            and getattr(cfg.model, "minibatch_std", False)):
+        raise ValueError("v2.minibatch_std groups the local batch: under a data axis above "
+                         "1 it is ROADMAP.md queue 1 item 9")
+    disc_steps = _disc_steps(cfg)
+    dtype = compute_dtype(cfg)
+    ema_decay = cfg.run.ema_decay
+
     def d_update(state, real_in, fake_in, with_r1, draws, rate, apply):
-        loss, aux = d_loss_on(state, real_in, fake_in, with_r1, draws)
+        def disc(x, update_state=False):
+            return gan.discriminator_apply(state.d, x, train=True, generator=state.rng,
+                                           update_state=update_state)
+
+        loss, aux = parts.d_loss(disc, state.rng, real_in, fake_in, with_r1, draws)
         state.d_opt.zero_grad()
         loss.backward()
         return loss.detach(), aux, state.d_opt.update(rate, apply)
@@ -244,18 +294,28 @@ def _make_core(gan, cfg: ExperimentConfig):
     def core(state: TrainState, real: torch.Tensor, zs: torch.Tensor, with_r1: bool,
              g_rate, d_rates: Sequence, draws: Dict, g_apply: bool,
              d_apply: Sequence) -> Dict[str, torch.Tensor]:
+        rows = local_row_map(mesh, real.shape[0])
+        with RD.global_rows(rows):
+            m = body(state, real, zs, with_r1, g_rate, d_rates, draws, g_apply, d_apply)
+        if rows is None:
+            return m
+        keys = sorted(m)
+        means = mean_over(torch.stack([m[k].reshape(()) for k in keys]), rows.group)
+        return {k: means[j] for j, k in enumerate(keys)}
+
+    def body(state, real, zs, with_r1, g_rate, d_rates, draws, g_apply, d_apply):
         g, d, gen = state.g, state.d, state.rng
         device = next(g.parameters()).device
         real = real.to(device=device, dtype=dtype)
         zs = zs.to(device=device, dtype=dtype)
         fake = g(zs[0], train=True, generator=gen)
-        real_in, fake_in = d_inputs(state, real, fake.detach(), draws)
+        real_in, fake_in = parts.d_inputs(gen, real, fake.detach(), draws)
 
         for j in range(disc_steps - 1):  # extra critic updates on fresh latents
             with torch.no_grad():  # its BatchNorm state is dropped, as in JAX
                 fake_i = gan.generator_apply(g, zs[1 + j], train=True, generator=gen,
                                              update_state=False)
-            r_i, f_i = d_inputs(state, real, fake_i, {})
+            r_i, f_i = parts.d_inputs(gen, real, fake_i, {})
             d_update(state, r_i, f_i, False, {}, d_rates[j], d_apply[j])
 
         d_loss, d_aux, d_grad_norm = d_update(state, real_in, fake_in, with_r1, draws,
@@ -266,19 +326,9 @@ def _make_core(gan, cfg: ExperimentConfig):
         for p in d_params:
             p.requires_grad_(False)
         try:
-            g_in = fake
-            if spec:
-                a_g = draws.get("aug_g")
-                g_in = apply_augment(gen, fake, spec) if a_g is None else apply_draws(fake, a_g)
-            fake_logits = gan.discriminator_apply(d, g_in, train=True, generator=gen)
-            if use_wgan:
-                g_loss = LO.wasserstein_g_loss(fake_logits)
-                if mcfg.diversity_weight > 0:
-                    g_loss = g_loss - mcfg.diversity_weight * LO.diversity_loss(fake)
-            else:
-                g_loss = LO.g_adversarial_loss(criterion, fake_logits)
-                if g_diversity and mcfg.diversity_weight > 0:
-                    g_loss = g_loss - mcfg.diversity_weight * LO.diversity_loss(fake)
+            g_loss = parts.g_loss(
+                lambda x: gan.discriminator_apply(d, x, train=True, generator=gen), gen,
+                fake, draws)
             state.g_opt.zero_grad()
             g_loss.backward()
         finally:
@@ -296,17 +346,19 @@ def _make_core(gan, cfg: ExperimentConfig):
                    "d_loss_fake": d_aux["loss_fake"].detach(), "g_loss": g_loss.detach(),
                    "d_real_acc": d_aux["real_acc"], "d_fake_acc": d_aux["fake_acc"],
                    "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm}
-        if r1_gamma > 0 and not use_wgan:
+        if parts.r1_gamma > 0 and not parts.use_wgan:
             metrics["d_r1"] = d_aux["r1"].detach()
         return {k: v.float() for k, v in metrics.items()}
 
     return core
 
 
-def make_train_step(gan, cfg: ExperimentConfig):
+def make_train_step(gan, cfg: ExperimentConfig, mesh=None):
     """(state, real (B, H, W, C) in [-1, 1], z=None, draws=None) -> metrics, a
-    dict of f32 device scalars; the state is updated in place."""
-    core = _make_core(gan, cfg)
+    dict of f32 device scalars; the state is updated in place.  Under a
+    ``mesh`` with collectives ``real`` (and ``z``) are this rank's rows of
+    the global batch (parallel/mesh.shard_batch)."""
+    core = _make_core(gan, cfg, mesh)
 
     def step(state: TrainState, real: torch.Tensor, z: Optional[torch.Tensor] = None,
              draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
@@ -314,7 +366,7 @@ def make_train_step(gan, cfg: ExperimentConfig):
         unknown = set(draws) - set(DRAW_KEYS)
         if unknown:
             raise ValueError(f"unknown draws {sorted(unknown)}; known: {DRAW_KEYS}")
-        plan = plan_steps(gan, cfg, state, 1, real.shape[0])
+        plan = plan_steps(gan, cfg, state, 1, real.shape[0], mesh=mesh)
         zs = torch.from_numpy(plan.latents[0])
         if z is not None:
             zs[0] = z
@@ -331,11 +383,12 @@ class _MultiStep:
     """n steps per call over a batch source: the uint8 dataset and an (n, B)
     index block (``gather``), or an (n, B, H, W, C) stack of batches."""
 
-    def __init__(self, gan, cfg: ExperimentConfig, n_steps: int, gather: bool):
+    def __init__(self, gan, cfg: ExperimentConfig, n_steps: int, gather: bool, mesh=None):
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         self.gan, self.cfg, self.n, self.gather = gan, cfg, int(n_steps), gather
-        self.core = _make_core(gan, cfg)
+        self.mesh = mesh
+        self.core = _make_core(gan, cfg, mesh)
         self.keys = metric_keys(cfg)
         # The JAX device-data body flips; the stacked-batch one does not.
         self.flip = gather and cfg.data.augment_flip
@@ -360,7 +413,7 @@ class _MultiStep:
         device = next(state.g.parameters()).device
         if self.gather and source.device != device:
             raise ValueError(f"the dataset is on {source.device}, the train state on {device}")
-        plan = plan_steps(self.gan, self.cfg, state, n, batch, latents)
+        plan = plan_steps(self.gan, self.cfg, state, n, batch, latents, self.mesh)
         if device.type == "cuda":
             rows = self._captured(state, source, indices, plan)
         else:
@@ -374,8 +427,9 @@ class _MultiStep:
         rows = []
         for i in range(self.n):
             if self.gather:
-                real = device_batch(source, torch.from_numpy(indices[i]).to(source.device),
-                                    self.flip, state.rng)
+                with RD.global_rows(local_row_map(self.mesh, indices.shape[1])):
+                    real = device_batch(source, torch.from_numpy(indices[i]).to(source.device),
+                                        self.flip, state.rng)
             else:
                 real = source[i]
             m = self.core(state, real, torch.from_numpy(plan.latents[i]), bool(plan.with_r1[i]),
@@ -391,8 +445,9 @@ class _MultiStep:
         b = self._bufs
         i = b["counter"]
         if self.gather:
-            real = device_batch(self._bound[1], b["idx"].index_select(0, i)[0], self.flip,
-                                state.rng)
+            idx = b["idx"].index_select(0, i)[0]
+            with RD.global_rows(local_row_map(self.mesh, idx.shape[0])):
+                real = device_batch(self._bound[1], idx, self.flip, state.rng)
         else:
             real = b["real"].index_select(0, i)[0]
         rates = b["rates"].index_select(0, i)[0]
@@ -481,12 +536,13 @@ class _MultiStep:
         self.graphs[kind] = (graph, launches)
 
 
-def make_multi_train_step(gan, cfg: ExperimentConfig, n_steps: int):
+def make_multi_train_step(gan, cfg: ExperimentConfig, n_steps: int, mesh=None):
     """``n_steps`` alternating updates in one call: (state, reals (n, B, H, W,
     C) in [-1, 1], latents=None) -> metrics, each (n,) on the state's device;
     the same as n calls of the single step (true sequential G/D updates).
-    ``latents`` (n, disc_steps, B, latent_dim) replaces the host's block."""
-    run = _MultiStep(gan, cfg, n_steps, gather=False)
+    ``latents`` (n, disc_steps, B, latent_dim) replaces the host's block.
+    Under a ``mesh`` B is this rank's rows."""
+    run = _MultiStep(gan, cfg, n_steps, gather=False, mesh=mesh)
 
     def multi(state: TrainState, reals: torch.Tensor, latents=None):
         return run(state, reals, None, latents)
@@ -495,13 +551,14 @@ def make_multi_train_step(gan, cfg: ExperimentConfig, n_steps: int):
     return multi
 
 
-def make_device_data_train_fn(gan, cfg: ExperimentConfig, n_steps: int):
+def make_device_data_train_fn(gan, cfg: ExperimentConfig, n_steps: int, mesh=None):
     """Device-resident-dataset training: (state, dataset_u8 (N, H, W, C) on
     the state's device, indices (n, B), latents=None) -> metrics, each (n,);
     each step gathers its batch by its index row, normalises it to [-1, 1]
     and flips it (data.augment_flip) on the device.  Only the indices (and
-    the latents and rates) cross from the host, once per call."""
-    run = _MultiStep(gan, cfg, n_steps, gather=True)
+    the latents and rates) cross from the host, once per call.  Under a
+    ``mesh`` the index rows are this rank's columns of the global batch."""
+    run = _MultiStep(gan, cfg, n_steps, gather=True, mesh=mesh)
 
     def multi(state: TrainState, dataset_u8: torch.Tensor, indices, latents=None):
         return run(state, dataset_u8, indices, latents)

@@ -38,6 +38,17 @@ the JAX fit does, so the epoch orders are the JAX trainer's;
   moments and counts, EMA, step, the device generator and the pipeline's
   generator), so a resumed run continues bit for bit on either route.
 
+Under a mesh (parallel/mesh.py; one process per device, ``mesh`` or
+``cfg.mesh`` over the started process group) every rank builds the same
+state, places it (parallel/sharding.shard_train_state: DP replicated, FSDP
+and TP slices), and trains its rows of each global batch: the device
+route's index rows are cut to its columns, the host pipeline takes its
+process slice.  Rank 0 writes the run directory and the checkpoints, in
+the single-device format (the optimizers gather their slices first), so a
+run resumes on any layout; the other ranks keep their logs under
+``ranks/<rank>/`` of it and restore from rank 0's checkpoints.  A SIGTERM
+on any rank stops every rank after the same call.
+
 FID runs between device calls, on the caller's stream under
 ``torch.inference_mode()``: it allocates nothing in a captured step's memory
 pool and writes no tensor a captured step reads.  On the device route it
@@ -62,6 +73,8 @@ from vitgan_tpu_torch.data.datasets import load_dataset
 from vitgan_tpu_torch.data.pipeline import HostDataPipeline, normalize_to_unit
 from vitgan_tpu_torch.models import build_gan, count_params
 from vitgan_tpu_torch.ops.policy import apply_from_runtime
+from vitgan_tpu_torch.parallel.mesh import Mesh, batch_rows, make_mesh
+from vitgan_tpu_torch.parallel.sharding import shard_train_state
 from vitgan_tpu_torch.train import fid as FID
 from vitgan_tpu_torch.train.sample import latent_rng, make_sample_fn
 from vitgan_tpu_torch.train.state import create_train_state
@@ -93,11 +106,21 @@ def steps_per_call(cfg: ExperimentConfig, n_samples: int) -> int:
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, run_dir: Optional[str] = None, device="cuda",
-                 fid_extractor: str = "auto"):
+                 fid_extractor: str = "auto", mesh: Optional[Mesh] = None):
         self.cfg = cfg
         apply_from_runtime(cfg.runtime)
         m = cfg.model
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
+        if self.mesh.size > 1 and not self.mesh.distributed:
+            raise ValueError(f"a mesh of {self.mesh.size} ranks needs a started process group "
+                             "(parallel/mesh.initialize_distributed)")
+        self.is_main = self.mesh.is_main
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None and self.mesh.distributed:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        # this rank's rows of each global batch
+        self._first, self.local_batch = (batch_rows(self.mesh, m.batch_size)
+                                         if self.mesh.distributed else (0, m.batch_size))
         data = cfg.data
         images, labels = load_dataset(data.dataset, root=data.data_dir, image_size=m.image_size,
                                       channels=m.channels,
@@ -107,26 +130,37 @@ class Trainer:
         self.pipeline = HostDataPipeline(images, labels, m.batch_size, shuffle=data.shuffle,
                                          drop_last=data.drop_last,
                                          augment_flip=data.augment_flip, seed=m.seed,
-                                         prefetch=data.prefetch, device=self.device)
+                                         prefetch=data.prefetch, device=self.device,
+                                         process_index=self.mesh.data_index,
+                                         process_count=self.mesh.n_data)
         # The device route runs full batches only, so a partial batch that
         # drop_last=False asks for takes the host route, which trains it.
         honors_partial = data.drop_last or len(images) % m.batch_size == 0
         self.route = ("device" if data.on_device and honors_partial
                       and images.nbytes <= data.on_device_max_bytes else "host")
         root = os.path.abspath(run_dir or default_run_dir(cfg.run_name))
+        if not self.is_main:
+            root = os.path.join(root, "ranks", str(self.mesh.rank))
         self.dirs = construct_directories(os.path.basename(root), base=os.path.dirname(root))
         self.run_dir = self.dirs.root
         save_config(cfg, os.path.join(self.run_dir, "config.json"))
         write_env_manifest(os.path.join(self.run_dir, "env.json"))
         self.log = get_logger("vitgan_tpu_torch", self.dirs.training_log)
         self.metrics = MetricLogger(self.dirs.logs)
-        self.ckpts = CheckpointManager(self.dirs.checkpoints, keep=cfg.run.keep_checkpoints)
+        main_root = root if self.is_main else os.path.dirname(os.path.dirname(root))
+        self.ckpts = CheckpointManager(os.path.join(main_root, "checkpoints"),
+                                       keep=cfg.run.keep_checkpoints)
         self.gan = build_gan(cfg)
         # uint8 (N, H, W, C) on the device route, None on the host route
         self.dataset = (torch.from_numpy(images).to(self.device) if self.route == "device"
                         else None)
         self.state = create_train_state(self.gan, cfg, device=self.device)
-        self.train_step = make_train_step(self.gan, cfg)
+        if self.mesh.distributed:
+            shard_train_state(self.state, self.mesh, tensor_parallel=cfg.mesh.model_parallel > 1,
+                              fsdp=cfg.mesh.fsdp, fsdp_min_size=cfg.mesh.fsdp_min_size)
+        # the step functions take the mesh where it issues collectives
+        self._mesh_kw = {"mesh": self.mesh} if self.mesh.distributed else {}
+        self.train_step = make_train_step(self.gan, cfg, **self._mesh_kw)
         self.steps_per_call = (steps_per_call(cfg, len(images)) if self.route == "device"
                                else max(1, cfg.run.steps_per_call))
         self._build_device_fns()
@@ -155,13 +189,13 @@ class Trainer:
         remainder's (built at first use); the host route's call of k stacked
         batches and its one-step functions by batch size (built at first
         use)."""
-        k = self.steps_per_call
+        k, kw = self.steps_per_call, self._mesh_kw
         if self.route == "device":
-            self._device_train_fn = make_device_data_train_fn(self.gan, self.cfg, k)
+            self._device_train_fn = make_device_data_train_fn(self.gan, self.cfg, k, **kw)
             self._device_rem_fn, self._device_rem_len = None, None
         else:
-            self._host_multi_fn = (make_multi_train_step(self.gan, self.cfg, k) if k > 1
-                                   else None)
+            self._host_multi_fn = (make_multi_train_step(self.gan, self.cfg, k, **kw)
+                                   if k > 1 else None)
             self._host_step_fns: Dict[int, object] = {}
 
     # ------------------------------------------------------------------ utils
@@ -176,6 +210,10 @@ class Trainer:
         if self.cfg.run.steps_per_epoch:
             n = min(n, self.cfg.run.steps_per_epoch)
         return order[: n * b].reshape(n, b)
+
+    def _local(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's columns of (steps, B) global index rows."""
+        return idx[:, self._first:self._first + self.local_batch]
 
     def real_batch(self, idx: np.ndarray) -> torch.Tensor:
         """One batch as a device-route step assembles it (eager)."""
@@ -304,7 +342,8 @@ class Trainer:
         batch of the pipeline; returns the trace directory (logs/profile)."""
         from vitgan_tpu_torch.utils.profiling import trace
 
-        real = torch.from_numpy(self._first_batch()).to(self.device)
+        real = torch.from_numpy(self._first_batch()[self._first:self._first + self.local_batch]
+                                ).to(self.device)
         trace_dir = os.path.join(self.dirs.logs, "profile")
         with trace(trace_dir):
             for _ in range(n_steps):
@@ -324,7 +363,7 @@ class Trainer:
         if self.route == "host":
             yield from self._host_epoch_calls()
             return
-        idx = self.batches()
+        idx = self._local(self.batches())
         b, k = self.cfg.model.batch_size, self.steps_per_call
         full = (len(idx) // k) * k
         for start in range(0, full, k):
@@ -332,7 +371,8 @@ class Trainer:
         rem = len(idx) - full
         if rem:
             if self._device_rem_len != rem:
-                self._device_rem_fn = make_device_data_train_fn(self.gan, self.cfg, rem)
+                self._device_rem_fn = make_device_data_train_fn(self.gan, self.cfg, rem,
+                                                                **self._mesh_kw)
                 self._device_rem_len = rem
             yield self._device_rem_fn(self.state, self.dataset, idx[full:]), rem * b
 
@@ -341,7 +381,8 @@ class Trainer:
         its batch size (a partial batch's is its own capture on CUDA)."""
         fn = self._host_step_fns.get(real.shape[0])
         if fn is None:
-            fn = self._host_step_fns[real.shape[0]] = make_multi_train_step(self.gan, self.cfg, 1)
+            fn = self._host_step_fns[real.shape[0]] = make_multi_train_step(self.gan, self.cfg, 1,
+                                                                            **self._mesh_kw)
         return fn(self.state, real[None])
 
     def _host_epoch_calls(self):
@@ -349,7 +390,7 @@ class Trainer:
         (trainer.py:343-371): one call a batch, or with steps_per_call k > 1,
         k full batches stacked a call and the batches left (a partial one
         among them) one call each."""
-        b, k = self.cfg.model.batch_size, self.steps_per_call
+        b, k = self.local_batch, self.steps_per_call
         buf = []
         for real, _ in self.pipeline.epoch(self.cfg.run.steps_per_epoch or None):
             if real.device.type != self.device.type:
@@ -364,6 +405,25 @@ class Trainer:
                 buf = []
         for real in buf:
             yield self._host_step(real), real.shape[0]
+
+    def _save_checkpoint(self, meta: dict) -> None:
+        """A checkpoint of the state, written by rank 0 (every rank gathers)."""
+        sd = self.checkpoint_state()
+        if self.is_main:
+            self.ckpts.save(self.state.step, sd, meta)
+
+    def _stop_requested(self) -> bool:
+        """SIGTERM on this rank, or under a mesh on any rank (a rank that
+        stopped alone would leave the others in their collectives)."""
+        stop = preemption.requested()
+        if not self.mesh.distributed:
+            return stop
+        import torch.distributed as dist
+
+        flag = torch.tensor([1.0 if stop else 0.0],
+                            device=self.device if self.device.type == "cuda" else "cpu")
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def _params_finite(self) -> bool:
         params = [*self.state.g.parameters(), *self.state.d.parameters()]
@@ -401,9 +461,9 @@ class Trainer:
                         lm = host_metrics({"d": m["d_loss"].mean(), "g": m["g_loss"].mean()})
                         self.log.info("epoch %d call %d | D %.4f G %.4f", epoch, i + 1,
                                       lm["d"], lm["g"])
-                    if preemption.requested():
+                    if self._stop_requested():
                         break
-                if preemption.requested():
+                if self._stop_requested():
                     # Stop before moving the cursor: the epilogue persists
                     # this epoch as the next to run, as after a crash.
                     self.log.info("preemption requested: stopping in epoch %d after %d images",
@@ -459,18 +519,18 @@ class Trainer:
                     if crit < self.best_metric:
                         self.best_metric = crit
                         # The keys resume() reads: resume(best=True) keeps the tracking.
-                        self.ckpts.save_best(self.state.step, self.checkpoint_state(),
-                                             run.best_metric, crit,
-                                             {"epoch": epoch + 1, "best_metric": crit})
-                        save_best(self.run_dir, self.state.ema_state_dict())
+                        sd = self.checkpoint_state()  # every rank: the slices are gathered
+                        if self.is_main:
+                            self.ckpts.save_best(self.state.step, sd, run.best_metric, crit,
+                                                 {"epoch": epoch + 1, "best_metric": crit})
+                            save_best(self.run_dir, self.state.ema_state_dict())
                     if self._early is not None and self._early.step(fid_val):
                         self.log.info("early stopping at epoch %d (FID %.3f)", epoch, fid_val)
                         last = means
                         self.epoch = epoch + 1  # the epoch is complete
                         break
                 if run.checkpoint_every_epochs and (epoch + 1) % run.checkpoint_every_epochs == 0:
-                    self.ckpts.save(self.state.step, self.checkpoint_state(),
-                                    {"epoch": epoch + 1, "best_metric": self.best_metric})
+                    self._save_checkpoint({"epoch": epoch + 1, "best_metric": self.best_metric})
                 self.log.info("epoch %d done | %s", epoch,
                               " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
                 last = means
@@ -488,10 +548,10 @@ class Trainer:
                     self.log.error("final checkpoint SKIPPED: the train state is non-finite "
                                    "(last durable step: %s)", self.ckpts.latest_step())
                 else:
-                    self.ckpts.save(self.state.step, self.checkpoint_state(),
-                                    {"epoch": self.epoch, "best_metric": self.best_metric,
-                                     "final": True})
-                    self.save()
+                    self._save_checkpoint({"epoch": self.epoch, "best_metric": self.best_metric,
+                                           "final": True})
+                    if self.is_main:
+                        self.save()
                 self.ckpts.wait()
             self.metrics.save_figures(self.dirs.images)
             if not self._poisoned:
