@@ -4216,8 +4216,11 @@ def grad_accum_path(work: str) -> dict:
     from vitgan_tpu_torch.train.trainer import Trainer
 
     tag = "[grad accum]"
+    # depth 6 of the preset's 12 since PR 19 (the script's time, which [pipeline]
+    # spends at depth 12); the accumulation's checks do not depend on the depth
     cfg = C.replace(C.highres_config(128), **_fit_over({
         "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.ema_decay": 0.999,
+        "v2.depth": 6,
         "v2.gen_optim.grad_accum": 2, "v2.disc_optim.grad_accum": 2,
         "run.steps_per_epoch": 3}))
     out = {"captured_vs_eager": captured_vs_eager(C.replace(cfg, **{"run.steps_per_epoch": None}),
@@ -4241,7 +4244,8 @@ def grad_accum_path(work: str) -> dict:
     if mid != (1, 1):
         raise AssertionError(f"{tag} the checkpoint after 3 calls holds mini steps {mid}")
     differ = [k for k in whole if not torch.equal(whole[k], resumed[k])]
-    print(f"{tag} highres128, grad_accum 2 on G and D, EMA 0.999: a run resumed after 3 steps "
+    print(f"{tag} highres128 at depth 6, grad_accum 2 on G and D, EMA 0.999: a run resumed "
+          f"after 3 steps "
           f"(mini steps {mid}) against 6 uninterrupted steps: {len(whole) - len(differ)} of "
           f"{len(whole)} leaves bit-equal")
     if differ:
@@ -4571,8 +4575,10 @@ def parallel_path(work: str) -> dict:
     out = {"mask_rows": _mask_rows_check(),
            "note": "one card: no multi-rank run was possible (NCCL takes one rank a device); "
                    "multi-rank numerics are held on the CPU by gloo tests"}
+    # depth 6 of the preset's 12 since PR 19, whose [pipeline] runs highres128 at 12
+    # (the script's time); the layouts' checks do not depend on the depth
     cfg = C.replace(C.highres_config(128), **_fit_over({
-        "data.dataset": "synthetic", "data.synthetic_samples": 256,
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "v2.depth": 6,
         "run.steps_per_epoch": 3, "run.checkpoint_every_epochs": 0}))
 
     def fit(name: str, place: dict = None) -> dict:
@@ -4621,7 +4627,7 @@ def parallel_path(work: str) -> dict:
                 "tp": fit("tp", {"tensor_parallel": True})}
     finally:
         dist.destroy_process_group()
-    print(f"{tag} {smi}: highres128 auto, 3 + 3 captured steps; no mesh "
+    print(f"{tag} {smi}: highres128 auto at depth 6, 3 + 3 captured steps; no mesh "
           f"{ref['ms_per_step']:.2f} ms a step, peak {ref['peak_gib']:.2f} GiB")
     out["none"] = {k: ref[k] for k in ("ms_per_step", "peak_gib")}
     for name, r in runs.items():
@@ -4649,6 +4655,323 @@ def parallel_path(work: str) -> dict:
                      "nccl_kernels": r["nccl_kernels"], "bit_equal": bit_equal,
                      "reason": reason, "launches_per_step": r["per_step"]}
     print(f"{tag} {out['note']}")
+    return out
+
+
+def _pipe_rows_check() -> dict:
+    """The linear stage's dropout bits of each microbatch of G's batch (32
+    samples x 1,024 tokens, E 384) at M = 2 and 4, keyed by their rows in the
+    batch (ops/draws.microbatch, ops/fused_block.mask_rows), against the
+    whole batch's mask: bit-equal."""
+    import torch
+
+    from vitgan_tpu_torch.ops import draws
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n, e, b = 1024, 384, 32
+    x = torch.randn((b * n, e), device="cuda", generator=gen).to(torch.bfloat16)
+    attn = torch.randn((b * n, e), device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn((e, e), device="cuda", generator=gen) * e ** -0.5
+    bias = torch.randn((e,), device="cuda", generator=gen) * 0.1
+    seed = torch.tensor([1234567890123], dtype=torch.int64, device="cuda")
+    _, whole = FM.linear_stage(attn, w, bias, x, seed, MB_RATE, 0)
+    out = {}
+    for m in (2, 4):
+        mb = b // m
+        for j in range(m):
+            rows = slice(j * mb * n, (j + 1) * mb * n)
+            with draws.microbatch(j * mb, b):
+                key = FB.mask_rows(mb, n)
+            _, mine = FM.linear_stage(attn[rows], w, bias, x[rows], seed, MB_RATE, 0, key)
+            if not torch.equal(mine, whole[rows]):
+                raise AssertionError(f"[pipeline] microbatch {j} of {m}: its dropout bits are "
+                                     "not the whole batch's rows")
+        out[f"M{m}"] = {"microbatch_rows": mb, "bits_equal": True}
+    return out
+
+
+def _one_stage():
+    from vitgan_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh({"data": 1, "model": 1, "pipe": 1}, axis_names=("data", "model", "pipe"),
+                pipe_axis="pipe")
+
+
+def _forwards(trainer, seed: int) -> tuple:
+    """G on a fixed latent batch and D on its images, eval mode."""
+    import numpy as np
+    import torch
+
+    g, d = trainer.state.g, trainer.state.d
+    z = trainer.gan.sample_latent(np.random.default_rng(seed), trainer.cfg.model.batch_size)
+    with torch.inference_mode():
+        imgs = g(z.to("cuda", torch.bfloat16))
+        return imgs.float().cpu(), trainer.gan.discriminator_apply(d, imgs).float().cpu()
+
+
+def _step_grads(trainer) -> dict:
+    """One eager train step from the trainer's start state on the dataset's
+    first batch: every parameter's gradient (G's from the G update, D's from
+    the D update), the metrics; the start state restored in place after."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.train.step import host_metrics
+
+    st = trainer.state
+    start = st.state_dict()
+    m = host_metrics(trainer.train_step(st, trainer.real_batch(
+        np.arange(trainer.cfg.model.batch_size))))
+    grads = {f"{net}.{k}": p.grad.detach().float().cpu().clone()
+             for net in ("g", "d") for k, p in getattr(st, net).named_parameters()}
+    st.load_state_dict(start)
+    return {"grads": grads, "metrics": m}
+
+
+def _hold_grads(tag: str, want: dict, got: dict) -> float:
+    """Each gradient leaf within LEAF_RTOL * its max|want| (the route bound);
+    returns the largest ratio |d| / max|want| over the leaves."""
+    worst = 0.0
+    for k, w in want["grads"].items():
+        scale = w.abs().max().item()
+        d = (got["grads"][k] - w).abs().max().item()
+        if not d <= LEAF_RTOL * scale:
+            raise AssertionError(f"{tag} gradient {k}: max |d| {d:.3e} over "
+                                 f"{LEAF_RTOL} x {scale:.3e}")
+        worst = max(worst, d / scale if scale else 0.0)
+    for k, v in want["metrics"].items():
+        d = abs(got["metrics"][k] - v)
+        if not d <= (NORM_RTOL * abs(v) if k.endswith("grad_norm") else LOSS_TOL):
+            raise AssertionError(f"{tag} one step's {k}: {got['metrics'][k]} against {v}")
+    return worst
+
+
+def _adam_reach(beta1: float, beta2: float, steps: int) -> float:
+    """The most ``steps`` Adam updates can move a parameter, in learning
+    rates, whatever the gradients: at update t, |m_hat / sqrt(v_hat)| <=
+    sqrt(sum_i a_i ** 2 / b_i) by Cauchy-Schwarz, a_i and b_i the bias-corrected
+    weights of gradient i in m_hat and v_hat (1.00 a step at beta1 0.9, up to
+    1.13 at v1's 0.5)."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t) for i in range(1, t + 1)]
+        b = [(1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t) for i in range(1, t + 1)]
+        total += math.sqrt(sum(x * x / y for x, y in zip(a, b)))
+    return total
+
+
+def _adam_drift(tag: str, cfg, want: dict, got: dict, steps: int) -> float:
+    """Parameters after ``steps`` Adam updates from one start: the largest
+    |d| / bound over the leaves, bound twice the most those updates can move
+    a parameter (:func:`_adam_reach`).  A reading and not a check: two runs
+    from one start stay within it whatever their gradients (the gradients
+    are held by :func:`_hold_grads`).  Raises only where a parameter is not
+    finite."""
+    import torch
+
+    worst = 0.0
+    m = cfg.model
+    for k, w in want.items():
+        if not k.startswith(("g.", "d.")) or not w.is_floating_point() or k.endswith(
+                (".u", ".sigma0")):
+            continue
+        opt = (m.gen_optim if k.startswith("g.") else m.disc_optim) if hasattr(
+            m, "gen_optim") else (m.generator if k.startswith("g.") else m.discriminator).optim
+        bound = 2 * opt.learning_rate * _adam_reach(opt.beta1, opt.beta2, steps)
+        if not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(f"{tag} {k} after {steps} steps is not finite")
+        worst = max(worst, (got[k].double() - w.double()).abs().max().item() / bound)
+    return worst
+
+
+def pipeline_path(work: str) -> dict:
+    """[pipeline] (phase 33): highres128 at full width (depth 12, batch 32,
+    remat attn, megablock auto) through a one-stage pipe
+    (parallel/pipeline.pp_bundle) at M = 2 and 4 against the unpipelined
+    step: one Trainer, whose modules take each bundle's runners in turn, and
+    from one start state (restored in place) 3 steps of the trainer's
+    captured step (make_device_data_train_fn; its first step eager, captured,
+    2 replays) on the same batches, then 3 timed calls; then v1 at its
+    defaults under use_pallas=always at M = 2."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.parallel.pipeline import pp_bundle
+    from vitgan_tpu_torch.train.step import host_metrics, make_device_data_train_fn
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag, smi = "[pipeline]", _smi()
+    out = {"rows": _pipe_rows_check()}
+    print(f"{tag} {smi}: each microbatch's megablock dropout bits are the whole batch's rows "
+          "(M = 2, 4)")
+
+    def variants(name: str, cfg, ms: tuple, timed: bool) -> dict:
+        t = Trainer(cfg, run_dir=os.path.join(work, name), device="cuda")
+        st = t.state
+        start_sd, start = st.state_dict(), _flat_state(st)
+        idx = t._local(t.batches()[:3])
+        recs = {}
+        for m in ms:
+            gan = t.gan
+            if m:
+                gan = pp_bundle(t.gan, cfg, mesh=_one_stage(), microbatches=m)
+            st.g.blocks_runner = gan.blocks_runners["g"] if m else None
+            st.d.blocks_runner = gan.blocks_runners["d"] if m else None
+            st.load_state_dict(start_sd)
+            _settle()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"forwards": _forwards(t, SEED + 5), "one_step": _step_grads(t)}
+            fn = make_device_data_train_fn(gan, cfg, len(idx))
+            mm = fn(st, t.dataset, idx)
+            rec["means"] = host_metrics({k: v.mean() for k, v in mm.items()})
+            rec["state"] = _flat_state(st)
+            if timed:
+                build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    mm = fn(st, t.dataset, idx)
+                host_metrics({"d": mm["d_loss"].mean()})
+                rec["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / (3 * len(idx))
+                rec["per_step"] = {k: v // (3 * len(idx)) for k, v in build.LAUNCHES.items()
+                                   if v}
+                rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del fn, mm
+            recs[m] = rec
+        del t, st
+        torch.cuda.empty_cache()
+        return start, recs
+
+    def hold(label: str, cfg, ref: dict, r: dict) -> dict:
+        metric_diff = {}
+        for k, v in ref["means"].items():
+            d = abs(r["means"][k] - v)
+            metric_diff[k] = d
+            if not d <= (NORM_RTOL * abs(v) if k.endswith("grad_norm") else LOSS_TOL):
+                raise AssertionError(f"{tag} {label} metric {k}: {r['means'][k]} against {v}")
+        # the parameter gradients sum the microbatches' products (wgrad_gemm)
+        # in another order than the whole batch's: one step's gradients within
+        # the route bound; the parameters' drift after 3 Adam steps a reading
+        return {"metric_max_abs_diff": metric_diff,
+                "grad_max_rel_diff": _hold_grads(f"{tag} {label}", ref["one_step"],
+                                                 r["one_step"]),
+                "params_over_adam_bound": _adam_drift(f"{tag} {label}", cfg, ref["state"],
+                                                      r["state"], 3),
+                "forwards_max_abs_diff": [float((a - b).abs().max()) for a, b in
+                                          zip(r["forwards"], ref["forwards"])]}
+
+    cfg = C.replace(C.highres_config(128), **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 256}))
+    _, runs = variants("highres128", cfg, (0, 2, 4), timed=True)
+    ref = runs[0]
+    print(f"{tag} {smi}: highres128 auto, remat attn, 3 captured steps; unpipelined "
+          f"{ref['ms_per_step']:.2f} ms a step, peak {ref['peak_gib']:.2f} GiB")
+    out["none"] = {k: ref[k] for k in ("ms_per_step", "peak_gib", "per_step")}
+    for m in (2, 4):
+        r, name = runs[m], f"M{m}"
+        for k, v in ref["per_step"].items():  # every kernel M times, at B / M rows
+            if r["per_step"].get(k) != m * v:
+                raise AssertionError(f"{tag} {name}: {k} launched {r['per_step'].get(k)} times a "
+                                     f"step, expected {m} x {v}")
+        if set(r["per_step"]) != set(ref["per_step"]):
+            raise AssertionError(f"{tag} {name}: kernels {sorted(r['per_step'])} against "
+                                 f"{sorted(ref['per_step'])}")
+        if not all(torch.equal(a, b) for a, b in zip(r["forwards"], ref["forwards"])):
+            # the kernels are row-invariant: a microbatch's rows are the batch's
+            raise AssertionError(f"{tag} {name}: G / D forwards differ")
+        held = hold(name, cfg, ref, r)
+        print(f"{tag} {smi}: M = {m} ({32 // m} rows a microbatch): {r['ms_per_step']:.2f} ms a "
+              f"step ({r['ms_per_step'] / ref['ms_per_step']:.3f}x unpipelined), peak "
+              f"{r['peak_gib']:.2f} GiB; every kernel {m}x a step; G and D forwards bit-equal; "
+              f"one step's gradients within {held['grad_max_rel_diff']:.2e} of each leaf's max; "
+              f"parameters after 3 steps at {held['params_over_adam_bound']:.3f} of twice "
+              f"Adam's reach (a reading); metrics max |d| "
+              f"{max(held['metric_max_abs_diff'].values()):.3e}")
+        out[name] = {"ms_per_step": r["ms_per_step"], "peak_gib": r["peak_gib"],
+                     "launches_per_step": r["per_step"], "forwards_bit_equal": True, **held}
+    # v1 at its defaults under use_pallas=always (the `l2` kernels in D)
+    v1 = _v1_cfg(**_fit_over({}))
+    _, vruns = variants("v1", v1, (0, 2), timed=False)
+    held = hold("v1 M2", v1, vruns[0], vruns[2])
+    print(f"{tag} {smi}: v1 use_pallas=always, M = 2: one step's gradients within "
+          f"{held['grad_max_rel_diff']:.2e} of each leaf's max, 3 captured steps at "
+          f"{held['params_over_adam_bound']:.3f} of twice Adam's reach (a reading); "
+          f"forwards max |d| "
+          f"{held['forwards_max_abs_diff']}")
+    out["v1_M2"] = held
+    return out
+
+
+def context_path(work: str) -> dict:
+    """[context] (phase 34): one seq rank in a world-1 NCCL group.
+    cp_attention and ring_cp_attention at D's shape (32, 6, 1,025, 64)
+    against dispatch_attention there; a v2 step at highres128's widths
+    (depth 2) with the sequence-parallel policy set launches no kernel."""
+    import torch
+    import torch.distributed as dist
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.attention import dispatch_attention
+    from vitgan_tpu_torch.ops.policy import set_sequence_parallel
+    from vitgan_tpu_torch.parallel.context_parallel import cp_attention, ring_cp_attention
+    from vitgan_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+
+    tag, smi = "[context]", _smi()
+    out = {}
+    store = os.path.join(work, "store")
+    os.makedirs(work, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(C.MeshConfig(model_parallel=1))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v = (torch.randn((32, 6, 1025, 64), device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        want = dispatch_attention(q, k, v, "dot", 64.0).float()
+        for name, fn in (("gather", cp_attention), ("ring", ring_cp_attention)):
+            got = fn(q, k, v, mesh, axis="model", scale=64.0).float()
+            err = _err(got, want, f"{tag} {name} against dispatch_attention")
+            out[name] = {"max_abs_err": err}
+            print(f"{tag} {smi}: {name} at D's shape, one rank: max |d| {err:.3e} against "
+                  "dispatch_attention")
+        world = dist.group.WORLD  # a (data, model, seq) grid of one rank
+        seq = Mesh({"data": 1, "model": 1, "seq": 1}, data_group=world, model_group=world,
+                   axis_names=("data", "model", "seq"), seq_axis="seq", seq_group=world)
+        cfg = C.replace(C.highres_config(128), **{"v2.depth": 2})
+        from vitgan_tpu_torch.models import build_gan
+
+        gan = build_gan(cfg)
+        state = create_train_state(gan, cfg, device="cuda")
+        step = make_train_step(gan, cfg)
+        real = torch.rand((32, 128, 128, 3), device="cuda", generator=gen) * 2 - 1
+        set_sequence_parallel(seq, "data", "seq")
+        try:
+            build.reset_launches()
+            m = host_metrics(step(state, real))
+            launched = {k_: v_ for k_, v_ in build.LAUNCHES.items() if v_}
+        finally:
+            set_sequence_parallel(None)
+        if launched:
+            raise AssertionError(f"{tag} a step under the SP policy launched {launched}")
+        if not all(map(math.isfinite, m.values())):
+            raise AssertionError(f"{tag} the SP step's metrics {m}")
+        build.reset_launches()
+        host_metrics(step(state, real))
+        if not any(build.LAUNCHES.values()):
+            raise AssertionError(f"{tag} the same step without SP launched no kernel")
+        print(f"{tag} {smi}: a v2 step (highres128 widths, depth 2) under the SP policy "
+              "launched no kernel (the JAX policy's decision); without it, the kernels")
+        out["sp_step"] = {"launches": {}, "metrics": m}
+        del state, step
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -4703,6 +5026,15 @@ def main() -> int:
     accum_dir = os.path.join(root, "build", "chip_smoke_accum")
     sweep_dir = os.path.join(root, "build", "chip_smoke_sweep")
     par_dir = os.path.join(root, "build", "chip_smoke_parallel")
+    pipe_dir = os.path.join(root, "build", "chip_smoke_pipeline")
+    ctx_dir = os.path.join(root, "build", "chip_smoke_context")
+    marks = [("build", time.perf_counter())]
+
+    def mark(label: str) -> None:
+        """The wall seconds of the phases since the previous mark."""
+        marks.append((label, time.perf_counter()))
+        print(f"[seconds] {label}: {marks[-1][1] - marks[-2][1]:.1f}")
+
     try:
         httpd, launches, seeded = serve_main_path(run_dir)
         try:
@@ -4711,10 +5043,12 @@ def main() -> int:
             httpd.shutdown()
             httpd.server_close()
         off_launches = serve_megablock_off(run_dir, off_dir, seeded)
+        mark("serve")
         del httpd
         torch.cuda.empty_cache()
         records.update(check_bwd_kernels())
         records.update(check_l2_kernels())
+        mark("bwd and l2 kernels")
         v1_dot = check_v1_dot_kernels()
         mb_records, mb_blocks = check_megablock_kernels()
         # LN->qkv's record is the serving shape's; the training shapes' go beside it
@@ -4723,44 +5057,59 @@ def main() -> int:
         for name, rec in check_ln_mlp_stages().items():
             records[name].update(rec)
         gate = check_training_gate()
+        mark("megablock and LN->MLP kernels, gate")
         train_launches, train = train_main_path(train_dir, "auto")
         shutil.rmtree(train_dir, ignore_errors=True)
         off_train_launches, train_off = train_main_path(train_dir, "off")
         train["megablock_off"] = train_off
         train["deit64"] = train_deit64()
         train["routes"] = compare_train_routes()
+        mark("train highres128, deit64, routes")
         train["gate"], train["megablock_blocks"] = gate, mb_blocks
         v1_launches, v1 = train_v1_main_path(v1_dir)
         v1_fused_launches, v1["fused"] = train_v1_fused()
         v1["routes"] = compare_v1_train_routes()
         v1["l2ref"] = l2ref_path()
+        mark("v1")
         capture = {
             "v1": captured_vs_eager(_v1_cfg(**_fit_over({})), 4, "v1 use_pallas=always"),
             "highres128": captured_vs_eager(C.replace(C.highres_config(128), **_fit_over(
                 {"data.dataset": "synthetic", "data.synthetic_samples": 256})), 2,
                 "highres128 megablock=auto"),
             "resume": resume_check(), "optimizer": optimizer_update()}
+        mark("captured vs eager, resume, optimizer")
         evals = eval_path(eval_dir)
+        mark("eval")
         data, data_launches = data_path(data_dir)
+        mark("data")
         r1 = double_backward_path(r1_dir)
         int8 = int8_serve(run_dir)
         warm_launches, interop = interop_path(interop_dir)
         baselines = baselines_path(base_dir)
+        mark("double backward, int8, interop, baselines")
         p4_trainer, p4, p4_start = train_p4(p4_dir)
         p4["captured_vs_eager"] = captured_vs_eager(p4_trainer.cfg, 2, "highres256p4",
                                                     trainer=p4_trainer)
         p4["routes"] = p4_against_plain(p4_trainer, p4_start)
         remat = remat_path(p4_trainer, p4_start)
+        mark("highres256p4, remat")
         del p4_trainer, p4_start
         torch.cuda.empty_cache()
         accum = grad_accum_path(accum_dir)
         bench = bench_path(p4["ms_per_step"])
         cli_rec = cli_path()
+        mark("grad accum, bench, cli")
         sweep = sweep_path(sweep_dir)
+        mark("sweep")
         parallel = parallel_path(par_dir)
+        mark("parallel")
+        pipe = pipeline_path(pipe_dir)
+        mark("pipeline")
+        context = context_path(ctx_dir)
+        mark("context")
     finally:
         for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir, r1_dir, interop_dir,
-                  base_dir, p4_dir, accum_dir, sweep_dir, par_dir):
+                  base_dir, p4_dir, accum_dir, sweep_dir, par_dir, pipe_dir, ctx_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -4870,6 +5219,10 @@ def main() -> int:
                 "megablock_bwd_mlp": lambda: _mb_mlp_launches(Counter(warm_launches))[
                     "launches"],
             }.get(k["name"], lambda: warm_launches.get(k["name"], 0))()
+        if k["name"] in pipe["M2"]["launches_per_step"]:
+            # phase 33: launches a step of highres128 through a one-stage pipe
+            k["launches_pipeline_per_step"] = {
+                m: pipe[m]["launches_per_step"][k["name"]] for m in ("M2", "M4")}
         if k["name"] in ("flash_attn_fwd", "flash_attn_bwd_fused"):
             # the v1 generator's `dot` attention: its launches on the v1 train
             # path and the check at its shape
@@ -4902,6 +5255,7 @@ def main() -> int:
     print(json.dumps({"bench": bench, "cli": cli_rec}, default=float))
     print(json.dumps({"sweep": sweep}, default=float))
     print(json.dumps({"parallel": parallel}, default=float))
+    print(json.dumps({"pipeline": pipe, "context": context}, default=float))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

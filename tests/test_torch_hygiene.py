@@ -53,7 +53,7 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules),
                  "utils.timing", "utils.profiling", "utils.run_dirs", "models.inception",
                  "train.fid", "train.metrics", "data.native", "data.pipeline",
                  "data.transforms", "hpo.sweep", "parallel.mesh", "parallel.sharding",
-                 "train.vstep", "ops.draws"):
+                 "train.vstep", "ops.draws", "parallel.pipeline", "parallel.context_parallel"):
         assert f"vitgan_tpu_torch.{name}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, f"importing the port loaded {bad}"

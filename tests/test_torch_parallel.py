@@ -1,8 +1,8 @@
 """The port's mesh and placement plans in one process, against the JAX
 package's (vitgan_tpu/parallel/{mesh, sharding}.py on its 8-device CPU
 mesh): mesh shapes and errors, local_batch_size, the TP and FSDP plans
-leaf for leaf for v1, v2 and dcgan, the mesh config section, the
-unported layouts' errors, and the data-parallel draws (every draw and the
+leaf for leaf for v1, v2 and dcgan, the mesh config section, the pipe and
+seq layouts' meshes and errors, and the data-parallel draws (every draw and the
 megablock's in-kernel dropout bits keyed by the global row).  Everything
 is compared exactly."""
 
@@ -41,14 +41,20 @@ def test_mesh_shapes_equal_the_jax_meshes(n, mp):
 
 
 def test_mesh_errors_equal_the_jax_errors():
-    with pytest.raises(ValueError) as jerr:
-        JM.make_mesh(JC.MeshConfig(model_parallel=3), devices=jax.devices()[:8])
-    with pytest.raises(ValueError) as perr:
-        M.make_mesh(C.MeshConfig(model_parallel=3), world_size=8)
-    assert str(perr.value) == str(jerr.value)
-    for over in ({"pipeline_parallel": 2}, {"context_parallel": 2}):
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
+    """Indivisible device counts (the model axis, the pipe axis, the seq
+    axis) and SP with PP: the JAX strings; a pipe or seq axis that divides
+    builds the JAX mesh's shape and axis names."""
+    for over in ({"model_parallel": 3}, {"pipeline_parallel": 3}, {"context_parallel": 3},
+                 {"pipeline_parallel": 2, "context_parallel": 2}):
+        with pytest.raises(ValueError) as jerr:
+            JM.make_mesh(JC.MeshConfig(**over), devices=jax.devices()[:8])
+        with pytest.raises(ValueError) as perr:
             M.make_mesh(C.MeshConfig(**over), world_size=8)
+        assert str(perr.value) == str(jerr.value)
+    for over in ({"pipeline_parallel": 2}, {"context_parallel": 2}):
+        jm = JM.make_mesh(JC.MeshConfig(**over), devices=jax.devices()[:8])
+        pm = M.make_mesh(C.MeshConfig(**over), world_size=8)
+        assert pm.shape == dict(jm.shape) and pm.axis_names == tuple(jm.axis_names)
 
 
 @pytest.mark.parametrize("batch,n,mp,pc", [(8, 8, 1, 1), (8, 2, 1, 2), (6, 4, 1, 1),
@@ -146,11 +152,30 @@ def test_mesh_section_survives_the_config_round_trip(tmp_path):
 
 @pytest.mark.parametrize("over", [{"mesh.pipeline_parallel": 2}, {"mesh.context_parallel": 2}])
 def test_the_trainer_raises_for_an_unported_layout(tmp_path, over):
+    """A PP or CP layout without a process group: the trainer plans the
+    layout's ranks and asks for a started group."""
     from vitgan_tpu_torch.train.trainer import Trainer
 
     cfg = C.replace(C.smoke_config(), **over)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
+    with pytest.raises(ValueError, match="a mesh of 2 ranks needs a started process group"):
         Trainer(cfg, run_dir=str(tmp_path / "run"), device="cpu")
+
+
+@pytest.mark.parametrize("n,mp,pp", [(8, 1, 4), (8, 2, 2), (4, 1, 2), (8, 1, 8)])
+def test_pipe_mesh_shapes_equal_the_jax_meshes(n, mp, pp):
+    """The (data, model, pipe) grid in the JAX device order: rank r at data
+    r // (mp pp), model (r // pp) % mp, pipe r % pp (tests/test_pipeline_parallel.py
+    asserts {"data": 2, "model": 1, "pipe": 4})."""
+    jm = JM.make_mesh(JC.MeshConfig(model_parallel=mp, pipeline_parallel=pp),
+                      devices=jax.devices()[:n])
+    devs = np.vectorize(lambda d: d.id)(np.asarray(jm.devices))
+    for r in range(n):
+        pm = M.make_mesh(C.MeshConfig(model_parallel=mp, pipeline_parallel=pp), world_size=n,
+                         rank=r)
+        assert pm.shape == dict(jm.shape) and pm.axis_names == tuple(jm.axis_names)
+        where = np.argwhere(devs == jax.devices()[r].id)[0]
+        assert (pm.data_index, pm.model_index, pm.pipe_index) == tuple(where)
+        assert pm.pipe_rank(0) == r - pm.pipe_index and pm.n_pipe == pp and pm.n_seq == 1
 
 
 def _rows(first):

@@ -15,7 +15,9 @@ port only; the JAX side runs here and is handed over as .npz.
   bit-equal.
 - DP against the JAX package's step on its 2-device CPU mesh, from the
   JAX parameters and the JAX step's own draws (dropout 0): the same bounds,
-  the first moments at tests/test_torch_v2_train.py's (rtol and atol 1e-5).
+  the first moments at tests/test_torch_v2_train.py's (rtol and atol 1e-5)
+  (held_to_the_jax_mesh_step, which the pipeline and sequence-parallel
+  tests use on meshes of their layouts).
 - FSDP against the replicated step on the same two ranks, at the JAX
   package's bar (tests/test_fsdp.py: rtol 2e-5, atol 1e-6), with the
   placement surviving the step (each rank steps and keeps slices, moments
@@ -24,6 +26,11 @@ port only; the JAX side runs here and is handed over as .npz.
 - A world-1 group: the step bit-equal to the step without a mesh.
 - A 2-step Trainer.fit under DP whose checkpoint resumes in one process
   bit for bit.
+- v2's minibatch-std feature under DP against the JAX mesh step, first
+  moments included.
+
+The pipeline and sequence-parallel launches of the same worker are in
+tests/test_torch_pipeline.py and tests/test_torch_context_parallel.py.
 """
 
 import json
@@ -140,26 +147,45 @@ def test_batchnorm_statistics_are_the_global_batch_s(tmp_path):
         np.testing.assert_array_equal(outs[0][k], outs[1][k])
 
 
-def _jax_mesh_steps(cfg_over: dict):
-    """Two steps of the JAX package's step on its 2-device CPU mesh from
-    its own init: (inputs for the port: init params, latents and draws per
-    step; flat results by port name)."""
+def _jax_mesh_steps(case: str, world: int = 2):
+    """Two steps of the JAX package's step from its own init on a CPU mesh
+    of ``world`` devices laid out as the case's (data, model, and pipe or
+    seq axes; FSDP), its block stacks pipelined and its sequence-parallel
+    policy set as the JAX Trainer sets them (vitgan_tpu/train/trainer.py:
+    55-122): (inputs for the port: init parameters and state, latents and
+    draws per step; flat results by port name; Adam's first moments)."""
     import jax
 
     from vitgan_tpu import config as JC
     from vitgan_tpu.models import build_gan as jax_build_gan
+    from vitgan_tpu.ops.policy import set_sequence_parallel
     from vitgan_tpu.parallel import make_mesh as jax_make_mesh
 
-    jcfg = JC.replace(JC.smoke_config(), **cfg_over)
+    family, over, mesh_over = W.CASES[case]
+    jcfg = JC.replace(JC.smoke_config(family),
+                      **{"runtime.compute_dtype": "float32", **over, **mesh_over})
+    mc = jcfg.mesh
+    mesh = jax_make_mesh(mc, devices=jax.devices()[:world])
     gan = jax_build_gan(jcfg)
-    mesh = jax_make_mesh(JC.MeshConfig(), devices=jax.devices()[:2])
+    if mc.pipeline_parallel > 1:
+        from vitgan_tpu.parallel.pipeline import pp_bundle
+
+        dp = mc.data_axis if mesh.shape[mc.data_axis] > 1 else None
+        auto = [mc.model_axis] if mesh.shape[mc.model_axis] > 1 else []
+        if mc.fsdp and dp:
+            auto, dp = auto + [dp], None
+        gan = pp_bundle(gan, jcfg, mesh=mesh, axis=mc.pipe_axis,
+                        microbatches=mc.pipeline_microbatches, dp_axis=dp,
+                        tp_axis=tuple(auto) or None)
     # the draws taken here equal the step's own under threefry2x32 (the JAX
     # package's apply_from_runtime may have left a process on rbg)
     prev = jax.config.jax_default_prng_impl
     jax.config.update("jax_default_prng_impl", "threefry2x32")
+    set_sequence_parallel(mesh if mc.context_parallel > 1 else None, mc.data_axis, mc.seq_axis)
     try:
         return _jax_steps(jcfg, gan, mesh)
     finally:
+        set_sequence_parallel(None)
         jax.config.update("jax_default_prng_impl", prev)
 
 
@@ -174,17 +200,26 @@ def _jax_steps(jcfg, gan, mesh):
     from vitgan_tpu.train.step import make_train_step
     from vitgan_tpu_torch.weights import from_jax_tree
 
-    st = shard_train_state(create_train_state(jax.random.PRNGKey(0), gan, jcfg), mesh)
-    inputs = {}
-    for net, tree in (("g", st.g_params), ("d", st.d_params)):
-        for k, v in from_jax_tree(jax.tree.map(np.asarray, tree)).items():
-            inputs[f"{net}/{k}"] = v.numpy()
-    step = make_train_step(gan, jcfg, donate=False)
+    mc = jcfg.mesh
+    st = shard_train_state(create_train_state(jax.random.PRNGKey(0), gan, jcfg), mesh,
+                           tensor_parallel=mc.model_parallel > 1, fsdp=mc.fsdp,
+                           fsdp_min_size=mc.fsdp_min_size, data_axis=mc.data_axis)
+
+    def flat(st, out):
+        for net in ("g", "d"):
+            tree = {"params": getattr(st, f"{net}_params"), "state": getattr(st, f"{net}_state")}
+            for k, v in from_jax_tree(jax.tree.map(np.asarray, tree)).items():
+                out[f"{net}/{k}"] = v.numpy()
+        return out
+
+    inputs = flat(st, {})
+    step = make_train_step(gan, jcfg, donate=False, state_shardings=jax.tree.map(
+        lambda x: x.sharding, st) if mc.fsdp else None)
     zs, metrics = [], []
     for i, real in enumerate(W.reals(jcfg)):
         (_, k_noise, _, _, _, _, k_gp, k_in, _, _, _) = jax.random.split(st.rng, 11)
         b = real.shape[0]
-        zs.append(np.array(jax.random.normal(k_noise, (b, jcfg.v2.latent_dim), jnp.float32)))
+        zs.append(np.array(gan.sample_latent(k_noise, b), np.float32))
         n1, n2 = jax.random.split(k_in)
         inputs[f"noise_real_{i}"] = np.array(jax.random.normal(n1, real.shape, jnp.float32))
         inputs[f"noise_fake_{i}"] = np.array(jax.random.normal(n2, real.shape, jnp.float32))
@@ -193,10 +228,7 @@ def _jax_steps(jcfg, gan, mesh):
         st, m = step(st, shard_batch(mesh, jnp.asarray(real)))
         metrics.append({k: float(v) for k, v in m.items()})
     inputs["z"] = np.stack(zs)
-    want = {f"metric/{k}": np.array([m[k] for m in metrics]) for k in metrics[-1]}
-    for net, tree in (("g", st.g_params), ("d", st.d_params)):
-        for k, v in from_jax_tree(jax.tree.map(np.asarray, tree)).items():
-            want[f"{net}/{k}"] = v.numpy()
+    want = flat(st, {f"metric/{k}": np.array([m[k] for m in metrics]) for k in metrics[-1]})
     mus = {}
     for net, opt in (("g", st.g_opt), ("d", st.d_opt)):
         adam = [s for s in jax.tree.leaves(opt, is_leaf=lambda s: isinstance(
@@ -205,25 +237,40 @@ def _jax_steps(jcfg, gan, mesh):
     return inputs, want, mus
 
 
-def test_data_parallel_step_equals_the_jax_mesh_step(tmp_path):
-    case = "dp_v2_plain"
-    cfg = W.case_config(case)
-    _, over, _ = W.CASES[case]
-    inputs, want, mus = _jax_mesh_steps({"runtime.compute_dtype": "float32", **over})
+def held_to_the_jax_mesh_step(tmp_path, case: str, world: int = 2, **close_kw) -> list:
+    """The case on ``world`` gloo ranks from the JAX step's parameters and
+    draws, against the JAX step on a mesh of as many devices: every rank
+    alike, the state and metrics at :func:`close`'s bounds, Adam's first
+    moments at tests/test_torch_v2_train.py's (rtol and atol 1e-5)."""
+    inputs, want, mus = _jax_mesh_steps(case, world)
     np.savez(tmp_path / "inputs.npz", **inputs)
-    outs = launch(tmp_path, case, 2, inputs=str(tmp_path / "inputs.npz"))
+    outs = launch(tmp_path, case, world, inputs=str(tmp_path / "inputs.npz"))
     same_on_every_rank(outs)
-    close(outs[0], want, cfg)
+    cfg = W.case_config(case)
+    close(outs[0], want, cfg, **close_kw)
     from vitgan_tpu_torch.models import build_gan
 
     gan = build_gan(cfg)
     for net, module in (("g", gan.generator_init(None, device="meta")),
                         ("d", gan.discriminator_init(None, device="meta"))):
         for i, (name, _) in enumerate(module.named_parameters()):
-            # tests/test_torch_v2_train.py's bound for the port against the JAX step
             np.testing.assert_allclose(outs[0][f"{net}_opt/{i}/exp_avg"],
                                        mus[net][name].numpy(), rtol=1e-5, atol=1e-5,
                                        err_msg=name)
+    return outs
+
+
+def test_data_parallel_step_equals_the_jax_mesh_step(tmp_path):
+    held_to_the_jax_mesh_step(tmp_path, "dp_v2_plain")
+
+
+def test_minibatch_std_step_equals_the_jax_mesh_step(tmp_path):
+    """v2.minibatch_std under a data axis of 2: the D head's CLS features
+    gathered over the data group, put in the global [real; fake] order, the
+    feature taken over the global batch's groups and this rank's rows kept,
+    against the JAX package's step on its 2-device mesh (dropout 0, the JAX
+    step's own draws), at the bounds of the DP test above."""
+    held_to_the_jax_mesh_step(tmp_path, "dp_mbstd_v2")
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,51 @@ CASES = {
     "tp_v2": ("v2", {"v2.dropout": 0.1}, {"mesh.model_parallel": 2}),
     "fsdp_tp_v2": ("v2", {"v2.dropout": 0.1}, {"mesh.model_parallel": 2, "mesh.fsdp": True,
                                                "mesh.fsdp_min_size": 256}),
+    # v2's minibatch-std feature over the data axis, against the JAX mesh step
+    "dp_mbstd_v2": ("v2", {"v2.loss": "wgan-gp", "v2.diversity_weight": 0.5, "v2.dropout": 0.0,
+                           "v2.minibatch_std": True}, {}),
+    # pipeline parallelism: stages x microbatches, alone and composed
+    "pp_v2_plain": ("v2", {"v2.loss": "wgan-gp", "v2.diversity_weight": 0.5, "v2.dropout": 0.0},
+                    {"mesh.pipeline_parallel": 2}),
+    "rep4_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16}, {}),
+    "pp_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16},
+              {"mesh.pipeline_parallel": 2}),
+    "pp4_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16},
+               {"mesh.pipeline_parallel": 4, "mesh.pipeline_microbatches": 4}),
+    "pp_dp_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16},
+                 {"mesh.pipeline_parallel": 2}),
+    "pp_tp_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16},
+                 {"mesh.pipeline_parallel": 2, "mesh.model_parallel": 2}),
+    "pp_fsdp_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16},
+                   {"mesh.pipeline_parallel": 2, "mesh.fsdp": True, "mesh.fsdp_min_size": 256}),
+    "fsdp_tp_pp_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16},
+                      {"mesh.pipeline_parallel": 2, "mesh.model_parallel": 2, "mesh.fsdp": True,
+                       "mesh.fsdp_min_size": 256}),
+    "pp_v1": ("v1", {"v1.generator.depth": 4, "v1.discriminator.depth": 4},
+              {"mesh.pipeline_parallel": 2}),
+    "rep_v1": ("v1", {"v1.generator.depth": 4, "v1.discriminator.depth": 4}, {}),
+    "pp_r1_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16,
+                        "v2.r1_gamma": 1.0, "v2.r1_interval": 1},
+                 {"mesh.pipeline_parallel": 4, "mesh.pipeline_microbatches": 4}),
+    "rep_r1_v2": ("v2", {"v2.dropout": 0.1, "v2.depth": 4, "v2.batch_size": 16,
+                         "v2.r1_gamma": 1.0, "v2.r1_interval": 1}, {}),
+    # sequence parallelism over the v2 stacks' tokens (D's 65 over 2 ranks: uneven)
+    "sp_v2": ("v2", {"v2.dropout": 0.1}, {"mesh.context_parallel": 2}),
+    "sp_tp_v2": ("v2", {"v2.dropout": 0.1}, {"mesh.context_parallel": 2,
+                                             "mesh.model_parallel": 2}),
+    "sp_fsdp_v2": ("v2", {"v2.dropout": 0.1}, {"mesh.context_parallel": 2, "mesh.fsdp": True,
+                                               "mesh.fsdp_min_size": 256}),
 }
+# Each case of the pipelined or sequence-parallel layouts again at dropout 0,
+# held against the JAX package's step on the same mesh from its parameters
+# and its own draws (the dropout streams of the two packages differ)
+NO_DROPOUT = {"v2": {"v2.dropout": 0.0},
+              "v1": {f"v1.{net}.transformer.{k}": 0.0 for net in ("generator", "discriminator")
+                     for k in ("attn_dropout", "mlp_dropout")}}
+for _name in ("pp4_v2", "pp_dp_v2", "pp_tp_v2", "pp_fsdp_v2", "fsdp_tp_pp_v2", "pp_v1", "pp_r1_v2",
+              "sp_v2", "sp_tp_v2", "sp_fsdp_v2"):
+    _family, _over, _mesh = CASES[_name]
+    CASES[f"{_name}_plain"] = (_family, {**_over, **NO_DROPOUT[_family]}, _mesh)
 STEPS = 2
 
 
@@ -81,7 +125,8 @@ def run_steps(cfg, mesh=None, z=None, draws=None, init=None, one_way=False):
     """STEPS train steps from the case's state: (state, metrics of each
     step).  ``z`` (steps, B, latent) and ``draws`` (a list of dicts) are
     global; under a mesh each rank takes its rows.  ``init`` ({'g/<name>',
-    'd/<name>'} arrays) replaces the initial parameters; ``one_way`` places
+    'd/<name>'} arrays) replaces the initial parameters and the buffers it
+    names; ``one_way`` places
     the state on axes of one rank too (parallel/sharding.py)."""
     from vitgan_tpu_torch.models import build_gan
     from vitgan_tpu_torch.parallel.mesh import shard_batch
@@ -90,12 +135,22 @@ def run_steps(cfg, mesh=None, z=None, draws=None, init=None, one_way=False):
     from vitgan_tpu_torch.train.step import make_train_step
 
     gan = build_gan(cfg)
+    if mesh is not None and mesh.pipe_axis is not None:
+        from vitgan_tpu_torch.parallel.pipeline import pp_bundle
+
+        gan = pp_bundle(gan, cfg, mesh=mesh, microbatches=cfg.mesh.pipeline_microbatches)
+    from vitgan_tpu_torch.ops.policy import set_sequence_parallel
+
+    set_sequence_parallel(mesh if mesh is not None and mesh.n_seq > 1 else None, "data", "seq")
     state = create_train_state(gan, cfg, device="cpu")
     if init is not None:
         with torch.no_grad():
             for net in ("g", "d"):
                 for name, p in getattr(state, net).named_parameters():
                     p.copy_(torch.from_numpy(init[f"{net}/{name}"]))
+                for name, b in getattr(state, net).named_buffers():
+                    if f"{net}/{name}" in init:  # the v1 ISR state
+                        b.copy_(torch.from_numpy(init[f"{net}/{name}"]))
     cut = (lambda x: x) if mesh is None else (lambda x: shard_batch(mesh, x))
     if mesh is not None and one_way:
         place_train_state(state, mesh, {
@@ -118,6 +173,89 @@ def run_steps(cfg, mesh=None, z=None, draws=None, init=None, one_way=False):
     return state, metrics
 
 
+class ToyBlock(torch.nn.Module):
+    """h -> tanh(h w + b) + h (tests/test_pipeline_parallel.py's toy block)."""
+
+    def __init__(self, w: np.ndarray, b: np.ndarray):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.from_numpy(w))
+        self.b = torch.nn.Parameter(torch.from_numpy(b))
+
+
+def toy_block(blk, h):
+    return torch.tanh(h @ blk.w + blk.b) + h
+
+
+def toy_inputs(depth: int, batch: int = 8, tok: int = 6, dim: int = 16):
+    """Seeded toy blocks' (w, b), the input and a cotangent."""
+    rng = np.random.default_rng(7)
+    blocks = [(0.5 * rng.standard_normal((dim, dim)).astype(np.float32),
+               0.01 * np.arange(dim, dtype=np.float32)) for _ in range(depth)]
+    x = rng.standard_normal((batch, tok, dim)).astype(np.float32)
+    cot = rng.standard_normal((batch, tok, dim)).astype(np.float32)
+    return blocks, x, cot
+
+
+def toy_grads(blocks, x, cot, run, second: bool) -> dict:
+    """run(blocks, x) -> out: the output, and the gradients of sum(out * cot)
+    (or, ``second``, of the squared norm of its input gradient, a double
+    backward) with respect to the input and the blocks that hold storage."""
+    mods = torch.nn.ModuleList(ToyBlock(w, b) for w, b in blocks)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = run(mods, xt)
+    loss = (out * torch.from_numpy(cot)).sum()
+    if second:
+        (g,) = torch.autograd.grad(loss, xt, create_graph=True)
+        loss = (g * g).sum()
+    leaves = [xt] + [p for m in mods for p in (m.w, m.b)]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    res = {"out": out.detach().numpy(), "dx": grads[0].numpy()}
+    for i in range(len(blocks)):
+        for k, g in zip(("w", "b"), grads[1 + 2 * i:3 + 2 * i]):
+            if g is not None:
+                res[f"d{k}/{i}"] = g.numpy()
+    return res
+
+
+def run_toy(spec: dict, mesh) -> dict:
+    """The toy stack through pipeline_blocks on this rank's stage."""
+    from vitgan_tpu_torch.parallel.pipeline import pipeline_blocks
+
+    blocks, x, cot = toy_inputs(spec["depth"])
+
+    def run(mods, xt):
+        return pipeline_blocks(mods, xt, mesh=mesh, microbatches=spec["microbatches"],
+                               block_fn=lambda i, blk, h, j: toy_block(blk, h))
+
+    return toy_grads(blocks, x, cot, run, spec.get("second", False))
+
+
+def cp_inputs(mode_seed: int = 0, shape=(2, 2, 64, 16)):
+    """Seeded (q, k, v) for the context-parallel attentions."""
+    rng = np.random.default_rng(mode_seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def run_cp(spec: dict, mesh) -> dict:
+    """cp_attention and ring_cp_attention over the model axis on this rank's
+    token shards: each output shard and the gradients of sum(out ** 2) with
+    respect to the q, k, v shards, per score mode."""
+    from vitgan_tpu_torch.parallel.context_parallel import (cp_attention, ring_cp_attention,
+                                                            shard_sequence)
+
+    out = {}
+    for mode in spec["modes"]:
+        for name, fn in (("gather", cp_attention), ("ring", ring_cp_attention)):
+            qkv = [shard_sequence(torch.from_numpy(t), mesh, "model").requires_grad_()
+                   for t in cp_inputs()]
+            o = fn(*qkv, mesh, axis="model", score_mode=mode, scale=16.0)
+            grads = torch.autograd.grad((o * o).sum(), qkv)
+            out[f"{name}/{mode}/out"] = o.detach().numpy()
+            for k, g in zip("qkv", grads):
+                out[f"{name}/{mode}/d{k}"] = g.numpy()
+    return out
+
+
 def main(spec_path: str) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
@@ -127,18 +265,33 @@ def main(spec_path: str) -> None:
                             world_size=world)
     from vitgan_tpu_torch.parallel.mesh import make_mesh
 
+    if spec["case"] in ("toy", "cp"):
+        if spec["case"] == "toy":
+            out = run_toy(spec["toy"], make_mesh(C.MeshConfig(pipeline_parallel=world)))
+        else:
+            out = run_cp(spec["cp"], make_mesh(C.MeshConfig(model_parallel=world)))
+        np.savez(f"{spec['out']}.rank{rank}.npz", **out)
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     cfg = case_config(spec["case"])
     mesh = make_mesh(cfg.mesh)
     out = {}
     if spec.get("fit"):
         from vitgan_tpu_torch.train.trainer import Trainer
 
-        cfg = C.replace(cfg, **{"run.fid_every_epochs": 0, "run.sample_grid_every_epochs": 0,
+        fid = bool(spec.get("fid"))
+        cfg = C.replace(cfg, **{"run.fid_every_epochs": int(fid),
+                                "run.sample_grid_every_epochs": int(fid),
+                                "run.fid_num_samples": 16,
                                 "run.steps_per_epoch": 2, "data.synthetic_samples": 64})
-        trainer = Trainer(cfg, run_dir=spec["run_dir"], device="cpu", mesh=mesh)
+        trainer = Trainer(cfg, run_dir=spec["run_dir"], device="cpu", mesh=mesh,
+                          fid_extractor="random_conv")
         means = trainer.fit(epochs=1)
         sd = trainer.state.state_dict()
         out["metric/d_loss"] = np.float64(means["d_loss"])
+        if fid:
+            out["metric/fid"] = np.float64(means["fid"])
     else:
         extra = {"one_way": bool(spec.get("one_way"))}
         if spec.get("inputs"):
@@ -156,6 +309,11 @@ def main(spec_path: str) -> None:
                                   for opt in (state.g_opt, state.d_opt)])
         out["moment_numel"] = np.array([sum(s["exp_avg"].numel() for s in opt.opt.state.values())
                                         for opt in (state.g_opt, state.d_opt)])
+        # the blocks whose parameters this rank holds (a pipe stage's own)
+        for net in ("g", "d"):
+            held = sorted({int(k.split(".")[1]) for k, p in getattr(state, net)
+                           .named_parameters() if k.startswith("blocks.") and p.numel()})
+            out[f"held_blocks/{net}"] = np.array(held)
     out.update(flat_state(sd))
     np.savez(f"{spec['out']}.rank{rank}.npz", **out)
     dist.barrier()

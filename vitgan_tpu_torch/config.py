@@ -201,10 +201,11 @@ class MLPGANConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The device mesh (vitgan_tpu/config.py:294-324): ``data`` is the DP axis,
-    ``model`` the TP axis (parallel/mesh.py, parallel/sharding.py).  The port
-    runs one process per device.  ``pipeline_parallel`` and
-    ``context_parallel`` above 1 are carried for the schema and raise in
-    ``parallel/mesh.make_mesh`` (ROADMAP.md queue 1 item 9)."""
+    ``model`` the TP axis (parallel/mesh.py, parallel/sharding.py), ``pipe``
+    the GPipe stages of the ViT block stacks with ``pipeline_microbatches``
+    microbatches a step (parallel/pipeline.py), ``seq`` the v2 stacks' token
+    axis (parallel/context_parallel.py); pipe and seq do not compose.  The
+    port runs one process per device."""
 
     data_axis: str = "data"
     model_axis: str = "model"

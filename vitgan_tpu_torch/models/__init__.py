@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -39,6 +39,9 @@ class GANBundle:
     # depends on the weights alone), so each scores the concatenated
     # [real; fake] batch in one forward.  Read from the discriminator itself.
     d_has_batch_stats: bool = False
+    # {'g': runner, 'd': runner} that the built modules run their block
+    # stacks through (parallel/pipeline.pp_bundle); None for the sequential loop
+    blocks_runners: Optional[dict] = field(default=None, compare=False, hash=False)
 
     @property
     def d_has_state(self) -> bool:
@@ -50,10 +53,15 @@ class GANBundle:
         return importlib.import_module(f"vitgan_tpu_torch.models.{_FAMILIES[self.family]}")
 
     def generator_init(self, generator: Optional[torch.Generator], device="cuda"):
-        return self._module().Generator(self.cfg, generator, device=device)
+        return self._runs("g", self._module().Generator(self.cfg, generator, device=device))
 
     def discriminator_init(self, generator: Optional[torch.Generator], device="cuda"):
-        return self._module().Discriminator(self.cfg, generator, device=device)
+        return self._runs("d", self._module().Discriminator(self.cfg, generator, device=device))
+
+    def _runs(self, net: str, module):
+        if self.blocks_runners is not None:
+            module.blocks_runner = self.blocks_runners[net]
+        return module
 
     def generator_apply(self, g, z: torch.Tensor, train: bool = False,
                         generator: Optional[torch.Generator] = None,

@@ -151,16 +151,27 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x: torch.Tensor, activation: str = "gelu", dropout_rate: float = 0.0,
-        train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        train: bool = False, generator: Optional[torch.Generator] = None,
+        masks=None) -> torch.Tensor:
     """Dropout after every linear, the activation between all but the last
-    (layers.py:147-160)."""
+    (layers.py:147-160).  ``masks`` (:func:`mlp_masks`) replaces the draws."""
     act = pick_activation(activation)
+    if masks is None:
+        masks = mlp_masks(p, x, dropout_rate, train, generator)
     n = len(p.layers)
     for i, layer in enumerate(p.layers):
-        x = dropout(dense(layer, x), dropout_rate, train, generator)
+        x = apply_dropout(dense(layer, x), masks[i], dropout_rate)
         if i != n - 1:
             x = act(x)
     return x
+
+
+def mlp_masks(p: MLP, x: torch.Tensor, dropout_rate: float, train: bool,
+              generator: Optional[torch.Generator] = None) -> list:
+    """The keep masks :func:`mlp` would draw for ``x``, in its order."""
+    lead = tuple(x.shape[:-1])
+    return [dropout_mask(x.new_empty(()).expand(*lead, layer.w.shape[1]), dropout_rate, train,
+                         generator) for layer in p.layers]
 
 
 class SLN(nn.Module):
@@ -258,11 +269,12 @@ class MHSA(nn.Module):
 
 
 def mhsa(p, x: torch.Tensor, *, score_mode: str = "dot", scale: Optional[float] = None,
-         update_state: bool = False) -> torch.Tensor:
+         update_state: bool = False, kv=None) -> torch.Tensor:
     """Fused multi-head self-attention, x (B, N, E) -> (B, N, E) (layers.py:293-340).
     ``scale`` defaults to H*Dh; the v2 family passes Dh.  With ISR state the
     qkv weights are spectrally rescaled first, u refreshed where
-    ``update_state``."""
+    ``update_state``.  ``kv`` maps K and V before the attention (sequence
+    parallelism gathers every rank's tokens, parallel/context_parallel.py)."""
     qkv_w = p.qkv
     if p.isr is not None:
         qkv_w = spectral_rescale(qkv_w, p.isr, update_state)
@@ -272,7 +284,9 @@ def mhsa(p, x: torch.Tensor, *, score_mode: str = "dot", scale: Optional[float] 
     qkv = torch.einsum("bnd,phde->pbhne", x, qkv_w.to(x.dtype))
     if p.qkv_b is not None:
         qkv = qkv + p.qkv_b.to(x.dtype)[:, None, :, None, :]
-    out = dispatch_attention(qkv[0].contiguous(), qkv[1].contiguous(), qkv[2].contiguous(),
-                             score_mode, float(scale))
+    k, v = qkv[1].contiguous(), qkv[2].contiguous()
+    if kv is not None:
+        k, v = kv(k), kv(v)
+    out = dispatch_attention(qkv[0].contiguous(), k, v, score_mode, float(scale))
     out = out.transpose(1, 2).reshape(*x.shape[:-1], num_heads * head_dim)
     return dense(p.out, out)

@@ -45,24 +45,34 @@ class SLNBlock(nn.Module):
         self.mlp = L.MLP(features, features, cfg.mlp_hidden, generator)
 
 
-def transformer_block(p: Block, x: torch.Tensor, cfg, *, score_mode: str, train: bool,
-                      generator: Optional[torch.Generator], update_state: bool) -> torch.Tensor:
-    """x + drop(MSHA(LN1 x)); then + MLP(LN2 x) (vitgan_v1.py:68-77)."""
+def transformer_block(p: Block, x: torch.Tensor, cfg, *, score_mode: str, masks: list,
+                      update_state: bool = False) -> torch.Tensor:
+    """x + drop(MSHA(LN1 x)); then + MLP(LN2 x) (vitgan_v1.py:68-77), with
+    the block's draws ``masks`` (:func:`block_masks`)."""
     a = L.mhsa(p.msha, L.layer_norm(p.ln1, x), score_mode=score_mode,
                update_state=update_state)
-    x = x + L.dropout(a, cfg.attn_dropout, train, generator)
-    return x + L.mlp(p.mlp, L.layer_norm(p.ln2, x), cfg.mlp_activation, cfg.mlp_dropout, train,
-                     generator)
+    x = x + L.apply_dropout(a, masks[0], cfg.attn_dropout)
+    return x + L.mlp(p.mlp, L.layer_norm(p.ln2, x), cfg.mlp_activation, cfg.mlp_dropout,
+                     masks=masks[1:])
 
 
-def sln_transformer_block(p: SLNBlock, h: torch.Tensor, w: torch.Tensor, cfg, *, train: bool,
-                          generator: Optional[torch.Generator]) -> torch.Tensor:
+def block_masks(p, x: torch.Tensor, cfg, train: bool,
+                generator: Optional[torch.Generator] = None) -> list:
+    """The keep masks a block (either kind) draws for ``x``, in its order:
+    the attention output's, then the MLP's layers'."""
+    return [L.dropout_mask(x, cfg.attn_dropout, train, generator),
+            *L.mlp_masks(p.mlp, x, cfg.mlp_dropout, train, generator)]
+
+
+def sln_transformer_block(p: SLNBlock, h: torch.Tensor, w: torch.Tensor, cfg, *,
+                          masks: list) -> torch.Tensor:
     """htmp = drop(MSHA(SLN(h, w))) + h; MLP(SLN(htmp, w)) + htmp
-    (vitgan_v1.py:80-90)."""
+    (vitgan_v1.py:80-90), with the block's draws ``masks``
+    (:func:`block_masks`)."""
     a = L.mhsa(p.msha, L.sln(p.sln1, h, w), score_mode="dot")
-    htmp = L.dropout(a, cfg.attn_dropout, train, generator) + h
-    return L.mlp(p.mlp, L.sln(p.sln2, htmp, w), cfg.mlp_activation, cfg.mlp_dropout, train,
-                 generator) + htmp
+    htmp = L.apply_dropout(a, masks[0], cfg.attn_dropout) + h
+    return L.mlp(p.mlp, L.sln(p.sln2, htmp, w), cfg.mlp_activation, cfg.mlp_dropout,
+                 masks=masks[1:]) + htmp
 
 
 class Generator(nn.Module):
@@ -82,6 +92,7 @@ class Generator(nn.Module):
         self.embedding = nn.Parameter(L.normal((n_tokens, g.hidden_size), generator))
         self.blocks = nn.ModuleList(SLNBlock(g.hidden_size, g.transformer, generator)
                                     for _ in range(g.depth))
+        self.blocks_runner = None  # the stack's runner (parallel/pipeline.pp_bundle)
         self.sln = L.SLN(g.hidden_size, generator)
         self.siren1 = L.Siren(g.hidden_size, g.siren_hidden, True, g.siren.omega_0, generator)
         self.siren2 = L.Siren(g.siren_hidden, cfg.channels * cfg.image_size, False,
@@ -96,9 +107,12 @@ class Generator(nn.Module):
         g = cfg.generator
         w = L.mlp(self.mapping, z).reshape(-1, cfg.image_size, g.hidden_size)
         h = self.embedding.to(w.dtype).expand(w.shape)
-        for block in self.blocks:
-            h = sln_transformer_block(block, h, w, g.transformer, train=train,
-                                      generator=generator)
+        if self.blocks_runner is not None:  # the JAX `blocks_runner`, vitgan_v1.py:120-134
+            h = self.blocks_runner(self.blocks, (h, w), train, generator)
+        else:
+            for block in self.blocks:
+                h = sln_transformer_block(block, h, w, g.transformer, masks=block_masks(
+                    block, h, g.transformer, train, generator))
         y = L.siren(self.siren1, L.sln(self.sln, h, w), g.siren.omega_0)
         y = L.siren(self.siren2, y, g.siren.omega_0)
         return y.reshape(-1, cfg.image_size, cfg.image_size, cfg.channels)
@@ -143,6 +157,7 @@ class Discriminator(nn.Module):
         self.pos = nn.Parameter(L.normal((per_side * per_side + 1, e), generator))
         self.blocks = nn.ModuleList(Block(e, d.transformer, d.spectral_rescale, generator)
                                     for _ in range(d.depth))
+        self.blocks_runner = None  # the stack's runner (parallel/pipeline.pp_bundle)
         self.head = L.Linear(e, 1, generator)
         self.to(device)
 
@@ -157,7 +172,10 @@ class Discriminator(nn.Module):
         cls = self.cls.to(tokens.dtype).expand(tokens.shape[0], 1, tokens.shape[-1])
         x = torch.cat([cls, tokens], dim=1) + self.pos.to(tokens.dtype)
         x = L.dropout(x, d.embed_dropout, train, generator)
-        for block in self.blocks:
-            x = transformer_block(block, x, d.transformer, score_mode="l2", train=train,
-                                  generator=generator, update_state=update_state)
+        if self.blocks_runner is not None:  # the JAX `blocks_runner`, vitgan_v1.py:207-226
+            x = self.blocks_runner(self.blocks, x, train, generator, update_state)
+        else:
+            for block in self.blocks:
+                x = transformer_block(block, x, d.transformer, score_mode="l2", masks=block_masks(
+                    block, x, d.transformer, train, generator), update_state=update_state)
         return L.dense(self.head, x[:, 0, :])[:, 0]

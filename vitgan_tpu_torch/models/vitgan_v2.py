@@ -10,6 +10,7 @@ are the JAX tree's.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -49,17 +50,87 @@ class EncoderBlock(nn.Module):
         self.fc2 = L.Dense(hidden, cfg.embed_dim, generator)
 
 
-def _standard_block(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, m1, m2) -> torch.Tensor:
+def _standard_block(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, m1, m2,
+                    seq_len: Optional[int] = None) -> torch.Tensor:
     """The block on the standard path with its dropout keep masks (None: no
-    dropout)."""
+    dropout).  ``seq_len``: ``x`` holds this seq rank's tokens of a sequence
+    of that length, and attention gathers K/V over the seq group."""
     from vitgan_tpu_torch.ops.fused_mlp import dispatch_ln_mlp
 
     head_dim = cfg.embed_dim // cfg.num_heads
-    a = L.mhsa(p.msha, L.layer_norm(p.ln1, x), score_mode="dot", scale=head_dim)
+    kv = None
+    if seq_len is not None:
+        from vitgan_tpu_torch.ops.policy import sequence_parallel_mesh
+        from vitgan_tpu_torch.parallel.context_parallel import gather_kv
+
+        mesh = sequence_parallel_mesh()
+        kv = lambda t: gather_kv(t, mesh, seq_len)  # noqa: E731
+    a = L.mhsa(p.msha, L.layer_norm(p.ln1, x), score_mode="dot", scale=head_dim, kv=kv)
     x = x + L.apply_dropout(a, m1, cfg.dropout)
     mlp_out = dispatch_ln_mlp(x, p.ln2.scale, p.ln2.bias, p.fc1.w, p.fc1.b, p.fc2.w, p.fc2.b,
                               activation="gelu", residual=False)
     return x + L.apply_dropout(mlp_out, m2, cfg.dropout)
+
+
+@dataclass
+class BlockDraws:
+    """A block's randomness, drawn before it in the order the block would
+    draw it: the route (the megablock variant, or None for the standard
+    path), the megablock's Philox seed, or the standard path's dropout keep
+    masks (None: no dropout)."""
+
+    route: Optional[str]
+    seed: Optional[torch.Tensor] = None
+    m1: Optional[torch.Tensor] = None
+    m2: Optional[torch.Tensor] = None
+
+    def take(self, rows: slice = slice(None), tokens: slice = slice(None)) -> "BlockDraws":
+        """The masks' rows and tokens a microbatch or a seq rank runs."""
+        cut = lambda m: None if m is None else m[rows, tokens]  # noqa: E731
+        return BlockDraws(self.route, self.seed, cut(self.m1), cut(self.m2))
+
+
+def block_draws(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, train: bool,
+                generator: Optional[torch.Generator] = None, shape=None) -> BlockDraws:
+    """Route ``x`` through the megablock gate (ops/fused_block.megablock_route)
+    and draw the block's randomness from ``generator``: the seed of a
+    dropout route, else the two dropout masks, at ``shape`` (default x's)."""
+    from vitgan_tpu_torch.ops.fused_block import megablock_route, new_seed
+
+    route = megablock_route(p, x, cfg, train, generator is not None)
+    if route is not None:
+        return BlockDraws(route, new_seed(generator, x) if train and "dropout" in route else None)
+    like = x if shape is None else x.new_empty(()).expand(shape)
+    return BlockDraws(None, m1=L.dropout_mask(like, cfg.dropout, train, generator),
+                      m2=L.dropout_mask(like, cfg.dropout, train, generator))
+
+
+def encoder_apply_drawn(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, train: bool,
+                        d: BlockDraws, first: int = 0, total: Optional[int] = None,
+                        seq_len: Optional[int] = None):
+    """The block on its drawn route and randomness (:func:`encoder_apply`).
+    ``x`` may be rows ``first``.. of a local batch of ``total`` (a pipeline
+    microbatch): the masks take those rows, and the megablock's in-kernel
+    dropout keys its bits by them (ops/draws.microbatch); or this seq rank's
+    tokens of a sequence of ``seq_len`` (:func:`run_blocks`)."""
+    from vitgan_tpu_torch.models.remat import remat_block
+    from vitgan_tpu_torch.ops import draws
+    from vitgan_tpu_torch.ops.fused_block import fused_encoder_block, megablock_apply
+
+    total = x.shape[0] if total is None else total
+    if d.route is not None:
+        if not train:
+            return fused_encoder_block(x, p, num_heads=cfg.num_heads)
+
+        def block(x, seed):
+            with draws.microbatch(first, total):
+                return megablock_apply(d.route, p, x, cfg, seed)
+
+        return remat_block(block, x, d.seed)
+    if total != x.shape[0]:
+        d = d.take(rows=slice(first, first + x.shape[0]))
+    return remat_block(lambda x, m1, m2: _standard_block(p, x, cfg, m1, m2, seq_len),
+                       x, d.m1, d.m2)
 
 
 def encoder_apply(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, train: bool = False,
@@ -70,19 +141,38 @@ def encoder_apply(p: EncoderBlock, x: torch.Tensor, cfg: V2Config, train: bool =
     vitgan_v2.py:182-197).  The block's randomness, its two dropout masks or
     the megablock's seed, is drawn before it, in the order the block would
     draw it, so that a re-run for the backward replays it."""
-    from vitgan_tpu_torch.models.remat import remat_block
-    from vitgan_tpu_torch.ops.fused_block import (fused_encoder_block, megablock_apply,
-                                                  megablock_route, new_seed)
+    return encoder_apply_drawn(p, x, cfg, train, block_draws(p, x, cfg, train, generator))
 
-    route = megablock_route(p, x, cfg, train, generator is not None)
-    if route is not None:
-        if not train:
-            return fused_encoder_block(x, p, num_heads=cfg.num_heads)
-        seed = new_seed(generator, x) if "dropout" in route else None
-        return remat_block(lambda x, seed: megablock_apply(route, p, x, cfg, seed), x, seed)
-    m1 = L.dropout_mask(x, cfg.dropout, train, generator)
-    m2 = L.dropout_mask(x, cfg.dropout, train, generator)
-    return remat_block(lambda x, m1, m2: _standard_block(p, x, cfg, m1, m2), x, m1, m2)
+
+def run_blocks(blocks, x: torch.Tensor, cfg: V2Config, train: bool = False,
+               generator: Optional[torch.Generator] = None, blocks_runner=None):
+    """The encoder stack (the JAX `_run_blocks`, vitgan_v2.py:181-197): the
+    sequential loop, or a pluggable ``blocks_runner(blocks, x, train,
+    generator)`` (parallel/pipeline.py installs the GPipe schedule).  Under
+    sequence parallelism (ops/policy.set_sequence_parallel) each seq rank
+    runs its tokens: the stack's entry keeps this rank's slice, attention
+    gathers K/V over the seq group (models/layers.mhsa), LN and MLP stay
+    token-local, and the exit gathers the tokens; each block's masks are
+    drawn at the whole sequence and sliced, so that they are the unsharded
+    run's."""
+    if blocks_runner is not None:
+        return blocks_runner(blocks, x, train, generator)
+    from vitgan_tpu_torch.ops.policy import sequence_constraint, sequence_parallel_mesh
+
+    mesh = sequence_parallel_mesh()
+    if mesh is None:
+        for p in blocks:
+            x = encoder_apply(p, x, cfg, train, generator)
+        return x
+    from vitgan_tpu_torch.parallel.context_parallel import gather_sequence, token_slice
+
+    shape = tuple(x.shape)
+    tokens = token_slice(shape[1], mesh)
+    x = sequence_constraint(x)
+    for p in blocks:
+        d = block_draws(p, x, cfg, train, generator, shape=shape)
+        x = encoder_apply_drawn(p, x, cfg, train, d.take(tokens=tokens), seq_len=shape[1])
+    return gather_sequence(x, mesh, shape[1])
 
 
 class Generator(nn.Module):
@@ -101,6 +191,7 @@ class Generator(nn.Module):
         self.mapping = L.Dense(cfg.latent_dim, n_patches * cfg.embed_dim, generator)
         self.pos = nn.Parameter(L.trunc_normal((n_patches, cfg.embed_dim), 0.02, 2.0, generator))
         self.blocks = nn.ModuleList(EncoderBlock(cfg, generator) for _ in range(cfg.depth))
+        self.blocks_runner = None  # the stack's runner (parallel/pipeline.pp_bundle)
         self.ln = L.LayerNorm(cfg.embed_dim)
         self.to_pixels = L.Dense(cfg.embed_dim, patch_dim, generator)
         self.to(device)
@@ -112,8 +203,7 @@ class Generator(nn.Module):
         n_patches = (cfg.image_size // cfg.patch_size) ** 2
         x = L.dense(self.mapping, z).reshape(-1, n_patches, cfg.embed_dim)
         x = x + self.pos.to(x.dtype)
-        for block in self.blocks:
-            x = encoder_apply(block, x, cfg, train, generator)
+        x = run_blocks(self.blocks, x, cfg, train, generator, self.blocks_runner)
         x = L.layer_norm(self.ln, x)
         pix = torch.tanh(L.dense(self.to_pixels, x))
         return unpatchify(pix, cfg.patch_size, cfg.image_size, cfg.channels)
@@ -135,6 +225,7 @@ class Discriminator(nn.Module):
         self.pos = nn.Parameter(L.trunc_normal((n_patches, cfg.embed_dim), 0.02, 2.0, generator))
         self.cls = nn.Parameter(L.trunc_normal((1, 1, cfg.embed_dim), 0.02, 2.0, generator))
         self.blocks = nn.ModuleList(EncoderBlock(cfg, generator) for _ in range(cfg.depth))
+        self.blocks_runner = None  # the stack's runner (parallel/pipeline.pp_bundle)
         self.ln = L.LayerNorm(cfg.embed_dim)
         self.head_fc1 = L.Dense(cfg.embed_dim + head_extra, cfg.embed_dim, generator)
         self.head_fc2 = L.Dense(cfg.embed_dim, 1, generator)
@@ -151,7 +242,27 @@ class Discriminator(nn.Module):
 def minibatch_std_feature(feats: torch.Tensor, group_size: int = 8) -> torch.Tensor:
     """Per-group batch-std scalar, (B, E) -> (B, 1) (vitgan_v2.py:153-178).
     The group size divides the half batch, so that no group straddles the
-    [real; fake] boundary of the concatenated D forward."""
+    [real; fake] boundary of the concatenated D forward.  Inside a train
+    step under a data axis above 1 (ops/draws.global_rows) the groups are
+    the global batch's, as the JAX step's are: the rows are gathered over
+    the data group (differentiably), put in the global order (a local batch
+    of k blocks, D's [real_l; fake_l], is rows of k blocks of the global
+    batch), and this rank's rows of the feature are kept."""
+    from vitgan_tpu_torch.ops import draws
+    from vitgan_tpu_torch.parallel.mesh import gather_rows
+
+    rows = draws.current()
+    if rows is not None and not rows.identity:
+        k = feats.shape[0] // rows.local
+        n = rows.global_ // rows.local
+        every = gather_rows(feats, rows)  # (n ranks x k blocks x local, E), rank-major
+        order = every.reshape(n, k, rows.local, -1).transpose(0, 1).reshape(k * rows.global_, -1)
+        return _group_std(order, group_size).index_select(
+            0, draws.row_index(rows, feats.shape[0], feats.device))
+    return _group_std(feats, group_size)
+
+
+def _group_std(feats: torch.Tensor, group_size: int) -> torch.Tensor:
     b = feats.shape[0]
     half = b // 2 if b % 2 == 0 else b
     g = max(1, min(group_size, half))
@@ -172,8 +283,7 @@ def vit_encode(d: Discriminator, images: torch.Tensor, cfg: V2Config, train: boo
     cls = d.cls.to(x.dtype).expand(x.shape[0], 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1)
     x = L.dropout(x, cfg.dropout, train, generator)
-    for block in d.blocks:
-        x = encoder_apply(block, x, cfg, train, generator)
+    x = run_blocks(d.blocks, x, cfg, train, generator, d.blocks_runner)
     return L.layer_norm(d.ln, x)
 
 

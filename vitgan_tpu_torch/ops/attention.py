@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vitgan_tpu_torch.ops import build
-from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda
+from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, sequence_parallel_active
 
 MAX_HEAD_DIM = 128   # the kernels pad Dh to a multiple of 16 up to this
 MAX_BATCH_HEADS = 65535  # CUDA grid.y limit
@@ -622,6 +622,10 @@ def use_flash_attention(q, seq_len: int) -> bool:
     sequences of at least ``min_seq_len`` (the JAX package's TPU threshold,
     not yet measured on the GPU).  A dtype or shape the kernel does not take
     raises in :func:`flash_forward`; it is never sent to the plain version."""
+    if sequence_parallel_active():
+        # under sequence parallelism no block takes a kernel, as in the JAX
+        # package (attention.py:896-899)
+        return False
     mode = _POLICY["mode"]
     if mode == "never":
         return False

@@ -9,6 +9,11 @@ draws for the same samples, from the same generator state
 (parallel/mesh.py).  A leading dimension of k local batches (D's
 ``[real; fake]`` forward) is k blocks of the global batch.  Outside the
 context, or at one rank, a draw is ``torch.rand`` itself.
+
+A pipelined block stack (parallel/pipeline.py) runs its blocks on
+microbatches, rows of the step's batch: :func:`microbatch` says which, so
+that the megablock's in-kernel dropout keys a microbatch's bits by the rows
+they are in the whole batch (ops/fused_block.mask_rows).
 """
 
 from __future__ import annotations
@@ -62,6 +67,26 @@ def global_rows(rows: Optional[RowMap]) -> Iterator[None]:
         _ROWS = prev
 
 
+_MICROBATCH: Optional[tuple] = None
+
+
+def current_microbatch() -> Optional[tuple]:
+    """(first row, rows of the whole local batch) of the running microbatch,
+    or None."""
+    return _MICROBATCH
+
+
+@contextlib.contextmanager
+def microbatch(first: int, total: int) -> Iterator[None]:
+    """Blocks inside run on rows ``first``.. of a local batch of ``total``."""
+    global _MICROBATCH
+    prev, _MICROBATCH = _MICROBATCH, (int(first), int(total))
+    try:
+        yield
+    finally:
+        _MICROBATCH = prev
+
+
 def _draw(kind, shape, generator, device, low=0, high=0):
     if kind == "rand":
         return torch.rand(shape, generator=generator, device=device)
@@ -77,15 +102,16 @@ def _mapped(kind, shape, generator, device, batched: bool, low=0, high=0):
     n = shape[0]
     full = _draw(kind, (n // rows.local * rows.global_, *shape[1:]), generator, device,
                  low, high)
-    return full.index_select(0, _index(rows, n, full.device))
+    return full.index_select(0, row_index(rows, n, full.device))
 
 
 _INDEX: dict = {}
 
 
-def _index(rows: RowMap, n: int, device) -> torch.Tensor:
-    """The global rows as a device tensor, made once (a captured step's
-    eager first run makes it; the capture reads it)."""
+def row_index(rows: RowMap, n: int, device) -> torch.Tensor:
+    """The global rows of a local leading dimension ``n`` as a device
+    tensor, made once (a captured step's eager first run makes it; the
+    capture reads it)."""
     key = (rows.local, rows.global_, rows.first, n, str(device))
     if key not in _INDEX:
         _INDEX[key] = torch.tensor(rows.global_index(n), device=device)

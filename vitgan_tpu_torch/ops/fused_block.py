@@ -187,13 +187,33 @@ def _mapped_bits(seed, mask_id: int, shape, rows):
 
 def mask_rows(b: int, n: int):
     """(rows a sample, local, global, first) of a (b, n, ...) block input
-    under the draws' row map (ops/draws.py), None where rows are their own."""
+    under the draws' row map (ops/draws.py), None where rows are their own.
+    Inside a microbatch (draws.microbatch) the b rows are rows first.. of
+    the local batch, and keyed as those rows are: a microbatch lies inside
+    one of the local batch's blocks of ``local`` samples (D's [real; fake]
+    forward has two), so that its place in the global batch is one offset
+    (its samples' count as ``local``, with ``global`` larger, so that the
+    kernel maps them)."""
     rm = draws.current()
-    if rm is None or rm.identity:
-        return None
-    if b % rm.local:
-        raise ValueError(f"a block of batch {b} under a local batch of {rm.local}")
-    return (n, rm.local, rm.global_, rm.first)
+    mb = draws.current_microbatch()
+    mapped = rm is not None and not rm.identity
+    if mb is None or mb[1] == b:
+        if not mapped:
+            return None
+        if b % rm.local:
+            raise ValueError(f"a block of batch {b} under a local batch of {rm.local}")
+        return (n, rm.local, rm.global_, rm.first)
+    first, total = mb
+    local, glob, off = (rm.local, rm.global_, rm.first) if mapped else (total, total, 0)
+    if total % local:
+        raise ValueError(f"a batch of {total} rows under a local batch of {local}")
+    if first // local != (first + b - 1) // local:
+        raise ValueError(f"microbatch rows {first}..{first + b - 1} straddle two blocks of "
+                         f"{local} samples (D's [real; fake] forward): the megablock's dropout "
+                         "keys a microbatch by one offset; choose mesh.pipeline_microbatches "
+                         "so that each lies in one block")
+    start = (first // local) * glob + off + first % local
+    return (n, b, (total // local) * glob, start)
 
 
 def dropout_mask(seed, mask_id: int, shape, rate: float):

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from vitgan_tpu_torch.ops import build
-from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, recomputing
+from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, recomputing, sequence_parallel_active
 
 # ln_mlp_fwd.cu's fc1 stage holds a 128-row tile of the LayerNorm input whole
 # in shared memory: E <= 384 (ln_qkv_fwd shares the limit).
@@ -295,6 +295,8 @@ def dispatch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gel
     big_enough = rows >= _POLICY["min_mlp_rows"] and w1.shape[-1] >= 512
     has_variant = kernel_fits(x.shape[-1], w1.shape[-1])
     use = mode == "always" or (mode == "auto" and on_cuda(x) and big_enough and has_variant)
+    if sequence_parallel_active():  # sequence parallelism (fused_mlp.py:211-212)
+        use = False
     if use:
         return fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, 1e-5, residual)
     return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, 1e-5, residual)

@@ -11,6 +11,9 @@
 - ``remat``:          'never' | 'full' | 'dots' | 'attn' — rematerialise the v2
                        encoder blocks in training (models/remat.py)
 
+Sequence parallelism (``set_sequence_parallel``) is process-global like the
+rest, and routes every block off the kernels, as the JAX package's does.
+
 Where the JAX package asks "on TPU?", the port asks "is the tensor on CUDA?".
 The thresholds are the JAX package's, set by measurements on a TPU; they are
 kept unmeasured on the GPU until a measurement there replaces them.
@@ -67,10 +70,61 @@ def get_policy() -> dict:
 def megablock_mode() -> str:
     """'on' routes every v2 encoder block through the fused forward, 'auto'
     only inside its gate (ops/fused_block.maybe_megablock), 'off' never.
-    ``mode='never'`` is the global kill switch and wins over this knob."""
-    if _POLICY["mode"] == "never":
+    ``mode='never'`` is the global kill switch and wins over this knob, as
+    does sequence parallelism (policy.py:54-64)."""
+    if _POLICY["mode"] == "never" or sequence_parallel_active():
         return "off"
     return _POLICY["megablock"]
+
+
+# --- sequence (context) parallelism (policy.py:67-113) ------------------------------
+# Set by the trainer when mesh.context_parallel > 1: the v2 encoder stacks run
+# each seq rank's tokens (models/vitgan_v2.run_blocks).
+
+_SP = {"mesh": None, "data_axis": None, "seq_axis": None}
+
+
+def set_sequence_parallel(mesh=None, data_axis: str | None = None,
+                          seq_axis: str | None = None) -> None:
+    """Shard the token axis of every v2 encoder activation over ``mesh``'s
+    ``seq_axis`` (a parallel/mesh.Mesh; the batch stays on ``data_axis``).
+    ``set_sequence_parallel(None)`` clears it.  While it is set, no block
+    takes a kernel: the JAX package routes every ``pallas_call`` off under
+    sequence parallelism (GSPMD cannot partition one), and the port keeps
+    that decision; attention then takes a plain version on its local queries
+    and the gathered keys."""
+    if mesh is None:
+        _SP["mesh"] = _SP["data_axis"] = _SP["seq_axis"] = None
+        return
+    if seq_axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no axis {seq_axis!r} (axes: {mesh.axis_names})")
+    _SP["mesh"], _SP["data_axis"], _SP["seq_axis"] = mesh, data_axis, seq_axis
+
+
+def sequence_parallel_active() -> bool:
+    return _SP["mesh"] is not None
+
+
+def sequence_parallel_mesh():
+    """The mesh whose seq group shards the tokens, or None."""
+    return _SP["mesh"]
+
+
+def sequence_constraint(x):
+    """This seq rank's tokens of a (B, N, E) activation (the JAX
+    `sequence_constraint` pins the token axis over the seq mesh axis;
+    policy.py:99-113).  Identity when SP is off or ``x`` is not rank-3.
+    Uneven token counts (the v2 discriminator's N + 1) give the last rank
+    fewer, as GSPMD's padded last shard holds them.  Differentiable: the
+    backward gathers every rank's cotangent, so that the code before the
+    stack, which each rank runs on the whole sequence, takes the same
+    gradient everywhere."""
+    mesh = _SP["mesh"]
+    if mesh is None or getattr(x, "ndim", 0) != 3:
+        return x
+    from vitgan_tpu_torch.parallel.context_parallel import enter_sequence
+
+    return enter_sequence(x, mesh)
 
 
 def megablock_bwd_mode() -> str:

@@ -1,19 +1,23 @@
-"""The device mesh: data parallelism over ranks, one process per device.
+"""The device mesh: data, tensor, pipeline and sequence parallelism over
+ranks, one process per device.
 
 Counterpart of vitgan_tpu/parallel/mesh.py.  The JAX package drives all of a
 host's devices from one controller and lets GSPMD insert the collectives.
 The port runs one process per device instead (a deliberate departure,
 ROADMAP.md queue 3): a :class:`Mesh` is this rank's place in a (data, model)
-grid of ranks, with a process group per axis, and the train step issues its
-collectives itself (train/step.py, train/state.py, parallel/sharding.py):
+grid of ranks, or a (data, model, pipe) or (data, model, seq) one, with a
+process group per axis, and the train step issues its collectives itself
+(train/step.py, train/state.py, parallel/sharding.py, parallel/pipeline.py,
+parallel/context_parallel.py):
 
 - every rank takes its rows of the global batch (:func:`batch_rows`); its
   random draws are drawn at the global batch and sliced (ops/draws.py), so
   a rank's step on its rows is the single-device step on the global batch;
+  the ranks of one pipe or seq group take the same rows;
 - gradients are averaged over the data axis before the clip;
 - batch-global terms (the diversity loss's pairs, BatchNorm's statistics,
-  the metrics' means) are taken over the data axis (:func:`gather_rows`,
-  :func:`all_reduce_sum`, both differentiable).
+  the minibatch-std feature, the metrics' means) are taken over the data
+  axis (:func:`gather_rows`, :func:`all_reduce_sum`, both differentiable).
 
 ``make_mesh`` at one rank without a process group is a 1x1 mesh with no
 groups, and the step then issues no collective at all.  No process group is
@@ -32,9 +36,6 @@ import torch.distributed as dist
 
 from vitgan_tpu_torch.config import MeshConfig
 from vitgan_tpu_torch.ops import draws
-
-UNPORTED = "pipeline and context parallelism are ROADMAP.md queue 1 item 9"
-
 
 def initialize_distributed(device="cuda") -> bool:
     """Start the process group from the JAX package's variables: with
@@ -65,16 +66,24 @@ def initialize_distributed(device="cuda") -> bool:
 
 @dataclass
 class Mesh:
-    """This rank's place in a (data, model) grid: rank r sits at data index
-    r // model and model index r % model (the JAX reshape(n // mp, mp)).
-    ``data_group`` holds the ranks of this rank's model index, ``model_group``
-    those of its data index; both None without a process group."""
+    """This rank's place in a (data, model) grid, or a (data, model, pipe)
+    or (data, model, seq) one: with ``inner`` ranks on the third axis (1
+    without one), rank r sits at data index r // (model * inner), model
+    index (r // inner) % model and third-axis index r % inner (the JAX
+    reshape(n // (mp * inner), mp, inner)).  ``data_group`` holds the ranks
+    of this rank's other indices, ``model_group`` and ``pipe_group`` or
+    ``seq_group`` likewise; all None without a process group.
+    ``pipe_axis`` or ``seq_axis`` names the third axis."""
 
     shape: Dict[str, int]
     rank: int = 0
     data_group: object = None
     model_group: object = None
     axis_names: tuple = field(default=("data", "model"))
+    pipe_axis: Optional[str] = None
+    seq_axis: Optional[str] = None
+    pipe_group: object = None
+    seq_group: object = None
 
     @property
     def n_data(self) -> int:
@@ -85,16 +94,50 @@ class Mesh:
         return self.shape[self.axis_names[1]]
 
     @property
+    def n_inner(self) -> int:
+        return self.shape[self.axis_names[2]] if len(self.axis_names) > 2 else 1
+
+    @property
+    def n_pipe(self) -> int:
+        return self.shape[self.pipe_axis] if self.pipe_axis else 1
+
+    @property
+    def n_seq(self) -> int:
+        return self.shape[self.seq_axis] if self.seq_axis else 1
+
+    @property
     def size(self) -> int:
-        return self.n_data * self.n_model
+        return self.n_data * self.n_model * self.n_inner
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_model
+        return self.rank // (self.n_model * self.n_inner)
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.n_model
+        return (self.rank // self.n_inner) % self.n_model
+
+    @property
+    def pipe_index(self) -> int:
+        return self.rank % self.n_inner if self.pipe_axis else 0
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank % self.n_inner if self.seq_axis else 0
+
+    def group(self, axis: str):
+        """The process group of the axis named ``axis``."""
+        return {self.axis_names[0]: self.data_group, self.axis_names[1]: self.model_group,
+                self.pipe_axis: self.pipe_group, self.seq_axis: self.seq_group}[axis]
+
+    def index(self, axis: str) -> int:
+        """This rank's index on the axis named ``axis``."""
+        return {self.axis_names[0]: self.data_index, self.axis_names[1]: self.model_index,
+                self.pipe_axis: self.pipe_index, self.seq_axis: self.seq_index}[axis]
+
+    def pipe_rank(self, stage: int) -> int:
+        """The global rank of this rank's pipe group at ``stage``."""
+        return self.rank - self.pipe_index + stage
 
     @property
     def distributed(self) -> bool:
@@ -110,32 +153,59 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), world_size: Optional[int] = None,
               rank: Optional[int] = None) -> Mesh:
     """The (data, model) mesh over the process group's ranks (or over
     ``world_size`` ranks as a plan, without groups, where no group is
-    started): ``model_parallel`` ranks on the model axis, the rest on data.
-    One rank gives a 1x1 mesh.  Every rank of a group must call it (it makes
-    the axes' subgroups)."""
+    started): ``model_parallel`` ranks on the model axis, the rest on data;
+    ``pipeline_parallel`` or ``context_parallel`` above 1 adds the pipe or
+    the seq axis innermost, as the JAX make_mesh does (mesh.py:53-85), with
+    its errors.  One rank gives a 1x1 mesh.  Every rank of a group must call
+    it (it makes the axes' subgroups)."""
     mp = max(1, cfg.model_parallel)
     pp = max(1, cfg.pipeline_parallel)
     sp = max(1, cfg.context_parallel)
-    if pp > 1 or sp > 1:
-        raise ValueError(f"pipeline_parallel={pp}, context_parallel={sp}: {UNPORTED}")
+    if sp > 1 and pp > 1:
+        raise ValueError(
+            "context_parallel does not compose with pipeline_parallel: the "
+            "pipeline shard_map owns the block stack the sequence sharding "
+            "would constrain (pick one)")
     grouped = dist.is_initialized()
     n = dist.get_world_size() if grouped else (world_size or 1)
     r = dist.get_rank() if grouped else (rank or 0)
     if n % (mp * pp * sp) != 0:
         raise ValueError(f"{n} devices not divisible by model_parallel={mp} x "
                          f"pipeline_parallel={pp} x context_parallel={sp}")
-    nd = n // mp
-    mesh = Mesh({cfg.data_axis: nd, cfg.model_axis: mp}, rank=r,
-                axis_names=(cfg.data_axis, cfg.model_axis))
+    inner = pp * sp
+    nd = n // (mp * inner)
+    names = (cfg.data_axis, cfg.model_axis)
+    kw = {}
+    if sp > 1:
+        names, kw = names + (cfg.seq_axis,), {"seq_axis": cfg.seq_axis}
+    elif pp > 1:
+        names, kw = names + (cfg.pipe_axis,), {"pipe_axis": cfg.pipe_axis}
+    shape = {cfg.data_axis: nd, cfg.model_axis: mp}
+    if inner > 1:
+        shape[names[2]] = inner
+    mesh = Mesh(shape, rank=r, axis_names=names, **kw)
     if grouped:
-        for m in range(mp):  # every rank makes every group, in one order
-            g = _group([d * mp + m for d in range(nd)], n)
-            if m == mesh.model_index:
-                mesh.data_group = g
+        at = lambda d, m, i: (d * mp + m) * inner + i  # noqa: E731
+        # every rank makes every group, in one order
+        for m in range(mp):
+            for i in range(inner):
+                g = _group([at(d, m, i) for d in range(nd)], n)
+                if (m, i) == (mesh.model_index, mesh.rank % inner):
+                    mesh.data_group = g
         for d in range(nd):
-            g = _group([d * mp + m for m in range(mp)], n)
-            if d == mesh.data_index:
-                mesh.model_group = g
+            for i in range(inner):
+                g = _group([at(d, m, i) for m in range(mp)], n)
+                if (d, i) == (mesh.data_index, mesh.rank % inner):
+                    mesh.model_group = g
+        if inner > 1:
+            for d in range(nd):
+                for m in range(mp):
+                    g = _group([at(d, m, i) for i in range(inner)], n)
+                    if (d, m) == (mesh.data_index, mesh.model_index):
+                        if pp > 1:
+                            mesh.pipe_group = g
+                        else:
+                            mesh.seq_group = g
     return mesh
 
 

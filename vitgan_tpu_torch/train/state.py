@@ -13,7 +13,7 @@ holds (utils/checkpoint.py).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import torch
@@ -281,15 +281,16 @@ class Optimizer:
 
     def _full(self, v: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf i's state at the parameter's full shape (gathered from every
-        rank's slice under a sharded placement: a collective)."""
+        rank's slice, or from the stage that holds it, under a sharded
+        placement: a collective)."""
         v = v.detach()
-        if self.placement is None or self.leaves[i] is self.params[i] or v.dim() == 0:
+        if self.placement is None or v.dim() == 0 or not self.placement.split(i):
             return v
         return self.placement.gather(v, i)
 
     def _cut(self, v: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf i's full-shape state cut to this rank's slice."""
-        if self.placement is None or self.leaves[i] is self.params[i] or v.dim() == 0:
+        if self.placement is None or v.dim() == 0 or not self.placement.split(i):
             return v
         return self.placement.cut(v, i)
 
@@ -354,32 +355,63 @@ class TrainState:
     g_opt: Optimizer
     d_opt: Optimizer
     g_ema: Optional[List[torch.Tensor]] = None  # EMA of g's parameters when run.ema_decay > 0
+    # {'g', 'd'}: the full shape of each state_dict entry, recorded where a
+    # pipe axis frees the other stages' blocks (parallel/sharding.py)
+    full_shapes: dict = field(default_factory=dict)
 
     def ema_state_dict(self) -> dict:
-        """g's state_dict with the EMA in place of the live parameters, when tracked."""
+        """g's state_dict with the EMA in place of the live parameters, when
+        tracked; under a pipe axis this rank's stage's (the others' blocks
+        empty), which a module of this rank loads."""
         sd = {k: v.detach() for k, v in self.g.state_dict().items()}
         if self.g_ema is not None:
             for (name, _), e in zip(self.g.named_parameters(), self.g_ema):
                 sd[name] = e
         return sd
 
+    def full_ema_state_dict(self) -> dict:
+        """:meth:`ema_state_dict` with every stage's blocks (a collective
+        over the pipe group: every rank calls it)."""
+        return self._whole("g", self.ema_state_dict())
+
+    def _whole(self, net: str, sd: dict) -> dict:
+        place = getattr(self, f"{net}_opt").placement
+        if place is None or net not in self.full_shapes:
+            return sd
+        from vitgan_tpu_torch.parallel.pipeline import module_depth
+
+        return place.module_state(sd, module_depth(getattr(self, net)), self.full_shapes[net])
+
     def state_dict(self) -> dict:
         """Everything a resume needs, on the CPU: both networks' state_dicts
         (D's ISR buffers among them), both optimizers (moments and update
         counts), the EMA, the step, the seed and the device generator's
-        state."""
+        state, at the single-device layout (under a mesh every rank calls
+        it: slices and stages are gathered)."""
         cpu = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}  # noqa: E731
+        ema = None
+        if self.g_ema is not None:
+            place = self.g_opt.placement
+            ema = [(e if place is None else place.from_stage(e.detach(), i)).cpu().clone()
+                   for i, e in enumerate(self.g_ema)]
         return {"step": self.step, "seed": self.seed, "rng": self.rng.get_state(),
-                "g": cpu(self.g.state_dict()), "d": cpu(self.d.state_dict()),
+                "g": cpu(self._whole("g", self.g.state_dict())),
+                "d": cpu(self._whole("d", self.d.state_dict())),
                 "g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict(),
-                "g_ema": None if self.g_ema is None else [e.detach().cpu().clone()
-                                                          for e in self.g_ema]}
+                "g_ema": ema}
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore ``state_dict``'s values into this state's own tensors (in
-        place: a captured step replays them)."""
-        self.g.load_state_dict(sd["g"])
-        self.d.load_state_dict(sd["d"])
+        place: a captured step replays them); under a pipe axis each rank
+        takes its stage's blocks."""
+        from vitgan_tpu_torch.parallel.pipeline import module_depth
+
+        for net, opt in (("g", self.g_opt), ("d", self.d_opt)):
+            module = getattr(self, net)
+            whole = sd[net]
+            if opt.placement is not None:
+                whole = opt.placement.held_state(whole, module.state_dict(), module_depth(module))
+            module.load_state_dict(whole)
         self.g_opt.load_state_dict(sd["g_opt"])
         self.d_opt.load_state_dict(sd["d_opt"])
         if (sd["g_ema"] is None) != (self.g_ema is None):
@@ -387,7 +419,8 @@ class TrainState:
         if self.g_ema is not None:
             with torch.no_grad():
                 for e, v in zip(self.g_ema, sd["g_ema"]):
-                    e.copy_(v)
+                    if e.numel() or not v.numel():
+                        e.copy_(v)
         self.rng.set_state(sd["rng"])
         self.step, self.seed = int(sd["step"]), int(sd["seed"])
 

@@ -271,12 +271,9 @@ def _make_core(gan, cfg: ExperimentConfig, mesh=None):
     is a float, or on CUDA a 0-d device tensor.  Under a ``mesh`` with
     collectives, ``real`` and ``zs`` are this rank's rows and the draws
     take them from the global batch (ops/draws.py); the metrics are the
-    data axis's means."""
+    data axis's means.  v2's minibatch-std feature groups the global batch
+    (models/vitgan_v2.minibatch_std_feature)."""
     parts = _Losses(gan, cfg)
-    if (mesh is not None and mesh.distributed and mesh.n_data > 1
-            and getattr(cfg.model, "minibatch_std", False)):
-        raise ValueError("v2.minibatch_std groups the local batch: under a data axis above "
-                         "1 it is ROADMAP.md queue 1 item 9")
     disc_steps = _disc_steps(cfg)
     dtype = compute_dtype(cfg)
     ema_decay = cfg.run.ema_decay

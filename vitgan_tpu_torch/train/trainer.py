@@ -41,13 +41,17 @@ the JAX fit does, so the epoch orders are the JAX trainer's;
 Under a mesh (parallel/mesh.py; one process per device, ``mesh`` or
 ``cfg.mesh`` over the started process group) every rank builds the same
 state, places it (parallel/sharding.shard_train_state: DP replicated, FSDP
-and TP slices), and trains its rows of each global batch: the device
-route's index rows are cut to its columns, the host pipeline takes its
-process slice.  Rank 0 writes the run directory and the checkpoints, in
-the single-device format (the optimizers gather their slices first), so a
-run resumes on any layout; the other ranks keep their logs under
-``ranks/<rank>/`` of it and restore from rank 0's checkpoints.  A SIGTERM
-on any rank stops every rank after the same call.
+and TP slices, a pipe stage's blocks), and trains its rows of each global
+batch: the device route's index rows are cut to its columns, the host
+pipeline takes its process slice.  A pipe axis stages the block stacks
+(parallel/pipeline.pp_bundle: the modules run them through the GPipe
+schedule, training and eval alike); a seq axis sets sequence parallelism
+(v2 only), which routes every block off the kernels.  Rank 0 writes the run
+directory and the checkpoints, in the single-device format (the optimizers
+gather their slices and stages first), so a run resumes on any layout; the
+other ranks keep their logs under ``ranks/<rank>/`` of it and restore from
+rank 0's checkpoints.  A SIGTERM on any rank stops every rank after the
+same call.
 
 FID runs between device calls, on the caller's stream under
 ``torch.inference_mode()``: it allocates nothing in a captured step's memory
@@ -72,7 +76,7 @@ from vitgan_tpu_torch.config import ExperimentConfig, save_config
 from vitgan_tpu_torch.data.datasets import load_dataset
 from vitgan_tpu_torch.data.pipeline import HostDataPipeline, normalize_to_unit
 from vitgan_tpu_torch.models import build_gan, count_params
-from vitgan_tpu_torch.ops.policy import apply_from_runtime
+from vitgan_tpu_torch.ops.policy import apply_from_runtime, set_sequence_parallel
 from vitgan_tpu_torch.parallel.mesh import Mesh, batch_rows, make_mesh
 from vitgan_tpu_torch.parallel.sharding import shard_train_state
 from vitgan_tpu_torch.train import fid as FID
@@ -110,10 +114,29 @@ class Trainer:
         self.cfg = cfg
         apply_from_runtime(cfg.runtime)
         m = cfg.model
-        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
+        if cfg.mesh.context_parallel > 1 and cfg.family != "v2":
+            # Only the v2 encoder stacks run their tokens sharded; any other
+            # family would replicate over the seq axis while still losing the
+            # kernel routing (trainer.py:55-67).
+            raise ValueError(
+                f"mesh.context_parallel requires family 'v2' (and its "
+                f"deit64/highres presets), got {cfg.family!r}")
+        if mesh is None:
+            import torch.distributed as dist
+
+            c = cfg.mesh  # the layout's ranks as a plan where no group is started
+            planned = max(1, c.model_parallel) * max(1, c.pipeline_parallel) * max(
+                1, c.context_parallel)
+            mesh = make_mesh(c, world_size=None if dist.is_initialized() else planned)
+        self.mesh = mesh
         if self.mesh.size > 1 and not self.mesh.distributed:
             raise ValueError(f"a mesh of {self.mesh.size} ranks needs a started process group "
                              "(parallel/mesh.initialize_distributed)")
+        # Sequence parallelism: the v2 stacks run this rank's tokens
+        # (models/vitgan_v2.run_blocks); process-global like the kernel
+        # routing, which it also turns off.  A trainer without it clears it.
+        set_sequence_parallel(self.mesh if self.mesh.n_seq > 1 else None, cfg.mesh.data_axis,
+                              cfg.mesh.seq_axis)
         self.is_main = self.mesh.is_main
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None and self.mesh.distributed:
@@ -151,6 +174,14 @@ class Trainer:
         self.ckpts = CheckpointManager(os.path.join(main_root, "checkpoints"),
                                        keep=cfg.run.keep_checkpoints)
         self.gan = build_gan(cfg)
+        if self.mesh.pipe_axis is not None:
+            # The ViT block stacks staged over the pipe axis (GPipe,
+            # parallel/pipeline.py); eval batches that do not divide into the
+            # microbatches run as one (trainer.py:87-106).
+            from vitgan_tpu_torch.parallel.pipeline import pp_bundle
+
+            self.gan = pp_bundle(self.gan, cfg, mesh=self.mesh,
+                                 microbatches=cfg.mesh.pipeline_microbatches)
         # uint8 (N, H, W, C) on the device route, None on the host route
         self.dataset = (torch.from_numpy(images).to(self.device) if self.route == "device"
                         else None)
@@ -520,10 +551,11 @@ class Trainer:
                         self.best_metric = crit
                         # The keys resume() reads: resume(best=True) keeps the tracking.
                         sd = self.checkpoint_state()  # every rank: the slices are gathered
+                        ema = self.state.full_ema_state_dict()
                         if self.is_main:
                             self.ckpts.save_best(self.state.step, sd, run.best_metric, crit,
                                                  {"epoch": epoch + 1, "best_metric": crit})
-                            save_best(self.run_dir, self.state.ema_state_dict())
+                            save_best(self.run_dir, ema)
                     if self._early is not None and self._early.step(fid_val):
                         self.log.info("early stopping at epoch %d (FID %.3f)", epoch, fid_val)
                         last = means
@@ -550,8 +582,7 @@ class Trainer:
                 else:
                     self._save_checkpoint({"epoch": self.epoch, "best_metric": self.best_metric,
                                            "final": True})
-                    if self.is_main:
-                        self.save()
+                    self.save()
                 self.ckpts.wait()
             self.metrics.save_figures(self.dirs.images)
             if not self._poisoned:
@@ -564,6 +595,9 @@ class Trainer:
 
     def save(self) -> None:
         """The run directory ``cli serve`` reads: config.json and the
-        generator (the EMA weights when run.ema_decay > 0)."""
-        meta = {"step": self.state.step, "epoch": self.epoch, "seed": self.state.seed}
-        save_run(self.run_dir, self.cfg, self.state.ema_state_dict(), meta=meta)
+        generator (the EMA weights when run.ema_decay > 0), written by rank 0
+        (every rank calls it: a pipe axis's stages are gathered)."""
+        ema = self.state.full_ema_state_dict()
+        if self.is_main:
+            meta = {"step": self.state.step, "epoch": self.epoch, "seed": self.state.seed}
+            save_run(self.run_dir, self.cfg, ema, meta=meta)
