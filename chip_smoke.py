@@ -252,8 +252,8 @@
    SWEEP_CUTS (steps an epoch, FID samples): 4 trials of seed SWEEP_SEED as
    two workers sharing one JSONL (--trial-stride 2, offsets 0 and 1), each
    trial's seconds and launches per kernel (a trial whose MLPs pass the
-   LN->MLP gate launches its stage kernels, and one that fails it, the
-   embed-512 trial among them, none), best_config.json, the last worker's
+   LN->MLP gate launches its stage kernels, the embed-512 trial the wide
+   LN->fc1 among them, and one that fails it none), best_config.json, the last worker's
    ranking over all four, `--resume` skipping every trial and ranking
    alike; then `--vectorize`'s group of 4 trials at the widest shape (embed
    512, 8 heads, batch 256; the sampler patched to 4 rates): its ms to step
@@ -274,6 +274,26 @@
    oneRankReduce kernel; its all-gathers and reduce-scatters are copies),
    ms a step and the peak memory.  No multi-rank run: the machine has one
    card.
+35. [wide kernels] (after the megablock's kernels): each wide variant's
+   launch (E > 384: the LN rows, the streamed fc1 and qkv products, the
+   dmlp rows, the streamed dz1 and dao products, dy = a . w^T in f32, the
+   LN-backward rows of the dx1 stage and of the LN1 half) against its plain
+   version at DeiT-B's G (64 x 256 rows, E 768, hidden 3,072) and D (64 x
+   257) shapes, forwards by KERNEL_RTOL * max(1, max|plain|), the
+   backward's outputs by KERNEL_RTOL * their own max|plain|, each bit-equal
+   across two calls, timed beside its plain version, its bound, F.layer_norm
+   (the LN rows' library call) and torch.matmul of its products; the four
+   forms whole timed beside their bounds; each form forced wide at
+   highres128's G shape against the resident kernels, the largest
+   difference printed.
+36. [train deit64 wide] (after [train deit64]): deit64 with --set
+   v2.embed_dim=768 v2.num_heads=12 (DeiT-B's widths) at full depth and
+   batch 64 under megablock=auto through Trainer.fit: a capture epoch, then
+   WIDE_STEPS captured steps after _settle, launches a step asserted
+   (wide_train_kernels: every block of G and D on the wide variants), a
+   profiled breakdown, ms/step and peak; one batch-64 serving call; one
+   eager step at dropout 0 against use_pallas=never in the route bounds.  The
+   wide kernels' `launches` in the JSON line are this path's.
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -1410,6 +1430,465 @@ def check_ln_mlp_stages() -> dict:
     return out
 
 
+# --- the wide variants (E > 384) ------------------------------------------------------
+
+# DeiT-B's widths (Touvron et al. 2021, Table 1: embed 768, 12 heads of 64,
+# hidden 3,072) at deit64's tokens and batch: G's 64 x 256 rows and D's
+# 64 x 257 (a D update's [real; fake] forward is twice that).
+WIDE_SHAPES = (("G", (64, 256, 768, 12, 3072)), ("D", (64, 257, 768, 12, 3072)))
+# highres128's G training block, where the resident kernels run: the wide
+# variants forced there against them.
+FORCED_SHAPE = (32, 1024, 384, 6, 1536)
+# The wide variants' launches, each under its own name: (source, the TPU
+# kernel whose work it does, the form it belongs to).
+WIDE_KERNELS = {
+    "ln_rows": ("ln_rows.cuh", "vitgan_tpu/ops/fused_mlp.py:133", "LN->fc1 and LN->qkv"),
+    "ln_mlp_fc1_wide": ("ln_mlp_fwd.cu", "vitgan_tpu/ops/fused_mlp.py:133", "LN->fc1"),
+    "ln_qkv_fwd_wide": ("ln_qkv_fwd.cu", "vitgan_tpu/ops/fused_block.py:408", "LN->qkv"),
+    "megablock_bwd_mask_rows": ("ln_rows.cuh", "vitgan_tpu/ops/fused_block.py:700", "MLP half"),
+    "megablock_bwd_mlp_dz1_wide": ("megablock_bwd_mlp.cu", "vitgan_tpu/ops/fused_block.py:700",
+                                   "MLP half"),
+    "megablock_bwd_dy": ("megablock_bwd_mlp.cu", "vitgan_tpu/ops/fused_block.py:700",
+                         "MLP half and LN1 half"),
+    "megablock_bwd_mlp_dx1_rows": ("ln_rows.cuh", "vitgan_tpu/ops/fused_block.py:700",
+                                   "MLP half"),
+    "megablock_bwd_mlp_dao_wide": ("megablock_bwd_mlp.cu", "vitgan_tpu/ops/fused_block.py:700",
+                                   "MLP half"),
+    "megablock_bwd_ln1_rows": ("ln_rows.cuh", "vitgan_tpu/ops/fused_block.py:700", "LN1 half"),
+}
+# The part of each wide launch's CUDA symbol the profiler counts (the
+# streamed products are the resident kernels' templates with kStream true).
+WIDE_SYMBOLS = {"ln_rows": "ln_rows_kernel", "ln_mlp_fc1_wide": "ln_mlp_fc1_kernel",
+                "ln_qkv_fwd_wide": "ln_qkv_fwd_kernel", "megablock_bwd_mask_rows": "mask_rows",
+                "megablock_bwd_mlp_dz1_wide": "megablock_bwd_mlp_rows",
+                "megablock_bwd_dy": "megablock_bwd_mlp_rows",
+                "megablock_bwd_mlp_dx1_rows": "ln_bwd_rows", "megablock_bwd_mlp_dao_wide":
+                "megablock_bwd_mlp_rows", "megablock_bwd_ln1_rows": "ln_bwd_rows"}
+
+
+def _wide_case(b, n, e, heads, hidden, gen):
+    """_case plus the backward's inputs: the cotangent g, x1, z1, f32 masks
+    of rate MB_RATE, dqkv and the f32 residual dx1."""
+    import torch
+
+    c = _case(b, n, e, heads, hidden, gen)
+    m, f32 = b * n, torch.float32
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    c.update(g=rn(m, e), x1=rn(m, e), z1=rn(m, hidden), dqkv=rn(m, 3 * e), dx1=rn(m, e, dtype=f32))
+    c["m1"], c["m2"] = ((torch.rand((m, e), generator=gen, device="cuda") >= MB_RATE).to(f32)
+                        / (1 - MB_RATE) for _ in range(2))
+    return c
+
+
+def check_wide_kernels() -> dict:
+    """[wide kernels]: each wide launch against its plain version at DeiT-B's
+    G and D shapes (forwards by KERNEL_RTOL * max(1, max|plain|), the
+    backward's outputs by KERNEL_RTOL * their own max|plain|), each bit-equal
+    across two calls, timed beside its plain version, its bound, the
+    library call that computes the same function where one does
+    (F.layer_norm for the LN rows) and torch.matmul of its products; the
+    four forms whole (the training LN2 -> fc1, LN->qkv, the MLP half, the LN1
+    half) timed beside their bounds and products; then each form forced wide
+    at highres128's G shape against the resident kernels, the largest
+    difference printed.  Returns (records by launch name, at G's shape with
+    D's beside; the forms' and the forced comparison's records)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    tag, smi = "[wide kernels]", _smi()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    out = {k: {} for k in WIDE_KERNELS}
+    forms = {}
+    for label, shape in WIDE_SHAPES:
+        c = _wide_case(*shape, gen)
+        b, n, e, heads, dh, hidden = c["dims"]
+        m, f32 = b * n, torch.float32
+        print(f"{tag} {smi}: {label}: B {b} N {n} E {e} heads {heads} hidden {hidden} ({m} rows)")
+        x2 = c["x"].reshape(m, e)
+        y = FM.ln_rows_reference(x2, c["ln_s"], c["ln_b"])
+        wqkv = FB._qkv_weight(c["qkv_w"], torch.bfloat16)
+        dmlp = FB.bwd_dmlp_rows_reference(c["g"], c["m2"])
+        dz1 = FB.bwd_dz1_stage_reference(dmlp, None, c["z1"], c["w2"])[1]
+        dy2 = FB.bwd_dy_reference(dz1, c["w1"])
+        da = FB.bwd_dx1_rows_reference(dy2, c["g"], c["m1"], c["x1"], c["ln_s"], c["ln_b"])[1]
+        dy1 = FB.bwd_dy_reference(c["dqkv"], wqkv)
+        ao = c["attn"].reshape(m, e)
+        ln_bf = (c["ln_s"].to(torch.bfloat16), c["ln_b"].to(torch.bfloat16))
+        part = -(-m // 64) * 2 * e * 4
+        # name: (kernel, plain, forward?, bound (flops, bytes), library call, products)
+        calls = {
+            "ln_rows": (lambda: FM.ln_rows(x2, c["ln_s"], c["ln_b"]),
+                        lambda: FM.ln_rows_reference(x2, c["ln_s"], c["ln_b"]), True,
+                        (0.0, 2 * m * e * 2 + 2 * e * 4),
+                        lambda: F.layer_norm(x2, (e,), *ln_bf), None),
+            "ln_mlp_fc1_wide": (lambda: FM.fc1_stage(y, c["w1"], c["b1"], want_z1=True),
+                                lambda: FM.fc1_stage_reference(y, c["w1"], c["b1"]), True,
+                                (2.0 * m * e * hidden, m * e * 2 + e * hidden * 2 + hidden * 4
+                                 + 2 * m * hidden * 2), None, lambda: y @ c["w1"]),
+            "ln_qkv_fwd_wide": (
+                lambda: FB.qkv_stage(y.reshape(b, n, e), c["qkv_w"], c["qkv_b"].reshape(-1)),
+                lambda: FB.qkv_stage_reference(y.reshape(b, n, e), c["qkv_w"],
+                                               c["qkv_b"].reshape(-1)), True,
+                (2.0 * m * e * 3 * e, m * e * 2 + 3 * e * e * 2 + 3 * e * 4 + 3 * m * e * 2),
+                None, lambda: y @ wqkv),
+            "megablock_bwd_mask_rows": (lambda: FB.bwd_dmlp_rows(c["g"], c["m2"]),
+                                        lambda: FB.bwd_dmlp_rows_reference(c["g"], c["m2"]),
+                                        False, (0.0, m * e * (2 + 4 + 2)), None, None),
+            "megablock_bwd_mlp_dz1_wide": (
+                lambda: FB.bwd_dz1_stage(dmlp, None, c["z1"], c["w2"])[1:],
+                lambda: FB.bwd_dz1_stage_reference(dmlp, None, c["z1"], c["w2"])[1:], False,
+                (2.0 * m * e * hidden, m * e * 2 + m * hidden * 2 + hidden * e * 2
+                 + 2 * m * hidden * 2), None, lambda: dmlp @ c["w2"].t()),
+            "megablock_bwd_dy": (lambda: FB.bwd_dy(dz1, c["w1"]),
+                                 lambda: FB.bwd_dy_reference(dz1, c["w1"]), False,
+                                 (2.0 * m * hidden * e, m * hidden * 2 + e * hidden * 2
+                                  + m * e * 4), None, lambda: dz1 @ c["w1"].t()),
+            "megablock_bwd_mlp_dx1_rows": (
+                lambda: FB.bwd_dx1_rows(dy2, c["g"], c["m1"], c["x1"], c["ln_s"], c["ln_b"]),
+                lambda: FB.bwd_dx1_rows_reference(dy2, c["g"], c["m1"], c["x1"], c["ln_s"],
+                                                  c["ln_b"]), False,
+                (0.0, m * e * (4 + 2 + 2 + 4) + m * e * (4 + 2 + 2) + part), None, None),
+            "megablock_bwd_mlp_dao_wide": (
+                lambda: FB.bwd_dao_stage(da, ao, c["wout"], b, n, heads),
+                lambda: FB.bwd_dao_stage_reference(da, ao, c["wout"], b, n, heads), False,
+                (2.0 * m * e * e, 3 * m * e * 2 + e * e * 2 + m * heads * 4), None,
+                lambda: da @ c["wout"].t()),
+            "megablock_bwd_ln1_rows": (
+                lambda: FB.bwd_ln1_rows(dy1, c["x"].reshape(m, e), c["dx1"], c["ln_s"],
+                                        c["ln_b"]),
+                lambda: FB.bwd_ln1_rows_reference(dy1, c["x"].reshape(m, e), c["dx1"],
+                                                  c["ln_s"], c["ln_b"]), False,
+                (0.0, m * e * (4 + 2 + 4) + m * e * (2 + 2) + part), None, None),
+        }
+        for name, (kern, plain, fwd, (flops, nbytes), library, products) in calls.items():
+            got, want = kern(), plain()
+            got, want = ((t,) if torch.is_tensor(t) else tuple(t) for t in (got, want))
+            err = max(_err(a, w, f"{name} {label} output {i}", own_scale=not fwd)
+                      for i, (a, w) in enumerate(zip(got, want)))
+            repeat = _repeat(kern, f"{name} {label}")
+            bound_ms, bound_by = _bound(flops, nbytes)
+            rec = {"max_abs_err": err, "repeat_max_abs_diff": repeat, "ms": _time_ms(kern, 10),
+                   "plain_ms": _time_ms(plain, 2), "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": _time_ms(library, 10) if library else None,
+                   "device_ms": _device_ms(kern, 10, (WIDE_SYMBOLS[name],))[0]}
+            if products is not None:
+                rec["products_only_ms"] = _time_ms(products, 10)
+                rec["products_only"] = PRODUCTS_ONLY
+            if name == "ln_rows":
+                rec["library"] = "F.layer_norm on bf16 rows, gamma and beta in bf16"
+            print(f"  {name} {label}: {rec['ms']:.4f} ms (device {rec['device_ms']}, plain "
+                  f"{rec['plain_ms']:.4f}, library {rec['library_ms']}, products only "
+                  f"{rec.get('products_only_ms')}, bound {bound_ms:.4f} ms by {bound_by})")
+            if label == "G":
+                out[name].update(rec)
+            else:
+                out[name].update({f"D_{k}": v for k, v in rec.items()
+                                  if k in ("max_abs_err", "ms", "bound_ms", "device_ms",
+                                           "repeat_max_abs_diff")})
+        del calls
+        # the four forms whole, as the training block calls them
+        seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+        hd, x1 = e, c["x1"]
+        fwd_args = (x2, ao, c["wout"], c["bout"], c["ln_s"], c["ln_b"], c["w1"], c["b1"],
+                    c["w2"], c["b2"], seed, MB_RATE)
+        mlp_args = (c["g"], c["m1"], c["m2"], x1, c["z1"], ao, c["w1"], c["w2"], c["wout"],
+                    c["ln_s"], c["ln_b"], b, n, heads)
+        ln1_args = (c["dqkv"], c["qkv_w"], x2, c["dx1"], c["ln_s"], c["ln_b"])
+        whole = {
+            "ln_mlp_train_fwd": (lambda: FB.ln_mlp_train_forward(*fwd_args),
+                                 (2.0 * m * hd * e + 4.0 * m * e * hidden,
+                                  m * (e + hd) * 2 + (hd * e + 2 * e * hidden) * 2
+                                  + 2 * m * e * 2 + m * hidden * 2 + 2 * m * e * 4),
+                                 lambda: (ao @ c["wout"], y @ c["w1"], dz1 @ c["w2"])),
+            "ln_qkv_fwd": (lambda: FB.ln_qkv_forward(c["x"], c["ln_s"], c["ln_b"], c["qkv_w"],
+                                                     c["qkv_b"].reshape(-1)),
+                           (2.0 * m * e * 3 * e, m * e * 2 + 3 * e * e * 2 + 3 * m * e * 2),
+                           lambda: x2 @ wqkv),
+            "megablock_bwd_mlp": (lambda: FB.megablock_bwd_mlp(*mlp_args),
+                                  (4.0 * m * e * hidden + 2.0 * m * e * hd,
+                                   2 * m * e * 2 + m * hidden * 2 + m * hd * 2 + 2 * m * e * 4
+                                   + (2 * e * hidden + hd * e) * 2 + m * e * (2 + 2 + 4 + 2)
+                                   + 2 * m * hidden * 2 + m * hd * 2 + b * heads * n * 4),
+                                  lambda: (dmlp @ c["w2"].t(), dz1 @ c["w1"].t(),
+                                           da @ c["wout"].t())),
+            "megablock_bwd_ln1": (lambda: FB.megablock_bwd_ln1(*ln1_args),
+                                  (2.0 * m * 3 * hd * e, m * 3 * hd * 2 + m * e * 2 + m * e * 4
+                                   + 3 * hd * e * 2 + 2 * m * e * 2),
+                                  lambda: c["dqkv"] @ wqkv.t())}
+        for name, (call, (flops, nbytes), products) in whole.items():
+            bound_ms, bound_by = _bound(flops, nbytes)
+            rec = {"ms": _time_ms(call, 10), "bound_ms": bound_ms, "bound_by": bound_by,
+                   "products_only_ms": _time_ms(products, 10)}
+            print(f"  {name} {label} (wide, whole): {rec['ms']:.4f} ms (products only "
+                  f"{rec['products_only_ms']:.4f}, bound {bound_ms:.4f} ms by {bound_by})")
+            forms.setdefault(name, {})[label] = rec
+        del c, x2, y, wqkv, dmlp, dz1, dy2, da, dy1, ao, whole
+        torch.cuda.empty_cache()
+
+    # each form forced wide at highres128's G shape against the resident kernels
+    c = _wide_case(*FORCED_SHAPE, gen)
+    b, n, e, heads, dh, hidden = c["dims"]
+    m = b * n
+    print(f"{tag} {smi}: the wide variants forced at E {e} ({m} rows) against the resident "
+          "kernels")
+    seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda")
+    x2 = c["x"].reshape(m, e)
+    fwd_args = (x2, c["attn"].reshape(m, e), c["wout"], c["bout"], c["ln_s"], c["ln_b"],
+                c["w1"], c["b1"], c["w2"], c["b2"], seed, MB_RATE)
+    mlp_args = (c["g"], c["m1"], c["m2"], c["x1"], c["z1"], c["attn"].reshape(m, e), c["w1"],
+                c["w2"], c["wout"], c["ln_s"], c["ln_b"], b, n, heads)
+    ln1_args = (c["dqkv"], c["qkv_w"], x2, c["dx1"], c["ln_s"], c["ln_b"])
+    pairs = {"ln_mlp_train_fwd": (lambda w: FB.ln_mlp_train_forward(*fwd_args, wide=w), True),
+             "ln_qkv_fwd": (lambda w: FB.ln_qkv_forward(c["x"], c["ln_s"], c["ln_b"],
+                                                        c["qkv_w"], c["qkv_b"].reshape(-1),
+                                                        wide=w), True),
+             "megablock_bwd_mlp": (lambda w: FB.megablock_bwd_mlp(*mlp_args, wide=w), False),
+             "megablock_bwd_ln1": (lambda w: FB.megablock_bwd_ln1(*ln1_args, wide=w), False)}
+    forced = {}
+    for name, (call, fwd) in pairs.items():
+        wide, resident = call(True), call(False)
+        wide, resident = ((t,) if torch.is_tensor(t) else tuple(t) for t in (wide, resident))
+        diffs = [_err(a, r, f"{name} forced wide against resident, output {i}",
+                      own_scale=not fwd)
+                 for i, (a, r) in enumerate(zip(wide, resident)) if a is not None]
+        forced[name] = {"max_abs_diff": max(diffs), "wide_ms": _time_ms(lambda: call(True), 10),
+                        "resident_ms": _time_ms(lambda: call(False), 10)}
+        print(f"  {name} at E {e}: largest |wide - resident| {max(diffs):.6g}; wide "
+              f"{forced[name]['wide_ms']:.4f} ms, resident {forced[name]['resident_ms']:.4f} ms")
+    del c, x2, fwd_args, mlp_args, ln1_args, pairs
+    torch.cuda.empty_cache()
+    return out, {"forms": forms, "forced_at_384": forced, "card": smi}
+
+
+# deit64 at DeiT-B's widths, set as `cli train --set` sets them (not a preset).
+DEIT_B = {"v2.embed_dim": 768, "v2.num_heads": 12}
+WIDE_STEPS = 3
+# The megablock's training launches at E > 384, per block forward that has
+# a backward (LN1 and LN2 rows, the streamed qkv, flash, the out-projection
+# and fc2 by the linear stage, the streamed fc1) and per saved block
+# backward with dropout (the qkv recompute, the MLP half's five launches,
+# dy1 and the LN1 rows); the resident LN kernels launch none.
+WIDE_FWD_LAUNCHES = {"ln_rows": 2, "ln_qkv_fwd_wide": 1, "flash_attn_fwd": 1,
+                     "ln_mlp_train_fwd": 1, "ln_mlp_fc1_wide": 1, "ln_mlp_linear": 2}
+WIDE_BWD_LAUNCHES = {"ln_rows": 1, "ln_qkv_fwd_wide": 1, "megablock_bwd_mlp": 1,
+                     "megablock_bwd_mask_rows": 1, "megablock_bwd_mlp_dz1_wide": 1,
+                     "megablock_bwd_dy": 2, "megablock_bwd_mlp_dx1_rows": 1,
+                     "megablock_bwd_mlp_dao_wide": 1, "megablock_bwd_ln1_rows": 1}
+
+
+def wide_train_kernels(m) -> dict:
+    """Launches a step of a v2 model at E > 384 under megablock=auto with
+    dropout, remat never (deit64's): its three forwards of ``depth`` blocks
+    with their backwards (G; D on [real; fake]; D on the fake in the G
+    update), the flash backward on backward_route's choice at G's and D's
+    tokens, four weight-gradient products and two LN sums per block backward
+    with parameter gradients (D's, then G's)."""
+    from vitgan_tpu_torch.ops import attention as A
+
+    per = {}
+    for table in (WIDE_FWD_LAUNCHES, WIDE_BWD_LAUNCHES):
+        for k, v in table.items():
+            per[k] = per.get(k, 0) + 3 * m.depth * v
+    n = (m.image_size // m.patch_size) ** 2
+    dh = m.embed_dim // m.num_heads
+    for tokens, blocks in ((n, m.depth), (n + 1, 2 * m.depth)):
+        if A.backward_route(tokens, dh, 2) == "fused":
+            per["flash_attn_bwd_fused"] = per.get("flash_attn_bwd_fused", 0) + blocks
+        else:
+            for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+                per[k] = per.get(k, 0) + blocks
+    per.update(wgrad_gemm=4 * 2 * m.depth, sum_partials=2 * 2 * m.depth)
+    return per
+
+
+def wide_against_plain(cfg) -> dict:
+    """One train step of ``cfg`` at dropout 0 (the megablock's Philox masks
+    are not the plain route's draws), from one state, batch, latents and
+    augment draws, on the kernel route (megablock=auto: every block on the
+    saved wide variants) and on use_pallas=never: held in the route
+    comparison's bounds (_hold_route_step; D's head bias, a sum over the D
+    update's rows, at the sum of their |dlogit|)."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.data.datasets import synthetic_dataset
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.augment import draw_augment
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import latent_rng
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+
+    tag = "[train deit64 wide routes]"
+    cfg = C.replace(cfg, **{"v2.dropout": 0.0})
+    b, gan = cfg.v2.batch_size, build_gan(cfg)
+    images, _ = synthetic_dataset(b, cfg.v2.image_size, 3, seed=SEED)
+    real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
+    z = gan.sample_latent(latent_rng(SEED, 0), b)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    draws = {key: draw_augment(gen, real.to(torch.bfloat16), cfg.run.diff_augment)
+             for key in ("aug_real", "aug_fake", "aug_g")}
+    dlogit, res = [], {}
+
+    def record(module, args, y):
+        if y.requires_grad and y.shape[0] == 2 * b:
+            y.register_hook(lambda dy: dlogit.append(dy.detach().float()))
+
+    saved = get_policy()
+    try:
+        for route, policy in (("kernels", dict(mode="auto", megablock="auto")),
+                              ("plain", dict(mode="never", megablock="auto"))):
+            set_policy(**policy)
+            state = create_train_state(gan, cfg, device="cuda")
+            step = make_train_step(gan, cfg)
+            hook = state.d.register_forward_hook(record) if route == "plain" else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            metrics = host_metrics(step(state, real, z=z, draws=draws))
+            sec = time.perf_counter() - t0
+            if hook is not None:
+                hook.remove()
+                head = dict(state.d.named_parameters())["head_fc2.b"].grad.item()
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            res[route] = (metrics, [p.grad.float() for p in (*state.g.parameters(),
+                                                             *state.d.parameters())],
+                          [f"g.{n}" for n, _ in state.g.named_parameters()]
+                          + [f"d.{n}" for n, _ in state.d.named_parameters()])
+            res[f"{route}_peak"], res[f"{route}_s"] = torch.cuda.max_memory_allocated(), sec
+            print(f"{tag} {route}: one eager step in {sec:.2f} s, peak "
+                  f"{res[f'{route}_peak'] / 2**30:.2f} GiB, launches {launched}, metrics {metrics}")
+            if route == "plain" and launched:
+                raise AssertionError(f"{tag} the plain route launched a kernel")
+            wide = launched.get("megablock_bwd_mlp_dz1_wide")
+            if route == "kernels" and (wide != 3 * cfg.v2.depth
+                                       or launched.get("megablock_bwd_mlp_dz1")):
+                raise AssertionError(f"{tag} not every block took the wide variants: {launched}")
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        set_policy(**saved)
+    if len(dlogit) != 1 or not abs(dlogit[0].sum().item() - head) <= \
+            1e-3 * dlogit[0].abs().sum().item():
+        raise AssertionError(f"{tag} D's head bias gradient {head} is not the sum of the D "
+                             f"update's dlogit ({len(dlogit)} recorded)")
+    out = _hold_route_step(f"{tag} kernels against plain:", res["kernels"], res["plain"],
+                           {"d.head_fc2.b": dlogit[0].abs().sum().item()})
+    out.update({k: res[k] for k in ("kernels_peak", "plain_peak", "kernels_s", "plain_s")})
+    return out
+
+
+def train_deit64_wide(steps: int = WIDE_STEPS) -> dict:
+    """[train deit64 wide]: deit64 at DeiT-B's widths (embed 768, 12 heads
+    of 64, hidden 3,072, depth 12; 256 tokens in G, 257 in D, batch 64,
+    dropout 0.1, DiffAugment) under the preset's megablock=auto through
+    Trainer: an eager warm-up step, a warm-up epoch of ``steps`` (the
+    capture), then ``steps`` captured steps by fit after _settle: ms/step,
+    peak memory, the launches a step asserted (wide_train_kernels: every
+    block of G and D on the megablock's wide kernels, no resident LN
+    kernel), a profiled breakdown of a captured call; one eager step from
+    one state on this route and on use_pallas=never within the route
+    comparison's bounds at dropout 0 (wide_against_plain); one batch-64
+    serving call of the trained generator on the megablock's inference
+    route, its launches."""
+    import shutil as _sh
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import count_params
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.serve import SamplerService
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag, smi = "[train deit64 wide]", _smi()
+    cfg = C.replace(C.deit64_config(), **DEIT_B, **_fit_over({
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
+        "run.steps_per_epoch": steps}))
+    m = cfg.v2
+    run_dir = tempfile.mkdtemp(prefix="deit64_wide_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        st = trainer.state
+        setup = time.perf_counter() - t0
+        print(f"{tag} {smi}: deit64 with {DEIT_B}: embed {m.embed_dim}, {m.num_heads} heads, "
+              f"hidden {m.embed_dim * m.mlp_ratio}, depth {m.depth}, batch {m.batch_size}, "
+              f"{m.image_size} px at patch {m.patch_size}, dropout {m.dropout}, augment "
+              f"{cfg.run.diff_augment!r}, megablock {cfg.runtime.megablock}; G "
+              f"{count_params(st.g)} D {count_params(st.d)} parameters; set up in {setup:.1f} s")
+        t0 = time.perf_counter()
+        warm = host_metrics(trainer.train_step(st, trainer.real_batch(trainer.batches()[0])))
+        print(f"{tag} 1 eager warm-up step in {time.perf_counter() - t0:.2f} s: {warm}")
+        grid = _grid_launches(trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit(epochs=1)  # the warm-up epoch, the capture among its steps
+        warm_s = time.perf_counter() - t0
+        _settle()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        # --- the DeiT-B-width path ---
+        means = trainer.fit()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        # --- end of the DeiT-B-width path ---
+        peak = torch.cuda.max_memory_allocated()
+        ms = 1e3 * m.batch_size / means["images_per_sec"]
+        want = wide_train_kernels(m)
+        per_step = _check_fit_launches(tag, launches, want, steps, grid)
+        if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
+                                                     "g_grad_norm")):
+            raise AssertionError(f"{tag} non-finite train metrics: {means}")
+        print(f"{tag} {smi}: {steps} captured steps by Trainer.fit: {ms:.2f} ms/step, "
+              f"{means['images_per_sec']:.2f} img/s; peak {peak / 2**30:.2f} GiB allocated over "
+              f"the capture and both epochs; warm-up epoch {warm_s:.1f} s; launches a step "
+              f"{want}")
+        breakdown = train_breakdown(trainer, ms, recompute=False)
+        trainer._build_device_fns()  # drop the fit's captured graphs and their memory pool
+        svc = SamplerService(cfg, trainer.gan, st.g, batch=m.batch_size)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        imgs = svc.sample(m.batch_size, seed=1)
+        serve_ms = 1e3 * (time.perf_counter() - t0)
+        served = {k: v for k, v in build.LAUNCHES.items() if v}
+        n_img = (m.batch_size, m.image_size, m.image_size, 3)
+        if imgs.shape != n_img or not np.isfinite(imgs).all():
+            raise AssertionError(f"{tag} serving: {imgs.shape}")
+        want_serve = {"ln_rows": 2 * m.depth, "ln_qkv_fwd_wide": m.depth,
+                      "flash_attn_fwd": m.depth, "proj_ln_mlp_fwd": m.depth,
+                      "ln_mlp_fc1_wide": m.depth, "ln_mlp_linear": 2 * m.depth}
+        if served != want_serve:
+            raise AssertionError(f"{tag} a batch-{m.batch_size} serving call launched {served}, "
+                                 f"expected {want_serve}")
+        print(f"{tag} one batch-{m.batch_size} serving call of the trained generator in "
+              f"{serve_ms:.1f} ms (host clock): launches {served}")
+        del svc, trainer, st
+        torch.cuda.empty_cache()
+        routes = wide_against_plain(cfg)
+    finally:
+        _sh.rmtree(run_dir, ignore_errors=True)
+    return {"card": smi, "set": DEIT_B, "ms_per_step": ms, "img_per_s": means["images_per_sec"],
+            "peak_allocated_bytes": peak, "setup_s": setup, "warm_epoch_s": warm_s,
+            "launches_per_step": {k: v // steps for k, v in per_step.items() if v},
+            "launches": per_step, "means": means, "breakdown": breakdown, "routes": routes,
+            "serve": {"ms": serve_ms, "launches": served}}
+
+
 # Kernel launches per highres128 train step at batch 32 (12 blocks; G's
 # forward, D's forward on [real; fake] and on fake, and the three backwards).
 TRAIN_KERNELS = {
@@ -1760,6 +2239,13 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("ln_qkv", "LN->qkv forward"),
                 ("megablock_bwd_mlp", "megablock backward, MLP half"),
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
+                # the wide variants' row kernels (E > 384; the streamed
+                # products are the kernels above with kStream true, the LN1
+                # half's dy1 among the MLP half's)
+                ("ln_rows_kernel", "LayerNorm rows (wide LN->qkv, LN->fc1)"),
+                ("mask_rows_kernel", "megablock backward, MLP half"),
+                ("ln_bwd_rows_kernel<0>", "megablock backward, MLP half"),
+                ("ln_bwd_rows_kernel<1>", "megablock backward, LN1 half"),
                 ("wgrad_gemm", "weight-gradient products"),
                 ("wgrad_reduce", "weight-gradient products"),
                 ("sum_partials", "second-pass sums"))
@@ -4320,7 +4806,7 @@ def cli_path() -> dict:
     return out
 
 
-SWEEP_SEED = 2  # its trials: embed 256 (the LN->MLP gate passes), 256, 128, 512
+SWEEP_SEED = 2  # its trials: embed 256, 256, 128, 512 (the LN->MLP gate passes 256 and 512)
 SWEEP_CUTS = ("run.steps_per_epoch=8", "run.fid_num_samples=1024")
 VEC_STEPS = 4  # run.steps_per_epoch of the vectorized group
 VEC_TOL = 1e-4  # a one-trial group against the in-place step: both run make_train_step
@@ -4375,9 +4861,13 @@ def sweep_path(work: str) -> dict:
             raise AssertionError(f"{tag} trial {r['trial']} is not the seed's draw")
         k = {n: v for n, v in r["launches"].items() if v}
         rows = p["batch_size"] * 64  # 64 tokens in G (32 px at patch 4)
-        # the auto gate: rows, hidden >= 512 and a width the kernel takes (E <= 384)
-        gated = p["embed_dim"] * 2 >= 512 and rows >= 2048 and p["embed_dim"] <= 384
-        stages = k.get("ln_mlp_fc1", 0), k.get("ln_mlp_linear", 0)
+        # the auto gate: rows and hidden >= 512 (every width here is a multiple of 8;
+        # E > 384 takes the wide LN -> fc1: the LN rows, then the streamed fc1)
+        gated = p["embed_dim"] * 2 >= 512 and rows >= 2048
+        fc1 = "ln_mlp_fc1_wide" if p["embed_dim"] > 384 else "ln_mlp_fc1"
+        stages = k.get(fc1, 0), k.get("ln_mlp_linear", 0)
+        if p["embed_dim"] > 384:
+            stages += (k.get("ln_rows", 0),)
         print(f"{tag} {smi}: trial {r['trial']} {p}: {r['seconds']:.2f} s, FID {r['fid']:.4f}, "
               f"collapsed {r['collapsed']}, launches {k}")
         if gated and not all(stages):
@@ -5058,6 +5548,9 @@ def main() -> int:
             records[name].update(rec)
         gate = check_training_gate()
         mark("megablock and LN->MLP kernels, gate")
+        wide_records, wide_forms = check_wide_kernels()
+        records.update(wide_records)
+        mark("wide kernels")
         train_launches, train = train_main_path(train_dir, "auto")
         shutil.rmtree(train_dir, ignore_errors=True)
         off_train_launches, train_off = train_main_path(train_dir, "off")
@@ -5065,6 +5558,9 @@ def main() -> int:
         train["deit64"] = train_deit64()
         train["routes"] = compare_train_routes()
         mark("train highres128, deit64, routes")
+        train["deit64_wide"] = wide_train = train_deit64_wide()
+        train["deit64_wide"]["wide_forms"] = wide_forms
+        mark("train deit64 wide")
         train["gate"], train["megablock_blocks"] = gate, mb_blocks
         v1_launches, v1 = train_v1_main_path(v1_dir)
         v1_fused_launches, v1["fused"] = train_v1_fused()
@@ -5164,11 +5660,17 @@ def main() -> int:
         "flash_attn_bwd_dkv[l2]": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
                                    v1_launches["flash_attn_bwd_dkv[l2]"]),
     }
+    # the wide variants, on the DeiT-B-width train path ([train deit64 wide])
+    for name, (src, replaces, form) in WIDE_KERNELS.items():
+        meta[name] = (src, replaces, wide_train["launches"].get(name, 0))
+        records[name]["variant_of"] = form
     paths = {"flash_attn_fwd[l2]": f"v1 train, {v1['steps']} captured steps",
              "flash_attn_bwd_dq[l2]": f"v1 train, {v1['steps']} captured steps",
              "flash_attn_bwd_dkv[l2]": f"v1 train, {v1['steps']} captured steps",
              "flash_attn_bwd_fused[l2]": "v1 train with bwd_fusion=fused, 3 captured steps",
-             "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward"}
+             "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward",
+             **{name: f"deit64 at DeiT-B width ({DEIT_B}), {WIDE_STEPS} captured steps"
+                for name in WIDE_KERNELS}}
     kernels = []
     for name, (src, replaces, n_launch) in meta.items():
         if n_launch <= 0:
@@ -5194,7 +5696,8 @@ def main() -> int:
                                                                  "ln_mlp_fwd")["launches"]
         if k["name"] in sass:
             k["sass"] = sass[k["name"]]
-        warned = ptxas_warnings.get(os.path.basename(k["source"])[:-3], [])
+        lib = build.SOURCE.get(k["name"], os.path.basename(k["source"])[:-3])
+        warned = ptxas_warnings.get(lib, [])
         k["ptxas_warnings"] = [f"{func}: {line}" for func, line in warned]
         # phases 22-24: launches a step of R1 training on the route that runs the
         # kernel ([double backward]), of one int8 serving call ([int8 serve]) and

@@ -15,7 +15,12 @@ LN->MLP forward against its plain version, each stage of the megablock
 backward's MLP half against its plain version, sum_partials bit-equal to
 its order model, LN->qkv at shapes whose tiles straddle samples (heads of
 64, 32 and 24) and the backward's LN1 half with its partials row for row,
-each bit-equal across two calls.
+each bit-equal across two calls; the wide variants (E > 384: the LN rows,
+the streamed fc1 and qkv products, the dmlp rows, the streamed dz1 and dao
+products, dy = a . w^T in f32 and the LN-backward rows) at E 520 and 768
+against their plain versions, the backward ones bit-equal across two calls,
+a whole wide block's saved backward against autograd of the plain block, and
+each wide variant forced at E 384 against the resident kernel.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -91,10 +96,12 @@ def test_kernel_matches_plain_on_card(name):
 @pytest.mark.cuda
 def test_auto_route_raises_on_card_for_unported_dtype_and_width():
     """Past the JAX package's gates, an f32 CUDA tensor makes the kernel's
-    wrapper raise, naming the ROADMAP.md item; so does a block wider than
-    the LN kernels take under 'always', where 'auto' declines it at the gate
-    (no kernel variant: E > 384) and it runs the plain version.  Nothing
-    falls back to the plain version in a wrapper on the card."""
+    wrapper raise, naming the ROADMAP.md item.  A block of E 512 passes the
+    'auto' gate as it passes the JAX one and launches the wide LN -> fc1
+    variant (ln_rows, ln_mlp_fc1_wide) and fc2, within 2e-2 * max(1,
+    max|plain|) of the plain version; in f32 it raises.  A width that is
+    no multiple of 8 raises under 'always', naming the ROADMAP.md item.
+    Nothing falls back to the plain version in a wrapper on the card."""
     _cuda_or_skip()
     saved = policy.get_policy()
     policy.set_policy(mode="auto", megablock="auto")
@@ -103,17 +110,27 @@ def test_auto_route_raises_on_card_for_unported_dtype_and_width():
         with pytest.raises(TypeError, match="ROADMAP"):
             A.dispatch_attention(q, q, q, "dot", 64.0)
         e, hidden = 512, 2048
-        x = torch.randn(2, 1024, e, device="cuda", dtype=torch.bfloat16)
-        w1 = torch.zeros(e, hidden, device="cuda")
-        w2, b1 = torch.zeros(hidden, e, device="cuda"), torch.zeros(hidden, device="cuda")
-        b = torch.zeros(e, device="cuda")
-        before = dict(build.LAUNCHES)
-        torch.testing.assert_close(FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b),
-                                   FM._reference(x, b, b, w1, b1, w2, b), rtol=0, atol=0)
-        assert build.LAUNCHES == before
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(2, 1024, e, device="cuda", generator=gen).to(torch.bfloat16)
+        w1 = 0.05 * torch.randn(e, hidden, device="cuda", generator=gen)
+        w2 = 0.05 * torch.randn(hidden, e, device="cuda", generator=gen)
+        b1, b = torch.zeros(hidden, device="cuda"), torch.zeros(e, device="cuda")
+        build.reset_launches()
+        got = FM.dispatch_ln_mlp(x, b + 1, b, w1, b1, w2, b)
+        want = FM._reference(x, b + 1, b, w1, b1, w2, b)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in build.LAUNCHES.items() if c} == {
+            "ln_mlp_fwd": 1, "ln_rows": 1, "ln_mlp_fc1_wide": 1, "ln_mlp_linear": 1}
+        tol = 2e-2 * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        with pytest.raises(TypeError, match="ROADMAP"):
+            FM.dispatch_ln_mlp(x.float(), b, b, w1, b1, w2, b)
         policy.set_policy(mode="always")
+        xu = torch.zeros(2, 1024, 516, device="cuda", dtype=torch.bfloat16)
+        bu = torch.zeros(516, device="cuda")
         with pytest.raises(ValueError, match="ROADMAP"):
-            FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b)
+            FM.dispatch_ln_mlp(xu, bu, bu, w1[:4].repeat(129, 1), b1, w2[:, :4].repeat(1, 129),
+                               bu)
     finally:
         policy.set_policy(**saved)
 
@@ -857,3 +874,176 @@ def test_megablock_bwd_ln1_matches_plain_row_for_row_on_card(m, e, heads, dh):
     close(got[1], want[1])
     close(got[2], want[2])
     close(WG.sum_partials(got[2]), want[2].sum(0))
+
+
+# --- the wide variants (E > 384) ---------------------------------------------------------
+
+
+def _wide_inputs(b, n, e, heads, hidden, rate, seed):
+    """One block's bf16 rows, f32 parameters and masks (or None) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+
+    m, f32 = b * n, torch.float32
+    c = dict(x=rn(m, e), g=rn(m, e), x1=rn(m, e), z1=rn(m, hidden), ao=rn(m, e),
+             dqkv=rn(m, 3 * e), dx1=rn(m, e, dtype=f32),
+             ln_s=1 + rn(e, scale=0.1, dtype=f32), ln_b=rn(e, scale=0.1, dtype=f32),
+             w1=rn(e, hidden, scale=0.05), b1=rn(hidden, scale=0.1, dtype=f32),
+             w2=rn(hidden, e, scale=0.05), wout=rn(e, e, scale=0.05),
+             qkv_w=rn(3, heads, e, e // heads, scale=0.05, dtype=f32),
+             qkv_b=rn(3 * e, scale=0.1, dtype=f32), m1=None, m2=None)
+    if rate:
+        c["m1"], c["m2"] = ((torch.rand((m, e), generator=gen, device="cuda") >= rate).to(f32)
+                            / (1 - rate) for _ in range(2))
+    return c
+
+
+def _fwd_close(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-2 * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _bwd_close(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+
+
+WIDE_SHAPES = [(2, 257, 520, 5, 1040), (2, 257, 768, 12, 3072)]
+WIDE_IDS = ["n257_e520", "n257_e768"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=WIDE_IDS)
+def test_wide_kernels_match_plain_on_card(shape, rate):
+    """Each wide launch against its plain version on the same bf16 inputs:
+    the LN rows, the streamed fc1 (h, z1) and qkv ((3, B, H, N, Dh), rows
+    that straddle samples) within 2e-2 * max(1, max|plain|); the dmlp rows
+    bit-equal to theirs; the streamed dz1, dy in f32, the dx1 rows (dln2 by
+    the partials' column sums), the streamed dao and the LN1 half (its
+    partials row for row) within 2e-2 * each output's own max|plain|, each
+    bit-equal across two calls; the launches counted under the wide names."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    c = _wide_inputs(*shape, rate, seed=e)
+    m = b * n
+    build.reset_launches()
+    y = FM.ln_rows(c["x"], c["ln_s"], c["ln_b"])
+    _fwd_close(y, FM.ln_rows_reference(c["x"], c["ln_s"], c["ln_b"]))
+    for got, want in zip(FM.fc1_stage(y, c["w1"], c["b1"], want_z1=True),
+                         FM.fc1_stage_reference(y, c["w1"], c["b1"])):
+        _fwd_close(got, want)
+    x3 = c["x"].reshape(b, n, e)
+    qkv = FB.ln_qkv_forward(x3, c["ln_s"], c["ln_b"], c["qkv_w"], c["qkv_b"])
+    _fwd_close(qkv, FB._ln_qkv_reference(x3, c["ln_s"], c["ln_b"], c["qkv_w"], c["qkv_b"]))
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "ln_rows": 2, "ln_mlp_fc1_wide": 1, "ln_qkv_fwd_wide": 1}
+    build.reset_launches()
+    if rate:
+        dmlp = FB.bwd_dmlp_rows(c["g"], c["m2"])
+        torch.cuda.synchronize()
+        assert torch.equal(dmlp, FB.bwd_dmlp_rows_reference(c["g"], c["m2"]))
+    stages = {
+        "dz1": (lambda: FB.bwd_dz1_stage(c["g"], c["m2"], c["z1"], c["w2"]),
+                lambda: FB.bwd_dz1_stage_reference(c["g"], c["m2"], c["z1"], c["w2"])),
+        "dy": (lambda: FB.bwd_dy(c["z1"], c["w1"]),
+               lambda: FB.bwd_dy_reference(c["z1"], c["w1"])),
+        "dx1": (lambda: FB.bwd_dx1_rows(FB.bwd_dy_reference(c["z1"], c["w1"]), c["g"], c["m1"],
+                                        c["x1"], c["ln_s"], c["ln_b"]),
+                lambda: FB.bwd_dx1_rows_reference(FB.bwd_dy_reference(c["z1"], c["w1"]), c["g"],
+                                                  c["m1"], c["x1"], c["ln_s"], c["ln_b"])),
+        "dao": (lambda: FB.bwd_dao_stage(c["g"], c["ao"], c["wout"], b, n, heads),
+                lambda: FB.bwd_dao_stage_reference(c["g"], c["ao"], c["wout"], b, n, heads)),
+        "ln1": (lambda: FB.megablock_bwd_ln1(c["dqkv"], c["qkv_w"], c["x"], c["dx1"], c["ln_s"],
+                                             c["ln_b"]),
+                lambda: FB._bwd_ln1_reference(c["dqkv"], c["qkv_w"], c["x"], c["dx1"], c["ln_s"],
+                                              c["ln_b"]))}
+    for name, (kern, plain) in stages.items():
+        got, again, want = kern(), kern(), plain()
+        got, again, want = ((t,) if torch.is_tensor(t) else t for t in (got, again, want))
+        for a, a2, w in zip(got, again, want):
+            assert torch.equal(a, a2), name
+            _bwd_close(a, w)
+        if name in ("dx1", "ln1"):
+            assert got[-1].shape == want[-1].shape == (-(-m // 64), 2 * e)
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    assert launched == {"megablock_bwd_mlp_dz1_wide": 2, "megablock_bwd_dy": 4,
+                        "megablock_bwd_mlp_dx1_rows": 2, "megablock_bwd_mlp_dao_wide": 2,
+                        "megablock_bwd_ln1_rows": 2,
+                        **({"megablock_bwd_mask_rows": 3} if rate else {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=WIDE_IDS)
+def test_wide_megablock_block_matches_autograd_of_the_plain_block_on_card(shape, rate):
+    """A whole block at E 520 and 768 through the wide variants: the training
+    forward's masks bit-equal to the plain Philox's, its output within 2e-2
+    * max(1, max|plain|); the saved backward's dx and 12 parameter gradients
+    within 2e-2 * their own max|plain| of autograd through the plain masked
+    block in f32; no resident LN kernel launched."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    x, g, params, seed = _mb_inputs(b, n, e, heads, hidden, seed=e)
+    p = FB._block_view(params)
+    build.reset_launches()
+    out, res = FB.fused_encoder_block(x, p, num_heads=heads, rate=rate, seed=seed,
+                                      want_residuals=True)
+    m1, m2 = ((res.m1, res.m2) if rate else (torch.ones(b, n, e, device="cuda"),) * 2)
+    dx, grads = FB.fused_encoder_block_bwd(params, g, res, num_heads=heads)
+    torch.cuda.synchronize()
+    for resident in ("ln_qkv_fwd", "ln_mlp_fc1", "megablock_bwd_mlp_dz1", "megablock_bwd_mlp_dx1",
+                     "megablock_bwd_mlp_dao", "megablock_bwd_ln1"):
+        assert build.LAUNCHES[resident] == 0, resident
+    assert build.LAUNCHES["ln_rows"] == 3 and build.LAUNCHES["ln_qkv_fwd_wide"] == 2
+    assert build.LAUNCHES["megablock_bwd_mlp_dx1_rows"] == build.LAUNCHES["megablock_bwd_ln1_rows"]
+    leaves = [x.float().requires_grad_(), *(t.clone().requires_grad_() for t in params)]
+    ref = FB._block_reference_masked(leaves[0], FB._block_view(leaves[1:]), m1, m2, heads)
+    _fwd_close(out.float(), ref.detach())
+    want = torch.autograd.grad(ref, leaves, g.float())
+    for got, w in zip((dx, *grads), want):
+        _bwd_close(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wide_variants_forced_at_384_match_the_resident_kernels_on_card(rate):
+    """At E 384 ``wide=True`` runs the wide variants where the resident
+    kernels run by default: LN -> fc1, LN -> qkv, the MLP half and the LN1
+    half each within 2e-2 of the resident kernel's result (forwards of
+    max(1, max|resident|), backward outputs of their own max|resident|);
+    the two read the same statistics."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = 2, 1025, 384, 6, 1536
+    c = _wide_inputs(b, n, e, heads, hidden, rate, seed=384)
+    for wide in (True, False):
+        build.reset_launches()
+        got = FM.ln_fc1_stage(c["x1"], c["ln_s"], c["ln_b"], c["w1"], c["b1"], want_z1=True,
+                              wide=wide)
+        if wide:
+            forced = got
+            assert build.LAUNCHES["ln_rows"] == 1 and build.LAUNCHES["ln_mlp_fc1"] == 0
+    for a, w in zip(forced, got):
+        _fwd_close(a, w)
+    x3 = c["x"].reshape(b, n, e)
+    qkv = [FB.ln_qkv_forward(x3, c["ln_s"], c["ln_b"], c["qkv_w"], c["qkv_b"], wide=w)
+           for w in (True, False)]
+    _fwd_close(*qkv)
+    args = (c["g"], c["m1"], c["m2"], c["x1"], c["z1"], c["ao"], c["w1"], c["w2"], c["wout"],
+            c["ln_s"], c["ln_b"], b, n, heads)
+    build.reset_launches()
+    forced, resident = FB.megablock_bwd_mlp(*args, wide=True), FB.megablock_bwd_mlp(*args)
+    assert build.LAUNCHES["megablock_bwd_mlp_dz1_wide"] == build.LAUNCHES["megablock_bwd_mlp_dz1"]
+    for k in forced._fields:
+        if k != "part":
+            _bwd_close(getattr(forced, k), getattr(resident, k))
+    _bwd_close(forced.part.sum(0), resident.part.sum(0))
+    ln1 = (c["dqkv"], c["qkv_w"], c["x"], c["dx1"], c["ln_s"], c["ln_b"])
+    for a, w in zip(FB.megablock_bwd_ln1(*ln1, wide=True), FB.megablock_bwd_ln1(*ln1)):
+        _bwd_close(a, w)

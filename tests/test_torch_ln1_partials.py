@@ -41,3 +41,29 @@ def test_ln1_half_partials_are_64_row_tile_sums(rows):
     for i in range(part.shape[0]):
         torch.testing.assert_close(part[i], cols[64 * i:64 * (i + 1)].sum(0), rtol=0, atol=1e-5)
     assert ((part.sum(0) - cols.sum(0)).abs() <= 1e-5 * cols.abs().sum(0)).all()
+
+
+@pytest.mark.parametrize("e", [520, 768])
+@pytest.mark.parametrize("rows", [1, 64, 195])
+def test_wide_ln1_rows_partials_are_64_row_tile_sums(rows, e):
+    """The wide LN1 half (dy1 = dqkv . wqkv^T in f32, then the LN1 rows): one
+    row of dln1 partials per 64-row tile, each the tile's column sums of dy1
+    * yhat1 and of dy1 (1e-4: sums of 64 products of up to 3E terms each),
+    and dx, y1 in x's dtype and shape."""
+    dh = 64 if e == 768 else 104  # 12 and 5 heads
+    heads = e // dh
+    rng = np.random.default_rng(rows + e)
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)  # noqa: E731
+                                     ).to(torch.bfloat16)
+    dqkv, x = bf(rows, 3 * heads * dh), bf(rows, e)
+    dx1 = torch.from_numpy(rng.standard_normal((rows, e)).astype(np.float32))
+    qkv_w = 0.05 * bf(3, heads, e, dh).float()
+    ln_s, ln_b = 1 + 0.1 * bf(e).float(), 0.1 * bf(e).float()
+    dy1 = FB.bwd_dy_reference(dqkv, FB._qkv_weight(qkv_w, torch.float32))
+    dx, y1, part = FB.bwd_ln1_rows_reference(dy1, x, dx1, ln_s, ln_b)
+    assert dx.shape == y1.shape == (rows, e) and dx.dtype == y1.dtype == torch.bfloat16
+    assert part.dtype == torch.float32 and part.shape == (-(-rows // 64), 2 * e)
+    yhat, _ = FB._ln_stats(x.float(), 1e-5)
+    cols = torch.cat([dy1 * yhat, dy1], 1)
+    for i in range(part.shape[0]):
+        torch.testing.assert_close(part[i], cols[64 * i:64 * (i + 1)].sum(0), rtol=0, atol=1e-4)

@@ -39,9 +39,14 @@ STAGE_RTOL = 2e-2
 RATE = 0.1
 
 # (batch, tokens, embed, heads), mlp_ratio 4: ragged row counts (34 and 195
-# rows, neither a multiple of the kernels' 128-row tiles) at E 32 and 48.
-SHAPES = [dict(b=2, n=17, e=32, heads=2), dict(b=3, n=65, e=48, heads=2)]
-IDS = ["rows34_e32", "rows195_e48"]
+# rows, neither a multiple of the kernels' 128-row tiles) at E 32 and 48, and
+# the wide variants' widths (E > 384) at 32 rows: E 520 (a multiple of 8 and
+# not of 64: the last 64-column box is zero-filled) and DeiT-B's 768.
+SHAPES = [dict(b=2, n=17, e=32, heads=2), dict(b=3, n=65, e=48, heads=2),
+          dict(b=2, n=16, e=520, heads=5), dict(b=2, n=16, e=768, heads=12)]
+IDS = ["rows34_e32", "rows195_e48", "rows32_e520", "rows32_e768"]
+# Wide plain versions against the fused stage plain versions, both in f32.
+WIDE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _block(shape, seed=0):
@@ -181,6 +186,52 @@ def test_training_stages_match_jax_masked_block(shape, monkeypatch):
     _close(out.float().reshape(b, n, e), np.asarray(want), "JAX _block_reference_masked")
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_wide_stages_compose_to_the_fused_stage_plain_versions(shape):
+    """The wide variants' plain versions (LN rows, then the streamed fc1 or
+    qkv product) composed in f32 equal the resident stages' plain versions
+    in f32 (ln_fc1_stage_reference, _ln_qkv_reference) within 1e-5."""
+    _, block = _block(shape)
+    b, n, e = shape["b"], shape["n"], shape["e"]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((b, n, e)).astype(np.float32))
+    ln2, f32 = (block.ln2.scale.detach(), block.ln2.bias.detach()), torch.float32
+    w1, b1 = block.fc1.w.detach(), block.fc1.b.detach()
+    y = FM.ln_rows_reference(x, *ln2, dtype=f32)
+    got = FM.fc1_stage_reference(y, w1, b1, dtype=f32)
+    want = FM.ln_fc1_stage_reference(x, *ln2, w1, b1, dtype=f32)
+    for g, w in zip(got, want):
+        assert g.dtype == f32
+        torch.testing.assert_close(g, w, **WIDE_TOL)
+    with torch.no_grad():
+        ln1 = (block.ln1.scale, block.ln1.bias)
+        got = FB.qkv_stage_reference(FM.ln_rows_reference(x, *ln1, dtype=f32), block.msha.qkv,
+                                     FB._qkv_bias(block), dtype=f32)
+        want = FB._ln_qkv_reference(x, *ln1, block.msha.qkv, FB._qkv_bias(block))
+    assert got.shape == (3, b, shape["heads"], n, e // shape["heads"])
+    torch.testing.assert_close(got, want, **WIDE_TOL)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_wide_ln_mlp_stages_match_the_whole_form_and_jax(shape, residual):
+    """The wide LN->MLP as the card runs it (LN(x) handed on in bf16, then
+    fc1, h in bf16, fc2) equals fused_mlp._reference and the JAX
+    fused_ln_mlp on the same bf16 rows, within STAGE_RTOL."""
+    tree, block = _block(shape)
+    x, xn = _rows(shape, shape["e"], 1)
+    args = _mlp_args(block)
+    y = FM.ln_rows_reference(x, args[0], args[1])
+    assert y.dtype == torch.bfloat16
+    h, _ = FM.fc1_stage_reference(y, args[2], args[3])
+    got = FM.linear_stage_reference(h, args[4], args[5], x if residual else None)
+    _close(got.float(), FM._reference(x.float(), *args, "gelu", 1e-5, residual), "whole form")
+    jargs = [tree["ln2"]["scale"], tree["ln2"]["bias"], tree["fc1"]["w"], tree["fc1"]["b"],
+             tree["fc2"]["w"], tree["fc2"]["b"]]
+    want = jax_fused_ln_mlp(jnp.asarray(xn), *map(jnp.asarray, jargs), "gelu", 1e-5, residual,
+                            256, True)
+    _close(got.float(), np.asarray(want), "JAX fused_ln_mlp")
+
+
 @pytest.mark.parametrize("splits,count", [(1, 8), (5, 96), (128, 768), (512, 768),
                                           (1025, 768), (300, 20)])
 def test_sum_partials_order_model_matches_sum(splits, count):
@@ -242,3 +293,36 @@ def test_stage_wrappers_count_each_launch_and_no_refusal(monkeypatch, rate):
     assert launched == ["ln_mlp_fc1", "ln_mlp_linear"]
     assert {k: n for k, n in FM.build.LAUNCHES.items() if n} == {"ln_mlp_fc1": 1,
                                                                  "ln_mlp_linear": 1}
+
+
+@pytest.mark.parametrize("e,wide", [(32, True), (520, False), (768, False)])
+def test_wide_fc1_stage_launches_ln_rows_then_the_streamed_product(monkeypatch, e, wide):
+    """Past E 384, or forced by ``wide``, ln_fc1_stage launches the wide
+    variant, ln_rows then ln_mlp_fc1_wide, each counted once, and no
+    resident fc1; below it without ``wide`` the resident stage alone.  C
+    entries replaced by a recorder, the CUDA check lifted."""
+    launched = []
+
+    def entry(name):
+        def fn(*args):
+            launched.append(name)
+            return 0
+        fn.__name__ = name
+        return fn
+
+    monkeypatch.setattr(FM.build, "entry", entry)
+    monkeypatch.setattr(FM.build, "stream_ptr", lambda dev: None)
+    monkeypatch.setattr(FM, "_bf16_rows", lambda t, what: t.contiguous())
+    monkeypatch.setattr(FM.build, "LAUNCHES", {k: 0 for k in FM.build.LAUNCHES})
+    a = torch.zeros(34, e, dtype=torch.bfloat16)
+    w1, b1, ln = torch.zeros(e, 2 * e), torch.zeros(2 * e), torch.ones(e)
+    h, z1 = FM.ln_fc1_stage(a, ln, ln, w1, b1, want_z1=True, wide=wide)
+    assert h.shape == z1.shape == (34, 2 * e)
+    assert launched == ["ln_rows", "ln_mlp_fc1_wide"]
+    assert {k: n for k, n in FM.build.LAUNCHES.items() if n} == {"ln_rows": 1,
+                                                                 "ln_mlp_fc1_wide": 1}
+    launched.clear()
+    FM.ln_fc1_stage(a[:, :32], ln[:32], ln[:32], w1[:32, :64], b1[:64])
+    assert launched == ["ln_mlp_fc1"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        FM.ln_fc1_stage(a[:, :12], ln[:12], ln[:12], w1[:12, :64], b1[:64], wide=True)

@@ -38,9 +38,22 @@ STAGE_RTOL = 2e-2
 RATE = 0.1
 
 # (batch, tokens, embed, heads), mlp_ratio 4: row counts 66 and 195, neither a
-# multiple of the kernels' 64- and 128-row tiles, at E 48 and deit64's 192.
-SHAPES = [dict(b=2, n=33, e=48, heads=2), dict(b=3, n=65, e=192, heads=3)]
-IDS = ["rows66_e48", "rows195_e192"]
+# multiple of the kernels' 64- and 128-row tiles, at E 48 and deit64's 192;
+# and 32 rows at the wide variants' widths (E > 384): E 520 (a multiple of 8
+# and not of 64) and DeiT-B's 768, whose halves compose the wide stages'
+# plain versions (dmlp rows, dy2 in f32, the dx1 rows).
+SHAPES = [dict(b=2, n=33, e=48, heads=2), dict(b=3, n=65, e=192, heads=3),
+          dict(b=2, n=16, e=520, heads=5), dict(b=2, n=16, e=768, heads=12)]
+IDS = ["rows66_e48", "rows195_e192", "rows32_e520", "rows32_e768"]
+# The wide plain versions against the fused stage plain versions, both in
+# f32: each output within 1e-5, the column partials summed over the tiles
+# within 1e-4 (sums of up to 4E products).
+WIDE_TOL = dict(rtol=1e-5, atol=1e-5)
+WIDE_PART_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _wide(shape) -> bool:
+    return FB.wide_route(shape["e"])
 
 
 def _block(shape, seed=0):
@@ -101,7 +114,7 @@ def test_stages_compose_to_the_whole_mlp_half(shape, has_drop):
     rows = _half_inputs(shape, has_drop)
     weights = [t.detach() for t in (block.fc1.w, block.fc2.w, block.msha.out.w, block.ln2.scale,
                                     block.ln2.bias)]
-    got = FB.bwd_mlp_stages_reference(*rows, *weights, b, n, h)
+    got = FB.bwd_mlp_stages_reference(*rows, *weights, b, n, h, wide=_wide(shape))
     want = FB._bwd_mlp_reference(*rows, *weights, b, n, h)
     for name in ("dmlp", "dz1", "h1", "y2", "da", "dao"):
         assert getattr(got, name).dtype == torch.bfloat16, name
@@ -131,7 +144,7 @@ def test_stages_in_the_saved_backward_match_jax(shape, has_drop, monkeypatch):
     monkeypatch.setattr(FB, "dropout_mask", lambda seed, i, s, rate: masks[i].reshape(s))
 
     def staged(g_, *args):
-        out = FB.bwd_mlp_stages_reference(g_, *args)
+        out = FB.bwd_mlp_stages_reference(g_, *args, wide=_wide(shape))
         return FB.BwdMlp(*(t.to(g_.dtype) if t.dtype == torch.bfloat16 else t for t in out))
 
     monkeypatch.setattr(FB, "_bwd_mlp_reference", staged)
@@ -183,6 +196,66 @@ def test_dx1_stage_partials_are_64_row_tile_sums(rows):
     for i in range(part.shape[0]):
         torch.testing.assert_close(part[i], cols[64 * i:64 * (i + 1)].sum(0), rtol=0, atol=1e-5)
     assert ((part.sum(0) - cols.sum(0)).abs() <= 1e-5 * cols.abs().sum(0)).all()
+
+
+@pytest.mark.parametrize("has_drop", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_wide_stages_compose_to_the_fused_stage_plain_versions(shape, has_drop):
+    """In f32, the wide variants' plain versions equal the resident stages'
+    plain versions: dmlp rows then the streamed dz1 product against the dz1
+    stage, dy2 = dz1 . w1^T then the dx1 rows against the dx1 stage, dy1 =
+    dqkv . wqkv^T then the LN1 rows against _bwd_ln1_reference; each output
+    within 1e-5, the partials summed over the tiles within 1e-4."""
+    _, block = _block(shape)
+    e, f32 = shape["e"], torch.float32
+    g, m1, m2, x1, z1, _ = (None if t is None else t.float()
+                            for t in _half_inputs(shape, has_drop))
+    w1, w2 = block.fc1.w.detach(), block.fc2.w.detach()
+    ln = (block.ln2.scale.detach(), block.ln2.bias.detach())
+    dmlp = g if m2 is None else FB.bwd_dmlp_rows_reference(g, m2, f32)
+    got = (dmlp, *FB.bwd_dz1_stage_reference(dmlp, None, z1, w2, f32)[1:])
+    want = FB.bwd_dz1_stage_reference(g, m2, z1, w2, f32)
+    for name, a, w in zip(("dmlp", "dz1", "h1"), got, want):
+        torch.testing.assert_close(a, w, **WIDE_TOL, msg=name)
+    dz1 = want[1]
+    got = FB.bwd_dx1_rows_reference(FB.bwd_dy_reference(dz1, w1), g, m1, x1, *ln, dtype=f32)
+    want = FB.bwd_dx1_stage_reference(dz1, g, m1, x1, w1, *ln, dtype=f32)
+    for name, a, w in zip(("dx1", "da", "y2"), got[:3], want[:3]):
+        assert a.dtype == f32
+        torch.testing.assert_close(a, w, **WIDE_TOL, msg=name)
+    assert got[3].shape == want[3].shape == (-(-x1.shape[0] // 64), 2 * e)
+    torch.testing.assert_close(got[3].sum(0), want[3].sum(0), **WIDE_PART_TOL)
+    rng = np.random.default_rng(6)
+    dqkv = torch.from_numpy(rng.standard_normal((x1.shape[0], 3 * e)).astype(np.float32))
+    dx1 = torch.from_numpy(rng.standard_normal(x1.shape).astype(np.float32))
+    ln1 = (block.ln1.scale.detach(), block.ln1.bias.detach())
+    wqkv = FB._qkv_weight(block.msha.qkv.detach(), f32)
+    got = FB.bwd_ln1_rows_reference(FB.bwd_dy_reference(dqkv, wqkv), x1, dx1, *ln1)
+    want = FB._bwd_ln1_reference(dqkv, block.msha.qkv.detach(), x1, dx1, *ln1)
+    for name, a, w in zip(("dx", "y1"), got[:2], want[:2]):
+        assert a.dtype == f32
+        torch.testing.assert_close(a, w, **WIDE_TOL, msg=name)
+    torch.testing.assert_close(got[2].sum(0), want[2].sum(0), **WIDE_PART_TOL)
+
+
+@pytest.mark.parametrize("e", [520, 768])
+@pytest.mark.parametrize("rows", [1, 65, 195])
+def test_wide_rows_partials_are_64_row_tile_sums(rows, e):
+    """The wide dx1 rows' dln2 partials: one row per 64-row tile, each the
+    tile's column sums of dy2 * yhat2 and dy2, as the resident dx1 stage's."""
+    rng = np.random.default_rng(rows + e)
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)  # noqa: E731
+                                     ).to(torch.bfloat16)
+    dy2 = torch.from_numpy(rng.standard_normal((rows, e)).astype(np.float32))
+    g, x1 = bf(rows, e), bf(rows, e)
+    ln_s, ln_b = 1 + 0.1 * bf(e).float(), 0.1 * bf(e).float()
+    dx1, da, y2, part = FB.bwd_dx1_rows_reference(dy2, g, None, x1, ln_s, ln_b)
+    assert dx1.dtype == part.dtype == torch.float32 and da.dtype == y2.dtype == torch.bfloat16
+    assert part.shape == (-(-rows // 64), 2 * e)
+    yhat, _ = FB._ln_stats(x1.float(), 1e-5)
+    cols = torch.cat([dy2 * yhat, dy2], 1)
+    for i in range(part.shape[0]):
+        torch.testing.assert_close(part[i], cols[64 * i:64 * (i + 1)].sum(0), rtol=0, atol=1e-4)
 
 
 def test_stage_wrappers_refuse_tensors_off_the_cpu_and_cuda():
@@ -241,3 +314,45 @@ def test_stage_wrappers_count_each_launch_and_no_refusal(monkeypatch, rate):
     assert {k: c for k, c in FB.build.LAUNCHES.items() if c} == {
         "megablock_bwd_mlp": 1, "megablock_bwd_mlp_dz1": 1, "megablock_bwd_mlp_dx1": 1,
         "megablock_bwd_mlp_dao": 1}
+
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_wide_wrappers_launch_the_wide_stages(monkeypatch, rate):
+    """Forced wide (as E > 384 takes them), the MLP half launches the dmlp
+    rows (with dropout), the streamed dz1, dy2 = dz1 . w1^T, the dx1 rows
+    and the streamed dao, one each, and counts one megablock_bwd_mlp call;
+    the LN1 half launches dy1 and the LN1 rows and no megablock_bwd_ln1.  C
+    entries replaced by a recorder, the CUDA check lifted."""
+    launched = []
+
+    def entry(name):
+        def fn(*args):
+            launched.append(name)
+            return 0
+        fn.__name__ = name
+        return fn
+
+    monkeypatch.setattr(FB.build, "entry", entry)
+    monkeypatch.setattr(FB.build, "stream_ptr", lambda dev: None)
+    monkeypatch.setattr(FB, "_check_bwd", lambda what, *ts: None)
+    monkeypatch.setattr(FB.build, "LAUNCHES", {k: 0 for k in FB.build.LAUNCHES})
+    shape = dict(b=2, n=17, e=32, heads=2)
+    g, m1, m2, x1, z1, ao = _half_inputs(shape, rate > 0)
+    rng = np.random.default_rng(4)
+    w1, w2, wout = (torch.from_numpy(rng.standard_normal(s, np.float32))
+                    for s in ((32, 128), (128, 32), (32, 32)))
+    ln = torch.ones(32)
+    out = FB.megablock_bwd_mlp(g, m1, m2, x1, z1, ao, w1, w2, wout, ln, ln, 2, 17, 2, wide=True)
+    assert out.part.shape == (1, 64) and out.dao.shape == (2, 2, 17, 16)
+    assert out.dmlp is not g if rate else out.dmlp is g
+    qkv_w = torch.from_numpy(rng.standard_normal((3, 2, 32, 16), np.float32))
+    dx, y1, part = FB.megablock_bwd_ln1(z1[:, :96], qkv_w, x1, out.dx1, ln, ln, wide=True)
+    assert dx.shape == y1.shape == (34, 32) and part.shape == (1, 64)
+    stages = (["megablock_bwd_mask_rows"] if rate else []) + [
+        "megablock_bwd_mlp_dz1_wide", "megablock_bwd_dy", "megablock_bwd_mlp_dx1_rows",
+        "megablock_bwd_mlp_dao_wide"]
+    assert launched == stages + ["megablock_bwd_dy", "megablock_bwd_ln1_rows"]
+    counts = {k: c for k, c in FB.build.LAUNCHES.items() if c}
+    assert counts == {"megablock_bwd_mlp": 1, "megablock_bwd_dy": 2,
+                      **{k: 1 for k in stages if k != "megablock_bwd_dy"},
+                      "megablock_bwd_ln1_rows": 1}

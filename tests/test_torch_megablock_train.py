@@ -12,6 +12,9 @@
   and bits that depend only on (seed, mask id, index);
 - one CPU train step with runtime.megablock=on against the same step with
   megablock=off from one state;
+- one CPU train step at E 520 (past the resident kernels' 384, so the
+  wide variants' route on the card) with runtime.megablock=on against the
+  JAX step from the JAX state: metrics, Adam's first moments, parameters;
 - the repaired runtime.megablock_bwd: a JAX config that sets 'recompute'
   keeps it in the port, whose gate then takes the standard path.
 
@@ -26,6 +29,7 @@ exact erf (the two differ by less than 1e-6).
 import json
 
 import jax
+import optax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,8 +37,11 @@ import torch
 
 from vitgan_tpu import config as JC
 from vitgan_tpu.config import V2Config as JaxV2Config
+from vitgan_tpu.models import build_gan as jax_build_gan
 from vitgan_tpu.models.vitgan_v2 import _encoder_init
 from vitgan_tpu.ops import fused_block as JFB
+from vitgan_tpu.train.state import create_train_state as jax_create_train_state
+from vitgan_tpu.train.step import make_train_step as jax_make_train_step
 from vitgan_tpu_torch import config as C
 from vitgan_tpu_torch.models import build_gan
 from vitgan_tpu_torch.models import layers as L
@@ -317,6 +324,58 @@ def test_cpu_train_step_megablock_on_matches_megablock_off(monkeypatch):
         np.testing.assert_allclose(mon[k].item(), moff[k].item(), **TOL, err_msg=k)
     for a, b in zip(gon, goff):
         assert (a - b).abs().max() <= GRAD_RTOL * b.abs().max() + 1e-9
+
+
+def test_wide_train_step_megablock_on_matches_jax(monkeypatch):
+    """One step at E 520 (5 heads of 104, hidden 1,040, 2 blocks, 16 tokens,
+    dropout 0, f32) with runtime.megablock=on, every block of G and D through
+    encoder_block_fused_saved and its plain saved backward, against the JAX
+    make_train_step from the same state on the same batch and latents (the
+    JAX step on the CPU takes its standard path): every metric and Adam's
+    first moments within 1e-5, the parameters within 2 * lr + 1e-6 (AdamW's
+    first step, tests/test_torch_v2_train.py)."""
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import make_train_step
+
+    over = {"runtime.compute_dtype": "float32", "v2.dropout": 0.0, "v2.embed_dim": 520,
+            "v2.num_heads": 5, "v2.image_size": 16, "v2.batch_size": 4}
+    jcfg = JC.replace(JC.smoke_config(), **over)
+    jgan = jax_build_gan(jcfg)
+    jst = jax_create_train_state(jax.random.PRNGKey(0), jgan, jcfg)
+    real = np.random.default_rng(0).uniform(-1, 1, (4, 16, 16, 3)).astype(np.float32)
+    k_noise = jax.random.split(jst.rng, 11)[1]  # the JAX step's latents (step.py:66-73)
+    z = np.array(jax.random.normal(k_noise, (4, jcfg.v2.latent_dim), jnp.float32))
+    jnew, jm = jax_make_train_step(jgan, jcfg, donate=False)(jst, jnp.asarray(real))
+
+    calls = []
+    bwd = FB.fused_encoder_block_bwd
+    monkeypatch.setattr(FB, "fused_encoder_block_bwd",
+                        lambda *a, **k: calls.append(1) or bwd(*a, **k))
+    cfg = C.replace(C.smoke_config(), **over, **{"runtime.use_pallas": "auto",
+                                                  "runtime.megablock": "on"})
+    policy.apply_from_runtime(cfg.runtime)
+    gan = build_gan(cfg)
+    state = create_train_state(gan, cfg, device="cpu")
+    load_into(state.g, from_jax_tree(jax.tree.map(np.asarray, jst.g_params)))
+    load_into(state.d, from_jax_tree(jax.tree.map(np.asarray, jst.d_params)))
+    m = make_train_step(gan, cfg)(state, torch.from_numpy(real), z=torch.from_numpy(z))
+    assert len(calls) == 3 * cfg.v2.depth  # D's blocks in D's update, D's and G's in G's
+    assert set(m) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(m[k].item(), float(jm[k]), **TOL, err_msg=k)
+    for net, opt, jopt, jparams in ((state.g, state.g_opt, jnew.g_opt, jnew.g_params),
+                                    (state.d, state.d_opt, jnew.d_opt, jnew.d_params)):
+        adam = [t for t in jax.tree.leaves(jopt, is_leaf=lambda t: isinstance(
+            t, optax.ScaleByAdamState)) if isinstance(t, optax.ScaleByAdamState)]
+        mu = from_jax_tree(jax.tree.map(np.asarray, adam[0].mu))
+        for name, p in net.named_parameters():
+            np.testing.assert_allclose(opt.opt.state[p]["exp_avg"].numpy(), mu[name].numpy(),
+                                       **TOL, err_msg=name)
+        want = from_jax_tree(jax.tree.map(np.asarray, jparams))
+        lr = opt.cfg.learning_rate
+        for name, p in net.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=0,
+                                       atol=2 * lr + 1e-6, err_msg=name)
 
 
 # --- the repaired runtime.megablock_bwd ------------------------------------------------

@@ -153,12 +153,13 @@ def test_dispatch_gates_follow_the_policy():
 
 def test_auto_gates_are_the_jax_gates(monkeypatch):
     """'auto' reads the device, the JAX package's size thresholds and the
-    widths the kernels have a variant for (E <= 384).  A CUDA tensor of
-    another dtype passes the gate and reaches the kernel's wrapper, which
-    raises; it never reaches the plain version; so does a wider block under
-    'always' and megablock 'on'.  Meta tensors stand in for CUDA ones: the
-    wrappers refuse them, where the plain versions would return a meta
-    result without complaint."""
+    widths the kernels take: every multiple of 8 (E 400 takes the wide
+    variants on the card, as E 384 the resident kernels), not E 404.  A
+    CUDA tensor of another dtype passes the gate and reaches the kernel's
+    wrapper, which raises; it never reaches the plain version; so does an
+    unaligned block under 'always' and megablock 'on'.  Meta tensors stand
+    in for CUDA ones: the wrappers refuse them, where the plain versions
+    would return a meta result without complaint."""
     for mod in (A, FM, FB):
         monkeypatch.setattr(mod, "on_cuda", lambda t: True)
     policy.set_policy(mode="auto", megablock="auto")
@@ -166,7 +167,8 @@ def test_auto_gates_are_the_jax_gates(monkeypatch):
     assert A.use_flash_attention(q, 256) and not A.use_flash_attention(q, 255)
     with pytest.raises(ValueError, match="CUDA"):
         A.dispatch_attention(q, q, q, "dot", 200.0)
-    for e, has_variant in ((384, True), (400, False)):  # f32; E > 384 has no variant
+    # f32; E 404 (Dh 202) is no multiple of 8
+    for e, has_variant in ((384, True), (400, True), (404, False)):
         hidden = 4 * e
         x = torch.empty(2, 1057, e, device="meta")
         w1, w2 = torch.empty(e, hidden, device="meta"), torch.empty(hidden, e, device="meta")

@@ -424,8 +424,12 @@ def test_synthetic_dataset_is_byte_identical(tmp_path):
 # --- megablock training gate -------------------------------------------------------------
 
 
+# (tokens, E, heads, hidden): highres128's G and D, deit64, short and long
+# sequences, then widths past 384, which the wide variants take: DeiT-B's
+# D (257, 768, 12, 3072) and the reference sweep's embed-512 trials.
 GATE_SHAPES = [(1024, 384, 6, 1536), (1025, 384, 6, 1536), (257, 192, 3, 768),
-               (65, 128, 4, 256), (4097, 128, 2, 512)]
+               (65, 128, 4, 256), (4097, 128, 2, 512), (257, 768, 12, 3072),
+               (1025, 512, 8, 1024), (1025, 512, 8, 2048), (65, 512, 8, 1024)]
 
 
 @pytest.mark.parametrize("n,e,heads,hidden", GATE_SHAPES)
@@ -530,11 +534,77 @@ def test_megablock_training_gate_is_the_jax_decision(n, e, heads, hidden, dropou
     policy.set_policy(megablock=mode)
     assert FB.megablock_route(block, x, cfg, True, True) == want
     if mode == "auto":
-        fits = 128 <= n <= 1056
+        c = lambda x, m: (x + m - 1) // m * m  # noqa: E731
+        pads = (c(n, 8), c(e, 128), c(hidden, 128), c(3 * e, 128))
+        fits = (128 <= n <= 1056 and JFB.saved_fwd_group(1, *pads, dropout > 0) >= 1
+                and JFB.saved_bwd_group(1, *pads, dropout > 0) >= 1)
         assert want == (("encoder_block_fused_dropout_saved" if dropout else
                          "encoder_block_fused_saved") if fits and bwd == "saved" else None)
     policy.set_policy(megablock="off")
     assert FB.megablock_route(block, x, cfg, True, True) is None
+
+
+def _jax_routes(n, e, heads, hidden, batch, monkeypatch) -> tuple:
+    """The JAX package's own decisions on a TPU, read from jaxprs (traced
+    only): whether its dispatch_ln_mlp on (batch, n, E) rows takes the
+    kernel, and the megablock variant its inference gate takes (None: the
+    standard path)."""
+    from vitgan_tpu.ops import policy as JP
+    from vitgan_tpu.ops.fused_mlp import dispatch_ln_mlp as jax_dispatch_ln_mlp
+
+    monkeypatch.setattr(JP, "on_tpu", lambda: True)
+    saved = JP.get_policy()
+    JP.set_policy(mode="auto", megablock="auto", megablock_bwd="saved")
+    try:
+        z = jnp.zeros
+        xs = jax.ShapeDtypeStruct((batch, n, e), jnp.bfloat16)
+        mlp = jax.make_jaxpr(lambda x: jax_dispatch_ln_mlp(
+            x, z(e), z(e), z((e, hidden)), z(hidden), z((hidden, e)), z(e)))(xs)
+        cfg = JC.V2Config(embed_dim=e, num_heads=heads, mlp_ratio=hidden // e)
+        dh = e // heads
+        p = {"ln1": {"scale": z(e), "bias": z(e)}, "ln2": {"scale": z(e), "bias": z(e)},
+             "msha": {"qkv": z((3, heads, e, dh)), "qkv_b": z((3, heads, dh)),
+                      "out": {"w": z((heads * dh, e)), "b": z(e)}},
+             "fc1": {"w": z((e, hidden)), "b": z(hidden)},
+             "fc2": {"w": z((hidden, e)), "b": z(e)}}
+
+        def gate(x):
+            out = JFB.maybe_megablock(p, x, cfg, None, False)
+            return x if out is None else out
+
+        block = _jax_pallas_outputs(jax.make_jaxpr(gate)(xs).jaxpr)
+    finally:
+        JP.set_policy(mode=saved["mode"], megablock=saved["megablock"],
+                      megablock_bwd=saved["megablock_bwd"])
+    return bool(_jax_pallas_outputs(mlp.jaxpr)), (JAX_VARIANTS[block[0]] if block else None)
+
+
+@pytest.mark.parametrize("n,e,heads,hidden", GATE_SHAPES)
+def test_auto_gates_decide_as_the_jax_gates(n, e, heads, hidden, monkeypatch):
+    """'auto' on the card ('on TPU' read as 'tensor on CUDA'; meta tensors
+    stand in) decides as the JAX package at every gate shape, E > 384
+    included: dispatch_ln_mlp takes the kernel (its wrapper then refuses the
+    meta tensor) where the JAX dispatch_ln_mlp takes the Pallas kernel
+    (2,048 rows, hidden >= 512), and the megablock's inference gate names
+    the JAX gate's variant.  No width cap of the port's own remains."""
+    batch = 8
+    want_mlp, want_block = _jax_routes(n, e, heads, hidden, batch, monkeypatch)
+    policy.set_policy(mode="auto", megablock="auto", megablock_bwd="saved")
+    monkeypatch.setattr(FM, "on_cuda", lambda t: True)
+    monkeypatch.setattr(FB, "on_cuda", lambda t: True)
+    x = torch.empty(batch, n, e, device="meta")
+    w1, w2 = torch.empty(e, hidden, device="meta"), torch.empty(hidden, e, device="meta")
+    b1, b = torch.empty(hidden, device="meta"), torch.empty(e, device="meta")
+    try:
+        took = not FM.dispatch_ln_mlp(x, b, b, w1, b1, w2, b).is_meta
+    except ValueError as err:
+        assert "CUDA" in str(err)
+        took = True
+    assert took == want_mlp
+    cfg = C.V2Config(embed_dim=e, num_heads=heads, mlp_ratio=hidden // e)
+    assert FB.megablock_route(EncoderBlock(cfg, None), x, cfg, False, False) == want_block
+    if e > 384 and 128 <= n <= 1056:  # the JAX gate takes these widths, and so does the port
+        assert want_block == "encoder_block_fused"
 
 
 # --- no plain version on the card -------------------------------------------------------

@@ -61,10 +61,33 @@ SIGNATURES = {
     "wgrad_gemm": [_P] * 5 + [_I] * 4 + [_P],
     # part, out, splits, count, stream
     "sum_partials": [_P] * 2 + [_I] * 2 + [_P],
+    # The wide variants (E > 384, or forced): csrc/ln_rows.cuh's row kernels
+    # beside products that stream their activations.
+    # x, ln_s, ln_b, y, m, e, eps, stream
+    "ln_rows": [_P] * 4 + [_I] * 2 + [_F, _P],
+    # y, w1, b1, h, z1, m, e, hidden, stream
+    "ln_mlp_fc1_wide": [_P] * 5 + [_I] * 3 + [_P],
+    # y, w, bias, qkv, batch, n, e, heads, dh, stream
+    "ln_qkv_fwd_wide": [_P] * 4 + [_I] * 5 + [_P],
+    # g, m2, dmlp, m, e, stream
+    "megablock_bwd_mask_rows": [_P] * 3 + [_I] * 2 + [_P],
+    # dmlp, z1, w2, dz1, h1, m, e, hidden, stream
+    "megablock_bwd_mlp_dz1_wide": [_P] * 5 + [_I] * 3 + [_P],
+    # a, w, dy, m, k, n, stream
+    "megablock_bwd_dy": [_P] * 3 + [_I] * 3 + [_P],
+    # dy2, g, m1, x1, ln_s, ln_b, dx1, da, y2, part, m, e, eps, stream
+    "megablock_bwd_mlp_dx1_rows": [_P] * 10 + [_I] * 2 + [_F, _P],
+    # da, ao, wout, dao, delta, batch, n, e, heads, dh, stream
+    "megablock_bwd_mlp_dao_wide": [_P] * 5 + [_I] * 5 + [_P],
+    # dy1, x, dx1, ln_s, ln_b, dx, y1, part, m, e, eps, stream
+    "megablock_bwd_ln1_rows": [_P] * 8 + [_I] * 2 + [_F, _P],
 }
-SOURCE = {"ln_mlp_fc1": "ln_mlp_fwd", "ln_mlp_linear": "ln_mlp_fwd",
-          **{f"megablock_bwd_mlp_{stage}": "megablock_bwd_mlp" for stage in ("dz1", "dx1", "dao")},
-          "sum_partials": "wgrad_gemm"}
+SOURCE = {"ln_mlp_fc1": "ln_mlp_fwd", "ln_mlp_linear": "ln_mlp_fwd", "ln_rows": "ln_mlp_fwd",
+          "ln_mlp_fc1_wide": "ln_mlp_fwd", "ln_qkv_fwd_wide": "ln_qkv_fwd",
+          **{f"megablock_bwd_mlp_{stage}": "megablock_bwd_mlp"
+             for stage in ("dz1", "dx1", "dao", "dz1_wide", "dx1_rows", "dao_wide")},
+          "megablock_bwd_mask_rows": "megablock_bwd_mlp", "megablock_bwd_dy": "megablock_bwd_mlp",
+          "megablock_bwd_ln1_rows": "megablock_bwd_ln1", "sum_partials": "wgrad_gemm"}
 SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 
 # Launch counts by wrapper, each added to where its kernel launches.  The two
@@ -75,9 +98,16 @@ SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 # two linear) and its training form ("ln_mlp_train_fwd", the same).  So do
 # the three stage kernels of megablock_bwd_mlp.cu ("megablock_bwd_mlp_dz1",
 # "_dx1", "_dao") and the backward's MLP half that composes them
-# ("megablock_bwd_mlp", one launch of each a call).  The
-# flash kernels count their `dot` launches under their name and the other
-# score modes apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
+# ("megablock_bwd_mlp", one launch of each a call).  At E > 384 (or
+# forced) the same calls launch the wide variants instead, each counted
+# under its own name: LN->fc1 as "ln_rows" and "ln_mlp_fc1_wide", LN->qkv as
+# "ln_rows" and "ln_qkv_fwd_wide", the MLP half as "megablock_bwd_mask_rows"
+# (with dropout), "megablock_bwd_mlp_dz1_wide", "megablock_bwd_dy",
+# "megablock_bwd_mlp_dx1_rows" and "megablock_bwd_mlp_dao_wide" (the calls
+# still counted as "megablock_bwd_mlp"), the LN1 half as "megablock_bwd_dy"
+# and "megablock_bwd_ln1_rows" (no "megablock_bwd_ln1").  The flash kernels
+# count their `dot` launches under their name and the other score modes
+# apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
 LAUNCHES = {name: 0 for name in SIGNATURES}
 LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0, megablock_bwd_mlp=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (

@@ -203,7 +203,8 @@ __device__ inline int swz(int r, int jj, int t) { return r * 128 + ((jj ^ (r & 7
 // columns: the mean, then the mean of squared deviations (the JAX package's
 // order), each summed in the lane, then over the eight lanes by three
 // shuffles; chunks past e read as zeros.  `off` is the row's chunk offset
-// in a box: r * 128 + ((l ^ r % 8) << 4).
+// in a box: r * 128 + ((l ^ r % 8) << 4).  ln_rows.cuh's row_stats8 takes
+// the same sums in the same order from rows in device memory, at any E.
 __device__ inline void ln_row8(const unsigned char* as, int box, int off, int e, float eps,
                                float (&v)[6][8], float& mean, float& rstd) {
   const int l8 = threadIdx.x & 7, nch = e >> 3;

@@ -34,6 +34,9 @@
 // zero-fills rows past M and columns past K or E (zeros into the products);
 // its stores clip rows past M and columns past E.
 //
+// E > 384 does not fit two 192-column warpgroups: the wide variants write
+// dy in f32 and run ln_rows.cuh's row kernel with the same epilogues.
+//
 // Shared memory: the ring 2 x (8 KB + 48 KB), x's tile and g's (or dx's
 // staging) 48 KB each, statistics, exchange and partials: 230,960 bytes, one
 // block an SM.

@@ -46,6 +46,14 @@
 //       wgmma reads them),
 //       then walk every 256-column tile of the hidden width against it while
 //       w1 streams through the ring; epilogue bias, [z1], gelu, bf16 h.
+//   The wide variant (E > 384, which the resident tile cannot hold, or
+//       forced by the wrapper): ln_rows.cuh's ln_rows_kernel writes LN(x) in
+//       bf16 with ln_resident's statistics (the same order, so at E <= 384 the
+//       same bits), then ln_mlp_fc1_kernel<kStream = true> streams those
+//       rows beside w1, one 64-column box of the tile's 128 rows in each of
+//       four stages, for every 256-column tile; the epilogue is the same.
+//       The cost: LN(x) leaves the chip (M E 2 bytes each way) and A is read
+//       once a 256-column tile (from L2).
 // Epilogues go one 64-column box at a time: the box's bias loads issued
 // together, the f32 masks stored directly (a quad writes a whole 32-byte
 // sector), the bf16 outputs staged in shared memory and written by TMA
@@ -72,13 +80,19 @@
 // ~0.15 GB of activations: 0.176 ms of tensor-core time, so the tensor cores
 // bound it; the training form at G's 32,768 rows also writes z1, x1 and two
 // f32 masks: 0.091 ms by its bytes.  E, hidden and H*Dh multiples of 8
-// (TMA's 16-byte strides); E <= 384 (fc1's resident A).
+// (TMA's 16-byte strides); E <= 384 for fc1's resident A, any E for the wide
+// variant.  At DeiT-B's G (16,384 rows, E 768, hidden 3,072) the wide fc1
+// is bound by its 7.7e10 flops (0.078 ms) and ran 0.23 ms, torch.matmul of
+// its product 0.12, ln_rows 0.032 against 0.015 by bytes (H100 80GB HBM3 at
+// 700 W, chip_smoke.py [wide kernels]; PERF.md).
 //
 // ptxas -v (sm_90a, CUDA 12.9): both kernels launch at 168 registers a thread
 // (the producer warpgroup drops to 40, the consumers take 232 by
 // setmaxnreg), no spills and no performance warning; dynamic shared memory
-// 230,464 bytes (fc1) and 230,480 (linear): one block an SM.
+// 230,464 bytes (fc1) and 230,480 (linear): one block an SM.  The wide fc1
+// (kStream true) too launches at 168 registers, 230,480 bytes.
 #include "hopper.cuh"
+#include "ln_rows.cuh"
 
 using namespace vk;
 using namespace vk::hopper;
@@ -284,35 +298,47 @@ ln_mlp_linear_kernel(const __grid_constant__ CUtensorMap ta,
 namespace fc1 {
 constexpr int BN = 256;                       // output columns a tile
 constexpr int NB = BN / 64;                   // B boxes a stage
-constexpr int STAGES = 3;
-constexpr int STAGE = NB * BBOX;
 constexpr int OBOX = 64 * 64 * 2;             // a warpgroup's 64 rows of one output box
-constexpr int SMEM = 1024 + MAXKB * ABOX + STAGES * STAGE + 2 * 2 * OBOX + (2 * STAGES + 2) * 8;
+// resident A: a 3-stage ring of four B boxes; streamed A (the wide variant):
+// a 4-stage ring of one A box and four B boxes
+template <bool kStream>
+constexpr int STAGES = kStream ? 4 : 3;
+template <bool kStream>
+constexpr int STAGE = (kStream ? ABOX : 0) + NB * BBOX;
+template <bool kStream>
+constexpr int SMEM = 1024 + (kStream ? 0 : MAXKB * ABOX) + STAGES<kStream> * STAGE<kStream> +
+                     2 * 2 * OBOX + (2 * STAGES<kStream> + 2) * 8;
 }  // namespace fc1
 
-// A block takes a 128-row tile of A whole (the resident A): the consumer
-// warpgroups normalise their 64 rows each, then walk every 256-column tile
-// of the hidden width against it while w1 streams through the ring.
+// kStream false: a block takes a 128-row tile of A whole (the resident A):
+// the consumer warpgroups normalise their 64 rows each, then walk every
+// 256-column tile of the hidden width against it while w1 streams through
+// the ring.  kStream true (E > 384): A is LN(x) already (ln_rows.cuh) and
+// streams beside w1, one 64-column box of the tile's 128 rows a stage, for
+// every 256-column tile; the epilogue is the same.
+template <bool kStream>
 __global__ void __launch_bounds__(THREADS, 1)
 ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tz,
                   const Params p) {
   using namespace fc1;
+  constexpr int NST = STAGES<kStream>, ST = STAGE<kStream>;
+  constexpr int BOFS = kStream ? ABOX : 0;              // a stage's B boxes after its A box
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  unsigned char* as = smem;                             // box kb of A at kb ABOX
-  unsigned char* stages = as + MAXKB * ABOX;            // stage s at s STAGE
-  unsigned char* staging = stages + STAGES * STAGE;     // (warpgroup w, output o) at (2 w + o) OBOX
+  unsigned char* as = smem;                             // box kb of A at kb ABOX (resident)
+  unsigned char* stages = as + (kStream ? 0 : MAXKB * ABOX);  // stage s at s ST
+  unsigned char* staging = stages + NST * ST;           // (warpgroup w, output o) at (2 w + o) OBOX
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + 4 * OBOX);
-  uint64_t* empty = full + STAGES;
-  uint64_t* afull = empty + STAGES;                     // A landed / A free again
+  uint64_t* empty = full + NST;
+  uint64_t* afull = empty + NST;                        // A landed / A free again (resident)
   uint64_t* aempty = afull + 1;
 
   const int wgi = threadIdx.x >> 7;
   const int nkb = (p.k + 63) / 64;
   const int ntiles = (p.n + BN - 1) / BN, units = (p.m + BM - 1) / BM;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);
     }
@@ -324,20 +350,22 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 
   if (wgi == 0) {
     reg_dealloc<40>();
-    if (threadIdx.x == 0) {  // w1, stage by stage, every tile of every unit in order
+    if (threadIdx.x == 0) {  // w1 [and A], stage by stage, every tile of every unit in order
       int it = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x)
         for (int nt = 0; nt < ntiles; ++nt) {
           const int n0 = nt * BN, nbox = min(NB, (p.n - n0 + 63) / 64);
           for (int kb = 0; kb < nkb; ++kb, ++it) {
-            const int s = it % STAGES;
-            if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
-            mbar_arrive_tx(&full[s], nbox * BBOX);
+            const int s = it % NST;
+            if (it >= NST) mbar_wait(&empty[s], ((it / NST) - 1) & 1);
+            unsigned char* st = stages + s * ST;
+            mbar_arrive_tx(&full[s], BOFS + nbox * BBOX);
+            if (kStream) tma_load_2d(st, &ta, &full[s], kb * 64, u * BM);
             for (int b = 0; b < nbox; ++b)
-              tma_load_2d(stages + s * STAGE + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
+              tma_load_2d(st + BOFS + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
           }
         }
-    } else if (threadIdx.x == 32) {  // A, one 128-row tile at a time
+    } else if (!kStream && threadIdx.x == 32) {  // A, one 128-row tile at a time
       int i = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
         if (i > 0) mbar_wait(aempty, (i - 1) & 1);
@@ -358,16 +386,19 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   int it = 0, i = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
     const int m0 = u * BM, r0 = m0 + 64 * w;
-    mbar_wait(afull, i & 1);
-    ln_resident(as, ABOX, 64 * w, p.k, p.ln_s, p.ln_b, p.eps);
-    fence_proxy_async();           // the normalised rows, to wgmma's operand reads
-    named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
+    if (!kStream) {
+      mbar_wait(afull, i & 1);
+      ln_resident(as, ABOX, 64 * w, p.k, p.ln_s, p.ln_b, p.eps);
+      fence_proxy_async();           // the normalised rows, to wgmma's operand reads
+      named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
+    }
     for (int nt = 0; nt < ntiles; ++nt) {
       for (int kb = 0; kb < nkb; ++kb, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        const unsigned char* a = as + kb * ABOX + w * (64 * 128);
-        const unsigned char* b = stages + s * STAGE;
+        const int s = it % NST;
+        mbar_wait(&full[s], (it / NST) & 1);
+        const unsigned char* st = stages + s * ST;
+        const unsigned char* a = (kStream ? st : as + kb * ABOX) + w * (64 * 128);
+        const unsigned char* b = st + BOFS;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -375,13 +406,14 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
                              desc_sw128(b + kk * 2048, BBOX, 1024), kb > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % NST]);
       }
       wgmma_wait<0>();
       fence_regs(acc);
       if (ct == 0) {
-        mbar_arrive(&empty[(it - 1) % STAGES]);
-        if (nt == ntiles - 1) mbar_arrive(aempty);  // every product of this unit has read A
+        mbar_arrive(&empty[(it - 1) % NST]);
+        // every product of this unit has read the resident A
+        if (!kStream && nt == ntiles - 1) mbar_arrive(aempty);
       }
       // epilogue, one 64-column box at a time: bias, [z1], gelu staged in
       // shared memory, one TMA store per output (rows past m, columns past n
@@ -426,6 +458,17 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   if (ct == 0) bulk_wait<0>();
 }
 
+template <bool kStream>
+int launch_fc1(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& th,
+               const CUtensorMap& tz, const Params& p, void* stream) {
+  const int units = (p.m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(ln_mlp_fc1_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       fc1::SMEM<kStream>);
+  ln_mlp_fc1_kernel<kStream><<<grid, THREADS, fc1::SMEM<kStream>,
+                               static_cast<cudaStream_t>(stream)>>>(ta, tb, th, tz, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // h (m, hidden) bf16 = gelu(LN(a) . w1 + b1) and, when z1 != NULL, z1 (m,
@@ -451,12 +494,35 @@ extern "C" int ln_mlp_fc1(const void* a, const void* ln_s, const void* ln_b, con
   p.ln_b = static_cast<const float*>(ln_b);
   p.eps = eps;
   p.z1 = static_cast<const bf16*>(z1);
-  const int units = (m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
-  cudaFuncSetAttribute(ln_mlp_fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       fc1::SMEM);
-  ln_mlp_fc1_kernel<<<grid, THREADS, fc1::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      ta, tb, th, tz, p);
-  return (int)cudaGetLastError();
+  return launch_fc1<false>(ta, tb, th, tz, p, stream);
+}
+
+// The wide variant (any E a multiple of 8): y (m, e) bf16 = LN(a) from
+// ln_rows, then h = gelu(y . w1 + b1) [and z1] with y streamed.  Arguments
+// as ln_mlp_fc1's, less the LayerNorm's.
+extern "C" int ln_mlp_fc1_wide(const void* y, const void* w1, const void* b1, void* h, void* z1,
+                               int m, int e, int hidden, void* stream) {
+  if (m < 0 || e < 8 || e % 8 || hidden < 8 || hidden % 8) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, th, tz;
+  int err = tmap_2d(&ta, y, m, e, BM);
+  if (!err) err = tmap_2d(&tb, w1, e, hidden, 64);
+  if (!err) err = tmap_2d(&th, h, m, hidden, 64);
+  if (!err) err = tmap_2d(&tz, z1 != nullptr ? z1 : h, m, hidden, 64);
+  if (err) return err;
+  Params p{};
+  p.m = m, p.k = e, p.n = hidden;
+  p.bias = static_cast<const float*>(b1);
+  p.z1 = static_cast<const bf16*>(z1);
+  return launch_fc1<true>(ta, tb, th, tz, p, stream);
+}
+
+// y (m, e) bf16 = LN(x) with gamma ln_s, beta ln_b (e,) f32, the statistics
+// in the resident kernels' order (ln_rows.cuh).  x: (m, e) bf16; e a
+// multiple of 8; bases 16-byte aligned.
+extern "C" int ln_rows(const void* x, const void* ln_s, const void* ln_b, void* y, int m, int e,
+                       float eps, void* stream) {
+  return lnrows::ln_rows(x, ln_s, ln_b, y, m, e, eps, stream);
 }
 
 // out (m, n) bf16 = [res +] [mask *] (a . w + bias).  a: (m, k) bf16; w: (k,

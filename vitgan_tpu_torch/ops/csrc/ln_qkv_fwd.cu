@@ -63,7 +63,17 @@
 // 1,152) a launch does 2*65536*384*1152 = 5.8e10 flops (0.059 ms) on 50 MB of
 // x, 151 MB of qkv and 0.9 MB of weights (0.060 ms): HBM and the tensor cores
 // are about even.  At G's 32,768 rows about 0.030 ms.  E and Dh multiples of 8
-// (TMA's 16-byte strides, the 16-byte copy-out); E <= 384 (the resident x).
+// (TMA's 16-byte strides, the 16-byte copy-out); E <= 384 for the resident x,
+// any E for the wide variant.
+//
+// The wide variant (E > 384, or forced by the wrapper): ln_mlp_fwd.cu's
+// ln_rows writes LN1(x) in bf16 with ln_resident's statistics, then
+// ln_qkv_fwd_kernel<kStream = true> streams those rows beside wqkv, one
+// 64-column box of the unit's 128 rows and three wqkv boxes in each of four
+// stages, with the same epilogue and copy-out.  At DeiT-B's G (16,384 rows, E
+// 768) it is bound by its 5.8e10 flops (0.059 ms) and ran 0.11 ms, torch.matmul
+// of its product 0.093 (H100 80GB HBM3 at 700 W, chip_smoke.py [wide
+// kernels]).
 //
 // Where the time goes (scripts/phase_trace.py, PERF.md): of a 128-row unit
 // at the serving shape the products take about half, the LayerNorm a sixth,
@@ -88,12 +98,19 @@ constexpr int BBOX = 64 * 64 * 2;    // one 64 (K) x 64 (N) box of wqkv
 constexpr int MAXKB = 6;             // the resident x boxes: E <= 384
 constexpr int BN = 192;              // output columns a tile
 constexpr int NB = BN / 64;          // wqkv boxes a stage
-constexpr int STAGES = 3;
-constexpr int STAGE = NB * BBOX;
 constexpr int OBOX = 64 * 64 * 2;    // a warpgroup's 64 rows of one 64-column box
 constexpr int MAXE = 64 * MAXKB;
-constexpr int SMEM = 1024 + MAXKB * ABOX + STAGES * STAGE + 2 * NB * OBOX + 2 * MAXE * 4 +
-                     2 * BN * 4 + (2 * STAGES + 2) * 8;
+// resident x: a 3-stage ring of three wqkv boxes; streamed (the wide
+// variant, y = LN(x) from ln_rows): a 4-stage ring of one y box and three
+// wqkv boxes, and no gamma or beta in shared memory
+template <bool kStream>
+constexpr int STAGES = kStream ? 4 : 3;
+template <bool kStream>
+constexpr int STAGE = (kStream ? ABOX : 0) + NB * BBOX;
+template <bool kStream>
+constexpr int SMEM = 1024 + (kStream ? 0 : MAXKB * ABOX + 2 * MAXE * 4) +
+                     STAGES<kStream> * STAGE<kStream> + 2 * NB * OBOX + 2 * BN * 4 +
+                     (2 * STAGES<kStream> + 2) * 8;
 
 struct Params {
   int m, e, n;            // rows, E, 3 H Dh
@@ -106,26 +123,33 @@ struct Params {
   bf16* qkv;
 };
 
+// kStream false: the resident x, normalised in place.  kStream true (E >
+// 384): x is y = LN(x) already (ln_rows.cuh) and streams beside wqkv, one
+// 64-column box of the unit's 128 rows a stage, for every 192-column tile;
+// the epilogue is the same.
+template <bool kStream>
 __global__ void __launch_bounds__(THREADS, 1)
 ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   const Params p) {
+  constexpr int NST = STAGES<kStream>, ST = STAGE<kStream>;
+  constexpr int BOFS = kStream ? ABOX : 0;              // a stage's wqkv boxes after its y box
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  unsigned char* as = smem;                             // box kb of x at kb ABOX
-  unsigned char* stages = as + MAXKB * ABOX;            // stage s at s STAGE
-  unsigned char* staging = stages + STAGES * STAGE;     // (warpgroup w, box b) at (w NB + b) OBOX
+  unsigned char* as = smem;                             // box kb of x at kb ABOX (resident)
+  unsigned char* stages = as + (kStream ? 0 : MAXKB * ABOX);  // stage s at s ST
+  unsigned char* staging = stages + NST * ST;           // (warpgroup w, box b) at (w NB + b) OBOX
   float* lnp = reinterpret_cast<float*>(staging + 2 * NB * OBOX);  // gamma at c, beta at MAXE + c
-  float* biases = lnp + 2 * MAXE;                       // warpgroup w's tile of bias at w BN
+  float* biases = lnp + (kStream ? 0 : 2 * MAXE);       // warpgroup w's tile of bias at w BN
   uint64_t* full = reinterpret_cast<uint64_t*>(biases + 2 * BN);
-  uint64_t* empty = full + STAGES;
-  uint64_t* afull = empty + STAGES;                     // x landed / x free again
+  uint64_t* empty = full + NST;
+  uint64_t* afull = empty + NST;                        // x landed / x free again (resident)
   uint64_t* aempty = afull + 1;
 
   const int wgi = threadIdx.x >> 7;
   const int nkb = (p.e + 63) / 64;
   const int ntiles = (p.n + BN - 1) / BN, units = (p.m + BM - 1) / BM;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);
     }
@@ -137,20 +161,22 @@ ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 
   if (wgi == 0) {
     reg_dealloc<40>();
-    if (threadIdx.x == 0) {  // wqkv, stage by stage, every tile of every unit in order
+    if (threadIdx.x == 0) {  // wqkv [and y], stage by stage, every tile of every unit in order
       int it = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x)
         for (int nt = 0; nt < ntiles; ++nt) {
           const int n0 = nt * BN, nbox = min(NB, (p.n - n0 + 63) / 64);
           for (int kb = 0; kb < nkb; ++kb, ++it) {
-            const int s = it % STAGES;
-            if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
-            mbar_arrive_tx(&full[s], nbox * BBOX);
+            const int s = it % NST;
+            if (it >= NST) mbar_wait(&empty[s], ((it / NST) - 1) & 1);
+            unsigned char* st = stages + s * ST;
+            mbar_arrive_tx(&full[s], BOFS + nbox * BBOX);
+            if (kStream) tma_load_2d(st, &ta, &full[s], kb * 64, u * BM);
             for (int b = 0; b < nbox; ++b)
-              tma_load_2d(stages + s * STAGE + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
+              tma_load_2d(st + BOFS + b * BBOX, &tb, &full[s], n0 + 64 * b, kb * 64);
           }
         }
-    } else if (threadIdx.x == 32) {  // x, one 128-row unit at a time
+    } else if (!kStream && threadIdx.x == 32) {  // x, one 128-row unit at a time
       int i = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
         if (i > 0) mbar_wait(aempty, (i - 1) & 1);
@@ -168,20 +194,24 @@ ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   unsigned char* sbw = staging + w * NB * OBOX;
   float* bw = biases + w * BN;
   const int hd = p.heads * p.dh;
-  // gamma and beta, read by every row's LayerNorm, once from device memory
-  for (int c = 128 * w + ct; c < p.e; c += 256) {
-    lnp[c] = p.ln_s[c];
-    lnp[MAXE + c] = p.ln_b[c];
+  if (!kStream) {
+    // gamma and beta, read by every row's LayerNorm, once from device memory
+    for (int c = 128 * w + ct; c < p.e; c += 256) {
+      lnp[c] = p.ln_s[c];
+      lnp[MAXE + c] = p.ln_b[c];
+    }
+    named_bar_sync(3, 256);
   }
-  named_bar_sync(3, 256);
   float acc[BN / 2];
   int it = 0, i = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
     const int r0 = u * BM + 64 * w;
-    mbar_wait(afull, i & 1);
-    ln_resident(as, ABOX, 64 * w, p.e, lnp, lnp + MAXE, p.eps);
-    fence_proxy_async();           // the normalised rows, to wgmma's operand reads
-    named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
+    if (!kStream) {
+      mbar_wait(afull, i & 1);
+      ln_resident(as, ABOX, 64 * w, p.e, lnp, lnp + MAXE, p.eps);
+      fence_proxy_async();           // the normalised rows, to wgmma's operand reads
+      named_bar_sync(1 + w, 128);    // this warpgroup reads only its own 64 rows
+    }
     // the copy-out's rows of this thread, 16 q + ct / 8 of the warpgroup's 64:
     // where each starts in (3, B, H, N, Dh), or -1 past m
     long long row_off[4];
@@ -201,10 +231,11 @@ ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       }
       cp_async_commit();
       for (int kb = 0; kb < nkb; ++kb, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        const unsigned char* a = as + kb * ABOX + w * (64 * 128);
-        const unsigned char* b = stages + s * STAGE;
+        const int s = it % NST;
+        mbar_wait(&full[s], (it / NST) & 1);
+        const unsigned char* st = stages + s * ST;
+        const unsigned char* a = (kStream ? st : as + kb * ABOX) + w * (64 * 128);
+        const unsigned char* b = st + BOFS;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -212,13 +243,14 @@ ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
                              desc_sw128(b + kk * 2048, BBOX, 1024), kb > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % NST]);
       }
       wgmma_wait<0>();
       fence_regs(acc);
       if (ct == 0) {
-        mbar_arrive(&empty[(it - 1) % STAGES]);
-        if (nt == ntiles - 1) mbar_arrive(aempty);  // every product of this unit has read x
+        mbar_arrive(&empty[(it - 1) % NST]);
+        // every product of this unit has read the resident x
+        if (!kStream && nt == ntiles - 1) mbar_arrive(aempty);
       }
 
       // epilogue: bias added, the tile's boxes staged in bf16 (this thread
@@ -263,15 +295,10 @@ ln_qkv_fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   }
 }
 
-}  // namespace
-
-// x: (batch*n, e) bf16.  w: (e, 3*heads*dh) bf16 in _pad_params column order;
-// bias: (3*heads*dh,) f32, ln_s/ln_b: (e,) f32.  qkv: (3, batch, heads, n, dh)
-// bf16.  Bases 16-byte aligned; e and dh multiples of 8; e <= 384.
-extern "C" int ln_qkv_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w,
-                          const void* bias, void* qkv, int batch, int n, int e, int heads, int dh,
-                          float eps, void* stream) {
-  if (batch < 0 || n < 1 || heads < 1 || dh < 8 || dh % 8 || e < 8 || e > 64 * MAXKB || e % 8)
+template <bool kStream>
+int launch(const void* x, const void* ln_s, const void* ln_b, const void* w, const void* bias,
+           void* qkv, int batch, int n, int e, int heads, int dh, float eps, void* stream) {
+  if (batch < 0 || n < 1 || heads < 1 || dh < 8 || dh % 8 || e < 8 || e % 8)
     return (int)cudaErrorInvalidValue;
   const int m = batch * n, ncol = 3 * heads * dh;
   if (m == 0) return 0;
@@ -289,7 +316,29 @@ extern "C" int ln_qkv_fwd(const void* x, const void* ln_s, const void* ln_b, con
   p.eps = eps;
   p.qkv = static_cast<bf16*>(qkv);
   const int units = (m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
-  cudaFuncSetAttribute(ln_qkv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  ln_qkv_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(ta, tb, p);
+  cudaFuncSetAttribute(ln_qkv_fwd_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM<kStream>);
+  ln_qkv_fwd_kernel<kStream><<<grid, THREADS, SMEM<kStream>,
+                               static_cast<cudaStream_t>(stream)>>>(ta, tb, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (batch*n, e) bf16.  w: (e, 3*heads*dh) bf16 in _pad_params column order;
+// bias: (3*heads*dh,) f32, ln_s/ln_b: (e,) f32.  qkv: (3, batch, heads, n, dh)
+// bf16.  Bases 16-byte aligned; e and dh multiples of 8; e <= 384.
+extern "C" int ln_qkv_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w,
+                          const void* bias, void* qkv, int batch, int n, int e, int heads, int dh,
+                          float eps, void* stream) {
+  if (e > 64 * MAXKB) return (int)cudaErrorInvalidValue;
+  return launch<false>(x, ln_s, ln_b, w, bias, qkv, batch, n, e, heads, dh, eps, stream);
+}
+
+// The wide variant (any E a multiple of 8): y (batch*n, e) bf16 = LN1(x)
+// from ln_rows (ln_mlp_fwd.cu), streamed; arguments as ln_qkv_fwd's, less
+// the LayerNorm's.
+extern "C" int ln_qkv_fwd_wide(const void* y, const void* w, const void* bias, void* qkv,
+                               int batch, int n, int e, int heads, int dh, void* stream) {
+  return launch<true>(y, nullptr, nullptr, w, bias, qkv, batch, n, e, heads, dh, 0.f, stream);
 }

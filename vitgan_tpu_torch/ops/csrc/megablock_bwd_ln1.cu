@@ -36,7 +36,10 @@
 // does 2*M*E*K = 2.9e10 flops (0.029 ms) on 75 MB of dqkv, 25 MB of x and 50
 // MB of dx1 in and 25 MB each of dx and y1 out (0.060 ms): HBM bounds it.
 // At D's 65,600 rows 0.12 ms.  E and K multiples of 8 (TMA's 16-byte
-// strides); E <= 384 (two warpgroups of 192 columns).
+// strides); E <= 384 (two warpgroups of 192 columns).  A wider E (or the
+// wrapper forcing it) takes the wide variant: dy1 = dqkv . wqkv^T in f32 by
+// megablock_bwd_mlp.cu's streamed product, then megablock_bwd_ln1_rows below
+// (ln_rows.cuh's LayerNorm-backward rows with this epilogue).
 //
 // Where the time goes (scripts/phase_trace.py, PERF.md): of a 64-row tile at
 // G the products take about half, near twice the tensor cores' time for
@@ -53,6 +56,7 @@
 // block an SM.
 #include "hopper.cuh"
 #include "ln_bwd_tile.cuh"
+#include "ln_rows.cuh"
 
 using namespace vk;
 
@@ -91,4 +95,24 @@ extern "C" int megablock_bwd_ln1(const void* dqkv, const void* wqkv, const void*
   p.eps = eps;
   p.part = static_cast<float*>(part);
   return lnbwd::launch(megablock_bwd_ln1_kernel, dqkv, wqkv, x, nullptr, y1, dx, p, stream);
+}
+
+// The wide LN1 half's LayerNorm backward (any E a multiple of 8), after dy1 =
+// megablock_bwd_dy(dqkv, wqkv^T) (megablock_bwd_mlp.cu): dx, y1 and part as
+// megablock_bwd_ln1's.  dy1, dx1: (m, e) f32; x: (m, e) bf16.
+extern "C" int megablock_bwd_ln1_rows(const void* dy1, const void* x, const void* dx1,
+                                      const void* ln_s, const void* ln_b, void* dx, void* y1,
+                                      void* part, int m, int e, float eps, void* stream) {
+  lnrows::BwdParams p{};
+  p.m = m, p.e = e;
+  p.dy = static_cast<const float*>(dy1);
+  p.x = static_cast<const bf16*>(x);
+  p.res = static_cast<const float*>(dx1);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.eps = eps;
+  p.out = static_cast<bf16*>(dx);
+  p.y = static_cast<bf16*>(y1);
+  p.part = static_cast<float*>(part);
+  return lnrows::ln_bwd_rows<lnrows::kLn1>(p, stream);
 }

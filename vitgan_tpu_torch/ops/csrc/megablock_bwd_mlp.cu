@@ -59,6 +59,17 @@
 //       last column and stores delta.  dao is staged in bf16 and copied out
 //       16 bytes (8 columns of one head) a thread into (B, H, N, Dh), rows
 //       that straddle a batch included.
+// The wide variants (E > 384, which the resident A and the dx1 stage's two
+// 192-column warpgroups cannot hold, or forced by the wrapper): the rows
+// kernel with kStream true streams A (dmlp, da) beside the weight, one
+// 64-deep box of the unit's 128 rows a stage, for every tile, with the same
+// epilogues; dmlp = g * m2 is formed first by ln_rows.cuh's mask_rows_kernel
+// (the same rounding).  The dx1 stage splits in two: the rows kernel <kDy>
+// writes dy2 = dz1 . w1^T in f32 straight from its accumulators, then
+// ln_rows.cuh's ln_bwd_rows_kernel<kDx1> recomputes x1's statistics (eight
+// lanes a row, the forward's order), forms sum t and sum t yhat, writes dx1,
+// da and y2, and each 64-row tile's dln2 partials as a row, in one order, no
+// atomics.  The LN1 half (megablock_bwd_ln1.cu) takes the same split.
 // TMA zero-fills rows past M and columns past K or N (zeros into the
 // products); its stores clip rows past M and columns past the width.
 //
@@ -76,8 +87,12 @@
 // dz1, h1, y2, dx1, da, dao, delta out: 633 MB, 0.189 ms, so HBM bounds it;
 // with the chain's second reads 0.234 ms.  At D's 65,600 rows: 1.27 GB,
 // 0.378 ms.  E, hidden and Dh multiples of 8 (TMA's 16-byte strides, the
-// dao stores; ln_qkv_fwd.cu takes the same Dh); E <= 384 (the resident A of
-// kDz1 and kDao, the 384 columns of kDx1).
+// dao stores; ln_qkv_fwd.cu takes the same Dh); E <= 384 for the resident A of
+// kDz1 and kDao and the 384 columns of kDx1, any E for the wide variants.  At
+// DeiT-B's G (16,384 rows, E 768, hidden 3,072) the wide half (five launches)
+// ran 0.82 ms against its 0.19 ms bound by bytes, torch.matmul of its three
+// products 0.25 (H100 80GB HBM3 at 700 W, chip_smoke.py [wide kernels];
+// PERF.md has each launch).
 //
 // Where the time goes (PERF.md): the three mainloops run near the loads'
 // pace; the epilogues, GELU's erf, the LayerNorm backward's passes and the
@@ -86,9 +101,11 @@
 // ptxas -v (sm_90a, CUDA 12.9): each kernel launches at 168 registers a
 // thread (the producer warpgroup drops to 40, the consumers take 232 by
 // setmaxnreg), no spills, no performance warning (C7xxx); dynamic shared
-// memory 230,496 bytes (rows kernels) and 230,960 (dx1): one block an SM.
+// memory 230,496 bytes (rows kernels) and 230,960 (dx1): one block an SM;
+// the streamed rows kernels 168 registers, 197,728 bytes.
 #include "hopper.cuh"
 #include "ln_bwd_tile.cuh"
+#include "ln_rows.cuh"
 
 using namespace vk;
 using namespace vk::hopper;
@@ -101,7 +118,9 @@ constexpr int MAXKB = 6;          // 64-column boxes of E: E <= 384
 
 // --- the resident-A stages: dz1 (h1, dmlp) and dao (delta) ---------------------
 
-enum { kDz1 = 0, kDao = 1 };
+// kDy (streamed only): dy (m, n) f32 = a . w^T straight from the
+// accumulators, the product of the wide dx1 stage and LN1 half.
+enum { kDz1 = 0, kDao = 1, kDy = 2 };
 
 namespace rs {
 constexpr int BM = 128;                   // rows a unit
@@ -109,17 +128,23 @@ constexpr int ABOX = 64 * BM * 2;         // one 64-column box of the unit's row
 constexpr int BN = 128;                   // output columns a tile
 constexpr int NB = BN / 64;               // 64-column boxes a tile
 constexpr int STAGES = 4;
-constexpr int STAGE = BN * 128;           // 64 deep x BN rows of a K-major weight
-constexpr int SMEM = 1024 + MAXKB * ABOX + STAGES * STAGE + 2 * 2 * NB * OBOX +
-                     (2 * STAGES + 4) * 8;
+constexpr int WSTAGE = BN * 128;          // 64 deep x BN rows of a K-major weight
+// resident A: a ring of weight boxes; streamed A (the wide variants): a ring
+// of one A box (64 deep, the unit's 128 rows) and the weight box
+template <bool kStream>
+constexpr int STAGE = (kStream ? ABOX : 0) + WSTAGE;
+template <bool kStream>
+constexpr int SMEM = 1024 + (kStream ? 0 : MAXKB * ABOX) + STAGES * STAGE<kStream> +
+                     2 * 2 * NB * OBOX + (2 * STAGES + 4) * 8;
 }  // namespace rs
 
 struct RowsParams {
-  int m, k, n;          // rows, the resident width E, the output width (hidden or H*Dh)
-  const float* mask;    // kDz1: m2 (m, k) f32, or null (no dropout)
+  int m, k, n;          // rows, the summed width (E, or kDy's hidden or 3 H Dh), the output width
+  const float* mask;    // kDz1 resident: m2 (m, k) f32, or null (no dropout)
   bf16* dao;            // kDao: (B, H, N, Dh)
   float* delta;         // kDao: (B, H, N)
   int ntok, heads, dh;  // kDao
+  float* dy;            // kDy: (m, n) f32
 };
 
 // Rows rw0 .. rw0 + 63 of the resident tile (rows r0 .. of the matrix) times
@@ -162,13 +187,16 @@ __device__ inline void mask_rows(unsigned char* as, int rw0, int r0, int m, int 
   }
 }
 
-// A block takes a 128-row unit of A (g, or da) whole; the consumer
-// warpgroups (64 rows each) walk every 128-column tile of the output width
-// against it while the weight (w2, or wout: (n, k) row-major, K-major)
-// streams through the ring.  tx: the per-tile operand of the epilogue (z1,
-// or ao), landed 64 rows x 64 columns a box; to1 / to2: dz1 / h1 stores;
-// td: dmlp's store (kDz1 with a mask).
-template <int KIND>
+// kStream false: a block takes a 128-row unit of A (g, or da) whole; the
+// consumer warpgroups (64 rows each) walk every 128-column tile of the
+// output width against it while the weight (w2, or wout: (n, k) row-major,
+// K-major) streams through the ring.  kStream true (E > 384, and kDy): A
+// (dmlp, da, or kDy's dz1 or dqkv) streams beside the weight, one 64-deep box
+// of the unit's rows a stage, for every tile; kDz1's dmlp is formed before
+// (ln_rows.cuh mask_rows).  tx: the per-tile operand of the epilogue (z1, or
+// ao), landed 64 rows x 64 columns a box; to1 / to2: dz1 / h1 stores; td:
+// dmlp's store (kDz1 resident, with a mask).
+template <int KIND, bool kStream>
 __global__ void __launch_bounds__(THREADS, 1)
 megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
                               const __grid_constant__ CUtensorMap tb,
@@ -177,11 +205,14 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
                               const __grid_constant__ CUtensorMap to2,
                               const __grid_constant__ CUtensorMap td, const RowsParams p) {
   using namespace rs;
+  static_assert(KIND != kDy || kStream, "kDy streams its A");
+  constexpr int ST = STAGE<kStream>;
+  constexpr int BOFS = kStream ? ABOX : 0;              // a stage's weight box after its A box
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  unsigned char* as = smem;                             // box kb of A at kb ABOX
-  unsigned char* stages = as + MAXKB * ABOX;            // stage s at s STAGE
-  unsigned char* aux = stages + STAGES * STAGE;         // (warpgroup w, box b) at (w NB + b) OBOX
+  unsigned char* as = smem;                             // box kb of A at kb ABOX (resident)
+  unsigned char* stages = as + (kStream ? 0 : MAXKB * ABOX);  // stage s at s ST
+  unsigned char* aux = stages + STAGES * ST;            // (warpgroup w, box b) at (w NB + b) OBOX
   unsigned char* staging = aux + 2 * NB * OBOX;         // (warpgroup w, box b) at (w NB + b) OBOX
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * NB * OBOX);
   uint64_t* empty = full + STAGES;
@@ -207,17 +238,19 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
 
   if (wgi == 0) {
     reg_dealloc<40>();
-    if (threadIdx.x == 0) {  // the weight, 64 deep a stage, every tile of every unit in order
+    if (threadIdx.x == 0) {  // the weight [and A], 64 deep a stage, every tile of every unit
       int it = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x)
         for (int nt = 0; nt < ntiles; ++nt)
           for (int kb = 0; kb < nkb; ++kb, ++it) {
             const int s = it % STAGES;
             if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
-            mbar_arrive_tx(&full[s], STAGE);
-            tma_load_2d(stages + s * STAGE, &tb, &full[s], kb * 64, nt * BN);
+            unsigned char* st = stages + s * ST;
+            mbar_arrive_tx(&full[s], ST);
+            if (kStream) tma_load_2d(st, &ta, &full[s], kb * 64, u * BM);
+            tma_load_2d(st + BOFS, &tb, &full[s], kb * 64, nt * BN);
           }
-    } else if (threadIdx.x == 32) {  // A, one 128-row unit at a time
+    } else if (!kStream && threadIdx.x == 32) {  // A, one 128-row unit at a time
       int i = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
         if (i > 0) mbar_wait(aempty, (i - 1) & 1);
@@ -240,8 +273,8 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
   for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
     const int r0 = u * BM + 64 * w;
     const bool live = r0 < p.m;  // the same for the whole warpgroup
-    mbar_wait(afull, i & 1);
-    if constexpr (KIND == kDz1) {
+    if (!kStream) mbar_wait(afull, i & 1);
+    if constexpr (KIND == kDz1 && !kStream) {
       if (p.mask != nullptr && live) {  // dmlp = g * m2, in place, then stored
         mask_rows(as, 64 * w, r0, p.m, p.k, p.mask);
         fence_proxy_async();  // the masked rows, to wgmma and the TMA unit
@@ -259,7 +292,7 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
       // stores from them and from the staged boxes have read them, which
       // xfull's wait passes on to the other threads; its reads precede a
       // proxy fence and a barrier)
-      if (live && ct == 0) {
+      if (KIND != kDy && live && ct == 0) {
         bulk_wait_read<0>();
         mbar_arrive_tx(&xfull[w], nbox * OBOX);
         for (int b = 0; b < nbox; ++b) tma_load_2d(xb + b * OBOX, &tx, &xfull[w], n0 + 64 * b, r0);
@@ -267,8 +300,9 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
       for (int kb = 0; kb < nkb; ++kb, ++it) {
         const int s = it % STAGES;
         mbar_wait(&full[s], (it / STAGES) & 1);
-        const unsigned char* a = as + kb * ABOX + w * (64 * 128);
-        const unsigned char* b = stages + s * STAGE;
+        const unsigned char* st = stages + s * ST;
+        const unsigned char* a = (kStream ? st : as + kb * ABOX) + w * (64 * 128);
+        const unsigned char* b = st + BOFS;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -282,12 +316,30 @@ megablock_bwd_mlp_rows_kernel(const __grid_constant__ CUtensorMap ta,
       fence_regs(acc);
       if (ct == 0) {
         mbar_arrive(&empty[(it - 1) % STAGES]);
-        if (nt == ntiles - 1) {  // every product of this unit has read A, and dmlp's store
+        // every product of this unit has read the resident A, and dmlp's store
+        if (!kStream && nt == ntiles - 1) {
           bulk_wait_read<0>();
           mbar_arrive(aempty);
         }
       }
       if (!live) continue;
+      if constexpr (KIND == kDy) {
+        // dy in f32 straight from the accumulators: a quad writes a whole
+        // 32-byte sector of a row
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * t;  // n is a multiple of 8: col + 1 < n too
+          if (col >= p.n) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 16 * wr + g + 8 * h;
+            if (row < p.m)
+              *reinterpret_cast<float2*>(p.dy + (long)row * p.n + col) =
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        }
+        continue;
+      }
       mbar_wait(&xfull[w], xloads++ & 1);
 
       // epilogue, one 64-column box at a time.  This thread holds rows
@@ -390,6 +442,40 @@ megablock_bwd_mlp_dx1_kernel(const __grid_constant__ CUtensorMap ta,
   lnbwd::tiles<lnbwd::kDx1>(ta, tb, tx, tg, ty, tda, p);
 }
 
+template <int KIND, bool kStream>
+int launch_rows(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tx,
+                const CUtensorMap& to1, const CUtensorMap& to2, const CUtensorMap& td,
+                const RowsParams& p, void* stream) {
+  const int units = (p.m + rs::BM - 1) / rs::BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(megablock_bwd_mlp_rows_kernel<KIND, kStream>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, rs::SMEM<kStream>);
+  megablock_bwd_mlp_rows_kernel<KIND, kStream><<<grid, THREADS, rs::SMEM<kStream>,
+                                                 static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, tx, to1, to2, td, p);
+  return (int)cudaGetLastError();
+}
+
+// The dao stage, da resident (E <= 384) or streamed (`wide`).
+int dao_stage(const void* da, const void* ao, const void* wout, void* dao, void* delta, int batch,
+              int n, int e, int heads, int dh, bool wide, void* stream) {
+  const int m = batch * n, hd = heads * dh;
+  if (batch < 0 || n < 1 || dh < 8 || dh % 8 || heads < 1 || e < 8 || e % 8)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, tx;
+  int err = tmap_2d(&ta, da, m, e, rs::BM);
+  if (!err) err = tmap_2d(&tb, wout, hd, e, rs::BN);
+  if (!err) err = tmap_2d(&tx, ao, m, hd, 64);
+  if (err) return err;
+  RowsParams p{};
+  p.m = m, p.k = e, p.n = hd;
+  p.dao = static_cast<bf16*>(dao);
+  p.delta = static_cast<float*>(delta);
+  p.ntok = n, p.heads = heads, p.dh = dh;
+  return wide ? launch_rows<kDao, true>(ta, tb, tx, tx, tx, tx, p, stream)
+              : launch_rows<kDao, false>(ta, tb, tx, tx, tx, tx, p, stream);
+}
+
 }  // namespace
 
 // dz1 (m, hidden) bf16 = (dmlp . w2^T) * gelu'(z1), h1 (m, hidden) bf16 =
@@ -415,13 +501,75 @@ extern "C" int megablock_bwd_mlp_dz1(const void* g, const void* m2, const void* 
   RowsParams p{};
   p.m = m, p.k = e, p.n = hidden;
   p.mask = static_cast<const float*>(m2);
-  const int units = (m + rs::BM - 1) / rs::BM, grid = units < sm_count() ? units : sm_count();
-  cudaFuncSetAttribute(megablock_bwd_mlp_rows_kernel<kDz1>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, rs::SMEM);
-  megablock_bwd_mlp_rows_kernel<kDz1><<<grid, THREADS, rs::SMEM,
-                                        static_cast<cudaStream_t>(stream)>>>(ta, tb, tx, to1,
-                                                                             to2, td, p);
-  return (int)cudaGetLastError();
+  return launch_rows<kDz1, false>(ta, tb, tx, to1, to2, td, p, stream);
+}
+
+// The wide dz1 stage (any E a multiple of 8): dz1 and h1 as
+// megablock_bwd_mlp_dz1's from dmlp (m, e) bf16 (g * m2 from
+// megablock_bwd_mask_rows, or g itself without dropout), streamed.
+extern "C" int megablock_bwd_mlp_dz1_wide(const void* dmlp, const void* z1, const void* w2,
+                                          void* dz1, void* h1, int m, int e, int hidden,
+                                          void* stream) {
+  if (m < 0 || e < 8 || e % 8 || hidden < 8 || hidden % 8) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb, tx, to1, to2;
+  int err = tmap_2d(&ta, dmlp, m, e, rs::BM);
+  if (!err) err = tmap_2d(&tb, w2, hidden, e, rs::BN);
+  if (!err) err = tmap_2d(&tx, z1, m, hidden, 64);
+  if (!err) err = tmap_2d(&to1, dz1, m, hidden, 64);
+  if (!err) err = tmap_2d(&to2, h1, m, hidden, 64);
+  if (err) return err;
+  RowsParams p{};
+  p.m = m, p.k = e, p.n = hidden;
+  return launch_rows<kDz1, true>(ta, tb, tx, to1, to2, tx, p, stream);
+}
+
+// dmlp (m, e) bf16 = g * m2, each product rounded to bf16 once (the resident
+// dz1 stage's arithmetic).  g: (m, e) bf16; m2: (m, e) f32; e a multiple of 8.
+extern "C" int megablock_bwd_mask_rows(const void* g, const void* m2, void* dmlp, int m, int e,
+                                       void* stream) {
+  return lnrows::mask_rows(g, m2, dmlp, m, e, stream);
+}
+
+// dy (m, n) f32 = a . w^T: a (m, k) bf16, w (n, k) bf16 (K-major), k and n
+// multiples of 8.  The wide dx1 stage's dy2 = dz1 . w1^T and the wide LN1
+// half's dy1 = dqkv . wqkv^T.
+extern "C" int megablock_bwd_dy(const void* a, const void* w, void* dy, int m, int k, int n,
+                                void* stream) {
+  if (m < 0 || k < 8 || k % 8 || n < 8 || n % 8) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  CUtensorMap ta, tb;
+  int err = tmap_2d(&ta, a, m, k, rs::BM);
+  if (!err) err = tmap_2d(&tb, w, n, k, rs::BN);
+  if (err) return err;
+  RowsParams p{};
+  p.m = m, p.k = k, p.n = n;
+  p.dy = static_cast<float*>(dy);
+  return launch_rows<kDy, true>(ta, tb, ta, ta, ta, ta, p, stream);
+}
+
+// The wide dx1 stage's LayerNorm backward (any E a multiple of 8), after
+// dy2 = megablock_bwd_dy(dz1, w1): dx1, da, y2 and part as
+// megablock_bwd_mlp_dx1's.  dy2: (m, e) f32; g, x1: (m, e) bf16; m1: (m, e)
+// f32 or NULL.
+extern "C" int megablock_bwd_mlp_dx1_rows(const void* dy2, const void* g, const void* m1,
+                                          const void* x1, const void* ln_s, const void* ln_b,
+                                          void* dx1, void* da, void* y2, void* part, int m,
+                                          int e, float eps, void* stream) {
+  lnrows::BwdParams p{};
+  p.m = m, p.e = e;
+  p.dy = static_cast<const float*>(dy2);
+  p.x = static_cast<const bf16*>(x1);
+  p.g = static_cast<const bf16*>(g);
+  p.m1 = static_cast<const float*>(m1);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.eps = eps;
+  p.dx1 = static_cast<float*>(dx1);
+  p.out = static_cast<bf16*>(da);
+  p.y = static_cast<bf16*>(y2);
+  p.part = static_cast<float*>(part);
+  return lnrows::ln_bwd_rows<lnrows::kDx1>(p, stream);
 }
 
 // dy2 = dz1 . w1^T; dx1 (m, e) f32 = g + LN2^T(dy2) with LN2's statistics from
@@ -454,25 +602,15 @@ extern "C" int megablock_bwd_mlp_dx1(const void* dz1, const void* g, const void*
 extern "C" int megablock_bwd_mlp_dao(const void* da, const void* ao, const void* wout, void* dao,
                                      void* delta, int batch, int n, int e, int heads, int dh,
                                      void* stream) {
-  const int m = batch * n, hd = heads * dh;
-  if (batch < 0 || n < 1 || dh < 8 || dh % 8 || heads < 1 || e < 8 || e > 64 * MAXKB || e % 8)
-    return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
-  CUtensorMap ta, tb, tx;
-  int err = tmap_2d(&ta, da, m, e, rs::BM);
-  if (!err) err = tmap_2d(&tb, wout, hd, e, rs::BN);
-  if (!err) err = tmap_2d(&tx, ao, m, hd, 64);
-  if (err) return err;
-  RowsParams p{};
-  p.m = m, p.k = e, p.n = hd;
-  p.dao = static_cast<bf16*>(dao);
-  p.delta = static_cast<float*>(delta);
-  p.ntok = n, p.heads = heads, p.dh = dh;
-  const int units = (m + rs::BM - 1) / rs::BM, grid = units < sm_count() ? units : sm_count();
-  cudaFuncSetAttribute(megablock_bwd_mlp_rows_kernel<kDao>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, rs::SMEM);
-  megablock_bwd_mlp_rows_kernel<kDao><<<grid, THREADS, rs::SMEM,
-                                        static_cast<cudaStream_t>(stream)>>>(ta, tb, tx, tx, tx,
-                                                                             tx, p);
-  return (int)cudaGetLastError();
+  if (e > 64 * MAXKB) return (int)cudaErrorInvalidValue;
+  return dao_stage(da, ao, wout, dao, delta, batch, n, e, heads, dh, false, stream);
+}
+
+// The wide dao stage (any E a multiple of 8): as megablock_bwd_mlp_dao, with
+// da streamed.  The resident and the streamed forms are one function here
+// (dao_stage), as they share every check.
+extern "C" int megablock_bwd_mlp_dao_wide(const void* da, const void* ao, const void* wout,
+                                          void* dao, void* delta, int batch, int n, int e,
+                                          int heads, int dh, void* stream) {
+  return dao_stage(da, ao, wout, dao, delta, batch, n, e, heads, dh, true, stream);
 }

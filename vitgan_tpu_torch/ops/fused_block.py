@@ -28,7 +28,15 @@ Each launch has a plain PyTorch version; composed, they are the block's plain
 forward and backward, which CPU tensors take.  The four autograd Functions
 carry the JAX names (`encoder_block_fused[_dropout][_saved]`), and
 :func:`maybe_megablock` is the JAX gate, which under 'auto' also declines the
-widths the kernels have no variant for.
+widths that are not multiples of 8 (TMA's 16-byte strides).
+
+LN->qkv, the LN2 -> fc1 stage and the backward's dz1, dx1 and dao stages and
+LN1 half hold a tile's rows whole on chip, so they take E <= 384.  A wider
+block (or ``wide=True``, which tests and chip_smoke.py set at any width)
+takes their wide variants: csrc/ln_rows.cuh's row kernels (LN(x), dmlp =
+g * m2, the LayerNorm backward after a product) beside products that stream
+their activations (the same kernels templated on it), with dy = a . w^T
+handed between them in f32.
 """
 
 from __future__ import annotations
@@ -45,11 +53,12 @@ import torch.nn.functional as F
 from vitgan_tpu_torch.ops import build, draws
 from vitgan_tpu_torch.ops.attention import (attention_forward_reference, attention_reference,
                                             flash_backward, flash_forward)
-from vitgan_tpu_torch.ops.fused_mlp import _operands, _tf32_products
+from vitgan_tpu_torch.ops.fused_mlp import _operands, _tf32_products, _width_error
 from vitgan_tpu_torch.ops.fused_mlp import _reference as mlp_reference
 from vitgan_tpu_torch.ops.fused_mlp import kernel_fits as mlp_kernel_fits
 from vitgan_tpu_torch.ops.fused_mlp import (linear_stage, linear_stage_reference, ln_fc1_stage,
-                                            ln_fc1_stage_reference, ln_mlp_forward, threshold)
+                                            ln_fc1_stage_reference, ln_mlp_forward, ln_rows,
+                                            threshold, wide_route)
 from vitgan_tpu_torch.ops.policy import megablock_bwd_mode, megablock_mode, on_cuda, same_device
 from vitgan_tpu_torch.ops.wgrad import sum_partials, wgrad
 
@@ -78,9 +87,47 @@ def _ln_qkv_reference(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5):
     return qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4).contiguous().to(x.dtype)
 
 
-def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5):
+def qkv_stage_reference(y, qkv_w, qkv_b, dtype: torch.dtype = torch.bfloat16):
+    """Plain wide qkv stage on y = LN1(x) (B, N, E): (3, B, H, N, Dh) in
+    ``dtype`` (the kernel's bf16), f32 math.  After
+    fused_mlp.ln_rows_reference it is :func:`_ln_qkv_reference`."""
+    b, n, e = y.shape
+    _, h, _, dh = qkv_w.shape
+    qkv = y.float() @ _qkv_weight(qkv_w, torch.float32) + qkv_b.float()
+    return qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4).contiguous().to(dtype)
+
+
+def qkv_stage(y, qkv_w, qkv_b):
+    """Launch ln_qkv_fwd.cu's wide qkv product on bf16 CUDA rows y = LN1(x)
+    (B, N, E), streamed: the (3, B, H, N, Dh) bf16 q/k/v as
+    :func:`qkv_stage_reference`."""
+    if not y.is_cuda:
+        raise ValueError("qkv_stage launches a CUDA kernel: y must be a CUDA tensor")
+    if y.dtype != torch.bfloat16:
+        raise TypeError(f"the qkv kernel takes bf16 rows, got {y.dtype}; other dtypes are "
+                        "ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+    b, n, e = y.shape
+    _, h, e_w, dh = qkv_w.shape
+    if e_w != e:
+        raise ValueError(f"qkv weight width {e_w} does not fit E={e}")
+    if dh % 8 or not mlp_kernel_fits(e, 0):
+        raise _width_error("the qkv kernel", E=e, Dh=dh)
+    dev = y.device
+    y2 = build.aligned16(y.contiguous())
+    w, bias = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
+                        (qkv_b, torch.float32))
+    out = torch.empty((3, b, h, n, dh), dtype=torch.bfloat16, device=dev)
+    fn = build.entry("ln_qkv_fwd_wide")
+    build.check(fn, fn(build.ptr(y2), build.ptr(w), build.ptr(bias), build.ptr(out), b, n, e, h,
+                       dh, build.stream_ptr(dev)))
+    build.LAUNCHES["ln_qkv_fwd_wide"] += 1
+    return out
+
+
+def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5, wide: bool = False):
     """Launch csrc/ln_qkv_fwd.cu on a bf16 CUDA x (B, N, E); returns the
-    (3, B, H, N, Dh) bf16 q/k/v."""
+    (3, B, H, N, Dh) bf16 q/k/v.  E > 384 (or ``wide``) launches the wide
+    variant: fused_mlp.ln_rows, then :func:`qkv_stage`."""
     if not x.is_cuda:
         raise ValueError("ln_qkv_forward launches a CUDA kernel: x must be a CUDA tensor")
     if x.dtype != torch.bfloat16:
@@ -91,8 +138,10 @@ def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5):
     if e_w != e:
         raise ValueError(f"qkv weight width {e_w} does not fit E={e}")
     if dh % 8 or not mlp_kernel_fits(e, 0):
-        raise ValueError(f"LN->qkv kernel takes E <= 384 and E, Dh multiples of 8, got "
-                         f"E={e}, Dh={dh}; wider blocks are ROADMAP.md queue 1 item 7")
+        raise _width_error("LN->qkv kernel", E=e, Dh=dh)
+    if wide_route(e, wide):
+        return qkv_stage(ln_rows(x.reshape(b * n, e), ln_scale, ln_bias, eps).reshape(b, n, e),
+                         qkv_w, qkv_b)
     dev, f32 = x.device, torch.float32
     x2 = build.aligned16(x.contiguous())
     w, bias, ln_s, ln_b = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
@@ -283,11 +332,12 @@ def _proj_ln_mlp_train_stages_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1,
 
 
 def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, rate: float,
-                         eps: float = 1e-5, rows=None):
+                         eps: float = 1e-5, rows=None, wide: bool = False):
     """Run ln_mlp_fwd.cu's training form on bf16 CUDA rows x (M, E), attn
     (M, H*Dh): three launches (out-projection, LN2 -> fc1 -> GELU, fc2),
     each counted by its stage, and one call of "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1)
-    as the plain version."""
+    as the plain version.  E > 384 (or ``wide``) takes the wide LN2 -> fc1
+    (fused_mlp.ln_fc1_stage), a launch more."""
     if not (x.is_cuda and attn.is_cuda):
         raise ValueError("ln_mlp_train_forward launches a CUDA kernel: x must be a CUDA tensor")
     if x.dtype != torch.bfloat16 or attn.dtype != torch.bfloat16:
@@ -295,15 +345,15 @@ def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, 
                         "are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
     m, e = x.shape
     hidden, hd = w1.shape[-1], attn.shape[-1]
-    if not mlp_kernel_fits(e, hidden, hd) or attn.shape[0] != m:
-        raise ValueError(f"LN->MLP kernel takes E <= 384 and E, hidden, H*Dh multiples of 8, "
-                         f"got E={e}, hidden={hidden}, H*Dh={hd}; wider blocks are ROADMAP.md "
-                         "queue 1 item 7")
+    if attn.shape[0] != m:
+        raise ValueError(f"attn {tuple(attn.shape)} does not fit x {tuple(x.shape)}")
+    if not mlp_kernel_fits(e, hidden, hd):
+        raise _width_error("LN->MLP kernel", E=e, hidden=hidden, HDh=hd)
     if w1.shape != (e, hidden) or w2.shape != (hidden, e) or wout.shape != (hd, e):
         raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} / wout "
                          f"{tuple(wout.shape)} do not fit E={e}, H*Dh={hd}")
     x1, m1 = linear_stage(attn, wout, bout, x, seed, rate, 0, rows)
-    h, z1 = ln_fc1_stage(x1, ln_s, ln_b, w1, b1, eps, want_z1=True)
+    h, z1 = ln_fc1_stage(x1, ln_s, ln_b, w1, b1, eps, want_z1=True, wide=wide)
     out, m2 = linear_stage(h, w2, b2, x1, seed, rate, 1, rows)
     build.LAUNCHES["ln_mlp_train_fwd"] += 1
     return out, m1, m2, x1, z1
@@ -472,18 +522,21 @@ def _tile_partials(dy, yhat):
         tiles, BWD_TILE_ROWS, 2 * e).sum(1)
 
 
-def bwd_dz1_stage_reference(g, m2, z1, w2):
-    """Plain dz1 stage: (dmlp, dz1, h1) bf16 with dmlp = g * m2 rounded to
-    bf16 (g itself without a mask) as the kernel's product reads it, dz1 =
-    (dmlp . w2^T) * gelu'(z1) and h1 = gelu(z1) formed in f32."""
-    dmlp = g if m2 is None else (g.float() * m2).to(torch.bfloat16)
+def bwd_dz1_stage_reference(g, m2, z1, w2, dtype: torch.dtype = torch.bfloat16):
+    """Plain dz1 stage: (dmlp, dz1, h1) in ``dtype`` (the kernel's bf16; f32
+    to hold the wide variant's plain versions to it) with dmlp = g * m2
+    rounded to ``dtype`` (g itself without a mask) as the kernel's product
+    reads it, dz1 = (dmlp . w2^T) * gelu'(z1) and h1 = gelu(z1) formed in
+    f32."""
+    dmlp = g if m2 is None else (g.float() * m2).to(dtype)
     z = z1.float()
     dz1 = (dmlp.float() @ w2.float().T) * _gelu_grad(z)
-    return dmlp, dz1.to(torch.bfloat16), F.gelu(z).to(torch.bfloat16)
+    return dmlp, dz1.to(dtype), F.gelu(z).to(dtype)
 
 
-def bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
-    """Plain dx1 stage on bf16 rows: (dx1 f32, da bf16, y2 bf16, part) with
+def bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5,
+                            dtype: torch.dtype = torch.bfloat16):
+    """Plain dx1 stage on bf16 rows: (dx1 f32, da, y2 in ``dtype``, part) with
     dy2 = dz1 . w1^T, dx1 = g + LN2^T(dy2) (statistics from x1), da = dx1 *
     m1, y2 = LN2(x1), and part (ceil(M / 64), 2E) f32 the column sums of dy2
     * yhat2 and of dy2 over each 64-row tile."""
@@ -492,41 +545,184 @@ def bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
     dx1 = g.float() + _ln_bwd(dy2, yhat, rstd, ln_s.float())
     da = dx1 * m1 if m1 is not None else dx1
     y2 = yhat * ln_s.float() + ln_b.float()
-    return dx1, da.to(torch.bfloat16), y2.to(torch.bfloat16), _tile_partials(dy2, yhat)
+    return dx1, da.to(dtype), y2.to(dtype), _tile_partials(dy2, yhat)
 
 
-def bwd_dao_stage_reference(da, ao, wout, batch: int, n: int, heads: int):
-    """Plain dao stage: dao (B, H, N, Dh) bf16 = da . wout^T and delta (B, H,
-    N) f32, each head's sum of dao * ao with dao in f32."""
+def bwd_dao_stage_reference(da, ao, wout, batch: int, n: int, heads: int,
+                            dtype: torch.dtype = torch.bfloat16):
+    """Plain dao stage: dao (B, H, N, Dh) in ``dtype`` = da . wout^T and
+    delta (B, H, N) f32, each head's sum of dao * ao with dao in f32.  The
+    wide dao stage computes the same function."""
     dao = da.float() @ wout.float().T
     dh = dao.shape[-1] // heads
     delta = (dao * ao.float()).reshape(batch, n, heads, dh).sum(-1).transpose(1, 2)
     dao = dao.reshape(batch, n, heads, dh).transpose(1, 2)
-    return dao.to(torch.bfloat16).contiguous(), delta.contiguous()
+    return dao.to(dtype).contiguous(), delta.contiguous()
+
+
+# --- the wide variants' own launches (E > 384), and their plain versions -------------
+
+
+def bwd_dmlp_rows_reference(g, m2, dtype: torch.dtype = torch.bfloat16):
+    """Plain dmlp rows: g * m2 formed in f32, in ``dtype`` (the kernel's bf16)."""
+    return (g.float() * m2).to(dtype)
+
+
+def bwd_dy_reference(a, w):
+    """Plain dy = a . w^T in f32: the wide dx1 stage's dy2 (a = dz1, w = w1)
+    and the wide LN1 half's dy1 (a = dqkv, w = wqkv (E, 3*H*Dh))."""
+    return a.float() @ w.float().T
+
+
+def _ln_bwd_rows(dy, x, eps: float, ln_s, ln_b):
+    """(dX of LN at x given dY less its residual, LN(x), the 64-row tile
+    partials), f32: the wide row kernels' arithmetic, written out on its own."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    yhat = (xf - mean) * rstd
+    t = dy.float() * ln_s.float()
+    dx = (t - t.mean(-1, keepdim=True) - yhat * (t * yhat).mean(-1, keepdim=True)) * rstd
+    return dx, yhat * ln_s.float() + ln_b.float(), _tile_partials(dy.float(), yhat)
+
+
+def bwd_dx1_rows_reference(dy2, g, m1, x1, ln_s, ln_b, eps: float = 1e-5,
+                           dtype: torch.dtype = torch.bfloat16):
+    """Plain wide dx1 rows on dy2 (M, E) f32: (dx1 f32, da, y2 in ``dtype``,
+    part), which after :func:`bwd_dy_reference` are
+    :func:`bwd_dx1_stage_reference`'s."""
+    dx, y2, part = _ln_bwd_rows(dy2, x1, eps, ln_s, ln_b)
+    dx1 = g.float() + dx
+    da = dx1 if m1 is None else dx1 * m1
+    return dx1, da.to(dtype), y2.to(dtype), part
+
+
+def bwd_ln1_rows_reference(dy1, x, dx1, ln_s, ln_b, eps: float = 1e-5):
+    """Plain wide LN1 rows on dy1 (M, E) f32: (dx and y1 in x's dtype, part),
+    which after :func:`bwd_dy_reference` are :func:`_bwd_ln1_reference`'s."""
+    dx, y1, part = _ln_bwd_rows(dy1, x, eps, ln_s, ln_b)
+    return (dx1.float() + dx).to(x.dtype), y1.to(x.dtype), part
 
 
 def bwd_mlp_stages_reference(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: int,
-                             n: int, heads: int, eps: float = 1e-5) -> BwdMlp:
+                             n: int, heads: int, eps: float = 1e-5,
+                             dtype: torch.dtype = torch.bfloat16, wide: bool = False) -> BwdMlp:
     """The MLP half composed from the stage plain versions, with the kernels'
-    bf16 hand-offs of dmlp, dz1 and da: a BwdMlp as :func:`_bwd_mlp_reference`,
-    part by 64-row tiles."""
-    dmlp, dz1, h1 = bwd_dz1_stage_reference(g, m2, z1, w2)
-    dx1, da, y2, part = bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps)
-    dao, delta = bwd_dao_stage_reference(da, ao, wout, batch, n, heads)
+    hand-offs of dmlp, dz1 and da in ``dtype`` (bf16): a BwdMlp as
+    :func:`_bwd_mlp_reference`, part by 64-row tiles.  ``wide``: from the
+    wide variants' plain versions (dmlp rows, dy2 in f32, dx1 rows)."""
+    if wide:
+        dmlp = g if m2 is None else bwd_dmlp_rows_reference(g, m2, dtype)
+        _, dz1, h1 = bwd_dz1_stage_reference(dmlp, None, z1, w2, dtype)
+        dx1, da, y2, part = bwd_dx1_rows_reference(bwd_dy_reference(dz1, w1), g, m1, x1, ln_s,
+                                                   ln_b, eps, dtype)
+    else:
+        dmlp, dz1, h1 = bwd_dz1_stage_reference(g, m2, z1, w2, dtype)
+        dx1, da, y2, part = bwd_dx1_stage_reference(dz1, g, m1, x1, w1, ln_s, ln_b, eps, dtype)
+    dao, delta = bwd_dao_stage_reference(da, ao, wout, batch, n, heads, dtype)
     return BwdMlp(dmlp, dz1, h1, y2, dx1, da, dao, delta, part)
 
 
 def _bwd_fits(e: int, hidden: int, hd: int) -> None:
     if not mlp_kernel_fits(e, hidden, hd):
-        raise ValueError(f"megablock backward kernels take E <= 384 and E, hidden, H*Dh "
-                         f"multiples of 8, got E={e}, hidden={hidden}, H*Dh={hd}; wider blocks "
-                         "are ROADMAP.md queue 1 item 7")
+        raise _width_error("megablock backward kernels", E=e, hidden=hidden, HDh=hd)
 
 
-def bwd_dz1_stage(g, m2, z1, w2):
+def bwd_dmlp_rows(g, m2):
+    """Launch ln_rows.cuh's dmlp rows (megablock_bwd_mlp's library) on bf16
+    CUDA rows g (M, E) and the f32 mask m2: dmlp = g * m2 bf16, as
+    :func:`bwd_dmlp_rows_reference`."""
+    _check_bwd("megablock_bwd_mask_rows", g)
+    m, e = g.shape
+    _bwd_fits(e, 0, 0)
+    if m2.shape != (m, e):
+        raise ValueError(f"m2 {tuple(m2.shape)} does not fit g {tuple(g.shape)}")
+    g2 = build.aligned16(g.contiguous())
+    (m2f,) = _operands(g.device, (m2, torch.float32))
+    dmlp = torch.empty_like(g2)
+    fn = build.entry("megablock_bwd_mask_rows")
+    build.check(fn, fn(build.ptr(g2), build.ptr(m2f), build.ptr(dmlp), m, e,
+                       build.stream_ptr(g.device)))
+    build.LAUNCHES["megablock_bwd_mask_rows"] += 1
+    return dmlp
+
+
+def bwd_dy(a, w):
+    """Launch megablock_bwd_mlp.cu's streamed product on bf16 CUDA rows a (M,
+    K) and w (N, K): dy (M, N) f32 = a . w^T, as :func:`bwd_dy_reference`."""
+    _check_bwd("megablock_bwd_dy", a)
+    m, k = a.shape
+    n = w.shape[0]
+    if w.shape != (n, k):
+        raise ValueError(f"w {tuple(w.shape)} does not fit a {tuple(a.shape)}")
+    _bwd_fits(n, k, 0)
+    a2 = build.aligned16(a.contiguous())
+    (wb,) = _operands(a.device, (w, torch.bfloat16))
+    dy = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    fn = build.entry("megablock_bwd_dy")
+    build.check(fn, fn(build.ptr(a2), build.ptr(wb), build.ptr(dy), m, k, n,
+                       build.stream_ptr(a.device)))
+    build.LAUNCHES["megablock_bwd_dy"] += 1
+    return dy
+
+
+def _f32_rows(t, shape, what: str):
+    if t.shape != shape or t.dtype != torch.float32:
+        raise ValueError(f"{what} must be f32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    return build.aligned16(t.contiguous())
+
+
+def bwd_dx1_rows(dy2, g, m1, x1, ln_s, ln_b, eps: float = 1e-5):
+    """Launch ln_rows.cuh's dx1 rows (megablock_bwd_mlp's library) on dy2 (M,
+    E) f32 and bf16 CUDA rows g, x1 (M, E), m1 (M, E) f32 or None: (dx1 f32,
+    da, y2, part (ceil(M / 64), 2E) f32) as :func:`bwd_dx1_rows_reference`."""
+    _check_bwd("megablock_bwd_mlp_dx1_rows", g, x1)
+    m, e = g.shape
+    _bwd_fits(e, 0, 0)
+    if x1.shape != (m, e):
+        raise ValueError(f"x1 {tuple(x1.shape)} does not fit g {tuple(g.shape)}")
+    dev, f32 = g.device, torch.float32
+    dy2f = _f32_rows(dy2, (m, e), "dy2")
+    g2, x12 = build.aligned16(g.contiguous()), build.aligned16(x1.contiguous())
+    m1f, ln_sf, ln_bf = _operands(dev, (m1, f32), (ln_s, f32), (ln_b, f32))
+    dx1 = torch.empty((m, e), dtype=f32, device=dev)
+    da, y2 = torch.empty_like(g2), torch.empty_like(g2)
+    part = torch.empty((-(-m // BWD_TILE_ROWS), 2 * e), dtype=f32, device=dev)
+    fn = build.entry("megablock_bwd_mlp_dx1_rows")
+    build.check(fn, fn(build.ptr(dy2f), build.ptr(g2), build.ptr(m1f), build.ptr(x12),
+                       build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(dx1), build.ptr(da),
+                       build.ptr(y2), build.ptr(part), m, e, float(eps), build.stream_ptr(dev)))
+    build.LAUNCHES["megablock_bwd_mlp_dx1_rows"] += 1
+    return dx1, da, y2, part
+
+
+def bwd_ln1_rows(dy1, x, dx1, ln_s, ln_b, eps: float = 1e-5):
+    """Launch ln_rows.cuh's LN1 rows (megablock_bwd_ln1's library) on dy1,
+    dx1 (M, E) f32 and bf16 CUDA rows x (M, E): (dx, y1, part) as
+    :func:`bwd_ln1_rows_reference`."""
+    _check_bwd("megablock_bwd_ln1_rows", x)
+    m, e = x.shape
+    _bwd_fits(e, 0, 0)
+    dev, f32 = x.device, torch.float32
+    dy1f, dx1f = _f32_rows(dy1, (m, e), "dy1"), _f32_rows(dx1, (m, e), "dx1")
+    x2 = build.aligned16(x.contiguous())
+    ln_sf, ln_bf = _operands(dev, (ln_s, f32), (ln_b, f32))
+    dx, y1 = torch.empty_like(x2), torch.empty_like(x2)
+    part = torch.empty((-(-m // BWD_TILE_ROWS), 2 * e), dtype=f32, device=dev)
+    fn = build.entry("megablock_bwd_ln1_rows")
+    build.check(fn, fn(build.ptr(dy1f), build.ptr(x2), build.ptr(dx1f), build.ptr(ln_sf),
+                       build.ptr(ln_bf), build.ptr(dx), build.ptr(y1), build.ptr(part), m, e,
+                       float(eps), build.stream_ptr(dev)))
+    build.LAUNCHES["megablock_bwd_ln1_rows"] += 1
+    return dx, y1, part
+
+
+def bwd_dz1_stage(g, m2, z1, w2, wide: bool = False):
     """Launch megablock_bwd_mlp.cu's dz1 stage on bf16 CUDA rows g (M, E), z1
     (M, hidden), w2 (hidden, E), m2 (M, E) f32 or None: (dmlp, dz1, h1) as
-    the plain version (dmlp is g itself without a mask)."""
+    the plain version (dmlp is g itself without a mask).  E > 384 (or
+    ``wide``) launches the wide variant: :func:`bwd_dmlp_rows` (with a mask),
+    then the streamed product ("megablock_bwd_mlp_dz1_wide")."""
     _check_bwd("megablock_bwd_mlp_dz1", g, z1)
     m, e = g.shape
     hidden = z1.shape[-1]
@@ -536,6 +732,15 @@ def bwd_dz1_stage(g, m2, z1, w2):
                          f"{tuple(g.shape)}")
     dev = g.device
     g2, z12 = build.aligned16(g.contiguous()), build.aligned16(z1.contiguous())
+    if wide_route(e, wide):
+        dmlp = g2 if m2 is None else bwd_dmlp_rows(g2, m2)
+        (w2b,) = _operands(dev, (w2, torch.bfloat16))
+        dz1, h1 = torch.empty_like(z12), torch.empty_like(z12)
+        fn = build.entry("megablock_bwd_mlp_dz1_wide")
+        build.check(fn, fn(build.ptr(dmlp), build.ptr(z12), build.ptr(w2b), build.ptr(dz1),
+                           build.ptr(h1), m, e, hidden, build.stream_ptr(dev)))
+        build.LAUNCHES["megablock_bwd_mlp_dz1_wide"] += 1
+        return dmlp, dz1, h1
     m2f, w2b = _operands(dev, (m2, torch.float32), (w2, torch.bfloat16))
     dmlp = g2 if m2 is None else torch.empty_like(g2)
     dz1, h1 = torch.empty_like(z12), torch.empty_like(z12)
@@ -547,10 +752,12 @@ def bwd_dz1_stage(g, m2, z1, w2):
     return dmlp, dz1, h1
 
 
-def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
+def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5, wide: bool = False):
     """Launch megablock_bwd_mlp.cu's dx1 stage on bf16 CUDA rows dz1 (M,
     hidden), g, x1 (M, E), w1 (E, hidden), m1 (M, E) f32 or None: (dx1 f32,
-    da, y2, part (ceil(M / 64), 2E) f32) as the plain version."""
+    da, y2, part (ceil(M / 64), 2E) f32) as the plain version.  E > 384 (or
+    ``wide``) launches the wide variant: dy2 = :func:`bwd_dy` (dz1, w1) in
+    f32, then :func:`bwd_dx1_rows`."""
     _check_bwd("megablock_bwd_mlp_dx1", dz1, g, x1)
     m, e = g.shape
     hidden = dz1.shape[-1]
@@ -558,6 +765,8 @@ def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
     if dz1.shape[0] != m or x1.shape != (m, e) or w1.shape != (e, hidden):
         raise ValueError(f"dz1 {tuple(dz1.shape)} / x1 {tuple(x1.shape)} / w1 "
                          f"{tuple(w1.shape)} do not fit g {tuple(g.shape)}")
+    if wide_route(e, wide):
+        return bwd_dx1_rows(bwd_dy(dz1, w1), g, m1, x1, ln_s, ln_b, eps)
     dev = g.device
     dz12, g2, x12 = (build.aligned16(t.contiguous()) for t in (dz1, g, x1))
     f32 = torch.float32
@@ -575,10 +784,11 @@ def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5):
     return dx1, da, y2, part
 
 
-def bwd_dao_stage(da, ao, wout, batch: int, n: int, heads: int):
+def bwd_dao_stage(da, ao, wout, batch: int, n: int, heads: int, wide: bool = False):
     """Launch megablock_bwd_mlp.cu's dao stage on bf16 CUDA rows da (M, E),
     ao (M, H*Dh), wout (H*Dh, E), M = batch * n, Dh a multiple of 8: (dao
-    (B, H, N, Dh) bf16, delta (B, H, N) f32) as the plain version."""
+    (B, H, N, Dh) bf16, delta (B, H, N) f32) as the plain version.  E > 384
+    (or ``wide``) streams da ("megablock_bwd_mlp_dao_wide")."""
     _check_bwd("megablock_bwd_mlp_dao", da, ao)
     m, e = da.shape
     hd = ao.shape[-1]
@@ -594,26 +804,28 @@ def bwd_dao_stage(da, ao, wout, batch: int, n: int, heads: int):
     (woutb,) = _operands(dev, (wout, torch.bfloat16))
     dao = torch.empty((batch, heads, n, hd // heads), dtype=torch.bfloat16, device=dev)
     delta = torch.empty((batch, heads, n), dtype=torch.float32, device=dev)
-    fn = build.entry("megablock_bwd_mlp_dao")
+    name = "megablock_bwd_mlp_dao_wide" if wide_route(e, wide) else "megablock_bwd_mlp_dao"
+    fn = build.entry(name)
     build.check(fn, fn(build.ptr(da2), build.ptr(ao2), build.ptr(woutb), build.ptr(dao),
                        build.ptr(delta), batch, n, e, heads, hd // heads, build.stream_ptr(dev)))
-    build.LAUNCHES["megablock_bwd_mlp_dao"] += 1
+    build.LAUNCHES[name] += 1
     return dao, delta
 
 
 def megablock_bwd_mlp(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: int, n: int,
-                      heads: int, eps: float = 1e-5) -> BwdMlp:
+                      heads: int, eps: float = 1e-5, wide: bool = False) -> BwdMlp:
     """Run csrc/megablock_bwd_mlp.cu's three stages on bf16 CUDA rows g, x1
     (M, E), z1 (M, hidden), ao (M, H*Dh); masks (M, E) f32 or None: three
     launches (dz1, dx1, dao, each counted by its stage) and one call of
-    "megablock_bwd_mlp"."""
+    "megablock_bwd_mlp".  E > 384 (or ``wide``) takes each stage's wide
+    variant: five launches (four without dropout)."""
     _check_bwd("megablock_bwd_mlp", g, x1, z1, ao)
     _bwd_fits(g.shape[-1], z1.shape[-1], ao.shape[-1])
     if (m1 is None) != (m2 is None):
         raise ValueError("megablock_bwd_mlp takes both dropout masks or neither")
-    dmlp, dz1, h1 = bwd_dz1_stage(g, m2, z1, w2)
-    dx1, da, y2, part = bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps)
-    dao, delta = bwd_dao_stage(da, ao, wout, batch, n, heads)
+    dmlp, dz1, h1 = bwd_dz1_stage(g, m2, z1, w2, wide)
+    dx1, da, y2, part = bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps, wide)
+    dao, delta = bwd_dao_stage(da, ao, wout, batch, n, heads, wide)
     build.LAUNCHES["megablock_bwd_mlp"] += 1
     return BwdMlp(dmlp, dz1, h1, y2, dx1, da, dao, delta, part)
 
@@ -629,16 +841,21 @@ def _bwd_ln1_reference(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5):
     return dx.to(x.dtype), y1.to(x.dtype), _tile_partials(dy1, yhat)
 
 
-def megablock_bwd_ln1(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5):
+def megablock_bwd_ln1(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5, wide: bool = False):
     """Launch csrc/megablock_bwd_ln1.cu on bf16 CUDA rows dqkv (M, 3*H*Dh),
-    x (M, E) and f32 dx1 (M, E); returns as the plain version."""
+    x (M, E) and f32 dx1 (M, E); returns as the plain version.  E > 384 (or
+    ``wide``) launches the wide variant: dy1 = :func:`bwd_dy` (dqkv, wqkv) in
+    f32, then :func:`bwd_ln1_rows`."""
     _check_bwd("megablock_bwd_ln1", dqkv, x)
     m, e = x.shape
     k = dqkv.shape[-1]
-    if not mlp_kernel_fits(e, 0, k) or dx1.shape != (m, e):
-        raise ValueError(f"megablock backward kernels take E <= 384 and E, 3*H*Dh multiples "
-                         f"of 8, got E={e}, 3*H*Dh={k}; wider blocks are ROADMAP.md queue 1 "
-                         "item 7")
+    if dx1.shape != (m, e):
+        raise ValueError(f"dx1 {tuple(dx1.shape)} does not fit x {tuple(x.shape)}")
+    if not mlp_kernel_fits(e, 0, k):
+        raise _width_error("megablock backward kernels", E=e, HDh3=k)
+    if wide_route(e, wide):
+        return bwd_ln1_rows(bwd_dy(dqkv, _qkv_weight(qkv_w, torch.bfloat16)), x, dx1, ln_s, ln_b,
+                            eps)
     dev, f32 = x.device, torch.float32
     dqkv2, x2 = build.aligned16(dqkv.contiguous()), build.aligned16(x.contiguous())
     w, dx1f, ln_sf, ln_bf = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
@@ -869,9 +1086,10 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
     clamps of the JAX package; under 'on' a training block whose saved
     backward the clamps refuse takes the standard path with a warning.
     Dropout needs the step's generator and a CUDA tensor (the JAX gate: rng
-    and a real TPU).  'auto' also declines widths the kernels have no
-    variant for (E > 384: ROADMAP.md queue 1 item 7), as the LN->MLP gate
-    does; under 'on' they raise in the launches."""
+    and a real TPU).  'auto' also declines widths that are not multiples of
+    8 (TMA's 16-byte strides; ROADMAP.md queue 1 item 7), as the LN->MLP
+    gate does, and takes every other width: E > 384 runs the wide variants.
+    Under 'on' such widths raise in the launches."""
     mode = megablock_mode()
     if mode == "off":
         return None

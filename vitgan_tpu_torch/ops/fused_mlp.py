@@ -15,6 +15,12 @@ dropout mask and residual in the epilogue), each with a plain version; h
 passes between them in bf16.  The megablock (ops/fused_block.py) runs the
 same stages after an out-projection through :func:`ln_mlp_forward` (serving)
 and ``fused_block.ln_mlp_train_forward`` (training).
+
+The LN -> fc1 stage holds a 128-row tile of its input whole on chip, so it
+takes E <= 384 (:data:`RESIDENT_WIDTH`).  A wider E (or ``wide=True``) takes
+the wide variant: :func:`ln_rows` writes LN(x) in bf16 with the resident
+kernel's statistics, then :func:`fc1_stage` streams those rows through the
+same product and epilogue.  Every width that is a multiple of 8 has a kernel.
 """
 
 from __future__ import annotations
@@ -29,13 +35,27 @@ from vitgan_tpu_torch.ops import build
 from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, recomputing, sequence_parallel_active
 
 # ln_mlp_fwd.cu's fc1 stage holds a 128-row tile of the LayerNorm input whole
-# in shared memory: E <= 384 (ln_qkv_fwd shares the limit).
-MAX_WIDTH = 384
+# in shared memory: E <= 384 (ln_qkv_fwd and the megablock backward's
+# resident stages share the limit).  Wider rows take the wide variants.
+RESIDENT_WIDTH = 384
 
 
 def kernel_fits(e: int, hidden: int, hd: int = 0) -> bool:
-    """E <= 384; E, hidden and the prologue's H*Dh multiples of 8 (TMA's 16-byte strides)."""
-    return e <= MAX_WIDTH and e % 8 == 0 and hidden % 8 == 0 and hd % 8 == 0
+    """E, hidden and the prologue's H*Dh multiples of 8 (TMA's 16-byte
+    strides); any such E has a kernel, E > 384 the wide variants."""
+    return e % 8 == 0 and hidden % 8 == 0 and hd % 8 == 0
+
+
+def wide_route(e: int, wide: bool = False) -> bool:
+    """Whether a call at width E takes the wide variants: E > 384, or
+    ``wide`` (a test or chip_smoke.py forcing them at any width)."""
+    return wide or e > RESIDENT_WIDTH
+
+
+def _width_error(what: str, **widths) -> ValueError:
+    got = ", ".join(f"{k}={v}" for k, v in widths.items())
+    return ValueError(f"{what} takes widths that are multiples of 8, got {got}; other widths "
+                      "are ROADMAP.md queue 1 item 7")
 
 
 def threshold(rate: float) -> int:
@@ -79,15 +99,34 @@ def linear_stage_reference(a, w, bias, res=None, mask=None):
     return v.to(torch.bfloat16)
 
 
-def ln_fc1_stage_reference(a, ln_s, ln_b, w1, b1, eps: float = 1e-5):
-    """Plain LN -> fc1 -> GELU stage: (h, z1) in bf16, z1 = LN(a) . w1 + b1 and
-    h = gelu(z1) formed in f32."""
+def ln_fc1_stage_reference(a, ln_s, ln_b, w1, b1, eps: float = 1e-5,
+                           dtype: torch.dtype = torch.bfloat16):
+    """Plain LN -> fc1 -> GELU stage: (h, z1) in ``dtype`` (the kernel's bf16;
+    f32 to hold the wide variant's plain versions to it), z1 = LN(a) . w1 +
+    b1 and h = gelu(z1) formed in f32."""
     af = a.float()
     mean = af.mean(-1, keepdim=True)
     var = ((af - mean) ** 2).mean(-1, keepdim=True)
     y = (af - mean) * torch.rsqrt(var + eps) * ln_s.float() + ln_b.float()
     z = y @ w1.float() + b1.float()
-    return F.gelu(z).to(torch.bfloat16), z.to(torch.bfloat16)
+    return F.gelu(z).to(dtype), z.to(dtype)
+
+
+def ln_rows_reference(x, ln_s, ln_b, eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
+    """Plain LayerNorm rows (the wide variants' first launch): LN(x) formed
+    in f32, in ``dtype`` (the kernel's bf16)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps) * ln_s.float() + ln_b.float()).to(dtype)
+
+
+def fc1_stage_reference(y, w1, b1, dtype: torch.dtype = torch.bfloat16):
+    """Plain wide fc1 stage on y = LN(x): (h, z1) in ``dtype``, z1 = y . w1 +
+    b1 and h = gelu(z1) formed in f32.  After :func:`ln_rows_reference` it
+    is :func:`ln_fc1_stage_reference`."""
+    z = y.float() @ w1.float() + b1.float()
+    return F.gelu(z).to(dtype), z.to(dtype)
 
 
 def ln_mlp_stages_reference(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
@@ -156,16 +195,63 @@ def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: in
     return out, mask
 
 
-def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False):
+def ln_rows(x, ln_s, ln_b, eps: float = 1e-5):
+    """Launch csrc/ln_rows.cuh's LayerNorm rows (in ln_mlp_fwd's library) on
+    bf16 CUDA rows x (M, E), E a multiple of 8: y = LN(x) bf16 (M, E), the
+    statistics in the resident kernels' order."""
+    x = _bf16_rows(x, "ln_rows")
+    m, e = x.shape
+    if e % 8:
+        raise _width_error("ln_rows", E=e)
+    dev, f32 = x.device, torch.float32
+    ln_sf, ln_bf = _operands(dev, (ln_s, f32), (ln_b, f32))
+    y = torch.empty_like(x)
+    fn = build.entry("ln_rows")
+    build.check(fn, fn(build.ptr(x), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(y), m, e,
+                       float(eps), build.stream_ptr(dev)))
+    build.LAUNCHES["ln_rows"] += 1
+    return y
+
+
+def fc1_stage(y, w1, b1, want_z1: bool = False):
+    """Launch ln_mlp_fwd.cu's wide fc1 stage on bf16 CUDA rows y = LN(x) (M,
+    E), streamed: (h, z1) bf16 (M, hidden) as :func:`fc1_stage_reference`,
+    z1 None unless ``want_z1``."""
+    y = _bf16_rows(y, "fc1_stage")
+    m, e = y.shape
+    hidden = w1.shape[-1]
+    if w1.shape != (e, hidden):
+        raise ValueError(f"fc1_stage takes w1 (E, hidden), got y {tuple(y.shape)}, w1 "
+                         f"{tuple(w1.shape)}")
+    if not kernel_fits(e, hidden):
+        raise _width_error("fc1_stage", E=e, hidden=hidden)
+    dev = y.device
+    w1b, b1f = _operands(dev, (w1, torch.bfloat16), (b1, torch.float32))
+    h = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
+    z1 = torch.empty_like(h) if want_z1 else None
+    fn = build.entry("ln_mlp_fc1_wide")
+    build.check(fn, fn(build.ptr(y), build.ptr(w1b), build.ptr(b1f), build.ptr(h), build.ptr(z1),
+                       m, e, hidden, build.stream_ptr(dev)))
+    build.LAUNCHES["ln_mlp_fc1_wide"] += 1
+    return h, z1
+
+
+def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False,
+                 wide: bool = False):
     """Launch ln_mlp_fwd.cu's LN -> fc1 -> GELU stage on bf16 CUDA rows a (M,
-    E): (h, z1) bf16 (M, hidden), z1 None unless ``want_z1``."""
+    E): (h, z1) bf16 (M, hidden), z1 None unless ``want_z1``.  E > 384 (or
+    ``wide``) launches the wide variant, :func:`ln_rows` then
+    :func:`fc1_stage`."""
     a = _bf16_rows(a, "ln_fc1_stage")
     m, e = a.shape
     hidden = w1.shape[-1]
-    if w1.shape != (e, hidden) or not kernel_fits(e, hidden):
-        raise ValueError(f"ln_fc1_stage takes E <= {MAX_WIDTH} and E, hidden multiples of 8, "
-                         f"got a {tuple(a.shape)}, w1 {tuple(w1.shape)}; wider blocks are "
-                         "ROADMAP.md queue 1 item 7")
+    if w1.shape != (e, hidden):
+        raise ValueError(f"ln_fc1_stage takes w1 (E, hidden), got a {tuple(a.shape)}, w1 "
+                         f"{tuple(w1.shape)}")
+    if not kernel_fits(e, hidden):
+        raise _width_error("ln_fc1_stage", E=e, hidden=hidden)
+    if wide_route(e, wide):
+        return fc1_stage(ln_rows(a, ln_s, ln_b, eps), w1, b1, want_z1)
     dev = a.device
     f32 = torch.float32
     w1b, ln_sf, ln_bf, b1f = _operands(dev, (w1, torch.bfloat16), (ln_s, f32), (ln_b, f32),
@@ -185,6 +271,8 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
                    wout: Optional[torch.Tensor] = None, bout: Optional[torch.Tensor] = None):
     """Run the LN->MLP stages on a bf16 CUDA x (..., E): two launches (fc1,
     then fc2, each counted by its stage), and one call of "ln_mlp_fwd".
+    E > 384 takes the wide LN -> fc1 variant (:func:`ln_fc1_stage`), a launch
+    more.
 
     With ``attn`` (..., H*Dh) bf16, ``wout`` (H*Dh, E) and ``bout`` (E,), the
     out-projection x1 = x + attn . wout + bout runs first (a third launch,
@@ -199,9 +287,7 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
     hidden = w1.shape[-1]
     hd = 0 if attn is None else attn.shape[-1]
     if not kernel_fits(e, hidden, hd):
-        raise ValueError(f"LN->MLP kernel takes E <= {MAX_WIDTH} and E, hidden, H*Dh "
-                         f"multiples of 8, got E={e}, hidden={hidden}, H*Dh={hd}; wider "
-                         "blocks are ROADMAP.md queue 1 item 7")
+        raise _width_error("LN->MLP kernel", E=e, hidden=hidden, HDh=hd)
     if w1.shape != (e, hidden) or w2.shape != (hidden, e):
         raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} do not fit E={e}")
     rows = x.reshape(-1, e)
@@ -285,11 +371,12 @@ def dispatch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gel
                     residual: bool = True):
     """Policy-routed LN+MLP: 'auto' takes the kernel for CUDA tensors of at
     least ``min_mlp_rows`` rows and hidden >= 512 (the JAX package's TPU
-    gate, not yet measured on the GPU) whose widths the kernel has a variant
-    for (:func:`kernel_fits`; wider blocks are ROADMAP.md queue 1 item 7).
-    'always' sends every block to the kernel: a dtype or width it does not
-    take raises in :func:`ln_mlp_forward`, and so does a dtype under 'auto';
-    neither is sent to the plain version."""
+    gate, not yet measured on the GPU) whose widths are multiples of 8
+    (:func:`kernel_fits`: every such E has a kernel, E > 384 the wide
+    variant; other widths are ROADMAP.md queue 1 item 7).  'always' sends
+    every block to the kernel: a dtype or width it does not take raises in
+    :func:`ln_mlp_forward`, and so does a dtype under 'auto'; neither is sent
+    to the plain version."""
     rows = x.numel() // x.shape[-1]
     mode = _POLICY["mode"]
     big_enough = rows >= _POLICY["min_mlp_rows"] and w1.shape[-1] >= 512
