@@ -294,6 +294,36 @@
    profiled breakdown, ms/step and peak; one batch-64 serving call; one
    eager step at dropout 0 against use_pallas=never in the route bounds.  The
    wide kernels' `launches` in the JSON line are this path's.
+37. [f32 kernels] (after [wide kernels]): the f32 flash kernels
+   (csrc/flash_f32.cuh: the forward in `dot`, `l2` and `l2ref`, the single
+   pass, dq and dk/dv in `dot` and `l2`) at the v1 generator's (128, 4, 32,
+   96) and discriminator's (256, 4, 50, 108) shapes, highres128's D (32, 6,
+   1025, 64), highres256p4's G (8, 6, 4096, 64) and D (16, 6, 4097, 64), a
+   ragged (4, 4, 65, 108) in every mode and one head of 16,385 tokens,
+   against their plain versions in full f32: a forward output within
+   F32_RTOL * max(1, max|plain|), the LSE within F32_LSE_TOL, a backward
+   output within F32_RTOL * its own max|plain|, each at most half the bf16
+   kernel's error on the same inputs cast to bf16, the backward's outputs
+   bit-equal across two calls; timed beside the TF32 bound, the plain
+   version, SDPA in f32 (`dot`, `l2` with its key mask) and the device time
+   of the wrapper's own kernels.  The SASS of each f32 source must hold TF32
+   tensor-core products (HMMA).
+38. [ln_mlp activations]: the fc1 stage with gelu, relu, tanh and sigmoid at
+   highres128's serving rows (E 384, resident) and DeiT-B's G rows (E 768,
+   wide) against its plain version within KERNEL_RTOL, bit-equal across two
+   calls, each timed beside GELU's.
+39. [train v1 f32] (after [train v1 captured] and its routes): the v1
+   ViTGAN at the reference defaults with runtime.compute_dtype=float32 under
+   use_pallas=always through Trainer.fit (a capture epoch, then 8 captured
+   steps, launches a step held to V1_F32_KERNELS: only f32 flash kernels, no
+   plain attention), a profiled breakdown, one HTTP request to its run
+   directory; captured against eager, bit-equal; one dropout-0 step on
+   bwd_fusion auto, fused and two_pass against use_pallas=never in f32 within
+   F32_LOSS_TOL, F32_NORM_RTOL and F32_LEAF_RTOL, which the control route
+   (the f32 model on the bf16 flash kernels) must miss; the `l2ref` route in
+   f32.  The f32
+   kernels' `launches` in the JSON line are this path's (the `l2` single
+   pass, `dot` dq and dk/dv and `l2ref` from their one-step routes).
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -341,6 +371,15 @@ IMAGE_MAX_TOL, IMAGE_MEAN_TOL = 0.0625, 0.01
 # back.  Losses within LOSS_TOL absolute; gradient norms within NORM_RTOL
 # relative; every gradient leaf within LEAF_RTOL * max|plain leaf|.
 LOSS_TOL, NORM_RTOL, LEAF_RTOL = 2e-2, 5e-2, 1e-1
+# The same in f32: the kernel routes' TF32 products (a 10-bit mantissa)
+# against the plain route in full f32, through 4 blocks of G and of D.  The
+# route control F32_CONTROL, the f32 model whose flash kernels run in bf16 on
+# its attention's inputs rounded to bf16, must miss one of these bounds: they
+# see an attention that rounds through bf16.  On an H100 the f32 routes read
+# losses within 1.5e-5, norms 9e-6, leaves 4.9e-4; the control 1.8e-4 to
+# 2.4e-4, 4.7e-5, 4.9e-3.
+F32_LOSS_TOL, F32_NORM_RTOL, F32_LEAF_RTOL = 1e-4, 1e-4, 2e-3
+F32_CONTROL = "bf16_flash_control"
 # The ISR u vectors (unit vectors) after one v1 step, kernel route against
 # the plain one: max |d| within U_TOL.
 U_TOL = 1e-3
@@ -554,6 +593,13 @@ def _sass_counts(build) -> dict:
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
                     raise AssertionError(f"{func} holds no wgmma in its SASS")
+    for name in build.F32_FLASH:  # mma.sync TF32: HMMA, no wgmma yet
+        sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        out[name] = {"HMMA": sass.count("HMMA"), "HMMA_TF32": sass.count("TF32")}
+        print(f"[sass] {name}: {out[name]['HMMA']} HMMA ({out[name]['HMMA_TF32']} TF32)")
+        if not out[name]["HMMA_TF32"]:
+            raise AssertionError(f"{name} holds no TF32 tensor-core product in its SASS")
     return out
 
 
@@ -2236,6 +2282,10 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("scale_cast_kernel", "flash single-pass `l2` dq finish"),
                 ("flash_attn_fwd_kernel", "flash forward"),
                 ("flash_fwd_l2_kernel", "flash forward"),
+                # the f32 flash kernels (csrc/flash_f32.cuh)
+                ("flash_fwd_f32_kernel", "flash forward (f32)"),
+                ("flash_bwd_dq_f32_kernel", "flash backward dq (f32)"),
+                ("flash_bwd_kv_f32_kernel", "flash backward k-block (f32 single-pass or dk/dv)"),
                 ("ln_qkv", "LN->qkv forward"),
                 ("megablock_bwd_mlp", "megablock backward, MLP half"),
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
@@ -3217,16 +3267,43 @@ def _flash_bwd_f32_ds(q, k, v, o, lse, do, scale: float, delta=None, score_mode:
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
+def _bf16_flash_forward(kernel_fwd):
+    """The flash forward of the f32 route control: the bf16 kernel on q, k, v
+    rounded to bf16, o returned in the inputs' dtype."""
+    def forward(q, k, v, scale, out=None, score_mode="dot"):
+        o, lse = kernel_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), scale, out=out,
+                            score_mode=score_mode)
+        return o.to(q.dtype), lse
+    return forward
+
+
+def _bf16_flash_backward(kernel_bwd):
+    """The flash backward of the f32 route control: the bf16 kernels (on the
+    bf16 route) on q, k, v, o, dO rounded to bf16, gradients returned in the
+    inputs' dtype."""
+    def backward(q, k, v, o, lse, do, scale, delta=None, score_mode="dot"):
+        grads = kernel_bwd(*(t.bfloat16() for t in (q, k, v, o)), lse, do.bfloat16(), scale,
+                           delta, score_mode)
+        return tuple(g.to(q.dtype) for g in grads)
+    return backward
+
+
+def compare_v1_train_routes(batch: int = 8, diagnose: bool = False,
+                            dtype: str = "bfloat16") -> dict:
     """One v1 step at the reference widths, dropout 0, from the same state,
     batch and latents on use_pallas=always with bwd_fusion auto (D's `l2`
-    two-pass) and fused, and on use_pallas=never; each kernel route (bf16)
-    held to the plain route in f32, the ISR u buffers included, and the bf16
-    plain route's own distance printed beside.  Under use_pallas=auto the
-    step launches no kernel.
+    two-pass) and fused, and on use_pallas=never; each kernel route (in
+    ``dtype``) held to the plain route in f32, the ISR u buffers included,
+    and (bf16) the bf16 plain route's own distance printed beside.  Under
+    use_pallas=auto the step launches no kernel.  In f32 the kernel routes
+    also take bwd_fusion=two_pass (G's `dot` backward then runs dq and dk/dv)
+    and are held to the F32_ bounds, which the bf16-flash control
+    F32_CONTROL must miss; each route's launches are returned beside its
+    distances.
 
     Losses, gradient norms and every leaf of more than one element are held
-    as v2's are: max|d| within LEAF_RTOL of the leaf's max|plain|.  A scalar
+    as v2's are: max|d| within LEAF_RTOL (f32: F32_LEAF_RTOL) of the leaf's
+    max|plain|.  A scalar
     leaf (G's 18 SLN gammas and betas, D's head bias) is one sum over the
     batch's samples, and some of G's cancel to 1e-5 beside terms of 1e-4:
     its |d| is held within LEAF_RTOL of the sum of its per-sample terms'
@@ -3258,22 +3335,33 @@ def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
     images, _ = synthetic_dataset(batch, 32, 3, seed=SEED)
     real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
     z = gan.sample_latent(latent_rng(SEED, 0), batch)
-    saved, kernel_bwd = get_policy(), A.flash_backward
+    saved, kernel_fwd, kernel_bwd = get_policy(), A.flash_forward, A.flash_backward
     always, fused = dict(mode="always", bwd_fusion="auto"), dict(mode="always", bwd_fusion="fused")
     plain = dict(mode="never", bwd_fusion="auto")
-    routes = [("always", always, "bfloat16", None), ("always_fused", fused, "bfloat16", None),
-              ("plain", plain, "bfloat16", None), ("plain_f32", plain, "float32", None),
-              ("auto", dict(mode="auto", bwd_fusion="auto"), "bfloat16", None)]
+    kernel_dtype = getattr(torch, dtype)
+    if dtype == "float32":
+        loss_tol, norm_rtol, leaf_rtol = F32_LOSS_TOL, F32_NORM_RTOL, F32_LEAF_RTOL
+        routes = [("always", always, dtype, None), ("always_fused", fused, dtype, None),
+                  ("always_two_pass", dict(mode="always", bwd_fusion="two_pass"), dtype, None),
+                  (F32_CONTROL, always, dtype, _bf16_flash_backward(kernel_bwd)),
+                  ("plain_f32", plain, "float32", None)]
+    else:
+        loss_tol, norm_rtol, leaf_rtol = LOSS_TOL, NORM_RTOL, LEAF_RTOL
+        routes = [("always", always, "bfloat16", None), ("always_fused", fused, "bfloat16", None),
+                  ("plain", plain, "bfloat16", None), ("plain_f32", plain, "float32", None),
+                  ("auto", dict(mode="auto", bwd_fusion="auto"), "bfloat16", None)]
     if diagnose:
         routes += [("plain_bwd_bf16_dS", always, "bfloat16", A.flash_bwd_fused_reference),
                    ("plain_bwd_f32_dS", always, "bfloat16", _flash_bwd_f32_ds)]
-    res = {}
+    res, launches = {}, {}
     try:
         apply_from_runtime(cfg.runtime)
-        for route, policy, dtype, backward in routes:
+        for route, policy, route_dtype, backward in routes:
             set_policy(**policy)
+            A.flash_forward = (_bf16_flash_forward(kernel_fwd) if route == F32_CONTROL
+                               else kernel_fwd)
             A.flash_backward = backward or kernel_bwd
-            rcfg = C.replace(cfg, **{"runtime.compute_dtype": dtype})
+            rcfg = C.replace(cfg, **{"runtime.compute_dtype": route_dtype})
             state = create_train_state(gan, rcfg, device="cuda")
             step = make_train_step(gan, rcfg)
             build.reset_launches()
@@ -3283,7 +3371,8 @@ def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
             else:
                 metrics = host_metrics(step(state, real, z=z))
             launched = {k: n for k, n in build.LAUNCHES.items() if n}
-            print(f"[v1 routes] {route} ({dtype}): launches {launched}, metrics {metrics}")
+            launches[route] = launched
+            print(f"[v1 routes] {route} ({route_dtype}): launches {launched}, metrics {metrics}")
             res[route] = (metrics,
                           [p.grad.float() for p in (*state.g.parameters(), *state.d.parameters())],
                           [f"g.{n}" for n, _ in state.g.named_parameters()]
@@ -3292,15 +3381,20 @@ def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
             if policy["mode"] != "always" and launched:
                 raise AssertionError(f"the v1 step on use_pallas={policy['mode']} launched "
                                      f"{launched}")
-            l2_bwd = ("flash_attn_bwd_fused[l2]" if route == "always_fused"
-                      else "flash_attn_bwd_dq[l2]")
+            l2_bwd = A.launch_key("flash_attn_bwd_fused" if route == "always_fused"
+                                  else "flash_attn_bwd_dq", "l2", kernel_dtype)
             if backward is None and policy["mode"] == "always" and build.LAUNCHES[l2_bwd] != 8:
                 raise AssertionError(f"{route}: {l2_bwd} did not run in every D block")
+            if policy["mode"] == "always" and route != F32_CONTROL and any(
+                    (k.startswith("flash_attn") and "_f32[" in k) != (dtype == "float32")
+                    for k in launched):
+                raise AssertionError(f"{route}: a flash kernel of another dtype than {dtype} "
+                                     f"launched: {launched}")
             del state, step
             torch.cuda.empty_cache()
     finally:
         set_policy(**saved)
-        A.flash_backward = kernel_bwd
+        A.flash_forward, A.flash_backward = kernel_fwd, kernel_bwd
     mp, gp, names, up = res["plain_f32"]
     scalars = [i for i, b in enumerate(gp) if b.numel() == 1]
     for i in scalars:
@@ -3318,20 +3412,21 @@ def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
     compared = [r for r, *_ in routes if r not in ("plain_f32", "auto")]
     for route in compared:
         mk, gk, _, uk = res[route]
-        r = out[route] = {}
-        checked = route in ("always", "always_fused")  # the others are reported, not held
+        r = out[route] = {"launches": launches[route]}
+        checked = route.startswith("always")  # the others are reported, not held
+        misses = []  # the bounds this route misses
         for key in ("d_loss", "g_loss"):
             r[key] = abs(mk[key] - mp[key])
             print(f"[v1 routes] {route} {key}: {mk[key]:.6f}, plain f32 {mp[key]:.6f} "
-                  f"(|d| {r[key]:.3g}, tolerance {LOSS_TOL})")
-            if checked and not r[key] <= LOSS_TOL:
-                failed.append(f"{route}: {key} differs from the plain route")
+                  f"(|d| {r[key]:.3g}, tolerance {loss_tol})")
+            if not r[key] <= loss_tol:
+                misses.append(key)
         for key in ("d_grad_norm", "g_grad_norm"):
             r[key] = abs(mk[key] - mp[key]) / mp[key]
             print(f"[v1 routes] {route} {key}: {mk[key]:.6f}, plain f32 {mp[key]:.6f} "
-                  f"(relative {r[key]:.3g}, tolerance {NORM_RTOL})")
-            if checked and not r[key] <= NORM_RTOL:
-                failed.append(f"{route}: {key} differs from the plain route")
+                  f"(relative {r[key]:.3g}, tolerance {norm_rtol})")
+            if not r[key] <= norm_rtol:
+                misses.append(key)
         wide, by_terms, alone = {}, {}, {}
         for name, a, b in zip(names, gk, gp):
             d = (a - b).abs().max().item()
@@ -3350,11 +3445,19 @@ def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
         print(f"[v1 routes] {route}: {len(wide)} gradient leaves of more than one element, worst "
               f"max|d| / max|plain f32| {wide[worst]:.4g} at {worst}; {len(by_terms)} scalar "
               f"leaves, worst |d| / sum of |per-sample terms| {by_terms[worst_s]:.4g} at "
-              f"{worst_s} (median {r['median_scalar_rel_terms']:.4g}; tolerance {LEAF_RTOL}"
+              f"{worst_s} (median {r['median_scalar_rel_terms']:.4g}; tolerance {leaf_rtol}"
               f"{'' if checked else '; reported, not held'}); a scalar alone at most "
               f"{r['worst_scalar_alone_rel']:.4g} of itself")
-        if checked and not (wide[worst] <= LEAF_RTOL and by_terms[worst_s] <= LEAF_RTOL):
-            failed.append(f"{route}: a gradient leaf differs from the plain route")
+        if not (wide[worst] <= leaf_rtol and by_terms[worst_s] <= leaf_rtol):
+            misses.append("a gradient leaf")
+        r["misses"] = misses
+        if route == F32_CONTROL:
+            print(f"[v1 routes] {route} misses the f32 bounds on {misses or 'nothing'}")
+            if not misses:
+                failed.append(f"{route}: the f32 bounds do not see flash kernels that round "
+                              "through bf16")
+        elif checked and misses:
+            failed.append(f"{route}: " + ", ".join(misses) + " differ from the plain route")
         r["isr_u_max_abs"] = max((uk[n] - up[n]).abs().max().item() for n in up)
         print(f"[v1 routes] {route}: {len(up)} ISR u buffers after the step within "
               f"{r['isr_u_max_abs']:.3g} of the plain route's (tolerance {U_TOL})")
@@ -3368,28 +3471,32 @@ def compare_v1_train_routes(batch: int = 8, diagnose: bool = False) -> dict:
             print(f"  {n}: {gp[i].item():.4g}, {terms.abs[n]:.4g}; "
                   + ", ".join(f"{by_route[r_][n]:.3g}" for r_ in compared))
     if failed:
-        raise AssertionError(f"v1 routes at batch {batch}: " + "; ".join(failed))
+        raise AssertionError(f"v1 routes at batch {batch} ({dtype}): " + "; ".join(failed))
     return out
 
 
-def l2ref_path() -> dict:
+def l2ref_path(dtype: str = "bfloat16") -> dict:
     """The `l2ref` route: an ISR attention of the v1 discriminator's width
-    (432, 4 heads of 108) on 256 x 50 tokens under use_pallas=always,
-    forward and backward.  The forward kernel launches once; the backward is
+    (432, 4 heads of 108) on 256 x 50 tokens in ``dtype`` under
+    use_pallas=always, forward and backward.  The forward kernel (the f32
+    kernel in f32) launches once; the backward is
     autograd of the plain chunked recompute, as the JAX package's `_bwd`
     (vitgan_tpu/ops/attention.py:861-870): no backward kernel launches.  The
     gradients are held to autograd through the plain attention."""
     import torch
 
     from vitgan_tpu_torch.models import layers as L
+    from vitgan_tpu_torch.ops import attention as A
     from vitgan_tpu_torch.ops import build
     from vitgan_tpu_torch.ops.policy import get_policy, set_policy
 
     msha = L.MHSA(432, 4, torch.Generator().manual_seed(SEED), qkv_bias=False, init="torch",
                   spectral=True).cuda()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    x = torch.randn((256, 50, 432), generator=gen, device="cuda").to(torch.bfloat16)
-    g = torch.randn((256, 50, 432), generator=gen, device="cuda").to(torch.bfloat16)
+    dt = getattr(torch, dtype)
+    key = A.launch_key("flash_attn_fwd", "l2ref", dt)
+    x = torch.randn((256, 50, 432), generator=gen, device="cuda").to(dt)
+    g = torch.randn((256, 50, 432), generator=gen, device="cuda").to(dt)
     saved = get_policy()
     grads = {}
     try:
@@ -3403,12 +3510,12 @@ def l2ref_path() -> dict:
             torch.cuda.synchronize()
             launched = {k: n for k, n in build.LAUNCHES.items() if n}
             # --- end of the l2ref path ---
-            print(f"[l2ref] {route}: launches {launched}")
-            want = {"flash_attn_fwd[l2ref]": 1} if route == "kernel" else {}
+            print(f"[l2ref] {route} ({dtype}): launches {launched}")
+            want = {key: 1} if route == "kernel" else {}
             if launched != want:
                 raise AssertionError(f"l2ref {route} route launched {launched}, expected {want}")
             if route == "kernel":
-                launches = launched["flash_attn_fwd[l2ref]"]
+                launches = launched[key]
     finally:
         set_policy(**saved)
     worst = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
@@ -3417,6 +3524,341 @@ def l2ref_path() -> dict:
     if not worst <= LEAF_RTOL:
         raise AssertionError("the l2ref route's gradients differ from the plain route's")
     return {"launches": launches, "worst_grad_rel": worst}
+
+
+# --- the f32 flash kernels (csrc/flash_f32.cuh) ----------------------------------------
+
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 (NVIDIA data sheet)
+# An f32 kernel against its plain version in full f32 (allow_tf32 False): the
+# kernels round every product's operands to TF32 (2**-11 relative).  A forward
+# output within F32_RTOL * max(1, max|plain|), the LSE within F32_LSE_TOL, a
+# backward output within F32_RTOL * its own max|plain|; each at most half the
+# bf16 kernel's error on the same inputs (it does not round through bf16).
+F32_RTOL, F32_LSE_TOL = 5e-3, 2.5e-3
+# (label, (B, H, N, Dh), softmax scale, forward modes, {backward kernel: modes}):
+# the v1 generator's and discriminator's attention at the reference defaults,
+# the discriminators of highres128 and highres256p4 (two-pass in f32) and
+# highres256p4's generator (single pass), a ragged N at the v1 head width in
+# every mode, one head of 16,385 tokens.
+F32_SHAPES = (
+    ("v1 G", (128, 4, 32, 96), 384.0, ("dot",), {"fused": ("dot",)}),
+    ("v1 D", (256, 4, 50, 108), 432.0, ("l2", "l2ref"),
+     {"fused": ("l2",), "dq": ("l2",), "dkv": ("l2",)}),
+    ("highres128 D", (32, 6, 1025, 64), 64.0, ("dot",), {"dq": ("dot",), "dkv": ("dot",)}),
+    ("highres256p4 G", (8, 6, 4096, 64), 64.0, ("dot",), {"fused": ("dot",)}),
+    ("highres256p4 D", (16, 6, 4097, 64), 64.0, ("dot",), {"dq": ("dot",), "dkv": ("dot",)}),
+    ("ragged", (4, 4, 65, 108), 432.0, ("dot", "l2", "l2ref"),
+     {kind: ("dot", "l2") for kind in ("fused", "dq", "dkv")}),
+    ("long", (1, 1, 16385, 64), 64.0, ("dot",),
+     {kind: ("dot",) for kind in ("fused", "dq", "dkv")}),
+)
+# The shape of each f32 kernel's main record: where its main path runs it.
+F32_MAIN = {"flash_attn_fwd_f32[dot]": "v1 G", "flash_attn_fwd_f32[l2]": "v1 D",
+            "flash_attn_fwd_f32[l2ref]": "v1 D", "flash_attn_bwd_fused_f32[dot]": "v1 G",
+            "flash_attn_bwd_fused_f32[l2]": "v1 D", "flash_attn_bwd_dq_f32[l2]": "v1 D",
+            "flash_attn_bwd_dkv_f32[l2]": "v1 D", "flash_attn_bwd_dq_f32[dot]": "highres128 D",
+            "flash_attn_bwd_dkv_f32[dot]": "highres128 D"}
+F32_SYMBOLS = {"flash_attn_fwd": ("flash_fwd_f32_kernel",),
+               "flash_attn_bwd_fused": ("flash_bwd_kv_f32_kernel",),
+               "flash_attn_bwd_dq": ("flash_bwd_dq_f32_kernel",),
+               "flash_attn_bwd_dkv": ("flash_bwd_kv_f32_kernel",)}
+
+
+def _bound_f32(flops: float, nbytes: float):
+    """The least time of an f32 kernel: TF32 products against 4-byte operands."""
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _rel_err(got, want, own: bool) -> tuple:
+    """(max |got - want|, the bar's scale: max(1, max|want|), or max|want| with
+    ``own``), after a sync; raises on a shape mismatch or a non-finite value."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("non-finite kernel output")
+    peak = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item(), (peak if own else max(1.0, peak))
+
+
+def check_f32_kernels() -> dict:
+    """[f32 kernels]: the f32 flash kernels at F32_SHAPES against their plain
+    versions in full f32 on the same inputs, each held to its bar and to half
+    the bf16 kernel's error on the same inputs cast to bf16; each backward
+    kernel's outputs bit-equal across two calls, contiguous at the unpadded
+    head width; timed (wrapper, device time of its own kernels by the
+    profiler and of its other work, the plain version, the bound at TF32,
+    scaled_dot_product_attention in f32 where it computes the same function:
+    `dot`, and `l2` through its key mask).  Returns {launch key: record}, the
+    record at F32_MAIN's shape with the other shapes' errors and times
+    beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    f32 = torch.float32
+    bwd = {"fused": ("flash_attn_bwd_fused", A.flash_backward_fused,
+                     A.flash_bwd_fused_reference, 5, 3),
+           "dq": ("flash_attn_bwd_dq", A.flash_backward_dq, A.flash_bwd_dq_reference, 3, 1),
+           "dkv": ("flash_attn_bwd_dkv", A.flash_backward_dkv, A.flash_bwd_dkv_reference, 4, 2)}
+    out = {name: {} for name in F32_MAIN}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for label, shape, scale, fwd_modes, bwd_modes in F32_SHAPES:
+        b, h, n, dh = shape
+        inv = 1.0 / math.sqrt(scale)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+        qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+        print(f"[f32 kernels] {label}: B {b} H {h} N {n} Dh {dh}, scale {scale:g}")
+        elem, rows = b * h * n * dh * 4, b * h * n * 4
+        iters = 20 if n < 512 else 5
+        recs, fwd_out = {}, {}
+        for mode in fwd_modes:
+            name = A.launch_key("flash_attn_fwd", mode, f32)
+            kern = lambda mode=mode: A.flash_forward(q, k, v, scale, score_mode=mode)  # noqa
+            plain = lambda mode=mode: A.attention_forward_reference(q, k, v, scale, mode)  # noqa
+            (o, lse), (po, plse) = kern(), plain()
+            err, bar = _rel_err(o, po, own=False)
+            lse_err = (lse - plse).abs().max().item()
+            ob, _ = A.flash_forward(qb, kb, vb, scale, score_mode=mode)
+            bf_err, _ = _rel_err(ob, po, own=False)
+            print(f"  {name} {label}: max_abs_err {err:.4g} (bar {F32_RTOL * bar:.4g}), lse "
+                  f"{lse_err:.4g} (bar {F32_LSE_TOL}), the bf16 kernel's {bf_err:.4g}")
+            if not (err <= F32_RTOL * bar and lse_err <= F32_LSE_TOL and err <= 0.5 * bf_err
+                    and o.is_contiguous()):
+                raise AssertionError(f"{name} {label}: disagrees with its plain version, or not "
+                                     "half the bf16 kernel's error, or not contiguous")
+            library = None
+            if mode == "dot":
+                library = lambda: F.scaled_dot_product_attention(q, k, v, scale=inv)  # noqa
+            elif mode == "l2":
+                library = _l2_library(q, k, v, inv)
+            bound_ms, bound_by = _bound_f32(4.0 * b * h * n * n * dh, 4 * elem + rows)
+            recs[name] = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+                          "bf16_max_abs_err": bf_err, "ms": _time_ms(kern, iters),
+                          "plain_ms": _time_ms(plain, 3), "bound_ms": bound_ms,
+                          "bound_by": bound_by,
+                          "library_ms": _time_ms(library, iters) if library else None}
+            if F32_MAIN[name] == label:
+                recs[name]["device_ms"], recs[name]["other_device_ms"] = _device_ms(
+                    kern, iters, F32_SYMBOLS["flash_attn_fwd"])
+            fwd_out[mode] = (o, lse)
+            del ob, po, plse
+        for kind, modes in bwd_modes.items():
+            base, kern_fn, plain_fn, products, writes = bwd[kind]
+            for mode in modes:
+                name = A.launch_key(base, mode, f32)
+                o, lse = fwd_out[mode] if mode in fwd_out else A.flash_forward(
+                    q, k, v, scale, score_mode=mode)
+                args = (q, k, v, o, lse, do, scale)
+                kern = lambda mode=mode, args=args, fn=kern_fn: fn(*args, score_mode=mode)  # noqa
+                plain = lambda mode=mode, args=args, fn=plain_fn: fn(*args, score_mode=mode)  # noqa
+                got, want = kern(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                bgot = kern_fn(qb, kb, vb, o.bfloat16(), lse, dob, scale, score_mode=mode)
+                bgot = bgot if isinstance(bgot, tuple) else (bgot,)
+                errs, bf_errs = [], []
+                for i, (g_, w_, b_) in enumerate(zip(got, want, bgot)):
+                    err, bar = _rel_err(g_, w_, own=True)
+                    bf_err, _ = _rel_err(b_, w_, own=True)
+                    print(f"  {name} {label} out{i}: max_abs_err {err:.4g} (bar "
+                          f"{F32_RTOL * bar:.4g}), the bf16 kernel's {bf_err:.4g}")
+                    if not (err <= F32_RTOL * bar and err <= 0.5 * bf_err
+                            and g_.is_contiguous()):
+                        raise AssertionError(f"{name} {label} out{i}: disagrees with its plain "
+                                             "version, or not half the bf16 kernel's error, or "
+                                             "not contiguous")
+                    errs.append(err)
+                    bf_errs.append(bf_err)
+                del got, want, bgot
+                repeat = _repeat(kern, f"{name} {label}")
+                bound_ms, bound_by = _bound_f32(2.0 * products * b * h * n * n * dh,
+                                                (5 + writes) * elem + rows)
+                library_ms = None
+                if mode == "dot" or mode == "l2":
+                    xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                    lib_out = (F.scaled_dot_product_attention(*xs, scale=inv) if mode == "dot"
+                               else _l2_library(*xs, inv)())
+                    library_ms = _time_ms(lambda: torch.autograd.grad(
+                        lib_out, xs, do, retain_graph=True), iters)
+                    del xs, lib_out
+                recs[name] = {"max_abs_err": max(errs), "max_abs_err_per_output": errs,
+                              "bf16_max_abs_err_per_output": bf_errs,
+                              "repeat_max_abs_diff": repeat, "ms": _time_ms(kern, iters),
+                              "plain_ms": _time_ms(plain, 3), "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": library_ms}
+                if F32_MAIN[name] == label:
+                    recs[name]["device_ms"], recs[name]["other_device_ms"] = _device_ms(
+                        kern, iters, F32_SYMBOLS[base])
+        for name, r in recs.items():
+            dev = (f"; device {r['device_ms']} ms in its kernels, {r['other_device_ms']} in the "
+                   "wrapper's other work" if "device_ms" in r else "")
+            print(f"  {name} {label}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}{dev})")
+            if F32_MAIN[name] == label:
+                out[name].update({"shape": list(shape), "scale": scale, **r})
+            else:
+                tag = label.replace(" ", "_")
+                out[name][f"{tag}_max_abs_err"] = r["max_abs_err"]
+                out[name][f"{tag}_ms"] = r["ms"]
+                out[name][f"{tag}_bound_ms"] = r["bound_ms"]
+                out[name][f"{tag}_plain_ms"] = r["plain_ms"]
+                out[name][f"{tag}_library_ms"] = r["library_ms"]
+                if "repeat_max_abs_diff" in r:
+                    out[name][f"{tag}_repeat_max_abs_diff"] = r["repeat_max_abs_diff"]
+        del q, k, v, do, qb, kb, vb, dob, fwd_out
+        torch.cuda.empty_cache()
+    return out
+
+
+# Kernel launches per v1 train step at the reference defaults in f32 under
+# use_pallas=always: V1_KERNELS' counts on the f32 kernels (G's `dot` single
+# pass at 32 tokens; D's `l2` two-pass at 50 tokens under bwd_fusion=auto).
+V1_F32_KERNELS = {"flash_attn_fwd_f32[dot]": 4, "flash_attn_fwd_f32[l2]": 8,
+                  "flash_attn_bwd_dq_f32[l2]": 8, "flash_attn_bwd_dkv_f32[l2]": 8,
+                  "flash_attn_bwd_fused_f32[dot]": 4}
+
+
+def train_v1_f32(run_dir: str) -> tuple:
+    """[train v1 f32]: the v1 ViTGAN at the reference defaults with
+    runtime.compute_dtype=float32 under use_pallas=always through Trainer.fit
+    on 1,024 synthetic samples (8 steps an epoch): 1 eager warm-up step, 3
+    eager steps timed, a warm-up epoch (the capture), then a timed epoch of
+    captured steps; launches a step held to V1_F32_KERNELS (no bf16 flash
+    kernel, no plain attention); the run directory served over HTTP (the f32
+    forward kernel in every G block of each call).  Then captured against
+    eager (bit-equal), one step at dropout 0 on each bwd_fusion route against
+    use_pallas=never in f32 (compare_v1_train_routes; bwd_fusion=fused sends
+    D to the `l2` single pass, two_pass G to `dot` dq and dk/dv) and the
+    `l2ref` route in f32.  Returns (launches of the fit's steps, record)."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.serve import serve
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    tag = "[train v1 f32]"
+    over = {"runtime.compute_dtype": "float32"}
+    cfg = _v1_cfg(**_fit_over({**over, "data.synthetic_samples": 1024, "run.epochs": 2}))
+    m = cfg.v1
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    st, steps = trainer.state, trainer.steps_per_call
+    print(f"{tag} v1 defaults in {cfg.runtime.compute_dtype}: batch {m.batch_size}, use_pallas "
+          f"{cfg.runtime.use_pallas}, bwd_fusion {cfg.runtime.bwd_fusion}; {steps} steps a call; "
+          f"set up in {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().cpu().clone() for p in (*st.g.parameters(), *st.d.parameters())]
+    host_metrics(trainer.train_step(st, trainer.real_batch(trainer.batches()[0])))
+    eager_ms = _eager_step_ms(trainer, 3)
+    grid = _grid_launches(trainer)
+    with _PlainAttentionCounter() as plain:
+        trainer.fit(epochs=1)  # the warm-up epoch: its first step runs eagerly, then is captured
+        _settle()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        # --- the v1 f32 path ---
+        means = trainer.fit()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        # --- end of the v1 f32 path ---
+    ms = 1e3 * m.batch_size / means["images_per_sec"]
+    print(f"{tag} {_smi()}: {steps} captured steps by Trainer.fit: {ms:.3f} ms/step "
+          f"({means['images_per_sec']:.1f} img/s); the eager step {eager_ms:.3f} ms; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; the grid's alone {grid}; plain "
+          f"attention calls {plain.calls}")
+    launches = _check_fit_launches(tag, launches, V1_F32_KERNELS, steps, grid)
+    if plain.calls:
+        raise AssertionError(f"{tag} {plain.calls} attentions took a plain route")
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
+                                                 "g_grad_norm")):
+        raise AssertionError(f"{tag} non-finite train metrics: {means}")
+    after = [p.detach().cpu() for p in (*st.g.parameters(), *st.d.parameters())]
+    if any(torch.equal(a, b_) for a, b_ in zip(before, after)):
+        raise AssertionError(f"{tag} some parameters did not move")
+    breakdown = train_breakdown(trainer, ms, recompute=False)
+    del trainer, st, before, after
+    torch.cuda.empty_cache()
+    httpd = serve(run_dir, host="127.0.0.1", port=0, batch=64)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        status, _, body, req_ms = _post(f"http://127.0.0.1:{httpd.server_address[1]}",
+                                        {"n": 16, "seed": 1, "format": "npy"})
+        torch.cuda.synchronize()
+        served = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    arr = np.load(io.BytesIO(body))
+    print(f"{tag} the run directory served POST npy n=16 in {req_ms:.1f} ms, launches {served}")
+    if status != 200 or arr.shape != (16, 32, 32, 3) or not np.isfinite(arr).all() \
+            or arr.std() < 1e-3 or served != {"flash_attn_fwd_f32[dot]": 4}:
+        raise AssertionError(f"{tag} serving the f32 run directory: {status} {arr.shape}, "
+                             f"launches {served}")
+    capture = captured_vs_eager(_v1_cfg(**_fit_over(over)), 4, "v1 f32 use_pallas=always")
+    if not capture["bit_equal"]:
+        raise AssertionError(f"{tag} the captured steps are not bit-equal to eager ones")
+    routes = compare_v1_train_routes(dtype="float32")
+    l2ref = l2ref_path("float32")
+    return launches, {"card": _smi(), "ms_per_step": ms, "eager_ms_per_step": eager_ms,
+                      "img_per_s": means["images_per_sec"], "steps": steps, "means": means,
+                      "breakdown": breakdown, "serve_ms": req_ms, "serve_launches": served,
+                      "captured_vs_eager": capture, "routes": routes, "l2ref": l2ref}
+
+
+# [ln_mlp activations]: the fc1 stage with each activation at highres128's
+# serving rows (E 384: the resident kernel) and DeiT-B's G rows (E 768: the
+# wide variant, ln_rows then the streamed fc1).
+ACT_SHAPES = (("highres128 serving", (64 * 1024, 384, 1536)), ("E 768", (64 * 256, 768, 3072)))
+
+
+def check_ln_mlp_activations() -> dict:
+    """Each activation of the fc1 epilogue (gelu, relu, tanh, sigmoid) at
+    ACT_SHAPES: h and z1 against the stage's plain version within KERNEL_RTOL
+    * max(1, max|plain|), bit-equal across two calls, timed beside GELU's.
+    Returns {label: {activation: record}}."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out = {}
+    for label, (m, e, hidden) in ACT_SHAPES:
+        def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+        a = rn(m, e)
+        ln_s, ln_b = 1.0 + rn(e, scale=0.1, dtype=torch.float32), rn(e, scale=0.1,
+                                                                     dtype=torch.float32)
+        w1, b1 = rn(e, hidden, scale=0.05), rn(hidden, scale=0.1, dtype=torch.float32)
+        print(f"[ln_mlp activations] {label}: rows {m} E {e} hidden {hidden} "
+              f"({'wide' if FM.wide_route(e) else 'resident'})")
+        out[label] = {}
+        for act in FM.ACTIVATIONS:
+            kern = lambda act=act: FM.ln_fc1_stage(a, ln_s, ln_b, w1, b1, want_z1=True,  # noqa
+                                                   activation=act)
+            h, z1 = kern()
+            want_h, want_z1 = FM.ln_fc1_stage_reference(a, ln_s, ln_b, w1, b1, activation=act)
+            rec = {"h_max_abs_err": _err(h, want_h, f"fc1 {act} {label} h"),
+                   "z1_max_abs_err": _err(z1, want_z1, f"fc1 {act} {label} z1"),
+                   "repeat_max_abs_diff": _repeat(kern, f"fc1 {act} {label}"),
+                   "ms": _time_ms(kern, 20)}
+            out[label][act] = rec
+            del h, z1, want_h, want_z1
+        gelu = out[label]["gelu"]["ms"]
+        print(f"[ln_mlp activations] {label} {_smi()}: fc1 ms " + ", ".join(
+            f"{act} {r['ms']:.4f} ({r['ms'] / gelu:.3f} of gelu's)"
+            for act, r in out[label].items()))
+        del a, w1
+        torch.cuda.empty_cache()
+    return out
 
 
 # [eval]: the extractors on the card against the same module on the CPU, both
@@ -5507,6 +5949,7 @@ def main() -> int:
     off_dir = os.path.join(root, "build", "chip_smoke_run_megablock_off")
     train_dir = os.path.join(root, "build", "chip_smoke_train")
     v1_dir = os.path.join(root, "build", "chip_smoke_train_v1")
+    v1f32_dir = os.path.join(root, "build", "chip_smoke_train_v1_f32")
     eval_dir = os.path.join(root, "build", "chip_smoke_eval")
     data_dir = os.path.join(root, "build", "chip_smoke_data")
     r1_dir = os.path.join(root, "build", "chip_smoke_r1")
@@ -5551,6 +5994,10 @@ def main() -> int:
         wide_records, wide_forms = check_wide_kernels()
         records.update(wide_records)
         mark("wide kernels")
+        records.update(check_f32_kernels())
+        mark("f32 kernels")
+        records["ln_mlp_fwd"]["activations"] = check_ln_mlp_activations()
+        mark("ln_mlp activations")
         train_launches, train = train_main_path(train_dir, "auto")
         shutil.rmtree(train_dir, ignore_errors=True)
         off_train_launches, train_off = train_main_path(train_dir, "off")
@@ -5567,6 +6014,8 @@ def main() -> int:
         v1["routes"] = compare_v1_train_routes()
         v1["l2ref"] = l2ref_path()
         mark("v1")
+        v1f32_launches, v1f32 = train_v1_f32(v1f32_dir)
+        mark("train v1 f32")
         capture = {
             "v1": captured_vs_eager(_v1_cfg(**_fit_over({})), 4, "v1 use_pallas=always"),
             "highres128": captured_vs_eager(C.replace(C.highres_config(128), **_fit_over(
@@ -5604,8 +6053,8 @@ def main() -> int:
         context = context_path(ctx_dir)
         mark("context")
     finally:
-        for d in (run_dir, off_dir, train_dir, v1_dir, eval_dir, data_dir, r1_dir, interop_dir,
-                  base_dir, p4_dir, accum_dir, sweep_dir, par_dir, pipe_dir, ctx_dir):
+        for d in (run_dir, off_dir, train_dir, v1_dir, v1f32_dir, eval_dir, data_dir, r1_dir,
+                  interop_dir, base_dir, p4_dir, accum_dir, sweep_dir, par_dir, pipe_dir, ctx_dir):
             shutil.rmtree(d, ignore_errors=True)
 
     csrc = "vitgan_tpu_torch/ops/csrc/"
@@ -5660,6 +6109,31 @@ def main() -> int:
         "flash_attn_bwd_dkv[l2]": ("flash_attn_bwd_dkv.cu", "vitgan_tpu/ops/attention.py:727",
                                    v1_launches["flash_attn_bwd_dkv[l2]"]),
     }
+    # the f32 flash kernels, on the v1 f32 train path ([train v1 f32]): `dot`
+    # in G, `l2` in D; the `l2` single pass under bwd_fusion=fused, `dot` dq
+    # and dk/dv under two_pass (one step each), `l2ref` on its own route
+    f32_routes = v1f32["routes"]
+    f32_launches = {
+        "flash_attn_fwd_f32[dot]": ("flash_attn_fwd_f32.cu", 252, v1f32_launches),
+        "flash_attn_fwd_f32[l2]": ("flash_attn_fwd_f32.cu", 252, v1f32_launches),
+        "flash_attn_fwd_f32[l2ref]": ("flash_attn_fwd_f32.cu", 252,
+                                      {"flash_attn_fwd_f32[l2ref]": v1f32["l2ref"]["launches"]}),
+        "flash_attn_bwd_fused_f32[dot]": ("flash_attn_bwd_fused_f32.cu", 606, v1f32_launches),
+        "flash_attn_bwd_fused_f32[l2]": ("flash_attn_bwd_fused_f32.cu", 606,
+                                         f32_routes["always_fused"]["launches"]),
+        "flash_attn_bwd_dq_f32[l2]": ("flash_attn_bwd_dq_f32.cu", 701, v1f32_launches),
+        "flash_attn_bwd_dkv_f32[l2]": ("flash_attn_bwd_dkv_f32.cu", 727, v1f32_launches),
+        "flash_attn_bwd_dq_f32[dot]": ("flash_attn_bwd_dq_f32.cu", 701,
+                                       f32_routes["always_two_pass"]["launches"]),
+        "flash_attn_bwd_dkv_f32[dot]": ("flash_attn_bwd_dkv_f32.cu", 727,
+                                        f32_routes["always_two_pass"]["launches"]),
+    }
+    f32_paths = {"flash_attn_bwd_fused_f32[l2]": "one v1 f32 step with bwd_fusion=fused",
+                 "flash_attn_bwd_dq_f32[dot]": "one v1 f32 step with bwd_fusion=two_pass",
+                 "flash_attn_bwd_dkv_f32[dot]": "one v1 f32 step with bwd_fusion=two_pass",
+                 "flash_attn_fwd_f32[l2ref]": "the l2ref route in f32, one forward and backward"}
+    for name, (src, line, counts) in f32_launches.items():
+        meta[name] = (src, f"vitgan_tpu/ops/attention.py:{line}", counts.get(name, 0))
     # the wide variants, on the DeiT-B-width train path ([train deit64 wide])
     for name, (src, replaces, form) in WIDE_KERNELS.items():
         meta[name] = (src, replaces, wide_train["launches"].get(name, 0))
@@ -5669,6 +6143,8 @@ def main() -> int:
              "flash_attn_bwd_dkv[l2]": f"v1 train, {v1['steps']} captured steps",
              "flash_attn_bwd_fused[l2]": "v1 train with bwd_fusion=fused, 3 captured steps",
              "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward",
+             **{name: f"v1 f32 train, {v1f32['steps']} captured steps" for name in F32_MAIN},
+             **f32_paths,
              **{name: f"deit64 at DeiT-B width ({DEIT_B}), {WIDE_STEPS} captured steps"
                 for name in WIDE_KERNELS}}
     kernels = []
@@ -5745,6 +6221,7 @@ def main() -> int:
     print(json.dumps({"routes": routes}))
     print(json.dumps({"train": train}))
     print(json.dumps({"v1": v1}))
+    print(json.dumps({"v1_f32": v1f32}, default=float))
     print(json.dumps({"capture": capture}))
     print(json.dumps({"eval": evals}))
     print(json.dumps({"data": data}, default=float))

@@ -2,7 +2,8 @@
 import nothing of JAX and nothing of the JAX package (vitgan_tpu), name
 nothing of the repo's native/ directory (the JAX package's C++ loader and
 its library), and importing them builds no kernel, builds or loads no
-loader library, starts no process group and imports no triton."""
+loader library, starts no process group and imports no triton; every C entry
+of the kernel sources has the ctypes signature ops/build.py binds it with."""
 
 import ast
 import json
@@ -114,3 +115,41 @@ def test_no_port_file_names_the_jax_loader_directory():
     for path in (native.SOURCE, native.BUILD_DIR, native.library_path()):
         assert os.path.commonpath([os.path.abspath(path), jax_dir]) != jax_dir, path
         assert os.path.commonpath([os.path.abspath(path), PORT]) == PORT, path
+
+
+def _c_entries(path):
+    """{name: [parameter types]} of the `extern "C" int` entries of a source."""
+    with open(path) as f:
+        src = f.read()
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)\s*\{', src):
+        params = [" ".join(p.split()) for p in m.group(2).split(",")]
+        out[m.group(1)] = params
+    return out
+
+
+def test_every_c_entry_matches_its_ctypes_signature():
+    """Each C entry of csrc/*.cu lies in the source ops/build.py builds it
+    from, with as many parameters as its SIGNATURES entry and of the same
+    kinds (pointer, int, float, uint32): the kernels build only on the card,
+    so a mismatch would show there first.  The f32 flash sources among them
+    are built sources, and nothing builds at import (above)."""
+    import ctypes
+
+    from vitgan_tpu_torch.ops import build
+
+    found = {}
+    for fn in sorted(os.listdir(build.CSRC)):
+        if fn.endswith(".cu"):
+            for name, params in _c_entries(os.path.join(build.CSRC, fn)).items():
+                found[name] = (fn[:-3], params)
+    assert set(found) == set(build.SIGNATURES)
+    kinds = {ctypes.c_void_p: "*", ctypes.c_int: "int", ctypes.c_float: "float",
+             ctypes.c_uint32: "unsigned"}
+    for name, (source, params) in found.items():
+        assert source == build.SOURCE.get(name, name), name
+        want = [kinds[t] for t in build.SIGNATURES[name]]
+        got = ["*" if "*" in p else p.split()[0].replace("uint32_t", "unsigned") for p in params]
+        assert got == want, name
+    for name in build.F32_FLASH:
+        assert name in build.SOURCES and found[name][0] == name

@@ -20,7 +20,12 @@ the streamed fc1 and qkv products, the dmlp rows, the streamed dz1 and dao
 products, dy = a . w^T in f32 and the LN-backward rows) at E 520 and 768
 against their plain versions, the backward ones bit-equal across two calls,
 a whole wide block's saved backward against autograd of the plain block, and
-each wide variant forced at E 384 against the resident kernel.
+each wide variant forced at E 384 against the resident kernel; the f32
+flash kernels (forward in every score mode, the single pass, dq and dk/dv in
+`dot` and `l2`) against their plain versions in full f32, the backward ones
+bit-equal across two calls, with less error than the bf16 kernels on the
+same inputs, and autograd through them; the LN->MLP's fc1 stage with each
+activation.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -95,8 +100,9 @@ def test_kernel_matches_plain_on_card(name):
 
 @pytest.mark.cuda
 def test_auto_route_raises_on_card_for_unported_dtype_and_width():
-    """Past the JAX package's gates, an f32 CUDA tensor makes the kernel's
-    wrapper raise, naming the ROADMAP.md item.  A block of E 512 passes the
+    """Past the JAX package's gates, an f16 CUDA tensor makes the attention
+    kernel's wrapper raise, naming the ROADMAP.md item (bf16 and f32 have
+    kernels).  A block of E 512 passes the
     'auto' gate as it passes the JAX one and launches the wide LN -> fc1
     variant (ln_rows, ln_mlp_fc1_wide) and fc2, within 2e-2 * max(1,
     max|plain|) of the plain version; in f32 it raises.  A width that is
@@ -106,7 +112,7 @@ def test_auto_route_raises_on_card_for_unported_dtype_and_width():
     saved = policy.get_policy()
     policy.set_policy(mode="auto", megablock="auto")
     try:
-        q = torch.randn(1, 2, 256, 64, device="cuda")
+        q = torch.randn(1, 2, 256, 64, device="cuda", dtype=torch.float16)
         with pytest.raises(TypeError, match="ROADMAP"):
             A.dispatch_attention(q, q, q, "dot", 64.0)
         e, hidden = 512, 2048
@@ -570,10 +576,11 @@ def test_kblock_kernel_at_ragged_length_matches_plain_on_card(name, dh):
 
 @pytest.mark.cuda
 def test_backward_wrappers_raise_for_unported_dtype_and_double_backward():
-    """An f32 or Dh > 128 CUDA tensor makes each backward wrapper raise naming
-    ROADMAP.md; a double backward through the kernels raises too."""
+    """An f16 or Dh > 128 CUDA tensor makes each backward wrapper raise naming
+    ROADMAP.md (bf16 and f32 have kernels); a double backward through the
+    kernels raises too."""
     _cuda_or_skip()
-    q = torch.randn(1, 2, 256, 64, device="cuda")
+    q = torch.randn(1, 2, 256, 64, device="cuda", dtype=torch.float16)
     lse = torch.zeros(1, 2, 256, device="cuda")
     for fn in (A.flash_backward_fused, A.flash_backward_dq, A.flash_backward_dkv):
         with pytest.raises(TypeError, match="ROADMAP"):
@@ -1047,3 +1054,166 @@ def test_wide_variants_forced_at_384_match_the_resident_kernels_on_card(rate):
     ln1 = (c["dqkv"], c["qkv_w"], c["x"], c["dx1"], c["ln_s"], c["ln_b"])
     for a, w in zip(FB.megablock_bwd_ln1(*ln1, wide=True), FB.megablock_bwd_ln1(*ln1)):
         _bwd_close(a, w)
+
+
+# --- the f32 flash kernels (csrc/flash_f32.cuh) ----------------------------------------
+
+F32_SHAPES = [(2, 3, 257, 64), (4, 4, 50, 108), (2, 4, 32, 96), (1, 2, 65, 24), (1, 1, 1025, 128)]
+F32_IDS = ["n257_dh64", "n50_dh108", "n32_dh96", "n65_dh24", "n1025_dh128"]
+# The f32 kernels round their operands to TF32 (2**-11 relative); the plain
+# versions run in full f32 (no TF32 in torch.matmul: allow_tf32 False here).
+F32_RTOL = 5e-3
+
+
+@pytest.fixture
+def _full_f32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _f32_inputs(shape, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+
+
+def _worst(got, want, own: bool):
+    """max |got - want| over max(1, max|want|) (forwards) or max|want| (own)."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    peak = want.abs().max().item()
+    return (got - want).abs().max().item() / (peak if own else max(1.0, peak))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=F32_IDS)
+@pytest.mark.parametrize("mode", ["dot", "l2", "l2ref"])
+def test_f32_forward_matches_plain_on_card(mode, shape, _full_f32):
+    """The f32 forward kernel in each score mode against the plain f32
+    forward: o within F32_RTOL * max(1, max|plain|), the LSE within 2.5e-3,
+    o in f32 and contiguous at the unpadded width, launched under
+    flash_attn_fwd_f32[mode]; its error under half the bf16 kernel's."""
+    _cuda_or_skip()
+    q, k, v, _ = _f32_inputs(shape)
+    scale = float(shape[1] * shape[3])
+    build.reset_launches()
+    o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+    assert build.LAUNCHES[f"flash_attn_fwd_f32[{mode}]"] == 1
+    po, plse = A.attention_forward_reference(q, k, v, scale, mode)
+    err = _worst(o, po, own=False)
+    assert err <= F32_RTOL and o.is_contiguous()
+    assert (lse - plse).abs().max().item() <= 2.5e-3
+    ob, _ = A.flash_forward(q.bfloat16(), k.bfloat16(), v.bfloat16(), scale, score_mode=mode)
+    assert err <= 0.5 * _worst(ob.float(), po, own=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=F32_IDS)
+@pytest.mark.parametrize("mode", ["dot", "l2"])
+@pytest.mark.parametrize("name", ["flash_attn_bwd_fused", "flash_attn_bwd_dq",
+                                  "flash_attn_bwd_dkv"])
+def test_f32_backward_kernel_matches_plain_on_card(name, mode, shape, _full_f32):
+    """Each f32 backward kernel in `dot` and `l2` against its plain version in
+    f32 on the f32 forward's o and LSE: every output within F32_RTOL * its
+    own max|plain|, bit-equal across two calls, its error under half the
+    bf16 kernel's on the same inputs."""
+    _cuda_or_skip()
+    q, k, v, do = _f32_inputs(shape, seed=1)
+    scale = float(shape[1] * shape[3])
+    o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+    kern = {"flash_attn_bwd_fused": (A.flash_backward_fused, A.flash_bwd_fused_reference),
+            "flash_attn_bwd_dq": (A.flash_backward_dq, A.flash_bwd_dq_reference),
+            "flash_attn_bwd_dkv": (A.flash_backward_dkv, A.flash_bwd_dkv_reference)}[name]
+
+    def outs(fn, *args):
+        r = fn(*args, scale, score_mode=mode)
+        return r if isinstance(r, tuple) else (r,)
+
+    args = (q, k, v, o, lse, do)
+    build.reset_launches()
+    got = outs(kern[0], *args)
+    assert build.LAUNCHES[f"{name}_f32[{mode}]"] == 1
+    again = outs(kern[0], *args)
+    want = outs(kern[1], *args)
+    bf = [t.bfloat16() for t in (q, k, v, o)]
+    got_bf = outs(kern[0], *bf, lse, do.bfloat16())
+    for g, a, w, b in zip(got, again, want, got_bf):
+        assert torch.equal(g, a)
+        err = _worst(g, w, own=True)
+        assert err <= F32_RTOL and g.is_contiguous()
+        assert err <= 0.5 * _worst(b.float(), w, own=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 65, 16385])
+def test_f32_single_pass_is_bit_equal_at_many_key_blocks_on_card(n, _full_f32):
+    """Past one 64-key block the f32 single pass adds dQ in key-block order:
+    bit-equal across two calls at one head x 16,385 tokens too."""
+    _cuda_or_skip()
+    q, k, v, do = _f32_inputs((1, 1, n, 64), seed=2)
+    o, lse = A.flash_forward(q, k, v, 64.0)
+    first = A.flash_backward_fused(q, k, v, o, lse, do, 64.0)
+    again = A.flash_backward_fused(q, k, v, o, lse, do, 64.0)
+    want = A.flash_bwd_fused_reference(q, k, v, o, lse, do, 64.0)
+    for a, b, w in zip(first, again, want):
+        assert torch.equal(a, b)
+        assert _worst(a, w, own=True) <= F32_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion", ["auto", "fused", "two_pass"])
+@pytest.mark.parametrize("mode", ["dot", "l2"])
+def test_f32_flash_attention_autograd_on_card(mode, fusion, _full_f32):
+    """Autograd through the f32 kernels on each backward route against
+    autograd of the plain attention in f32: gradients within F32_RTOL * their
+    own max|plain|, only f32 kernels launched."""
+    _cuda_or_skip()
+    saved = policy.get_policy()
+    policy.set_policy(bwd_fusion=fusion)
+    try:
+        q, k, v, g = _f32_inputs((4, 4, 50, 108), seed=3)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        build.reset_launches()
+        got = torch.autograd.grad(A.flash_attention(*xs, mode, 432.0), xs, g)
+        launched = {key for key, c in build.LAUNCHES.items() if c}
+        assert launched and all("_f32[" in key for key in launched)
+        ys = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(A.attention_reference(*ys, mode, 432.0), ys, g)
+        for a, w in zip(got, want):
+            assert _worst(a, w, own=True) <= F32_RTOL
+    finally:
+        policy.set_policy(**saved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["gelu", "relu", "tanh", "sigmoid"])
+@pytest.mark.parametrize("wide", [False, True], ids=["resident", "wide"])
+def test_ln_fc1_stage_takes_each_activation_on_card(activation, wide):
+    """The LN -> fc1 -> act stage (resident and wide) with each activation
+    against its plain version: h and z1 within 2e-2 * max(1, max|plain|),
+    bit-equal across two calls; the whole LN->MLP through fused_ln_mlp."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    m, e, hidden = 514, 192, 768
+    a = torch.randn(m, e, device="cuda", generator=gen).to(torch.bfloat16)
+    ln_s = 1.0 + 0.1 * torch.randn(e, device="cuda", generator=gen)
+    ln_b = 0.1 * torch.randn(e, device="cuda", generator=gen)
+    w1 = (0.05 * torch.randn(e, hidden, device="cuda", generator=gen)).to(torch.bfloat16)
+    b1 = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    h, z1 = FM.ln_fc1_stage(a, ln_s, ln_b, w1, b1, want_z1=True, wide=wide, activation=activation)
+    again, _ = FM.ln_fc1_stage(a, ln_s, ln_b, w1, b1, wide=wide, activation=activation)
+    want_h, want_z1 = FM.ln_fc1_stage_reference(a, ln_s, ln_b, w1, b1, activation=activation)
+    torch.cuda.synchronize()
+    assert torch.equal(h, again)
+    for got, want in ((h, want_h), (z1, want_z1)):
+        tol = 2e-2 * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+    w2 = (0.05 * torch.randn(hidden, e, device="cuda", generator=gen)).to(torch.bfloat16)
+    out = FM.fused_ln_mlp(a, ln_s, ln_b, w1, b1, w2, ln_b, activation)
+    want = FM._reference(a, ln_s, ln_b, w1, b1, w2, ln_b, activation)
+    torch.cuda.synchronize()
+    tol = 2e-2 * max(1.0, (want.float() - a.float()).abs().max().item()) + 2 ** -7 * want.float(
+        ).abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= tol

@@ -22,6 +22,12 @@ a multiple of 4 where it lies (the v1 discriminator's 108) and return
 contiguous outputs; the `dot` wrappers zero-pad a width that is not a
 multiple of 8 to one and slice the outputs back: zero columns add nothing
 to q.k.
+
+The kernels take bf16 or f32 tensors (:func:`kernel_dtype`), as the TPU
+kernels compute in their input dtype.  f32 calls launch the f32 kernels of
+csrc/flash_f32.cuh (csrc/flash_attn_*_f32.cu: TF32 products, f32 softmax),
+counted apart under ``name_f32[mode]``; the backward route reads the
+dtype's size, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from vitgan_tpu_torch.ops import build
 from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, sequence_parallel_active
 
-MAX_HEAD_DIM = 128   # the kernels pad Dh to a multiple of 16 up to this
+MAX_HEAD_DIM = 128   # the widest head the kernels take
 MAX_BATCH_HEADS = 65535  # CUDA grid.y limit
 SCORE_MODES = ("dot", "l2", "l2ref")
 MODE_ID = {"dot": 0, "l2": 1, "l2ref": 2}  # the kernels' `mode` argument
@@ -69,9 +75,12 @@ def _check_mode(score_mode: str, backward: bool = False) -> None:
                          "its backward is autograd through attention_chunked")
 
 
-def launch_key(name: str, score_mode: str) -> str:
+def launch_key(name: str, score_mode: str, dtype: torch.dtype = torch.bfloat16) -> str:
     """The ``build.LAUNCHES`` key of a kernel's launches in ``score_mode``:
-    the kernel's name for `dot`, ``name[mode]`` otherwise."""
+    the kernel's name for bf16 `dot`, ``name[mode]`` for the other bf16
+    modes, ``name_f32[mode]`` for every f32 mode."""
+    if dtype == torch.float32:
+        return f"{name}_f32[{score_mode}]"
     return name if score_mode == "dot" else f"{name}[{score_mode}]"
 
 
@@ -149,12 +158,25 @@ def _pad_head(*ts):
     return ts if not pad else tuple(F.pad(t, (0, pad)) for t in ts)
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_dtype(what: str, *ts) -> torch.dtype:
+    """The dtype the kernels run in for tensors ``ts``: bf16 or f32, one
+    dtype for all (the TPU kernels compute in their input dtype).  Raises
+    TypeError for any other dtype or a mix."""
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
+        raise TypeError(f"{what} takes bf16 or f32 tensors of one dtype, got "
+                        f"{[t.dtype for t in ts]}; other dtypes are ROADMAP.md queue 1 item 7 "
+                        "(or set runtime.use_pallas=never)")
+    return dtypes.pop()
+
+
 def _check_kernel_inputs(what: str, *ts) -> None:
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{what} launches a CUDA kernel: its tensors must be CUDA tensors")
-    if not all(t.dtype == torch.bfloat16 for t in ts):
-        raise TypeError(f"{what} takes bf16 tensors, got {[t.dtype for t in ts]}; other "
-                        "dtypes are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+    kernel_dtype(what, *ts)
     shape = ts[0].shape
     if len(shape) != 4 or any(t.shape != shape for t in ts):
         raise ValueError(f"{what}: tensors must share one (B, H, N, D) shape: "
@@ -176,11 +198,12 @@ def _check_l2_width(what: str, q) -> None:
 
 def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
                   score_mode: str = "dot"):
-    """Launch the forward kernel: q, k, v (B, H, N, D) bf16 contiguous CUDA tensors.
+    """Launch the forward kernel: q, k, v (B, H, N, D) bf16 or f32
+    contiguous CUDA tensors.
 
     Returns (o, lse): o (B, H, N, D), contiguous, and the f32 log-sum-exp (B,
-    H, N) of the ``score_mode`` scores.  `dot` only: with ``out`` given, o is
-    written there in the (B, N, H*D) layout instead (the megablock's
+    H, N) of the ``score_mode`` scores.  bf16 `dot` only: with ``out`` given,
+    o is written there in the (B, N, H*D) layout instead (the megablock's
     out-projection input; D a multiple of 8) and ``out`` is returned as o."""
     _check_mode(score_mode)
     if score_mode != "dot":
@@ -192,6 +215,11 @@ def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel takes contiguous q/k/v")
     b, h, n, d = q.shape
+    if q.dtype == torch.float32:
+        if out is not None:
+            raise ValueError("flash_forward: out= (the megablock's (B, N, H*D) layout) is the "
+                             "bf16 `dot` forward's; the f32 kernel writes (B, H, N, D)")
+        return _flash_forward_f32(q, k, v, scale, score_mode)
     grid = 0
     if score_mode != "dot":
         grid = l2_grid(n, d, b * h, _sm_count(q.device.index or 0))
@@ -213,6 +241,30 @@ def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
                        MODE_ID[score_mode], grid, build.stream_ptr(q.device)))
     build.LAUNCHES[launch_key("flash_attn_fwd", score_mode)] += 1
     return (o if out is not None or o.shape[-1] == d else o[..., :d]), lse
+
+
+def _pad_head_f32(*ts):
+    """The f32 kernels read a head width that is a multiple of 4 where it
+    lies (16-byte rows; zero columns up to the instantiation's in shared
+    memory only); another `dot` width is zero-padded to a multiple of 8."""
+    return ts if ts[0].shape[-1] % 4 == 0 else _pad_head(*ts)
+
+
+def _flash_forward_f32(q, k, v, scale: float, score_mode: str):
+    """csrc/flash_attn_fwd_f32.cu on checked f32 q, k, v, read where they lie
+    at a head width that is a multiple of 4 (`l2`/`l2ref` take no other);
+    o is then contiguous."""
+    b, h, n, d = q.shape
+    q, k, v = _pad_head_f32(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    q, k, v = build.aligned16(q), build.aligned16(k), build.aligned16(v)
+    fn = build.entry("flash_attn_fwd_f32")
+    build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o), build.ptr(lse),
+                       b * h, n, q.shape[-1], 1.0 / math.sqrt(scale), MODE_ID[score_mode],
+                       build.stream_ptr(q.device)))
+    build.LAUNCHES[launch_key("flash_attn_fwd", score_mode, torch.float32)] += 1
+    return (o if o.shape[-1] == d else o[..., :d]), lse
 
 
 # --- backward --------------------------------------------------------------
@@ -311,11 +363,11 @@ def flash_bwd_fused_reference(q, k, v, o, lse, do, scale: float, delta=None,
 
 
 def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode):
-    """Checked, contiguous, aligned kernel inputs: `dot` head-padded to a
-    multiple of 8; `l2` where it lies, which its kernels take at a width that
-    is a multiple of 4 (8-byte rows).  delta = rowsum(dO * O) (B, H, N) f32
-    unless given (the megablock backward forms it in its own kernel; o may
-    then be None)."""
+    """Checked, contiguous, aligned kernel inputs: bf16 `dot` head-padded to
+    a multiple of 8; `l2` and f32 where they lie, which their kernels take at
+    a width that is a multiple of 4 (an f32 `dot` width that is not: padded).
+    delta = rowsum(dO * O) (B, H, N) f32 unless given (the megablock backward
+    forms it in its own kernel; o may then be None)."""
     _check_mode(score_mode, backward=True)
     if score_mode == "l2":
         _check_l2_width(what, q)
@@ -326,8 +378,12 @@ def _bwd_args(q, k, v, o, lse, do, what, delta, score_mode):
         delta = _delta(o, do)
     elif delta.shape != q.shape[:3] or delta.dtype != torch.float32:
         raise ValueError(f"{what}: delta must be f32 {tuple(q.shape[:3])}")
-    ts = (t.contiguous() for t in (q, k, v, do))
-    q, k, v, do = (build.aligned16(t) for t in (_pad_head(*ts) if score_mode == "dot" else ts))
+    ts = tuple(t.contiguous() for t in (q, k, v, do))
+    if q.dtype == torch.float32:
+        ts = _pad_head_f32(*ts)
+    elif score_mode == "dot":
+        ts = _pad_head(*ts)
+    q, k, v, do = (build.aligned16(t) for t in ts)
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
@@ -384,22 +440,32 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _entry_name(entry: str, dtype: torch.dtype) -> str:
+    return f"{entry}_f32" if dtype == torch.float32 else entry
+
+
+def _bwd_grid(q, score_mode: str) -> int:
+    """The bf16 `l2` backward kernels' persistent grid; 0 (unread) otherwise."""
+    if score_mode != "l2" or q.dtype == torch.float32:
+        return 0
+    b, h, n, d = q.shape
+    return l2_grid(n, d, b * h, _sm_count(q.device.index or 0))
+
+
 def _bwd_launch(entry: str, ts, outs, scale: float, score_mode: str) -> None:
     """Launch a two-pass entry on kernel inputs ``ts`` (q, k, v, dO, lse,
-    delta) into ``outs``; `l2` passes its persistent grid."""
+    delta) into ``outs``: f32 inputs the entry's f32 kernel."""
     b, h, n, d = ts[0].shape
-    grid = (l2_grid(n, d, b * h, _sm_count(ts[0].device.index or 0))
-            if score_mode == "l2" else 0)
-    fn = build.entry(entry)
-    build.check(fn, fn(*(build.ptr(t) for t in (*ts, *outs)), b * h, n, d,
-                       1.0 / math.sqrt(scale), MODE_ID[score_mode], grid,
-                       build.stream_ptr(ts[0].device)))
-    build.LAUNCHES[launch_key(entry, score_mode)] += 1
+    ptrs = [build.ptr(t) for t in (*ts, *outs)]
+    fn = build.entry(_entry_name(entry, ts[0].dtype))
+    build.check(fn, fn(*ptrs, b * h, n, d, 1.0 / math.sqrt(scale), MODE_ID[score_mode],
+                       _bwd_grid(ts[0], score_mode), build.stream_ptr(ts[0].device)))
+    build.LAUNCHES[launch_key(entry, score_mode, ts[0].dtype)] += 1
 
 
 def flash_backward_dq(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_dq.cu; returns dq (B, H, N, D) bf16,
-    contiguous."""
+    """Launch csrc/flash_attn_bwd_dq.cu (f32: flash_attn_bwd_dq_f32.cu);
+    returns dq (B, H, N, D) in the inputs' dtype, contiguous."""
     d = q.shape[-1]
     ts = _bwd_args(q, k, v, o, lse, do, "flash_backward_dq", delta, score_mode)
     dq = torch.empty_like(ts[0])
@@ -408,8 +474,8 @@ def flash_backward_dq(q, k, v, o, lse, do, scale: float, delta=None, score_mode:
 
 
 def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_dkv.cu; returns (dk, dv) bf16, contiguous at
-    `l2`."""
+    """Launch csrc/flash_attn_bwd_dkv.cu (f32: flash_attn_bwd_dkv_f32.cu);
+    returns (dk, dv) in the inputs' dtype, contiguous at `l2`."""
     d = q.shape[-1]
     ts = _bwd_args(q, k, v, o, lse, do, "flash_backward_dkv", delta, score_mode)
     dk, dv = torch.empty_like(ts[1]), torch.empty_like(ts[2])
@@ -419,10 +485,12 @@ def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None, score_mode
 
 # The single pass's key blocks (`dot`: csrc/flash_attn_bwd.cuh; `l2`:
 # csrc/flash_l2_bwd.cuh): keys a block and heads a group of the order in each
-# score mode; every block streams all queries, 64 a tile.
+# score mode; every block streams all queries, 64 a tile.  The f32 kernel
+# (csrc/flash_f32.cuh) takes 64 keys a block in both modes, one head a group.
 FUSED_BLOCK_KEYS = {"dot": 128, "l2": 64}
 FUSED_GROUP_HEADS = {"dot": 32, "l2": 1}
 FUSED_TILE_QUERIES = 64
+F32_BLOCK_KEYS = 64
 
 
 @dataclass(frozen=True)
@@ -491,9 +559,12 @@ class FusedSchedule:
 
 
 def fused_dq_schedule(n: int, batch_heads: int, score_mode: str = "dot",
-                      d: int = 64) -> FusedSchedule:
+                      d: int = 64, dtype: torch.dtype = torch.bfloat16) -> FusedSchedule:
     """:class:`FusedSchedule` of the single pass at N tokens and head width d
-    (`l2`: its units of :func:`l2_unit_rows` keys)."""
+    (bf16 `l2`: its units of :func:`l2_unit_rows` keys; f32: 64-key blocks,
+    one head a group, in either mode)."""
+    if dtype == torch.float32:
+        return FusedSchedule(-(-n // F32_BLOCK_KEYS), -(-n // FUSED_TILE_QUERIES), batch_heads)
     keys = FUSED_BLOCK_KEYS[score_mode]
     unit = l2_unit_rows(d) // keys if score_mode == "l2" else 1
     return FusedSchedule(-(-n // keys), -(-n // FUSED_TILE_QUERIES), batch_heads,
@@ -501,29 +572,27 @@ def fused_dq_schedule(n: int, batch_heads: int, score_mode: str = "dot",
 
 
 def flash_backward_fused(q, k, v, o, lse, do, scale: float, delta=None, score_mode: str = "dot"):
-    """Launch csrc/flash_attn_bwd_fused.cu; returns (dq, dk, dv) bf16,
-    contiguous at `l2`.  Past one key block the key blocks of a head add dq
-    in key-block order (:func:`fused_dq_schedule`) and the last one finishes
-    and casts it, so dq is bit-deterministic as dk and dv are; `l2` at N <=
-    64 finishes dq in one block a head, with no scratch."""
+    """Launch csrc/flash_attn_bwd_fused.cu (f32: flash_attn_bwd_fused_f32.cu);
+    returns (dq, dk, dv) in the inputs' dtype, contiguous at `l2`.  Past one
+    key block the key blocks of a head add dq in key-block order
+    (:func:`fused_dq_schedule`) and the last one finishes it, so dq is
+    bit-deterministic as dk and dv are; bf16 `l2` at N <= 64 finishes dq in
+    one block a head, with no scratch."""
     d = q.shape[-1]
     q, k, v, do, lse, delta = _bwd_args(q, k, v, o, lse, do, "flash_backward_fused", delta,
                                         score_mode)
     b, h, n, dp = q.shape
-    plan = fused_dq_schedule(n, b * h, score_mode, dp)
+    plan = fused_dq_schedule(n, b * h, score_mode, dp, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
               if plan.k_blocks > 1 else None)
     flags = torch.empty(plan.flags, dtype=torch.int32, device=q.device)
-    grid = (l2_grid(n, dp, b * h, _sm_count(q.device.index or 0))
-            if score_mode == "l2" else 0)
-    fn = build.entry("flash_attn_bwd_fused")
-    build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do), build.ptr(lse),
-                       build.ptr(delta), build.ptr(dq), build.ptr(dk), build.ptr(dv),
-                       build.ptr(dq_acc), build.ptr(flags), b * h, n, dp,
-                       1.0 / math.sqrt(scale), MODE_ID[score_mode], grid,
-                       build.stream_ptr(q.device)))
-    build.LAUNCHES[launch_key("flash_attn_bwd_fused", score_mode)] += 1
+    fn = build.entry(_entry_name("flash_attn_bwd_fused", q.dtype))
+    build.check(fn, fn(*(build.ptr(t) for t in (q, k, v, do, lse, delta, dq, dk, dv, dq_acc,
+                                                flags)),
+                       b * h, n, dp, 1.0 / math.sqrt(scale), MODE_ID[score_mode],
+                       _bwd_grid(q, score_mode), build.stream_ptr(q.device)))
+    build.LAUNCHES[launch_key("flash_attn_bwd_fused", score_mode, q.dtype)] += 1
     return (dq, dk, dv) if dp == d else (dq[..., :d], dk[..., :d], dv[..., :d])
 
 

@@ -35,8 +35,9 @@ SIGNATURES = {
     # (mode: 0 dot, 1 l2, 2 l2ref; the backward entries take 0 or 1; grid: the
     # `l2` kernels' persistent blocks, ops/attention.l2_grid)
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # a, ln_s, ln_b, w1, b1, h, z1, m, e, hidden, eps, stream
-    "ln_mlp_fc1": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # a, ln_s, ln_b, w1, b1, h, z1, m, e, hidden, eps, act, stream (act:
+    # ops/fused_mlp.ACT_ID)
+    "ln_mlp_fc1": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # a, w, bias, res, seed, out, mask, m, k, n, mask_id, threshold, inv_keep,
     # rows_per_sample, local_batch, global_batch, first_sample, stream
     "ln_mlp_linear": [_P] * 7 + [_I] * 4 + [_U, _F] + [_I] * 4 + [_P],
@@ -65,8 +66,8 @@ SIGNATURES = {
     # beside products that stream their activations.
     # x, ln_s, ln_b, y, m, e, eps, stream
     "ln_rows": [_P] * 4 + [_I] * 2 + [_F, _P],
-    # y, w1, b1, h, z1, m, e, hidden, stream
-    "ln_mlp_fc1_wide": [_P] * 5 + [_I] * 3 + [_P],
+    # y, w1, b1, h, z1, m, e, hidden, act, stream
+    "ln_mlp_fc1_wide": [_P] * 5 + [_I] * 4 + [_P],
     # y, w, bias, qkv, batch, n, e, heads, dh, stream
     "ln_qkv_fwd_wide": [_P] * 4 + [_I] * 5 + [_P],
     # g, m2, dmlp, m, e, stream
@@ -81,7 +82,16 @@ SIGNATURES = {
     "megablock_bwd_mlp_dao_wide": [_P] * 5 + [_I] * 5 + [_P],
     # dy1, x, dx1, ln_s, ln_b, dx, y1, part, m, e, eps, stream
     "megablock_bwd_ln1_rows": [_P] * 8 + [_I] * 2 + [_F, _P],
+    # The flash kernels in f32 (csrc/flash_f32.cuh), each entry its own source:
+    # q, k, v, o, lse, bh, n, d, inv_scale, mode, stream
+    "flash_attn_fwd_f32": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
 }
+# The f32 backward entries take their bf16 entry's arguments (grid unread).
+SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (
+    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_attn_bwd_fused")})
+# The f32 flash entries, whose launches count by score mode only.
+F32_FLASH = ("flash_attn_fwd_f32", "flash_attn_bwd_fused_f32", "flash_attn_bwd_dq_f32",
+             "flash_attn_bwd_dkv_f32")
 SOURCE = {"ln_mlp_fc1": "ln_mlp_fwd", "ln_mlp_linear": "ln_mlp_fwd", "ln_rows": "ln_mlp_fwd",
           "ln_mlp_fc1_wide": "ln_mlp_fwd", "ln_qkv_fwd_wide": "ln_qkv_fwd",
           **{f"megablock_bwd_mlp_{stage}": "megablock_bwd_mlp"
@@ -107,12 +117,16 @@ SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 # still counted as "megablock_bwd_mlp"), the LN1 half as "megablock_bwd_dy"
 # and "megablock_bwd_ln1_rows" (no "megablock_bwd_ln1").  The flash kernels
 # count their `dot` launches under their name and the other score modes
-# apart, as "flash_attn_fwd[l2]" (ops/attention.launch_key).
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# apart, as "flash_attn_fwd[l2]"; the f32 kernels every mode apart, as
+# "flash_attn_fwd_f32[dot]" (ops/attention.launch_key).
+LAUNCHES = {name: 0 for name in SIGNATURES if name not in F32_FLASH}
 LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0, megablock_bwd_mlp=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (
     ("flash_attn_fwd", ("l2", "l2ref")), ("flash_attn_bwd_fused", ("l2",)),
-    ("flash_attn_bwd_dq", ("l2",)), ("flash_attn_bwd_dkv", ("l2",))) for mode in modes})
+    ("flash_attn_bwd_dq", ("l2",)), ("flash_attn_bwd_dkv", ("l2",)),
+    ("flash_attn_fwd_f32", ("dot", "l2", "l2ref")), ("flash_attn_bwd_fused_f32", ("dot", "l2")),
+    ("flash_attn_bwd_dq_f32", ("dot", "l2")), ("flash_attn_bwd_dkv_f32", ("dot", "l2")))
+    for mode in modes})
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

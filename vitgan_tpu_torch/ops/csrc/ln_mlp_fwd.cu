@@ -7,7 +7,7 @@
 // at :408; see ln_qkv_fwd.cu for the first launch).  Three forms, each
 // composed by its Python wrapper from the two entries below:
 //   plain LN->MLP (ops/fused_mlp.ln_mlp_forward):
-//       h   = gelu(LN(x) . w1 + b1)                         ln_mlp_fc1
+//       h   = act(LN(x) . w1 + b1)                          ln_mlp_fc1
 //       out = [x +] (h . w2 + b2)                           ln_mlp_linear
 //   serving, the megablock's inference form (the same with attn):
 //       x1  = x + (attn . wout + bout)                      ln_mlp_linear
@@ -19,8 +19,11 @@
 //       out = x1 + m2 * (gelu(z1) . w2 + b2)                ln_mlp_linear
 // m1 and m2 are f32 multiply-masks drawn in the epilogues from Philox4x32-10
 // (common.cuh dropout_pair, streams 0 and 1, element row * E + col on the
-// real E) and written out, as the TPU kernel returns them.  GELU is the exact
-// erf form (common.cuh) on the f32 pre-activation.  h (and the serving
+// real E) and written out, as the TPU kernel returns them.  act is the
+// activation of the plain LN->MLP (the JAX `_ACTS`, fused_mlp.py:63-69: gelu,
+// relu, tanh or sigmoid; a template parameter of the fc1 kernel, each its
+// own instantiation), GELU in the megablock's forms; GELU is the exact erf
+// form (common.cuh) on the f32 pre-activation.  h (and the serving
 // form's x1) go through device memory in bf16: the wrappers allocate them.
 //
 // Design: a chain of GEMMs on wgrad_gemm.cu's pipeline.  Two kernels of 384 threads, one block an SM, each block walking
@@ -45,7 +48,7 @@
 //       lanes a row, shared with ln_qkv_fwd.cu; fence.proxy.async before
 //       wgmma reads them),
 //       then walk every 256-column tile of the hidden width against it while
-//       w1 streams through the ring; epilogue bias, [z1], gelu, bf16 h.
+//       w1 streams through the ring; epilogue bias, [z1], act, bf16 h.
 //   The wide variant (E > 384, which the resident tile cannot hold, or
 //       forced by the wrapper): ln_rows.cuh's ln_rows_kernel writes LN(x) in
 //       bf16 with ln_resident's statistics (the same order, so at E <= 384 the
@@ -104,6 +107,17 @@ constexpr int THREADS = 384;         // producer warpgroup + two consumers
 constexpr int ABOX = 64 * BM * 2;    // one 64-column box of a tile's A rows, bytes
 constexpr int BBOX = 64 * 64 * 2;    // one 64 (K) x 64 (N) box of B
 constexpr int MAXKB = 6;             // fc1's resident A boxes: E <= 384
+
+// fc1's activation, by the C entries' `act` (ops/fused_mlp.ACTIVATIONS): the
+// JAX `_ACTS` (vitgan_tpu/ops/fused_mlp.py:63-69) on the f32 pre-activation.
+enum Act : int { kGelu = 0, kRelu = 1, kTanh = 2, kSigmoid = 3 };
+template <int ACT>
+__device__ inline float activate(float z) {
+  if constexpr (ACT == kGelu) return gelu(z);
+  else if constexpr (ACT == kRelu) return fmaxf(z, 0.f);
+  else if constexpr (ACT == kTanh) return tanhf(z);
+  else return 1.f / (1.f + __expf(-z));
+}
 
 struct Params {
   int m, k, n;                 // rows, summed width, output width
@@ -293,7 +307,7 @@ ln_mlp_linear_kernel(const __grid_constant__ CUtensorMap ta,
   if (ct == 0) bulk_wait<0>();
 }
 
-// --- LN -> fc1 -> GELU: h = gelu(LN(a) . w1 + b1) [, z1] ----------------------
+// --- LN -> fc1 -> act: h = act(LN(a) . w1 + b1) [, z1] ------------------------
 
 namespace fc1 {
 constexpr int BN = 256;                       // output columns a tile
@@ -315,8 +329,9 @@ constexpr int SMEM = 1024 + (kStream ? 0 : MAXKB * ABOX) + STAGES<kStream> * STA
 // 256-column tile of the hidden width against it while w1 streams through
 // the ring.  kStream true (E > 384): A is LN(x) already (ln_rows.cuh) and
 // streams beside w1, one 64-column box of the tile's 128 rows a stage, for
-// every 256-column tile; the epilogue is the same.
-template <bool kStream>
+// every 256-column tile; the epilogue is the same.  ACT: the activation
+// (Act) the epilogue applies.
+template <bool kStream, int ACT>
 __global__ void __launch_bounds__(THREADS, 1)
 ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tz,
@@ -415,7 +430,7 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         // every product of this unit has read the resident A
         if (!kStream && nt == ntiles - 1) mbar_arrive(aempty);
       }
-      // epilogue, one 64-column box at a time: bias, [z1], gelu staged in
+      // epilogue, one 64-column box at a time: bias, [z1], act staged in
       // shared memory, one TMA store per output (rows past m, columns past n
       // clipped).  This thread holds rows 16 wr + g + 8 h of the warpgroup's
       // 64, columns 8 j + 2 t + (0, 1) of the tile.
@@ -442,7 +457,8 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
             const float v1 = acc[4 * j + 2 * h + 1] + bias[jj].y;
             if (p.z1 != nullptr)
               *reinterpret_cast<uint32_t*>(sz + swz(rr, jj, t)) = pack_bf16(v0, v1);
-            *reinterpret_cast<uint32_t*>(sh + swz(rr, jj, t)) = pack_bf16(gelu(v0), gelu(v1));
+            *reinterpret_cast<uint32_t*>(sh + swz(rr, jj, t)) = pack_bf16(activate<ACT>(v0),
+                                                                       activate<ACT>(v1));
           }
         }
         fence_proxy_async();  // the staged boxes, to the TMA unit
@@ -458,26 +474,38 @@ ln_mlp_fc1_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   if (ct == 0) bulk_wait<0>();
 }
 
+template <bool kStream, int ACT>
+int launch_fc1_act(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& th,
+                   const CUtensorMap& tz, const Params& p, void* stream) {
+  const int units = (p.m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
+  cudaFuncSetAttribute(ln_mlp_fc1_kernel<kStream, ACT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, fc1::SMEM<kStream>);
+  ln_mlp_fc1_kernel<kStream, ACT><<<grid, THREADS, fc1::SMEM<kStream>,
+                                    static_cast<cudaStream_t>(stream)>>>(ta, tb, th, tz, p);
+  return (int)cudaGetLastError();
+}
+
 template <bool kStream>
 int launch_fc1(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& th,
-               const CUtensorMap& tz, const Params& p, void* stream) {
-  const int units = (p.m + BM - 1) / BM, grid = units < sm_count() ? units : sm_count();
-  cudaFuncSetAttribute(ln_mlp_fc1_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       fc1::SMEM<kStream>);
-  ln_mlp_fc1_kernel<kStream><<<grid, THREADS, fc1::SMEM<kStream>,
-                               static_cast<cudaStream_t>(stream)>>>(ta, tb, th, tz, p);
-  return (int)cudaGetLastError();
+               const CUtensorMap& tz, const Params& p, int act, void* stream) {
+  switch (act) {
+    case kGelu: return launch_fc1_act<kStream, kGelu>(ta, tb, th, tz, p, stream);
+    case kRelu: return launch_fc1_act<kStream, kRelu>(ta, tb, th, tz, p, stream);
+    case kTanh: return launch_fc1_act<kStream, kTanh>(ta, tb, th, tz, p, stream);
+    case kSigmoid: return launch_fc1_act<kStream, kSigmoid>(ta, tb, th, tz, p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// h (m, hidden) bf16 = gelu(LN(a) . w1 + b1) and, when z1 != NULL, z1 (m,
+// h (m, hidden) bf16 = act(LN(a) . w1 + b1) and, when z1 != NULL, z1 (m,
 // hidden) bf16 = LN(a) . w1 + b1.  a: (m, e) bf16; w1: (e, hidden) bf16;
 // ln_s, ln_b: (e,) and b1: (hidden,) f32.  Bases 16-byte aligned; e, hidden
-// multiples of 8; e <= 384.
+// multiples of 8; e <= 384; act 0 gelu, 1 relu, 2 tanh, 3 sigmoid.
 extern "C" int ln_mlp_fc1(const void* a, const void* ln_s, const void* ln_b, const void* w1,
                           const void* b1, void* h, void* z1, int m, int e, int hidden, float eps,
-                          void* stream) {
+                          int act, void* stream) {
   if (m < 0 || e < 8 || e > 64 * MAXKB || e % 8 || hidden < 8 || hidden % 8)
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
@@ -494,14 +522,14 @@ extern "C" int ln_mlp_fc1(const void* a, const void* ln_s, const void* ln_b, con
   p.ln_b = static_cast<const float*>(ln_b);
   p.eps = eps;
   p.z1 = static_cast<const bf16*>(z1);
-  return launch_fc1<false>(ta, tb, th, tz, p, stream);
+  return launch_fc1<false>(ta, tb, th, tz, p, act, stream);
 }
 
 // The wide variant (any E a multiple of 8): y (m, e) bf16 = LN(a) from
-// ln_rows, then h = gelu(y . w1 + b1) [and z1] with y streamed.  Arguments
+// ln_rows, then h = act(y . w1 + b1) [and z1] with y streamed.  Arguments
 // as ln_mlp_fc1's, less the LayerNorm's.
 extern "C" int ln_mlp_fc1_wide(const void* y, const void* w1, const void* b1, void* h, void* z1,
-                               int m, int e, int hidden, void* stream) {
+                               int m, int e, int hidden, int act, void* stream) {
   if (m < 0 || e < 8 || e % 8 || hidden < 8 || hidden % 8) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   CUtensorMap ta, tb, th, tz;
@@ -514,7 +542,7 @@ extern "C" int ln_mlp_fc1_wide(const void* y, const void* w1, const void* b1, vo
   p.m = m, p.k = e, p.n = hidden;
   p.bias = static_cast<const float*>(b1);
   p.z1 = static_cast<const bf16*>(z1);
-  return launch_fc1<true>(ta, tb, th, tz, p, stream);
+  return launch_fc1<true>(ta, tb, th, tz, p, act, stream);
 }
 
 // y (m, e) bf16 = LN(x) with gamma ln_s, beta ln_b (e,) f32, the statistics

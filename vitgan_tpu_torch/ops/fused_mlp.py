@@ -1,4 +1,4 @@
-"""Fused LN -> fc1 -> GELU -> fc2 [+ residual]: the CUDA stages, their plain
+"""Fused LN -> fc1 -> act -> fc2 [+ residual]: the CUDA stages, their plain
 versions, routing.
 
 Counterpart of vitgan_tpu/ops/fused_mlp.py.  ``fused_ln_mlp`` is a
@@ -10,11 +10,13 @@ mantissa bits, where the forward kernel's bf16 operands keep 7): in full f32
 they took 58% of a highres128 train step (PERF.md).
 
 The forward is a chain of two wgmma GEMM stages (:func:`ln_fc1_stage`:
-LayerNorm prologue, GELU epilogue; :func:`linear_stage`: bias, optional
+LayerNorm prologue, activation epilogue; :func:`linear_stage`: bias, optional
 dropout mask and residual in the epilogue), each with a plain version; h
-passes between them in bf16.  The megablock (ops/fused_block.py) runs the
-same stages after an out-projection through :func:`ln_mlp_forward` (serving)
-and ``fused_block.ln_mlp_train_forward`` (training).
+passes between them in bf16.  The activation is one of the JAX `_ACTS`
+(fused_mlp.py:63-69, :data:`ACTIVATIONS`).  The megablock (ops/fused_block.py)
+runs the same stages, with GELU, after an out-projection through
+:func:`ln_mlp_forward` (serving) and ``fused_block.ln_mlp_train_forward``
+(training).
 
 The LN -> fc1 stage holds a 128-row tile of its input whole on chip, so it
 takes E <= 384 (:data:`RESIDENT_WIDTH`).  A wider E (or ``wide=True``) takes
@@ -64,22 +66,28 @@ def threshold(rate: float) -> int:
     return min(int(rate * 2 ** 32), 2 ** 32 - 1)
 
 
-def _check_activation(activation: str) -> None:
-    if activation != "gelu":
-        raise NotImplementedError(
-            f"activation {activation!r}: the port's LN->MLP takes 'gelu', the "
-            "only activation the v2 encoder block uses")
+# The activations of the JAX `_ACTS` (vitgan_tpu/ops/fused_mlp.py:63-69), each
+# with its id in ln_mlp_fwd.cu's fc1 epilogue (`act`).  GELU is the exact erf
+# form, as nn.GELU() computes it.
+ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+ACT_ID = {name: i for i, name in enumerate(ACTIVATIONS)}
+
+
+def _act(activation: str):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r} (have {tuple(ACTIVATIONS)})")
+    return ACTIVATIONS[activation]
 
 
 def _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gelu",
                eps: float = 1e-5, residual: bool = True):
     """Plain LN -> MLP in f32, cast back to x's dtype (the JAX `_reference`)."""
-    _check_activation(activation)
+    act = _act(activation)
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()
-    h = F.gelu(y @ w1.float() + b1.float())
+    h = act(y @ w1.float() + b1.float())
     out = h @ w2.float() + b2.float()
     if residual:
         out = out + xf
@@ -100,16 +108,16 @@ def linear_stage_reference(a, w, bias, res=None, mask=None):
 
 
 def ln_fc1_stage_reference(a, ln_s, ln_b, w1, b1, eps: float = 1e-5,
-                           dtype: torch.dtype = torch.bfloat16):
-    """Plain LN -> fc1 -> GELU stage: (h, z1) in ``dtype`` (the kernel's bf16;
+                           dtype: torch.dtype = torch.bfloat16, activation: str = "gelu"):
+    """Plain LN -> fc1 -> act stage: (h, z1) in ``dtype`` (the kernel's bf16;
     f32 to hold the wide variant's plain versions to it), z1 = LN(a) . w1 +
-    b1 and h = gelu(z1) formed in f32."""
+    b1 and h = act(z1) formed in f32."""
     af = a.float()
     mean = af.mean(-1, keepdim=True)
     var = ((af - mean) ** 2).mean(-1, keepdim=True)
     y = (af - mean) * torch.rsqrt(var + eps) * ln_s.float() + ln_b.float()
     z = y @ w1.float() + b1.float()
-    return F.gelu(z).to(dtype), z.to(dtype)
+    return _act(activation)(z).to(dtype), z.to(dtype)
 
 
 def ln_rows_reference(x, ln_s, ln_b, eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
@@ -121,12 +129,13 @@ def ln_rows_reference(x, ln_s, ln_b, eps: float = 1e-5, dtype: torch.dtype = tor
     return ((xf - mean) * torch.rsqrt(var + eps) * ln_s.float() + ln_b.float()).to(dtype)
 
 
-def fc1_stage_reference(y, w1, b1, dtype: torch.dtype = torch.bfloat16):
+def fc1_stage_reference(y, w1, b1, dtype: torch.dtype = torch.bfloat16,
+                        activation: str = "gelu"):
     """Plain wide fc1 stage on y = LN(x): (h, z1) in ``dtype``, z1 = y . w1 +
-    b1 and h = gelu(z1) formed in f32.  After :func:`ln_rows_reference` it
+    b1 and h = act(z1) formed in f32.  After :func:`ln_rows_reference` it
     is :func:`ln_fc1_stage_reference`."""
     z = y.float() @ w1.float() + b1.float()
-    return F.gelu(z).to(dtype), z.to(dtype)
+    return _act(activation)(z).to(dtype), z.to(dtype)
 
 
 def ln_mlp_stages_reference(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
@@ -213,10 +222,11 @@ def ln_rows(x, ln_s, ln_b, eps: float = 1e-5):
     return y
 
 
-def fc1_stage(y, w1, b1, want_z1: bool = False):
+def fc1_stage(y, w1, b1, want_z1: bool = False, activation: str = "gelu"):
     """Launch ln_mlp_fwd.cu's wide fc1 stage on bf16 CUDA rows y = LN(x) (M,
     E), streamed: (h, z1) bf16 (M, hidden) as :func:`fc1_stage_reference`,
     z1 None unless ``want_z1``."""
+    _act(activation)
     y = _bf16_rows(y, "fc1_stage")
     m, e = y.shape
     hidden = w1.shape[-1]
@@ -231,17 +241,18 @@ def fc1_stage(y, w1, b1, want_z1: bool = False):
     z1 = torch.empty_like(h) if want_z1 else None
     fn = build.entry("ln_mlp_fc1_wide")
     build.check(fn, fn(build.ptr(y), build.ptr(w1b), build.ptr(b1f), build.ptr(h), build.ptr(z1),
-                       m, e, hidden, build.stream_ptr(dev)))
+                       m, e, hidden, ACT_ID[activation], build.stream_ptr(dev)))
     build.LAUNCHES["ln_mlp_fc1_wide"] += 1
     return h, z1
 
 
 def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False,
-                 wide: bool = False):
-    """Launch ln_mlp_fwd.cu's LN -> fc1 -> GELU stage on bf16 CUDA rows a (M,
+                 wide: bool = False, activation: str = "gelu"):
+    """Launch ln_mlp_fwd.cu's LN -> fc1 -> act stage on bf16 CUDA rows a (M,
     E): (h, z1) bf16 (M, hidden), z1 None unless ``want_z1``.  E > 384 (or
     ``wide``) launches the wide variant, :func:`ln_rows` then
     :func:`fc1_stage`."""
+    _act(activation)
     a = _bf16_rows(a, "ln_fc1_stage")
     m, e = a.shape
     hidden = w1.shape[-1]
@@ -251,7 +262,7 @@ def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False
     if not kernel_fits(e, hidden):
         raise _width_error("ln_fc1_stage", E=e, hidden=hidden)
     if wide_route(e, wide):
-        return fc1_stage(ln_rows(a, ln_s, ln_b, eps), w1, b1, want_z1)
+        return fc1_stage(ln_rows(a, ln_s, ln_b, eps), w1, b1, want_z1, activation)
     dev = a.device
     f32 = torch.float32
     w1b, ln_sf, ln_bf, b1f = _operands(dev, (w1, torch.bfloat16), (ln_s, f32), (ln_b, f32),
@@ -261,14 +272,15 @@ def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False
     fn = build.entry("ln_mlp_fc1")
     build.check(fn, fn(build.ptr(a), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(w1b),
                        build.ptr(b1f), build.ptr(h), build.ptr(z1), m, e, hidden, float(eps),
-                       build.stream_ptr(dev)))
+                       ACT_ID[activation], build.stream_ptr(dev)))
     build.LAUNCHES["ln_mlp_fc1"] += 1
     return h, z1
 
 
 def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
                    residual: bool = True, attn: Optional[torch.Tensor] = None,
-                   wout: Optional[torch.Tensor] = None, bout: Optional[torch.Tensor] = None):
+                   wout: Optional[torch.Tensor] = None, bout: Optional[torch.Tensor] = None,
+                   activation: str = "gelu"):
     """Run the LN->MLP stages on a bf16 CUDA x (..., E): two launches (fc1,
     then fc2, each counted by its stage), and one call of "ln_mlp_fwd".
     E > 384 takes the wide LN -> fc1 variant (:func:`ln_fc1_stage`), a launch
@@ -277,7 +289,8 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
     With ``attn`` (..., H*Dh) bf16, ``wout`` (H*Dh, E) and ``bout`` (E,), the
     out-projection x1 = x + attn . wout + bout runs first (a third launch,
     x1 kept in bf16) and the result is x1 + mlp(LN(x1)) (``residual`` is then
-    implied), counted as one call of "proj_ln_mlp_fwd"."""
+    implied), counted as one call of "proj_ln_mlp_fwd".  ``activation`` is
+    fc1's (:data:`ACTIVATIONS`)."""
     if not x.is_cuda:
         raise ValueError("ln_mlp_forward launches a CUDA kernel: x must be a CUDA tensor")
     if x.dtype != torch.bfloat16:
@@ -302,7 +315,7 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
         name, residual = "proj_ln_mlp_fwd", True
     else:
         name = "ln_mlp_fwd"
-    h, _ = ln_fc1_stage(rows, ln_scale, ln_bias, w1, b1, eps)
+    h, _ = ln_fc1_stage(rows, ln_scale, ln_bias, w1, b1, eps, activation=activation)
     out, _ = linear_stage(h, w2, b2, rows if residual else None)
     build.LAUNCHES[name] += 1
     return out.reshape(x.shape)
@@ -329,9 +342,9 @@ class _LnMlp(torch.autograd.Function):
     ``jax.vjp`` of its reference differentiates the same way."""
 
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual):
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual, activation):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
-        ctx.eps, ctx.residual = eps, residual
+        ctx.eps, ctx.residual, ctx.activation = eps, residual, activation
         if recomputing():
             # A rematerialised block re-running for its backward: nothing
             # there reads this output (the backward recomputes from the
@@ -341,8 +354,9 @@ class _LnMlp(torch.autograd.Function):
             # selective checkpoint's record of the forward.
             return x.detach()
         if x.device.type == "cpu":
-            return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, "gelu", eps, residual)
-        return ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual)
+            return _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, eps, residual)
+        return ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual,
+                              activation=activation)
 
     @staticmethod
     def backward(ctx, g):
@@ -352,19 +366,21 @@ class _LnMlp(torch.autograd.Function):
         with torch.enable_grad(), _tf32_products(g.is_cuda):
             leaves = saved if create else [t.detach().requires_grad_(n)
                                            for t, n in zip(saved, need)]
-            out = _reference(*leaves, "gelu", ctx.eps, ctx.residual)
+            out = _reference(*leaves, ctx.activation, ctx.eps, ctx.residual)
             wanted = [t for t, n in zip(leaves, need) if n]
             grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create)
                          if wanted else ())
-        return (*(next(grads) if n else None for n in need), None, None)
+        return (*(next(grads) if n else None for n in need), None, None, None)
 
 
 def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gelu",
                  eps: float = 1e-5, residual: bool = True):
-    """out = [x +] fc2(gelu(fc1(LN(x)))), x: (..., E), differentiable.  CUDA
-    tensors launch the kernel (or raise); CPU tensors take :func:`_reference`."""
-    _check_activation(activation)
-    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, float(eps), bool(residual))
+    """out = [x +] fc2(act(fc1(LN(x)))), x: (..., E), differentiable, act one
+    of :data:`ACTIVATIONS`.  CUDA tensors launch the kernel (or raise); CPU
+    tensors take :func:`_reference`."""
+    _act(activation)
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, float(eps), bool(residual),
+                        activation)
 
 
 def dispatch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gelu",
