@@ -245,8 +245,9 @@
 29. [bench]: `cli bench --preset highres256p4 --scan 3 --iters 2 --flops`:
    images/s within 5% of [highres256p4]'s captured step, the FLOP model's
    GFLOP a step and the TFLOP/s it sustains.
-30. [cli]: `cli doctor` exits 0; `cli warmup v2` with the kernels built, then
-   after the build directory is emptied (every source rebuilt): its seconds.
+30. [cli]: `cli doctor` exits 0; `cli warmup v2` with the kernels built: its
+   seconds, beside the script's first build, which is `cli warmup v2` on an
+   empty build directory (every source built).
 31. [sweep]: `cli sweep` at the reference search space's widths (32 px,
    depth 6, embed 128-512, batch 128/256) on synthetic data, cut to
    SWEEP_CUTS (steps an epoch, FID samples): 4 trials of seed SWEEP_SEED as
@@ -324,6 +325,33 @@
    f32.  The f32
    kernels' `launches` in the JSON line are this path's (the `l2` single
    pass, `dot` dq and dk/dv and `l2ref` from their one-step routes).
+40. [f32 ln kernels] (after [f32 kernels]): the LayerNorm family's f32
+   entries (csrc/ln_f32.cuh: LN -> fc1 with z1, the linear stage as fc2 with
+   the residual and a 0.1 mask, LN1 -> qkv) at highres128's serving, G and
+   D rows, highres256p4's G, DeiT-B's G (E 768) and a ragged deit64 batch
+   against their plain versions in full f32: each output within F32_RTOL *
+   max(1, max|plain|) and at most half the bf16 kernel's error on the same
+   inputs, bit-equal across two calls, the f32 mask bit-equal to the plain
+   and the bf16 stage's; timed beside the TF32 bound, the plain version and
+   F.layer_norm + torch.matmul in f32 and in TF32 (SASS: TF32 HMMA); the
+   f32 flash forward's (B, N, H*Dh) layout bit-equal to its (B, H, N, Dh)
+   output.
+41. [v2 f32] (after [train v1 f32]): runtime.compute_dtype=float32 on the v2
+   presets under use_pallas=auto.  highres128 served at batch 64 over HTTP
+   through the megablock's f32 forward (launches held to V2_F32_SERVE a
+   block, no bf16 LayerNorm or flash launch), beside [serve]'s bf16 run
+   directory (the same weights); a DeiT-B-width serving call (E 768);
+   highres128 through Trainer.fit under megablock=on, megablock_bwd=recompute
+   at dropout 0.1 (a capture epoch, then V2_F32_STEPS captured steps,
+   launches a step V2_F32_KERNELS["recompute"]), captured against eager
+   (bit-equal); one dropout-0 step at depth 12 on megablock=on/recompute,
+   on it with a full-f32 backward, on megablock=off and on the bf16-fed
+   control against use_pallas=never in f32 within V2_F32_LOSS_TOL,
+   V2_F32_NORM_RTOL and V2_F32_LEAF_RTOL (the control must miss one; the v1
+   f32 bounds' misses reported); the saved route's TypeError before any
+   launch; then, after [remat], highres256p4 at its preset in f32 on that
+   phase's trainer, P4_F32_STEPS captured steps on the standard path.  The f32
+   LayerNorm entries' `launches` in the JSON line are the highres128 fit's.
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -593,7 +621,7 @@ def _sass_counts(build) -> dict:
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
                     raise AssertionError(f"{func} holds no wgmma in its SASS")
-    for name in build.F32_FLASH:  # mma.sync TF32: HMMA, no wgmma yet
+    for name in (*build.F32_FLASH, *F32_LN_KERNELS):  # mma.sync TF32: HMMA, no wgmma yet
         sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         out[name] = {"HMMA": sass.count("HMMA"), "HMMA_TF32": sass.count("TF32")}
@@ -1788,11 +1816,13 @@ def wide_against_plain(cfg) -> dict:
             y.register_hook(lambda dy: dlogit.append(dy.detach().float()))
 
     saved = get_policy()
+    state = create_train_state(gan, cfg, device="cuda")
+    start = state.state_dict()  # each route's step starts from it
     try:
         for route, policy in (("kernels", dict(mode="auto", megablock="auto")),
                               ("plain", dict(mode="never", megablock="auto"))):
             set_policy(**policy)
-            state = create_train_state(gan, cfg, device="cuda")
+            state.load_state_dict(start)
             step = make_train_step(gan, cfg)
             hook = state.d.register_forward_hook(record) if route == "plain" else None
             torch.cuda.synchronize()
@@ -1805,8 +1835,9 @@ def wide_against_plain(cfg) -> dict:
                 hook.remove()
                 head = dict(state.d.named_parameters())["head_fc2.b"].grad.item()
             launched = {k: v for k, v in build.LAUNCHES.items() if v}
-            res[route] = (metrics, [p.grad.float() for p in (*state.g.parameters(),
-                                                             *state.d.parameters())],
+            # copied: the next route's step refills the state's gradient tensors
+            res[route] = (metrics, [p.grad.float().clone() for p in (*state.g.parameters(),
+                                                                     *state.d.parameters())],
                           [f"g.{n}" for n, _ in state.g.named_parameters()]
                           + [f"d.{n}" for n, _ in state.d.named_parameters()])
             res[f"{route}_peak"], res[f"{route}_s"] = torch.cuda.max_memory_allocated(), sec
@@ -1818,10 +1849,11 @@ def wide_against_plain(cfg) -> dict:
             if route == "kernels" and (wide != 3 * cfg.v2.depth
                                        or launched.get("megablock_bwd_mlp_dz1")):
                 raise AssertionError(f"{tag} not every block took the wide variants: {launched}")
-            del state, step
+            del step
             torch.cuda.empty_cache()
     finally:
         set_policy(**saved)
+    del state, start
     if len(dlogit) != 1 or not abs(dlogit[0].sum().item() - head) <= \
             1e-3 * dlogit[0].abs().sum().item():
         raise AssertionError(f"{tag} D's head bias gradient {head} is not the sum of the D "
@@ -2455,17 +2487,20 @@ def compare_train_routes() -> dict:
               ("megablock_auto", dict(mode="auto", megablock="auto"), "megablock_bwd_mlp"),
               ("megablock_auto_again", dict(mode="auto", megablock="auto"), "megablock_bwd_mlp"),
               ("plain", dict(mode="never", megablock="auto"), None))
+    state = create_train_state(gan, cfg, device="cuda")
+    start = state.state_dict()  # each route's step starts from it
     try:
         for route, policy, must_launch in routes:
             set_policy(**policy)
-            state = create_train_state(gan, cfg, device="cuda")
+            state.load_state_dict(start)
             step = make_train_step(gan, cfg)
             build.reset_launches()
             t0 = time.perf_counter()
             metrics = host_metrics(step(state, real, z=z, draws=draws))
             sec = time.perf_counter() - t0
-            res[route] = (metrics, [p.grad.float() for p in (*state.g.parameters(),
-                                                             *state.d.parameters())],
+            # copied: the next route's step refills the state's gradient tensors
+            res[route] = (metrics, [p.grad.float().clone() for p in (*state.g.parameters(),
+                                                                     *state.d.parameters())],
                           [f"g.{n}" for n, _ in state.g.named_parameters()]
                           + [f"d.{n}" for n, _ in state.d.named_parameters()])
             print(f"[train routes] {route}: {sec:.2f} s, launches {dict(build.LAUNCHES)}, "
@@ -2474,10 +2509,11 @@ def compare_train_routes() -> dict:
                 raise AssertionError("the plain route launched a kernel")
             if must_launch and build.LAUNCHES[must_launch] != 36:
                 raise AssertionError(f"{route}: {must_launch} did not run in every block")
-            del state, step
+            del step
             torch.cuda.empty_cache()
     finally:
         set_policy(**saved)
+    del state, start
     mp, gp, names = res["plain"]
     out = {}
     (m1, g1, _), (m2, g2, _) = res["megablock_auto"], res["megablock_auto_again"]
@@ -3861,6 +3897,681 @@ def check_ln_mlp_activations() -> dict:
     return out
 
 
+# --- the LayerNorm family's f32 forward (csrc/ln_f32.cuh) ------------------------------
+
+# (label, (B, N, E, heads, hidden)): highres128's serving call and its G and D
+# training rows, highres256p4's G, DeiT-B's G (E 768) and a ragged deit64
+# batch (E 192, 3 heads of 64).
+F32_LN_SHAPES = (("highres128 serving", (64, 1024, 384, 6, 1536)),
+                 ("highres128 G", (32, 1024, 384, 6, 1536)),
+                 ("highres128 D", (32, 1025, 384, 6, 1536)),
+                 ("highres256p4 G", (8, 4096, 384, 6, 1536)),
+                 ("DeiT-B G", (64, 256, 768, 12, 3072)),
+                 ("deit64 ragged", (2, 257, 192, 3, 768)))
+F32_LN_KERNELS = ("ln_mlp_fc1_f32", "ln_mlp_linear_f32", "ln_qkv_fwd_f32")
+# name: (source, the TPU kernel replaced) in the JSON line
+F32_LN_META = {"ln_mlp_fc1_f32": ("ln_mlp_fc1_f32.cu", "vitgan_tpu/ops/fused_mlp.py:133"),
+               "ln_mlp_linear_f32": ("ln_mlp_linear_f32.cu", "vitgan_tpu/ops/fused_mlp.py:133"),
+               "ln_qkv_fwd_f32": ("ln_qkv_fwd_f32.cu", "vitgan_tpu/ops/fused_block.py:408")}
+F32_LN_MAIN = "highres128 G"  # each entry's main record: the megablock's training rows
+F32_LN_SYMBOL = ("ln_gemm_f32_kernel", "ln_stats_f32_kernel")
+
+
+def check_f32_ln_kernels() -> dict:
+    """[f32 ln kernels]: the LayerNorm family's f32 entries at F32_LN_SHAPES
+    (LN -> fc1 with z1, the linear stage as fc2 with the residual and a 0.1
+    dropout mask, LN1 -> qkv into (3, B, H, N, Dh)) against their plain
+    versions in full f32, each output within F32_RTOL * max(1, max|plain|)
+    and at most half the bf16 kernel's error on the same inputs cast to
+    bf16; the linear stage's mask bit-equal to the plain mask and to the bf16
+    stage's at the same seed and rows; every output bit-equal across two
+    calls; timed (the wrapper, the device time of its kernel at F32_LN_MAIN,
+    the plain version, the TF32 bound, and F.layer_norm then torch.matmul of
+    the products in f32 and in TF32).  Then the f32 flash forward into the
+    megablock's (B, N, H*Dh) layout at highres128's G, bit-equal to its
+    (B, H, N, Dh) output.  Returns {entry: record} and the layout's record
+    under "flash_attn_fwd_f32[dot]"."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitgan_tpu_torch.ops import attention as A
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    tag = "[f32 ln kernels]"
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    seed = torch.tensor([SEED + 7], dtype=torch.int64, device="cuda")
+    out = {name: {} for name in F32_LN_KERNELS}
+    layout = {}
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    for label, (b, n, e, heads, hidden) in F32_LN_SHAPES:
+        m, dh = b * n, e // heads
+        x = rn(m, e)
+        ln_s, ln_b = 1.0 + rn(e, scale=0.1), rn(e, scale=0.1)
+        w1, b1 = rn(e, hidden, scale=e ** -0.5), rn(hidden, scale=0.1)
+        a, w2, b2 = rn(m, hidden, scale=0.5), rn(hidden, e, scale=hidden ** -0.5), rn(e, scale=0.1)
+        qkv_w, qkv_b = rn(3, heads, e, dh, scale=e ** -0.5), rn(3 * heads * dh, scale=0.1)
+        wqkv, x3 = FB._qkv_weight(qkv_w, f32), x.reshape(b, n, e)
+        mask = FB.dropout_mask(seed, 1, (m, e), MB_RATE)
+        print(f"{tag} {label}: {m} rows, E {e}, hidden {hidden}, {heads} heads of {dh}")
+        layer_norm = lambda: F.layer_norm(x, (e,), ln_s, ln_b)  # noqa: E731
+        # name: (the wrapper in a dtype, its plain version in f32, the library
+        # row, flops, bytes each input read once and each output written once)
+        cases = {
+            "ln_mlp_fc1_f32": (
+                lambda dt: FM.ln_fc1_stage(x.to(dt), ln_s, ln_b, w1, b1, want_z1=True),
+                lambda: FM.ln_fc1_stage_reference(x, ln_s, ln_b, w1, b1, dtype=f32),
+                lambda: torch.matmul(layer_norm(), w1),
+                2.0 * m * e * hidden, 4.0 * (m * e + 2 * e + e * hidden + hidden + 2 * m * hidden)),
+            "ln_mlp_linear_f32": (
+                lambda dt: FM.linear_stage(a.to(dt), w2, b2, x.to(dt), seed, MB_RATE, 1),
+                lambda: (FM.linear_stage_reference(a, w2, b2, x, mask, f32), mask),
+                lambda: torch.matmul(a, w2),
+                2.0 * m * hidden * e, 4.0 * (m * hidden + hidden * e + e + 3 * m * e)),
+            "ln_qkv_fwd_f32": (
+                lambda dt: FB.ln_qkv_forward(x3.to(dt), ln_s, ln_b, qkv_w, qkv_b),
+                lambda: FB._ln_qkv_reference(x3, ln_s, ln_b, qkv_w, qkv_b),
+                lambda: torch.matmul(layer_norm(), wqkv),
+                6.0 * m * e * e, 4.0 * (m * e + 2 * e + 3 * e * e + 3 * e + 3 * m * e)),
+        }
+        iters = 5 if m > 32768 else 10
+        for name, (kern, plain, library, flops, nbytes) in cases.items():
+            k32 = lambda kern=kern: kern(f32)  # noqa: E731
+            got, want, bgot = (t if isinstance(t, tuple) else (t,)
+                               for t in (k32(), plain(), kern(bf16)))
+            errs, bf_errs = [], []
+            for i, (g_, w_, b_) in enumerate(zip(got, want, bgot)):
+                if name == "ln_mlp_linear_f32" and i == 1:  # the mask
+                    same = torch.equal(g_, w_) and torch.equal(g_, b_)
+                    print(f"  {name} {label} mask: {'bit-equal' if same else 'NOT bit-equal'} "
+                          "to the plain mask and the bf16 stage's")
+                    if not same:
+                        raise AssertionError(f"{tag} {label}: the f32 mask is not the bf16 one")
+                    continue
+                if g_.dtype != f32:
+                    raise AssertionError(f"{tag} {name} {label}: output {i} is {g_.dtype}")
+                err, bar = _rel_err(g_, w_, own=False)
+                bf_err, _ = _rel_err(b_, w_, own=False)
+                print(f"  {name} {label} out{i}: max_abs_err {err:.4g} (bar "
+                      f"{F32_RTOL * bar:.4g}), the bf16 kernel's {bf_err:.4g}")
+                if not (err <= F32_RTOL * bar and err <= 0.5 * bf_err):
+                    raise AssertionError(f"{tag} {name} {label} out{i}: disagrees with its "
+                                         "plain version, or not half the bf16 kernel's error")
+                errs.append(err)
+                bf_errs.append(bf_err)
+            del got, want, bgot
+            repeat = _repeat(k32, f"{name} {label}")
+            bound_ms, bound_by = _bound_f32(flops, nbytes)
+            rec = {"max_abs_err": max(errs), "max_abs_err_per_output": errs,
+                   "bf16_max_abs_err_per_output": bf_errs, "repeat_max_abs_diff": repeat,
+                   "ms": _time_ms(k32, iters), "plain_ms": _time_ms(plain, 3),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": _time_ms(library, iters)}
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                rec["library_tf32_ms"] = _time_ms(library, iters)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            if label == F32_LN_MAIN:
+                rec["device_ms"], rec["other_device_ms"] = _device_ms(k32, iters, F32_LN_SYMBOL)
+            print(f"  {name} {label} {_smi()}: {rec['ms']:.4f} ms (device "
+                  f"{rec.get('device_ms')}), bound {bound_ms:.4f} ms by {bound_by}, plain "
+                  f"{rec['plain_ms']:.4f}, F.layer_norm + torch.matmul in f32 "
+                  f"{rec['library_ms']:.4f}, in TF32 {rec['library_tf32_ms']:.4f}")
+            if label == F32_LN_MAIN:
+                out[name].update({"shape": [b, n, e, heads, hidden], **rec})
+            else:
+                key = label.replace(" ", "_")
+                out[name][key] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "library_ms",
+                                                      "library_tf32_ms", "repeat_max_abs_diff")}
+        if label == F32_LN_MAIN:
+            qkv = FB.ln_qkv_forward(x3, ln_s, ln_b, qkv_w, qkv_b)
+            attn = torch.empty((b, n, heads * dh), device="cuda")
+            fwd = lambda: A.flash_forward(qkv[0], qkv[1], qkv[2], float(dh), out=attn)  # noqa
+            fwd_bhnd = lambda: A.flash_forward(qkv[0], qkv[1], qkv[2], float(dh))  # noqa
+            (o_bnhd, lse), (o, lse2) = fwd(), fwd_bhnd()
+            torch.cuda.synchronize()
+            same = torch.equal(o_bnhd, o.transpose(1, 2).reshape(b, n, heads * dh)) and \
+                torch.equal(lse, lse2)
+            layout = {"shape": [b, heads, n, dh], "bit_equal": same,
+                      "ms": _time_ms(fwd, iters), "bhnd_ms": _time_ms(fwd_bhnd, iters)}
+            print(f"  flash_attn_fwd_f32[dot] {label}: out= (B, N, H*Dh) "
+                  f"{'bit-equal' if same else 'NOT bit-equal'} to (B, H, N, Dh); "
+                  f"{layout['ms']:.4f} ms against {layout['bhnd_ms']:.4f}")
+            if not same:
+                raise AssertionError(f"{tag} the f32 flash forward's (B, N, H*Dh) layout")
+            del qkv, attn, o_bnhd, o
+        del x, a, w1, w2, qkv_w, mask
+        torch.cuda.empty_cache()
+    out["flash_attn_fwd_f32[dot]"] = {"out_bnhd": layout}
+    return out
+
+
+# --- [v2 f32]: the v2 presets in f32 under `auto` ---------------------------------------
+
+V2_F32 = {"runtime.compute_dtype": "float32"}
+# The bf16 kernels' names and the f32 kernels that take their place (the
+# LN->MLP forms count both dtypes' calls under one name).
+F32_OF = {"ln_qkv_fwd": "ln_qkv_fwd_f32", "flash_attn_fwd": "flash_attn_fwd_f32[dot]",
+          "ln_mlp_fc1": "ln_mlp_fc1_f32", "ln_mlp_linear": "ln_mlp_linear_f32",
+          "flash_attn_bwd_fused": "flash_attn_bwd_fused_f32[dot]",
+          "flash_attn_bwd_dq": "flash_attn_bwd_dq_f32[dot]",
+          "flash_attn_bwd_dkv": "flash_attn_bwd_dkv_f32[dot]"}
+# Launches of one block of the megablock's f32 serving form: LN1 -> qkv, the
+# f32 flash forward into (B, N, H*Dh), the out-projection + LN2 -> MLP.
+V2_F32_SERVE = {"ln_qkv_fwd_f32": 1, "flash_attn_fwd_f32[dot]": 1, "proj_ln_mlp_fwd": 1,
+                "ln_mlp_fc1_f32": 1, "ln_mlp_linear_f32": 2}
+# Launches a step in f32 (36 block forwards with a backward: G; D on [real;
+# fake]; D on the fake in the G update).  highres128 under megablock=on,
+# megablock_bwd=recompute: the megablock's training forward in each, once
+# more in its backward under the preset's remat 'attn' (autograd of the
+# plain block differentiates it: no backward kernel).  highres256p4: the
+# standard path, the flash backward single pass at G's 4,096 tokens and
+# two-pass at D's 4,097 (the JAX rule at f32's K/V bytes).
+V2_F32_KERNELS = {
+    "recompute": {F32_OF.get(k, k): 2 * 36 * v for k, v in MB_FWD_LAUNCHES.items()},
+    # [v2 f32 routes] (dropout 0, remat never): the megablock's f32 serving
+    # form in each block forward; under megablock=off #1's f32 stages and the
+    # f32 flash kernels (the single pass at G's 1,024 tokens, two-pass at D's
+    # 1,025)
+    "on_dropout0": {k: 36 * v for k, v in V2_F32_SERVE.items()},
+    "off": {F32_OF.get(k, k): v for k, v in TRAIN_KERNELS["off"].items()},
+    "p4": {"flash_attn_fwd_f32[dot]": 36, "flash_attn_bwd_fused_f32[dot]": 12,
+           "flash_attn_bwd_dq_f32[dot]": 24, "flash_attn_bwd_dkv_f32[dot]": 24,
+           "ln_mlp_fwd": 36, "ln_mlp_fc1_f32": 36, "ln_mlp_linear_f32": 36},
+}
+V2_F32_STEPS = 3  # run.steps_per_epoch of [v2 f32]'s highres128 fit
+P4_F32_STEPS = 2  # captured highres256p4 steps a call (at most P4_STEPS)
+# The bf16 LayerNorm and flash launches, none of which an f32 run may make.
+BF16_LN_FLASH = ("ln_qkv_fwd", "ln_qkv_fwd_wide", "ln_mlp_fc1", "ln_mlp_fc1_wide",
+                 "ln_mlp_linear", "ln_rows", "flash_attn_fwd", "flash_attn_bwd_fused",
+                 "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+def _no_bf16_launch(tag: str, launches: dict) -> None:
+    bf16 = {k: v for k, v in launches.items() if v and k in BF16_LN_FLASH}
+    if bf16:
+        raise AssertionError(f"{tag} bf16 LayerNorm or flash kernels launched in f32: {bf16}")
+
+
+def _serve_f32(tag: str, cfg, run_dir: str, calls: int = 3, write: bool = True) -> dict:
+    """Serve the run directory ``run_dir`` (first written from ``cfg``'s
+    generator, random from SEED, with ``write``) at batch 64 and POST
+    ``calls`` seeded n=64 requests: the images' shape, finiteness and
+    spread, ms per request (the least), and the launches of the calls, held
+    to V2_F32_SERVE a block and checked free of bf16 LayerNorm and flash
+    launches when ``cfg`` is f32."""
+    import numpy as np
+    import torch
+
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.serve import serve
+    from vitgan_tpu_torch.utils.run_dirs import save_run
+
+    m = cfg.v2
+    if write:
+        g = build_gan(cfg).generator_init(torch.Generator().manual_seed(SEED), device="cpu")
+        save_run(run_dir, cfg, g, meta={"step": 0, "seed": SEED})
+        del g
+    httpd = serve(run_dir, host="127.0.0.1", port=0, batch=64)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        _post(url, {"n": 64, "seed": 0, "format": "npy"})  # warm
+        torch.cuda.synchronize()
+        build.reset_launches()
+        times = []
+        for i in range(calls):
+            status, _, body, ms = _post(url, {"n": 64, "seed": 1 + i, "format": "npy"})
+            times.append(ms)
+        torch.cuda.synchronize()
+        every = dict(build.LAUNCHES)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = {k: v for k, v in every.items() if v}
+    arr = np.load(io.BytesIO(body))
+    size = m.image_size
+    print(f"{tag} {cfg.runtime.compute_dtype} E {m.embed_dim}, {m.num_heads} heads, depth "
+          f"{m.depth}: POST npy n=64 x {calls}: {min(times):.1f} ms the least ({times}); "
+          f"launches {launches}")
+    if status != 200 or arr.shape != (64, size, size, 3) or not np.isfinite(arr).all() \
+            or arr.std() < 1e-3:
+        raise AssertionError(f"{tag} serving: {status} {arr.shape}")
+    if cfg.runtime.compute_dtype == "float32":
+        _check_launches(every, V2_F32_SERVE, m.depth * calls)
+        _no_bf16_launch(tag, launches)
+    return {"ms": min(times), "ms_all": times, "launches_per_call": {
+        k: v // calls for k, v in launches.items()}}
+
+
+def _sample_call_f32(tag: str, cfg, calls: int = 3) -> dict:
+    """The serving call (train/sample.make_serve_sample_fn: latents, the
+    generator, the uint8 readback) of ``cfg``'s f32 generator, random from
+    SEED, at batch 64: ms a call (CUDA events, the least of ``calls`` after a
+    warm-up), the images' spread, launches held to V2_F32_SERVE a block."""
+    import torch
+
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime, get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import make_serve_sample_fn
+
+    m, gan = cfg.v2, build_gan(cfg)
+    g = gan.generator_init(torch.Generator().manual_seed(SEED), device="cuda").eval()
+    sample = make_serve_sample_fn(gan, cfg, 64)
+    saved = get_policy()
+    try:
+        apply_from_runtime(cfg.runtime)
+        sample(g, 0, 0)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        times = []
+        for i in range(calls):
+            t0 = time.perf_counter()
+            u8 = sample(g, 1, i)
+            times.append(1e3 * (time.perf_counter() - t0))
+        every = dict(build.LAUNCHES)
+    finally:
+        set_policy(**saved)
+    launches = {k: v for k, v in every.items() if v}
+    print(f"{tag} {cfg.runtime.compute_dtype} E {m.embed_dim}, {m.num_heads} heads, depth "
+          f"{m.depth}: the batch-64 serving call {min(times):.1f} ms the least ({times}); "
+          f"launches {launches}")
+    if u8.shape != (64, m.image_size, m.image_size, 3) or u8.std() < 1.0:
+        raise AssertionError(f"{tag} serving call: {u8.shape}, std {u8.std()}")
+    _check_launches(every, V2_F32_SERVE, m.depth * calls)
+    _no_bf16_launch(tag, launches)
+    del g
+    torch.cuda.empty_cache()
+    return {"ms": min(times), "ms_all": times, "launches_per_call": {
+        k: v // calls for k, v in launches.items()}}
+
+
+def _bf16_ln_control():
+    """The f32 route control's LayerNorm launches: each LN stage wrapper on
+    its activations rounded to bf16 (the bf16 kernels), its outputs returned
+    in f32.  {(module, name): wrapper} to patch in."""
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    linear, fc1, qkv = FM.linear_stage, FM.ln_fc1_stage, FB.ln_qkv_forward
+
+    def linear_bf16(a, w, bias, res=None, *rest, **kw):
+        o, mask = linear(a.bfloat16(), w, bias, None if res is None else res.bfloat16(), *rest,
+                         **kw)
+        return o.float(), mask
+
+    def fc1_bf16(a, *rest, **kw):
+        h, z1 = fc1(a.bfloat16(), *rest, **kw)
+        return h.float(), None if z1 is None else z1.float()
+
+    def qkv_bf16(x, *rest, **kw):
+        return qkv(x.bfloat16(), *rest, **kw).float()
+
+    return {(FM, "linear_stage"): linear_bf16, (FB, "linear_stage"): linear_bf16,
+            (FM, "ln_fc1_stage"): fc1_bf16, (FB, "ln_fc1_stage"): fc1_bf16,
+            (FB, "ln_qkv_forward"): qkv_bf16}
+
+
+F32_LN_CONTROL = "bf16_ln_control"
+# [v2 f32 routes]: one f32 highres128 step at depth 12 against use_pallas=never
+# in full f32.  Every product of a kernel route runs TF32 (the forward kernels,
+# the f32 flash kernels, the recompute Functions' backward) through 12 blocks of
+# G and of D, forward and back, and the v1 f32 bounds above (4 blocks, only
+# attention on the kernels) are missed by every kernel route, the one with a
+# full-f32 backward too: on an H100 80GB HBM3 at 700 W losses up to 1.9e-4,
+# G's gradient norm 1.2e-3 to 2.5e-3 relative, the worst leaf 3.6e-3 to
+# 4.5e-3 of its max|plain|.  These bounds were set from that reading; the
+# control F32_LN_CONTROL read losses 5.9e-4 and 1.07e-3, norms 1.1e-4 and
+# 5.4e-3, the worst leaf 2.7e-2 there, and must miss one of them.
+V2_F32_LOSS_TOL, V2_F32_NORM_RTOL, V2_F32_LEAF_RTOL = 5e-4, 5e-3, 1e-2
+# The megablock route with the plain block's backward in full f32 (the
+# recompute Functions' products kept out of TF32): what the f32 forward
+# kernels move, apart from the shipped route's TF32 backward.
+F32_BWD_ROUTE = "megablock_on_recompute_f32_bwd"
+V2_F32_ROUTES = ("megablock_on_recompute", F32_BWD_ROUTE, "megablock_off", F32_LN_CONTROL)
+
+
+def _full_f32_backward():
+    """{(module, name): replacement} keeping the recompute Functions'
+    backward products in full f32 (F32_BWD_ROUTE)."""
+    import contextlib
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    def no_tf32(on):
+        return contextlib.nullcontext()
+
+    return {(FM, "_tf32_products"): no_tf32, (FB, "_tf32_products"): no_tf32}
+
+
+def compare_v2_f32_routes() -> dict:
+    """One highres128 train step in f32 at full width and depth, batch 8,
+    dropout 0, remat never, from the same state, batch, latents and augment
+    draws: on megablock=on with megablock_bwd=recompute
+    (the megablock's f32 forward in every block, autograd of the plain block
+    behind it, its products in TF32 as the recompute Functions take them),
+    on F32_BWD_ROUTE (the same with that backward in full f32), on
+    megablock=off (#1's f32 stages and the f32 flash kernels in every
+    block), on the control F32_LN_CONTROL (the megablock route with its
+    LayerNorm launches fed bf16 copies) and on use_pallas=never.  Each route
+    is compared with the plain one: losses against V2_F32_LOSS_TOL, gradient
+    norms against V2_F32_NORM_RTOL, every leaf's max|d| / max|plain leaf|
+    against V2_F32_LEAF_RTOL; the kernel routes must meet the bounds, the
+    control must miss one.  What each route misses of the v1 f32 bounds
+    (F32_LOSS_TOL, ...) is reported beside.  Launches are held to
+    V2_F32_KERNELS (f32 kernels only), the plain route's to none.
+    Then the saved route's refusal on the same state (_saved_f32_refusal)."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.data.datasets import synthetic_dataset
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.augment import draw_augment
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import latent_rng
+    from vitgan_tpu_torch.train.state import create_train_state
+    from vitgan_tpu_torch.train.step import host_metrics, make_train_step
+
+    tag, batch = "[v2 f32 routes]", 8
+    cfg = C.replace(C.highres_config(128), **{**V2_F32, "v2.batch_size": batch,
+                                              "v2.dropout": 0.0})
+    gan = build_gan(cfg)
+    images, _ = synthetic_dataset(batch, 128, 3, seed=SEED)
+    real = torch.from_numpy(images).cuda().float() * (2.0 / 255.0) - 1.0
+    z = gan.sample_latent(latent_rng(SEED, 0), batch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    draws = {key: draw_augment(gen, real, cfg.run.diff_augment)
+             for key in ("aug_real", "aug_fake", "aug_g")}
+    # remat never on every route (remat's steps are bit-equal to never's)
+    on = dict(mode="auto", megablock="on", megablock_bwd="recompute", remat="never")
+    off = dict(mode="auto", megablock="off", megablock_bwd="saved", remat="never")
+    plain = dict(mode="never", megablock="auto", megablock_bwd="saved", remat="never")
+    launches_on = V2_F32_KERNELS["on_dropout0"]
+    routes = (("megablock_on_recompute", on, launches_on, dict),
+              (F32_BWD_ROUTE, on, launches_on, _full_f32_backward),
+              ("megablock_off", off, V2_F32_KERNELS["off"], dict),
+              (F32_LN_CONTROL, on, None, _bf16_ln_control),
+              ("plain", plain, {}, dict))
+    saved, res, out = get_policy(), {}, {}
+    state = create_train_state(gan, cfg, device="cuda")
+    start = state.state_dict()  # each route's step starts from it
+    try:
+        for route, policy, must, patches in routes:
+            set_policy(**policy)
+            patches = patches()
+            originals = {key: getattr(*key) for key in patches}
+            for (mod, name), fn in patches.items():
+                setattr(mod, name, fn)
+            try:
+                state.load_state_dict(start)
+                step = make_train_step(gan, cfg)
+                build.reset_launches()
+                t0 = time.perf_counter()
+                metrics = host_metrics(step(state, real, z=z, draws=draws))
+                sec = time.perf_counter() - t0
+            finally:
+                for (mod, name), fn in originals.items():
+                    setattr(mod, name, fn)
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            # copied: the next route's step refills the state's gradient tensors
+            res[route] = (metrics, [p.grad.float().clone() for p in (*state.g.parameters(),
+                                                                     *state.d.parameters())],
+                          [f"g.{n}" for n, _ in state.g.named_parameters()]
+                          + [f"d.{n}" for n, _ in state.d.named_parameters()])
+            print(f"{tag} {route}: {sec:.2f} s, launches {launched}, metrics {metrics}")
+            if must is not None and launched != must:
+                raise AssertionError(f"{tag} {route} launched {launched}, not {must}")
+            out[route] = {"launches": launched}
+            del step
+            torch.cuda.empty_cache()
+        state.load_state_dict(start)
+        out["saved_refusal"] = _saved_f32_refusal(state, real)
+    finally:
+        set_policy(**saved)
+    del state, start
+    mp, gp, names = res["plain"]
+    failed = []
+    bounds = {"v2": (V2_F32_LOSS_TOL, V2_F32_NORM_RTOL, V2_F32_LEAF_RTOL),
+              "v1": (F32_LOSS_TOL, F32_NORM_RTOL, F32_LEAF_RTOL)}
+    for route in V2_F32_ROUTES:
+        mk, gk, _ = res[route]
+        r = out[route]
+        for key in ("d_loss", "g_loss"):
+            r[key] = abs(mk[key] - mp[key])
+        for key in ("d_grad_norm", "g_grad_norm"):
+            r[key] = abs(mk[key] - mp[key]) / mp[key]
+        rel = {name: (a - b_).abs().max().item() / max(b_.abs().max().item(), 1e-30)
+               for name, a, b_ in zip(names, gk, gp)}
+        worst = max(rel, key=lambda k: rel[k] if math.isfinite(rel[k]) else math.inf)
+        r["worst_leaf_rel"], r["worst_leaf"] = rel[worst], worst
+        for which, (loss_tol, norm_rtol, leaf_rtol) in bounds.items():
+            r[f"misses_{which}"] = (
+                [k for k in ("d_loss", "g_loss") if not r[k] <= loss_tol]
+                + [k for k in ("d_grad_norm", "g_grad_norm") if not r[k] <= norm_rtol]
+                + (["a gradient leaf"] if not rel[worst] <= leaf_rtol else []))
+        misses = r["misses_v2"]
+        print(f"{tag} {route}: losses |d| {r['d_loss']:.3g}, {r['g_loss']:.3g} (tolerance "
+              f"{V2_F32_LOSS_TOL}); norms relative {r['d_grad_norm']:.3g}, "
+              f"{r['g_grad_norm']:.3g} ({V2_F32_NORM_RTOL}); worst leaf max|d| / max|plain| "
+              f"{rel[worst]:.4g} at {worst} ({V2_F32_LEAF_RTOL}); misses {misses or 'nothing'};"
+              f" of the v1 f32 bounds {r['misses_v1'] or 'nothing'}")
+        if route == F32_LN_CONTROL:
+            if not misses:
+                failed.append(f"{route}: the f32 bounds do not see LayerNorm kernels that round "
+                              "through bf16")
+        elif misses:
+            failed.append(f"{route}: " + ", ".join(misses) + " differ from the plain route")
+    if failed:
+        raise AssertionError(f"{tag} " + "; ".join(failed))
+    return out
+
+
+def _f32_fit(tag: str, cfg, run_dir: str, per_step: dict, steps: int) -> tuple:
+    """``cfg`` (f32) through Trainer.fit: 1 eager warm-up step, 2 eager steps
+    timed, a warm-up epoch of ``steps`` (the capture), then a timed epoch of
+    captured steps after _settle; launches a step held to ``per_step`` and
+    free of bf16 LayerNorm and flash launches.  Returns (trainer, record)."""
+    import torch
+
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.train.step import host_metrics
+    from vitgan_tpu_torch.train.trainer import Trainer
+
+    m = cfg.v2
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+    setup = time.perf_counter() - t0
+    st = trainer.state
+    host_metrics(trainer.train_step(st, trainer.real_batch(trainer.batches()[0])))
+    eager_ms = _eager_step_ms(trainer, 2)
+    grid = _grid_launches(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(epochs=1)  # the warm-up epoch: its first step eager, then captured
+    _settle()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # --- the v2 f32 path ---
+    means = trainer.fit()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    # --- end of the v2 f32 path ---
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * m.batch_size / means["images_per_sec"]
+    per = _check_fit_launches(tag, launches, per_step, steps, grid)
+    _no_bf16_launch(tag, per)
+    if not all(math.isfinite(means[k]) for k in ("d_loss", "g_loss", "d_grad_norm",
+                                                 "g_grad_norm")):
+        raise AssertionError(f"{tag} non-finite train metrics: {means}")
+    print(f"{tag} {_smi()}: {m.image_size} px, E {m.embed_dim}, depth {m.depth}, batch "
+          f"{m.batch_size}, {cfg.runtime.compute_dtype}, megablock {cfg.runtime.megablock}, "
+          f"megablock_bwd {cfg.runtime.megablock_bwd}, remat {cfg.runtime.remat!r}, dropout "
+          f"{m.dropout}: {steps} captured steps by Trainer.fit {ms:.2f} ms/step, the eager step "
+          f"{eager_ms:.2f} ms, peak {peak / 2**30:.2f} GiB; set up in {setup:.1f} s; launches a "
+          f"step {per_step}")
+    return trainer, {"card": _smi(), "ms_per_step": ms, "eager_ms_per_step": eager_ms,
+                     "peak_allocated_bytes": peak, "steps": steps, "means": means,
+                     "launches": {k: v for k, v in per.items() if v}}
+
+
+def p4_f32_steps(trainer, n: int = P4_F32_STEPS) -> dict:
+    """[v2 f32] highres256p4: ``trainer``'s (the [highres256p4] phase's)
+    state and device-resident data under its preset with
+    runtime.compute_dtype=float32, without Trainer.fit: one eager warm-up
+    step, one eager step timed, a captured function of ``n`` steps (its
+    first step eager, then captured) called once, then again: ``n`` replays
+    timed (host clock to a sync), their launches a step held to
+    V2_F32_KERNELS["p4"] (the standard path) and free of bf16 LayerNorm and
+    flash launches.  The trainer's state goes on from where it is."""
+    import torch
+
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime, get_policy, set_policy
+    from vitgan_tpu_torch.train.sample import latent_block
+    from vitgan_tpu_torch.train.step import (host_metrics, make_device_data_train_fn,
+                                             make_train_step)
+
+    tag, per_step = "[v2 f32 highres256p4]", V2_F32_KERNELS["p4"]
+    cfg = C.replace(trainer.cfg, **V2_F32)
+    m, st, order = cfg.v2, trainer.state, trainer.batches()
+    saved = get_policy()
+    try:
+        apply_from_runtime(cfg.runtime)
+        step = make_train_step(trainer.gan, cfg)
+        host_metrics(step(st, trainer.real_batch(order[0])))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_metrics(step(st, trainer.real_batch(order[1])))
+        eager_ms = 1e3 * (time.perf_counter() - t0)
+        fn = make_device_data_train_fn(trainer.gan, cfg, n)
+        lat = latent_block(trainer.gan, st.seed, st.step, n, m.batch_size,
+                           max(1, getattr(m, "disc_steps", 1)))
+        idx = order[:n]  # an epoch holds P4_STEPS batches
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, trainer.dataset, idx, lat)  # the first step eager, its capture
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        got = fn(st, trainer.dataset, idx, lat)  # n replays
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        set_policy(**saved)
+    metrics = {k: v.float().cpu().tolist() for k, v in got.items()}  # a value a step
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * n for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{tag} {n} captured steps launched {launches}, not {want}")
+    _no_bf16_launch(tag, launches)
+    if not all(math.isfinite(x) for v in metrics.values() for x in v):
+        raise AssertionError(f"{tag} non-finite train metrics: {metrics}")
+    print(f"{tag} {_smi()}: {m.image_size} px at patch {m.patch_size}, E {m.embed_dim}, depth "
+          f"{m.depth}, batch {m.batch_size}, {cfg.runtime.compute_dtype}, remat "
+          f"{cfg.runtime.remat!r}, dropout {m.dropout}: {n} captured steps {ms:.2f} ms a step "
+          f"(host clock), the eager step {eager_ms:.2f} ms, peak {peak / 2**30:.2f} GiB; "
+          f"launches a step {per_step}")
+    del fn
+    torch.cuda.empty_cache()
+    return {"card": _smi(), "ms_per_step": ms, "eager_ms_per_step": eager_ms,
+            "peak_allocated_bytes": peak, "steps": n, "metrics": metrics,
+            "launches_per_step": per_step}
+
+
+def _saved_f32_refusal(state, real) -> dict:
+    """highres128 in f32 at its defaults (megablock=auto, megablock_bwd=saved,
+    dropout 0.1), one train step of ``state`` on ``real``: it raises the
+    gate's TypeError (SAVED_F32) before any kernel launch; its message names
+    the item and the two f32 settings."""
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.models import build_gan
+    from vitgan_tpu_torch.ops import build
+    from vitgan_tpu_torch.ops.policy import apply_from_runtime
+    from vitgan_tpu_torch.train.step import make_train_step
+
+    cfg = C.replace(C.highres_config(128), **{**V2_F32, "v2.batch_size": real.shape[0]})
+    apply_from_runtime(cfg.runtime)
+    step = make_train_step(build_gan(cfg), cfg)
+    build.reset_launches()
+    try:
+        step(state, real)
+    except TypeError as err:
+        msg = str(err)
+    else:
+        raise AssertionError("[v2 f32] an f32 step on the saved megablock route did not raise")
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    print(f"[v2 f32] highres128 f32 under megablock=auto, megablock_bwd=saved: TypeError "
+          f"{msg!r}; launches before it {launched}")
+    if launched or not all(s in msg for s in ("queue 1 item 7", "megablock_bwd=recompute",
+                                              "megablock=off")):
+        raise AssertionError("[v2 f32] the saved route's f32 refusal")
+    return {"message": msg}
+
+
+def v2_f32_path(work: str, bf16_run_dir: "str | None" = None) -> dict:
+    """[v2 f32]: the v2 presets with runtime.compute_dtype=float32 under
+    use_pallas=auto.  highres128 served at batch 64 through the megablock's
+    f32 forward (launches a call held to V2_F32_SERVE a block, no bf16
+    LayerNorm or flash launch), beside the same weights served in bf16
+    (``bf16_run_dir``: [serve]'s run directory, else one written here);
+    highres128 trained through Trainer.fit under megablock=on,
+    megablock_bwd=recompute at the preset's dropout 0.1 (launches a step
+    V2_F32_KERNELS["recompute"]), then captured against eager (bit-equal);
+    one dropout-0 step on that route and on megablock=off against
+    use_pallas=never in f32 (compare_v2_f32_routes, with the bf16-fed
+    control); a DeiT-B-width deit64 serving call (E 768, the batch-64 serving
+    function on the card); the saved route's refusal.  highres256p4's f32
+    steps run later, on [highres256p4]'s trainer (p4_f32_steps)."""
+    from vitgan_tpu_torch.ops.policy import get_policy, set_policy
+
+    saved = get_policy()  # the fits below set the routing from their configs
+    try:
+        return _v2_f32_phases(work, bf16_run_dir)
+    finally:
+        set_policy(**saved)
+
+
+def _v2_f32_phases(work: str, bf16_run_dir) -> dict:
+    """v2_f32_path's phases, in its order."""
+    from vitgan_tpu_torch import config as C
+
+    out = {"card": _smi()}
+    out["serve"] = _serve_f32("[v2 f32 serve]", C.replace(C.highres_config(128), **V2_F32),
+                              os.path.join(work, "serve_f32"))
+    write = bf16_run_dir is None  # [serve]'s run directory holds the same weights in bf16
+    out["serve_bf16"] = _serve_f32("[v2 f32 serve]", C.highres_config(128),
+                                   bf16_run_dir or os.path.join(work, "serve_bf16"), write=write)
+    out["serve_deit_b"] = _sample_call_f32("[v2 f32 serve DeiT-B width]", C.replace(
+        C.deit64_config(), **{**DEIT_B, **V2_F32}))
+    cfg = C.replace(C.highres_config(128), **_fit_over({
+        **V2_F32, "runtime.megablock": "on", "runtime.megablock_bwd": "recompute",
+        "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
+        "run.steps_per_epoch": V2_F32_STEPS}))
+    trainer, out["train_recompute"] = _f32_fit("[v2 f32 train]", cfg,
+                                               os.path.join(work, "train"),
+                                               V2_F32_KERNELS["recompute"], V2_F32_STEPS)
+    capture = captured_vs_eager(cfg, 2, "highres128 f32 megablock=on/recompute",
+                                trainer=trainer)
+    if not capture["bit_equal"]:
+        raise AssertionError("[v2 f32] the captured steps are not bit-equal to eager ones")
+    out["train_recompute"]["captured_vs_eager"] = capture
+    del trainer
+    out["routes"] = compare_v2_f32_routes()
+    out["saved_refusal"] = out["routes"].pop("saved_refusal")
+    return out
+
+
 # [eval]: the extractors on the card against the same module on the CPU, both
 # in f32 (models/inception.full_f32 keeps TF32 off): |card - CPU| <= TOL *
 # max(1, max|CPU|); the on-device FID against the host's FeatureStats on the
@@ -5211,14 +5922,36 @@ def bench_path(p4_ms: float) -> dict:
     return {**rec, "fit_img_per_s": fit_ips, "ratio": ratio, "seconds": sec}
 
 
-def cli_path() -> dict:
-    """[cli]: `cli doctor` exits 0 on the card; `cli warmup v2` with the
-    kernels built, then after the build directory is emptied (every kernel
-    source rebuilt, nvcc in parallel): its seconds each time."""
+def _cli_warmup(label: str) -> float:
+    """`cli warmup v2` (every kernel source built, nvcc in parallel, then the
+    batch assembler and the preset's Trainer) with the build directory
+    ``label`` ("clean" or "built"): its seconds; raises unless it exits 0 with
+    every library built."""
     import contextlib
 
     from vitgan_tpu_torch import cli
     from vitgan_tpu_torch.ops import build
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["warmup", "v2"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    built = sum(os.path.exists(build.lib_path(n)) for n in build.SOURCES)
+    print(f"[cli] warmup v2 with the build directory {label}: rc {rc}, "
+          f"{rec['compile_seconds']['v2']} s; {built} of {len(build.SOURCES)} kernel "
+          "libraries built")
+    if rc != 0 or built != len(build.SOURCES):
+        raise AssertionError(f"[cli] warmup ({label}): rc {rc}, {built} libraries")
+    return rec["compile_seconds"]["v2"]
+
+
+def cli_path(warmup_clean_s: float) -> dict:
+    """[cli]: `cli doctor` exits 0 on the card; `cli warmup v2` with the
+    kernels built: its seconds, beside the clean build's ``warmup_clean_s``
+    (main's first build is `cli warmup v2` on an empty build directory)."""
+    import contextlib
+
+    from vitgan_tpu_torch import cli
 
     out = {}
     buf = io.StringIO()
@@ -5231,20 +5964,8 @@ def cli_path() -> dict:
     if rc != 0 or not checks["devices"]["ok"]:
         raise AssertionError(f"[cli] doctor: rc {rc}, {checks['devices']}")
     out["doctor"] = checks
-    for label in ("built", "clean"):
-        if label == "clean":
-            shutil.rmtree(build.BUILD_DIR)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["warmup", "v2"])
-        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-        built = sum(os.path.exists(build.lib_path(n)) for n in build.SOURCES)
-        print(f"[cli] warmup v2 with the build directory {label}: rc {rc}, "
-              f"{rec['compile_seconds']['v2']} s; {built} of {len(build.SOURCES)} kernel "
-              "libraries built")
-        if rc != 0 or built != len(build.SOURCES):
-            raise AssertionError(f"[cli] warmup ({label}): rc {rc}, {built} libraries")
-        out[f"warmup_{label}_s"] = rec["compile_seconds"]["v2"]
+    out["warmup_built_s"] = _cli_warmup("built")
+    out["warmup_clean_s"] = warmup_clean_s
     return out
 
 
@@ -5926,9 +6647,14 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    # The first build: `cli warmup v2` on an empty build directory, as a fresh
+    # checkout has it (every source, nvcc in parallel; [cli] reports it)
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    secs = build.build()
-    print(f"[build] {secs} ({time.perf_counter() - t0:.1f} s wall, parallel)")
+    warmup_clean_s = _cli_warmup("clean")
+    secs = build.build()  # nothing left to build: {source: 0.0}
+    print(f"[build] {len(secs)} sources by `cli warmup v2` in {warmup_clean_s} s "
+          f"({time.perf_counter() - t0:.1f} s wall, parallel)")
     ptxas_warnings = {}
     for name in secs:
         kernels = _ptxas_kernels(build.build_log(name))
@@ -5950,6 +6676,7 @@ def main() -> int:
     train_dir = os.path.join(root, "build", "chip_smoke_train")
     v1_dir = os.path.join(root, "build", "chip_smoke_train_v1")
     v1f32_dir = os.path.join(root, "build", "chip_smoke_train_v1_f32")
+    v2f32_dir = os.path.join(root, "build", "chip_smoke_v2_f32")
     eval_dir = os.path.join(root, "build", "chip_smoke_eval")
     data_dir = os.path.join(root, "build", "chip_smoke_data")
     r1_dir = os.path.join(root, "build", "chip_smoke_r1")
@@ -5996,6 +6723,10 @@ def main() -> int:
         mark("wide kernels")
         records.update(check_f32_kernels())
         mark("f32 kernels")
+        ln32 = check_f32_ln_kernels()
+        records["flash_attn_fwd_f32[dot]"].update(ln32.pop("flash_attn_fwd_f32[dot]"))
+        records.update(ln32)
+        mark("f32 ln kernels")
         records["ln_mlp_fwd"]["activations"] = check_ln_mlp_activations()
         mark("ln_mlp activations")
         train_launches, train = train_main_path(train_dir, "auto")
@@ -6016,6 +6747,8 @@ def main() -> int:
         mark("v1")
         v1f32_launches, v1f32 = train_v1_f32(v1f32_dir)
         mark("train v1 f32")
+        v2f32 = v2_f32_path(v2f32_dir, bf16_run_dir=run_dir)
+        mark("v2 f32")
         capture = {
             "v1": captured_vs_eager(_v1_cfg(**_fit_over({})), 4, "v1 use_pallas=always"),
             "highres128": captured_vs_eager(C.replace(C.highres_config(128), **_fit_over(
@@ -6037,12 +6770,13 @@ def main() -> int:
                                                     trainer=p4_trainer)
         p4["routes"] = p4_against_plain(p4_trainer, p4_start)
         remat = remat_path(p4_trainer, p4_start)
-        mark("highres256p4, remat")
+        v2f32["p4"] = p4_f32_steps(p4_trainer)
+        mark("highres256p4, remat, highres256p4 f32")
         del p4_trainer, p4_start
         torch.cuda.empty_cache()
         accum = grad_accum_path(accum_dir)
         bench = bench_path(p4["ms_per_step"])
-        cli_rec = cli_path()
+        cli_rec = cli_path(warmup_clean_s)
         mark("grad accum, bench, cli")
         sweep = sweep_path(sweep_dir)
         mark("sweep")
@@ -6053,7 +6787,8 @@ def main() -> int:
         context = context_path(ctx_dir)
         mark("context")
     finally:
-        for d in (run_dir, off_dir, train_dir, v1_dir, v1f32_dir, eval_dir, data_dir, r1_dir,
+        for d in (run_dir, off_dir, train_dir, v1_dir, v1f32_dir, v2f32_dir, eval_dir, data_dir,
+                  r1_dir,
                   interop_dir, base_dir, p4_dir, accum_dir, sweep_dir, par_dir, pipe_dir, ctx_dir):
             shutil.rmtree(d, ignore_errors=True)
 
@@ -6134,6 +6869,13 @@ def main() -> int:
                  "flash_attn_fwd_f32[l2ref]": "the l2ref route in f32, one forward and backward"}
     for name, (src, line, counts) in f32_launches.items():
         meta[name] = (src, f"vitgan_tpu/ops/attention.py:{line}", counts.get(name, 0))
+    # the LayerNorm family's f32 entries, on the highres128 f32 train path
+    # ([v2 f32]: megablock=on, megablock_bwd=recompute, the fit's captured steps)
+    f32_ln_path = (f"highres128 f32 train (megablock=on, megablock_bwd=recompute), "
+                   f"{v2f32['train_recompute']['steps']} captured steps")
+    for name, (src, replaces) in F32_LN_META.items():
+        meta[name] = (src, replaces, v2f32["train_recompute"]["launches"].get(name, 0))
+        records[name]["launches_serve_per_call"] = v2f32["serve"]["launches_per_call"].get(name)
     # the wide variants, on the DeiT-B-width train path ([train deit64 wide])
     for name, (src, replaces, form) in WIDE_KERNELS.items():
         meta[name] = (src, replaces, wide_train["launches"].get(name, 0))
@@ -6144,7 +6886,7 @@ def main() -> int:
              "flash_attn_bwd_fused[l2]": "v1 train with bwd_fusion=fused, 3 captured steps",
              "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward",
              **{name: f"v1 f32 train, {v1f32['steps']} captured steps" for name in F32_MAIN},
-             **f32_paths,
+             **f32_paths, **{name: f32_ln_path for name in F32_LN_META},
              **{name: f"deit64 at DeiT-B width ({DEIT_B}), {WIDE_STEPS} captured steps"
                 for name in WIDE_KERNELS}}
     kernels = []
@@ -6222,6 +6964,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"v1": v1}))
     print(json.dumps({"v1_f32": v1f32}, default=float))
+    print(json.dumps({"v2_f32": v2f32}, default=float))
     print(json.dumps({"capture": capture}))
     print(json.dumps({"eval": evals}))
     print(json.dumps({"data": data}, default=float))

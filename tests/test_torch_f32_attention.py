@@ -87,8 +87,8 @@ def test_kernel_dtype_takes_bf16_and_f32_and_names_the_item_otherwise():
 
 def test_f32_wrappers_refuse_off_the_cpu_and_the_megablock_layout(monkeypatch):
     """f32 tensors that are neither on the CPU nor on CUDA (meta tensors) raise
-    naming CUDA; the (B, N, H*D) layout of ``out=`` is the bf16 `dot`
-    forward's."""
+    naming CUDA; the (B, N, H*D) layout of ``out=`` is the `dot` forward's,
+    in f32 as in bf16, and only at its own shape."""
     q = torch.empty(2, 4, 50, 108, device="meta")
     lse = torch.empty(2, 4, 50, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -98,8 +98,10 @@ def test_f32_wrappers_refuse_off_the_cpu_and_the_megablock_layout(monkeypatch):
             fn(q, q, q, q, lse, q, 432.0, score_mode="l2")
     monkeypatch.setattr(A, "_check_kernel_inputs", lambda *a: None)
     x = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(ValueError, match="bf16 `dot`"):
-        A.flash_forward(x, x, x, 8.0, out=torch.zeros(1, 4, 16))
+    with pytest.raises(ValueError, match="`dot` forward's"):
+        A.flash_forward(x, x, x, 8.0, out=torch.zeros(1, 4, 16), score_mode="l2")
+    with pytest.raises(ValueError, match="out must be"):
+        A.flash_forward(x, x, x, 8.0, out=torch.zeros(1, 4, 8))
 
 
 # --- the backward route ------------------------------------------------------------------

@@ -105,7 +105,8 @@ def test_auto_route_raises_on_card_for_unported_dtype_and_width():
     kernels).  A block of E 512 passes the
     'auto' gate as it passes the JAX one and launches the wide LN -> fc1
     variant (ln_rows, ln_mlp_fc1_wide) and fc2, within 2e-2 * max(1,
-    max|plain|) of the plain version; in f32 it raises.  A width that is
+    max|plain|) of the plain version; in f32 the f32 stages (one kernel at
+    every E, no LN rows), within the same bar; in f16 it raises.  A width that is
     no multiple of 8 raises under 'always', naming the ROADMAP.md item.
     Nothing falls back to the plain version in a wrapper on the card."""
     _cuda_or_skip()
@@ -129,8 +130,16 @@ def test_auto_route_raises_on_card_for_unported_dtype_and_width():
             "ln_mlp_fwd": 1, "ln_rows": 1, "ln_mlp_fc1_wide": 1, "ln_mlp_linear": 1}
         tol = 2e-2 * max(1.0, want.float().abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= tol
+        build.reset_launches()
+        got = FM.dispatch_ln_mlp(x.float(), b + 1, b, w1, b1, w2, b)
+        want = FM._reference(x.float(), b + 1, b, w1, b1, w2, b)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in build.LAUNCHES.items() if c} == {
+            "ln_mlp_fwd": 1, "ln_mlp_fc1_f32": 1, "ln_mlp_linear_f32": 1}
+        assert got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= 2e-2 * max(1.0, want.abs().max().item())
         with pytest.raises(TypeError, match="ROADMAP"):
-            FM.dispatch_ln_mlp(x.float(), b, b, w1, b1, w2, b)
+            FM.dispatch_ln_mlp(x.half(), b, b, w1, b1, w2, b)
         policy.set_policy(mode="always")
         xu = torch.zeros(2, 1024, 516, device="cuda", dtype=torch.bfloat16)
         bu = torch.zeros(516, device="cuda")
@@ -1217,3 +1226,118 @@ def test_ln_fc1_stage_takes_each_activation_on_card(activation, wide):
     tol = 2e-2 * max(1.0, (want.float() - a.float()).abs().max().item()) + 2 ** -7 * want.float(
         ).abs().max().item()
     assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+# --- the LayerNorm family's f32 forward (csrc/ln_f32.cuh) -------------------------------
+
+# (batch, tokens, E, heads, hidden): tiles straddling samples and the 128-row
+# edge at E 64 and 192 (the bf16 route's resident kernels), 520 and 768 (its
+# wide variants).
+F32_LN_SHAPES = [(2, 65, 64, 2, 128), (2, 257, 192, 3, 768), (3, 43, 520, 5, 1040),
+                 (2, 64, 768, 12, 3072)]
+F32_LN_IDS = ["n65_e64", "n257_e192", "n43_e520", "n64_e768"]
+
+
+def _f32_ln_close(got, want, bf16_got, what: str) -> None:
+    """An f32 output within F32_RTOL * max(1, max|plain|) of its plain
+    version, under half the bf16 kernel's error on the same inputs."""
+    assert got.dtype == torch.float32, what
+    err = _worst(got, want, own=False)
+    assert err <= F32_RTOL, f"{what}: {err:.4g}"
+    assert err <= 0.5 * _worst(bf16_got.float(), want, own=False), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_LN_SHAPES, ids=F32_LN_IDS)
+def test_f32_ln_stages_match_plain_on_card(shape, _full_f32):
+    """The f32 entries against their plain versions in full f32: LN -> fc1
+    (h and z1), the linear stage with a residual and a 0.1 dropout mask,
+    LN1 -> qkv into (3, B, H, N, Dh); each output within F32_RTOL * max(1,
+    max|plain|), under half the bf16 kernel's error, bit-equal across two
+    calls; one kernel at every E (no LN rows launch), each launch counted
+    under its _f32 name; the f32 mask bit-equal to the plain mask and to the
+    bf16 stage's, at one rank and under a data-parallel row map."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    x, _, params, seed = _mb_inputs(b, n, e, heads, hidden)
+    x = x.float()
+    ln1s, ln1b, qkv_w, qkv_b, _, _, ln_s, ln_b, w1, b1, w2, b2 = params
+    rows = x.reshape(-1, e)
+    m = rows.shape[0]
+    a = 0.5 * torch.randn(m, hidden, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(5))
+    build.reset_launches()
+    h, z1 = FM.ln_fc1_stage(rows, ln_s, ln_b, w1, b1, want_z1=True)
+    h2, z12 = FM.ln_fc1_stage(rows, ln_s, ln_b, w1, b1, want_z1=True, wide=True)
+    want = FM.ln_fc1_stage_reference(rows, ln_s, ln_b, w1, b1, dtype=torch.float32)
+    bf16 = FM.ln_fc1_stage(rows.bfloat16(), ln_s, ln_b, w1, b1, want_z1=True)
+    for got, again, w_, b_, what in ((h, h2, want[0], bf16[0], "h"), (z1, z12, want[1], bf16[1],
+                                                                        "z1")):
+        _f32_ln_close(got, w_, b_, f"fc1 {what}")
+        assert torch.equal(got, again)
+    out, mask = FM.linear_stage(a, w2, b2, rows, seed, 0.1, 1)
+    again, _ = FM.linear_stage(a, w2, b2, rows, seed, 0.1, 1)
+    plain_mask = FB.dropout_mask(seed, 1, (m, e), 0.1)
+    bout, bmask = FM.linear_stage(a.bfloat16(), w2, b2, rows.bfloat16(), seed, 0.1, 1)
+    _f32_ln_close(out, FM.linear_stage_reference(a, w2, b2, rows, plain_mask, torch.float32),
+                  bout, "linear")
+    assert torch.equal(out, again) and torch.equal(mask, plain_mask) and torch.equal(mask, bmask)
+    mapped = (n, b, 4 * b, b)  # this rank's samples are samples b.. of a global batch of 4 b
+    _, m32 = FM.linear_stage(a, w2, b2, rows, seed, 0.1, 1, mapped)
+    _, m16 = FM.linear_stage(a.bfloat16(), w2, b2, rows.bfloat16(), seed, 0.1, 1, mapped)
+    assert torch.equal(m32, m16) and torch.equal(m32, FB.row_mask(seed, 1, (m, e), 0.1, mapped))
+    qkv = FB.ln_qkv_forward(x, ln1s, ln1b, qkv_w, qkv_b.reshape(-1))
+    again = FB.ln_qkv_forward(x, ln1s, ln1b, qkv_w, qkv_b.reshape(-1), wide=True)
+    bqkv = FB.ln_qkv_forward(x.bfloat16(), ln1s, ln1b, qkv_w, qkv_b.reshape(-1))
+    _f32_ln_close(qkv, FB._ln_qkv_reference(x, ln1s, ln1b, qkv_w, qkv_b.reshape(-1)), bqkv, "qkv")
+    assert torch.equal(qkv, again)
+    f32_launches = {k: v for k, v in build.LAUNCHES.items() if v and k.endswith("_f32")}
+    assert f32_launches == {"ln_mlp_fc1_f32": 2, "ln_mlp_linear_f32": 3, "ln_qkv_fwd_f32": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", F32_LN_SHAPES, ids=F32_LN_IDS)
+def test_f32_megablock_forward_matches_plain_on_card(shape, rate, _full_f32):
+    """The megablock's f32 forward (LN1 -> qkv, the f32 flash forward into
+    (B, N, H*Dh), the out-projection and LN2 -> MLP stages) against the plain
+    block in full f32 within F32_RTOL * max(1, max|plain|), its masks
+    bit-equal to the plain Philox's, its residuals in f32, every launch an
+    f32 kernel's; bit-equal across two calls."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    x, _, params, seed = _mb_inputs(b, n, e, heads, hidden)
+    x, p = x.float(), FB._block_view(params)
+    build.reset_launches()
+    if rate == 0.0:
+        out = FB.fused_encoder_block(x, p, num_heads=heads)
+        again = FB.fused_encoder_block(x, p, num_heads=heads)
+        want = FB._block_reference(x, p, heads)
+    else:
+        out, res = FB.fused_encoder_block(x, p, num_heads=heads, rate=rate, seed=seed,
+                                          want_residuals=True)
+        again, _, _ = FB.fused_encoder_block(x, p, num_heads=heads, rate=rate, seed=seed)
+        assert all(t.dtype == torch.float32 for t in (res.x1, res.z1, res.ao, res.lse))
+        for i, mask in enumerate((res.m1, res.m2)):
+            assert torch.equal(mask, FB.dropout_mask(seed, i, x.shape, rate))
+        want = FB._block_reference_masked(x, p, res.m1, res.m2, heads)
+    assert _worst(out, want, own=False) <= F32_RTOL
+    assert torch.equal(out, again)
+    launched = {k for k, v in build.LAUNCHES.items() if v}
+    assert launched <= {"ln_qkv_fwd_f32", "flash_attn_fwd_f32[dot]", "ln_mlp_fc1_f32",
+                        "ln_mlp_linear_f32", "proj_ln_mlp_fwd", "ln_mlp_train_fwd"}
+    assert "ln_qkv_fwd_f32" in launched and "ln_mlp_fc1_f32" in launched
+
+
+@pytest.mark.cuda
+def test_f32_flash_forward_writes_the_megablock_layout_on_card(_full_f32):
+    """``out=`` in f32 (`dot`): the (B, N, H*Dh) rows bit-equal to the (B, H,
+    N, Dh) output transposed, the same LSE."""
+    _cuda_or_skip()
+    q, k, v, _ = _f32_inputs((2, 3, 257, 64))
+    attn = torch.empty(2, 257, 3 * 64, device="cuda")
+    o_bnhd, lse = A.flash_forward(q, k, v, 64.0, out=attn)
+    o, lse2 = A.flash_forward(q, k, v, 64.0)
+    torch.cuda.synchronize()
+    assert o_bnhd is attn
+    assert torch.equal(attn, o.transpose(1, 2).reshape(2, 257, 3 * 64)) and torch.equal(lse, lse2)

@@ -101,7 +101,8 @@ def test_fc1_stage_plain_versions_take_the_activation(activation):
 def test_fc1_entries_get_the_activation_id(monkeypatch, wide):
     """Each activation's id is the `act` argument of the fc1 entry (resident
     ln_mlp_fc1, wide ln_mlp_fc1_wide after ln_rows), every call with the
-    argument count of its C signature; the ids are the kernel's Act enum."""
+    argument count of its C signature; the ids are the kernels' Act enum
+    (csrc/common.cuh)."""
     calls = []
 
     def fake_entry(name):
@@ -112,7 +113,7 @@ def test_fc1_entries_get_the_activation_id(monkeypatch, wide):
         fn.__name__ = name
         return fn
 
-    monkeypatch.setattr(FM, "_bf16_rows", lambda t, what: t.contiguous())
+    monkeypatch.setattr(FM, "_kernel_rows", lambda t, what: t.contiguous())
     monkeypatch.setattr(build, "entry", fake_entry)
     monkeypatch.setattr(build, "stream_ptr", lambda device: None)
     x, ln_s, ln_b, w1, b1, _, _ = map(torch.from_numpy, _inputs(3))
@@ -122,7 +123,7 @@ def test_fc1_entries_get_the_activation_id(monkeypatch, wide):
         name, args = calls.pop()
         assert name == ("ln_mlp_fc1_wide" if wide else "ln_mlp_fc1")
         assert args[-2] == FM.ACT_ID[activation]
-    src = open(os.path.join(build.CSRC, "ln_mlp_fwd.cu")).read()
+    src = open(os.path.join(build.CSRC, "common.cuh")).read()  # shared by the bf16 and f32 fc1
     enum = re.search(r"enum Act : int \{([^}]*)\}", src).group(1)
     ids = {m.group(1).lower(): int(m.group(2)) for m in re.finditer(r"k(\w+) = (\d+)", enum)}
     assert ids == FM.ACT_ID

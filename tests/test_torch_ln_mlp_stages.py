@@ -276,7 +276,7 @@ def test_stage_wrappers_count_each_launch_and_no_refusal(monkeypatch, rate):
 
     monkeypatch.setattr(FM.build, "entry", entry)
     monkeypatch.setattr(FM.build, "stream_ptr", lambda dev: None)
-    monkeypatch.setattr(FM, "_bf16_rows", lambda t, what: t.contiguous())
+    monkeypatch.setattr(FM, "_kernel_rows", lambda t, what: t.contiguous())
     monkeypatch.setattr(FM.build, "LAUNCHES", {k: 0 for k in FM.build.LAUNCHES})
     rng = np.random.default_rng(3)
     a = torch.from_numpy(rng.standard_normal((34, 32), np.float32)).to(torch.bfloat16)
@@ -312,7 +312,7 @@ def test_wide_fc1_stage_launches_ln_rows_then_the_streamed_product(monkeypatch, 
 
     monkeypatch.setattr(FM.build, "entry", entry)
     monkeypatch.setattr(FM.build, "stream_ptr", lambda dev: None)
-    monkeypatch.setattr(FM, "_bf16_rows", lambda t, what: t.contiguous())
+    monkeypatch.setattr(FM, "_kernel_rows", lambda t, what: t.contiguous())
     monkeypatch.setattr(FM.build, "LAUNCHES", {k: 0 for k in FM.build.LAUNCHES})
     a = torch.zeros(34, e, dtype=torch.bfloat16)
     w1, b1, ln = torch.zeros(e, 2 * e), torch.zeros(2 * e), torch.ones(e)

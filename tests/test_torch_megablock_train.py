@@ -394,7 +394,7 @@ def test_megablock_bwd_from_a_jax_config_reaches_the_gate(monkeypatch):
     assert policy.get_policy()["megablock_bwd"] == "recompute"
     monkeypatch.setattr(FB, "on_cuda", lambda t: True)
     block = EncoderBlock(cfg.v2, None)
-    x = torch.empty(2, 1024, cfg.v2.embed_dim, device="meta")
+    x = torch.empty(2, 1024, cfg.v2.embed_dim, device="meta", dtype=torch.bfloat16)
     assert FB.megablock_route(block, x, cfg.v2, True, True) is None
     assert FB.maybe_megablock(block, x, cfg.v2, True, torch.Generator()) is None
     policy.set_policy(megablock_bwd="saved")

@@ -527,7 +527,7 @@ def test_megablock_training_gate_is_the_jax_decision(n, e, heads, hidden, dropou
     want = _jax_megablock_variant(n, e, heads, hidden, dropout, mode, bwd, monkeypatch)
     cfg = C.V2Config(embed_dim=e, num_heads=heads, mlp_ratio=hidden // e, dropout=dropout)
     block = EncoderBlock(cfg, None)
-    x = torch.empty(2, n, e, device="meta")
+    x = torch.empty(2, n, e, device="meta", dtype=torch.bfloat16)  # the JAX side's dtype
     policy.set_policy(mode="auto", megablock="auto", megablock_bwd=bwd)
     assert FB.maybe_megablock(block, x, cfg, train=True) is None  # not on CUDA
     monkeypatch.setattr(FB, "on_cuda", lambda t: True)

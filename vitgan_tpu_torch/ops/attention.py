@@ -164,12 +164,13 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 def kernel_dtype(what: str, *ts) -> torch.dtype:
     """The dtype the kernels run in for tensors ``ts``: bf16 or f32, one
     dtype for all (the TPU kernels compute in their input dtype).  Raises
-    TypeError for any other dtype or a mix."""
+    TypeError for any other dtype or a mix.  The flash and the LayerNorm
+    families' wrappers share it (fused_mlp.kernel_dtype)."""
     dtypes = {t.dtype for t in ts}
     if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
         raise TypeError(f"{what} takes bf16 or f32 tensors of one dtype, got "
-                        f"{[t.dtype for t in ts]}; other dtypes are ROADMAP.md queue 1 item 7 "
-                        "(or set runtime.use_pallas=never)")
+                        f"{[t.dtype for t in ts]}; f16, f64 and mixed dtypes have no kernel "
+                        "(ROADMAP.md queue 1 item 7; or set runtime.use_pallas=never)")
     return dtypes.pop()
 
 
@@ -202,9 +203,10 @@ def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
     contiguous CUDA tensors.
 
     Returns (o, lse): o (B, H, N, D), contiguous, and the f32 log-sum-exp (B,
-    H, N) of the ``score_mode`` scores.  bf16 `dot` only: with ``out`` given,
-    o is written there in the (B, N, H*D) layout instead (the megablock's
-    out-projection input; D a multiple of 8) and ``out`` is returned as o."""
+    H, N) of the ``score_mode`` scores.  `dot` only: with ``out`` given (in
+    q's dtype), o is written there in the (B, N, H*D) layout instead (the
+    megablock's out-projection input; D a multiple of 8) and ``out`` is
+    returned as o."""
     _check_mode(score_mode)
     if score_mode != "dot":
         _check_l2_width("flash_forward", q)
@@ -215,11 +217,12 @@ def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel takes contiguous q/k/v")
     b, h, n, d = q.shape
+    if out is not None and (out.shape != (b, n, h * d) or out.dtype != q.dtype
+                            or not out.is_contiguous() or d % 8):
+        raise ValueError(f"out must be a contiguous {q.dtype} ({b}, {n}, {h * d}) tensor, D a "
+                         "multiple of 8")
     if q.dtype == torch.float32:
-        if out is not None:
-            raise ValueError("flash_forward: out= (the megablock's (B, N, H*D) layout) is the "
-                             "bf16 `dot` forward's; the f32 kernel writes (B, H, N, D)")
-        return _flash_forward_f32(q, k, v, scale, score_mode)
+        return _flash_forward_f32(q, k, v, scale, score_mode, out)
     grid = 0
     if score_mode != "dot":
         grid = l2_grid(n, d, b * h, _sm_count(q.device.index or 0))
@@ -228,10 +231,6 @@ def flash_forward(q, k, v, scale: float, out: Optional[torch.Tensor] = None,
         q, k, v = _pad_head(q, k, v)
         o = torch.empty_like(q)
     else:
-        if out.shape != (b, n, h * d) or out.dtype != q.dtype or not out.is_contiguous() \
-                or d % 8:
-            raise ValueError(f"out must be a contiguous bf16 ({b}, {n}, {h * d}) tensor, D a "
-                             "multiple of 8")
         o = out
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     q, k, v = build.aligned16(q), build.aligned16(k), build.aligned16(v)
@@ -250,21 +249,23 @@ def _pad_head_f32(*ts):
     return ts if ts[0].shape[-1] % 4 == 0 else _pad_head(*ts)
 
 
-def _flash_forward_f32(q, k, v, scale: float, score_mode: str):
+def _flash_forward_f32(q, k, v, scale: float, score_mode: str, out=None):
     """csrc/flash_attn_fwd_f32.cu on checked f32 q, k, v, read where they lie
     at a head width that is a multiple of 4 (`l2`/`l2ref` take no other);
-    o is then contiguous."""
+    o is then contiguous, or ``out`` (checked: `dot`, (B, N, H*D), D a
+    multiple of 8) in the megablock's layout."""
     b, h, n, d = q.shape
-    q, k, v = _pad_head_f32(q, k, v)
-    o = torch.empty_like(q)
+    if out is None:
+        q, k, v = _pad_head_f32(q, k, v)
+    o = torch.empty_like(q) if out is None else out
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     q, k, v = build.aligned16(q), build.aligned16(k), build.aligned16(v)
     fn = build.entry("flash_attn_fwd_f32")
     build.check(fn, fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o), build.ptr(lse),
-                       b * h, n, q.shape[-1], 1.0 / math.sqrt(scale), MODE_ID[score_mode],
-                       build.stream_ptr(q.device)))
+                       b * h, n, q.shape[-1], 1.0 / math.sqrt(scale), MODE_ID[score_mode], h,
+                       int(out is not None), build.stream_ptr(q.device)))
     build.LAUNCHES[launch_key("flash_attn_fwd", score_mode, torch.float32)] += 1
-    return (o if o.shape[-1] == d else o[..., :d]), lse
+    return (o if out is not None or o.shape[-1] == d else o[..., :d]), lse
 
 
 # --- backward --------------------------------------------------------------

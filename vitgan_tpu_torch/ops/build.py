@@ -83,12 +83,20 @@ SIGNATURES = {
     # dy1, x, dx1, ln_s, ln_b, dx, y1, part, m, e, eps, stream
     "megablock_bwd_ln1_rows": [_P] * 8 + [_I] * 2 + [_F, _P],
     # The flash kernels in f32 (csrc/flash_f32.cuh), each entry its own source:
-    # q, k, v, o, lse, bh, n, d, inv_scale, mode, stream
-    "flash_attn_fwd_f32": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
+    # q, k, v, o, lse, bh, n, d, inv_scale, mode, heads, out_bnhd, stream
+    "flash_attn_fwd_f32": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _I, _P],
 }
-# The f32 backward entries take their bf16 entry's arguments (grid unread).
+# The f32 flash backward entries take their bf16 entry's arguments (grid
+# unread); so does the f32 linear stage.  The LayerNorm family's f32 forward
+# entries (csrc/ln_f32.cuh, each its own source) stream any E: they have no
+# wide variant.
 SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (
-    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_attn_bwd_fused")})
+    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_attn_bwd_fused", "ln_mlp_linear")})
+# The LayerNorm entries add the rows' (mean, rstd) scratch after the outputs:
+# a, ln_s, ln_b, w1, b1, h, z1, stats, m, e, hidden, eps, act, stream
+SIGNATURES["ln_mlp_fc1_f32"] = [_P] * 8 + [_I] * 3 + [_F, _I, _P]
+# x, ln_s, ln_b, w, bias, qkv, stats, batch, n, e, heads, dh, eps, stream
+SIGNATURES["ln_qkv_fwd_f32"] = [_P] * 7 + [_I] * 5 + [_F, _P]
 # The f32 flash entries, whose launches count by score mode only.
 F32_FLASH = ("flash_attn_fwd_f32", "flash_attn_bwd_fused_f32", "flash_attn_bwd_dq_f32",
              "flash_attn_bwd_dkv_f32")
@@ -118,7 +126,10 @@ SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 # and "megablock_bwd_ln1_rows" (no "megablock_bwd_ln1").  The flash kernels
 # count their `dot` launches under their name and the other score modes
 # apart, as "flash_attn_fwd[l2]"; the f32 kernels every mode apart, as
-# "flash_attn_fwd_f32[dot]" (ops/attention.launch_key).
+# "flash_attn_fwd_f32[dot]" (ops/attention.launch_key).  The LayerNorm
+# family's f32 entries count under their own names ("ln_mlp_fc1_f32",
+# "ln_mlp_linear_f32", "ln_qkv_fwd_f32"), and the three LN->MLP forms count
+# their f32 calls as their bf16 ones.
 LAUNCHES = {name: 0 for name in SIGNATURES if name not in F32_FLASH}
 LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0, megablock_bwd_mlp=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (

@@ -68,6 +68,18 @@ __device__ inline float gelu_grad(float z) {
          z * 0.39894228040143268f * __expf(-0.5f * z * z);
 }
 
+// fc1's activation, by the C entries' `act` (ops/fused_mlp.ACTIVATIONS): the
+// JAX `_ACTS` (vitgan_tpu/ops/fused_mlp.py:63-69) on the f32 pre-activation
+// (ln_mlp_fwd.cu and ln_f32.cuh).
+enum Act : int { kGelu = 0, kRelu = 1, kTanh = 2, kSigmoid = 3 };
+template <int ACT>
+__device__ inline float activate(float z) {
+  if constexpr (ACT == kGelu) return gelu(z);
+  else if constexpr (ACT == kRelu) return fmaxf(z, 0.f);
+  else if constexpr (ACT == kTanh) return tanhf(z);
+  else return 1.f / (1.f + __expf(-z));
+}
+
 // --- dropout bits: Philox4x32-10 (Salmon et al., SC'11) ---------------------
 // Counter-based: the 32 bits of element i of mask `id` are word i % 4 of
 // philox(counter (i / 4 low, i / 4 high, id, 0), key (seed low, seed high)), so

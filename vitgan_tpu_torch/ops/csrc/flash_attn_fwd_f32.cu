@@ -14,14 +14,16 @@
 
 // q, k, v: (bh, n, d) f32, contiguous, 16-byte aligned; d a multiple of 4,
 // 4 <= d <= 128 (zero-filled to 32, 64, 96 or 128 in shared memory only).
-// o: (bh, n, d) f32; lse: (bh, n) f32, the natural-log log-sum-exp of the
-// scores.  inv_scale multiplies q.k (`dot`) or the distance; mode 0 `dot`,
-// 1 `l2`, 2 `l2ref`.
+// o: (bh, n, d) f32, or with out_bnhd (bh / heads, n, heads * d), the
+// megablock's layout (`dot`, d a multiple of 8); lse: (bh, n) f32, the
+// natural-log log-sum-exp of the scores.  inv_scale multiplies q.k (`dot`)
+// or the distance; mode 0 `dot`, 1 `l2`, 2 `l2ref`.
 extern "C" int flash_attn_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int bh, int n, int d, float inv_scale, int mode,
-                                  void* stream) {
+                                  int heads, int out_bnhd, void* stream) {
   using namespace vk::f32;
-  if (!shape_ok(bh, n, d) || mode < vk::kDot || mode > vk::kL2Ref)
+  if (!shape_ok(bh, n, d) || mode < vk::kDot || mode > vk::kL2Ref || heads < 1 ||
+      (out_bnhd && (mode != vk::kDot || d % 8 || bh % heads)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ntiles = (n + TILE - 1) / TILE, stages = ntiles > 1 ? 2 : 1;
@@ -31,7 +33,7 @@ extern "C" int flash_attn_fwd_f32(const void* q, const void* k, const void* v, v
     constexpr int DP = decltype(dp)::value;
     const int floats = fwd_floats<DP>(stages);
     auto go = [&](auto kernel) {
-      return launch(kernel, grid, floats, s, q, k, v, o, lse, n, d, sl);
+      return launch(kernel, grid, floats, s, q, k, v, o, lse, n, d, sl, heads, out_bnhd);
     };
     switch (mode) {
       case vk::kDot: return go(flash_fwd_f32_kernel<DP, vk::kDot>);

@@ -214,12 +214,15 @@ constexpr int fwd_floats(int stages) {
   return (1 + 2 * stages) * Geo<DP>::FLOATS + TILE + 2 * TILE;
 }
 
-// O = softmax(S) V and LSE for 64 queries of one (batch*head) a block.
+// O = softmax(S) V and LSE for 64 queries of one (batch*head) a block.  O
+// goes to (bh, n, d), or with out_bnhd to (b, n, heads * d) (the megablock's
+// out-projection rows; bh = b heads + h).
 template <int DP, int MODE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int n, int d, float scale_log2) {
+                     float* __restrict__ lse, int n, int d, float scale_log2, int heads,
+                     int out_bnhd) {
   using G = Geo<DP>;
   constexpr int NJ = G::NJ;
   extern __shared__ float4 smem4[];
@@ -325,7 +328,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + m0 + g + 8 * h;
     if (row >= n) continue;
     const float lc = fmaxf(l[h], 1e-30f), inv_l = 1.f / lc;
-    float* orow = o + base + (long)row * d;
+    float* orow = out_bnhd ? o + (((long)(bh / heads) * n + row) * heads + bh % heads) * d
+                           : o + base + (long)row * d;
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
       const int col = 8 * i + 2 * t;  // d is a multiple of 4: col + 1 < d too

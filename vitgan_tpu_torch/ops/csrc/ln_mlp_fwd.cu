@@ -108,17 +108,6 @@ constexpr int ABOX = 64 * BM * 2;    // one 64-column box of a tile's A rows, by
 constexpr int BBOX = 64 * 64 * 2;    // one 64 (K) x 64 (N) box of B
 constexpr int MAXKB = 6;             // fc1's resident A boxes: E <= 384
 
-// fc1's activation, by the C entries' `act` (ops/fused_mlp.ACTIVATIONS): the
-// JAX `_ACTS` (vitgan_tpu/ops/fused_mlp.py:63-69) on the f32 pre-activation.
-enum Act : int { kGelu = 0, kRelu = 1, kTanh = 2, kSigmoid = 3 };
-template <int ACT>
-__device__ inline float activate(float z) {
-  if constexpr (ACT == kGelu) return gelu(z);
-  else if constexpr (ACT == kRelu) return fmaxf(z, 0.f);
-  else if constexpr (ACT == kTanh) return tanhf(z);
-  else return 1.f / (1.f + __expf(-z));
-}
-
 struct Params {
   int m, k, n;                 // rows, summed width, output width
   const float* bias;           // (n,)

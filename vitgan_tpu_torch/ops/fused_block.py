@@ -30,8 +30,15 @@ carry the JAX names (`encoder_block_fused[_dropout][_saved]`), and
 :func:`maybe_megablock` is the JAX gate, which under 'auto' also declines the
 widths that are not multiples of 8 (TMA's 16-byte strides).
 
+The forward takes bf16 or f32 (fused_mlp.kernel_dtype): f32 runs LN->qkv and
+the LN->MLP stages on csrc/ln_f32.cuh's kernels (ln_qkv_fwd_f32,
+ln_mlp_fc1_f32, ln_mlp_linear_f32) and attention on the f32 flash forward,
+written in the (B, N, H*Dh) layout; the saved-residual backward takes bf16
+alone (f32 is ROADMAP.md queue 1 item 7), and :func:`megablock_route` refuses
+an f32 block on that route.
+
 LN->qkv, the LN2 -> fc1 stage and the backward's dz1, dx1 and dao stages and
-LN1 half hold a tile's rows whole on chip, so they take E <= 384.  A wider
+LN1 half hold a tile's rows whole on chip, so they take E <= 384 in bf16.  A wider
 block (or ``wide=True``, which tests and chip_smoke.py set at any width)
 takes their wide variants: csrc/ln_rows.cuh's row kernels (LN(x), dmlp =
 g * m2, the LayerNorm backward after a product) beside products that stream
@@ -51,9 +58,11 @@ import torch
 import torch.nn.functional as F
 
 from vitgan_tpu_torch.ops import build, draws
-from vitgan_tpu_torch.ops.attention import (attention_forward_reference, attention_reference,
-                                            flash_backward, flash_forward)
-from vitgan_tpu_torch.ops.fused_mlp import _operands, _tf32_products, _width_error
+from vitgan_tpu_torch.ops.attention import (_entry_name, attention_forward_reference,
+                                            attention_reference, flash_backward, flash_forward,
+                                            kernel_dtype)
+from vitgan_tpu_torch.ops.fused_mlp import (_bf16_only, _on_card, _operands, _tf32_products,
+                                            _width_error)
 from vitgan_tpu_torch.ops.fused_mlp import _reference as mlp_reference
 from vitgan_tpu_torch.ops.fused_mlp import kernel_fits as mlp_kernel_fits
 from vitgan_tpu_torch.ops.fused_mlp import (linear_stage, linear_stage_reference, ln_fc1_stage,
@@ -101,11 +110,8 @@ def qkv_stage(y, qkv_w, qkv_b):
     """Launch ln_qkv_fwd.cu's wide qkv product on bf16 CUDA rows y = LN1(x)
     (B, N, E), streamed: the (3, B, H, N, Dh) bf16 q/k/v as
     :func:`qkv_stage_reference`."""
-    if not y.is_cuda:
-        raise ValueError("qkv_stage launches a CUDA kernel: y must be a CUDA tensor")
-    if y.dtype != torch.bfloat16:
-        raise TypeError(f"the qkv kernel takes bf16 rows, got {y.dtype}; other dtypes are "
-                        "ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+    _on_card("qkv_stage", y)
+    _bf16_only("qkv_stage", y)
     b, n, e = y.shape
     _, h, e_w, dh = qkv_w.shape
     if e_w != e:
@@ -125,33 +131,36 @@ def qkv_stage(y, qkv_w, qkv_b):
 
 
 def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5, wide: bool = False):
-    """Launch csrc/ln_qkv_fwd.cu on a bf16 CUDA x (B, N, E); returns the
-    (3, B, H, N, Dh) bf16 q/k/v.  E > 384 (or ``wide``) launches the wide
-    variant: fused_mlp.ln_rows, then :func:`qkv_stage`."""
-    if not x.is_cuda:
-        raise ValueError("ln_qkv_forward launches a CUDA kernel: x must be a CUDA tensor")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"LN->qkv kernel takes bf16 activations, got {x.dtype}; other dtypes "
-                        "are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+    """Launch LN1 -> qkv on a bf16 or f32 CUDA x (B, N, E); returns the
+    (3, B, H, N, Dh) q/k/v in x's dtype.  bf16 runs csrc/ln_qkv_fwd.cu, and
+    E > 384 (or ``wide``) its wide variant: fused_mlp.ln_rows, then
+    :func:`qkv_stage`.  f32 runs csrc/ln_qkv_fwd_f32.cu, whose x tiles
+    stream at every E: ``wide`` is accepted and does not apply."""
+    _on_card("ln_qkv_forward", x)
+    dt = kernel_dtype("LN->qkv kernel", x)
     b, n, e = x.shape
     _, h, e_w, dh = qkv_w.shape
     if e_w != e:
         raise ValueError(f"qkv weight width {e_w} does not fit E={e}")
     if dh % 8 or not mlp_kernel_fits(e, 0):
         raise _width_error("LN->qkv kernel", E=e, Dh=dh)
-    if wide_route(e, wide):
+    if dt == torch.bfloat16 and wide_route(e, wide):
         return qkv_stage(ln_rows(x.reshape(b * n, e), ln_scale, ln_bias, eps).reshape(b, n, e),
                          qkv_w, qkv_b)
     dev, f32 = x.device, torch.float32
     x2 = build.aligned16(x.contiguous())
-    w, bias, ln_s, ln_b = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
-                                    (qkv_b, f32), (ln_scale, f32), (ln_bias, f32))
-    out = torch.empty((3, b, h, n, dh), dtype=torch.bfloat16, device=dev)
-    fn = build.entry("ln_qkv_fwd")
+    w, bias, ln_s, ln_b = _operands(dev, (_qkv_weight(qkv_w, dt), dt), (qkv_b, f32),
+                                    (ln_scale, f32), (ln_bias, f32))
+    out = torch.empty((3, b, h, n, dh), dtype=dt, device=dev)
+    name = _entry_name("ln_qkv_fwd", dt)
+    fn = build.entry(name)
+    # f32: the rows' (mean, rstd), which the entry's first kernel writes
+    stats = torch.empty((b * n, 2), dtype=f32, device=dev) if dt == f32 else None
+    extra = [] if stats is None else [build.ptr(stats)]
     build.check(fn, fn(build.ptr(x2), build.ptr(ln_s), build.ptr(ln_b), build.ptr(w),
-                       build.ptr(bias), build.ptr(out), b, n, e, h, dh, float(eps),
+                       build.ptr(bias), build.ptr(out), *extra, b, n, e, h, dh, float(eps),
                        build.stream_ptr(dev)))
-    build.LAUNCHES["ln_qkv_fwd"] += 1
+    build.LAUNCHES[name] += 1
     return out
 
 
@@ -322,27 +331,26 @@ def _proj_ln_mlp_train_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2
 def _proj_ln_mlp_train_stages_reference(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2,
                                         seed, rate: float, eps: float = 1e-5):
     """The training form composed from the stage plain versions (fused_mlp),
-    with the kernels' bf16 roundings of x1 and h: (out, m1, m2, x1, z1) as
-    :func:`_proj_ln_mlp_train_reference`."""
+    with the kernels' roundings of x1 and h to x's dtype (bf16; none in
+    f32): (out, m1, m2, x1, z1) as :func:`_proj_ln_mlp_train_reference`."""
+    dt = x.dtype
     m1 = dropout_mask(seed, 0, x.shape, rate) if rate > 0.0 else None
-    x1 = linear_stage_reference(attn, wout, bout, x, m1)
-    h, z1 = ln_fc1_stage_reference(x1, ln_s, ln_b, w1, b1, eps)
+    x1 = linear_stage_reference(attn, wout, bout, x, m1, dt)
+    h, z1 = ln_fc1_stage_reference(x1, ln_s, ln_b, w1, b1, eps, dt)
     m2 = dropout_mask(seed, 1, x1.shape, rate) if rate > 0.0 else None
-    return linear_stage_reference(h, w2, b2, x1, m2), m1, m2, x1, z1
+    return linear_stage_reference(h, w2, b2, x1, m2, dt), m1, m2, x1, z1
 
 
 def ln_mlp_train_forward(x, attn, wout, bout, ln_s, ln_b, w1, b1, w2, b2, seed, rate: float,
                          eps: float = 1e-5, rows=None, wide: bool = False):
-    """Run ln_mlp_fwd.cu's training form on bf16 CUDA rows x (M, E), attn
-    (M, H*Dh): three launches (out-projection, LN2 -> fc1 -> GELU, fc2),
-    each counted by its stage, and one call of "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1)
-    as the plain version.  E > 384 (or ``wide``) takes the wide LN2 -> fc1
-    (fused_mlp.ln_fc1_stage), a launch more."""
-    if not (x.is_cuda and attn.is_cuda):
-        raise ValueError("ln_mlp_train_forward launches a CUDA kernel: x must be a CUDA tensor")
-    if x.dtype != torch.bfloat16 or attn.dtype != torch.bfloat16:
-        raise TypeError(f"LN->MLP kernel takes bf16 activations, got {x.dtype}; other dtypes "
-                        "are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+    """Run the training form of the LN->MLP stages on bf16 or f32 CUDA rows
+    x (M, E), attn (M, H*Dh): three launches (out-projection, LN2 -> fc1 ->
+    GELU, fc2), each counted by its stage, and one call of
+    "ln_mlp_train_fwd"; returns (out, m1, m2, x1, z1) as the plain version,
+    in x's dtype (masks f32).  In bf16, E > 384 (or ``wide``) takes the wide
+    LN2 -> fc1 (fused_mlp.ln_fc1_stage), a launch more."""
+    _on_card("ln_mlp_train_forward", x, attn)
+    kernel_dtype("LN->MLP kernel", x, attn)
     m, e = x.shape
     hidden, hd = w1.shape[-1], attn.shape[-1]
     if attn.shape[0] != m:
@@ -394,7 +402,7 @@ def fused_encoder_block(x, p, *, num_heads: int, eps: float = 1e-5, rate: float 
         if cpu:
             return _block_reference(x, p, num_heads, eps)
         qkv = ln_qkv_forward(x, p.ln1.scale, p.ln1.bias, p.msha.qkv, _qkv_bias(p), eps)
-        attn = torch.empty((b, n, h * dh), dtype=torch.bfloat16, device=x.device)
+        attn = torch.empty((b, n, h * dh), dtype=x.dtype, device=x.device)
         flash_forward(qkv[0], qkv[1], qkv[2], float(dh), out=attn)
         return ln_mlp_forward(x, p.ln2.scale, p.ln2.bias, p.fc1.w, p.fc1.b, p.fc2.w, p.fc2.b,
                               eps, attn=attn, wout=p.msha.out.w, bout=p.msha.out.b)
@@ -405,7 +413,7 @@ def fused_encoder_block(x, p, *, num_heads: int, eps: float = 1e-5, rate: float 
         mlp = _proj_ln_mlp_train_reference
     else:
         qkv = ln_qkv_forward(x, p.ln1.scale, p.ln1.bias, p.msha.qkv, _qkv_bias(p), eps)
-        ao = torch.empty((b, n, h * dh), dtype=torch.bfloat16, device=x.device)
+        ao = torch.empty((b, n, h * dh), dtype=x.dtype, device=x.device)
         _, lse = flash_forward(qkv[0], qkv[1], qkv[2], float(dh), out=ao)
         mlp = ln_mlp_train_forward
     out, m1, m2, x1, z1 = mlp(x.reshape(b * n, e), ao.reshape(b * n, h * dh), p.msha.out.w,
@@ -498,11 +506,12 @@ def _bwd_mlp_reference(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: i
 
 
 def _check_bwd(what: str, *ts) -> None:
-    if not all(t.is_cuda for t in ts):
-        raise ValueError(f"{what} launches a CUDA kernel: its tensors must be CUDA tensors")
+    _on_card(what, *ts)
     if not all(t.dtype == torch.bfloat16 for t in ts):
-        raise TypeError(f"{what} takes bf16 activations, got {[t.dtype for t in ts]}; other "
-                        "dtypes are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+        raise TypeError(f"{what} takes bf16 activations, got {[t.dtype for t in ts]}; the "
+                        "saved backward's f32 kernels (#8, wgrad_gemm) are ROADMAP.md queue 1 "
+                        "item 7 (or set runtime.megablock_bwd=recompute or "
+                        "runtime.use_pallas=never)")
 
 
 # --- the MLP half as csrc/megablock_bwd_mlp.cu's three stages --------------------
@@ -1038,6 +1047,12 @@ def encoder_block_fused_dropout_saved(x, p, seed, rate: float, num_heads: int,
 
 # --- the gate ------------------------------------------------------------------------
 
+SAVED_F32 = ("the megablock's saved-residual backward (runtime.megablock_bwd='saved', the "
+             "presets' default) has no f32 kernels yet: #8 (the MLP and LN1 halves, the wide "
+             "rows) and wgrad_gemm in f32 are ROADMAP.md queue 1 item 7.  To train in f32 set "
+             "runtime.megablock_bwd=recompute (under megablock=auto, the standard path) or "
+             "runtime.megablock=off")
+
 # The JAX package's scoped-VMEM budget of the megablock (fused_block.py:69,
 # its default 96 MB less 0.5 MB).  The training gate's clamps check against
 # it, so that the gate decides as the JAX package does; they mean nothing
@@ -1089,7 +1104,11 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
     and a real TPU).  'auto' also declines widths that are not multiples of
     8 (TMA's 16-byte strides; ROADMAP.md queue 1 item 7), as the LN->MLP
     gate does, and takes every other width: E > 384 runs the wide variants.
-    Under 'on' such widths raise in the launches."""
+    Under 'on' such widths raise in the launches.
+
+    A saved route for an f32 CUDA x raises TypeError (:data:`SAVED_F32`)
+    before any launch: the JAX gate takes the saved megablock there, and the
+    port has no f32 saved backward yet, so no f32 block is sent elsewhere."""
     mode = megablock_mode()
     if mode == "off":
         return None
@@ -1112,9 +1131,11 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
         if ((train and not saved) or not 128 <= n <= 1056 or not fits or not has_variant
                 or not on_cuda(x)):
             return None
+    if drop and (not has_generator or not on_cuda(x)):
+        return None
+    if saved and x.dtype == torch.float32 and on_cuda(x):
+        raise TypeError(SAVED_F32)
     if drop:
-        if not has_generator or not on_cuda(x):
-            return None
         return "encoder_block_fused_dropout_saved" if saved else "encoder_block_fused_dropout"
     return "encoder_block_fused_saved" if saved else "encoder_block_fused"
 

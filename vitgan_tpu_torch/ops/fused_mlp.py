@@ -6,8 +6,9 @@ Counterpart of vitgan_tpu/ops/fused_mlp.py.  ``fused_ln_mlp`` is a
 tensors and takes ``_reference`` on CPU tensors; its backward is autograd of
 ``_reference`` on the saved inputs, the JAX package's own recompute VJP
 (fused_mlp.py:174-190), and so differentiates twice as the JAX one does.  On the card its f32 products run in TF32 (10
-mantissa bits, where the forward kernel's bf16 operands keep 7): in full f32
-they took 58% of a highres128 train step (PERF.md).
+mantissa bits, where the forward kernel's bf16 operands keep 7, and the f32
+forward kernel's TF32 operands as many): in full f32 they took 58% of a
+highres128 train step (PERF.md).
 
 The forward is a chain of two wgmma GEMM stages (:func:`ln_fc1_stage`:
 LayerNorm prologue, activation epilogue; :func:`linear_stage`: bias, optional
@@ -23,6 +24,13 @@ takes E <= 384 (:data:`RESIDENT_WIDTH`).  A wider E (or ``wide=True``) takes
 the wide variant: :func:`ln_rows` writes LN(x) in bf16 with the resident
 kernel's statistics, then :func:`fc1_stage` streams those rows through the
 same product and epilogue.  Every width that is a multiple of 8 has a kernel.
+
+The stages take bf16 or f32 activations (:func:`kernel_dtype`), as the TPU
+kernel computes in its input dtype.  f32 calls launch csrc/ln_f32.cuh's
+kernels (csrc/ln_mlp_fc1_f32.cu, csrc/ln_mlp_linear_f32.cu: TF32 products,
+f32 LayerNorm, epilogues and outputs), counted as "ln_mlp_fc1_f32" and
+"ln_mlp_linear_f32"; their A tiles stream, so one kernel takes every E and
+``wide`` does not apply to them.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from vitgan_tpu_torch.ops import build
+from vitgan_tpu_torch.ops.attention import _entry_name, kernel_dtype
 from vitgan_tpu_torch.ops.policy import _POLICY, on_cuda, recomputing, sequence_parallel_active
 
 # ln_mlp_fwd.cu's fc1 stage holds a 128-row tile of the LayerNorm input whole
@@ -97,21 +106,23 @@ def _reference(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gelu",
 # --- the two stages of csrc/ln_mlp_fwd.cu, and their plain versions --------------
 
 
-def linear_stage_reference(a, w, bias, res=None, mask=None):
-    """Plain linear stage: [res +] [mask *] (a . w + bias) in f32, bf16 out."""
+def linear_stage_reference(a, w, bias, res=None, mask=None,
+                           dtype: torch.dtype = torch.bfloat16):
+    """Plain linear stage: [res +] [mask *] (a . w + bias) in f32, ``dtype``
+    out (the kernel's: bf16, or f32 for the f32 kernel)."""
     v = a.float() @ w.float() + bias.float()
     if mask is not None:
         v = v * mask
     if res is not None:
         v = v + res.float()
-    return v.to(torch.bfloat16)
+    return v.to(dtype)
 
 
 def ln_fc1_stage_reference(a, ln_s, ln_b, w1, b1, eps: float = 1e-5,
                            dtype: torch.dtype = torch.bfloat16, activation: str = "gelu"):
-    """Plain LN -> fc1 -> act stage: (h, z1) in ``dtype`` (the kernel's bf16;
-    f32 to hold the wide variant's plain versions to it), z1 = LN(a) . w1 +
-    b1 and h = act(z1) formed in f32."""
+    """Plain LN -> fc1 -> act stage: (h, z1) in ``dtype`` (the bf16 kernel's,
+    or f32: the f32 kernel's, and the scale the wide variant's plain versions
+    are held to), z1 = LN(a) . w1 + b1 and h = act(z1) formed in f32."""
     af = a.float()
     mean = af.mean(-1, keepdim=True)
     var = ((af - mean) ** 2).mean(-1, keepdim=True)
@@ -139,42 +150,61 @@ def fc1_stage_reference(y, w1, b1, dtype: torch.dtype = torch.bfloat16,
 
 
 def ln_mlp_stages_reference(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
-                            residual: bool = True, attn=None, wout=None, bout=None):
+                            residual: bool = True, attn=None, wout=None, bout=None,
+                            dtype: torch.dtype = torch.bfloat16, activation: str = "gelu"):
     """The plain LN->MLP (or, with ``attn``, the megablock's serving form)
-    composed from the stage plain versions, with the kernels' bf16 roundings
-    of x1 and h: rows (M, E) -> (M, E) bf16."""
+    composed from the stage plain versions, with the kernels' roundings of x1
+    and h to ``dtype`` (bf16; none in f32): rows (M, E) -> (M, E) ``dtype``."""
     if attn is not None:
-        x = linear_stage_reference(attn, wout, bout, x)
-    h, _ = ln_fc1_stage_reference(x, ln_s, ln_b, w1, b1, eps)
-    return linear_stage_reference(h, w2, b2, x if residual or attn is not None else None)
+        x = linear_stage_reference(attn, wout, bout, x, dtype=dtype)
+    h, _ = ln_fc1_stage_reference(x, ln_s, ln_b, w1, b1, eps, dtype, activation)
+    return linear_stage_reference(h, w2, b2, x if residual or attn is not None else None,
+                                  dtype=dtype)
 
 
-def _bf16_rows(t, what: str):
-    if not t.is_cuda:
+def _on_card(what: str, *ts) -> None:
+    """The kernels have no other device: raise unless every tensor is CUDA."""
+    if not all(t.is_cuda for t in ts):
         raise ValueError(f"{what} launches a CUDA kernel: its tensors must be CUDA tensors")
-    if t.dtype != torch.bfloat16 or t.dim() != 2:
-        raise TypeError(f"{what} takes 2-D bf16 activations, got {t.dtype} {tuple(t.shape)}; "
-                        "other dtypes are ROADMAP.md queue 1 item 7 (or set "
-                        "runtime.use_pallas=never)")
+
+
+def _kernel_rows(t, what: str):
+    _on_card(what, t)
+    if t.dim() != 2:
+        raise ValueError(f"{what} takes 2-D rows, got {tuple(t.shape)}")
     return build.aligned16(t.contiguous())
 
 
+def _bf16_only(what: str, t) -> None:
+    """The wide bf16 route's own launches (the LN rows, the streamed fc1 and
+    qkv products) take bf16 alone: the f32 stages stream every E in one
+    kernel and have no such launch."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{what} is a launch of the wide bf16 route and takes bf16 rows, got "
+                        f"{t.dtype}; the f32 LayerNorm stages stream every E in one kernel "
+                        "(ln_fc1_stage, fused_block.ln_qkv_forward)")
+
+
 def _operands(dev, *pairs):
-    """Weights in bf16 and LN parameters, biases and masks in f32 on ``dev``,
-    as the kernels read them (16-byte aligned); None stays None."""
+    """Each tensor in its dtype on ``dev``, as the kernels read them (16-byte
+    aligned): weights in the activations' dtype, LN parameters, biases and
+    masks in f32; None stays None."""
     return [None if t is None else build.aligned16(t.to(device=dev, dtype=dt).contiguous())
             for t, dt in pairs]
 
 
 def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: int = 0,
                  rows=None):
-    """Launch ln_mlp_fwd.cu's linear stage on bf16 CUDA rows a (M, K), w (K,
-    N): (out, mask) with out = [res +] [mask *] (a . w + bias) bf16 (M, N)
-    and, for ``rate > 0``, the f32 multiply-mask of Philox stream ``mask_id``
-    drawn from the one-element int64 ``seed`` (else None).  ``rows``
-    (rows a sample, local batch, global batch, first sample) keys the mask's
-    rows by their place in the global batch (fused_block.mask_rows)."""
-    a = _bf16_rows(a, "linear_stage")
+    """Launch the linear stage on bf16 or f32 CUDA rows a (M, K), w (K, N)
+    (ln_mlp_fwd.cu's, or ln_mlp_linear_f32.cu's in f32): (out, mask) with
+    out = [res +] [mask *] (a . w + bias) (M, N) in a's dtype and, for
+    ``rate > 0``, the f32 multiply-mask of Philox stream ``mask_id`` drawn
+    from the one-element int64 ``seed`` (else None), the same bits in either
+    dtype.  ``rows`` (rows a sample, local batch, global batch, first
+    sample) keys the mask's rows by their place in the global batch
+    (fused_block.mask_rows)."""
+    a = _kernel_rows(a, "linear_stage")
+    dt = kernel_dtype("linear_stage", *(t for t in (a, res) if t is not None))
     m, k = a.shape
     n = w.shape[-1]
     if w.shape != (k, n) or k % 8 or n % 8:
@@ -182,7 +212,7 @@ def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: in
                          f"{tuple(a.shape)}, w {tuple(w.shape)}")
     dev = a.device
     if res is not None:
-        res = _bf16_rows(res, "linear_stage")
+        res = _kernel_rows(res, "linear_stage")
         if res.shape != (m, n):
             raise ValueError(f"residual {tuple(res.shape)} does not fit ({m}, {n})")
     mask = None
@@ -192,15 +222,16 @@ def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: in
         mask = torch.empty((m, n), dtype=torch.float32, device=dev)
     # every operand bound to a name until the launch: a temporary freed
     # earlier could hand its memory to the next one
-    wb, biasf = _operands(dev, (w, torch.bfloat16), (bias, torch.float32))
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    fn = build.entry("ln_mlp_linear")
-    build.check(fn, fn(build.ptr(a), build.ptr(wb), build.ptr(biasf), build.ptr(res),
+    wk, biasf = _operands(dev, (w, dt), (bias, torch.float32))
+    out = torch.empty((m, n), dtype=dt, device=dev)
+    name = _entry_name("ln_mlp_linear", dt)
+    fn = build.entry(name)
+    build.check(fn, fn(build.ptr(a), build.ptr(wk), build.ptr(biasf), build.ptr(res),
                        build.ptr(seed if mask is not None else None), build.ptr(out),
                        build.ptr(mask), m, k, n, mask_id, threshold(rate),
                        float(1.0 / (1.0 - rate)), *(rows or (1, 1, 1, 0)),
                        build.stream_ptr(dev)))
-    build.LAUNCHES["ln_mlp_linear"] += 1
+    build.LAUNCHES[name] += 1
     return out, mask
 
 
@@ -208,7 +239,8 @@ def ln_rows(x, ln_s, ln_b, eps: float = 1e-5):
     """Launch csrc/ln_rows.cuh's LayerNorm rows (in ln_mlp_fwd's library) on
     bf16 CUDA rows x (M, E), E a multiple of 8: y = LN(x) bf16 (M, E), the
     statistics in the resident kernels' order."""
-    x = _bf16_rows(x, "ln_rows")
+    x = _kernel_rows(x, "ln_rows")
+    _bf16_only("ln_rows", x)
     m, e = x.shape
     if e % 8:
         raise _width_error("ln_rows", E=e)
@@ -227,7 +259,8 @@ def fc1_stage(y, w1, b1, want_z1: bool = False, activation: str = "gelu"):
     E), streamed: (h, z1) bf16 (M, hidden) as :func:`fc1_stage_reference`,
     z1 None unless ``want_z1``."""
     _act(activation)
-    y = _bf16_rows(y, "fc1_stage")
+    y = _kernel_rows(y, "fc1_stage")
+    _bf16_only("fc1_stage", y)
     m, e = y.shape
     hidden = w1.shape[-1]
     if w1.shape != (e, hidden):
@@ -248,12 +281,15 @@ def fc1_stage(y, w1, b1, want_z1: bool = False, activation: str = "gelu"):
 
 def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False,
                  wide: bool = False, activation: str = "gelu"):
-    """Launch ln_mlp_fwd.cu's LN -> fc1 -> act stage on bf16 CUDA rows a (M,
-    E): (h, z1) bf16 (M, hidden), z1 None unless ``want_z1``.  E > 384 (or
-    ``wide``) launches the wide variant, :func:`ln_rows` then
-    :func:`fc1_stage`."""
+    """Launch the LN -> fc1 -> act stage on bf16 or f32 CUDA rows a (M, E):
+    (h, z1) (M, hidden) in a's dtype, z1 None unless ``want_z1``.  bf16 runs
+    ln_mlp_fwd.cu's stage, and E > 384 (or ``wide``) its wide variant,
+    :func:`ln_rows` then :func:`fc1_stage`.  f32 runs ln_mlp_fc1_f32.cu,
+    whose A tiles stream at every E: ``wide`` is accepted and does not
+    apply."""
     _act(activation)
-    a = _bf16_rows(a, "ln_fc1_stage")
+    a = _kernel_rows(a, "ln_fc1_stage")
+    dt = kernel_dtype("ln_fc1_stage", a)
     m, e = a.shape
     hidden = w1.shape[-1]
     if w1.shape != (e, hidden):
@@ -261,19 +297,22 @@ def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False
                          f"{tuple(w1.shape)}")
     if not kernel_fits(e, hidden):
         raise _width_error("ln_fc1_stage", E=e, hidden=hidden)
-    if wide_route(e, wide):
+    if dt == torch.bfloat16 and wide_route(e, wide):
         return fc1_stage(ln_rows(a, ln_s, ln_b, eps), w1, b1, want_z1, activation)
     dev = a.device
     f32 = torch.float32
-    w1b, ln_sf, ln_bf, b1f = _operands(dev, (w1, torch.bfloat16), (ln_s, f32), (ln_b, f32),
-                                       (b1, f32))
-    h = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
+    w1k, ln_sf, ln_bf, b1f = _operands(dev, (w1, dt), (ln_s, f32), (ln_b, f32), (b1, f32))
+    h = torch.empty((m, hidden), dtype=dt, device=dev)
     z1 = torch.empty_like(h) if want_z1 else None
-    fn = build.entry("ln_mlp_fc1")
-    build.check(fn, fn(build.ptr(a), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(w1b),
-                       build.ptr(b1f), build.ptr(h), build.ptr(z1), m, e, hidden, float(eps),
-                       ACT_ID[activation], build.stream_ptr(dev)))
-    build.LAUNCHES["ln_mlp_fc1"] += 1
+    name = _entry_name("ln_mlp_fc1", dt)
+    fn = build.entry(name)
+    # f32: the rows' (mean, rstd), which the entry's first kernel writes
+    stats = torch.empty((m, 2), dtype=f32, device=dev) if dt == f32 else None
+    extra = [] if stats is None else [build.ptr(stats)]
+    build.check(fn, fn(build.ptr(a), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(w1k),
+                       build.ptr(b1f), build.ptr(h), build.ptr(z1), *extra, m, e, hidden,
+                       float(eps), ACT_ID[activation], build.stream_ptr(dev)))
+    build.LAUNCHES[name] += 1
     return h, z1
 
 
@@ -281,21 +320,19 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
                    residual: bool = True, attn: Optional[torch.Tensor] = None,
                    wout: Optional[torch.Tensor] = None, bout: Optional[torch.Tensor] = None,
                    activation: str = "gelu"):
-    """Run the LN->MLP stages on a bf16 CUDA x (..., E): two launches (fc1,
-    then fc2, each counted by its stage), and one call of "ln_mlp_fwd".
-    E > 384 takes the wide LN -> fc1 variant (:func:`ln_fc1_stage`), a launch
-    more.
+    """Run the LN->MLP stages on a bf16 or f32 CUDA x (..., E): two launches
+    (fc1, then fc2, each counted by its stage), and one call of
+    "ln_mlp_fwd".  In bf16, E > 384 takes the wide LN -> fc1 variant
+    (:func:`ln_fc1_stage`), a launch more; f32 takes the f32 stages at every
+    E.
 
-    With ``attn`` (..., H*Dh) bf16, ``wout`` (H*Dh, E) and ``bout`` (E,), the
-    out-projection x1 = x + attn . wout + bout runs first (a third launch,
-    x1 kept in bf16) and the result is x1 + mlp(LN(x1)) (``residual`` is then
-    implied), counted as one call of "proj_ln_mlp_fwd".  ``activation`` is
-    fc1's (:data:`ACTIVATIONS`)."""
-    if not x.is_cuda:
-        raise ValueError("ln_mlp_forward launches a CUDA kernel: x must be a CUDA tensor")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"LN->MLP kernel takes bf16 activations, got {x.dtype}; other dtypes "
-                        "are ROADMAP.md queue 1 item 7 (or set runtime.use_pallas=never)")
+    With ``attn`` (..., H*Dh) in x's dtype, ``wout`` (H*Dh, E) and ``bout``
+    (E,), the out-projection x1 = x + attn . wout + bout runs first (a third
+    launch, x1 kept in x's dtype) and the result is x1 + mlp(LN(x1))
+    (``residual`` is then implied), counted as one call of
+    "proj_ln_mlp_fwd".  ``activation`` is fc1's (:data:`ACTIVATIONS`)."""
+    _on_card("ln_mlp_forward", x)
+    kernel_dtype("LN->MLP kernel", x, *([] if attn is None else [attn]))
     e = x.shape[-1]
     hidden = w1.shape[-1]
     hd = 0 if attn is None else attn.shape[-1]
@@ -306,9 +343,8 @@ def ln_mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
     rows = x.reshape(-1, e)
     m = rows.shape[0]
     if attn is not None:
-        if attn.dtype != torch.bfloat16 or attn.numel() != m * hd:
-            raise ValueError(f"attn must be bf16 with {m} rows, got {attn.dtype} "
-                             f"{tuple(attn.shape)}")
+        if attn.numel() != m * hd:
+            raise ValueError(f"attn must have {m} rows, got {tuple(attn.shape)}")
         if wout.shape != (hd, e):
             raise ValueError(f"wout {tuple(wout.shape)} does not fit ({hd}, {e})")
         rows, _ = linear_stage(attn.reshape(m, hd), wout, bout, rows)
@@ -389,10 +425,10 @@ def dispatch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "gel
     least ``min_mlp_rows`` rows and hidden >= 512 (the JAX package's TPU
     gate, not yet measured on the GPU) whose widths are multiples of 8
     (:func:`kernel_fits`: every such E has a kernel, E > 384 the wide
-    variant; other widths are ROADMAP.md queue 1 item 7).  'always' sends
-    every block to the kernel: a dtype or width it does not take raises in
-    :func:`ln_mlp_forward`, and so does a dtype under 'auto'; neither is sent
-    to the plain version."""
+    variant; other widths are ROADMAP.md queue 1 item 7), in bf16 or f32.
+    'always' sends every block to the kernel: a dtype or width it does not
+    take raises in :func:`ln_mlp_forward`, and so does a dtype (f16, f64)
+    under 'auto'; neither is sent to the plain version."""
     rows = x.numel() // x.shape[-1]
     mode = _POLICY["mode"]
     big_enough = rows >= _POLICY["min_mlp_rows"] and w1.shape[-1] >= 512

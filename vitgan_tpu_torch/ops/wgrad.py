@@ -87,8 +87,8 @@ def wgrad_gemm(a, b):
     if not (a.is_cuda and b.is_cuda):
         raise ValueError("wgrad_gemm launches a CUDA kernel: a and b must be CUDA tensors")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"wgrad_gemm takes bf16 operands, got {a.dtype}, {b.dtype}; other "
-                        "dtypes are ROADMAP.md queue 1 item 7")
+        raise TypeError(f"wgrad_gemm takes bf16 operands, got {a.dtype}, {b.dtype}; its f32 "
+                        "kernel (with #8's in f32) is ROADMAP.md queue 1 item 7")
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"wgrad_gemm: a {tuple(a.shape)} and b {tuple(b.shape)} must be 2-D "
                          "with the same rows")
