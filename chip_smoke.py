@@ -348,10 +348,27 @@
    on it with a full-f32 backward, on megablock=off and on the bf16-fed
    control against use_pallas=never in f32 within V2_F32_LOSS_TOL,
    V2_F32_NORM_RTOL and V2_F32_LEAF_RTOL (the control must miss one; the v1
-   f32 bounds' misses reported); the saved route's TypeError before any
-   launch; then, after [remat], highres256p4 at its preset in f32 on that
-   phase's trainer, P4_F32_STEPS captured steps on the standard path.  The f32
-   LayerNorm entries' `launches` in the JSON line are the highres128 fit's.
+   f32 bounds' misses reported); then, after [remat], highres256p4 at its
+   preset in f32 on that phase's trainer, P4_F32_STEPS captured steps on the
+   standard path.  The f32 LayerNorm entries' `launches` in the JSON line are
+   the highres128 recompute fit's.  Since the saved backward has f32 kernels
+   ([f32 bwd kernels]): highres128 at its preset with only
+   runtime.compute_dtype=float32 (megablock=auto, megablock_bwd=saved,
+   dropout 0.1, remat attn) through Trainer.fit, launches a step held to
+   V2_F32_KERNELS["saved"] (no bf16 kernel, no recompute backward), captured
+   against eager (bit-equal); deit64 at its preset in f32, one captured step;
+   the saved route and its bf16-fed backward control among the dropout-0
+   route steps.  The saved backward's f32 entries' `launches` in the JSON
+   line are the highres128 preset fit's.
+42. [f32 bwd kernels] (after [f32 ln kernels]): the saved backward's f32
+   entries (csrc/ln_bwd_f32.cuh's products: dz1 with h1, dy2 and dy1, dao
+   with delta, wgrad_gemm_f32; ln_rows.cuh's rows on f32: dmlp = g * m2, the
+   LN2 and LN1 backward) at highres128's G and D rows, deit64's ragged batch
+   and DeiT-B's G against their plain versions in full f32: each output
+   within F32_RTOL * max(1, max|plain|), at most half the bf16 kernel's
+   error on the same inputs, bit-equal across two calls; timed beside the
+   TF32 bound, the plain version and torch.matmul of the products in TF32
+   (SASS of the product sources: TF32 HMMA).
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -621,7 +638,7 @@ def _sass_counts(build) -> dict:
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
                     raise AssertionError(f"{func} holds no wgmma in its SASS")
-    for name in (*build.F32_FLASH, *F32_LN_KERNELS):  # mma.sync TF32: HMMA, no wgmma yet
+    for name in (*build.F32_FLASH, *F32_LN_KERNELS, *F32_BWD_PRODUCTS):  # mma.sync TF32
         sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         out[name] = {"HMMA": sass.count("HMMA"), "HMMA_TF32": sass.count("TF32")}
@@ -4052,6 +4069,198 @@ def check_f32_ln_kernels() -> dict:
     return out
 
 
+# --- the saved backward in f32 (csrc/ln_bwd_f32.cuh, ln_rows.cuh on f32) -----------------
+
+# (label, (B, N, E, heads, hidden)): highres128's G and D training rows,
+# deit64's ragged batch (E 192, 3 heads of 64) and DeiT-B's G (E 768).
+F32_BWD_SHAPES = (("highres128 G", (32, 1024, 384, 6, 1536)),
+                  ("highres128 D", (32, 1025, 384, 6, 1536)),
+                  ("deit64", (128, 257, 192, 3, 768)),
+                  ("DeiT-B G", (64, 256, 768, 12, 3072)))
+F32_BWD_MAIN = "highres128 G"  # each entry's main record: the megablock's G block
+# name: (source, the part of its CUDA symbols the profiler counts)
+F32_BWD_META = {
+    "megablock_bwd_mask_rows_f32": ("megablock_bwd_mask_rows_f32.cu", ("mask_rows_kernel",)),
+    "megablock_bwd_mlp_dz1_f32": ("megablock_bwd_mlp_dz1_f32.cu", ("dy_gemm_f32_kernel",)),
+    "megablock_bwd_dy_f32": ("megablock_bwd_dy_f32.cu", ("dy_gemm_f32_kernel",)),
+    "megablock_bwd_mlp_dx1_rows_f32": ("megablock_bwd_mlp_dx1_rows_f32.cu",
+                                       ("ln_bwd_rows_kernel",)),
+    "megablock_bwd_mlp_dao_f32": ("megablock_bwd_mlp_dao_f32.cu", ("dy_gemm_f32_kernel",)),
+    "megablock_bwd_ln1_rows_f32": ("megablock_bwd_ln1_rows_f32.cu", ("ln_bwd_rows_kernel",)),
+    "wgrad_gemm_f32": ("wgrad_gemm_f32.cu", ("wgrad_f32_kernel", "wgrad_reduce_kernel")),
+}
+# The sources whose kernels multiply on the tensor cores (TF32 HMMA in SASS).
+F32_BWD_PRODUCTS = ("megablock_bwd_mlp_dz1_f32", "megablock_bwd_dy_f32",
+                    "megablock_bwd_mlp_dao_f32", "wgrad_gemm_f32")
+
+
+def _f32_bwd_record(tag: str, name: str, label: str, kern, plain, library, flops: float,
+                    nbytes: float, iters: int, main: bool) -> dict:
+    """One f32 backward entry at one shape: ``kern(dtype)`` (the wrapper on
+    the inputs in that dtype) against ``plain()`` in full f32, each output
+    f32, within F32_RTOL * max(1, max|plain|) and at most half the bf16
+    kernel's error on the same inputs cast to bf16; bit-equal across two
+    calls; timed beside the plain version, the TF32 bound and ``library``
+    (torch.matmul of the product in TF32, or one PyTorch call of the same
+    function; None where there is none)."""
+    import torch
+
+    k32 = lambda: kern(torch.float32)  # noqa: E731
+    got, want, bgot = ((t,) if torch.is_tensor(t) else tuple(t) for t in (k32(), plain(),
+                                                                         kern(torch.bfloat16)))
+    errs, bf_errs = [], []
+    for i, (g_, w_, b_) in enumerate(zip(got, want, bgot)):
+        if g_.dtype != torch.float32:
+            raise AssertionError(f"{tag} {name} {label}: output {i} is {g_.dtype}")
+        err, bar = _rel_err(g_, w_, own=False)
+        bf_err, _ = _rel_err(b_, w_, own=False)
+        print(f"  {name} {label} out{i}: max_abs_err {err:.4g} (bar {F32_RTOL * bar:.4g}), "
+              f"the bf16 kernel's {bf_err:.4g}")
+        if not (err <= F32_RTOL * bar and err <= 0.5 * bf_err):
+            raise AssertionError(f"{tag} {name} {label} out{i}: disagrees with its plain "
+                                 "version, or not half the bf16 kernel's error")
+        errs.append(err)
+        bf_errs.append(bf_err)
+    del got, want, bgot
+    repeat = _repeat(k32, f"{name} {label}")
+    bound_ms, bound_by = _bound_f32(flops, nbytes)
+    rec = {"max_abs_err": max(errs), "max_abs_err_per_output": errs,
+           "bf16_max_abs_err_per_output": bf_errs, "repeat_max_abs_diff": repeat,
+           "ms": _time_ms(k32, iters), "plain_ms": _time_ms(plain, 3), "bound_ms": bound_ms,
+           "bound_by": bound_by, "flops": flops, "bytes": nbytes, "library_ms": None}
+    if library is not None:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            rec["library_ms"] = _time_ms(library, iters)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    if main:
+        rec["device_ms"], rec["other_device_ms"] = _device_ms(k32, iters, F32_BWD_META[name][1])
+    print(f"  {name} {label} {_smi()}: {rec['ms']:.4f} ms (device {rec.get('device_ms')}), "
+          f"bound {bound_ms:.4f} ms by {bound_by}, plain {rec['plain_ms']:.4f}, library "
+          f"{rec['library_ms']}")
+    return rec
+
+
+def check_f32_bwd_kernels() -> dict:
+    """[f32 bwd kernels]: the saved backward's f32 entries at F32_BWD_SHAPES
+    (the dmlp rows g * m2, dz1 with h1, dy2 = dz1 . w1^T, the dx1 rows, dao
+    with delta, the LN1 rows after dy1 = dqkv . wqkv^T, and wgrad_gemm_f32's
+    four products of a block) against their plain versions in full f32 by
+    _f32_bwd_record's bars, each timed beside its bound, its plain version
+    and torch.matmul of its products in TF32 (torch.mul for the dmlp rows).
+    dy1 is recorded beside dy2 under megablock_bwd_dy_f32, and the four
+    products under wgrad_gemm_f32, whose main numbers are a block's four
+    calls together.  Returns {entry: record at F32_BWD_MAIN, the other shapes
+    beside}."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import wgrad as WG
+
+    tag = "[f32 bwd kernels]"
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    out = {name: {} for name in F32_BWD_META}
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    for label, (b, n, e, heads, hidden) in F32_BWD_SHAPES:
+        m, dh, hd = b * n, e // heads, e
+        g, x, x1, ao, y1, y2, dx1 = (rn(m, e) for _ in range(7))
+        z1, dqkv = rn(m, hidden), rn(m, 3 * hd, scale=0.1)
+        m1, m2 = ((torch.rand((m, e), generator=gen, device="cuda") >= MB_RATE).float()
+                  / (1 - MB_RATE) for _ in range(2))
+        ln_s, ln_b = 1.0 + rn(e, scale=0.1), rn(e, scale=0.1)
+        w1, w2 = rn(e, hidden, scale=e ** -0.5), rn(hidden, e, scale=hidden ** -0.5)
+        wout, qkv_w = rn(hd, e, scale=hd ** -0.5), rn(3, heads, e, dh, scale=e ** -0.5)
+        wqkv = FB._qkv_weight(qkv_w, f32)
+        dmlp = FB.bwd_dmlp_rows_reference(g, m2, f32)
+        dz1, h1 = FB.bwd_dz1_stage_reference(dmlp, None, z1, w2, f32)[1:]
+        dy2, dy1 = FB.bwd_dy_reference(dz1, w1), FB.bwd_dy_reference(dqkv, wqkv)
+        da = FB.bwd_dx1_rows_reference(dy2, g, m1, x1, ln_s, ln_b, dtype=f32)[1]
+        part = -(-m // 64) * 2 * e * 4
+        print(f"{tag} {label}: {m} rows, E {e}, hidden {hidden}, {heads} heads of {dh}")
+        main, iters = label == F32_BWD_MAIN, 5 if m > 16384 else 10
+        # name: (the wrapper in a dtype, its plain version, the library call,
+        # flops, bytes each input read once and each output written once)
+        cases = {
+            "megablock_bwd_mask_rows_f32": (
+                lambda dt: FB.bwd_dmlp_rows(g.to(dt), m2),
+                lambda: FB.bwd_dmlp_rows_reference(g, m2, f32), lambda: torch.mul(g, m2),
+                0.0, 4.0 * 3 * m * e),
+            "megablock_bwd_mlp_dz1_f32": (
+                lambda dt: FB.bwd_dz1_stage(dmlp.to(dt), None, z1.to(dt), w2)[1:],
+                lambda: FB.bwd_dz1_stage_reference(dmlp, None, z1, w2, f32)[1:],
+                lambda: torch.matmul(dmlp, w2.t()),
+                2.0 * m * e * hidden, 4.0 * (m * e + 3 * m * hidden + hidden * e)),
+            "megablock_bwd_dy_f32": (
+                lambda dt: FB.bwd_dy(dz1.to(dt), w1), lambda: FB.bwd_dy_reference(dz1, w1),
+                lambda: torch.matmul(dz1, w1.t()),
+                2.0 * m * hidden * e, 4.0 * (m * hidden + e * hidden + m * e)),
+            "megablock_bwd_mlp_dx1_rows_f32": (
+                lambda dt: FB.bwd_dx1_rows(dy2, g.to(dt), m1, x1.to(dt), ln_s, ln_b),
+                lambda: FB.bwd_dx1_rows_reference(dy2, g, m1, x1, ln_s, ln_b, dtype=f32),
+                None, 0.0, 4.0 * (7 * m * e + 2 * e) + part),
+            "megablock_bwd_mlp_dao_f32": (
+                lambda dt: FB.bwd_dao_stage(da.to(dt), ao.to(dt), wout, b, n, heads),
+                lambda: FB.bwd_dao_stage_reference(da, ao, wout, b, n, heads, f32),
+                lambda: torch.matmul(da, wout.t()),
+                2.0 * m * e * hd, 4.0 * (m * e + 2 * m * hd + hd * e + b * heads * n)),
+            "megablock_bwd_ln1_rows_f32": (
+                lambda dt: FB.bwd_ln1_rows(dy1, x.to(dt), dx1, ln_s, ln_b),
+                lambda: FB.bwd_ln1_rows_reference(dy1, x, dx1, ln_s, ln_b),
+                None, 0.0, 4.0 * (5 * m * e + 2 * e) + part),
+        }
+        recs = {}
+        for name, (kern, plain, library, flops, nbytes) in cases.items():
+            recs[name] = _f32_bwd_record(tag, name, label, kern, plain, library, flops, nbytes,
+                                         iters, main)
+        # dy1 = dqkv . wqkv^T, the LN1 half's product, beside dy2
+        recs["megablock_bwd_dy_f32"]["dy1"] = _f32_bwd_record(
+            tag, "megablock_bwd_dy_f32", f"{label} dy1",
+            lambda dt: FB.bwd_dy(dqkv.to(dt), wqkv), lambda: FB.bwd_dy_reference(dqkv, wqkv),
+            lambda: torch.matmul(dqkv, wqkv.t()), 2.0 * m * 3 * hd * e,
+            4.0 * (m * 3 * hd + 3 * hd * e + m * e), iters, main)
+        # wgrad_gemm_f32: the four products of a block, and their sum
+        products = {}
+        for prod, (a, bb) in {"dW2": (h1, dmlp), "dW1": (y2, dz1), "dWout": (ao, da),
+                              "dWqkv": (y1, dqkv)}.items():
+            ka, nb = a.shape[1], bb.shape[1]
+            products[prod] = _f32_bwd_record(
+                tag, "wgrad_gemm_f32", f"{label} {prod}",
+                lambda dt, a=a, bb=bb: WG.wgrad_gemm(a.to(dt), bb.to(dt)),
+                lambda a=a, bb=bb: WG.wgrad_reference(a, bb),
+                lambda a=a, bb=bb: torch.matmul(a.t(), bb), 2.0 * m * ka * nb,
+                4.0 * (m * ka + m * nb + ka * nb + nb), iters, main)
+        flops = sum(r["flops"] for r in products.values())
+        nbytes = sum(r["bytes"] for r in products.values())
+        bound_ms, bound_by = _bound_f32(flops, nbytes)
+        recs["wgrad_gemm_f32"] = {
+            "max_abs_err": max(r["max_abs_err"] for r in products.values()),
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            **{k: sum(r[k] for r in products.values())
+               for k in ("ms", "plain_ms", "library_ms")},
+            "repeat_max_abs_diff": max(max(r["repeat_max_abs_diff"]) for r in products.values()),
+            "products": products, "what": "a block's four products together"}
+        if main:
+            recs["wgrad_gemm_f32"]["device_ms"] = sum(r["device_ms"] or 0.0
+                                                      for r in products.values())
+        print(f"  wgrad_gemm_f32 {label}, four products: {recs['wgrad_gemm_f32']['ms']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by}")
+        for name, rec in recs.items():
+            if main:
+                out[name].update({"shape": [b, n, e, heads, hidden], **rec})
+            else:
+                out[name][label.replace(" ", "_")] = {
+                    k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "repeat_max_abs_diff")}
+        del g, x, x1, ao, y1, y2, dx1, z1, dqkv, m1, m2, dmlp, dz1, h1, dy2, dy1, da, cases
+        torch.cuda.empty_cache()
+    return out
+
+
 # --- [v2 f32]: the v2 presets in f32 under `auto` ---------------------------------------
 
 V2_F32 = {"runtime.compute_dtype": "float32"}
@@ -4085,18 +4294,55 @@ V2_F32_KERNELS = {
            "flash_attn_bwd_dq_f32[dot]": 24, "flash_attn_bwd_dkv_f32[dot]": 24,
            "ln_mlp_fwd": 36, "ln_mlp_fc1_f32": 36, "ln_mlp_linear_f32": 36},
 }
-V2_F32_STEPS = 3  # run.steps_per_epoch of [v2 f32]'s highres128 fit
+# The saved backward's f32 launches in place of each bf16 launch of
+# TRAIN_KERNELS["auto"]: the MLP half's dx1 stage as dy2 and the dx1 rows,
+# the LN1 half as dy1 and the LN1 rows (no megablock_bwd_ln1 call counted).
+F32_BWD_OF = {"megablock_bwd_mlp_dz1": ("megablock_bwd_mlp_dz1_f32",),
+              "megablock_bwd_mlp_dx1": ("megablock_bwd_dy_f32",
+                                        "megablock_bwd_mlp_dx1_rows_f32"),
+              "megablock_bwd_mlp_dao": ("megablock_bwd_mlp_dao_f32",),
+              "megablock_bwd_ln1": ("megablock_bwd_dy_f32", "megablock_bwd_ln1_rows_f32"),
+              "wgrad_gemm": ("wgrad_gemm_f32",)}
+
+
+def saved_f32_kernels(remat, dropout: bool) -> dict:
+    """Launches a highres128 step in f32 on the saved route (megablock=auto,
+    megablock_bwd=saved): train_kernels('auto', remat) with each bf16 launch
+    replaced by its f32 launches, and with dropout the dmlp rows once a
+    block backward."""
+    per = {}
+    for k, v in train_kernels("auto", remat).items():
+        for name in F32_BWD_OF.get(k, (F32_OF.get(k, k),)):
+            per[name] = per.get(name, 0) + v
+    if dropout:
+        per["megablock_bwd_mask_rows_f32"] = per["megablock_bwd_mlp"]
+    return per
+
+
+V2_F32_KERNELS["saved"] = saved_f32_kernels("attn", True)  # the preset: remat attn, dropout 0.1
+V2_F32_KERNELS["saved_dropout0"] = saved_f32_kernels("never", False)  # [v2 f32 routes]
+# deit64 at its preset (remat never, dropout 0.1): the same blocks, the flash
+# backward the single pass at 256 and 257 tokens in f32
+V2_F32_KERNELS["deit64"] = {
+    **{k: v for k, v in saved_f32_kernels("never", True).items() if "attn_bwd" not in k},
+    "flash_attn_bwd_fused_f32[dot]": 36}
+V2_F32_STEPS = 3  # run.steps_per_epoch of [v2 f32]'s highres128 fits
 P4_F32_STEPS = 2  # captured highres256p4 steps a call (at most P4_STEPS)
-# The bf16 LayerNorm and flash launches, none of which an f32 run may make.
-BF16_LN_FLASH = ("ln_qkv_fwd", "ln_qkv_fwd_wide", "ln_mlp_fc1", "ln_mlp_fc1_wide",
-                 "ln_mlp_linear", "ln_rows", "flash_attn_fwd", "flash_attn_bwd_fused",
-                 "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# The bf16 LayerNorm, flash and megablock-backward launches, none of which an
+# f32 run may make.
+BF16_KERNELS = ("ln_qkv_fwd", "ln_qkv_fwd_wide", "ln_mlp_fc1", "ln_mlp_fc1_wide",
+                "ln_mlp_linear", "ln_rows", "flash_attn_fwd", "flash_attn_bwd_fused",
+                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", *MB_MLP_STAGES, "megablock_bwd_ln1",
+                "megablock_bwd_mask_rows", "megablock_bwd_mlp_dz1_wide", "megablock_bwd_dy",
+                "megablock_bwd_mlp_dx1_rows", "megablock_bwd_mlp_dao_wide",
+                "megablock_bwd_ln1_rows", "wgrad_gemm")
 
 
 def _no_bf16_launch(tag: str, launches: dict) -> None:
-    bf16 = {k: v for k, v in launches.items() if v and k in BF16_LN_FLASH}
+    bf16 = {k: v for k, v in launches.items() if v and k in BF16_KERNELS}
     if bf16:
-        raise AssertionError(f"{tag} bf16 LayerNorm or flash kernels launched in f32: {bf16}")
+        raise AssertionError(f"{tag} bf16 LayerNorm, flash or megablock-backward kernels "
+                             f"launched in f32: {bf16}")
 
 
 def _serve_f32(tag: str, cfg, run_dir: str, calls: int = 3, write: bool = True) -> dict:
@@ -4221,6 +4467,34 @@ def _bf16_ln_control():
 
 
 F32_LN_CONTROL = "bf16_ln_control"
+
+
+def _bf16_bwd_control():
+    """The saved route's control: the backward's launches (the MLP half, the
+    LN1 half, the weight gradients) on their activations rounded to bf16
+    (the bf16 kernels), their outputs returned in f32.  {(module, name):
+    wrapper} to patch in."""
+    from vitgan_tpu_torch.ops import fused_block as FB
+
+    mlp, ln1, wgrad = FB.megablock_bwd_mlp, FB.megablock_bwd_ln1, FB.wgrad
+
+    def mlp_bf16(g, m1, m2, x1, z1, ao, *rest, **kw):
+        out = mlp(g.bfloat16(), m1, m2, x1.bfloat16(), z1.bfloat16(), ao.bfloat16(), *rest, **kw)
+        return FB.BwdMlp(*(t.float() for t in out))
+
+    def ln1_bf16(dqkv, qkv_w, x, dx1, *rest, **kw):
+        dx, y1, part = ln1(dqkv.bfloat16(), qkv_w, x.bfloat16(), dx1, *rest, **kw)
+        return dx.float(), y1.float(), part
+
+    def wgrad_bf16(a, b):
+        return wgrad(a.bfloat16(), b.bfloat16())
+
+    return {(FB, "megablock_bwd_mlp"): mlp_bf16, (FB, "megablock_bwd_ln1"): ln1_bf16,
+            (FB, "wgrad"): wgrad_bf16}
+
+
+F32_BWD_CONTROL = "bf16_bwd_control"
+SAVED_ROUTE = "megablock_saved"
 # [v2 f32 routes]: one f32 highres128 step at depth 12 against use_pallas=never
 # in full f32.  Every product of a kernel route runs TF32 (the forward kernels,
 # the f32 flash kernels, the recompute Functions' backward) through 12 blocks of
@@ -4236,7 +4510,9 @@ V2_F32_LOSS_TOL, V2_F32_NORM_RTOL, V2_F32_LEAF_RTOL = 5e-4, 5e-3, 1e-2
 # recompute Functions' products kept out of TF32): what the f32 forward
 # kernels move, apart from the shipped route's TF32 backward.
 F32_BWD_ROUTE = "megablock_on_recompute_f32_bwd"
-V2_F32_ROUTES = ("megablock_on_recompute", F32_BWD_ROUTE, "megablock_off", F32_LN_CONTROL)
+V2_F32_ROUTES = ("megablock_on_recompute", F32_BWD_ROUTE, "megablock_off", SAVED_ROUTE,
+                 F32_LN_CONTROL, F32_BWD_CONTROL)
+V2_F32_CONTROLS = (F32_LN_CONTROL, F32_BWD_CONTROL)
 
 
 def _full_f32_backward():
@@ -4261,15 +4537,17 @@ def compare_v2_f32_routes() -> dict:
     behind it, its products in TF32 as the recompute Functions take them),
     on F32_BWD_ROUTE (the same with that backward in full f32), on
     megablock=off (#1's f32 stages and the f32 flash kernels in every
-    block), on the control F32_LN_CONTROL (the megablock route with its
-    LayerNorm launches fed bf16 copies) and on use_pallas=never.  Each route
+    block), on SAVED_ROUTE (megablock=auto with the saved backward: the f32
+    forward and the saved backward's f32 kernels in every block), on the
+    controls F32_LN_CONTROL (the recompute route with its LayerNorm launches
+    fed bf16 copies) and F32_BWD_CONTROL (the saved route with its
+    backward's launches fed bf16 copies) and on use_pallas=never.  Each route
     is compared with the plain one: losses against V2_F32_LOSS_TOL, gradient
     norms against V2_F32_NORM_RTOL, every leaf's max|d| / max|plain leaf|
-    against V2_F32_LEAF_RTOL; the kernel routes must meet the bounds, the
+    against V2_F32_LEAF_RTOL; the kernel routes must meet the bounds, each
     control must miss one.  What each route misses of the v1 f32 bounds
     (F32_LOSS_TOL, ...) is reported beside.  Launches are held to
-    V2_F32_KERNELS (f32 kernels only), the plain route's to none.
-    Then the saved route's refusal on the same state (_saved_f32_refusal)."""
+    V2_F32_KERNELS (f32 kernels only), the plain route's to none."""
     import torch
 
     from vitgan_tpu_torch import config as C
@@ -4295,12 +4573,15 @@ def compare_v2_f32_routes() -> dict:
     # remat never on every route (remat's steps are bit-equal to never's)
     on = dict(mode="auto", megablock="on", megablock_bwd="recompute", remat="never")
     off = dict(mode="auto", megablock="off", megablock_bwd="saved", remat="never")
+    saved_route = dict(mode="auto", megablock="auto", megablock_bwd="saved", remat="never")
     plain = dict(mode="never", megablock="auto", megablock_bwd="saved", remat="never")
     launches_on = V2_F32_KERNELS["on_dropout0"]
     routes = (("megablock_on_recompute", on, launches_on, dict),
               (F32_BWD_ROUTE, on, launches_on, _full_f32_backward),
               ("megablock_off", off, V2_F32_KERNELS["off"], dict),
+              (SAVED_ROUTE, saved_route, V2_F32_KERNELS["saved_dropout0"], dict),
               (F32_LN_CONTROL, on, None, _bf16_ln_control),
+              (F32_BWD_CONTROL, saved_route, None, _bf16_bwd_control),
               ("plain", plain, {}, dict))
     saved, res, out = get_policy(), {}, {}
     state = create_train_state(gan, cfg, device="cuda")
@@ -4331,11 +4612,9 @@ def compare_v2_f32_routes() -> dict:
             print(f"{tag} {route}: {sec:.2f} s, launches {launched}, metrics {metrics}")
             if must is not None and launched != must:
                 raise AssertionError(f"{tag} {route} launched {launched}, not {must}")
-            out[route] = {"launches": launched}
+            out[route] = {"launches": launched, "seconds": sec}
             del step
             torch.cuda.empty_cache()
-        state.load_state_dict(start)
-        out["saved_refusal"] = _saved_f32_refusal(state, real)
     finally:
         set_policy(**saved)
     del state, start
@@ -4365,10 +4644,10 @@ def compare_v2_f32_routes() -> dict:
               f"{r['g_grad_norm']:.3g} ({V2_F32_NORM_RTOL}); worst leaf max|d| / max|plain| "
               f"{rel[worst]:.4g} at {worst} ({V2_F32_LEAF_RTOL}); misses {misses or 'nothing'};"
               f" of the v1 f32 bounds {r['misses_v1'] or 'nothing'}")
-        if route == F32_LN_CONTROL:
+        if route in V2_F32_CONTROLS:
             if not misses:
-                failed.append(f"{route}: the f32 bounds do not see LayerNorm kernels that round "
-                              "through bf16")
+                failed.append(f"{route}: the f32 bounds do not see kernels that round through "
+                              "bf16")
         elif misses:
             failed.append(f"{route}: " + ", ".join(misses) + " differ from the plain route")
     if failed:
@@ -4489,50 +4768,23 @@ def p4_f32_steps(trainer, n: int = P4_F32_STEPS) -> dict:
             "launches_per_step": per_step}
 
 
-def _saved_f32_refusal(state, real) -> dict:
-    """highres128 in f32 at its defaults (megablock=auto, megablock_bwd=saved,
-    dropout 0.1), one train step of ``state`` on ``real``: it raises the
-    gate's TypeError (SAVED_F32) before any kernel launch; its message names
-    the item and the two f32 settings."""
-    from vitgan_tpu_torch import config as C
-    from vitgan_tpu_torch.models import build_gan
-    from vitgan_tpu_torch.ops import build
-    from vitgan_tpu_torch.ops.policy import apply_from_runtime
-    from vitgan_tpu_torch.train.step import make_train_step
-
-    cfg = C.replace(C.highres_config(128), **{**V2_F32, "v2.batch_size": real.shape[0]})
-    apply_from_runtime(cfg.runtime)
-    step = make_train_step(build_gan(cfg), cfg)
-    build.reset_launches()
-    try:
-        step(state, real)
-    except TypeError as err:
-        msg = str(err)
-    else:
-        raise AssertionError("[v2 f32] an f32 step on the saved megablock route did not raise")
-    launched = {k: v for k, v in build.LAUNCHES.items() if v}
-    print(f"[v2 f32] highres128 f32 under megablock=auto, megablock_bwd=saved: TypeError "
-          f"{msg!r}; launches before it {launched}")
-    if launched or not all(s in msg for s in ("queue 1 item 7", "megablock_bwd=recompute",
-                                              "megablock=off")):
-        raise AssertionError("[v2 f32] the saved route's f32 refusal")
-    return {"message": msg}
-
-
 def v2_f32_path(work: str, bf16_run_dir: "str | None" = None) -> dict:
     """[v2 f32]: the v2 presets with runtime.compute_dtype=float32 under
     use_pallas=auto.  highres128 served at batch 64 through the megablock's
     f32 forward (launches a call held to V2_F32_SERVE a block, no bf16
     LayerNorm or flash launch), beside the same weights served in bf16
-    (``bf16_run_dir``: [serve]'s run directory, else one written here);
-    highres128 trained through Trainer.fit under megablock=on,
-    megablock_bwd=recompute at the preset's dropout 0.1 (launches a step
-    V2_F32_KERNELS["recompute"]), then captured against eager (bit-equal);
-    one dropout-0 step on that route and on megablock=off against
+    (``bf16_run_dir``: [serve]'s run directory, else one written here); a
+    DeiT-B-width deit64 serving call (E 768, the batch-64 serving function
+    on the card); highres128 at its preset (megablock=auto, the saved
+    backward, dropout 0.1, remat attn) trained through Trainer.fit (launches
+    a step V2_F32_KERNELS["saved"], no bf16 kernel, no recompute backward),
+    then captured against eager (bit-equal); deit64 at its preset, one
+    captured step on the saved route; highres128 under megablock=on,
+    megablock_bwd=recompute (launches a step V2_F32_KERNELS["recompute"]),
+    captured against eager; one dropout-0 step on each route against
     use_pallas=never in f32 (compare_v2_f32_routes, with the bf16-fed
-    control); a DeiT-B-width deit64 serving call (E 768, the batch-64 serving
-    function on the card); the saved route's refusal.  highres256p4's f32
-    steps run later, on [highres256p4]'s trainer (p4_f32_steps)."""
+    controls).  highres256p4's f32 steps run later, on [highres256p4]'s
+    trainer (p4_f32_steps)."""
     from vitgan_tpu_torch.ops.policy import get_policy, set_policy
 
     saved = get_policy()  # the fits below set the routing from their configs
@@ -4554,6 +4806,8 @@ def _v2_f32_phases(work: str, bf16_run_dir) -> dict:
                                    bf16_run_dir or os.path.join(work, "serve_bf16"), write=write)
     out["serve_deit_b"] = _sample_call_f32("[v2 f32 serve DeiT-B width]", C.replace(
         C.deit64_config(), **{**DEIT_B, **V2_F32}))
+    out["train_saved"] = _saved_f32_fit(os.path.join(work, "train_saved"))
+    out["deit64"] = _deit64_f32_step(os.path.join(work, "deit64"))
     cfg = C.replace(C.highres_config(128), **_fit_over({
         **V2_F32, "runtime.megablock": "on", "runtime.megablock_bwd": "recompute",
         "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
@@ -4568,8 +4822,61 @@ def _v2_f32_phases(work: str, bf16_run_dir) -> dict:
     out["train_recompute"]["captured_vs_eager"] = capture
     del trainer
     out["routes"] = compare_v2_f32_routes()
-    out["saved_refusal"] = out["routes"].pop("saved_refusal")
     return out
+
+
+def _saved_f32_fit(run_dir: str) -> dict:
+    """highres128 at its preset with only runtime.compute_dtype=float32
+    (megablock=auto, megablock_bwd=saved, dropout 0.1, remat attn, batch 32,
+    depth 12) through Trainer.fit (_f32_fit: launches a step held to
+    V2_F32_KERNELS["saved"], none of BF16_KERNELS), with the recompute
+    Function's backward counted (it must not run); then V2_F32_STEPS - 1
+    captured steps against as many eager ones, bit-equal."""
+    from vitgan_tpu_torch import config as C
+    from vitgan_tpu_torch.ops import fused_block as FB
+
+    cfg = C.replace(C.highres_config(128), **_fit_over({
+        **V2_F32, "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
+        "run.steps_per_epoch": V2_F32_STEPS}))
+    recomputed = []
+    backward = FB._RecomputeBlock.backward
+
+    def counted(ctx, g):
+        recomputed.append(1)
+        return backward(ctx, g)
+
+    FB._RecomputeBlock.backward = staticmethod(counted)
+    try:
+        trainer, rec = _f32_fit("[v2 f32 train saved]", cfg, run_dir, V2_F32_KERNELS["saved"],
+                                V2_F32_STEPS)
+        capture = captured_vs_eager(cfg, 2, "highres128 f32 at its preset (saved)",
+                                    trainer=trainer)
+    finally:
+        FB._RecomputeBlock.backward = staticmethod(backward)
+    print(f"[v2 f32 train saved] _RecomputeBlock.backward calls: {len(recomputed)}")
+    if recomputed:
+        raise AssertionError("[v2 f32] the saved route ran the recompute backward")
+    if not capture["bit_equal"]:
+        raise AssertionError("[v2 f32] the saved route's captured steps are not bit-equal to "
+                             "eager ones")
+    rec["captured_vs_eager"] = capture
+    del trainer
+    return rec
+
+
+def _deit64_f32_step(run_dir: str) -> dict:
+    """deit64 at its preset in f32 (megablock=auto on the saved route, 256
+    tokens in G and 257 in D: ragged rows; dropout 0.1, remat never) through
+    _f32_fit with one step an epoch: one captured step, its launches held to
+    V2_F32_KERNELS["deit64"]."""
+    from vitgan_tpu_torch import config as C
+
+    cfg = C.replace(C.deit64_config(), **_fit_over({
+        **V2_F32, "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
+        "run.steps_per_epoch": 1}))
+    trainer, rec = _f32_fit("[v2 f32 deit64]", cfg, run_dir, V2_F32_KERNELS["deit64"], 1)
+    del trainer
+    return rec
 
 
 # [eval]: the extractors on the card against the same module on the CPU, both
@@ -6727,6 +7034,8 @@ def main() -> int:
         records["flash_attn_fwd_f32[dot]"].update(ln32.pop("flash_attn_fwd_f32[dot]"))
         records.update(ln32)
         mark("f32 ln kernels")
+        records.update(check_f32_bwd_kernels())
+        mark("f32 bwd kernels")
         records["ln_mlp_fwd"]["activations"] = check_ln_mlp_activations()
         mark("ln_mlp activations")
         train_launches, train = train_main_path(train_dir, "auto")
@@ -6876,6 +7185,13 @@ def main() -> int:
     for name, (src, replaces) in F32_LN_META.items():
         meta[name] = (src, replaces, v2f32["train_recompute"]["launches"].get(name, 0))
         records[name]["launches_serve_per_call"] = v2f32["serve"]["launches_per_call"].get(name)
+    # the saved backward's f32 entries, on the highres128 f32 train path at its
+    # preset ([v2 f32]: megablock=auto, the saved backward, the fit's captured steps)
+    f32_bwd_path = (f"highres128 f32 train at its preset (megablock=auto, megablock_bwd=saved), "
+                    f"{v2f32['train_saved']['steps']} captured steps")
+    for name, (src, _) in F32_BWD_META.items():
+        meta[name] = (src, f"{fb}:700", v2f32["train_saved"]["launches"].get(name, 0))
+        records[name]["launches_deit64_per_step"] = v2f32["deit64"]["launches"].get(name, 0)
     # the wide variants, on the DeiT-B-width train path ([train deit64 wide])
     for name, (src, replaces, form) in WIDE_KERNELS.items():
         meta[name] = (src, replaces, wide_train["launches"].get(name, 0))
@@ -6887,6 +7203,7 @@ def main() -> int:
              "flash_attn_fwd[l2ref]": "the l2ref route, one forward and backward",
              **{name: f"v1 f32 train, {v1f32['steps']} captured steps" for name in F32_MAIN},
              **f32_paths, **{name: f32_ln_path for name in F32_LN_META},
+             **{name: f32_bwd_path for name in F32_BWD_META},
              **{name: f"deit64 at DeiT-B width ({DEIT_B}), {WIDE_STEPS} captured steps"
                 for name in WIDE_KERNELS}}
     kernels = []

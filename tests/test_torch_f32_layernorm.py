@@ -12,9 +12,8 @@ LN->qkv and the megablock forward), on the CPU.
   f32 calls launch the `_f32` entries with f32 weights and f32 outputs at
   every E (no wide variant), bf16 calls the bf16 entries as before, the f32
   megablock forward asks the flash forward for the (B, N, H*Dh) layout;
-- the training gate: an f32 block on the saved route raises naming the item
-  and the two settings that train in f32; every other route is the JAX
-  package's decision for f32 inputs (read from its jaxpr);
+- the training gate: every route, the saved ones included, is the JAX
+  package's decision for f32 inputs as for bf16 (read from its jaxpr);
 - the slice: one v2 step in f32 under megablock=on, megablock_bwd=recompute
   against the JAX step; the f32 generator on the megablock route against
   the JAX generator.
@@ -410,13 +409,12 @@ def _jax_variant(x_dtype, n, e, heads, hidden, dropout, mode, bwd, train, monkey
                                             ("auto", "saved", False)],
                          ids=["auto", "on", "auto-recompute", "on-recompute", "off", "inference"])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_gate_refuses_f32_on_the_saved_route_only(monkeypatch, mode, bwd, train, dropout):
+def test_gate_takes_the_jax_decision_for_f32_and_bf16(monkeypatch, mode, bwd, train, dropout):
     """highres128's G block (1,024 tokens, E 384, 6 heads, hidden 1,536) on
-    the card (meta tensors stand in; on_cuda patched): where the JAX gate
-    takes a saved variant for f32 inputs, the port raises TypeError naming
-    queue 1 item 7, megablock_bwd=recompute and megablock=off, before any
-    launch; elsewhere (inference, recompute, off) it returns the JAX
-    decision for f32, and for bf16 always."""
+    the card (meta tensors stand in; on_cuda patched): megablock_route
+    returns the JAX gate's decision for f32 and for bf16 inputs in every
+    mode, megablock_bwd and dropout, the saved variants included (the saved
+    backward has f32 kernels)."""
     n, e, heads, hidden = 1024, 384, 6, 1536
     cfg = C.V2Config(embed_dim=e, num_heads=heads, mlp_ratio=hidden // e, dropout=dropout)
     block = EncoderBlock(cfg, None)
@@ -425,13 +423,7 @@ def test_gate_refuses_f32_on_the_saved_route_only(monkeypatch, mode, bwd, train,
     for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16), (f32, jnp.float32)):
         want = _jax_variant(jdtype, n, e, heads, hidden, dropout, mode, bwd, train, monkeypatch)
         x = torch.empty(2, n, e, device="meta", dtype=dtype)
-        if dtype == f32 and want is not None and want.endswith("_saved"):
-            with pytest.raises(TypeError) as err:
-                FB.megablock_route(block, x, cfg, train, True)
-            for needle in ("queue 1 item 7", "megablock_bwd=recompute", "megablock=off"):
-                assert needle in str(err.value)
-        else:
-            assert FB.megablock_route(block, x, cfg, train, True) == want
+        assert FB.megablock_route(block, x, cfg, train, True) == want
     if mode == "auto" and bwd == "saved" and train:  # the presets' default route
         assert want == ("encoder_block_fused_dropout_saved" if dropout else
                         "encoder_block_fused_saved")

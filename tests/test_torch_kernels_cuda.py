@@ -25,7 +25,10 @@ flash kernels (forward in every score mode, the single pass, dq and dk/dv in
 `dot` and `l2`) against their plain versions in full f32, the backward ones
 bit-equal across two calls, with less error than the bf16 kernels on the
 same inputs, and autograd through them; the LN->MLP's fc1 stage with each
-activation.
+activation; the saved backward's f32 entries (the dmlp rows, dz1, dy, the
+dx1 and LN1 rows, dao with delta, wgrad_gemm_f32) against their plain
+versions in full f32, bit-equal across two calls, and a whole f32 block's
+saved backward against its plain composition.
 
 Marked ``cuda``; each test skips where torch.cuda.is_available() is False (the
 kernels have no CPU mode; on the CPU the wrappers take the plain versions,
@@ -1341,3 +1344,124 @@ def test_f32_flash_forward_writes_the_megablock_layout_on_card(_full_f32):
     torch.cuda.synchronize()
     assert o_bnhd is attn
     assert torch.equal(attn, o.transpose(1, 2).reshape(2, 257, 3 * 64)) and torch.equal(lse, lse2)
+
+
+# --- the saved backward in f32 (csrc/ln_bwd_f32.cuh) -------------------------------------
+
+# (B, N, E, heads, hidden): deit64's ragged rows (E 192, Dh 64), a wide E 520
+# with Dh 104 (blocks of one head), one head of 64 over 130 rows.
+F32_BWD_SHAPES = [(2, 257, 192, 3, 768), (3, 65, 520, 5, 1040), (2, 130, 64, 1, 128)]
+F32_BWD_IDS = ["n257_e192_dh64", "n65_e520_dh104", "n130_e64_dh64"]
+
+
+def _f32_bwd_inputs(b, n, e, heads, hidden, rate, seed):
+    """One block's f32 rows, parameters and masks (or None) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return scale * torch.randn(s, generator=gen, device="cuda")
+
+    m = b * n
+    c = dict(x=rn(m, e), g=rn(m, e), x1=rn(m, e), z1=rn(m, hidden), ao=rn(m, e),
+             dqkv=rn(m, 3 * e), dx1=rn(m, e), ln_s=1 + rn(e, scale=0.1), ln_b=rn(e, scale=0.1),
+             w1=rn(e, hidden, scale=0.05), w2=rn(hidden, e, scale=0.05),
+             wout=rn(e, e, scale=0.05), qkv_w=rn(3, heads, e, e // heads, scale=0.05),
+             m1=None, m2=None)
+    if rate:
+        c["m1"], c["m2"] = ((torch.rand((m, e), generator=gen, device="cuda") >= rate).float()
+                            / (1 - rate) for _ in range(2))
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", F32_BWD_SHAPES, ids=F32_BWD_IDS)
+def test_f32_bwd_entries_match_plain_on_card(shape, rate, _full_f32):
+    """Each f32 entry of the saved backward against its plain version in full
+    f32 on the same f32 inputs, every output f32 within F32_RTOL * max(1,
+    max|plain|) and bit-equal across two calls: the dz1 stage (the dmlp rows
+    bit-equal to g * m2, then dz1 and h1), dy = a . w^T, the dx1 rows, dao
+    with delta, the LN1 half (dy1, then the LN1 rows) and wgrad_gemm; the LN
+    partials (a row a 64-row tile) through sum_partials bit-equal to its
+    order model; each launch counted under its f32 name."""
+    from vitgan_tpu_torch.ops import wgrad as WG
+
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    c = _f32_bwd_inputs(*shape, rate, seed=e + n)
+    m, f32 = b * n, torch.float32
+    dy2 = FB.bwd_dy_reference(c["z1"], c["w1"])
+    build.reset_launches()
+    stages = {
+        "dz1": (lambda: FB.bwd_dz1_stage(c["g"], c["m2"], c["z1"], c["w2"]),
+                lambda: FB.bwd_dz1_stage_reference(c["g"], c["m2"], c["z1"], c["w2"], f32)),
+        "dy": (lambda: FB.bwd_dy(c["z1"], c["w1"]),
+               lambda: FB.bwd_dy_reference(c["z1"], c["w1"])),
+        "dx1": (lambda: FB.bwd_dx1_rows(dy2, c["g"], c["m1"], c["x1"], c["ln_s"], c["ln_b"]),
+                lambda: FB.bwd_dx1_rows_reference(dy2, c["g"], c["m1"], c["x1"], c["ln_s"],
+                                                  c["ln_b"], dtype=f32)),
+        "dao": (lambda: FB.bwd_dao_stage(c["g"], c["ao"], c["wout"], b, n, heads),
+                lambda: FB.bwd_dao_stage_reference(c["g"], c["ao"], c["wout"], b, n, heads, f32)),
+        "ln1": (lambda: FB.megablock_bwd_ln1(c["dqkv"], c["qkv_w"], c["x"], c["dx1"], c["ln_s"],
+                                             c["ln_b"]),
+                lambda: FB._bwd_ln1_reference(c["dqkv"], c["qkv_w"], c["x"], c["dx1"], c["ln_s"],
+                                              c["ln_b"])),
+        "wgrad": (lambda: WG.wgrad_gemm(c["z1"], c["g"]),
+                  lambda: WG.wgrad_reference(c["z1"], c["g"])),
+    }
+    for name, (kern, plain) in stages.items():
+        got, again, want = kern(), kern(), plain()
+        got, again, want = ((t,) if torch.is_tensor(t) else t for t in (got, again, want))
+        for i, (a, a2, w) in enumerate(zip(got, again, want)):
+            assert a.dtype == f32, (name, i)
+            assert torch.equal(a, a2), (name, i)
+            assert _worst(a, w.float(), own=False) <= F32_RTOL, (name, i)
+        if name == "dz1" and rate:
+            assert torch.equal(got[0], c["g"] * c["m2"])
+        if name in ("dx1", "ln1"):
+            part = got[-1]
+            assert part.shape == (-(-m // 64), 2 * e)
+            assert torch.equal(WG.sum_partials(part), WG.sum_partials_reference(part))
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    assert launched == {"megablock_bwd_mlp_dz1_f32": 2, "megablock_bwd_dy_f32": 4,
+                        "megablock_bwd_mlp_dx1_rows_f32": 2, "megablock_bwd_mlp_dao_f32": 2,
+                        "megablock_bwd_ln1_rows_f32": 2, "wgrad_gemm_f32": 2, "sum_partials": 2,
+                        **({"megablock_bwd_mask_rows_f32": 2} if rate else {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(2, 257, 192, 3, 768), (3, 65, 128, 2, 256)],
+                         ids=["n257_e192", "n65_e128"])
+def test_f32_saved_backward_matches_its_plain_composition_on_card(shape, rate, _full_f32):
+    """A whole f32 block on the saved route: the training forward's
+    residuals, then fused_encoder_block_bwd on the card (the f32 entries,
+    the qkv recompute and the flash backward in f32, wgrad_gemm_f32 four
+    times, sum_partials twice) against the same function on CPU copies (its
+    plain composition, in full f32): dx and the 12 parameter gradients f32,
+    each within F32_RTOL of its own max|plain|, bit-equal across two calls;
+    no bf16 LayerNorm, flash or megablock-backward kernel launched."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    x, g, params, seed = _mb_inputs(b, n, e, heads, hidden, seed=e)
+    x, g = x.float(), g.float()
+    _, res = FB.fused_encoder_block(x, FB._block_view(params), num_heads=heads, rate=rate,
+                                    seed=seed, want_residuals=True)
+    build.reset_launches()
+    dx, grads = FB.fused_encoder_block_bwd(params, g, res, num_heads=heads)
+    dx2, grads2 = FB.fused_encoder_block_bwd(params, g, res, num_heads=heads)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    want_dx, want = FB.fused_encoder_block_bwd([p.cpu() for p in params], g.cpu(),
+                                               FB.Residuals(*map(cpu, res)), num_heads=heads)
+    for got, again, w in zip((dx, *grads), (dx2, *grads2), (want_dx, *want)):
+        assert got.dtype == torch.float32 and torch.equal(got, again)
+        assert _worst(got, w.cuda(), own=True) <= F32_RTOL
+    assert {"megablock_bwd_mlp_dz1_f32": 2, "megablock_bwd_dy_f32": 4,
+            "megablock_bwd_mlp_dx1_rows_f32": 2, "megablock_bwd_mlp_dao_f32": 2,
+            "megablock_bwd_ln1_rows_f32": 2, "wgrad_gemm_f32": 8, "sum_partials": 4,
+            "ln_qkv_fwd_f32": 2, "megablock_bwd_mlp": 2}.items() <= launched.items()
+    assert launched.get("megablock_bwd_mask_rows_f32", 0) == (2 if rate else 0)
+    assert all("f32" in k or k in ("megablock_bwd_mlp", "sum_partials") for k in launched), \
+        launched

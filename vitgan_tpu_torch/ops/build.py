@@ -97,6 +97,14 @@ SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (
 SIGNATURES["ln_mlp_fc1_f32"] = [_P] * 8 + [_I] * 3 + [_F, _I, _P]
 # x, ln_s, ln_b, w, bias, qkv, stats, batch, n, e, heads, dh, eps, stream
 SIGNATURES["ln_qkv_fwd_f32"] = [_P] * 7 + [_I] * 5 + [_F, _P]
+# The saved backward's f32 entries (csrc/ln_bwd_f32.cuh's products and
+# ln_rows.cuh's rows on f32, each entry its own source) take their bf16
+# entry's arguments, the dz1 entry the wide dz1's (dmlp formed first by the
+# mask rows): every E in one kernel, no wide variant.
+SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (
+    "megablock_bwd_mask_rows", "megablock_bwd_dy", "megablock_bwd_mlp_dx1_rows",
+    "megablock_bwd_mlp_dao", "megablock_bwd_ln1_rows", "wgrad_gemm")})
+SIGNATURES["megablock_bwd_mlp_dz1_f32"] = SIGNATURES["megablock_bwd_mlp_dz1_wide"]
 # The f32 flash entries, whose launches count by score mode only.
 F32_FLASH = ("flash_attn_fwd_f32", "flash_attn_bwd_fused_f32", "flash_attn_bwd_dq_f32",
              "flash_attn_bwd_dkv_f32")
@@ -129,7 +137,11 @@ SOURCES = sorted({SOURCE.get(name, name) for name in SIGNATURES})
 # "flash_attn_fwd_f32[dot]" (ops/attention.launch_key).  The LayerNorm
 # family's f32 entries count under their own names ("ln_mlp_fc1_f32",
 # "ln_mlp_linear_f32", "ln_qkv_fwd_f32"), and the three LN->MLP forms count
-# their f32 calls as their bf16 ones.
+# their f32 calls as their bf16 ones.  So do the saved backward's f32 entries
+# ("megablock_bwd_mask_rows_f32" with dropout, "megablock_bwd_mlp_dz1_f32",
+# "megablock_bwd_dy_f32" twice a block, "megablock_bwd_mlp_dx1_rows_f32",
+# "megablock_bwd_mlp_dao_f32", "megablock_bwd_ln1_rows_f32", "wgrad_gemm_f32"
+# four times), the MLP half's f32 calls counted as "megablock_bwd_mlp" too.
 LAUNCHES = {name: 0 for name in SIGNATURES if name not in F32_FLASH}
 LAUNCHES.update(ln_mlp_fwd=0, proj_ln_mlp_fwd=0, ln_mlp_train_fwd=0, megablock_bwd_mlp=0)
 LAUNCHES.update({f"{name}[{mode}]": 0 for name, modes in (

@@ -1,7 +1,10 @@
 // Row kernels of the wide LayerNorm variants (E > 384) for Hopper (sm_90a):
 // the passes that the resident kernels do on a tile held whole in shared
 // memory, done here on rows in device memory, so that E has no bound but
-// TMA's multiple of 8.  Three kernels, each a plain grid of 256-thread blocks:
+// TMA's multiple of 8.  Three kernels, each a plain grid of 256-thread blocks
+// (mask_rows_kernel and ln_bwd_rows_kernel templated on the rows' element
+// type: bf16, or f32 for the saved backward in f32, ln_bwd_f32.cuh, where
+// they serve every E):
 //   ln_rows_kernel: y = LN(x) in bf16 (LN -> fc1 and LN -> qkv; the streamed
 //       products then read y as any activation);
 //   mask_rows_kernel: out = g * m2 in bf16 (the dz1 stage's dmlp);
@@ -62,11 +65,14 @@ __device__ inline void store8(float* p, const float (&v)[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
+__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ inline float to_f32(float v) { return v; }
 
-// The f32 statistics of one row of e bf16 in device memory, eight lanes a
-// row in ln_row8's order (so the same bits); every lane of the warp calls it
-// (the shuffles), a lane of a row past the matrix with live false.
-__device__ inline void row_stats8(const bf16* row, int e, float eps, bool live, float& mean,
+// The f32 statistics of one row of e bf16 (or f32) in device memory, eight
+// lanes a row in ln_row8's order (so the same bits); every lane of the warp
+// calls it (the shuffles), a lane of a row past the matrix with live false.
+template <typename T>
+__device__ inline void row_stats8(const T* row, int e, float eps, bool live, float& mean,
                                   float& rstd) {
   const int l8 = threadIdx.x & 7, nch = live ? e >> 3 : 0;
   float v[8], s = 0.f;
@@ -115,10 +121,11 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// out (n8 chunks of 8) bf16 = g * m2, each product rounded once (the
-// resident dz1 stage's mask_rows arithmetic).
+// out (n8 chunks of 8) = g * m2 in g's type, each product rounded once (the
+// resident dz1 stage's mask_rows arithmetic; in f32 not rounded).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-mask_rows_kernel(const bf16* __restrict__ g, const float* __restrict__ m2, bf16* __restrict__ out,
+mask_rows_kernel(const T* __restrict__ g, const float* __restrict__ m2, T* __restrict__ out,
                  long n8) {
   for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < n8; i += (long)gridDim.x * THREADS) {
     float v[8], f[8];
@@ -132,28 +139,31 @@ mask_rows_kernel(const bf16* __restrict__ g, const float* __restrict__ m2, bf16*
 
 enum { kDx1 = 0, kLn1 = 1 };
 
-struct BwdParams {
+// T: the rows' element type, bf16 (the wide variants) or f32.
+template <typename T>
+struct BwdParamsT {
   int m, e;
   const float* dy;     // (m, e) f32: a . w^T
-  const bf16* x;       // (m, e): the LayerNorm's input
-  const bf16* g;       // kDx1: the residual g (m, e) bf16
+  const T* x;          // (m, e): the LayerNorm's input
+  const T* g;          // kDx1: the residual g (m, e)
   const float* res;    // kLn1: the residual dx1 (m, e) f32
   const float* m1;     // kDx1: (m, e) f32, or null (no dropout)
   const float* ln_s;
   const float* ln_b;
   float eps;
   float* dx1;          // kDx1: (m, e) f32 out
-  bf16* out;           // kDx1: da; kLn1: dx (m, e) bf16
-  bf16* y;             // LN(x) (m, e) bf16
+  T* out;              // kDx1: da; kLn1: dx (m, e)
+  T* y;                // LN(x) (m, e)
   float* part;         // (ceil(m / 64), 2 e) f32
 };
+using BwdParams = BwdParamsT<bf16>;
 
 // A 64-row tile a block.  First each row, eight lanes: its statistics, then
 // sum t and sum t yhat (t = dy gamma), then dx = res + rstd (t - mean(t) -
 // yhat mean(t yhat)) (_ln_bwd, fused_block.py:464-470) and the outputs.  Then
 // each column's sums over the tile's rows in row order, a thread a column.
-template <int KIND>
-__global__ void __launch_bounds__(THREADS) ln_bwd_rows_kernel(const BwdParams p) {
+template <int KIND, typename T>
+__global__ void __launch_bounds__(THREADS) ln_bwd_rows_kernel(const BwdParamsT<T> p) {
   __shared__ float2 stats[TILE];  // (mean, rstd) of each row of the tile
   const int lane = threadIdx.x & 31, l8 = lane & 7, nch = p.e >> 3;
   const int m0 = blockIdx.x * TILE;
@@ -221,7 +231,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows_kernel(const BwdParams p)
       const long i = (long)(m0 + r) * p.e + c;
       const float d = p.dy[i];
       const float2 s = stats[r];
-      sy += d * ((__bfloat162float(p.x[i]) - s.x) * s.y);
+      sy += d * ((to_f32(p.x[i]) - s.x) * s.y);
       sb += d;
     }
     p.part[(long)blockIdx.x * 2 * p.e + c] = sy;
@@ -240,23 +250,24 @@ inline int ln_rows(const void* x, const void* g, const void* b, void* y, int m, 
   return (int)cudaGetLastError();
 }
 
+template <typename T = bf16>
 inline int mask_rows(const void* g, const void* m2, void* out, int m, int e, void* stream) {
   if (m < 0 || e < 8 || e % 8) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   const long n8 = (long)m * e / 8;
   const long blocks = (n8 + THREADS - 1) / THREADS;
   const int grid = blocks < 8L * sm_count() ? (int)blocks : 8 * sm_count();
-  mask_rows_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const float*>(m2), static_cast<bf16*>(out), n8);
+  mask_rows_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const float*>(m2), static_cast<T*>(out), n8);
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
-inline int ln_bwd_rows(const BwdParams& p, void* stream) {
+template <int KIND, typename T>
+inline int ln_bwd_rows(const BwdParamsT<T>& p, void* stream) {
   if (p.m < 0 || p.e < 8 || p.e % 8) return (int)cudaErrorInvalidValue;
   if (p.m == 0) return 0;
-  ln_bwd_rows_kernel<KIND><<<(p.m + TILE - 1) / TILE, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(p);
+  ln_bwd_rows_kernel<KIND, T><<<(p.m + TILE - 1) / TILE, THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -57,6 +57,7 @@
 // interleaved lanes read as float4 and a fixed pairwise tree in shared
 // memory.  Bound: 1.5-3.1 MB read once, 0.0005-0.0009 ms.
 #include "hopper.cuh"
+#include "wgrad_reduce.cuh"
 
 using namespace vk;
 using namespace vk::hopper;
@@ -172,35 +173,6 @@ wgrad_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   }
 }
 
-// dw[x] = sum over s < splits of part[s * count + x] and db[y] = sum over
-// q < bsplits of bpart[q * nb + y], in order, four values a thread.
-__global__ void wgrad_reduce_kernel(const float* __restrict__ part,
-                                    const float* __restrict__ bpart, float* __restrict__ dw,
-                                    float* __restrict__ db, int splits, int bsplits, long count,
-                                    int nb) {
-  const long x = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
-  const float* src;
-  float* dst;
-  long stride;
-  int terms;
-  if (x < count) {
-    src = part + x, dst = dw + x, stride = count, terms = splits;
-  } else if (x - count < nb) {
-    src = bpart + (x - count), dst = db + (x - count), stride = nb, terms = bsplits;
-  } else {
-    return;
-  }
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = 0; i < terms; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(src + i * stride);
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  *reinterpret_cast<float4*>(dst) = s;
-}
-
 // out[c] = sum over s of part[s, c] in one fixed order (ops/wgrad.
 // sum_partials_reference repeats it with elementwise adds): block b owns
 // columns [16 b, 16 b + 16), four float4 quads; its SP_LANES lanes each sum
@@ -275,11 +247,8 @@ extern "C" int wgrad_gemm(const void* a, const void* b, void* dw, void* db, void
   err = (int)cudaGetLastError();
   if (err) return err;
   const long count = (long)ka * nb;
-  const long threads = (count + nb) / 4;
-  wgrad_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-      part, bpart, static_cast<float*>(dw), static_cast<float*>(db), splits, splits * grid.y,
-      count, nb);
-  return (int)cudaGetLastError();
+  return wgrad::reduce(part, bpart, static_cast<float*>(dw), static_cast<float*>(db), splits,
+                       splits * grid.y, count, nb, s);
 }
 
 // out (count,) f32 = sum over s of part (splits, count) f32 in the fixed

@@ -30,12 +30,13 @@ carry the JAX names (`encoder_block_fused[_dropout][_saved]`), and
 :func:`maybe_megablock` is the JAX gate, which under 'auto' also declines the
 widths that are not multiples of 8 (TMA's 16-byte strides).
 
-The forward takes bf16 or f32 (fused_mlp.kernel_dtype): f32 runs LN->qkv and
-the LN->MLP stages on csrc/ln_f32.cuh's kernels (ln_qkv_fwd_f32,
+Forward and backward take bf16 or f32 (fused_mlp.kernel_dtype): f32 runs
+LN->qkv and the LN->MLP stages on csrc/ln_f32.cuh's kernels (ln_qkv_fwd_f32,
 ln_mlp_fc1_f32, ln_mlp_linear_f32) and attention on the f32 flash forward,
-written in the (B, N, H*Dh) layout; the saved-residual backward takes bf16
-alone (f32 is ROADMAP.md queue 1 item 7), and :func:`megablock_route` refuses
-an f32 block on that route.
+written in the (B, N, H*Dh) layout; the saved-residual backward on
+csrc/ln_bwd_f32.cuh's products (dz1, dy2 and dy1, dao with delta, the
+weight gradients) and ln_rows.cuh's rows on f32 (dmlp = g * m2, the LN2 and
+LN1 backward), handing dmlp, dz1, dy2, da and dy1 between them in f32.
 
 LN->qkv, the LN2 -> fc1 stage and the backward's dz1, dx1 and dao stages and
 LN1 half hold a tile's rows whole on chip, so they take E <= 384 in bf16.  A wider
@@ -506,12 +507,11 @@ def _bwd_mlp_reference(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: i
 
 
 def _check_bwd(what: str, *ts) -> None:
+    """CUDA activations of one dtype, bf16 or f32 (kernel_dtype: anything
+    else raises naming ROADMAP.md queue 1 item 7).  A wrapper then takes the
+    kernel of its activations' dtype."""
     _on_card(what, *ts)
-    if not all(t.dtype == torch.bfloat16 for t in ts):
-        raise TypeError(f"{what} takes bf16 activations, got {[t.dtype for t in ts]}; the "
-                        "saved backward's f32 kernels (#8, wgrad_gemm) are ROADMAP.md queue 1 "
-                        "item 7 (or set runtime.megablock_bwd=recompute or "
-                        "runtime.use_pallas=never)")
+    kernel_dtype(what, *ts)
 
 
 # --- the MLP half as csrc/megablock_bwd_mlp.cu's three stages --------------------
@@ -632,14 +632,19 @@ def bwd_mlp_stages_reference(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, ba
     return BwdMlp(dmlp, dz1, h1, y2, dx1, da, dao, delta, part)
 
 
+# The f32 dao stage's blocks own whole heads of its 128 output columns.
+F32_DAO_MAX_DH = 128
+
+
 def _bwd_fits(e: int, hidden: int, hd: int) -> None:
     if not mlp_kernel_fits(e, hidden, hd):
         raise _width_error("megablock backward kernels", E=e, hidden=hidden, HDh=hd)
 
 
 def bwd_dmlp_rows(g, m2):
-    """Launch ln_rows.cuh's dmlp rows (megablock_bwd_mlp's library) on bf16
-    CUDA rows g (M, E) and the f32 mask m2: dmlp = g * m2 bf16, as
+    """Launch ln_rows.cuh's dmlp rows (megablock_bwd_mlp's library, or
+    megablock_bwd_mask_rows_f32 on f32 rows) on CUDA rows g (M, E) and the
+    f32 mask m2: dmlp = g * m2 in g's dtype, as
     :func:`bwd_dmlp_rows_reference`."""
     _check_bwd("megablock_bwd_mask_rows", g)
     m, e = g.shape
@@ -649,16 +654,18 @@ def bwd_dmlp_rows(g, m2):
     g2 = build.aligned16(g.contiguous())
     (m2f,) = _operands(g.device, (m2, torch.float32))
     dmlp = torch.empty_like(g2)
-    fn = build.entry("megablock_bwd_mask_rows")
+    name = _entry_name("megablock_bwd_mask_rows", g.dtype)
+    fn = build.entry(name)
     build.check(fn, fn(build.ptr(g2), build.ptr(m2f), build.ptr(dmlp), m, e,
                        build.stream_ptr(g.device)))
-    build.LAUNCHES["megablock_bwd_mask_rows"] += 1
+    build.LAUNCHES[name] += 1
     return dmlp
 
 
 def bwd_dy(a, w):
     """Launch megablock_bwd_mlp.cu's streamed product on bf16 CUDA rows a (M,
-    K) and w (N, K): dy (M, N) f32 = a . w^T, as :func:`bwd_dy_reference`."""
+    K), or megablock_bwd_dy_f32 on f32 rows, and w (N, K) (in a's dtype):
+    dy (M, N) f32 = a . w^T, as :func:`bwd_dy_reference`."""
     _check_bwd("megablock_bwd_dy", a)
     m, k = a.shape
     n = w.shape[0]
@@ -666,12 +673,13 @@ def bwd_dy(a, w):
         raise ValueError(f"w {tuple(w.shape)} does not fit a {tuple(a.shape)}")
     _bwd_fits(n, k, 0)
     a2 = build.aligned16(a.contiguous())
-    (wb,) = _operands(a.device, (w, torch.bfloat16))
+    (wk,) = _operands(a.device, (w, a.dtype))
     dy = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    fn = build.entry("megablock_bwd_dy")
-    build.check(fn, fn(build.ptr(a2), build.ptr(wb), build.ptr(dy), m, k, n,
+    name = _entry_name("megablock_bwd_dy", a.dtype)
+    fn = build.entry(name)
+    build.check(fn, fn(build.ptr(a2), build.ptr(wk), build.ptr(dy), m, k, n,
                        build.stream_ptr(a.device)))
-    build.LAUNCHES["megablock_bwd_dy"] += 1
+    build.LAUNCHES[name] += 1
     return dy
 
 
@@ -682,9 +690,11 @@ def _f32_rows(t, shape, what: str):
 
 
 def bwd_dx1_rows(dy2, g, m1, x1, ln_s, ln_b, eps: float = 1e-5):
-    """Launch ln_rows.cuh's dx1 rows (megablock_bwd_mlp's library) on dy2 (M,
-    E) f32 and bf16 CUDA rows g, x1 (M, E), m1 (M, E) f32 or None: (dx1 f32,
-    da, y2, part (ceil(M / 64), 2E) f32) as :func:`bwd_dx1_rows_reference`."""
+    """Launch ln_rows.cuh's dx1 rows (megablock_bwd_mlp's library, or
+    megablock_bwd_mlp_dx1_rows_f32 on f32 rows) on dy2 (M, E) f32 and CUDA
+    rows g, x1 (M, E) of one dtype, m1 (M, E) f32 or None: (dx1 f32, da and
+    y2 in g's dtype, part (ceil(M / 64), 2E) f32) as
+    :func:`bwd_dx1_rows_reference`."""
     _check_bwd("megablock_bwd_mlp_dx1_rows", g, x1)
     m, e = g.shape
     _bwd_fits(e, 0, 0)
@@ -697,17 +707,19 @@ def bwd_dx1_rows(dy2, g, m1, x1, ln_s, ln_b, eps: float = 1e-5):
     dx1 = torch.empty((m, e), dtype=f32, device=dev)
     da, y2 = torch.empty_like(g2), torch.empty_like(g2)
     part = torch.empty((-(-m // BWD_TILE_ROWS), 2 * e), dtype=f32, device=dev)
-    fn = build.entry("megablock_bwd_mlp_dx1_rows")
+    name = _entry_name("megablock_bwd_mlp_dx1_rows", g.dtype)
+    fn = build.entry(name)
     build.check(fn, fn(build.ptr(dy2f), build.ptr(g2), build.ptr(m1f), build.ptr(x12),
                        build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(dx1), build.ptr(da),
                        build.ptr(y2), build.ptr(part), m, e, float(eps), build.stream_ptr(dev)))
-    build.LAUNCHES["megablock_bwd_mlp_dx1_rows"] += 1
+    build.LAUNCHES[name] += 1
     return dx1, da, y2, part
 
 
 def bwd_ln1_rows(dy1, x, dx1, ln_s, ln_b, eps: float = 1e-5):
-    """Launch ln_rows.cuh's LN1 rows (megablock_bwd_ln1's library) on dy1,
-    dx1 (M, E) f32 and bf16 CUDA rows x (M, E): (dx, y1, part) as
+    """Launch ln_rows.cuh's LN1 rows (megablock_bwd_ln1's library, or
+    megablock_bwd_ln1_rows_f32 on f32 rows) on dy1, dx1 (M, E) f32 and CUDA
+    rows x (M, E): (dx, y1 in x's dtype, part) as
     :func:`bwd_ln1_rows_reference`."""
     _check_bwd("megablock_bwd_ln1_rows", x)
     m, e = x.shape
@@ -718,11 +730,12 @@ def bwd_ln1_rows(dy1, x, dx1, ln_s, ln_b, eps: float = 1e-5):
     ln_sf, ln_bf = _operands(dev, (ln_s, f32), (ln_b, f32))
     dx, y1 = torch.empty_like(x2), torch.empty_like(x2)
     part = torch.empty((-(-m // BWD_TILE_ROWS), 2 * e), dtype=f32, device=dev)
-    fn = build.entry("megablock_bwd_ln1_rows")
+    name = _entry_name("megablock_bwd_ln1_rows", x.dtype)
+    fn = build.entry(name)
     build.check(fn, fn(build.ptr(dy1f), build.ptr(x2), build.ptr(dx1f), build.ptr(ln_sf),
                        build.ptr(ln_bf), build.ptr(dx), build.ptr(y1), build.ptr(part), m, e,
                        float(eps), build.stream_ptr(dev)))
-    build.LAUNCHES["megablock_bwd_ln1_rows"] += 1
+    build.LAUNCHES[name] += 1
     return dx, y1, part
 
 
@@ -731,7 +744,9 @@ def bwd_dz1_stage(g, m2, z1, w2, wide: bool = False):
     (M, hidden), w2 (hidden, E), m2 (M, E) f32 or None: (dmlp, dz1, h1) as
     the plain version (dmlp is g itself without a mask).  E > 384 (or
     ``wide``) launches the wide variant: :func:`bwd_dmlp_rows` (with a mask),
-    then the streamed product ("megablock_bwd_mlp_dz1_wide")."""
+    then the streamed product ("megablock_bwd_mlp_dz1_wide").  f32 rows take
+    the same two steps at every E, the product "megablock_bwd_mlp_dz1_f32"
+    (``wide`` is accepted and does not apply)."""
     _check_bwd("megablock_bwd_mlp_dz1", g, z1)
     m, e = g.shape
     hidden = z1.shape[-1]
@@ -739,16 +754,17 @@ def bwd_dz1_stage(g, m2, z1, w2, wide: bool = False):
     if z1.shape[0] != m or w2.shape != (hidden, e):
         raise ValueError(f"z1 {tuple(z1.shape)} / w2 {tuple(w2.shape)} do not fit g "
                          f"{tuple(g.shape)}")
-    dev = g.device
+    dev, dt = g.device, g.dtype
     g2, z12 = build.aligned16(g.contiguous()), build.aligned16(z1.contiguous())
-    if wide_route(e, wide):
+    if dt == torch.float32 or wide_route(e, wide):
         dmlp = g2 if m2 is None else bwd_dmlp_rows(g2, m2)
-        (w2b,) = _operands(dev, (w2, torch.bfloat16))
+        (w2k,) = _operands(dev, (w2, dt))
         dz1, h1 = torch.empty_like(z12), torch.empty_like(z12)
-        fn = build.entry("megablock_bwd_mlp_dz1_wide")
-        build.check(fn, fn(build.ptr(dmlp), build.ptr(z12), build.ptr(w2b), build.ptr(dz1),
+        name = "megablock_bwd_mlp_dz1_f32" if dt == torch.float32 else "megablock_bwd_mlp_dz1_wide"
+        fn = build.entry(name)
+        build.check(fn, fn(build.ptr(dmlp), build.ptr(z12), build.ptr(w2k), build.ptr(dz1),
                            build.ptr(h1), m, e, hidden, build.stream_ptr(dev)))
-        build.LAUNCHES["megablock_bwd_mlp_dz1_wide"] += 1
+        build.LAUNCHES[name] += 1
         return dmlp, dz1, h1
     m2f, w2b = _operands(dev, (m2, torch.float32), (w2, torch.bfloat16))
     dmlp = g2 if m2 is None else torch.empty_like(g2)
@@ -766,7 +782,8 @@ def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5, wide: bool 
     hidden), g, x1 (M, E), w1 (E, hidden), m1 (M, E) f32 or None: (dx1 f32,
     da, y2, part (ceil(M / 64), 2E) f32) as the plain version.  E > 384 (or
     ``wide``) launches the wide variant: dy2 = :func:`bwd_dy` (dz1, w1) in
-    f32, then :func:`bwd_dx1_rows`."""
+    f32, then :func:`bwd_dx1_rows`.  f32 rows take those two launches at
+    every E (``wide`` does not apply)."""
     _check_bwd("megablock_bwd_mlp_dx1", dz1, g, x1)
     m, e = g.shape
     hidden = dz1.shape[-1]
@@ -774,7 +791,7 @@ def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5, wide: bool 
     if dz1.shape[0] != m or x1.shape != (m, e) or w1.shape != (e, hidden):
         raise ValueError(f"dz1 {tuple(dz1.shape)} / x1 {tuple(x1.shape)} / w1 "
                          f"{tuple(w1.shape)} do not fit g {tuple(g.shape)}")
-    if wide_route(e, wide):
+    if g.dtype == torch.float32 or wide_route(e, wide):
         return bwd_dx1_rows(bwd_dy(dz1, w1), g, m1, x1, ln_s, ln_b, eps)
     dev = g.device
     dz12, g2, x12 = (build.aligned16(t.contiguous()) for t in (dz1, g, x1))
@@ -796,8 +813,10 @@ def bwd_dx1_stage(dz1, g, m1, x1, w1, ln_s, ln_b, eps: float = 1e-5, wide: bool 
 def bwd_dao_stage(da, ao, wout, batch: int, n: int, heads: int, wide: bool = False):
     """Launch megablock_bwd_mlp.cu's dao stage on bf16 CUDA rows da (M, E),
     ao (M, H*Dh), wout (H*Dh, E), M = batch * n, Dh a multiple of 8: (dao
-    (B, H, N, Dh) bf16, delta (B, H, N) f32) as the plain version.  E > 384
-    (or ``wide``) streams da ("megablock_bwd_mlp_dao_wide")."""
+    (B, H, N, Dh) in da's dtype, delta (B, H, N) f32) as the plain version.
+    E > 384 (or ``wide``) streams da ("megablock_bwd_mlp_dao_wide").  f32
+    rows launch "megablock_bwd_mlp_dao_f32" at every E (``wide`` does not
+    apply), whose blocks own whole heads: Dh up to 128."""
     _check_bwd("megablock_bwd_mlp_dao", da, ao)
     m, e = da.shape
     hd = ao.shape[-1]
@@ -808,14 +827,20 @@ def bwd_dao_stage(da, ao, wout, batch: int, n: int, heads: int, wide: bool = Fal
     if (hd // heads) % 8:
         raise ValueError(f"the dao stage takes Dh a multiple of 8 (as LN->qkv), got "
                          f"Dh={hd // heads}")
-    dev = da.device
+    dev, dt = da.device, da.dtype
+    if dt == torch.float32 and hd // heads > F32_DAO_MAX_DH:
+        raise ValueError(f"the f32 dao stage takes Dh <= {F32_DAO_MAX_DH}, got Dh={hd // heads}; "
+                         "Dh > 128 is ROADMAP.md queue 1 item 7")
     da2, ao2 = build.aligned16(da.contiguous()), build.aligned16(ao.contiguous())
-    (woutb,) = _operands(dev, (wout, torch.bfloat16))
-    dao = torch.empty((batch, heads, n, hd // heads), dtype=torch.bfloat16, device=dev)
+    (woutk,) = _operands(dev, (wout, dt))
+    dao = torch.empty((batch, heads, n, hd // heads), dtype=dt, device=dev)
     delta = torch.empty((batch, heads, n), dtype=torch.float32, device=dev)
-    name = "megablock_bwd_mlp_dao_wide" if wide_route(e, wide) else "megablock_bwd_mlp_dao"
+    if dt == torch.float32:
+        name = "megablock_bwd_mlp_dao_f32"
+    else:
+        name = "megablock_bwd_mlp_dao_wide" if wide_route(e, wide) else "megablock_bwd_mlp_dao"
     fn = build.entry(name)
-    build.check(fn, fn(build.ptr(da2), build.ptr(ao2), build.ptr(woutb), build.ptr(dao),
+    build.check(fn, fn(build.ptr(da2), build.ptr(ao2), build.ptr(woutk), build.ptr(dao),
                        build.ptr(delta), batch, n, e, heads, hd // heads, build.stream_ptr(dev)))
     build.LAUNCHES[name] += 1
     return dao, delta
@@ -827,7 +852,9 @@ def megablock_bwd_mlp(g, m1, m2, x1, z1, ao, w1, w2, wout, ln_s, ln_b, batch: in
     (M, E), z1 (M, hidden), ao (M, H*Dh); masks (M, E) f32 or None: three
     launches (dz1, dx1, dao, each counted by its stage) and one call of
     "megablock_bwd_mlp".  E > 384 (or ``wide``) takes each stage's wide
-    variant: five launches (four without dropout)."""
+    variant: five launches (four without dropout).  f32 rows take the f32
+    entries at every E, five launches (four without dropout): the mask rows,
+    dz1, dy2, the dx1 rows and dao, the outputs in f32."""
     _check_bwd("megablock_bwd_mlp", g, x1, z1, ao)
     _bwd_fits(g.shape[-1], z1.shape[-1], ao.shape[-1])
     if (m1 is None) != (m2 is None):
@@ -854,7 +881,8 @@ def megablock_bwd_ln1(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5, wide: 
     """Launch csrc/megablock_bwd_ln1.cu on bf16 CUDA rows dqkv (M, 3*H*Dh),
     x (M, E) and f32 dx1 (M, E); returns as the plain version.  E > 384 (or
     ``wide``) launches the wide variant: dy1 = :func:`bwd_dy` (dqkv, wqkv) in
-    f32, then :func:`bwd_ln1_rows`."""
+    f32, then :func:`bwd_ln1_rows`.  f32 rows take those two launches at
+    every E (the f32 entries; ``wide`` does not apply)."""
     _check_bwd("megablock_bwd_ln1", dqkv, x)
     m, e = x.shape
     k = dqkv.shape[-1]
@@ -862,9 +890,8 @@ def megablock_bwd_ln1(dqkv, qkv_w, x, dx1, ln_s, ln_b, eps: float = 1e-5, wide: 
         raise ValueError(f"dx1 {tuple(dx1.shape)} does not fit x {tuple(x.shape)}")
     if not mlp_kernel_fits(e, 0, k):
         raise _width_error("megablock backward kernels", E=e, HDh3=k)
-    if wide_route(e, wide):
-        return bwd_ln1_rows(bwd_dy(dqkv, _qkv_weight(qkv_w, torch.bfloat16)), x, dx1, ln_s, ln_b,
-                            eps)
+    if x.dtype == torch.float32 or wide_route(e, wide):
+        return bwd_ln1_rows(bwd_dy(dqkv, _qkv_weight(qkv_w, x.dtype)), x, dx1, ln_s, ln_b, eps)
     dev, f32 = x.device, torch.float32
     dqkv2, x2 = build.aligned16(dqkv.contiguous()), build.aligned16(x.contiguous())
     w, dx1f, ln_sf, ln_bf = _operands(dev, (_qkv_weight(qkv_w, torch.bfloat16), torch.bfloat16),
@@ -907,7 +934,8 @@ def fused_encoder_block_bwd(params, g, res: Residuals, *, num_heads: int, eps: f
     dtype).  CUDA tensors launch megablock_bwd_mlp, ln_qkv_fwd (the qkv
     recompute), the flash backward kernels on the JAX route,
     megablock_bwd_ln1 and, with ``need_params``, wgrad_gemm four times and
-    sum_partials twice; CPU tensors take their plain versions."""
+    sum_partials twice, each in the activations' dtype (bf16 or f32: the f32
+    entries); CPU tensors take their plain versions."""
     ln1s, ln1b, qkv_w, qkv_b, wout, bout, ln2s, ln2b, w1, b1, w2, b2 = params
     b, n, e = res.x.shape
     _, h, _, dh = qkv_w.shape
@@ -1047,12 +1075,6 @@ def encoder_block_fused_dropout_saved(x, p, seed, rate: float, num_heads: int,
 
 # --- the gate ------------------------------------------------------------------------
 
-SAVED_F32 = ("the megablock's saved-residual backward (runtime.megablock_bwd='saved', the "
-             "presets' default) has no f32 kernels yet: #8 (the MLP and LN1 halves, the wide "
-             "rows) and wgrad_gemm in f32 are ROADMAP.md queue 1 item 7.  To train in f32 set "
-             "runtime.megablock_bwd=recompute (under megablock=auto, the standard path) or "
-             "runtime.megablock=off")
-
 # The JAX package's scoped-VMEM budget of the megablock (fused_block.py:69,
 # its default 96 MB less 0.5 MB).  The training gate's clamps check against
 # it, so that the gate decides as the JAX package does; they mean nothing
@@ -1104,11 +1126,9 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
     and a real TPU).  'auto' also declines widths that are not multiples of
     8 (TMA's 16-byte strides; ROADMAP.md queue 1 item 7), as the LN->MLP
     gate does, and takes every other width: E > 384 runs the wide variants.
-    Under 'on' such widths raise in the launches.
-
-    A saved route for an f32 CUDA x raises TypeError (:data:`SAVED_F32`)
-    before any launch: the JAX gate takes the saved megablock there, and the
-    port has no f32 saved backward yet, so no f32 block is sent elsewhere."""
+    Under 'on' such widths raise in the launches.  The decision does not
+    depend on the dtype, as the JAX gate's does not: bf16 and f32 blocks
+    take the same route, each on its dtype's kernels."""
     mode = megablock_mode()
     if mode == "off":
         return None
@@ -1133,8 +1153,6 @@ def megablock_route(p, x, cfg, train: bool, has_generator: bool) -> Optional[str
             return None
     if drop and (not has_generator or not on_cuda(x)):
         return None
-    if saved and x.dtype == torch.float32 and on_cuda(x):
-        raise TypeError(SAVED_F32)
     if drop:
         return "encoder_block_fused_dropout_saved" if saved else "encoder_block_fused_dropout"
     return "encoder_block_fused_saved" if saved else "encoder_block_fused"

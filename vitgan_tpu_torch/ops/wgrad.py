@@ -1,7 +1,8 @@
 """Weight gradients of the megablock backward: dW = A^T . B and db = the
-column sums of B over all rows.  The CUDA kernel (csrc/wgrad_gemm.cu), its
-plain version, the planning of its row splits, and the second-pass sum of
-per-tile partials (the kernel's `sum_partials` entry) with its order model.
+column sums of B over all rows.  The CUDA kernels (csrc/wgrad_gemm.cu in
+bf16, csrc/wgrad_gemm_f32.cu in f32), their plain version, the planning of
+their row splits, and the second-pass sum of per-tile partials (the bf16
+source's `sum_partials` entry) with its order model.
 
 Counterpart of the parameter-gradient sums of `_bwd_kernel` in
 vitgan_tpu/ops/fused_block.py, which accumulate down the TPU's sequential
@@ -18,6 +19,8 @@ import math
 import torch
 
 from vitgan_tpu_torch.ops import build
+from vitgan_tpu_torch.ops.attention import _entry_name, kernel_dtype
+from vitgan_tpu_torch.ops.fused_mlp import _on_card
 
 TILE = 128        # output rows and columns of one block of the kernel
 STAGE_ROWS = 64   # rows of A and B a pipeline stage holds
@@ -80,15 +83,15 @@ def _sm_count(device) -> int:
 
 
 def wgrad_gemm(a, b):
-    """Launch csrc/wgrad_gemm.cu: a (M, Ka), b (M, Nb) bf16 CUDA tensors ->
-    (dW (Ka, Nb) f32, db (Nb,) f32).  The entry launches the product over
-    :func:`plan`'s row splits and then `wgrad_reduce_kernel`, the one fixed-
-    order sum of the dW and db partials; a call counts one launch."""
-    if not (a.is_cuda and b.is_cuda):
-        raise ValueError("wgrad_gemm launches a CUDA kernel: a and b must be CUDA tensors")
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"wgrad_gemm takes bf16 operands, got {a.dtype}, {b.dtype}; its f32 "
-                        "kernel (with #8's in f32) is ROADMAP.md queue 1 item 7")
+    """Launch csrc/wgrad_gemm.cu on a (M, Ka), b (M, Nb) bf16 CUDA tensors, or
+    csrc/wgrad_gemm_f32.cu ("wgrad_gemm_f32") on f32 ones -> (dW (Ka, Nb)
+    f32, db (Nb,) f32).  The entry launches the product over :func:`plan`'s
+    row splits and then `wgrad_reduce_kernel`, the one fixed-order sum of the
+    dW and db partials; a call counts one launch.  The f32 kernel keeps the
+    plan and the scratch layout: its output tile is TILE x TILE, and its
+    stages of 32 rows divide the plan's ranges of whole STAGE_ROWS."""
+    _on_card("wgrad_gemm", a, b)
+    dt = kernel_dtype("wgrad_gemm", a, b)  # both bf16 or both f32
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"wgrad_gemm: a {tuple(a.shape)} and b {tuple(b.shape)} must be 2-D "
                          "with the same rows")
@@ -103,11 +106,12 @@ def wgrad_gemm(a, b):
     dw = torch.empty((ka, nb), dtype=torch.float32, device=dev)
     db = torch.empty((nb,), dtype=torch.float32, device=dev)
     scratch = torch.empty((scratch_floats(m, ka, nb, rps),), dtype=torch.float32, device=dev)
-    fn = build.entry("wgrad_gemm")
+    name = _entry_name("wgrad_gemm", dt)
+    fn = build.entry(name)
     build.check(fn, fn(build.ptr(a), build.ptr(b), build.ptr(dw), build.ptr(db),
                        build.ptr(scratch), m, ka, nb, rps, build.stream_ptr(dev)))
     if m:  # no rows: the entry zeroes dW and db and launches nothing
-        build.LAUNCHES["wgrad_gemm"] += 1
+        build.LAUNCHES[name] += 1
     return dw, db
 
 
