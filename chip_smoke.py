@@ -356,7 +356,8 @@
    runtime.compute_dtype=float32 (megablock=auto, megablock_bwd=saved,
    dropout 0.1, remat attn) through Trainer.fit, launches a step held to
    V2_F32_KERNELS["saved"] (no bf16 kernel, no recompute backward), captured
-   against eager (bit-equal); deit64 at its preset in f32, one captured step;
+   against eager (bit-equal), its device time by kernel group (the port's f32
+   kernels under their own labels); deit64 at its preset in f32, one captured step;
    the saved route and its bf16-fed backward control among the dropout-0
    route steps.  The saved backward's f32 entries' `launches` in the JSON
    line are the highres128 preset fit's.
@@ -368,7 +369,8 @@
    within F32_RTOL * max(1, max|plain|), at most half the bf16 kernel's
    error on the same inputs, bit-equal across two calls; timed beside the
    TF32 bound, the plain version and torch.matmul of the products in TF32
-   (SASS of the product sources: TF32 HMMA).
+   (SASS: the A . W^T tile's three sources TF32 HGMMA with UTMALDG and no
+   HMMA, wgrad_gemm_f32 TF32 HMMA).
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -567,10 +569,13 @@ def _ptxas_warnings(log: str) -> list:
 
 
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
-# HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions.
+# HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; the f32 A . W^T
+# tile's (csrc/ln_bwd_f32.cuh, TF32 wgmma) no HMMA (mma.sync) besides.
+F32_WGMMA_SOURCES = ("megablock_bwd_mlp_dz1_f32", "megablock_bwd_dy_f32",
+                     "megablock_bwd_mlp_dao_f32")
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
                   "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp", "ln_qkv_fwd",
-                  "megablock_bwd_ln1")
+                  "megablock_bwd_ln1", *F32_WGMMA_SOURCES)
 # The part of the CUDA symbol of every kernel of ln_mlp_fwd.cu (this tree's
 # ln_mlp_fc1_kernel and ln_mlp_linear_kernel, and the single kernel of a
 # parent scripts/kernel_ab.py measures).
@@ -628,10 +633,14 @@ def _sass_counts(build) -> dict:
     for name in HOPPER_SOURCES:
         sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        out[name] = {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
-        print(f"[sass] {name}: {out[name]['HGMMA']} HGMMA, {out[name]['UTMALDG']} UTMALDG")
+        out[name] = {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG"),
+                     "HMMA": sass.count("HMMA")}
+        print(f"[sass] {name}: {out[name]['HGMMA']} HGMMA, {out[name]['UTMALDG']} UTMALDG, "
+              f"{out[name]['HMMA']} HMMA")
         if not (out[name]["HGMMA"] and out[name]["UTMALDG"]):
             raise AssertionError(f"{name} holds no wgmma or no TMA load in its SASS")
+        if name in F32_WGMMA_SOURCES and (out[name]["HMMA"] or "TF32" not in sass):
+            raise AssertionError(f"{name}: mma.sync left in its SASS, or no TF32 product")
         for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
             if any(k in func for k in L2_KERNELS):
                 out[func] = {"HGMMA": body.count("HGMMA")}
@@ -2340,11 +2349,28 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
                 # the wide variants' row kernels (E > 384; the streamed
                 # products are the kernels above with kStream true, the LN1
-                # half's dy1 among the MLP half's)
+                # half's dy1 among the MLP half's), templated on the element
+                # type (float or __nv_bfloat16) since the f32 backward
                 ("ln_rows_kernel", "LayerNorm rows (wide LN->qkv, LN->fc1)"),
                 ("mask_rows_kernel", "megablock backward, MLP half"),
-                ("ln_bwd_rows_kernel<0>", "megablock backward, MLP half"),
-                ("ln_bwd_rows_kernel<1>", "megablock backward, LN1 half"),
+                ("ln_bwd_rows_kernel<0,", "megablock backward, MLP half"),
+                ("ln_bwd_rows_kernel<1,", "megablock backward, LN1 half"),
+                ("ln_bwd_rows_kernel", "megablock backward, LayerNorm rows"),
+                # the f32 kernels (csrc/ln_f32.cuh, ln_bwd_f32.cuh,
+                # wgrad_gemm_f32.cu), before the library test below, which
+                # their `gemm` would match: the LayerNorm forward by its
+                # epilogue (ln_gemm_f32_kernel<LN, EPI, ACT>), the backward's
+                # A . W^T tile by its (dy_gemm_f32_kernel<EPI>)
+                ("ln_stats_f32_kernel", "LayerNorm forward statistics (f32)"),
+                ("ln_gemm_f32_kernel<true, 0,", "LN->fc1 (f32)"),
+                ("ln_gemm_f32_kernel<false, 1,", "linear stage: fc2, out-projection (f32)"),
+                ("ln_gemm_f32_kernel<true, 2,", "LN->qkv (f32)"),
+                ("ln_gemm_f32_kernel", "LayerNorm-family forward (f32)"),
+                ("dy_gemm_f32_kernel<0>", "megablock backward f32: dz1 (A.W^T tile)"),
+                ("dy_gemm_f32_kernel<1>", "megablock backward f32: dy2, dy1 (A.W^T tile)"),
+                ("dy_gemm_f32_kernel<2>", "megablock backward f32: dao, delta (A.W^T tile)"),
+                ("dy_gemm_f32_kernel", "megablock backward f32 (A.W^T tile)"),
+                ("wgrad_f32_kernel", "weight-gradient products (f32)"),
                 ("wgrad_gemm", "weight-gradient products"),
                 ("wgrad_reduce", "weight-gradient products"),
                 ("sum_partials", "second-pass sums"))
@@ -4089,9 +4115,9 @@ F32_BWD_META = {
     "megablock_bwd_ln1_rows_f32": ("megablock_bwd_ln1_rows_f32.cu", ("ln_bwd_rows_kernel",)),
     "wgrad_gemm_f32": ("wgrad_gemm_f32.cu", ("wgrad_f32_kernel", "wgrad_reduce_kernel")),
 }
-# The sources whose kernels multiply on the tensor cores (TF32 HMMA in SASS).
-F32_BWD_PRODUCTS = ("megablock_bwd_mlp_dz1_f32", "megablock_bwd_dy_f32",
-                    "megablock_bwd_mlp_dao_f32", "wgrad_gemm_f32")
+# The sources whose kernels multiply on mma.sync (TF32 HMMA in SASS); the A .
+# W^T tile's are among HOPPER_SOURCES (TF32 HGMMA).
+F32_BWD_PRODUCTS = ("wgrad_gemm_f32",)
 
 
 def _f32_bwd_record(tag: str, name: str, label: str, kern, plain, library, flops: float,
@@ -4831,7 +4857,8 @@ def _saved_f32_fit(run_dir: str) -> dict:
     depth 12) through Trainer.fit (_f32_fit: launches a step held to
     V2_F32_KERNELS["saved"], none of BF16_KERNELS), with the recompute
     Function's backward counted (it must not run); then V2_F32_STEPS - 1
-    captured steps against as many eager ones, bit-equal."""
+    captured steps against as many eager ones, bit-equal; then the captured
+    step's device time by kernel group (train_breakdown)."""
     from vitgan_tpu_torch import config as C
     from vitgan_tpu_torch.ops import fused_block as FB
 
@@ -4860,6 +4887,8 @@ def _saved_f32_fit(run_dir: str) -> dict:
         raise AssertionError("[v2 f32] the saved route's captured steps are not bit-equal to "
                              "eager ones")
     rec["captured_vs_eager"] = capture
+    print("[v2 f32 train saved] where the f32 step's device time goes:")
+    rec["breakdown"] = train_breakdown(trainer, rec["ms_per_step"], recompute=False)
     del trainer
     return rec
 

@@ -5,7 +5,7 @@ sum_partials among them) of one tree of the port on the card, with
 chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
-        [--splits | --host | --megablock | --l2 | --ticket | --v1-fused]
+        [--splits | --host | --megablock | --l2 | --ticket | --v1-fused | --f32-bwd]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -53,6 +53,14 @@ each wrapper's time, its kernels' device time and two calls compared.
 ``--v1-fused`` runs only ``train_v1_fused``: the v1 defaults trained under
 use_pallas=always and bwd_fusion=fused (D's backward on the `l2` single
 pass), with the device time of 2 profiled steps by kernel group.
+
+``--f32-bwd`` runs only ``check_f32_bwd_kernels``: the saved backward's f32
+entries (the A . W^T tile's dz1, dy2 and dy1, dao with delta; the mask and
+LayerNorm-backward rows; wgrad_gemm_f32's four products) at highres128's G
+and D rows, deit64's ragged batch and DeiT-B's G, each against its plain
+version in full f32 and the bf16 kernel's error, timed beside its bound and
+torch.matmul in TF32 (device time at G), with the card's name and power
+limit.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -227,6 +235,7 @@ def main() -> int:
     ap.add_argument("--l2", action="store_true")
     ap.add_argument("--ticket", action="store_true")
     ap.add_argument("--v1-fused", action="store_true")
+    ap.add_argument("--f32-bwd", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -256,6 +265,10 @@ def main() -> int:
         return 0
     if args.v1_fused:
         print(json.dumps({"label": label, "v1_fused": cs.train_v1_fused()[1]}))
+        return 0
+    if args.f32_bwd:
+        print(json.dumps({"label": label, "card": cs._smi(),
+                          "f32_bwd": cs.check_f32_bwd_kernels()}))
         return 0
     rec = {"label": label,
            "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd",

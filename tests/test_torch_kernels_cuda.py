@@ -1465,3 +1465,80 @@ def test_f32_saved_backward_matches_its_plain_composition_on_card(shape, rate, _
     assert launched.get("megablock_bwd_mask_rows_f32", 0) == (2 if rate else 0)
     assert all("f32" in k or k in ("megablock_bwd_mlp", "sum_partials") for k in launched), \
         launched
+
+
+# --- the f32 A . W^T tile on TF32 wgmma (csrc/ln_bwd_f32.cuh) -----------------------------
+
+# (B, N, E, heads, hidden): chip_smoke.F32_BWD_SHAPES (highres128's G and D
+# rows, deit64's ragged batch, DeiT-B's G), then a summed width that is not a
+# multiple of 32 (E 520: the K tail TMA zero-fills, Dh 104: tiles of one
+# head and a column remainder).
+F32_TILE_SHAPES = [(32, 1024, 384, 6, 1536), (32, 1025, 384, 6, 1536), (128, 257, 192, 3, 768),
+                   (64, 256, 768, 12, 3072), (3, 65, 520, 5, 1040)]
+F32_TILE_IDS = ["highres128_G", "highres128_D", "deit64", "deit_b_G", "e520"]
+
+
+def _tile_inputs(b, n, e, heads, hidden, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return scale * torch.randn(s, generator=gen, device="cuda")
+
+    m = b * n
+    return dict(dmlp=rn(m, e), z1=rn(m, hidden), w2=rn(hidden, e, scale=e ** -0.5),
+                w1=rn(e, hidden, scale=hidden ** -0.5), dqkv=rn(m, 3 * e, scale=0.1),
+                wqkv=rn(e, 3 * e, scale=e ** -0.5), da=rn(m, e), ao=rn(m, e),
+                wout=rn(e, e, scale=e ** -0.5))
+
+
+def _held(name, kern, plain):
+    """kern() against plain() in full f32 within F32_RTOL * max(1, max|plain|)
+    per output, every output f32 and bit-equal across two calls."""
+    got, again, want = kern(), kern(), plain()
+    got, again, want = ((t,) if torch.is_tensor(t) else tuple(t) for t in (got, again, want))
+    for i, (a, a2, w) in enumerate(zip(got, again, want)):
+        assert a.dtype == torch.float32 and a.shape == w.shape, (name, i)
+        assert torch.equal(a, a2), (name, i)
+        assert _worst(a, w.float(), own=False) <= F32_RTOL, (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_TILE_SHAPES, ids=F32_TILE_IDS)
+def test_f32_tile_entries_match_plain_and_repeat_on_card(shape, _full_f32):
+    """The A . W^T tile's three entries at the presets' shapes and E 520:
+    dz1 with h1, dy2 = dz1 . w1^T and dy1 = dqkv . wqkv^T, dao with delta,
+    each within F32_RTOL of its plain version in full f32, bit-equal across
+    two calls, each launch counted under its f32 name."""
+    _cuda_or_skip()
+    b, n, e, heads, hidden = shape
+    c = _tile_inputs(b, n, e, heads, hidden, seed=e + n)
+    f32 = torch.float32
+    build.reset_launches()
+    _held("dz1", lambda: FB.bwd_dz1_stage(c["dmlp"], None, c["z1"], c["w2"])[1:],
+          lambda: FB.bwd_dz1_stage_reference(c["dmlp"], None, c["z1"], c["w2"], f32)[1:])
+    _held("dy2", lambda: FB.bwd_dy(c["z1"], c["w1"]), lambda: FB.bwd_dy_reference(c["z1"], c["w1"]))
+    _held("dy1", lambda: FB.bwd_dy(c["dqkv"], c["wqkv"]),
+          lambda: FB.bwd_dy_reference(c["dqkv"], c["wqkv"]))
+    _held("dao", lambda: FB.bwd_dao_stage(c["da"], c["ao"], c["wout"], b, n, heads),
+          lambda: FB.bwd_dao_stage_reference(c["da"], c["ao"], c["wout"], b, n, heads, f32))
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    assert launched == {"megablock_bwd_mlp_dz1_f32": 2, "megablock_bwd_dy_f32": 4,
+                        "megablock_bwd_mlp_dao_f32": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 64, 128])
+@pytest.mark.parametrize("b,n", [(2, 257), (3, 65)])
+def test_f32_dao_whole_heads_match_plain_on_card(dh, b, n, _full_f32):
+    """kDao's tiles own floor(128 / Dh) whole heads (16 of Dh 8, 2 of 64, one
+    of 128): dao in (B, H, N, Dh) and delta against the plain version in full
+    f32 at 3 heads (E 3 Dh) over rows whose 128-row tiles straddle samples,
+    bit-equal across two calls."""
+    _cuda_or_skip()
+    heads = 3
+    e = heads * dh
+    gen = torch.Generator(device="cuda").manual_seed(dh + n)
+    da, ao = (torch.randn(b * n, e, generator=gen, device="cuda") for _ in range(2))
+    wout = torch.randn(e, e, generator=gen, device="cuda") * e ** -0.5
+    _held("dao", lambda: FB.bwd_dao_stage(da, ao, wout, b, n, heads),
+          lambda: FB.bwd_dao_stage_reference(da, ao, wout, b, n, heads, torch.float32))

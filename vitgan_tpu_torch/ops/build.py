@@ -97,8 +97,8 @@ SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (
 SIGNATURES["ln_mlp_fc1_f32"] = [_P] * 8 + [_I] * 3 + [_F, _I, _P]
 # x, ln_s, ln_b, w, bias, qkv, stats, batch, n, e, heads, dh, eps, stream
 SIGNATURES["ln_qkv_fwd_f32"] = [_P] * 7 + [_I] * 5 + [_F, _P]
-# The saved backward's f32 entries (csrc/ln_bwd_f32.cuh's products and
-# ln_rows.cuh's rows on f32, each entry its own source) take their bf16
+# The saved backward's f32 entries (csrc/ln_bwd_f32.cuh's A . W^T tile,
+# wgrad_gemm_f32.cu and ln_rows.cuh's rows on f32, each entry its own source) take their bf16
 # entry's arguments, the dz1 entry the wide dz1's (dmlp formed first by the
 # mask rows): every E in one kernel, no wide variant.
 SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (

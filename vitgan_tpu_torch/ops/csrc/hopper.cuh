@@ -1,14 +1,15 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
 // ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu,
-// flash_l2.cuh and its `l2` kernels): mbarrier rings fed by TMA (tensor or
-// 1-D bulk copies) or by cp.async, TMA tensor and 1-D bulk stores, wgmma
-// descriptors and products, warpgroup fences, acquire/release flags, register
-// hand-over and the LayerNorm of a resident swizzled tile.
+// flash_l2.cuh and its `l2` kernels, ln_bwd_f32.cuh's TF32 tile): mbarrier
+// rings fed by TMA (tensor or 1-D bulk copies) or by cp.async, TMA tensor and
+// 1-D bulk stores, wgmma descriptors and products (bf16, and TF32 on f32
+// bits), warpgroup fences, acquire/release flags, register hand-over and the
+// LayerNorm of a resident swizzled tile.
 //
 // Shared-memory tiles here are written by TMA with the 128-byte swizzle: a
-// box is `rows` rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored
-// at chunk c ^ (r % 8), every box 1024-byte aligned.  Such a tile is a
+// box is `rows` rows of 64 bf16 or 32 f32 (128 bytes), 16-byte chunk c of row
+// r stored at chunk c ^ (r % 8), every box 1024-byte aligned.  Such a tile is a
 // canonical wgmma operand in both majors (CUTLASS's Layout_{K,MN}_SW128_Atom):
 //   K-major (the summed dimension contiguous): SBO = 1024 (8 rows), LBO
 //     unused; a 16-deep step inside the 64-wide box adds 32 bytes to the
@@ -194,6 +195,12 @@ __device__ inline void reg_alloc() {
 // the word of an m64nN accumulator fragment (rows 16 wr + g + 8 h, columns
 // 8 j + 2 t) in a staged or landed box.
 __device__ inline int swz(int r, int jj, int t) { return r * 128 + ((jj ^ (r & 7)) << 4) + 4 * t; }
+// The same for an f32 box (32 columns, 128 bytes a row): byte offset of the
+// 8-byte pair holding columns 8 jj + 2 t, + 1 of row r (16-byte chunk
+// 2 jj + t / 2 of the row at its swizzled place), jj < 4.
+__device__ inline int swz_f32(int r, int jj, int t) {
+  return r * 128 + (((2 * jj + (t >> 1)) ^ (r & 7)) << 4) + ((t & 1) << 3);
+}
 
 // The f32 LayerNorm statistics of row r of a resident tile of
 // 128-byte-swizzled 64-column boxes `box` bytes apart (the swizzled chunk of
@@ -481,6 +488,32 @@ __device__ inline void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4], uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// D (64 x 128, f32) = A . B (+ D when scale_d): TF32 operands (f32 bits, of
+// which the tensor core reads the top 19) both in shared memory, both
+// K-major: wgmma.mma_async m64n128k8 .tf32 takes no transpose.  A k8 step is
+// 32 bytes of a 128-byte swizzle row, as bf16's k16.
+__device__ inline void wgmma_tf32_ss128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63} "
+      ", %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // m64nNk16 products (the accumulator holds N / 2 floats a thread): both
 // operands from shared memory (N = 64, 128, 192 or 256), or A from registers
 // (N = 64 or 128).
@@ -534,20 +567,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first): sizes `dims`,
-// byte strides `strides` of dimensions 1.. (multiples of 16), box `box`
-// (box[0] = 64: one 128-byte swizzle row), 128-byte swizzle, zeros out of
-// bounds.  Returns 0 or a CUDA error code.
-inline int make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                          const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `type` and `rank` dimensions (innermost first): sizes
+// `dims`, byte strides `strides` of dimensions 1.. (multiples of 16), box
+// `box` (box[0] one 128-byte swizzle row: 64 bf16 or 32 f32), 128-byte
+// swizzle, zeros out of bounds.  Returns 0 or a CUDA error code.
+inline int make_tmap(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+inline int make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
 // The bf16 tensor map of a row-major (rows, cols) matrix, box 64 columns x
@@ -556,6 +592,20 @@ inline int tmap_2d(CUtensorMap* map, const void* base, int rows, int cols, int b
   const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 2};
   const uint32_t box[2] = {64, (uint32_t)box_rows};
   return make_tmap_bf16(map, base, 2, dims, strides, box);
+}
+
+// The f32 tensor map of a row-major (rows, cols) matrix, box 32 columns (128
+// bytes) x box_rows rows, 128-byte swizzle.  `type` TFLOAT32: the TMA unit
+// rounds each f32 to TF32 (to nearest, ties to even) as it lands, so that a
+// TF32 wgmma reads it rounded rather than truncated.
+inline int tmap_2d_f32(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 4};
+  const uint32_t box[2] = {32, (uint32_t)box_rows};
+  return make_tmap(map, type, base, 2, dims, strides, box);
+}
+inline int tmap_2d_tf32(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  return tmap_2d_f32(map, base, rows, cols, box_rows, CU_TENSOR_MAP_DATA_TYPE_TFLOAT32);
 }
 
 // The current device's SM count (the persistent grids' size), read once.

@@ -1,234 +1,348 @@
-// The megablock's saved-residual backward in f32 for Hopper (sm_90a): the
-// products of #8 on mma.sync TF32, built on ln_f32.cuh's tile core.  Two
-// kernels:
-//   dy_gemm_f32_kernel<EPI>: C = A . W^T with W (n, k) read K-major as it lies
-//       (every weight of the backward's dy products is (in, out) = (n, k) row
-//       by row), and three epilogues:
+// The megablock's saved-residual backward in f32 for Hopper (sm_90a): its
+// A . W^T products on TF32 wgmma over a TMA ring.
+//   dy_gemm_f32_kernel<EPI>: C = A . W^T, A (m, k) and W (n, k) both K-major
+//       as they lie (every weight of the backward's dy products is (in, out)
+//       = (n, k) row by row), TF32 x TF32 with f32 accumulation, and three
+//       epilogues:
 //         kDz1: dz1 = C * gelu'(z1) and h1 = gelu(z1)   (C = dmlp . w2^T)
 //         kDy:  dy = C, a plain f32 store               (dy2 = dz1 . w1^T,
 //               dy1 = dqkv . wqkv^T)
 //         kDao: dao = C scattered into (B, H, N, Dh) and delta (B, H, N) =
 //               each head's sum of dao * ao             (C = da . wout^T)
-//   wgrad_f32_kernel (wgrad_gemm_f32.cu, on this tile core): dW = A^T . B and
-//       db = the column sums of B, both summed over rows, as per-split
-//       partials in wgrad_gemm.cu's scratch layout, which wgrad_reduce.cuh
-//       sums in its fixed order.
-// Seven entries, each its own source, replace at f32 inputs the TPU kernel
-// `_bwd_kernel` (vitgan_tpu/ops/fused_block.py:484-628, pallas_call at :700),
-// which computes in its input dtype (runtime.compute_dtype=float32):
-// megablock_bwd_mask_rows_f32 (dmlp = g * m2, ln_rows.cuh),
-// megablock_bwd_mlp_dz1_f32 (kDz1), megablock_bwd_dy_f32 (kDy),
-// megablock_bwd_mlp_dx1_rows_f32 and megablock_bwd_ln1_rows_f32 (ln_rows.cuh's
-// LayerNorm-backward rows on f32 rows), megablock_bwd_mlp_dao_f32 (kDao) and
-// wgrad_gemm_f32.  The bf16 kernels stay as they are; the wrappers
-// (ops/fused_block.py, ops/wgrad.py) send each call to one or the other by
-// its dtype.
+// Three entries, each its own source (megablock_bwd_mlp_dz1_f32.cu,
+// megablock_bwd_dy_f32.cu, megablock_bwd_mlp_dao_f32.cu), replace these
+// products at f32 inputs in the TPU kernel `_bwd_kernel`
+// (vitgan_tpu/ops/fused_block.py:484-628, pallas_call at :700), which
+// computes in its input dtype (runtime.compute_dtype=float32).  The saved
+// backward's other f32 entries are ln_rows.cuh's mask and LayerNorm-backward
+// rows and wgrad_gemm_f32.cu (ln_f32.cuh's mma.sync tile core).  The bf16
+// kernels stay as they are; the wrappers (ops/fused_block.py) send each call
+// to one or the other by its dtype.
 //
 // Math (`_bwd_kernel`): every product TF32 x TF32 with f32 accumulation,
-// each operand rounded with cvt.rna as it lands in shared memory; GELU' the
-// exact erf derivative (common.cuh gelu_grad); delta, db and the column sums
-// plain f32 adds in a fixed order; every output f32.  No atomics: two calls
-// give the same bits.
+// each operand rounded to TF32 to nearest (ties to even) as it lands; GELU'
+// the exact erf derivative (common.cuh gelu_grad's arithmetic); delta a plain
+// f32 sum over the head's columns in column order; every output f32.  No
+// atomics: two calls give the same bits.
 //
-// Design (a simple kernel first; TF32 wgmma is ROADMAP.md queue 2 item 6r).
-// dy_gemm_f32_kernel is ln_f32.cuh's tile (8 warps, a 128 x 128 output tile,
-// 64 x 32 a warp, the summed width 32 columns a stage through two cp.async
-// stages) with W's tile K-major like A's: both at a stride of BK + 4 floats,
-// so B's fragment (k = t, n = g) at (n0 + g) S + t hits 32 banks as A's
-// does.  A kDao block owns whole heads: floor(128 / Dh) of them, its
-// columns past them zero-filled (every Dh <= 128 that is a multiple of 8).
-// Its epilogue writes dao * ao into the freed stage buffers, and after one
-// barrier a thread a (row, head) sums its Dh products in column order.
-// wgrad_f32_kernel sums over rows, so both operands lie MN-major: 32 rows of
-// A's 128 columns and of B's a stage at a stride of 136 floats, A's
-// fragment (m = g, k = t) at t S + g, B's at t S + g (32 banks each).  The
-// rows split over the grid's z as wgrad.plan chooses (ranges of whole
-// 64-row stages); rows past the split land as zeros.  db: the block of
-// output-row tile y sums the stages c with c % (row tiles) == y from the
-// raw f32 tile before it is rounded, a thread its four columns over its
-// rows, then the eight threads of a column group in order through shared
-// memory.
+// Design.  A persistent grid (a block an SM, at most one an output tile) of
+// 640 threads in five warpgroups: thread 0 of warpgroup 0 streams A's and
+// W's boxes by TMA into a ring of mbarrier stages; warpgroups 1 and 2 (the
+// consumers) multiply 64 rows each of a 128 x 128 output tile (m64n128k8,
+// both operands from shared memory, 64 accumulators a thread, the stage
+// released once its products are done at a wait depth of one); warpgroups 3
+// and 4 (the epilogue) take each finished tile from a staged copy while the
+// consumers multiply the next.  A box is 32 floats (one 128-byte swizzle
+// row) by 128 rows, the canonical K-major SW128 atom that the bf16 kernels'
+// 64-bf16 boxes are (hopper.cuh desc_sw128), so a k8 step adds 32 bytes to
+// the descriptors.  Tiles go to blocks in turn, a row unit's column tiles
+// together (blocks that run at once share A's rows and W in L2); a stage is
+// A's box and W's (32 KB), three deep (five for kDy, which lands no
+// epilogue operand).  TMA's zero fill takes the ragged edges: rows past m,
+// the summed width's tail where k is not a multiple of 32, W's rows past n.
+// Rounding: the tensor core reads the top 19 bits of an f32 operand and
+// drops the rest (truncation toward zero, biased).  A's and W's tensor maps
+// are TFLOAT32 (hopper.cuh tmap_2d_tf32), so the TMA unit rounds each value
+// to nearest as it lands and no thread rewrites a stage.  (Rounded in place
+// by the consumers with cvt.rna instead, or by the producer warpgroup's
+// spare warps, the rounding's shared-memory traffic and its barrier were
+// the products' largest cost: PERF.md.)
+// The hand-off: the consumers write their accumulators into the staged tile
+// (64 KB, 32-column swizzled boxes: a warp's pairs hit 32 banks) once the
+// epilogue has released it, then arrive on an mbarrier; the epilogue
+// releases it when done.  Epilogues, a warp a row and a lane a 16-byte chunk
+// (4 columns), the operand (z1 or ao) landed by TMA a quarter of the rows at
+// a time, each quarter landing the next tile's as soon as it has been read:
+//   kDz1 forms Phi(z) once an element and stores dz1 and h1 (a warp a whole
+//       512-byte row segment each);
+//   kDy stores the staged tile by TMA (rows past m and columns past n
+//       clipped);
+//   kDao owns whole heads: a tile is floor(128 / Dh) heads (the columns past
+//       them multiply W's next rows and are dropped; every Dh <= 128 that is
+//       a multiple of 8).  Each chunk of dao goes out to (B, H, N, Dh), since
+//       a 128-row tile may straddle a batch (1,025 or 257 tokens), and the
+//       products dao * ao replace it in the staged tile; then a thread a
+//       (row, head) sums its Dh products in column order into delta.
 //
 // Bound on this card (4-byte operands, 494.7 TFLOP/s TF32, 3.35 TB/s) at
-// highres128's G (32,768 rows, E 384, hidden 1,536, 6 heads of 64): dz1
-// with dmlp read and dz1, h1 written ~757 MB (0.226 ms); dy2 3.87e10 flops
-// (0.078 ms); dao with delta ~152 MB (0.045 ms); dy1 ~201 MB (0.060 ms);
-// wgrad_gemm_f32 dW2 and dW1 0.078 ms each, dWout 0.030, dWqkv 0.060.
-// Times against the bounds: PERF.md, chip_smoke.py [f32 bwd kernels].
+// highres128's G (32,768 rows, E 384, hidden 1,536, 6 heads of 64), each
+// input read once and each output written once: dz1 reads dmlp, z1 and w2
+// and writes dz1 and h1, 657 MB (0.196 ms, bytes); dy2 3.87e10 flops (0.078
+// ms, operations); dy1 203 MB (0.061 ms, bytes); dao with delta 152 MB
+// (0.045 ms, bytes).  The products' stage costs shared memory 80 KB of
+// traffic (TMA's 32 KB in, the two warpgroups' wgmma reads of 48 KB) for 1
+// MFLOP, some 640 clocks at 128 bytes a clock where the tensor core needs
+// 512: the products run near the shared memory's pace.  dz1's 402 MB of
+// stores against its reads hold it near 2.2 TB/s.  Times against the bounds:
+// PERF.md, chip_smoke.py [f32 bwd kernels], scripts/kernel_ab.py --f32-bwd.
 #pragma once
 
-#include "ln_f32.cuh"
+#include "hopper.cuh"
 
 namespace vk {
 namespace bwdf32 {
 
-using f32::bits;
-using f32::mma;
-using f32::tf32;
-using lnf32::BK;
-using lnf32::BM;
-using lnf32::BN;
-using lnf32::dims_ok;  // k, n multiples of 8, the grid's rows within CUDA's y limit
-using lnf32::round4;
-using lnf32::store2;
-using lnf32::THREADS;
+using namespace vk::hopper;
 
-// --- C = A . W^T ------------------------------------------------------------------
-
-constexpr int S = BK + 4;           // A's and W's tile stride (both K-major), floats
-constexpr int TILE_FLOATS = BM * S;  // one operand's tile of a stage (BN == BM)
-constexpr int STAGE = 2 * TILE_FLOATS;
-constexpr int SMEM = 2 * STAGE * (int)sizeof(float);  // 73,728 bytes
-constexpr int SP = BN + 1;  // kDao: the dao * ao products' stride in the freed stages
-static_assert(BM * SP <= 2 * STAGE, "kDao's products fit the stage buffers");
+constexpr int BM = 128;             // rows a tile: two consumer warpgroups of 64
+constexpr int BN = 128;             // output columns a tile (kDao: its whole heads)
+constexpr int BK = 32;              // summed columns a stage: a 128-byte swizzle row of f32
+constexpr int THREADS = 640;        // producer, two consumers, two epilogue warpgroups
+constexpr int ETHREADS = 256;       // the epilogue warpgroups' threads
+constexpr int OB = 32;              // columns of a box (128 bytes a row)
+constexpr int NB = BN / OB;         // boxes a tile
+constexpr int BOX = BM * OB * 4;    // a box of the tile's 128 rows: 16 KB
+constexpr int HALF = BOX / 2;       // its 64 rows of a consumer warpgroup
+constexpr int STAGE = 2 * BOX;      // A's box (128 rows x 32), then W's
+constexpr int TILE = NB * BOX;      // a 128 x 128 f32 tile: 64 KB
+constexpr int QROWS = 32;           // the epilogue operand lands a quarter of the rows at a time
+constexpr int QBOX = QROWS * OB * 4;  // a quarter of a box: 4 KB
 
 enum Epi : int { kDz1 = 0, kDy = 1, kDao = 2 };
 
+// kDy lands no epilogue operand, so its ring is deeper
+template <int EPI>
+constexpr int STAGES = EPI == kDy ? 5 : 3;
+template <int EPI>
+constexpr int XBYTES = EPI == kDy ? 0 : TILE;  // z1's or ao's tile, landed
+template <int EPI>
+constexpr int SMEM = 1024 + STAGES<EPI> * STAGE + TILE + XBYTES<EPI> + (2 * STAGES<EPI> + 6) * 8;
+static_assert(SMEM<kDy> <= 232448 && SMEM<kDz1> <= 232448, "a block an SM");
+
 struct Params {
-  const float* a;    // (m, k) rows, contiguous
-  const float* w;    // (n, k) rows: W^T's columns, K-major
   int m, k, n;
-  int ncol;          // output columns a block: BN, or kDao's whole heads
-  float* out;        // kDz1 dz1, kDy dy: (m, n); kDao dao: (batch, heads, tokens, dh)
-  const float* z1;   // kDz1: (m, n)
-  float* h1;         // kDz1: (m, n)
-  const float* ao;   // kDao: (m, n)
-  float* delta;      // kDao: (batch, heads, tokens)
+  int ncol;       // output columns a tile: BN, or kDao's whole heads
+  float* out;     // kDz1: dz1 (m, n)
+  float* h1;      // kDz1: (m, n)
+  float* dao;     // kDao: (batch, heads, tokens, dh)
+  float* delta;   // kDao: (batch, heads, tokens)
   int tokens, heads, dh;
 };
 
-// Stage A rows [r0, r0 + BM) x [k0, k0 + BK) and W rows [n0, nend) x the same
-// columns into `st` by cp.async, 16 bytes a copy, zero past m, nend and k.
-__device__ inline void load_stage(float* st, const Params& p, int r0, int n0, int nend, int k0) {
-  for (int i = threadIdx.x; i < BM * BK / 4; i += THREADS) {
-    const int r = i / (BK / 4), c = 4 * (i % (BK / 4));
-    const bool ok = r0 + r < p.m && k0 + c < p.k;
-    cp_async16(st + r * S + c, ok ? p.a + (long)(r0 + r) * p.k + k0 + c : p.a, ok);
-  }
-  float* ws = st + TILE_FLOATS;
-  for (int i = threadIdx.x; i < BN * BK / 4; i += THREADS) {
-    const int r = i / (BK / 4), c = 4 * (i % (BK / 4));
-    const bool ok = n0 + r < nend && k0 + c < p.k;
-    cp_async16(ws + r * S + c, ok ? p.w + (long)(n0 + r) * p.k + k0 + c : p.w, ok);
-  }
+// The 16-byte chunk holding columns c .. c + 3 (c a multiple of 4) of row r
+// of a tile of 32-column boxes of 128 rows.
+__device__ inline float4* chunk(unsigned char* tile, int r, int c) {
+  return reinterpret_cast<float4*>(tile + (c >> 5) * BOX + r * 128 +
+                                   ((((c & 31) >> 2) ^ (r & 7)) << 4));
 }
 
-// The granules this thread copied (load_stage's mapping), once landed,
-// rounded to TF32 in place; the block barrier after it publishes them.
-__device__ inline void round_stage(float* st) {
-  for (int i = threadIdx.x; i < 2 * BM * BK / 4; i += THREADS) {
-    float4* q = reinterpret_cast<float4*>(st + (i / (BK / 4)) * S + 4 * (i % (BK / 4)));
-    *q = round4(*q);
-  }
-}
-
-// out tile (blockIdx.y, blockIdx.x) = A . W^T, then EPI.
+// The epilogue warpgroups' kDz1 and kDao work on quarter q (rows 32 q ..
+// 32 q + 31) of a staged tile whose rows start at r0 and columns at n0 (.. nend
+// - 1): warp ew (0 .. 7) takes rows 32 q + ew, + 8, .., lane l the row's
+// 16-byte chunk l (columns 4 l .. 4 l + 3), if the tile has it.
 template <int EPI>
-__global__ void __launch_bounds__(THREADS, 2) dy_gemm_f32_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int n0 = blockIdx.x * p.ncol, r0 = blockIdx.y * BM;
-  const int nend = min(p.n, n0 + p.ncol);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = 64 * (warp >> 2), wn = 32 * (warp & 3);
-  const int ktiles = (p.k + BK - 1) / BK;
-
-  load_stage(sm, p, r0, n0, nend, 0);
-  cp_async_commit();
-
-  float acc[4][4][4];
+__device__ inline void epilogue_rows(const Params& p, unsigned char* staged,
+                                     unsigned char* xland, int q, int r0, int n0, int nend,
+                                     int ew, int l) {
+  const int c = 4 * l, col = n0 + c;
+  if (l >= (EPI == kDao ? p.ncol : BN) / 4 || col >= nend) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    float* st = sm + (kt & 1) * STAGE;
-    if (kt + 1 < ktiles) {
-      load_stage(sm + ((kt + 1) & 1) * STAGE, p, r0, n0, nend, (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    round_stage(st);
-    __syncthreads();
-    const float* ws = st + TILE_FLOATS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f32::frag_a<S>(a[i], st, wm + 16 * i, 8 * kk, g, t);
+  for (int k = 0; k < QROWS * 32 / ETHREADS; ++k) {
+    const int rr = QROWS * q + ew + k * (ETHREADS / 32), row = r0 + rr;
+    if (row >= p.m) break;
+    float4* dp = chunk(staged, rr, c);
+    const float4 d = *dp, x = *chunk(xland, rr, c);
+    if constexpr (EPI == kDz1) {
+      const float zs[4] = {x.x, x.y, x.z, x.w}, ds[4] = {d.x, d.y, d.z, d.w};
+      float dz[4], h[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float* q = ws + (wn + 8 * j + g) * S + 8 * kk + t;
-        b[j][0] = bits(q[0]);
-        b[j][1] = bits(q[4]);
+        // Phi(z) once: gelu(z) = z Phi, gelu'(z) = Phi + z phi (exact erf)
+        const float cdf = 0.5f * (1.f + erff(zs[j] * 0.70710678118654752f));
+        dz[j] = ds[j] * (cdf + zs[j] * 0.39894228040143268f * __expf(-0.5f * zs[j] * zs[j]));
+        h[j] = zs[j] * cdf;
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j][0], b[j][1]);
+      const long off = (long)row * p.n + col;
+      *reinterpret_cast<float4*>(p.out + off) = make_float4(dz[0], dz[1], dz[2], dz[3]);
+      *reinterpret_cast<float4*>(p.h1 + off) = make_float4(h[0], h[1], h[2], h[3]);
+    } else {
+      // dao into (B, H, N, Dh): the chunk lies in one head (n0 and Dh are
+      // multiples of 8), whatever batch the row is of; then dao * ao over
+      // the staged dao
+      const int bi = row / p.tokens, tok = row - bi * p.tokens, hh = col / p.dh;
+      *reinterpret_cast<float4*>(p.dao + (((long)bi * p.heads + hh) * p.tokens + tok) * p.dh +
+                                 col - hh * p.dh) = d;
+      *dp = make_float4(d.x * x.x, d.y * x.y, d.z * x.z, d.w * x.w);
     }
-    __syncthreads();  // the stage is free for tile kt + 2 (or, last, for kDao's products)
   }
+}
 
-  // epilogue: this thread holds rows wm + 16 i + g (+ 8) and columns
-  // wn + 8 j + 2 t (+ 1) of the tile
-  float* prod = sm;  // kDao: (BM, SP) products dao * ao
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wm + 16 * i + g + 8 * h, row = r0 + rl;
-      if (row >= p.m) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = wn + 8 * j + 2 * t, col = n0 + cl;  // n even: col + 1 < nend too
-        if (col >= nend) continue;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        const long idx = (long)row * p.n + col;
-        if constexpr (EPI == kDz1) {
-          const float2 z = *reinterpret_cast<const float2*>(p.z1 + idx);
-          store2(p.out + idx, v0 * gelu_grad(z.x), v1 * gelu_grad(z.y));
-          store2(p.h1 + idx, gelu(z.x), gelu(z.y));
-        } else if constexpr (EPI == kDy) {
-          store2(p.out + idx, v0, v1);
-        } else {
-          // column head Dh + d of row (b, tok): Dh even, so the pair stays in one head
-          const int head = col / p.dh, d = col - head * p.dh, b = row / p.tokens;
-          const long dst = (((long)b * p.heads + head) * p.tokens + row - b * p.tokens) * p.dh + d;
-          store2(p.out + dst, v0, v1);
-          const float2 a = *reinterpret_cast<const float2*>(p.ao + idx);
-          prod[rl * SP + cl] = v0 * a.x;
-          prod[rl * SP + cl + 1] = v1 * a.y;
+// kDao's delta from the staged products dao * ao: a thread a (row, head), its
+// Dh products summed in column order.
+__device__ inline void delta_rows(const Params& p, unsigned char* staged, int r0, int n0, int e) {
+  const int hpb = p.ncol / p.dh, head0 = n0 / p.dh;
+  for (int task = e; task < BM * hpb; task += ETHREADS) {
+    const int rr = task & (BM - 1), hh = task / BM, row = r0 + rr, head = head0 + hh;
+    if (row >= p.m || head >= p.heads) continue;
+    float s = 0.f;
+#pragma unroll 4
+    for (int c = hh * p.dh; c < (hh + 1) * p.dh; c += 4) {
+      const float4 v = *chunk(staged, rr, c);
+      s += v.x;
+      s += v.y;
+      s += v.z;
+      s += v.w;
+    }
+    const int bi = row / p.tokens;
+    p.delta[((long)bi * p.heads + head) * p.tokens + row - bi * p.tokens] = s;
+  }
+}
+
+// ta, tb: A's and W's maps (TF32, boxes 32 x 128 rows); tx: z1 (kDz1) or ao
+// (kDao), to: dy (kDy), f32 boxes 32 x 128 rows.
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+dy_gemm_f32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap to,
+                   const Params p) {
+  constexpr int NS = STAGES<EPI>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = align1024(smem_raw);  // stage s at s STAGE
+  unsigned char* staged = stages + NS * STAGE;  // the accumulators' tile
+  unsigned char* xland = staged + TILE;         // kDz1 / kDao: the operand's tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(xland + XBYTES<EPI>);
+  uint64_t* empty = full + NS;
+  uint64_t* accfull = empty + NS;  // the staged tile written, then read
+  uint64_t* accempty = accfull + 1;
+  uint64_t* xfull = accempty + 1;  // the operand's quarter q of the tile landed
+
+  const int wgi = threadIdx.x >> 7, nkb = (p.k + BK - 1) / BK;
+  const int ntiles = (p.n + p.ncol - 1) / p.ncol, tiles = (p.m + BM - 1) / BM * ntiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(accfull, 2);
+    mbar_init(accempty, 1);
+    for (int q = 0; q < BM / QROWS; ++q) mbar_init(&xfull[q], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    if (threadIdx.x == 0) {  // A's and W's boxes, 32 deep a stage, every tile of this block
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int r0 = tile / ntiles * BM, n0 = tile % ntiles * p.ncol;
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          const int s = it % NS;
+          if (it >= NS) mbar_wait(&empty[s], ((it / NS) - 1) & 1);
+          unsigned char* st = stages + s * STAGE;
+          mbar_arrive_tx(&full[s], STAGE);
+          tma_load_2d(st, &ta, &full[s], kb * BK, r0);
+          tma_load_2d(st + BOX, &tb, &full[s], kb * BK, n0);
         }
       }
     }
+    return;
   }
-  if constexpr (EPI == kDao) {
-    __syncthreads();
-    const int hpb = p.ncol / p.dh, head0 = n0 / p.dh;
-    for (int task = threadIdx.x; task < BM * hpb; task += THREADS) {
-      const int rl = task % BM, hh = task / BM, row = r0 + rl, head = head0 + hh;
-      if (row >= p.m || head >= p.heads) continue;
-      const float* q = prod + rl * SP + hh * p.dh;
-      float s = 0.f;
-      for (int d = 0; d < p.dh; ++d) s += q[d];
-      const int b = row / p.tokens;
-      p.delta[((long)b * p.heads + head) * p.tokens + row - b * p.tokens] = s;
+
+  if (wgi >= 3) {  // the epilogue warpgroups: each staged tile, under the next one's products
+    const int e = threadIdx.x - 384, ew = e >> 5, l = e & 31;
+    if (EPI == kDy && e > 0) return;
+    // quarter q of tile `tile`'s operand (z1 or ao) into xland by TMA
+    auto land = [&](int tile, int q) {
+      const int r0 = tile / ntiles * BM, n0 = tile % ntiles * p.ncol;
+      const int nbox = (min(p.n, n0 + p.ncol) - n0 + OB - 1) / OB;
+      mbar_arrive_tx(&xfull[q], nbox * QBOX);
+      for (int b = 0; b < nbox; ++b)
+        tma_load_2d(xland + b * BOX + q * QBOX, &tx, &xfull[q], n0 + OB * b, r0 + QROWS * q);
+    };
+    if (EPI != kDy && e == 0 && (int)blockIdx.x < tiles)
+      for (int q = 0; q < BM / QROWS; ++q) land(blockIdx.x, q);
+    int i = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+      const int r0 = tile / ntiles * BM, n0 = tile % ntiles * p.ncol;
+      const int nend = min(p.n, n0 + p.ncol);
+      mbar_wait(accfull, i & 1);
+      if constexpr (EPI == kDy) {
+        const int nbox = (nend - n0 + OB - 1) / OB;
+        for (int b = 0; b < nbox; ++b) tma_store_2d(&to, staged + b * BOX, n0 + OB * b, r0);
+        bulk_commit();
+        bulk_wait_read<0>();  // the staged tile read: free for the next one
+      } else {
+        for (int q = 0; q < BM / QROWS; ++q) {
+          mbar_wait(&xfull[q], i & 1);
+          epilogue_rows<EPI>(p, staged, xland, q, r0, n0, nend, ew, l);
+          // the quarter read: it lands the next tile's while the others are worked
+          named_bar_sync(3, ETHREADS);
+          if (e == 0 && tile + (int)gridDim.x < tiles) land(tile + gridDim.x, q);
+        }
+        if constexpr (EPI == kDao) {
+          delta_rows(p, staged, r0, n0, e);
+          named_bar_sync(3, ETHREADS);  // the staged tile read: free for the next
+        }
+      }
+      if (e == 0) mbar_arrive(accempty);
     }
+    if (EPI == kDy) bulk_wait<0>();
+    return;
+  }
+
+  // consumers: warpgroup w owns rows 64 w .. 64 w + 63 of each tile
+  const int w = wgi - 1, ct = threadIdx.x & 127, lane = threadIdx.x & 31, wr = ct >> 5,
+            g = lane >> 2, t = lane & 3;
+  float acc[BN / 2];
+  int it = 0, i = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+    for (int kb = 0; kb < nkb; ++kb, ++it) {
+      const int s = it % NS;
+      mbar_wait(&full[s], (it / NS) & 1);
+      const unsigned char* st = stages + s * STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        wgmma_tf32_ss128(acc, desc_sw128(st + w * HALF + 32 * kk, 16, 1024),
+                         desc_sw128(st + BOX + 32 * kk, 16, 1024), kb > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (kb > 0 && ct == 0) mbar_arrive(&empty[(it - 1) % NS]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (ct == 0) mbar_arrive(&empty[(it - 1) % NS]);
+    // the accumulators into the staged tile once the epilogue warpgroups have
+    // read the last one: this thread holds rows 64 w + 16 wr + g + 8 h and
+    // columns 8 j + 2 t (+ 1), box j / 4, pair j % 4 of it
+    if (i > 0) mbar_wait(accempty, (i - 1) & 1);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(staged + (j >> 2) * BOX +
+                                   swz_f32(64 * w + 16 * wr + g + 8 * h, j & 3, t)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    if constexpr (EPI == kDy) fence_proxy_async();  // to the TMA unit's stores
+    named_bar_sync(1 + w, 128);
+    if (ct == 0) mbar_arrive(accfull);
   }
 }
 
+// k and n multiples of 8 (TMA's 16-byte strides, the epilogues' chunks).
+inline bool dims_ok(int m, int k, int n) {
+  return m >= 0 && k >= 8 && k % 8 == 0 && n >= 8 && n % 8 == 0;
+}
+
+// C = a . w^T with EPI: x the epilogue operand (z1 or ao, or null), o the
+// TMA-stored output (kDy's dy, or null).
 template <int EPI>
-int launch(const Params& p, void* stream) {
+int launch(const void* a, const void* w, const void* x, void* o, const Params& p, void* stream) {
   if (p.m == 0) return 0;
-  const dim3 grid((p.n + p.ncol - 1) / p.ncol, (p.m + BM - 1) / BM);
-  cudaError_t err = cudaFuncSetAttribute(dy_gemm_f32_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dy_gemm_f32_kernel<EPI><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  CUtensorMap ta{}, tb{}, tx{}, to{};
+  int err = tmap_2d_tf32(&ta, a, p.m, p.k, BM);
+  if (!err) err = tmap_2d_tf32(&tb, w, p.n, p.k, BN);
+  if (!err && x != nullptr) err = tmap_2d_f32(&tx, x, p.m, p.n, QROWS);
+  if (!err && o != nullptr) err = tmap_2d_f32(&to, o, p.m, p.n, BM);
+  if (err) return err;
+  const long tiles = (long)((p.m + BM - 1) / BM) * ((p.n + p.ncol - 1) / p.ncol);
+  if (tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const int grid = tiles < sm_count() ? (int)tiles : sm_count();
+  cudaError_t e = cudaFuncSetAttribute(dy_gemm_f32_kernel<EPI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<EPI>);
+  if (e != cudaSuccess) return (int)e;
+  dy_gemm_f32_kernel<EPI><<<grid, THREADS, SMEM<EPI>, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, tx, to, p);
   return (int)cudaGetLastError();
 }
 

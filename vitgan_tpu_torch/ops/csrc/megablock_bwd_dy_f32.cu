@@ -1,6 +1,6 @@
-// dy = a . w^T in f32 for Hopper (sm_90a): ln_bwd_f32.cuh's tile GEMM with
-// the plain store (kDy).  Replaces, at f32 inputs, the two products of
-// `_bwd_kernel` that feed a LayerNorm backward
+// dy = a . w^T in f32 for Hopper (sm_90a): ln_bwd_f32.cuh's A . W^T tile on
+// TF32 wgmma with the plain store (kDy).  Replaces, at f32 inputs, the two
+// products of `_bwd_kernel` that feed a LayerNorm backward
 // (vitgan_tpu/ops/fused_block.py, pallas_call at :700): dy2 = dz1 . w1^T
 // (:545-547) before the LN2 backward and dy1 = dqkv . wqkv^T (:621-623)
 // before the LN1 backward.  dy goes through device memory in f32 to
@@ -15,9 +15,6 @@ extern "C" int megablock_bwd_dy_f32(const void* a, const void* w, void* dy, int 
   using namespace vk::bwdf32;
   if (!dims_ok(m, k, n)) return (int)cudaErrorInvalidValue;
   Params p{};
-  p.a = static_cast<const float*>(a);
-  p.w = static_cast<const float*>(w);
   p.m = m, p.k = k, p.n = n, p.ncol = BN;
-  p.out = static_cast<float*>(dy);
-  return launch<kDy>(p, stream);
+  return launch<kDy>(a, w, nullptr, dy, p, stream);
 }

@@ -1,14 +1,15 @@
 // The MLP half's dao and delta in f32 for Hopper (sm_90a): ln_bwd_f32.cuh's
-// tile GEMM with the kDao epilogue.  Replaces, at f32 inputs, dao = da .
-// wout^T and the flash backward's delta = each head's sum of dao * ao in
-// `_bwd_kernel` (vitgan_tpu/ops/fused_block.py:559-561 and :602, pallas_call at :700).
-// Bound on this card: bytes at highres128's G (ln_bwd_f32.cuh).
+// A . W^T tile on TF32 wgmma with the kDao epilogue.  Replaces, at f32
+// inputs, dao = da . wout^T and the flash backward's delta = each head's sum
+// of dao * ao in `_bwd_kernel` (vitgan_tpu/ops/fused_block.py:559-561 and
+// :602, pallas_call at :700).  Bound on this card: bytes at highres128's G
+// (ln_bwd_f32.cuh).
 #include "ln_bwd_f32.cuh"
 
 // dao (batch, heads, n, dh) f32 = da . wout^T and delta (batch, heads, n) f32
 // = the sum over each head's dh columns of dao * ao.  da: (batch n, e) f32;
 // ao: (batch n, heads dh) f32; wout: (heads dh, e) f32.  Bases 16-byte
-// aligned; e a multiple of 8, dh a multiple of 8 up to 128 (a block owns
+// aligned; e a multiple of 8, dh a multiple of 8 up to 128 (a tile owns
 // whole heads).
 extern "C" int megablock_bwd_mlp_dao_f32(const void* da, const void* ao, const void* wout,
                                          void* dao, void* delta, int batch, int n, int e,
@@ -18,12 +19,9 @@ extern "C" int megablock_bwd_mlp_dao_f32(const void* da, const void* ao, const v
       (long)batch * n > 0x7fffffffL || !dims_ok(batch * n, e, heads * dh))
     return (int)cudaErrorInvalidValue;
   Params p{};
-  p.a = static_cast<const float*>(da);
-  p.w = static_cast<const float*>(wout);
   p.m = batch * n, p.k = e, p.n = heads * dh, p.ncol = BN / dh * dh;
-  p.out = static_cast<float*>(dao);
-  p.ao = static_cast<const float*>(ao);
+  p.dao = static_cast<float*>(dao);
   p.delta = static_cast<float*>(delta);
   p.tokens = n, p.heads = heads, p.dh = dh;
-  return launch<kDao>(p, stream);
+  return launch<kDao>(da, wout, ao, nullptr, p, stream);
 }

@@ -1,8 +1,8 @@
 // The MLP half's dz1 in f32 for Hopper (sm_90a): ln_bwd_f32.cuh's A . W^T tile
-// GEMM with the kDz1 epilogue.  Replaces, at f32 inputs, dz1 = (dmlp . w2^T)
-// * gelu'(z1) and h1 = gelu(z1) of `_bwd_kernel`
-// (vitgan_tpu/ops/fused_block.py:530, :535-538; pallas_call at :700).  Bound on
-// this card: bytes at highres128's G (ln_bwd_f32.cuh).
+// on TF32 wgmma with the kDz1 epilogue.  Replaces, at f32 inputs, dz1 = (dmlp
+// . w2^T) * gelu'(z1) and h1 = gelu(z1) of `_bwd_kernel`
+// (vitgan_tpu/ops/fused_block.py:530, :535-538; pallas_call at :700).  Bound
+// on this card: bytes at highres128's G (ln_bwd_f32.cuh).
 #include "ln_bwd_f32.cuh"
 
 // dz1 (m, hidden) f32 = (dmlp . w2^T) * gelu'(z1), h1 (m, hidden) f32 =
@@ -15,11 +15,8 @@ extern "C" int megablock_bwd_mlp_dz1_f32(const void* dmlp, const void* z1, const
   using namespace vk::bwdf32;
   if (!dims_ok(m, e, hidden)) return (int)cudaErrorInvalidValue;
   Params p{};
-  p.a = static_cast<const float*>(dmlp);
-  p.w = static_cast<const float*>(w2);
   p.m = m, p.k = e, p.n = hidden, p.ncol = BN;
   p.out = static_cast<float*>(dz1);
-  p.z1 = static_cast<const float*>(z1);
   p.h1 = static_cast<float*>(h1);
-  return launch<kDz1>(p, stream);
+  return launch<kDz1>(dmlp, w2, z1, nullptr, p, stream);
 }

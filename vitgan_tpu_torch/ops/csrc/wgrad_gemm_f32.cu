@@ -1,5 +1,7 @@
 // Weight gradients of the saved-residual megablock backward in f32 for
-// Hopper (sm_90a): wgrad_f32_kernel (on ln_bwd_f32.cuh), over ops/wgrad.plan's
+// Hopper (sm_90a): wgrad_f32_kernel (on ln_f32.cuh's mma.sync TF32 tile
+// core: 8 warps, a 128 x 128 tile, 64 x 32 a warp, two cp.async stages of 32
+// rows, each operand rounded with cvt.rna as it lands), over ops/wgrad.plan's
 // row splits, then wgrad_reduce.cuh's fixed-order sum of the partials.
 // Replaces, at f32 inputs, the parameter-gradient accumulation of
 // `_bwd_kernel` (vitgan_tpu/ops/fused_block.py:531-620, pallas_call at :700):
@@ -7,11 +9,31 @@
 // and the biases' column sums.  Bound on this card at highres128's G: dW2 and
 // dW1 3.87e10 flops each (0.078 ms, operations), dWout ~101 MB (0.030 ms),
 // dWqkv ~201 MB (0.060 ms).
-#include "ln_bwd_f32.cuh"
+//
+// Design (a simple kernel; TF32 wgmma is ROADMAP.md queue 2 item 6r).  The
+// kernel sums over rows, so both operands lie MN-major: 32 rows of A's 128
+// columns and of B's a stage at a stride of 136 floats, A's fragment (m = g,
+// k = t) at t S + g, B's at t S + g (32 banks each).  The rows split over the
+// grid's z as wgrad.plan chooses (ranges of whole 64-row stages); rows past
+// the split land as zeros.  db: the block of output-row tile y sums the
+// stages c with c % (row tiles) == y from the raw f32 tile before it is
+// rounded, a thread its four columns over its rows, then the eight threads
+// of a column group in order through shared memory.  No atomics: two calls
+// give the same bits.
+#include "ln_f32.cuh"
 #include "wgrad_reduce.cuh"
 
 namespace vk {
-namespace bwdf32 {
+namespace wgradf32 {
+
+using f32::bits;
+using f32::mma;
+using lnf32::BK;
+using lnf32::BM;
+using lnf32::BN;
+using lnf32::round4;
+using lnf32::store2;
+using lnf32::THREADS;
 
 // --- dW = A^T . B, db = column sums of B ---------------------------------------------
 
@@ -150,7 +172,7 @@ wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float
   }
 }
 
-}  // namespace bwdf32
+}  // namespace wgradf32
 }  // namespace vk
 
 // a: (m, ka) f32; b: (m, nb) f32, both row-major with 16-byte aligned bases;
@@ -161,7 +183,7 @@ wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float
 // partials, f32 (wgrad_gemm.cu's layout).
 extern "C" int wgrad_gemm_f32(const void* a, const void* b, void* dw, void* db, void* scratch,
                               int m, int ka, int nb, int rows_per_split, void* stream) {
-  using namespace vk::bwdf32;
+  using namespace vk::wgradf32;
   if (ka % 8 || nb % 8 || ka < 8 || nb < 8 || m < 0 || rows_per_split < BK ||
       rows_per_split % BK || db == nullptr || (ka + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;

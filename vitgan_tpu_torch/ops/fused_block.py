@@ -34,9 +34,10 @@ Forward and backward take bf16 or f32 (fused_mlp.kernel_dtype): f32 runs
 LN->qkv and the LN->MLP stages on csrc/ln_f32.cuh's kernels (ln_qkv_fwd_f32,
 ln_mlp_fc1_f32, ln_mlp_linear_f32) and attention on the f32 flash forward,
 written in the (B, N, H*Dh) layout; the saved-residual backward on
-csrc/ln_bwd_f32.cuh's products (dz1, dy2 and dy1, dao with delta, the
-weight gradients) and ln_rows.cuh's rows on f32 (dmlp = g * m2, the LN2 and
-LN1 backward), handing dmlp, dz1, dy2, da and dy1 between them in f32.
+csrc/ln_bwd_f32.cuh's A . W^T tile on TF32 wgmma (dz1, dy2 and dy1, dao with
+delta), wgrad_gemm_f32.cu's weight gradients and ln_rows.cuh's rows on f32
+(dmlp = g * m2, the LN2 and LN1 backward), handing dmlp, dz1, dy2, da and
+dy1 between them in f32.
 
 LN->qkv, the LN2 -> fc1 stage and the backward's dz1, dx1 and dao stages and
 LN1 half hold a tile's rows whole on chip, so they take E <= 384 in bf16.  A wider
