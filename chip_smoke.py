@@ -326,16 +326,17 @@
    kernels' `launches` in the JSON line are this path's (the `l2` single
    pass, `dot` dq and dk/dv and `l2ref` from their one-step routes).
 40. [f32 ln kernels] (after [f32 kernels]): the LayerNorm family's f32
-   entries (csrc/ln_f32.cuh: LN -> fc1 with z1, the linear stage as fc2 with
-   the residual and a 0.1 mask, LN1 -> qkv) at highres128's serving, G and
+   entries (csrc/ln_f32.cuh on tile_f32.cuh's TF32 wgmma tile: LN -> fc1
+   with z1, the linear stage as fc2 with the residual and a 0.1 mask, LN1 ->
+   qkv) at highres128's serving, G and
    D rows, highres256p4's G, DeiT-B's G (E 768) and a ragged deit64 batch
    against their plain versions in full f32: each output within F32_RTOL *
    max(1, max|plain|) and at most half the bf16 kernel's error on the same
    inputs, bit-equal across two calls, the f32 mask bit-equal to the plain
    and the bf16 stage's; timed beside the TF32 bound, the plain version and
-   F.layer_norm + torch.matmul in f32 and in TF32 (SASS: TF32 HMMA); the
-   f32 flash forward's (B, N, H*Dh) layout bit-equal to its (B, H, N, Dh)
-   output.
+   F.layer_norm + torch.matmul in f32 and in TF32 (SASS: TF32 HGMMA with
+   UTMALDG, no HMMA); the f32 flash forward's (B, N, H*Dh) layout bit-equal
+   to its (B, H, N, Dh) output.
 41. [v2 f32] (after [train v1 f32]): runtime.compute_dtype=float32 on the v2
    presets under use_pallas=auto.  highres128 served at batch 64 over HTTP
    through the megablock's f32 forward (launches held to V2_F32_SERVE a
@@ -357,12 +358,13 @@
    dropout 0.1, remat attn) through Trainer.fit, launches a step held to
    V2_F32_KERNELS["saved"] (no bf16 kernel, no recompute backward), captured
    against eager (bit-equal), its device time by kernel group (the port's f32
-   kernels under their own labels); deit64 at its preset in f32, one captured step;
+   kernels under their own labels) and the K-major weight copies' ms a step
+   (kmajor_copy_ms); deit64 at its preset in f32, one captured step;
    the saved route and its bf16-fed backward control among the dropout-0
    route steps.  The saved backward's f32 entries' `launches` in the JSON
    line are the highres128 preset fit's.
 42. [f32 bwd kernels] (after [f32 ln kernels]): the saved backward's f32
-   entries (csrc/ln_bwd_f32.cuh's products: dz1 with h1, dy2 and dy1, dao
+   entries (csrc/tile_f32.cuh's products: dz1 with h1, dy2 and dy1, dao
    with delta, wgrad_gemm_f32; ln_rows.cuh's rows on f32: dmlp = g * m2, the
    LN2 and LN1 backward) at highres128's G and D rows, deit64's ragged batch
    and DeiT-B's G against their plain versions in full f32: each output
@@ -570,9 +572,11 @@ def _ptxas_warnings(log: str) -> list:
 
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; the f32 A . W^T
-# tile's (csrc/ln_bwd_f32.cuh, TF32 wgmma) no HMMA (mma.sync) besides.
+# tile's (csrc/tile_f32.cuh, TF32 wgmma: the saved backward's three entries
+# and the LayerNorm family's forward) no HMMA (mma.sync) besides.
 F32_WGMMA_SOURCES = ("megablock_bwd_mlp_dz1_f32", "megablock_bwd_dy_f32",
-                     "megablock_bwd_mlp_dao_f32")
+                     "megablock_bwd_mlp_dao_f32", "ln_mlp_fc1_f32", "ln_mlp_linear_f32",
+                     "ln_qkv_fwd_f32")
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
                   "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp", "ln_qkv_fwd",
                   "megablock_bwd_ln1", *F32_WGMMA_SOURCES)
@@ -647,7 +651,7 @@ def _sass_counts(build) -> dict:
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
                     raise AssertionError(f"{func} holds no wgmma in its SASS")
-    for name in (*build.F32_FLASH, *F32_LN_KERNELS, *F32_BWD_PRODUCTS):  # mma.sync TF32
+    for name in (*build.F32_FLASH, *F32_BWD_PRODUCTS):  # mma.sync TF32
         sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         out[name] = {"HMMA": sass.count("HMMA"), "HMMA_TF32": sass.count("TF32")}
@@ -2356,11 +2360,22 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("ln_bwd_rows_kernel<0,", "megablock backward, MLP half"),
                 ("ln_bwd_rows_kernel<1,", "megablock backward, LN1 half"),
                 ("ln_bwd_rows_kernel", "megablock backward, LayerNorm rows"),
-                # the f32 kernels (csrc/ln_f32.cuh, ln_bwd_f32.cuh,
+                # the f32 kernels (csrc/ln_f32.cuh, tile_f32.cuh,
                 # wgrad_gemm_f32.cu), before the library test below, which
-                # their `gemm` would match: the LayerNorm forward by its
-                # epilogue (ln_gemm_f32_kernel<LN, EPI, ACT>), the backward's
-                # A . W^T tile by its (dy_gemm_f32_kernel<EPI>)
+                # their `gemm` would match: the A . W^T tile by its epilogue
+                # (tile_f32_kernel<EPI, ACT>), the LayerNorm forward's rows
+                # apart; then a parent's mma.sync forward
+                # (ln_gemm_f32_kernel<LN, EPI, ACT>, ln_stats_f32_kernel) and
+                # A . W^T tile (dy_gemm_f32_kernel<EPI>), which
+                # scripts/kernel_ab.py measures
+                ("tile_f32_kernel<0,", "megablock backward f32: dz1 (A.W^T tile)"),
+                ("tile_f32_kernel<1,", "megablock backward f32: dy2, dy1 (A.W^T tile)"),
+                ("tile_f32_kernel<2,", "megablock backward f32: dao, delta (A.W^T tile)"),
+                ("tile_f32_kernel<3,", "LN->fc1 (f32)"),
+                ("tile_f32_kernel<4,", "linear stage: fc2, out-projection (f32)"),
+                ("tile_f32_kernel<5,", "LN->qkv (f32)"),
+                ("tile_f32_kernel", "f32 A.W^T tile"),
+                ("ln_norm_f32_kernel", "LayerNorm forward rows (f32)"),
                 ("ln_stats_f32_kernel", "LayerNorm forward statistics (f32)"),
                 ("ln_gemm_f32_kernel<true, 0,", "LN->fc1 (f32)"),
                 ("ln_gemm_f32_kernel<false, 1,", "linear stage: fc2, out-projection (f32)"),
@@ -3957,7 +3972,13 @@ F32_LN_META = {"ln_mlp_fc1_f32": ("ln_mlp_fc1_f32.cu", "vitgan_tpu/ops/fused_mlp
                "ln_mlp_linear_f32": ("ln_mlp_linear_f32.cu", "vitgan_tpu/ops/fused_mlp.py:133"),
                "ln_qkv_fwd_f32": ("ln_qkv_fwd_f32.cu", "vitgan_tpu/ops/fused_block.py:408")}
 F32_LN_MAIN = "highres128 G"  # each entry's main record: the megablock's training rows
-F32_LN_SYMBOL = ("ln_gemm_f32_kernel", "ln_stats_f32_kernel")
+# The parts of the CUDA symbols of the entries' kernels that the profiler
+# counts: the LayerNorm rows and the A . W^T tile's forward epilogues (the
+# K-major weight copies, PyTorch's copy kernels, count as the call's other
+# device work); and a parent's mma.sync kernels, which scripts/kernel_ab.py
+# --f32-ln measures.
+F32_LN_SYMBOL = ("ln_norm_f32_kernel", "tile_f32_kernel<3,", "tile_f32_kernel<4,",
+                 "tile_f32_kernel<5,", "ln_gemm_f32_kernel", "ln_stats_f32_kernel")
 
 
 def check_f32_ln_kernels() -> dict:
@@ -4095,7 +4116,7 @@ def check_f32_ln_kernels() -> dict:
     return out
 
 
-# --- the saved backward in f32 (csrc/ln_bwd_f32.cuh, ln_rows.cuh on f32) -----------------
+# --- the saved backward in f32 (csrc/tile_f32.cuh, ln_rows.cuh on f32) ------------------
 
 # (label, (B, N, E, heads, hidden)): highres128's G and D training rows,
 # deit64's ragged batch (E 192, 3 heads of 64) and DeiT-B's G (E 768).
@@ -4107,11 +4128,14 @@ F32_BWD_MAIN = "highres128 G"  # each entry's main record: the megablock's G blo
 # name: (source, the part of its CUDA symbols the profiler counts)
 F32_BWD_META = {
     "megablock_bwd_mask_rows_f32": ("megablock_bwd_mask_rows_f32.cu", ("mask_rows_kernel",)),
-    "megablock_bwd_mlp_dz1_f32": ("megablock_bwd_mlp_dz1_f32.cu", ("dy_gemm_f32_kernel",)),
-    "megablock_bwd_dy_f32": ("megablock_bwd_dy_f32.cu", ("dy_gemm_f32_kernel",)),
+    "megablock_bwd_mlp_dz1_f32": ("megablock_bwd_mlp_dz1_f32.cu",
+                                  ("tile_f32_kernel<0,", "dy_gemm_f32_kernel")),
+    "megablock_bwd_dy_f32": ("megablock_bwd_dy_f32.cu",
+                             ("tile_f32_kernel<1,", "dy_gemm_f32_kernel")),
     "megablock_bwd_mlp_dx1_rows_f32": ("megablock_bwd_mlp_dx1_rows_f32.cu",
                                        ("ln_bwd_rows_kernel",)),
-    "megablock_bwd_mlp_dao_f32": ("megablock_bwd_mlp_dao_f32.cu", ("dy_gemm_f32_kernel",)),
+    "megablock_bwd_mlp_dao_f32": ("megablock_bwd_mlp_dao_f32.cu",
+                                  ("tile_f32_kernel<2,", "dy_gemm_f32_kernel")),
     "megablock_bwd_ln1_rows_f32": ("megablock_bwd_ln1_rows_f32.cu", ("ln_bwd_rows_kernel",)),
     "wgrad_gemm_f32": ("wgrad_gemm_f32.cu", ("wgrad_f32_kernel", "wgrad_reduce_kernel")),
 }
@@ -4889,8 +4913,46 @@ def _saved_f32_fit(run_dir: str) -> dict:
     rec["captured_vs_eager"] = capture
     print("[v2 f32 train saved] where the f32 step's device time goes:")
     rec["breakdown"] = train_breakdown(trainer, rec["ms_per_step"], recompute=False)
+    rec["breakdown"]["kmajor_copies"] = kmajor_copy_ms(cfg, V2_F32_KERNELS["saved"])
     del trainer
     return rec
+
+
+def kmajor_copy_ms(cfg, per_step: dict) -> dict:
+    """The K-major weight copies that the f32 LayerNorm entries' wrappers make
+    in each call (fused_mlp.kmajor, fused_block._qkv_weight_kmajor), a step:
+    their count from the launches a step ``per_step`` (an LN -> fc1 launch
+    copies w1, as many fc2 linear launches w2, the other linear launches
+    wout, an LN -> qkv launch wqkv), each copy's device time alone at the
+    configuration's widths (the profiler over 50 calls; CUDA events around
+    such small calls time the host).  Returns {"copies_per_step",
+    "device_ms_each", "ms_per_step"}, None where not measured."""
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+    from vitgan_tpu_torch.ops import fused_mlp as FM
+
+    v2 = cfg.v2
+    e, hidden, heads = v2.embed_dim, v2.embed_dim * v2.mlp_ratio, v2.num_heads
+    fc1, linear, qkv = (per_step.get(k, 0) for k in F32_LN_KERNELS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    copies = {"w1": (FM.kmajor, (e, hidden), fc1), "w2": (FM.kmajor, (hidden, e), fc1),
+              "wout": (FM.kmajor, (e, e), linear - fc1),
+              "wqkv": (FB._qkv_weight_kmajor, (3, heads, e, e // heads), qkv)}
+    out = {"copies_per_step": {}, "device_ms_each": {}, "ms_per_step": 0.0}
+    for name, (copy, shape, count) in copies.items():
+        w = torch.randn(shape, generator=gen, device="cuda")
+        ms, _ = _device_ms(lambda: copy(w), 50, ("",))  # "": every device op of the call
+        out["copies_per_step"][name] = count
+        out["device_ms_each"][name] = ms
+        out["ms_per_step"] = None if ms is None or out["ms_per_step"] is None else \
+            out["ms_per_step"] + count * ms
+    step = out["ms_per_step"]
+    print(f"[breakdown] K-major weight copies of the f32 LayerNorm entries: "
+          f"{sum(out['copies_per_step'].values())} a step ({out['copies_per_step']}), "
+          f"{_smi()}: device {'not measured' if step is None else f'{step:.3f} ms'} a step "
+          f"(each alone: {out['device_ms_each']})")
+    return out
 
 
 def _deit64_f32_step(run_dir: str) -> dict:

@@ -5,7 +5,8 @@ sum_partials among them) of one tree of the port on the card, with
 chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
-        [--splits | --host | --megablock | --l2 | --ticket | --v1-fused | --f32-bwd]
+        [--splits | --host | --megablock | --l2 | --ticket | --v1-fused | --f32-bwd
+         | --f32-ln]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -61,6 +62,18 @@ and D rows, deit64's ragged batch and DeiT-B's G, each against its plain
 version in full f32 and the bf16 kernel's error, timed beside its bound and
 torch.matmul in TF32 (device time at G), with the card's name and power
 limit.
+
+``--f32-ln`` runs only ``check_f32_ln_kernels``: the LayerNorm family's
+f32 forward entries (LN -> fc1 with z1, the linear stage with the residual
+and a 0.1 mask, LN1 -> qkv) at highres128's serving, G and D rows,
+highres256p4's G, DeiT-B's G and a ragged deit64 batch, each against its
+plain version in full f32 and the bf16 kernel's error, the masks bit-equal,
+timed beside its bound and F.layer_norm + torch.matmul in f32 and TF32
+(device time at G), with the card's name and power limit; then the SHA-256
+of the outputs of the saved backward's three A . W^T tile entries (dz1
+with h1, dy, dao with delta) at highres128's G on seeded inputs
+(``bwd_tile_digest``), so that two trees whose tile code is shared can be
+shown to give the backward the same bits.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -179,6 +192,40 @@ def ticket_times(cs) -> dict:
     return out
 
 
+def bwd_tile_digest(cs) -> dict:
+    """{entry: SHA-256 of its outputs' bytes} of the saved backward's three
+    f32 A . W^T tile entries at highres128's G (32,768 rows, E 384, hidden
+    1,536, 6 heads of 64) on inputs made from chip_smoke's seed."""
+    import hashlib
+
+    import torch
+
+    from vitgan_tpu_torch.ops import fused_block as FB
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 31)
+    b, n, e, heads, hidden = 32, 1024, 384, 6, 1536
+    m = b * n
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    dmlp, z1, w2 = rn(m, e), rn(m, hidden), rn(hidden, e, scale=hidden ** -0.5)
+    dz1, w1 = rn(m, hidden, scale=0.1), rn(e, hidden, scale=e ** -0.5)
+    da, ao, wout = rn(m, e), rn(m, e), rn(e, e, scale=e ** -0.5)
+    calls = {"megablock_bwd_mlp_dz1_f32": lambda: FB.bwd_dz1_stage(dmlp, None, z1, w2)[1:],
+             "megablock_bwd_dy_f32": lambda: (FB.bwd_dy(dz1, w1),),
+             "megablock_bwd_mlp_dao_f32": lambda: FB.bwd_dao_stage(da, ao, wout, b, n, heads)}
+    out = {}
+    for name, call in calls.items():
+        h = hashlib.sha256()
+        for t in call():
+            torch.cuda.synchronize()
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        out[name] = h.hexdigest()
+        print(f"[bwd tile digest] {name}: {out[name]}")
+    return out
+
+
 def host_times(cs, calls: int = 36) -> dict:
     """{form: {"host_ms", "wall_ms"}} for the three LN->MLP forms at their
     main shapes (chip_smoke.LN_MLP_MAIN): with the device synchronised, the
@@ -236,6 +283,7 @@ def main() -> int:
     ap.add_argument("--ticket", action="store_true")
     ap.add_argument("--v1-fused", action="store_true")
     ap.add_argument("--f32-bwd", action="store_true")
+    ap.add_argument("--f32-ln", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -269,6 +317,10 @@ def main() -> int:
     if args.f32_bwd:
         print(json.dumps({"label": label, "card": cs._smi(),
                           "f32_bwd": cs.check_f32_bwd_kernels()}))
+        return 0
+    if args.f32_ln:
+        print(json.dumps({"label": label, "card": cs._smi(), "f32_ln": cs.check_f32_ln_kernels(),
+                          "bwd_tile_digest": bwd_tile_digest(cs)}))
         return 0
     rec = {"label": label,
            "fwd": cs.check_kernels(only=("flash_attn_fwd", "ln_mlp_fwd", "proj_ln_mlp_fwd",

@@ -7,10 +7,15 @@ LN->qkv and the megablock forward), on the CPU.
   `fused_encoder_block` (interpret mode, f32 inputs) at E 32, 128 and 520;
   the port's `fused_encoder_block` (inference form, and with its residuals)
   against the JAX one;
+- the K-major weights the f32 tile reads (fused_mlp.kmajor,
+  fused_block._qkv_weight_kmajor): the weights' transposes, the JAX wqkv's
+  too, and the LN->MLP and the megablock's inference form computed through
+  them against the JAX `fused_ln_mlp` and `fused_encoder_block`;
 - the dtype gate (fused_mlp.kernel_dtype): bf16 and f32, one dtype;
 - the wrappers on meta tensors with the C entries replaced by a recorder:
   f32 calls launch the `_f32` entries with f32 weights and f32 outputs at
-  every E (no wide variant), bf16 calls the bf16 entries as before, the f32
+  every E (no wide variant) and each weight K-major, bf16 calls the bf16
+  entries as before, the f32
   megablock forward asks the flash forward for the (B, N, H*Dh) layout;
 - the training gate: every route, the saved ones included, is the JAX
   package's decision for f32 inputs as for bf16 (read from its jaxpr);
@@ -179,6 +184,78 @@ def test_f32_encoder_block_residuals_match_jax(shape):
     np.testing.assert_allclose(res.lse.numpy(), np.asarray(lsep)[:b, :h, :n], **TOL)
 
 
+# --- the K-major weights the f32 tile reads ----------------------------------------------
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_kmajor_weights_are_the_transposes(shape):
+    """fused_mlp.kmajor(w) is w.t() and fused_block._qkv_weight_kmajor is
+    _qkv_weight(qkv_w, f32).t(), each a contiguous copy; the latter is the
+    JAX package's wqkv (`_pad_params`, unpadded) transposed."""
+    tree, block = _block(shape)
+    e, h = shape["e"], shape["heads"]
+    for w in (block.fc1.w, block.fc2.w, block.msha.out.w):
+        got = FM.kmajor(w.detach())
+        assert got.is_contiguous() and got.data_ptr() != w.data_ptr()
+        assert torch.equal(got, w.detach().t())
+    qkv_w = block.msha.qkv.detach()
+    got = FB._qkv_weight_kmajor(qkv_w)
+    assert got.is_contiguous() and got.data_ptr() != qkv_w.data_ptr()
+    assert got.dtype == f32 and got.shape == (3 * e, e)
+    assert torch.equal(got, FB._qkv_weight(qkv_w, f32).t())
+    pads = JFB._pad_params(jax.tree.map(jnp.asarray, tree), h, jnp.float32)[3]
+    np.testing.assert_array_equal(got.t().numpy(), np.asarray(pads["wqkv"])[:e, :3 * e])
+
+
+def _ln(x, s, b, eps=1e-5):
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * s + b
+
+
+@pytest.mark.parametrize("activation", list(FM.ACTIVATIONS))
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_f32_ln_mlp_through_kmajor_weights_matches_jax(shape, activation):
+    """LN -> fc1 -> act -> fc2 + x in f32 with each product read as the f32
+    tile reads it, y . (w K-major)^T, equals the JAX fused_ln_mlp."""
+    tree, block = _block(shape)
+    xn = _x(shape).reshape(-1, shape["e"])
+    ln_s, ln_b, w1, b1, w2, b2 = _mlp_args(block)
+    x = torch.from_numpy(xn)
+    with torch.no_grad():
+        z1 = _ln(x, ln_s, ln_b) @ FM.kmajor(w1).t() + b1
+        got = x + FM._act(activation)(z1) @ FM.kmajor(w2).t() + b2
+    jargs = [tree["ln2"]["scale"], tree["ln2"]["bias"], tree["fc1"]["w"], tree["fc1"]["b"],
+             tree["fc2"]["w"], tree["fc2"]["b"]]
+    want = jax_fused_ln_mlp(jnp.asarray(xn), *map(jnp.asarray, jargs), activation, 1e-5, True,
+                            256, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_f32_encoder_block_through_kmajor_weights_matches_jax(shape):
+    """The megablock's f32 inference form with every product read K-major
+    (LN1 -> qkv through _qkv_weight_kmajor, the out-projection, fc1 and fc2
+    through kmajor) equals the JAX fused_encoder_block in interpret mode."""
+    tree, block = _block(shape)
+    xn = _x(shape)
+    b, n, e, h = shape["b"], shape["n"], shape["e"], shape["heads"]
+    want = np.asarray(JFB.fused_encoder_block(jnp.asarray(xn), jax.tree.map(jnp.asarray, tree),
+                                              num_heads=h, group=1, interpret=True))
+    x = torch.from_numpy(xn)
+    ln_s, ln_b, w1, b1, w2, b2 = _mlp_args(block)
+    with torch.no_grad():
+        qkv = (_ln(x, block.ln1.scale, block.ln1.bias)
+               @ FB._qkv_weight_kmajor(block.msha.qkv).t() + FB._qkv_bias(block))
+        qkv = qkv.reshape(b, n, 3, h, e // h).permute(2, 0, 3, 1, 4)
+        ao = FB.attention_reference(qkv[0], qkv[1], qkv[2], "dot", float(e // h))
+        ao = ao.transpose(1, 2).reshape(b, n, e)
+        x1 = x + ao @ FM.kmajor(block.msha.out.w).t() + block.msha.out.b
+        z1 = _ln(x1, ln_s, ln_b) @ FM.kmajor(w1).t() + b1
+        got = x1 + FM._act("gelu")(z1) @ FM.kmajor(w2).t() + b2
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 # --- the dtype gate ------------------------------------------------------------------------
 
 
@@ -253,12 +330,24 @@ def test_kernel_dtype_takes_bf16_and_f32_and_names_the_item_otherwise(recorded):
 
 
 @pytest.mark.parametrize("e", [32, 520])
-def test_f32_wrappers_launch_the_f32_entries(recorded, e):
+def test_f32_wrappers_launch_the_f32_entries(recorded, monkeypatch, e):
     """Each f32 stage launches its `_f32` entry once, with the C signature's
     argument count, f32 weights and f32 outputs, at E 32 and 520 alike (the
     f32 kernels stream every E: ``wide`` does not apply); the forms count
-    their calls as in bf16."""
+    their calls as in bf16.  Each f32 launch is handed its weight K-major,
+    copied in the call (fused_mlp.kmajor, fused_block._qkv_weight_kmajor)."""
     calls, dtypes = recorded
+    copies = []
+
+    def recording(copy):
+        def fn(*args):
+            out = copy(*args)
+            copies.append(tuple(out.shape))
+            return out
+        return fn
+
+    monkeypatch.setattr(FM, "kmajor", recording(FM.kmajor))
+    monkeypatch.setattr(FB, "_qkv_weight_kmajor", recording(FB._qkv_weight_kmajor))
     m, hidden, seed = 34, 2 * e, torch.zeros(1, dtype=torch.int64, device="meta")
     a = torch.empty(m, e, device="meta")
     w1, b1 = torch.zeros(e, hidden), torch.zeros(hidden)
@@ -284,6 +373,9 @@ def test_f32_wrappers_launch_the_f32_entries(recorded, e):
                             torch.zeros(3 * e), wide=True)
     assert qkv.dtype == f32 and qkv.shape == (3, 2, heads, 17, e // heads)
     assert [c[0] for c in calls] == ["ln_qkv_fwd_f32"]
+    # w1 twice, w2, then the forms' w1, w2 and wout (E, E), w1, w2; wqkv
+    assert copies == [(hidden, e)] * 2 + [(e, hidden), (hidden, e), (e, hidden), (e, e),
+                                          (hidden, e), (e, hidden), (3 * e, e)]
     assert set(dtypes) == {f32}
     assert _launched() == {"ln_mlp_fc1_f32": 4, "ln_mlp_linear_f32": 4, "ln_qkv_fwd_f32": 1,
                            "ln_mlp_fwd": 1, "proj_ln_mlp_fwd": 1}

@@ -48,7 +48,7 @@ SYMBOLS = _symbols()
 
 def test_the_sources_hold_the_kernels_the_breakdown_names():
     names = {re.search(r"::(\w+)[<(]", s).group(1) for s in SYMBOLS}
-    assert {"dy_gemm_f32_kernel", "ln_gemm_f32_kernel", "ln_stats_f32_kernel",
+    assert {"tile_f32_kernel", "ln_norm_f32_kernel",
             "wgrad_f32_kernel", "ln_bwd_rows_kernel", "mask_rows_kernel",
             "megablock_bwd_mlp_rows_kernel", "flash_fwd_f32_kernel"} <= names
     assert len(names) >= 25
@@ -61,18 +61,22 @@ def test_every_port_kernel_takes_a_port_label(symbol):
 
 
 @pytest.mark.parametrize("symbol,label", [
-    ("void vk::bwdf32::dy_gemm_f32_kernel<0>(CUtensorMap_st, vk::bwdf32::Params)",
-     "megablock backward f32: dz1 (A.W^T tile)"),
-    ("void vk::bwdf32::dy_gemm_f32_kernel<1>(CUtensorMap_st, vk::bwdf32::Params)",
-     "megablock backward f32: dy2, dy1 (A.W^T tile)"),
-    ("void vk::bwdf32::dy_gemm_f32_kernel<2>(CUtensorMap_st, vk::bwdf32::Params)",
-     "megablock backward f32: dao, delta (A.W^T tile)"),
-    ("void vk::lnf32::ln_gemm_f32_kernel<true, 0, 0>(vk::lnf32::Params)", "LN->fc1 (f32)"),
-    ("void vk::lnf32::ln_gemm_f32_kernel<false, 1, 0>(vk::lnf32::Params)",
-     "linear stage: fc2, out-projection (f32)"),
-    ("void vk::lnf32::ln_gemm_f32_kernel<true, 2, 0>(vk::lnf32::Params)", "LN->qkv (f32)"),
-    ("void vk::lnf32::ln_stats_f32_kernel(float const*, int, int, float, float2*)",
-     "LayerNorm forward statistics (f32)"),
+    ("void vk::tilef32::tile_f32_kernel<0, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "megablock backward f32: dz1 (A.W^T tile)"),
+    ("void vk::tilef32::tile_f32_kernel<1, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "megablock backward f32: dy2, dy1 (A.W^T tile)"),
+    ("void vk::tilef32::tile_f32_kernel<2, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "megablock backward f32: dao, delta (A.W^T tile)"),
+    ("void vk::tilef32::tile_f32_kernel<3, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "LN->fc1 (f32)"),
+    ("void vk::tilef32::tile_f32_kernel<3, 2>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "LN->fc1 (f32)"),
+    ("void vk::tilef32::tile_f32_kernel<4, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "linear stage: fc2, out-projection (f32)"),
+    ("void vk::tilef32::tile_f32_kernel<5, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, vk::tilef32::Params)", "LN->qkv (f32)"),
+    ("void vk::lnf32::ln_norm_f32_kernel(float const*, float const*, float const*, int, int, "
+     "float, float*)", "LayerNorm forward rows (f32)"),
     ("void vk::wgradf32::wgrad_f32_kernel(float const*, float const*, float*, float*, int, "
      "int, int, int)", "weight-gradient products (f32)"),
     ("void vk::wgrad::wgrad_reduce_kernel(float const*, float*, int, long)",

@@ -1231,7 +1231,7 @@ def test_ln_fc1_stage_takes_each_activation_on_card(activation, wide):
     assert (out.float() - want.float()).abs().max().item() <= tol
 
 
-# --- the LayerNorm family's f32 forward (csrc/ln_f32.cuh) -------------------------------
+# --- the LayerNorm family's f32 forward (csrc/ln_f32.cuh on tile_f32.cuh's tile) ---------
 
 # (batch, tokens, E, heads, hidden): tiles straddling samples and the 128-row
 # edge at E 64 and 192 (the bf16 route's resident kernels), 520 and 768 (its
@@ -1253,13 +1253,15 @@ def _f32_ln_close(got, want, bf16_got, what: str) -> None:
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", F32_LN_SHAPES, ids=F32_LN_IDS)
 def test_f32_ln_stages_match_plain_on_card(shape, _full_f32):
-    """The f32 entries against their plain versions in full f32: LN -> fc1
-    (h and z1), the linear stage with a residual and a 0.1 dropout mask,
-    LN1 -> qkv into (3, B, H, N, Dh); each output within F32_RTOL * max(1,
-    max|plain|), under half the bf16 kernel's error, bit-equal across two
-    calls; one kernel at every E (no LN rows launch), each launch counted
-    under its _f32 name; the f32 mask bit-equal to the plain mask and to the
-    bf16 stage's, at one rank and under a data-parallel row map."""
+    """The f32 entries (the A . W^T tile's kFc1, kLinear and kQkv epilogues)
+    against their plain versions in full f32: LN -> fc1 (h and z1, and h
+    alone) with each activation, the linear stage with and without a
+    residual and a 0.1 dropout mask, LN1 -> qkv into (3, B, H, N, Dh); each
+    output within F32_RTOL * max(1, max|plain|), under half the bf16
+    kernel's error, bit-equal across two calls; one entry at every E (no
+    bf16 LN rows launch), each launch counted under its _f32 name; the f32
+    mask bit-equal to the plain mask and to the bf16 stage's, at one rank
+    and under a data-parallel row map."""
     _cuda_or_skip()
     b, n, e, heads, hidden = shape
     x, _, params, seed = _mb_inputs(b, n, e, heads, hidden)
@@ -1278,6 +1280,15 @@ def test_f32_ln_stages_match_plain_on_card(shape, _full_f32):
                                                                         "z1")):
         _f32_ln_close(got, w_, b_, f"fc1 {what}")
         assert torch.equal(got, again)
+    for act in ("relu", "tanh", "sigmoid"):  # h alone: no z1 stored
+        h, z1 = FM.ln_fc1_stage(rows, ln_s, ln_b, w1, b1, activation=act)
+        again, _ = FM.ln_fc1_stage(rows, ln_s, ln_b, w1, b1, activation=act)
+        want = FM.ln_fc1_stage_reference(rows, ln_s, ln_b, w1, b1, dtype=torch.float32,
+                                         activation=act)[0]
+        bf16 = FM.ln_fc1_stage(rows.bfloat16(), ln_s, ln_b, w1, b1, activation=act)[0]
+        assert z1 is None
+        _f32_ln_close(h, want, bf16, f"fc1 {act} h")
+        assert torch.equal(h, again)
     out, mask = FM.linear_stage(a, w2, b2, rows, seed, 0.1, 1)
     again, _ = FM.linear_stage(a, w2, b2, rows, seed, 0.1, 1)
     plain_mask = FB.dropout_mask(seed, 1, (m, e), 0.1)
@@ -1285,6 +1296,15 @@ def test_f32_ln_stages_match_plain_on_card(shape, _full_f32):
     _f32_ln_close(out, FM.linear_stage_reference(a, w2, b2, rows, plain_mask, torch.float32),
                   bout, "linear")
     assert torch.equal(out, again) and torch.equal(mask, plain_mask) and torch.equal(mask, bmask)
+    for res, rate in ((None, 0.1), (rows, 0.0), (None, 0.0)):  # the epilogue's other forms
+        out, mask = FM.linear_stage(a, w2, b2, res, seed, rate, 1)
+        again, _ = FM.linear_stage(a, w2, b2, res, seed, rate, 1)
+        bout, _ = FM.linear_stage(a.bfloat16(), w2, b2, None if res is None else res.bfloat16(),
+                                  seed, rate, 1)
+        pm = plain_mask if rate else None
+        _f32_ln_close(out, FM.linear_stage_reference(a, w2, b2, res, pm, torch.float32), bout,
+                      f"linear res {res is not None} rate {rate}")
+        assert torch.equal(out, again) and (mask is None if not rate else torch.equal(mask, pm))
     mapped = (n, b, 4 * b, b)  # this rank's samples are samples b.. of a global batch of 4 b
     _, m32 = FM.linear_stage(a, w2, b2, rows, seed, 0.1, 1, mapped)
     _, m16 = FM.linear_stage(a.bfloat16(), w2, b2, rows.bfloat16(), seed, 0.1, 1, mapped)
@@ -1295,7 +1315,49 @@ def test_f32_ln_stages_match_plain_on_card(shape, _full_f32):
     _f32_ln_close(qkv, FB._ln_qkv_reference(x, ln1s, ln1b, qkv_w, qkv_b.reshape(-1)), bqkv, "qkv")
     assert torch.equal(qkv, again)
     f32_launches = {k: v for k, v in build.LAUNCHES.items() if v and k.endswith("_f32")}
-    assert f32_launches == {"ln_mlp_fc1_f32": 2, "ln_mlp_linear_f32": 3, "ln_qkv_fwd_f32": 2}
+    assert f32_launches == {"ln_mlp_fc1_f32": 8, "ln_mlp_linear_f32": 9, "ln_qkv_fwd_f32": 2}
+
+
+@pytest.mark.cuda
+def test_f32_ln_fc1_captured_reads_the_weight_of_each_replay(_full_f32):
+    """The f32 LN -> fc1 entry captured in a CUDA graph: w1 updated in place
+    after the capture, the replay gives the eager result on the new weight
+    bit for bit (its K-major copy is made inside the call, so the graph
+    copies w1 anew on each replay); so does the linear stage on w2."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    m, e, hidden = 2 * 257, 192, 768
+    x = torch.randn(m, e, device="cuda", generator=gen)
+    ln_s = 1.0 + 0.1 * torch.randn(e, device="cuda", generator=gen)
+    ln_b = 0.1 * torch.randn(e, device="cuda", generator=gen)
+    w1 = torch.randn(e, hidden, device="cuda", generator=gen) * e ** -0.5
+    b1 = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    w2 = torch.randn(hidden, e, device="cuda", generator=gen) * hidden ** -0.5
+
+    def step():
+        h, z1 = FM.ln_fc1_stage(x, ln_s, ln_b, w1, b1, want_z1=True)
+        out, _ = FM.linear_stage(h, w2, ln_b, x)
+        return h, z1, out
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # the libraries built and loaded before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for i in range(2):
+        with torch.no_grad():
+            w1.add_(0.01 * torch.randn(e, hidden, device="cuda", generator=gen))
+            w2.mul_(1.0 + 0.1 * (i + 1))
+        graph.replay()
+        eager = step()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    want = FM.ln_fc1_stage_reference(x, ln_s, ln_b, w1, b1, dtype=torch.float32)
+    assert _worst(captured[0], want[0], own=False) <= F32_RTOL
 
 
 @pytest.mark.cuda
@@ -1346,7 +1408,7 @@ def test_f32_flash_forward_writes_the_megablock_layout_on_card(_full_f32):
     assert torch.equal(attn, o.transpose(1, 2).reshape(2, 257, 3 * 64)) and torch.equal(lse, lse2)
 
 
-# --- the saved backward in f32 (csrc/ln_bwd_f32.cuh) -------------------------------------
+# --- the saved backward in f32 (csrc/tile_f32.cuh, ln_rows.cuh) --------------------------
 
 # (B, N, E, heads, hidden): deit64's ragged rows (E 192, Dh 64), a wide E 520
 # with Dh 104 (blocks of one head), one head of 64 over 130 rows.
@@ -1467,7 +1529,7 @@ def test_f32_saved_backward_matches_its_plain_composition_on_card(shape, rate, _
         launched
 
 
-# --- the f32 A . W^T tile on TF32 wgmma (csrc/ln_bwd_f32.cuh) -----------------------------
+# --- the f32 A . W^T tile on TF32 wgmma (csrc/tile_f32.cuh) -------------------------------
 
 # (B, N, E, heads, hidden): chip_smoke.F32_BWD_SHAPES (highres128's G and D
 # rows, deit64's ragged batch, DeiT-B's G), then a summed width that is not a

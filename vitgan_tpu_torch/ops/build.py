@@ -87,17 +87,19 @@ SIGNATURES = {
     "flash_attn_fwd_f32": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _I, _P],
 }
 # The f32 flash backward entries take their bf16 entry's arguments (grid
-# unread); so does the f32 linear stage.  The LayerNorm family's f32 forward
-# entries (csrc/ln_f32.cuh, each its own source) stream any E: they have no
+# unread); so does the f32 linear stage, its weight K-major (N, K).  The
+# LayerNorm family's f32 forward entries (csrc/ln_f32.cuh on
+# csrc/tile_f32.cuh's tile, each its own source) stream any E: they have no
 # wide variant.
 SIGNATURES.update({f"{name}_f32": SIGNATURES[name] for name in (
     "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_attn_bwd_fused", "ln_mlp_linear")})
-# The LayerNorm entries add the rows' (mean, rstd) scratch after the outputs:
-# a, ln_s, ln_b, w1, b1, h, z1, stats, m, e, hidden, eps, act, stream
+# The LayerNorm entries take their weight K-major and add the LayerNorm rows'
+# f32 scratch y (M, E) after the outputs:
+# a, ln_s, ln_b, w1t, b1, h, z1, y, m, e, hidden, eps, act, stream
 SIGNATURES["ln_mlp_fc1_f32"] = [_P] * 8 + [_I] * 3 + [_F, _I, _P]
-# x, ln_s, ln_b, w, bias, qkv, stats, batch, n, e, heads, dh, eps, stream
+# x, ln_s, ln_b, wt, bias, qkv, y, batch, n, e, heads, dh, eps, stream
 SIGNATURES["ln_qkv_fwd_f32"] = [_P] * 7 + [_I] * 5 + [_F, _P]
-# The saved backward's f32 entries (csrc/ln_bwd_f32.cuh's A . W^T tile,
+# The saved backward's f32 entries (csrc/tile_f32.cuh's A . W^T tile,
 # wgrad_gemm_f32.cu and ln_rows.cuh's rows on f32, each entry its own source) take their bf16
 # entry's arguments, the dz1 entry the wide dz1's (dmlp formed first by the
 # mask rows): every E in one kernel, no wide variant.

@@ -1,7 +1,7 @@
 // Hopper-only helpers (sm_90a) of the port's redesigned kernels
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
 // ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu,
-// flash_l2.cuh and its `l2` kernels, ln_bwd_f32.cuh's TF32 tile): mbarrier
+// flash_l2.cuh and its `l2` kernels, tile_f32.cuh's TF32 tile): mbarrier
 // rings fed by TMA (tensor or 1-D bulk copies) or by cp.async, TMA tensor and
 // 1-D bulk stores, wgmma descriptors and products (bf16, and TF32 on f32
 // bits), warpgroup fences, acquire/release flags, register hand-over and the

@@ -3,7 +3,7 @@
 // memory, done here on rows in device memory, so that E has no bound but
 // TMA's multiple of 8.  Three kernels, each a plain grid of 256-thread blocks
 // (mask_rows_kernel and ln_bwd_rows_kernel templated on the rows' element
-// type: bf16, or f32 for the saved backward in f32, ln_bwd_f32.cuh, where
+// type: bf16, or f32 for the saved backward in f32 beside tile_f32.cuh, where
 // they serve every E):
 //   ln_rows_kernel: y = LN(x) in bf16 (LN -> fc1 and LN -> qkv; the streamed
 //       products then read y as any activation);

@@ -1,10 +1,10 @@
-// The MLP half's dao and delta in f32 for Hopper (sm_90a): ln_bwd_f32.cuh's
+// The MLP half's dao and delta in f32 for Hopper (sm_90a): tile_f32.cuh's
 // A . W^T tile on TF32 wgmma with the kDao epilogue.  Replaces, at f32
 // inputs, dao = da . wout^T and the flash backward's delta = each head's sum
 // of dao * ao in `_bwd_kernel` (vitgan_tpu/ops/fused_block.py:559-561 and
 // :602, pallas_call at :700).  Bound on this card: bytes at highres128's G
-// (ln_bwd_f32.cuh).
-#include "ln_bwd_f32.cuh"
+// (tile_f32.cuh).
+#include "tile_f32.cuh"
 
 // dao (batch, heads, n, dh) f32 = da . wout^T and delta (batch, heads, n) f32
 // = the sum over each head's dh columns of dao * ao.  da: (batch n, e) f32;
@@ -14,7 +14,7 @@
 extern "C" int megablock_bwd_mlp_dao_f32(const void* da, const void* ao, const void* wout,
                                          void* dao, void* delta, int batch, int n, int e,
                                          int heads, int dh, void* stream) {
-  using namespace vk::bwdf32;
+  using namespace vk::tilef32;
   if (batch < 0 || n < 1 || heads < 1 || dh < 8 || dh % 8 || dh > BN ||
       (long)batch * n > 0x7fffffffL || !dims_ok(batch * n, e, heads * dh))
     return (int)cudaErrorInvalidValue;

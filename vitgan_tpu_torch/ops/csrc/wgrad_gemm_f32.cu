@@ -1,7 +1,7 @@
 // Weight gradients of the saved-residual megablock backward in f32 for
-// Hopper (sm_90a): wgrad_f32_kernel (on ln_f32.cuh's mma.sync TF32 tile
-// core: 8 warps, a 128 x 128 tile, 64 x 32 a warp, two cp.async stages of 32
-// rows, each operand rounded with cvt.rna as it lands), over ops/wgrad.plan's
+// Hopper (sm_90a): wgrad_f32_kernel (an mma.sync TF32 tile core: 8 warps, a
+// 128 x 128 tile, 64 x 32 a warp, two cp.async stages of 32 rows, each
+// operand rounded with cvt.rna as it lands), over ops/wgrad.plan's
 // row splits, then wgrad_reduce.cuh's fixed-order sum of the partials.
 // Replaces, at f32 inputs, the parameter-gradient accumulation of
 // `_bwd_kernel` (vitgan_tpu/ops/fused_block.py:531-620, pallas_call at :700):
@@ -20,7 +20,7 @@
 // rounded, a thread its four columns over its rows, then the eight threads
 // of a column group in order through shared memory.  No atomics: two calls
 // give the same bits.
-#include "ln_f32.cuh"
+#include "flash_f32.cuh"
 #include "wgrad_reduce.cuh"
 
 namespace vk {
@@ -28,12 +28,21 @@ namespace wgradf32 {
 
 using f32::bits;
 using f32::mma;
-using lnf32::BK;
-using lnf32::BM;
-using lnf32::BN;
-using lnf32::round4;
-using lnf32::store2;
-using lnf32::THREADS;
+using f32::tf32;
+
+constexpr int BM = 128;       // dW rows (A's columns) a block
+constexpr int BN = 128;       // dW columns (B's columns) a block
+constexpr int BK = 32;        // summed rows a stage
+constexpr int THREADS = 256;  // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
+
+__device__ inline float4 round4(float4 v) {
+  return make_float4(__uint_as_float(tf32(v.x)), __uint_as_float(tf32(v.y)),
+                     __uint_as_float(tf32(v.z)), __uint_as_float(tf32(v.w)));
+}
+
+__device__ inline void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
 
 // --- dW = A^T . B, db = column sums of B ---------------------------------------------
 

@@ -31,13 +31,13 @@ carry the JAX names (`encoder_block_fused[_dropout][_saved]`), and
 widths that are not multiples of 8 (TMA's 16-byte strides).
 
 Forward and backward take bf16 or f32 (fused_mlp.kernel_dtype): f32 runs
-LN->qkv and the LN->MLP stages on csrc/ln_f32.cuh's kernels (ln_qkv_fwd_f32,
-ln_mlp_fc1_f32, ln_mlp_linear_f32) and attention on the f32 flash forward,
-written in the (B, N, H*Dh) layout; the saved-residual backward on
-csrc/ln_bwd_f32.cuh's A . W^T tile on TF32 wgmma (dz1, dy2 and dy1, dao with
-delta), wgrad_gemm_f32.cu's weight gradients and ln_rows.cuh's rows on f32
-(dmlp = g * m2, the LN2 and LN1 backward), handing dmlp, dz1, dy2, da and
-dy1 between them in f32.
+LN->qkv and the LN->MLP stages on csrc/ln_f32.cuh's entries (ln_qkv_fwd_f32,
+ln_mlp_fc1_f32, ln_mlp_linear_f32: csrc/tile_f32.cuh's A . W^T tile on TF32
+wgmma with the weights K-major) and attention on the f32 flash forward,
+written in the (B, N, H*Dh) layout; the saved-residual backward on the same
+tile (dz1, dy2 and dy1, dao with delta), wgrad_gemm_f32.cu's weight
+gradients and ln_rows.cuh's rows on f32 (dmlp = g * m2, the LN2 and LN1
+backward), handing dmlp, dz1, dy2, da and dy1 between them in f32.
 
 LN->qkv, the LN2 -> fc1 stage and the backward's dz1, dx1 and dao stages and
 LN1 half hold a tile's rows whole on chip, so they take E <= 384 in bf16.  A wider
@@ -79,6 +79,14 @@ def _qkv_weight(qkv_w, dtype):
     `_pad_params` lays them out (fused_block.py:280)."""
     _, h, e, dh = qkv_w.shape
     return qkv_w.permute(2, 0, 1, 3).reshape(e, 3 * h * dh).to(dtype)
+
+
+def _qkv_weight_kmajor(qkv_w):
+    """(3, H, E, Dh) -> (3*H*Dh, E): `_qkv_weight` K-major, rows in its column
+    order, as the f32 tile reads it (csrc/tile_f32.cuh); one copy, made in
+    each call (fused_mlp.kmajor)."""
+    _, h, e, dh = qkv_w.shape
+    return qkv_w.permute(0, 1, 3, 2).reshape(3 * h * dh, e)
 
 
 def _qkv_bias(p):
@@ -136,8 +144,9 @@ def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5, wide: 
     """Launch LN1 -> qkv on a bf16 or f32 CUDA x (B, N, E); returns the
     (3, B, H, N, Dh) q/k/v in x's dtype.  bf16 runs csrc/ln_qkv_fwd.cu, and
     E > 384 (or ``wide``) its wide variant: fused_mlp.ln_rows, then
-    :func:`qkv_stage`.  f32 runs csrc/ln_qkv_fwd_f32.cu, whose x tiles
-    stream at every E: ``wide`` is accepted and does not apply."""
+    :func:`qkv_stage`.  f32 runs csrc/ln_qkv_fwd_f32.cu (the LayerNorm rows
+    into an f32 scratch, then the tile on :func:`_qkv_weight_kmajor`), which
+    streams every E: ``wide`` is accepted and does not apply."""
     _on_card("ln_qkv_forward", x)
     dt = kernel_dtype("LN->qkv kernel", x)
     b, n, e = x.shape
@@ -151,14 +160,16 @@ def ln_qkv_forward(x, ln_scale, ln_bias, qkv_w, qkv_b, eps: float = 1e-5, wide: 
                          qkv_w, qkv_b)
     dev, f32 = x.device, torch.float32
     x2 = build.aligned16(x.contiguous())
-    w, bias, ln_s, ln_b = _operands(dev, (_qkv_weight(qkv_w, dt), dt), (qkv_b, f32),
-                                    (ln_scale, f32), (ln_bias, f32))
+    # f32: the weight K-major
+    weight = _qkv_weight_kmajor(qkv_w) if dt == f32 else _qkv_weight(qkv_w, dt)
+    w, bias, ln_s, ln_b = _operands(dev, (weight, dt), (qkv_b, f32), (ln_scale, f32),
+                                    (ln_bias, f32))
     out = torch.empty((3, b, h, n, dh), dtype=dt, device=dev)
     name = _entry_name("ln_qkv_fwd", dt)
     fn = build.entry(name)
-    # f32: the rows' (mean, rstd), which the entry's first kernel writes
-    stats = torch.empty((b * n, 2), dtype=f32, device=dev) if dt == f32 else None
-    extra = [] if stats is None else [build.ptr(stats)]
+    # f32: the LayerNorm rows, which the entry's first kernel writes
+    y = torch.empty((b * n, e), dtype=f32, device=dev) if dt == f32 else None
+    extra = [] if y is None else [build.ptr(y)]
     build.check(fn, fn(build.ptr(x2), build.ptr(ln_s), build.ptr(ln_b), build.ptr(w),
                        build.ptr(bias), build.ptr(out), *extra, b, n, e, h, dh, float(eps),
                        build.stream_ptr(dev)))

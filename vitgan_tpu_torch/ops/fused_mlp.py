@@ -27,10 +27,12 @@ same product and epilogue.  Every width that is a multiple of 8 has a kernel.
 
 The stages take bf16 or f32 activations (:func:`kernel_dtype`), as the TPU
 kernel computes in its input dtype.  f32 calls launch csrc/ln_f32.cuh's
-kernels (csrc/ln_mlp_fc1_f32.cu, csrc/ln_mlp_linear_f32.cu: TF32 products,
-f32 LayerNorm, epilogues and outputs), counted as "ln_mlp_fc1_f32" and
-"ln_mlp_linear_f32"; their A tiles stream, so one kernel takes every E and
-``wide`` does not apply to them.
+entries (csrc/ln_mlp_fc1_f32.cu, csrc/ln_mlp_linear_f32.cu: the LayerNorm
+rows in f32, then csrc/tile_f32.cuh's TF32 wgmma tile with the fc1 or linear
+epilogue), counted as "ln_mlp_fc1_f32" and "ln_mlp_linear_f32"; their rows
+stream, so one kernel takes every E and ``wide`` does not apply to them.
+The tile reads its weight K-major: each f32 call hands it :func:`kmajor`'s
+copy, made anew in the call.
 """
 
 from __future__ import annotations
@@ -193,10 +195,18 @@ def _operands(dev, *pairs):
             for t, dt in pairs]
 
 
+def kmajor(w):
+    """A (K, N) weight's K-major copy (N, K): the f32 tile reads both operands
+    K-major (csrc/tile_f32.cuh).  Made in each call: a copy kept beside the
+    parameter would go stale where a captured step's optimizer updates the
+    weight in place between replays."""
+    return w.t().contiguous()
+
+
 def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: int = 0,
                  rows=None):
     """Launch the linear stage on bf16 or f32 CUDA rows a (M, K), w (K, N)
-    (ln_mlp_fwd.cu's, or ln_mlp_linear_f32.cu's in f32): (out, mask) with
+    (ln_mlp_fwd.cu's, or ln_mlp_linear_f32.cu's on w K-major in f32): (out, mask) with
     out = [res +] [mask *] (a . w + bias) (M, N) in a's dtype and, for
     ``rate > 0``, the f32 multiply-mask of Philox stream ``mask_id`` drawn
     from the one-element int64 ``seed`` (else None), the same bits in either
@@ -221,8 +231,9 @@ def linear_stage(a, w, bias, res=None, seed=None, rate: float = 0.0, mask_id: in
             raise ValueError("dropout needs a one-element int64 seed on the activations' device")
         mask = torch.empty((m, n), dtype=torch.float32, device=dev)
     # every operand bound to a name until the launch: a temporary freed
-    # earlier could hand its memory to the next one
-    wk, biasf = _operands(dev, (w, dt), (bias, torch.float32))
+    # earlier could hand its memory to the next one; f32 takes w K-major
+    wk, biasf = _operands(dev, (kmajor(w) if dt == torch.float32 else w, dt),
+                          (bias, torch.float32))
     out = torch.empty((m, n), dtype=dt, device=dev)
     name = _entry_name("ln_mlp_linear", dt)
     fn = build.entry(name)
@@ -284,9 +295,9 @@ def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False
     """Launch the LN -> fc1 -> act stage on bf16 or f32 CUDA rows a (M, E):
     (h, z1) (M, hidden) in a's dtype, z1 None unless ``want_z1``.  bf16 runs
     ln_mlp_fwd.cu's stage, and E > 384 (or ``wide``) its wide variant,
-    :func:`ln_rows` then :func:`fc1_stage`.  f32 runs ln_mlp_fc1_f32.cu,
-    whose A tiles stream at every E: ``wide`` is accepted and does not
-    apply."""
+    :func:`ln_rows` then :func:`fc1_stage`.  f32 runs ln_mlp_fc1_f32.cu
+    (the LayerNorm rows into an f32 scratch, then the tile on w1 K-major),
+    which streams every E: ``wide`` is accepted and does not apply."""
     _act(activation)
     a = _kernel_rows(a, "ln_fc1_stage")
     dt = kernel_dtype("ln_fc1_stage", a)
@@ -301,14 +312,15 @@ def ln_fc1_stage(a, ln_s, ln_b, w1, b1, eps: float = 1e-5, want_z1: bool = False
         return fc1_stage(ln_rows(a, ln_s, ln_b, eps), w1, b1, want_z1, activation)
     dev = a.device
     f32 = torch.float32
-    w1k, ln_sf, ln_bf, b1f = _operands(dev, (w1, dt), (ln_s, f32), (ln_b, f32), (b1, f32))
+    w1k, ln_sf, ln_bf, b1f = _operands(dev, (kmajor(w1) if dt == f32 else w1, dt), (ln_s, f32),
+                                       (ln_b, f32), (b1, f32))
     h = torch.empty((m, hidden), dtype=dt, device=dev)
     z1 = torch.empty_like(h) if want_z1 else None
     name = _entry_name("ln_mlp_fc1", dt)
     fn = build.entry(name)
-    # f32: the rows' (mean, rstd), which the entry's first kernel writes
-    stats = torch.empty((m, 2), dtype=f32, device=dev) if dt == f32 else None
-    extra = [] if stats is None else [build.ptr(stats)]
+    # f32: the LayerNorm rows, which the entry's first kernel writes
+    y = torch.empty((m, e), dtype=f32, device=dev) if dt == f32 else None
+    extra = [] if y is None else [build.ptr(y)]
     build.check(fn, fn(build.ptr(a), build.ptr(ln_sf), build.ptr(ln_bf), build.ptr(w1k),
                        build.ptr(b1f), build.ptr(h), build.ptr(z1), *extra, m, e, hidden,
                        float(eps), ACT_ID[activation], build.stream_ptr(dev)))
