@@ -365,14 +365,15 @@
    line are the highres128 preset fit's.
 42. [f32 bwd kernels] (after [f32 ln kernels]): the saved backward's f32
    entries (csrc/tile_f32.cuh's products: dz1 with h1, dy2 and dy1, dao
-   with delta, wgrad_gemm_f32; ln_rows.cuh's rows on f32: dmlp = g * m2, the
+   with delta; wgrad_gemm_f32's A^T . B over stages re-laid K-major on
+   chip; ln_rows.cuh's rows on f32: dmlp = g * m2, the
    LN2 and LN1 backward) at highres128's G and D rows, deit64's ragged batch
    and DeiT-B's G against their plain versions in full f32: each output
    within F32_RTOL * max(1, max|plain|), at most half the bf16 kernel's
    error on the same inputs, bit-equal across two calls; timed beside the
    TF32 bound, the plain version and torch.matmul of the products in TF32
-   (SASS: the A . W^T tile's three sources TF32 HGMMA with UTMALDG and no
-   HMMA, wgrad_gemm_f32 TF32 HMMA).
+   (SASS: the A . W^T tile's three sources and wgrad_gemm_f32 TF32 HGMMA
+   with UTMALDG and no HMMA).
 Highres128's preset sets runtime.remat='attn' (the JAX preset's): every phase
 that trains it re-runs the megablock's training forward once a block in the
 backward, and its launches a step are taken from train_kernels.
@@ -571,12 +572,13 @@ def _ptxas_warnings(log: str) -> list:
 
 
 # The sources redesigned for Hopper's wgmma and TMA: their SASS must hold
-# HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; the f32 A . W^T
-# tile's (csrc/tile_f32.cuh, TF32 wgmma: the saved backward's three entries
-# and the LayerNorm family's forward) no HMMA (mma.sync) besides.
+# HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; the f32 ones on
+# TF32 wgmma (csrc/tile_f32.cuh's A . W^T tile: the saved backward's three
+# entries and the LayerNorm family's forward; wgrad_gemm_f32.cu's A^T . B
+# over stages re-laid K-major on chip) no HMMA (mma.sync) besides.
 F32_WGMMA_SOURCES = ("megablock_bwd_mlp_dz1_f32", "megablock_bwd_dy_f32",
                      "megablock_bwd_mlp_dao_f32", "ln_mlp_fc1_f32", "ln_mlp_linear_f32",
-                     "ln_qkv_fwd_f32")
+                     "ln_qkv_fwd_f32", "wgrad_gemm_f32")
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
                   "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp", "ln_qkv_fwd",
                   "megablock_bwd_ln1", *F32_WGMMA_SOURCES)
@@ -651,7 +653,7 @@ def _sass_counts(build) -> dict:
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
                     raise AssertionError(f"{func} holds no wgmma in its SASS")
-    for name in (*build.F32_FLASH, *F32_BWD_PRODUCTS):  # mma.sync TF32
+    for name in build.F32_FLASH:  # mma.sync TF32
         sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         out[name] = {"HMMA": sass.count("HMMA"), "HMMA_TF32": sass.count("TF32")}
@@ -1907,7 +1909,6 @@ def train_deit64_wide(steps: int = WIDE_STEPS) -> dict:
     comparison's bounds at dropout 0 (wide_against_plain); one batch-64
     serving call of the trained generator on the megablock's inference
     route, its launches."""
-    import shutil as _sh
     import tempfile
 
     import numpy as np
@@ -1927,10 +1928,11 @@ def train_deit64_wide(steps: int = WIDE_STEPS) -> dict:
     m = cfg.v2
     run_dir = tempfile.mkdtemp(prefix="deit64_wide_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
+    metrics = None
     try:
         t0 = time.perf_counter()
         trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
-        st = trainer.state
+        st, metrics = trainer.state, trainer.metrics
         setup = time.perf_counter() - t0
         print(f"{tag} {smi}: deit64 with {DEIT_B}: embed {m.embed_dim}, {m.num_heads} heads, "
               f"hidden {m.embed_dim * m.mlp_ratio}, depth {m.depth}, batch {m.batch_size}, "
@@ -1989,7 +1991,7 @@ def train_deit64_wide(steps: int = WIDE_STEPS) -> dict:
         torch.cuda.empty_cache()
         routes = wide_against_plain(cfg)
     finally:
-        _sh.rmtree(run_dir, ignore_errors=True)
+        _remove_run_dir(run_dir, metrics)
     return {"card": smi, "set": DEIT_B, "ms_per_step": ms, "img_per_s": means["images_per_sec"],
             "peak_allocated_bytes": peak, "setup_s": setup, "warm_epoch_s": warm_s,
             "launches_per_step": {k: v // steps for k, v in per_step.items() if v},
@@ -2112,6 +2114,16 @@ def _settle() -> None:
     highres128 captured step read 139-166 ms against 122 on an H100 80GB HBM3
     at 700 W); a training run's epochs follow no such write."""
     os.sync()
+
+
+def _remove_run_dir(run_dir: str, metrics=None) -> None:
+    """Removes a phase's run directory, closing ``metrics`` (its Trainer's
+    MetricLogger, or None) first: TensorBoard's writer thread flushes event
+    files into the directory until its writer is closed, and a directory
+    removed under it makes that thread print a FileNotFoundError."""
+    if metrics is not None:
+        metrics.close()
+    shutil.rmtree(run_dir, ignore_errors=True)
 
 
 def _fit_over(over: dict) -> dict:
@@ -2245,6 +2257,7 @@ def train_main_path(run_dir: str, route: str = "auto") -> tuple:
         raise AssertionError("some parameters did not move")
     del before, after
     breakdown = train_breakdown(trainer, ms, recompute=route == "off")
+    trainer.metrics.close()  # its writer thread, before the caller removes run_dir
     del trainer, st
     torch.cuda.empty_cache()
     rcfg, _, g, meta = restore_run(run_dir, device="cuda")
@@ -2284,7 +2297,6 @@ def train_deit64(steps: int = 3) -> dict:
     eager warm-up step, a warm-up epoch of ``steps`` (the capture), then
     ``steps`` captured steps by fit, the megablock's training kernels in
     every block."""
-    import shutil as _sh
     import tempfile
 
     import torch
@@ -2300,8 +2312,10 @@ def train_deit64(steps: int = 3) -> dict:
     m = cfg.v2
     run_dir = tempfile.mkdtemp(prefix="deit64_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
+    metrics = None
     try:
         trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        metrics = trainer.metrics
         host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
         grid = _grid_launches(trainer)
         trainer.fit(epochs=1)  # the warm-up epoch, the capture among its steps
@@ -2314,7 +2328,7 @@ def train_deit64(steps: int = 3) -> dict:
         launches = dict(build.LAUNCHES)
         # --- end of the deit64 path ---
     finally:
-        _sh.rmtree(run_dir, ignore_errors=True)
+        _remove_run_dir(run_dir, metrics)
     ms = 1e3 * m.batch_size / means["images_per_sec"]
     print(f"[train deit64] batch {m.batch_size}, {m.image_size} px, embed {m.embed_dim}, heads "
           f"{m.num_heads}, depth {m.depth}, dropout {m.dropout}, augment "
@@ -2364,10 +2378,11 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 # wgrad_gemm_f32.cu), before the library test below, which
                 # their `gemm` would match: the A . W^T tile by its epilogue
                 # (tile_f32_kernel<EPI, ACT>), the LayerNorm forward's rows
-                # apart; then a parent's mma.sync forward
-                # (ln_gemm_f32_kernel<LN, EPI, ACT>, ln_stats_f32_kernel) and
-                # A . W^T tile (dy_gemm_f32_kernel<EPI>), which
-                # scripts/kernel_ab.py measures
+                # apart, the A^T . B product (wgrad_tf32_kernel); then a
+                # parent's mma.sync forward (ln_gemm_f32_kernel<LN, EPI, ACT>,
+                # ln_stats_f32_kernel), A . W^T tile (dy_gemm_f32_kernel<EPI>)
+                # and A^T . B (wgrad_f32_kernel), which scripts/kernel_ab.py
+                # measures
                 ("tile_f32_kernel<0,", "megablock backward f32: dz1 (A.W^T tile)"),
                 ("tile_f32_kernel<1,", "megablock backward f32: dy2, dy1 (A.W^T tile)"),
                 ("tile_f32_kernel<2,", "megablock backward f32: dao, delta (A.W^T tile)"),
@@ -2385,6 +2400,7 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("dy_gemm_f32_kernel<1>", "megablock backward f32: dy2, dy1 (A.W^T tile)"),
                 ("dy_gemm_f32_kernel<2>", "megablock backward f32: dao, delta (A.W^T tile)"),
                 ("dy_gemm_f32_kernel", "megablock backward f32 (A.W^T tile)"),
+                ("wgrad_tf32_kernel", "weight-gradient products (f32)"),
                 ("wgrad_f32_kernel", "weight-gradient products (f32)"),
                 ("wgrad_gemm", "weight-gradient products"),
                 ("wgrad_reduce", "weight-gradient products"),
@@ -2990,7 +3006,6 @@ def train_v1_fused(steps: int = 3) -> tuple:
     capture), then ``steps`` captured by fit; D's `l2` backward takes the
     single-pass kernel (8 a step), no dq or dk/dv; then a profiled breakdown
     of a captured call."""
-    import shutil as _sh
     import tempfile
 
     import torch
@@ -3003,8 +3018,10 @@ def train_v1_fused(steps: int = 3) -> tuple:
                                "runtime.bwd_fusion": "fused"}))
     run_dir = tempfile.mkdtemp(prefix="v1_fused_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
+    metrics = None
     try:
         trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+        metrics = trainer.metrics
         host_metrics(trainer.train_step(trainer.state, trainer.real_batch(trainer.batches()[0])))
         grid = _grid_launches(trainer)
         trainer.fit(epochs=1)
@@ -3019,7 +3036,7 @@ def train_v1_fused(steps: int = 3) -> tuple:
         ms = 1e3 * cfg.v1.batch_size / means["images_per_sec"]
         breakdown = train_breakdown(trainer, ms, recompute=False)
     finally:
-        _sh.rmtree(run_dir, ignore_errors=True)
+        _remove_run_dir(run_dir, metrics)
     print(f"[train v1 fused] {steps} captured steps by Trainer.fit, {ms:.2f} ms/step; launches "
           f"{launches}; means {means}")
     launches = _check_fit_launches("[train v1 fused]", launches, V1_KERNELS["fused"], steps, grid)
@@ -3105,7 +3122,6 @@ def captured_vs_eager(cfg, n: int, label: str, trainer=None) -> dict:
     leaf in the route comparison's terms; metrics: losses within LOSS_TOL,
     norms within NORM_RTOL.  ``trainer``: one already built for ``cfg`` (its
     state goes on from where it is)."""
-    import shutil as _sh
     import tempfile
 
     import numpy as np
@@ -3118,8 +3134,11 @@ def captured_vs_eager(cfg, n: int, label: str, trainer=None) -> dict:
     tag = f"[captured vs eager] {label}"
     run_dir = tempfile.mkdtemp(prefix="cve_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
+    metrics = None  # a Trainer of this phase's own writes into run_dir
     try:
-        trainer = trainer or Trainer(cfg, run_dir=run_dir, device="cuda")
+        if trainer is None:
+            trainer = Trainer(cfg, run_dir=run_dir, device="cuda")
+            metrics = trainer.metrics
         st, gan, b = trainer.state, trainer.gan, cfg.model.batch_size
         order = trainer.batches()
         host_metrics(trainer.train_step(st, trainer.real_batch(order[0])))
@@ -3157,7 +3176,7 @@ def captured_vs_eager(cfg, n: int, label: str, trainer=None) -> dict:
         del trainer, st, fn
         torch.cuda.empty_cache()
     finally:
-        _sh.rmtree(run_dir, ignore_errors=True)
+        _remove_run_dir(run_dir, metrics)
     return {"n": n, "groups": groups, "metric_max_abs_diff": metric_diff, "bit_equal": bit_equal}
 
 
@@ -3184,6 +3203,7 @@ def resume_check() -> dict:
             trainer.resume()
         trainer.fit(epochs=epochs)
         out = _flat_state(trainer.state)
+        trainer.metrics.close()  # its writer thread, before the run directory goes
         del trainer
         torch.cuda.empty_cache()
         return out
@@ -4137,11 +4157,10 @@ F32_BWD_META = {
     "megablock_bwd_mlp_dao_f32": ("megablock_bwd_mlp_dao_f32.cu",
                                   ("tile_f32_kernel<2,", "dy_gemm_f32_kernel")),
     "megablock_bwd_ln1_rows_f32": ("megablock_bwd_ln1_rows_f32.cu", ("ln_bwd_rows_kernel",)),
-    "wgrad_gemm_f32": ("wgrad_gemm_f32.cu", ("wgrad_f32_kernel", "wgrad_reduce_kernel")),
+    # (wgrad_f32_kernel: a parent's mma.sync product, which scripts/kernel_ab.py measures)
+    "wgrad_gemm_f32": ("wgrad_gemm_f32.cu", ("wgrad_tf32_kernel", "wgrad_f32_kernel",
+                                             "wgrad_reduce_kernel")),
 }
-# The sources whose kernels multiply on mma.sync (TF32 HMMA in SASS); the A .
-# W^T tile's are among HOPPER_SOURCES (TF32 HGMMA).
-F32_BWD_PRODUCTS = ("wgrad_gemm_f32",)
 
 
 def _f32_bwd_record(tag: str, name: str, label: str, kern, plain, library, flops: float,
@@ -4870,6 +4889,7 @@ def _v2_f32_phases(work: str, bf16_run_dir) -> dict:
     if not capture["bit_equal"]:
         raise AssertionError("[v2 f32] the captured steps are not bit-equal to eager ones")
     out["train_recompute"]["captured_vs_eager"] = capture
+    trainer.metrics.close()  # its writer thread, before the caller removes the run directory
     del trainer
     out["routes"] = compare_v2_f32_routes()
     return out
@@ -4914,6 +4934,7 @@ def _saved_f32_fit(run_dir: str) -> dict:
     print("[v2 f32 train saved] where the f32 step's device time goes:")
     rec["breakdown"] = train_breakdown(trainer, rec["ms_per_step"], recompute=False)
     rec["breakdown"]["kmajor_copies"] = kmajor_copy_ms(cfg, V2_F32_KERNELS["saved"])
+    trainer.metrics.close()  # its writer thread, before the caller removes the run directory
     del trainer
     return rec
 
@@ -4966,6 +4987,7 @@ def _deit64_f32_step(run_dir: str) -> dict:
         **V2_F32, "data.dataset": "synthetic", "data.synthetic_samples": 256, "run.epochs": 2,
         "run.steps_per_epoch": 1}))
     trainer, rec = _f32_fit("[v2 f32 deit64]", cfg, run_dir, V2_F32_KERNELS["deit64"], 1)
+    trainer.metrics.close()  # its writer thread, before the caller removes the run directory
     del trainer
     return rec
 
@@ -5640,6 +5662,7 @@ def _r1_route(label: str, route_over: dict, run_dir: str) -> tuple:
           f"{rec['captured_ms_without_r1']:.2f} without; eager {rec['eager_ms_with_r1']:.2f} / "
           f"{rec['eager_ms_without_r1']:.2f}; d_r1 {d_r1}; launches a step with R1 "
           f"{launches[True]}, without {launches[False]}")
+    trainer.metrics.close()  # its writer thread, before the caller removes run_dir
     del trainer, st, fn
     torch.cuda.empty_cache()
     return rec
@@ -6228,6 +6251,7 @@ def remat_path(p4_trainer, p4_start: dict) -> dict:
         trainer = Trainer(cfg, run_dir=base, device="cuda")
         out["highres128"] = _remat_modes("[remat] highres128", trainer,
                                          trainer.state.state_dict(), ("never", "attn"), "auto")
+        trainer.metrics.close()  # its writer thread, before the run directory goes
         del trainer
         torch.cuda.empty_cache()
     finally:

@@ -6,7 +6,7 @@ chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
         [--splits | --host | --megablock | --l2 | --ticket | --v1-fused | --f32-bwd
-         | --f32-ln]
+         | --f32-ln | --f32-step]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -61,7 +61,8 @@ LayerNorm-backward rows; wgrad_gemm_f32's four products) at highres128's G
 and D rows, deit64's ragged batch and DeiT-B's G, each against its plain
 version in full f32 and the bf16 kernel's error, timed beside its bound and
 torch.matmul in TF32 (device time at G), with the card's name and power
-limit.
+limit; then ``bwd_tile_digest`` (below), so that a change to wgrad_gemm_f32
+can be shown to leave the A . W^T tile's bits as they were.
 
 ``--f32-ln`` runs only ``check_f32_ln_kernels``: the LayerNorm family's
 f32 forward entries (LN -> fc1 with z1, the linear stage with the residual
@@ -74,6 +75,12 @@ of the outputs of the saved backward's three A . W^T tile entries (dz1
 with h1, dy, dao with delta) at highres128's G on seeded inputs
 (``bwd_tile_digest``), so that two trees whose tile code is shared can be
 shown to give the backward the same bits.
+
+``--f32-step`` runs only chip_smoke's ``_saved_f32_fit``: highres128 at its
+preset in f32 (the saved backward, remat attn, dropout 0.1) through
+Trainer.fit, launches a step asserted, captured against eager, and the
+captured step's device time by kernel group (its weight-gradient groups
+among them), with the card's name and power limit.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -284,6 +291,7 @@ def main() -> int:
     ap.add_argument("--v1-fused", action="store_true")
     ap.add_argument("--f32-bwd", action="store_true")
     ap.add_argument("--f32-ln", action="store_true")
+    ap.add_argument("--f32-step", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -316,7 +324,16 @@ def main() -> int:
         return 0
     if args.f32_bwd:
         print(json.dumps({"label": label, "card": cs._smi(),
-                          "f32_bwd": cs.check_f32_bwd_kernels()}))
+                          "f32_bwd": cs.check_f32_bwd_kernels(),
+                          "bwd_tile_digest": bwd_tile_digest(cs)}))
+        return 0
+    if args.f32_step:
+        run_dir = os.path.join(REPO, "build", f"ab_f32_step_{os.getpid()}")
+        try:
+            rec = cs._saved_f32_fit(run_dir)
+        finally:
+            cs._remove_run_dir(run_dir)
+        print(json.dumps({"label": label, "card": cs._smi(), "f32_step": rec}, default=str))
         return 0
     if args.f32_ln:
         print(json.dumps({"label": label, "card": cs._smi(), "f32_ln": cs.check_f32_ln_kernels(),

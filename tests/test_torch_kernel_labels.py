@@ -49,7 +49,7 @@ SYMBOLS = _symbols()
 def test_the_sources_hold_the_kernels_the_breakdown_names():
     names = {re.search(r"::(\w+)[<(]", s).group(1) for s in SYMBOLS}
     assert {"tile_f32_kernel", "ln_norm_f32_kernel",
-            "wgrad_f32_kernel", "ln_bwd_rows_kernel", "mask_rows_kernel",
+            "wgrad_tf32_kernel", "ln_bwd_rows_kernel", "mask_rows_kernel",
             "megablock_bwd_mlp_rows_kernel", "flash_fwd_f32_kernel"} <= names
     assert len(names) >= 25
 
@@ -77,6 +77,9 @@ def test_every_port_kernel_takes_a_port_label(symbol):
      "CUtensorMap_st, vk::tilef32::Params)", "LN->qkv (f32)"),
     ("void vk::lnf32::ln_norm_f32_kernel(float const*, float const*, float const*, int, int, "
      "float, float*)", "LayerNorm forward rows (f32)"),
+    ("void vk::wgradf32::wgrad_tf32_kernel(CUtensorMap_st, CUtensorMap_st, float*, float*, "
+     "int, int, int, int)", "weight-gradient products (f32)"),
+    # a parent's mma.sync product, which scripts/kernel_ab.py measures
     ("void vk::wgradf32::wgrad_f32_kernel(float const*, float const*, float*, float*, int, "
      "int, int, int)", "weight-gradient products (f32)"),
     ("void vk::wgrad::wgrad_reduce_kernel(float const*, float*, int, long)",

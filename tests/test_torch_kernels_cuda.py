@@ -431,36 +431,53 @@ def test_megablock_training_kernels_match_plain_on_card(shape, rate):
         assert (got.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
 
 
+# the weight-gradient kernels' dtypes: wgrad_gemm.cu takes bf16, wgrad_gemm_f32.cu f32
+WGRAD_DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                       ids=["bf16", "f32"])
+
+
 @pytest.mark.cuda
+@WGRAD_DTYPES
 @pytest.mark.parametrize("rows,ka,nb", [(1000, 72, 136), (4097, 384, 1536), (64, 8, 8),
                                         (777, 1152, 8), (65, 136, 1152), (32768, 1536, 384)])
-def test_wgrad_gemm_matches_plain_on_card(rows, ka, nb):
+def test_wgrad_gemm_matches_plain_on_card(rows, ka, nb, dtype):
     """dW = A^T . B and db over ragged rows and widths (8, 72, 136, 1152:
-    TMA zero-fills past Ka, Nb and M) against the plain version, each within
-    2e-2 * its own max|plain|."""
+    TMA zero-fills past Ka, Nb and M) against the plain version in full f32,
+    each within 2e-2 (bf16) or 5e-3 (f32: TF32 products, PERF.md's f32 bound)
+    times its own max|plain|.  The f32 kernel's errors are also at most half
+    the bf16 kernel's on the same inputs cast to bf16, so a kernel that lost
+    the TF32 digits fails here too."""
     _cuda_or_skip()
     from vitgan_tpu_torch.ops import wgrad as WG
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    a = torch.randn(rows, ka, generator=gen, device="cuda").to(torch.bfloat16)
-    bm = torch.randn(rows, nb, generator=gen, device="cuda").to(torch.bfloat16)
+    a = torch.randn(rows, ka, generator=gen, device="cuda").to(dtype)
+    bm = torch.randn(rows, nb, generator=gen, device="cuda").to(dtype)
     (dw, db), (pw, pb) = WG.wgrad_gemm(a, bm), WG.wgrad_reference(a, bm)
     torch.cuda.synchronize()
-    assert (dw - pw).abs().max().item() <= 2e-2 * pw.abs().max().item()
-    assert (db - pb).abs().max().item() <= 2e-2 * pb.abs().max().item()
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-3
+    errs = [(dw - pw).abs().max().item(), (db - pb).abs().max().item()]
+    assert errs[0] <= tol * pw.abs().max().item()
+    assert errs[1] <= tol * pb.abs().max().item()
+    if dtype == torch.float32:
+        hw, hb = WG.wgrad_gemm(a.to(torch.bfloat16), bm.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        half = [(hw - pw).abs().max().item(), (hb - pb).abs().max().item()]
+        assert errs[0] <= 0.5 * half[0] and errs[1] <= 0.5 * half[1], (errs, half)
 
 
 @pytest.mark.cuda
+@WGRAD_DTYPES
 @pytest.mark.parametrize("rows,ka,nb", [(65600, 384, 1152), (1000, 72, 136)])
-def test_wgrad_gemm_is_bit_deterministic_on_card(rows, ka, nb):
+def test_wgrad_gemm_is_bit_deterministic_on_card(rows, ka, nb, dtype):
     """Two calls on the same inputs give bit-equal dW and db: the row splits'
     partials are summed in a fixed order, with no atomics."""
     _cuda_or_skip()
     from vitgan_tpu_torch.ops import wgrad as WG
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    a = torch.randn(rows, ka, generator=gen, device="cuda").to(torch.bfloat16)
-    bm = torch.randn(rows, nb, generator=gen, device="cuda").to(torch.bfloat16)
+    a = torch.randn(rows, ka, generator=gen, device="cuda").to(dtype)
+    bm = torch.randn(rows, nb, generator=gen, device="cuda").to(dtype)
     (dw, db), (dw2, db2) = WG.wgrad_gemm(a, bm), WG.wgrad_gemm(a, bm)
     torch.cuda.synchronize()
     assert torch.equal(dw, dw2) and torch.equal(db, db2)

@@ -4,8 +4,12 @@ of ``wgrad()`` and ``flash_backward()`` against the JAX package.
 csrc/wgrad_gemm.cu cannot run here; what it reads from the host is planned
 in Python (ops/wgrad.py): the rows a split sums (``plan``) and the scratch
 layout (``scratch_floats``).  These tests hold that plan to the ranges and
-offsets the C entry forms from it (its arithmetic, written out here), and
-the plain versions that CPU tensors take to the JAX package at 1e-5 in f32.
+offsets the C entry forms from it (its arithmetic, written out here), the
+f32 kernel's unit order (``units``) to what it must cover, its on-chip
+addressing (the re-lay of B and the A-fragment loads of
+csrc/wgrad_gemm_f32.cu, written out here as ``relay_chunks``, ``reg_a_col``
+and ``a_fragment_offsets``) to its layouts and banks, and the plain versions
+that CPU tensors take to the JAX package at 1e-5 in f32.
 """
 
 import math
@@ -36,6 +40,53 @@ def _restore_policy():
     yield
     policy.set_policy(**saved)
     jax_set_policy(bwd_fusion="auto")
+
+
+# csrc/wgrad_gemm_f32.cu's on-chip layouts, its addressing written out: a
+# 32-row stage of an operand lands as four 32-column boxes of 32 rows
+# (128-byte rows, 16-byte chunk c of row r at chunk c ^ r % 8); B's is
+# re-laid K-major as one box of 128 rows of 32 summed values (the same
+# swizzle, its `relay`), A's read into registers as it landed.
+F32_STAGE_ROWS = 32
+LANDED_BOX = F32_STAGE_ROWS * 32 * 4
+
+
+def relay_chunks(wq: int, lane: int, h: int) -> tuple:
+    """The 4 x 4 block lane ``lane`` of re-lay warp ``wq`` moves in its step
+    ``h`` (0 or 1), as the kernel's `relay` addresses it: (c, q, loads,
+    stores), where loads[j] is the landed byte offset of row 4 c + j's chunk
+    of columns 4 q .. 4 q + 3, and stores[j] the re-laid byte offset of row
+    4 q + j's chunk of summed rows 4 c .. 4 c + 3 (column j of the block read
+    across)."""
+    q, c = lane, (lane & 7) ^ (2 * wq + h)
+    loads = [(q >> 3) * LANDED_BOX + k * 128 + (((q & 7) ^ (k & 7)) << 4)
+             for k in range(4 * c, 4 * c + 4)]
+    stores = [i * 128 + ((c ^ (i & 7)) << 4) for i in range(4 * q, 4 * q + 4)]
+    return c, q, loads, stores
+
+
+def reg_a_col(wr: int, g: int, h: int) -> int:
+    """The kernel's `reg_a_col`: the column of A (of a consumer warpgroup's
+    64) whose output row the accumulator rows 16 wr + g + 8 h of warp wr's
+    lane (g = lane // 4) hold, permuted so that a warp's A-fragment loads hit
+    32 different banks."""
+    return 32 * (wr >> 1) + 16 * (g >> 2) + 8 * (wr & 1) + 4 * h + (g & 3)
+
+
+def a_fragment_offsets(w: int, wr: int, lane: int) -> list:
+    """The landed byte offsets of the words a0 .. a3 (the mma.m16n8k8 TF32 A
+    fragment: rows h = 0, 1, 0, 1 at summed rows t, t, t + 4, t + 4, t =
+    lane % 4) that lane ``lane`` of warp ``wr`` of consumer warpgroup ``w``
+    reads at the first k8 step of a stage, as the kernel's `aoff` addresses
+    them; step kk adds 1024 (eight rows)."""
+    g, t = lane >> 2, lane & 3
+    off = []
+    for h in (0, 1):
+        col = 64 * w + reg_a_col(wr, g, h)
+        off.append((col >> 5) * LANDED_BOX + t * 128 + ((((col & 31) >> 2) ^ t) << 4)
+                   + 4 * (col & 3))
+    return [off[0], off[1], (off[0] ^ 64) + 512, (off[1] ^ 64) + 512]
+
 
 
 def _entry_ranges(m, rps):
@@ -110,6 +161,153 @@ def test_plan_splits_further_on_a_wider_card():
     """The multiprocessor count is an input: more SMs, more row splits."""
     m, ka, nb = ROWS["G"], 384, 384
     assert WG.plan(m, ka, nb, sms=264) < WG.plan(m, ka, nb)
+
+
+@pytest.mark.parametrize("m", [1, 64, 514, 32768, 65600])
+@pytest.mark.parametrize("ka,nb", [(1536, 384), (384, 1152), (72, 136), (8, 8)])
+def test_f32_units_write_every_partial_once(m, ka, nb):
+    """csrc/wgrad_gemm_f32.cu's persistent blocks (ops/wgrad.units) take every
+    (split, row tile, column tile) unit once, at most one block an SM;
+    their dW partials cover each (split, i, j) under ka and nb once, their
+    db partial rows each (split * row_tiles + row tile, j) once, and the
+    row tiles of a split sum each of its 32-row stages into db once.  A
+    stage never holds another split's rows."""
+    rps = WG.plan(m, ka, nb)
+    splits, tiles = len(_entry_ranges(m, rps)), WG.row_tiles(ka)
+    nbt = math.ceil(nb / WG.TILE)
+    blocks = WG.units(m, ka, nb, rps)
+    taken = [u for b in blocks for u in b]
+    assert len(blocks) == min(len(taken), WG.SMS) and all(blocks)
+    assert sorted(taken) == [(s, y, x) for s in range(splits) for y in range(tiles)
+                             for x in range(nbt)]
+    dw = np.zeros((splits, ka, nb), np.int32)
+    dbp = np.zeros((splits * tiles, nb), np.int32)
+    summed = {s: np.zeros(math.ceil((min(m, (s + 1) * rps) - s * rps) / F32_STAGE_ROWS),
+                          np.int32) for s in range(splits)}
+    for s, y, x in taken:
+        rows, cols = slice(y * WG.TILE, (y + 1) * WG.TILE), slice(x * WG.TILE, (x + 1) * WG.TILE)
+        dw[s, rows, cols] += 1
+        dbp[s * tiles + y, cols] += 1
+        if x == 0:
+            summed[s][y::tiles] += 1
+    assert (dw == 1).all() and (dbp == 1).all()
+    assert all((c == 1).all() for c in summed.values())
+    assert rps % F32_STAGE_ROWS == 0
+
+
+@pytest.mark.parametrize("sms", [1, 114, 264])
+def test_f32_units_follow_the_card_s_sms(sms):
+    """On a card of another SM count (the wrapper reads the card's) the
+    persistent grid is min(units, sms) blocks, block b takes units b, b +
+    grid, ... in increasing order, and every unit is taken once."""
+    m, ka, nb = ROWS["D"], 384, 1152
+    rps = WG.plan(m, ka, nb, sms)
+    blocks = WG.units(m, ka, nb, rps, sms)
+    tiles = WG.row_tiles(ka) * math.ceil(nb / WG.TILE)
+    total = tiles * len(_entry_ranges(m, rps))
+    assert len(blocks) == min(total, sms)
+    order = [[s * tiles + y * math.ceil(nb / WG.TILE) + x for s, y, x in b] for b in blocks]
+    assert all(o == list(range(b, total, len(blocks))) for b, o in enumerate(order))
+    assert sorted(u for o in order for u in o) == list(range(total))
+
+
+def test_f32_units_run_a_split_s_tiles_together():
+    """The blocks that run at once take neighbouring units: at G's dWqkv the
+    first wave spans at most two splits (their rows shared in L2)."""
+    m, ka, nb = ROWS["G"], 384, 1152
+    blocks = WG.units(m, ka, nb, WG.plan(m, ka, nb))
+    tiles = WG.row_tiles(ka) * math.ceil(nb / WG.TILE)
+    assert len({b[0][0] for b in blocks}) <= math.ceil(len(blocks) / tiles) + 1
+
+
+@pytest.mark.parametrize("wq", range(4))
+@pytest.mark.parametrize("h", range(2))
+def test_f32_relay_is_free_of_bank_conflicts(wq, h):
+    """Each quarter-warp's eight 16-byte loads, and its eight stores, of one
+    re-lay step lie at eight different 16-byte places of a 128-byte row
+    (shared memory serves them in one pass)."""
+    for quarter in range(4):
+        for j in range(4):
+            for side in (2, 3):
+                places = {relay_chunks(wq, lane, h)[side][j] % 128 // 16
+                          for lane in range(8 * quarter, 8 * quarter + 8)}
+                assert len(places) == 8, (quarter, j, side)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_f32_relay_lays_the_landed_stage_k_major(seed):
+    """Every (row chunk, column chunk) block is moved once by the re-lay
+    warpgroup, and the re-laid box read as the canonical K-major 128-byte
+    swizzled operand (tile_f32.cuh's) is the landed stage transposed: the
+    landed stage written as TMA writes four 32-column boxes of 32 rows, the
+    blocks moved and transposed as the kernel's lanes move them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((F32_STAGE_ROWS, 128)).astype(np.float32)
+    landed = _landed(x)
+    relaid = np.full(128 * F32_STAGE_ROWS, np.nan, np.float32)
+    moved = set()
+    for wq in range(4):
+        for lane in range(32):
+            for h in range(2):
+                c, q, loads, stores = relay_chunks(wq, lane, h)
+                moved.add((c, q))
+                block = np.stack([landed[ld // 4:ld // 4 + 4] for ld in loads])  # [k][i]
+                for j, st in enumerate(stores):
+                    relaid[st // 4:st // 4 + 4] = block[:, j]
+    assert moved == {(c, q) for c in range(8) for q in range(32)}
+    got = np.empty((128, F32_STAGE_ROWS), np.float32)
+    for i in range(128):
+        for k in range(F32_STAGE_ROWS):
+            got[i, k] = relaid[(i * 128 + (((k // 4) ^ (i % 8)) * 16)) // 4 + k % 4]
+    np.testing.assert_array_equal(got, x.T)
+
+
+def _landed(x):
+    """A (32, 128) stage as TMA lands it: four 32-column boxes of 32 rows,
+    128-byte rows, 16-byte chunk c of row k at chunk c ^ k % 8, as floats."""
+    landed = np.zeros(4 * LANDED_BOX // 4, np.float32)
+    for k in range(F32_STAGE_ROWS):
+        for col in range(128):
+            byte = (col // 32) * LANDED_BOX + k * 128 + (((col % 32) // 4) ^ (k % 8)) * 16
+            landed[byte // 4 + col % 4] = x[k, col]
+    return landed
+
+
+def test_f32_a_fragment_rows_are_a_permutation():
+    """The consumers' accumulator rows (16 wr + g + 8 h) stand for A's
+    columns one to one within each warpgroup's 64."""
+    cols = sorted(reg_a_col(wr, g, h) for wr in range(4) for g in range(8) for h in range(2))
+    assert cols == list(range(64))
+
+
+@pytest.mark.parametrize("w", range(2))
+@pytest.mark.parametrize("wr", range(4))
+def test_f32_a_fragment_loads_are_free_of_bank_conflicts(w, wr):
+    """Each of a warp's four A-fragment loads of a k8 step reads 32 words
+    in 32 different banks."""
+    for j in range(4):
+        banks = {a_fragment_offsets(w, wr, lane)[j] % 128 // 4 for lane in range(32)}
+        assert len(banks) == 32, j
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_f32_a_fragments_read_the_landed_stage(seed):
+    """The words each lane reads at each k8 step are the mma.m16n8k8 TF32 A
+    fragment of its accumulator rows: a0 (row g, k t), a1 (g + 8, t), a2 (g,
+    t + 4), a3 (g + 8, t + 4), row r standing for A's column 64 w +
+    reg_a_col, k the stage's summed row 8 kk + ..."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((F32_STAGE_ROWS, 128)).astype(np.float32)
+    landed = _landed(x)
+    for w in range(2):
+        for wr in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                offs = a_fragment_offsets(w, wr, lane)
+                for kk in range(F32_STAGE_ROWS // 8):
+                    for j, (h, dk) in enumerate(((0, 0), (1, 0), (0, 4), (1, 4))):
+                        want = x[8 * kk + t + dk, 64 * w + reg_a_col(wr, g, h)]
+                        assert landed[(offs[j] + 1024 * kk) // 4] == want
 
 
 @pytest.mark.parametrize("m,ka,nb", [(96, 24, 40), (257, 16, 48), (0, 8, 8)])

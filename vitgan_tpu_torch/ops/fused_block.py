@@ -36,7 +36,8 @@ ln_mlp_fc1_f32, ln_mlp_linear_f32: csrc/tile_f32.cuh's A . W^T tile on TF32
 wgmma with the weights K-major) and attention on the f32 flash forward,
 written in the (B, N, H*Dh) layout; the saved-residual backward on the same
 tile (dz1, dy2 and dy1, dao with delta), wgrad_gemm_f32.cu's weight
-gradients and ln_rows.cuh's rows on f32 (dmlp = g * m2, the LN2 and LN1
+gradients (TF32 wgmma over stages re-laid on chip) and ln_rows.cuh's rows
+on f32 (dmlp = g * m2, the LN2 and LN1
 backward), handing dmlp, dz1, dy2, da and dy1 between them in f32.
 
 LN->qkv, the LN2 -> fc1 stage and the backward's dz1, dx1 and dao stages and

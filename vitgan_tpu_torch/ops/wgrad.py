@@ -1,8 +1,9 @@
 """Weight gradients of the megablock backward: dW = A^T . B and db = the
 column sums of B over all rows.  The CUDA kernels (csrc/wgrad_gemm.cu in
 bf16, csrc/wgrad_gemm_f32.cu in f32), their plain version, the planning of
-their row splits, and the second-pass sum of per-tile partials (the bf16
-source's `sum_partials` entry) with its order model.
+their row splits, the f32 kernel's unit order (a model the CPU tests hold),
+and the second-pass sum of per-tile partials (the bf16 source's
+`sum_partials` entry) with its order model.
 
 Counterpart of the parameter-gradient sums of `_bwd_kernel` in
 vitgan_tpu/ops/fused_block.py, which accumulate down the TPU's sequential
@@ -70,6 +71,23 @@ def plan(m: int, ka: int, nb: int, sms: int = SMS) -> int:
     return best[1]
 
 
+def units(m: int, ka: int, nb: int, rows_per_split: int, sms: int = SMS) -> list:
+    """csrc/wgrad_gemm_f32.cu's persistent grid: for each of its min(units,
+    sms) blocks, the (split, row tile, column tile) units it takes in turn.
+    Unit u is split u // tiles, then tile u % tiles with the column tiles
+    fastest; block b takes u = b, b + grid, ...  A unit writes the dW partial
+    of its split at its tile's rows and columns (those under ka and nb), and
+    db partial row split * row_tiles(ka) + its row tile at its columns; it
+    sums into db the stages c of its split (32-row stages, counted from the
+    split's first row) with c % row_tiles(ka) == its row tile."""
+    nbt = math.ceil(nb / TILE)
+    tiles = row_tiles(ka) * nbt
+    total = tiles * max(1, math.ceil(m / rows_per_split))
+    grid = min(total, sms)
+    return [[(u // tiles, u % tiles // nbt, u % nbt) for u in range(b, total, grid)]
+            for b in range(grid)]
+
+
 def scratch_floats(m: int, ka: int, nb: int, rows_per_split: int) -> int:
     """f32 elements of the kernel's scratch: splits dW partials of ka * nb,
     then splits * row_tiles(ka) db partials of nb (the C entry's layout)."""
@@ -88,8 +106,9 @@ def wgrad_gemm(a, b):
     f32, db (Nb,) f32).  The entry launches the product over :func:`plan`'s
     row splits and then `wgrad_reduce_kernel`, the one fixed-order sum of the
     dW and db partials; a call counts one launch.  The f32 kernel keeps the
-    plan and the scratch layout: its output tile is TILE x TILE, and its
-    stages of 32 rows divide the plan's ranges of whole STAGE_ROWS."""
+    plan and the scratch layout: its output tile is TILE x TILE, its stages
+    of 32 rows divide the plan's ranges of whole STAGE_ROWS, and its
+    persistent blocks take the units in the order of :func:`units`."""
     _on_card("wgrad_gemm", a, b)
     dt = kernel_dtype("wgrad_gemm", a, b)  # both bf16 or both f32
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
