@@ -296,19 +296,23 @@
    eager step at dropout 0 against use_pallas=never in the route bounds.  The
    wide kernels' `launches` in the JSON line are this path's.
 37. [f32 kernels] (after [wide kernels]): the f32 flash kernels
-   (csrc/flash_f32.cuh: the forward in `dot`, `l2` and `l2ref`, the single
-   pass, dq and dk/dv in `dot` and `l2`) at the v1 generator's (128, 4, 32,
-   96) and discriminator's (256, 4, 50, 108) shapes, highres128's D (32, 6,
-   1025, 64), highres256p4's G (8, 6, 4096, 64) and D (16, 6, 4097, 64), a
-   ragged (4, 4, 65, 108) in every mode and one head of 16,385 tokens,
+   (csrc/flash_f32.cuh: the forward in `dot`, `l2` and `l2ref` and dq in
+   `dot` and `l2` on mma.sync; csrc/flash_f32_bwd.cuh: the single pass and
+   dk/dv in `dot` and `l2` on TF32 wgmma) at the v1 generator's (128, 4, 32,
+   96) and discriminator's (256, 4, 50, 108) shapes, highres128's G (32, 6,
+   1024, 64) and D (32, 6, 1025, 64), highres256p4's G (8, 6, 4096, 64) and
+   D (16, 6, 4097, 64), a ragged (4, 4, 65, 108) in every mode and one head
+   of 16,385 tokens,
    against their plain versions in full f32: a forward output within
    F32_RTOL * max(1, max|plain|), the LSE within F32_LSE_TOL, a backward
    output within F32_RTOL * its own max|plain|, each at most half the bf16
    kernel's error on the same inputs cast to bf16, the backward's outputs
    bit-equal across two calls; timed beside the TF32 bound, the plain
    version, SDPA in f32 (`dot`, `l2` with its key mask) and the device time
-   of the wrapper's own kernels.  The SASS of each f32 source must hold TF32
-   tensor-core products (HMMA).
+   of the wrapper's own kernels.  The SASS of the forward's and dq's sources
+   must hold TF32 tensor-core products (HMMA); the single pass's and dk/dv's
+   TF32 HGMMA with UTMALDG and no HMMA, in each instantiation of the k-block
+   kernel too.
 38. [ln_mlp activations]: the fc1 stage with gelu, relu, tanh and sigmoid at
    highres128's serving rows (E 384, resident) and DeiT-B's G rows (E 768,
    wide) against its plain version within KERNEL_RTOL, bit-equal across two
@@ -575,10 +579,14 @@ def _ptxas_warnings(log: str) -> list:
 # HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; the f32 ones on
 # TF32 wgmma (csrc/tile_f32.cuh's A . W^T tile: the saved backward's three
 # entries and the LayerNorm family's forward; wgrad_gemm_f32.cu's A^T . B
-# over stages re-laid K-major on chip) no HMMA (mma.sync) besides.
+# over stages re-laid K-major on chip; flash_f32_bwd.cuh's k-block kernel:
+# the f32 single pass and dk/dv) no HMMA (mma.sync) besides, in every
+# function of F32_WGMMA_KERNELS too.
 F32_WGMMA_SOURCES = ("megablock_bwd_mlp_dz1_f32", "megablock_bwd_dy_f32",
                      "megablock_bwd_mlp_dao_f32", "ln_mlp_fc1_f32", "ln_mlp_linear_f32",
-                     "ln_qkv_fwd_f32", "wgrad_gemm_f32")
+                     "ln_qkv_fwd_f32", "wgrad_gemm_f32", "flash_attn_bwd_fused_f32",
+                     "flash_attn_bwd_dkv_f32")
+F32_WGMMA_KERNELS = ("flash_bwd_kv_tf32_kernel",)
 HOPPER_SOURCES = ("wgrad_gemm", "flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_fwd",
                   "flash_attn_bwd_dq", "ln_mlp_fwd", "megablock_bwd_mlp", "ln_qkv_fwd",
                   "megablock_bwd_ln1", *F32_WGMMA_SOURCES)
@@ -653,7 +661,15 @@ def _sass_counts(build) -> dict:
                 print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA")
                 if not out[func]["HGMMA"]:
                     raise AssertionError(f"{func} holds no wgmma in its SASS")
-    for name in build.F32_FLASH:  # mma.sync TF32
+            if any(k in func for k in F32_WGMMA_KERNELS):
+                out[func] = {k: body.count(k) for k in ("HGMMA", "UTMALDG", "HMMA")}
+                print(f"[sass]   {func}: {out[func]['HGMMA']} HGMMA, {out[func]['UTMALDG']} "
+                      f"UTMALDG, {out[func]['HMMA']} HMMA")
+                if not (out[func]["HGMMA"] and out[func]["UTMALDG"]) or out[func]["HMMA"]:
+                    raise AssertionError(f"{func}: no wgmma or no TMA load, or mma.sync left")
+    for name in build.F32_FLASH:  # mma.sync TF32: the forward and dq
+        if name in F32_WGMMA_SOURCES:
+            continue
         sass = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         out[name] = {"HMMA": sass.count("HMMA"), "HMMA_TF32": sass.count("TF32")}
@@ -2358,10 +2374,13 @@ PORT_KERNELS = (("flash_bwd_kv_wgmma_kernel", "flash backward k-block (single-pa
                 ("scale_cast_kernel", "flash single-pass `l2` dq finish"),
                 ("flash_attn_fwd_kernel", "flash forward"),
                 ("flash_fwd_l2_kernel", "flash forward"),
-                # the f32 flash kernels (csrc/flash_f32.cuh)
+                # the f32 flash kernels (csrc/flash_f32.cuh; the k-block kernel on
+                # TF32 wgmma in csrc/flash_f32_bwd.cuh, its mma.sync name kept for a
+                # parent tree that scripts/kernel_ab.py measures)
                 ("flash_fwd_f32_kernel", "flash forward (f32)"),
                 ("flash_bwd_dq_f32_kernel", "flash backward dq (f32)"),
                 ("flash_bwd_kv_f32_kernel", "flash backward k-block (f32 single-pass or dk/dv)"),
+                ("flash_bwd_kv_tf32_kernel", "flash backward k-block (f32 single-pass or dk/dv)"),
                 ("ln_qkv", "LN->qkv forward"),
                 ("megablock_bwd_mlp", "megablock backward, MLP half"),
                 ("megablock_bwd_ln1", "megablock backward, LN1 half"),
@@ -3640,7 +3659,7 @@ def l2ref_path(dtype: str = "bfloat16") -> dict:
     return {"launches": launches, "worst_grad_rel": worst}
 
 
-# --- the f32 flash kernels (csrc/flash_f32.cuh) ----------------------------------------
+# --- the f32 flash kernels (csrc/flash_f32.cuh, flash_f32_bwd.cuh) ---------------------
 
 PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 (NVIDIA data sheet)
 # An f32 kernel against its plain version in full f32 (allow_tf32 False): the
@@ -3651,13 +3670,15 @@ PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 (NVIDIA data sheet)
 F32_RTOL, F32_LSE_TOL = 5e-3, 2.5e-3
 # (label, (B, H, N, Dh), softmax scale, forward modes, {backward kernel: modes}):
 # the v1 generator's and discriminator's attention at the reference defaults,
-# the discriminators of highres128 and highres256p4 (two-pass in f32) and
-# highres256p4's generator (single pass), a ragged N at the v1 head width in
-# every mode, one head of 16,385 tokens.
+# the generator of highres128 (single pass), the discriminators of highres128
+# and highres256p4 (two-pass in f32) and highres256p4's generator (single
+# pass), a ragged N at the v1 head width in every mode, one head of 16,385
+# tokens.
 F32_SHAPES = (
     ("v1 G", (128, 4, 32, 96), 384.0, ("dot",), {"fused": ("dot",)}),
     ("v1 D", (256, 4, 50, 108), 432.0, ("l2", "l2ref"),
      {"fused": ("l2",), "dq": ("l2",), "dkv": ("l2",)}),
+    ("highres128 G", (32, 6, 1024, 64), 64.0, ("dot",), {"fused": ("dot",)}),
     ("highres128 D", (32, 6, 1025, 64), 64.0, ("dot",), {"dq": ("dot",), "dkv": ("dot",)}),
     ("highres256p4 G", (8, 6, 4096, 64), 64.0, ("dot",), {"fused": ("dot",)}),
     ("highres256p4 D", (16, 6, 4097, 64), 64.0, ("dot",), {"dq": ("dot",), "dkv": ("dot",)}),
@@ -3672,10 +3693,12 @@ F32_MAIN = {"flash_attn_fwd_f32[dot]": "v1 G", "flash_attn_fwd_f32[l2]": "v1 D",
             "flash_attn_bwd_fused_f32[l2]": "v1 D", "flash_attn_bwd_dq_f32[l2]": "v1 D",
             "flash_attn_bwd_dkv_f32[l2]": "v1 D", "flash_attn_bwd_dq_f32[dot]": "highres128 D",
             "flash_attn_bwd_dkv_f32[dot]": "highres128 D"}
+# The parts of the f32 kernels' CUDA symbols (the k-block kernel's mma.sync
+# name too, for a parent that scripts/kernel_ab.py measures).
 F32_SYMBOLS = {"flash_attn_fwd": ("flash_fwd_f32_kernel",),
-               "flash_attn_bwd_fused": ("flash_bwd_kv_f32_kernel",),
+               "flash_attn_bwd_fused": ("flash_bwd_kv_tf32_kernel", "flash_bwd_kv_f32_kernel"),
                "flash_attn_bwd_dq": ("flash_bwd_dq_f32_kernel",),
-               "flash_attn_bwd_dkv": ("flash_bwd_kv_f32_kernel",)}
+               "flash_attn_bwd_dkv": ("flash_bwd_kv_tf32_kernel", "flash_bwd_kv_f32_kernel")}
 
 
 def _bound_f32(flops: float, nbytes: float):

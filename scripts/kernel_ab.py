@@ -6,7 +6,7 @@ chip_smoke.py's own phases, so that two trees can be compared in one call.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
         [--splits | --host | --megablock | --l2 | --ticket | --v1-fused | --f32-bwd
-         | --f32-ln | --f32-step]
+         | --f32-ln | --f32-step | --f32-flash-bwd]
 
 ``--root`` is the repository root whose ``vitgan_tpu_torch`` is imported
 (default: this script's repository).  The phases, shapes, tolerances,
@@ -81,6 +81,14 @@ preset in f32 (the saved backward, remat attn, dropout 0.1) through
 Trainer.fit, launches a step asserted, captured against eager, and the
 captured step's device time by kernel group (its weight-gradient groups
 among them), with the card's name and power limit.
+
+``--f32-flash-bwd`` runs only ``f32_flash_bwd``: the f32 single pass and
+dk/dv (the k-block kernel) at highres128's G and D, highres256p4's G, one
+head of 16,385 tokens and the v1 generator's and discriminator's shapes,
+each wrapper's time and its kernel's device time beside its TF32 bound and
+scaled_dot_product_attention's f32 backward in the same run, its error
+against the plain version in full f32 and two calls compared, with the
+card's name and power limit.
 
 ``--splits`` then times wgrad_gemm at G's and D's four products of one block
 backward for each rows_per_split of a sweep, beside ops/wgrad.plan's choice
@@ -199,6 +207,76 @@ def ticket_times(cs) -> dict:
     return out
 
 
+# The f32 k-block kernel's shapes (label, (B, H, N, Dh), score mode): the f32
+# highres128 step's G (the single pass) and D (dk/dv after dq), highres256p4's
+# G, one head of 16,385 tokens, the v1 generator's (`dot`) and discriminator's
+# (`l2`) attention at the reference defaults.
+F32_FLASH_BWD_SHAPES = (("highres128 G", (32, 6, 1024, 64), "dot"),
+                        ("highres128 D", (32, 6, 1025, 64), "dot"),
+                        ("highres256p4 G", (8, 6, 4096, 64), "dot"),
+                        ("long", (1, 1, 16385, 64), "dot"),
+                        ("v1 G", (128, 4, 32, 96), "dot"),
+                        ("v1 D", (256, 4, 50, 108), "l2"))
+
+
+def f32_flash_bwd(cs) -> dict:
+    """{"entry mode shape": record} of the f32 single pass and dk/dv at
+    F32_FLASH_BWD_SHAPES (scale Dh for `dot`, H * Dh for `l2`, as the models
+    call them) on the f32 forward's o and LSE: the wrapper's time and its
+    k-block kernel's device time (its other device work apart: delta, a
+    memset, pads) by chip_smoke's _time_ms and _device_ms, each output's
+    max |kernel - plain| over its max|plain| (the plain version in full f32;
+    skipped past 8,192 tokens, where chip_smoke.py [f32 kernels] holds it),
+    the two calls' max |d| per output by _repeat, the bound at TF32 and
+    scaled_dot_product_attention's f32 backward (`l2` through its key mask)
+    in the same run."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitgan_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 27)
+    entries = (("flash_attn_bwd_fused", A.flash_backward_fused, A.flash_bwd_fused_reference, 5, 3),
+               ("flash_attn_bwd_dkv", A.flash_backward_dkv, A.flash_bwd_dkv_reference, 4, 2))
+    out = {}
+    for label, shape, mode in F32_FLASH_BWD_SHAPES:
+        b, h, n, dh = shape
+        scale = float(dh * (h if mode == "l2" else 1))
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+        o, lse = A.flash_forward(q, k, v, scale, score_mode=mode)
+        iters = 20 if n < 512 else 5
+        xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib = (F.scaled_dot_product_attention(*xs, scale=1.0 / math.sqrt(scale)) if mode == "dot"
+               else cs._l2_library(*xs, 1.0 / math.sqrt(scale))())
+        library_ms = cs._time_ms(lambda: torch.autograd.grad(lib, xs, do, retain_graph=True),
+                                 iters)
+        del xs, lib
+        elem, rows = b * h * n * dh * 4, b * h * n * 4
+        for base, fn, plain, products, writes in entries:
+            call = lambda fn=fn: fn(q, k, v, o, lse, do, scale, score_mode=mode)  # noqa: E731
+            rec = {"shape": list(shape), "mode": mode, "ms": cs._time_ms(call, iters),
+                   "library_ms": library_ms}
+            rec["device_ms"], rec["other_device_ms"] = cs._device_ms(
+                call, iters, cs.F32_SYMBOLS[base])
+            rec["bound_ms"], rec["bound_by"] = cs._bound_f32(
+                2.0 * products * b * h * n * n * dh, (5 + writes) * elem + rows)
+            if n <= 8192:
+                got, want = call(), plain(q, k, v, o, lse, do, scale, score_mode=mode)
+                rec["rel_err_per_output"] = [err / peak for err, peak in (
+                    cs._rel_err(g_, w_, own=True) for g_, w_ in zip(got, want))]
+                del got, want
+            rec["repeat"] = cs._repeat(call, f"{base}_f32[{mode}] {label}")
+            out[f"{base} {mode} {label}"] = rec
+            print(f"[f32 flash bwd] {base}_f32[{mode}] {label} {shape}: {rec['ms']:.4f} ms, "
+                  f"device {rec['device_ms']} + {rec['other_device_ms']} ms; SDPA f32 backward "
+                  f"{library_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; "
+                  f"errors {rec.get('rel_err_per_output')}", flush=True)
+            torch.cuda.empty_cache()
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 def bwd_tile_digest(cs) -> dict:
     """{entry: SHA-256 of its outputs' bytes} of the saved backward's three
     f32 A . W^T tile entries at highres128's G (32,768 rows, E 384, hidden
@@ -292,6 +370,7 @@ def main() -> int:
     ap.add_argument("--f32-bwd", action="store_true")
     ap.add_argument("--f32-ln", action="store_true")
     ap.add_argument("--f32-step", action="store_true")
+    ap.add_argument("--f32-flash-bwd", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -326,6 +405,9 @@ def main() -> int:
         print(json.dumps({"label": label, "card": cs._smi(),
                           "f32_bwd": cs.check_f32_bwd_kernels(),
                           "bwd_tile_digest": bwd_tile_digest(cs)}))
+        return 0
+    if args.f32_flash_bwd:
+        print(json.dumps({"label": label, "card": cs._smi(), "f32_flash_bwd": f32_flash_bwd(cs)}))
         return 0
     if args.f32_step:
         run_dir = os.path.join(REPO, "build", f"ab_f32_step_{os.getpid()}")

@@ -10,8 +10,9 @@
   and the v1 discriminator's Dh 108, through the port's flash_attention
   against jax.vjp of the JAX flash_attention in interpret mode, on both
   backward routes;
-- the f32 single pass's dQ order (fused_dq_schedule at f32: 64-key blocks,
-  k-block fastest) against the kernel's decode of its ticket, finishing in
+- the f32 single pass's dQ order (fused_dq_schedule at f32: 128-key blocks
+  and 64-query tiles at Dh <= 64, 64 and 32 above; 32 heads a group, key
+  block slowest) against the kernel's decode of its ticket, finishing in
   any dispatch order in key-block order;
 - the f32 wrappers: each launches its `_f32` entry with the argument count of
   its C signature, the head width where it lies, counted under
@@ -167,21 +168,28 @@ def test_f32_flash_attention_matches_jax(shape, mode, fusion):
 @pytest.mark.parametrize("grid", [(65, 8, 108), (1025, 6, 64), (4096, 3, 64)],
                          ids=["n65", "n1025", "n4096"])
 def test_f32_single_pass_order_finishes_in_key_block_order(grid, dispatch):
-    """The f32 kernel decodes its ticket t as head t // k_blocks, k-block
-    t % k_blocks, and waits on t - 1 past a head's first key block: the
-    schedule's index, coords and waits_on; with the place taken from the
-    ticket every dispatch order finishes onto fewer slots than a head's key
-    blocks and adds every tile in key-block order."""
+    """The f32 kernel (csrc/flash_f32_bwd.cuh) decodes its ticket t in groups
+    of 32 heads, key block slowest within a group: group t // (32 K), then
+    key block r // heads and head r % heads of the rest r (heads: the group's,
+    fewer in a last group), and waits on the same head's previous key block,
+    `heads` indices back: the schedule's index, coords and waits_on, with
+    128 keys a block and 64-query tiles at Dh <= 64, 64 and 32 at Dh 108.
+    With the place taken from the ticket every dispatch order finishes onto
+    fewer slots than a head's key blocks and adds every tile in key-block
+    order."""
     n, bh, d = grid
+    keys, tile = (128, 64) if d <= 64 else (64, 32)
+    kbs, tiles = -(-n // keys), -(-n // tile)
     for mode in ("dot", "l2"):
         plan = A.fused_dq_schedule(n, bh, mode, d, torch.float32)
-        kbs = -(-n // 64)
         assert (plan.k_blocks, plan.q_tiles, plan.group_heads, plan.unit_blocks) == (
-            kbs, kbs, 1, 1)
-        assert plan.flags == (bh * kbs + 1,) and plan.ticket == bh * kbs
+            kbs, tiles, 32, 1)
+        assert plan.flags == (bh * tiles + 1,) and plan.ticket == bh * tiles
         for t in range(plan.k_blocks * bh):
-            assert plan.coords(t) == (t % kbs, t // kbs)
-            assert plan.waits_on(t) == (None if t % kbs == 0 else t - 1)
+            group, r = divmod(t, 32 * kbs)
+            heads = min(32, bh - 32 * group)
+            assert plan.coords(t) == (r // heads, 32 * group + r % heads)
+            assert plan.waits_on(t) == (None if r < heads else t - heads)
     units = len(units_of(plan))
     order = {"in_order": range(units), "reversed": reversed(range(units)),
              "random": np.random.default_rng(13).permutation(units)}[dispatch]

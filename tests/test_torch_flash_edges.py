@@ -193,3 +193,32 @@ def test_fused_schedule_sizes_the_wrapper_buffers():
     wide_l2 = A.fused_dq_schedule(1024, 48, "l2", 64)  # units of two key blocks
     assert (wide_l2.k_blocks, wide_l2.unit_blocks, wide_l2.flags) == (16, 2, (48 * 16 + 1,))
     assert units_of(wide_l2)[:2] == [[0, 1], [2, 3]] and wide_l2.waits_on(2) == 1
+
+
+def test_f32_fused_schedule_sizes_the_wrapper_buffers():
+    """The f32 single pass's grid and buffer of flags and ticket
+    (csrc/flash_f32_bwd.cuh; the wrapper passes the head width where it
+    lies): G at 1,024 tokens x 192 heads (128-key blocks, 64-query tiles, 32
+    heads a group), a ragged last group (40 heads), the v1 generator (32
+    tokens, Dh 96) and discriminator (50 tokens, Dh 108: 64-key blocks,
+    32-query tiles) with one key block (no flags, no ticket), and highres128's
+    D width at Dh 108 (DP 128), whose blocks and tiles are half G's."""
+    f32 = torch.float32
+    g = A.fused_dq_schedule(1024, 192, "dot", 64, f32)
+    assert (g.k_blocks, g.q_tiles, g.group_heads, g.unit_blocks) == (8, 16, 32, 1)
+    assert (g.ticket, g.flags) == (192 * 16, (192 * 16 + 1,))
+    assert [g.coords(i) for i in (0, 1, 32, 33, 255, 256)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1), (7, 31), (0, 32)]
+    assert [g.waits_on(i) for i in (0, 31, 32, 33, 256, 288)] == [None, None, 0, 1, None, 256]
+    ragged = A.fused_dq_schedule(1024, 40, "dot", 64, f32)  # a last group of 8 heads
+    assert (ragged.ticket, ragged.flags) == (40 * 16, (40 * 16 + 1,))
+    assert ragged.coords(256) == (0, 32) and ragged.coords(264) == (1, 32)
+    assert ragged.coords(319) == (7, 39) and ragged.waits_on(264) == 256
+    for n, bh, d, tiles in ((32, 512, 96, 1), (50, 1024, 108, 2)):
+        v1 = A.fused_dq_schedule(n, bh, "l2" if d == 108 else "dot", d, f32)
+        assert (v1.k_blocks, v1.q_tiles, v1.flags, v1.ticket) == (1, tiles, (0,), None)
+        assert v1.waits_on(5) is None
+    wide = A.fused_dq_schedule(1025, 6, "dot", 108, f32)
+    assert (wide.k_blocks, wide.q_tiles, wide.group_heads) == (17, 33, 32)
+    assert wide.flags == (6 * 33 + 1,) and wide.waits_on(6) == 0
+    assert A.fused_dq_schedule(1025, 6, "dot", 64, f32).k_blocks == 9

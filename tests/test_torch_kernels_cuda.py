@@ -1085,10 +1085,11 @@ def test_wide_variants_forced_at_384_match_the_resident_kernels_on_card(rate):
         _bwd_close(a, w)
 
 
-# --- the f32 flash kernels (csrc/flash_f32.cuh) ----------------------------------------
+# --- the f32 flash kernels (csrc/flash_f32.cuh, flash_f32_bwd.cuh) ---------------------
 
-F32_SHAPES = [(2, 3, 257, 64), (4, 4, 50, 108), (2, 4, 32, 96), (1, 2, 65, 24), (1, 1, 1025, 128)]
-F32_IDS = ["n257_dh64", "n50_dh108", "n32_dh96", "n65_dh24", "n1025_dh128"]
+F32_SHAPES = [(2, 3, 257, 64), (4, 4, 50, 108), (2, 4, 32, 96), (1, 2, 65, 24), (1, 1, 1025, 128),
+              (32, 6, 1024, 64)]
+F32_IDS = ["n257_dh64", "n50_dh108", "n32_dh96", "n65_dh24", "n1025_dh128", "highres128_g"]
 # The f32 kernels round their operands to TF32 (2**-11 relative); the plain
 # versions run in full f32 (no TF32 in torch.matmul: allow_tf32 False here).
 F32_RTOL = 5e-3
@@ -1176,12 +1177,15 @@ def test_f32_backward_kernel_matches_plain_on_card(name, mode, shape, _full_f32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 65, 16385])
-def test_f32_single_pass_is_bit_equal_at_many_key_blocks_on_card(n, _full_f32):
-    """Past one 64-key block the f32 single pass adds dQ in key-block order:
-    bit-equal across two calls at one head x 16,385 tokens too."""
+@pytest.mark.parametrize("shape", [(1, 1, 64, 64), (1, 1, 65, 64), (1, 1, 16385, 64),
+                                   (40, 1, 1024, 64)], ids=["64", "65", "16385", "40x1024"])
+def test_f32_single_pass_is_bit_equal_at_many_key_blocks_on_card(shape, _full_f32):
+    """Past one key block the f32 single pass adds dQ in key-block order:
+    bit-equal across two calls at one head x 16,385 tokens too, and at 40
+    heads of 1,024 tokens (the ticket's groups of 32 heads, a ragged last
+    group of 8)."""
     _cuda_or_skip()
-    q, k, v, do = _f32_inputs((1, 1, n, 64), seed=2)
+    q, k, v, do = _f32_inputs(shape, seed=2)
     o, lse = A.flash_forward(q, k, v, 64.0)
     first = A.flash_backward_fused(q, k, v, o, lse, do, 64.0)
     again = A.flash_backward_fused(q, k, v, o, lse, do, 64.0)

@@ -25,7 +25,8 @@ to q.k.
 
 The kernels take bf16 or f32 tensors (:func:`kernel_dtype`), as the TPU
 kernels compute in their input dtype.  f32 calls launch the f32 kernels of
-csrc/flash_f32.cuh (csrc/flash_attn_*_f32.cu: TF32 products, f32 softmax),
+csrc/flash_f32.cuh and csrc/flash_f32_bwd.cuh (csrc/flash_attn_*_f32.cu: TF32
+products, f32 softmax),
 counted apart under ``name_f32[mode]``; the backward route reads the
 dtype's size, as the JAX package's does.
 """
@@ -486,12 +487,17 @@ def flash_backward_dkv(q, k, v, o, lse, do, scale: float, delta=None, score_mode
 
 # The single pass's key blocks (`dot`: csrc/flash_attn_bwd.cuh; `l2`:
 # csrc/flash_l2_bwd.cuh): keys a block and heads a group of the order in each
-# score mode; every block streams all queries, 64 a tile.  The f32 kernel
-# (csrc/flash_f32.cuh) takes 64 keys a block in both modes, one head a group.
+# score mode; every block streams all queries, 64 a tile.  The f32 k-block
+# kernel (csrc/flash_f32_bwd.cuh) takes, by the head width padded to 32 (its
+# DP), 128 keys a block and 64-query tiles up to DP 64, 64 keys and 32-query
+# tiles above, and orders the single pass's blocks as bf16 `dot`'s, 32 heads
+# a group, in both modes.
 FUSED_BLOCK_KEYS = {"dot": 128, "l2": 64}
 FUSED_GROUP_HEADS = {"dot": 32, "l2": 1}
 FUSED_TILE_QUERIES = 64
-F32_BLOCK_KEYS = 64
+F32_BLOCK_KEYS = {32: 128, 64: 128, 96: 64, 128: 64}
+F32_TILE_QUERIES = {32: 64, 64: 64, 96: 32, 128: 32}
+F32_GROUP_HEADS = 32
 
 
 @dataclass(frozen=True)
@@ -500,7 +506,8 @@ class FusedSchedule:
 
     The grid's linear order runs in groups of ``group_heads`` heads, k-block
     slowest within a group (:meth:`index`; one head a group is k-block
-    fastest).  Each block streams q_tiles 64-query tiles.  The `l2` kernel's
+    fastest).  Each block streams q_tiles query tiles (64 queries; the f32
+    kernel's 32 at a padded head width over 64).  The `l2` kernel's
     persistent blocks take units of ``unit_blocks`` consecutive key blocks of
     a head (its two warpgroups' keys at Dh <= 64, which add in warpgroup
     order) by the ticket; `dot`'s blocks are one key block each.  Block (kb, head)
@@ -562,10 +569,13 @@ class FusedSchedule:
 def fused_dq_schedule(n: int, batch_heads: int, score_mode: str = "dot",
                       d: int = 64, dtype: torch.dtype = torch.bfloat16) -> FusedSchedule:
     """:class:`FusedSchedule` of the single pass at N tokens and head width d
-    (bf16 `l2`: its units of :func:`l2_unit_rows` keys; f32: 64-key blocks,
-    one head a group, in either mode)."""
+    (bf16 `l2`: its units of :func:`l2_unit_rows` keys; f32: the blocks and
+    tiles of F32_BLOCK_KEYS and F32_TILE_QUERIES at d padded to 32, 32 heads
+    a group, in either mode)."""
     if dtype == torch.float32:
-        return FusedSchedule(-(-n // F32_BLOCK_KEYS), -(-n // FUSED_TILE_QUERIES), batch_heads)
+        dp = _ceil_to(d, 32)
+        return FusedSchedule(-(-n // F32_BLOCK_KEYS[dp]), -(-n // F32_TILE_QUERIES[dp]),
+                             batch_heads, F32_GROUP_HEADS)
     keys = FUSED_BLOCK_KEYS[score_mode]
     unit = l2_unit_rows(d) // keys if score_mode == "l2" else 1
     return FusedSchedule(-(-n // keys), -(-n // FUSED_TILE_QUERIES), batch_heads,

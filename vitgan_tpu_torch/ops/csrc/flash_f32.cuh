@@ -1,13 +1,12 @@
 // Flash attention in f32, `dot`, `l2` and `l2ref` scores, for Hopper (sm_90a):
-// the forward, the dq and dk/dv passes and the single pass, on mma.sync
-// TF32 tensor-core products.  The four entries (flash_attn_fwd_f32.cu,
-// flash_attn_bwd_dq_f32.cu, flash_attn_bwd_dkv_f32.cu and
-// flash_attn_bwd_fused_f32.cu) replace the TPU kernels of
+// the forward and the dq pass on mma.sync TF32 tensor-core products, and the
+// helpers the f32 k-block kernel shares (flash_f32_bwd.cuh: dk/dv and the
+// single pass on TF32 wgmma).  The entries flash_attn_fwd_f32.cu and
+// flash_attn_bwd_dq_f32.cu replace the TPU kernels of
 // vitgan_tpu/ops/attention.py at f32 inputs, which they compute in their
-// input dtype (runtime.compute_dtype=float32):
-// `_flash_kernel` / `_flash_kernel_dma` (pallas_call at :252 and :179),
-// `_flash_bwd_dq_kernel(_dma)` (:701), `_flash_bwd_dkv_kernel(_dma)` (:727)
-// and `_flash_bwd_fused_kernel` (:606).  The bf16 kernels (flash_attn_*.cu,
+// input dtype (runtime.compute_dtype=float32): `_flash_kernel` /
+// `_flash_kernel_dma` (pallas_call at :252 and :179) and
+// `_flash_bwd_dq_kernel(_dma)` (:701).  The bf16 kernels (flash_attn_*.cu,
 // flash_l2*.cuh) stay as they are; the wrappers (ops/attention.py) send each
 // call to one or the other by its dtype.
 //
@@ -21,9 +20,9 @@
 // rounded to TF32 before their products, as the TPU kernels cast them to the
 // input dtype (f32 there; TF32 the product's operand here).
 //
-// Design (a simple kernel first; TF32 wgmma is ROADMAP.md queue 2 item 6p).
-// One block of 4 warps owns 64 rows of one (batch*head), 16 a warp, and
-// streams the other side 64 rows a tile through two cp.async stages (one
+// Design (a simple kernel first; TF32 wgmma for these two is ROADMAP.md queue
+// 2 item 6p).  One block of 4 warps owns 64 queries of one (batch*head), 16
+// a warp, and streams the keys 64 a tile through two cp.async stages (one
 // where a single tile covers n).  Tiles lie in shared memory row-major at a
 // stride of DP + 4 floats (DP: the head width rounded up to 32, zero columns
 // past d; rows past n zero).  mma.sync m16n8k8 TF32 reads A (16 x 8) and B
@@ -35,35 +34,13 @@
 //            permutation of the summed index, the same in A), address
 //            2t S + g, conflict-free for the same reason.  An accumulator
 //            fragment (row g, columns 2t, 2t + 1) is then the A fragment of
-//            the next product as it lies in registers: P in O += P V, P^T in
-//            dV += P^T dO, dS^T in dK += dS^T Q, dS in dQ += dS K.
-// TF32 wgmma reads both shared operands K-major only, and V (P V), dO
-// (P^T dO), Q (dS^T Q) and K (dS K) lie MN-major: here no tile is re-laid.
+//            the next product as it lies in registers: P in O += P V, dS in
+//            dQ += dS K.
 //
 //   forward (q-block): S = Q K^T, online softmax in log2 units, O += P V;
-//   dq (q-block):      S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K;
-//   dk/dv (k-block):   S^T = K Q^T, dP^T = V dO^T, dS^T, dV += P^T dO,
-//                      dK += dS^T Q, 32 queries of the tile at a time;
-//   single pass:       the k-block kernel, plus dQ of each query tile over the
-//                      block's 64 keys from dS in shared memory, added into
-//                      an f32 scratch in key-block order (below).
-// `l2` gradients: dQ = 2 inv (dS K - rowsum(dS) q), dK = 2 inv (dS^T Q -
-// colsum(dS) k) (attention.py:290-292, 316-321, 425-431); `dot`: inv dS K
-// and inv dS^T Q.
-//
-// The single pass's dQ order (ops/attention.fused_dq_schedule at f32 models
-// it).  A head's key blocks add each 64-query tile's dQ in key-block order:
-// an int32 flag per (batch*head, tile), zeroed by the entry, counts the key
-// blocks that have added it.  Thread 0 waits (ld.acquire) until the flag
-// reads the block's key-block index kb, a block barrier hands that on, the
-// block adds (kb 0 stores its tile, the middle ones load, add and store, the
-// last loads, adds, scales and stores dQ; all through the L2), a barrier,
-// and thread 0 stores kb + 1 (st.release).  No float atomics: every dQ
-// element is t0 + t1 + ... in key-block order, so dQ is bit-deterministic,
-// as dK and dV are.  Each block's place is its ticket, atomicAdd on one more
-// int32 after the flags: index = head * kblocks + kb, so a block waits only
-// on the block one index below it, which started before it and holds its SM
-// until it is done: the launch finishes in any dispatch order.
+//   dq (q-block):      S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+// `l2` gradient: dQ = 2 inv (dS K - rowsum(dS) q) (attention.py:290-292,
+// 425-431); `dot`: inv dS K.
 //
 // Bound on this card: 4-byte operands at 494.7 TFLOP/s TF32 against 3.35
 // TB/s.  At the v1 shapes (128 x 4 heads of 32 tokens, Dh 96; 256 x 4 of 50,
@@ -83,7 +60,6 @@ namespace f32 {
 constexpr int ROWS = 64;     // resident rows of a block: 4 warps x 16
 constexpr int TILE = 64;     // streamed rows of a tile
 constexpr int THREADS = 128;
-constexpr int QSUB = 32;     // queries of a k-block product step
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -94,9 +70,6 @@ struct Geo {
   static constexpr int FLOATS = TILE * S;
   static constexpr int NJ = DP / 8;  // 8-column output fragments across the head
 };
-// The single pass's dS tile: [query][key] at stride DS_S, keys permuted
-// within each 8-wide chunk as the MN-major fragments read them (perm_key).
-constexpr int DS_S = TILE + 4;
 
 __device__ inline uint32_t tf32(float x) {
   uint32_t r;
@@ -456,231 +429,6 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         2.f * inv_scale * (acc[i][2 * h + 1] - rs[h] * qr[col + 1]));
       }
       *reinterpret_cast<float2*>(out + col) = r;
-    }
-  }
-}
-
-// --- dk/dv and the single pass (k-block) --------------------------------------
-
-template <int DP, bool FUSED>
-constexpr int kv_floats(int stages) {
-  return (2 + 2 * stages) * Geo<DP>::FLOATS + 2 * TILE + TILE + 2 * TILE +
-         (FUSED ? TILE * DS_S : 0);
-}
-
-// The summed key index of an 8-wide chunk as the MN-major fragments read it:
-// key 2u of the chunk at column u, 2u + 1 at column u + 4.
-__device__ inline int perm_key(int key) { return (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2); }
-
-template <int DP, int MODE, bool FUSED>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_acc,
-                        float* __restrict__ dq, uint32_t* __restrict__ dq_order, int n, int d,
-                        float scale_log2, float inv_scale) {
-  using G = Geo<DP>;
-  constexpr int S = G::S, NJ = G::NJ;
-  constexpr int NC = NJ < 8 ? NJ : 8;  // dQ: 8-column fragments a chunk of at most 64 columns
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + G::FLOATS;
-  float* qd = vs + G::FLOATS;  // stage s: Q at qd + 2 s FLOATS, dO after it
-  const int ntiles = (n + TILE - 1) / TILE, stages = ntiles > 1 ? 2 : 1;
-  float* rows = qd + 2 * stages * G::FLOATS;  // the tile's lse (log2 units) and delta
-  float* kn = rows + 2 * TILE;                // |k|^2 of the block's keys
-  float* qn = kn + TILE;                      // |q|^2 of stage s's queries at qn + s TILE
-  float* dsb = qn + 2 * TILE;                 // FUSED: dS [query][perm_key(key)]
-
-  __shared__ int order_index;
-  const int nkb = (n + ROWS - 1) / ROWS;
-  int kb = blockIdx.x, bh = blockIdx.y;
-  if constexpr (FUSED) {
-    if (threadIdx.x == 0)
-      order_index = nkb > 1 ? (int)atomicAdd(dq_order + (long)(gridDim.x / nkb) * ntiles, 1u)
-                            : (int)blockIdx.x;
-    __syncthreads();
-    bh = order_index / nkb;
-    kb = order_index - bh * nkb;
-  }
-  const int k0 = kb * ROWS;
-  const long base = (long)bh * n * d;
-  const float *qb = q + base, *dob = dout + base;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = 16 * warp;  // the warp's keys in the block (and, FUSED, queries in a tile)
-
-  load_tile<DP>(ks, k + base, k0, n, d);
-  load_tile<DP>(vs, v + base, k0, n, d);
-  load_tile<DP>(qd, qb, 0, n, d);
-  load_tile<DP>(qd + G::FLOATS, dob, 0, n, d);
-  cp_async_commit();
-
-  float dka[NJ][4], dva[NJ][4], kk[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < NJ; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  for (int qt = 0; qt < ntiles; ++qt) {
-    const int s = qt & 1;
-    float* qs = qd + 2 * s * G::FLOATS;
-    float* dos = qs + G::FLOATS;
-    if (qt + 1 < ntiles) {
-      float* nq = qd + 2 * (s ^ 1) * G::FLOATS;
-      load_tile<DP>(nq, qb, (qt + 1) * TILE, n, d);
-      load_tile<DP>(nq + G::FLOATS, dob, (qt + 1) * TILE, n, d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if (qt == 0) {
-      round_tile<DP>(ks);
-      round_tile<DP>(vs);
-    }
-    round_tile<DP>(qs);
-    round_tile<DP>(dos);
-    {
-      const int r = threadIdx.x & (TILE - 1), row = qt * TILE + r;
-      if (threadIdx.x < TILE)
-        rows[r] = row < n ? lse[(long)bh * n + row] * LOG2E : INFINITY;
-      else
-        rows[TILE + r] = row < n ? delta[(long)bh * n + row] : 0.f;
-    }
-    __syncthreads();
-    if constexpr (MODE != kDot) {
-      if (qt == 0) row_norms<DP>(ks, kn);
-      row_norms<DP>(qs, qn + s * TILE);
-      __syncthreads();
-      if (qt == 0) kk[0] = kn[m0 + g], kk[1] = kn[m0 + g + 8];
-    }
-#pragma unroll 1
-    for (int hq = 0; hq < TILE / QSUB; ++hq) {
-      const int c0 = hq * QSUB;  // this step's queries in the tile
-      float sacc[QSUB / 8][4], pacc[QSUB / 8][4];
-      product_kmajor<DP, QSUB / 8>(sacc, ks, m0, qs, c0, g, t);   // S^T = K Q^T
-      product_kmajor<DP, QSUB / 8>(pacc, vs, m0, dos, c0, g, t);  // dP^T = V dO^T
-#pragma unroll
-      for (int j = 0; j < QSUB / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = c0 + 8 * j + 2 * t + (e & 1), h = e >> 1;
-          const bool ok = k0 + m0 + g + 8 * h < n && qt * TILE + qi < n;
-          const float p =
-              ok ? exp2f(score_log2<MODE>(sacc[j][e], qn[s * TILE + qi], kk[h], scale_log2) -
-                         rows[qi])
-                 : 0.f;
-          const float ds = p * (pacc[j][e] - rows[TILE + qi]);
-          sacc[j][e] = p;
-          pacc[j][e] = ds;
-          cs[h] += ds;
-          if constexpr (FUSED) dsb[qi * DS_S + perm_key(m0 + g + 8 * h)] = ds;
-        }
-        uint32_t a[4];
-        frag_a_acc(a, sacc[j]);
-        product_mnmajor<DP, NJ>(dva, a, dos, c0 + 8 * j, 0, g, t);  // dV += P^T dO
-        frag_a_acc(a, pacc[j]);
-        product_mnmajor<DP, NJ>(dka, a, qs, c0 + 8 * j, 0, g, t);   // dK += dS^T Q
-      }
-    }
-
-    if constexpr (FUSED) {
-      // dQ of the tile's queries m0 .. m0 + 15 over the block's 64 keys, in
-      // column chunks of 64, added in key-block order (the head note)
-      __syncthreads();  // every warp's dS
-      float rsum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float* p = dsb + (m0 + g) * DS_S + 8 * c + t;
-        rsum[0] += p[0] + p[4];
-        rsum[1] += p[8 * DS_S] + p[8 * DS_S + 4];
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
-        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
-      }
-      uint32_t* flag = dq_order + (long)bh * ntiles + qt;
-#pragma unroll 1
-      for (int c0 = 0; c0 < NJ; c0 += NC) {
-        float qa[NC][4];
-#pragma unroll
-        for (int i = 0; i < NC; ++i) qa[i][0] = qa[i][1] = qa[i][2] = qa[i][3] = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float* p = dsb + (m0 + g) * DS_S + 8 * c + t;
-          const uint32_t a[4] = {tf32(p[0]), tf32(p[8 * DS_S]), tf32(p[4]), tf32(p[8 * DS_S + 4])};
-          product_mnmajor<DP, NC>(qa, a, ks, 8 * c, 8 * c0, g, t);  // dQ = dS K
-        }
-        if (c0 == 0 && nkb > 1 && kb > 0) {  // k-block kb - 1 has added the tile
-          if (threadIdx.x == 0)
-            while (hopper::ld_acquire_gpu(flag) < (uint32_t)kb) {
-            }
-          __syncthreads();
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = qt * TILE + m0 + g + 8 * h;
-          if (row >= n) continue;
-          const float* qr = qs + (m0 + g + 8 * h) * S;
-          const long off = base + (long)row * d;
-#pragma unroll
-          for (int i = 0; i < NC; ++i) {
-            const int col = 8 * (c0 + i) + 2 * t;
-            if (col >= d) continue;
-            float2 x = make_float2(qa[i][2 * h], qa[i][2 * h + 1]);
-            if constexpr (MODE != kDot) {
-              x.x -= rsum[h] * qr[col];
-              x.y -= rsum[h] * qr[col + 1];
-            }
-            if (kb > 0) {
-              const float2 y = __ldcg(reinterpret_cast<const float2*>(dq_acc + off + col));
-              x.x = y.x + x.x;
-              x.y = y.y + x.y;
-            }
-            if (kb == nkb - 1) {
-              const float sc = MODE == kDot ? inv_scale : 2.f * inv_scale;
-              *reinterpret_cast<float2*>(dq + off + col) = make_float2(sc * x.x, sc * x.y);
-            } else {
-              __stcg(reinterpret_cast<float2*>(dq_acc + off + col), x);
-            }
-          }
-        }
-      }
-      if (kb < nkb - 1) {  // k-block kb + 1 may add the tile
-        __syncthreads();
-        if (threadIdx.x == 0) {
-          __threadfence();
-          hopper::st_release_gpu(flag, kb + 1);
-        }
-      }
-    }
-    __syncthreads();  // the stage, the rows and dS are free
-  }
-
-  // dK, dV: keys < n, columns < d
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 1);
-    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 2);
-    const int key = k0 + m0 + g + 8 * h;
-    if (key >= n) continue;
-    const long off = base + (long)key * d;
-    const float* kr = ks + (m0 + g + 8 * h) * S;
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      const int col = 8 * i + 2 * t;
-      if (col >= d) continue;
-      float2 r;
-      if constexpr (MODE == kDot) {
-        r = make_float2(inv_scale * dka[i][2 * h], inv_scale * dka[i][2 * h + 1]);
-      } else {
-        r = make_float2(2.f * inv_scale * (dka[i][2 * h] - cs[h] * kr[col]),
-                        2.f * inv_scale * (dka[i][2 * h + 1] - cs[h] * kr[col + 1]));
-      }
-      *reinterpret_cast<float2*>(dk + off + col) = r;
-      *reinterpret_cast<float2*>(dv + off + col) = make_float2(dva[i][2 * h], dva[i][2 * h + 1]);
     }
   }
 }

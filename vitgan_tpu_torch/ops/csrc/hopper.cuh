@@ -2,7 +2,7 @@
 // (wgrad_gemm.cu, flash_attn_bwd.cuh, flash_attn_fwd.cu, flash_attn_bwd_dq.cu,
 // ln_mlp_fwd.cu, ln_qkv_fwd.cu, megablock_bwd_mlp.cu, megablock_bwd_ln1.cu,
 // flash_l2.cuh and its `l2` kernels, tile_f32.cuh's TF32 tile,
-// wgrad_gemm_f32.cu): mbarrier
+// wgrad_gemm_f32.cu, flash_f32_bwd.cuh): mbarrier
 // rings fed by TMA (tensor or 1-D bulk copies) or by cp.async, TMA tensor and
 // 1-D bulk stores, wgmma descriptors and products (bf16, and TF32 on f32
 // bits), warpgroup fences, acquire/release flags, register hand-over and the
@@ -542,6 +542,135 @@ __device__ inline void wgmma_tf32_rs128(float (&d)[64], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// wgmma_tf32_ss128's m64n32k8 (both operands from shared memory, K-major).
+__device__ inline void wgmma_tf32_ss32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15} "
+      ", %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// wgmma_tf32_rs128's m64n32k8 (A from registers, B from shared memory K-major).
+__device__ inline void wgmma_tf32_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15} "
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// wgmma_tf32_ss128's m64n64k8 (both operands from shared memory, K-major).
+__device__ inline void wgmma_tf32_ss64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+      ", %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// wgmma_tf32_rs128's m64n64k8 (A from registers, B from shared memory K-major).
+__device__ inline void wgmma_tf32_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// wgmma_tf32_ss128's m64n96k8 (both operands from shared memory, K-major).
+__device__ inline void wgmma_tf32_ss96(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47} "
+      ", %48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// wgmma_tf32_rs128's m64n96k8 (A from registers, B from shared memory K-major).
+__device__ inline void wgmma_tf32_rs96(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47} "
+      ", {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// TF32 m64nNk8 products (the accumulator holds N / 2 floats a thread), N =
+// 32, 64, 96 or 128: both operands from shared memory (ss), or A from
+// registers (rs), as wgmma_tf32_ss128 and wgmma_tf32_rs128.
+template <int N>
+__device__ inline void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_tf32_ss32(d, a, b, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_tf32_ss64(d, a, b, scale_d);
+  } else if constexpr (N == 96) {
+    wgmma_tf32_ss96(d, a, b, scale_d);
+  } else {
+    static_assert(N == 128, "wgmma_tf32_ss takes N = 32, 64, 96 or 128");
+    wgmma_tf32_ss128(d, a, b, scale_d);
+  }
+}
+template <int N>
+__device__ inline void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                     int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_tf32_rs32(d, a, b, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_tf32_rs64(d, a, b, scale_d);
+  } else if constexpr (N == 96) {
+    wgmma_tf32_rs96(d, a, b, scale_d);
+  } else {
+    static_assert(N == 128, "wgmma_tf32_rs takes N = 32, 64, 96 or 128");
+    wgmma_tf32_rs128(d, a, b, scale_d);
+  }
+}
+
 // m64nNk16 products (the accumulator holds N / 2 floats a thread): both
 // operands from shared memory (N = 64, 128, 192 or 256), or A from registers
 // (N = 64 or 128).
@@ -634,6 +763,16 @@ inline int tmap_2d_f32(CUtensorMap* map, const void* base, int rows, int cols, i
 }
 inline int tmap_2d_tf32(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
   return tmap_2d_f32(map, base, rows, cols, box_rows, CU_TENSOR_MAP_DATA_TYPE_TFLOAT32);
+}
+// The TFLOAT32 tensor map of a row-major (planes, rows, cols) f32 tensor, box
+// 32 columns x box_rows rows of one plane, 128-byte swizzle: rows past `rows`
+// and columns past `cols` land as zeros, never another plane's.
+inline int tmap_3d_tf32(CUtensorMap* map, const void* base, int planes, int rows, int cols,
+                        int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)planes};
+  const uint64_t strides[2] = {(uint64_t)cols * 4, (uint64_t)rows * cols * 4};
+  const uint32_t box[3] = {32, (uint32_t)box_rows, 1};
+  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_TFLOAT32, base, 3, dims, strides, box);
 }
 
 // The current device's SM count (the persistent grids' size), read once.
